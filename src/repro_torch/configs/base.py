@@ -1,0 +1,24 @@
+"""Run configuration (counterpart of ``repro.configs.base.FLRunConfig``)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+__all__ = ["FLRunConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FLRunConfig:
+    """One decentralized-FL training run (paper Algorithm 1 hyperparams).
+    The reference's fields and defaults, less its exact-wire and
+    multi-pod knobs (``wire_dtype``, ``pod_gossip_every``), which belong
+    to engines the port does not have yet."""
+
+    algorithm: str = "dsgt"  # dsgd | dsgt
+    q: int = 1  # local steps per comm round (paper: 100)
+    topology: str = "ring"  # ring | torus | complete | star | hospital20
+    n_nodes: int = 16
+    batch_per_node: int = 16  # m in the paper (samples per local step)
+    alpha0: float = 0.02  # paper: alpha^r = 0.02/sqrt(r)
+    schedule: str = "inv_sqrt"  # inv_sqrt | constant
+    seed: int = 0

@@ -1,0 +1,21 @@
+"""Device resolution shared by every entry point of the port."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller
+    names another one. Asking for ``cuda`` (explicitly or by default) on
+    a machine without a usable card raises ``RuntimeError``; nothing
+    silently drops to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev

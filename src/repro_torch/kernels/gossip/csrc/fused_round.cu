@@ -1,0 +1,298 @@
+// Round megakernels for Hopper (sm_90a): one launch is one whole
+// communication round of the fused engine -- local update + int8
+// difference-coded quantization with error feedback + the W mix.
+//
+// Replaces the TPU kernels
+//   src/repro/kernels/gossip/gossip.py:421  fused_round_pallas     (DSGD)
+//   src/repro/kernels/gossip/gossip.py:476  fused_round_gt_pallas  (DSGT)
+// and is held bit for bit (recon', res', scales) and within fp32
+// summation order (mixed) to the PyTorch twins in ../ref.py.
+//
+// Bound: HBM bytes. DSGD reads 4 and writes 3 (n, t) fp32 buffers (plus
+// the (n, t/chunk) scales and the n x n weights); DSGT reads 8 and writes
+// 6. The n x n contraction is 2 n^2 t flops per wire, well under the fp32
+// peak for the node counts the engine runs. At the main-path size
+// (n = 20, t = 1536: about 0.86 MB moved by DSGD and 1.72 MB by DSGT, on
+// 3 blocks) the kernels are launch-bound, not bandwidth-bound.
+//
+// Design (simple and right first):
+//   * One block owns one (n, chunk) column chunk with ALL n rows: the
+//     per-(row, chunk) scale needs the whole row of the chunk, and the mix
+//     needs every row of a column. Blocks share nothing and run in any
+//     order (the TPU grid's sequential order is not relied on).
+//   * One warp per row computes the payload into a shared tile and the
+//     row's max |payload| by a shuffle reduction (|payload| >= 0, so the
+//     max is exact in any order), then quantizes the row in place and
+//     leaves recon' (or, with stale_mix, the input recon) in the tile.
+//   * The mix reads the tile and W_off from shared memory; each thread
+//     accumulates 4 rows of one column. Half-updated values (h, t_half)
+//     are recomputed from global memory instead of being kept on chip.
+//   * DSGT runs the tracker wire and then the parameter wire through the
+//     same tile, so shared memory holds one n x chunk tile at a time
+//     (dynamic shared memory; the wrapper refuses tiles over 227 KB).
+//   * Rounding matches the twin exactly: every update/EF step is an
+//     explicitly rounded intrinsic (no FMA contraction; the build also
+//     passes -fmad=false), IEEE division (never a reciprocal), rintf
+//     (round half to even, like torch.round), scale = max / 127 first and
+//     safe = scale > 0 ? scale : 1 after.
+// Faster designs -- TMA loads, more chunks or rows per block, a CUDA graph
+// around the whole round -- are later work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kRowsPerThread = 4;
+
+// h = x - alpha * g (the DSGD local update, and DSGT's parameter step).
+struct Update {
+  const float* __restrict__ x;
+  const float* __restrict__ g;
+  float alpha;
+  __device__ float operator()(size_t o) const {
+    return __fsub_rn(x[o], __fmul_rn(alpha, g[o]));
+  }
+};
+
+// t_half = (t + g) - g_prev (the DSGT tracker innovation).
+struct TrackerHalf {
+  const float* __restrict__ t;
+  const float* __restrict__ g;
+  const float* __restrict__ gp;
+  __device__ float operator()(size_t o) const {
+    return __fsub_rn(__fadd_rn(t[o], g[o]), gp[o]);
+  }
+};
+
+// h = x - alpha * t_half (the DSGT parameter step against the tracker).
+struct TrackedUpdate {
+  const float* __restrict__ x;
+  TrackerHalf th;
+  float alpha;
+  __device__ float operator()(size_t o) const {
+    return __fsub_rn(x[o], __fmul_rn(alpha, th(o)));
+  }
+};
+
+struct Geometry {
+  int n, t, chunk, n_pad, n_chunks;
+};
+
+// Copy W_off (zero-padded to n_pad rows) and w_self into shared memory.
+__device__ void load_weights(const float* __restrict__ w_off,
+                             const float* __restrict__ w_self, float* woff_s,
+                             float* wself_s, const Geometry& geo) {
+  for (int k = threadIdx.x; k < geo.n_pad * geo.n; k += blockDim.x) {
+    woff_s[k] = k < geo.n * geo.n ? w_off[k] : 0.f;
+  }
+  for (int i = threadIdx.x; i < geo.n_pad; i += blockDim.x) {
+    wself_s[i] = i < geo.n ? w_self[i] : 0.f;
+  }
+}
+
+// One wire over this block's column chunk: payload, scale, quantize,
+// recon'/res' out, then mixed = W_off @ nbr + w_self * src.
+template <bool EF, bool DC, bool STALE, class Src>
+__device__ void wire(const Src& src, const float* __restrict__ recon,
+                     const float* __restrict__ res, float* __restrict__ mixed,
+                     float* __restrict__ new_recon, float* __restrict__ new_res,
+                     float* __restrict__ scales, const float* woff_s,
+                     const float* wself_s, float* tile, const Geometry& geo) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int n_warps = blockDim.x / 32;
+  const int chunk = geo.chunk;
+  const int ci = blockIdx.x;
+  const size_t c0 = static_cast<size_t>(ci) * chunk;
+
+  for (int i = warp; i < geo.n; i += n_warps) {
+    const size_t row = static_cast<size_t>(i) * geo.t + c0;
+    float* trow = tile + static_cast<size_t>(i) * chunk;
+    float m = 0.f;
+    for (int c = lane; c < chunk; c += 32) {
+      const float base = DC ? recon[row + c] : 0.f;
+      float p = __fsub_rn(src(row + c), base);
+      if (EF) p = __fadd_rn(p, res[row + c]);
+      trow[c] = p;
+      m = fmaxf(m, fabsf(p));
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    }
+    const float scale = __fdiv_rn(m, 127.f);
+    const float safe = scale > 0.f ? scale : 1.f;
+    if (lane == 0) scales[static_cast<size_t>(i) * geo.n_chunks + ci] = scale;
+    for (int c = lane; c < chunk; c += 32) {
+      const float p = trow[c];
+      const float q = fminf(fmaxf(rintf(__fdiv_rn(p, safe)), -127.f), 127.f);
+      const float dq = __fmul_rn(q, scale);
+      const float base = DC ? recon[row + c] : 0.f;
+      const float nr = __fadd_rn(base, dq);
+      new_recon[row + c] = nr;
+      new_res[row + c] = EF ? __fsub_rn(p, dq) : res[row + c];
+      trow[c] = STALE ? recon[row + c] : nr;
+    }
+  }
+  __syncthreads();
+
+  const int groups = geo.n_pad / kRowsPerThread;
+  for (int idx = threadIdx.x; idx < groups * chunk; idx += blockDim.x) {
+    const int c = idx % chunk;
+    const int i0 = (idx / chunk) * kRowsPerThread;
+    float acc[kRowsPerThread];
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) acc[r] = 0.f;
+    for (int j = 0; j < geo.n; ++j) {
+      const float v = tile[static_cast<size_t>(j) * chunk + c];
+#pragma unroll
+      for (int r = 0; r < kRowsPerThread; ++r) {
+        acc[r] = fmaf(woff_s[(i0 + r) * geo.n + j], v, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) {
+      const int i = i0 + r;
+      if (i < geo.n) {
+        const size_t o = static_cast<size_t>(i) * geo.t + c0 + c;
+        mixed[o] = __fadd_rn(acc[r], __fmul_rn(wself_s[i], src(o)));
+      }
+    }
+  }
+  __syncthreads();  // the next wire reuses the tile
+}
+
+template <bool EF, bool DC, bool STALE>
+__global__ void __launch_bounds__(kThreads)
+fused_round_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ recon, const float* __restrict__ res,
+                   const float* __restrict__ w_off,
+                   const float* __restrict__ w_self, float alpha,
+                   float* __restrict__ mixed, float* __restrict__ new_recon,
+                   float* __restrict__ new_res, float* __restrict__ scales,
+                   Geometry geo) {
+  extern __shared__ float smem[];
+  float* tile = smem;
+  float* woff_s = tile + static_cast<size_t>(geo.n) * geo.chunk;
+  float* wself_s = woff_s + geo.n_pad * geo.n;
+  load_weights(w_off, w_self, woff_s, wself_s, geo);
+  __syncthreads();
+  wire<EF, DC, STALE>(Update{x, g, alpha}, recon, res, mixed, new_recon,
+                      new_res, scales, woff_s, wself_s, tile, geo);
+}
+
+template <bool EF, bool DC, bool STALE>
+__global__ void __launch_bounds__(kThreads)
+fused_round_gt_kernel(const float* __restrict__ x, const float* __restrict__ t,
+                      const float* __restrict__ g, const float* __restrict__ gp,
+                      const float* __restrict__ recon_x,
+                      const float* __restrict__ res_x,
+                      const float* __restrict__ recon_t,
+                      const float* __restrict__ res_t,
+                      const float* __restrict__ w_off,
+                      const float* __restrict__ w_self, float alpha,
+                      float* __restrict__ mixed_x, float* __restrict__ mixed_t,
+                      float* __restrict__ new_recon_x,
+                      float* __restrict__ new_res_x,
+                      float* __restrict__ new_recon_t,
+                      float* __restrict__ new_res_t,
+                      float* __restrict__ scales_x,
+                      float* __restrict__ scales_t, Geometry geo) {
+  extern __shared__ float smem[];
+  float* tile = smem;
+  float* woff_s = tile + static_cast<size_t>(geo.n) * geo.chunk;
+  float* wself_s = woff_s + geo.n_pad * geo.n;
+  load_weights(w_off, w_self, woff_s, wself_s, geo);
+  __syncthreads();
+  const TrackerHalf th{t, g, gp};
+  wire<EF, DC, STALE>(th, recon_t, res_t, mixed_t, new_recon_t, new_res_t,
+                      scales_t, woff_s, wself_s, tile, geo);
+  wire<EF, DC, STALE>(TrackedUpdate{x, th, alpha}, recon_x, res_x, mixed_x,
+                      new_recon_x, new_res_x, scales_x, woff_s, wself_s, tile,
+                      geo);
+}
+
+Geometry make_geometry(int n, int t, int chunk) {
+  const int n_pad = (n + kRowsPerThread - 1) / kRowsPerThread * kRowsPerThread;
+  return Geometry{n, t, chunk, n_pad, t / chunk};
+}
+
+size_t smem_bytes(const Geometry& geo) {
+  return sizeof(float) * (static_cast<size_t>(geo.n) * geo.chunk +
+                          static_cast<size_t>(geo.n_pad) * geo.n + geo.n_pad);
+}
+
+template <class Kernel, class... Args>
+cudaError_t launch(Kernel kernel, const Geometry& geo, cudaStream_t stream,
+                   Args... args) {
+  const size_t smem = smem_bytes(geo);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<geo.n_chunks, kThreads, smem, stream>>>(args..., geo);
+  return cudaGetLastError();
+}
+
+// The 8 flag combinations of one kernel template, indexed ef<<2|dc<<1|stale.
+#define FLAG_TABLE(K)                                                   \
+  { K<false, false, false>, K<false, false, true>, K<false, true, false>, \
+    K<false, true, true>,   K<true, false, false>, K<true, false, true>,  \
+    K<true, true, false>,   K<true, true, true> }
+
+int flag_index(int ef, int dc, int stale) {
+  return (ef ? 4 : 0) | (dc ? 2 : 0) | (stale ? 1 : 0);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one block needs (what the wrapper checks against
+// the 227 KB per-block limit before launching).
+size_t fused_round_smem_bytes(int n, int chunk) {
+  return smem_bytes(make_geometry(n, chunk, chunk));
+}
+
+const char* gossip_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Each entry point launches on `stream` and returns cudaGetLastError().
+int fused_round_launch(const float* x, const float* g, const float* recon,
+                       const float* res, const float* w_off,
+                       const float* w_self, float alpha, float* mixed,
+                       float* new_recon, float* new_res, float* scales, int n,
+                       int t, int chunk, int ef, int dc, int stale,
+                       void* stream) {
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      const float*, const float*, float, float*, float*, float*,
+                      float*, Geometry);
+  static const Fn table[8] = FLAG_TABLE(fused_round_kernel);
+  return launch(table[flag_index(ef, dc, stale)], make_geometry(n, t, chunk),
+                static_cast<cudaStream_t>(stream), x, g, recon, res, w_off,
+                w_self, alpha, mixed, new_recon, new_res, scales);
+}
+
+int fused_round_gt_launch(const float* x, const float* t, const float* g,
+                          const float* gp, const float* recon_x,
+                          const float* res_x, const float* recon_t,
+                          const float* res_t, const float* w_off,
+                          const float* w_self, float alpha, float* mixed_x,
+                          float* mixed_t, float* new_recon_x, float* new_res_x,
+                          float* new_recon_t, float* new_res_t, float* scales_x,
+                          float* scales_t, int n, int tot, int chunk, int ef,
+                          int dc, int stale, void* stream) {
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      const float*, const float*, const float*, const float*,
+                      const float*, const float*, float, float*, float*, float*,
+                      float*, float*, float*, float*, float*, Geometry);
+  static const Fn table[8] = FLAG_TABLE(fused_round_gt_kernel);
+  return launch(table[flag_index(ef, dc, stale)], make_geometry(n, tot, chunk),
+                static_cast<cudaStream_t>(stream), x, t, g, gp, recon_x, res_x,
+                recon_t, res_t, w_off, w_self, alpha, mixed_x, mixed_t,
+                new_recon_x, new_res_x, new_recon_t, new_res_t, scales_x,
+                scales_t);
+}
+
+}  // extern "C"

@@ -10,3 +10,8 @@ def pytest_configure(config):
         "checks (e.g. the gossip HLO collective count) stay in the fast tier "
         "so CI always asserts them.",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's hand-written kernels); "
+        "skips without one, decided inside the test's fixture",
+    )

@@ -1,0 +1,290 @@
+"""The round megakernels of the PyTorch port (``repro_torch.kernels.gossip``).
+
+* Their plain PyTorch twins against the JAX package's jnp oracles and its
+  Pallas kernels (interpret mode on the CPU, as the JAX suite runs them),
+  from identical numpy inputs.
+* The CUDA kernels against the twins on the card (``cuda`` marker: they
+  skip without one; ``python -m pytest -q -m cuda tests/test_torch_gossip_kernels.py``
+  runs them there, where JAX is not needed).
+* The wrappers' refusals.
+
+Tolerances: ``scales``, ``recon'`` and ``res'`` are elementwise chains of
+rounded fp32 operations in the same order on both sides, held to 1e-6
+(bitwise on the card). ``mixed`` holds the n x n contraction, which
+sums in another order: it gets the reference suite's own ``ATOL`` =
+1e-5 x max(scale, 1) (tests/test_megakernel.py).
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.topology import mixing_matrix  # noqa: E402
+from repro_torch.kernels.gossip import ops, ref  # noqa: E402
+
+ATOL = 1e-5
+STATE_ATOL = 1e-6
+FLAGS = list(itertools.product([True, False], repeat=3))  # ef, dc, stale
+DSGD_NAMES = ("mixed", "recon", "res", "scales")
+DSGT_NAMES = ("mixed_x", "mixed_t", "recon_x", "res_x", "recon_t", "res_t",
+              "scales_x", "scales_t")
+
+
+def _one_thread():
+    """The suite runs several pytest workers; one intra-op thread each
+    keeps them from oversubscribing the cores."""
+    torch.set_num_threads(1)
+
+
+_one_thread()
+
+
+@pytest.fixture(scope="module")
+def jax_gossip():
+    """The JAX package's oracles and Pallas dispatch (imported here, not
+    at module level, so the card-only tests run where JAX is absent)."""
+    pytest.importorskip("jax")
+    from repro.kernels.gossip import ops as j_ops
+    from repro.kernels.gossip import ref as j_ref
+
+    return j_ref, j_ops
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU "
+                    "mode (python3 chip_smoke.py runs the same checks there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _weights(n, topo="ring"):
+    w = mixing_matrix(topo, n)
+    return (np.asarray(w - np.diag(np.diag(w)), np.float32),
+            np.asarray(np.diag(w), np.float32))
+
+
+def _inputs(n, t, wires, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    mults = [1.0, 1.0, 1.0, 0.1] if wires == 1 else [1.0, 0.3, 0.5, 0.5, 1.0, 0.1, 1.0, 0.1]
+    return [np.asarray(scale * m * rng.normal(size=(n, t)), np.float32) for m in mults]
+
+
+def _t(arrays, device="cpu"):
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+def _compare(got, want, names, mixed_tol, n_mixed):
+    for i, (name, a, b) in enumerate(zip(names, got, want)):
+        a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        b = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+        assert a.shape == b.shape, name
+        tol = mixed_tol if i < n_mixed else STATE_ATOL
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=name)
+
+
+def _jnp(arrays):
+    import jax.numpy as jnp
+
+    return [jnp.asarray(a) for a in arrays]
+
+
+# ---------------------------------------------------------------------------
+# twins vs the JAX package (CPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [8, 20, 64])
+@pytest.mark.parametrize("chunk", [32, 128, 512])
+def test_fused_round_twin_matches_jnp_oracle(jax_gossip, n, chunk):
+    """DSGD twin == ``repro.kernels.gossip.ref.fused_round_ref`` for every
+    flag combination (error feedback, difference coding, stale mix)."""
+    j_ref, _ = jax_gossip
+    t = 3 * chunk
+    w_off, w_self = _weights(n)
+    alpha = np.float32(0.05)
+    for k, (ef, dc, stale) in enumerate(FLAGS):
+        scale = 10.0 ** (k % 3 - 1)
+        bufs = _inputs(n, t, 1, seed=100 * n + chunk + k, scale=scale)
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  stale_mix=stale)
+        got = ref.fused_round_ref(*_t(bufs + [w_off, w_self]), alpha, **kw)
+        want = j_ref.fused_round_ref(*_jnp(bufs + [w_off, w_self]), alpha, **kw)
+        _compare(got, want, DSGD_NAMES, ATOL * max(scale, 1.0), 1)
+
+
+@pytest.mark.parametrize("n", [8, 20, 64])
+@pytest.mark.parametrize("chunk", [32, 128, 512])
+def test_fused_round_gt_twin_matches_jnp_oracle(jax_gossip, n, chunk):
+    """DSGT twin == ``repro.kernels.gossip.ref.fused_round_gt_ref`` on all
+    eight outputs for every flag combination."""
+    j_ref, _ = jax_gossip
+    t = 2 * chunk
+    w_off, w_self = _weights(n)
+    alpha = np.float32(0.02)
+    for k, (ef, dc, stale) in enumerate(FLAGS):
+        bufs = _inputs(n, t, 2, seed=7 * n + chunk + k)
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  stale_mix=stale)
+        got = ref.fused_round_gt_ref(*_t(bufs + [w_off, w_self]), alpha, **kw)
+        want = j_ref.fused_round_gt_ref(*_jnp(bufs + [w_off, w_self]), alpha, **kw)
+        _compare(got, want, DSGT_NAMES, ATOL, 2)
+
+
+# (n, t, chunk, ef, dc, stale): the grid of tests/test_megakernel.py
+# plus the main path's (20, 1536, 512) and the stale-mix variant
+PALLAS_CASES = [
+    (16, 256, 64, True, True, False),
+    (8, 512, 128, True, False, False),
+    (64, 1024, 256, True, True, False),
+    (8, 96, 32, False, True, False),
+    (20, 1536, 512, True, True, False),
+    (20, 1024, 512, True, True, True),
+]
+
+
+@pytest.mark.parametrize("case", PALLAS_CASES)
+def test_fused_round_twin_matches_pallas(jax_gossip, case):
+    """DSGD twin == the Pallas kernel ``fused_round_pallas`` (through
+    ``repro.kernels.gossip.ops``, interpret mode on the CPU)."""
+    _, j_ops = jax_gossip
+    n, t, chunk, ef, dc, stale = case
+    w_off, w_self = _weights(n)
+    bufs = _inputs(n, t, 1, seed=n + chunk)
+    kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+              stale_mix=stale)
+    alpha = np.float32(0.05)
+    got = ops.fused_round(*_t(bufs + [w_off, w_self]), alpha, **kw)
+    want = j_ops.fused_round(*_jnp(bufs + [w_off, w_self]), alpha, **kw)
+    _compare(got, want, DSGD_NAMES, ATOL, 1)
+
+
+@pytest.mark.parametrize("case", PALLAS_CASES)
+def test_fused_round_gt_twin_matches_pallas(jax_gossip, case):
+    """DSGT twin == the Pallas kernel ``fused_round_gt_pallas``."""
+    _, j_ops = jax_gossip
+    n, t, chunk, ef, dc, stale = case
+    w_off, w_self = _weights(n)
+    bufs = _inputs(n, t, 2, seed=3 * n + chunk)
+    kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+              stale_mix=stale)
+    alpha = np.float32(0.02)
+    got = ops.fused_round_gt(*_t(bufs + [w_off, w_self]), alpha, **kw)
+    want = j_ops.fused_round_gt(*_jnp(bufs + [w_off, w_self]), alpha, **kw)
+    _compare(got, want, DSGT_NAMES, ATOL, 2)
+
+
+def test_all_zero_chunk_gets_zero_scale_and_no_step():
+    """A (row, chunk) whose payload is exactly zero takes ``safe = 1``:
+    scale 0, q 0, recon and residual unchanged."""
+    n, t, chunk = 7, 384, 128
+    w_off, w_self = _weights(n, "complete")
+    x, g, recon, res = _t(_inputs(n, t, 1, seed=5))
+    for b in (x, g, recon, res):
+        b[3, chunk:2 * chunk] = 0.0
+    mixed, nrecon, nres, scales = ops.fused_round(
+        x, g, recon, res, *_t([w_off, w_self]), np.float32(0.02), scale_chunk=chunk)
+    assert float(scales[3, 1]) == 0.0
+    assert torch.all(nrecon[3, chunk:2 * chunk] == 0)
+    assert torch.all(nres[3, chunk:2 * chunk] == 0)
+    assert torch.all(scales.flatten()[torch.arange(scales.numel()) != 3 * 3 + 1] > 0)
+
+
+def test_wrappers_count_only_kernel_launches():
+    """CPU tensors run the twin; the launch counters count kernel
+    launches only, so they stay put."""
+    n, t = 8, 64
+    bufs = _t(_inputs(n, t, 2, seed=0))
+    w = _t(_weights(n))
+    before = (ops.fused_round.launches, ops.fused_round_gt.launches)
+    ops.fused_round(*bufs[:4], *w, 0.1, scale_chunk=32)
+    ops.fused_round_gt(*bufs, *w, 0.1, scale_chunk=32)
+    assert (ops.fused_round.launches, ops.fused_round_gt.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# refusals
+# ---------------------------------------------------------------------------
+
+
+def _dsgd_args(n=8, t=64):
+    return _t(_inputs(n, t, 1, seed=1)) + _t(_weights(n)) + [np.float32(0.1)]
+
+
+def test_refuses_topk_and_dp():
+    args = _dsgd_args()
+    for fn in (ops.fused_round, ref.fused_round_ref):
+        with pytest.raises(NotImplementedError, match="top-k"):
+            fn(*args, scale_chunk=32, topk=4)
+    with pytest.raises(NotImplementedError, match="privacy"):
+        ops.fused_round(*args, scale_chunk=32, dp_clip=1.0,
+                        dp_noise=torch.zeros(8, 64))
+    gt = _t(_inputs(8, 64, 2, seed=2)) + _t(_weights(8)) + [np.float32(0.1)]
+    for fn in (ops.fused_round_gt, ref.fused_round_gt_ref):
+        with pytest.raises(NotImplementedError, match="top-k"):
+            fn(*gt, scale_chunk=32, topk=4)
+
+
+def test_refuses_wrong_dtype_layout_and_chunk():
+    x, g, recon, res, w_off, w_self, a = _dsgd_args()
+    with pytest.raises(TypeError, match="float32"):
+        ops.fused_round(x.double(), g, recon, res, w_off, w_self, a, scale_chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_round(x.t().contiguous().t(), g, recon, res, w_off, w_self, a,
+                        scale_chunk=32)
+    with pytest.raises(ValueError, match="multiple of scale_chunk"):
+        ops.fused_round(x, g, recon, res, w_off, w_self, a, scale_chunk=48)
+    with pytest.raises(ValueError, match="expected"):
+        ops.fused_round(x, g[:, :32].contiguous(), recon, res, w_off, w_self, a,
+                        scale_chunk=32)
+    with pytest.raises(ValueError, match="do not match"):
+        ops.fused_round(x, g, recon, res, w_off[:4, :4].contiguous(), w_self, a,
+                        scale_chunk=32)
+
+
+# ---------------------------------------------------------------------------
+# kernels vs twins on the card
+# ---------------------------------------------------------------------------
+
+# (n, t, chunk, topology): the main path, a small ragged shape, n = 64
+CUDA_SHAPES = [(20, 1536, 512, "hospital20"), (7, 384, 128, "complete"),
+               (64, 4096, 512, "torus:8x8")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
+@pytest.mark.parametrize("wires", [1, 2])
+def test_kernel_matches_twin_on_card(cuda, shape, wires):
+    """recon', res' and scales bitwise; mixed within the reference's
+    ATOL; one launch counted per call."""
+    n, t, chunk, topo = shape
+    w = _t(_weights(n, topo), cuda)
+    kernel, twin = ((ops.fused_round, ref.fused_round_ref) if wires == 1 else
+                    (ops.fused_round_gt, ref.fused_round_gt_ref))
+    for k, (ef, dc, stale) in enumerate(FLAGS):
+        bufs = _t(_inputs(n, t, wires, seed=k), cuda)
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  stale_mix=stale)
+        before = kernel.launches
+        got = kernel(*bufs, *w, np.float32(0.02), **kw)
+        want = twin(*bufs, *w, np.float32(0.02), **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for i, (a, b) in enumerate(zip(got, want)):
+            if i < wires:
+                assert float((a - b).abs().max()) <= ATOL
+            else:
+                assert torch.equal(a, b), (i, kw)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_tile_over_shared_memory(cuda):
+    n, chunk = 128, 512  # 256 KB tile
+    bufs = _t(_inputs(n, chunk, 1, seed=0), cuda)
+    w = _t(_weights(n), cuda)
+    with pytest.raises(ValueError, match="shared"):
+        ops.fused_round(*bufs, *w, np.float32(0.1), scale_chunk=chunk)
