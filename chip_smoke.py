@@ -73,14 +73,9 @@ ALPHA = np.float32(0.02)
 # (1536 int8 + 3 fp32 scales)); DSGD ships one wire
 WIRE_DSGT, WIRE_DSGD = 167_184, 83_592
 
-# Published peaks (NVIDIA data sheets, dense): HBM bytes/s and fp32
-# (non-tensor-core) flop/s, keyed by a substring of the card's name.
-PEAKS = [
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H200", 4.8e12, 67e12),
-    ("H100", 3.35e12, 67e12),  # SXM
-]
+# Published peaks of the H100 SXM (NVIDIA data sheet): HBM bytes/s and
+# fp32 operations/s outside the tensor cores, at its full 700 W limit.
+HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12
 
 
 def log(msg: str) -> None:
@@ -95,13 +90,6 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def peaks(name: str):
-    for key, hbm, fp32 in PEAKS:
-        if key in name:
-            return hbm, fp32
-    raise RuntimeError(f"no published peaks for card {name!r}")
-
-
 def round_bytes(n: int, t: int, chunk: int, wires: int) -> int:
     """HBM bytes one round kernel must move: each (n, t) input read once
     (DSGD 4, DSGT 8), each output written once (3 / 6), the weights, the
@@ -110,10 +98,17 @@ def round_bytes(n: int, t: int, chunk: int, wires: int) -> int:
     return 4 * (n * t * bufs + n * n + n + wires * n * (t // chunk) + 1)
 
 
-def round_flops(n: int, t: int, wires: int) -> int:
-    """fp32 operations of one round kernel: the n x n mix (2 n^2 t per
-    wire) plus about 16 elementwise operations per element per wire."""
-    return wires * (2 * n * n * t + 16 * n * t)
+def round_ops(n: int, t: int, chunk: int, wires: int) -> int:
+    """fp32 operations of one round, counted from the kernel body in
+    csrc/fused_round.cu with error feedback and difference coding on.
+    Per element and wire: payload (sub, add), |payload| and its max,
+    divide, rint, clip (min, max), q * scale, recon' (add), res' (sub),
+    w_self * src + mix (mul, add), and n multiply-adds of the W_off row
+    (2 n). Per element once: the local update, 2 for DSGD (mul, sub) and 4
+    for DSGT (t_half: add, sub; h: mul, sub). Per (row, chunk) and wire:
+    max / 127 and the safe select."""
+    per_wire = n * t * (13 + 2 * n) + 2 * n * (t // chunk)
+    return wires * per_wire + n * t * 2 * wires
 
 
 def make_inputs(n: int, t: int, chunk: int, wires: int, label: str, seed: int):
@@ -307,7 +302,6 @@ def round_ms(card: str, rounds: int = 50, warmup: int = 5, profiled: int = 5) ->
 
 
 def timings(card: str) -> dict:
-    hbm, fp32 = peaks(torch.cuda.get_device_name(0))
     rows = {}
     for name, (kernel, twin, wires, _) in KERNELS.items():
         for label, n, t, chunk, topo in (SHAPES[0], SHAPES[2]):
@@ -317,11 +311,14 @@ def timings(card: str) -> dict:
             k_ms = device_ms(lambda: kernel(*args, scale_chunk=chunk))
             t_ms = device_ms(lambda: twin(*args, scale_chunk=chunk))
             nbytes = round_bytes(n, t, chunk, wires)
-            bound = max(nbytes / hbm, round_flops(n, t, wires) / fp32) * 1e3
-            bound_by = "bytes" if nbytes / hbm >= round_flops(n, t, wires) / fp32 else "operations"
+            ops = round_ops(n, t, chunk, wires)
+            bytes_s, ops_s = nbytes / HBM_BYTES_S, ops / FP32_OPS_S
+            bound = max(bytes_s, ops_s) * 1e3
+            bound_by = "bytes" if bytes_s >= ops_s else "operations"
             log(f"  {name} {label} {n}x{t}: kernel {k_ms * 1e3:.2f} us, twin "
                 f"{t_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us by {bound_by} "
-                f"({nbytes / 1e6:.3f} MB at {hbm / 1e12:.2f} TB/s), "
+                f"({nbytes / 1e6:.3f} MB at {HBM_BYTES_S / 1e12:.2f} TB/s, "
+                f"{ops / 1e6:.2f} M fp32 ops at {FP32_OPS_S / 1e12:.0f} T/s), "
                 f"{bound / k_ms:.1%} of bound [{card}]")
             rows[(name, label)] = dict(ms=k_ms, plain_ms=t_ms, bound_ms=bound,
                                        bound_by=bound_by)

@@ -255,8 +255,7 @@ class FusedEngine(GossipEngine):
     name = "fused"
 
     def __init__(self, w: np.ndarray, layout: FlatLayout, *,
-                 scale_chunk: int = 512, error_feedback: bool = True,
-                 difference_coding: bool = True, device=None, topk=None,
+                 scale_chunk: int = 512, device=None, topk=None,
                  round_schedule=None, topology_program=None,
                  node_program=None, privacy=None, scope=None,
                  storage_dtype=None):
@@ -271,8 +270,6 @@ class FusedEngine(GossipEngine):
             )
         self.layout = layout
         self.scale_chunk = scale_chunk
-        self.error_feedback = error_feedback
-        self.difference_coding = difference_coding
         self.device = resolve_device(device)
         self.w, w_self, w_off = _split_w_np(w, layout.n_nodes)
         self.w_self = torch.as_tensor(w_self, device=self.device)
@@ -307,9 +304,9 @@ class FusedEngine(GossipEngine):
             )
 
     def make_comm_step(self, eval_grads, schedule, cfg: FLConfig):
-        kw = dict(scale_chunk=self.scale_chunk,
-                  error_feedback=self.error_feedback,
-                  difference_coding=self.difference_coding)
+        # the wire is always difference-coded with error feedback (the
+        # kernels' defaults); no caller needs another wire yet
+        kw = dict(scale_chunk=self.scale_chunk)
         egress = self.wire_bytes(cfg)
 
         def comm_step(state: FLState, batch):

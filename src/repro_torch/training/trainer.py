@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator
 
 import numpy as np
 import torch
@@ -69,11 +69,8 @@ def train_decentralized(
     run: FLRunConfig,
     step_batches: Iterator[Dict[str, np.ndarray]],
     rounds: int,
-    eval_fn: Optional[Callable[[Tree], Dict[str, float]]] = None,
-    eval_every: int = 50,
-    log_every: int = 0,
     engine: str = "fused",
-    scale_chunk: Optional[int] = None,
+    scale_chunk: int = 512,
     device=None,
 ) -> TrainResult:
     """Train for ``rounds`` communication rounds on ``device`` (``cuda``
@@ -85,7 +82,7 @@ def train_decentralized(
     numpy batches; the driver groups Q of them per round (paper: Q local
     updates, then one communication). ``engine`` is a registry name,
     built with its ``simulated`` constructor against the run topology's W;
-    ``scale_chunk`` sets the fused engine's int8 scale chunk (512).
+    ``scale_chunk`` sets the fused engine's int8 scale chunk.
     """
     dev = resolve_device(device)
     w = mixing_matrix(run.topology, run.n_nodes)
@@ -94,9 +91,7 @@ def train_decentralized(
     params = tree_map(lambda p: torch.as_tensor(p, device=dev), params_single)
     stacked = params if _is_stacked(params, run.n_nodes) else stack_for_nodes(
         params, run.n_nodes)
-    engine, params0 = get_engine(engine).simulated(
-        w, stacked, scale_chunk=512 if scale_chunk is None else scale_chunk
-    )
+    engine, params0 = get_engine(engine).simulated(w, stacked, scale_chunk=scale_chunk)
     round_fn = make_fl_round(loss_fn, make_schedule(run), cfg, engine)
     state = init_fl_state(cfg, params0, engine)
 
@@ -106,27 +101,18 @@ def train_decentralized(
     for rnd in range(1, rounds + 1):
         state, m = round_fn(state, stack_batches(step_batches, run.q))
         cum_bytes += float(m["wire_bytes"])
-        row = {
-            "round": rnd,
-            "iteration": state.step,
-            "comm_rounds": rnd,
-            "comm_bytes": cum_bytes,
-            "loss": float(m["loss"]),
-            "local_loss": float(m["local_loss"]),
-            "grad_norm_sq": float(m["grad_norm_sq"]),
-            "consensus_err": float(m["consensus_err"]),
-            "alpha": float(m["alpha"]),
-            "wall_s": time.time() - t0,
-        }
-        if eval_fn is not None and (rnd % eval_every == 0 or rnd == rounds):
-            row.update({f"eval_{k}": v
-                        for k, v in eval_fn(_consensus(engine, state)).items()})
-        history.append(**row)
-        if log_every and rnd % log_every == 0:
-            print(
-                f"[round {rnd:5d}] it={row['iteration']:6d} loss={row['loss']:.4f} "
-                f"cons={row['consensus_err']:.3e} gnorm2={row['grad_norm_sq']:.3e}"
-            )
+        history.append(
+            round=rnd,
+            iteration=state.step,
+            comm_rounds=rnd,
+            comm_bytes=cum_bytes,
+            loss=float(m["loss"]),
+            local_loss=float(m["local_loss"]),
+            grad_norm_sq=float(m["grad_norm_sq"]),
+            consensus_err=float(m["consensus_err"]),
+            alpha=float(m["alpha"]),
+            wall_s=time.time() - t0,
+        )
     return TrainResult(state=state, history=history,
                        consensus=_consensus(engine, state), w=w, engine=engine)
 
