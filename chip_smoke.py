@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the round megakernels from ``src/repro_torch/kernels/gossip/csrc``
-(into that package's ``build/``), holds each against its plain PyTorch
-twin on the card, drives the port's main path -- the paper's FD-DSGT on
-the fused engine, then FD-DSGD -- and times the kernels, their twins and
-one whole Q = 10 round. Any failed check raises, so the exit code is
-non-zero; without a CUDA card (or without the repository around it) the
-script fails before printing any result.
+Builds the gossip kernels from ``src/repro_torch/kernels/gossip/csrc``
+(the round megakernels and the wire stages, one ``nvcc`` per source, in
+parallel, into that package's ``build/``), holds each against its plain
+PyTorch twin on the card (dense and top-k wires), drives the port's
+paths -- the paper's FD-DSGT on the fused engine, FD-DSGD, FD-DSGT under
+bounded staleness k = 2, FD-DSGD at k = 4, the pipelined FD-DSGT round
+and the top-64 wire -- counting each kernel's launches per path, and
+times the kernels, their twins and whole Q = 10 rounds (sequential and
+bounded). Any failed check raises, so the exit code is non-zero; without
+a CUDA card (or without the repository around it) the script fails
+before printing any result.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` reports them, a ``{"kernels": [...]}`` JSON line, and last
@@ -42,8 +46,18 @@ from repro_torch.core.topology import mixing_matrix  # noqa: E402
 from repro_torch.data.ehr import generate_ehr_cohort, make_node_batcher  # noqa: E402
 from repro_torch.examples.ehr_federated import run_fused_engine  # noqa: E402
 from repro_torch.kernels.gossip import build as kbuild  # noqa: E402
-from repro_torch.kernels.gossip.ops import fused_round, fused_round_gt  # noqa: E402
-from repro_torch.kernels.gossip.ref import fused_round_gt_ref, fused_round_ref  # noqa: E402
+from repro_torch.kernels.gossip.ops import (  # noqa: E402
+    fused_round,
+    fused_round_gt,
+    wire_stage,
+    wire_stage_gt,
+)
+from repro_torch.kernels.gossip.ref import (  # noqa: E402
+    fused_round_gt_ref,
+    fused_round_ref,
+    wire_stage_gt_ref,
+    wire_stage_ref,
+)
 from repro_torch.models.mlp import make_mlp_loss, mlp_init  # noqa: E402
 from repro_torch.training.trainer import (  # noqa: E402
     stack_batches,
@@ -51,14 +65,21 @@ from repro_torch.training.trainer import (  # noqa: E402
     train_decentralized,
 )
 
-SOURCE = "src/repro_torch/kernels/gossip/csrc/fused_round.cu"
+CSRC = "src/repro_torch/kernels/gossip/csrc/"
 KERNELS = {
-    # name: (wrapper, twin, wires, TPU kernel it replaces)
+    # name: (wrapper, twin, wires, TPU kernel it replaces, source)
     "fused_round": (fused_round, fused_round_ref, 1,
-                    "src/repro/kernels/gossip/gossip.py:421"),
+                    "src/repro/kernels/gossip/gossip.py:421", CSRC + "fused_round.cu"),
     "fused_round_gt": (fused_round_gt, fused_round_gt_ref, 2,
-                       "src/repro/kernels/gossip/gossip.py:476"),
+                       "src/repro/kernels/gossip/gossip.py:476", CSRC + "fused_round.cu"),
 }
+WIRE_KERNELS = {
+    "wire_stage": (wire_stage, wire_stage_ref, 1,
+                   "src/repro/kernels/gossip/gossip.py:631", CSRC + "wire_stage.cu"),
+    "wire_stage_gt": (wire_stage_gt, wire_stage_gt_ref, 2,
+                      "src/repro/kernels/gossip/gossip.py:679", CSRC + "wire_stage.cu"),
+}
+WRAPPERS = [fused_round, fused_round_gt, wire_stage, wire_stage_gt]
 # (label, nodes, flat width, scale chunk, topology): the main path, a
 # ragged shape with one all-zero row chunk (exercises safe = 1), and a
 # large shape that makes the kernel bandwidth-bound
@@ -68,10 +89,13 @@ SHAPES = [
     ("large", 64, 1 << 20, 512, "torus:8x8"),
 ]
 FLAGS = list(itertools.product([True, False], repeat=3))  # ef, dc, stale
+EF_DC = list(itertools.product([True, False], repeat=2))
 ALPHA = np.float32(0.02)
 # DSGT wire bytes per round on hospital20 (2 wires x 54 directed edges x
-# (1536 int8 + 3 fp32 scales)); DSGD ships one wire
-WIRE_DSGT, WIRE_DSGD = 167_184, 83_592
+# (1536 int8 + 3 fp32 scales)); DSGD ships one wire; the top-64 wire
+# ships 132 B per chunk (64 values, a 64 B presence bitmap, the scale)
+WIRE_DSGT, WIRE_DSGD, WIRE_TOP64 = 167_184, 83_592, 42_768
+TOPK_MAIN = 64  # the reference example's --topk
 
 # Published peaks of the H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # fp32 operations/s outside the tensor cores, at its full 700 W limit.
@@ -98,20 +122,56 @@ def round_bytes(n: int, t: int, chunk: int, wires: int) -> int:
     return 4 * (n * t * bufs + n * n + n + wires * n * (t // chunk) + 1)
 
 
-def round_ops(n: int, t: int, chunk: int, wires: int) -> int:
-    """fp32 operations of one round, counted from the kernel body in
-    csrc/fused_round.cu with error feedback and difference coding on.
-    Per element and wire: payload (sub, add), |payload| and its max,
-    divide, rint, clip (min, max), q * scale, recon' (add), res' (sub),
-    w_self * src + mix (mul, add), and n multiply-adds of the W_off row
-    (2 n). Per element once: the local update, 2 for DSGD (mul, sub) and 4
-    for DSGT (t_half: add, sub; h: mul, sub). Per (row, chunk) and wire:
-    max / 127 and the safe select."""
-    per_wire = n * t * (13 + 2 * n) + 2 * n * (t // chunk)
-    return wires * per_wire + n * t * 2 * wires
+def stage_ops(n: int, t: int, chunk: int, topk=None) -> int:
+    """fp32 operations of the quantize-EF stage of one wire, counted from
+    csrc/quantize.cuh with error feedback and difference coding on. Per
+    element: payload (sub, add), |payload| and its max, divide, rint,
+    clip (min, max), q * scale, recon' (add), res' (sub); with the top-k
+    mask also 31 search steps of |payload| and a compare, and the mask's
+    own |payload| and compare. Per (row, chunk): max / 127 and the safe
+    select."""
+    per_element = 11 + (2 * 31 + 2 if topk else 0)
+    return n * t * per_element + 2 * n * (t // chunk)
 
 
-def make_inputs(n: int, t: int, chunk: int, wires: int, label: str, seed: int):
+def update_ops(n: int, t: int, wires: int) -> int:
+    """The local update, per element once: 2 for DSGD (mul, sub), 4 for
+    DSGT (t_half: add, sub; h: mul, sub)."""
+    return n * t * 2 * wires
+
+
+def round_ops(n: int, t: int, chunk: int, wires: int, topk=None) -> int:
+    """fp32 operations of one round kernel (csrc/fused_round.cu): the
+    stage per wire, plus w_self * src + mix (mul, add) and n
+    multiply-adds of the W_off row (2 n) per element and wire, plus the
+    local update."""
+    per_wire = stage_ops(n, t, chunk, topk) + n * t * (2 + 2 * n)
+    return wires * per_wire + update_ops(n, t, wires)
+
+
+def wire_bytes_moved(n: int, t: int, chunk: int, wires: int) -> int:
+    """HBM bytes one wire-stage kernel must move: each (n, t) fp32 input
+    read once (DSGD 4, DSGT 8), each output written once (DSGD h,
+    recon', res' and the int8 q; DSGT also t_half and a second wire),
+    the scales and alpha."""
+    if wires == 1:
+        return 4 * (4 + 3) * n * t + n * t + 4 * n * (t // chunk) + 4
+    return 4 * (8 + 6) * n * t + 2 * n * t + 2 * 4 * n * (t // chunk) + 4
+
+
+def wire_ops(n: int, t: int, chunk: int, wires: int, topk=None) -> int:
+    """fp32 operations of one wire-stage kernel (csrc/wire_stage.cu)."""
+    return wires * stage_ops(n, t, chunk, topk) + update_ops(n, t, wires)
+
+
+def bound(nbytes: int, ops: int):
+    """The least time on the card, ms, and what bounds it."""
+    bytes_s, ops_s = nbytes / HBM_BYTES_S, ops / FP32_OPS_S
+    return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations")
+
+
+def make_inputs(n: int, t: int, chunk: int, wires: int, label: str, seed: int,
+                ties: bool = False):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     count = 4 if wires == 1 else 8
     scales = [1.0, 1.0, 1.0, 0.1] if wires == 1 else [1.0, 0.3, 0.5, 0.5, 1.0, 0.1, 1.0, 0.1]
@@ -119,6 +179,19 @@ def make_inputs(n: int, t: int, chunk: int, wires: int, label: str, seed: int):
     if label == "zero-chunk":
         for b in bufs:  # payload of (row 3, chunk 1) is exactly zero
             b[3, chunk:2 * chunk] = 0.0
+    if ties:
+        # (row 0, chunk 0): every input zero but x (DSGD) or the tracker t
+        # (DSGT), which carry magnitudes 3, 2 and 1 with random signs
+        # (chunk/8 threes, chunk/4 twos): top-k at k = chunk/4 has its
+        # threshold at 2 and must keep all chunk/8 + chunk/4 columns
+        mags = torch.ones(chunk, device="cuda")
+        mags[: chunk // 8] = 3.0
+        mags[chunk // 8: chunk // 8 + chunk // 4] = 2.0
+        signs = torch.randint(0, 2, (chunk,), generator=gen, device="cuda") * 2.0 - 1.0
+        perm = torch.randperm(chunk, generator=gen, device="cuda")
+        for b in bufs:
+            b[0, :chunk] = 0.0
+        bufs[0 if wires == 1 else 1][0, :chunk] = (mags * signs)[perm]
     return bufs
 
 
@@ -129,18 +202,26 @@ def weights(topology: str, n: int):
     return w_off, w_self
 
 
+def shape_topks(chunk: int):
+    """The round kernels' top-k cases: dense, the reference example's 64
+    at chunk 512, and k = chunk/8 at a smaller chunk."""
+    return [None, TOPK_MAIN if chunk == 512 else chunk // 8]
+
+
 def check_kernels() -> dict:
-    """Every kernel against its twin on the card, at every shape and flag
-    combination: recon', res' and scales bitwise, mixed within 1e-5 x
-    max(1, max|input|) (the n x n sum runs in another order)."""
+    """Every round kernel against its twin on the card, at every shape,
+    flag combination and top-k case: recon', res' and scales bitwise,
+    mixed within 1e-5 x max(1, max|input|) (the n x n sum runs in another
+    order)."""
     max_err = {name: 0.0 for name in KERNELS}
-    for (name, (kernel, twin, wires, _)), (label, n, t, chunk, topo) in itertools.product(
+    for (name, (kernel, twin, wires, _, _)), (label, n, t, chunk, topo) in itertools.product(
             KERNELS.items(), SHAPES):
         w_off, w_self = weights(topo, n)
-        for k, (ef, dc, stale) in enumerate(FLAGS):
+        for k, ((ef, dc, stale), topk) in enumerate(
+                itertools.product(FLAGS, shape_topks(chunk))):
             bufs = make_inputs(n, t, chunk, wires, label, seed=k)
-            kw = dict(scale_chunk=chunk, error_feedback=ef,
-                      difference_coding=dc, stale_mix=stale)
+            kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                      stale_mix=stale, topk=topk)
             got = kernel(*bufs, w_off, w_self, ALPHA, **kw)
             want = twin(*bufs, w_off, w_self, ALPHA, **kw)
             torch.cuda.synchronize()
@@ -165,64 +246,177 @@ def check_kernels() -> dict:
                     raise AssertionError(f"{name}: all-zero chunk got scale {float(sc[3, 1])}")
             del got, want, bufs
         log(f"  {name} == twin at {label} ({n}x{t}, chunk {chunk}): "
-            f"8 flag combinations, recon/res/scales bitwise, mixed max err "
-            f"{max_err[name]:.3e}")
+            f"8 flag combinations x topk {shape_topks(chunk)}, recon/res/scales "
+            f"bitwise, mixed max err {max_err[name]:.3e}")
         torch.cuda.empty_cache()
     return max_err
+
+
+def check_wire_stages() -> dict:
+    """Both wire-stage kernels against their twins on the card, at every
+    shape, for the 4 (ef, dc) combinations x topk in {None, chunk/4 with
+    exact ties at the threshold, chunk}: every output (h, t_half, q,
+    scales, recon', res') bitwise; the tie case keeps every tie."""
+    max_err = {name: 0.0 for name in WIRE_KERNELS}
+    for (name, (kernel, twin, wires, _, _)), (label, n, t, chunk, _) in itertools.product(
+            WIRE_KERNELS.items(), SHAPES):
+        topks = [None, chunk // 4, chunk]
+        for k, ((ef, dc), topk) in enumerate(itertools.product(EF_DC, topks)):
+            ties = topk == chunk // 4
+            bufs = make_inputs(n, t, chunk, wires, label, seed=k, ties=ties)
+            kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                      topk=topk)
+            got = kernel(*bufs, ALPHA, **kw)
+            want = twin(*bufs, ALPHA, **kw)
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(got, want)):
+                if a.shape != b.shape or a.dtype != b.dtype or not torch.isfinite(a.float()).all():
+                    raise AssertionError(f"{name} {label} {kw}: output {i} bad")
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{name} {label} {kw}: output {i} differs from the twin "
+                        f"(max {float((a.float() - b.float()).abs().max())})")
+            if ties:
+                for i in ([1] if wires == 1 else [2, 6]):
+                    kept = int(torch.count_nonzero(got[i][0, :chunk]))
+                    if kept != chunk // 8 + chunk // 4:
+                        raise AssertionError(
+                            f"{name} {label} {kw}: kept {kept} columns of the tie "
+                            f"chunk, want {chunk // 8 + chunk // 4}")
+            if label == "zero-chunk":
+                sc = got[2 if wires == 1 else 3]
+                if float(sc[3, 1]) != 0.0:
+                    raise AssertionError(f"{name}: all-zero chunk got scale {float(sc[3, 1])}")
+            del got, want, bufs
+        log(f"  {name} == twin at {label} ({n}x{t}, chunk {chunk}): 4 (ef, dc) x "
+            f"topk {topks} (ties at k={chunk // 4} all kept), every output bitwise")
+        torch.cuda.empty_cache()
+    return max_err
+
+
+def zero_counts() -> None:
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+
+
+def expect_launches(what: str, **want: int) -> None:
+    """Every wrapper's count since :func:`zero_counts` is ``want`` (0 for
+    the ones not named)."""
+    torch.cuda.synchronize()
+    got = {w.__name__: w.launches for w in WRAPPERS}
+    full = {w.__name__: want.get(w.__name__, 0) for w in WRAPPERS}
+    if got != full:
+        raise AssertionError(f"{what}: launches {got}, want {full}")
+
+
+def falling(what: str, losses) -> str:
+    """Each round's loss is one 20-sample batch per hospital, so compare
+    the means of the first and the last five rounds."""
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        raise AssertionError(f"{what}: loss not finite and falling: {losses}")
+    return f"loss (mean of 5 rounds) {first:.4f} -> {last:.4f}"
+
+
+def against_cpu(what: str, out: dict, **kw) -> None:
+    """The same run on the CPU twins: the kernels must not move the result
+    beyond what fp32 summation order does (an int8 step that flips at a
+    rounding boundary, or a top-k near-tie that flips, is absorbed by
+    error feedback)."""
+    cpu = run_fused_engine(device="cpu", **kw)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], cpu["losses"]))
+    if rel > 1e-2 or abs(out["bal_acc"] - cpu["bal_acc"]) > 0.02:
+        raise AssertionError(
+            f"{what}: cuda run drifts from the cpu run: loss rel {rel}, bal_acc "
+            f"{out['bal_acc']} vs {cpu['bal_acc']}")
+    log(f"  {what} cuda vs cpu twins: max loss rel diff {rel:.2e}, "
+        f"bal_acc {out['bal_acc']:.4f} vs {cpu['bal_acc']:.4f}")
+
+
+def dsgd_run(**kw):
+    data = generate_ehr_cohort(seed=0)
+    run = FLRunConfig(algorithm="dsgd", q=10, topology="hospital20", n_nodes=20,
+                      batch_per_node=20, alpha0=0.02)
+    return train_decentralized(
+        make_mlp_loss(class_weights()), mlp_init(0, device="cuda"), run,
+        make_node_batcher(data, m=20, seed=1), rounds=3, device="cuda", **kw)
 
 
 def main_path() -> dict:
     """The port's main path through its user entry points; counts are
     zeroed just before each run and read just after."""
-    fused_round.launches = fused_round_gt.launches = 0
+    zero_counts()
     out = run_fused_engine(rounds=20, q=10, device="cuda")
-    torch.cuda.synchronize()
-    gt_launches, dsgd_launches = fused_round_gt.launches, fused_round.launches
-    if (gt_launches, dsgd_launches) != (20, 0):
-        raise AssertionError(f"FD-DSGT: launches gt={gt_launches} dsgd={dsgd_launches}, want 20/0")
+    expect_launches("FD-DSGT", fused_round_gt=20)
     if out["wire_bytes"] != WIRE_DSGT:
         raise AssertionError(f"FD-DSGT wire bytes {out['wire_bytes']} != {WIRE_DSGT}")
-    # each round's loss is one 20-sample batch per hospital, so compare
-    # the means of the first and the last five rounds
-    losses = out["losses"]
-    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    if not all(math.isfinite(v) for v in losses) or not last < first:
-        raise AssertionError(f"FD-DSGT loss not finite and falling: {losses}")
-    log(f"  FD-DSGT 20 rounds x Q=10: {gt_launches} fused_round_gt launches, "
-        f"wire {out['wire_bytes']:.0f} B/round, loss (mean of 5 rounds) "
-        f"{first:.4f} -> {last:.4f}, final bal_acc={out['bal_acc']:.4f}")
+    log(f"  FD-DSGT 20 rounds x Q=10: 20 fused_round_gt launches, "
+        f"wire {out['wire_bytes']:.0f} B/round, {falling('FD-DSGT', out['losses'])}, "
+        f"final bal_acc={out['bal_acc']:.4f}")
+    against_cpu("FD-DSGT", out, rounds=20, q=10)
 
-    # the same run on the CPU twins: the kernels must not move the result
-    # beyond what fp32 summation order does (an int8 step that flips at a
-    # rounding boundary is absorbed by error feedback)
-    cpu = run_fused_engine(rounds=20, q=10, device="cpu")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu["losses"]))
-    if rel > 1e-2 or abs(out["bal_acc"] - cpu["bal_acc"]) > 0.02:
-        raise AssertionError(
-            f"cuda run drifts from the cpu run: loss rel {rel}, bal_acc "
-            f"{out['bal_acc']} vs {cpu['bal_acc']}")
-    log(f"  FD-DSGT cuda vs cpu twins: max loss rel diff {rel:.2e}, "
-        f"bal_acc {out['bal_acc']:.4f} vs {cpu['bal_acc']:.4f}")
-
-    data = generate_ehr_cohort(seed=0)
-    run = FLRunConfig(algorithm="dsgd", q=10, topology="hospital20", n_nodes=20,
-                      batch_per_node=20, alpha0=0.02)
-    fused_round.launches = fused_round_gt.launches = 0
-    res = train_decentralized(
-        make_mlp_loss(class_weights()), mlp_init(0, device="cuda"), run,
-        make_node_batcher(data, m=20, seed=1), rounds=3, device="cuda",
-    )
-    torch.cuda.synchronize()
-    dsgd_runs = fused_round.launches
-    if (dsgd_runs, fused_round_gt.launches) != (3, 0):
-        raise AssertionError(f"FD-DSGD: launches dsgd={dsgd_runs}, want 3")
+    zero_counts()
+    res = dsgd_run()
+    expect_launches("FD-DSGD", fused_round=3)
     per_round = res.history.column("comm_bytes")[-1] / 3
     loss = res.history.column("loss")
     if per_round != WIRE_DSGD or not np.isfinite(loss).all():
         raise AssertionError(f"FD-DSGD wire {per_round} / losses {loss}")
-    log(f"  FD-DSGD 3 rounds x Q=10: {dsgd_runs} fused_round launches, wire "
+    log(f"  FD-DSGD 3 rounds x Q=10: 3 fused_round launches, wire "
         f"{per_round:.0f} B/round, losses {np.round(loss, 4).tolist()}")
-    return {"fused_round": dsgd_runs, "fused_round_gt": gt_launches}
+    return {"fused_round": 3, "fused_round_gt": 20, "sequential_losses": out["losses"]}
+
+
+def stale_paths(sequential_losses) -> dict:
+    """The bounded-staleness, pipelined and top-k paths, each through its
+    user entry point, with its launches counted."""
+    zero_counts()
+    out = run_fused_engine(rounds=20, q=10, device="cuda",
+                           fl_schedule="bounded_staleness:k=2")
+    expect_launches("FD-DSGT k=2", wire_stage_gt=20)
+    if out["wire_bytes"] != WIRE_DSGT:
+        raise AssertionError(f"FD-DSGT k=2 wire bytes {out['wire_bytes']} != {WIRE_DSGT}")
+    log(f"  FD-DSGT bounded_staleness:k=2, 20 rounds x Q=10: 20 wire_stage_gt "
+        f"launches, 0 fused_round_gt, wire {out['wire_bytes']:.0f} B/round, "
+        f"{falling('FD-DSGT k=2', out['losses'])}, final bal_acc={out['bal_acc']:.4f}")
+    against_cpu("FD-DSGT k=2", out, rounds=20, q=10, fl_schedule="bounded_staleness:k=2")
+
+    zero_counts()
+    res = dsgd_run(staleness_depth=4)
+    expect_launches("FD-DSGD k=4", wire_stage=3)
+    per_round = res.history.column("comm_bytes")[-1] / 3
+    loss = res.history.column("loss")
+    if (per_round != WIRE_DSGD or not np.isfinite(loss).all()
+            or res.engine.round_schedule.spec() != "bounded_staleness:k=4"):
+        raise AssertionError(f"FD-DSGD k=4 wire {per_round} / losses {loss}")
+    log(f"  FD-DSGD staleness_depth=4, 3 rounds x Q=10: 3 wire_stage launches, "
+        f"wire {per_round:.0f} B/round, losses {np.round(loss, 4).tolist()}")
+
+    zero_counts()
+    out = run_fused_engine(rounds=5, q=10, device="cuda", fl_schedule="pipelined")
+    expect_launches("FD-DSGT pipelined", fused_round_gt=5)
+    # the first round's loss comes before any mix; from the second on the
+    # one-round-stale mix must show
+    if out["losses"][0] != sequential_losses[0] or np.allclose(
+            out["losses"][1:], sequential_losses[1:5], rtol=1e-6, atol=0):
+        raise AssertionError(f"FD-DSGT pipelined losses {out['losses']} vs "
+                             f"sequential {sequential_losses[:5]}")
+    log(f"  FD-DSGT pipelined, 5 rounds x Q=10: 5 fused_round_gt launches with "
+        f"stale_mix, losses {np.round(out['losses'], 4).tolist()} (sequential "
+        f"{np.round(sequential_losses[:5], 4).tolist()})")
+    against_cpu("FD-DSGT pipelined", out, rounds=5, q=10, fl_schedule="pipelined")
+
+    zero_counts()
+    out = run_fused_engine(rounds=5, q=10, device="cuda", topk=TOPK_MAIN)
+    expect_launches("FD-DSGT top-64", fused_round_gt=5)
+    if out["wire_bytes"] != WIRE_TOP64 or round(out["wire_saving"], 2) != 14.57:
+        raise AssertionError(f"FD-DSGT top-64 wire {out['wire_bytes']}, saving "
+                             f"{out['wire_saving']}")
+    log(f"  FD-DSGT top-64, 5 rounds x Q=10: 5 fused_round_gt launches, wire "
+        f"{out['wire_bytes']:.0f} B/round ({out['wire_saving']:.2f}x under fp32), "
+        f"losses {np.round(out['losses'], 4).tolist()}")
+    against_cpu("FD-DSGT top-64", out, rounds=5, q=10, topk=TOPK_MAIN)
+    return {"wire_stage": 3, "wire_stage_gt": 20}
 
 
 def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
@@ -248,17 +442,21 @@ def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def round_ms(card: str, rounds: int = 50, warmup: int = 5, profiled: int = 5) -> float:
+def round_profile(card: str, schedule=None, rounds: int = 50, warmup: int = 5,
+                  profiled: int = 5) -> dict:
     """Median host-clock time of one whole FD-DSGT Q = 10 round (10
-    gradient evaluations + 1 round-kernel launch), synchronized; then
-    ``torch.profiler`` over ``profiled`` more rounds for the device's busy
-    time and operation count per round and the host's costliest ops."""
+    gradient evaluations + 1 kernel launch, and at depth k >= 2 the
+    PyTorch stale mix), synchronized; then ``torch.profiler`` over
+    ``profiled`` more rounds for the device's busy time and operation
+    count per round and the host's costliest ops."""
+    label = schedule or "sequential"
     data = generate_ehr_cohort(seed=0)
     batcher = make_node_batcher(data, m=20, seed=1)
     cfg = FLConfig(algorithm="dsgt", q=10, n_nodes=20)
     engine, flat = get_engine("fused").simulated(
         mixing_matrix("hospital20", 20),
-        stack_for_nodes(mlp_init(0, device="cuda"), 20), scale_chunk=512)
+        stack_for_nodes(mlp_init(0, device="cuda"), 20), scale_chunk=512,
+        round_schedule=schedule)
     round_fn = make_fl_round(make_mlp_loss(class_weights()), inv_sqrt(0.02), cfg, engine)
     state = init_fl_state(cfg, flat, engine)
     batches = [stack_batches(batcher, cfg.q) for _ in range(rounds + warmup + profiled)]
@@ -271,7 +469,8 @@ def round_ms(card: str, rounds: int = 50, warmup: int = 5, profiled: int = 5) ->
         if k >= warmup:
             times.append((time.perf_counter() - t0) * 1e3)
     r_ms = statistics.median(times)
-    log(f"  one FD-DSGT Q=10 round (20 hospitals, host clock): {r_ms * 1e3:.1f} us [{card}]")
+    log(f"  one FD-DSGT Q=10 {label} round (20 hospitals, host clock): "
+        f"{r_ms * 1e3:.1f} us [{card}]")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -284,13 +483,13 @@ def round_ms(card: str, rounds: int = 50, warmup: int = 5, profiled: int = 5) ->
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
         log("  profiler: no device activity recorded; device busy time not measured")
-        return r_ms
+        return {"round_ms": r_ms}
     busy, reach = 0.0, -math.inf  # union of the device intervals, in us
     for start, end in spans:
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     busy_ms = busy / profiled / 1e3
-    log(f"  profiler over {profiled} rounds: {len(spans) / profiled:.0f} device "
+    log(f"  profiler over {profiled} {label} rounds: {len(spans) / profiled:.0f} device "
         f"operations and {busy_ms * 1e3:.1f} us of device busy time per round, "
         f"{busy_ms / r_ms:.2%} of the unprofiled round time [{card}]")
     top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
@@ -298,33 +497,44 @@ def round_ms(card: str, rounds: int = 50, warmup: int = 5, profiled: int = 5) ->
     log("  host ops by self time per round: " + ", ".join(
         f"{e.key} {e.self_cpu_time_total / profiled:.0f} us x{e.count / profiled:.0f}"
         for e in top))
-    return r_ms
+    return {"round_ms": r_ms, "device_ops": len(spans) / profiled, "busy_ms": busy_ms}
+
+
+def time_row(card: str, name: str, label: str, n: int, t: int, k_ms: float,
+             t_ms: float, nbytes: int, ops: int) -> dict:
+    bound_ms, bound_by = bound(nbytes, ops)
+    log(f"  {name} {label} {n}x{t}: kernel {k_ms * 1e3:.2f} us, twin "
+        f"{t_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by {bound_by} "
+        f"({nbytes / 1e6:.3f} MB at {HBM_BYTES_S / 1e12:.2f} TB/s, "
+        f"{ops / 1e6:.2f} M fp32 ops at {FP32_OPS_S / 1e12:.0f} T/s), "
+        f"{bound_ms / k_ms:.1%} of bound [{card}]")
+    return dict(ms=k_ms, plain_ms=t_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def timings(card: str) -> dict:
+    """Each kernel and its twin at the main and the large shape (dense
+    wire) and at the main shape with the top-64 wire; then whole rounds,
+    sequential and bounded_staleness:k=2."""
     rows = {}
-    for name, (kernel, twin, wires, _) in KERNELS.items():
-        for label, n, t, chunk, topo in (SHAPES[0], SHAPES[2]):
-            w_off, w_self = weights(topo, n)
+    cases = [(SHAPES[0], None), (SHAPES[2], None), (SHAPES[0], TOPK_MAIN)]
+    for name, (kernel, twin, wires, _, _) in {**KERNELS, **WIRE_KERNELS}.items():
+        is_round = name in KERNELS
+        for (label, n, t, chunk, topo), topk in cases:
             bufs = make_inputs(n, t, chunk, wires, label, seed=0)
-            args = (*bufs, w_off, w_self, ALPHA)
-            k_ms = device_ms(lambda: kernel(*args, scale_chunk=chunk))
-            t_ms = device_ms(lambda: twin(*args, scale_chunk=chunk))
-            nbytes = round_bytes(n, t, chunk, wires)
-            ops = round_ops(n, t, chunk, wires)
-            bytes_s, ops_s = nbytes / HBM_BYTES_S, ops / FP32_OPS_S
-            bound = max(bytes_s, ops_s) * 1e3
-            bound_by = "bytes" if bytes_s >= ops_s else "operations"
-            log(f"  {name} {label} {n}x{t}: kernel {k_ms * 1e3:.2f} us, twin "
-                f"{t_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us by {bound_by} "
-                f"({nbytes / 1e6:.3f} MB at {HBM_BYTES_S / 1e12:.2f} TB/s, "
-                f"{ops / 1e6:.2f} M fp32 ops at {FP32_OPS_S / 1e12:.0f} T/s), "
-                f"{bound / k_ms:.1%} of bound [{card}]")
-            rows[(name, label)] = dict(ms=k_ms, plain_ms=t_ms, bound_ms=bound,
-                                       bound_by=bound_by)
+            args = (*bufs, *weights(topo, n), ALPHA) if is_round else (*bufs, ALPHA)
+            kw = dict(scale_chunk=chunk, topk=topk)
+            k_ms = device_ms(lambda: kernel(*args, **kw))
+            t_ms = device_ms(lambda: twin(*args, **kw))
+            if is_round:
+                nbytes, ops = round_bytes(n, t, chunk, wires), round_ops(n, t, chunk, wires, topk)
+            else:
+                nbytes, ops = wire_bytes_moved(n, t, chunk, wires), wire_ops(n, t, chunk, wires, topk)
+            key = label if topk is None else f"{label} top-{topk}"
+            rows[(name, key)] = time_row(card, name, key, n, t, k_ms, t_ms, nbytes, ops)
             del bufs, args
             torch.cuda.empty_cache()
-    round_ms(card)
+    rows["rounds"] = {spec: round_profile(card, spec)
+                      for spec in (None, "bounded_staleness:k=2")}
     return rows
 
 
@@ -348,19 +558,20 @@ def main() -> int:
                 log(f"    ptxas: {line.strip()}")
 
     log("phase 2: kernels vs twins on the card")
-    max_err = check_kernels()
+    max_err = {**check_kernels(), **check_wire_stages()}
 
-    log("phase 3: main path")
+    log("phase 3: paths (launches counted per run)")
     launches = main_path()
+    launches.update(stale_paths(launches.pop("sequential_losses")))
 
     log("phase 4: times (CUDA events, median of 60 after warm-up)")
     rows = timings(card)
 
     kernels = []
-    for name, (_, _, _, replaces) in KERNELS.items():
+    for name, (_, _, _, replaces, source) in {**KERNELS, **WIRE_KERNELS}.items():
         row = rows[(name, "main")]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -20,5 +20,5 @@ class FLRunConfig:
     n_nodes: int = 16
     batch_per_node: int = 16  # m in the paper (samples per local step)
     alpha0: float = 0.02  # paper: alpha^r = 0.02/sqrt(r)
-    schedule: str = "inv_sqrt"  # inv_sqrt | constant
+    schedule: str = "inv_sqrt"  # inv_sqrt | constant | theorem1
     seed: int = 0

@@ -1,5 +1,5 @@
-"""GossipEngine protocol and the fused round engine (counterpart of the
-slice of ``repro.core.engine`` the main path runs).
+"""GossipEngine protocol, the round schedules and the fused round engine
+(counterpart of the slice of ``repro.core.engine`` the port runs).
 
 An engine owns the state representation, the wire and the mixing:
 
@@ -11,16 +11,24 @@ An engine owns the state representation, the wire and the mixing:
     make_comm_step(...)           the whole communication step
     wire_bytes(cfg)               per-round egress accounting (all nodes)
 
-Engines register by name (:func:`register_engine`); the registry is the
-one list of names every entry point resolves. The port has one engine so
-far, ``fused``: the state is one packed ``(nodes, total)`` fp32 buffer
-and every communication round is ONE call of a round megakernel
-(``kernels.gossip``: local update + int8 difference-coded quantize with
-error feedback + the W mix), on the sequential round schedule.
+A :class:`RoundSchedule` owns WHEN the mix consumes the payload: in the
+round that produced it (``sequential``), one round later (``pipelined``),
+or k rounds later (``bounded_staleness:k=K``). Engines and schedules
+register by name (:func:`register_engine`, :func:`register_schedule`);
+the registries are the one list of names every entry point resolves.
 
-Everything outside that slice -- top-k wires, other round schedules,
-topology and node programs, privacy, federation scopes, bf16 storage --
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+The port has one engine so far, ``fused``: the state is one packed
+``(nodes, total)`` fp32 buffer, the wire is the int8 difference-coded
+payload with error feedback, dense or top-k masked (``topk``), and
+every communication round is ONE kernel call (``kernels.gossip``): the
+round megakernel (local update + quantize + W mix) on the sequential and
+pipelined schedules, the wire-stage kernel (local update + quantize)
+followed by a PyTorch mix against the k-round-stale reconstruction at
+depth k >= 2.
+
+Everything outside that slice -- topology and node programs, privacy,
+federation scopes, bf16 storage -- raises ``NotImplementedError`` naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -46,15 +54,27 @@ from repro_torch.core.packing import (
     unpack,
 )
 from repro_torch.device import resolve_device
-from repro_torch.kernels.gossip.ops import fused_round, fused_round_gt
+from repro_torch.kernels.gossip.ops import (
+    fused_round,
+    fused_round_gt,
+    wire_stage,
+    wire_stage_gt,
+)
 
 __all__ = [
     "GossipEngine",
     "FusedEngine",
+    "RoundSchedule",
     "SequentialSchedule",
+    "PipelinedSchedule",
+    "BoundedStalenessSchedule",
     "register_engine",
     "get_engine",
     "engine_names",
+    "register_schedule",
+    "get_schedule",
+    "schedule_names",
+    "resolve_schedule",
 ]
 
 
@@ -69,18 +89,110 @@ def _as_device_batch(batches, device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batches.items()}
 
 
-def _assemble_round(cfg: FLConfig, local_step, comm_step, device):
-    """The round body: (Q-1) local steps in a Python loop (the reference
-    scans them), then the comm step on the last batch."""
+# ---------------------------------------------------------------------------
+# Round schedules: how a communication round is laid out in time
+# ---------------------------------------------------------------------------
+
+
+class RoundSchedule(abc.ABC):
+    """How one communication round is laid out in time. The engine owns
+    WHAT moves; the schedule owns WHEN the mix consumes it. An engine
+    carries its schedule as ``engine.round_schedule``, fixed at
+    construction (it is part of the comm-state contract), and
+    ``make_fl_round`` delegates the round layout here."""
+
+    name: ClassVar[str] = "abstract"
+    #: staleness depth of the mixed neighbor information: 0 for the
+    #: blocking sequential round, 1 for the pipelined round, k for
+    #: :class:`BoundedStalenessSchedule`
+    depth: int = 0
+
+    @abc.abstractmethod
+    def build_round(self, engine: "GossipEngine", eval_grads, schedule,
+                    cfg: FLConfig, local_step):
+        """Assemble ``round_fn(state, batches) -> (state, metrics)``."""
+
+    def spec(self) -> str:
+        """The round-trippable string form (``resolve_schedule(spec)``
+        rebuilds an equivalent schedule)."""
+        return self.name
+
+
+_SCHEDULES: Dict[str, RoundSchedule] = {}
+
+
+def register_schedule(cls: Type[RoundSchedule]) -> Type[RoundSchedule]:
+    """Class decorator: make the schedule resolvable by name. Schedules
+    are stateless, so the registry holds one instance of each."""
+    if cls.name in _SCHEDULES:
+        raise ValueError(f"duplicate schedule name {cls.name!r}")
+    _SCHEDULES[cls.name] = cls()
+    return cls
+
+
+def get_schedule(name: str) -> RoundSchedule:
+    try:
+        return _SCHEDULES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown round schedule {name!r}; registered: {schedule_names()}"
+        ) from None
+
+
+def schedule_names() -> Tuple[str, ...]:
+    return tuple(sorted(_SCHEDULES))
+
+
+def resolve_schedule(rs) -> RoundSchedule:
+    """Accept a registry name, a parameterized spec string
+    (``"bounded_staleness:k=4"``), a RoundSchedule instance, or None (the
+    sequential default)."""
+    if rs is None:
+        return _SCHEDULES["sequential"]
+    if isinstance(rs, RoundSchedule):
+        return rs
+    name, _, argstr = str(rs).partition(":")
+    base = get_schedule(name)
+    if not argstr:
+        return base
+    kwargs: Dict[str, int] = {}
+    for item in argstr.split(","):
+        k, sep, v = item.partition("=")
+        if not sep:
+            raise ValueError(
+                f"bad schedule spec {rs!r}: expected name:key=value[,...]"
+            )
+        try:
+            kwargs[k.strip()] = int(v)
+        except ValueError:
+            raise ValueError(
+                f"bad schedule spec {rs!r}: {v!r} is not an integer"
+            ) from None
+    try:
+        return type(base)(**kwargs)
+    except TypeError:
+        raise ValueError(
+            f"schedule {name!r} takes no parameters {tuple(kwargs)!r}"
+        ) from None
+
+
+def _assemble_round(cfg: FLConfig, local_step, comm_call, device, pre_scan=None):
+    """The round body: the optional pre-scan hook (a schedule's ingest of
+    the in-flight payload; the fused engine has none), (Q-1) local steps
+    in a Python loop (the reference scans them), then
+    ``comm_call(state, batch, aux)`` on the last batch with whatever the
+    hook returned."""
 
     def round_fn(state: FLState, batches):
+        aux = pre_scan(state) if pre_scan is not None else None
         batches = _as_device_batch(batches, device)
         q = cfg.q
         local_losses = []
         for k in range(q - 1):
             state, loss = local_step(state, {n: b[k] for n, b in batches.items()})
             local_losses.append(loss)
-        state, metrics = comm_step(state, {n: b[q - 1] for n, b in batches.items()})
+        state, metrics = comm_call(state, {n: b[q - 1] for n, b in batches.items()},
+                                   aux)
         metrics["local_loss"] = (
             torch.stack(local_losses).mean() if local_losses else metrics["loss"]
         )
@@ -89,7 +201,8 @@ def _assemble_round(cfg: FLConfig, local_step, comm_step, device):
     return round_fn
 
 
-class SequentialSchedule:
+@register_schedule
+class SequentialSchedule(RoundSchedule):
     """The paper's round layout: (Q-1) local steps, then ONE comm step in
     which the payload is produced and mixed before the round returns."""
 
@@ -98,10 +211,53 @@ class SequentialSchedule:
 
     def build_round(self, engine, eval_grads, schedule, cfg, local_step):
         comm_step = engine.make_comm_step(eval_grads, schedule, cfg)
-        return _assemble_round(cfg, local_step, comm_step, engine.device)
+        return _assemble_round(cfg, local_step,
+                               lambda state, batch, aux: comm_step(state, batch),
+                               engine.device)
 
 
-SEQUENTIAL = SequentialSchedule()
+@register_schedule
+class PipelinedSchedule(RoundSchedule):
+    """Round r's payload is mixed one round late, so its transfer can
+    overlap round r+1's local steps:
+
+        sequential round r:   mixed_r = w_self*h_r + S_j W_ij recon_j^(r)
+        pipelined  round r:   mixed_r = w_self*h_r + S_j W_ij recon_j^(r-1)
+
+    i.e. sequential with a one-round delay. The fused engine runs it as
+    the round kernel's ``stale_mix`` (the W contraction against the INPUT
+    recon), with no extra state."""
+
+    name = "pipelined"
+    depth = 1
+
+    def build_round(self, engine, eval_grads, schedule, cfg, local_step):
+        ingest, comm_step = engine.make_pipelined_round(eval_grads, schedule, cfg)
+        return _assemble_round(cfg, local_step, comm_step, engine.device,
+                               pre_scan=ingest)
+
+
+@register_schedule
+class BoundedStalenessSchedule(PipelinedSchedule):
+    """Depth-k generalization of the pipelined round: k payloads ride in
+    flight in ``FLState.comm`` (a ring of ``wire_q`` / ``wire_scales``),
+    and the mix uses k-round-stale neighbor information:
+
+        round r:   mixed_r = w_self*h_r + S_j W_ij recon_j^(r-k)
+
+    ``k=1`` IS the pipelined schedule (bit-identical trajectories, same
+    comm state); the round is built the same way at every depth."""
+
+    name = "bounded_staleness"
+
+    def __init__(self, k: int = 1):
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"bounded staleness depth k={k} must be >= 1")
+        self.depth = k
+
+    def spec(self) -> str:
+        return f"{self.name}:k={self.depth}"
 
 
 def _flat_value_and_grad(layout: FlatLayout, loss_fn):
@@ -127,22 +283,28 @@ class GossipEngine(abc.ABC):
 
     name: ClassVar[str] = "abstract"
     layout: Optional[FlatLayout] = None
-    round_schedule: SequentialSchedule = SEQUENTIAL
+    round_schedule: RoundSchedule = _SCHEDULES["sequential"]
     device: torch.device
 
     def comm_keys(self, cfg: FLConfig) -> Tuple[str, ...]:
         """Names of the engine's wire-state buffers in ``FLState.comm``."""
         return ()
 
-    def init_comm_state(self, cfg: FLConfig, params) -> Optional[Dict[str, torch.Tensor]]:
-        """Zero-initialized (n, total) fp32 wire state: zeros mean the
-        first round effectively transmits the full parameters."""
-        keys = self.comm_keys(cfg)
-        if not keys:
-            return None
+    def comm_state_spec(self, cfg: FLConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """``{key: (shape, dtype)}`` of the wire-state buffers: (n, total)
+        fp32 unless an engine says otherwise."""
         shape = (cfg.n_nodes, self.layout.total)
-        return {k: torch.zeros(shape, dtype=torch.float32, device=self.device)
-                for k in keys}
+        return {k: (shape, torch.float32) for k in self.comm_keys(cfg)}
+
+    def init_comm_state(self, cfg: FLConfig, params) -> Optional[Dict[str, torch.Tensor]]:
+        """Zero-initialized wire state (:meth:`comm_state_spec`): zeros
+        mean the first round effectively transmits the full parameters
+        and the in-flight ring starts empty."""
+        spec = self.comm_state_spec(cfg)
+        if not spec:
+            return None
+        return {k: torch.zeros(shape, dtype=dtype, device=self.device)
+                for k, (shape, dtype) in spec.items()}
 
     def local_step(self, params, grads, alpha):
         """Eq. 4 in the engine's representation: ``p - alpha * g`` as two
@@ -227,12 +389,8 @@ def _degrees(w: np.ndarray) -> np.ndarray:
     return (np.abs(w - np.diag(np.diag(w))) > 0).sum(axis=1)
 
 
-def _refuse_unported(topk, round_schedule, topology_program, node_program,
-                     privacy, scope, storage_dtype) -> None:
-    if topk is not None:
-        raise _not_ported("the top-k wire", "6")
-    if round_schedule not in (None, "sequential", SEQUENTIAL):
-        raise _not_ported(f"round schedule {round_schedule!r}", "9")
+def _refuse_unported(topology_program, node_program, privacy, scope,
+                     storage_dtype) -> None:
     if topology_program not in (None, "static"):
         raise _not_ported(f"topology program {topology_program!r}", "10")
     if node_program not in (None, "homogeneous"):
@@ -245,12 +403,23 @@ def _refuse_unported(topk, round_schedule, topology_program, node_program,
         raise _not_ported(f"{storage_dtype} flat storage", "5")
 
 
+def _dequant(q: torch.Tensor, scales: torch.Tensor, scale_chunk: int) -> torch.Tensor:
+    """(n, t) int8 + (n, t // chunk) fp32 scales -> (n, t) fp32."""
+    n, t = q.shape
+    q3 = q.to(torch.float32).reshape(n, t // scale_chunk, scale_chunk)
+    return (q3 * scales[:, :, None]).reshape(n, t)
+
+
 @register_engine
 class FusedEngine(GossipEngine):
-    """The round megakernel on a dense W: local update + int8 quantize +
-    W-row mix + error feedback, ONE kernel call per comm round
-    (``kernels.gossip.fused_round`` / ``fused_round_gt``). On CPU tensors
-    the kernel wrappers run their PyTorch twins."""
+    """The CHOCO int8 wire on a dense W, ONE kernel call per comm round:
+    the round megakernel (local update + int8 quantize, top-k masked when
+    ``topk`` is set, + W-row mix + error feedback; ``kernels.gossip.
+    fused_round`` / ``fused_round_gt``) on the sequential and pipelined
+    schedules, the wire-stage kernel (``wire_stage`` / ``wire_stage_gt``)
+    plus a PyTorch mix at staleness depth k >= 2. On CPU tensors the
+    kernel wrappers run their PyTorch twins. The wire is always
+    difference-coded with error feedback (the kernels' defaults)."""
 
     name = "fused"
 
@@ -259,10 +428,12 @@ class FusedEngine(GossipEngine):
                  round_schedule=None, topology_program=None,
                  node_program=None, privacy=None, scope=None,
                  storage_dtype=None):
-        _refuse_unported(topk, round_schedule, topology_program, node_program,
-                         privacy, scope, storage_dtype)
+        _refuse_unported(topology_program, node_program, privacy, scope,
+                         storage_dtype)
         if scale_chunk < 1:
             raise ValueError("scale_chunk must be >= 1")
+        if topk is not None and topk < 1:
+            raise ValueError("topk must be >= 1 or None")
         if layout.total % scale_chunk:
             raise ValueError(
                 f"layout.total {layout.total} not a multiple of scale_chunk "
@@ -270,20 +441,58 @@ class FusedEngine(GossipEngine):
             )
         self.layout = layout
         self.scale_chunk = scale_chunk
+        self.topk = topk
+        self.round_schedule = resolve_schedule(round_schedule)
         self.device = resolve_device(device)
         self.w, w_self, w_off = _split_w_np(w, layout.n_nodes)
         self.w_self = torch.as_tensor(w_self, device=self.device)
         self.w_off = torch.as_tensor(w_off, device=self.device)
 
+    @property
+    def pipelined(self) -> bool:
+        """True for every non-blocking schedule (depth >= 1)."""
+        return self.round_schedule.depth >= 1
+
+    @property
+    def staleness_depth(self) -> int:
+        return self.round_schedule.depth
+
+    def _ring_depth(self) -> int:
+        """In-flight ring slots for depth-k staleness. The recon buffer
+        already lags the mix by one round (the ``k=1`` ``stale_mix``
+        kernel needs no extra buffer), and with difference coding the
+        k-round-stale reconstruction is ``recon^(r-1) - sum of the last
+        k-1 payloads``, so the ring holds k-1."""
+        k = self.staleness_depth
+        return 0 if k <= 1 else k - 1
+
     def comm_keys(self, cfg: FLConfig) -> Tuple[str, ...]:
-        keys = ("recon", "residual")
+        ring = ("wire_q", "wire_scales") if self._ring_depth() else ()
+        keys = ("recon", "residual") + ring
         if cfg.algorithm == "dsgt":
-            keys += ("recon_t", "residual_t")
+            keys += ("recon_t", "residual_t") + tuple(k + "_t" for k in ring)
         return keys
 
+    def comm_state_spec(self, cfg: FLConfig):
+        """Wire state: (n, total) fp32 recon / residual, and the ring of
+        int8 payloads (n, ring, total) with their fp32 scales
+        (n, ring, total // scale_chunk)."""
+        n, t, rd = cfg.n_nodes, self.layout.total, self._ring_depth()
+
+        def spec(key):
+            if key.startswith("wire_q"):
+                return (n, rd, t), torch.int8
+            if key.startswith("wire_scales"):
+                return (n, rd, t // self.scale_chunk), torch.float32
+            return (n, t), torch.float32
+
+        return {k: spec(k) for k in self.comm_keys(cfg)}
+
     def wire_bytes(self, cfg: FLConfig) -> float:
+        """One payload per wire and directed edge per round, at every
+        staleness depth (the ring holds payloads, it never resends)."""
         wires = 2 if cfg.algorithm == "dsgt" else 1
-        edge = flat_wire_bytes(self.layout, 1, self.scale_chunk)
+        edge = flat_wire_bytes(self.layout, 1, self.scale_chunk, self.topk)
         return float(wires * _degrees(self.w).sum() * edge)
 
     def check_params(self, cfg: FLConfig, params) -> None:
@@ -303,10 +512,26 @@ class FusedEngine(GossipEngine):
                 f"engine runs float32 on {self.device}"
             )
 
+    def _metrics(self, losses, alpha, grads, new_state: FLState, egress: float):
+        res = new_state.comm["residual"]
+        return {
+            "loss": losses.mean(),
+            "alpha": float(alpha),
+            "grad_norm_sq": _mean_grad_norm_sq(grads),
+            "consensus_err": _consensus_error(new_state.params),
+            "comm_rounds": 1.0,
+            "wire_bytes": egress,
+            "ef_residual_rms": torch.sqrt((res * res).mean()),
+        }
+
     def make_comm_step(self, eval_grads, schedule, cfg: FLConfig):
-        # the wire is always difference-coded with error feedback (the
-        # kernels' defaults); no caller needs another wire yet
-        kw = dict(scale_chunk=self.scale_chunk)
+        if self._ring_depth():
+            return self._make_bounded_comm_step(eval_grads, schedule, cfg)
+        # pipelined: the kernel's stale_mix contracts W against the INPUT
+        # recon -- the neighbor reconstruction as of the end of the
+        # previous round -- so depth 1 needs no extra buffer
+        kw = dict(scale_chunk=self.scale_chunk, topk=self.topk,
+                  stale_mix=self.pipelined)
         egress = self.wire_bytes(cfg)
 
         def comm_step(state: FLState, batch):
@@ -336,19 +561,83 @@ class FusedEngine(GossipEngine):
                     comm={"recon": nrx, "residual": nsx,
                           "recon_t": nrt, "residual_t": nst},
                 )
-            res = new_state.comm["residual"]
-            metrics = {
-                "loss": losses.mean(),
-                "alpha": float(alpha),
-                "grad_norm_sq": _mean_grad_norm_sq(grads),
-                "consensus_err": _consensus_error(new_state.params),
-                "comm_rounds": 1.0,
-                "wire_bytes": egress,
-                "ef_residual_rms": torch.sqrt((res * res).mean()),
-            }
-            return new_state, metrics
+            return new_state, self._metrics(losses, alpha, grads, new_state, egress)
 
         return comm_step
+
+    def _make_bounded_comm_step(self, eval_grads, schedule, cfg: FLConfig):
+        """The depth-k (k >= 2) round: ONE wire-stage kernel call, then the
+        mix -- plain PyTorch, fp32, in the reference's order -- against
+        the k-round-STALE reconstruction recovered from the in-flight ring
+        (:meth:`_ring_depth`), and this round's payload pushed onto the
+        ring (slot 0 is the oldest)."""
+        chunk = self.scale_chunk
+        kw = dict(scale_chunk=chunk, topk=self.topk)
+        egress = self.wire_bytes(cfg)
+
+        def stale_recon(recon, wq, wsc):
+            mix = recon
+            for j in range(wq.shape[1]):
+                mix = mix - _dequant(wq[:, j], wsc[:, j], chunk)
+            return mix
+
+        def push(wq, wsc, q, sc):
+            return (torch.cat([wq[:, 1:], q[:, None]], dim=1),
+                    torch.cat([wsc[:, 1:], sc[:, None]], dim=1))
+
+        def mix(nbr, h):
+            return self.w_off @ nbr + self.w_self[:, None] * h
+
+        def comm_step(state: FLState, batch):
+            if state.comm is None:
+                raise ValueError("fused rounds need init_fl_state(..., engine)")
+            step = state.step + 1
+            alpha = schedule(step)
+            losses, grads = eval_grads(state.params, batch)
+            c = state.comm
+            if cfg.algorithm == "dsgd":
+                h, q, sc, nrecon, nres = wire_stage(
+                    state.params, grads, c["recon"], c["residual"], alpha, **kw)
+                mixed = mix(stale_recon(c["recon"], c["wire_q"], c["wire_scales"]), h)
+                nwq, nwsc = push(c["wire_q"], c["wire_scales"], q, sc)
+                new_state = state._replace(
+                    step=step, params=mixed,
+                    comm={"recon": nrecon, "residual": nres,
+                          "wire_q": nwq, "wire_scales": nwsc},
+                )
+            else:
+                (h, t_half, qx, scx, nrx, nsx, qt, sct, nrt, nst) = wire_stage_gt(
+                    state.params, state.tracker, grads, state.prev_grad,
+                    c["recon"], c["residual"], c["recon_t"], c["residual_t"],
+                    alpha, **kw,
+                )
+                mixed_x = mix(stale_recon(c["recon"], c["wire_q"], c["wire_scales"]), h)
+                mixed_t = mix(stale_recon(c["recon_t"], c["wire_q_t"],
+                                          c["wire_scales_t"]), t_half)
+                nwq, nwsc = push(c["wire_q"], c["wire_scales"], qx, scx)
+                nwqt, nwsct = push(c["wire_q_t"], c["wire_scales_t"], qt, sct)
+                new_state = FLState(
+                    step=step, params=mixed_x, tracker=mixed_t, prev_grad=grads,
+                    comm={"recon": nrx, "residual": nsx,
+                          "recon_t": nrt, "residual_t": nst,
+                          "wire_q": nwq, "wire_scales": nwsc,
+                          "wire_q_t": nwqt, "wire_scales_t": nwsct},
+                )
+            return new_state, self._metrics(losses, alpha, grads, new_state, egress)
+
+        return comm_step
+
+    def make_pipelined_round(self, eval_grads, schedule, cfg: FLConfig):
+        """The dense engine has no separate transfer (its 'wire' is the
+        in-kernel W contraction), so the ingest hook is None and the comm
+        step ignores its third argument."""
+        if not self.pipelined:
+            raise ValueError(
+                "engine was built with round_schedule='sequential'; build "
+                "it with round_schedule='pipelined'"
+            )
+        comm_step = self.make_comm_step(eval_grads, schedule, cfg)
+        return None, lambda state, batch, stale: comm_step(state, batch)
 
     @classmethod
     def simulated(cls, w: np.ndarray, stacked_params, *, scale_chunk: int = 512,

@@ -62,8 +62,10 @@ class FLState(NamedTuple):
     DSGD. ``comm`` holds the fused engine's int8 wire state
     (``engine.comm_keys``): ``{"recon", "residual"}`` (n, total) fp32 for
     the parameter wire and ``{"recon_t", "residual_t"}`` for DSGT's
-    tracker wire. ``step`` is the global iteration counter r, a host int
-    (local steps count too)."""
+    tracker wire; at staleness depth k >= 2 also the in-flight ring
+    ``{"wire_q", "wire_scales"}`` (and ``_t``): int8 (n, k-1, total)
+    payloads and their fp32 scales. ``step`` is the global iteration
+    counter r, a host int (local steps count too)."""
 
     step: int
     params: Tree

@@ -11,8 +11,11 @@ rounds ``total`` up to a multiple of ``k`` with zero columns, so the
 buffer tiles evenly into kernel ``scale_chunk`` blocks; every engine op
 is columnwise and keeps those columns zero.
 
-Wire-byte accounting: a flat int8 payload costs ``total`` bytes plus
-4 bytes per (node, scale chunk) for the fp32 scales (:func:`flat_wire_bytes`).
+Wire-byte accounting (:func:`flat_wire_bytes`): a flat int8 payload
+costs ``total`` bytes plus 4 bytes per (node, scale chunk) for the fp32
+scales; a top-k payload is accounted in its compact encoding (k int8
+values, the cheaper of k positions or a chunk/8-byte presence bitmap,
+and the scale, per chunk).
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ __all__ = [
     "pack_layout",
     "pack_like",
     "unpack",
+    "compact_pos_dtype",
+    "bitmap_bytes_per_chunk",
+    "compact_index_bytes",
     "flat_wire_bytes",
 ]
 
@@ -173,9 +179,40 @@ def unpack(flat: torch.Tensor, layout: FlatLayout) -> Tree:
     return tree_unflatten(layout.paths, leaves)
 
 
-def flat_wire_bytes(layout: FlatLayout, degree: int, scale_chunk: int = 0) -> int:
-    """Per-node egress bytes per round for the dense int8 flat payload,
-    times the out-degree: 1 B per column (padding included: it travels)
-    plus 4 B per scale chunk (``scale_chunk=0``: one scale per node)."""
+def compact_pos_dtype(scale_chunk: int) -> torch.dtype:
+    """Dtype of the compact wire's in-chunk positions: int16 when a chunk
+    index fits (chunk <= 32768), int32 otherwise."""
+    return torch.int16 if scale_chunk <= 2 ** 15 else torch.int32
+
+
+def bitmap_bytes_per_chunk(scale_chunk: int) -> int | None:
+    """Bytes of one chunk's presence bitmap, or None when the chunk is not
+    byte-aligned (no bitmap encoding)."""
+    return scale_chunk // 8 if scale_chunk % 8 == 0 else None
+
+
+def compact_index_bytes(scale_chunk: int, topk: int) -> int:
+    """Index bytes of ONE chunk's compact top-k payload: the cheaper of
+    explicit positions (k x :func:`compact_pos_dtype`) and the presence
+    bitmap (chunk/8 B, byte-aligned chunks only)."""
+    explicit = topk * (torch.iinfo(compact_pos_dtype(scale_chunk)).bits // 8)
+    bitmap = bitmap_bytes_per_chunk(scale_chunk)
+    return explicit if bitmap is None else min(explicit, bitmap)
+
+
+def flat_wire_bytes(layout: FlatLayout, degree: int, scale_chunk: int = 0,
+                    topk: int | None = None) -> int:
+    """Per-node egress bytes per round for an int8 flat payload, times the
+    out-degree.
+
+    Dense int8 (``topk=None``, or ``topk >= scale_chunk``): 1 B per
+    column (padding included: it travels) plus 4 B per scale chunk
+    (``scale_chunk=0``: one scale per node). Top-k: per scale chunk, k
+    int8 values + :func:`compact_index_bytes` + the 4 B scale, capped at
+    the dense chunk's bytes."""
     n_scales = 1 if scale_chunk <= 0 else -(-layout.total // scale_chunk)
-    return degree * (layout.total + 4 * n_scales)
+    if topk is None or scale_chunk <= 0 or topk >= scale_chunk:
+        return degree * (layout.total + 4 * n_scales)
+    per_chunk = min(topk + compact_index_bytes(scale_chunk, topk) + 4,
+                    scale_chunk + 4)
+    return degree * (n_scales * per_chunk)

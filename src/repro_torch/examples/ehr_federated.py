@@ -4,12 +4,17 @@ reference's ``examples/ehr_federated.py``).
 The 20-hospital synthetic cohort, the 42 -> 32 -> 2 tanh MLP per
 hospital, FD-DSGT with Q local steps on the hospital graph at alpha =
 0.02/sqrt(r), with the class-weighted loss. The state lives in one packed
-``(20, 1536)`` buffer and every communication round is ONE call of the
-DSGT round megakernel (local update + int8 quantize + W mix + error
-feedback). Prints the per-round comm bytes of the difference-coded int8
-wire against the fp32 wire a plain engine ships.
+``(20, 1536)`` buffer and every communication round is ONE kernel call:
+the DSGT round megakernel (local update + int8 quantize + W mix + error
+feedback) on the sequential and pipelined schedules, the DSGT wire-stage
+kernel plus a stale mix under bounded staleness (``--fl-schedule
+bounded_staleness:k=2``). ``--topk`` masks the wire to the k largest
+columns per scale chunk, ``--topk-schedule`` adapts k to the error
+feedback residual. Prints the per-round comm bytes of the int8 (or
+top-k) wire against the fp32 wire a plain engine ships.
 
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --rounds 50 --q 10
+  PYTHONPATH=src python -m repro_torch.examples.ehr_federated --topk 64
 """
 
 from __future__ import annotations
@@ -20,8 +25,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.ehr_mlp import CLASS_WEIGHT, class_weights
-from repro_torch.core.engine import get_engine
+from repro_torch.configs.ehr_mlp import CLASS_WEIGHT, class_weights, topk_schedule
+from repro_torch.core.engine import get_engine, resolve_schedule
 from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round, tree_map
 from repro_torch.core.schedules import inv_sqrt
 from repro_torch.core.topology import mixing_matrix
@@ -33,21 +38,28 @@ from repro_torch.models.mlp import (
     mlp_balanced_accuracy,
     mlp_init,
 )
-from repro_torch.training.trainer import stack_batches, stack_for_nodes
+from repro_torch.training.trainer import AdaptiveTopK, stack_batches, stack_for_nodes
 
 
 def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
-                     class_weight=CLASS_WEIGHT, device=None,
+                     class_weight=CLASS_WEIGHT, fl_schedule="sequential",
+                     topk=None, topk_schedule=None, device=None,
                      init_params: Optional[Dict] = None) -> Dict:
-    """FD-DSGT on the ``fused`` engine, one megakernel call per comm round.
+    """FD-DSGT on the ``fused`` engine, one kernel call per comm round.
 
-    ``init_params``: one node's starting weights (a tree of tensors);
-    default ``mlp_init(seed)``. Tests pass the reference's init here.
-    Returns final ``acc``, ``bal_acc``, ``wire_saving`` (fp32 bytes over
-    the engine's wire bytes per round), ``wire_bytes`` per round and the
-    per-round ``losses``."""
+    ``fl_schedule``: a round-schedule spec ("sequential", "pipelined",
+    "bounded_staleness:k=K"). ``topk``: k payload columns per scale
+    chunk; ``topk_schedule=(k_sparse, k_dense, high[, low])`` runs the
+    adaptive-k wire instead. ``init_params``: one node's starting weights
+    (a tree of tensors); default ``mlp_init(seed)``. Tests pass the
+    reference's init here. Returns final ``acc``, ``bal_acc``,
+    ``wire_saving`` (fp32 bytes over the engine's wire bytes in the last
+    round), ``wire_bytes`` of the last round, the per-round ``losses``,
+    and ``dense_rounds`` (adaptive k only, else None)."""
     if rounds < 1:
         raise ValueError("rounds must be >= 1")
+    if topk_schedule is not None and topk is not None:
+        raise ValueError("pass either topk or topk_schedule, not both")
     dev = resolve_device(device)
     n = 20
     data = generate_ehr_cohort(seed=seed)
@@ -57,32 +69,59 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
     single = mlp_init(seed, device=dev) if init_params is None else tree_map(
         lambda p: torch.as_tensor(p, device=dev), init_params)
     cfg = FLConfig(algorithm="dsgt", q=q, n_nodes=n)
-    engine, flat = get_engine("fused").simulated(
-        w, stack_for_nodes(single, n), scale_chunk=scale_chunk
-    )
+    adaptive = (AdaptiveTopK(topk_schedule, scale_chunk)
+                if topk_schedule is not None else None)
+    if adaptive is not None:
+        topk = adaptive.k_sparse
+    stacked = stack_for_nodes(single, n)
+    kw = dict(scale_chunk=scale_chunk, round_schedule=resolve_schedule(fl_schedule))
+    engine, flat = get_engine("fused").simulated(w, stacked, topk=topk, **kw)
     loss_fn = make_mlp_loss(class_weights(class_weight))
     round_fn = make_fl_round(loss_fn, inv_sqrt(0.02), cfg, engine)
+    dense_fn = None
+    if adaptive is not None:
+        # the densified twin advances the SAME state (comm keys do not
+        # depend on k); the controller switches per round
+        dense_engine, _ = get_engine("fused").simulated(
+            w, stacked, topk=adaptive.dense_topk, **kw)
+        dense_fn = make_fl_round(loss_fn, inv_sqrt(0.02), cfg, dense_engine)
     state = init_fl_state(cfg, flat, engine)
 
-    # The int8 wire ships 1 B per padded column plus one fp32 scale per
-    # (node, scale_chunk) block; the fp32 wire ships the unpadded
-    # parameters. DSGT ships params AND tracker on both.
+    # The int8 wire ships 1 B per padded column (top-k: k values and their
+    # positions) plus one fp32 scale per (node, scale_chunk) block; the
+    # fp32 wire ships the unpadded parameters. DSGT ships params AND
+    # tracker on both.
     n_params = engine.layout.used
     degrees = (w - np.diag(np.diag(w)) > 0).sum(axis=1)
     fp32_bytes = float(2 * degrees.sum() * n_params * 4)
-    print(f"\nfused engine (FD-DSGT, Q={q}, schedule=sequential, hospital "
-          f"graph, class_weight={class_weight}, {n_params} params -> "
-          f"{engine.layout.total} padded, chunk={scale_chunk}, device={dev}):")
+    wire_label = f"top-{topk}" if topk else "int8"
+    print(f"\nfused engine (FD-DSGT, Q={q}, "
+          f"schedule={engine.round_schedule.spec()}, hospital graph, "
+          f"class_weight={class_weight}, {n_params} params -> "
+          f"{engine.layout.total} padded, chunk={scale_chunk}, topk={topk}, "
+          f"wire={engine.wire_bytes(cfg):,.0f} B/round, device={dev}):")
     losses = []
     m = None
     for rnd in range(1, rounds + 1):
-        state, m = round_fn(state, stack_batches(batcher, q))
+        fn = adaptive.pick(round_fn, dense_fn) if adaptive else round_fn
+        state, m = fn(state, stack_batches(batcher, q))
         losses.append(m["loss"])
         if rnd % max(1, rounds // 5) == 0 or rnd == 1:
+            k_note = (f" k={adaptive.current_k} "
+                      f"resid={float(m['ef_residual_rms']):.1e}"
+                      if adaptive is not None else "")
             print(f"  [round {rnd:4d}] loss={float(m['loss']):.4f} "
                   f"consensus_err={float(m['consensus_err']):.2e} "
-                  f"comm_bytes/round={m['wire_bytes']:,.0f} (int8 wire) "
-                  f"vs {fp32_bytes:,.0f} (fp32 wire)")
+                  f"comm_bytes/round={m['wire_bytes']:,.0f} ({wire_label} wire) "
+                  f"vs {fp32_bytes:,.0f} (fp32 wire){k_note}")
+        if adaptive is not None:
+            adaptive.update(float(m["ef_residual_rms"]))
+    if adaptive is not None:
+        print(f"  adaptive k: {adaptive.dense_rounds}/{rounds} rounds "
+              f"densified to k={adaptive.k_dense} (EF residual RMS > "
+              f"{adaptive.threshold:g}), "
+              f"{rounds - adaptive.dense_rounds} stayed at "
+              f"k={adaptive.k_sparse}")
 
     consensus = tree_map(lambda p: p.mean(dim=0), engine.params_view(state.params))
     xall = torch.as_tensor(np.concatenate(data.features), device=dev)
@@ -97,7 +136,18 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
           f"per iteration than comm-every-step fp32 gossip")
     return {"acc": acc, "bal_acc": bal, "wire_saving": saving,
             "wire_bytes": m["wire_bytes"],
-            "losses": torch.stack(losses).tolist()}
+            "losses": torch.stack(losses).tolist(),
+            "dense_rounds": adaptive.dense_rounds if adaptive else None}
+
+
+def _parse_topk_schedule(spec: Optional[str]):
+    """'config' (``configs.ehr_mlp.TOPK_SCHEDULE``) or
+    'k_sparse:k_dense:high[:low]'."""
+    if spec is None:
+        return None
+    if spec == "config":
+        return topk_schedule()
+    return topk_schedule(tuple(spec.split(":")))
 
 
 def main() -> None:
@@ -111,6 +161,17 @@ def main() -> None:
     ap.add_argument("--class-weight", default=CLASS_WEIGHT,
                     help="'balanced' (inverse frequency) or 'none' for the "
                          "paper-faithful unweighted loss")
+    ap.add_argument("--fl-schedule", default="sequential",
+                    help="round schedule: 'sequential', 'pipelined' (mix one "
+                         "round stale) or 'bounded_staleness:k=K' (K rounds "
+                         "stale, K payloads in flight)")
+    ap.add_argument("--topk", type=int, default=None,
+                    help="k payload columns per scale chunk (top-k wire)")
+    ap.add_argument("--topk-schedule", default=None,
+                    help="adaptive k as 'k_sparse:k_dense:high[:low]' or "
+                         "'config' for configs.ehr_mlp.TOPK_SCHEDULE: "
+                         "densify when the EF-residual RMS exceeds high, "
+                         "re-sparsify only below low (hysteresis)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain PyTorch twins)")
@@ -119,6 +180,8 @@ def main() -> None:
                      seed=args.seed,
                      class_weight=None if args.class_weight == "none"
                      else args.class_weight,
+                     fl_schedule=args.fl_schedule, topk=args.topk,
+                     topk_schedule=_parse_topk_schedule(args.topk_schedule),
                      device=args.device)
 
 

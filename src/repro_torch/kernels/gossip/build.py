@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles, on first
 use, into ``build/lib<name>-<hash>.so`` beside this file (the hash covers
-the source and the flags, so an edited source rebuilds). Only sources in
+the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header rebuilds). Only sources in
 the repository are compiled; nothing is fetched. Importing this module
 builds nothing: :func:`build` and :func:`load` do, and only on a machine
 with the CUDA toolkit.
@@ -50,8 +51,10 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

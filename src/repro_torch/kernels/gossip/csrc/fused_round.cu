@@ -1,6 +1,7 @@
 // Round megakernels for Hopper (sm_90a): one launch is one whole
 // communication round of the fused engine -- local update + int8
-// difference-coded quantization with error feedback + the W mix.
+// difference-coded quantization with error feedback (top-k masked when
+// topk > 0) + the W mix.
 //
 // Replaces the TPU kernels
 //   src/repro/kernels/gossip/gossip.py:421  fused_round_pallas     (DSGD)
@@ -20,64 +21,29 @@
 //     per-(row, chunk) scale needs the whole row of the chunk, and the mix
 //     needs every row of a column. Blocks share nothing and run in any
 //     order (the TPU grid's sequential order is not relied on).
-//   * One warp per row computes the payload into a shared tile and the
-//     row's max |payload| by a shuffle reduction (|payload| >= 0, so the
-//     max is exact in any order), then quantizes the row in place and
-//     leaves recon' (or, with stale_mix, the input recon) in the tile.
+//   * One warp per row runs the stage of quantize.cuh: the payload into a
+//     shared tile, the row's max |payload| by shuffles, the top-k
+//     threshold by a ballot search over the bits of |payload| (when
+//     topk > 0), then quantizes the row in place and leaves recon' (or,
+//     with stale_mix, the input recon) in the tile.
 //   * The mix reads the tile and W_off from shared memory; each thread
 //     accumulates 4 rows of one column. Half-updated values (h, t_half)
 //     are recomputed from global memory instead of being kept on chip.
 //   * DSGT runs the tracker wire and then the parameter wire through the
 //     same tile, so shared memory holds one n x chunk tile at a time
 //     (dynamic shared memory; the wrapper refuses tiles over 227 KB).
-//   * Rounding matches the twin exactly: every update/EF step is an
-//     explicitly rounded intrinsic (no FMA contraction; the build also
-//     passes -fmad=false), IEEE division (never a reciprocal), rintf
-//     (round half to even, like torch.round), scale = max / 127 first and
-//     safe = scale > 0 ? scale : 1 after.
+//   * Rounding matches the twin exactly (see quantize.cuh).
 // Faster designs -- TMA loads, more chunks or rows per block, a CUDA graph
 // around the whole round -- are later work.
 
-#include <cuda_runtime.h>
+#include "quantize.cuh"
 
 namespace {
 
+using namespace gossip;
+
 constexpr int kThreads = 512;
 constexpr int kRowsPerThread = 4;
-
-// h = x - alpha * g (the DSGD local update, and DSGT's parameter step).
-struct Update {
-  const float* __restrict__ x;
-  const float* __restrict__ g;
-  float alpha;
-  __device__ float operator()(size_t o) const {
-    return __fsub_rn(x[o], __fmul_rn(alpha, g[o]));
-  }
-};
-
-// t_half = (t + g) - g_prev (the DSGT tracker innovation).
-struct TrackerHalf {
-  const float* __restrict__ t;
-  const float* __restrict__ g;
-  const float* __restrict__ gp;
-  __device__ float operator()(size_t o) const {
-    return __fsub_rn(__fadd_rn(t[o], g[o]), gp[o]);
-  }
-};
-
-// h = x - alpha * t_half (the DSGT parameter step against the tracker).
-struct TrackedUpdate {
-  const float* __restrict__ x;
-  TrackerHalf th;
-  float alpha;
-  __device__ float operator()(size_t o) const {
-    return __fsub_rn(x[o], __fmul_rn(alpha, th(o)));
-  }
-};
-
-struct Geometry {
-  int n, t, chunk, n_pad, n_chunks;
-};
 
 // Copy W_off (zero-padded to n_pad rows) and w_self into shared memory.
 __device__ void load_weights(const float* __restrict__ w_off,
@@ -91,8 +57,8 @@ __device__ void load_weights(const float* __restrict__ w_off,
   }
 }
 
-// One wire over this block's column chunk: payload, scale, quantize,
-// recon'/res' out, then mixed = W_off @ nbr + w_self * src.
+// One wire over this block's column chunk: payload, scale, (top-k,)
+// quantize, recon'/res' out, then mixed = W_off @ nbr + w_self * src.
 template <bool EF, bool DC, bool STALE, class Src>
 __device__ void wire(const Src& src, const float* __restrict__ recon,
                      const float* __restrict__ res, float* __restrict__ mixed,
@@ -109,30 +75,16 @@ __device__ void wire(const Src& src, const float* __restrict__ recon,
   for (int i = warp; i < geo.n; i += n_warps) {
     const size_t row = static_cast<size_t>(i) * geo.t + c0;
     float* trow = tile + static_cast<size_t>(i) * chunk;
-    float m = 0.f;
-    for (int c = lane; c < chunk; c += 32) {
-      const float base = DC ? recon[row + c] : 0.f;
-      float p = __fsub_rn(src(row + c), base);
-      if (EF) p = __fadd_rn(p, res[row + c]);
-      trow[c] = p;
-      m = fmaxf(m, fabsf(p));
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    }
-    const float scale = __fdiv_rn(m, 127.f);
-    const float safe = scale > 0.f ? scale : 1.f;
-    if (lane == 0) scales[static_cast<size_t>(i) * geo.n_chunks + ci] = scale;
-    for (int c = lane; c < chunk; c += 32) {
-      const float p = trow[c];
-      const float q = fminf(fmaxf(rintf(__fdiv_rn(p, safe)), -127.f), 127.f);
-      const float dq = __fmul_rn(q, scale);
-      const float base = DC ? recon[row + c] : 0.f;
-      const float nr = __fadd_rn(base, dq);
-      new_recon[row + c] = nr;
-      new_res[row + c] = EF ? __fsub_rn(p, dq) : res[row + c];
-      trow[c] = STALE ? recon[row + c] : nr;
-    }
+    const float m = payload_row<EF, DC>(src, recon, res, row, chunk, trow,
+                                        nullptr);
+    const RowScale rs = row_scale(m, trow, chunk, geo.topk);
+    if (lane == 0) scales[static_cast<size_t>(i) * geo.n_chunks + ci] = rs.scale;
+    // leave the mix's neighbor view in the tile: recon' (or, with
+    // stale_mix, the input recon)
+    quantize_row<EF, DC>(trow, rs, recon, res, new_recon, new_res, row, chunk,
+                         [&](int c, float, float nr) {
+                           trow[c] = STALE ? recon[row + c] : nr;
+                         });
   }
   __syncthreads();
 
@@ -212,9 +164,9 @@ fused_round_gt_kernel(const float* __restrict__ x, const float* __restrict__ t,
                       geo);
 }
 
-Geometry make_geometry(int n, int t, int chunk) {
+Geometry make_geometry(int n, int t, int chunk, int topk) {
   const int n_pad = (n + kRowsPerThread - 1) / kRowsPerThread * kRowsPerThread;
-  return Geometry{n, t, chunk, n_pad, t / chunk};
+  return Geometry{n, t, chunk, n_pad, t / chunk, topk};
 }
 
 size_t smem_bytes(const Geometry& geo) {
@@ -251,7 +203,7 @@ extern "C" {
 // Dynamic shared memory one block needs (what the wrapper checks against
 // the 227 KB per-block limit before launching).
 size_t fused_round_smem_bytes(int n, int chunk) {
-  return smem_bytes(make_geometry(n, chunk, chunk));
+  return smem_bytes(make_geometry(n, chunk, chunk, 0));
 }
 
 const char* gossip_error_string(int err) {
@@ -259,17 +211,19 @@ const char* gossip_error_string(int err) {
 }
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
+// topk: columns kept per (row, chunk) by the top-k mask, 0 for all.
 int fused_round_launch(const float* x, const float* g, const float* recon,
                        const float* res, const float* w_off,
                        const float* w_self, float alpha, float* mixed,
                        float* new_recon, float* new_res, float* scales, int n,
-                       int t, int chunk, int ef, int dc, int stale,
+                       int t, int chunk, int topk, int ef, int dc, int stale,
                        void* stream) {
   using Fn = void (*)(const float*, const float*, const float*, const float*,
                       const float*, const float*, float, float*, float*, float*,
                       float*, Geometry);
   static const Fn table[8] = FLAG_TABLE(fused_round_kernel);
-  return launch(table[flag_index(ef, dc, stale)], make_geometry(n, t, chunk),
+  return launch(table[flag_index(ef, dc, stale)],
+                make_geometry(n, t, chunk, topk),
                 static_cast<cudaStream_t>(stream), x, g, recon, res, w_off,
                 w_self, alpha, mixed, new_recon, new_res, scales);
 }
@@ -281,14 +235,15 @@ int fused_round_gt_launch(const float* x, const float* t, const float* g,
                           const float* w_self, float alpha, float* mixed_x,
                           float* mixed_t, float* new_recon_x, float* new_res_x,
                           float* new_recon_t, float* new_res_t, float* scales_x,
-                          float* scales_t, int n, int tot, int chunk, int ef,
-                          int dc, int stale, void* stream) {
+                          float* scales_t, int n, int tot, int chunk, int topk,
+                          int ef, int dc, int stale, void* stream) {
   using Fn = void (*)(const float*, const float*, const float*, const float*,
                       const float*, const float*, const float*, const float*,
                       const float*, const float*, float, float*, float*, float*,
                       float*, float*, float*, float*, float*, Geometry);
   static const Fn table[8] = FLAG_TABLE(fused_round_gt_kernel);
-  return launch(table[flag_index(ef, dc, stale)], make_geometry(n, tot, chunk),
+  return launch(table[flag_index(ef, dc, stale)],
+                make_geometry(n, tot, chunk, topk),
                 static_cast<cudaStream_t>(stream), x, t, g, gp, recon_x, res_x,
                 recon_t, res_t, w_off, w_self, alpha, mixed_x, mixed_t,
                 new_recon_x, new_res_x, new_recon_t, new_res_t, scales_x,

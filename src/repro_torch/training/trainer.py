@@ -2,16 +2,17 @@
 ``repro.training.trainer``, the fused-engine path).
 
 Runs the paper's Algorithm 1 on one device: nodes live on the leading
-tensor axis, and every communication round is one round-megakernel call
-of the registry engine (``fused``, the only one ported so far) on the
-sequential round schedule.
+tensor axis, and every communication round is one kernel call of the
+registry engine (``fused``, the only one ported so far) on its round
+schedule: sequential, pipelined or bounded staleness, with the dense or
+top-k int8 wire, and adaptive k (:class:`AdaptiveTopK`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Iterator
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,15 +21,85 @@ from repro_torch.configs.base import FLRunConfig
 from repro_torch.core.engine import GossipEngine, get_engine
 from repro_torch.core.fl import FLConfig, FLState, init_fl_state, make_fl_round, tree_map
 from repro_torch.core.packing import tree_leaves
-from repro_torch.core.schedules import constant, inv_sqrt
+from repro_torch.core.schedules import (
+    constant,
+    inv_sqrt,
+    robust_alpha_scale,
+    scaled,
+    theorem1_schedule,
+)
 from repro_torch.core.topology import check_assumption1, mixing_matrix
 from repro_torch.device import resolve_device
 from repro_torch.training.metrics import MetricHistory
 
 Tree = Any
 
-__all__ = ["TrainResult", "train_decentralized", "make_schedule",
+__all__ = ["AdaptiveTopK", "TrainResult", "train_decentralized", "make_schedule",
            "stack_for_nodes", "stack_batches"]
+
+
+class AdaptiveTopK:
+    """Error-triggered wire densification: the one owner of the
+    adaptive-k round-to-round logic (the trainer and the EHR example use
+    it).
+
+    Spec ``(k_sparse, k_dense, densify_high[, resparsify_low])``: rounds
+    run the sparse wire until the ``ef_residual_rms`` metric (the mass
+    the wire is deferring) crosses ``densify_high``; then the densified
+    twin runs (``dense_topk`` is None -- plain dense int8 -- when k_dense
+    covers the whole scale chunk) until the residual drains BELOW
+    ``resparsify_low`` (default ``densify_high / 2``). The two thresholds
+    are a hysteresis band, so k does not flap around one line.
+
+    Build both round functions up front (the comm state does not depend
+    on k, so they advance the same state), then per round:
+
+        fn = ctl.pick(sparse_fn, dense_fn)
+        state, m = fn(state, batches)        # ctl.current_k ran this round
+        ctl.update(float(m["ef_residual_rms"]))
+    """
+
+    def __init__(self, spec, scale_chunk: int):
+        if len(spec) == 3:
+            k_sparse, k_dense, high = spec
+            low = float(high) / 2.0
+        else:
+            k_sparse, k_dense, high, low = spec
+        self.k_sparse = int(k_sparse)
+        self.k_dense = int(k_dense)
+        self.threshold = float(high)  #: densify when rms exceeds this
+        self.low = float(low)  #: re-sparsify only when rms drains below
+        if not (0.0 < self.low <= self.threshold):
+            raise ValueError(
+                f"hysteresis band needs 0 < low <= high, got "
+                f"low={self.low}, high={self.threshold}"
+            )
+        #: topk= for the densified twin engine (None = dense int8)
+        self.dense_topk = None if self.k_dense >= scale_chunk else self.k_dense
+        self._use_dense = False
+        self.rounds = 0
+        self.dense_rounds = 0
+        self.switches = 0
+
+    @property
+    def current_k(self) -> int:
+        """The k THIS round ships (valid until :meth:`update` is called)."""
+        return self.k_dense if self._use_dense else self.k_sparse
+
+    def pick(self, sparse_fn, dense_fn):
+        return dense_fn if self._use_dense else sparse_fn
+
+    def update(self, ef_residual_rms: float) -> None:
+        """Account the round just run and arm the next one: densify above
+        high, re-sparsify below low, hold the current wire in between."""
+        self.rounds += 1
+        self.dense_rounds += int(self._use_dense)
+        if self._use_dense:
+            use_dense = ef_residual_rms >= self.low
+        else:
+            use_dense = ef_residual_rms > self.threshold
+        self.switches += int(use_dense != self._use_dense)
+        self._use_dense = use_dense
 
 
 @dataclasses.dataclass
@@ -45,7 +116,9 @@ def make_schedule(run: FLRunConfig):
         return inv_sqrt(run.alpha0)
     if run.schedule == "constant":
         return constant(run.alpha0)
-    raise ValueError(f"unknown or unported schedule {run.schedule!r}")
+    if run.schedule == "theorem1":
+        return theorem1_schedule(run.n_nodes, run.alpha0)
+    raise ValueError(f"unknown schedule {run.schedule!r}")
 
 
 def stack_for_nodes(params: Tree, n_nodes: int) -> Tree:
@@ -71,6 +144,11 @@ def train_decentralized(
     rounds: int,
     engine: str = "fused",
     scale_chunk: int = 512,
+    topk: Optional[int] = None,
+    round_schedule: Optional[str] = None,
+    topk_schedule: Optional[Tuple[int, ...]] = None,
+    staleness_depth: Optional[int] = None,
+    robust_alpha: bool = False,
     device=None,
 ) -> TrainResult:
     """Train for ``rounds`` communication rounds on ``device`` (``cuda``
@@ -82,26 +160,64 @@ def train_decentralized(
     numpy batches; the driver groups Q of them per round (paper: Q local
     updates, then one communication). ``engine`` is a registry name,
     built with its ``simulated`` constructor against the run topology's W;
-    ``scale_chunk`` sets the fused engine's int8 scale chunk.
+    ``scale_chunk`` / ``topk`` set the fused engine's int8 / top-k wire.
+
+    ``round_schedule`` is a schedule spec ("sequential", "pipelined",
+    "bounded_staleness:k=K"); ``staleness_depth=k`` is sugar for it (0 =
+    sequential; passing both is refused). ``robust_alpha=True`` shrinks
+    the step-size schedule by ``robust_alpha_scale(1, depth)`` (the port
+    has no fault programs, so the uptime is 1).
+
+    ``topk_schedule = (k_sparse, k_dense, densify_high[, resparsify_low])``
+    runs the adaptive-k wire (:class:`AdaptiveTopK`): two round functions,
+    sparse and densified, built once and switched per round over ONE
+    state; the history then gains ``topk`` and ``ef_residual_rms``.
     """
     dev = resolve_device(device)
     w = mixing_matrix(run.topology, run.n_nodes)
     check_assumption1(w)
+    if staleness_depth is not None:
+        if round_schedule is not None:
+            raise ValueError(
+                "pass either round_schedule or staleness_depth, not both "
+                "(staleness_depth=k is sugar for "
+                "round_schedule='bounded_staleness:k=k')"
+            )
+        k = int(staleness_depth)
+        round_schedule = "sequential" if k == 0 else f"bounded_staleness:k={k}"
+    if topk_schedule is not None:
+        if topk is not None:
+            raise ValueError("pass either topk or topk_schedule, not both")
+        topk = int(topk_schedule[0])  # start on the sparse wire
     cfg = FLConfig(algorithm=run.algorithm, q=run.q, n_nodes=run.n_nodes)
     params = tree_map(lambda p: torch.as_tensor(p, device=dev), params_single)
     stacked = params if _is_stacked(params, run.n_nodes) else stack_for_nodes(
         params, run.n_nodes)
-    engine, params0 = get_engine(engine).simulated(w, stacked, scale_chunk=scale_chunk)
-    round_fn = make_fl_round(loss_fn, make_schedule(run), cfg, engine)
+    build = get_engine(engine).simulated
+    kw = dict(scale_chunk=scale_chunk, round_schedule=round_schedule)
+    engine, params0 = build(w, stacked, topk=topk, **kw)
+    schedule = make_schedule(run)
+    if robust_alpha:
+        schedule = scaled(schedule,
+                          robust_alpha_scale(1.0, engine.round_schedule.depth))
+    round_fn = make_fl_round(loss_fn, schedule, cfg, engine)
+    adaptive, dense_fn = None, None
+    if topk_schedule is not None:
+        adaptive = AdaptiveTopK(topk_schedule, engine.scale_chunk)
+        # the densified twin: same comm keys (they do not depend on k), so
+        # both round functions advance the SAME state
+        dense_engine, _ = build(w, stacked, topk=adaptive.dense_topk, **kw)
+        dense_fn = make_fl_round(loss_fn, schedule, cfg, dense_engine)
     state = init_fl_state(cfg, params0, engine)
 
     history = MetricHistory()
     t0 = time.time()
     cum_bytes = 0.0
     for rnd in range(1, rounds + 1):
-        state, m = round_fn(state, stack_batches(step_batches, run.q))
+        fn = adaptive.pick(round_fn, dense_fn) if adaptive else round_fn
+        state, m = fn(state, stack_batches(step_batches, run.q))
         cum_bytes += float(m["wire_bytes"])
-        history.append(
+        row = dict(
             round=rnd,
             iteration=state.step,
             comm_rounds=rnd,
@@ -113,6 +229,11 @@ def train_decentralized(
             alpha=float(m["alpha"]),
             wall_s=time.time() - t0,
         )
+        if adaptive is not None:
+            row["topk"] = float(adaptive.current_k)
+            row["ef_residual_rms"] = float(m["ef_residual_rms"])
+            adaptive.update(row["ef_residual_rms"])
+        history.append(**row)
     return TrainResult(state=state, history=history,
                        consensus=_consensus(engine, state), w=w, engine=engine)
 

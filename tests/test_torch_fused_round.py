@@ -161,14 +161,22 @@ def test_padding_columns_stay_zero():
 
 
 def test_registry_and_refusals():
+    """The registry; the validation of the wire and schedule knobs the
+    port now has (``topk < 1``, ``bounded_staleness:k < 1``); the
+    refusals that remain (topology and node programs, privacy, scope,
+    bf16 storage)."""
     assert "fused" in engine_names() and get_engine("fused") is FusedEngine
     with pytest.raises(ValueError, match="unknown engine"):
         get_engine("tree")
     w = mixing_matrix("hospital20", N)
     layout = pack_layout({"p": torch.zeros(N, 1442)}, pad_to=CHUNK)
-    for kw, item in [(dict(topk=64), "top-k"),
-                     (dict(round_schedule="pipelined"), "schedule"),
-                     (dict(topology_program="node_churn:p_down=0.1"), "topology"),
+    with pytest.raises(ValueError, match="topk must be >= 1"):
+        FusedEngine(w, layout, device="cpu", topk=0)
+    with pytest.raises(ValueError, match="k=0 must be >= 1"):
+        FusedEngine(w, layout, device="cpu", round_schedule="bounded_staleness:k=0")
+    with pytest.raises(ValueError, match="unknown round schedule"):
+        FusedEngine(w, layout, device="cpu", round_schedule="overlapped")
+    for kw, item in [(dict(topology_program="node_churn:p_down=0.1"), "topology"),
                      (dict(node_program="stragglers:frac=0.25"), "node program"),
                      (dict(privacy="secure_agg"), "privacy"),
                      (dict(scope="backbone"), "scope"),
@@ -183,3 +191,5 @@ def test_registry_and_refusals():
         init_fl_state(cfg, {"p": torch.zeros(N, 1442)}, engine)
     with pytest.raises(ValueError, match="flat buffer"):
         init_fl_state(cfg, torch.zeros(N, 1536, dtype=torch.float64), engine)
+    with pytest.raises(ValueError, match="sequential"):
+        engine.make_pipelined_round(None, None, cfg)

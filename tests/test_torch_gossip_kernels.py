@@ -8,6 +8,9 @@
   runs them there, where JAX is not needed).
 * The wrappers' refusals.
 
+The wire-stage kernels and the top-k wire have their CPU tests in
+tests/test_torch_wire_stage.py; their card-only cases are here.
+
 Tolerances: ``scales``, ``recon'`` and ``res'`` are elementwise chains of
 rounded fp32 operations in the same order on both sides, held to 1e-6
 (bitwise on the card). ``mixed`` holds the n x n contraction, which
@@ -216,17 +219,21 @@ def _dsgd_args(n=8, t=64):
 
 
 def test_refuses_topk_and_dp():
+    """``topk < 1`` is refused as the reference refuses it
+    (``gossip.py:_check_topk``); the DP wire is not ported and raises."""
     args = _dsgd_args()
     for fn in (ops.fused_round, ref.fused_round_ref):
-        with pytest.raises(NotImplementedError, match="top-k"):
-            fn(*args, scale_chunk=32, topk=4)
+        with pytest.raises(ValueError, match="topk must be >= 1"):
+            fn(*args, scale_chunk=32, topk=0)
     with pytest.raises(NotImplementedError, match="privacy"):
         ops.fused_round(*args, scale_chunk=32, dp_clip=1.0,
                         dp_noise=torch.zeros(8, 64))
     gt = _t(_inputs(8, 64, 2, seed=2)) + _t(_weights(8)) + [np.float32(0.1)]
     for fn in (ops.fused_round_gt, ref.fused_round_gt_ref):
-        with pytest.raises(NotImplementedError, match="top-k"):
-            fn(*gt, scale_chunk=32, topk=4)
+        with pytest.raises(ValueError, match="topk must be >= 1"):
+            fn(*gt, scale_chunk=32, topk=0)
+    with pytest.raises(NotImplementedError, match="privacy"):
+        ops.fused_round_gt(*gt, scale_chunk=32, dp_noise_t=torch.zeros(8, 64))
 
 
 def test_refuses_wrong_dtype_layout_and_chunk():
@@ -288,3 +295,74 @@ def test_kernel_refuses_tile_over_shared_memory(cuda):
     w = _t(_weights(n), cuda)
     with pytest.raises(ValueError, match="shared"):
         ops.fused_round(*bufs, *w, np.float32(0.1), scale_chunk=chunk)
+
+
+def _tie_inputs(bufs, chunk, wires, seed):
+    """Exact ties at the top-k threshold in (row 0, chunk 0): every input
+    there zero but x (DSGD) or the tracker t (DSGT), which carry
+    magnitudes 3, 2, 1 (chunk/8 threes, chunk/4 twos), so top-k at
+    k = chunk/4 keeps chunk/8 + chunk/4 columns."""
+    rng = np.random.default_rng(seed)
+    mags = np.ones(chunk, np.float32)
+    mags[: chunk // 8] = 3.0
+    mags[chunk // 8: chunk // 8 + chunk // 4] = 2.0
+    pattern = rng.permutation(mags * rng.choice([-1.0, 1.0], size=chunk))
+    for b in bufs:
+        b[0, :chunk] = 0.0
+    bufs[0 if wires == 1 else 1][0, :chunk] = torch.as_tensor(pattern, dtype=torch.float32)
+    return bufs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
+@pytest.mark.parametrize("wires", [1, 2])
+def test_wire_stage_kernel_matches_twin_on_card(cuda, shape, wires):
+    """Every output bitwise (h, t_half, q, scales, recon', res'), for the
+    4 (ef, dc) combinations x topk in {None, chunk/4 with exact ties at
+    the threshold, chunk}; one launch counted per call."""
+    n, t, chunk, _ = shape
+    kernel, twin = ((ops.wire_stage, ref.wire_stage_ref) if wires == 1 else
+                    (ops.wire_stage_gt, ref.wire_stage_gt_ref))
+    for k, ((ef, dc), topk) in enumerate(itertools.product(
+            itertools.product([True, False], repeat=2), [None, chunk // 4, chunk])):
+        bufs = _t(_inputs(n, t, wires, seed=k), cuda)
+        if topk == chunk // 4:
+            bufs = _tie_inputs(bufs, chunk, wires, seed=k)
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  topk=topk)
+        before = kernel.launches
+        got = kernel(*bufs, np.float32(0.02), **kw)
+        want = twin(*bufs, np.float32(0.02), **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (i, kw)
+        if topk == chunk // 4:
+            for i in ([1] if wires == 1 else [2, 6]):
+                kept = int(torch.count_nonzero(got[i][0, :chunk]))
+                assert kept == chunk // 8 + chunk // 4, (i, kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
+@pytest.mark.parametrize("wires", [1, 2])
+def test_topk_round_kernel_matches_twin_on_card(cuda, shape, wires):
+    """The round kernels with the top-k mask: recon', res' and scales
+    bitwise, mixed within ATOL, for every (ef, dc, stale) at topk in
+    {1, chunk/8}."""
+    n, t, chunk, topo = shape
+    w = _t(_weights(n, topo), cuda)
+    kernel, twin = ((ops.fused_round, ref.fused_round_ref) if wires == 1 else
+                    (ops.fused_round_gt, ref.fused_round_gt_ref))
+    for k, ((ef, dc, stale), topk) in enumerate(itertools.product(FLAGS, [1, chunk // 8])):
+        bufs = _t(_inputs(n, t, wires, seed=k), cuda)
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  stale_mix=stale, topk=topk)
+        got = kernel(*bufs, *w, np.float32(0.02), **kw)
+        want = twin(*bufs, *w, np.float32(0.02), **kw)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            if i < wires:
+                assert float((a - b).abs().max()) <= ATOL
+            else:
+                assert torch.equal(a, b), (i, kw)
