@@ -23,9 +23,9 @@
 //     order (the TPU grid's sequential order is not relied on).
 //   * One warp per row runs the stage of quantize.cuh: the payload into a
 //     shared tile, the row's max |payload| by shuffles, the top-k
-//     threshold by a ballot search over the bits of |payload| (when
-//     topk > 0), then quantizes the row in place and leaves recon' (or,
-//     with stale_mix, the input recon) in the tile.
+//     threshold by a ballot search over the bits of |payload| (the TOPK
+//     instantiations), then quantizes the row in place and leaves recon'
+//     (or, with stale_mix, the input recon) in the tile.
 //   * The mix reads the tile and W_off from shared memory; each thread
 //     accumulates 4 rows of one column. Half-updated values (h, t_half)
 //     are recomputed from global memory instead of being kept on chip.
@@ -59,7 +59,7 @@ __device__ void load_weights(const float* __restrict__ w_off,
 
 // One wire over this block's column chunk: payload, scale, (top-k,)
 // quantize, recon'/res' out, then mixed = W_off @ nbr + w_self * src.
-template <bool EF, bool DC, bool STALE, class Src>
+template <bool EF, bool DC, bool STALE, bool TOPK, class Src>
 __device__ void wire(const Src& src, const float* __restrict__ recon,
                      const float* __restrict__ res, float* __restrict__ mixed,
                      float* __restrict__ new_recon, float* __restrict__ new_res,
@@ -77,14 +77,15 @@ __device__ void wire(const Src& src, const float* __restrict__ recon,
     float* trow = tile + static_cast<size_t>(i) * chunk;
     const float m = payload_row<EF, DC>(src, recon, res, row, chunk, trow,
                                         nullptr);
-    const RowScale rs = row_scale(m, trow, chunk, geo.topk);
+    const RowScale rs = row_scale<TOPK>(m, trow, chunk, geo.topk);
     if (lane == 0) scales[static_cast<size_t>(i) * geo.n_chunks + ci] = rs.scale;
     // leave the mix's neighbor view in the tile: recon' (or, with
     // stale_mix, the input recon)
-    quantize_row<EF, DC>(trow, rs, recon, res, new_recon, new_res, row, chunk,
-                         [&](int c, float, float nr) {
-                           trow[c] = STALE ? recon[row + c] : nr;
-                         });
+    quantize_row<EF, DC, TOPK>(trow, rs, recon, res, new_recon, new_res, row,
+                               chunk,
+                               [&](int c, float, float nr) {
+                                 trow[c] = STALE ? recon[row + c] : nr;
+                               });
   }
   __syncthreads();
 
@@ -114,7 +115,7 @@ __device__ void wire(const Src& src, const float* __restrict__ recon,
   __syncthreads();  // the next wire reuses the tile
 }
 
-template <bool EF, bool DC, bool STALE>
+template <bool EF, bool DC, bool STALE, bool TOPK>
 __global__ void __launch_bounds__(kThreads)
 fused_round_kernel(const float* __restrict__ x, const float* __restrict__ g,
                    const float* __restrict__ recon, const float* __restrict__ res,
@@ -129,11 +130,11 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ g,
   float* wself_s = woff_s + geo.n_pad * geo.n;
   load_weights(w_off, w_self, woff_s, wself_s, geo);
   __syncthreads();
-  wire<EF, DC, STALE>(Update{x, g, alpha}, recon, res, mixed, new_recon,
-                      new_res, scales, woff_s, wself_s, tile, geo);
+  wire<EF, DC, STALE, TOPK>(Update{x, g, alpha}, recon, res, mixed, new_recon,
+                            new_res, scales, woff_s, wself_s, tile, geo);
 }
 
-template <bool EF, bool DC, bool STALE>
+template <bool EF, bool DC, bool STALE, bool TOPK>
 __global__ void __launch_bounds__(kThreads)
 fused_round_gt_kernel(const float* __restrict__ x, const float* __restrict__ t,
                       const float* __restrict__ g, const float* __restrict__ gp,
@@ -157,11 +158,11 @@ fused_round_gt_kernel(const float* __restrict__ x, const float* __restrict__ t,
   load_weights(w_off, w_self, woff_s, wself_s, geo);
   __syncthreads();
   const TrackerHalf th{t, g, gp};
-  wire<EF, DC, STALE>(th, recon_t, res_t, mixed_t, new_recon_t, new_res_t,
-                      scales_t, woff_s, wself_s, tile, geo);
-  wire<EF, DC, STALE>(TrackedUpdate{x, th, alpha}, recon_x, res_x, mixed_x,
-                      new_recon_x, new_res_x, scales_x, woff_s, wself_s, tile,
-                      geo);
+  wire<EF, DC, STALE, TOPK>(th, recon_t, res_t, mixed_t, new_recon_t,
+                            new_res_t, scales_t, woff_s, wself_s, tile, geo);
+  wire<EF, DC, STALE, TOPK>(TrackedUpdate{x, th, alpha}, recon_x, res_x,
+                            mixed_x, new_recon_x, new_res_x, scales_x, woff_s,
+                            wself_s, tile, geo);
 }
 
 Geometry make_geometry(int n, int t, int chunk, int topk) {
@@ -186,14 +187,17 @@ cudaError_t launch(Kernel kernel, const Geometry& geo, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// The 8 flag combinations of one kernel template, indexed ef<<2|dc<<1|stale.
+// The 16 flag combinations of one kernel template, indexed
+// ef<<3|dc<<2|stale<<1|topk.
+#define FLAG_ROW(K, EF, DC) \
+  K<EF, DC, false, false>, K<EF, DC, false, true>, K<EF, DC, true, false>, \
+      K<EF, DC, true, true>
 #define FLAG_TABLE(K)                                                   \
-  { K<false, false, false>, K<false, false, true>, K<false, true, false>, \
-    K<false, true, true>,   K<true, false, false>, K<true, false, true>,  \
-    K<true, true, false>,   K<true, true, true> }
+  { FLAG_ROW(K, false, false), FLAG_ROW(K, false, true),                \
+    FLAG_ROW(K, true, false), FLAG_ROW(K, true, true) }
 
-int flag_index(int ef, int dc, int stale) {
-  return (ef ? 4 : 0) | (dc ? 2 : 0) | (stale ? 1 : 0);
+int flag_index(int ef, int dc, int stale, int topk) {
+  return (ef ? 8 : 0) | (dc ? 4 : 0) | (stale ? 2 : 0) | (topk > 0 ? 1 : 0);
 }
 
 }  // namespace
@@ -221,8 +225,8 @@ int fused_round_launch(const float* x, const float* g, const float* recon,
   using Fn = void (*)(const float*, const float*, const float*, const float*,
                       const float*, const float*, float, float*, float*, float*,
                       float*, Geometry);
-  static const Fn table[8] = FLAG_TABLE(fused_round_kernel);
-  return launch(table[flag_index(ef, dc, stale)],
+  static const Fn table[16] = FLAG_TABLE(fused_round_kernel);
+  return launch(table[flag_index(ef, dc, stale, topk)],
                 make_geometry(n, t, chunk, topk),
                 static_cast<cudaStream_t>(stream), x, g, recon, res, w_off,
                 w_self, alpha, mixed, new_recon, new_res, scales);
@@ -241,8 +245,8 @@ int fused_round_gt_launch(const float* x, const float* t, const float* g,
                       const float*, const float*, const float*, const float*,
                       const float*, const float*, float, float*, float*, float*,
                       float*, float*, float*, float*, float*, Geometry);
-  static const Fn table[8] = FLAG_TABLE(fused_round_gt_kernel);
-  return launch(table[flag_index(ef, dc, stale)],
+  static const Fn table[16] = FLAG_TABLE(fused_round_gt_kernel);
+  return launch(table[flag_index(ef, dc, stale, topk)],
                 make_geometry(n, tot, chunk, topk),
                 static_cast<cudaStream_t>(stream), x, t, g, gp, recon_x, res_x,
                 recon_t, res_t, w_off, w_self, alpha, mixed_x, mixed_t,

@@ -8,10 +8,11 @@
 // so the row buffer needs no synchronization; the row max and the top-k
 // counts are warp-wide (shuffles, ballots).
 //
-// Rounding matches the PyTorch twins in ../ref.py exactly: explicitly
-// rounded intrinsics (the build also passes -fmad=false), IEEE division,
-// rintf (half to even), scale = max / 127 before safe = scale > 0 ?
-// scale : 1, and masked columns become +0.0.
+// The top-k mask is a template flag (TOPK), so the dense kernels carry
+// none of its code. Rounding matches the PyTorch twins in ../ref.py
+// exactly: explicitly rounded intrinsics (the build also passes
+// -fmad=false), IEEE division, rintf (half to even), scale = max / 127
+// before safe = scale > 0 ? scale : 1, and masked columns become +0.0.
 
 #pragma once
 
@@ -25,7 +26,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 
 struct Geometry {
   int n, t, chunk, n_pad, n_chunks;
-  int topk;  // columns kept per (row, chunk); 0 keeps all of them
+  int topk;  // columns kept per (row, chunk) when a kernel has TOPK on
 };
 
 // h = x - alpha * g (the DSGD local update, and DSGT's parameter step).
@@ -113,19 +114,19 @@ __device__ inline float topk_threshold(const float* trow, int chunk, int k) {
   return __uint_as_float(thr);
 }
 
-__device__ inline RowScale row_scale(float m, const float* trow, int chunk,
-                                     int topk) {
+template <bool TOPK>
+__device__ RowScale row_scale(float m, const float* trow, int chunk, int topk) {
   const float scale = __fdiv_rn(m, 127.f);
   RowScale rs{scale, scale > 0.f ? scale : 1.f, 0.f};
-  if (topk > 0) rs.thr = topk_threshold(trow, chunk, topk);
+  if (TOPK) rs.thr = topk_threshold(trow, chunk, topk);
   return rs;
 }
 
 // Quantize the row in trow: q = clip(rint(sel / safe), +-127) with sel
-// the payload, or +0.0 below the top-k threshold; writes recon' = base +
-// q * scale and res' = payload - q * scale (the FULL payload: EF absorbs
-// what the mask dropped), then hands emit(c, q, recon') the rest.
-template <bool EF, bool DC, class Emit>
+// the payload, or (TOPK) +0.0 below the top-k threshold; writes recon' =
+// base + q * scale and res' = payload - q * scale (the FULL payload: EF
+// absorbs what the mask dropped), then hands emit(c, q, recon') the rest.
+template <bool EF, bool DC, bool TOPK, class Emit>
 __device__ void quantize_row(const float* trow, const RowScale& rs,
                              const float* __restrict__ recon,
                              const float* __restrict__ res,
@@ -135,7 +136,7 @@ __device__ void quantize_row(const float* trow, const RowScale& rs,
   const int lane = threadIdx.x % 32;
   for (int c = lane; c < chunk; c += 32) {
     const float p = trow[c];
-    const float sel = fabsf(p) >= rs.thr ? p : 0.f;
+    const float sel = !TOPK || fabsf(p) >= rs.thr ? p : 0.f;
     const float q =
         fminf(fmaxf(rintf(__fdiv_rn(sel, rs.safe)), -127.f), 127.f);
     const float dq = __fmul_rn(q, rs.scale);

@@ -54,7 +54,7 @@ struct WireOut {
 };
 
 // The stage on one (row i, chunk ci) of one wire; src to h_out.
-template <bool EF, bool DC, class Src>
+template <bool EF, bool DC, bool TOPK, class Src>
 __device__ void stage(const Src& src, const float* __restrict__ recon,
                       const float* __restrict__ res, float* __restrict__ h_out,
                       const WireOut& out, int i, int ci, float* trow,
@@ -63,16 +63,17 @@ __device__ void stage(const Src& src, const float* __restrict__ recon,
       static_cast<size_t>(i) * geo.t + static_cast<size_t>(ci) * geo.chunk;
   const float m =
       payload_row<EF, DC>(src, recon, res, row, geo.chunk, trow, h_out);
-  const RowScale rs = row_scale(m, trow, geo.chunk, geo.topk);
+  const RowScale rs = row_scale<TOPK>(m, trow, geo.chunk, geo.topk);
   if (threadIdx.x % 32 == 0) {
     out.scales[static_cast<size_t>(i) * geo.n_chunks + ci] = rs.scale;
   }
   int8_t* q_out = out.q;
-  quantize_row<EF, DC>(trow, rs, recon, res, out.new_recon, out.new_res, row,
-                       geo.chunk, [&](int c, float q, float) {
-                         // q is an integer in [-127, 127]: the cast is exact
-                         q_out[row + c] = static_cast<int8_t>(__float2int_rn(q));
-                       });
+  quantize_row<EF, DC, TOPK>(
+      trow, rs, recon, res, out.new_recon, out.new_res, row, geo.chunk,
+      [&](int c, float q, float) {
+        // q is an integer in [-127, 127]: the cast is exact
+        q_out[row + c] = static_cast<int8_t>(__float2int_rn(q));
+      });
 }
 
 // This warp's (row, chunk), or false past the end (the whole warp leaves:
@@ -87,7 +88,7 @@ __device__ bool warp_pair(const Geometry& geo, int* i, int* ci) {
   return true;
 }
 
-template <bool EF, bool DC>
+template <bool EF, bool DC, bool TOPK>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 wire_stage_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   const float* __restrict__ recon,
@@ -97,10 +98,11 @@ wire_stage_kernel(const float* __restrict__ x, const float* __restrict__ g,
   int i, ci;
   if (!warp_pair(geo, &i, &ci)) return;
   float* trow = smem + static_cast<size_t>(threadIdx.x / 32) * geo.chunk;
-  stage<EF, DC>(Update{x, g, alpha}, recon, res, h, out, i, ci, trow, geo);
+  stage<EF, DC, TOPK>(Update{x, g, alpha}, recon, res, h, out, i, ci, trow,
+                      geo);
 }
 
-template <bool EF, bool DC>
+template <bool EF, bool DC, bool TOPK>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 wire_stage_gt_kernel(const float* __restrict__ x, const float* __restrict__ t,
                      const float* __restrict__ g, const float* __restrict__ gp,
@@ -115,9 +117,9 @@ wire_stage_gt_kernel(const float* __restrict__ x, const float* __restrict__ t,
   if (!warp_pair(geo, &i, &ci)) return;
   float* trow = smem + static_cast<size_t>(threadIdx.x / 32) * geo.chunk;
   const TrackerHalf th{t, g, gp};
-  stage<EF, DC>(th, recon_t, res_t, t_half, out_t, i, ci, trow, geo);
-  stage<EF, DC>(TrackedUpdate{x, th, alpha}, recon_x, res_x, h, out_x, i, ci,
-                trow, geo);
+  stage<EF, DC, TOPK>(th, recon_t, res_t, t_half, out_t, i, ci, trow, geo);
+  stage<EF, DC, TOPK>(TrackedUpdate{x, th, alpha}, recon_x, res_x, h, out_x, i,
+                      ci, trow, geo);
 }
 
 template <class Kernel, class... Args>
@@ -135,11 +137,15 @@ cudaError_t launch(Kernel kernel, const Geometry& geo, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// The 4 flag combinations of one kernel template, indexed ef<<1|dc.
-#define FLAG_TABLE(K) \
-  { K<false, false>, K<false, true>, K<true, false>, K<true, true> }
+// The 8 flag combinations of one kernel template, indexed ef<<2|dc<<1|topk.
+#define FLAG_TABLE(K)                                                     \
+  { K<false, false, false>, K<false, false, true>, K<false, true, false>, \
+    K<false, true, true>,   K<true, false, false>, K<true, false, true>,  \
+    K<true, true, false>,   K<true, true, true> }
 
-int flag_index(int ef, int dc) { return (ef ? 2 : 0) | (dc ? 1 : 0); }
+int flag_index(int ef, int dc, int topk) {
+  return (ef ? 4 : 0) | (dc ? 2 : 0) | (topk > 0 ? 1 : 0);
+}
 
 Geometry make_geometry(int n, int t, int chunk, int topk) {
   return Geometry{n, t, chunk, n, t / chunk, topk};
@@ -166,8 +172,9 @@ int wire_stage_launch(const float* x, const float* g, const float* recon,
                       void* stream) {
   using Fn = void (*)(const float*, const float*, const float*, const float*,
                       float, float*, WireOut, Geometry);
-  static const Fn table[4] = FLAG_TABLE(wire_stage_kernel);
-  return launch(table[flag_index(ef, dc)], make_geometry(n, t, chunk, topk),
+  static const Fn table[8] = FLAG_TABLE(wire_stage_kernel);
+  return launch(table[flag_index(ef, dc, topk)],
+                make_geometry(n, t, chunk, topk),
                 static_cast<cudaStream_t>(stream), x, g, recon, res, alpha, h,
                 WireOut{q, scales, new_recon, new_res});
 }
@@ -184,8 +191,9 @@ int wire_stage_gt_launch(const float* x, const float* t, const float* g,
   using Fn = void (*)(const float*, const float*, const float*, const float*,
                       const float*, const float*, const float*, const float*,
                       float, float*, float*, WireOut, WireOut, Geometry);
-  static const Fn table[4] = FLAG_TABLE(wire_stage_gt_kernel);
-  return launch(table[flag_index(ef, dc)], make_geometry(n, tot, chunk, topk),
+  static const Fn table[8] = FLAG_TABLE(wire_stage_gt_kernel);
+  return launch(table[flag_index(ef, dc, topk)],
+                make_geometry(n, tot, chunk, topk),
                 static_cast<cudaStream_t>(stream), x, t, g, gp, recon_x, res_x,
                 recon_t, res_t, alpha, h, t_half,
                 WireOut{q_x, scales_x, new_recon_x, new_res_x},

@@ -115,7 +115,8 @@ def _alpha32(alpha) -> np.float32:
 
 
 def _topk_arg(topk, scale_chunk: int) -> int:
-    """The kernels' runtime topk: 0 keeps every column."""
+    """The kernels' topk argument: 0 launches the dense instantiation,
+    which keeps every column."""
     return 0 if topk is None or topk >= scale_chunk else int(topk)
 
 
