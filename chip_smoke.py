@@ -4,16 +4,21 @@
     python3 chip_smoke.py
 
 Builds the gossip kernels from ``src/repro_torch/kernels/gossip/csrc``
-(the round megakernels and the wire stages, one ``nvcc`` per source, in
-parallel, into that package's ``build/``), holds each against its plain
-PyTorch twin on the card (dense and top-k wires), drives the port's
-paths -- the paper's FD-DSGT on the fused engine, FD-DSGD, FD-DSGT under
-bounded staleness k = 2, FD-DSGD at k = 4, the pipelined FD-DSGT round
-and the top-64 wire -- counting each kernel's launches per path, and
-times the kernels, their twins and whole Q = 10 rounds (sequential and
-bounded). Any failed check raises, so the exit code is non-zero; without
-a CUDA card (or without the repository around it) the script fails
-before printing any result.
+(the gossip stage and the round megakernels, and the wire stages, one
+``nvcc`` per source, in parallel, into that package's ``build/``), holds
+each against its plain PyTorch twin on the card (dense and top-k wires),
+drives the port's paths -- the paper's FD-DSGT on the fused engine,
+FD-DSGD, FD-DSGT under bounded staleness k = 2, FD-DSGD at k = 4, the
+pipelined FD-DSGT round, the top-64 wire, the paper's Fig. 2 (DSGD,
+DSGT, FD-DSGD and FD-DSGT at Q = 100 on the exact-wire tree engine, 3000
+iterations each, against the same run on the CPU) and the compressed
+FD-DSGT composition (the flat engine, then ``make_compressed_flat_gossip``
+on each wire, against the fused engine) -- counting each kernel's
+launches per path, and times the kernels, their twins and whole rounds
+(fused sequential and bounded at Q = 10, tree DSGT and FD-DSGT at Q =
+100). Any failed check raises, so the exit code is non-zero; without a
+CUDA card (or without the repository around it) the script fails before
+printing any result.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` reports them, a ``{"kernels": [...]}`` JSON line, and last
@@ -37,10 +42,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.benchmarks.fig2_comm_rounds import ALGOS, claims  # noqa: E402
+from repro_torch.benchmarks.fig2_comm_rounds import run as fig2_run  # noqa: E402
 from repro_torch.configs.base import FLRunConfig  # noqa: E402
 from repro_torch.configs.ehr_mlp import class_weights  # noqa: E402
-from repro_torch.core.engine import get_engine  # noqa: E402
+from repro_torch.core.compression import (  # noqa: E402
+    init_flat_compression_state,
+    make_compressed_flat_gossip,
+)
+from repro_torch.core.engine import FlatEngine, get_engine  # noqa: E402
 from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round  # noqa: E402
+from repro_torch.core.packing import pack, tree_leaves, unpack  # noqa: E402
 from repro_torch.core.schedules import inv_sqrt  # noqa: E402
 from repro_torch.core.topology import mixing_matrix  # noqa: E402
 from repro_torch.data.ehr import generate_ehr_cohort, make_node_batcher  # noqa: E402
@@ -49,12 +61,14 @@ from repro_torch.kernels.gossip import build as kbuild  # noqa: E402
 from repro_torch.kernels.gossip.ops import (  # noqa: E402
     fused_round,
     fused_round_gt,
+    gossip_mix,
     wire_stage,
     wire_stage_gt,
 )
 from repro_torch.kernels.gossip.ref import (  # noqa: E402
     fused_round_gt_ref,
     fused_round_ref,
+    gossip_mix_ref,
     wire_stage_gt_ref,
     wire_stage_ref,
 )
@@ -79,7 +93,12 @@ WIRE_KERNELS = {
     "wire_stage_gt": (wire_stage_gt, wire_stage_gt_ref, 2,
                       "src/repro/kernels/gossip/gossip.py:679", CSRC + "wire_stage.cu"),
 }
-WRAPPERS = [fused_round, fused_round_gt, wire_stage, wire_stage_gt]
+GOSSIP_KERNELS = {
+    "gossip_mix": (gossip_mix, gossip_mix_ref, 0,
+                   "src/repro/kernels/gossip/gossip.py:378", CSRC + "fused_round.cu"),
+}
+ALL_KERNELS = {**GOSSIP_KERNELS, **KERNELS, **WIRE_KERNELS}
+WRAPPERS = [gossip_mix, fused_round, fused_round_gt, wire_stage, wire_stage_gt]
 # (label, nodes, flat width, scale chunk, topology): the main path, a
 # ragged shape with one all-zero row chunk (exercises safe = 1), and a
 # large shape that makes the kernel bandwidth-bound
@@ -96,6 +115,12 @@ ALPHA = np.float32(0.02)
 # ships 132 B per chunk (64 values, a 64 B presence bitmap, the scale)
 WIRE_DSGT, WIRE_DSGD, WIRE_TOP64 = 167_184, 83_592, 42_768
 TOPK_MAIN = 64  # the reference example's --topk
+FIG2_ITERATIONS = 3000  # the paper's budget per algorithm
+# final Fig. 2 losses, card against CPU: the exact wire has no int8 step
+# to flip, so the runs differ only by fp32 summation order (the port's
+# CPU run and the reference's agree within 5e-7 relative over 3000
+# iterations)
+FIG2_RTOL = 1e-4
 
 # Published peaks of the H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # fp32 operations/s outside the tensor cores, at its full 700 W limit.
@@ -149,6 +174,20 @@ def round_ops(n: int, t: int, chunk: int, wires: int, topk=None) -> int:
     return wires * per_wire + update_ops(n, t, wires)
 
 
+def gossip_bytes(n: int, t: int, chunk: int) -> int:
+    """HBM bytes one gossip-stage kernel must move: x, recon and res read
+    once, mixed, recon' and res' written once, the scales and the
+    weights."""
+    return 4 * (n * t * 6 + n * (t // chunk) + n * n + n)
+
+
+def gossip_ops(n: int, t: int, chunk: int, topk=None) -> int:
+    """fp32 operations of one gossip-stage kernel (``gossip_mix_kernel``
+    in csrc/fused_round.cu): one wire of :func:`round_ops` with no local
+    update."""
+    return stage_ops(n, t, chunk, topk) + n * t * (2 + 2 * n)
+
+
 def wire_bytes_moved(n: int, t: int, chunk: int, wires: int) -> int:
     """HBM bytes one wire-stage kernel must move: each (n, t) fp32 input
     read once (DSGD 4, DSGT 8), each output written once (DSGD h,
@@ -172,16 +211,19 @@ def bound(nbytes: int, ops: int):
 
 def make_inputs(n: int, t: int, chunk: int, wires: int, label: str, seed: int,
                 ties: bool = False):
+    """The kernel's (n, t) inputs: x, recon, res for the gossip stage
+    (``wires`` 0), x, g, recon, res for DSGD (1), x, t, g, g_prev and two
+    (recon, res) pairs for DSGT (2)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    count = 4 if wires == 1 else 8
-    scales = [1.0, 1.0, 1.0, 0.1] if wires == 1 else [1.0, 0.3, 0.5, 0.5, 1.0, 0.1, 1.0, 0.1]
-    bufs = [s * torch.randn(n, t, generator=gen, device="cuda") for s in scales[:count]]
+    scales = {0: [1.0, 1.0, 0.1], 1: [1.0, 1.0, 1.0, 0.1],
+              2: [1.0, 0.3, 0.5, 0.5, 1.0, 0.1, 1.0, 0.1]}[wires]
+    bufs = [s * torch.randn(n, t, generator=gen, device="cuda") for s in scales]
     if label == "zero-chunk":
         for b in bufs:  # payload of (row 3, chunk 1) is exactly zero
             b[3, chunk:2 * chunk] = 0.0
     if ties:
-        # (row 0, chunk 0): every input zero but x (DSGD) or the tracker t
-        # (DSGT), which carry magnitudes 3, 2 and 1 with random signs
+        # (row 0, chunk 0): every input zero but x (gossip stage, DSGD) or
+        # the tracker t (DSGT), which carry magnitudes 3, 2 and 1 with random signs
         # (chunk/8 threes, chunk/4 twos): top-k at k = chunk/4 has its
         # threshold at 2 and must keep all chunk/8 + chunk/4 columns
         mags = torch.ones(chunk, device="cuda")
@@ -191,7 +233,7 @@ def make_inputs(n: int, t: int, chunk: int, wires: int, label: str, seed: int,
         perm = torch.randperm(chunk, generator=gen, device="cuda")
         for b in bufs:
             b[0, :chunk] = 0.0
-        bufs[0 if wires == 1 else 1][0, :chunk] = (mags * signs)[perm]
+        bufs[1 if wires == 2 else 0][0, :chunk] = (mags * signs)[perm]
     return bufs
 
 
@@ -294,6 +336,59 @@ def check_wire_stages() -> dict:
     return max_err
 
 
+def check_gossip_mix() -> dict:
+    """The gossip-stage kernel against its twin on the card, at every
+    shape, for the 8 (ef, dc, stale) combinations x topk in {None, chunk/4
+    with exact ties at the threshold, chunk}: recon', res' and scales
+    bitwise, mixed as the round kernels' (1e-5 x max(1, max|input|)); the
+    tie case keeps every tie."""
+    max_err = {"gossip_mix": 0.0}
+    for label, n, t, chunk, topo in SHAPES:
+        w_off, w_self = weights(topo, n)
+        topks = [None, chunk // 4, chunk]
+        for k, ((ef, dc, stale), topk) in enumerate(itertools.product(FLAGS, topks)):
+            ties = topk == chunk // 4
+            bufs = make_inputs(n, t, chunk, 0, label, seed=k, ties=ties)
+            kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                      stale_mix=stale, topk=topk)
+            got = gossip_mix(*bufs, w_off, w_self, **kw)
+            want = gossip_mix_ref(*bufs, w_off, w_self, **kw)
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(got, want)):
+                if not torch.isfinite(a).all() or a.shape != b.shape:
+                    raise AssertionError(f"gossip_mix {label} {kw}: output {i} bad")
+                if i == 0:
+                    err = float((a - b).abs().max())
+                    tol = 1e-5 * max(1.0, max(float(x.abs().max()) for x in bufs))
+                    if err > tol:
+                        raise AssertionError(
+                            f"gossip_mix {label} {kw}: mixed off by {err} > {tol}")
+                    max_err["gossip_mix"] = max(max_err["gossip_mix"], err)
+                elif not torch.equal(a, b):
+                    raise AssertionError(
+                        f"gossip_mix {label} {kw}: output {i} differs from the twin "
+                        f"(max {float((a - b).abs().max())})")
+            if ties:
+                # recon' - recon is the dequantized payload: nonzero exactly
+                # on the kept columns (or, without difference coding, recon'
+                # itself)
+                dq = got[1][0, :chunk] - (bufs[1][0, :chunk] if dc else 0.0)
+                kept = int(torch.count_nonzero(dq))
+                if kept != chunk // 8 + chunk // 4:
+                    raise AssertionError(
+                        f"gossip_mix {label} {kw}: kept {kept} columns of the tie "
+                        f"chunk, want {chunk // 8 + chunk // 4}")
+            if label == "zero-chunk" and float(got[3][3, 1]) != 0.0:
+                raise AssertionError(f"gossip_mix: all-zero chunk got scale "
+                                     f"{float(got[3][3, 1])}")
+            del got, want, bufs
+        log(f"  gossip_mix == twin at {label} ({n}x{t}, chunk {chunk}): 8 flag "
+            f"combinations x topk {topks} (ties at k={chunk // 4} all kept), "
+            f"recon/res/scales bitwise, mixed max err {max_err['gossip_mix']:.3e}")
+        torch.cuda.empty_cache()
+    return max_err
+
+
 def zero_counts() -> None:
     for wrapper in WRAPPERS:
         wrapper.launches = 0
@@ -339,7 +434,8 @@ def dsgd_run(**kw):
                       batch_per_node=20, alpha0=0.02)
     return train_decentralized(
         make_mlp_loss(class_weights()), mlp_init(0, device="cuda"), run,
-        make_node_batcher(data, m=20, seed=1), rounds=3, device="cuda", **kw)
+        make_node_batcher(data, m=20, seed=1), rounds=3, engine="fused",
+        device="cuda", **kw)
 
 
 def main_path() -> dict:
@@ -419,6 +515,111 @@ def stale_paths(sequential_losses) -> dict:
     return {"wire_stage": 3, "wire_stage_gt": 20}
 
 
+def fig2_path() -> None:
+    """The paper's Fig. 2 through the port's driver on the card: the four
+    algorithms at full width for the paper's 3000 iterations on the
+    exact-wire tree engine, which launches none of the hand kernels;
+    claims 1-2 of the driver hold, and the final losses match the same
+    run on the CPU within FIG2_RTOL. Then the trainer with no engine and
+    no device named: the tree engine, on the card."""
+    zero_counts()
+    t0 = time.perf_counter()
+    res = fig2_run(iterations=FIG2_ITERATIONS, device="cuda")
+    gpu_s = time.perf_counter() - t0
+    expect_launches("Fig. 2 (tree engine)")
+    checked = claims(res)
+    if not (checked["1"]["holds"] and checked["2"]["holds"]):
+        raise AssertionError(f"Fig. 2 claims on the card: {checked}")
+    log(f"  Fig. 2, {FIG2_ITERATIONS} iterations x 4 algorithms on the tree engine "
+        f"in {gpu_s:.1f} s: no hand-kernel launch; claim 1 savings "
+        + ", ".join(f"{k} {v:.0f}x" for k, v in checked["1"]["saving"].items())
+        + "; claim 2 gap DSGT {DSGT:.4e} < DSGD {DSGD:.4e}".format(**checked["2"]["gap"]))
+    t0 = time.perf_counter()
+    cpu = fig2_run(iterations=FIG2_ITERATIONS, device="cpu", log=False)
+    cpu_s = time.perf_counter() - t0
+    rel = {}
+    for name in ALGOS:
+        a, b = res[name]["final_loss"], cpu[name]["final_loss"]
+        rel[name] = abs(a - b) / abs(b)
+        if rel[name] > FIG2_RTOL or not math.isfinite(a):
+            raise AssertionError(f"Fig. 2 {name}: final loss {a} on the card, {b} "
+                                 f"on the CPU")
+    log(f"  Fig. 2 final losses, card vs CPU ({cpu_s:.1f} s): "
+        + ", ".join(f"{k} {res[k]['final_loss']:.6f} ({v:.1e})" for k, v in rel.items()))
+
+    zero_counts()
+    data = generate_ehr_cohort(seed=0)
+    run = FLRunConfig(algorithm="dsgt", q=1, topology="hospital20", n_nodes=20,
+                      batch_per_node=20, alpha0=0.02)
+    out = train_decentralized(make_mlp_loss(), mlp_init(0, device="cuda"), run,
+                              make_node_batcher(data, m=20, seed=1), rounds=3)
+    expect_launches("trainer defaults")
+    state = [l for _, l in tree_leaves(out.state.params)]
+    if out.engine.name != "tree" or any(l.device.type != "cuda" for l in state):
+        raise AssertionError(f"trainer defaults: engine {out.engine.name}, "
+                             f"state on {[l.device for l in state]}")
+    log("  train_decentralized() with no engine or device named: the tree engine, "
+        "state on the card")
+
+
+def composition_run(rounds: int, q: int = 10):
+    """FD-DSGT as the reference suite's composition oracle, on the card:
+    the flat engine with an identity mix runs the local steps and the bare
+    tracker / parameter update, then each wire goes through one
+    ``make_compressed_flat_gossip`` round (one ``gossip_mix`` launch).
+    Same cohort, init, loss, batches and alpha as ``run_fused_engine``.
+    Returns (node-stacked params tree, per-round losses)."""
+    n, chunk = 20, 512
+    batcher = make_node_batcher(generate_ehr_cohort(seed=0), m=20, seed=1)
+    flat, layout = pack(stack_for_nodes(mlp_init(0, device="cuda"), n), pad_to=chunk)
+    cfg = FLConfig(algorithm="dsgt", q=q, n_nodes=n)
+    round_fn = make_fl_round(make_mlp_loss(class_weights()), inv_sqrt(0.02), cfg,
+                             FlatEngine(lambda f: f, layout, device="cuda"))
+    gossip = make_compressed_flat_gossip(mixing_matrix("hospital20", n), scale_chunk=chunk)
+    state = init_fl_state(cfg, flat)
+    wire_x, wire_t = init_flat_compression_state(flat), init_flat_compression_state(flat)
+    losses = []
+    for _ in range(rounds):
+        state, m = round_fn(state, stack_batches(batcher, q))
+        losses.append(float(m["loss"]))
+        px, wire_x = gossip(state.params, wire_x)
+        pt, wire_t = gossip(state.tracker, wire_t)
+        state = state._replace(params=px, tracker=pt)
+    return unpack(state.params, layout), losses
+
+
+def max_param_diff(a, b) -> float:
+    return max(float((x - y).abs().max())
+               for (_, x), (_, y) in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def compressed_path() -> dict:
+    """The compressed FD-DSGT path: 5 rounds at Q = 10 launch gossip_mix
+    exactly twice a round (and nothing else); held against the fused
+    engine's FD-DSGT at the same seed: one round within 1e-5, five rounds
+    within the multi-round tolerances (loss rtol 1e-3, params 1e-3)."""
+    zero_counts()
+    params, losses = composition_run(rounds=5)
+    expect_launches("compressed FD-DSGT", gossip_mix=10)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"compressed FD-DSGT losses {losses}")
+    fused = run_fused_engine(rounds=5, q=10, device="cuda")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, fused["losses"]))
+    diff5 = max_param_diff(params, fused["params"])
+    if rel > 1e-3 or diff5 > 1e-3:
+        raise AssertionError(f"compressed FD-DSGT vs fused: loss rel {rel}, "
+                             f"params {diff5}")
+    one, _ = composition_run(rounds=1)
+    diff1 = max_param_diff(one, run_fused_engine(rounds=1, q=10, device="cuda")["params"])
+    if diff1 > 1e-5:
+        raise AssertionError(f"compressed FD-DSGT vs fused after one round: {diff1}")
+    log(f"  compressed FD-DSGT (flat engine + make_compressed_flat_gossip), 5 rounds "
+        f"x Q=10: 10 gossip_mix launches; vs the fused engine: params max diff "
+        f"{diff1:.2e} after 1 round, {diff5:.2e} after 5, loss rel {rel:.2e}, "
+        f"losses {np.round(losses, 4).tolist()}")
+    return {"gossip_mix": 10}
+
+
 def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
     """Median device time of one call, from CUDA events. A spin kernel
     ahead of each call holds the stream while the host enqueues the
@@ -442,23 +643,26 @@ def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def round_profile(card: str, schedule=None, rounds: int = 50, warmup: int = 5,
+def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
+                  class_weight="balanced", rounds: int = 50, warmup: int = 5,
                   profiled: int = 5) -> dict:
-    """Median host-clock time of one whole FD-DSGT Q = 10 round (10
-    gradient evaluations + 1 kernel launch, and at depth k >= 2 the
-    PyTorch stale mix), synchronized; then ``torch.profiler`` over
-    ``profiled`` more rounds for the device's busy time and operation
-    count per round and the host's costliest ops."""
-    label = schedule or "sequential"
+    """Median host-clock time of one whole DSGT round with Q local steps
+    (Q gradient evaluations, then the engine's comm step: one kernel
+    launch on the fused engine, plus the PyTorch stale mix at depth k >=
+    2; the exact fp32 mix on the tree engine), synchronized; then
+    ``torch.profiler`` over ``profiled`` more rounds for the device's busy
+    time and operation count per round and the host's costliest ops."""
+    label = f"DSGT Q={q} {engine} {schedule or 'sequential'}"
     data = generate_ehr_cohort(seed=0)
     batcher = make_node_batcher(data, m=20, seed=1)
-    cfg = FLConfig(algorithm="dsgt", q=10, n_nodes=20)
-    engine, flat = get_engine("fused").simulated(
+    cfg = FLConfig(algorithm="dsgt", q=q, n_nodes=20)
+    eng, params = get_engine(engine).simulated(
         mixing_matrix("hospital20", 20),
         stack_for_nodes(mlp_init(0, device="cuda"), 20), scale_chunk=512,
         round_schedule=schedule)
-    round_fn = make_fl_round(make_mlp_loss(class_weights()), inv_sqrt(0.02), cfg, engine)
-    state = init_fl_state(cfg, flat, engine)
+    round_fn = make_fl_round(make_mlp_loss(class_weights(class_weight)), inv_sqrt(0.02),
+                             cfg, eng)
+    state = init_fl_state(cfg, params, eng)
     batches = [stack_batches(batcher, cfg.q) for _ in range(rounds + warmup + profiled)]
     times = []
     for k, b in enumerate(batches[:rounds + warmup]):
@@ -469,7 +673,7 @@ def round_profile(card: str, schedule=None, rounds: int = 50, warmup: int = 5,
         if k >= warmup:
             times.append((time.perf_counter() - t0) * 1e3)
     r_ms = statistics.median(times)
-    log(f"  one FD-DSGT Q=10 {label} round (20 hospitals, host clock): "
+    log(f"  one {label} round (20 hospitals, host clock, median of {rounds}): "
         f"{r_ms * 1e3:.1f} us [{card}]")
 
     from torch.profiler import ProfilerActivity, profile
@@ -517,24 +721,33 @@ def timings(card: str) -> dict:
     sequential and bounded_staleness:k=2."""
     rows = {}
     cases = [(SHAPES[0], None), (SHAPES[2], None), (SHAPES[0], TOPK_MAIN)]
-    for name, (kernel, twin, wires, _, _) in {**KERNELS, **WIRE_KERNELS}.items():
-        is_round = name in KERNELS
+    for name, (kernel, twin, wires, _, _) in ALL_KERNELS.items():
         for (label, n, t, chunk, topo), topk in cases:
             bufs = make_inputs(n, t, chunk, wires, label, seed=0)
-            args = (*bufs, *weights(topo, n), ALPHA) if is_round else (*bufs, ALPHA)
+            if name in GOSSIP_KERNELS:
+                args = (*bufs, *weights(topo, n))
+                nbytes, ops = gossip_bytes(n, t, chunk), gossip_ops(n, t, chunk, topk)
+            elif name in KERNELS:
+                args = (*bufs, *weights(topo, n), ALPHA)
+                nbytes, ops = round_bytes(n, t, chunk, wires), round_ops(n, t, chunk, wires, topk)
+            else:
+                args = (*bufs, ALPHA)
+                nbytes, ops = wire_bytes_moved(n, t, chunk, wires), wire_ops(n, t, chunk, wires, topk)
             kw = dict(scale_chunk=chunk, topk=topk)
             k_ms = device_ms(lambda: kernel(*args, **kw))
             t_ms = device_ms(lambda: twin(*args, **kw))
-            if is_round:
-                nbytes, ops = round_bytes(n, t, chunk, wires), round_ops(n, t, chunk, wires, topk)
-            else:
-                nbytes, ops = wire_bytes_moved(n, t, chunk, wires), wire_ops(n, t, chunk, wires, topk)
             key = label if topk is None else f"{label} top-{topk}"
             rows[(name, key)] = time_row(card, name, key, n, t, k_ms, t_ms, nbytes, ops)
             del bufs, args
             torch.cuda.empty_cache()
     rows["rounds"] = {spec: round_profile(card, spec)
                       for spec in (None, "bounded_staleness:k=2")}
+    # the Fig. 2 path: DSGT and FD-DSGT (Q = 100) on the tree engine, with
+    # the paper's unweighted loss
+    rows["rounds"]["tree"] = round_profile(card, engine="tree", q=1, class_weight=None)
+    rows["rounds"]["tree q100"] = round_profile(card, engine="tree", q=100,
+                                                class_weight=None, rounds=10,
+                                                warmup=2, profiled=2)
     return rows
 
 
@@ -558,17 +771,19 @@ def main() -> int:
                 log(f"    ptxas: {line.strip()}")
 
     log("phase 2: kernels vs twins on the card")
-    max_err = {**check_kernels(), **check_wire_stages()}
+    max_err = {**check_gossip_mix(), **check_kernels(), **check_wire_stages()}
 
     log("phase 3: paths (launches counted per run)")
     launches = main_path()
     launches.update(stale_paths(launches.pop("sequential_losses")))
+    fig2_path()
+    launches.update(compressed_path())
 
     log("phase 4: times (CUDA events, median of 60 after warm-up)")
     rows = timings(card)
 
     kernels = []
-    for name, (_, _, _, replaces, source) in {**KERNELS, **WIRE_KERNELS}.items():
+    for name, (_, _, _, replaces, source) in ALL_KERNELS.items():
         row = rows[(name, "main")]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -1,13 +1,14 @@
-"""GossipEngine protocol, the round schedules and the fused round engine
-(counterpart of the slice of ``repro.core.engine`` the port runs).
+"""GossipEngine protocol, the round schedules and the round engines
+(counterpart of the single-device slice of ``repro.core.engine``).
 
 An engine owns the state representation, the wire and the mixing:
 
     init_comm_state(cfg, params)  extra wire state carried in FLState.comm
     local_step(params, grads, a)  the SGD update in the engine's own
                                   state representation
-    make_eval_grads(loss_fn)      per-node losses and gradients in that
+    make_eval_grads(grad_fn)      per-node losses and gradients in that
                                   representation
+    mix(buf)                      the exact-wire W application
     make_comm_step(...)           the whole communication step
     wire_bytes(cfg)               per-round egress accounting (all nodes)
 
@@ -17,18 +18,26 @@ or k rounds later (``bounded_staleness:k=K``). Engines and schedules
 register by name (:func:`register_engine`, :func:`register_schedule`);
 the registries are the one list of names every entry point resolves.
 
-The port has one engine so far, ``fused``: the state is one packed
-``(nodes, total)`` fp32 buffer, the wire is the int8 difference-coded
-payload with error feedback, dense or top-k masked (``topk``), and
-every communication round is ONE kernel call (``kernels.gossip``): the
-round megakernel (local update + quantize + W mix) on the sequential and
-pipelined schedules, the wire-stage kernel (local update + quantize)
-followed by a PyTorch mix against the k-round-stale reconstruction at
-depth k >= 2.
+Three engines are ported:
 
-Everything outside that slice -- topology and node programs, privacy,
-federation scopes, bf16 storage -- raises ``NotImplementedError`` naming
-its ROADMAP.md item.
+* ``tree`` -- the state is the node-stacked parameter tree, mixed exactly
+  (fp32, or a ``wire_dtype``) by the dense-W backend of ``core.mixing``:
+  mix-then-adapt, the paper's Eqs. 2/3 (the Fig. 2 runs);
+* ``flat`` -- the same exact wire on the packed ``(nodes, total)``
+  buffer, one product per round;
+* ``fused`` -- the packed buffer with the int8 difference-coded wire with
+  error feedback, dense or top-k masked (``topk``), and every
+  communication round ONE kernel call (``kernels.gossip``): the round
+  megakernel (local update + quantize + W mix) on the sequential and
+  pipelined schedules, the wire-stage kernel (local update + quantize)
+  followed by a PyTorch mix against the k-round-stale reconstruction at
+  depth k >= 2.
+
+The exact-wire engines are sequential-only and refuse top-k and partial
+federation scopes, as the reference's do. Everything outside the ported
+slice -- topology and node programs, privacy, federation scopes on the
+fused engine, bf16 storage, the mesh builds -- raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -44,12 +53,15 @@ from repro_torch.core.fl import (
     FLState,
     _consensus_error,
     _mean_grad_norm_sq,
+    check_node_stacked,
     tree_map,
 )
+from repro_torch.core.mixing import make_dense_flat_mix, make_dense_gossip
 from repro_torch.core.packing import (
     FlatLayout,
     flat_wire_bytes,
     pack,
+    pack_like,
     tree_leaves,
     unpack,
 )
@@ -63,6 +75,8 @@ from repro_torch.kernels.gossip.ops import (
 
 __all__ = [
     "GossipEngine",
+    "TreeEngine",
+    "FlatEngine",
     "FusedEngine",
     "RoundSchedule",
     "SequentialSchedule",
@@ -260,17 +274,25 @@ class BoundedStalenessSchedule(PipelinedSchedule):
         return f"{self.name}:k={self.depth}"
 
 
-def _flat_value_and_grad(layout: FlatLayout, loss_fn):
-    """Per-node losses and the gradient IN the flat layout: autograd
-    through ``unpack``'s column slices scatters each leaf's gradient into
-    its columns and leaves the padding exactly zero."""
+def _check_flat_params(cfg: FLConfig, params, name: str) -> None:
+    """The flat engines' state: ONE node-stacked ``(nodes, total)``
+    buffer."""
+    check_node_stacked(cfg, params)
+    if not isinstance(params, torch.Tensor) or params.ndim != 2:
+        raise ValueError(
+            f"the {name!r} engine state must be the packed (nodes, total) "
+            "flat buffer (core.packing.pack)"
+        )
 
-    def eval_grads(params: torch.Tensor, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        flat = params.detach().requires_grad_(True)
-        with torch.enable_grad():
-            losses = loss_fn(unpack(flat, layout), batch)
-            (grad,) = torch.autograd.grad(losses.sum(), flat)
-        return losses.detach(), grad.contiguous()
+
+def _make_flat_eval_grads(layout: FlatLayout, grad_fn):
+    """The tree-level ``grad_fn`` on the flat buffer: the tree view
+    exists only inside the call (``unpack`` gives views of the buffer's
+    columns), and the gradient is packed back with zero padding."""
+
+    def eval_grads(params: torch.Tensor, batch):
+        losses, grads = grad_fn(unpack(params, layout), batch)
+        return losses, pack_like(grads, layout)
 
     return eval_grads
 
@@ -278,8 +300,10 @@ def _flat_value_and_grad(layout: FlatLayout, loss_fn):
 class GossipEngine(abc.ABC):
     """One round engine: state representation + wire + mixing semantics.
     Subclasses set ``name`` (the registry key), ``layout`` (the
-    :class:`FlatLayout` of flat-state engines), ``device``, and implement
-    :meth:`make_comm_step`."""
+    :class:`FlatLayout` of flat-state engines, None for tree state) and
+    ``device``, and either implement :meth:`mix` (exact-wire engines; the
+    base :meth:`make_comm_step` then runs the paper's mix-then-adapt Eqs.
+    2/3) or override :meth:`make_comm_step` (the fused engine)."""
 
     name: ClassVar[str] = "abstract"
     layout: Optional[FlatLayout] = None
@@ -293,13 +317,16 @@ class GossipEngine(abc.ABC):
     def comm_state_spec(self, cfg: FLConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
         """``{key: (shape, dtype)}`` of the wire-state buffers: (n, total)
         fp32 unless an engine says otherwise."""
+        keys = self.comm_keys(cfg)
+        if not keys:
+            return {}
         shape = (cfg.n_nodes, self.layout.total)
-        return {k: (shape, torch.float32) for k in self.comm_keys(cfg)}
+        return {k: (shape, torch.float32) for k in keys}
 
     def init_comm_state(self, cfg: FLConfig, params) -> Optional[Dict[str, torch.Tensor]]:
         """Zero-initialized wire state (:meth:`comm_state_spec`): zeros
         mean the first round effectively transmits the full parameters
-        and the in-flight ring starts empty."""
+        and the in-flight ring starts empty; None for an exact wire."""
         spec = self.comm_state_spec(cfg)
         if not spec:
             return None
@@ -312,33 +339,72 @@ class GossipEngine(abc.ABC):
         a = torch.as_tensor(alpha, dtype=torch.float32)
         return tree_map(lambda p, g: p - a * g, params, grads)
 
+    def mix(self, buf):
+        """Exact-wire W application (theta <- W theta) on the engine's
+        state representation. The fused engine has no standalone mix: its
+        W lives inside the comm-step kernel."""
+        raise NotImplementedError(
+            f"{type(self).__name__} mixes inside its fused comm step"
+        )
+
     def wire_bytes(self, cfg: FLConfig) -> Optional[float]:
-        """Per-round egress summed over all nodes (None: not accounted)."""
+        """Per-round egress summed over all nodes (None: the engine does
+        not account it -- the exact wire, whose payload is the unpadded
+        tree; see ``training.metrics.comm_bytes_per_gossip``)."""
         return None
 
     def check_params(self, cfg: FLConfig, params) -> None:
         """Validate the initial state representation: node-stacked."""
-        for _, leaf in tree_leaves(params):
-            if tuple(leaf.shape[:1]) != (cfg.n_nodes,):
-                raise ValueError(
-                    f"param leaf {tuple(leaf.shape)} is not node-stacked for "
-                    f"n={cfg.n_nodes}"
-                )
+        check_node_stacked(cfg, params)
 
-    def make_eval_grads(self, loss_fn):
-        """``eval_grads(params, batch) -> (losses (n,), grads)`` in the
-        engine's representation."""
+    def make_eval_grads(self, grad_fn):
+        """Adapt the node-batched tree ``grad_fn`` (``core.fl.
+        value_and_grad``) to the engine's representation: itself for tree
+        state, through the layout for the flat buffer."""
         if self.layout is None:
-            raise _not_ported("tree-state engines", "3")
-        return _flat_value_and_grad(self.layout, loss_fn)
+            return grad_fn
+        return _make_flat_eval_grads(self.layout, grad_fn)
 
     def params_view(self, params):
         """The tree view of the engine's parameter state."""
         return params if self.layout is None else unpack(params, self.layout)
 
-    @abc.abstractmethod
     def make_comm_step(self, eval_grads, schedule, cfg: FLConfig):
-        """``comm_step(state, batch) -> (state, metrics)``."""
+        """The exact-wire comm step: :meth:`mix` applies W, then the
+        optimizer update at fp32 (mix-then-adapt, the paper's Eqs. 2/3).
+        ``comm_step(state, batch) -> (state, metrics)``."""
+        wire = self.wire_bytes(cfg)
+
+        def comm_step(state: FLState, batch):
+            step = state.step + 1
+            alpha = schedule(step)
+            a = torch.as_tensor(alpha, dtype=torch.float32)
+            losses, grads = eval_grads(state.params, batch)
+
+            def adapt(wp, t):
+                return wp - a * t
+
+            if cfg.algorithm == "dsgd":
+                params = tree_map(adapt, self.mix(state.params), grads)
+                new_state = state._replace(step=step, params=params)
+            else:
+                tracker = tree_map(lambda wt, gn, gp: wt + gn - gp,
+                                   self.mix(state.tracker), grads, state.prev_grad)
+                params = tree_map(adapt, self.mix(state.params), tracker)
+                new_state = state._replace(step=step, params=params,
+                                           tracker=tracker, prev_grad=grads)
+            metrics = {
+                "loss": losses.mean(),
+                "alpha": float(alpha),
+                "grad_norm_sq": _mean_grad_norm_sq(grads),
+                "consensus_err": _consensus_error(new_state.params),
+                "comm_rounds": 1.0,
+            }
+            if wire is not None:
+                metrics["wire_bytes"] = wire
+            return new_state, metrics
+
+        return comm_step
 
 
 # ---------------------------------------------------------------------------
@@ -370,6 +436,119 @@ def engine_names() -> Tuple[str, ...]:
 
 
 # ---------------------------------------------------------------------------
+# Refusals shared by the engines
+# ---------------------------------------------------------------------------
+
+
+def _refuse_unported(topology_program, node_program, privacy, scope,
+                     storage_dtype) -> None:
+    if topology_program not in (None, "static"):
+        raise _not_ported(f"topology program {topology_program!r}", "10")
+    if node_program not in (None, "homogeneous"):
+        raise _not_ported(f"node program {node_program!r}", "11")
+    if privacy not in (None, "none"):
+        raise _not_ported(f"privacy spec {privacy!r}", "12")
+    if scope not in (None, "full"):
+        raise _not_ported(f"federation scope {scope!r}", "13")
+    if storage_dtype not in (None, "float32", torch.float32):
+        raise _not_ported(f"{storage_dtype} flat storage", "5")
+
+
+def _refuse_exact_wire(name: str, topk, round_schedule, scope) -> None:
+    """What the reference's exact-wire engines refuse, with its messages:
+    the top-k wire, a schedule other than the blocking one, and a partial
+    federation scope."""
+    if topk is not None:
+        raise ValueError(
+            f"topk is a fused-engine knob (sub-int8 sparsified wire); the "
+            f"{name!r} engine ships an exact wire -- use 'fused' or "
+            "'sharded_fused'"
+        )
+    rs = resolve_schedule(round_schedule)
+    if rs.name != "sequential":
+        raise ValueError(
+            f"round schedule {rs.name!r} needs the split produce/collective "
+            f"comm step of the fused engines; the {name!r} engine is "
+            "sequential-only -- use 'fused' or 'sharded_fused'"
+        )
+    if scope not in (None, "full"):
+        raise ValueError(
+            f"federation scope {scope!r}: the {name!r} engine ships the "
+            "whole state through a baked exact-wire backend (no column "
+            "slicing) -- use the 'fused' engine, or 'sharded_fused' for "
+            "sub-range scopes on the mesh wire"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Exact-wire engines
+# ---------------------------------------------------------------------------
+
+
+@register_engine
+class TreeEngine(GossipEngine):
+    """Node-stacked tree state, mixed by a tree-level gossip backend
+    (``core.mixing.make_dense_gossip``: the dense-W product)."""
+
+    name = "tree"
+
+    def __init__(self, gossip, device=None):
+        self._gossip = gossip
+        self.device = resolve_device(device)
+
+    def mix(self, tree):
+        return self._gossip(tree)
+
+    @classmethod
+    def simulated(cls, w: np.ndarray, stacked_params, *, wire_dtype=None,
+                  topk=None, round_schedule=None, storage_dtype=None,
+                  topology_program=None, node_program=None, privacy=None,
+                  scope=None, **_ignored) -> Tuple["TreeEngine", object]:
+        """Single-device build on the params' device: the dense-W backend;
+        the state stays the input tree. Returns (engine, params)."""
+        _refuse_exact_wire(cls.name, topk, round_schedule, scope)
+        _refuse_unported(topology_program, node_program, privacy, None,
+                         storage_dtype)
+        leaf = tree_leaves(stacked_params)[0][1]
+        return cls(make_dense_gossip(w, wire_dtype), device=leaf.device), stacked_params
+
+
+@register_engine
+class FlatEngine(GossipEngine):
+    """The state is ONE packed ``(nodes, total)`` buffer end to end,
+    mixed by a flat-native backend (``core.mixing.make_dense_flat_mix``:
+    one product per round, whatever the number of leaves)."""
+
+    name = "flat"
+
+    def __init__(self, mix_fn, layout: FlatLayout, device=None):
+        self._mix = mix_fn
+        self.layout = layout
+        self.device = resolve_device(device)
+
+    def mix(self, flat: torch.Tensor) -> torch.Tensor:
+        return self._mix(flat)
+
+    def check_params(self, cfg: FLConfig, params) -> None:
+        _check_flat_params(cfg, params, self.name)
+
+    @classmethod
+    def simulated(cls, w: np.ndarray, stacked_params, *, scale_chunk: int = 1,
+                  wire_dtype=None, topk=None, round_schedule=None,
+                  storage_dtype=None, topology_program=None, node_program=None,
+                  privacy=None, scope=None,
+                  **_ignored) -> Tuple["FlatEngine", torch.Tensor]:
+        """Pack node-stacked params (padded to ``scale_chunk``) and build
+        the engine on their device. Returns (engine, flat buffer)."""
+        _refuse_exact_wire(cls.name, topk, round_schedule, scope)
+        _refuse_unported(topology_program, node_program, privacy, None,
+                         storage_dtype)
+        flat, layout = pack(stacked_params, pad_to=scale_chunk)
+        return cls(make_dense_flat_mix(w, wire_dtype), layout,
+                   device=flat.device), flat
+
+
+# ---------------------------------------------------------------------------
 # The fused engine
 # ---------------------------------------------------------------------------
 
@@ -387,20 +566,6 @@ def _split_w_np(w: np.ndarray, n: int):
 
 def _degrees(w: np.ndarray) -> np.ndarray:
     return (np.abs(w - np.diag(np.diag(w))) > 0).sum(axis=1)
-
-
-def _refuse_unported(topology_program, node_program, privacy, scope,
-                     storage_dtype) -> None:
-    if topology_program not in (None, "static"):
-        raise _not_ported(f"topology program {topology_program!r}", "10")
-    if node_program not in (None, "homogeneous"):
-        raise _not_ported(f"node program {node_program!r}", "11")
-    if privacy not in (None, "none"):
-        raise _not_ported(f"privacy spec {privacy!r}", "12")
-    if scope not in (None, "full"):
-        raise _not_ported(f"federation scope {scope!r}", "13")
-    if storage_dtype not in (None, "float32", torch.float32):
-        raise _not_ported(f"{storage_dtype} flat storage", "5")
 
 
 def _dequant(q: torch.Tensor, scales: torch.Tensor, scale_chunk: int) -> torch.Tensor:
@@ -425,9 +590,14 @@ class FusedEngine(GossipEngine):
 
     def __init__(self, w: np.ndarray, layout: FlatLayout, *,
                  scale_chunk: int = 512, device=None, topk=None,
-                 round_schedule=None, topology_program=None,
+                 round_schedule=None, wire_dtype=None, topology_program=None,
                  node_program=None, privacy=None, scope=None,
                  storage_dtype=None):
+        if wire_dtype is not None:
+            raise ValueError(
+                "the fused engines' wire is always difference-coded int8; "
+                "wire_dtype only applies to the tree/flat exact-wire engines"
+            )
         _refuse_unported(topology_program, node_program, privacy, scope,
                          storage_dtype)
         if scale_chunk < 1:
@@ -496,11 +666,7 @@ class FusedEngine(GossipEngine):
         return float(wires * _degrees(self.w).sum() * edge)
 
     def check_params(self, cfg: FLConfig, params) -> None:
-        if not isinstance(params, torch.Tensor) or params.ndim != 2:
-            raise ValueError(
-                f"the {self.name!r} engine state must be the packed "
-                "(nodes, total) flat buffer (core.packing.pack)"
-            )
+        _check_flat_params(cfg, params, self.name)
         if tuple(params.shape) != (cfg.n_nodes, self.layout.total):
             raise ValueError(
                 f"flat buffer {tuple(params.shape)} != "

@@ -11,11 +11,14 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller
     names another one. Asking for ``cuda`` (explicitly or by default) on
     a machine without a usable card raises ``RuntimeError``; nothing
-    silently drops to the CPU."""
+    silently drops to the CPU. ``cuda`` without an index resolves to the
+    current card (``cuda:0``), the device its tensors report."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

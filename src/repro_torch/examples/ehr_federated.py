@@ -1,9 +1,16 @@
-"""The paper's EHR experiment on the fused engine (part 2 of the
-reference's ``examples/ehr_federated.py``).
+"""The paper's EHR experiment end to end (counterpart of the reference's
+``examples/ehr_federated.py``).
 
-The 20-hospital synthetic cohort, the 42 -> 32 -> 2 tanh MLP per
-hospital, FD-DSGT with Q local steps on the hospital graph at alpha =
-0.02/sqrt(r), with the class-weighted loss. The state lives in one packed
+Part 1 -- the reproduction (``--iterations``, 0 skips it): 20 hospitals,
+about 500 EHR records each (42 features), the shallow NN per hospital, the
+hospital graph, m = 20, alpha = 0.02/sqrt(r). It compares DSGD, DSGT,
+FD-DSGD (Q=100) and FD-DSGT (Q=100) on the exact-wire ``tree`` engine
+through the Fig. 2 driver (``repro_torch.benchmarks.fig2_comm_rounds``)
+and writes the loss-vs-communication-round curves as CSV to ``--out``
+when given.
+
+Part 2 -- the same cohort with FD-DSGT on the ``fused`` engine, Q local
+steps per round, with the class-weighted loss. The state lives in one packed
 ``(20, 1536)`` buffer and every communication round is ONE kernel call:
 the DSGT round megakernel (local update + int8 quantize + W mix + error
 feedback) on the sequential and pipelined schedules, the DSGT wire-stage
@@ -13,18 +20,21 @@ columns per scale chunk, ``--topk-schedule`` adapts k to the error
 feedback residual. Prints the per-round comm bytes of the int8 (or
 top-k) wire against the fp32 wire a plain engine ships.
 
-  PYTHONPATH=src python -m repro_torch.examples.ehr_federated --rounds 50 --q 10
-  PYTHONPATH=src python -m repro_torch.examples.ehr_federated --topk 64
+  PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 3000 --out curves.csv
+  PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 --rounds 50 --q 10
+  PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 --topk 64
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.benchmarks.fig2_comm_rounds import report, run
 from repro_torch.configs.ehr_mlp import CLASS_WEIGHT, class_weights, topk_schedule
 from repro_torch.core.engine import get_engine, resolve_schedule
 from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round, tree_map
@@ -55,7 +65,8 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
     reference's init here. Returns final ``acc``, ``bal_acc``,
     ``wire_saving`` (fp32 bytes over the engine's wire bytes in the last
     round), ``wire_bytes`` of the last round, the per-round ``losses``,
-    and ``dense_rounds`` (adaptive k only, else None)."""
+    the final node-stacked ``params`` (a tree), and ``dense_rounds``
+    (adaptive k only, else None)."""
     if rounds < 1:
         raise ValueError("rounds must be >= 1")
     if topk_schedule is not None and topk is not None:
@@ -123,7 +134,8 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
               f"{rounds - adaptive.dense_rounds} stayed at "
               f"k={adaptive.k_sparse}")
 
-    consensus = tree_map(lambda p: p.mean(dim=0), engine.params_view(state.params))
+    params = engine.params_view(state.params)
+    consensus = tree_map(lambda p: p.mean(dim=0), params)
     xall = torch.as_tensor(np.concatenate(data.features), device=dev)
     yall = torch.as_tensor(np.concatenate(data.labels), device=dev)
     acc = float(mlp_accuracy(consensus, xall, yall))
@@ -136,8 +148,28 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
           f"per iteration than comm-every-step fp32 gossip")
     return {"acc": acc, "bal_acc": bal, "wire_saving": saving,
             "wire_bytes": m["wire_bytes"],
-            "losses": torch.stack(losses).tolist(),
+            "losses": torch.stack(losses).tolist(), "params": params,
             "dense_rounds": adaptive.dense_rounds if adaptive else None}
+
+
+def reproduce(iterations: int, out: Optional[str] = None, device=None) -> Dict:
+    """Part 1: the four Fig. 2 runs at ``iterations`` and the driver's
+    report; the curves go to the CSV ``out`` when given. Returns the
+    driver's results."""
+    print(f"Fig. 2 reproduction ({iterations} iterations per algorithm):")
+    results = run(iterations=iterations, device=device)
+    if out:
+        with open(out, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["algorithm", "comm_round", "loss", "grad_norm_sq",
+                        "consensus_err"])
+            for name, r in results.items():
+                for i in range(len(r["comm_rounds"])):
+                    w.writerow([name, int(r["comm_rounds"][i]), r["loss"][i],
+                                r["grad_norm_sq"][i], r["consensus_err"][i]])
+        print(f"curves -> {out}")
+    report(results)
+    return results
 
 
 def _parse_topk_schedule(spec: Optional[str]):
@@ -150,12 +182,17 @@ def _parse_topk_schedule(spec: Optional[str]):
     return topk_schedule(tuple(spec.split(":")))
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iterations", type=int, default=3000,
+                    help="part 1: iteration budget of each of the four "
+                         "algorithms (paper: 3000); 0 skips part 1")
+    ap.add_argument("--out", default=None,
+                    help="part 1: write the loss-vs-round curves as CSV here")
     ap.add_argument("--rounds", type=int, default=50,
-                    help="communication rounds")
+                    help="part 2: communication rounds")
     ap.add_argument("--q", type=int, default=10,
-                    help="local steps per communication round")
+                    help="part 2: local steps per communication round")
     ap.add_argument("--scale-chunk", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--class-weight", default=CLASS_WEIGHT,
@@ -175,7 +212,9 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain PyTorch twins)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    if args.iterations > 0:
+        reproduce(args.iterations, args.out, device=args.device)
     run_fused_engine(rounds=args.rounds, q=args.q, scale_chunk=args.scale_chunk,
                      seed=args.seed,
                      class_weight=None if args.class_weight == "none"

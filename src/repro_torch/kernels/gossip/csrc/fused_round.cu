@@ -1,20 +1,24 @@
-// Round megakernels for Hopper (sm_90a): one launch is one whole
-// communication round of the fused engine -- local update + int8
-// difference-coded quantization with error feedback (top-k masked when
-// topk > 0) + the W mix.
+// The gossip stage and the round megakernels for Hopper (sm_90a). One
+// launch of a round kernel is one whole communication round of the fused
+// engine -- local update + int8 difference-coded quantization with error
+// feedback (top-k masked when topk > 0) + the W mix; one launch of the
+// gossip kernel is that round without the local update (one compressed
+// gossip round of a buffer, core/compression.py).
 //
 // Replaces the TPU kernels
+//   src/repro/kernels/gossip/gossip.py:378  gossip_mix_pallas      (stage + mix)
 //   src/repro/kernels/gossip/gossip.py:421  fused_round_pallas     (DSGD)
 //   src/repro/kernels/gossip/gossip.py:476  fused_round_gt_pallas  (DSGT)
 // and is held bit for bit (recon', res', scales) and within fp32
 // summation order (mixed) to the PyTorch twins in ../ref.py.
 //
-// Bound: HBM bytes. DSGD reads 4 and writes 3 (n, t) fp32 buffers (plus
-// the (n, t/chunk) scales and the n x n weights); DSGT reads 8 and writes
-// 6. The n x n contraction is 2 n^2 t flops per wire, well under the fp32
-// peak for the node counts the engine runs. At the main-path size
-// (n = 20, t = 1536: about 0.86 MB moved by DSGD and 1.72 MB by DSGT, on
-// 3 blocks) the kernels are launch-bound, not bandwidth-bound.
+// Bound: HBM bytes. The gossip stage reads 3 and writes 3 (n, t) fp32
+// buffers (plus the (n, t/chunk) scales and the n x n weights); DSGD
+// reads 4 and writes 3; DSGT reads 8 and writes 6. The n x n contraction
+// is 2 n^2 t flops per wire, well under the fp32 peak for the node counts
+// the engine runs. At the main-path size (n = 20, t = 1536: about 0.74 MB
+// moved by the gossip stage, 0.86 MB by DSGD and 1.72 MB by DSGT, on 3
+// blocks) the kernels are launch-bound, not bandwidth-bound.
 //
 // Design (simple and right first):
 //   * One block owns one (n, chunk) column chunk with ALL n rows: the
@@ -115,6 +119,32 @@ __device__ void wire(const Src& src, const float* __restrict__ recon,
   __syncthreads();  // the next wire reuses the tile
 }
 
+// The gossip stage's source: x itself, with no local update. It is both
+// the payload's source and the mix's self term (mixed = W_off @ recon' +
+// w_self * x, the exact x).
+struct Load {
+  const float* __restrict__ x;
+  __device__ float operator()(size_t o) const { return x[o]; }
+};
+
+template <bool EF, bool DC, bool STALE, bool TOPK>
+__global__ void __launch_bounds__(kThreads)
+gossip_mix_kernel(const float* __restrict__ x, const float* __restrict__ recon,
+                  const float* __restrict__ res,
+                  const float* __restrict__ w_off,
+                  const float* __restrict__ w_self, float* __restrict__ mixed,
+                  float* __restrict__ new_recon, float* __restrict__ new_res,
+                  float* __restrict__ scales, Geometry geo) {
+  extern __shared__ float smem[];
+  float* tile = smem;
+  float* woff_s = tile + static_cast<size_t>(geo.n) * geo.chunk;
+  float* wself_s = woff_s + geo.n_pad * geo.n;
+  load_weights(w_off, w_self, woff_s, wself_s, geo);
+  __syncthreads();
+  wire<EF, DC, STALE, TOPK>(Load{x}, recon, res, mixed, new_recon, new_res,
+                            scales, woff_s, wself_s, tile, geo);
+}
+
 template <bool EF, bool DC, bool STALE, bool TOPK>
 __global__ void __launch_bounds__(kThreads)
 fused_round_kernel(const float* __restrict__ x, const float* __restrict__ g,
@@ -205,7 +235,8 @@ int flag_index(int ef, int dc, int stale, int topk) {
 extern "C" {
 
 // Dynamic shared memory one block needs (what the wrapper checks against
-// the 227 KB per-block limit before launching).
+// the 227 KB per-block limit before launching): one n x chunk tile and
+// the weights, the same for the gossip and the round kernels.
 size_t fused_round_smem_bytes(int n, int chunk) {
   return smem_bytes(make_geometry(n, chunk, chunk, 0));
 }
@@ -216,6 +247,20 @@ const char* gossip_error_string(int err) {
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
 // topk: columns kept per (row, chunk) by the top-k mask, 0 for all.
+int gossip_mix_launch(const float* x, const float* recon, const float* res,
+                      const float* w_off, const float* w_self, float* mixed,
+                      float* new_recon, float* new_res, float* scales, int n,
+                      int t, int chunk, int topk, int ef, int dc, int stale,
+                      void* stream) {
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      const float*, float*, float*, float*, float*, Geometry);
+  static const Fn table[16] = FLAG_TABLE(gossip_mix_kernel);
+  return launch(table[flag_index(ef, dc, stale, topk)],
+                make_geometry(n, t, chunk, topk),
+                static_cast<cudaStream_t>(stream), x, recon, res, w_off,
+                w_self, mixed, new_recon, new_res, scales);
+}
+
 int fused_round_launch(const float* x, const float* g, const float* recon,
                        const float* res, const float* w_off,
                        const float* w_self, float alpha, float* mixed,

@@ -3,8 +3,9 @@
 
 A wrapper checks its operands, then dispatches by the tensors' device:
 CPU tensors go to the plain PyTorch twin (``ref.py``), CUDA tensors to
-the hand-written kernel in ``csrc/fused_round.cu`` (the round
-megakernels) or ``csrc/wire_stage.cu`` (the wire stages) -- there is no
+the hand-written kernel in ``csrc/fused_round.cu`` (the gossip stage
+``gossip_mix`` and the round megakernels) or ``csrc/wire_stage.cu`` (the
+wire stages) -- there is no
 switch and no fallback: a CUDA call that cannot launch raises. The
 wrapper allocates the outputs, launches on the current stream without
 synchronizing, and raises if the launch reports an error. Each wrapper
@@ -30,13 +31,14 @@ from repro_torch.kernels.gossip.ref import (
     check_topk,
     fused_round_gt_ref,
     fused_round_ref,
+    gossip_mix_ref,
     refuse_unported,
     wire_stage_gt_ref,
     wire_stage_ref,
 )
 
-__all__ = ["fused_round", "fused_round_gt", "wire_stage", "wire_stage_gt",
-           "SMEM_LIMIT_BYTES"]
+__all__ = ["gossip_mix", "fused_round", "fused_round_gt", "wire_stage",
+           "wire_stage_gt", "SMEM_LIMIT_BYTES"]
 
 #: dynamic shared memory one Hopper block may opt in to (227 KB)
 SMEM_LIMIT_BYTES = 232448
@@ -55,6 +57,7 @@ def _round_lib() -> ctypes.CDLL:
     signature declared (pointers and the stream as void*, so ctypes never
     truncates them)."""
     lib = load("fused_round")
+    _declare(lib, "gossip_mix_launch", [_P] * 9 + [_I] * 7 + [_P])
     _declare(lib, "fused_round_launch", [_P] * 6 + [_F] + [_P] * 4 + [_I] * 7 + [_P])
     _declare(lib, "fused_round_gt_launch",
              [_P] * 10 + [_F] + [_P] * 8 + [_I] * 7 + [_P])
@@ -144,6 +147,54 @@ def _raise_on(lib, err: int, name: str) -> None:
 
 def _ptrs(*tensors) -> list:
     return [b.data_ptr() for b in tensors]
+
+
+def gossip_mix(
+    x: torch.Tensor,
+    recon: torch.Tensor,
+    res: torch.Tensor,
+    w_off: torch.Tensor,
+    w_self: torch.Tensor,
+    scale_chunk: int = 512,
+    error_feedback: bool = True,
+    difference_coding: bool = True,
+    topk=None,
+    stale_mix: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """One compressed gossip round on the flat buffer in one kernel
+    launch: the int8 difference-coded quantization of x with error
+    feedback (top-k masked when ``topk`` is set), then the mix
+    ``W_off @ recon' + w_self * x`` -- neighbours through what crossed
+    the wire, self through the exact x (``stale_mix``: against the input
+    recon).
+
+    x, recon, res: (n, t) fp32 contiguous, t % scale_chunk == 0; w_off
+    (n, n) with a zero diagonal; w_self (n,). Returns (mixed, new_recon,
+    new_res, scales (n, t // scale_chunk))."""
+    n, t = _check_operands("gossip_mix", (x, recon, res), scale_chunk, topk,
+                           (w_off, w_self))
+    flags = dict(scale_chunk=scale_chunk, error_feedback=error_feedback,
+                 difference_coding=difference_coding, topk=topk,
+                 stale_mix=stale_mix)
+    if x.device.type == "cpu":
+        return gossip_mix_ref(x, recon, res, w_off, w_self, **flags)
+    lib = _round_lib()
+    _check_smem(lib.fused_round_smem_bytes(n, scale_chunk),
+                f"an (n={n}, chunk={scale_chunk}) tile")
+    tail = _tail(n, t, scale_chunk, topk,
+                 (error_feedback, difference_coding, stale_mix), x.device)
+    mixed, new_recon, new_res = (torch.empty_like(x) for _ in range(3))
+    scales = torch.empty(n, t // scale_chunk, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.gossip_mix_launch(
+            *_ptrs(x, recon, res, w_off, w_self),
+            *_ptrs(mixed, new_recon, new_res, scales), *tail)
+    _raise_on(lib, err, "gossip_mix")
+    gossip_mix.launches += 1
+    return mixed, new_recon, new_res, scales
+
+
+gossip_mix.launches = 0
 
 
 def fused_round(

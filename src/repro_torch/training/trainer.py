@@ -1,11 +1,13 @@
 """End-to-end decentralized-FL training driver (counterpart of
-``repro.training.trainer``, the fused-engine path).
+``repro.training.trainer``).
 
 Runs the paper's Algorithm 1 on one device: nodes live on the leading
-tensor axis, and every communication round is one kernel call of the
-registry engine (``fused``, the only one ported so far) on its round
-schedule: sequential, pipelined or bounded staleness, with the dense or
-top-k int8 wire, and adaptive k (:class:`AdaptiveTopK`).
+tensor axis, mixing through the registry engine the caller names. The
+default ``tree`` engine gossips the parameter tree exactly through the
+dense W (the paper's Fig. 2 runs); ``flat`` does the same on the packed
+buffer; on ``fused`` every communication round is one kernel call, on
+the sequential, pipelined or bounded-staleness schedule, with the dense
+or top-k int8 wire and adaptive k (:class:`AdaptiveTopK`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from repro_torch.core.schedules import (
 )
 from repro_torch.core.topology import check_assumption1, mixing_matrix
 from repro_torch.device import resolve_device
-from repro_torch.training.metrics import MetricHistory
+from repro_torch.training.metrics import MetricHistory, comm_bytes_per_gossip
 
 Tree = Any
 
@@ -122,7 +124,8 @@ def make_schedule(run: FLRunConfig):
 
 
 def stack_for_nodes(params: Tree, n_nodes: int) -> Tree:
-    """Replicate one node's params across the node axis (identical init)."""
+    """Replicate one node's params across the node axis (identical init;
+    the reference's optional per-node perturbation is not ported)."""
     return tree_map(
         lambda p: p.unsqueeze(0).expand((n_nodes,) + tuple(p.shape)).clone(),
         params,
@@ -142,7 +145,8 @@ def train_decentralized(
     run: FLRunConfig,
     step_batches: Iterator[Dict[str, np.ndarray]],
     rounds: int,
-    engine: str = "fused",
+    wire_dtype=None,
+    engine: str = "tree",
     scale_chunk: int = 512,
     topk: Optional[int] = None,
     round_schedule: Optional[str] = None,
@@ -158,9 +162,16 @@ def train_decentralized(
     one node's parameters (replicated to every node) or an already
     node-stacked tree. ``step_batches`` yields PER-STEP node-stacked
     numpy batches; the driver groups Q of them per round (paper: Q local
-    updates, then one communication). ``engine`` is a registry name,
-    built with its ``simulated`` constructor against the run topology's W;
-    ``scale_chunk`` / ``topk`` set the fused engine's int8 / top-k wire.
+    updates, then one communication). ``engine`` is a registry name
+    (``tree``, ``flat`` or ``fused``), built with its ``simulated``
+    constructor against the run topology's W; the flat and fused engines
+    pack the state, and the tree view comes back through
+    ``engine.params_view``. ``wire_dtype`` (default ``run.wire_dtype``)
+    rounds the exact-wire engines' payload, e.g. to bfloat16; the fused
+    engines refuse it. ``scale_chunk`` / ``topk`` set the fused engine's
+    int8 / top-k wire (``scale_chunk`` also pads the flat buffer).
+    Engines that do not account their wire bytes (the exact wire) are
+    charged ``comm_bytes_per_gossip`` per round.
 
     ``round_schedule`` is a schedule spec ("sequential", "pipelined",
     "bounded_staleness:k=K"); ``staleness_depth=k`` is sugar for it (0 =
@@ -193,8 +204,11 @@ def train_decentralized(
     params = tree_map(lambda p: torch.as_tensor(p, device=dev), params_single)
     stacked = params if _is_stacked(params, run.n_nodes) else stack_for_nodes(
         params, run.n_nodes)
+    if wire_dtype is None:
+        wire_dtype = run.wire_dtype
     build = get_engine(engine).simulated
-    kw = dict(scale_chunk=scale_chunk, round_schedule=round_schedule)
+    kw = dict(wire_dtype=wire_dtype, scale_chunk=scale_chunk,
+              round_schedule=round_schedule)
     engine, params0 = build(w, stacked, topk=topk, **kw)
     schedule = make_schedule(run)
     if robust_alpha:
@@ -210,13 +224,17 @@ def train_decentralized(
         dense_fn = make_fl_round(loss_fn, schedule, cfg, dense_engine)
     state = init_fl_state(cfg, params0, engine)
 
+    fallback_bytes = engine.wire_bytes(cfg)
+    if fallback_bytes is None:
+        fallback_bytes = comm_bytes_per_gossip(params, run.topology, run.n_nodes,
+                                               wire_dtype=wire_dtype)
     history = MetricHistory()
     t0 = time.time()
     cum_bytes = 0.0
     for rnd in range(1, rounds + 1):
         fn = adaptive.pick(round_fn, dense_fn) if adaptive else round_fn
         state, m = fn(state, stack_batches(step_batches, run.q))
-        cum_bytes += float(m["wire_bytes"])
+        cum_bytes += float(m.get("wire_bytes", fallback_bytes))
         row = dict(
             round=rnd,
             iteration=state.step,

@@ -167,7 +167,11 @@ def test_registry_and_refusals():
     bf16 storage)."""
     assert "fused" in engine_names() and get_engine("fused") is FusedEngine
     with pytest.raises(ValueError, match="unknown engine"):
-        get_engine("tree")
+        get_engine("sharded_fused")
+    with pytest.raises(ValueError, match="wire_dtype"):
+        FusedEngine(mixing_matrix("hospital20", N),
+                    pack_layout({"p": torch.zeros(N, 1442)}, pad_to=CHUNK),
+                    device="cpu", wire_dtype="bfloat16")
     w = mixing_matrix("hospital20", N)
     layout = pack_layout({"p": torch.zeros(N, 1442)}, pad_to=CHUNK)
     with pytest.raises(ValueError, match="topk must be >= 1"):

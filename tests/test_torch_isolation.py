@@ -4,6 +4,7 @@ loads no JAX, and its entry points refuse to run on the CPU unless asked
 to (they default to ``cuda``)."""
 
 import ast
+import inspect
 import os
 import subprocess
 import sys
@@ -38,6 +39,9 @@ def _imports(path: Path):
 
 def _port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    names = {str(f.relative_to(PORT)) for f in files[:-1]}
+    assert {"core/mixing.py", "core/compression.py",
+            "benchmarks/fig2_comm_rounds.py"} <= names
     assert len(files) > 20
     return files
 
@@ -51,7 +55,9 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.examples.ehr_federated, "
-            "repro_torch.training.trainer, repro_torch.kernels.gossip.ops; "
+            "repro_torch.training.trainer, repro_torch.kernels.gossip.ops, "
+            "repro_torch.core.mixing, repro_torch.core.compression, "
+            "repro_torch.training.metrics, repro_torch.benchmarks.fig2_comm_rounds; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -70,6 +76,7 @@ def test_entry_points_refuse_the_cpu_by_default(no_card):
     from repro_torch.configs.base import FLRunConfig
     from repro_torch.configs.ehr_mlp import class_weights
     from repro_torch.data.ehr import generate_ehr_cohort, make_node_batcher
+    from repro_torch.benchmarks.fig2_comm_rounds import run as fig2_run
     from repro_torch.device import resolve_device
     from repro_torch.examples.ehr_federated import run_fused_engine
     from repro_torch.models.mlp import make_mlp_loss, mlp_init
@@ -88,6 +95,9 @@ def test_entry_points_refuse_the_cpu_by_default(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_fused_engine(rounds=1, q=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        fig2_run(iterations=1)
+    assert inspect.signature(train_decentralized).parameters["engine"].default == "tree"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         mlp_init(0)
 
 
@@ -103,7 +113,7 @@ def test_trainer_runs_on_the_cpu_when_asked():
     res = train_decentralized(make_mlp_loss(class_weights()), mlp_init(0, device="cpu"),
                               run, make_node_batcher(generate_ehr_cohort(seed=0), m=8,
                                                      seed=1),
-                              rounds=2, device="cpu")
+                              rounds=2, engine="fused", device="cpu")
     assert len(res.history) == 2
     assert res.history.column("comm_bytes")[-1] == 2 * 83_592
     assert res.history.column("iteration")[-1] == 6

@@ -439,7 +439,7 @@ def test_trainer_refusals_and_sugar():
     def train(rounds=1, **kw):
         batcher = make_node_batcher(generate_ehr_cohort(seed=0), m=20, seed=1)
         return train_decentralized(loss, init, _ehr_run(), batcher, rounds=rounds,
-                                   device="cpu", **kw)
+                                   engine="fused", device="cpu", **kw)
 
     with pytest.raises(ValueError, match="not both"):
         train(round_schedule="pipelined", staleness_depth=2)
@@ -476,7 +476,7 @@ def test_adaptive_topk_trainer_matches_reference():
         make_mlp_loss(ehr_mlp.class_weights()),
         params_from_numpy(jax.tree_util.tree_map(np.asarray, init), device="cpu"),
         _ehr_run(), make_node_batcher(generate_ehr_cohort(seed=0), m=20, seed=1),
-        rounds=rounds, topk_schedule=spec, device="cpu")
+        rounds=rounds, engine="fused", topk_schedule=spec, device="cpu")
     ks = mine.history.column("topk")
     np.testing.assert_array_equal(ks, ref.history.column("topk"))
     assert 64 in ks and 512 in ks  # both wires ran
