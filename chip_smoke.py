@@ -3,20 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the gossip kernels from ``src/repro_torch/kernels/gossip/csrc``
-(the gossip stage and the round megakernels, and the wire stages, one
-``nvcc`` per source, in parallel, into that package's ``build/``), holds
-each against its plain PyTorch twin on the card (dense and top-k wires),
-drives the port's paths -- the paper's FD-DSGT on the fused engine,
-FD-DSGD, FD-DSGT under bounded staleness k = 2, FD-DSGD at k = 4, the
-pipelined FD-DSGT round, the top-64 wire, the paper's Fig. 2 (DSGD,
-DSGT, FD-DSGD and FD-DSGT at Q = 100 on the exact-wire tree engine, 3000
-iterations each, against the same run on the CPU) and the compressed
-FD-DSGT composition (the flat engine, then ``make_compressed_flat_gossip``
-on each wire, against the fused engine) -- counting each kernel's
-launches per path, and times the kernels, their twins and whole rounds
-(fused sequential and bounded at Q = 10, tree DSGT and FD-DSGT at Q =
-100). Any failed check raises, so the exit code is non-zero; without a
+Builds every kernel library from its package's ``csrc/`` (the gossip
+stage, the round megakernels and the wire stages under
+``src/repro_torch/kernels/gossip``, decode attention and flash attention
+under ``kernels/decode_attention`` and ``kernels/flash_attention``; one
+``nvcc`` per source, all started together, into each package's
+``build/``), holds each against its plain PyTorch twin on the card
+(dense and top-k wires; attention at the tests' shapes and SmolLM-360M's,
+bf16 and fp32), drives the port's paths -- the paper's FD-DSGT on the
+fused engine, FD-DSGD, FD-DSGT under bounded staleness k = 2, FD-DSGD at
+k = 4, the pipelined FD-DSGT round, the top-64 wire, the paper's Fig. 2
+(DSGD, DSGT, FD-DSGD and FD-DSGT at Q = 100 on the exact-wire tree
+engine, 3000 iterations each, against the same run on the CPU), the
+compressed FD-DSGT composition (the flat engine, then
+``make_compressed_flat_gossip`` on each wire, against the fused engine)
+and serving: SmolLM-360M at full width with random weights,
+``ServeEngine.generate`` (batch 8, 128 prompt + 64 new tokens, greedy,
+a second weight set published mid-run), the bundle's prefill against
+the decode replay, and the first 16 steps teacher-forced on the host CPU
+-- counting each kernel's launches per path, and times the kernels,
+their twins, the library attention call and whole rounds and decode
+steps. Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
 
@@ -31,6 +38,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -44,6 +52,7 @@ import torch  # noqa: E402
 
 from repro_torch.benchmarks.fig2_comm_rounds import ALGOS, claims  # noqa: E402
 from repro_torch.benchmarks.fig2_comm_rounds import run as fig2_run  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import FLRunConfig  # noqa: E402
 from repro_torch.configs.ehr_mlp import class_weights  # noqa: E402
 from repro_torch.core.compression import (  # noqa: E402
@@ -51,13 +60,17 @@ from repro_torch.core.compression import (  # noqa: E402
     make_compressed_flat_gossip,
 )
 from repro_torch.core.engine import FlatEngine, get_engine  # noqa: E402
-from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round  # noqa: E402
+from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round, tree_map  # noqa: E402
 from repro_torch.core.packing import pack, tree_leaves, unpack  # noqa: E402
 from repro_torch.core.schedules import inv_sqrt  # noqa: E402
 from repro_torch.core.topology import mixing_matrix  # noqa: E402
 from repro_torch.data.ehr import generate_ehr_cohort, make_node_batcher  # noqa: E402
 from repro_torch.examples.ehr_federated import run_fused_engine  # noqa: E402
-from repro_torch.kernels.gossip import build as kbuild  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.gossip.ops import (  # noqa: E402
     fused_round,
     fused_round_gt,
@@ -72,7 +85,9 @@ from repro_torch.kernels.gossip.ref import (  # noqa: E402
     wire_stage_gt_ref,
     wire_stage_ref,
 )
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.mlp import make_mlp_loss, mlp_init  # noqa: E402
+from repro_torch.serving import ServeEngine  # noqa: E402
 from repro_torch.training.trainer import (  # noqa: E402
     stack_batches,
     stack_for_nodes,
@@ -98,7 +113,15 @@ GOSSIP_KERNELS = {
                    "src/repro/kernels/gossip/gossip.py:378", CSRC + "fused_round.cu"),
 }
 ALL_KERNELS = {**GOSSIP_KERNELS, **KERNELS, **WIRE_KERNELS}
-WRAPPERS = [gossip_mix, fused_round, fused_round_gt, wire_stage, wire_stage_gt]
+ATTENTION_KERNELS = {
+    # name: (TPU kernel it replaces, source)
+    "decode_attention": ("src/repro/kernels/decode_attention/decode_attention.py:80",
+                         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"),
+    "flash_attention": ("src/repro/kernels/flash_attention/flash_attention.py:113",
+                        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
+}
+WRAPPERS = [gossip_mix, fused_round, fused_round_gt, wire_stage, wire_stage_gt,
+            decode_attention, flash_attention]
 # (label, nodes, flat width, scale chunk, topology): the main path, a
 # ragged shape with one all-zero row chunk (exercises safe = 1), and a
 # large shape that makes the kernel bandwidth-bound
@@ -122,9 +145,24 @@ FIG2_ITERATIONS = 3000  # the paper's budget per algorithm
 # iterations)
 FIG2_RTOL = 1e-4
 
-# Published peaks of the H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# fp32 operations/s outside the tensor cores, at its full 700 W limit.
-HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12
+# Published peaks of the H100 SXM (NVIDIA data sheet): HBM bytes/s, fp32
+# operations/s outside the tensor cores and dense bf16 tensor-core
+# operations/s, at its full 700 W limit.
+HBM_BYTES_S, FP32_OPS_S, BF16_OPS_S = 3.35e12, 67e12, 989e12
+
+# The serving path: SmolLM-360M at full width (32 layers, d_model 960, 15
+# q-heads over 5 kv-heads, vocab 49,152), random weights from seeded CUDA
+# generators; batch 8, caches of 4096 slots, 128 prompt and 64 new tokens
+# (191 decode steps), a second weight set published after step 150.
+SERVE_ARCH, SERVE_BATCH, SERVE_MAX_SEQ = "smollm-360m", 8, 4096
+SERVE_PROMPT, SERVE_NEW, SWAP_AFTER, CPU_STEPS = 128, 64, 150, 16
+# attention kernel vs twin: fp32 within 1e-5; bf16 within 1.6e-2 x (1 +
+# |twin|) (inputs and output rounded to bf16, sums in another order)
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+# bf16 logits of two computations of one model (decode replay vs prefill,
+# card vs host CPU): 5e-2 x max(1, max|logit|), the reference suite's own
+# tolerance for decode vs prefill (tests/test_serving.py)
+SERVE_LOGIT_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -389,6 +427,73 @@ def check_gossip_mix() -> dict:
     return max_err
 
 
+# (label, B, C, H, K, hd, n_valid per row): the tests' shapes, then
+# SmolLM-360M's (a row with n_valid = 0, a full row, the path's lengths),
+# and a wrapped ring cache (every slot live, positions out of slot order)
+DECODE_SHAPES = [
+    ("test GQA 1", 3, 300, 4, 4, 64, [0, 300, 123]),
+    ("test GQA 3", 3, 200, 15, 5, 64, [0, 200, 57]),
+    ("test GQA 4, hd 128", 3, 130, 8, 2, 128, [0, 130, 99]),
+    ("smollm", 8, 4096, 15, 5, 64, [0, 1, 64, 128, 191, 2000, 4095, 4096]),
+    ("smollm wrapped ring", 8, 4096, 15, 5, 64, [4096] * 8),
+]
+# (label, B, S, H, K, hd, causal, window)
+FLASH_SHAPES = [
+    ("test causal, ragged", 2, 200, 2, 1, 64, True, 0),
+    ("test causal window, hd 128", 1, 160, 4, 4, 128, True, 48),
+    ("test window only", 1, 130, 4, 2, 64, False, 40),
+    ("smollm prefill", 8, 128, 15, 5, 64, True, 0),
+    ("smollm window", 8, 128, 15, 5, 64, True, 64),
+]
+
+
+def _attn_err(name: str, label: str, got, want, dtype) -> float:
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name} {label} {dtype}: bad output")
+    excess = float(((got - want).abs() - ATTN_TOL[dtype] * (1 + want.abs())).max())
+    if excess > 0:
+        raise AssertionError(f"{name} {label} {dtype}: off the twin by "
+                             f"{float((got - want).abs().max())}")
+    return float((got - want).abs().max())
+
+
+def check_attention_kernels() -> dict:
+    """Both attention kernels against their twins on the card, bf16 and
+    fp32, at the tests' shapes and SmolLM-360M's."""
+    max_err = {"decode_attention": 0.0, "flash_attention": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, b, c, h, kv, hd, nv in DECODE_SHAPES:
+            q = torch.randn(b, 1, h, hd, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, c, kv, hd, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            n_valid = torch.tensor(nv, dtype=torch.int32, device="cuda")
+            got = decode_attention(q, k, v, n_valid)
+            torch.cuda.synchronize()
+            err = _attn_err("decode_attention", label, got, decode_attention_ref(q, k, v, n_valid),
+                            dtype)
+            if 0 in nv and got[nv.index(0)].any():
+                raise AssertionError(f"decode_attention {label}: n_valid = 0 row not zero")
+            max_err["decode_attention"] = max(max_err["decode_attention"], err)
+            log(f"  decode_attention == twin at {label} (B {b}, C {c}, H {h}, K {kv}, "
+                f"hd {hd}, n_valid {nv}) {str(dtype)[6:]}: max err {err:.3e}")
+        for label, b, sq, h, kv, hd, causal, window in FLASH_SHAPES:
+            q = torch.randn(b, sq, h, hd, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, sq, kv, hd, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = _attn_err("flash_attention", label, got,
+                            attention_ref(q, k, v, causal=causal, window=window), dtype)
+            max_err["flash_attention"] = max(max_err["flash_attention"], err)
+            log(f"  flash_attention == twin at {label} (B {b}, S {sq}, H {h}, K {kv}, "
+                f"hd {hd}, causal {causal}, window {window}) {str(dtype)[6:]}: "
+                f"max err {err:.3e}")
+    torch.cuda.empty_cache()
+    return max_err
+
+
 def zero_counts() -> None:
     for wrapper in WRAPPERS:
         wrapper.launches = 0
@@ -620,6 +725,106 @@ def compressed_path() -> dict:
     return {"gossip_mix": 10}
 
 
+def _logit_diff(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max(1, max |want|), held to SERVE_LOGIT_TOL."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: logits not finite")
+    rel = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+    if rel > SERVE_LOGIT_TOL:
+        raise AssertionError(f"{what}: logits off by {rel:.3e} of their scale")
+    return rel
+
+
+def _replay(bundle, params, tokens: torch.Tensor, steps: int, device):
+    """Step tokens[:, :steps] through the bundle's decode function on a
+    fresh cache; returns each step's logits."""
+    caches = bundle.init_decode_state_fn(tokens.shape[0], SERVE_MAX_SEQ, device=device)
+    out = []
+    for t in range(steps):
+        logits, caches = bundle.decode_fn(params, tokens[:, t].to(device), caches)
+        out.append(logits)
+    return out
+
+
+def serving_path() -> dict:
+    """The serving path at SmolLM-360M's full width, through its entry
+    points: ``ServeEngine.generate`` launches the decode kernel once per
+    layer and step and never the flash kernel, and promotes a weight set
+    published mid-run at the next step boundary; ``bundle.prefill_fn``
+    launches the flash kernel once per layer; its last-position logits
+    agree with the decode replay's, and the replay's first steps agree
+    with the same model on the host CPU."""
+    cfg = get_config(SERVE_ARCH)
+    bundle = build_model(cfg)
+    params = bundle.init_fn(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    params_b = bundle.init_fn(torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    engine = ServeEngine(bundle, params, max_seq=SERVE_MAX_SEQ, batch=SERVE_BATCH,
+                         snapshot_round=0)
+    step, calls = engine.decode_step, {"n": 0}
+
+    def publishing_step(tokens, caches):
+        out = step(tokens, caches)
+        calls["n"] += 1
+        if calls["n"] == SWAP_AFTER:  # published from outside, between steps
+            engine.publish(params_b, snapshot_round=1)
+        return out
+
+    engine.decode_step = publishing_step
+    log(f"  {cfg.name}: {cfg.param_count():,} parameters (fp32), {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} q-heads over {cfg.n_kv_heads} kv-heads")
+    steps = SERVE_PROMPT + SERVE_NEW - 1
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=SERVE_NEW, temperature=0.0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    del engine.decode_step  # the class's own step from here on
+    expect_launches("serving generate", decode_attention=cfg.n_layers * steps)
+    new = out.tokens[:, SERVE_PROMPT:]
+    if (out.tokens.shape != (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)
+            or not (out.tokens[:, :SERVE_PROMPT] == prompts).all()
+            or new.min() < 0 or new.max() >= cfg.vocab_size):
+        raise AssertionError(f"generate: tokens {out.tokens.shape}, new in "
+                             f"[{new.min()}, {new.max()}]")
+    if (out.swap_steps != (SWAP_AFTER,) or engine.swap_count != 1
+            or engine.staleness(1) != 0):
+        raise AssertionError(f"hot swap: swap_steps {out.swap_steps}, count "
+                             f"{engine.swap_count}, staleness {engine.staleness(1)}")
+    log(f"  generate (batch {SERVE_BATCH}, {SERVE_PROMPT} prompt + {SERVE_NEW} new tokens, "
+        f"greedy): {cfg.n_layers * steps} decode_attention launches ({cfg.n_layers} layers "
+        f"x {steps} steps), no flash_attention; swap published after step {SWAP_AFTER} "
+        f"landed at {out.swap_steps} ({engine.swap_pauses[0] * 1e6:.1f} us pause); "
+        f"{gen_s:.2f} s, {SERVE_BATCH * SERVE_NEW / gen_s:.1f} new tokens/s end to end; "
+        f"row 0 continues {new[0, :8].tolist()}")
+
+    tokens = torch.as_tensor(out.tokens, dtype=torch.long)
+    zero_counts()
+    pre, _ = bundle.prefill_fn(params, {"tokens": tokens[:, :SERVE_PROMPT].cuda()})
+    expect_launches("serving prefill", flash_attention=cfg.n_layers)
+    replay = _replay(bundle, params, tokens, SERVE_PROMPT, "cuda")
+    rel = _logit_diff("prefill vs decode replay", pre, replay[-1])
+    agree = int((pre.float().argmax(-1) == replay[-1].float().argmax(-1)).sum())
+    log(f"  prefill_fn: {cfg.n_layers} flash_attention launches; last-position logits vs "
+        f"the decode replay's at prompt token {SERVE_PROMPT}: max diff {rel:.3e} of their "
+        f"scale (tolerance {SERVE_LOGIT_TOL}), argmax agrees on {agree}/{SERVE_BATCH} rows")
+
+    t0 = time.perf_counter()
+    cpu_params = tree_map(lambda a: a.cpu(), params)
+    cpu = _replay(bundle, cpu_params, tokens, CPU_STEPS, "cpu")
+    worst = max(_logit_diff(f"card vs CPU step {t}", replay[t], cpu[t])
+                for t in range(CPU_STEPS))
+    log(f"  the card's tokens teacher-forced on the host CPU for {CPU_STEPS} steps "
+        f"({time.perf_counter() - t0:.1f} s): per-step logits within {worst:.3e} of their "
+        f"scale (tolerance {SERVE_LOGIT_TOL})")
+    del cpu_params, cpu, replay
+    return {"decode_attention": cfg.n_layers * steps, "flash_attention": cfg.n_layers,
+            "engine": engine, "prompts": prompts, "gen_s": gen_s}
+
+
 def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
     """Median device time of one call, from CUDA events. A spin kernel
     ahead of each call holds the stream while the host enqueues the
@@ -676,32 +881,43 @@ def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
     log(f"  one {label} round (20 hospitals, host clock, median of {rounds}): "
         f"{r_ms * 1e3:.1f} us [{card}]")
 
+    def run():
+        nonlocal state
+        for b in batches[rounds + warmup:]:
+            state, _ = round_fn(state, b)
+
+    return {"round_ms": r_ms,
+            **profile_device(run, profiled, label, "round", r_ms, card)}
+
+
+def profile_device(run, n: int, label: str, unit: str, host_ms: float, card: str) -> dict:
+    """``torch.profiler`` over ``run()``, which does ``n`` units of work:
+    the device's operations and busy time per unit (the union of its
+    intervals), their share of ``host_ms`` (the unprofiled host-clock time
+    of one unit), and the host's costliest operations."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for b in batches[rounds + warmup:]:
-            state, _ = round_fn(state, b)
+        run()
         torch.cuda.synchronize()
-    events = prof.events()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
         log("  profiler: no device activity recorded; device busy time not measured")
-        return {"round_ms": r_ms}
+        return {}
     busy, reach = 0.0, -math.inf  # union of the device intervals, in us
     for start, end in spans:
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
-    busy_ms = busy / profiled / 1e3
-    log(f"  profiler over {profiled} {label} rounds: {len(spans) / profiled:.0f} device "
-        f"operations and {busy_ms * 1e3:.1f} us of device busy time per round, "
-        f"{busy_ms / r_ms:.2%} of the unprofiled round time [{card}]")
+    busy_ms = busy / n / 1e3
+    log(f"  profiler over {n} {label} {unit}s: {len(spans) / n:.0f} device "
+        f"operations and {busy_ms * 1e3:.1f} us of device busy time per {unit}, "
+        f"{busy_ms / host_ms:.2%} of the unprofiled {unit} time [{card}]")
     top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
                  reverse=True)[:8]
-    log("  host ops by self time per round: " + ", ".join(
-        f"{e.key} {e.self_cpu_time_total / profiled:.0f} us x{e.count / profiled:.0f}"
-        for e in top))
-    return {"round_ms": r_ms, "device_ops": len(spans) / profiled, "busy_ms": busy_ms}
+    log(f"  host ops by self time per {unit}: " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / n:.0f} us x{e.count / n:.0f}" for e in top))
+    return {"device_ops": len(spans) / n, "busy_ms": busy_ms}
 
 
 def time_row(card: str, name: str, label: str, n: int, t: int, k_ms: float,
@@ -751,6 +967,135 @@ def timings(card: str) -> dict:
     return rows
 
 
+def attn_time_row(card: str, name: str, label: str, shape: str, k_ms: float,
+                  t_ms: float, l_ms: float, nbytes: int, flops: int) -> dict:
+    """Kernel, twin and library times beside the bound: the larger of
+    the bytes moved once over the HBM rate and the bf16 operations over
+    the dense tensor-core peak."""
+    bytes_s, ops_s = nbytes / HBM_BYTES_S, flops / BF16_OPS_S
+    bound_ms = max(bytes_s, ops_s) * 1e3
+    bound_by = "bytes" if bytes_s >= ops_s else "operations"
+    log(f"  {name} {label} ({shape}): kernel {k_ms * 1e3:.2f} us, twin {t_ms * 1e3:.2f} us, "
+        f"scaled_dot_product_attention {l_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+        f"by {bound_by} ({nbytes / 1e6:.3f} MB at {HBM_BYTES_S / 1e12:.2f} TB/s, "
+        f"{flops / 1e9:.3f} GFLOP at {BF16_OPS_S / 1e12:.0f} TFLOP/s bf16), "
+        f"{bound_ms / k_ms:.1%} of bound [{card}]")
+    return dict(ms=k_ms, plain_ms=t_ms, library_ms=l_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def _same(what: str, got, want) -> None:
+    """The yardstick computes the kernels' function (bf16 tolerance)."""
+    _attn_err("scaled_dot_product_attention", what, got, want, torch.bfloat16)
+
+
+def attention_timings(card: str) -> dict:
+    """Both attention kernels, their twins and the one PyTorch call that
+    computes the same function (``scaled_dot_product_attention`` with
+    GQA: a boolean mask of the live slots for decode, ``is_causal`` for
+    prefill; a yardstick only, never on the path), bf16, at the serving
+    path's shapes and a large one. Decode: the path's last step (B 8, a
+    4096-slot cache, 191 live slots) and B 8 over a full 32,768-slot cache
+    (the decode_32k length, batch 128 cut to 8 to fit the twin). Prefill:
+    the path's (B 8, S 128) and B 2, S 4096, causal."""
+    import torch.nn.functional as F
+
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    h, kv, hd = 15, 5, 64
+    path_live = SERVE_PROMPT + SERVE_NEW - 1
+    for label, b, c, live in (("path", SERVE_BATCH, SERVE_MAX_SEQ, path_live),
+                              ("large", 8, 32768, 32768)):
+        q = torch.randn(b, 1, h, hd, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(b, c, kv, hd, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        n_valid = torch.full((b,), live, dtype=torch.int32, device="cuda")
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(c, device="cuda") < live)[None, None, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        _same(f"decode {label}", lib().transpose(1, 2), decode_attention_ref(q, k, v, n_valid))
+        nbytes = 2 * (2 * b * h * hd + 2 * b * live * kv * hd) + 4 * b
+        rows[("decode_attention", label)] = attn_time_row(
+            card, "decode_attention", label, f"B {b}, C {c}, {live} live, H {h}, K {kv}",
+            device_ms(lambda: decode_attention(q, k, v, n_valid)),
+            device_ms(lambda: decode_attention_ref(q, k, v, n_valid)),
+            device_ms(lib), nbytes, 4 * b * h * live * hd)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    for label, b, sq in (("path", SERVE_BATCH, SERVE_PROMPT), ("large", 2, 4096)):
+        q = torch.randn(b, sq, h, hd, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(b, sq, kv, hd, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        _same(f"prefill {label}", lib().transpose(1, 2), attention_ref(q, k, v))
+        nbytes = 2 * (2 * b * sq * h * hd + 2 * b * sq * kv * hd)
+        pairs = sq * (sq + 1) // 2  # live (query, key) pairs per head, causal
+        rows[("flash_attention", label)] = attn_time_row(
+            card, "flash_attention", label, f"B {b}, S {sq}, H {h}, K {kv}, causal",
+            device_ms(lambda: flash_attention(q, k, v)),
+            device_ms(lambda: attention_ref(q, k, v)),
+            device_ms(lib), nbytes, 4 * b * h * pairs * hd)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def decode_step_profile(card: str, serve: dict, steps: int = 40, warmup: int = 5,
+                        profiled: int = 5) -> dict:
+    """Whole serving decode steps at full width (batch 8, greedy, the
+    prompt already in the cache): the host-clock median of ``steps``
+    synchronized steps, tokens per second from it, then the profiler over
+    ``profiled`` more."""
+    engine = serve["engine"]
+    tokens = torch.as_tensor(serve["prompts"], dtype=torch.long, device="cuda")
+    caches = engine.new_caches()
+    for t in range(SERVE_PROMPT):
+        logits, caches, _ = engine.decode_step(tokens[:, t], caches)
+    cur = logits.float().argmax(-1)
+    times = []
+    for k in range(steps + warmup):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, _ = engine.decode_step(cur, caches)
+        cur = logits.float().argmax(-1)
+        torch.cuda.synchronize()
+        if k >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    log(f"  one {SERVE_ARCH} decode step (batch {SERVE_BATCH}, host clock, median of "
+        f"{steps}): {step_ms * 1e3:.1f} us, {SERVE_BATCH / step_ms * 1e3:.1f} tokens/s "
+        f"[{card}]")
+
+    def run():
+        nonlocal caches, cur
+        for _ in range(profiled):
+            logits, caches, _ = engine.decode_step(cur, caches)
+            cur = logits.float().argmax(-1)
+
+    return {"step_ms": step_ms, "tokens_s": SERVE_BATCH / step_ms * 1e3,
+            **profile_device(run, profiled, f"{SERVE_ARCH} decode", "step", step_ms, card)}
+
+
+def ptxas_summary(lib) -> str:
+    """One line of a library's ``-Xptxas -v`` report: kernels, registers,
+    the most spilled and the most shared memory of any kernel."""
+    text = lib.with_suffix(".log").read_text()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", text)]
+    smem = [int(r) for r in re.findall(r"(\d+) bytes smem", text)] or [0]
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, spill stores up "
+            f"to {max(spills)} B, static shared memory up to {max(smem)} B")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -763,24 +1108,28 @@ def main() -> int:
 
     log("phase 1: build")
     t0 = time.perf_counter()
-    libs = kbuild.build()
-    log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for lib in libs.values():
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    ptxas: {line.strip()}")
+    libs = kbuild.build_all()
+    log(f"  built {sorted(name for _, name in libs)} in {time.perf_counter() - t0:.1f} s")
+    for (_, name), lib in sorted(libs.items()):
+        log(f"    ptxas {name}: {ptxas_summary(lib)}")
 
     log("phase 2: kernels vs twins on the card")
-    max_err = {**check_gossip_mix(), **check_kernels(), **check_wire_stages()}
+    max_err = {**check_gossip_mix(), **check_kernels(), **check_wire_stages(),
+               **check_attention_kernels()}
 
     log("phase 3: paths (launches counted per run)")
     launches = main_path()
     launches.update(stale_paths(launches.pop("sequential_losses")))
     fig2_path()
     launches.update(compressed_path())
+    serve = serving_path()
+    launches.update(decode_attention=serve["decode_attention"],
+                    flash_attention=serve["flash_attention"])
 
     log("phase 4: times (CUDA events, median of 60 after warm-up)")
     rows = timings(card)
+    rows.update(attention_timings(card))
+    rows["serving"] = decode_step_profile(card, serve)
 
     kernels = []
     for name, (_, _, _, replaces, source) in ALL_KERNELS.items():
@@ -791,6 +1140,15 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
+        })
+    for name, (replaces, source) in ATTENTION_KERNELS.items():
+        row = rows[(name, "path")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,10 +16,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.fl import tree_map
-from repro_torch.core.packing import FlatLayout
+from repro_torch.core.packing import FlatLayout, tree_leaves
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import init_params
 
-__all__ = ["params_from_numpy", "flat_from_numpy"]
+__all__ = ["params_from_numpy", "flat_from_numpy", "model_params_from_numpy"]
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
@@ -39,3 +40,28 @@ def flat_from_numpy(flat: np.ndarray, layout: FlatLayout, device=None) -> torch.
             f"({layout.n_nodes}, {layout.total}) float32"
         )
     return torch.tensor(arr, device=resolve_device(device))
+
+
+def model_params_from_numpy(tree: Any, cfg, device=None) -> Any:
+    """A reference transformer's parameter tree (``repro.models.transformer
+    .init_params`` as nested dicts of numpy arrays: ``embed``,
+    ``final_norm``, the layer-stacked ``blocks`` and, untied, ``head``)
+    -> the port's tensors on ``device``. Every leaf's path, shape and
+    dtype is checked against the port's own ``init_params`` for ``cfg``
+    first; a mismatch raises ``ValueError`` naming the leaf."""
+    want = {path: leaf for path, leaf in tree_leaves(init_params(cfg, None, "meta"))}
+    got = {path: np.asarray(leaf) for path, leaf in tree_leaves(tree)}
+    if set(got) != set(want):
+        raise ValueError(
+            f"parameter tree does not match {cfg.name}: missing "
+            f"{sorted(set(want) - set(got))}, unexpected {sorted(set(got) - set(want))}"
+        )
+    for path, leaf in want.items():
+        arr = got[path]
+        dtype = str(leaf.dtype).removeprefix("torch.")
+        if tuple(arr.shape) != tuple(leaf.shape) or arr.dtype.name != dtype:
+            raise ValueError(
+                f"leaf {'/'.join(path)}: {arr.shape} {arr.dtype.name}, {cfg.name} "
+                f"wants {tuple(leaf.shape)} {dtype}"
+            )
+    return params_from_numpy(tree, device)

@@ -1,106 +1,19 @@
-"""Build the gossip kernels with ``nvcc`` and load them with ``ctypes``.
-
-Each ``csrc/<name>.cu`` has a plain C interface and compiles, on first
-use, into ``build/lib<name>-<hash>.so`` beside this file (the hash covers
-the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
-source or header rebuilds). Only sources in
-the repository are compiled; nothing is fetched. Importing this module
-builds nothing: :func:`build` and :func:`load` do, and only on a machine
-with the CUDA toolkit.
-"""
+"""Build the gossip kernels (``csrc/*.cu``) into ``build/`` beside this
+file, through the shared build module :mod:`repro_torch.kernels.build`.
+Importing this module builds nothing: :func:`build` and :func:`load` do,
+and only on a machine with the CUDA toolkit."""
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
 
-__all__ = ["build", "load", "NVCC_FLAGS"]
+from repro_torch.kernels.build import BASE_FLAGS, KernelLibraries
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD = Path(__file__).resolve().parent / "build"
+__all__ = ["build", "load", "NVCC_FLAGS", "LIBS"]
 
-#: sm_90a keeps Hopper's wgmma/setmaxnreg available to later kernels;
 #: -fmad=false keeps nvcc from contracting a*b+c into an FMA, so the
 #: update and error-feedback arithmetic rounds like the PyTorch twin.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-_BUILD_TIMEOUT_S = 600
+NVCC_FLAGS = BASE_FLAGS + ("-fmad=false",)
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
-
-
-def _nvcc() -> str:
-    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the
-    PATH, else the toolkit's default install location."""
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (home and os.path.join(home, "bin", "nvcc"),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME); the gossip kernels are built from "
-        f"{CSRC} on the machine that runs them"
-    )
-
-
-def _library(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
-
-
-def build(names: Iterable[str] | None = None) -> Dict[str, Path]:
-    """Compile the named sources (default: every ``csrc/*.cu``) that are
-    not built yet, one ``nvcc`` per source, all started together.
-    Returns ``{name: library path}``; each library's ``-Xptxas -v``
-    report (registers, shared memory, spills) sits beside it as ``.log``.
-    Raises ``RuntimeError`` with the compiler's output if a build fails."""
-    if names is None:
-        names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    libs = {name: _library(name) for name in names}
-    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
-    if not todo:
-        return libs
-    BUILD.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name, lib in todo.items():
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
-    failures = []
-    for name, (tmp, proc) in procs.items():
-        try:
-            out, _ = proc.communicate(timeout=_BUILD_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-            failures.append(f"{name}: nvcc timed out\n{out}")
-            continue
-        lib = todo[name]
-        lib.with_suffix(".log").write_text(out)
-        if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
-            continue
-        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
-    return libs
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    if name not in _LOADED:
-        _LOADED[name] = ctypes.CDLL(str(build([name])[name]))
-    return _LOADED[name]
+LIBS = KernelLibraries(Path(__file__).resolve().parent, NVCC_FLAGS)
+build, load = LIBS.build, LIBS.load

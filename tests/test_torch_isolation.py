@@ -41,7 +41,9 @@ def _port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     names = {str(f.relative_to(PORT)) for f in files[:-1]}
     assert {"core/mixing.py", "core/compression.py",
-            "benchmarks/fig2_comm_rounds.py"} <= names
+            "benchmarks/fig2_comm_rounds.py", "serving/engine.py", "launch/serve.py",
+            "models/transformer.py", "kernels/decode_attention/ops.py",
+            "kernels/flash_attention/ops.py", "examples/serve_decode.py"} <= names
     assert len(files) > 20
     return files
 
@@ -57,7 +59,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.examples.ehr_federated, "
             "repro_torch.training.trainer, repro_torch.kernels.gossip.ops, "
             "repro_torch.core.mixing, repro_torch.core.compression, "
-            "repro_torch.training.metrics, repro_torch.benchmarks.fig2_comm_rounds; "
+            "repro_torch.training.metrics, repro_torch.benchmarks.fig2_comm_rounds, "
+            "repro_torch.serving, repro_torch.launch.serve, "
+            "repro_torch.examples.serve_decode, repro_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -99,6 +103,27 @@ def test_entry_points_refuse_the_cpu_by_default(no_card):
     assert inspect.signature(train_decentralized).parameters["engine"].default == "tree"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mlp_init(0)
+
+    # the serving path: the launcher, the example, the bundle's inits
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_decode
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import init_kv_cache
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "tinyllama-1.1b", "--max-new", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_decode.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_decode.demo("smollm-360m")
+    bundle = build_model(get_config("smollm-360m", smoke=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bundle.init_fn(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bundle.init_decode_state_fn(1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_kv_cache(1, 8, 1, 64)
 
 
 def test_trainer_runs_on_the_cpu_when_asked():
