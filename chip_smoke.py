@@ -6,11 +6,14 @@
 Builds every kernel library from its package's ``csrc/`` (the gossip
 stage, the round megakernels and the wire stages under
 ``src/repro_torch/kernels/gossip``, decode attention and flash attention
-under ``kernels/decode_attention`` and ``kernels/flash_attention``; one
-``nvcc`` per source, all started together, into each package's
-``build/``), holds each against its plain PyTorch twin on the card
-(dense and top-k wires; attention at the tests' shapes and SmolLM-360M's,
-bf16 and fp32), drives the port's paths -- the paper's FD-DSGT on the
+under ``kernels/decode_attention`` and ``kernels/flash_attention``, WKV-6
+and the RG-LRU scan under ``kernels/rwkv6_scan`` and
+``kernels/rglru_scan``; one ``nvcc`` per source, all started together,
+into each package's ``build/``), holds each against its plain PyTorch
+twin on the card (dense and top-k wires; attention at the tests' shapes,
+SmolLM-360M's and RecurrentGemma-2B's head size 256, bf16 and fp32; the
+scans at the reference suite's shapes, S = 1, strong decay and the
+serving paths' shapes), drives the port's paths -- the paper's FD-DSGT on the
 fused engine, FD-DSGD, FD-DSGT under bounded staleness k = 2, FD-DSGD at
 k = 4, the pipelined FD-DSGT round, the top-64 wire, the paper's Fig. 2
 (DSGD, DSGT, FD-DSGD and FD-DSGT at Q = 100 on the exact-wire tree
@@ -20,10 +23,13 @@ compressed FD-DSGT composition (the flat engine, then
 and serving: SmolLM-360M at full width with random weights,
 ``ServeEngine.generate`` (batch 8, 128 prompt + 64 new tokens, greedy,
 a second weight set published mid-run), the bundle's prefill against
-the decode replay, and the first 16 steps teacher-forced on the host CPU
--- counting each kernel's launches per path, and times the kernels,
-their twins, the library attention call and whole rounds and decode
-steps. Any failed check raises, so the exit code is non-zero; without a
+the decode replay, and the first 16 steps teacher-forced on the host CPU;
+then RWKV6-7B and RecurrentGemma-2B at full width and depth, one after
+the other (``generate`` at batch 8, 128 prompt + 32 new tokens, then
+``prefill_fn`` against the decode replay, then a reduced-depth copy
+against the host CPU) -- counting each kernel's launches per path, and
+times the kernels, their twins, the library attention call and whole
+rounds and decode steps of the three served models. Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
 
@@ -34,6 +40,7 @@ Output: progress lines, then the card's name and power limit as
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
@@ -49,6 +56,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.benchmarks.fig2_comm_rounds import ALGOS, claims  # noqa: E402
 from repro_torch.benchmarks.fig2_comm_rounds import run as fig2_run  # noqa: E402
@@ -78,6 +86,10 @@ from repro_torch.kernels.gossip.ops import (  # noqa: E402
     wire_stage,
     wire_stage_gt,
 )
+from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ops import wkv6  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref  # noqa: E402
 from repro_torch.kernels.gossip.ref import (  # noqa: E402
     fused_round_gt_ref,
     fused_round_ref,
@@ -120,8 +132,15 @@ ATTENTION_KERNELS = {
     "flash_attention": ("src/repro/kernels/flash_attention/flash_attention.py:113",
                         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
 }
+SCAN_KERNELS = {
+    # name: (TPU kernel it replaces, source)
+    "wkv6": ("src/repro/kernels/rwkv6_scan/rwkv6_scan.py:78",
+             "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu"),
+    "rglru_scan": ("src/repro/kernels/rglru_scan/rglru_scan.py:55",
+                   "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"),
+}
 WRAPPERS = [gossip_mix, fused_round, fused_round_gt, wire_stage, wire_stage_gt,
-            decode_attention, flash_attention]
+            decode_attention, flash_attention, wkv6, rglru_scan]
 # (label, nodes, flat width, scale chunk, topology): the main path, a
 # ragged shape with one all-zero row chunk (exercises safe = 1), and a
 # large shape that makes the kernel bandwidth-bound
@@ -163,6 +182,40 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
 # card vs host CPU): 5e-2 x max(1, max|logit|), the reference suite's own
 # tolerance for decode vs prefill (tests/test_serving.py)
 SERVE_LOGIT_TOL = 5e-2
+
+# The recurrent serving paths, at full width and depth with random weights
+# from seeded CUDA generators: RWKV6-7B (32 rwkv layers, d_model 4096, 64
+# WKV heads, vocab 65,536) and RecurrentGemma-2B (26 layers: 18 RG-LRU, 8
+# local attention with head size 256 and a 2048-slot ring). Each: batch 8,
+# 128 prompt + 32 new tokens, greedy (159 decode steps) on max_seq 4096;
+# then prefill_fn on the prompt; then the card against the host CPU over
+# a few teacher-forced steps at reduced depth (n_layers), full width.
+RECURRENT_ARCHS = {"rwkv6-7b": 2, "recurrentgemma-2b": 3}
+REC_NEW, REC_CPU_STEPS = 32, 6
+# bf16 prefill vs the decode replay, max diff over max(1, max|logit|).
+# RecurrentGemma: SERVE_LOGIT_TOL. RWKV6: 1e-1 -- the reference's
+# prefill runs the token shift in fp32 (its zero fp32 carries promote the
+# whole sequence) and its decode in bf16 from the second step on, so the
+# two paths round differently at every layer; over 32 layers that alone
+# moves the last logits by 4.0e-2 of their scale in the reference and
+# 3.8e-2 in the port on the same weights (tests/test_torch_transformer.py
+# ::test_rwkv_prefill_replay_gap_is_the_references), more on other draws.
+REC_PREFILL_TOL = {"rwkv6-7b": 1e-1, "recurrentgemma-2b": SERVE_LOGIT_TOL}
+# At reduced depth and full width, fp32 compute: prefill vs the card's
+# replay within 1e-2 (the replay's KV cache rounds K/V to bf16, prefill
+# does not: the port's test_decode_replay_matches_prefill tolerance), the
+# card's replay vs the host CPU's within 1e-3 (one fp32 function summed
+# in another order). Both run at fp32 and shallow because RWKV6's first
+# decode step is ill-conditioned: a head's WKV output is rank one there
+# and its RMS norm divides by the bonus r . (u * k), so where that is
+# near 0 a rounding difference moves the head's output by up to its own
+# size, and the slow decay (w ~ 0.9975 a step) carries it on; through 32
+# layers that swamps any tolerance a kernel could be held to.
+REC_FP32_PREFILL_TOL, REC_FP32_CPU_TOL = 1e-2, 1e-3
+# WKV-6 and RG-LRU kernels vs their twins: the reference suite's own
+# tolerances for these functions (tests/test_kernels.py), as |got - want|
+# <= atol + rtol |want|
+SCAN_TOL = {"wkv6": (5e-4, 1e-3), "rglru_scan": (1e-4, 1e-4)}
 
 
 def log(msg: str) -> None:
@@ -437,6 +490,14 @@ DECODE_SHAPES = [
     ("smollm", 8, 4096, 15, 5, 64, [0, 1, 64, 128, 191, 2000, 4095, 4096]),
     ("smollm wrapped ring", 8, 4096, 15, 5, 64, [4096] * 8),
 ]
+DECODE_SHAPES += [
+    # hd 256: RecurrentGemma-2B's MQA (10 q-heads over 1 kv head, three
+    # blocks of at most 4 q-heads each) on its 2048-slot local ring, at the
+    # tests' size, at the path's lengths, and wrapped
+    ("test MQA, hd 256", 3, 150, 10, 1, 256, [0, 150, 77]),
+    ("recurrentgemma", 8, 2048, 10, 1, 256, [0, 1, 64, 128, 159, 1000, 2047, 2048]),
+    ("recurrentgemma wrapped ring", 8, 2048, 10, 1, 256, [2048] * 8),
+]
 # (label, B, S, H, K, hd, causal, window)
 FLASH_SHAPES = [
     ("test causal, ragged", 2, 200, 2, 1, 64, True, 0),
@@ -444,6 +505,11 @@ FLASH_SHAPES = [
     ("test window only", 1, 130, 4, 2, 64, False, 40),
     ("smollm prefill", 8, 128, 15, 5, 64, True, 0),
     ("smollm window", 8, 128, 15, 5, 64, True, 64),
+    # hd 256: the reference suite's windowed case, RecurrentGemma-2B's
+    # prefill (window 2048) and a window that cuts into it
+    ("test window, hd 256", 1, 384, 8, 2, 256, True, 128),
+    ("recurrentgemma prefill", 8, 128, 10, 1, 256, True, 2048),
+    ("recurrentgemma window 48", 8, 128, 10, 1, 256, True, 48),
 ]
 
 
@@ -490,6 +556,108 @@ def check_attention_kernels() -> dict:
             log(f"  flash_attention == twin at {label} (B {b}, S {sq}, H {h}, K {kv}, "
                 f"hd {hd}, causal {causal}, window {window}) {str(dtype)[6:]}: "
                 f"max err {err:.3e}")
+    torch.cuda.empty_cache()
+    return max_err
+
+
+# WKV-6 cases: (label, B, S, H, decay): the reference suite's shapes
+# (tests/test_kernels.py: bh 4/2/3/1 at S 128/256/64/512, here B 1 with
+# H = bh), S = 1, an S that is not a multiple of 64, strong decay (log_w =
+# -e^10, the model's clip) and none (log_w ~ 0), then RWKV6-7B's prefill
+# and decode shapes (B 8, H 64)
+WKV_SHAPES = [
+    ("test 4x128", 1, 128, 4, "random"), ("test 2x256", 1, 256, 2, "random"),
+    ("test 3x64", 1, 64, 3, "random"), ("test 1x512", 1, 512, 1, "random"),
+    ("S 1", 2, 1, 3, "random"), ("S 200", 2, 200, 3, "random"),
+    ("strong decay", 2, 128, 3, "strong"), ("no decay", 2, 128, 3, "none"),
+    ("rwkv6-7b prefill", 8, 128, 64, "random"), ("rwkv6-7b decode", 8, 1, 64, "random"),
+]
+# RG-LRU cases: (label, B, S, W): the reference suite's, then
+# RecurrentGemma-2B's prefill and decode shapes (B 8, W 2560)
+LRU_SHAPES = [
+    ("test 2x128x256", 2, 128, 256), ("test 3x64x128", 3, 64, 128),
+    ("test 2x256x384", 2, 256, 384), ("test 1x512x128", 1, 512, 128),
+    ("recurrentgemma prefill", 8, 128, 2560), ("recurrentgemma decode", 8, 1, 2560),
+]
+
+
+def wkv_inputs(b: int, s: int, h: int, decay: str, gen):
+    """r, k, v, log_w (B, S, H, 64), u (H, 64), s0 (B, H, 64, 64) on the
+    card, drawn as the reference suite draws them: r, v ~ N(0, 1), k ~
+    N(0, 1/4), log_w = -exp(N(-1, 1)), u ~ N(0, 0.09), s0 ~ N(0, 0.01)."""
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device="cuda")
+
+    r, k, v = rand(b, s, h, 64), rand(b, s, h, 64, scale=0.5), rand(b, s, h, 64)
+    log_w = -torch.exp(rand(b, s, h, 64) - 1.0)
+    if decay == "strong":
+        log_w.fill_(-math.exp(10.0))
+    elif decay == "none":
+        log_w.fill_(-1e-6)
+    return r, k, v, log_w, rand(h, 64, scale=0.3), rand(b, h, 64, 64, scale=0.1)
+
+
+def wkv_twin(r, k, v, log_w, u, s0):
+    """The twin in the model layout (it takes the folded one)."""
+    b, s, h, hd = r.shape
+
+    def fold(a):
+        return a.transpose(1, 2).reshape(b * h, s, hd)
+
+    y, s_fin = wkv6_ref(fold(r), fold(k), fold(v), fold(log_w),
+                        u[None].expand(b, h, hd).reshape(b * h, hd), s0.reshape(b * h, hd, hd))
+    return y.reshape(b, h, s, hd).transpose(1, 2), s_fin.reshape(b, h, hd, hd)
+
+
+def lru_inputs(b: int, s: int, w: int, gen):
+    log_a = -torch.exp(torch.randn(b, s, w, generator=gen, device="cuda"))
+    return (log_a, torch.randn(b, s, w, generator=gen, device="cuda"),
+            torch.randn(b, w, generator=gen, device="cuda"))
+
+
+def _scan_err(name: str, label: str, got, want) -> float:
+    atol, rtol = SCAN_TOL[name]
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{name} {label}: bad output {tuple(g.shape)}")
+        excess = float(((g - w).abs() - (atol + rtol * w.abs())).max())
+        if excess > 0:
+            raise AssertionError(f"{name} {label}: off the twin by "
+                                 f"{float((g - w).abs().max())}")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def check_scan_kernels() -> dict:
+    """WKV-6 and the RG-LRU scan against their twins on the card, at the
+    reference suite's shapes, the edge cases and the serving paths'."""
+    max_err = {"wkv6": 0.0, "rglru_scan": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for label, b, s, h, decay in WKV_SHAPES:
+        args = wkv_inputs(b, s, h, decay, gen)
+        got = wkv6(*args)
+        torch.cuda.synchronize()
+        err = _scan_err("wkv6", label, got, wkv_twin(*args))
+        if decay == "strong":  # exp(-e^10) = 0: only the last k v^T is left
+            kv = args[1][:, -1, :, :, None] * args[2][:, -1, :, None, :]
+            _scan_err("wkv6", f"{label} (state = last k v^T)", got[1:], (kv,))
+        max_err["wkv6"] = max(max_err["wkv6"], err)
+        log(f"  wkv6 == twin at {label} (B {b}, S {s}, H {h}, {decay} decay): "
+            f"y and S_final max err {err:.3e}")
+    for label, b, s, w in LRU_SHAPES:
+        args = lru_inputs(b, s, w, gen)
+        err = _scan_err("rglru_scan", label, rglru_scan(*args), rglru_ref(*args))
+        max_err["rglru_scan"] = max(max_err["rglru_scan"], err)
+        log(f"  rglru_scan == twin at {label} (B {b}, S {s}, W {w}): h and h_last max "
+            f"err {err:.3e}")
+    # the reference suite's strong decay: log_a = -60 forgets h0 = 1e6 in a step
+    log_a = torch.full((1, 64, 128), -60.0, device="cuda")
+    h, _ = rglru_scan(log_a, torch.ones_like(log_a), torch.full((1, 128), 1e6, device="cuda"))
+    torch.cuda.synchronize()
+    if not torch.isfinite(h).all() or float((h[:, 1:] - 1.0).abs().max()) > 1e-5:
+        raise AssertionError("rglru_scan strong decay: h not finite and 1 after step 0")
+    log("  rglru_scan strong decay (log_a -60, h0 1e6): finite, h = 1 from step 1 on")
     torch.cuda.empty_cache()
     return max_err
 
@@ -725,13 +893,14 @@ def compressed_path() -> dict:
     return {"gossip_mix": 10}
 
 
-def _logit_diff(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """max |got - want| / max(1, max |want|), held to SERVE_LOGIT_TOL."""
+def _logit_diff(what: str, got: torch.Tensor, want: torch.Tensor,
+                tol: float = SERVE_LOGIT_TOL) -> float:
+    """max |got - want| / max(1, max |want|), held to ``tol``."""
     got, want = got.float().cpu(), want.float().cpu()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: logits not finite")
     rel = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
-    if rel > SERVE_LOGIT_TOL:
+    if rel > tol:
         raise AssertionError(f"{what}: logits off by {rel:.3e} of their scale")
     return rel
 
@@ -823,6 +992,112 @@ def serving_path() -> dict:
     del cpu_params, cpu, replay
     return {"decode_attention": cfg.n_layers * steps, "flash_attention": cfg.n_layers,
             "engine": engine, "prompts": prompts, "gen_s": gen_s}
+
+
+def _argmax_agree(what: str, got: torch.Tensor, want: torch.Tensor) -> str:
+    """The argmax of every row agrees wherever it is decided: where the
+    reference row's top two logits are further apart than twice the
+    row's largest difference (a closer pair is a tie at this precision)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * (got - want).abs().max(dim=-1).values
+    agree = got.argmax(-1) == want.argmax(-1)
+    if not bool(agree[decided].all()):
+        raise AssertionError(f"{what}: argmax differs on a decided row: agree "
+                             f"{agree.tolist()}, decided {decided.tolist()}")
+    return f"argmax agrees on {int(agree.sum())}/{len(agree)} rows ({int(decided.sum())} decided)"
+
+
+def recurrent_serving_path(arch: str) -> dict:
+    """One recurrent family's serving path at full width and depth,
+    through its entry points (``get_config`` -> ``build_model`` ->
+    ``init_fn`` from a seeded CUDA generator -> ``ServeEngine.generate``),
+    counting each kernel's launches: every decode step launches the
+    family's scan kernel once per recurrent layer (and RecurrentGemma the
+    decode kernel once per local-attention layer); ``prefill_fn`` launches
+    the scan once per recurrent layer (and flash once per attention
+    layer), and its last-position logits agree with the decode replay's.
+    Then, on a fresh model of the same width at reduced depth and fp32
+    compute, prefill against the decode replay and the replay against the
+    host CPU's (full-depth fp32 weights do not fit the host check)."""
+    cfg = get_config(arch)
+    kinds = cfg.effective_pattern
+    n_rec = sum(k in ("rwkv", "recurrent") for k in kinds)
+    n_attn = len(kinds) - n_rec
+    scan = "wkv6" if arch.startswith("rwkv") else "rglru_scan"
+    bundle = build_model(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init_fn(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.param_count():,} parameters (fp32, drawn in "
+        f"{time.perf_counter() - t0:.1f} s), {cfg.n_layers} layers ({n_rec} {scan}, "
+        f"{n_attn} local attention), d_model {cfg.d_model}, vocab {cfg.vocab_size:,}")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    engine = ServeEngine(bundle, params, max_seq=SERVE_MAX_SEQ, batch=SERVE_BATCH)
+    steps = SERVE_PROMPT + REC_NEW - 1
+    want = {scan: n_rec * steps}
+    if n_attn:
+        want["decode_attention"] = n_attn * steps
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=REC_NEW, temperature=0.0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    expect_launches(f"{arch} generate", **want)
+    new = out.tokens[:, SERVE_PROMPT:]
+    if (out.tokens.shape != (SERVE_BATCH, SERVE_PROMPT + REC_NEW)
+            or not (out.tokens[:, :SERVE_PROMPT] == prompts).all()
+            or new.min() < 0 or new.max() >= cfg.vocab_size):
+        raise AssertionError(f"{arch} generate: tokens {out.tokens.shape}, new in "
+                             f"[{new.min()}, {new.max()}]")
+    log(f"  generate (batch {SERVE_BATCH}, {SERVE_PROMPT} prompt + {REC_NEW} new tokens, "
+        f"greedy, {steps} steps): launches {want} (no flash_attention); {gen_s:.2f} s, "
+        f"{SERVE_BATCH * REC_NEW / gen_s:.1f} new tokens/s end to end; row 0 continues "
+        f"{new[0, :8].tolist()}")
+
+    tokens = torch.as_tensor(out.tokens, dtype=torch.long)
+    prompt = {"tokens": tokens[:, :SERVE_PROMPT].cuda()}
+    pre_want = {scan: n_rec}
+    if n_attn:
+        pre_want["flash_attention"] = n_attn
+    zero_counts()
+    pre, _ = bundle.prefill_fn(params, prompt)
+    expect_launches(f"{arch} prefill", **pre_want)
+    replay = _replay(bundle, params, tokens, SERVE_PROMPT, "cuda")[-1]
+    tol = REC_PREFILL_TOL[arch]
+    rel = _logit_diff(f"{arch} prefill vs decode replay", pre, replay, tol)
+    log(f"  prefill_fn: launches {pre_want}; last-position logits vs the decode replay's "
+        f"at prompt token {SERVE_PROMPT}: max diff {rel:.3e} of their scale (tolerance "
+        f"{tol}), {_argmax_agree(f'{arch} prefill vs replay', pre, replay)}")
+    del engine, params, pre, replay
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, n_layers=RECURRENT_ARCHS[arch], compute_dtype="float32")
+    sbundle = build_model(small)
+    sparams = sbundle.init_fn(torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    pre, _ = sbundle.prefill_fn(sparams, prompt)
+    replay = _replay(sbundle, sparams, tokens, SERVE_PROMPT, "cuda")
+    rel = _logit_diff(f"{arch} fp32 prefill vs decode replay", pre, replay[-1],
+                      REC_FP32_PREFILL_TOL)
+    log(f"  {small.n_layers} layers ({', '.join(small.effective_pattern)}) at full width, "
+        f"fresh weights, fp32 compute: prefill vs the decode replay max diff {rel:.3e} of "
+        f"their scale (tolerance {REC_FP32_PREFILL_TOL}), "
+        f"{_argmax_agree(f'{arch} fp32 prefill', pre, replay[-1])}")
+    t0 = time.perf_counter()
+    card = replay[:REC_CPU_STEPS]
+    cpu = _replay(sbundle, tree_map(lambda a: a.cpu(), sparams), tokens, REC_CPU_STEPS,
+                  "cpu")
+    worst = max(_logit_diff(f"{arch} card vs CPU step {t}", card[t], cpu[t],
+                            REC_FP32_CPU_TOL) for t in range(REC_CPU_STEPS))
+    log(f"  the same model, the card vs the host CPU over {REC_CPU_STEPS} "
+        f"teacher-forced steps ({time.perf_counter() - t0:.1f} s): logits within "
+        f"{worst:.3e} of their scale (tolerance {REC_FP32_CPU_TOL}); "
+        f"{_argmax_agree(f'{arch} card vs CPU', card[-1], cpu[-1])} at the last step")
+    del sparams, pre, replay, card, cpu
+    torch.cuda.empty_cache()
+    return want
 
 
 def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
@@ -994,18 +1269,21 @@ def attention_timings(card: str) -> dict:
     computes the same function (``scaled_dot_product_attention`` with
     GQA: a boolean mask of the live slots for decode, ``is_causal`` for
     prefill; a yardstick only, never on the path), bf16, at the serving
-    path's shapes and a large one. Decode: the path's last step (B 8, a
-    4096-slot cache, 191 live slots) and B 8 over a full 32,768-slot cache
-    (the decode_32k length, batch 128 cut to 8 to fit the twin). Prefill:
-    the path's (B 8, S 128) and B 2, S 4096, causal."""
-    import torch.nn.functional as F
-
+    paths' shapes and a large one. SmolLM-360M (hd 64): decode at the
+    path's last step (B 8, a 4096-slot cache, 191 live slots) and B 8
+    over a full 32,768-slot cache (the decode_32k length, batch 128 cut
+    to 8 to fit the twin); prefill at the path's (B 8, S 128) and B 2, S
+    4096, causal. RecurrentGemma-2B (hd 256, MQA 10 over 1): decode at
+    its path's last step (B 8, a 2048-slot ring, 159 live slots) and
+    prefill (B 8, S 128, causal in a 2048 window)."""
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
-    h, kv, hd = 15, 5, 64
     path_live = SERVE_PROMPT + SERVE_NEW - 1
-    for label, b, c, live in (("path", SERVE_BATCH, SERVE_MAX_SEQ, path_live),
-                              ("large", 8, 32768, 32768)):
+    rg_live = SERVE_PROMPT + REC_NEW - 1
+    for label, b, c, live, h, kv, hd in (
+            ("path", SERVE_BATCH, SERVE_MAX_SEQ, path_live, 15, 5, 64),
+            ("large", 8, 32768, 32768, 15, 5, 64),
+            ("hd256 path", SERVE_BATCH, 2048, rg_live, 10, 1, 256)):
         q = torch.randn(b, 1, h, hd, generator=gen, device="cuda").bfloat16()
         k, v = (torch.randn(b, c, kv, hd, generator=gen, device="cuda").bfloat16()
                 for _ in range(2))
@@ -1020,45 +1298,96 @@ def attention_timings(card: str) -> dict:
         _same(f"decode {label}", lib().transpose(1, 2), decode_attention_ref(q, k, v, n_valid))
         nbytes = 2 * (2 * b * h * hd + 2 * b * live * kv * hd) + 4 * b
         rows[("decode_attention", label)] = attn_time_row(
-            card, "decode_attention", label, f"B {b}, C {c}, {live} live, H {h}, K {kv}",
+            card, "decode_attention", label,
+            f"B {b}, C {c}, {live} live, H {h}, K {kv}, hd {hd}",
             device_ms(lambda: decode_attention(q, k, v, n_valid)),
             device_ms(lambda: decode_attention_ref(q, k, v, n_valid)),
             device_ms(lib), nbytes, 4 * b * h * live * hd)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    for label, b, sq in (("path", SERVE_BATCH, SERVE_PROMPT), ("large", 2, 4096)):
+    for label, b, sq, h, kv, hd, window in (
+            ("path", SERVE_BATCH, SERVE_PROMPT, 15, 5, 64, 0),
+            ("large", 2, 4096, 15, 5, 64, 0),
+            ("hd256 path", SERVE_BATCH, SERVE_PROMPT, 10, 1, 256, 2048)):
         q = torch.randn(b, sq, h, hd, generator=gen, device="cuda").bfloat16()
         k, v = (torch.randn(b, sq, kv, hd, generator=gen, device="cuda").bfloat16()
                 for _ in range(2))
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
-        def lib():
+        def lib():  # the window spans the whole sequence where one is set
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                   enable_gqa=True)
 
-        _same(f"prefill {label}", lib().transpose(1, 2), attention_ref(q, k, v))
+        _same(f"prefill {label}", lib().transpose(1, 2),
+              attention_ref(q, k, v, window=window))
         nbytes = 2 * (2 * b * sq * h * hd + 2 * b * sq * kv * hd)
         pairs = sq * (sq + 1) // 2  # live (query, key) pairs per head, causal
         rows[("flash_attention", label)] = attn_time_row(
-            card, "flash_attention", label, f"B {b}, S {sq}, H {h}, K {kv}, causal",
-            device_ms(lambda: flash_attention(q, k, v)),
-            device_ms(lambda: attention_ref(q, k, v)),
+            card, "flash_attention", label,
+            f"B {b}, S {sq}, H {h}, K {kv}, hd {hd}, causal, window {window}",
+            device_ms(lambda: flash_attention(q, k, v, window=window)),
+            device_ms(lambda: attention_ref(q, k, v, window=window)),
             device_ms(lib), nbytes, 4 * b * h * pairs * hd)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return rows
 
 
-def decode_step_profile(card: str, serve: dict, steps: int = 40, warmup: int = 5,
-                        profiled: int = 5) -> dict:
+def scan_row(card: str, name: str, label: str, shape: str, k_ms: float, t_ms: float,
+             nbytes: int, ops: int) -> dict:
+    """Kernel and twin times beside the bound (the larger of the bytes
+    moved once over the HBM rate and the fp32 operations over the fp32
+    peak); no PyTorch call computes these recurrences."""
+    bound_ms, bound_by = bound(nbytes, ops)
+    log(f"  {name} {label} ({shape}): kernel {k_ms * 1e3:.2f} us, twin {t_ms * 1e3:.2f} us, "
+        f"bound {bound_ms * 1e3:.2f} us by {bound_by} ({nbytes / 1e6:.3f} MB at "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s, {ops / 1e9:.4f} G fp32 ops at "
+        f"{FP32_OPS_S / 1e12:.0f} T/s), {bound_ms / k_ms:.1%} of bound [{card}]")
+    return dict(ms=k_ms, plain_ms=t_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def scan_timings(card: str) -> dict:
+    """WKV-6 at RWKV6-7B's prefill and decode shapes (B 8, H 64, S 128 and
+    1) and at S 4096; the RG-LRU scan at RecurrentGemma-2B's (B 8, W 2560,
+    S 128 and 1) and at S 4096. Bytes: each input read once, each output
+    written once. Operations, per (b, h, t) for WKV-6: r^T S (2 per state
+    element), the decay and k v^T (3 per state element), exp, u k, the
+    bonus dot and its v (6 per channel); per (b, t, channel) for RG-LRU:
+    exp, multiply, add. The twins loop over S in Python, so at S 4096
+    they are timed over 3 calls."""
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, s in (("path prefill", SERVE_PROMPT), ("path decode", 1), ("large", 4096)):
+        b, h = SERVE_BATCH, 64
+        args = wkv_inputs(b, s, h, "random", gen)
+        reps = dict(reps=3, warmup=1) if s > SERVE_PROMPT else {}
+        nbytes = 4 * (5 * b * s * h * 64 + h * 64 + 2 * b * h * 64 * 64)
+        rows[("wkv6", label)] = scan_row(
+            card, "wkv6", label, f"B {b}, S {s}, H {h}",
+            device_ms(lambda: wkv6(*args)), device_ms(lambda: wkv_twin(*args), **reps),
+            nbytes, b * h * s * (5 * 64 * 64 + 6 * 64))
+        del args
+        b, w = SERVE_BATCH, 2560
+        args = lru_inputs(b, s, w, gen)
+        rows[("rglru_scan", label)] = scan_row(
+            card, "rglru_scan", label, f"B {b}, S {s}, W {w}",
+            device_ms(lambda: rglru_scan(*args)), device_ms(lambda: rglru_ref(*args), **reps),
+            4 * (3 * b * s * w + 2 * b * w), 3 * b * s * w)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def decode_step_profile(card: str, engine, prompts: np.ndarray, label: str,
+                        steps: int = 40, warmup: int = 5, profiled: int = 5) -> dict:
     """Whole serving decode steps at full width (batch 8, greedy, the
     prompt already in the cache): the host-clock median of ``steps``
     synchronized steps, tokens per second from it, then the profiler over
     ``profiled`` more."""
-    engine = serve["engine"]
-    tokens = torch.as_tensor(serve["prompts"], dtype=torch.long, device="cuda")
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
     caches = engine.new_caches()
-    for t in range(SERVE_PROMPT):
+    for t in range(tokens.shape[1]):
         logits, caches, _ = engine.decode_step(tokens[:, t], caches)
     cur = logits.float().argmax(-1)
     times = []
@@ -1071,9 +1400,9 @@ def decode_step_profile(card: str, serve: dict, steps: int = 40, warmup: int = 5
         if k >= warmup:
             times.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(times)
-    log(f"  one {SERVE_ARCH} decode step (batch {SERVE_BATCH}, host clock, median of "
-        f"{steps}): {step_ms * 1e3:.1f} us, {SERVE_BATCH / step_ms * 1e3:.1f} tokens/s "
-        f"[{card}]")
+    b = tokens.shape[0]
+    log(f"  one {label} decode step (batch {b}, host clock, median of {steps}): "
+        f"{step_ms * 1e3:.1f} us, {b / step_ms * 1e3:.1f} tokens/s [{card}]")
 
     def run():
         nonlocal caches, cur
@@ -1081,8 +1410,24 @@ def decode_step_profile(card: str, serve: dict, steps: int = 40, warmup: int = 5
             logits, caches, _ = engine.decode_step(cur, caches)
             cur = logits.float().argmax(-1)
 
-    return {"step_ms": step_ms, "tokens_s": SERVE_BATCH / step_ms * 1e3,
-            **profile_device(run, profiled, f"{SERVE_ARCH} decode", "step", step_ms, card)}
+    return {"step_ms": step_ms, "tokens_s": b / step_ms * 1e3,
+            **profile_device(run, profiled, f"{label} decode", "step", step_ms, card)}
+
+
+def recurrent_step_profile(card: str, arch: str) -> dict:
+    """The decode-step profile of one recurrent family at full width and
+    depth, on the same seeded weights and prompts as its phase-3 run
+    (drawn again: phase 3 freed them)."""
+    cfg = get_config(arch)
+    bundle = build_model(cfg)
+    params = bundle.init_fn(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    engine = ServeEngine(bundle, params, max_seq=SERVE_MAX_SEQ, batch=SERVE_BATCH)
+    out = decode_step_profile(card, engine, prompts, arch)
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
 
 
 def ptxas_summary(lib) -> str:
@@ -1115,7 +1460,7 @@ def main() -> int:
 
     log("phase 2: kernels vs twins on the card")
     max_err = {**check_gossip_mix(), **check_kernels(), **check_wire_stages(),
-               **check_attention_kernels()}
+               **check_attention_kernels(), **check_scan_kernels()}
 
     log("phase 3: paths (launches counted per run)")
     launches = main_path()
@@ -1125,11 +1470,22 @@ def main() -> int:
     serve = serving_path()
     launches.update(decode_attention=serve["decode_attention"],
                     flash_attention=serve["flash_attention"])
+    recurrent = {}
+    for arch in RECURRENT_ARCHS:
+        log(f"  -- {arch}")
+        recurrent[arch] = recurrent_serving_path(arch)
+    launches.update(wkv6=recurrent["rwkv6-7b"]["wkv6"],
+                    rglru_scan=recurrent["recurrentgemma-2b"]["rglru_scan"])
 
     log("phase 4: times (CUDA events, median of 60 after warm-up)")
     rows = timings(card)
     rows.update(attention_timings(card))
-    rows["serving"] = decode_step_profile(card, serve)
+    rows.update(scan_timings(card))
+    rows["serving"] = decode_step_profile(card, serve["engine"], serve["prompts"], SERVE_ARCH)
+    del serve
+    torch.cuda.empty_cache()
+    for arch in RECURRENT_ARCHS:
+        rows[arch] = recurrent_step_profile(card, arch)
 
     kernels = []
     for name, (_, _, _, replaces, source) in ALL_KERNELS.items():
@@ -1149,6 +1505,15 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    for name, (replaces, source) in SCAN_KERNELS.items():
+        row = rows[(name, "path decode")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,9 +2,10 @@
 EHR MLP's constants and the architectures the port serves.
 
 ``--arch <id>`` names resolve through :func:`get_config` to the full
-``CONFIG`` or the reduced ``smoke_config()``. Only the dense decoder-only
-architectures are ported so far; every other id of the reference's
-registry raises ``NotImplementedError``.
+``CONFIG`` or the reduced ``smoke_config()``. The dense decoder-only
+architectures, RWKV6 (``ssm``) and RecurrentGemma (``hybrid``) are
+ported so far; every other id of the reference's registry raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,13 +22,15 @@ __all__ = ["ARCH_MODULES", "UNPORTED_ARCHS", "FLRunConfig", "ModelConfig",
 ARCH_MODULES: Dict[str, str] = {
     "smollm-360m": "smollm_360m",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "rwkv6-7b": "rwkv6_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
-# the rest of the reference's registry: MoE, RWKV6, RG-LRU, enc-dec, the
-# VLM backbone and the larger dense models wait in ROADMAP.md queue 1 item 16
+# the rest of the reference's registry: MoE, enc-dec, the VLM backbone and
+# the larger dense models wait in ROADMAP.md queue 1 item 16
 UNPORTED_ARCHS = (
-    "phi3-medium-14b", "recurrentgemma-2b", "internvl2-26b", "rwkv6-7b",
-    "qwen2.5-32b", "dbrx-132b", "whisper-medium", "llama4-scout-17b-a16e",
+    "phi3-medium-14b", "internvl2-26b", "qwen2.5-32b", "dbrx-132b",
+    "whisper-medium", "llama4-scout-17b-a16e",
 )
 
 

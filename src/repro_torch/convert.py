@@ -24,8 +24,8 @@ __all__ = ["params_from_numpy", "flat_from_numpy", "model_params_from_numpy"]
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
-    """Nested dicts of numpy arrays -> the same dicts of tensors on
-    ``device`` (``cuda`` unless given), dtypes unchanged."""
+    """Nested dicts (and lists) of numpy arrays -> the same tree of
+    tensors on ``device`` (``cuda`` unless given), dtypes unchanged."""
     dev = resolve_device(device)
     return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
 
@@ -42,26 +42,33 @@ def flat_from_numpy(flat: np.ndarray, layout: FlatLayout, device=None) -> torch.
     return torch.tensor(arr, device=resolve_device(device))
 
 
+def _name(path) -> str:
+    return "/".join(map(str, path))
+
+
 def model_params_from_numpy(tree: Any, cfg, device=None) -> Any:
     """A reference transformer's parameter tree (``repro.models.transformer
-    .init_params`` as nested dicts of numpy arrays: ``embed``,
-    ``final_norm``, the layer-stacked ``blocks`` and, untied, ``head``)
-    -> the port's tensors on ``device``. Every leaf's path, shape and
-    dtype is checked against the port's own ``init_params`` for ``cfg``
-    first; a mismatch raises ``ValueError`` naming the leaf."""
+    .init_params`` as nested dicts and lists of numpy arrays: ``embed``,
+    ``final_norm``, the blocks -- layer-stacked ``blocks``, or
+    ``pblocks`` and ``tail`` lists, or a ``blocks`` list -- and, untied,
+    ``head``) -> the port's tensors on ``device``, in the same layout.
+    Every leaf's path, shape and dtype is checked against the port's own
+    ``init_params`` for ``cfg`` first, in ``jax.tree_util``'s order (list
+    items by index); a mismatch raises ``ValueError`` naming the leaf."""
     want = {path: leaf for path, leaf in tree_leaves(init_params(cfg, None, "meta"))}
     got = {path: np.asarray(leaf) for path, leaf in tree_leaves(tree)}
     if set(got) != set(want):
         raise ValueError(
             f"parameter tree does not match {cfg.name}: missing "
-            f"{sorted(set(want) - set(got))}, unexpected {sorted(set(got) - set(want))}"
+            f"{sorted(map(_name, set(want) - set(got)))}, unexpected "
+            f"{sorted(map(_name, set(got) - set(want)))}"
         )
     for path, leaf in want.items():
         arr = got[path]
         dtype = str(leaf.dtype).removeprefix("torch.")
         if tuple(arr.shape) != tuple(leaf.shape) or arr.dtype.name != dtype:
             raise ValueError(
-                f"leaf {'/'.join(path)}: {arr.shape} {arr.dtype.name}, {cfg.name} "
+                f"leaf {_name(path)}: {arr.shape} {arr.dtype.name}, {cfg.name} "
                 f"wants {tuple(leaf.shape)} {dtype}"
             )
     return params_from_numpy(tree, device)

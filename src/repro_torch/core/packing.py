@@ -2,9 +2,9 @@
 ``(nodes, total_params)`` fp32 matrix (counterpart of
 ``repro.core.packing``).
 
-Trees are nested dicts of tensors whose leaves all carry a leading
-``nodes`` axis. Leaves are ordered like ``jax.tree_util``'s flattening
-of a dict tree, keys sorted at every level (``fc1.b``, ``fc1.w``,
+Trees are nested dicts (and lists) of tensors whose leaves all carry a
+leading ``nodes`` axis. Leaves are ordered like ``jax.tree_util``'s
+flattening, dict keys sorted at every level (``fc1.b``, ``fc1.w``,
 ``fc2.b``, ``fc2.w`` for the MLP), so a buffer packed here and one packed
 by the reference compare column for column. ``pack(..., pad_to=k)``
 rounds ``total`` up to a multiple of ``k`` with zero columns, so the
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 Tree = Any
-Path = Tuple[str, ...]
+Path = Tuple[Any, ...]  # dict keys (str) and list indices (int)
 
 __all__ = [
     "LeafSpec",
@@ -81,18 +81,23 @@ class FlatLayout:
 
 
 def tree_leaves(tree: Tree, prefix: Path = ()) -> List[Tuple[Path, torch.Tensor]]:
-    """``(key path, leaf)`` pairs in ``jax.tree_util``'s order for dict
-    trees: keys sorted at every level, depth first."""
+    """``(key path, leaf)`` pairs in ``jax.tree_util``'s order for trees of
+    dicts and lists: dict keys sorted at every level, list items by
+    index (an int in the path), depth first."""
     if isinstance(tree, dict):
         out: List[Tuple[Path, torch.Tensor]] = []
         for k in sorted(tree):
             out.extend(tree_leaves(tree[k], prefix + (k,)))
         return out
+    if isinstance(tree, list):
+        return [item for i, sub in enumerate(tree) for item in tree_leaves(sub, prefix + (i,))]
     return [(prefix, tree)]
 
 
 def tree_unflatten(paths: Tuple[Path, ...], values) -> Tree:
-    """Inverse of :func:`tree_leaves`: nested dicts from key paths."""
+    """Inverse of :func:`tree_leaves`: nested dicts from key paths, a
+    list wherever a level's keys are list indices. (A list without
+    leaves has no path, so it does not come back.)"""
     out: Dict = {}
     for path, v in zip(paths, values):
         if not path:
@@ -101,7 +106,16 @@ def tree_unflatten(paths: Tuple[Path, ...], values) -> Tree:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = v
-    return out
+    return _relist(out)
+
+
+def _relist(node):
+    if not isinstance(node, dict):
+        return node
+    node = {k: _relist(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        return [node[i] for i in range(len(node))]
+    return node
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

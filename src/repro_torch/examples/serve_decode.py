@@ -1,8 +1,10 @@
-"""Batched serving example: prefill + step-decode on the dense models the
-port serves (counterpart of the reference's ``examples/serve_decode.py``,
-which also demos the model families the port does not have yet), with a
-contiguous KV cache and with the sliding-window ring-buffer cache the
-reference uses for long-context decoding.
+"""Batched serving example: prefill + step-decode across the model
+families the port serves (counterpart of the reference's
+``examples/serve_decode.py``, which also demos the MoE and enc-dec
+families the port does not have yet): dense with a contiguous KV cache
+and with the sliding-window ring-buffer cache the reference uses for
+long-context decoding, RWKV6 with its O(1) recurrent state, and
+RecurrentGemma's RG-LRU + local-attention hybrid.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_decode --device cpu
 
@@ -52,9 +54,11 @@ def main(argv=None) -> None:
                          "plain PyTorch twins)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    print(f"batched decode of the dense models (reduced configs, {dev}):")
+    print(f"batched decode across model families (reduced configs, {dev}):")
     demo("tinyllama-1.1b", device=dev)               # dense GQA, contiguous KV cache
     demo("smollm-360m", sliding=True, device=dev)    # dense, ring-buffer window cache
+    demo("rwkv6-7b", device=dev)                     # SSM: O(1) decode state
+    demo("recurrentgemma-2b", device=dev)            # hybrid RG-LRU + local attention
 
 
 if __name__ == "__main__":

@@ -16,7 +16,8 @@
 //   * Inputs stay in the model's storage layout: q (B, 1, H, hd) and the
 //     caches (B, C, K, hd); no transposed copy is made.
 //   * One block per (batch, kv head) serves the kv head's whole GQA group
-//     (up to GT q-heads; larger groups take more blocks along y), so each
+//     (up to GT q-heads, 8 at most and 4 at hd 256; larger groups take
+//     more blocks along y), so each
 //     K/V row is read from HBM once per group, not once per q-head as the
 //     TPU grid does.
 //   * The block loops over the cache only up to n_valid[b], in tiles of
@@ -229,14 +230,21 @@ template <class T, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v,
                       const int* n_valid, void* out, int B, int C, int n_kv,
                       int group, float scale, cudaStream_t stream) {
-  // the smallest register tile that holds the group, 8 q-heads at most
+  // the smallest register tile that holds the group, 8 q-heads at most;
+  // at hd 256 at most 4, so that the static shared memory (acc_s: kWarps
+  // x GT x HD fp32, 32 KB at GT 4) stays under 48 KB -- a larger group
+  // takes ceil(group / 4) blocks along y
   if (group <= 1)
     return launch_one<T, HD, 1>(q, k, v, n_valid, out, B, C, n_kv, group, scale, stream);
   if (group <= 2)
     return launch_one<T, HD, 2>(q, k, v, n_valid, out, B, C, n_kv, group, scale, stream);
-  if (group <= 4)
+  if constexpr (HD > 128) {
     return launch_one<T, HD, 4>(q, k, v, n_valid, out, B, C, n_kv, group, scale, stream);
-  return launch_one<T, HD, 8>(q, k, v, n_valid, out, B, C, n_kv, group, scale, stream);
+  } else {
+    if (group <= 4)
+      return launch_one<T, HD, 4>(q, k, v, n_valid, out, B, C, n_kv, group, scale, stream);
+    return launch_one<T, HD, 8>(q, k, v, n_valid, out, B, C, n_kv, group, scale, stream);
+  }
 }
 
 template <class T>
@@ -247,6 +255,8 @@ cudaError_t launch_type(const void* q, const void* k, const void* v,
     return launch_hd<T, 64>(q, k, v, n_valid, out, B, C, n_kv, group, scale, stream);
   if (hd == 128)
     return launch_hd<T, 128>(q, k, v, n_valid, out, B, C, n_kv, group, scale, stream);
+  if (hd == 256)
+    return launch_hd<T, 256>(q, k, v, n_valid, out, B, C, n_kv, group, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -260,7 +270,7 @@ const char* decode_attention_error_string(int err) {
 
 // q (B, 1, H, hd), k/v (B, C, n_kv, hd), out (B, 1, H, hd), all of one
 // type (dtype 0: fp32, 1: bf16), contiguous; n_valid (B,) int32; H =
-// n_kv * group; hd 64 or 128. Launches on `stream`, returns
+// n_kv * group; hd 64, 128 or 256. Launches on `stream`, returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported hd/dtype).
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const int* n_valid, void* out, int B, int C,

@@ -25,7 +25,7 @@ __all__ = ["decode_attention", "HEAD_DIMS", "LIBS"]
 
 LIBS = KernelLibraries(Path(__file__).resolve().parent, BASE_FLAGS)
 #: head sizes the kernel is instantiated for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 
@@ -78,8 +78,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     + 1, a ring buffer min(pos + 1, C)); GQA when K divides H.
 
     q (B, 1, H, hd); k_cache, v_cache (B, C, K, hd) in the cache's own
-    layout, q's dtype (float32 or bfloat16); n_valid (B,) integer; hd 64
-    or 128. Returns (B, 1, H, hd) in q's dtype."""
+    layout, q's dtype (float32 or bfloat16); n_valid (B,) integer; hd 64,
+    128 or 256. Returns (B, 1, H, hd) in q's dtype."""
     _check(q, k_cache, v_cache, n_valid)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, n_valid)

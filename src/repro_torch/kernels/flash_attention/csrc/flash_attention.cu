@@ -31,6 +31,9 @@
 //     thread keeps every 4th score of the tile for the max, the sum and
 //     exp, and P·V broadcasts them back by shuffles.
 //   * Rows past Sq (a tail tile) compute nothing that is written.
+//   * At hd 256 the K/V tiles take 128 KB of shared memory (one block per
+//     SM) and each thread keeps 64 floats of q and 64 of acc; ptxas's
+//     register and spill counts for it are in the build's .log.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -234,6 +237,8 @@ cudaError_t launch_type(const void* q, const void* k, const void* v, void* out,
     return launch_flags<T, 64>(q, k, v, out, B, Sq, Sk, H, n_kv, causal, window, scale, stream);
   if (hd == 128)
     return launch_flags<T, 128>(q, k, v, out, B, Sq, Sk, H, n_kv, causal, window, scale, stream);
+  if (hd == 256)
+    return launch_flags<T, 256>(q, k, v, out, B, Sq, Sk, H, n_kv, causal, window, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -249,8 +254,8 @@ const char* flash_attention_error_string(int err) {
 size_t flash_attention_smem_bytes(int hd) { return smem_bytes(hd); }
 
 // q (B, Sq, H, hd), k/v (B, Sk, n_kv, hd), out (B, Sq, H, hd), all of one
-// type (dtype 0: fp32, 1: bf16), contiguous; H a multiple of n_kv; hd 64
-// or 128; window 0 for none. Launches on `stream`, returns
+// type (dtype 0: fp32, 1: bf16), contiguous; H a multiple of n_kv; hd 64,
+// 128 or 256; window 0 for none. Launches on `stream`, returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported hd/dtype).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int Sq, int Sk, int H, int n_kv,

@@ -25,7 +25,7 @@ __all__ = ["flash_attention", "HEAD_DIMS", "LIBS", "SMEM_LIMIT_BYTES"]
 
 LIBS = KernelLibraries(Path(__file__).resolve().parent, BASE_FLAGS)
 #: head sizes the kernel is instantiated for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 #: dynamic shared memory one Hopper block may opt in to (227 KB)
 SMEM_LIMIT_BYTES = 232448
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -77,7 +77,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sliding ``window`` (0: none), with GQA on un-repeated K/V.
 
     q (B, Sq, H, hd); k, v (B, Sk, K, hd) with K dividing H, q's dtype
-    (float32 or bfloat16); hd 64 or 128. Returns (B, Sq, H, hd) in q's
+    (float32 or bfloat16); hd 64, 128 or 256. Returns (B, Sq, H, hd) in q's
     dtype."""
     _check(q, k, v, window)
     if q.device.type == "cpu":

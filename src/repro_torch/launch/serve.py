@@ -5,8 +5,10 @@ JSON, plus ``--device``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --batch 4 --prompt-len 16 --max-new 32 --temperature 0.7
 
-Runs on ``cuda`` unless ``--device cpu`` is given (the attention kernels'
-plain PyTorch twins then run instead); without a card, ``cuda`` raises.
+Any ported arch serves (the dense ones, ``rwkv6-7b``,
+``recurrentgemma-2b``). Runs on ``cuda`` unless ``--device cpu`` is given
+(the kernels' plain PyTorch twins then run instead); without a card,
+``cuda`` raises.
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
 """Model registry: ModelConfig -> ModelBundle (counterpart of
-``repro.models.model``), for dense decoder-only models.
+``repro.models.model``), for the dense, ``ssm`` (RWKV6) and ``hybrid``
+(RecurrentGemma) decoder-only families.
 
 The bundle is the integration surface the serving engine consumes. The
-reference's ``impl`` argument is gone: the port's attention dispatches by
-device, so its ``"ref"``, ``"flash"``, ``"blocked"`` and
-``"decode_kernel"`` paths are one path here. ``remat`` and ``loss_fn``
-belong to training, which waits for the port's training slice; the
-sharding specs wait for the multi-GPU engine.
+reference's ``impl`` argument is gone: the port's attention and
+recurrence kernels dispatch by device, so its ``"ref"``, ``"flash"``,
+``"blocked"``, ``"decode_kernel"`` and ``"pallas"`` paths are one path
+here. ``remat`` and ``loss_fn`` belong to training, which waits for the
+port's training slice; the sharding specs wait for the multi-GPU engine.
 """
 
 from __future__ import annotations
@@ -41,15 +42,15 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
     if cfg.family == "audio":
         raise NotImplementedError(
             "the audio (enc-dec) family is not ported yet (ROADMAP.md queue 1 item 16)")
-    tfm.check_dense(cfg)
+    tfm.check_kinds(cfg)
 
     def init_fn(generator: Optional[torch.Generator], device=None) -> Dict:
         return tfm.init_params(cfg, generator, device)
 
     def loss_fn(params, batch):
         raise NotImplementedError(
-            "training the transformer (lm_loss) is not ported yet: the port "
-            "serves dense models only")
+            "training the transformer (lm_loss) is not ported yet (ROADMAP.md "
+            "queue 1 item 16): the port serves its models only")
 
     def prefill_fn(params, batch):
         return tfm.prefill(params, cfg, batch)

@@ -1,20 +1,31 @@
-"""The decoder stack for dense decoder-only models (counterpart of
-``repro.models.transformer``): pre-norm GQA attention + SwiGLU blocks,
-tied or separate embeddings, forward (prefill) and one-token decode.
+"""The decoder stack for the decoder-only families the port serves
+(counterpart of ``repro.models.transformer``): dense (pre-norm GQA
+attention + SwiGLU blocks), RWKV6 (``ssm``: a homogeneous stack of
+``rwkv`` blocks) and RecurrentGemma (``hybrid``: a repeating pattern of
+``recurrent`` RG-LRU and ``local_attention`` blocks), with forward
+(prefill) and one-token decode.
 
-Parameters are nested dicts with the reference's layout: the homogeneous
-stack keeps its blocks layer-stacked under ``blocks`` (leading
-``n_layers`` axis), so a reference tree converts leaf for leaf
-(``repro_torch.convert.model_params_from_numpy``). The reference scans
-over that axis; the port loops over layers. Only the dense
-("attention") block kind is ported: MoE, RWKV6, RG-LRU and local
-attention raise ``NotImplementedError`` naming their ROADMAP.md item.
-Training (``lm_loss``, remat) waits for the port's training slice.
+Parameters are nested dicts (and lists) with the reference's storage
+layouts, so a reference tree converts leaf for leaf
+(``repro_torch.convert.model_params_from_numpy``):
+
+* a homogeneous stack keeps its blocks layer-stacked under ``blocks``
+  (leading ``n_layers`` axis);
+* a patterned stack with at least two periods keeps ``pblocks``, one
+  layer-stacked tree per position in the pattern (leading ``n_periods``
+  axis), plus a ``tail`` list of per-layer trees for the layers past the
+  last whole period; with fewer than two periods, a ``blocks`` list of
+  per-layer trees.
+
+The reference scans over the stacked axes; the port loops over layers,
+reading each layer's tree through :func:`_layer_params`. MoE blocks
+raise ``NotImplementedError`` naming their ROADMAP.md item. Training
+(``lm_loss``, remat) waits for the port's training slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -22,6 +33,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fl import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (
     embed_init,
     embed_lookup,
@@ -40,31 +53,25 @@ __all__ = [
     "init_decode_state",
 ]
 
-# block kinds of the reference that the port does not have yet
-_UNPORTED_KINDS = {
-    "moe": "MoE blocks (ROADMAP.md queue 1 item 16)",
-    "rwkv": "RWKV6 blocks and their scan kernel (ROADMAP.md queue 1 item 16, "
-            "queue 2 item 10)",
-    "recurrent": "RG-LRU blocks and their scan kernel (ROADMAP.md queue 1 item 16, "
-                 "queue 2 item 11)",
-    "local_attention": "local-attention blocks of the hybrid family (ROADMAP.md "
-                       "queue 1 item 16)",
-}
+KINDS = ("attention", "local_attention", "rwkv", "recurrent")
+_ATTENTION_KINDS = ("attention", "local_attention")
 
 
 def _check_kind(kind: str) -> None:
-    if kind in _UNPORTED_KINDS:
-        raise NotImplementedError(f"{_UNPORTED_KINDS[kind]} are not ported yet")
-    if kind != "attention":
+    if kind == "moe":
+        raise NotImplementedError(
+            "MoE blocks (ROADMAP.md queue 1 item 16) are not ported yet")
+    if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind}")
 
 
-def check_dense(cfg: ModelConfig) -> str:
-    """The one block kind of a stack the port can run ("attention"), or
-    ``NotImplementedError`` for any other kind."""
-    for kind in cfg.effective_pattern:
+def check_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The stack's per-layer block kinds, or ``NotImplementedError`` for a
+    kind the port does not have."""
+    pattern = cfg.effective_pattern
+    for kind in pattern:
         _check_kind(kind)
-    return "attention"
+    return pattern
 
 
 def _cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -75,23 +82,39 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+
+
 # ---------------------------------------------------------------------------
 # per-block init / apply
 # ---------------------------------------------------------------------------
 
 
 def init_block(generator, cfg: ModelConfig, kind: str, device=None, lead=()) -> Dict:
-    """One block's parameters; ``lead=(n_layers,)`` draws the whole
-    layer-stacked tree at once (the reference vmaps over layer keys)."""
+    """One block's parameters; ``lead=(n,)`` draws a layer-stacked tree of
+    n blocks at once (the reference vmaps over layer keys)."""
     _check_kind(kind)
     dt, d = _pdtype(cfg), cfg.d_model
-    return {
+    if kind in _ATTENTION_KINDS:
+        return {
+            "ln1": rmsnorm_init(d, dt, device, lead),
+            "attn": attn.attn_init(
+                generator, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt, cfg.qkv_bias,
+                n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
+                device=device, lead=lead,
+            ),
+            "ln2": rmsnorm_init(d, dt, device, lead),
+            "mlp": swiglu_init(generator, d, cfg.d_ff, dt, device, lead),
+        }
+    if kind == "rwkv":
+        return {
+            "ln1": rmsnorm_init(d, dt, device, lead),
+            "ln2": rmsnorm_init(d, dt, device, lead),
+            "rwkv": rwkv_mod.rwkv_block_init(generator, d, cfg.d_ff, dt, device, lead),
+        }
+    return {  # recurrent
         "ln1": rmsnorm_init(d, dt, device, lead),
-        "attn": attn.attn_init(
-            generator, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt, cfg.qkv_bias,
-            n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
-            device=device, lead=lead,
-        ),
+        "rglru": rglru_mod.rglru_block_init(generator, d, cfg.rnn_width or d,
+                                            cfg.conv_width, dt, device, lead),
         "ln2": rmsnorm_init(d, dt, device, lead),
         "mlp": swiglu_init(generator, d, cfg.d_ff, dt, device, lead),
     }
@@ -99,19 +122,35 @@ def init_block(generator, cfg: ModelConfig, kind: str, device=None, lead=()) -> 
 
 def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence (prefill) block, forward only. Returns (x, aux loss),
-    the aux loss 0 for the dense block."""
+    """Full-sequence (prefill) block, forward only, from zero recurrent
+    states. Returns (x, aux loss), the aux loss 0 for every ported kind."""
     _check_kind(kind)
     cd, eps = _cdtype(cfg), cfg.norm_eps
-    h = attn.attn_apply(
-        p["attn"], rmsnorm(p["ln1"], x, eps), positions,
-        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, causal=True, window=0, compute_dtype=cd,
-        n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
-    )
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in _ATTENTION_KINDS:
+        h = attn.attn_apply(
+            p["attn"], rmsnorm(p["ln1"], x, eps), positions,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, causal=True,
+            window=cfg.window if kind == "local_attention" else 0, compute_dtype=cd,
+            n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
+        )
+        x = x + h
+        return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd), aux
+    b = x.shape[0]
+    if kind == "rwkv":
+        st = rwkv_mod.rwkv_decode_states(b, cfg.d_model, device=x.device)
+        h, _, _ = rwkv_mod.rwkv_time_mix(p["rwkv"]["time"], rmsnorm(p["ln1"], x, eps),
+                                         st["tm_prev"], st["s"], cd)
+        x = x + h
+        c, _ = rwkv_mod.rwkv_channel_mix(p["rwkv"]["channel"], rmsnorm(p["ln2"], x, eps),
+                                         st["cm_prev"], cd)
+        return x + c, aux
+    st = rglru_mod.rglru_decode_state(b, cfg.rnn_width or cfg.d_model, cfg.conv_width,
+                                      device=x.device)
+    h, _ = rglru_mod.rglru_block_apply(p["rglru"], rmsnorm(p["ln1"], x, eps), st, cd)
     x = x + h
-    m = swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd)
-    return x + m, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd), aux
 
 
 # ---------------------------------------------------------------------------
@@ -119,28 +158,59 @@ def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _period_split(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(period, n_periods, n_tail) of a patterned stack: its periods are
+    stored layer-stacked when there are at least two; otherwise every
+    layer is in the tail."""
+    period = len(cfg.block_pattern) or 1
+    n_periods = cfg.n_layers // period
+    if n_periods < 2:
+        return period, 0, cfg.n_layers
+    return period, n_periods, cfg.n_layers - n_periods * period
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device=None) -> Dict:
     """Random parameters in ``cfg.param_dtype`` on ``device`` (``cuda``
     unless given), drawn from ``generator`` on its own device (a CUDA
-    generator draws on the card). On ``device="meta"`` nothing is drawn
-    and ``generator`` may be None: the tree of shapes and dtypes."""
-    kind = check_dense(cfg)
+    generator draws on the card), in the reference's storage layout (see
+    the module docstring). On ``device="meta"`` nothing is drawn and
+    ``generator`` may be None: the tree of shapes and dtypes."""
+    pattern = check_kinds(cfg)
     dev = resolve_device(device)
     dt = _pdtype(cfg)
     params: Dict[str, Any] = {
         "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, dt, dev),
         "final_norm": rmsnorm_init(cfg.d_model, dt, dev),
-        "blocks": init_block(generator, cfg, kind, dev, lead=(cfg.n_layers,)),
     }
+    if cfg.is_homogeneous:
+        params["blocks"] = init_block(generator, cfg, pattern[0], dev, lead=(cfg.n_layers,))
+    else:
+        period, n_periods, n_tail = _period_split(cfg)
+        if n_periods:
+            params["pblocks"] = [init_block(generator, cfg, pattern[pos], dev,
+                                            lead=(n_periods,)) for pos in range(period)]
+            params["tail"] = [init_block(generator, cfg, pattern[n_periods * period + i], dev)
+                              for i in range(n_tail)]
+        else:
+            params["blocks"] = [init_block(generator, cfg, kind, dev) for kind in pattern]
     if not cfg.tie_embeddings:
         params["head"] = embed_init(generator, cfg.padded_vocab, cfg.d_model, dt, dev)
     return params
 
 
 def _layer_params(params: Dict, cfg: ModelConfig, i: int) -> Dict:
-    """Layer i's parameter tree: views into the layer-stacked leaves."""
-    return tree_map(lambda a: a[i], params["blocks"])
+    """Layer i's parameter tree in any of the three storage layouts:
+    views into the stacked leaves, or the per-layer tree itself."""
+    if cfg.is_homogeneous:
+        return tree_map(lambda a: a[i], params["blocks"])
+    if "pblocks" in params:
+        period, n_periods, _ = _period_split(cfg)
+        if i < n_periods * period:
+            p, pos = divmod(i, period)
+            return tree_map(lambda a: a[p], params["pblocks"][pos])
+        return params["tail"][i - n_periods * period]
+    return params["blocks"][i]
 
 
 def _table(params: Dict, cfg: ModelConfig) -> torch.Tensor:
@@ -150,9 +220,8 @@ def _table(params: Dict, cfg: ModelConfig) -> torch.Tensor:
 def forward_hidden(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embedded inputs (B,S,d) -> final hidden (B,S,d), total aux loss."""
-    kind = check_dense(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
+    for i, kind in enumerate(check_kinds(cfg)):
         x, a = apply_block_train(_layer_params(params, cfg, i), kind, cfg, x, positions)
         aux = aux + a
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -161,7 +230,7 @@ def forward_hidden(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over ``batch["tokens"]`` (B, S), returning the
     last position's logits (B, padded_vocab) and hidden state (B, d).
-    Like the reference, it writes no KV cache."""
+    Like the reference, it writes no cache."""
     cd = _cdtype(cfg)
     tokens = batch["tokens"]
     emb = embed_lookup(params["embed"], tokens, cd)
@@ -199,46 +268,91 @@ def _decode_kinds(cfg: ModelConfig, max_seq: int,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       sliding_override: bool = False, cache_dtype=torch.bfloat16,
-                      device=None) -> Dict:
-    """Layer-stacked KV caches, zeros on ``device`` (``cuda`` unless
-    given): k, v (n_layers, B, cache_len, K, hd) in ``cache_dtype`` and
-    pos (n_layers,) int32, the reference's layout for a homogeneous
-    stack."""
-    check_dense(cfg)
-    _, cache_len = _decode_kinds(cfg, max_seq, sliding_override)[0]
-    one = attn.init_kv_cache(batch, cache_len, cfg.n_kv_heads, cfg.head_dim,
-                             cache_dtype, device)
-    return {key: torch.zeros((cfg.n_layers, *a.shape), dtype=a.dtype, device=a.device)
-            for key, a in one.items()}
+                      device=None) -> Any:
+    """Zero decode states on ``device`` (``cuda`` unless given), in the
+    reference's layout: a homogeneous stack gets layer-stacked states
+    (leading ``n_layers`` axis), a patterned stack a list of per-layer
+    states. An attention layer's state is its KV cache -- k, v (B,
+    cache_len, K, hd) in ``cache_dtype`` and pos, an int32 scalar; an
+    RWKV layer's the token-shift carries and the WKV state (fp32); an
+    RG-LRU layer's the recurrence and the conv's trailing inputs (fp32)."""
+    check_kinds(cfg)
+    dev = resolve_device(device)
+
+    def one(kind: str, cache_len: int) -> Dict:
+        if kind in _ATTENTION_KINDS:
+            return attn.init_kv_cache(batch, cache_len, cfg.n_kv_heads, cfg.head_dim,
+                                      cache_dtype, dev)
+        if kind == "rwkv":
+            return rwkv_mod.rwkv_decode_states(batch, cfg.d_model, device=dev)
+        return rglru_mod.rglru_decode_state(batch, cfg.rnn_width or cfg.d_model,
+                                            cfg.conv_width, device=dev)
+
+    kinds = _decode_kinds(cfg, max_seq, sliding_override)
+    if cfg.is_homogeneous:
+        return {key: torch.zeros((cfg.n_layers, *a.shape), dtype=a.dtype, device=a.device)
+                for key, a in one(*kinds[0]).items()}
+    return [one(kind, cache_len) for kind, cache_len in kinds]
 
 
 def apply_block_decode(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
                        state: Dict, ring: bool) -> Tuple[torch.Tensor, Dict]:
     _check_kind(kind)
     cd, eps = _cdtype(cfg), cfg.norm_eps
-    h, state = attn.attn_decode(
-        p["attn"], rmsnorm(p["ln1"], x, eps), state,
-        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, ring=ring, compute_dtype=cd,
-        n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
-    )
+    if kind in _ATTENTION_KINDS:
+        h, state = attn.attn_decode(
+            p["attn"], rmsnorm(p["ln1"], x, eps), state,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, ring=ring or kind == "local_attention",
+            compute_dtype=cd,
+            n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
+        )
+        x = x + h
+        return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd), state
+    if kind == "rwkv":
+        h, tm_prev, s_new = rwkv_mod.rwkv_time_mix(
+            p["rwkv"]["time"], rmsnorm(p["ln1"], x, eps), state["tm_prev"], state["s"], cd)
+        x = x + h
+        c, cm_prev = rwkv_mod.rwkv_channel_mix(
+            p["rwkv"]["channel"], rmsnorm(p["ln2"], x, eps), state["cm_prev"], cd)
+        return x + c, {"tm_prev": tm_prev, "cm_prev": cm_prev, "s": s_new}
+    h, state = rglru_mod.rglru_block_apply(p["rglru"], rmsnorm(p["ln1"], x, eps), state, cd)
     x = x + h
-    m = swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd)
-    return x + m, state
+    return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd), state
 
 
-def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, caches: Dict,
-                sliding_override: bool = False) -> Tuple[torch.Tensor, Dict]:
+def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, caches: Any,
+                sliding_override: bool = False) -> Tuple[torch.Tensor, Any]:
     """One decode step: tokens (B,) -> (logits (B, padded_vocab), caches).
-    Each layer writes its new K/V row into its slice of the stacked
-    caches in place; the returned caches hold the same k/v and pos + 1."""
-    kind = check_dense(cfg)
+
+    Attention layers write their new K/V row into their cache in place
+    and return the same k/v tensors with pos + 1. Recurrent layers return
+    new states, which the returned caches hold: restacked for a
+    homogeneous stack, so each state keeps the dtype its layer gave it
+    (the reference's: the token-shift carries turn from fp32 to the
+    residual stream's dtype after the first step)."""
+    pattern = check_kinds(cfg)
     cd = _cdtype(cfg)
     x = embed_lookup(params["embed"], tokens[:, None], cd)  # (B,1,d)
-    for i in range(cfg.n_layers):
-        layer_cache = {key: a[i] for key, a in caches.items()}
-        x, _ = apply_block_decode(_layer_params(params, cfg, i), kind, cfg, x,
-                                  layer_cache, ring=sliding_override)
+    if cfg.is_homogeneous:
+        kind = pattern[0]
+        new: List[Dict] = []
+        for i in range(cfg.n_layers):
+            layer_cache = {key: a[i] for key, a in caches.items()}
+            x, c = apply_block_decode(_layer_params(params, cfg, i), kind, cfg, x,
+                                      layer_cache, ring=sliding_override)
+            new.append(c)
+        if kind in _ATTENTION_KINDS:
+            caches = {"k": caches["k"], "v": caches["v"], "pos": caches["pos"] + 1}
+        else:
+            caches = {key: torch.stack([c[key] for c in new]) for key in caches}
+    else:
+        new_caches = []
+        for i, kind in enumerate(pattern):
+            x, c = apply_block_decode(_layer_params(params, cfg, i), kind, cfg, x,
+                                      caches[i], ring=sliding_override)
+            new_caches.append(c)
+        caches = new_caches
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed_logits(_table(params, cfg), x[:, 0], cd)
-    return logits, {"k": caches["k"], "v": caches["v"], "pos": caches["pos"] + 1}
+    return logits, caches

@@ -32,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,15 +111,17 @@ class ServeEngine:
 
     # ------------------------------------------------------------ decode
 
-    def decode_step(self, tokens: torch.Tensor, caches: Dict):
+    def decode_step(self, tokens: torch.Tensor, caches: Any):
         """One decode step at a swap boundary: promote any pending
-        weights, then step. Returns (logits, caches, swapped); the caches
-        are updated in place."""
+        weights, then step. Returns (logits, caches, swapped): attention
+        caches are updated in place, recurrent states come back new."""
         swapped = self._maybe_swap()
         logits, caches = self._step(self.params, tokens, caches)
         return logits, caches, swapped
 
-    def new_caches(self) -> Dict:
+    def new_caches(self) -> Any:
+        """Zero decode states: a dict of layer-stacked states for a
+        homogeneous stack, a list of per-layer states for a patterned one."""
         return self.bundle.init_decode_state_fn(
             self.batch, self.max_seq, sliding_override=self.sliding, device=self.device)
 

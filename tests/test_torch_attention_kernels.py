@@ -36,6 +36,9 @@ DECODE_CASES = [
     (3, 4, 4, 300, 64, 128),
     (3, 15, 5, 200, 64, 64),
     (3, 8, 2, 130, 128, 64),
+    # hd 256: RecurrentGemma's MQA (10 q-heads over 1 kv-head, more than
+    # one block's 4 q-heads)
+    (3, 10, 1, 150, 256, 64),
 ]
 FLASH_CASES = [
     # (b, h, kv, seq, hd, causal, window, block); seq not a multiple of the
@@ -45,6 +48,10 @@ FLASH_CASES = [
     (1, 4, 4, 160, 128, True, 48, 64),
     (1, 4, 2, 130, 64, False, 40, 64),
     (2, 2, 2, 96, 64, False, 0, 64),
+    # hd 256: the reference suite's windowed case, and RecurrentGemma's
+    # MQA group of 10 over a ragged length
+    (1, 8, 2, 384, 256, True, 128, 128),
+    (2, 10, 1, 130, 256, True, 48, 64),
 ]
 
 

@@ -97,6 +97,33 @@ def test_flat_layout_matches_reference():
     np.testing.assert_array_equal(packing.pack_like(back, layout).numpy(), flat.numpy())
 
 
+def test_flat_layout_of_a_tree_with_lists_matches_reference():
+    """List-valued trees (a patterned model's ``pblocks`` / ``tail``) flatten
+    in ``jax.tree_util``'s order -- dict keys sorted, list items by index --
+    so the port's buffer is the reference's column for column, and unpack
+    gives the lists back; a dict tree's layout is the one it always had."""
+    rng = np.random.default_rng(1)
+    one = _jax_init()
+    tree = _stack({"pblocks": [one, {"z": one["fc2"]}], "a": one["fc1"]}, 4, rng)
+    j_flat, j_layout = j_packing.pack(jax.tree_util.tree_map(jnp.asarray, tree))
+    flat, layout = packing.pack(params_from_numpy(tree, device=CPU))
+    assert layout.paths[:2] == (("a", "b"), ("a", "w"))
+    assert layout.paths[2] == ("pblocks", 0, "fc1", "b")
+    assert layout.paths[-1] == ("pblocks", 1, "z", "w")
+    assert [s.offset for s in layout.leaves] == [s.offset for s in j_layout.leaves]
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(j_flat))
+    back = packing.unpack(flat, layout)
+    assert isinstance(back["pblocks"], list) and len(back["pblocks"]) == 2
+    assert set(back["pblocks"][1]) == {"z"}
+    np.testing.assert_array_equal(back["pblocks"][1]["z"]["w"].numpy(),
+                                  tree["pblocks"][1]["z"]["w"])
+    dict_tree = params_from_numpy(_stack(one, 3, rng), device=CPU)
+    items = packing.tree_leaves(dict_tree)
+    rebuilt = packing.tree_unflatten(tuple(p for p, _ in items), [v for _, v in items])
+    assert rebuilt.keys() == dict_tree.keys() and rebuilt["fc1"].keys() == {"b", "w"}
+    assert all(rebuilt[a][b] is dict_tree[a][b] for a in rebuilt for b in rebuilt[a])
+
+
 @pytest.mark.parametrize("used,pad,chunk", [(1442, 512, 512), (1442, 512, 128),
                                             (1442, 1, 0), (100, 32, 32),
                                             (4096, 256, 64)])

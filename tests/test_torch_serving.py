@@ -1,7 +1,8 @@
 """The serving path of the PyTorch port (``repro_torch.serving.engine``,
 ``repro_torch.launch.serve``, ``repro_torch.examples.serve_decode``)
-against ``repro.serving.engine`` on the smoke TinyLlama-1.1B and
-SmolLM-360M, from the reference's own weights carried over by
+against ``repro.serving.engine`` on the smoke TinyLlama-1.1B,
+SmolLM-360M, RWKV6-7B and RecurrentGemma-2B, and a narrow patterned
+hybrid, from the reference's own weights carried over by
 ``repro_torch.convert``.
 
 At fp32 compute, greedy generation must give exactly the reference
@@ -52,6 +53,22 @@ def _engines(arch, batch, dtype="float32", **kw):
             ServeEngine(tb, tp, max_seq=MAX_SEQ, batch=batch, **kw))
 
 
+def _patterned(get):
+    """A narrow hybrid with two whole periods and a tail (``pblocks`` and
+    ``tail``): 8 layers of (recurrent, recurrent, local_attention),
+    window 8, so the local caches wrap."""
+    return dataclasses.replace(get("recurrentgemma-2b", smoke=True), n_layers=8,
+                               block_pattern=("recurrent", "recurrent", "local_attention"),
+                               window=8)
+
+
+RECURRENT = {
+    "rwkv6-7b": lambda get: get("rwkv6-7b", smoke=True),
+    "recurrentgemma-2b": lambda get: get("recurrentgemma-2b", smoke=True),
+    "patterned": _patterned,
+}
+
+
 def _prompts(cfg, batch, length, seed=1):
     rng = np.random.default_rng(seed)
     return rng.integers(0, cfg.vocab_size, size=(batch, length)).astype(np.int32)
@@ -69,6 +86,27 @@ def test_greedy_generation_matches_reference_tokens(arch, sliding):
     assert (got.prompt_len, got.steps, got.swap_steps) == (8, 18, ())
     again = teng.generate(prompts, max_new_tokens=10, temperature=0.0)
     np.testing.assert_array_equal(again.tokens, got.tokens)
+
+
+@pytest.mark.parametrize("name", list(RECURRENT))
+def test_recurrent_greedy_generation_matches_reference_tokens(name):
+    """RWKV6 (layer-stacked states in a dict) and the hybrids (a list of
+    per-layer states) through the same engine: at fp32, exactly the
+    reference engine's greedy tokens."""
+    jc = dataclasses.replace(RECURRENT[name](j_get_config), compute_dtype="float32")
+    tc = dataclasses.replace(RECURRENT[name](get_config), compute_dtype="float32")
+    jb, tb = j_build_model(jc), build_model(tc)
+    jp = jb.init_fn(jax.random.key(0))
+    tp = model_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tc, "cpu")
+    jeng = JServeEngine(jb, jp, max_seq=MAX_SEQ, batch=2)
+    teng = ServeEngine(tb, tp, max_seq=MAX_SEQ, batch=2)
+    caches = teng.new_caches()
+    assert isinstance(caches, dict if name == "rwkv6-7b" else list)
+    prompts = _prompts(tc, 2, 8)
+    want = jeng.generate(prompts, max_new_tokens=10, temperature=0.0)
+    got = teng.generate(prompts, max_new_tokens=10, temperature=0.0)
+    assert got.tokens.shape == (2, 18) and (got.prompt_len, got.steps) == (8, 18)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
 
 
 def _hook_publish(engine, params_b, at_call, snapshot_round):
@@ -164,3 +202,15 @@ def test_serve_example_runs_on_the_cpu(capsys):
     serve_decode.main(["--device", "cpu"])
     out = capsys.readouterr().out
     assert "tinyllama-1.1b" in out and "sliding-window cache" in out
+    assert "rwkv6-7b" in out and "recurrentgemma-2b" in out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_serve_launcher_serves_the_recurrent_families_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve
+
+    record = serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "4",
+                         "--max-new", "5", "--max-seq", "32", "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out) == record
+    assert record["arch"] == f"{arch}-smoke" and record["steps"] == 9
+    assert len(record["sample_continuation"]) == 5
