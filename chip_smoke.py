@@ -19,8 +19,10 @@ k = 4, the pipelined FD-DSGT round, the top-64 wire, the paper's Fig. 2
 (DSGD, DSGT, FD-DSGD and FD-DSGT at Q = 100 on the exact-wire tree
 engine, 3000 iterations each, against the same run on the CPU), the
 compressed FD-DSGT composition (the flat engine, then
-``make_compressed_flat_gossip`` on each wire, against the fused engine)
-and serving: SmolLM-360M at full width with random weights,
+``make_compressed_flat_gossip`` on each wire, against the fused engine),
+the sharded engine on a one-rank NCCL group (FD-DSGD and FD-DSGT,
+sequential and pipelined, on the compact top-16 and top-64 wires and the
+dense int8 wire, against the fused engine on the card) and serving: SmolLM-360M at full width with random weights,
 ``ServeEngine.generate`` (batch 8, 128 prompt + 64 new tokens, greedy,
 a second weight set published mid-run), the bundle's prefill against
 the decode replay, and the first 16 steps teacher-forced on the host CPU;
@@ -49,6 +51,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -67,13 +70,21 @@ from repro_torch.core.compression import (  # noqa: E402
     init_flat_compression_state,
     make_compressed_flat_gossip,
 )
-from repro_torch.core.engine import FlatEngine, get_engine  # noqa: E402
+from repro_torch.core.engine import (  # noqa: E402
+    FlatEngine,
+    FusedEngine,
+    ShardedFusedEngine,
+    get_engine,
+)
 from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round, tree_map  # noqa: E402
-from repro_torch.core.packing import pack, tree_leaves, unpack  # noqa: E402
+from repro_torch.core.packing import flat_wire_bytes, pack, tree_leaves, unpack  # noqa: E402
 from repro_torch.core.schedules import inv_sqrt  # noqa: E402
 from repro_torch.core.topology import mixing_matrix  # noqa: E402
 from repro_torch.data.ehr import generate_ehr_cohort, make_node_batcher  # noqa: E402
-from repro_torch.examples.ehr_federated import run_fused_engine  # noqa: E402
+from repro_torch.examples.ehr_federated import (  # noqa: E402
+    run_fused_engine,
+    run_sharded_engine,
+)
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
@@ -84,7 +95,9 @@ from repro_torch.kernels.gossip.ops import (  # noqa: E402
     fused_round_gt,
     gossip_mix,
     wire_stage,
+    wire_stage_compact,
     wire_stage_gt,
+    wire_stage_gt_compact,
 )
 from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_ref  # noqa: E402
@@ -94,9 +107,12 @@ from repro_torch.kernels.gossip.ref import (  # noqa: E402
     fused_round_gt_ref,
     fused_round_ref,
     gossip_mix_ref,
+    wire_stage_compact_ref,
+    wire_stage_gt_compact_ref,
     wire_stage_gt_ref,
     wire_stage_ref,
 )
+from repro_torch.launch.mesh import start_group, stop_group  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.mlp import make_mlp_loss, mlp_init  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
@@ -125,6 +141,14 @@ GOSSIP_KERNELS = {
                    "src/repro/kernels/gossip/gossip.py:378", CSRC + "fused_round.cu"),
 }
 ALL_KERNELS = {**GOSSIP_KERNELS, **KERNELS, **WIRE_KERNELS}
+COMPACT_KERNELS = {
+    "wire_stage_compact": (wire_stage_compact, wire_stage_compact_ref, 1,
+                           "src/repro/kernels/gossip/gossip.py:853",
+                           CSRC + "wire_stage_compact.cu"),
+    "wire_stage_gt_compact": (wire_stage_gt_compact, wire_stage_gt_compact_ref, 2,
+                              "src/repro/kernels/gossip/gossip.py:926",
+                              CSRC + "wire_stage_compact.cu"),
+}
 ATTENTION_KERNELS = {
     # name: (TPU kernel it replaces, source)
     "decode_attention": ("src/repro/kernels/decode_attention/decode_attention.py:80",
@@ -140,7 +164,8 @@ SCAN_KERNELS = {
                    "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"),
 }
 WRAPPERS = [gossip_mix, fused_round, fused_round_gt, wire_stage, wire_stage_gt,
-            decode_attention, flash_attention, wkv6, rglru_scan]
+            wire_stage_compact, wire_stage_gt_compact, decode_attention, flash_attention,
+            wkv6, rglru_scan]
 # (label, nodes, flat width, scale chunk, topology): the main path, a
 # ragged shape with one all-zero row chunk (exercises safe = 1), and a
 # large shape that makes the kernel bandwidth-bound
@@ -157,6 +182,13 @@ ALPHA = np.float32(0.02)
 # ships 132 B per chunk (64 values, a 64 B presence bitmap, the scale)
 WIRE_DSGT, WIRE_DSGD, WIRE_TOP64 = 167_184, 83_592, 42_768
 TOPK_MAIN = 64  # the reference example's --topk
+# The sharded engine's wires on the paper's buffer at chunk 512: top-16
+# ships int16 positions (32 B < a 64 B bitmap), top-64 the bitmap (64 B <
+# 128 B); per-round bytes (all nodes) by (topk, algorithm)
+SHARDED_TOPKS = (16, 64)
+SHARDED_WIRE = {(64, "dsgt"): 42_768, (64, "dsgd"): 21_384, (16, "dsgt"): 16_848,
+                (16, "dsgd"): 8_424, (None, "dsgt"): 167_184, (None, "dsgd"): 83_592}
+SHARDED_ROUNDS = 5
 FIG2_ITERATIONS = 3000  # the paper's budget per algorithm
 # final Fig. 2 losses, card against CPU: the exact wire has no int8 step
 # to flip, so the runs differ only by fp32 summation order (the port's
@@ -294,6 +326,33 @@ def wire_ops(n: int, t: int, chunk: int, wires: int, topk=None) -> int:
     return wires * stage_ops(n, t, chunk, topk) + update_ops(n, t, wires)
 
 
+def compact_bytes_moved(n: int, t: int, chunk: int, wires: int, topk: int,
+                        bitmap: bool) -> int:
+    """HBM bytes one compact wire-stage kernel must move: each (n, t) fp32
+    input read once (DSGD 4, DSGT 8), h (and t_half) and each wire's
+    recon' and res' written once, and each wire's compact payload: k int8
+    values and k int16 positions, or the chunk/8-byte bitmap, and one fp32
+    scale per (row, chunk); alpha."""
+    c = t // chunk
+    payload = n * c * (topk + (chunk // 8 if bitmap else 2 * topk) + 4)
+    return 4 * ((4 + 3) if wires == 1 else (8 + 6)) * n * t + wires * payload + 4
+
+
+def compact_ops(n: int, t: int, chunk: int, wires: int, topk: int, bitmap: bool) -> int:
+    """Operations of one compact wire-stage kernel, counted from
+    csrc/wire_stage_compact.cu per wire: per element the payload (sub,
+    add), |payload| and its max, 31 threshold-search steps (|p|, compare),
+    the above/equal counts (3 compares) and the recon'/res' pass (select,
+    add, sub); per survivor the quantize twice (divide, rint, min, max)
+    and q * scale + 0; with positions also the rank over the k survivors
+    (2 compares each); per (row, chunk) the scale's divide and select.
+    Plus the local update."""
+    c = t // chunk
+    per_wire = (n * t * (4 + 2 * 31 + 3 + 3) + n * c * topk * (10 + (0 if bitmap else 2 * topk))
+                + 2 * n * c)
+    return wires * per_wire + update_ops(n, t, wires)
+
+
 def bound(nbytes: int, ops: int):
     """The least time on the card, ms, and what bounds it."""
     bytes_s, ops_s = nbytes / HBM_BYTES_S, ops / FP32_OPS_S
@@ -423,6 +482,52 @@ def check_wire_stages() -> dict:
             del got, want, bufs
         log(f"  {name} == twin at {label} ({n}x{t}, chunk {chunk}): 4 (ef, dc) x "
             f"topk {topks} (ties at k={chunk // 4} all kept), every output bitwise")
+        torch.cuda.empty_cache()
+    return max_err
+
+
+def check_compact_stages() -> dict:
+    """Both compact wire-stage kernels against their twins on the card, at
+    the main (20, 1536) and the large (64, 1,048,576) shape, chunk 512, k
+    in {16, 64}, explicit positions and the bitmap: every output (h,
+    t_half, q, positions or bitmap, scales, recon', res') bitwise. At the
+    main shape for the 4 (ef, dc) combinations, with exact ties in (row 0,
+    chunk 0): magnitudes 3, 2 and 1 of both signs, 64 threes, so top-16
+    keeps the 16 lowest-index threes; plus int32 positions at a 32,776-
+    column chunk."""
+    max_err = {name: 0.0 for name in COMPACT_KERNELS}
+    cases = [(SHAPES[0], EF_DC, True), (SHAPES[2], [(True, True)], False),
+             (("int32 positions", 2, 2 * 32776, 32776, None), [(True, True)], False)]
+    for (name, (kernel, twin, wires, _, _)), (shape, flags, ties) in itertools.product(
+            COMPACT_KERNELS.items(), cases):
+        label, n, t, chunk, _ = shape
+        encodings = [False] if chunk % 8 else [False, True]
+        for k, ((ef, dc), topk, bitmap) in enumerate(
+                itertools.product(flags, SHARDED_TOPKS, encodings)):
+            bufs = make_inputs(n, t, chunk, wires, label, seed=k, ties=ties)
+            kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                      topk=topk, bitmap=bitmap)
+            got = kernel(*bufs, ALPHA, **kw)
+            want = twin(*bufs, ALPHA, **kw)
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(got, want)):
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise AssertionError(f"{name} {label} {kw}: output {i} bad")
+                err = float((a.float() - b.float()).abs().max())
+                max_err[name] = max(max_err[name], err)
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{name} {label} {kw}: output {i} differs from the twin (max {err})")
+            if ties and topk == 16 and not bitmap:
+                for i in ([2] if wires == 1 else [3, 8]):
+                    pos = got[i][0, :topk].tolist()
+                    if pos != sorted(pos) or len(set(pos)) != topk:
+                        raise AssertionError(f"{name} {label} {kw}: tie positions {pos}")
+            del got, want, bufs
+        log(f"  {name} == twin at {label} ({n}x{t}, chunk {chunk}): {len(flags)} (ef, dc) x "
+            f"topk {SHARDED_TOPKS} x {'positions and bitmap' if len(encodings) == 2 else 'positions'}"
+            f"{', ties in (row 0, chunk 0)' if ties else ''}: every output bitwise, largest "
+            f"difference {max_err[name]:.1e}")
         torch.cuda.empty_cache()
     return max_err
 
@@ -893,6 +998,149 @@ def compressed_path() -> dict:
     return {"gossip_mix": 10}
 
 
+def fused_oracle(algorithm: str, schedule: str, topk, rounds: int = SHARDED_ROUNDS,
+                 q: int = 10):
+    """The port's FusedEngine on the card with ``run_sharded_engine``'s
+    defaults: hospital20, mlp_init(0), the cohort of seed 0 and its
+    batcher of seed 1, the balanced loss, alpha = 0.02/sqrt(r). Returns
+    (final state, per-round losses)."""
+    batcher = make_node_batcher(generate_ehr_cohort(seed=0), m=20, seed=1)
+    cfg = FLConfig(algorithm=algorithm, q=q, n_nodes=20)
+    eng, flat = FusedEngine.simulated(
+        mixing_matrix("hospital20", 20), stack_for_nodes(mlp_init(0, device="cuda"), 20),
+        scale_chunk=512, topk=topk, round_schedule=schedule)
+    round_fn = make_fl_round(make_mlp_loss(class_weights()), inv_sqrt(0.02), cfg, eng)
+    state, losses = init_fl_state(cfg, flat, eng), []
+    for _ in range(rounds):
+        state, m = round_fn(state, stack_batches(batcher, q))
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def sharded_path(group) -> dict:
+    """The sharded engine through its entry points (``from_group``,
+    ``init_fl_state``, ``make_fl_round``, as ``run_sharded_engine`` calls
+    them) on a one-rank NCCL group, the paper's configuration, 5 rounds
+    at Q = 10: FD-DSGD and FD-DSGT, sequential and pipelined, top-16
+    (positions) and top-64 (bitmap) -- ONE compact wire-stage launch per
+    round and no other gossip kernel, 3 all-gathers per wire and round
+    handed 20 x flat_wire_bytes bytes each per wire, the table's wire
+    bytes, the loss within rtol 1e-3 of the fused engine on the card
+    every round (the multi-round tolerance: exact ties of the MLP's output
+    columns make the compact wire keep k of them where the fused engine's
+    mask keeps all); then the dense int8 wire (one wire_stage /
+    wire_stage_gt launch, 2 all-gathers per wire), params and tracker
+    within 1e-5 of the fused engine after one round, and after five the
+    consensus (node mean) within 1e-3 -- the multi-round tolerances of
+    tests/test_torch_schedules.py: the mix sums in another order, and an
+    ulp can move a payload across an int8 rounding boundary, a step that
+    error feedback absorbs. Counts are zeroed just before each run and
+    read just after."""
+    launches = {name: 0 for name in COMPACT_KERNELS}
+    runs = [(a, s, k) for a in ("dsgd", "dsgt") for s in ("sequential", "pipelined")
+            for k in SHARDED_TOPKS] + [("dsgd", "sequential", None),
+                                       ("dsgt", "sequential", None)]
+    for algorithm, schedule, topk in runs:
+        wires = 2 if algorithm == "dsgt" else 1
+        kernel = {(True, 1): "wire_stage_compact", (True, 2): "wire_stage_gt_compact",
+                  (False, 1): "wire_stage", (False, 2): "wire_stage_gt"}[(topk is not None,
+                                                                          wires)]
+        label = f"sharded {algorithm.upper()} {schedule} " + (f"top-{topk}" if topk else "int8")
+        zero_counts()
+        t0 = time.perf_counter()
+        out = run_sharded_engine(group, rounds=SHARDED_ROUNDS, q=10, algorithm=algorithm,
+                                 topk=topk, fl_schedule=schedule, log=False)
+        expect_launches(label, **{kernel: SHARDED_ROUNDS})
+        run_s = time.perf_counter() - t0
+        eng = out["engine"]
+        buffers = 3 if topk else 2
+        per_wire = 20 * flat_wire_bytes(eng.layout, 1, 512, topk)
+        encoding = {None: "dense", 16: "positions", 64: "bitmap"}[topk]
+        if (eng.wire_encoding != encoding
+                or eng.collectives != SHARDED_ROUNDS * wires * buffers
+                or eng.collective_bytes != SHARDED_ROUNDS * wires * per_wire
+                or out["wire_bytes"] != SHARDED_WIRE[(topk, algorithm)]):
+            raise AssertionError(
+                f"{label}: encoding {eng.wire_encoding}, {eng.collectives} all-gathers of "
+                f"{eng.collective_bytes} B, wire {out['wire_bytes']} B/round")
+        if kernel in launches:
+            launches[kernel] += SHARDED_ROUNDS
+        state, losses = fused_oracle(algorithm, schedule, topk)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], losses))
+        diff = float((out["state"].params - state.params).abs().max())
+        mean_diff = float((out["state"].params.mean(0) - state.params.mean(0)).abs().max())
+        if algorithm == "dsgt":
+            diff = max(diff, float((out["state"].tracker - state.tracker).abs().max()))
+        if topk is None:
+            one = run_sharded_engine(group, rounds=1, q=10, algorithm=algorithm,
+                                     fl_schedule=schedule, log=False)["state"]
+            want, _ = fused_oracle(algorithm, schedule, None, rounds=1)
+            diff1 = float((one.params - want.params).abs().max())
+            if algorithm == "dsgt":
+                diff1 = max(diff1, float((one.tracker - want.tracker).abs().max()))
+            if diff1 > 1e-5 or mean_diff > 1e-3:
+                raise AssertionError(f"{label} vs the fused engine: params/tracker off by "
+                                     f"{diff1} after one round, consensus by {mean_diff} "
+                                     "after five")
+            log(f"  {label} vs the fused engine after one round: params/tracker max diff "
+                f"{diff1:.2e}")
+        if not all(math.isfinite(v) for v in out["losses"]) or rel > 1e-3:
+            raise AssertionError(f"{label} vs the fused engine: loss rel {rel}, params/"
+                                 f"tracker {diff}; losses {out['losses']} vs {losses}")
+        log(f"  {label}, {SHARDED_ROUNDS} rounds x Q=10 ({run_s:.2f} s): "
+            f"{SHARDED_ROUNDS} {kernel} launches, {eng.collectives} all-gathers "
+            f"({buffers} per wire and round) of {eng.collective_bytes // SHARDED_ROUNDS:,} "
+            f"B a round, {encoding} wire {out['wire_bytes']:,.0f} B/round; vs the fused "
+            f"engine: loss rel {rel:.2e}, params/tracker max diff {diff:.2e}, consensus "
+            f"{mean_diff:.2e}")
+    return launches
+
+
+def sharded_quadratic(group) -> None:
+    """The reference suite's contract on the card
+    (tests/test_sharded_engine.py): the exact-gradient quadratic problem
+    on 8 nodes, an Erdos-Renyi W, chunk 16, the dense int8 wire and top-4
+    (the bitmap wire), 4 rounds at Q = 2: params and tracker within 1e-5
+    of the fused engine on the same W (no non-zero ties at the threshold
+    there)."""
+    n, q, chunk = 8, 2, 16
+    rng = np.random.default_rng(0)
+    params = {"w": torch.tensor(rng.normal(size=(n, 4, 5)), dtype=torch.float32,
+                                device="cuda"),
+              "b": torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device="cuda")}
+    batches = {"t": rng.normal(size=(q, n, 4, 5)).astype(np.float32)}
+
+    def loss(p, b):
+        return ((p["w"] - b["t"]) ** 2).sum(dim=(1, 2)) + (p["b"] ** 2).sum(dim=1)
+
+    w = mixing_matrix("erdos_renyi", n, p=0.7, seed=1)
+    worst = 0.0
+    for algorithm, schedule, topk in itertools.product(
+            ("dsgd", "dsgt"), ("sequential", "pipelined"), (None, 4)):
+        cfg = FLConfig(algorithm=algorithm, q=q, n_nodes=n)
+        kw = dict(scale_chunk=chunk, topk=topk, round_schedule=schedule)
+        sh, rows = ShardedFusedEngine.from_group(group, params, w=w, **kw)
+        fe, flat = FusedEngine.simulated(w, params, **kw)
+        states = []
+        for eng, start in ((sh, rows), (fe, flat)):
+            round_fn = make_fl_round(loss, inv_sqrt(0.05), cfg, eng)
+            state = init_fl_state(cfg, start, eng)
+            for _ in range(4):
+                state, _ = round_fn(state, batches)
+            states.append(state)
+        a, b = states
+        diff = float((a.params - b.params).abs().max())
+        if algorithm == "dsgt":
+            diff = max(diff, float((a.tracker - b.tracker).abs().max()))
+        if sh.wire_encoding != ("bitmap" if topk else "dense") or diff > 1e-5:
+            raise AssertionError(f"sharded {algorithm} {schedule} top-{topk} on the "
+                                 f"quadratic problem: {sh.wire_encoding} wire, off by {diff}")
+        worst = max(worst, diff)
+    log(f"  the quadratic contract on the card (8 nodes, chunk 16, int8 and top-4 bitmap "
+        f"wires, 4 rounds, DSGD/DSGT x sequential/pipelined): params/tracker within "
+        f"{worst:.2e} of the fused engine")
+
+
 def _logit_diff(what: str, got: torch.Tensor, want: torch.Tensor,
                 tol: float = SERVE_LOGIT_TOL) -> float:
     """max |got - want| / max(1, max |want|), held to ``tol``."""
@@ -1125,21 +1373,25 @@ def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
 
 def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
                   class_weight="balanced", rounds: int = 50, warmup: int = 5,
-                  profiled: int = 5) -> dict:
+                  profiled: int = 5, topk=None, group=None) -> dict:
     """Median host-clock time of one whole DSGT round with Q local steps
     (Q gradient evaluations, then the engine's comm step: one kernel
     launch on the fused engine, plus the PyTorch stale mix at depth k >=
-    2; the exact fp32 mix on the tree engine), synchronized; then
-    ``torch.profiler`` over ``profiled`` more rounds for the device's busy
-    time and operation count per round and the host's costliest ops."""
-    label = f"DSGT Q={q} {engine} {schedule or 'sequential'}"
+    2; the exact fp32 mix on the tree engine; on the sharded engine, given
+    its ``group``, one wire-stage launch, the all-gathers, the receive-side
+    scatter and the mix), synchronized; then ``torch.profiler`` over
+    ``profiled`` more rounds for the device's busy time and operation
+    count per round and the host's costliest ops."""
+    label = f"DSGT Q={q} {engine} {schedule or 'sequential'}" + (f" top-{topk}" if topk else "")
     data = generate_ehr_cohort(seed=0)
     batcher = make_node_batcher(data, m=20, seed=1)
     cfg = FLConfig(algorithm="dsgt", q=q, n_nodes=20)
-    eng, params = get_engine(engine).simulated(
-        mixing_matrix("hospital20", 20),
-        stack_for_nodes(mlp_init(0, device="cuda"), 20), scale_chunk=512,
-        round_schedule=schedule)
+    stacked, w = stack_for_nodes(mlp_init(0, device="cuda"), 20), mixing_matrix("hospital20", 20)
+    kw = dict(scale_chunk=512, round_schedule=schedule, topk=topk)
+    if group is not None:
+        eng, params = ShardedFusedEngine.from_group(group, stacked, w=w, **kw)
+    else:
+        eng, params = get_engine(engine).simulated(w, stacked, **kw)
     round_fn = make_fl_round(make_mlp_loss(class_weights(class_weight)), inv_sqrt(0.02),
                              cfg, eng)
     state = init_fl_state(cfg, params, eng)
@@ -1239,6 +1491,36 @@ def timings(card: str) -> dict:
     rows["rounds"]["tree q100"] = round_profile(card, engine="tree", q=100,
                                                 class_weight=None, rounds=10,
                                                 warmup=2, profiled=2)
+    return rows
+
+
+def compact_timings(card: str, group) -> dict:
+    """Both compact wire-stage kernels and their twins at the main shape
+    on the top-64 bitmap wire (``main``), the large shape on the same
+    wire, and the main shape on the top-16 positions wire; no PyTorch call
+    computes exact-k selection with int8 quantization (``library_ms``
+    null). Then whole sharded rounds (DSGT top-64, sequential) beside the
+    fused engine's top-64 round."""
+    rows = {}
+    cases = [("main", SHAPES[0], TOPK_MAIN, True), ("large", SHAPES[2], TOPK_MAIN, True),
+             ("main top-16", SHAPES[0], 16, False)]
+    for name, (kernel, twin, wires, _, _) in COMPACT_KERNELS.items():
+        for key, (label, n, t, chunk, _), topk, bitmap in cases:
+            args = (*make_inputs(n, t, chunk, wires, label, seed=0), ALPHA)
+            kw = dict(scale_chunk=chunk, topk=topk, bitmap=bitmap)
+            k_ms = device_ms(lambda: kernel(*args, **kw))
+            t_ms = device_ms(lambda: twin(*args, **kw))
+            rows[(name, key)] = time_row(
+                card, name, f"{key} ({'bitmap' if bitmap else 'positions'}, k={topk})", n, t,
+                k_ms, t_ms, compact_bytes_moved(n, t, chunk, wires, topk, bitmap),
+                compact_ops(n, t, chunk, wires, topk, bitmap))
+            del args
+            torch.cuda.empty_cache()
+    rows["rounds"] = {
+        "sharded top-64": round_profile(card, engine="sharded_fused", topk=TOPK_MAIN,
+                                        group=group),
+        "fused top-64": round_profile(card, topk=TOPK_MAIN),
+    }
     return rows
 
 
@@ -1460,13 +1742,18 @@ def main() -> int:
 
     log("phase 2: kernels vs twins on the card")
     max_err = {**check_gossip_mix(), **check_kernels(), **check_wire_stages(),
-               **check_attention_kernels(), **check_scan_kernels()}
+               **check_compact_stages(), **check_attention_kernels(),
+               **check_scan_kernels()}
 
     log("phase 3: paths (launches counted per run)")
     launches = main_path()
     launches.update(stale_paths(launches.pop("sequential_losses")))
     fig2_path()
     launches.update(compressed_path())
+    log("  -- the sharded engine on a one-rank NCCL group")
+    group = start_group(0, 1, os.path.join(tempfile.mkdtemp(), "store"), device="cuda")
+    launches.update(sharded_path(group))
+    sharded_quadratic(group)
     serve = serving_path()
     launches.update(decode_attention=serve["decode_attention"],
                     flash_attention=serve["flash_attention"])
@@ -1479,6 +1766,10 @@ def main() -> int:
 
     log("phase 4: times (CUDA events, median of 60 after warm-up)")
     rows = timings(card)
+    compact = compact_timings(card, group)
+    rows["rounds"].update(compact.pop("rounds"))
+    rows.update(compact)
+    stop_group(group)
     rows.update(attention_timings(card))
     rows.update(scan_timings(card))
     rows["serving"] = decode_step_profile(card, serve["engine"], serve["prompts"], SERVE_ARCH)
@@ -1489,6 +1780,15 @@ def main() -> int:
 
     kernels = []
     for name, (_, _, _, replaces, source) in ALL_KERNELS.items():
+        row = rows[(name, "main")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        })
+    for name, (_, _, _, replaces, source) in COMPACT_KERNELS.items():
         row = rows[(name, "main")]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

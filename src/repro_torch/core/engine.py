@@ -18,7 +18,7 @@ or k rounds later (``bounded_staleness:k=K``). Engines and schedules
 register by name (:func:`register_engine`, :func:`register_schedule`);
 the registries are the one list of names every entry point resolves.
 
-Three engines are ported:
+Four engines are ported:
 
 * ``tree`` -- the state is the node-stacked parameter tree, mixed exactly
   (fp32, or a ``wire_dtype``) by the dense-W backend of ``core.mixing``:
@@ -31,22 +31,31 @@ Three engines are ported:
   megakernel (local update + quantize + W mix) on the sequential and
   pipelined schedules, the wire-stage kernel (local update + quantize)
   followed by a PyTorch mix against the k-round-stale reconstruction at
-  depth k >= 2.
+  depth k >= 2;
+* ``sharded_fused`` -- the same wire with the node rows split over the
+  ranks of a ``torch.distributed`` group (``launch.mesh``): each rank
+  runs ONE wire-stage kernel per round on its rows (the compact exact-k
+  top-k wire, ``kernels.gossip.wire_stage[_gt]_compact``, or the dense
+  int8 one), all-gathers the wire buffers, and mixes against a running
+  neighbor-reconstruction accumulator, on a dense W.
 
 The exact-wire engines are sequential-only and refuse top-k and partial
 federation scopes, as the reference's do. Everything outside the ported
 slice -- topology and node programs, privacy, federation scopes on the
-fused engine, bf16 storage, the mesh builds -- raises
-``NotImplementedError`` naming its ROADMAP.md item.
+fused engines, bf16 storage, the sharded engine's circulant torus wire
+and two-axis layout -- raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import ClassVar, Dict, Optional, Tuple, Type
+import dataclasses
+from typing import ClassVar, Dict, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.fl import (
     FLConfig,
@@ -59,6 +68,9 @@ from repro_torch.core.fl import (
 from repro_torch.core.mixing import make_dense_flat_mix, make_dense_gossip
 from repro_torch.core.packing import (
     FlatLayout,
+    bitmap_bytes_per_chunk,
+    compact_index_bytes,
+    compact_pos_dtype,
     flat_wire_bytes,
     pack,
     pack_like,
@@ -70,14 +82,19 @@ from repro_torch.kernels.gossip.ops import (
     fused_round,
     fused_round_gt,
     wire_stage,
+    wire_stage_compact,
     wire_stage_gt,
+    wire_stage_gt_compact,
 )
+from repro_torch.kernels.gossip.ref import scatter_bitmap_dq, scatter_compact_dq
+from repro_torch.launch.mesh import NodeGroup
 
 __all__ = [
     "GossipEngine",
     "TreeEngine",
     "FlatEngine",
     "FusedEngine",
+    "ShardedFusedEngine",
     "RoundSchedule",
     "SequentialSchedule",
     "PipelinedSchedule",
@@ -190,16 +207,17 @@ def resolve_schedule(rs) -> RoundSchedule:
         ) from None
 
 
-def _assemble_round(cfg: FLConfig, local_step, comm_call, device, pre_scan=None):
+def _assemble_round(cfg: FLConfig, local_step, comm_call, engine, pre_scan=None):
     """The round body: the optional pre-scan hook (a schedule's ingest of
     the in-flight payload; the fused engine has none), (Q-1) local steps
     in a Python loop (the reference scans them), then
     ``comm_call(state, batch, aux)`` on the last batch with whatever the
-    hook returned."""
+    hook returned. ``local_loss`` is the mean over all nodes
+    (``engine.global_mean``)."""
 
     def round_fn(state: FLState, batches):
         aux = pre_scan(state) if pre_scan is not None else None
-        batches = _as_device_batch(batches, device)
+        batches = _as_device_batch(batches, engine.device)
         q = cfg.q
         local_losses = []
         for k in range(q - 1):
@@ -208,7 +226,8 @@ def _assemble_round(cfg: FLConfig, local_step, comm_call, device, pre_scan=None)
         state, metrics = comm_call(state, {n: b[q - 1] for n, b in batches.items()},
                                    aux)
         metrics["local_loss"] = (
-            torch.stack(local_losses).mean() if local_losses else metrics["loss"]
+            engine.global_mean(torch.stack(local_losses).mean()) if local_losses
+            else metrics["loss"]
         )
         return state, metrics
 
@@ -227,7 +246,7 @@ class SequentialSchedule(RoundSchedule):
         comm_step = engine.make_comm_step(eval_grads, schedule, cfg)
         return _assemble_round(cfg, local_step,
                                lambda state, batch, aux: comm_step(state, batch),
-                               engine.device)
+                               engine)
 
 
 @register_schedule
@@ -247,7 +266,7 @@ class PipelinedSchedule(RoundSchedule):
 
     def build_round(self, engine, eval_grads, schedule, cfg, local_step):
         ingest, comm_step = engine.make_pipelined_round(eval_grads, schedule, cfg)
-        return _assemble_round(cfg, local_step, comm_step, engine.device,
+        return _assemble_round(cfg, local_step, comm_step, engine,
                                pre_scan=ingest)
 
 
@@ -346,6 +365,11 @@ class GossipEngine(abc.ABC):
         raise NotImplementedError(
             f"{type(self).__name__} mixes inside its fused comm step"
         )
+
+    def global_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over every node of a mean over this process's nodes:
+        ``x`` itself unless the nodes are split over several processes."""
+        return x
 
     def wire_bytes(self, cfg: FLConfig) -> Optional[float]:
         """Per-round egress summed over all nodes (None: the engine does
@@ -813,3 +837,445 @@ class FusedEngine(GossipEngine):
         flat, layout = pack(stacked_params, pad_to=scale_chunk)
         return cls(w, layout, scale_chunk=scale_chunk, device=flat.device,
                    **kw), flat
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine: node rows over the ranks of a process group
+# ---------------------------------------------------------------------------
+
+#: the all-gather of the installed torch (``all_gather_into_tensor`` was
+#: renamed ``all_gather_single``; both take (output, input, group=))
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+@register_engine
+class ShardedFusedEngine(GossipEngine):
+    """The fused round with the node rows split over the ranks of a
+    ``torch.distributed`` group (the reference's ``ShardedFusedEngine`` on
+    its all-gather wire: an arbitrary dense W). Rank r holds the node rows
+    ``[r * R, (r + 1) * R)`` of every (n, total) buffer. Per round, for
+    each wire:
+
+      1. the WIRE STAGE -- local update (DSGD) or tracker arithmetic and
+         update (DSGT), difference coding, int8 quantize, error feedback
+         -- is ONE kernel launch on the rank's rows (DSGT's two wires
+         share it): ``wire_stage[_gt]_compact`` with exact-k top-k when
+         ``topk`` is set and the compact encoding is smaller than the
+         dense chunk, else ``wire_stage[_gt]`` (dense int8, top-k masked
+         when ``topk`` is set);
+      2. each wire buffer crosses in ONE ``all_gather`` over the group --
+         (k int8 values, k positions or the presence bitmap, fp32 scales)
+         on the compact wire, (int8 payload, scales) on the dense one --
+         moved as its raw bytes (neither NCCL nor gloo has an int16
+         type), so the bytes handed to the collectives are exactly
+         ``flat_wire_bytes`` per node and wire;
+      3. the receive side rebuilds every node's dense dq and the mix
+         finishes against the running neighbor-reconstruction
+         accumulator: ``mix_recon' = mix_recon + W_off[rows] @ dq_all``,
+         ``mixed = w_self[rows] * h + mix_recon'`` -- equal, up to the
+         summation order, to ``FusedEngine`` on the same W.
+
+    Under the pipelined and bounded-staleness schedules the comm step
+    stores this round's wire buffers in ``FLState.comm`` (``wire_q``,
+    ``wire_pos`` or ``wire_bits``, ``wire_scales``, and ``_t`` twins;
+    a ring of k at depth k >= 2), and the next round's ingest gathers the
+    oldest before its local steps. Metrics are over all n nodes
+    (all-reduced), so every world size reports the same numbers.
+
+    ``collectives`` and ``collective_bytes`` count the wire's all-gathers
+    and the bytes this rank hands them (the metrics' all-reduces are not
+    wire traffic and do not count).
+    """
+
+    name = "sharded_fused"
+
+    def __init__(self, group: NodeGroup, layout: FlatLayout, *, w=None,
+                 scale_chunk: int = 512, topk=None, compact=None,
+                 round_schedule=None, error_feedback: bool = True,
+                 difference_coding: bool = True, wire_dtype=None,
+                 model_axis=None, topology_program=None, node_program=None,
+                 privacy=None, scope=None, storage_dtype=None):
+        if wire_dtype is not None:
+            raise ValueError(
+                "the fused engines' wire is always difference-coded int8; "
+                "wire_dtype only applies to the tree/flat exact-wire engines"
+            )
+        if w is None:
+            raise _not_ported("the circulant torus ppermute wire (w=None)", "15")
+        if model_axis is not None:
+            raise _not_ported(
+                f"the two-axis (node, model_shard) layout (model_axis={model_axis!r})",
+                "15")
+        _refuse_unported(topology_program, node_program, privacy, scope,
+                         storage_dtype)
+        if not (error_feedback and difference_coding):
+            raise _not_ported(
+                "the sharded engine without difference coding or error feedback",
+                "9")
+        if scale_chunk < 1 or layout.total % scale_chunk:
+            raise ValueError(
+                f"layout.total {layout.total} not a multiple of scale_chunk "
+                f"{scale_chunk}; pack with pad_to={scale_chunk}"
+            )
+        if topk is not None and topk < 1:
+            raise ValueError("topk must be >= 1 or None")
+        self.layout = layout
+        self.scale_chunk = scale_chunk
+        self.topk = topk
+        self.round_schedule = resolve_schedule(round_schedule)
+        self.group = group
+        self.device = group.device
+        self.n_nodes = layout.n_nodes
+        self.rows = group.rows(self.n_nodes)
+        # unpack / eval on this rank's rows only
+        self.local_layout = dataclasses.replace(layout, n_nodes=len(self.rows))
+        # The compact wire is the wire only where it is SMALLER than the
+        # dense int8 chunk; compact=None takes it exactly there, and an
+        # explicitly requested uneconomic one is refused (the accounting
+        # would report bytes the collective does not move).
+        economic = self._compact_is_economic()
+        if compact is None:
+            compact = economic
+        if compact:
+            if topk is None or not 1 <= topk < scale_chunk:
+                raise ValueError(
+                    "the compact wire needs a sparsified payload: set "
+                    f"1 <= topk < scale_chunk (got topk={topk}, "
+                    f"scale_chunk={scale_chunk}) or pass compact=False"
+                )
+            if not economic:
+                raise ValueError(
+                    f"compact encoding of topk={topk} costs more than the dense "
+                    f"int8 chunk ({topk} values + "
+                    f"{compact_index_bytes(scale_chunk, topk)} index bytes > "
+                    f"{scale_chunk} columns); ship the dense wire "
+                    "(compact=False) or lower topk"
+                )
+        self.compact_wire = bool(compact)
+        # the index encoding that crosses: the cheaper of explicit
+        # positions and the presence bitmap (compact_index_bytes' boundary)
+        self.wire_encoding = "dense"
+        if self.compact_wire:
+            pos_b = topk * torch.iinfo(compact_pos_dtype(scale_chunk)).bits // 8
+            bb = bitmap_bytes_per_chunk(scale_chunk)
+            self.wire_encoding = "bitmap" if bb is not None and bb < pos_b else "positions"
+        self.w, w_self, w_off = _split_w_np(w, self.n_nodes)
+        rows = slice(self.rows.start, self.rows.stop)
+        self.w_self = torch.as_tensor(w_self[rows], device=self.device)
+        self.w_off = torch.as_tensor(w_off[rows], device=self.device)
+        self.collectives = 0
+        self.collective_bytes = 0
+
+    @property
+    def pipelined(self) -> bool:
+        return self.round_schedule.depth >= 1
+
+    @property
+    def staleness_depth(self) -> int:
+        return self.round_schedule.depth
+
+    def _compact_is_economic(self) -> bool:
+        """True when k values + the cheaper index encoding fit in the
+        dense int8 chunk (``packing.compact_index_bytes``)."""
+        if self.topk is None:
+            return False
+        return self.topk + compact_index_bytes(self.scale_chunk, self.topk) <= self.scale_chunk
+
+    # -- comm-state contract ----------------------------------------------
+
+    def _wire_key_names(self, suffix: str = "") -> Tuple[str, ...]:
+        """One wire's in-flight payload buffers (pipelined only): exactly
+        what crosses the collective."""
+        if not self.compact_wire:
+            names = ("wire_q", "wire_scales")
+        elif self.wire_encoding == "bitmap":
+            names = ("wire_q", "wire_bits", "wire_scales")
+        else:
+            names = ("wire_q", "wire_pos", "wire_scales")
+        return tuple(n + suffix for n in names)
+
+    def comm_keys(self, cfg: FLConfig) -> Tuple[str, ...]:
+        keys = ("recon", "residual", "mix_recon")
+        if self.pipelined:
+            keys += self._wire_key_names("")
+        if cfg.algorithm == "dsgt":
+            keys += ("recon_t", "residual_t", "mix_recon_t")
+            if self.pipelined:
+                keys += self._wire_key_names("_t")
+        return keys
+
+    def comm_state_spec(self, cfg: FLConfig):
+        """This rank's wire state: (R, total) fp32 recon / residual /
+        mix_recon, and the in-flight wire buffers, (R, width) at depth 1
+        and a (R, k, width) ring at depth k >= 2."""
+        r, t = len(self.rows), self.layout.total
+        c, depth = t // self.scale_chunk, self.staleness_depth
+
+        def ring(width, dtype):
+            return ((r, width) if depth <= 1 else (r, depth, width)), dtype
+
+        def spec(key):
+            if key.startswith("wire_q"):
+                return ring(c * self.topk if self.compact_wire else t, torch.int8)
+            if key.startswith("wire_pos"):
+                return ring(c * self.topk, compact_pos_dtype(self.scale_chunk))
+            if key.startswith("wire_bits"):
+                return ring(c * (self.scale_chunk // 8), torch.uint8)
+            if key.startswith("wire_scales"):
+                return ring(c, torch.float32)
+            return (r, t), torch.float32
+
+        return {k: spec(k) for k in self.comm_keys(cfg)}
+
+    def dense_equivalent(self) -> np.ndarray:
+        """The dense W this engine realizes (the ``FusedEngine`` oracle)."""
+        return self.w
+
+    def _edge_bytes(self) -> int:
+        """What one neighbor payload costs on this wire: the compact
+        encoding, or the dense int8 bytes."""
+        return flat_wire_bytes(self.layout, 1, self.scale_chunk,
+                               self.topk if self.compact_wire else None)
+
+    def wire_bytes(self, cfg: FLConfig) -> float:
+        wires = 2 if cfg.algorithm == "dsgt" else 1
+        return float(wires * _degrees(self.w).sum() * self._edge_bytes())
+
+    def check_params(self, cfg: FLConfig, params) -> None:
+        if cfg.n_nodes != self.n_nodes:
+            raise ValueError(f"cfg.n_nodes {cfg.n_nodes} != the engine's {self.n_nodes} nodes")
+        want = (len(self.rows), self.layout.total)
+        if not isinstance(params, torch.Tensor) or tuple(params.shape) != want:
+            raise ValueError(
+                f"the sharded engine's state is this rank's rows of the packed "
+                f"buffer, {want} (from_group returns them)"
+            )
+        if params.dtype != torch.float32 or params.device != self.device:
+            raise ValueError(
+                f"flat buffer is {params.dtype} on {params.device}; the "
+                f"engine runs float32 on {self.device}"
+            )
+
+    def make_eval_grads(self, grad_fn):
+        """The tree-level ``grad_fn`` on this rank's rows: each round's
+        batches carry all n nodes, and the rank evaluates its own."""
+        inner = _make_flat_eval_grads(self.local_layout, grad_fn)
+        rows = slice(self.rows.start, self.rows.stop)
+
+        def eval_grads(params: torch.Tensor, batch):
+            return inner(params, {k: v[rows] for k, v in batch.items()})
+
+        return eval_grads
+
+    def params_view(self, params):
+        return unpack(params, self.local_layout)
+
+    def global_mean(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.detach().clone()
+        dist.all_reduce(x, group=self.group.pg)
+        return x / self.group.world
+
+    # -- the wire ------------------------------------------------------------
+
+    def _produce(self, x, g, recon, res, alpha):
+        """DSGD: ONE wire-stage launch. Returns (h, wire buffers in
+        ``_wire_key_names`` order, recon', res')."""
+        kw = dict(scale_chunk=self.scale_chunk, topk=self.topk)
+        if self.compact_wire:
+            h, q, idx, sc, nrecon, nres = wire_stage_compact(
+                x, g, recon, res, alpha, bitmap=self.wire_encoding == "bitmap", **kw)
+            return h, (q, idx, sc), nrecon, nres
+        h, q, sc, nrecon, nres = wire_stage(x, g, recon, res, alpha, **kw)
+        return h, (q, sc), nrecon, nres
+
+    def _produce_gt(self, x, t, g, gp, rx, sx, rt, st, alpha):
+        """DSGT: ONE wire-stage launch for both wires. Returns (h, t_half,
+        wire_x, recon_x', res_x', wire_t, recon_t', res_t')."""
+        kw = dict(scale_chunk=self.scale_chunk, topk=self.topk)
+        if self.compact_wire:
+            (h, th, qx, ix, scx, nrx, nsx, qt, it, sct, nrt, nst) = wire_stage_gt_compact(
+                x, t, g, gp, rx, sx, rt, st, alpha,
+                bitmap=self.wire_encoding == "bitmap", **kw)
+            return h, th, (qx, ix, scx), nrx, nsx, (qt, it, sct), nrt, nst
+        (h, th, qx, scx, nrx, nsx, qt, sct, nrt, nst) = wire_stage_gt(
+            x, t, g, gp, rx, sx, rt, st, alpha, **kw)
+        return h, th, (qx, scx), nrx, nsx, (qt, sct), nrt, nst
+
+    def _all_gather(self, buf: torch.Tensor) -> torch.Tensor:
+        """ONE all-gather of a (R, w) wire buffer into (n, w), moved as its
+        raw bytes."""
+        raw = buf.contiguous().view(torch.uint8)
+        out = torch.empty((self.n_nodes, raw.shape[1]), dtype=torch.uint8,
+                          device=raw.device)
+        _ALL_GATHER(out, raw, group=self.group.pg)
+        self.collectives += 1
+        self.collective_bytes += raw.numel()
+        return out.view(buf.dtype)
+
+    def _dq_full(self, wire: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Dense dequant of one wire's payload buffers at any row count;
+        the dense width comes from the scales buffer."""
+        t = wire[-1].shape[-1] * self.scale_chunk
+        if not self.compact_wire:
+            q, scales = wire
+            return _dequant(q, scales, self.scale_chunk)
+        if self.wire_encoding == "bitmap":
+            return scatter_bitmap_dq(*wire, self.scale_chunk, t)
+        return scatter_compact_dq(*wire, self.scale_chunk, t)
+
+    def _wire_mix(self, wire: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Move one wire's buffers over the group (one all-gather each)
+        and return ``W_off[rows] @ dq`` for this rank's rows."""
+        return self.w_off @ self._dq_full([self._all_gather(b) for b in wire])
+
+    def _ring_slot0(self, comm, keys):
+        """The oldest in-flight payload's buffers."""
+        if self.staleness_depth <= 1:
+            return [comm[k] for k in keys]
+        return [comm[k][:, 0] for k in keys]
+
+    def _push_wire(self, old_comm, comm, keys, vals) -> None:
+        """Store this round's payload: replace at depth 1, ring push (drop
+        slot 0, append at the end) at depth >= 2."""
+        if self.staleness_depth <= 1:
+            comm.update(zip(keys, vals))
+            return
+        for k, v in zip(keys, vals):
+            comm[k] = torch.cat([old_comm[k][:, 1:], v[:, None]], dim=1)
+
+    # -- the round -----------------------------------------------------------
+
+    def _metrics(self, losses, alpha, grads, new_state: FLState, egress: float):
+        """The reference's metrics over all n nodes: one all-reduce of the
+        sums, one of the squared deviations from the consensus mean."""
+        n, t = self.n_nodes, self.layout.total
+        params, res = new_state.params, new_state.comm["residual"]
+        sums = torch.cat([losses.sum()[None], (res * res).sum()[None],
+                          grads.sum(dim=0), params.sum(dim=0)])
+        dist.all_reduce(sums, group=self.group.pg)
+        mean_g, mean_p = sums[2:2 + t] / n, sums[2 + t:] / n
+        dev = params - mean_p
+        sq = (dev * dev).sum()
+        dist.all_reduce(sq, group=self.group.pg)
+        return {
+            "loss": sums[0] / n,
+            "alpha": float(alpha),
+            "grad_norm_sq": (mean_g * mean_g).sum(),
+            "consensus_err": sq / n,
+            "comm_rounds": 1.0,
+            "wire_bytes": egress,
+            "ef_residual_rms": torch.sqrt(sums[1] / (n * t)),
+        }
+
+    def _check_cfg(self, cfg: FLConfig) -> None:
+        if cfg.n_nodes != self.n_nodes:
+            raise ValueError(f"cfg.n_nodes {cfg.n_nodes} != the engine's {self.n_nodes} nodes")
+
+    def _comm_body(self, eval_grads, schedule, cfg: FLConfig, state: FLState, batch,
+                   mix_add):
+        """The comm step's shared body: this round's gradient, ONE
+        wire-stage launch, then the mix against ``mix_recon`` plus
+        ``mix_add(wire, wire_t)`` -- this round's gathered payload
+        (sequential) or the ingested stale one (pipelined). Returns
+        (state, metrics, wire, wire_t)."""
+        if state.comm is None:
+            raise ValueError("fused rounds need init_fl_state(..., engine)")
+        step = state.step + 1
+        alpha = schedule(step)
+        losses, grads = eval_grads(state.params, batch)
+        c = state.comm
+        if cfg.algorithm == "dsgd":
+            h, wire, nrecon, nres = self._produce(
+                state.params, grads, c["recon"], c["residual"], alpha)
+            new_mix = c["mix_recon"] + mix_add(wire, None)[0]
+            new_state = state._replace(
+                step=step, params=self.w_self[:, None] * h + new_mix,
+                comm={"recon": nrecon, "residual": nres, "mix_recon": new_mix})
+            wire_t = None
+        else:
+            (h, th, wire, nrx, nsx, wire_t, nrt, nst) = self._produce_gt(
+                state.params, state.tracker, grads, state.prev_grad, c["recon"],
+                c["residual"], c["recon_t"], c["residual_t"], alpha)
+            add_x, add_t = mix_add(wire, wire_t)
+            new_mrx, new_mrt = c["mix_recon"] + add_x, c["mix_recon_t"] + add_t
+            new_state = FLState(
+                step=step, params=self.w_self[:, None] * h + new_mrx,
+                tracker=self.w_self[:, None] * th + new_mrt, prev_grad=grads,
+                comm={"recon": nrx, "residual": nsx, "mix_recon": new_mrx,
+                      "recon_t": nrt, "residual_t": nst, "mix_recon_t": new_mrt})
+        return new_state, (losses, alpha, grads), wire, wire_t
+
+    def make_comm_step(self, eval_grads, schedule, cfg: FLConfig):
+        """The sequential round: produce, gather, mix in the same step."""
+        self._check_cfg(cfg)
+        egress = self.wire_bytes(cfg)
+
+        def gathered(wire, wire_t):
+            return (self._wire_mix(wire),
+                    None if wire_t is None else self._wire_mix(wire_t))
+
+        def comm_step(state: FLState, batch):
+            new_state, m, _, _ = self._comm_body(eval_grads, schedule, cfg, state,
+                                                 batch, gathered)
+            return new_state, self._metrics(*m, new_state, egress)
+
+        return comm_step
+
+    def make_pipelined_round(self, eval_grads, schedule, cfg: FLConfig):
+        """The split round: ``ingest`` gathers the OLDEST in-flight payload
+        (nothing it reads depends on this round's compute, so it runs
+        before the local steps) and returns its neighbor term;
+        ``comm_step`` produces this round's payload (stored for a later
+        round), folds the ingested term into ``mix_recon`` and mixes --
+        k-round-stale neighbor information."""
+        if not self.pipelined:
+            raise ValueError(
+                "engine was built with round_schedule='sequential'; build "
+                "it with round_schedule='pipelined'"
+            )
+        self._check_cfg(cfg)
+        egress = self.wire_bytes(cfg)
+        keys, keys_t = self._wire_key_names(""), self._wire_key_names("_t")
+
+        def ingest(state: FLState):
+            if state.comm is None or keys[0] not in state.comm:
+                raise ValueError(
+                    "pipelined rounds need init_fl_state(..., engine=...) "
+                    "with the pipelined engine (in-flight wire buffers)"
+                )
+            stale = {"mix": self._wire_mix(self._ring_slot0(state.comm, keys))}
+            if cfg.algorithm == "dsgt":
+                stale["mix_t"] = self._wire_mix(self._ring_slot0(state.comm, keys_t))
+            return stale
+
+        def comm_step(state: FLState, batch, stale):
+            new_state, m, wire, wire_t = self._comm_body(
+                eval_grads, schedule, cfg, state, batch,
+                lambda wire, wire_t: (stale["mix"], stale.get("mix_t")))
+            comm = dict(new_state.comm)
+            self._push_wire(state.comm, comm, keys, wire)
+            if wire_t is not None:
+                self._push_wire(state.comm, comm, keys_t, wire_t)
+            new_state = new_state._replace(comm=comm)
+            return new_state, self._metrics(*m, new_state, egress)
+
+        return ingest, comm_step
+
+    @classmethod
+    def simulated(cls, w, stacked_params, **_ignored):
+        raise ValueError(
+            "sharded_fused needs a process group (use from_group); on a single "
+            "process use the 'fused' engine -- identical math, dense W"
+        )
+
+    @classmethod
+    def from_group(cls, group: NodeGroup, stacked_params, *, scale_chunk: int = 512,
+                   **kw) -> Tuple["ShardedFusedEngine", torch.Tensor]:
+        """Pack the node-stacked params (all n nodes, padded to
+        ``scale_chunk``) and build the engine for this rank of ``group``.
+        Returns (engine, this rank's rows of the flat buffer on the
+        group's device) -- the state ``init_fl_state`` takes."""
+        flat, layout = pack(stacked_params, pad_to=scale_chunk)
+        engine = cls(group, layout, scale_chunk=scale_chunk, **kw)
+        rows = flat[engine.rows.start:engine.rows.stop]
+        return engine, rows.to(group.device, torch.float32).contiguous()

@@ -20,6 +20,12 @@ columns per scale chunk, ``--topk-schedule`` adapts k to the error
 feedback residual. Prints the per-round comm bytes of the int8 (or
 top-k) wire against the fp32 wire a plain engine ships.
 
+``run_sharded_engine`` runs part 2's configuration on the
+``sharded_fused`` engine instead, for one rank of a process group
+(``repro_torch.launch.mesh.start_group``): the 20 hospitals' rows split
+over the ranks, one compact top-k (or dense int8) wire-stage launch per
+round and rank, and one all-gather per wire buffer.
+
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 3000 --out curves.csv
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 --rounds 50 --q 10
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 --topk 64
@@ -36,7 +42,7 @@ import torch
 
 from repro_torch.benchmarks.fig2_comm_rounds import report, run
 from repro_torch.configs.ehr_mlp import CLASS_WEIGHT, class_weights, topk_schedule
-from repro_torch.core.engine import get_engine, resolve_schedule
+from repro_torch.core.engine import ShardedFusedEngine, get_engine, resolve_schedule
 from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round, tree_map
 from repro_torch.core.schedules import inv_sqrt
 from repro_torch.core.topology import mixing_matrix
@@ -150,6 +156,49 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
             "wire_bytes": m["wire_bytes"],
             "losses": torch.stack(losses).tolist(), "params": params,
             "dense_rounds": adaptive.dense_rounds if adaptive else None}
+
+
+def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
+                       scale_chunk: int = 512, seed: int = 0,
+                       class_weight=CLASS_WEIGHT, fl_schedule="sequential",
+                       topk=None, init_params: Optional[Dict] = None,
+                       log: bool = True) -> Dict:
+    """Part 2's configuration on the ``sharded_fused`` engine, for this
+    rank of ``group`` (every rank of the group calls it with the same
+    arguments). ``topk`` ships the compact exact-k wire where it is
+    smaller than the dense int8 chunk. Returns the per-round ``losses``
+    and last ``metrics`` (over all 20 hospitals), ``wire_bytes`` of the
+    last round, the ``engine`` and the final ``state`` (this rank's
+    rows)."""
+    if rounds < 1:
+        raise ValueError("rounds must be >= 1")
+    n = 20
+    batcher = make_node_batcher(generate_ehr_cohort(seed=seed), m=20, seed=seed + 1)
+    single = mlp_init(seed, device=group.device) if init_params is None else tree_map(
+        lambda p: torch.as_tensor(p, device=group.device), init_params)
+    cfg = FLConfig(algorithm=algorithm, q=q, n_nodes=n)
+    engine, rows = ShardedFusedEngine.from_group(
+        group, stack_for_nodes(single, n), w=mixing_matrix("hospital20", n),
+        scale_chunk=scale_chunk, topk=topk, round_schedule=fl_schedule)
+    round_fn = make_fl_round(make_mlp_loss(class_weights(class_weight)), inv_sqrt(0.02),
+                             cfg, engine)
+    state = init_fl_state(cfg, rows, engine)
+    log = log and group.rank == 0
+    if log:
+        print(f"\nsharded fused engine ({algorithm.upper()}, Q={q}, "
+              f"schedule={engine.round_schedule.spec()}, {group.world} rank(s) x "
+              f"{len(engine.rows)} hospitals, {engine.wire_encoding} wire, topk={topk}, "
+              f"wire={engine.wire_bytes(cfg):,.0f} B/round, device={group.device}):")
+    losses = []
+    for rnd in range(1, rounds + 1):
+        state, m = round_fn(state, stack_batches(batcher, q))
+        losses.append(m["loss"])
+        if log and (rnd % max(1, rounds // 5) == 0 or rnd == 1):
+            print(f"  [round {rnd:4d}] loss={float(m['loss']):.4f} "
+                  f"consensus_err={float(m['consensus_err']):.2e} "
+                  f"comm_bytes/round={m['wire_bytes']:,.0f}")
+    return {"losses": torch.stack(losses).tolist(), "metrics": m,
+            "wire_bytes": m["wire_bytes"], "engine": engine, "state": state}
 
 
 def reproduce(iterations: int, out: Optional[str] = None, device=None) -> Dict:

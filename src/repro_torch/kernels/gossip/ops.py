@@ -4,17 +4,20 @@
 A wrapper checks its operands, then dispatches by the tensors' device:
 CPU tensors go to the plain PyTorch twin (``ref.py``), CUDA tensors to
 the hand-written kernel in ``csrc/fused_round.cu`` (the gossip stage
-``gossip_mix`` and the round megakernels) or ``csrc/wire_stage.cu`` (the
-wire stages) -- there is no
+``gossip_mix`` and the round megakernels), ``csrc/wire_stage.cu`` (the
+wire stages) or ``csrc/wire_stage_compact.cu`` (the compact top-k wire
+stages) -- there is no
 switch and no fallback: a CUDA call that cannot launch raises. The
 wrapper allocates the outputs, launches on the current stream without
 synchronizing, and raises if the launch reports an error. Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (twin calls do not
 count).
 
-Every wrapper takes ``topk``: None (the dense int8 wire) or the number
-of largest-|payload| columns each (node, scale chunk) keeps, ties at the
-threshold included; ``topk >= scale_chunk`` keeps them all.
+Every wrapper but the compact ones takes ``topk``: None (the dense int8
+wire) or the number of largest-|payload| columns each (node, scale
+chunk) keeps, ties at the threshold included; ``topk >= scale_chunk``
+keeps them all. The compact wire stages keep exactly ``1 <= topk <
+scale_chunk`` columns, ties toward the lower index.
 """
 
 from __future__ import annotations
@@ -26,19 +29,24 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.packing import compact_pos_dtype
 from repro_torch.kernels.gossip.build import load
 from repro_torch.kernels.gossip.ref import (
+    check_compact,
     check_topk,
     fused_round_gt_ref,
     fused_round_ref,
     gossip_mix_ref,
     refuse_unported,
+    wire_stage_compact_ref,
+    wire_stage_gt_compact_ref,
     wire_stage_gt_ref,
     wire_stage_ref,
 )
 
 __all__ = ["gossip_mix", "fused_round", "fused_round_gt", "wire_stage",
-           "wire_stage_gt", "SMEM_LIMIT_BYTES"]
+           "wire_stage_gt", "wire_stage_compact", "wire_stage_gt_compact",
+           "SMEM_LIMIT_BYTES"]
 
 #: dynamic shared memory one Hopper block may opt in to (227 KB)
 SMEM_LIMIT_BYTES = 232448
@@ -74,6 +82,19 @@ def _wire_lib() -> ctypes.CDLL:
     _declare(lib, "wire_stage_gt_launch",
              [_P] * 8 + [_F] + [_P] * 10 + [_I] * 6 + [_P])
     _declare(lib, "wire_stage_smem_bytes", [_I], ctypes.c_size_t)
+    _declare(lib, "gossip_error_string", [_I], ctypes.c_char_p)
+    return lib
+
+
+@functools.cache
+def _compact_lib() -> ctypes.CDLL:
+    """The built compact wire-stage library, declared as :func:`_round_lib`."""
+    lib = load("wire_stage_compact")
+    _declare(lib, "wire_stage_compact_launch",
+             [_P] * 4 + [_F] + [_P] * 6 + [_I] * 7 + [_P])
+    _declare(lib, "wire_stage_gt_compact_launch",
+             [_P] * 8 + [_F] + [_P] * 12 + [_I] * 7 + [_P])
+    _declare(lib, "wire_stage_compact_smem_bytes", [_I, _I], ctypes.c_size_t)
     _declare(lib, "gossip_error_string", [_I], ctypes.c_char_p)
     return lib
 
@@ -404,3 +425,128 @@ def wire_stage_gt(
 
 
 wire_stage_gt.launches = 0
+
+
+def _compact_outs(x: torch.Tensor, n: int, t: int, scale_chunk: int, topk: int,
+                  bitmap: bool):
+    """One compact wire's outputs: q int8 (n, C*k), the positions (n, C*k)
+    or the bitmap (n, C*chunk/8) uint8, scales (n, C), recon', res'."""
+    c = t // scale_chunk
+    idx = (torch.empty(n, c * (scale_chunk // 8), dtype=torch.uint8, device=x.device)
+           if bitmap else
+           torch.empty(n, c * topk, dtype=compact_pos_dtype(scale_chunk), device=x.device))
+    return (torch.empty(n, c * topk, dtype=torch.int8, device=x.device), idx,
+            torch.empty(n, c, dtype=torch.float32, device=x.device),
+            torch.empty_like(x), torch.empty_like(x))
+
+
+def _compact_tail(n: int, t: int, scale_chunk: int, topk: int, ef: bool, dc: bool,
+                  bitmap: bool, dev) -> list:
+    """The compact kernels' trailing C arguments: geometry, flags, the
+    index encoding (0 int16 positions, 1 int32, 2 bitmap), the stream."""
+    encoding = 2 if bitmap else (0 if compact_pos_dtype(scale_chunk) == torch.int16 else 1)
+    return [n, t, scale_chunk, int(topk), int(bool(ef)), int(bool(dc)), encoding,
+            torch.cuda.current_stream(dev).cuda_stream]
+
+
+def wire_stage_compact(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    recon: torch.Tensor,
+    res: torch.Tensor,
+    alpha,
+    scale_chunk: int = 512,
+    error_feedback: bool = True,
+    difference_coding: bool = True,
+    topk=None,
+    bitmap: bool = False,
+    dp_clip=None,
+    dp_noise=None,
+) -> Tuple[torch.Tensor, ...]:
+    """DSGD wire stage with the compact epilogue: ``h = x - alpha * g``,
+    difference coding, EXACT-k selection per (node, chunk) (the k
+    largest |payload|, ties toward the lower index), int8 quantization of
+    the survivors and error feedback, in one kernel launch. Returns (h,
+    q int8 (n, C*k), pos (n, C*k) int16 (int32 for chunks over 32768),
+    scales (n, C), new_recon, new_res); only (q, pos, scales) cross the
+    wire. ``bitmap=True`` (byte-aligned chunks) emits the values in
+    ascending-position order and the packed LSB-first presence bitmap
+    (n, C*chunk/8) uint8 in place of the positions. The DP arguments are
+    not ported and raise."""
+    refuse_unported(dp_clip, dp_noise)
+    n, t = _check_operands("wire_stage_compact", (x, g, recon, res), scale_chunk, None)
+    check_compact(topk, scale_chunk, bitmap)
+    a = _alpha32(alpha)
+    if x.device.type == "cpu":
+        return wire_stage_compact_ref(
+            x, g, recon, res, a, scale_chunk=scale_chunk, error_feedback=error_feedback,
+            difference_coding=difference_coding, topk=topk, bitmap=bitmap)
+    lib = _compact_lib()
+    _check_smem(lib.wire_stage_compact_smem_bytes(scale_chunk, topk),
+                f"chunk {scale_chunk} at topk {topk}")
+    tail = _compact_tail(n, t, scale_chunk, topk, error_feedback, difference_coding,
+                         bitmap, x.device)
+    h = torch.empty_like(x)
+    outs = _compact_outs(x, n, t, scale_chunk, topk, bitmap)
+    with torch.cuda.device(x.device):
+        err = lib.wire_stage_compact_launch(*_ptrs(x, g, recon, res), float(a),
+                                            *_ptrs(h, *outs), *tail)
+    _raise_on(lib, err, "wire_stage_compact")
+    wire_stage_compact.launches += 1
+    return (h, *outs)
+
+
+wire_stage_compact.launches = 0
+
+
+def wire_stage_gt_compact(
+    x: torch.Tensor,
+    t: torch.Tensor,
+    g: torch.Tensor,
+    g_prev: torch.Tensor,
+    recon_x: torch.Tensor,
+    res_x: torch.Tensor,
+    recon_t: torch.Tensor,
+    res_t: torch.Tensor,
+    alpha,
+    scale_chunk: int = 512,
+    error_feedback: bool = True,
+    difference_coding: bool = True,
+    topk=None,
+    bitmap: bool = False,
+    dp_clip=None,
+    dp_noise=None,
+    dp_noise_t=None,
+) -> Tuple[torch.Tensor, ...]:
+    """DSGT wire stage with the compact epilogue on both wires:
+    ``t_half = t + g - g_prev``, ``h = x - alpha * t_half``, then the
+    tracker wire's and the parameter wire's exact-k quantize-EF, in one
+    kernel launch. Returns (h, t_half, q_x, pos_x, scales_x, new_recon_x,
+    new_res_x, q_t, pos_t, scales_t, new_recon_t, new_res_t);
+    ``bitmap`` as in :func:`wire_stage_compact`, on both wires."""
+    refuse_unported(dp_clip, dp_noise if dp_noise is not None else dp_noise_t)
+    bufs = (x, t, g, g_prev, recon_x, res_x, recon_t, res_t)
+    n, tot = _check_operands("wire_stage_gt_compact", bufs, scale_chunk, None)
+    check_compact(topk, scale_chunk, bitmap)
+    a = _alpha32(alpha)
+    if x.device.type == "cpu":
+        return wire_stage_gt_compact_ref(
+            *bufs, a, scale_chunk=scale_chunk, error_feedback=error_feedback,
+            difference_coding=difference_coding, topk=topk, bitmap=bitmap)
+    lib = _compact_lib()
+    _check_smem(lib.wire_stage_compact_smem_bytes(scale_chunk, topk),
+                f"chunk {scale_chunk} at topk {topk}")
+    tail = _compact_tail(n, tot, scale_chunk, topk, error_feedback, difference_coding,
+                         bitmap, x.device)
+    h, t_half = torch.empty_like(x), torch.empty_like(x)
+    outs_x = _compact_outs(x, n, tot, scale_chunk, topk, bitmap)
+    outs_t = _compact_outs(x, n, tot, scale_chunk, topk, bitmap)
+    with torch.cuda.device(x.device):
+        err = lib.wire_stage_gt_compact_launch(
+            *_ptrs(*bufs), float(a), *_ptrs(h, t_half, *outs_x, *outs_t), *tail)
+    _raise_on(lib, err, "wire_stage_gt_compact")
+    wire_stage_gt_compact.launches += 1
+    return (h, t_half, *outs_x, *outs_t)
+
+
+wire_stage_gt_compact.launches = 0

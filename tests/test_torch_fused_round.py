@@ -33,6 +33,7 @@ from repro_torch.configs.ehr_mlp import class_weights  # noqa: E402
 from repro_torch.convert import flat_from_numpy, params_from_numpy  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
     FusedEngine,
+    ShardedFusedEngine,
     engine_names,
     get_engine,
 )
@@ -166,8 +167,9 @@ def test_registry_and_refusals():
     refusals that remain (topology and node programs, privacy, scope,
     bf16 storage)."""
     assert "fused" in engine_names() and get_engine("fused") is FusedEngine
+    assert get_engine("sharded_fused") is ShardedFusedEngine
     with pytest.raises(ValueError, match="unknown engine"):
-        get_engine("sharded_fused")
+        get_engine("mesh_fused")
     with pytest.raises(ValueError, match="wire_dtype"):
         FusedEngine(mixing_matrix("hospital20", N),
                     pack_layout({"p": torch.zeros(N, 1442)}, pad_to=CHUNK),

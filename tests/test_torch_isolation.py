@@ -61,7 +61,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.mixing, repro_torch.core.compression, "
             "repro_torch.training.metrics, repro_torch.benchmarks.fig2_comm_rounds, "
             "repro_torch.serving, repro_torch.launch.serve, "
-            "repro_torch.examples.serve_decode, repro_torch.convert; "
+            "repro_torch.examples.serve_decode, repro_torch.convert, "
+            "repro_torch.launch.mesh; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
