@@ -11,9 +11,10 @@ and the RG-LRU scan under ``kernels/rwkv6_scan`` and
 ``kernels/rglru_scan``; one ``nvcc`` per source, all started together,
 into each package's ``build/``), holds each against its plain PyTorch
 twin on the card (dense and top-k wires; attention at the tests' shapes,
-SmolLM-360M's and RecurrentGemma-2B's head size 256, bf16 and fp32; the
-scans at the reference suite's shapes, S = 1, strong decay and the
-serving paths' shapes), drives the port's paths -- the paper's FD-DSGT on the
+SmolLM-360M's and RecurrentGemma-2B's head size 256, a 4,096-token
+prefill, a 32,768-slot cache split over blocks and merged by the combine
+kernel, bf16 and fp32; the scans at the reference suite's shapes, S = 1,
+strong decay and the serving paths' shapes), drives the port's paths -- the paper's FD-DSGT on the
 fused engine, FD-DSGD, FD-DSGT under bounded staleness k = 2, FD-DSGD at
 k = 4, the pipelined FD-DSGT round, the top-64 wire, the paper's Fig. 2
 (DSGD, DSGT, FD-DSGD and FD-DSGT at Q = 100 on the exact-wire tree
@@ -86,8 +87,15 @@ from repro_torch.examples.ehr_federated import (  # noqa: E402
     run_sharded_engine,
 )
 from repro_torch.kernels import build as kbuild  # noqa: E402
-from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    combine_partials,
+    decode_attention,
+    split_plan,
+)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    combine_partials_ref,
+    decode_attention_ref,
+)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.gossip.ops import (  # noqa: E402
@@ -153,8 +161,9 @@ ATTENTION_KERNELS = {
     # name: (TPU kernel it replaces, source)
     "decode_attention": ("src/repro/kernels/decode_attention/decode_attention.py:80",
                          "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"),
+    # the path runs bf16: the tensor-core kernel (fp32 goes to flash_attention.cu)
     "flash_attention": ("src/repro/kernels/flash_attention/flash_attention.py:113",
-                        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
+                        "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu"),
 }
 SCAN_KERNELS = {
     # name: (TPU kernel it replaces, source)
@@ -602,6 +611,11 @@ DECODE_SHAPES += [
     ("test MQA, hd 256", 3, 150, 10, 1, 256, [0, 150, 77]),
     ("recurrentgemma", 8, 2048, 10, 1, 256, [0, 1, 64, 128, 159, 1000, 2047, 2048]),
     ("recurrentgemma wrapped ring", 8, 2048, 10, 1, 256, [2048] * 8),
+    # a 32,768-slot cache: split over blocks, merged by the combine kernel;
+    # an empty row, one live slot, rows about 4,096, a full row, and the
+    # rows on and after the planned split boundary ("span", "span+1")
+    ("split 32k", 9, 32768, 15, 5, 64,
+     [0, 1, 4095, 4096, 4097, 20000, 32768, "span", "span+1"]),
 ]
 # (label, B, S, H, K, hd, causal, window)
 FLASH_SHAPES = [
@@ -615,6 +629,8 @@ FLASH_SHAPES = [
     ("test window, hd 256", 1, 384, 8, 2, 256, True, 128),
     ("recurrentgemma prefill", 8, 128, 10, 1, 256, True, 2048),
     ("recurrentgemma window 48", 8, 128, 10, 1, 256, True, 48),
+    # a 4,096-token prefill at SmolLM-360M's heads
+    ("smollm 4096", 2, 4096, 15, 5, 64, True, 0),
 ]
 
 
@@ -639,16 +655,25 @@ def check_attention_kernels() -> dict:
             q = torch.randn(b, 1, h, hd, generator=gen, device="cuda").to(dtype)
             k, v = (torch.randn(b, c, kv, hd, generator=gen, device="cuda").to(dtype)
                     for _ in range(2))
+            splits, span = split_plan(q, k)
+            nv = [{"span": span, "span+1": span + 1}.get(n, n) for n in nv]
             n_valid = torch.tensor(nv, dtype=torch.int32, device="cuda")
+            combined = decode_attention.combine_launches
             got = decode_attention(q, k, v, n_valid)
             torch.cuda.synchronize()
+            if decode_attention.combine_launches - combined != int(splits > 1):
+                raise AssertionError(f"decode_attention {label}: {splits} splits but "
+                                     f"{decode_attention.combine_launches - combined} "
+                                     f"combine launches")
             err = _attn_err("decode_attention", label, got, decode_attention_ref(q, k, v, n_valid),
                             dtype)
             if 0 in nv and got[nv.index(0)].any():
                 raise AssertionError(f"decode_attention {label}: n_valid = 0 row not zero")
             max_err["decode_attention"] = max(max_err["decode_attention"], err)
             log(f"  decode_attention == twin at {label} (B {b}, C {c}, H {h}, K {kv}, "
-                f"hd {hd}, n_valid {nv}) {str(dtype)[6:]}: max err {err:.3e}")
+                f"hd {hd}, n_valid {nv}, {splits} split(s) of {span}) {str(dtype)[6:]}: "
+                f"max err {err:.3e}")
+            del q, k, v, got
         for label, b, sq, h, kv, hd, causal, window in FLASH_SHAPES:
             q = torch.randn(b, sq, h, hd, generator=gen, device="cuda").to(dtype)
             k, v = (torch.randn(b, sq, kv, hd, generator=gen, device="cuda").to(dtype)
@@ -661,8 +686,43 @@ def check_attention_kernels() -> dict:
             log(f"  flash_attention == twin at {label} (B {b}, S {sq}, H {h}, K {kv}, "
                 f"hd {hd}, causal {causal}, window {window}) {str(dtype)[6:]}: "
                 f"max err {err:.3e}")
-    torch.cuda.empty_cache()
+            del q, k, v, got
+            torch.cuda.empty_cache()
+    max_err["decode_attention_combine"] = check_combine()
     return max_err
+
+
+def combine_inputs(splits: int, b: int, h: int, hd: int, gen):
+    """Partials of a split decode: fp32 acc (S, B, H, hd) and m, l (2, S,
+    B, H), the last split of every row and all of row 0 empty (m = -inf,
+    l = 0)."""
+    acc = torch.randn(splits, b, h, hd, generator=gen, device="cuda")
+    m = torch.randn(splits, b, h, generator=gen, device="cuda") * 4
+    l = torch.rand(splits, b, h, generator=gen, device="cuda") * 100 + 1
+    for sel in ((-1,), (slice(None), 0)):
+        acc[sel], m[sel], l[sel] = 0.0, float("-inf"), 0.0
+    return acc, torch.stack([m, l]).contiguous()
+
+
+def check_combine() -> float:
+    """The split path's combine kernel against its twin, fp32 within 1e-5
+    and bf16 within 1.6e-2 (relative, as the attention checks), an
+    all-empty row exactly zero."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    for dtype, (splits, b, h, hd) in itertools.product(
+            (torch.bfloat16, torch.float32), ((7, 8, 15, 64), (8, 7, 15, 64), (3, 2, 10, 256))):
+        acc, ml = combine_inputs(splits, b, h, hd, gen)
+        got = combine_partials(acc, ml, torch.empty(b, 1, h, hd, dtype=dtype, device="cuda"))
+        torch.cuda.synchronize()
+        err = _attn_err("decode_attention_combine", f"{splits} splits", got,
+                        combine_partials_ref(acc, ml[0], ml[1], dtype), dtype)
+        if got[0].any():
+            raise AssertionError("decode_attention_combine: an all-empty row is not zero")
+        worst = max(worst, err)
+        log(f"  decode_attention_combine == twin at {splits} splits (B {b}, H {h}, hd {hd}) "
+            f"{str(dtype)[6:]}: max err {err:.3e}")
+    return worst
 
 
 # WKV-6 cases: (label, B, S, H, decay): the reference suite's shapes
@@ -770,6 +830,7 @@ def check_scan_kernels() -> dict:
 def zero_counts() -> None:
     for wrapper in WRAPPERS:
         wrapper.launches = 0
+    decode_attention.combine_launches = 0
 
 
 def expect_launches(what: str, **want: int) -> None:
@@ -777,7 +838,8 @@ def expect_launches(what: str, **want: int) -> None:
     the ones not named)."""
     torch.cuda.synchronize()
     got = {w.__name__: w.launches for w in WRAPPERS}
-    full = {w.__name__: want.get(w.__name__, 0) for w in WRAPPERS}
+    got["decode_attention_combine"] = decode_attention.combine_launches
+    full = {name: want.get(name, 0) for name in got}
     if got != full:
         raise AssertionError(f"{what}: launches {got}, want {full}")
 
@@ -1238,8 +1300,9 @@ def serving_path() -> dict:
         f"({time.perf_counter() - t0:.1f} s): per-step logits within {worst:.3e} of their "
         f"scale (tolerance {SERVE_LOGIT_TOL})")
     del cpu_params, cpu, replay
+    # a 4096-slot cache is one split: expect_launches held the combine at 0
     return {"decode_attention": cfg.n_layers * steps, "flash_attention": cfg.n_layers,
-            "engine": engine, "prompts": prompts, "gen_s": gen_s}
+            "decode_attention_combine": 0, "engine": engine, "prompts": prompts, "gen_s": gen_s}
 
 
 def _argmax_agree(what: str, got: torch.Tensor, want: torch.Tensor) -> str:
@@ -1587,6 +1650,7 @@ def attention_timings(card: str) -> dict:
             device_ms(lib), nbytes, 4 * b * h * live * hd)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+    rows[("decode_attention_combine", "large")] = combine_timing(card, gen)
     for label, b, sq, h, kv, hd, window in (
             ("path", SERVE_BATCH, SERVE_PROMPT, 15, 5, 64, 0),
             ("large", 2, 4096, 15, 5, 64, 0),
@@ -1613,6 +1677,30 @@ def attention_timings(card: str) -> dict:
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return rows
+
+
+def combine_timing(card: str, gen) -> dict:
+    """The combine kernel alone on the partials of the large decode shape
+    (B 8, 15 q-heads, hd 64, 32,768 slots: the wrapper's split count),
+    beside its twin; no PyTorch call computes it. Bound: its bytes (the
+    fp32 partials read once, the bf16 output written once)."""
+    b, c, h, kv, hd = 8, 32768, 15, 5, 64
+    splits, _ = split_plan(torch.empty(b, 1, h, hd, dtype=torch.bfloat16, device="cuda"),
+                           torch.empty(b, c, kv, hd, dtype=torch.bfloat16, device="cuda"))
+    acc, ml = combine_inputs(splits, b, h, hd, gen)
+    out = torch.empty(b, 1, h, hd, dtype=torch.bfloat16, device="cuda")
+    k_ms = device_ms(lambda: combine_partials(acc, ml, out))
+    t_ms = device_ms(lambda: combine_partials_ref(acc, ml[0], ml[1], torch.bfloat16))
+    nbytes = 4 * (acc.numel() + ml.numel()) + 2 * out.numel()
+    ops = 3 * acc.numel()  # a weight, a multiply-add of acc, one of l
+    bytes_s, ops_s = nbytes / HBM_BYTES_S, ops / FP32_OPS_S
+    bound_ms = max(bytes_s, ops_s) * 1e3
+    bound_by = "bytes" if bytes_s >= ops_s else "operations"
+    log(f"  decode_attention_combine large ({splits} splits, B {b}, H {h}, hd {hd}): "
+        f"kernel {k_ms * 1e3:.2f} us, twin {t_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} "
+        f"us by {bound_by} ({nbytes / 1e6:.3f} MB), {bound_ms / k_ms:.1%} of bound [{card}]")
+    return dict(ms=k_ms, plain_ms=t_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def scan_row(card: str, name: str, label: str, shape: str, k_ms: float, t_ms: float,
@@ -1723,6 +1811,31 @@ def ptxas_summary(lib) -> str:
             f"to {max(spills)} B, static shared memory up to {max(smem)} B")
 
 
+# the libraries whose every kernel's registers and spills phase 1 prints
+PTXAS_DETAIL = ("flash_attention_tc", "decode_attention")
+
+
+def ptxas_kernels(lib) -> list:
+    """Each kernel of a library's ``-Xptxas -v`` report: (name, registers,
+    spill store bytes, spill load bytes), the name demangled where
+    ``c++filt`` is at hand."""
+    rows = []
+    for block in lib.with_suffix(".log").read_text().split("Compiling entry function")[1:]:
+        name = re.search(r"'(\S+)'", block).group(1)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        rows.append([name, int(regs.group(1)) if regs else -1,
+                     *(int(x) for x in (spill.groups() if spill else (-1, -1)))])
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=30).stdout.split("\n")
+        for row, name in zip(rows, names):
+            row[0] = re.sub(r"\(.*", "", name.replace("(anonymous namespace)::", "")) or row[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [tuple(r) for r in rows]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1739,6 +1852,10 @@ def main() -> int:
     log(f"  built {sorted(name for _, name in libs)} in {time.perf_counter() - t0:.1f} s")
     for (_, name), lib in sorted(libs.items()):
         log(f"    ptxas {name}: {ptxas_summary(lib)}")
+        if name in PTXAS_DETAIL:
+            for kernel, regs, spill_st, spill_ld in ptxas_kernels(lib):
+                log(f"      {kernel}: {regs} registers, spill stores {spill_st} B, "
+                    f"spill loads {spill_ld} B")
 
     log("phase 2: kernels vs twins on the card")
     max_err = {**check_gossip_mix(), **check_kernels(), **check_wire_stages(),
@@ -1756,7 +1873,8 @@ def main() -> int:
     sharded_quadratic(group)
     serve = serving_path()
     launches.update(decode_attention=serve["decode_attention"],
-                    flash_attention=serve["flash_attention"])
+                    flash_attention=serve["flash_attention"],
+                    decode_attention_combine=serve["decode_attention_combine"])
     recurrent = {}
     for arch in RECURRENT_ARCHS:
         log(f"  -- {arch}")
@@ -1806,6 +1924,21 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    # decode's second kernel, part of decode_attention: it runs only on a
+    # cache of more than 4,096 slots, so the serving paths launch it no
+    # time (their count, 0, is held by expect_launches); timed at the
+    # large shape's partials
+    row = rows[("decode_attention_combine", "large")]
+    decode_row = next(k for k in kernels if k["name"] == "decode_attention")
+    decode_row["parts"] = [{
+        "name": "decode_attention_combine", "route": "cuda",
+        "source": ATTENTION_KERNELS["decode_attention"][1],
+        "replaces": ATTENTION_KERNELS["decode_attention"][0],
+        "launches": launches["decode_attention_combine"],
+        "max_abs_err": max_err["decode_attention_combine"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+    }]
     for name, (replaces, source) in SCAN_KERNELS.items():
         row = rows[(name, "path decode")]
         kernels.append({

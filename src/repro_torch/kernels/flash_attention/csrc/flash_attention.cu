@@ -1,20 +1,20 @@
-// Prefill (full-sequence) attention with an online softmax, for Hopper
-// (sm_90a).
+// Prefill (full-sequence) attention in float32 with an online softmax,
+// for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py:113  flash_attention_bhsd
-// and computes its function: causal and/or sliding-window self-attention
+// for float32 inputs (bfloat16 inputs, what serving runs, go to the
+// tensor-core kernel in flash_attention_tc.cu) and computes its function:
+// causal and/or sliding-window self-attention
 // (q and k positions both counted from 0; key j is live for query i when
 // j <= i and j > i - window), GQA with un-repeated K/V (q-head h reads
 // kv-head h / (H / K)), fp32 scores, softmax and accumulation with scale
-// hd^-0.5, the output in q's type; a row with no live key gives zeros.
-// Held to the PyTorch twin in ../ref.py.
+// hd^-0.5; a row with no live key gives zeros. Held to the PyTorch twin
+// in ../ref.py within 1e-5: every product and sum is fp32, which is why
+// this path stays off the bf16 tensor cores.
 //
-// Bound: at the prefill lengths the model serves, operations (4 hd flops
-// per live (query, key) pair against 2 hd x 2 bytes of K/V per key tile
-// re-read per query tile); the card's bound for them is its bf16
-// tensor-core rate. This kernel runs on the CUDA cores in fp32, so it is
-// far from that bound: tensor cores (mma / wgmma) are later work.
+// Bound: operations (4 hd flops per live (query, key) pair against 2 hd
+// x 4 bytes of K/V per key); for fp32 on the CUDA cores, 67 TFLOP/s.
 //
 // Design (simple and right first):
 //   * Inputs stay in the model layout: q (B, Sq, H, hd), k/v (B, Sk, K,
@@ -26,16 +26,15 @@
 //   * The block walks the K/V tiles of 64 keys that can hold a live key
 //     -- tiles wholly above the causal diagonal or left of the window
 //     are skipped, as the TPU kernel skips them -- staging each tile in
-//     shared memory as fp32 (zero past Sk, so a masked p never meets
-//     garbage). Scores are reduced over the 4 threads by shuffles; each
-//     thread keeps every 4th score of the tile for the max, the sum and
-//     exp, and P·V broadcasts them back by shuffles.
+//     shared memory (zero past Sk, so a masked p never meets garbage).
+//     The masks are template flags. Scores are reduced over the 4 threads
+//     by shuffles; each thread keeps every 4th score of the tile for the
+//     max, the sum and exp, and P·V broadcasts them back by shuffles.
 //   * Rows past Sq (a tail tile) compute nothing that is written.
 //   * At hd 256 the K/V tiles take 128 KB of shared memory (one block per
 //     SM) and each thread keeps 64 floats of q and 64 of acc; ptxas's
 //     register and spill counts for it are in the build's .log.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -47,30 +46,14 @@ constexpr int kRowThreads = 4;  // threads per query row
 constexpr int kThreads = kBlockQ * kRowThreads;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <class T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 size_t smem_bytes(int hd) { return 2 * sizeof(float) * kBlockK * hd; }
 
 // grid (ceil(Sq / kBlockQ), B * H); block kThreads; dynamic shared
 // memory: the K and V tiles, kBlockK x HD fp32 each.
-template <class T, int HD, bool CAUSAL, bool WINDOW>
+template <int HD, bool CAUSAL, bool WINDOW>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int Sq,
+    flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ out, int Sq,
                            int Sk, int H, int n_kv, int window, float scale) {
   constexpr int NC = HD / 16;                   // float4 chunks per thread
   constexpr int NS = kBlockK / kRowThreads;     // scores kept per thread
@@ -90,20 +73,20 @@ __global__ void __launch_bounds__(kThreads)
 
   // this thread's dims: d(c, e) = c * 16 + sub * 4 + e
   float qr[NC][4], acc[NC][4];
-  const T* q_row = q + ((static_cast<size_t>(b) * Sq + qpos) * H + h) * HD;
+  const float* q_row = q + ((static_cast<size_t>(b) * Sq + qpos) * H + h) * HD;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      qr[c][e] = q_live ? to_float(q_row[c * 16 + sub * 4 + e]) : 0.f;
+      qr[c][e] = q_live ? q_row[c * 16 + sub * 4 + e] : 0.f;
       acc[c][e] = 0.f;
     }
   }
   float m = -CUDART_INF_F, l = 0.f;
 
   const size_t kv_row = static_cast<size_t>(n_kv) * HD;
-  const T* k_b = k + static_cast<size_t>(b) * Sk * kv_row + kvh * HD;
-  const T* v_b = v + static_cast<size_t>(b) * Sk * kv_row + kvh * HD;
+  const float* k_b = k + static_cast<size_t>(b) * Sk * kv_row + kvh * HD;
+  const float* v_b = v + static_cast<size_t>(b) * Sk * kv_row + kvh * HD;
 
   // the K/V tiles that can hold a live key for some row of this q tile
   const int q_hi = min(q_lo + kBlockQ, Sq) - 1;
@@ -120,8 +103,8 @@ __global__ void __launch_bounds__(kThreads)
       const int d = i % HD;
       const bool ok = k_lo + j < Sk;
       const size_t off = static_cast<size_t>(k_lo + j) * kv_row + d;
-      k_s[i] = ok ? to_float(k_b[off]) : 0.f;
-      v_s[i] = ok ? to_float(v_b[off]) : 0.f;
+      k_s[i] = ok ? k_b[off] : 0.f;
+      v_s[i] = ok ? v_b[off] : 0.f;
     }
     __syncthreads();
 
@@ -188,58 +171,45 @@ __global__ void __launch_bounds__(kThreads)
 
   if (q_live) {
     const float denom = l > 0.f ? l : 1.f;
-    T* o_row = out + ((static_cast<size_t>(b) * Sq + qpos) * H + h) * HD;
+    float* o_row = out + ((static_cast<size_t>(b) * Sq + qpos) * H + h) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        o_row[c * 16 + sub * 4 + e] = from_float<T>(acc[c][e] / denom);
+        o_row[c * 16 + sub * 4 + e] = acc[c][e] / denom;
       }
     }
   }
 }
 
-template <class T, int HD, bool CAUSAL, bool WINDOW>
+template <int HD, bool CAUSAL, bool WINDOW>
 cudaError_t launch_one(const void* q, const void* k, const void* v, void* out,
                        int B, int Sq, int Sk, int H, int n_kv, int window,
                        float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, HD, CAUSAL, WINDOW>;
+  auto kernel = flash_attention_kernel<HD, CAUSAL, WINDOW>;
   const size_t smem = smem_bytes(HD);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, n_kv, window,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, n_kv, window,
       scale);
   return cudaGetLastError();
 }
 
-template <class T, int HD>
+template <int HD>
 cudaError_t launch_flags(const void* q, const void* k, const void* v, void* out,
                          int B, int Sq, int Sk, int H, int n_kv, int causal,
                          int window, float scale, cudaStream_t stream) {
   if (causal && window > 0)
-    return launch_one<T, HD, true, true>(q, k, v, out, B, Sq, Sk, H, n_kv, window, scale, stream);
+    return launch_one<HD, true, true>(q, k, v, out, B, Sq, Sk, H, n_kv, window, scale, stream);
   if (causal)
-    return launch_one<T, HD, true, false>(q, k, v, out, B, Sq, Sk, H, n_kv, 0, scale, stream);
+    return launch_one<HD, true, false>(q, k, v, out, B, Sq, Sk, H, n_kv, 0, scale, stream);
   if (window > 0)
-    return launch_one<T, HD, false, true>(q, k, v, out, B, Sq, Sk, H, n_kv, window, scale, stream);
-  return launch_one<T, HD, false, false>(q, k, v, out, B, Sq, Sk, H, n_kv, 0, scale, stream);
-}
-
-template <class T>
-cudaError_t launch_type(const void* q, const void* k, const void* v, void* out,
-                        int B, int Sq, int Sk, int H, int n_kv, int hd,
-                        int causal, int window, float scale, cudaStream_t stream) {
-  if (hd == 64)
-    return launch_flags<T, 64>(q, k, v, out, B, Sq, Sk, H, n_kv, causal, window, scale, stream);
-  if (hd == 128)
-    return launch_flags<T, 128>(q, k, v, out, B, Sq, Sk, H, n_kv, causal, window, scale, stream);
-  if (hd == 256)
-    return launch_flags<T, 256>(q, k, v, out, B, Sq, Sk, H, n_kv, causal, window, scale, stream);
-  return cudaErrorInvalidValue;
+    return launch_one<HD, false, true>(q, k, v, out, B, Sq, Sk, H, n_kv, window, scale, stream);
+  return launch_one<HD, false, false>(q, k, v, out, B, Sq, Sk, H, n_kv, 0, scale, stream);
 }
 
 }  // namespace
@@ -253,21 +223,21 @@ const char* flash_attention_error_string(int err) {
 // Dynamic shared memory one block takes at head size hd.
 size_t flash_attention_smem_bytes(int hd) { return smem_bytes(hd); }
 
-// q (B, Sq, H, hd), k/v (B, Sk, n_kv, hd), out (B, Sq, H, hd), all of one
-// type (dtype 0: fp32, 1: bf16), contiguous; H a multiple of n_kv; hd 64,
-// 128 or 256; window 0 for none. Launches on `stream`, returns
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported hd/dtype).
+// q (B, Sq, H, hd), k/v (B, Sk, n_kv, hd), out (B, Sq, H, hd), all
+// float32, contiguous; H a multiple of n_kv; hd 64, 128 or 256; window 0
+// for none. Launches on `stream`, returns cudaGetLastError()
+// (cudaErrorInvalidValue for an unsupported hd).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int Sq, int Sk, int H, int n_kv,
-                           int hd, int dtype, int causal, int window,
-                           float scale, void* stream) {
+                           int hd, int causal, int window, float scale,
+                           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_type<float>(q, k, v, out, B, Sq, Sk, H, n_kv, hd, causal, window,
-                              scale, s);
-  if (dtype == 1)
-    return launch_type<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, n_kv, hd, causal,
-                                      window, scale, s);
+  if (hd == 64)
+    return launch_flags<64>(q, k, v, out, B, Sq, Sk, H, n_kv, causal, window, scale, s);
+  if (hd == 128)
+    return launch_flags<128>(q, k, v, out, B, Sq, Sk, H, n_kv, causal, window, scale, s);
+  if (hd == 256)
+    return launch_flags<256>(q, k, v, out, B, Sq, Sk, H, n_kv, causal, window, scale, s);
   return cudaErrorInvalidValue;
 }
 

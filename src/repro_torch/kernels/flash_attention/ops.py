@@ -1,13 +1,14 @@
 """Dispatch for the flash-attention kernel (counterpart of
 ``repro.kernels.flash_attention.ops``), in the model layout.
 
-CPU tensors go to the plain PyTorch twin (``ref.py``), CUDA tensors to
-the hand-written kernel in ``csrc/flash_attention.cu`` -- there is no
-switch and no fallback: a CUDA call that cannot launch raises. The
-wrapper allocates the output, launches on the current stream without
-synchronizing, and raises if the launch reports an error. It counts its
-kernel launches in ``flash_attention.launches`` (twin calls do not
-count).
+CPU tensors go to the plain PyTorch twin (``ref.py``), CUDA tensors to a
+hand-written kernel chosen by dtype: bfloat16 (what serving runs) to the
+tensor-core kernel in ``csrc/flash_attention_tc.cu``, float32 to the
+fp32 kernel in ``csrc/flash_attention.cu``. There is no switch and no
+fallback: a CUDA call that cannot launch raises. The wrapper allocates
+the output, launches on the current stream without synchronizing, and
+raises if the launch reports an error. It counts the launches of both
+kernels in ``flash_attention.launches`` (twin calls do not count).
 """
 
 from __future__ import annotations
@@ -21,29 +22,41 @@ import torch
 from repro_torch.kernels.build import BASE_FLAGS, KernelLibraries
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["flash_attention", "HEAD_DIMS", "LIBS", "SMEM_LIMIT_BYTES"]
+__all__ = ["flash_attention", "check_kernel_operands", "HEAD_DIMS", "LIBS", "SOURCES",
+           "SMEM_LIMIT_BYTES"]
 
 LIBS = KernelLibraries(Path(__file__).resolve().parent, BASE_FLAGS)
 #: head sizes the kernel is instantiated for
 HEAD_DIMS = (64, 128, 256)
 #: dynamic shared memory one Hopper block may opt in to (227 KB)
 SMEM_LIMIT_BYTES = 232448
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the library (``csrc/<name>.cu``) that serves each dtype on the card
+SOURCES = {torch.bfloat16: "flash_attention_tc", torch.float32: "flash_attention"}
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """The built library with its C signatures declared (pointers and the
-    stream as void*, so ctypes never truncates them)."""
-    lib = LIBS.load("flash_attention")
-    lib.flash_attention_launch.argtypes = [_P] * 4 + [_I] * 9 + [_F, _P]
-    lib.flash_attention_launch.restype = _I
-    lib.flash_attention_smem_bytes.argtypes = [_I]
-    lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
-    lib.flash_attention_error_string.argtypes = [_I]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+def _kernel(name: str) -> tuple:
+    """``(launch, smem_bytes, error_string)`` of the built library ``name``,
+    with their C signatures declared (pointers and the stream as void*, so
+    ctypes never truncates them). Both libraries' launch takes (q, k, v,
+    out, B, Sq, Sk, H, K, hd, causal, window, scale, stream)."""
+    lib = LIBS.load(name)
+    launch, smem, error = (getattr(lib, f"{name}_{fn}")
+                           for fn in ("launch", "smem_bytes", "error_string"))
+    launch.argtypes, launch.restype = [_P] * 4 + [_I] * 8 + [_F, _P], _I
+    smem.argtypes, smem.restype = [_I], ctypes.c_size_t
+    error.argtypes, error.restype = [_I], ctypes.c_char_p
+    return launch, smem, error
+
+
+def check_kernel_operands(**tensors: torch.Tensor) -> None:
+    """The kernels read whole 16-byte chunks: every operand must be
+    contiguous and start on a 16-byte boundary."""
+    for name, t in tensors.items():
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be contiguous and "
+                             f"16-byte aligned")
 
 
 def _check(q, k, v, window):
@@ -65,7 +78,7 @@ def _check(q, k, v, window):
             raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in SOURCES:
         raise TypeError(f"flash_attention: {q.dtype} is not float32 or bfloat16")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: tensors on {q.device} are not supported")
@@ -82,26 +95,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
+    check_kernel_operands(q=q, k=k, v=v)
     b, sq, h, hd = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
-    lib = _lib()
-    smem = lib.flash_attention_smem_bytes(hd)
+    launch, smem_bytes, error = _kernel(SOURCES[q.dtype])
+    smem = smem_bytes(hd)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"flash_attention: head size {hd} needs {smem} B of "
                          f"shared memory, over {SMEM_LIMIT_BYTES}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h,
-            n_kv, hd, _DTYPES[q.dtype], int(bool(causal)), int(window), hd ** -0.5,
-            stream)
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+                     h, n_kv, hd, int(bool(causal)), int(window), hd ** -0.5, stream)
     if err != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           + lib.flash_attention_error_string(err).decode())
+        raise RuntimeError(f"{SOURCES[q.dtype]} kernel launch failed: "
+                           + error(err).decode())
     flash_attention.launches += 1
     return out
 

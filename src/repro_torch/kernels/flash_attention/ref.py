@@ -6,6 +6,11 @@ it on the card. It takes the model layout the kernel takes -- q (B, Sq,
 H, hd), k and v (B, Sk, K, hd) with K dividing H, not repeated -- where
 the reference's oracle takes the folded (B·H, S, hd) layout; the
 function is the same.
+
+The twin keeps the probabilities in fp32, as the Pallas kernel does. The
+bf16 tensor-core kernel (``csrc/flash_attention_tc.cu``) rounds P to bf16
+for the P·V product and sums l from the same rounded P, which moves an
+output by at most 2^-9 max|v|, inside the bf16 tolerance.
 """
 
 from __future__ import annotations

@@ -10,7 +10,12 @@
   skip without one; ``python -m pytest -q -m cuda
   tests/test_torch_attention_kernels.py`` runs them there, where JAX is
   not needed).
-* The wrappers' refusals.
+* The split-KV path of decode: ``decode_attention_split_ref`` (fp32
+  partials per span, merged by ``combine_partials_ref``, the combine
+  kernel's twin) against the unsplit twin and the Pallas kernel, with
+  n_valid 0, 1, on a split boundary and at capacity, and splits with no
+  live slot; ``plan_splits``, the host-side plan of the split.
+* The wrappers' dtype dispatch and refusals.
 
 Tolerances, as ``|got - want| <= tol x (1 + |want|)``: fp32 1e-5 (both
 sides accumulate in fp32, in another order); bf16 1.6e-2 -- inputs and
@@ -24,7 +29,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    combine_partials_ref,
+    decode_attention_ref,
+    decode_attention_split_ref,
+)
 from repro_torch.kernels.flash_attention import ops as fl_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 
@@ -96,16 +105,17 @@ def _torch(a, dtype, device="cpu"):
     return torch.tensor(np.asarray(a, np.float32), device=device).to(getattr(torch, dtype))
 
 
-def _decode_inputs(case, seed):
-    """q (B,1,H,hd), caches (B,C,K,hd) in fp32 numpy, and n_valid with a
-    0 row, a full row and one in between."""
-    b, h, kv, c, hd, _ = case
+def _decode_inputs(case, seed, n_valid=None):
+    """q (B,1,H,hd), caches (B,C,K,hd) in fp32 numpy, and n_valid: as
+    given, else a 0 row, a full row and one in between."""
+    b, h, kv, c, hd = case[:5]
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(b, 1, h, hd)).astype(np.float32)
     k = rng.normal(size=(b, c, kv, hd)).astype(np.float32)
     v = rng.normal(size=(b, c, kv, hd)).astype(np.float32)
-    n_valid = np.asarray([0, c, int(rng.integers(1, c))][:b], np.int32)
-    return q, k, v, n_valid
+    if n_valid is None:
+        n_valid = [0, c, int(rng.integers(1, c))][:b]
+    return q, k, v, np.asarray(n_valid, np.int32)
 
 
 def _fold(x):
@@ -217,6 +227,137 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fl_ops.flash_attention(x, x, x, window=-1)
 
 
+H100_SMS = 132  # an H100 SXM's SMs, for the split plan
+SPLIT_CASES = [
+    # (b, h, kv, cache_len, hd, span, n_valid, block_c of the Pallas kernel)
+    # GQA 1, span 64: a row on the first boundary, one with 1 live slot
+    # (three splits with none), one at capacity
+    (4, 4, 4, 256, 64, 64, [0, 1, 64, 256], 64),
+    # GQA 3: the rows either side of the boundary at 128
+    (4, 15, 5, 200, 64, 128, [0, 128, 129, 200], 64),
+    # hd 128, a span longer than the cache: one split
+    (2, 8, 2, 130, 128, 192, [130, 5], 64),
+    # hd 256, RecurrentGemma's MQA (10 q-heads over 1 kv head)
+    (3, 10, 1, 150, 256, 64, [0, 64, 150], 64),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[str(c[:6]) for c in SPLIT_CASES])
+def test_split_twin_matches_unsplit_twin_and_pallas(case, dtype, jax_kernels):
+    import jax.numpy as jnp
+
+    decode_attention_bhd = jax_kernels[0]
+    b, h, kv, c, hd, span, _, block_c = case
+    q, k, v, n_valid = _decode_inputs(case, seed=c + span, n_valid=case[6])
+    args = (_torch(q, dtype), _torch(k, dtype), _torch(v, dtype), torch.tensor(n_valid))
+    got = decode_attention_split_ref(*args, span=span).float().numpy()
+    _close(got, decode_attention_ref(*args).float().numpy(), dtype)
+    jd = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(_fold(a)).astype(jd) for a in (q, k, v))
+    pallas = decode_attention_bhd(jq, jk, jv, jnp.asarray(n_valid), n_q_heads=h,
+                                  n_kv_heads=kv, block_c=block_c, interpret=True)
+    _close(got, _unfold(pallas, b), dtype)
+    for row in np.flatnonzero(n_valid == 0):
+        assert not got[row].any(), "a row with n_valid = 0 must give zeros"
+
+
+@pytest.mark.parametrize("span", [64, 128, 192, 320, 4096])
+def test_split_twin_at_every_span_equals_the_unsplit_twin(span):
+    """fp32, one cache of 300 slots, every live count from 0 to capacity
+    in steps that land on, before and after the span's boundaries."""
+    case = (8, 6, 2, 300, 64, span, [0, 1, 63, 64, 65, 191, 299, 300], 64)
+    q, k, v, n_valid = _decode_inputs(case, seed=span, n_valid=case[6])
+    args = (_torch(q, "float32"), _torch(k, "float32"), _torch(v, "float32"),
+            torch.tensor(n_valid))
+    _close(decode_attention_split_ref(*args, span=span).numpy(),
+           decode_attention_ref(*args).numpy(), "float32")
+
+
+def test_combine_twin_guards_empty_splits_and_empty_rows():
+    """A split with m = -inf and l = 0 weighs nothing; a row whose every
+    split is empty gives zeros, not NaN."""
+    acc = torch.tensor([[[[2.0, 4.0]]], [[[0.0, 0.0]]], [[[3.0, 3.0]]]])  # (3, 1, 1, 2)
+    m = torch.tensor([[[0.5]], [[float("-inf")]], [[0.5]]])
+    l = torch.tensor([[[1.0]], [[0.0]], [[2.0]]])
+    out = combine_partials_ref(acc, m, l, torch.float32)
+    torch.testing.assert_close(out, torch.tensor([[[[5 / 3, 7 / 3]]]]))
+    empty = combine_partials_ref(torch.zeros(2, 1, 1, 2), torch.full((2, 1, 1), float("-inf")),
+                                 torch.zeros(2, 1, 1), torch.bfloat16)
+    assert empty.dtype == torch.bfloat16 and not empty.any()
+
+
+@pytest.mark.parametrize("c", [1, 300, 2048, 4095, 4096, 4097, 8192, 32768, 100_000, 1 << 20])
+@pytest.mark.parametrize("b,n_kv,group", [(1, 1, 1), (8, 5, 3), (8, 1, 10), (1, 4, 8)])
+def test_plan_splits_covers_the_cache_in_aligned_spans(c, b, n_kv, group):
+    splits, span = dec_ops.plan_splits(b, c, n_kv, group, H100_SMS)
+    assert splits >= 1 and splits * span >= c and (splits - 1) * span < c
+    assert span % dec_ops.SPAN_ALIGN == 0
+    if c <= dec_ops.MIN_SPAN:
+        assert splits == 1
+    else:
+        assert span >= dec_ops.MIN_SPAN or splits == 1
+
+
+def test_plan_splits_fills_the_card_in_whole_waves_on_a_long_cache():
+    """SmolLM-360M's attention (5 kv heads, groups of 3) at batch 8 over
+    32,768 slots. Where an SM holds 3 split blocks, 8 splits give 320
+    blocks, at least two per SM, in one wave; where it holds 2, a grid of
+    at least 264 blocks would spill a few blocks into a second wave, so
+    the plan takes the most splits that fit one wave: 6 (240 blocks). The
+    serving paths' caches stay one split."""
+    per_block = 8 * 5 * 1  # B x K x ceil(group / group_tile), one q-head tile
+    assert dec_ops.group_tile(3) >= 3
+    for per_sm, want in ((3, (8, 4096)), (2, (6, 5504))):
+        splits, span = dec_ops.plan_splits(8, 32768, 5, 3, H100_SMS, per_sm)
+        assert (splits, span) == want
+        slots = H100_SMS * per_sm
+        assert per_block * splits <= slots
+        assert per_block * (splits + 1) > slots or splits == 32768 // dec_ops.MIN_SPAN
+    assert per_block * 8 >= 2 * H100_SMS
+    assert dec_ops.plan_splits(8, 4096, 5, 3, H100_SMS)[0] == 1
+    assert dec_ops.plan_splits(8, 2048, 1, 10, H100_SMS, 2, 256)[0] == 1
+
+
+def test_group_tile_holds_the_group_up_to_eight_or_four_at_hd_256():
+    groups = (1, 2, 3, 4, 5, 8, 10, 16)
+    assert [dec_ops.group_tile(g) for g in groups] == [1, 2, 4, 4, 8, 8, 8, 8]
+    assert [dec_ops.group_tile(g, 256) for g in groups] == [1, 2, 4, 4, 4, 4, 4, 4]
+
+
+def test_flash_wrapper_dispatches_each_dtype_to_its_source():
+    assert fl_ops.SOURCES == {torch.bfloat16: "flash_attention_tc",
+                              torch.float32: "flash_attention"}
+    assert set(fl_ops.LIBS.names()) == set(fl_ops.SOURCES.values())
+
+
+def test_flash_wrapper_refuses_operands_it_cannot_copy_in_16_byte_chunks():
+    ok = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
+    fl_ops.check_kernel_operands(q=ok, k=ok, v=ok)
+    shifted = torch.zeros(1 + ok.numel(), dtype=torch.bfloat16)[1:].view(ok.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="k must be contiguous and 16-byte aligned"):
+        fl_ops.check_kernel_operands(q=ok, k=shifted, v=ok)
+    with pytest.raises(ValueError, match="q must be contiguous"):
+        fl_ops.check_kernel_operands(q=ok.transpose(1, 2), k=ok, v=ok)
+
+
+def test_combine_wrapper_dispatches_cpu_tensors_to_its_twin():
+    rng = np.random.default_rng(0)
+    acc = torch.tensor(rng.normal(size=(3, 2, 4, 64)), dtype=torch.float32)
+    m = torch.tensor(rng.normal(size=(3, 2, 4)), dtype=torch.float32)
+    m[1, 0] = float("-inf")
+    l = torch.tensor(rng.uniform(0.5, 2.0, size=(3, 2, 4)), dtype=torch.float32)
+    l[1, 0] = 0.0
+    before = dec_ops.decode_attention.combine_launches
+    out = dec_ops.combine_partials(acc, torch.stack([m, l]), torch.empty(2, 1, 4, 64))
+    torch.testing.assert_close(out, combine_partials_ref(acc, m, l, torch.float32),
+                               rtol=0, atol=0)
+    assert dec_ops.decode_attention.combine_launches == before
+    with pytest.raises(ValueError, match="combine_partials"):
+        dec_ops.combine_partials(acc, torch.stack([m, l])[:, :2], torch.empty(2, 1, 4, 64))
+
+
 # ---------------------------------------------------------------- the card
 
 
@@ -251,3 +392,60 @@ def test_flash_kernel_matches_twin_on_card(case, dtype, cuda):
     assert fl_ops.flash_attention.launches == before + 1
     want = attention_ref(q, k, v, causal=causal, window=window)
     _close(got.float().cpu(), want.float().cpu(), dtype)
+
+
+# bf16 goes to the tensor-core kernel: the long sequences it is for, at
+# every head size, causal and window-only (b, h, kv, seq, hd, causal,
+# window)
+TC_FLASH_CASES = [
+    (1, 4, 2, 4096, 64, True, 0),
+    (1, 4, 2, 4096, 128, True, 0),
+    (1, 2, 1, 4096, 256, True, 0),
+    (1, 4, 2, 1000, 128, False, 300),
+    (1, 10, 1, 777, 256, False, 100),
+    (2, 15, 5, 4096, 64, True, 1000),
+    # enough q tiles at hd 64 for two 16-row m-tiles a warp, ragged
+    (4, 16, 4, 1000, 64, False, 300),
+    (3, 16, 8, 1000, 64, True, 100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_FLASH_CASES, ids=[str(c) for c in TC_FLASH_CASES])
+def test_tensor_core_flash_matches_twin_on_card(case, cuda):
+    b, h, kv, s, hd, causal, window = case
+    rng = np.random.default_rng(s + hd)
+    q = _torch(rng.normal(size=(b, s, h, hd)), "bfloat16", cuda)
+    k = _torch(rng.normal(size=(b, s, kv, hd)), "bfloat16", cuda)
+    v = _torch(rng.normal(size=(b, s, kv, hd)), "bfloat16", cuda)
+    before = fl_ops.flash_attention.launches
+    got = fl_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fl_ops.flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    _close(got.float().cpu(), want.float().cpu(), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_path_matches_twin_on_card(dtype, cuda):
+    """A 32,768-slot cache splits over blocks and the combine kernel
+    merges them; one batch holds an empty row, one live slot, rows about
+    4,096, the rows either side of the planned split boundary, and a full
+    row."""
+    b, h, kv, c, hd = 9, 15, 5, 32768, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(b, 1, h, hd, generator=gen, device=cuda).to(getattr(torch, dtype))
+    k, v = (torch.randn(b, c, kv, hd, generator=gen, device=cuda).to(q.dtype)
+            for _ in range(2))
+    splits, span = dec_ops.split_plan(q, k)
+    assert splits > 1
+    n_valid = [0, 1, 4095, 4096, 4097, 20000, 32768, span, span + 1]
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=cuda)
+    before = (dec_ops.decode_attention.launches, dec_ops.decode_attention.combine_launches)
+    got = dec_ops.decode_attention(q, k, v, nv)
+    torch.cuda.synchronize()
+    assert (dec_ops.decode_attention.launches,
+            dec_ops.decode_attention.combine_launches) == (before[0] + 1, before[1] + 1)
+    _close(got.float().cpu(), decode_attention_ref(q, k, v, nv).float().cpu(), dtype)
+    assert not got[0].any()
