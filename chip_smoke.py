@@ -14,7 +14,8 @@ twin on the card (dense and top-k wires; attention at the tests' shapes,
 SmolLM-360M's and RecurrentGemma-2B's head size 256, a 4,096-token
 prefill, a 32,768-slot cache split over blocks and merged by the combine
 kernel, bf16 and fp32; the scans at the reference suite's shapes, S = 1,
-strong decay and the serving paths' shapes), drives the port's paths -- the paper's FD-DSGT on the
+either side of WKV-6's 16-step chunk, strong decay, S 4096, ragged RG-LRU
+widths and lengths and the serving paths' shapes, RG-LRU bitwise), drives the port's paths -- the paper's FD-DSGT on the
 fused engine, FD-DSGD, FD-DSGT under bounded staleness k = 2, FD-DSGD at
 k = 4, the pipelined FD-DSGT round, the top-64 wire, the paper's Fig. 2
 (DSGD, DSGT, FD-DSGD and FD-DSGT at Q = 100 on the exact-wire tree
@@ -32,7 +33,8 @@ the other (``generate`` at batch 8, 128 prompt + 32 new tokens, then
 ``prefill_fn`` against the decode replay, then a reduced-depth copy
 against the host CPU) -- counting each kernel's launches per path, and
 times the kernels, their twins, the library attention call and whole
-rounds and decode steps of the three served models. Any failed check raises, so the exit code is non-zero; without a
+rounds and decode steps of the three served models, beside an empty
+kernel's launch (the launch floor). Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
 
@@ -43,6 +45,7 @@ Output: progress lines, then the card's name and power limit as
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -727,22 +730,30 @@ def check_combine() -> float:
 
 # WKV-6 cases: (label, B, S, H, decay): the reference suite's shapes
 # (tests/test_kernels.py: bh 4/2/3/1 at S 128/256/64/512, here B 1 with
-# H = bh), S = 1, an S that is not a multiple of 64, strong decay (log_w =
-# -e^10, the model's clip) and none (log_w ~ 0), then RWKV6-7B's prefill
-# and decode shapes (B 8, H 64)
+# H = bh), S = 1, an S that is not a multiple of 64, S either side of the
+# kernel's 16-step chunk, strong decay (log_w = -e^10, the model's clip)
+# and none (log_w ~ 0), then RWKV6-7B's prefill and decode shapes (B 8, H
+# 64), strong decay at the prefill shape, and S 4096
 WKV_SHAPES = [
     ("test 4x128", 1, 128, 4, "random"), ("test 2x256", 1, 256, 2, "random"),
     ("test 3x64", 1, 64, 3, "random"), ("test 1x512", 1, 512, 1, "random"),
     ("S 1", 2, 1, 3, "random"), ("S 200", 2, 200, 3, "random"),
+    ("S 15", 2, 15, 3, "random"), ("S 17", 2, 17, 3, "random"),
     ("strong decay", 2, 128, 3, "strong"), ("no decay", 2, 128, 3, "none"),
     ("rwkv6-7b prefill", 8, 128, 64, "random"), ("rwkv6-7b decode", 8, 1, 64, "random"),
+    ("rwkv6-7b prefill", 8, 128, 64, "strong"), ("S 4096", 8, 4096, 64, "random"),
 ]
-# RG-LRU cases: (label, B, S, W): the reference suite's, then
-# RecurrentGemma-2B's prefill and decode shapes (B 8, W 2560)
+# RG-LRU cases: (label, B, S, W): the reference suite's, RecurrentGemma-2B's
+# prefill and decode shapes (B 8, W 2560), S 4096, a width that is not a
+# multiple of the kernel's 32 channels a warp (with S not a multiple of
+# its 32-step tile), one that is not a multiple of 4 (4-byte copies), and
+# S one past a tile
 LRU_SHAPES = [
     ("test 2x128x256", 2, 128, 256), ("test 3x64x128", 3, 64, 128),
     ("test 2x256x384", 2, 256, 384), ("test 1x512x128", 1, 512, 128),
     ("recurrentgemma prefill", 8, 128, 2560), ("recurrentgemma decode", 8, 1, 2560),
+    ("S 4096", 8, 4096, 2560), ("W 200", 2, 100, 200), ("W 199", 3, 45, 199),
+    ("S 33", 2, 33, 256),
 ]
 
 
@@ -812,10 +823,12 @@ def check_scan_kernels() -> dict:
             f"y and S_final max err {err:.3e}")
     for label, b, s, w in LRU_SHAPES:
         args = lru_inputs(b, s, w, gen)
-        err = _scan_err("rglru_scan", label, rglru_scan(*args), rglru_ref(*args))
+        got, want = rglru_scan(*args), rglru_ref(*args)
+        err = _scan_err("rglru_scan", label, got, want)
+        if not all(torch.equal(g, x) for g, x in zip(got, want)):
+            raise AssertionError(f"rglru_scan {label}: not bitwise equal to the twin")
         max_err["rglru_scan"] = max(max_err["rglru_scan"], err)
-        log(f"  rglru_scan == twin at {label} (B {b}, S {s}, W {w}): h and h_last max "
-            f"err {err:.3e}")
+        log(f"  rglru_scan == twin bitwise at {label} (B {b}, S {s}, W {w})")
     # the reference suite's strong decay: log_a = -60 forgets h0 = 1e6 in a step
     log_a = torch.full((1, 64, 128), -60.0, device="cuda")
     h, _ = rglru_scan(log_a, torch.ones_like(log_a), torch.full((1, 128), 1e6, device="cuda"))
@@ -1703,16 +1716,36 @@ def combine_timing(card: str, gen) -> dict:
                 bound_by=bound_by)
 
 
+def launch_floor(card: str) -> float:
+    """Device time of one launch of an empty kernel
+    (``kernels/csrc/launch_floor.cu``, one block), by the clock that times
+    the kernels: what a launch costs on its own."""
+    lib = kbuild.PROBE.load("launch_floor")
+    lib.launch_floor_launch.argtypes = [ctypes.c_void_p]
+    lib.launch_floor_launch.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if lib.launch_floor_launch(stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+
+    floor_ms = device_ms(launch)
+    log(f"  launch floor (an empty kernel, one block): {floor_ms * 1e3:.2f} us [{card}]")
+    return floor_ms
+
+
 def scan_row(card: str, name: str, label: str, shape: str, k_ms: float, t_ms: float,
-             nbytes: int, ops: int) -> dict:
+             nbytes: int, ops: int, floor_ms: float) -> dict:
     """Kernel and twin times beside the bound (the larger of the bytes
     moved once over the HBM rate and the fp32 operations over the fp32
-    peak); no PyTorch call computes these recurrences."""
+    peak) and the launch floor; no PyTorch call computes these
+    recurrences."""
     bound_ms, bound_by = bound(nbytes, ops)
     log(f"  {name} {label} ({shape}): kernel {k_ms * 1e3:.2f} us, twin {t_ms * 1e3:.2f} us, "
         f"bound {bound_ms * 1e3:.2f} us by {bound_by} ({nbytes / 1e6:.3f} MB at "
         f"{HBM_BYTES_S / 1e12:.2f} TB/s, {ops / 1e9:.4f} G fp32 ops at "
-        f"{FP32_OPS_S / 1e12:.0f} T/s), {bound_ms / k_ms:.1%} of bound [{card}]")
+        f"{FP32_OPS_S / 1e12:.0f} T/s), {bound_ms / k_ms:.1%} of bound, "
+        f"{(k_ms - floor_ms) * 1e3:.2f} us over the launch floor [{card}]")
     return dict(ms=k_ms, plain_ms=t_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
 
@@ -1725,8 +1758,9 @@ def scan_timings(card: str) -> dict:
     element), the decay and k v^T (3 per state element), exp, u k, the
     bonus dot and its v (6 per channel); per (b, t, channel) for RG-LRU:
     exp, multiply, add. The twins loop over S in Python, so at S 4096
-    they are timed over 3 calls."""
-    rows = {}
+    they are timed over 3 calls. The launch floor is timed first."""
+    floor_ms = launch_floor(card)
+    rows = {"launch_floor": floor_ms}
     gen = torch.Generator(device="cuda").manual_seed(3)
     for label, s in (("path prefill", SERVE_PROMPT), ("path decode", 1), ("large", 4096)):
         b, h = SERVE_BATCH, 64
@@ -1736,14 +1770,14 @@ def scan_timings(card: str) -> dict:
         rows[("wkv6", label)] = scan_row(
             card, "wkv6", label, f"B {b}, S {s}, H {h}",
             device_ms(lambda: wkv6(*args)), device_ms(lambda: wkv_twin(*args), **reps),
-            nbytes, b * h * s * (5 * 64 * 64 + 6 * 64))
+            nbytes, b * h * s * (5 * 64 * 64 + 6 * 64), floor_ms)
         del args
         b, w = SERVE_BATCH, 2560
         args = lru_inputs(b, s, w, gen)
         rows[("rglru_scan", label)] = scan_row(
             card, "rglru_scan", label, f"B {b}, S {s}, W {w}",
             device_ms(lambda: rglru_scan(*args)), device_ms(lambda: rglru_ref(*args), **reps),
-            4 * (3 * b * s * w + 2 * b * w), 3 * b * s * w)
+            4 * (3 * b * s * w + 2 * b * w), 3 * b * s * w, floor_ms)
         del args
         torch.cuda.empty_cache()
     return rows
@@ -1812,7 +1846,7 @@ def ptxas_summary(lib) -> str:
 
 
 # the libraries whose every kernel's registers and spills phase 1 prints
-PTXAS_DETAIL = ("flash_attention_tc", "decode_attention")
+PTXAS_DETAIL = ("flash_attention_tc", "decode_attention", "rwkv6_scan", "rglru_scan")
 
 
 def ptxas_kernels(lib) -> list:

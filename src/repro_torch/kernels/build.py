@@ -21,7 +21,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
-__all__ = ["KernelLibraries", "build_all", "BASE_FLAGS", "PACKAGES"]
+__all__ = ["KernelLibraries", "build_all", "BASE_FLAGS", "PACKAGES", "PROBE"]
 
 #: sm_90a keeps Hopper's wgmma/setmaxnreg available to later kernels;
 #: ``-Xptxas -v`` leaves each kernel's registers, shared memory and
@@ -100,6 +100,11 @@ def build_all(*packages: KernelLibraries) -> Dict[Tuple[str, str], Path]:
     for pkg in packages or tuple(PACKAGES.values()):
         jobs.update(pkg._jobs(None))
     return _compile(jobs)
+
+
+#: the empty kernel of ``kernels/csrc/launch_floor.cu``: the cost of a
+#: launch on its own, timed beside the kernels by ``chip_smoke.py``
+PROBE = KernelLibraries(Path(__file__).resolve().parent, BASE_FLAGS)
 
 
 def _compile(jobs) -> Dict[Tuple[str, str], Path]:

@@ -5,7 +5,9 @@ CPU tensors go to the plain PyTorch twin (``ref.py``), CUDA tensors to
 the hand-written kernel in ``csrc/rwkv6_scan.cu`` -- there is no switch,
 no chunk size and no fallback: a CUDA call that cannot launch raises.
 The function does not depend on a chunk length, so any S >= 1 takes the
-same path. The wrapper allocates the outputs, launches on the current
+same path (the kernel stages its inputs in chunks of 16 steps and handles
+a short last chunk itself). The kernel copies its operands in 16-byte
+runs, so each must be 16-byte aligned (fresh tensors are). The wrapper allocates the outputs, launches on the current
 stream without synchronizing, and raises if the launch reports an error.
 It counts its kernel launches in ``wkv6.launches`` (twin calls do not
 count).
@@ -23,7 +25,7 @@ import torch
 from repro_torch.kernels.build import BASE_FLAGS, KernelLibraries
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
-__all__ = ["wkv6", "HEAD_SIZE", "LIBS"]
+__all__ = ["wkv6", "check_kernel_operands", "HEAD_SIZE", "LIBS"]
 
 LIBS = KernelLibraries(Path(__file__).resolve().parent, BASE_FLAGS)
 #: the one head size the kernel holds a state for
@@ -65,6 +67,16 @@ def _check(r, k, v, log_w, u, s0):
         raise ValueError(f"wkv6: tensors on {r.device} are not supported")
 
 
+def check_kernel_operands(**tensors: torch.Tensor) -> None:
+    """The kernel copies every operand in whole 16-byte runs: each must be
+    contiguous and start on a 16-byte boundary."""
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"wkv6: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"wkv6: {name} must be 16-byte aligned")
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
          u: torch.Tensor, s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """WKV-6 in the model layout: r, k, v, log_w (B, S, H, 64) fp32 (log_w
@@ -80,9 +92,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
                             u[None].expand(b, h, hd).reshape(b * h, hd),
                             s0.reshape(b * h, hd, hd))
         return y.reshape(b, h, s, hd).transpose(1, 2), s_fin.reshape(b, h, hd, hd)
-    for name, t in (("r", r), ("k", k), ("v", v), ("log_w", log_w), ("u", u), ("s0", s0)):
-        if not t.is_contiguous():
-            raise ValueError(f"wkv6: {name} must be contiguous")
+    check_kernel_operands(r=r, k=k, v=v, log_w=log_w, u=u, s0=s0)
     y = torch.empty_like(r)
     s_fin = torch.empty_like(s0)
     lib = _lib()

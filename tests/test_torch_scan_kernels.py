@@ -11,7 +11,9 @@
 * The CUDA kernels against the twins on the card (``cuda`` marker: they
   skip without one; ``python -m pytest -q -m cuda
   tests/test_torch_scan_kernels.py`` runs them there, where JAX is not
-  needed).
+  needed), at the CPU cases and at the models' widths, S 4096, the decay
+  clip, S either side of WKV-6's 16-step chunk and ragged RG-LRU widths
+  and lengths; RG-LRU bitwise.
 * The wrappers' refusals.
 
 Tolerances are the reference suite's own for these functions: WKV-6 atol
@@ -50,6 +52,9 @@ WKV_CASES = [
     (2, 200, 8, "random"),
     (2, 128, 1, "strong"),
     (2, 128, 64, "none"),
+    # S either side of the CUDA kernel's 16-step chunk
+    (2, 15, 1, "random"),
+    (2, 17, 1, "random"),
 ]
 LRU_CASES = [
     # (b, seq, width, block_d, chunk of the Pallas kernel): the reference
@@ -60,6 +65,21 @@ LRU_CASES = [
     (1, 512, 128, 64, 128),
     (3, 1, 256, 128, 1),
     (2, 100, 200, 200, 4),
+    # S one past the CUDA kernel's 32-step tile; a width that is not a
+    # multiple of 4 (the kernel's 4-byte copies)
+    (2, 33, 256, 128, 3),
+    (3, 45, 199, 199, 5),
+]
+# The card's cases, (B, H, S, decay) and (B, S, W): the CPU cases (WKV-6 at
+# B 1, H = bh), then the models' widths (RWKV6-7B: B 8, H 64; RecurrentGemma-
+# 2B: B 8, W 2560) at S 4096, the prefill and decode shapes and WKV-6's
+# decay clip on the prefill shape, and S at a 16-step chunk and one past two
+WKV_CARD_CASES = [(1, bh, seq, decay) for bh, seq, _, decay in WKV_CASES] + [
+    (8, 64, 4096, "random"), (8, 64, 128, "random"), (8, 64, 1, "random"),
+    (8, 64, 128, "strong"), (2, 3, 16, "random"), (2, 3, 33, "random"),
+]
+LRU_CARD_CASES = [(b, seq, w) for b, seq, w, _, _ in LRU_CASES] + [
+    (8, 4096, 2560), (8, 128, 2560), (8, 1, 2560),
 ]
 
 
@@ -113,6 +133,43 @@ def _wkv_inputs(bh, seq, decay, seed, hd=64):
     u = (0.3 * rng.normal(size=(bh, hd))).astype(np.float32)
     s0 = (0.1 * rng.normal(size=(bh, hd, hd))).astype(np.float32)
     return r, k, v, log_w, u, s0
+
+
+def _wkv_card_inputs(b, h, seq, decay, seed, device):
+    """``_wkv_inputs``'s distributions in the model layout (r, k, v, log_w
+    (B, S, H, 64), u (H, 64), s0 (B, H, 64, 64)), drawn on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=device)
+
+    r, k, v = rand(b, seq, h, 64), rand(b, seq, h, 64, scale=0.5), rand(b, seq, h, 64)
+    log_w = -torch.exp(rand(b, seq, h, 64) - 1.0)
+    if decay == "strong":
+        log_w.fill_(-float(np.exp(10.0)))
+    elif decay == "none":
+        log_w.fill_(-1e-6)
+    return r, k, v, log_w, rand(h, 64, scale=0.3), rand(b, h, 64, 64, scale=0.1)
+
+
+def _wkv_twin(r, k, v, log_w, u, s0):
+    """The twin in the model layout (it takes the folded one)."""
+    b, s, h, hd = r.shape
+
+    def fold(a):
+        return a.transpose(1, 2).reshape(b * h, s, hd)
+
+    y, s_fin = wkv6_ref(fold(r), fold(k), fold(v), fold(log_w),
+                        u[None].expand(b, h, hd).reshape(b * h, hd), s0.reshape(b * h, hd, hd))
+    return y.reshape(b, h, s, hd).transpose(1, 2), s_fin.reshape(b, h, hd, hd)
+
+
+def _close_on_card(got, want, tol):
+    """``_close`` without the copy to the host: |got - want| <= atol + rtol
+    |want| everywhere, outputs finite."""
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    excess = float(((got - want).abs() - (tol["atol"] + tol["rtol"] * want.abs())).max())
+    assert excess <= 0, f"off by {float((got - want).abs().max())}"
 
 
 def _lru_inputs(b, seq, w, seed):
@@ -246,33 +303,46 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         lru_ops.rglru_scan(la, la.double(), torch.zeros(2, 8))
 
 
+def test_wkv6_kernel_operands_must_be_contiguous_and_aligned():
+    """The kernel copies its operands in 16-byte runs: the CUDA path
+    refuses operands that are not contiguous or start off a 16-byte
+    boundary (checked here on CPU tensors, which the twin would take)."""
+    ok = torch.zeros(1, 4, 2, 64)
+    wkv_ops.check_kernel_operands(r=ok, k=ok, v=ok, log_w=ok, u=torch.zeros(2, 64),
+                                  s0=torch.zeros(1, 2, 64, 64))
+    shifted = torch.zeros(ok.numel() + 1)[1:].view(ok.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wkv_ops.check_kernel_operands(r=ok, k=shifted)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_ops.check_kernel_operands(s0=torch.zeros(1, 2, 64, 64).transpose(2, 3))
+    with pytest.raises(ValueError, match="u must be 16-byte aligned"):
+        wkv_ops.check_kernel_operands(u=torch.zeros(2 * 64 + 1)[1:].view(2, 64))
+
+
 # ---------------------------------------------------------------- the card
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", WKV_CASES, ids=[str(c) for c in WKV_CASES])
+@pytest.mark.parametrize("case", WKV_CARD_CASES, ids=[str(c) for c in WKV_CARD_CASES])
 def test_wkv6_kernel_matches_twin_on_card(case, cuda):
-    bh, seq, _, decay = case
-    b, h = 1, bh
-    r, k, v, log_w, u, s0 = _wkv_inputs(bh, seq, decay, seed=seq + bh)
-
-    def model(a):
-        return np.ascontiguousarray(a.reshape(b, h, seq, 64).transpose(0, 2, 1, 3))
-
-    args = _t([model(a) for a in (r, k, v, log_w)] + [u, s0.reshape(b, h, 64, 64)], cuda)
+    b, h, seq, decay = case
+    args = _wkv_card_inputs(b, h, seq, decay, seed=seq + b * h, device=cuda)
     before = wkv_ops.wkv6.launches
     y, s = wkv_ops.wkv6(*args)
     torch.cuda.synchronize()
     assert wkv_ops.wkv6.launches == before + 1
-    y_t, s_t = wkv6_ref(*_t((r, k, v, log_w, u, s0), cuda))
-    _close(y, y_t.reshape(b, h, seq, 64).transpose(1, 2), WKV_TOL)
-    _close(s, s_t.reshape(b, h, 64, 64), WKV_TOL)
+    y_t, s_t = _wkv_twin(*args)
+    _close_on_card(y, y_t, WKV_TOL)
+    _close_on_card(s, s_t, WKV_TOL)
+    if decay == "strong":  # exp(-e^10) = 0: only the last k v^T is left
+        k, v = args[1], args[2]
+        _close_on_card(s, k[:, -1, :, :, None] * v[:, -1, :, None, :], WKV_TOL)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", LRU_CASES, ids=[str(c) for c in LRU_CASES])
+@pytest.mark.parametrize("case", LRU_CARD_CASES, ids=[str(c) for c in LRU_CARD_CASES])
 def test_rglru_kernel_matches_twin_on_card(case, cuda):
-    b, seq, w, _, _ = case
+    b, seq, w = case
     args = _t(_lru_inputs(b, seq, w, seed=b * seq), cuda)
     before = lru_ops.rglru_scan.launches
     h, h_last = lru_ops.rglru_scan(*args)
@@ -291,3 +361,30 @@ def test_rglru_kernel_strong_decay_on_card(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(h).all()
     torch.testing.assert_close(h[:, 1:].cpu(), torch.ones(1, 63, 128), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LRU_CARD_CASES, ids=[str(c) for c in LRU_CARD_CASES])
+def test_rglru_kernel_is_bitwise_the_twin_on_card(case, cuda):
+    """The kernel follows the twin's arithmetic (exp, a rounded product, a
+    rounded sum), so the two agree bit for bit."""
+    b, seq, w = case
+    args = _t(_lru_inputs(b, seq, w, seed=b * seq + 1), cuda)
+    h, h_last = lru_ops.rglru_scan(*args)
+    h_t, hl_t = rglru_ref(*args)
+    assert torch.equal(h, h_t) and torch.equal(h_last, hl_t)
+
+
+@pytest.mark.cuda
+def test_rglru_kernel_takes_unaligned_inputs_on_card(cuda):
+    """Inputs that start off a 16-byte boundary take the kernel's 4-byte
+    copies, bitwise the twin as well."""
+    log_a, bb, h0 = _t(_lru_inputs(2, 70, 65, seed=7), cuda)
+    log_a, bb = log_a[..., 1:].contiguous(), bb[..., 1:].contiguous()
+    shifted = [torch.empty(a.numel() + 1, device=cuda)[1:].view(a.shape) for a in (log_a, bb)]
+    for dst, src in zip(shifted, (log_a, bb)):
+        dst.copy_(src)
+    assert shifted[0].data_ptr() % 16 and shifted[0].is_contiguous()
+    args = (shifted[0], shifted[1], h0[:, 1:].contiguous())
+    got, want = lru_ops.rglru_scan(*args), rglru_ref(*args)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
