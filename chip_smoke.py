@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Builds every kernel library from its package's ``csrc/`` (the gossip
-stage, the round megakernels and the wire stages under
+stage, the round megakernels on thread-block clusters and the wire
+stages under
 ``src/repro_torch/kernels/gossip``, decode attention and flash attention
 under ``kernels/decode_attention`` and ``kernels/flash_attention``, WKV-6
 and the RG-LRU scan under ``kernels/rwkv6_scan`` and
 ``kernels/rglru_scan``; one ``nvcc`` per source, all started together,
 into each package's ``build/``), holds each against its plain PyTorch
-twin on the card (dense and top-k wires; attention at the tests' shapes,
+twin on the card (dense and top-k wires, the round kernels also on exact
+ties at the top-k threshold; attention at the tests' shapes,
 SmolLM-360M's and RecurrentGemma-2B's head size 256, a 4,096-token
 prefill, a 32,768-slot cache split over blocks and merged by the combine
 kernel, bf16 and fp32; the scans at the reference suite's shapes, S = 1,
@@ -105,6 +107,7 @@ from repro_torch.kernels.gossip.ops import (  # noqa: E402
     fused_round,
     fused_round_gt,
     gossip_mix,
+    plan_round,
     wire_stage,
     wire_stage_compact,
     wire_stage_gt,
@@ -137,9 +140,21 @@ CSRC = "src/repro_torch/kernels/gossip/csrc/"
 KERNELS = {
     # name: (wrapper, twin, wires, TPU kernel it replaces, source)
     "fused_round": (fused_round, fused_round_ref, 1,
-                    "src/repro/kernels/gossip/gossip.py:421", CSRC + "fused_round.cu"),
+                    "src/repro/kernels/gossip/gossip.py:421",
+                    CSRC + "fused_round_cluster.cu"),
     "fused_round_gt": (fused_round_gt, fused_round_gt_ref, 2,
-                       "src/repro/kernels/gossip/gossip.py:476", CSRC + "fused_round.cu"),
+                       "src/repro/kernels/gossip/gossip.py:476",
+                       CSRC + "fused_round_cluster.cu"),
+}
+# The round kernels' times in the earlier design (one 512-thread block a
+# scale chunk, the wires in series, a 31-step threshold search), us, CUDA
+# events, median of 60, on an H100 80GB HBM3 at 700 W: printed in brackets
+# beside the present times
+EARLIER_ROUND_US = {
+    ("fused_round", "main"): 22.05, ("fused_round", "large"): 1862.69,
+    ("fused_round", "main top-64"): 55.34,
+    ("fused_round_gt", "main"): 39.87, ("fused_round_gt", "large"): 3596.13,
+    ("fused_round_gt", "main top-64"): 106.34,
 }
 WIRE_KERNELS = {
     "wire_stage": (wire_stage, wire_stage_ref, 1,
@@ -300,12 +315,33 @@ def update_ops(n: int, t: int, wires: int) -> int:
     return n * t * 2 * wires
 
 
-def round_ops(n: int, t: int, chunk: int, wires: int, topk=None) -> int:
-    """fp32 operations of one round kernel (csrc/fused_round.cu): the
-    stage per wire, plus w_self * src + mix (mul, add) and n
-    multiply-adds of the W_off row (2 n) per element and wire, plus the
-    local update."""
-    per_wire = stage_ops(n, t, chunk, topk) + n * t * (2 + 2 * n)
+def mix_terms(w_off: torch.Tensor) -> float:
+    """The multiply-adds a row of the round kernels' mix takes, averaged
+    over the rows: the kernel runs 4 x 4 blocks of W_off and skips the
+    all-zero ones, so a row group of 4 rows takes 4 terms for each
+    nonzero block of its 4 rows (at most n)."""
+    w = w_off.detach().cpu().numpy() != 0
+    n = w.shape[0]
+    n_pad = -(-n // 4) * 4
+    pad = np.zeros((n_pad, n_pad), bool)
+    pad[:n, :n] = w
+    blocks = pad.reshape(n_pad // 4, 4, n_pad // 4, 4).any(axis=(1, 3))
+    return float(np.mean([min(n, 4 * int(blocks[i // 4].sum())) for i in range(n)]))
+
+
+def round_ops(n: int, t: int, chunk: int, wires: int, topk=None, terms=None) -> int:
+    """Operations of one round kernel (csrc/fused_round_cluster.cu), per
+    element and wire: payload (sub, add), |payload| and its max, divide,
+    rint, clip (min, max), q * scale, recon' (add), res' (sub); with the
+    top-k mask also the mask's |payload| and compare and the radix
+    select's 4 passes (a candidate compare and a histogram add each); then
+    w_self * src + mix (mul, add) and the multiply-adds of the mix,
+    ``terms`` a row (:func:`mix_terms` of this run's W_off; n if dense).
+    Per (row, chunk): max / 127 and the safe select. Plus the local
+    update."""
+    terms = n if terms is None else terms
+    per_element = 11 + (2 + 4 * 2 if topk else 0) + 2 + 2 * terms
+    per_wire = int(n * t * per_element) + 2 * n * (t // chunk)
     return wires * per_wire + update_ops(n, t, wires)
 
 
@@ -414,16 +450,19 @@ def shape_topks(chunk: int):
 
 def check_kernels() -> dict:
     """Every round kernel against its twin on the card, at every shape,
-    flag combination and top-k case: recon', res' and scales bitwise,
-    mixed within 1e-5 x max(1, max|input|) (the n x n sum runs in another
-    order)."""
+    flag combination and top-k case, and at the main shape on exact ties
+    at the top-k threshold (k = chunk/4, every tie kept on each wire):
+    recon', res' and scales bitwise, mixed within 1e-5 x max(1,
+    max|input|) (the n x n sum runs in another order)."""
     max_err = {name: 0.0 for name in KERNELS}
-    for (name, (kernel, twin, wires, _, _)), (label, n, t, chunk, topo) in itertools.product(
-            KERNELS.items(), SHAPES):
+    tie_case = [(SHAPES[0], "ties")]
+    for (name, (kernel, twin, wires, _, _)), ((label, n, t, chunk, topo), case) in (
+            itertools.product(KERNELS.items(), [(s, None) for s in SHAPES] + tie_case)):
         w_off, w_self = weights(topo, n)
-        for k, ((ef, dc, stale), topk) in enumerate(
-                itertools.product(FLAGS, shape_topks(chunk))):
-            bufs = make_inputs(n, t, chunk, wires, label, seed=k)
+        ties = case == "ties"
+        topks = [chunk // 4] if ties else shape_topks(chunk)
+        for k, ((ef, dc, stale), topk) in enumerate(itertools.product(FLAGS, topks)):
+            bufs = make_inputs(n, t, chunk, wires, label, seed=k, ties=ties)
             kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
                       stale_mix=stale, topk=topk)
             got = kernel(*bufs, w_off, w_self, ALPHA, **kw)
@@ -445,15 +484,34 @@ def check_kernels() -> dict:
                         f"{name} {label} {kw}: output {i} differs from the twin "
                         f"(max {float((a - b).abs().max())})")
             if label == "zero-chunk":
-                sc = got[-1]
-                if float(sc[3, 1]) != 0.0:
-                    raise AssertionError(f"{name}: all-zero chunk got scale {float(sc[3, 1])}")
+                for sc in got[-wires:]:
+                    if float(sc[3, 1]) != 0.0:
+                        raise AssertionError(
+                            f"{name}: all-zero chunk got scale {float(sc[3, 1])}")
+            if ties:
+                # recon' on (row 0, chunk 0) is 0 + dq: nonzero exactly on
+                # the kept columns, on each wire
+                for i in range(wires):
+                    kept = int(torch.count_nonzero(got[wires + 2 * i][0, :chunk]))
+                    if kept != chunk // 8 + chunk // 4:
+                        raise AssertionError(
+                            f"{name} {label} {kw}: kept {kept} columns of the tie "
+                            f"chunk on wire {i}, want {chunk // 8 + chunk // 4}")
             del got, want, bufs
-        log(f"  {name} == twin at {label} ({n}x{t}, chunk {chunk}): "
-            f"8 flag combinations x topk {shape_topks(chunk)}, recon/res/scales "
+        clusters = fused_plan(name, n, t, chunk, None)[0]
+        log(f"  {name} == twin at {label} ({n}x{t}, chunk {chunk}, clusters of "
+            f"{clusters}): 8 flag combinations x topk {topks}"
+            f"{' (exact ties, all kept)' if ties else ''}, recon/res/scales "
             f"bitwise, mixed max err {max_err[name]:.3e}")
         torch.cuda.empty_cache()
     return max_err
+
+
+def fused_plan(name: str, n: int, t: int, chunk: int, topk):
+    """The round kernel's cluster plan (C, columns a block, shared memory
+    bytes) on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return plan_round(n, t, chunk, topk, KERNELS[name][2], sms)
 
 
 def check_wire_stages() -> dict:
@@ -1524,9 +1582,9 @@ def profile_device(run, n: int, label: str, unit: str, host_ms: float, card: str
 
 
 def time_row(card: str, name: str, label: str, n: int, t: int, k_ms: float,
-             t_ms: float, nbytes: int, ops: int) -> dict:
+             t_ms: float, nbytes: int, ops: int, note: str = "") -> dict:
     bound_ms, bound_by = bound(nbytes, ops)
-    log(f"  {name} {label} {n}x{t}: kernel {k_ms * 1e3:.2f} us, twin "
+    log(f"  {name} {label} {n}x{t}: kernel {k_ms * 1e3:.2f} us{note}, twin "
         f"{t_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by {bound_by} "
         f"({nbytes / 1e6:.3f} MB at {HBM_BYTES_S / 1e12:.2f} TB/s, "
         f"{ops / 1e6:.2f} M fp32 ops at {FP32_OPS_S / 1e12:.0f} T/s), "
@@ -1534,10 +1592,12 @@ def time_row(card: str, name: str, label: str, n: int, t: int, k_ms: float,
     return dict(ms=k_ms, plain_ms=t_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def timings(card: str) -> dict:
+def timings(card: str, floor_ms: float) -> dict:
     """Each kernel and its twin at the main and the large shape (dense
-    wire) and at the main shape with the top-64 wire; then whole rounds,
-    sequential and bounded_staleness:k=2."""
+    wire) and at the main shape with the top-64 wire -- the round kernels
+    with their cluster size, the earlier design's time in brackets and
+    their distance from the launch floor; then whole rounds, sequential
+    and bounded_staleness:k=2."""
     rows = {}
     cases = [(SHAPES[0], None), (SHAPES[2], None), (SHAPES[0], TOPK_MAIN)]
     for name, (kernel, twin, wires, _, _) in ALL_KERNELS.items():
@@ -1547,8 +1607,10 @@ def timings(card: str) -> dict:
                 args = (*bufs, *weights(topo, n))
                 nbytes, ops = gossip_bytes(n, t, chunk), gossip_ops(n, t, chunk, topk)
             elif name in KERNELS:
-                args = (*bufs, *weights(topo, n), ALPHA)
-                nbytes, ops = round_bytes(n, t, chunk, wires), round_ops(n, t, chunk, wires, topk)
+                w_off, w_self = weights(topo, n)
+                args = (*bufs, w_off, w_self, ALPHA)
+                nbytes = round_bytes(n, t, chunk, wires)
+                ops = round_ops(n, t, chunk, wires, topk, mix_terms(w_off))
             else:
                 args = (*bufs, ALPHA)
                 nbytes, ops = wire_bytes_moved(n, t, chunk, wires), wire_ops(n, t, chunk, wires, topk)
@@ -1556,7 +1618,13 @@ def timings(card: str) -> dict:
             k_ms = device_ms(lambda: kernel(*args, **kw))
             t_ms = device_ms(lambda: twin(*args, **kw))
             key = label if topk is None else f"{label} top-{topk}"
-            rows[(name, key)] = time_row(card, name, key, n, t, k_ms, t_ms, nbytes, ops)
+            note = ""
+            if name in KERNELS:
+                note = (f" [earlier design {EARLIER_ROUND_US[(name, key)]:.2f} us], clusters "
+                        f"of {fused_plan(name, n, t, chunk, topk)[0]}, "
+                        f"{(k_ms - floor_ms) * 1e3:.2f} us over the launch floor")
+            rows[(name, key)] = time_row(card, name, key, n, t, k_ms, t_ms, nbytes, ops,
+                                         note)
             del bufs, args
             torch.cuda.empty_cache()
     rows["rounds"] = {spec: round_profile(card, spec)
@@ -1750,7 +1818,7 @@ def scan_row(card: str, name: str, label: str, shape: str, k_ms: float, t_ms: fl
                 library_ms=None)
 
 
-def scan_timings(card: str) -> dict:
+def scan_timings(card: str, floor_ms: float) -> dict:
     """WKV-6 at RWKV6-7B's prefill and decode shapes (B 8, H 64, S 128 and
     1) and at S 4096; the RG-LRU scan at RecurrentGemma-2B's (B 8, W 2560,
     S 128 and 1) and at S 4096. Bytes: each input read once, each output
@@ -1758,8 +1826,7 @@ def scan_timings(card: str) -> dict:
     element), the decay and k v^T (3 per state element), exp, u k, the
     bonus dot and its v (6 per channel); per (b, t, channel) for RG-LRU:
     exp, multiply, add. The twins loop over S in Python, so at S 4096
-    they are timed over 3 calls. The launch floor is timed first."""
-    floor_ms = launch_floor(card)
+    they are timed over 3 calls."""
     rows = {"launch_floor": floor_ms}
     gen = torch.Generator(device="cuda").manual_seed(3)
     for label, s in (("path prefill", SERVE_PROMPT), ("path decode", 1), ("large", 4096)):
@@ -1846,7 +1913,8 @@ def ptxas_summary(lib) -> str:
 
 
 # the libraries whose every kernel's registers and spills phase 1 prints
-PTXAS_DETAIL = ("flash_attention_tc", "decode_attention", "rwkv6_scan", "rglru_scan")
+PTXAS_DETAIL = ("fused_round_cluster", "flash_attention_tc", "decode_attention",
+                "rwkv6_scan", "rglru_scan")
 
 
 def ptxas_kernels(lib) -> list:
@@ -1917,13 +1985,14 @@ def main() -> int:
                     rglru_scan=recurrent["recurrentgemma-2b"]["rglru_scan"])
 
     log("phase 4: times (CUDA events, median of 60 after warm-up)")
-    rows = timings(card)
+    floor_ms = launch_floor(card)
+    rows = timings(card, floor_ms)
     compact = compact_timings(card, group)
     rows["rounds"].update(compact.pop("rounds"))
     rows.update(compact)
     stop_group(group)
     rows.update(attention_timings(card))
-    rows.update(scan_timings(card))
+    rows.update(scan_timings(card, floor_ms))
     rows["serving"] = decode_step_profile(card, serve["engine"], serve["prompts"], SERVE_ARCH)
     del serve
     torch.cuda.empty_cache()

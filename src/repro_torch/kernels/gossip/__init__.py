@@ -1,5 +1,5 @@
 """The round megakernels of the fused engine: hand-written CUDA for
-Hopper (``csrc/fused_round.cu``, built by ``build.py``), dispatched by
+Hopper (``csrc/fused_round_cluster.cu``, built by ``build.py``), dispatched by
 ``ops.py``, each beside its plain PyTorch twin in ``ref.py``."""
 
 from repro_torch.kernels.gossip.ops import fused_round, fused_round_gt

@@ -1,24 +1,20 @@
-// The gossip stage and the round megakernels for Hopper (sm_90a). One
-// launch of a round kernel is one whole communication round of the fused
-// engine -- local update + int8 difference-coded quantization with error
-// feedback (top-k masked when topk > 0) + the W mix; one launch of the
-// gossip kernel is that round without the local update (one compressed
-// gossip round of a buffer, core/compression.py).
+// The gossip stage for Hopper (sm_90a): one launch is one compressed
+// gossip round of a buffer (core/compression.py) -- int8 difference-coded
+// quantization with error feedback (top-k masked when topk > 0) + the W
+// mix, with no local update. (The round megakernels, which add the local
+// update, are in fused_round_cluster.cu.)
 //
-// Replaces the TPU kernels
-//   src/repro/kernels/gossip/gossip.py:378  gossip_mix_pallas      (stage + mix)
-//   src/repro/kernels/gossip/gossip.py:421  fused_round_pallas     (DSGD)
-//   src/repro/kernels/gossip/gossip.py:476  fused_round_gt_pallas  (DSGT)
+// Replaces the TPU kernel
+//   src/repro/kernels/gossip/gossip.py:378  gossip_mix_pallas  (stage + mix)
 // and is held bit for bit (recon', res', scales) and within fp32
-// summation order (mixed) to the PyTorch twins in ../ref.py.
+// summation order (mixed) to the PyTorch twin in ../ref.py.
 //
-// Bound: HBM bytes. The gossip stage reads 3 and writes 3 (n, t) fp32
-// buffers (plus the (n, t/chunk) scales and the n x n weights); DSGD
-// reads 4 and writes 3; DSGT reads 8 and writes 6. The n x n contraction
-// is 2 n^2 t flops per wire, well under the fp32 peak for the node counts
-// the engine runs. At the main-path size (n = 20, t = 1536: about 0.74 MB
-// moved by the gossip stage, 0.86 MB by DSGD and 1.72 MB by DSGT, on 3
-// blocks) the kernels are launch-bound, not bandwidth-bound.
+// Bound: HBM bytes. The stage reads 3 and writes 3 (n, t) fp32 buffers
+// (plus the (n, t/chunk) scales and the n x n weights). The n x n
+// contraction is 2 n^2 t flops, well under the fp32 peak for the node
+// counts the engine runs. At the main-path size (n = 20, t = 1536: about
+// 0.74 MB moved, on 3 blocks) the kernel is launch-bound, not
+// bandwidth-bound.
 //
 // Design (simple and right first):
 //   * One block owns one (n, chunk) column chunk with ALL n rows: the
@@ -31,14 +27,11 @@
 //     instantiations), then quantizes the row in place and leaves recon'
 //     (or, with stale_mix, the input recon) in the tile.
 //   * The mix reads the tile and W_off from shared memory; each thread
-//     accumulates 4 rows of one column. Half-updated values (h, t_half)
-//     are recomputed from global memory instead of being kept on chip.
-//   * DSGT runs the tracker wire and then the parameter wire through the
-//     same tile, so shared memory holds one n x chunk tile at a time
-//     (dynamic shared memory; the wrapper refuses tiles over 227 KB).
+//     accumulates 4 rows of one column, and reads its self term x again
+//     from global memory.
+//   * Shared memory holds the n x chunk tile (dynamic shared memory; the
+//     wrapper refuses tiles over 227 KB).
 //   * Rounding matches the twin exactly (see quantize.cuh).
-// Faster designs -- TMA loads, more chunks or rows per block, a CUDA graph
-// around the whole round -- are later work.
 
 #include "quantize.cuh"
 
@@ -61,7 +54,7 @@ __device__ void load_weights(const float* __restrict__ w_off,
   }
 }
 
-// One wire over this block's column chunk: payload, scale, (top-k,)
+// The stage over this block's column chunk: payload, scale, (top-k,)
 // quantize, recon'/res' out, then mixed = W_off @ nbr + w_self * src.
 template <bool EF, bool DC, bool STALE, bool TOPK, class Src>
 __device__ void wire(const Src& src, const float* __restrict__ recon,
@@ -145,56 +138,6 @@ gossip_mix_kernel(const float* __restrict__ x, const float* __restrict__ recon,
                             scales, woff_s, wself_s, tile, geo);
 }
 
-template <bool EF, bool DC, bool STALE, bool TOPK>
-__global__ void __launch_bounds__(kThreads)
-fused_round_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                   const float* __restrict__ recon, const float* __restrict__ res,
-                   const float* __restrict__ w_off,
-                   const float* __restrict__ w_self, float alpha,
-                   float* __restrict__ mixed, float* __restrict__ new_recon,
-                   float* __restrict__ new_res, float* __restrict__ scales,
-                   Geometry geo) {
-  extern __shared__ float smem[];
-  float* tile = smem;
-  float* woff_s = tile + static_cast<size_t>(geo.n) * geo.chunk;
-  float* wself_s = woff_s + geo.n_pad * geo.n;
-  load_weights(w_off, w_self, woff_s, wself_s, geo);
-  __syncthreads();
-  wire<EF, DC, STALE, TOPK>(Update{x, g, alpha}, recon, res, mixed, new_recon,
-                            new_res, scales, woff_s, wself_s, tile, geo);
-}
-
-template <bool EF, bool DC, bool STALE, bool TOPK>
-__global__ void __launch_bounds__(kThreads)
-fused_round_gt_kernel(const float* __restrict__ x, const float* __restrict__ t,
-                      const float* __restrict__ g, const float* __restrict__ gp,
-                      const float* __restrict__ recon_x,
-                      const float* __restrict__ res_x,
-                      const float* __restrict__ recon_t,
-                      const float* __restrict__ res_t,
-                      const float* __restrict__ w_off,
-                      const float* __restrict__ w_self, float alpha,
-                      float* __restrict__ mixed_x, float* __restrict__ mixed_t,
-                      float* __restrict__ new_recon_x,
-                      float* __restrict__ new_res_x,
-                      float* __restrict__ new_recon_t,
-                      float* __restrict__ new_res_t,
-                      float* __restrict__ scales_x,
-                      float* __restrict__ scales_t, Geometry geo) {
-  extern __shared__ float smem[];
-  float* tile = smem;
-  float* woff_s = tile + static_cast<size_t>(geo.n) * geo.chunk;
-  float* wself_s = woff_s + geo.n_pad * geo.n;
-  load_weights(w_off, w_self, woff_s, wself_s, geo);
-  __syncthreads();
-  const TrackerHalf th{t, g, gp};
-  wire<EF, DC, STALE, TOPK>(th, recon_t, res_t, mixed_t, new_recon_t,
-                            new_res_t, scales_t, woff_s, wself_s, tile, geo);
-  wire<EF, DC, STALE, TOPK>(TrackedUpdate{x, th, alpha}, recon_x, res_x,
-                            mixed_x, new_recon_x, new_res_x, scales_x, woff_s,
-                            wself_s, tile, geo);
-}
-
 Geometry make_geometry(int n, int t, int chunk, int topk) {
   const int n_pad = (n + kRowsPerThread - 1) / kRowsPerThread * kRowsPerThread;
   return Geometry{n, t, chunk, n_pad, t / chunk, topk};
@@ -236,8 +179,8 @@ extern "C" {
 
 // Dynamic shared memory one block needs (what the wrapper checks against
 // the 227 KB per-block limit before launching): one n x chunk tile and
-// the weights, the same for the gossip and the round kernels.
-size_t fused_round_smem_bytes(int n, int chunk) {
+// the weights.
+size_t gossip_mix_smem_bytes(int n, int chunk) {
   return smem_bytes(make_geometry(n, chunk, chunk, 0));
 }
 
@@ -259,44 +202,6 @@ int gossip_mix_launch(const float* x, const float* recon, const float* res,
                 make_geometry(n, t, chunk, topk),
                 static_cast<cudaStream_t>(stream), x, recon, res, w_off,
                 w_self, mixed, new_recon, new_res, scales);
-}
-
-int fused_round_launch(const float* x, const float* g, const float* recon,
-                       const float* res, const float* w_off,
-                       const float* w_self, float alpha, float* mixed,
-                       float* new_recon, float* new_res, float* scales, int n,
-                       int t, int chunk, int topk, int ef, int dc, int stale,
-                       void* stream) {
-  using Fn = void (*)(const float*, const float*, const float*, const float*,
-                      const float*, const float*, float, float*, float*, float*,
-                      float*, Geometry);
-  static const Fn table[16] = FLAG_TABLE(fused_round_kernel);
-  return launch(table[flag_index(ef, dc, stale, topk)],
-                make_geometry(n, t, chunk, topk),
-                static_cast<cudaStream_t>(stream), x, g, recon, res, w_off,
-                w_self, alpha, mixed, new_recon, new_res, scales);
-}
-
-int fused_round_gt_launch(const float* x, const float* t, const float* g,
-                          const float* gp, const float* recon_x,
-                          const float* res_x, const float* recon_t,
-                          const float* res_t, const float* w_off,
-                          const float* w_self, float alpha, float* mixed_x,
-                          float* mixed_t, float* new_recon_x, float* new_res_x,
-                          float* new_recon_t, float* new_res_t, float* scales_x,
-                          float* scales_t, int n, int tot, int chunk, int topk,
-                          int ef, int dc, int stale, void* stream) {
-  using Fn = void (*)(const float*, const float*, const float*, const float*,
-                      const float*, const float*, const float*, const float*,
-                      const float*, const float*, float, float*, float*, float*,
-                      float*, float*, float*, float*, float*, Geometry);
-  static const Fn table[16] = FLAG_TABLE(fused_round_gt_kernel);
-  return launch(table[flag_index(ef, dc, stale, topk)],
-                make_geometry(n, tot, chunk, topk),
-                static_cast<cudaStream_t>(stream), x, t, g, gp, recon_x, res_x,
-                recon_t, res_t, w_off, w_self, alpha, mixed_x, mixed_t,
-                new_recon_x, new_res_x, new_recon_t, new_res_t, scales_x,
-                scales_t);
 }
 
 }  // extern "C"

@@ -1,5 +1,7 @@
-// The quantize-with-error-feedback stage shared by the round kernels
-// (fused_round.cu) and the wire-stage kernels (wire_stage.cu): the
+// The quantize-with-error-feedback stage shared by the gossip kernel
+// (fused_round.cu), the round kernels (fused_round_cluster.cu, through
+// the element helpers) and the wire-stage kernels (wire_stage.cu,
+// wire_stage_compact.cu): the
 // per-tile `_quantize_ef` of src/repro/kernels/gossip/gossip.py:116,
 // with the optional top-k mask of `_topk_mask` (gossip.py:103).
 //
@@ -71,6 +73,29 @@ struct RowScale {
 // when given. Returns the row's max |payload| on every lane (exact in any
 // order, |payload| >= 0). Top-k never changes the max: the largest
 // element is always kept.
+// One payload element: src minus the difference-coding base (0 without
+// difference coding), plus the EF residual.
+template <bool EF>
+__device__ __forceinline__ float payload_elem(float src, float base, float res) {
+  float p = __fsub_rn(src, base);
+  if (EF) p = __fadd_rn(p, res);
+  return p;
+}
+
+// The row's scale and divisor from its max |payload|; thr left at 0.
+__device__ __forceinline__ RowScale scale_of(float m) {
+  const float scale = __fdiv_rn(m, 127.f);
+  return RowScale{scale, scale > 0.f ? scale : 1.f, 0.f};
+}
+
+// q of one payload element: clip(rint(sel / safe), +-127) with sel the
+// payload, or (TOPK) +0.0 below the top-k threshold.
+template <bool TOPK>
+__device__ __forceinline__ float quantize_elem(float p, const RowScale& rs) {
+  const float sel = !TOPK || fabsf(p) >= rs.thr ? p : 0.f;
+  return fminf(fmaxf(rintf(__fdiv_rn(sel, rs.safe)), -127.f), 127.f);
+}
+
 template <bool EF, bool DC, class Src>
 __device__ float payload_row(const Src& src, const float* __restrict__ recon,
                              const float* __restrict__ res, size_t row,
@@ -80,9 +105,8 @@ __device__ float payload_row(const Src& src, const float* __restrict__ recon,
   for (int c = lane; c < chunk; c += 32) {
     const float h = src(row + c);
     if (h_out != nullptr) h_out[row + c] = h;
-    const float base = DC ? recon[row + c] : 0.f;
-    float p = __fsub_rn(h, base);
-    if (EF) p = __fadd_rn(p, res[row + c]);
+    const float p =
+        payload_elem<EF>(h, DC ? recon[row + c] : 0.f, EF ? res[row + c] : 0.f);
     trow[c] = p;
     m = fmaxf(m, fabsf(p));
   }
@@ -116,8 +140,7 @@ __device__ inline float topk_threshold(const float* trow, int chunk, int k) {
 
 template <bool TOPK>
 __device__ RowScale row_scale(float m, const float* trow, int chunk, int topk) {
-  const float scale = __fdiv_rn(m, 127.f);
-  RowScale rs{scale, scale > 0.f ? scale : 1.f, 0.f};
+  RowScale rs = scale_of(m);
   if (TOPK) rs.thr = topk_threshold(trow, chunk, topk);
   return rs;
 }
@@ -136,9 +159,7 @@ __device__ void quantize_row(const float* trow, const RowScale& rs,
   const int lane = threadIdx.x % 32;
   for (int c = lane; c < chunk; c += 32) {
     const float p = trow[c];
-    const float sel = !TOPK || fabsf(p) >= rs.thr ? p : 0.f;
-    const float q =
-        fminf(fmaxf(rintf(__fdiv_rn(sel, rs.safe)), -127.f), 127.f);
+    const float q = quantize_elem<TOPK>(p, rs);
     const float dq = __fmul_rn(q, rs.scale);
     const float base = DC ? recon[row + c] : 0.f;
     const float nr = __fadd_rn(base, dq);

@@ -4,10 +4,11 @@
 A wrapper checks its operands, then dispatches by the tensors' device:
 CPU tensors go to the plain PyTorch twin (``ref.py``), CUDA tensors to
 the hand-written kernel in ``csrc/fused_round.cu`` (the gossip stage
-``gossip_mix`` and the round megakernels), ``csrc/wire_stage.cu`` (the
-wire stages) or ``csrc/wire_stage_compact.cu`` (the compact top-k wire
-stages) -- there is no
-switch and no fallback: a CUDA call that cannot launch raises. The
+``gossip_mix``), ``csrc/fused_round_cluster.cu`` (the round megakernels,
+on thread-block clusters laid out by :func:`plan_round`),
+``csrc/wire_stage.cu`` (the wire stages) or ``csrc/wire_stage_compact.cu``
+(the compact top-k wire stages) -- there is no switch and no fallback: a
+CUDA call that cannot launch raises. The
 wrapper allocates the outputs, launches on the current stream without
 synchronizing, and raises if the launch reports an error. Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (twin calls do not
@@ -46,10 +47,23 @@ from repro_torch.kernels.gossip.ref import (
 
 __all__ = ["gossip_mix", "fused_round", "fused_round_gt", "wire_stage",
            "wire_stage_gt", "wire_stage_compact", "wire_stage_gt_compact",
-           "SMEM_LIMIT_BYTES"]
+           "plan_round", "round_smem_bytes", "SMEM_LIMIT_BYTES"]
 
 #: dynamic shared memory one Hopper block may opt in to (227 KB)
 SMEM_LIMIT_BYTES = 232448
+#: shared memory of one H100 SM (228 KB), and what the card reserves of it
+#: for each resident block
+SM_SMEM_BYTES, BLOCK_RESERVED_BYTES = 233472, 1024
+#: the H100 SXM's SMs, for which :func:`plan_round` plans by default
+H100_SMS = 132
+#: cluster sizes the round kernels take (16 is past the portable 8, which
+#: Hopper allows per kernel), and the fewest columns a cluster's block
+#: owns: one warp's width, so a row's pass keeps its lanes busy
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+MIN_BLOCK_COLS = 32
+#: the round kernels' warps a block (csrc/fused_round_cluster.cu kThreads /
+#: 32) and the bins of their radix select
+_ROUND_WARPS, _RADIX_BINS = 8, 256
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 
@@ -60,23 +74,34 @@ def _declare(lib, name, argtypes, restype=_I):
 
 
 @functools.cache
-def _round_lib() -> ctypes.CDLL:
-    """The built round-kernel library with every entry point's C
+def _gossip_lib() -> ctypes.CDLL:
+    """The built gossip-stage library with every entry point's C
     signature declared (pointers and the stream as void*, so ctypes never
     truncates them)."""
     lib = load("fused_round")
     _declare(lib, "gossip_mix_launch", [_P] * 9 + [_I] * 7 + [_P])
-    _declare(lib, "fused_round_launch", [_P] * 6 + [_F] + [_P] * 4 + [_I] * 7 + [_P])
-    _declare(lib, "fused_round_gt_launch",
-             [_P] * 10 + [_F] + [_P] * 8 + [_I] * 7 + [_P])
-    _declare(lib, "fused_round_smem_bytes", [_I, _I], ctypes.c_size_t)
+    _declare(lib, "gossip_mix_smem_bytes", [_I, _I], ctypes.c_size_t)
+    _declare(lib, "gossip_error_string", [_I], ctypes.c_char_p)
+    return lib
+
+
+@functools.cache
+def _cluster_lib() -> ctypes.CDLL:
+    """The built cluster round-kernel library, declared as :func:`_gossip_lib`."""
+    lib = load("fused_round_cluster")
+    _declare(lib, "fused_round_cluster_launch",
+             [_P] * 6 + [_F] + [_P] * 4 + [_I] * 10 + [_P])
+    _declare(lib, "fused_round_gt_cluster_launch",
+             [_P] * 10 + [_F] + [_P] * 8 + [_I] * 10 + [_P])
+    _declare(lib, "fused_round_cluster_smem_bytes", [_I] * 6, ctypes.c_size_t)
+    _declare(lib, "fused_round_cluster_max_active", [_I] * 9)
     _declare(lib, "gossip_error_string", [_I], ctypes.c_char_p)
     return lib
 
 
 @functools.cache
 def _wire_lib() -> ctypes.CDLL:
-    """The built wire-stage library, declared as :func:`_round_lib`."""
+    """The built wire-stage library, declared as :func:`_gossip_lib`."""
     lib = load("wire_stage")
     _declare(lib, "wire_stage_launch", [_P] * 4 + [_F] + [_P] * 5 + [_I] * 6 + [_P])
     _declare(lib, "wire_stage_gt_launch",
@@ -88,7 +113,7 @@ def _wire_lib() -> ctypes.CDLL:
 
 @functools.cache
 def _compact_lib() -> ctypes.CDLL:
-    """The built compact wire-stage library, declared as :func:`_round_lib`."""
+    """The built compact wire-stage library, declared as :func:`_gossip_lib`."""
     lib = load("wire_stage_compact")
     _declare(lib, "wire_stage_compact_launch",
              [_P] * 4 + [_F] + [_P] * 6 + [_I] * 7 + [_P])
@@ -144,6 +169,75 @@ def _topk_arg(topk, scale_chunk: int) -> int:
     return 0 if topk is None or topk >= scale_chunk else int(topk)
 
 
+def round_smem_bytes(n: int, chunk: int, clusters: int, cols: int, wires: int,
+                     topk) -> int:
+    """Dynamic shared memory of one round-kernel block (the layout of
+    ``Layout`` in csrc/fused_round_cluster.cu): the (n, cols) input tiles
+    (DSGD 4, DSGT 8), W_off and w_self padded to a multiple of 4, a
+    64-bit mask of W_off's nonzero 4 x 4 blocks a row group, the block's
+    row maxes, every block's (one slot a block, in two sets for the
+    dense wire; with top-k one set, which the radix select's histograms,
+    256 bins a warp, reuse once the chunk's row maxes are taken from it)
+    and the chunk's; with top-k also the thresholds and the owned rows'
+    |payload| (ceil(wires n / clusters) rows of the chunk). ``topk`` is
+    the kernels' argument: 0 or None for the dense wire."""
+    n_pad = -(-n // 4) * 4
+    wn = wires * n
+    wn4 = -(-wn // 4) * 4
+    hist = _ROUND_WARPS * _RADIX_BINS if topk else 0
+    jmask = -(-(2 * (n_pad // 4)) // 4) * 4  # a 64-bit mask a row group
+    words = (4 * wires * n * cols + n_pad * n_pad + n_pad + jmask + wn4
+             + (1 if topk else 2) * max(clusters * wn4, hist) + wn4)
+    if topk:
+        words += wn4 + -(-wn // clusters) * chunk
+    return 4 * words
+
+
+@functools.lru_cache(maxsize=None)
+def plan_round(n: int, t: int, chunk: int, topk, wires: int,
+               sms: int = H100_SMS) -> Tuple[int, int, int]:
+    """How the round kernel lays a round over clusters: returns ``(C,
+    cols_per_block, smem_bytes)`` -- clusters of C blocks, one a scale
+    chunk, block r owning columns ``[r * cols, (r + 1) * cols)`` of it
+    (the last block the ragged rest) for all n rows.
+
+    ``cols`` is ceil(chunk / C) rounded up to 4 (16-byte rows), at least
+    ``MIN_BLOCK_COLS`` when C > 1, and every block owns a column. Among the
+    C whose block fits ``SMEM_LIMIT_BYTES``, those whose blocks fit two an
+    SM come first (one block's copies then run while the other computes);
+    of those the plan takes the fewest blocks a cluster that still give
+    every SM two (a chunk's fixed costs -- its barriers and row passes --
+    then cover more bytes), and when no C gives that many -- a small
+    round -- the most, to spread it over the most SMs.
+    ``topk``: None or >= chunk is the dense wire. Raises ``ValueError``
+    when no cluster size fits."""
+    if wires not in (1, 2):
+        raise ValueError(f"wires must be 1 or 2, got {wires}")
+    if n > 256:  # W_off alone is over the limit (and its block masks are 64 bits)
+        raise ValueError(f"an n={n} round needs more shared memory than a block may use")
+    k = _topk_arg(topk, chunk)
+    n_chunks = t // chunk
+    fits = []
+    for c in CLUSTER_SIZES:
+        cols = -(-chunk // c)
+        cols += -cols % 4
+        if c > 1 and (cols < MIN_BLOCK_COLS or (c - 1) * cols >= chunk):
+            continue
+        smem = round_smem_bytes(n, chunk, c, cols, wires, k)
+        if smem <= SMEM_LIMIT_BYTES:
+            fits.append((c, cols, smem))
+    if not fits:
+        raise ValueError(
+            f"an (n={n}, chunk={chunk}) round with "
+            f"{wires} wire(s){' at topk ' + str(k) if k else ''} needs more "
+            f"than the {SMEM_LIMIT_BYTES} B of shared memory a block may use "
+            "at every cluster size; use a smaller scale_chunk")
+    two = [f for f in fits if 2 * (f[2] + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES]
+    pool = two or fits
+    full = [f for f in pool if n_chunks * f[0] >= 2 * sms]
+    return min(full) if full else max(pool)
+
+
 def _check_smem(smem: int, what: str) -> None:
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
@@ -152,11 +246,50 @@ def _check_smem(smem: int, what: str) -> None:
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _cluster_plan(index: int, n: int, t: int, chunk: int, k: int, wires: int,
+                  flags: Tuple[bool, ...]) -> Tuple[int, int, int]:
+    """:func:`plan_round` for card ``index`` (its SM count), held to the
+    kernel's own shared-memory layout, and the card's cluster occupancy:
+    ``(C, cols, resident clusters)`` -- the kernel launches at most that
+    many clusters, each walking its share of the chunks. Raises if the
+    card cannot hold one such cluster."""
+    lib = _cluster_lib()
+    with torch.cuda.device(index):
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        c, cols, smem = plan_round(n, t, chunk, k or None, wires, sms)
+        own = lib.fused_round_cluster_smem_bytes(wires, n, chunk, c, cols, k)
+        if own != smem:
+            raise RuntimeError(f"round kernel layout {own} B != planned {smem} B")
+        active = lib.fused_round_cluster_max_active(
+            wires, n, chunk, c, cols, k, *(int(f) for f in flags))
+    if active < 0:
+        raise RuntimeError(f"round kernel occupancy query failed: "
+                           f"{lib.gossip_error_string(-active).decode()}")
+    if active == 0:
+        raise RuntimeError(f"no cluster of {c} blocks with {smem} B of shared "
+                           f"memory each fits card {index}")
+    return c, cols, active
+
+
 def _tail(n: int, t: int, scale_chunk: int, topk, flags, dev) -> list:
     """The trailing C arguments: geometry, topk, flags, the stream."""
     stream = torch.cuda.current_stream(dev).cuda_stream
     return ([n, t, scale_chunk, _topk_arg(topk, scale_chunk)]
             + [int(bool(f)) for f in flags] + [stream])
+
+
+def _round_tail(n: int, t: int, scale_chunk: int, topk, flags, wires: int,
+                dev) -> list:
+    """The round kernels' trailing C arguments: geometry, topk, flags, the
+    planned cluster size and columns a block, the clusters to launch, the
+    stream."""
+    k = _topk_arg(topk, scale_chunk)
+    flags = tuple(bool(f) for f in flags)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    c, cols, grid = _cluster_plan(index, n, t, scale_chunk, k, wires, flags)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return [n, t, scale_chunk, k, *(int(f) for f in flags), c, cols, grid, stream]
 
 
 def _raise_on(lib, err: int, name: str) -> None:
@@ -199,8 +332,8 @@ def gossip_mix(
                  stale_mix=stale_mix)
     if x.device.type == "cpu":
         return gossip_mix_ref(x, recon, res, w_off, w_self, **flags)
-    lib = _round_lib()
-    _check_smem(lib.fused_round_smem_bytes(n, scale_chunk),
+    lib = _gossip_lib()
+    _check_smem(lib.gossip_mix_smem_bytes(n, scale_chunk),
                 f"an (n={n}, chunk={scale_chunk}) tile")
     tail = _tail(n, t, scale_chunk, topk,
                  (error_feedback, difference_coding, stale_mix), x.device)
@@ -252,15 +385,13 @@ def fused_round(
                  stale_mix=stale_mix)
     if x.device.type == "cpu":
         return fused_round_ref(x, g, recon, res, w_off, w_self, a, **flags)
-    lib = _round_lib()
-    _check_smem(lib.fused_round_smem_bytes(n, scale_chunk),
-                f"an (n={n}, chunk={scale_chunk}) tile")
-    tail = _tail(n, t, scale_chunk, topk,
-                 (error_feedback, difference_coding, stale_mix), x.device)
+    lib = _cluster_lib()
+    tail = _round_tail(n, t, scale_chunk, topk,
+                       (error_feedback, difference_coding, stale_mix), 1, x.device)
     mixed, new_recon, new_res = (torch.empty_like(x) for _ in range(3))
     scales = torch.empty(n, t // scale_chunk, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.fused_round_launch(
+        err = lib.fused_round_cluster_launch(
             *_ptrs(x, g, recon, res, w_off, w_self), float(a),
             *_ptrs(mixed, new_recon, new_res, scales), *tail)
     _raise_on(lib, err, "fused_round")
@@ -308,17 +439,15 @@ def fused_round_gt(
                  stale_mix=stale_mix)
     if x.device.type == "cpu":
         return fused_round_gt_ref(*bufs, w_off, w_self, a, **flags)
-    lib = _round_lib()
-    _check_smem(lib.fused_round_smem_bytes(n, scale_chunk),
-                f"an (n={n}, chunk={scale_chunk}) tile")
-    tail = _tail(n, tot, scale_chunk, topk,
-                 (error_feedback, difference_coding, stale_mix), x.device)
+    lib = _cluster_lib()
+    tail = _round_tail(n, tot, scale_chunk, topk,
+                       (error_feedback, difference_coding, stale_mix), 2, x.device)
     outs = [torch.empty_like(x) for _ in range(6)] + [
         torch.empty(n, tot // scale_chunk, dtype=torch.float32, device=x.device)
         for _ in range(2)
     ]
     with torch.cuda.device(x.device):
-        err = lib.fused_round_gt_launch(
+        err = lib.fused_round_gt_cluster_launch(
             *_ptrs(*bufs, w_off, w_self), float(a), *_ptrs(*outs), *tail)
     _raise_on(lib, err, "fused_round_gt")
     fused_round_gt.launches += 1

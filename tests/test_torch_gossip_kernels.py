@@ -6,7 +6,8 @@
 * The CUDA kernels against the twins on the card (``cuda`` marker: they
   skip without one; ``python -m pytest -q -m cuda tests/test_torch_gossip_kernels.py``
   runs them there, where JAX is not needed).
-* The wrappers' refusals.
+* The wrappers' refusals, and the round kernels' cluster plan
+  (``plan_round``, pure Python).
 
 The wire-stage kernels and the top-k wire have their CPU tests in
 tests/test_torch_wire_stage.py; their card-only cases are here.
@@ -290,7 +291,9 @@ def test_kernel_matches_twin_on_card(cuda, shape, wires):
 
 @pytest.mark.cuda
 def test_kernel_refuses_tile_over_shared_memory(cuda):
-    n, chunk = 128, 512  # 256 KB tile
+    # W_off alone is 144 KB at n = 192; with the smallest (192, 32) tiles
+    # a block needs 247 KB at every cluster size
+    n, chunk = 192, 512
     bufs = _t(_inputs(n, chunk, 1, seed=0), cuda)
     w = _t(_weights(n), cuda)
     with pytest.raises(ValueError, match="shared"):
@@ -366,3 +369,173 @@ def test_topk_round_kernel_matches_twin_on_card(cuda, shape, wires):
                 assert float((a - b).abs().max()) <= ATOL
             else:
                 assert torch.equal(a, b), (i, kw)
+
+
+def _round_pair(wires):
+    return ((ops.fused_round, ref.fused_round_ref) if wires == 1 else
+            (ops.fused_round_gt, ref.fused_round_gt_ref))
+
+
+def _assert_round(got, want, wires, bufs, what):
+    """recon', res' and scales bitwise; mixed within 1e-5 x max(1,
+    max|input|) (the n x n sum runs in another order)."""
+    tol = ATOL * max(1.0, max(float(b.abs().max()) for b in bufs))
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), (what, i)
+        if i < wires:
+            assert float((a - b).abs().max()) <= tol, (what, i)
+        else:
+            assert torch.equal(a, b), (what, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wires", [1, 2])
+def test_round_kernel_zero_slice_and_zero_chunk_on_card(cuda, wires):
+    """At the main shape, every input zero in (row 3, chunk 1) on one
+    cluster block's columns only (the row's scale comes from the other
+    blocks), and in the whole of (row 5, chunk 2) (scale 0, no step)."""
+    n, t, chunk = 20, 1536, 512
+    c, cols, _ = ops.plan_round(n, t, chunk, None, wires)
+    assert c > 1
+    kernel, twin = _round_pair(wires)
+    w = _t(_weights(n, "hospital20"), cuda)
+    for k, (ef, dc, stale) in enumerate(FLAGS):
+        bufs = _t(_inputs(n, t, wires, seed=40 + k), cuda)
+        for b in bufs:
+            b[3, chunk + cols: chunk + 2 * cols] = 0.0
+            b[5, 2 * chunk: 3 * chunk] = 0.0
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  stale_mix=stale)
+        got = kernel(*bufs, *w, np.float32(0.02), **kw)
+        want = twin(*bufs, *w, np.float32(0.02), **kw)
+        torch.cuda.synchronize()
+        _assert_round(got, want, wires, bufs, kw)
+        for sc in got[-wires:]:
+            assert float(sc[5, 2]) == 0.0 and float(sc[3, 1]) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wires", [1, 2])
+def test_round_kernel_keeps_every_tie_on_card(cuda, wires):
+    """The tie inputs at the main shape, top-k at chunk/4: the ties are
+    spread over every cluster block's columns, the threshold (2) is found
+    exactly and every tie at it is kept on each wire."""
+    n, t, chunk = 20, 1536, 512
+    kernel, twin = _round_pair(wires)
+    w = _t(_weights(n, "hospital20"), cuda)
+    for k, (ef, dc, stale) in enumerate(FLAGS):
+        bufs = _tie_inputs(_t(_inputs(n, t, wires, seed=60 + k), cuda), chunk,
+                           wires, seed=k)
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  stale_mix=stale, topk=chunk // 4)
+        got = kernel(*bufs, *w, np.float32(0.02), **kw)
+        want = twin(*bufs, *w, np.float32(0.02), **kw)
+        torch.cuda.synchronize()
+        _assert_round(got, want, wires, bufs, kw)
+        # recon' on (row 0, chunk 0) is 0 + dq there: nonzero exactly on
+        # the kept columns
+        for i in range(wires):
+            kept = int(torch.count_nonzero(got[wires + 2 * i][0, :chunk]))
+            assert kept == chunk // 8 + chunk // 4, (kw, i, kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wires", [1, 2])
+def test_round_kernel_ragged_unaligned_on_card(cuda, wires):
+    """n = 5, t = 90, chunk 30: rows start off 16-byte boundaries (scalar
+    copies) and the block's tile is wider than its chunk; every flag
+    combination, dense and top-3."""
+    n, t, chunk = 5, 90, 30
+    kernel, twin = _round_pair(wires)
+    w = _t(_weights(n, "complete"), cuda)
+    for k, ((ef, dc, stale), topk) in enumerate(itertools.product(FLAGS, [None, 3])):
+        bufs = _t(_inputs(n, t, wires, seed=80 + k), cuda)
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  stale_mix=stale, topk=topk)
+        got = kernel(*bufs, *w, np.float32(0.02), **kw)
+        want = twin(*bufs, *w, np.float32(0.02), **kw)
+        torch.cuda.synchronize()
+        _assert_round(got, want, wires, bufs, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wires", [1, 2])
+def test_round_kernel_128_nodes_on_card(cuda, wires):
+    """n = 128 at chunk 512, which the one-block-a-chunk design refused,
+    runs and equals the twin (dense wire; DSGD also at top-64)."""
+    n, t, chunk = 128, 1024, 512
+    kernel, twin = _round_pair(wires)
+    w = _t(_weights(n, "ring"), cuda)
+    topks = [None, 64] if wires == 1 else [None]
+    for k, ((ef, dc, stale), topk) in enumerate(itertools.product(FLAGS[:4], topks)):
+        bufs = _t(_inputs(n, t, wires, seed=100 + k), cuda)
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  stale_mix=stale, topk=topk)
+        got = kernel(*bufs, *w, np.float32(0.02), **kw)
+        want = twin(*bufs, *w, np.float32(0.02), **kw)
+        torch.cuda.synchronize()
+        _assert_round(got, want, wires, bufs, kw)
+
+
+# ---------------------------------------------------------------------------
+# the round kernels' cluster plan (pure Python, CPU)
+# ---------------------------------------------------------------------------
+
+
+def _block_cols(chunk, c):
+    cols = -(-chunk // c)
+    return cols + -cols % 4
+
+
+@pytest.mark.parametrize("n", [5, 7, 20, 64, 128])
+@pytest.mark.parametrize("chunk", [30, 32, 128, 512])
+@pytest.mark.parametrize("topk", [None, 8])
+def test_plan_round_covers_the_chunk_within_shared_memory(n, chunk, topk):
+    """Every block of a cluster owns columns, the cluster covers the
+    chunk (the last block the ragged rest), rows stay 16-byte multiples,
+    and a block's shared memory is the kernel's layout and within 227 KB;
+    a refusal only where no cluster size fits."""
+    for wires in (1, 2):
+        try:
+            c, cols, smem = ops.plan_round(n, 4 * chunk, chunk, topk, wires)
+        except ValueError:
+            sizes = [c for c in ops.CLUSTER_SIZES if c == 1 or (
+                _block_cols(chunk, c) >= ops.MIN_BLOCK_COLS
+                and (c - 1) * _block_cols(chunk, c) < chunk)]
+            assert all(ops.round_smem_bytes(n, chunk, c, _block_cols(chunk, c), wires,
+                                            topk) > ops.SMEM_LIMIT_BYTES for c in sizes)
+            continue
+        assert c in ops.CLUSTER_SIZES and cols % 4 == 0
+        assert c * cols >= chunk and (c - 1) * cols < chunk
+        assert c == 1 or cols >= ops.MIN_BLOCK_COLS
+        assert smem == ops.round_smem_bytes(n, chunk, c, cols, wires, topk)
+        assert smem <= ops.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("wires", [1, 2])
+@pytest.mark.parametrize("topk", [None, 64])
+def test_plan_round_fits_two_blocks_an_sm_at_64_nodes(wires, topk):
+    """The large shape (64, 1,048,576) at chunk 512: a block's loads can
+    overlap another's mix."""
+    _, _, smem = ops.plan_round(64, 1 << 20, 512, topk, wires)
+    assert 2 * (smem + ops.BLOCK_RESERVED_BYTES) <= ops.SM_SMEM_BYTES
+
+
+@pytest.mark.parametrize("wires", [1, 2])
+@pytest.mark.parametrize("topk", [None, 64])
+def test_plan_round_spreads_the_main_shape(wires, topk):
+    """The paper's (20, 1536) buffer at chunk 512 is 3 chunks: clusters of
+    at least 8 blocks put it on at least 24 SMs."""
+    c, cols, _ = ops.plan_round(20, 1536, 512, topk, wires)
+    assert c >= 8 and c * cols == 512
+    # a small chunk is one block, the same kernel
+    assert ops.plan_round(20, 640, 32, topk, wires)[0] == 1
+
+
+def test_plan_round_refuses_past_the_limit():
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.plan_round(192, 512, 512, None, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.plan_round(128, 512, 512, 64, 2)
+    with pytest.raises(ValueError, match="wires"):
+        ops.plan_round(20, 1536, 512, None, 3)
