@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds every kernel library from its package's ``csrc/`` (the gossip
-stage, the round megakernels on thread-block clusters and the wire
+Builds every kernel library from its package's ``csrc/`` (the round
+megakernels and the gossip stage on thread-block clusters and the wire
 stages under
 ``src/repro_torch/kernels/gossip``, decode attention and flash attention
 under ``kernels/decode_attention`` and ``kernels/flash_attention``, WKV-6
@@ -104,6 +104,8 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.gossip.ops import (  # noqa: E402
+    GOSSIP_STAGE,
+    compact_gt_plan,
     fused_round,
     fused_round_gt,
     gossip_mix,
@@ -146,15 +148,21 @@ KERNELS = {
                        "src/repro/kernels/gossip/gossip.py:476",
                        CSRC + "fused_round_cluster.cu"),
 }
-# The round kernels' times in the earlier design (one 512-thread block a
-# scale chunk, the wires in series, a 31-step threshold search), us, CUDA
-# events, median of 60, on an H100 80GB HBM3 at 700 W: printed in brackets
-# beside the present times
-EARLIER_ROUND_US = {
+# The redesigned kernels' times in their earlier designs, us, CUDA events,
+# median of 60, on an H100 80GB HBM3 at 700 W, printed in brackets beside
+# the present times: the round kernels and the gossip stage on one
+# 512-thread block a scale chunk (the wires in series, a 31-step threshold
+# search), the DSGT compact wire stage on one warp a (row, chunk) (the
+# wires in series, the 31-step search, a one-lane rank count)
+EARLIER_US = {
     ("fused_round", "main"): 22.05, ("fused_round", "large"): 1862.69,
     ("fused_round", "main top-64"): 55.34,
     ("fused_round_gt", "main"): 39.87, ("fused_round_gt", "large"): 3596.13,
     ("fused_round_gt", "main top-64"): 106.34,
+    ("gossip_mix", "main"): 20.03, ("gossip_mix", "large"): 1659.07,
+    ("gossip_mix", "main top-64"): 54.06,
+    ("wire_stage_gt_compact", "main"): 40.02, ("wire_stage_gt_compact", "large"): 2150.38,
+    ("wire_stage_gt_compact", "main top-16"): 37.34,
 }
 WIRE_KERNELS = {
     "wire_stage": (wire_stage, wire_stage_ref, 1,
@@ -163,8 +171,9 @@ WIRE_KERNELS = {
                       "src/repro/kernels/gossip/gossip.py:679", CSRC + "wire_stage.cu"),
 }
 GOSSIP_KERNELS = {
-    "gossip_mix": (gossip_mix, gossip_mix_ref, 0,
-                   "src/repro/kernels/gossip/gossip.py:378", CSRC + "fused_round.cu"),
+    "gossip_mix": (gossip_mix, gossip_mix_ref, GOSSIP_STAGE,
+                   "src/repro/kernels/gossip/gossip.py:378",
+                   CSRC + "fused_round_cluster.cu"),
 }
 ALL_KERNELS = {**GOSSIP_KERNELS, **KERNELS, **WIRE_KERNELS}
 COMPACT_KERNELS = {
@@ -352,11 +361,30 @@ def gossip_bytes(n: int, t: int, chunk: int) -> int:
     return 4 * (n * t * 6 + n * (t // chunk) + n * n + n)
 
 
-def gossip_ops(n: int, t: int, chunk: int, topk=None) -> int:
-    """fp32 operations of one gossip-stage kernel (``gossip_mix_kernel``
-    in csrc/fused_round.cu): one wire of :func:`round_ops` with no local
-    update."""
-    return stage_ops(n, t, chunk, topk) + n * t * (2 + 2 * n)
+def radix_adds(payload: torch.Tensor, chunk: int, topk: int) -> int:
+    """The histogram adds of the radix select (csrc/select.cuh) over this
+    run's payload rows, one select a (row, chunk): the first pass adds
+    every element, a later pass those whose bits above its digit equal the
+    threshold's (the k-th largest |payload|)."""
+    mag = payload.abs().reshape(-1, chunk)
+    thr = torch.kthvalue(mag, chunk - topk + 1, dim=1, keepdim=True).values
+    bits, tbits = mag.view(torch.int32), thr.view(torch.int32)
+    return mag.numel() + sum(int(((bits >> s) == (tbits >> s)).sum()) for s in (24, 16, 8))
+
+
+def gossip_ops(n: int, t: int, chunk: int, topk=None, terms=None, adds: int = 0) -> int:
+    """Operations of one gossip-stage launch (``round_kernel`` with no
+    update in csrc/fused_round_cluster.cu), counted for this run's data,
+    per element: payload (sub, add), |payload| and its max, divide, rint,
+    clip (min, max), q * scale, recon' (add), res' (sub); with the top-k
+    mask also the mask's |payload| and compare, the radix select's
+    candidate compare in each of its 4 passes and its ``adds``
+    (:func:`radix_adds`); then w_self * x + mix (mul, add) and the mix's
+    multiply-adds, ``terms`` a row (:func:`mix_terms`). Per (row, chunk):
+    max / 127 and the safe select. The bytes bound it several times over."""
+    terms = n if terms is None else terms
+    per_element = 11 + (2 + 4 if topk else 0) + 2 + 2 * terms
+    return int(n * t * per_element) + adds + 2 * n * (t // chunk)
 
 
 def wire_bytes_moved(n: int, t: int, chunk: int, wires: int) -> int:
@@ -386,19 +414,43 @@ def compact_bytes_moved(n: int, t: int, chunk: int, wires: int, topk: int,
     return 4 * ((4 + 3) if wires == 1 else (8 + 6)) * n * t + wires * payload + 4
 
 
-def compact_ops(n: int, t: int, chunk: int, wires: int, topk: int, bitmap: bool) -> int:
-    """Operations of one compact wire-stage kernel, counted from
-    csrc/wire_stage_compact.cu per wire: per element the payload (sub,
-    add), |payload| and its max, 31 threshold-search steps (|p|, compare),
-    the above/equal counts (3 compares) and the recon'/res' pass (select,
-    add, sub); per survivor the quantize twice (divide, rint, min, max)
-    and q * scale + 0; with positions also the rank over the k survivors
-    (2 compares each); per (row, chunk) the scale's divide and select.
-    Plus the local update."""
+def compact_ops(n: int, t: int, chunk: int, topk: int, bitmap: bool) -> int:
+    """Operations of one DSGD compact wire-stage launch
+    (``compact_stage`` in csrc/wire_stage_compact.cu): per element the
+    payload (sub, add), |payload| and its max, 31 threshold-search steps
+    (|p|, compare), the above/equal counts (3 compares) and the
+    recon'/res' pass (select, add, sub); per survivor the quantize twice
+    (divide, rint, min, max) and q * scale + 0; with positions also the
+    rank over the k survivors (2 compares each); per (row, chunk) the
+    scale's divide and select. Plus the local update."""
     c = t // chunk
-    per_wire = (n * t * (4 + 2 * 31 + 3 + 3) + n * c * topk * (10 + (0 if bitmap else 2 * topk))
+    return (n * t * (4 + 2 * 31 + 3 + 3) + n * c * topk * (10 + (0 if bitmap else 2 * topk))
+            + 2 * n * c + update_ops(n, t, 1))
+
+
+def compact_gt_payloads(x, t, g, gp, rx, sx, rt, st) -> list:
+    """The DSGT compact stage's two payloads with error feedback and
+    difference coding (the timed flags)."""
+    t_half = (t + g) - gp
+    h = x - torch.tensor(ALPHA, device=x.device) * t_half
+    return [(t_half - rt) + st, (h - rx) + sx]
+
+
+def compact_gt_ops(n: int, t: int, chunk: int, topk: int, bitmap: bool, adds: int) -> int:
+    """Operations of one DSGT compact wire-stage launch
+    (``wire_stage_gt_compact_kernel`` in csrc/wire_stage_compact.cu),
+    counted for this run's data, per wire: per element the payload (sub,
+    add), |payload| and its max, the radix select's candidate compare in
+    each of its 4 passes, the above/at compares and the recon'/res' pass
+    (add, sub); the select's histogram ``adds`` (:func:`radix_adds`, both
+    wires); per survivor the quantize (divide, rint, min, max) and q *
+    scale + 0, with positions the rank (2 compares over the k survivors)
+    and the quantize again; per (row, chunk) the scale's divide and
+    select. Plus the local update. The bytes bound it several times over."""
+    c = t // chunk
+    per_wire = (n * t * (4 + 4 + 2 + 2) + n * c * topk * (6 + (0 if bitmap else 2 * topk + 4))
                 + 2 * n * c)
-    return wires * per_wire + update_ops(n, t, wires)
+    return 2 * per_wire + adds + update_ops(n, t, 2)
 
 
 def bound(nbytes: int, ops: int):
@@ -508,10 +560,10 @@ def check_kernels() -> dict:
 
 
 def fused_plan(name: str, n: int, t: int, chunk: int, topk):
-    """The round kernel's cluster plan (C, columns a block, shared memory
-    bytes) on this card."""
+    """The cluster plan (C, columns a block, shared memory bytes) of a
+    round kernel or the gossip stage on this card."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return plan_round(n, t, chunk, topk, KERNELS[name][2], sms)
+    return plan_round(n, t, chunk, topk, {**KERNELS, **GOSSIP_KERNELS}[name][2], sms)
 
 
 def check_wire_stages() -> dict:
@@ -1595,17 +1647,21 @@ def time_row(card: str, name: str, label: str, n: int, t: int, k_ms: float,
 def timings(card: str, floor_ms: float) -> dict:
     """Each kernel and its twin at the main and the large shape (dense
     wire) and at the main shape with the top-64 wire -- the round kernels
-    with their cluster size, the earlier design's time in brackets and
-    their distance from the launch floor; then whole rounds, sequential
-    and bounded_staleness:k=2."""
+    and the gossip stage with their cluster size, the earlier design's
+    time in brackets and their distance from the launch floor; then whole
+    rounds, sequential and bounded_staleness:k=2."""
     rows = {}
     cases = [(SHAPES[0], None), (SHAPES[2], None), (SHAPES[0], TOPK_MAIN)]
     for name, (kernel, twin, wires, _, _) in ALL_KERNELS.items():
         for (label, n, t, chunk, topo), topk in cases:
             bufs = make_inputs(n, t, chunk, wires, label, seed=0)
             if name in GOSSIP_KERNELS:
-                args = (*bufs, *weights(topo, n))
-                nbytes, ops = gossip_bytes(n, t, chunk), gossip_ops(n, t, chunk, topk)
+                w_off, w_self = weights(topo, n)
+                args = (*bufs, w_off, w_self)
+                x, recon, res = bufs  # the payload with the timed flags (ef, dc)
+                adds = radix_adds((x - recon) + res, chunk, topk) if topk else 0
+                nbytes = gossip_bytes(n, t, chunk)
+                ops = gossip_ops(n, t, chunk, topk, mix_terms(w_off), adds)
             elif name in KERNELS:
                 w_off, w_self = weights(topo, n)
                 args = (*bufs, w_off, w_self, ALPHA)
@@ -1619,8 +1675,8 @@ def timings(card: str, floor_ms: float) -> dict:
             t_ms = device_ms(lambda: twin(*args, **kw))
             key = label if topk is None else f"{label} top-{topk}"
             note = ""
-            if name in KERNELS:
-                note = (f" [earlier design {EARLIER_ROUND_US[(name, key)]:.2f} us], clusters "
+            if (name, key) in EARLIER_US:
+                note = (f" [earlier design {EARLIER_US[(name, key)]:.2f} us], clusters "
                         f"of {fused_plan(name, n, t, chunk, topk)[0]}, "
                         f"{(k_ms - floor_ms) * 1e3:.2f} us over the launch floor")
             rows[(name, key)] = time_row(card, name, key, n, t, k_ms, t_ms, nbytes, ops,
@@ -1638,27 +1694,39 @@ def timings(card: str, floor_ms: float) -> dict:
     return rows
 
 
-def compact_timings(card: str, group) -> dict:
+def compact_timings(card: str, group, floor_ms: float) -> dict:
     """Both compact wire-stage kernels and their twins at the main shape
     on the top-64 bitmap wire (``main``), the large shape on the same
-    wire, and the main shape on the top-16 positions wire; no PyTorch call
-    computes exact-k selection with int8 quantization (``library_ms``
-    null). Then whole sharded rounds (DSGT top-64, sequential) beside the
-    fused engine's top-64 round."""
+    wire, and the main shape on the top-16 positions wire -- the DSGT
+    kernel with its layout, the earlier design's time in brackets and its
+    distance from the launch floor; no PyTorch call computes exact-k
+    selection with int8 quantization (``library_ms`` null). Then whole
+    sharded rounds (DSGT top-64, sequential) beside the fused engine's
+    top-64 round."""
     rows = {}
     cases = [("main", SHAPES[0], TOPK_MAIN, True), ("large", SHAPES[2], TOPK_MAIN, True),
              ("main top-16", SHAPES[0], 16, False)]
     for name, (kernel, twin, wires, _, _) in COMPACT_KERNELS.items():
         for key, (label, n, t, chunk, _), topk, bitmap in cases:
-            args = (*make_inputs(n, t, chunk, wires, label, seed=0), ALPHA)
+            bufs = make_inputs(n, t, chunk, wires, label, seed=0)
+            args = (*bufs, ALPHA)
             kw = dict(scale_chunk=chunk, topk=topk, bitmap=bitmap)
             k_ms = device_ms(lambda: kernel(*args, **kw))
             t_ms = device_ms(lambda: twin(*args, **kw))
+            note = ""
+            if wires == 1:
+                ops = compact_ops(n, t, chunk, topk, bitmap)
+            else:
+                adds = sum(radix_adds(p, chunk, topk) for p in compact_gt_payloads(*bufs))
+                ops = compact_gt_ops(n, t, chunk, topk, bitmap, adds)
+                together = compact_gt_plan(chunk, topk, bitmap)[0]
+                note = (f" [earlier design {EARLIER_US[(name, key)]:.2f} us], "
+                        f"{'both wires at once' if together else 'a wire at a time'}, "
+                        f"{(k_ms - floor_ms) * 1e3:.2f} us over the launch floor")
             rows[(name, key)] = time_row(
                 card, name, f"{key} ({'bitmap' if bitmap else 'positions'}, k={topk})", n, t,
-                k_ms, t_ms, compact_bytes_moved(n, t, chunk, wires, topk, bitmap),
-                compact_ops(n, t, chunk, wires, topk, bitmap))
-            del args
+                k_ms, t_ms, compact_bytes_moved(n, t, chunk, wires, topk, bitmap), ops, note)
+            del args, bufs
             torch.cuda.empty_cache()
     rows["rounds"] = {
         "sharded top-64": round_profile(card, engine="sharded_fused", topk=TOPK_MAIN,
@@ -1913,8 +1981,8 @@ def ptxas_summary(lib) -> str:
 
 
 # the libraries whose every kernel's registers and spills phase 1 prints
-PTXAS_DETAIL = ("fused_round_cluster", "flash_attention_tc", "decode_attention",
-                "rwkv6_scan", "rglru_scan")
+PTXAS_DETAIL = ("fused_round_cluster", "wire_stage_compact", "flash_attention_tc",
+                "decode_attention", "rwkv6_scan", "rglru_scan")
 
 
 def ptxas_kernels(lib) -> list:
@@ -1987,7 +2055,7 @@ def main() -> int:
     log("phase 4: times (CUDA events, median of 60 after warm-up)")
     floor_ms = launch_floor(card)
     rows = timings(card, floor_ms)
-    compact = compact_timings(card, group)
+    compact = compact_timings(card, group, floor_ms)
     rows["rounds"].update(compact.pop("rounds"))
     rows.update(compact)
     stop_group(group)

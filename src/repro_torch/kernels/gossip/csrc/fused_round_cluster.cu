@@ -2,19 +2,22 @@
 // launch is one whole communication round of the fused engine: the local
 // update, the int8 difference-coded quantization with error feedback
 // (top-k masked when topk > 0) and the W mix, on one wire (DSGD) or on
-// the tracker and the parameter wire together (DSGT).
+// the tracker and the parameter wire together (DSGT) -- or, with no
+// local update, one compressed gossip round of a buffer (the gossip
+// stage of core/compression.py).
 //
 // Replaces the TPU kernels
 //   src/repro/kernels/gossip/gossip.py:421  fused_round_pallas     (DSGD)
 //   src/repro/kernels/gossip/gossip.py:476  fused_round_gt_pallas  (DSGT)
+//   src/repro/kernels/gossip/gossip.py:378  gossip_mix_pallas      (gossip stage)
 // and is held bit for bit (recon', res', scales) and within fp32
 // summation order (mixed) to the PyTorch twins in ../ref.py.
 //
 // Bound: HBM bytes. DSGD reads 4 and writes 3 (n, t) fp32 buffers, DSGT
-// reads 8 and writes 6 (plus the (n, t/chunk) scales and the n x n
-// weights). A dense mix is 2n fp32 operations per element and wire -- at
-// n = 64 on the DSGT round about a quarter of the byte bound's time -- and
-// a graph's W_off is sparse.
+// reads 8 and writes 6, the gossip stage reads 3 and writes 3 (plus the
+// (n, t/chunk) scales and the n x n weights). A dense mix is 2n fp32
+// operations per element and wire -- at n = 64 on the DSGT round about a
+// quarter of the byte bound's time -- and a graph's W_off is sparse.
 //
 // Design:
 //   * A cluster of C blocks owns a scale chunk at a time; block r of the
@@ -40,6 +43,10 @@
 //     the mix (without stale mix), the update's inputs after it.
 //   * DSGT's two wires run in one sweep: t_half once, both payloads, one
 //     cluster barrier for both wires' maxes, both quantized and mixed.
+//   * The gossip stage (WIRES = 0) is DSGD without its update, on DSGD's
+//     layout: x is the payload's source and the mix's self term and is
+//     never overwritten, the payload goes to the second tile (scratch,
+//     never loaded), so it loads 3 tiles a chunk, not 4.
 //   * The payload pass takes up to 4 rows a warp at once, so the rows'
 //     loads and shuffle reductions overlap.
 //   * Row maxes cross as stores: each block writes its partial maxes
@@ -48,9 +55,10 @@
 //     reduces its slots. With top-k, each (wire, row) has an owner block
 //     (row % C); the blocks push their |payload| of that row into the
 //     owner's row buffer, a warp of the owner finds the exact threshold
-//     by a radix select on the bit pattern (4 passes of 8 bits, a 256-bin
-//     histogram a warp in shared memory; it measured faster than a 31-step
-//     search of the local row) and pushes it to every block; a second
+//     by a radix select on the bit pattern (select.cuh: 4 passes of 8
+//     bits, a 256-bin histogram a warp in shared memory; it measured
+//     faster than a 31-step search of the local row) and pushes it to
+//     every block; a second
 //     barrier. The k-th largest |payload| with multiplicity is what the
 //     reference's sort gives, and every tie at it is kept. Nothing crosses
 //     but before a barrier, and dense chunks alternate two sets of slots,
@@ -70,6 +78,7 @@
 #include <cooperative_groups.h>
 
 #include "quantize.cuh"
+#include "select.cuh"
 
 namespace {
 
@@ -78,8 +87,8 @@ using namespace gossip;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBins = 256;
 constexpr int kRows = 4;  // the most rows a warp takes at once
+constexpr int kGossip = 0;  // the wire count that names the gossip stage
 
 // One wire's buffers. recon/res are read, the rest written.
 struct WireIO {
@@ -92,7 +101,8 @@ struct WireIO {
 };
 
 struct Params {
-  // DSGD: in[0..1] = x, g; DSGT: in[0..3] = x, t, g, g_prev
+  // gossip stage: in[0] = x; DSGD: in[0..1] = x, g; DSGT: in[0..3] = x,
+  // t, g, g_prev
   const float* in[4];
   WireIO wire[2];  // DSGT: wire 0 the parameter wire, 1 the tracker wire
   const float* w_off;
@@ -109,7 +119,8 @@ __host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
 
 // The shared-memory layout, in 4-byte words, from the tile sizes alone
 // (the host and the kernel compute it alike; ../ops.py round_smem_bytes
-// mirrors it). Every region starts 16-byte aligned.
+// mirrors it). Every region starts 16-byte aligned. `wires` counts the
+// wires (1 or 2): the gossip stage takes DSGD's layout.
 struct Layout {
   size_t tiles, woff, wself, jmask, lmax, slots, slot_words, gmax, thr, rowbuf,
       total;
@@ -119,7 +130,7 @@ struct Layout {
     const size_t wn = static_cast<size_t>(wires) * n;
     const size_t wn4 = round4(static_cast<int>(wn));
     const size_t owned = (wn + clusters - 1) / clusters;
-    const size_t hist_words = topk ? static_cast<size_t>(kWarps) * kBins : 0;
+    const size_t hist_words = topk ? static_cast<size_t>(kWarps) * kRadixBins : 0;
     slot_words = clusters * wn4 > hist_words ? clusters * wn4 : hist_words;
     tiles = 0;
     woff = tiles + n_in * n * cols;
@@ -172,67 +183,12 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int n,
   }
 }
 
-// The exact k-th largest of a warp's `len` bit patterns (|payload| >= 0,
-// so the bits order as the floats), by radix select from the top byte:
-// each pass histograms the candidates' next 8 bits and keeps the bin that
-// holds the k-th largest. Lane l scans bins 255 - 8l - 7 .. 255 - 8l.
-__device__ unsigned radix_select(const unsigned* vals, int len, int k,
-                                 int* hist) {
-  const int lane = threadIdx.x % 32;
-  unsigned prefix = 0;
-  int krem = k;
-  for (int b = lane; b < kBins; b += 32) hist[b] = 0;
-  __syncwarp();
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    const unsigned mask = shift == 24 ? 0u : ~0u << (shift + 8);
-    for (int c = lane; c < len; c += 32) {
-      const unsigned u = vals[c];
-      if ((u & mask) == prefix) atomicAdd(&hist[(u >> shift) & 255u], 1);
-    }
-    __syncwarp();
-    int cnt[8];
-    int sum = 0;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      cnt[b] = hist[kBins - 1 - 8 * lane - b];
-      sum += cnt[b];
-    }
-    int incl = sum;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(kFullMask, incl, off);
-      if (lane >= off) incl += v;
-    }
-    const int excl = incl - sum;
-    const bool here = excl < krem && krem <= incl;
-    unsigned digit = 0;
-    int knext = 0;
-    if (here) {
-      int acc = excl;
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        if (knext == 0 && krem <= acc + cnt[b]) {
-          digit = kBins - 1 - 8 * lane - b;
-          knext = krem - acc;
-        }
-        acc += cnt[b];
-      }
-    }
-    const int src = __ffs(__ballot_sync(kFullMask, here)) - 1;
-    digit = __shfl_sync(kFullMask, digit, src);
-    krem = __shfl_sync(kFullMask, knext, src);
-    prefix |= digit << shift;
-    __syncwarp();
-#pragma unroll
-    for (int b = 0; b < 8; ++b) hist[8 * lane + b] = 0;
-    __syncwarp();
-  }
-  return prefix;
-}
-
 template <int WIRES, bool EF, bool DC, bool STALE, bool TOPK>
 __global__ void __launch_bounds__(kThreads, 2)
 round_kernel(const Params p) {
+  // WIRES 0 is the gossip stage: one wire with no local update
+  constexpr bool GOSSIP = WIRES == kGossip;
+  constexpr int NW = GOSSIP ? 1 : WIRES;  // wires
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -241,9 +197,9 @@ round_kernel(const Params p) {
   const int n_clusters = gridDim.x / C;
   const int cols_here = min(p.cols, p.chunk - rank * p.cols);
   const int n = p.n, S = p.cols, n_pad = round4(n);
-  const int wn = WIRES * n, wn4 = round4(wn);
+  const int wn = NW * n, wn4 = round4(wn);
   const size_t tile = static_cast<size_t>(n) * S;
-  const Layout lay(WIRES, n, S, p.chunk, C, TOPK);
+  const Layout lay(NW, n, S, p.chunk, C, TOPK);
   float* woff = smem + lay.woff;  // woff[i * n_pad + j] = W_off[i][j]
   float* wself = smem + lay.wself;
   // bit b of jmask[rg]: W_off has a nonzero in rows 4 rg..4 rg + 3,
@@ -259,15 +215,16 @@ round_kernel(const Params p) {
   // rows with every warp, at most kRows
   const int rows = min(kRows, (n + kWarps - 1) / kWarps);
 
-  // Tiles: DSGD [x, g, recon, res]; DSGT [x, t, g, g_prev, recon_x,
-  // res_x, recon_t, res_t]. Per wire: the self term (h / t_half, in
-  // place of x / t), the payload (in place of g / g_prev, later the
-  // neighbour view), recon, res.
-  float* self_t[WIRES];
-  float* pay_t[WIRES];
-  float* rec_t[WIRES];
-  float* res_t[WIRES];
-  if constexpr (WIRES == 1) {
+  // Tiles: DSGD [x, g, recon, res]; gossip stage [x, scratch, recon,
+  // res]; DSGT [x, t, g, g_prev, recon_x, res_x, recon_t, res_t]. Per
+  // wire: the self term (h / t_half in place of x / t; the gossip
+  // stage's x itself), the payload (in place of g / g_prev; the gossip
+  // stage's scratch tile), later the neighbour view, recon, res.
+  float* self_t[NW];
+  float* pay_t[NW];
+  float* rec_t[NW];
+  float* res_t[NW];
+  if constexpr (NW == 1) {
     self_t[0] = smem;
     pay_t[0] = smem + tile;
     rec_t[0] = smem + 2 * tile;
@@ -278,21 +235,22 @@ round_kernel(const Params p) {
     pay_t[0] = smem + 3 * tile;  // g_prev -> payload_x
     pay_t[1] = smem + 2 * tile;  // g -> payload_t
 #pragma unroll
-    for (int w = 0; w < WIRES; ++w) {
+    for (int w = 0; w < NW; ++w) {
       rec_t[w] = smem + (4 + 2 * w) * tile;
       res_t[w] = smem + (5 + 2 * w) * tile;
     }
   }
-  // a chunk's copies: the update's inputs, and each wire's recon and res
+  // a chunk's copies: the update's inputs (the gossip stage's x), and
+  // each wire's recon and res
   auto load_update = [&](size_t col0) {
 #pragma unroll
-    for (int b = 0; b < 2 * WIRES; ++b) {
+    for (int b = 0; b < (GOSSIP ? 1 : 2 * NW); ++b) {
       load_tile(smem + b * tile, p.in[b] + col0, n, p.t, S, cols_here, p.vec);
     }
   };
   auto load_rec = [&](size_t col0) {
 #pragma unroll
-    for (int w = 0; w < WIRES; ++w) {
+    for (int w = 0; w < NW; ++w) {
       if (DC || STALE) {
         load_tile(rec_t[w], p.wire[w].recon + col0, n, p.t, S, cols_here, p.vec);
       }
@@ -300,7 +258,7 @@ round_kernel(const Params p) {
   };
   auto load_res = [&](size_t col0) {
 #pragma unroll
-    for (int w = 0; w < WIRES; ++w) {
+    for (int w = 0; w < NW; ++w) {
       load_tile(res_t[w], p.wire[w].res + col0, n, p.t, S, cols_here, p.vec);
     }
   };
@@ -364,12 +322,12 @@ round_kernel(const Params p) {
     // update in place, both wires' payloads, the row maxes, (top-k) the
     // row to its owner
     for (int i0 = warp * rows; i0 < n; i0 += kWarps * rows) {
-      float m[kRows][WIRES];
-      unsigned* owner[kRows][WIRES];  // (top-k) the row's slot in its owner's buffer
+      float m[kRows][NW];
+      unsigned* owner[kRows][NW];  // (top-k) the row's slot in its owner's buffer
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
 #pragma unroll
-        for (int w = 0; w < WIRES; ++w) {
+        for (int w = 0; w < NW; ++w) {
           m[r][w] = 0.f;
           const int k = w * n + i0 + r;
           owner[r][w] = TOPK && r < rows && i0 + r < n
@@ -383,8 +341,10 @@ round_kernel(const Params p) {
         for (int r = 0; r < kRows; ++r) {
           if (r >= rows || i0 + r >= n) break;
           const size_t o = static_cast<size_t>(i0 + r) * S + c;
-          float src[WIRES];
-          if constexpr (WIRES == 1) {
+          float src[NW];
+          if constexpr (GOSSIP) {
+            src[0] = smem[o];
+          } else if constexpr (NW == 1) {
             src[0] = __fsub_rn(smem[o], __fmul_rn(p.alpha, pay_t[0][o]));
           } else {
             const float th = __fsub_rn(__fadd_rn(self_t[1][o], pay_t[1][o]),
@@ -393,10 +353,10 @@ round_kernel(const Params p) {
             src[0] = __fsub_rn(self_t[0][o], __fmul_rn(p.alpha, th));
           }
 #pragma unroll
-          for (int w = 0; w < WIRES; ++w) {
+          for (int w = 0; w < NW; ++w) {
             const float pl = payload_elem<EF>(src[w], DC ? rec_t[w][o] : 0.f,
                                               EF ? res_t[w][o] : 0.f);
-            self_t[w][o] = src[w];
+            if (!GOSSIP) self_t[w][o] = src[w];
             pay_t[w][o] = pl;
             m[r][w] = fmaxf(m[r][w], fabsf(pl));
             if (TOPK) owner[r][w][c] = __float_as_uint(fabsf(pl));
@@ -408,7 +368,7 @@ round_kernel(const Params p) {
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
 #pragma unroll
-          for (int w = 0; w < WIRES; ++w) {
+          for (int w = 0; w < NW; ++w) {
             m[r][w] = fmaxf(m[r][w], __shfl_xor_sync(kFullMask, m[r][w], off));
           }
         }
@@ -417,7 +377,7 @@ round_kernel(const Params p) {
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
 #pragma unroll
-          for (int w = 0; w < WIRES; ++w) {
+          for (int w = 0; w < NW; ++w) {
             if (r < rows && i0 + r < n) lmax[w * n + i0 + r] = m[r][w];
           }
         }
@@ -443,13 +403,13 @@ round_kernel(const Params p) {
 
     if (TOPK) {
       // the owned rows' thresholds, a warp a row, to every block
-      int* hist = reinterpret_cast<int*>(slots) + warp * kBins;
+      int* hist = reinterpret_cast<int*>(slots) + warp * kRadixBins;
       const int owned = (wn - rank + C - 1) / C;
       for (int s = warp; s < owned; s += kWarps) {
         const int k = s * C + rank;
+        const unsigned* row = rowbuf + static_cast<size_t>(s) * p.chunk;
         const unsigned bits =
-            radix_select(rowbuf + static_cast<size_t>(s) * p.chunk, p.chunk,
-                         p.topk, hist);
+            radix_select([row](int c) { return row[c]; }, p.chunk, p.topk, hist);
         if (lane < C) {
           *(cluster.map_shared_rank(thr, lane) + k) = __uint_as_float(bits);
         }
@@ -463,7 +423,7 @@ round_kernel(const Params p) {
       const size_t ro = static_cast<size_t>(i) * S;
       const size_t go = static_cast<size_t>(i) * p.t + col0;
 #pragma unroll
-      for (int w = 0; w < WIRES; ++w) {
+      for (int w = 0; w < NW; ++w) {
         const WireIO io = p.wire[w];
         RowScale rs = scale_of(gmax[w * n + i]);
         if (TOPK) rs.thr = thr[w * n + i];
@@ -487,14 +447,14 @@ round_kernel(const Params p) {
 
     // mixed = W_off @ nbr + w_self * self, 4 rows x 4 columns a thread
     const int rgs = n_pad / 4, cgs = S / 4;
-    for (int item = threadIdx.x; item < WIRES * rgs * cgs; item += kThreads) {
+    for (int item = threadIdx.x; item < NW * rgs * cgs; item += kThreads) {
       const int cg4 = item % cgs, rg = (item / cgs) % rgs;
-      const bool w1 = WIRES == 2 && item >= cgs * rgs;  // the tracker wire
+      const bool w1 = NW == 2 && item >= cgs * rgs;  // the tracker wire
       const int c = cg4 * 4;
       if (c >= cols_here) continue;
-      const float* nbr = (STALE ? (w1 ? rec_t[WIRES - 1] : rec_t[0])
-                                : (w1 ? pay_t[WIRES - 1] : pay_t[0])) + c;
-      const float* self0 = (w1 ? self_t[WIRES - 1] : self_t[0]) + c;
+      const float* nbr = (STALE ? (w1 ? rec_t[NW - 1] : rec_t[0])
+                                : (w1 ? pay_t[NW - 1] : pay_t[0])) + c;
+      const float* self0 = (w1 ? self_t[NW - 1] : self_t[0]) + c;
       float* mixed = (w1 ? p.wire[1].mixed : p.wire[0].mixed) + col0 + c;
       const float* wrow = woff + rg * 4 * n_pad;
       float acc[4][4];
@@ -556,8 +516,8 @@ round_kernel(const Params p) {
 
 using KernelFn = void (*)(Params);
 
-// The 16 flag combinations of one wire count, indexed
-// ef<<3|dc<<2|stale<<1|topk.
+// The 16 flag combinations of one wire count (0 the gossip stage, 1
+// DSGD, 2 DSGT), indexed ef<<3|dc<<2|stale<<1|topk.
 #define FLAG_ROW(W, EF, DC)                                              \
   round_kernel<W, EF, DC, false, false>, round_kernel<W, EF, DC, false, true>, \
       round_kernel<W, EF, DC, true, false>, round_kernel<W, EF, DC, true, true>
@@ -565,15 +525,16 @@ using KernelFn = void (*)(Params);
   { FLAG_ROW(W, false, false), FLAG_ROW(W, false, true),               \
     FLAG_ROW(W, true, false), FLAG_ROW(W, true, true) }
 
-const KernelFn kTable[2][16] = {FLAG_TABLE(1), FLAG_TABLE(2)};
+const KernelFn kTable[3][16] = {FLAG_TABLE(kGossip), FLAG_TABLE(1), FLAG_TABLE(2)};
 
 KernelFn kernel_for(int wires, int ef, int dc, int stale, int topk) {
   const int idx = (ef ? 8 : 0) | (dc ? 4 : 0) | (stale ? 2 : 0) | (topk > 0 ? 1 : 0);
-  return kTable[wires - 1][idx];
+  return kTable[wires][idx];
 }
 
 size_t smem_bytes(int wires, int n, int chunk, int clusters, int cols, int topk) {
-  return sizeof(float) * Layout(wires, n, cols, chunk, clusters, topk > 0).total;
+  const int nw = wires == kGossip ? 1 : wires;
+  return sizeof(float) * Layout(nw, n, cols, chunk, clusters, topk > 0).total;
 }
 
 cudaLaunchConfig_t config(int grid, int clusters, size_t smem,
@@ -602,7 +563,7 @@ cudaError_t prepare(KernelFn fn, size_t smem, int clusters) {
 }
 
 int launch(Params& p, int wires, int ef, int dc, int stale, void* stream) {
-  const int n_bufs = wires == 1 ? 2 : 4;
+  const int n_bufs = wires == kGossip ? 1 : 2 * wires;
   bool aligned = p.t % 4 == 0 && p.chunk % 4 == 0;
   const void* ptrs[] = {p.in[0], p.in[1], p.in[2], p.in[3],
                         p.wire[0].recon, p.wire[0].res, p.wire[0].mixed,
@@ -631,9 +592,9 @@ int launch(Params& p, int wires, int ef, int dc, int stale, void* stream) {
 
 extern "C" {
 
-// Dynamic shared memory one block needs for a round of `wires` wires with
-// clusters of `clusters` blocks owning `cols` columns each (what the
-// planner in ../ops.py computes too).
+// Dynamic shared memory one block needs for a round of `wires` wires (0:
+// the gossip stage, on DSGD's layout) with clusters of `clusters` blocks
+// owning `cols` columns each (what the planner in ../ops.py computes too).
 size_t fused_round_cluster_smem_bytes(int wires, int n, int chunk, int clusters,
                                       int cols, int topk) {
   return smem_bytes(wires, n, chunk, clusters, cols, topk);
@@ -684,6 +645,30 @@ int fused_round_cluster_launch(const float* x, const float* g,
   p.cols = cols;
   p.grid = grid;
   return launch(p, 1, ef, dc, stale, stream);
+}
+
+// The gossip stage: mixed = W_off @ recon' + w_self * x (stale: against
+// the input recon), with recon', res' and the scales of x's payload.
+int gossip_mix_cluster_launch(const float* x, const float* recon,
+                              const float* res, const float* w_off,
+                              const float* w_self, float* mixed,
+                              float* new_recon, float* new_res, float* scales,
+                              int n, int t, int chunk, int topk, int ef, int dc,
+                              int stale, int clusters, int cols, int grid,
+                              void* stream) {
+  Params p = {};
+  p.in[0] = x;
+  p.wire[0] = WireIO{recon, res, mixed, new_recon, new_res, scales};
+  p.w_off = w_off;
+  p.w_self = w_self;
+  p.n = n;
+  p.t = t;
+  p.chunk = chunk;
+  p.topk = topk;
+  p.clusters = clusters;
+  p.cols = cols;
+  p.grid = grid;
+  return launch(p, kGossip, ef, dc, stale, stream);
 }
 
 int fused_round_gt_cluster_launch(

@@ -1,7 +1,6 @@
-// The quantize-with-error-feedback stage shared by the gossip kernel
-// (fused_round.cu), the round kernels (fused_round_cluster.cu, through
-// the element helpers) and the wire-stage kernels (wire_stage.cu,
-// wire_stage_compact.cu): the
+// The quantize-with-error-feedback stage shared by the round kernels and
+// the gossip stage (fused_round_cluster.cu, through the element helpers)
+// and the wire-stage kernels (wire_stage.cu, wire_stage_compact.cu): the
 // per-tile `_quantize_ef` of src/repro/kernels/gossip/gossip.py:116,
 // with the optional top-k mask of `_topk_mask` (gossip.py:103).
 //

@@ -3,12 +3,12 @@
 
 A wrapper checks its operands, then dispatches by the tensors' device:
 CPU tensors go to the plain PyTorch twin (``ref.py``), CUDA tensors to
-the hand-written kernel in ``csrc/fused_round.cu`` (the gossip stage
-``gossip_mix``), ``csrc/fused_round_cluster.cu`` (the round megakernels,
-on thread-block clusters laid out by :func:`plan_round`),
-``csrc/wire_stage.cu`` (the wire stages) or ``csrc/wire_stage_compact.cu``
-(the compact top-k wire stages) -- there is no switch and no fallback: a
-CUDA call that cannot launch raises. The
+the hand-written kernel in ``csrc/fused_round_cluster.cu`` (the round
+megakernels and the gossip stage ``gossip_mix``, on thread-block
+clusters laid out by :func:`plan_round`), ``csrc/wire_stage.cu`` (the
+wire stages) or ``csrc/wire_stage_compact.cu`` (the compact top-k wire
+stages; the DSGT one laid out by :func:`compact_gt_plan`) -- there is no
+switch and no fallback: a CUDA call that cannot launch raises. The
 wrapper allocates the outputs, launches on the current stream without
 synchronizing, and raises if the launch reports an error. Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (twin calls do not
@@ -47,7 +47,8 @@ from repro_torch.kernels.gossip.ref import (
 
 __all__ = ["gossip_mix", "fused_round", "fused_round_gt", "wire_stage",
            "wire_stage_gt", "wire_stage_compact", "wire_stage_gt_compact",
-           "plan_round", "round_smem_bytes", "SMEM_LIMIT_BYTES"]
+           "plan_round", "round_smem_bytes", "compact_gt_plan", "GOSSIP_STAGE",
+           "SMEM_LIMIT_BYTES"]
 
 #: dynamic shared memory one Hopper block may opt in to (227 KB)
 SMEM_LIMIT_BYTES = 232448
@@ -62,8 +63,14 @@ H100_SMS = 132
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 MIN_BLOCK_COLS = 32
 #: the round kernels' warps a block (csrc/fused_round_cluster.cu kThreads /
-#: 32) and the bins of their radix select
+#: 32) and the bins of the radix select (csrc/select.cuh kRadixBins)
 _ROUND_WARPS, _RADIX_BINS = 8, 256
+#: :func:`plan_round`'s ``wires`` for the gossip stage: one wire with no
+#: local update, on the DSGD round's layout
+GOSSIP_STAGE = 0
+#: the DSGT compact kernel's warps a block (csrc/wire_stage_compact.cu
+#: kGtThreads / 32)
+_GT_WARPS = 4
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 
@@ -74,21 +81,12 @@ def _declare(lib, name, argtypes, restype=_I):
 
 
 @functools.cache
-def _gossip_lib() -> ctypes.CDLL:
-    """The built gossip-stage library with every entry point's C
-    signature declared (pointers and the stream as void*, so ctypes never
-    truncates them)."""
-    lib = load("fused_round")
-    _declare(lib, "gossip_mix_launch", [_P] * 9 + [_I] * 7 + [_P])
-    _declare(lib, "gossip_mix_smem_bytes", [_I, _I], ctypes.c_size_t)
-    _declare(lib, "gossip_error_string", [_I], ctypes.c_char_p)
-    return lib
-
-
-@functools.cache
 def _cluster_lib() -> ctypes.CDLL:
-    """The built cluster round-kernel library, declared as :func:`_gossip_lib`."""
+    """The built cluster round-kernel library (the round kernels and the
+    gossip stage) with every entry point's C signature declared (pointers
+    and the stream as void*, so ctypes never truncates them)."""
     lib = load("fused_round_cluster")
+    _declare(lib, "gossip_mix_cluster_launch", [_P] * 9 + [_I] * 10 + [_P])
     _declare(lib, "fused_round_cluster_launch",
              [_P] * 6 + [_F] + [_P] * 4 + [_I] * 10 + [_P])
     _declare(lib, "fused_round_gt_cluster_launch",
@@ -101,7 +99,7 @@ def _cluster_lib() -> ctypes.CDLL:
 
 @functools.cache
 def _wire_lib() -> ctypes.CDLL:
-    """The built wire-stage library, declared as :func:`_gossip_lib`."""
+    """The built wire-stage library, declared as :func:`_cluster_lib`."""
     lib = load("wire_stage")
     _declare(lib, "wire_stage_launch", [_P] * 4 + [_F] + [_P] * 5 + [_I] * 6 + [_P])
     _declare(lib, "wire_stage_gt_launch",
@@ -113,13 +111,14 @@ def _wire_lib() -> ctypes.CDLL:
 
 @functools.cache
 def _compact_lib() -> ctypes.CDLL:
-    """The built compact wire-stage library, declared as :func:`_gossip_lib`."""
+    """The built compact wire-stage library, declared as :func:`_cluster_lib`."""
     lib = load("wire_stage_compact")
     _declare(lib, "wire_stage_compact_launch",
              [_P] * 4 + [_F] + [_P] * 6 + [_I] * 7 + [_P])
     _declare(lib, "wire_stage_gt_compact_launch",
-             [_P] * 8 + [_F] + [_P] * 12 + [_I] * 7 + [_P])
+             [_P] * 8 + [_F] + [_P] * 12 + [_I] * 8 + [_P])
     _declare(lib, "wire_stage_compact_smem_bytes", [_I, _I], ctypes.c_size_t)
+    _declare(lib, "wire_stage_gt_compact_smem_bytes", [_I] * 4, ctypes.c_size_t)
     _declare(lib, "gossip_error_string", [_I], ctypes.c_char_p)
     return lib
 
@@ -173,7 +172,8 @@ def round_smem_bytes(n: int, chunk: int, clusters: int, cols: int, wires: int,
                      topk) -> int:
     """Dynamic shared memory of one round-kernel block (the layout of
     ``Layout`` in csrc/fused_round_cluster.cu): the (n, cols) input tiles
-    (DSGD 4, DSGT 8), W_off and w_self padded to a multiple of 4, a
+    (DSGD and the gossip stage, ``wires`` = :data:`GOSSIP_STAGE`, 4; DSGT
+    8), W_off and w_self padded to a multiple of 4, a
     64-bit mask of W_off's nonzero 4 x 4 blocks a row group, the block's
     row maxes, every block's (one slot a block, in two sets for the
     dense wire; with top-k one set, which the radix select's histograms,
@@ -181,6 +181,7 @@ def round_smem_bytes(n: int, chunk: int, clusters: int, cols: int, wires: int,
     and the chunk's; with top-k also the thresholds and the owned rows'
     |payload| (ceil(wires n / clusters) rows of the chunk). ``topk`` is
     the kernels' argument: 0 or None for the dense wire."""
+    wires = max(wires, 1)  # the gossip stage takes DSGD's layout
     n_pad = -(-n // 4) * 4
     wn = wires * n
     wn4 = -(-wn // 4) * 4
@@ -209,10 +210,12 @@ def plan_round(n: int, t: int, chunk: int, topk, wires: int,
     every SM two (a chunk's fixed costs -- its barriers and row passes --
     then cover more bytes), and when no C gives that many -- a small
     round -- the most, to spread it over the most SMs.
-    ``topk``: None or >= chunk is the dense wire. Raises ``ValueError``
-    when no cluster size fits."""
-    if wires not in (1, 2):
-        raise ValueError(f"wires must be 1 or 2, got {wires}")
+    ``topk``: None or >= chunk is the dense wire. ``wires``: 1 (DSGD), 2
+    (DSGT) or :data:`GOSSIP_STAGE` (one wire, no update), which is planned
+    as DSGD. Raises ``ValueError`` when no cluster size fits."""
+    if wires not in (GOSSIP_STAGE, 1, 2):
+        raise ValueError(f"wires must be {GOSSIP_STAGE} (the gossip stage), 1 or 2, "
+                         f"got {wires}")
     if n > 256:  # W_off alone is over the limit (and its block masks are 64 bits)
         raise ValueError(f"an n={n} round needs more shared memory than a block may use")
     k = _topk_arg(topk, chunk)
@@ -227,9 +230,10 @@ def plan_round(n: int, t: int, chunk: int, topk, wires: int,
         if smem <= SMEM_LIMIT_BYTES:
             fits.append((c, cols, smem))
     if not fits:
+        what = "gossip stage" if wires == GOSSIP_STAGE else f"round with {wires} wire(s)"
         raise ValueError(
-            f"an (n={n}, chunk={chunk}) round with "
-            f"{wires} wire(s){' at topk ' + str(k) if k else ''} needs more "
+            f"an (n={n}, chunk={chunk}) {what}"
+            f"{' at topk ' + str(k) if k else ''} needs more "
             f"than the {SMEM_LIMIT_BYTES} B of shared memory a block may use "
             "at every cluster size; use a smaller scale_chunk")
     two = [f for f in fits if 2 * (f[2] + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES]
@@ -332,15 +336,14 @@ def gossip_mix(
                  stale_mix=stale_mix)
     if x.device.type == "cpu":
         return gossip_mix_ref(x, recon, res, w_off, w_self, **flags)
-    lib = _gossip_lib()
-    _check_smem(lib.gossip_mix_smem_bytes(n, scale_chunk),
-                f"an (n={n}, chunk={scale_chunk}) tile")
-    tail = _tail(n, t, scale_chunk, topk,
-                 (error_feedback, difference_coding, stale_mix), x.device)
+    lib = _cluster_lib()
+    tail = _round_tail(n, t, scale_chunk, topk,
+                       (error_feedback, difference_coding, stale_mix), GOSSIP_STAGE,
+                       x.device)
     mixed, new_recon, new_res = (torch.empty_like(x) for _ in range(3))
     scales = torch.empty(n, t // scale_chunk, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.gossip_mix_launch(
+        err = lib.gossip_mix_cluster_launch(
             *_ptrs(x, recon, res, w_off, w_self),
             *_ptrs(mixed, new_recon, new_res, scales), *tail)
     _raise_on(lib, err, "gossip_mix")
@@ -569,13 +572,53 @@ def _compact_outs(x: torch.Tensor, n: int, t: int, scale_chunk: int, topk: int,
             torch.empty_like(x), torch.empty_like(x))
 
 
+def _encoding(scale_chunk: int, bitmap: bool) -> int:
+    """The compact kernels' index encoding: 0 int16 positions, 1 int32, 2
+    the bitmap."""
+    return 2 if bitmap else (0 if compact_pos_dtype(scale_chunk) == torch.int16 else 1)
+
+
 def _compact_tail(n: int, t: int, scale_chunk: int, topk: int, ef: bool, dc: bool,
-                  bitmap: bool, dev) -> list:
+                  bitmap: bool, dev, *layout: int) -> list:
     """The compact kernels' trailing C arguments: geometry, flags, the
-    index encoding (0 int16 positions, 1 int32, 2 bitmap), the stream."""
-    encoding = 2 if bitmap else (0 if compact_pos_dtype(scale_chunk) == torch.int16 else 1)
-    return [n, t, scale_chunk, int(topk), int(bool(ef)), int(bool(dc)), encoding,
+    index encoding, the DSGT kernel's ``layout`` arguments, the stream."""
+    return [n, t, scale_chunk, int(topk), int(bool(ef)), int(bool(dc)),
+            _encoding(scale_chunk, bitmap), *layout,
             torch.cuda.current_stream(dev).cuda_stream]
+
+
+def compact_gt_plan(scale_chunk: int, topk: int, bitmap: bool) -> Tuple[bool, int]:
+    """How the DSGT compact kernel lays out a (row, chunk): returns
+    ``(together, smem_bytes)``. A block of 128 threads owns a (row,
+    chunk) and keeps each wire's payload row in shared memory (the layout
+    of ``GtLayout`` in csrc/wire_stage_compact.cu): the rows, a 256-bin
+    radix histogram for each wire's select warp, with positions the
+    survivors' positions and |payload| bits (k each), and the warps'
+    counts, maxes and each wire's threshold. ``together``: both wires'
+    rows fit, and the block runs the wires at once; else it runs them one
+    after the other (one row). Raises ``ValueError`` when neither fits."""
+    for together in (True, False):
+        rows = 2 if together else 1
+        words = (rows * scale_chunk + 2 * _RADIX_BINS + (0 if bitmap else 2 * rows * topk)
+                 + 2 * _GT_WARPS * 2 + 2 * _GT_WARPS + 4)
+        if 4 * words <= SMEM_LIMIT_BYTES:
+            return together, 4 * words
+    raise ValueError(
+        f"the DSGT compact wire at chunk {scale_chunk}, topk {topk} needs "
+        f"{4 * words} B of shared memory, over the {SMEM_LIMIT_BYTES} B a block "
+        "may use; use a smaller scale_chunk or topk")
+
+
+@functools.lru_cache(maxsize=None)
+def _compact_gt_layout(scale_chunk: int, topk: int, bitmap: bool) -> int:
+    """:func:`compact_gt_plan`'s ``together``, held to the kernel's own
+    shared-memory layout."""
+    together, smem = compact_gt_plan(scale_chunk, topk, bitmap)
+    own = _compact_lib().wire_stage_gt_compact_smem_bytes(
+        scale_chunk, topk, _encoding(scale_chunk, bitmap), int(together))
+    if own != smem:
+        raise RuntimeError(f"compact kernel layout {own} B != planned {smem} B")
+    return int(together)
 
 
 def wire_stage_compact(
@@ -663,10 +706,8 @@ def wire_stage_gt_compact(
             *bufs, a, scale_chunk=scale_chunk, error_feedback=error_feedback,
             difference_coding=difference_coding, topk=topk, bitmap=bitmap)
     lib = _compact_lib()
-    _check_smem(lib.wire_stage_compact_smem_bytes(scale_chunk, topk),
-                f"chunk {scale_chunk} at topk {topk}")
     tail = _compact_tail(n, tot, scale_chunk, topk, error_feedback, difference_coding,
-                         bitmap, x.device)
+                         bitmap, x.device, _compact_gt_layout(scale_chunk, topk, bitmap))
     h, t_half = torch.empty_like(x), torch.empty_like(x)
     outs_x = _compact_outs(x, n, tot, scale_chunk, topk, bitmap)
     outs_t = _compact_outs(x, n, tot, scale_chunk, topk, bitmap)

@@ -4,7 +4,7 @@
 They compute the CHOCO-gossip stage on a flat ``(nodes, total)`` buffer
 with per-``(node, scale_chunk)`` int8 scales and an optional top-k mask,
 materializing the payload, dq and recon intermediates that the CUDA
-kernels (``csrc/fused_round.cu``, ``csrc/wire_stage.cu``,
+kernels (``csrc/fused_round_cluster.cu``, ``csrc/wire_stage.cu``,
 ``csrc/wire_stage_compact.cu``) keep on chip.
 They are what the kernel wrappers run for CPU tensors, and the oracle
 every kernel is held to on the card.

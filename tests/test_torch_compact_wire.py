@@ -335,6 +335,140 @@ def test_compact_kernel_matches_twin_on_card(cuda, case, wires):
             assert a.dtype == b.dtype and torch.equal(a, b), (i, kw)
 
 
+def _gt_on_card(cuda, n, t, chunk, topk, bitmap, ef=True, dc=True, seed=0, fill=None,
+                zero=None):
+    """The DSGT compact kernel against its twin: every output bitwise, one
+    launch counted. ``fill`` is a tie pattern for (row 0, chunk 0),
+    ``zero`` a (row, chunk) whose inputs are all zero."""
+    bufs = _t(_inputs(n, t, 2, seed=seed, chunk=chunk, ties=fill), cuda)
+    if zero is not None:
+        i, ci = zero
+        for b in bufs:
+            b[i, ci * chunk:(ci + 1) * chunk] = 0.0
+    kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc, topk=topk,
+              bitmap=bitmap)
+    before = ops.wire_stage_gt_compact.launches
+    got = ops.wire_stage_gt_compact(*bufs, np.float32(0.02), **kw)
+    want = ref.wire_stage_gt_compact_ref(*bufs, np.float32(0.02), **kw)
+    torch.cuda.synchronize()
+    assert ops.wire_stage_gt_compact.launches == before + 1
+    for name, a, b in zip(GT_NAMES, got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (name, kw)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bitmap", [False, True])
+def test_gt_compact_ties_across_the_threshold_on_card(cuda, bitmap):
+    """(20, 1536) at chunk 512, top-64, (row 0, chunk 0) holding 40
+    threes, 100 twos and ones of both signs on both wires: the threshold
+    is 2 and the 24 lowest-index twos fill the k; on the positions wire
+    they follow the threes, in ascending position."""
+    chunk, k = 512, 64
+    rng = np.random.default_rng(5)
+    mags = np.ones(chunk, np.float32)
+    mags[:40], mags[40:140] = 3.0, 2.0
+    fill = rng.permutation(mags * rng.choice([-1.0, 1.0], size=chunk)).astype(np.float32)
+    threes = np.flatnonzero(np.abs(fill) == 3.0)
+    twos = np.flatnonzero(np.abs(fill) == 2.0)[:24]
+    for ef, dc in EF_DC:
+        got = _gt_on_card(cuda, 20, 1536, chunk, k, bitmap, ef, dc, seed=1, fill=fill)
+        for qi in (2, 7):  # both wires
+            if bitmap:
+                bits = np.unpackbits(_np(got[qi + 1][0, :chunk // 8]), bitorder="little")
+                assert set(np.flatnonzero(bits)) == set(threes) | set(twos)
+            else:
+                pos = _np(got[qi + 1][0, :k]).tolist()
+                assert pos == sorted(threes.tolist()) + twos.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topk", [1, 511])
+@pytest.mark.parametrize("bitmap", [False, True])
+def test_gt_compact_extreme_k_on_card(cuda, topk, bitmap):
+    """k = 1 (the max alone) and k = chunk - 1 (all but the smallest) at
+    the main shape, the 4 (ef, dc) combinations."""
+    for k, (ef, dc) in enumerate(EF_DC):
+        _gt_on_card(cuda, 20, 1536, 512, topk, bitmap, ef, dc, seed=10 + k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bitmap", [False, True])
+def test_gt_compact_zero_chunk_on_card(cuda, bitmap):
+    """(row 3, chunk 1) all zero on every input: both wires' scale is 0,
+    q is 0 and the k kept columns are the k lowest indices."""
+    k = 16
+    for ef, dc in EF_DC:
+        got = _gt_on_card(cuda, 20, 1536, 512, k, bitmap, ef, dc, seed=20, zero=(3, 1))
+        for qi in (2, 7):
+            assert float(got[qi + 2][3, 1]) == 0.0
+            assert not bool(got[qi][3, k:2 * k].any())
+            idx = _np(got[qi + 1][3])
+            if bitmap:
+                bits = np.unpackbits(idx[64:128], bitorder="little")
+                assert np.flatnonzero(bits).tolist() == list(range(k))
+            else:
+                assert idx[k:2 * k].tolist() == list(range(k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [30, 40, 100])
+def test_gt_compact_unaligned_chunk_on_card(cuda, chunk):
+    """Chunks that are not a multiple of 32: 30 and 100 (not byte-aligned:
+    positions only; 30 also off 16-byte rows) and 40 (both encodings);
+    k in {1, 7, chunk - 1}, ties in (row 0, chunk 0) where the chunk is a
+    multiple of 8."""
+    fill = _tie_pattern(chunk, np.random.default_rng(chunk)) if chunk % 8 == 0 else None
+    for k, (topk, bitmap) in enumerate(itertools.product(
+            (1, 7, chunk - 1), [False, True] if chunk % 8 == 0 else [False])):
+        _gt_on_card(cuda, 5, 3 * chunk, chunk, topk, bitmap, seed=30 + k, fill=fill)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1024, 4096])
+def test_gt_compact_wide_chunks_on_card(cuda, chunk):
+    """Chunks wider than the block's 512-column step (the counts carried
+    from step to step), k in {16, 64, chunk / 3}, both encodings, ties in
+    (row 0, chunk 0)."""
+    fill = _tie_pattern(chunk, np.random.default_rng(chunk))
+    for k, (topk, bitmap) in enumerate(itertools.product((16, 64, chunk // 3),
+                                                         [False, True])):
+        _gt_on_card(cuda, 4, 2 * chunk, chunk, topk, bitmap, seed=40 + k, fill=fill)
+
+
+# --- the DSGT compact kernel's layout (pure Python) -------------------------
+
+@pytest.mark.parametrize("chunk", [16, 512, 4096, 32768, 32776])
+@pytest.mark.parametrize("bitmap", [False, True])
+def test_compact_gt_plan_fits_shared_memory(chunk, bitmap):
+    """Every plan fits a block's 227 KB and holds the rows it names (both
+    wires' at once, or one); positions add the survivors' lists, the
+    bitmap does not; a refusal only where one row and its lists do not
+    fit."""
+    for topk in (1, 16, 64, chunk // 3, chunk - 1):
+        try:
+            together, smem = ops.compact_gt_plan(chunk, topk, bitmap)
+        except ValueError as err:
+            assert "shared memory" in str(err)
+            assert 4 * (chunk + (0 if bitmap else 2 * topk)) > ops.SMEM_LIMIT_BYTES - 4096
+            continue
+        rows = 2 if together else 1
+        assert rows * 4 * (chunk + (0 if bitmap else 2 * topk)) < smem <= ops.SMEM_LIMIT_BYTES
+        if not bitmap:
+            assert smem - ops.compact_gt_plan(chunk, topk, True)[1] == 4 * 2 * rows * topk
+
+
+def test_compact_gt_plan_layouts():
+    """The paths' shapes run both wires at once; the 32,776-column chunk
+    runs them one after the other; a chunk too wide for one row raises."""
+    for topk, bitmap in ((64, True), (16, False)):
+        assert ops.compact_gt_plan(512, topk, bitmap)[0]
+    assert not ops.compact_gt_plan(32776, 16, False)[0]
+    assert not ops.compact_gt_plan(32776, 16, True)[0]
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.compact_gt_plan(65536, 16, True)
+
+
 # --- the top-k divergence of ROADMAP.md queue 3 --------------------------
 
 def test_topk_gossip_divergence_is_the_references():

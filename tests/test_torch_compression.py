@@ -416,6 +416,126 @@ def test_gossip_mix_kernel_matches_twin_on_card(cuda, shape):
             assert torch.equal(got[i], want[i]), (NAMES[i], kw)
 
 
+def _assert_gossip(got, want, bufs, what):
+    """recon', res' and scales bitwise; mixed within ATOL x max(1,
+    max|input|) (the n x n sum runs in another order)."""
+    tol = ATOL * max(1.0, max(float(b.abs().max()) for b in bufs))
+    for i, (name, a, b) in enumerate(zip(NAMES, got, want)):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), (what, name)
+        if i == 0:
+            assert float((a - b).abs().max()) <= tol, (what, name)
+        else:
+            assert torch.equal(a, b), (what, name)
+
+
+def _card_inputs(n, t, seed, cuda):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(_normal(rng, n, t, scale=s), device=cuda) for s in (1.0, 1.0, 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", FLAGS)
+def test_gossip_mix_keeps_every_tie_on_card(cuda, flags):
+    """The main shape, top-k at chunk/4 with the tie inputs in (row 0,
+    chunk 0): the ties are spread over every cluster block's columns, the
+    threshold (2) is found exactly and every tie at it is kept."""
+    n, t, chunk = 20, 1536, 512
+    ef, dc, stale = flags
+    w_self, w_off = _weights(n, "hospital20", cuda)
+    bufs = _tie_rows(_card_inputs(n, t, 60, cuda), chunk, seed=1)
+    kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+              stale_mix=stale, topk=chunk // 4)
+    got = ops.gossip_mix(*bufs, w_off, w_self, **kw)
+    want = ref.gossip_mix_ref(*bufs, w_off, w_self, **kw)
+    torch.cuda.synchronize()
+    _assert_gossip(got, want, bufs, kw)
+    # recon and res are zero on (row 0, chunk 0): recon' there is 0 + dq,
+    # nonzero exactly on the kept columns
+    assert int(torch.count_nonzero(got[1][0, :chunk])) == chunk // 8 + chunk // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", FLAGS)
+def test_gossip_mix_zero_slice_and_zero_chunk_on_card(cuda, flags):
+    """At the main shape every input zero in (row 3, chunk 1) on one
+    cluster block's columns only (the row's scale comes from the other
+    blocks), and in the whole of (row 5, chunk 2) (scale 0, no step),
+    dense and top-64."""
+    n, t, chunk = 20, 1536, 512
+    c, cols, _ = ops.plan_round(n, t, chunk, None, ops.GOSSIP_STAGE)
+    assert c > 1
+    ef, dc, stale = flags
+    w_self, w_off = _weights(n, "hospital20", cuda)
+    for topk in (None, 64):
+        bufs = _card_inputs(n, t, 40, cuda)
+        for b in bufs:
+            b[3, chunk + cols: chunk + 2 * cols] = 0.0
+            b[5, 2 * chunk: 3 * chunk] = 0.0
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  stale_mix=stale, topk=topk)
+        got = ops.gossip_mix(*bufs, w_off, w_self, **kw)
+        want = ref.gossip_mix_ref(*bufs, w_off, w_self, **kw)
+        torch.cuda.synchronize()
+        _assert_gossip(got, want, bufs, kw)
+        assert float(got[3][5, 2]) == 0.0 and float(got[3][3, 1]) > 0.0
+
+
+@pytest.mark.cuda
+def test_gossip_mix_ragged_unaligned_on_card(cuda):
+    """n = 5, t = 90, chunk 30: rows start off 16-byte boundaries (scalar
+    copies) and the block's tile is wider than its chunk; every flag
+    combination, dense and top-3."""
+    n, t, chunk = 5, 90, 30
+    w_self, w_off = _weights(n, "complete", cuda)
+    for k, ((ef, dc, stale), topk) in enumerate(itertools.product(FLAGS, [None, 3])):
+        bufs = _card_inputs(n, t, 80 + k, cuda)
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  stale_mix=stale, topk=topk)
+        got = ops.gossip_mix(*bufs, w_off, w_self, **kw)
+        want = ref.gossip_mix_ref(*bufs, w_off, w_self, **kw)
+        torch.cuda.synchronize()
+        _assert_gossip(got, want, bufs, kw)
+
+
+@pytest.mark.cuda
+def test_gossip_mix_128_nodes_on_card(cuda):
+    """n = 128 at chunk 512, which the one-block-a-chunk design refused
+    (a 256 KB tile), runs and equals the twin, dense and top-64."""
+    n, t, chunk = 128, 1024, 512
+    w_self, w_off = _weights(n, "ring", cuda)
+    for k, ((ef, dc, stale), topk) in enumerate(itertools.product(FLAGS[:4], [None, 64])):
+        bufs = _card_inputs(n, t, 100 + k, cuda)
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                  stale_mix=stale, topk=topk)
+        got = ops.gossip_mix(*bufs, w_off, w_self, **kw)
+        want = ref.gossip_mix_ref(*bufs, w_off, w_self, **kw)
+        torch.cuda.synchronize()
+        _assert_gossip(got, want, bufs, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topk", [None, 64])
+def test_gossip_mix_stale_mix_on_card(cuda, topk):
+    """With stale_mix the neighbour terms are the INPUT recon: mixed ==
+    W_off @ recon + w_self * x, whatever the wire sent, and recon', res'
+    and the scales are the fresh round's."""
+    n, t, chunk = 20, 1536, 512
+    w_self, w_off = _weights(n, "hospital20", cuda)
+    bufs = _card_inputs(n, t, 7, cuda)
+    x, recon, _ = bufs
+    kw = dict(scale_chunk=chunk, topk=topk)
+    stale = ops.gossip_mix(*bufs, w_off, w_self, stale_mix=True, **kw)
+    fresh = ops.gossip_mix(*bufs, w_off, w_self, **kw)
+    torch.cuda.synchronize()
+    _assert_gossip(stale, ref.gossip_mix_ref(*bufs, w_off, w_self, stale_mix=True, **kw),
+                   bufs, "stale")
+    tol = ATOL * max(1.0, max(float(b.abs().max()) for b in bufs))
+    want = w_off @ recon + w_self[:, None] * x
+    assert float((stale[0] - want).abs().max()) <= tol
+    for i in (1, 2, 3):
+        assert torch.equal(stale[i], fresh[i])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("algorithm", ["dsgd", "dsgt"])
 def test_composition_on_card(cuda, algorithm):

@@ -487,32 +487,52 @@ def _block_cols(chunk, c):
     return cols + -cols % 4
 
 
+# the round kernels' wire counts: the gossip stage (one wire, no update), DSGD, DSGT
+WIRES = [ops.GOSSIP_STAGE, 1, 2]
+
+
 @pytest.mark.parametrize("n", [5, 7, 20, 64, 128])
 @pytest.mark.parametrize("chunk", [30, 32, 128, 512])
 @pytest.mark.parametrize("topk", [None, 8])
-def test_plan_round_covers_the_chunk_within_shared_memory(n, chunk, topk):
+@pytest.mark.parametrize("wires", WIRES)
+def test_plan_round_covers_the_chunk_within_shared_memory(n, chunk, topk, wires):
     """Every block of a cluster owns columns, the cluster covers the
     chunk (the last block the ragged rest), rows stay 16-byte multiples,
     and a block's shared memory is the kernel's layout and within 227 KB;
     a refusal only where no cluster size fits."""
-    for wires in (1, 2):
-        try:
-            c, cols, smem = ops.plan_round(n, 4 * chunk, chunk, topk, wires)
-        except ValueError:
-            sizes = [c for c in ops.CLUSTER_SIZES if c == 1 or (
-                _block_cols(chunk, c) >= ops.MIN_BLOCK_COLS
-                and (c - 1) * _block_cols(chunk, c) < chunk)]
-            assert all(ops.round_smem_bytes(n, chunk, c, _block_cols(chunk, c), wires,
-                                            topk) > ops.SMEM_LIMIT_BYTES for c in sizes)
-            continue
-        assert c in ops.CLUSTER_SIZES and cols % 4 == 0
-        assert c * cols >= chunk and (c - 1) * cols < chunk
-        assert c == 1 or cols >= ops.MIN_BLOCK_COLS
-        assert smem == ops.round_smem_bytes(n, chunk, c, cols, wires, topk)
-        assert smem <= ops.SMEM_LIMIT_BYTES
+    try:
+        c, cols, smem = ops.plan_round(n, 4 * chunk, chunk, topk, wires)
+    except ValueError:
+        sizes = [c for c in ops.CLUSTER_SIZES if c == 1 or (
+            _block_cols(chunk, c) >= ops.MIN_BLOCK_COLS
+            and (c - 1) * _block_cols(chunk, c) < chunk)]
+        assert all(ops.round_smem_bytes(n, chunk, c, _block_cols(chunk, c), wires,
+                                        topk) > ops.SMEM_LIMIT_BYTES for c in sizes)
+        return
+    assert c in ops.CLUSTER_SIZES and cols % 4 == 0
+    assert c * cols >= chunk and (c - 1) * cols < chunk
+    assert c == 1 or cols >= ops.MIN_BLOCK_COLS
+    assert smem == ops.round_smem_bytes(n, chunk, c, cols, wires, topk)
+    assert smem <= ops.SMEM_LIMIT_BYTES
 
 
-@pytest.mark.parametrize("wires", [1, 2])
+@pytest.mark.parametrize("n", [5, 20, 64, 128])
+@pytest.mark.parametrize("chunk", [30, 512])
+@pytest.mark.parametrize("topk", [None, 8])
+def test_plan_round_lays_the_gossip_stage_out_as_dsgd(n, chunk, topk):
+    """The gossip stage is the DSGD round without its update: the same
+    plan and the same shared-memory layout (x's tile is the self term,
+    the payload goes to the tile DSGD loads g into)."""
+    t = 3 * chunk
+    assert (ops.plan_round(n, t, chunk, topk, ops.GOSSIP_STAGE)
+            == ops.plan_round(n, t, chunk, topk, 1))
+    for c in (1, 2, 8):
+        cols = _block_cols(chunk, c)
+        assert (ops.round_smem_bytes(n, chunk, c, cols, ops.GOSSIP_STAGE, topk)
+                == ops.round_smem_bytes(n, chunk, c, cols, 1, topk))
+
+
+@pytest.mark.parametrize("wires", WIRES)
 @pytest.mark.parametrize("topk", [None, 64])
 def test_plan_round_fits_two_blocks_an_sm_at_64_nodes(wires, topk):
     """The large shape (64, 1,048,576) at chunk 512: a block's loads can
@@ -521,7 +541,7 @@ def test_plan_round_fits_two_blocks_an_sm_at_64_nodes(wires, topk):
     assert 2 * (smem + ops.BLOCK_RESERVED_BYTES) <= ops.SM_SMEM_BYTES
 
 
-@pytest.mark.parametrize("wires", [1, 2])
+@pytest.mark.parametrize("wires", WIRES)
 @pytest.mark.parametrize("topk", [None, 64])
 def test_plan_round_spreads_the_main_shape(wires, topk):
     """The paper's (20, 1536) buffer at chunk 512 is 3 chunks: clusters of
@@ -535,6 +555,8 @@ def test_plan_round_spreads_the_main_shape(wires, topk):
 def test_plan_round_refuses_past_the_limit():
     with pytest.raises(ValueError, match="shared memory"):
         ops.plan_round(192, 512, 512, None, 1)
+    with pytest.raises(ValueError, match="gossip stage.*shared memory"):
+        ops.plan_round(192, 512, 512, None, ops.GOSSIP_STAGE)
     with pytest.raises(ValueError, match="shared memory"):
         ops.plan_round(128, 512, 512, 64, 2)
     with pytest.raises(ValueError, match="wires"):

@@ -1,11 +1,15 @@
-"""Time the round megakernels on one CUDA card.
+"""Time the round megakernels, the gossip stage and the DSGT compact wire
+stage on one CUDA card.
 
     PYTHONPATH=<tree>/src python3 tools/round_kernel_times.py --label NAME
 
-Times ``fused_round`` and ``fused_round_gt`` through their wrappers in
-``repro_torch.kernels.gossip.ops`` at the main path's (20, 1536) buffer
-(hospital20 graph, dense and top-64) and at (64, 1,048,576) (8 x 8 torus),
-scale chunk 512, by CUDA events: the median of 60 calls after 5 of warm-up,
+Times ``fused_round``, ``fused_round_gt`` and ``gossip_mix`` through their
+wrappers in ``repro_torch.kernels.gossip.ops`` at the main path's (20, 1536)
+buffer (hospital20 graph, dense and top-64) and at (64, 1,048,576) (8 x 8
+torus), and ``wire_stage_gt_compact`` at (20, 1536) on the top-64 bitmap
+wire (``main``), at (64, 1,048,576) on the same wire (``large``) and at
+(20, 1536) on the top-16 positions wire (``main top-16``), scale chunk 512,
+by CUDA events: the median of 60 calls after 5 of warm-up,
 a spin kernel ahead of each call holding the stream while the host enqueues
 it, as ``chip_smoke.py`` times them. The ``repro_torch`` that runs is the
 one PYTHONPATH names, so one call can time two trees in turns (earlier,
@@ -27,11 +31,19 @@ import numpy as np
 import torch
 
 from repro_torch.core.topology import mixing_matrix
-from repro_torch.kernels.gossip.ops import fused_round, fused_round_gt
+from repro_torch.kernels.gossip.ops import (
+    fused_round,
+    fused_round_gt,
+    gossip_mix,
+    wire_stage_gt_compact,
+)
 
 # (label, nodes, flat width, topology, topk)
 CASES = [("main", 20, 1536, "hospital20", None), ("large", 64, 1 << 20, "torus:8x8", None),
          ("main top-64", 20, 1536, "hospital20", 64)]
+# the DSGT compact wire stage: (label, nodes, flat width, topk, bitmap)
+COMPACT_CASES = [("main", 20, 1536, 64, True), ("large", 64, 1 << 20, 64, True),
+                 ("main top-16", 20, 1536, 16, False)]
 CHUNK = 512
 ALPHA = np.float32(0.02)
 
@@ -56,6 +68,11 @@ def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def record(out: dict, label: str, card: str, key: str, n: int, t: int, ms: float) -> None:
+    out[key] = ms * 1e3
+    print(f"{label}: {key} ({n}x{t}): {ms * 1e3:.2f} us [{card}]", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default="tree")
@@ -73,16 +90,22 @@ def main() -> int:
         w = mixing_matrix(topo, n)
         w_self = torch.tensor(np.diag(w).astype(np.float32), device="cuda")
         w_off = torch.tensor((w - np.diag(np.diag(w))).astype(np.float32), device="cuda")
-        for name, kernel, n_bufs in (("fused_round", fused_round, 4),
-                                     ("fused_round_gt", fused_round_gt, 8)):
+        for name, kernel, n_bufs, extra in (("fused_round", fused_round, 4, (ALPHA,)),
+                                            ("fused_round_gt", fused_round_gt, 8, (ALPHA,)),
+                                            ("gossip_mix", gossip_mix, 3, ())):
             bufs = [torch.randn(n, t, generator=gen, device="cuda") for _ in range(n_bufs)]
-            ms = device_ms(lambda: kernel(*bufs, w_off, w_self, ALPHA, scale_chunk=CHUNK,
+            ms = device_ms(lambda: kernel(*bufs, w_off, w_self, *extra, scale_chunk=CHUNK,
                                           topk=topk))
-            out[f"{name} {label}"] = ms * 1e3
-            print(f"{args.label}: {name} {label} ({n}x{t}): {ms * 1e3:.2f} us [{card}]",
-                  flush=True)
+            record(out, args.label, card, f"{name} {label}", n, t, ms)
             del bufs
             torch.cuda.empty_cache()
+    for label, n, t, topk, bitmap in COMPACT_CASES:
+        bufs = [torch.randn(n, t, generator=gen, device="cuda") for _ in range(8)]
+        ms = device_ms(lambda: wire_stage_gt_compact(*bufs, ALPHA, scale_chunk=CHUNK,
+                                                     topk=topk, bitmap=bitmap))
+        record(out, args.label, card, f"wire_stage_gt_compact {label}", n, t, ms)
+        del bufs
+        torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "card": card, "us": out}), flush=True)
     return 0
 
