@@ -26,7 +26,13 @@ compressed FD-DSGT composition (the flat engine, then
 ``make_compressed_flat_gossip`` on each wire, against the fused engine),
 the sharded engine on a one-rank NCCL group (FD-DSGD and FD-DSGT,
 sequential and pipelined, on the compact top-16 and top-64 wires and the
-dense int8 wire, against the fused engine on the card) and serving: SmolLM-360M at full width with random weights,
+dense int8 wire, against the fused engine on the card), the dynamic
+rounds (the fused engine under topology and node programs -- node churn,
+edge failure, stragglers at k = 2 and 4, payload drop, RGG rewiring,
+round-robin subgraphs -- each round's realized W_off bitwise the CPU's,
+then the three EHR round-axis drivers in full, their realized fractions
+against the committed experiments/*_ehr.json) and serving: SmolLM-360M
+at full width with random weights,
 ``ServeEngine.generate`` (batch 8, 128 prompt + 64 new tokens, greedy,
 a second weight set published mid-run), the bundle's prefill against
 the decode replay, and the first 16 steps teacher-forced on the host CPU;
@@ -67,6 +73,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.benchmarks import churn_ehr, staleness_ehr, straggler_ehr  # noqa: E402
 from repro_torch.benchmarks.fig2_comm_rounds import ALGOS, claims  # noqa: E402
 from repro_torch.benchmarks.fig2_comm_rounds import run as fig2_run  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -76,6 +83,7 @@ from repro_torch.core.compression import (  # noqa: E402
     init_flat_compression_state,
     make_compressed_flat_gossip,
 )
+from repro_torch.core.dynamics import _as_key, parse_program  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
     FlatEngine,
     FusedEngine,
@@ -284,6 +292,32 @@ REC_FP32_PREFILL_TOL, REC_FP32_CPU_TOL = 1e-2, 1e-3
 # tolerances for these functions (tests/test_kernels.py), as |got - want|
 # <= atol + rtol |want|
 SCAN_TOL = {"wkv6": (5e-4, 1e-3), "rglru_scan": (1e-4, 1e-4)}
+
+# The dynamic rounds: the paper's configuration on the fused engine with
+# each round's realized W (topology program, node program) handed to the
+# round kernels -- (label, algorithm, schedule, topology program, node
+# program, rounds, the kernel each round launches once)
+DYNAMIC_RUNS = [
+    ("(a) FD-DSGT node churn", "dsgt", "sequential",
+     "node_churn:p_down=0.25,mean_downtime=5", None, 20, "fused_round_gt"),
+    ("(b) FD-DSGD edge failure", "dsgd", "sequential", "edge_failure:p=0.4375", None, 5,
+     "fused_round"),
+    ("(c) FD-DSGT k=2 stragglers", "dsgt", "bounded_staleness:k=2", None,
+     "stragglers:frac=0.5,rate=0.5,drop=1", 20, "wire_stage_gt"),
+    ("(d) FD-DSGT pipelined payload drop", "dsgt", "pipelined", None,
+     "payload_drop:p=0.1", 5, "fused_round_gt"),
+    ("(e) FD-DSGT rgg rewire", "dsgt", "sequential", "rgg_rewire", None, 5,
+     "fused_round_gt"),
+    ("(f) FD-DSGT round-robin subgraphs", "dsgt", "sequential", "round_robin_subgraphs",
+     None, 5, "fused_round_gt"),
+    ("(g) FD-DSGD k=4 stragglers", "dsgd", "bounded_staleness:k=4", None,
+     "stragglers:frac=0.5,rate=0.5,drop=1", 5, "wire_stage"),
+]
+# the EHR drivers' full runs: 6 + 5 + 13 cells; their realized fractions
+# (a function of the programs alone) against the committed JSONs within
+# this, their bal_acc printed beside the JSONs' (another init: the JSONs'
+# came from jax.random, the port's from a torch.Generator)
+DRIVER_FRACTION_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1183,6 +1217,141 @@ def compressed_path() -> dict:
     return {"gossip_mix": 10}
 
 
+def dynamic_run(device: str, algorithm: str, schedule: str, topology_program,
+                node_program, rounds: int) -> dict:
+    """One dynamic run through the library's entry points: the fused
+    engine under the programs, ``make_fl_round``, ``rounds`` rounds of Q
+    = 10 on the paper's cohort and graph. Records each round's realized
+    W_off (the engine's ``_round_gates`` of the comm state the round
+    enters), the losses, the wire bytes and the realized fractions."""
+    cfg = FLConfig(algorithm=algorithm, q=10, n_nodes=20)
+    engine, flat = get_engine("fused").simulated(
+        mixing_matrix("hospital20", 20), stack_for_nodes(mlp_init(0, device=device), 20),
+        scale_chunk=512, round_schedule=schedule, topology_program=topology_program,
+        node_program=node_program)
+    round_fn = make_fl_round(make_mlp_loss(class_weights()), inv_sqrt(0.02), cfg, engine)
+    state = init_fl_state(cfg, flat, engine)
+    batcher = make_node_batcher(generate_ehr_cohort(seed=0), m=20, seed=1)
+    w_offs, losses, fracs = [], [], {}
+    for _ in range(rounds):
+        w_offs.append(engine._round_gates(state.comm)[0])
+        state, m = round_fn(state, stack_batches(batcher, cfg.q))
+        losses.append(m["loss"])
+        for k in ("edge_fraction", "payload_fraction", "compute_fraction"):
+            if k in m:
+                fracs.setdefault(k, []).append(m[k])
+    return {"w_off": torch.stack(w_offs).cpu(), "losses": torch.stack(losses).tolist(),
+            "wire_bytes": m["wire_bytes"],
+            "fractions": {k: torch.stack(v).tolist() for k, v in fracs.items()}}
+
+
+def dynamic_paths() -> dict:
+    """The dynamic rounds on the card, each against the same run on the
+    CPU twins: the launches (one kernel a round), the realized W_off
+    sequence bitwise, the fractions equal, the losses within 1e-2
+    relative, the wire bytes unchanged."""
+    launches = {}
+    for label, algorithm, schedule, tp, npg, rounds, kernel in DYNAMIC_RUNS:
+        zero_counts()
+        card = dynamic_run("cuda", algorithm, schedule, tp, npg, rounds)
+        expect_launches(label, **{kernel: rounds})
+        launches[kernel] = launches.get(kernel, 0) + rounds
+        cpu = dynamic_run("cpu", algorithm, schedule, tp, npg, rounds)
+        same_w = torch.equal(card["w_off"].view(torch.int32), cpu["w_off"].view(torch.int32))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+        want_bytes = WIRE_DSGT if algorithm == "dsgt" else WIRE_DSGD
+        losses = card["losses"]
+        if (not same_w or card["fractions"] != cpu["fractions"] or rel > 1e-2
+                or card["wire_bytes"] != want_bytes
+                or not all(math.isfinite(v) for v in losses)):
+            raise AssertionError(
+                f"{label}: W_off bitwise {same_w}, fractions {card['fractions']} vs "
+                f"{cpu['fractions']}, loss rel {rel}, wire {card['wire_bytes']}")
+        means = ", ".join(f"{k} {np.mean(v):.4f}" for k, v in card["fractions"].items())
+        log(f"  {label} ({schedule}, {tp or npg}), {rounds} rounds x Q=10: {rounds} "
+            f"{kernel} launches, W_off of every round bitwise the CPU's, {means}, "
+            f"wire {card['wire_bytes']:.0f} B/round, losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, max rel diff to the CPU {rel:.2e}")
+    return launches
+
+
+def program_edge_fraction(spec: str, rounds: int) -> float:
+    """The mean realized edge fraction of ``rounds`` rounds of a topology
+    program on the hospital graph, from the program alone on the CPU
+    (the oracle the tests hold to the reference bit for bit)."""
+    prog = parse_program(spec).bind(mixing_matrix("hospital20", 20), device="cpu")
+    key = _as_key(prog.init_key())
+    state = {k: torch.as_tensor(v) for k, v in prog.init_state().items()}
+    fracs = []
+    for r in range(rounds):
+        w_off, _, state = prog.round_weights_state(r, key, state)
+        fracs.append(prog.edge_fraction(w_off))
+    return float(np.mean(torch.stack(fracs).tolist()))
+
+
+def _committed(name: str) -> list:
+    with open(os.path.join(ROOT, "experiments", f"{name}.json")) as f:
+        return json.load(f)["cells"]
+
+
+def _check_fraction(what: str, got: float, want: float) -> None:
+    if not abs(got - want) <= DRIVER_FRACTION_TOL:
+        raise AssertionError(f"{what}: realized fraction {got!r}, want {want!r}")
+
+
+def driver_paths() -> None:
+    """The three EHR round-axis drivers in full on the card: staleness (6
+    cells, 320 iterations each), churn (5 cells x 120 rounds), straggler
+    (13 cells x 80 rounds). Launches counted per driver; the realized
+    fractions held to the committed JSONs (the JSON's node_churn cells
+    predate the reference's Markov chain, so those are held to the
+    program's own fractions and the JSON's printed beside); bal_acc
+    printed beside the JSON's."""
+    t0 = time.perf_counter()
+    zero_counts()
+    rec = staleness_ehr.run(320, device="cuda", log=False)
+    expect_launches("staleness driver", fused_round_gt=840)
+    for cell, ref in zip(rec["cells"], _committed("staleness_ehr")):
+        if not math.isfinite(cell["bal_acc"]) or cell["iterations"] != ref["iterations"]:
+            raise AssertionError(f"staleness cell {cell}")
+        log(f"  staleness Q={cell['q']:2d} {cell['schedule']:10s}: bal_acc "
+            f"{cell['bal_acc']:.4f} (JSON {ref['bal_acc']:.4f})")
+
+    zero_counts()
+    rec = churn_ehr.run(120, 10, device="cuda", log=False)
+    expect_launches("churn driver", fused_round_gt=600)
+    json_cells = {c["program"]: c for c in _committed("churn_ehr")}
+    for cell in rec["cells"]:
+        ref = json_cells[cell["program"]]
+        got = cell["mean_edge_fraction"]
+        if cell["program"].startswith("node_churn"):
+            _check_fraction(cell["program"], got, program_edge_fraction(cell["program"], 120))
+            note = f"(the program's own; JSON {ref['mean_edge_fraction']:.6f} predates the chain)"
+        else:
+            _check_fraction(cell["program"], got, ref["mean_edge_fraction"])
+            note = f"(JSON {ref['mean_edge_fraction']:.6f})"
+        log(f"  churn {cell['program']}: edges up {got:.6f} {note}, bal_acc "
+            f"{cell['bal_acc']:.4f} (JSON {ref['bal_acc']:.4f})")
+
+    zero_counts()
+    rec = straggler_ehr.run(80, 10, device="cuda", log=False)
+    expect_launches("straggler driver", fused_round_gt=480, wire_stage_gt=560)
+    for cell, ref in zip(rec["cells"], _committed("straggler_ehr")):
+        if (cell["schedule"], cell["node_program"], cell["robust_alpha"]) != (
+                ref["schedule"], ref["node_program"], ref["robust_alpha"]):
+            raise AssertionError(f"straggler cells out of order: {cell} vs {ref}")
+        for k in ("mean_payload_fraction", "mean_compute_fraction"):
+            _check_fraction(f"straggler {cell['schedule']} {cell['node_program']} {k}",
+                            cell[k], ref[k])
+        log(f"  straggler k={cell['staleness_depth']} frac={cell['straggler_fraction']}"
+            f"{' robust_alpha' if cell['robust_alpha'] else ''}: payload "
+            f"{cell['mean_payload_fraction']:.6f}, compute "
+            f"{cell['mean_compute_fraction']:.6f} (= JSON), bal_acc "
+            f"{cell['bal_acc']:.4f} (JSON {ref['bal_acc']:.4f})")
+    log(f"  the three drivers in {time.perf_counter() - t0:.1f} s: 840 + 600 + 480 "
+        "fused_round_gt, 560 wire_stage_gt launches")
+
+
 def fused_oracle(algorithm: str, schedule: str, topk, rounds: int = SHARDED_ROUNDS,
                  q: int = 10):
     """The port's FusedEngine on the card with ``run_sharded_engine``'s
@@ -1559,7 +1728,8 @@ def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
 
 def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
                   class_weight="balanced", rounds: int = 50, warmup: int = 5,
-                  profiled: int = 5, topk=None, group=None) -> dict:
+                  profiled: int = 5, topk=None, group=None, topology_program=None,
+                  node_program=None) -> dict:
     """Median host-clock time of one whole DSGT round with Q local steps
     (Q gradient evaluations, then the engine's comm step: one kernel
     launch on the fused engine, plus the PyTorch stale mix at depth k >=
@@ -1568,7 +1738,8 @@ def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
     scatter and the mix), synchronized; then ``torch.profiler`` over
     ``profiled`` more rounds for the device's busy time and operation
     count per round and the host's costliest ops."""
-    label = f"DSGT Q={q} {engine} {schedule or 'sequential'}" + (f" top-{topk}" if topk else "")
+    label = (f"DSGT Q={q} {engine} {schedule or 'sequential'}" + (f" top-{topk}" if topk else "")
+             + "".join(f" {p}" for p in (topology_program, node_program) if p))
     data = generate_ehr_cohort(seed=0)
     batcher = make_node_batcher(data, m=20, seed=1)
     cfg = FLConfig(algorithm="dsgt", q=q, n_nodes=20)
@@ -1577,7 +1748,8 @@ def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
     if group is not None:
         eng, params = ShardedFusedEngine.from_group(group, stacked, w=w, **kw)
     else:
-        eng, params = get_engine(engine).simulated(w, stacked, **kw)
+        eng, params = get_engine(engine).simulated(
+            w, stacked, topology_program=topology_program, node_program=node_program, **kw)
     round_fn = make_fl_round(make_mlp_loss(class_weights(class_weight)), inv_sqrt(0.02),
                              cfg, eng)
     state = init_fl_state(cfg, params, eng)
@@ -1685,6 +1857,10 @@ def timings(card: str, floor_ms: float) -> dict:
             torch.cuda.empty_cache()
     rows["rounds"] = {spec: round_profile(card, spec)
                       for spec in (None, "bounded_staleness:k=2")}
+    # the dynamic rounds (a) and (c) beside the static ones
+    rows["rounds"]["churn"] = round_profile(card, topology_program=DYNAMIC_RUNS[0][3])
+    rows["rounds"]["stragglers k=2"] = round_profile(
+        card, DYNAMIC_RUNS[2][2], node_program=DYNAMIC_RUNS[2][4])
     # the Fig. 2 path: DSGT and FD-DSGT (Q = 100) on the tree engine, with
     # the paper's unweighted loss
     rows["rounds"]["tree"] = round_profile(card, engine="tree", q=1, class_weight=None)
@@ -2037,6 +2213,10 @@ def main() -> int:
     launches.update(stale_paths(launches.pop("sequential_losses")))
     fig2_path()
     launches.update(compressed_path())
+    log("  -- the dynamic rounds (topology and node programs)")
+    for name, count in dynamic_paths().items():
+        launches[name] += count
+    driver_paths()
     log("  -- the sharded engine on a one-rank NCCL group")
     group = start_group(0, 1, os.path.join(tempfile.mkdtemp(), "store"), device="cuda")
     launches.update(sharded_path(group))

@@ -40,11 +40,25 @@ Four engines are ported:
   neighbor-reconstruction accumulator, on a dense W.
 
 The exact-wire engines are sequential-only and refuse top-k and partial
-federation scopes, as the reference's do. Everything outside the ported
-slice -- topology and node programs, privacy, federation scopes on the
-fused engines, bf16 storage, the sharded engine's circulant torus wire
-and two-axis layout -- raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+federation scopes, as the reference's do.
+
+Two more round axes make the graph change from round to round: the
+engine's :class:`~repro_torch.core.dynamics.TopologyProgram` (links fail,
+hospitals churn offline, subgraphs alternate, radio links rewire) and its
+:class:`~repro_torch.core.heterogeneity.NodeProgram` (stragglers run
+fewer local steps, payloads are dropped). A dynamic program adds the
+counters ``topo_round``, ``topo_key`` (and ``topo_up``, ``node_key``) to
+``FLState.comm``; each round's realized W_r is derived from them on the
+device (:meth:`GossipEngine._round_gates`) and handed to the same round
+kernels as a runtime operand, and stragglers sit out local steps as
+masked updates. ``flat`` and ``fused`` run both axes; ``tree`` refuses
+them, as the reference's does; ``sharded_fused`` refuses them as the part
+not ported yet.
+
+Everything else outside the ported slice -- privacy, federation scopes
+on the fused engines, bf16 storage, the sharded engine's dynamic round,
+circulant torus wire and two-axis layout -- raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -65,7 +79,14 @@ from repro_torch.core.fl import (
     check_node_stacked,
     tree_map,
 )
-from repro_torch.core.mixing import make_dense_flat_mix, make_dense_gossip
+from repro_torch.core.dynamics import STATIC, TopologyProgram, _as_key, _frac, resolve_program
+from repro_torch.core.heterogeneity import (
+    HOMOGENEOUS,
+    NodeProgram,
+    compose_node_gate,
+    resolve_node_program,
+)
+from repro_torch.core.mixing import _wire, make_dense_flat_mix, make_dense_gossip
 from repro_torch.core.packing import (
     FlatLayout,
     bitmap_bytes_per_chunk,
@@ -207,21 +228,29 @@ def resolve_schedule(rs) -> RoundSchedule:
         ) from None
 
 
-def _assemble_round(cfg: FLConfig, local_step, comm_call, engine, pre_scan=None):
+def _assemble_round(cfg: FLConfig, local_step, comm_call, engine, pre_scan=None,
+                    step_mask=None):
     """The round body: the optional pre-scan hook (a schedule's ingest of
     the in-flight payload; the fused engine has none), (Q-1) local steps
     in a Python loop (the reference scans them), then
     ``comm_call(state, batch, aux)`` on the last batch with whatever the
     hook returned. ``local_loss`` is the mean over all nodes
-    (``engine.global_mean``)."""
+    (``engine.global_mean``).
 
+    ``step_mask(state) -> (q-1, n)`` is the heterogeneous-compute hook
+    (:meth:`GossipEngine.make_step_mask`): a node masked in local step k
+    sits it out as a masked update, and the round reports the realized
+    local-step work, the masked steps plus the comm step's own update
+    over ``q * n``, as ``compute_fraction``."""
     def round_fn(state: FLState, batches):
         aux = pre_scan(state) if pre_scan is not None else None
         batches = _as_device_batch(batches, engine.device)
         q = cfg.q
+        mask = step_mask(state) if step_mask is not None else None
         local_losses = []
         for k in range(q - 1):
-            state, loss = local_step(state, {n: b[k] for n, b in batches.items()})
+            state, loss = local_step(state, {n: b[k] for n, b in batches.items()},
+                                     mask=None if mask is None else mask[k])
             local_losses.append(loss)
         state, metrics = comm_call(state, {n: b[q - 1] for n, b in batches.items()},
                                    aux)
@@ -229,6 +258,9 @@ def _assemble_round(cfg: FLConfig, local_step, comm_call, engine, pre_scan=None)
             engine.global_mean(torch.stack(local_losses).mean()) if local_losses
             else metrics["loss"]
         )
+        if mask is not None:
+            metrics["compute_fraction"] = _frac(mask.sum() + cfg.n_nodes,
+                                                cfg.q * cfg.n_nodes)
         return state, metrics
 
     return round_fn
@@ -246,7 +278,7 @@ class SequentialSchedule(RoundSchedule):
         comm_step = engine.make_comm_step(eval_grads, schedule, cfg)
         return _assemble_round(cfg, local_step,
                                lambda state, batch, aux: comm_step(state, batch),
-                               engine)
+                               engine, step_mask=engine.make_step_mask(cfg))
 
 
 @register_schedule
@@ -267,7 +299,7 @@ class PipelinedSchedule(RoundSchedule):
     def build_round(self, engine, eval_grads, schedule, cfg, local_step):
         ingest, comm_step = engine.make_pipelined_round(eval_grads, schedule, cfg)
         return _assemble_round(cfg, local_step, comm_step, engine,
-                               pre_scan=ingest)
+                               pre_scan=ingest, step_mask=engine.make_step_mask(cfg))
 
 
 @register_schedule
@@ -322,41 +354,184 @@ class GossipEngine(abc.ABC):
     :class:`FlatLayout` of flat-state engines, None for tree state) and
     ``device``, and either implement :meth:`mix` (exact-wire engines; the
     base :meth:`make_comm_step` then runs the paper's mix-then-adapt Eqs.
-    2/3) or override :meth:`make_comm_step` (the fused engine)."""
+    2/3) or override :meth:`make_comm_step` (the fused engine).
+
+    ``topology_program`` and ``node_program`` are the third and fourth
+    round axes, fixed at construction like the schedule: a dynamic
+    program adds its counters to the comm-state contract and turns the
+    mixing weights into per-round operands of the same round function."""
 
     name: ClassVar[str] = "abstract"
     layout: Optional[FlatLayout] = None
     round_schedule: RoundSchedule = _SCHEDULES["sequential"]
+    topology_program: TopologyProgram = STATIC
+    node_program: NodeProgram = HOMOGENEOUS
     device: torch.device
+
+    # -- dynamic-round contract (topology + node programs) -----------------
+
+    @property
+    def dynamic_topology(self) -> bool:
+        return not self.topology_program.is_static
+
+    @property
+    def dynamic_nodes(self) -> bool:
+        return not self.node_program.is_static
+
+    @property
+    def dynamic_round(self) -> bool:
+        """True when ANY per-round operand exists (a dynamic graph or
+        heterogeneous / faulty nodes)."""
+        return self.dynamic_topology or self.dynamic_nodes
+
+    def _bind_programs(self, w: np.ndarray, topology_program, node_program) -> None:
+        """Resolve both programs and bind them to the base ``w`` on the
+        engine's device (binding validates Assumption 1 on a sample of a
+        dynamic program's rounds)."""
+        self.topology_program = resolve_program(topology_program).bind(
+            w, device=self.device)
+        self.node_program = resolve_node_program(node_program)
+        if self.dynamic_nodes:
+            self.node_program.bind(w.shape[0], device=self.device)
+
+    def _topo_keys(self) -> Tuple[str, ...]:
+        """Comm keys the dynamic programs contribute: the round counter
+        (the round the NEXT comm step mixes under), the topology
+        program's key and Markov state, the node program's key."""
+        keys: Tuple[str, ...] = ()
+        if self.dynamic_round:
+            keys += ("topo_round",)
+        if self.dynamic_topology:
+            keys += ("topo_key",) + self.topology_program.state_keys()
+        if self.dynamic_nodes:
+            keys += ("node_key",)
+        return keys
+
+    def _topo_spec(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """Shapes and dtypes of the counters: the round an int32 scalar,
+        each key the (2,) words of a uint32 key held in int64."""
+        spec = {"topo_round": ((), torch.int32), "topo_key": ((2,), torch.int64),
+                "node_key": ((2,), torch.int64)}
+        spec.update(self.topology_program.state_spec())
+        return spec
+
+    def _topo_init(self) -> Dict[str, torch.Tensor]:
+        init = {
+            "topo_round": torch.zeros((), dtype=torch.int32, device=self.device),
+            "topo_key": _as_key(self.topology_program.init_key(), self.device),
+            "node_key": _as_key(self.node_program.init_key(), self.device),
+        }
+        init.update({k: torch.as_tensor(v, device=self.device)
+                     for k, v in self.topology_program.init_state().items()})
+        return init
+
+    def _static_round_w(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The engine's constant ``(w_off, w_diag)`` on its device -- what
+        :meth:`_round_gates` starts from when the topology is static but
+        a node program gates payloads."""
+        raise NotImplementedError(
+            f"the {self.name!r} engine does not expose its static W; "
+            "node programs are unsupported on this build"
+        )
+
+    def _round_gates(self, comm: Dict[str, torch.Tensor]):
+        """ONE derivation of the round's realized mixing weights from both
+        dynamic axes: the topology program's W_r (Markov churn advances
+        its state here), then the node program's payload gate folded in
+        by :func:`~repro_torch.core.heterogeneity.compose_node_gate`.
+        Returns ``(w_off_r, w_diag_r, new_comm_entries, metrics)``, all on
+        the device: the counter and state advance ride in the comm
+        entries, the metrics report the realized ``edge_fraction`` /
+        ``payload_fraction``. Nothing is read back to the host."""
+        r = comm["topo_round"]
+        new_comm: Dict[str, torch.Tensor] = {"topo_round": r + 1}
+        metrics: Dict[str, torch.Tensor] = {}
+        topo = self.topology_program
+        if self.dynamic_topology:
+            key = comm["topo_key"]
+            tstate = {k: comm[k] for k in topo.state_keys()}
+            w_off_r, w_diag_r, tnew = topo.round_weights_state(r, key, tstate)
+            new_comm["topo_key"] = key
+            new_comm.update(tnew)
+            metrics["edge_fraction"] = topo.edge_fraction(w_off_r)
+        else:
+            w_off_r, w_diag_r = self._static_round_w()
+        if self.dynamic_nodes:
+            nkey = comm["node_key"]
+            up = self.node_program.wire_gate(r, nkey)
+            w_off_r, w_diag_r = compose_node_gate(w_off_r, w_diag_r, up)
+            new_comm["node_key"] = nkey
+            metrics["payload_fraction"] = _frac(up.sum(), up.shape[0])
+        return w_off_r, w_diag_r, new_comm, metrics
+
+    def make_step_mask(self, cfg: FLConfig):
+        """The heterogeneous-compute hook for ``_assemble_round``: None
+        for programs that never slow a node (the steps run unmasked),
+        else ``step_mask(state) -> (q-1, n)`` from the round counter and
+        node key in ``FLState.comm``. A program that changes the wire's
+        k per node is refused: no engine of the port has a per-node k."""
+        prog = self.node_program
+        if prog.heterogeneous_wire_k:
+            raise ValueError(
+                f"node program {prog.spec()!r} modulates per-node wire k, "
+                f"which the {self.name!r} engine does not support -- use "
+                "engine='sharded_fused' (top-k wire with an EF residual)"
+            )
+        if not prog.heterogeneous_compute or cfg.q <= 1:
+            return None
+
+        def step_mask(state: FLState) -> torch.Tensor:
+            return prog.step_gate(state.comm["topo_round"], state.comm["node_key"],
+                                  cfg.q)
+
+        return step_mask
+
+    def mix_dynamic(self, buf, w_off_r: torch.Tensor, w_diag_r: torch.Tensor):
+        """Exact-wire mixing against a per-round W (the flat engine's; the
+        fused engine hands the per-round W to its kernels instead)."""
+        raise NotImplementedError(
+            f"the {self.name!r} engine does not support dynamic topology "
+            "programs on this build"
+        )
+
+    # -- protocol ----------------------------------------------------------
 
     def comm_keys(self, cfg: FLConfig) -> Tuple[str, ...]:
         """Names of the engine's wire-state buffers in ``FLState.comm``."""
-        return ()
+        return self._topo_keys()
 
     def comm_state_spec(self, cfg: FLConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-        """``{key: (shape, dtype)}`` of the wire-state buffers: (n, total)
-        fp32 unless an engine says otherwise."""
-        keys = self.comm_keys(cfg)
-        if not keys:
-            return {}
-        shape = (cfg.n_nodes, self.layout.total)
-        return {k: (shape, torch.float32) for k in keys}
+        """``{key: (shape, dtype)}`` of the comm state: the counters'
+        own, (n, total) fp32 for every wire buffer."""
+        topo = self._topo_spec()
+        return {k: topo[k] if k in topo else ((cfg.n_nodes, self.layout.total),
+                                              torch.float32)
+                for k in self.comm_keys(cfg)}
 
     def init_comm_state(self, cfg: FLConfig, params) -> Optional[Dict[str, torch.Tensor]]:
         """Zero-initialized wire state (:meth:`comm_state_spec`): zeros
         mean the first round effectively transmits the full parameters
-        and the in-flight ring starts empty; None for an exact wire."""
+        and the in-flight ring starts empty; a dynamic program's counter
+        starts at round 0 with its key. None for a static exact wire."""
         spec = self.comm_state_spec(cfg)
         if not spec:
             return None
-        return {k: torch.zeros(shape, dtype=dtype, device=self.device)
+        comm = {k: torch.zeros(shape, dtype=dtype, device=self.device)
                 for k, (shape, dtype) in spec.items()}
+        comm.update({k: v for k, v in self._topo_init().items() if k in comm})
+        return comm
 
-    def local_step(self, params, grads, alpha):
+    def local_step(self, params, grads, alpha, mask=None):
         """Eq. 4 in the engine's representation: ``p - alpha * g`` as two
-        rounded fp32 operations (alpha an fp32 scalar)."""
+        rounded fp32 operations (alpha an fp32 scalar). ``mask`` is the
+        node program's (n,) compute gate for this step: a masked node's
+        step size is zero, so it sits the step out."""
         a = torch.as_tensor(alpha, dtype=torch.float32)
-        return tree_map(lambda p, g: p - a * g, params, grads)
+        if mask is None:
+            return tree_map(lambda p, g: p - a * g, params, grads)
+        am = a * mask
+        return tree_map(lambda p, g: p - am.reshape((-1,) + (1,) * (p.ndim - 1)) * g,
+                        params, grads)
 
     def mix(self, buf):
         """Exact-wire W application (theta <- W theta) on the engine's
@@ -396,27 +571,42 @@ class GossipEngine(abc.ABC):
     def make_comm_step(self, eval_grads, schedule, cfg: FLConfig):
         """The exact-wire comm step: :meth:`mix` applies W, then the
         optimizer update at fp32 (mix-then-adapt, the paper's Eqs. 2/3).
-        ``comm_step(state, batch) -> (state, metrics)``."""
+        Under a dynamic program the round's W comes from the counters in
+        ``FLState.comm`` (:meth:`_round_gates`) and is applied through
+        :meth:`mix_dynamic`. ``comm_step(state, batch) -> (state,
+        metrics)``."""
         wire = self.wire_bytes(cfg)
+        dynamic = self.dynamic_round
 
         def comm_step(state: FLState, batch):
             step = state.step + 1
             alpha = schedule(step)
             a = torch.as_tensor(alpha, dtype=torch.float32)
             losses, grads = eval_grads(state.params, batch)
+            gate_metrics: Dict[str, torch.Tensor] = {}
+            if not dynamic:
+                mix, comm = self.mix, state.comm
+            else:
+                w_off_r, w_diag_r, new_entries, gate_metrics = self._round_gates(
+                    state.comm)
+                comm = {**state.comm, **new_entries}
+
+                def mix(buf):
+                    return self.mix_dynamic(buf, w_off_r, w_diag_r)
 
             def adapt(wp, t):
                 return wp - a * t
 
             if cfg.algorithm == "dsgd":
-                params = tree_map(adapt, self.mix(state.params), grads)
-                new_state = state._replace(step=step, params=params)
+                params = tree_map(adapt, mix(state.params), grads)
+                new_state = state._replace(step=step, params=params, comm=comm)
             else:
                 tracker = tree_map(lambda wt, gn, gp: wt + gn - gp,
-                                   self.mix(state.tracker), grads, state.prev_grad)
-                params = tree_map(adapt, self.mix(state.params), tracker)
+                                   mix(state.tracker), grads, state.prev_grad)
+                params = tree_map(adapt, mix(state.params), tracker)
                 new_state = state._replace(step=step, params=params,
-                                           tracker=tracker, prev_grad=grads)
+                                           tracker=tracker, prev_grad=grads,
+                                           comm=comm)
             metrics = {
                 "loss": losses.mean(),
                 "alpha": float(alpha),
@@ -426,6 +616,7 @@ class GossipEngine(abc.ABC):
             }
             if wire is not None:
                 metrics["wire_bytes"] = wire
+            metrics.update(gate_metrics)
             return new_state, metrics
 
         return comm_step
@@ -464,18 +655,41 @@ def engine_names() -> Tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 
-def _refuse_unported(topology_program, node_program, privacy, scope,
-                     storage_dtype) -> None:
-    if topology_program not in (None, "static"):
-        raise _not_ported(f"topology program {topology_program!r}", "10")
-    if node_program not in (None, "homogeneous"):
-        raise _not_ported(f"node program {node_program!r}", "11")
+def _refuse_unported(privacy, scope, storage_dtype) -> None:
     if privacy not in (None, "none"):
         raise _not_ported(f"privacy spec {privacy!r}", "12")
     if scope not in (None, "full"):
         raise _not_ported(f"federation scope {scope!r}", "13")
     if storage_dtype not in (None, "float32", torch.float32):
         raise _not_ported(f"{storage_dtype} flat storage", "5")
+
+
+def _reject_dynamic_program(program, name: str, reason: str) -> TopologyProgram:
+    """Resolve a topology-program spec and refuse non-static programs on
+    builds that cannot take per-round weights, with the reference's
+    message; returns the resolved static program otherwise."""
+    prog = resolve_program(program)
+    if not prog.is_static:
+        raise ValueError(
+            f"topology program {prog.spec()!r} needs traced per-round "
+            f"mixing weights; the {name!r} {reason} -- use the 'fused' "
+            "engine (any W) or 'sharded_fused' on the circulant wire"
+        )
+    return prog
+
+
+def _reject_node_program(program, name: str, reason: str) -> NodeProgram:
+    """Resolve a node-program spec and refuse non-homogeneous programs on
+    builds that cannot take per-round gates, with the reference's
+    message."""
+    prog = resolve_node_program(program)
+    if not prog.is_static:
+        raise ValueError(
+            f"node program {prog.spec()!r} needs traced per-round "
+            f"compute/payload gates; the {name!r} {reason} -- use the "
+            "'flat' (simulated), 'fused', or 'sharded_fused' engine"
+        )
+    return prog
 
 
 def _refuse_exact_wire(name: str, topk, round_schedule, scope) -> None:
@@ -531,8 +745,10 @@ class TreeEngine(GossipEngine):
         """Single-device build on the params' device: the dense-W backend;
         the state stays the input tree. Returns (engine, params)."""
         _refuse_exact_wire(cls.name, topk, round_schedule, scope)
-        _refuse_unported(topology_program, node_program, privacy, None,
-                         storage_dtype)
+        _refuse_unported(privacy, None, storage_dtype)
+        reason = "engine bakes W into its tree-level gossip backend"
+        _reject_dynamic_program(topology_program, cls.name, reason)
+        _reject_node_program(node_program, cls.name, reason)
         leaf = tree_leaves(stacked_params)[0][1]
         return cls(make_dense_gossip(w, wire_dtype), device=leaf.device), stacked_params
 
@@ -541,17 +757,49 @@ class TreeEngine(GossipEngine):
 class FlatEngine(GossipEngine):
     """The state is ONE packed ``(nodes, total)`` buffer end to end,
     mixed by a flat-native backend (``core.mixing.make_dense_flat_mix``:
-    one product per round, whatever the number of leaves)."""
+    one product per round, whatever the number of leaves). Under a
+    dynamic topology or node program the round's W is a per-round
+    operand of the same product (:meth:`mix_dynamic`); that needs the
+    dense base ``w``."""
 
     name = "flat"
 
-    def __init__(self, mix_fn, layout: FlatLayout, device=None):
+    def __init__(self, mix_fn, layout: FlatLayout, device=None, *,
+                 topology_program=None, node_program=None, wire_dtype=None,
+                 w=None):
         self._mix = mix_fn
         self.layout = layout
         self.device = resolve_device(device)
+        self._wire_dtype = wire_dtype
+        dynamic = (not resolve_program(topology_program).is_static
+                   or not resolve_node_program(node_program).is_static)
+        if dynamic and w is None:
+            raise ValueError(
+                "a FlatEngine under a topology or node program needs the "
+                "dense W (use FlatEngine.simulated, which passes it)"
+            )
+        if w is not None:
+            self._bind_programs(np.asarray(w, dtype=np.float64), topology_program,
+                                node_program)
+            _, w_self, w_off = _split_w_np(w, np.asarray(w).shape[0])
+            self._w_static = (torch.as_tensor(w_off, device=self.device),
+                              torch.as_tensor(w_self, device=self.device))
+
+    def _static_round_w(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._w_static
 
     def mix(self, flat: torch.Tensor) -> torch.Tensor:
         return self._mix(flat)
+
+    def mix_dynamic(self, flat: torch.Tensor, w_off_r: torch.Tensor,
+                    w_diag_r: torch.Tensor) -> torch.Tensor:
+        """The dense flat mix against the per-round W: the same fp32
+        product and wire dtype as ``make_dense_flat_mix``, with
+        ``(w_off_r, w_diag_r)`` in place of the constant W -- one
+        ``torch.matmul`` a round."""
+        xf = flat.to(torch.float32)
+        sent = _wire(xf, self._wire_dtype)
+        return (w_off_r @ sent + w_diag_r[:, None] * xf).to(flat.dtype)
 
     def check_params(self, cfg: FLConfig, params) -> None:
         _check_flat_params(cfg, params, self.name)
@@ -563,13 +811,14 @@ class FlatEngine(GossipEngine):
                   privacy=None, scope=None,
                   **_ignored) -> Tuple["FlatEngine", torch.Tensor]:
         """Pack node-stacked params (padded to ``scale_chunk``) and build
-        the engine on their device. Returns (engine, flat buffer)."""
+        the engine on their device, the programs bound to ``w``. Returns
+        (engine, flat buffer)."""
         _refuse_exact_wire(cls.name, topk, round_schedule, scope)
-        _refuse_unported(topology_program, node_program, privacy, None,
-                         storage_dtype)
+        _refuse_unported(privacy, None, storage_dtype)
         flat, layout = pack(stacked_params, pad_to=scale_chunk)
-        return cls(make_dense_flat_mix(w, wire_dtype), layout,
-                   device=flat.device), flat
+        return cls(make_dense_flat_mix(w, wire_dtype), layout, device=flat.device,
+                   topology_program=topology_program, node_program=node_program,
+                   wire_dtype=wire_dtype, w=w), flat
 
 
 # ---------------------------------------------------------------------------
@@ -622,8 +871,7 @@ class FusedEngine(GossipEngine):
                 "the fused engines' wire is always difference-coded int8; "
                 "wire_dtype only applies to the tree/flat exact-wire engines"
             )
-        _refuse_unported(topology_program, node_program, privacy, scope,
-                         storage_dtype)
+        _refuse_unported(privacy, scope, storage_dtype)
         if scale_chunk < 1:
             raise ValueError("scale_chunk must be >= 1")
         if topk is not None and topk < 1:
@@ -641,6 +889,10 @@ class FusedEngine(GossipEngine):
         self.w, w_self, w_off = _split_w_np(w, layout.n_nodes)
         self.w_self = torch.as_tensor(w_self, device=self.device)
         self.w_off = torch.as_tensor(w_off, device=self.device)
+        self._bind_programs(self.w, topology_program, node_program)
+
+    def _static_round_w(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.w_off, self.w_self
 
     @property
     def pipelined(self) -> bool:
@@ -665,15 +917,19 @@ class FusedEngine(GossipEngine):
         keys = ("recon", "residual") + ring
         if cfg.algorithm == "dsgt":
             keys += ("recon_t", "residual_t") + tuple(k + "_t" for k in ring)
-        return keys
+        return keys + self._topo_keys()
 
     def comm_state_spec(self, cfg: FLConfig):
         """Wire state: (n, total) fp32 recon / residual, and the ring of
         int8 payloads (n, ring, total) with their fp32 scales
-        (n, ring, total // scale_chunk)."""
+        (n, ring, total // scale_chunk); then a dynamic program's
+        counters."""
         n, t, rd = cfg.n_nodes, self.layout.total, self._ring_depth()
+        topo = self._topo_spec()
 
         def spec(key):
+            if key in topo:
+                return topo[key]
             if key.startswith("wire_q"):
                 return (n, rd, t), torch.int8
             if key.startswith("wire_scales"):
@@ -714,6 +970,15 @@ class FusedEngine(GossipEngine):
             "ef_residual_rms": torch.sqrt((res * res).mean()),
         }
 
+    def _round_w(self, comm):
+        """The round's ``(w_off_r, w_self_r, counter entries, gate
+        metrics)``: the constant W on a static round, else the realized
+        W_r of :meth:`_round_gates` -- a runtime operand of the same
+        kernels."""
+        if not self.dynamic_round:
+            return self.w_off, self.w_self, {}, {}
+        return self._round_gates(comm)
+
     def make_comm_step(self, eval_grads, schedule, cfg: FLConfig):
         if self._ring_depth():
             return self._make_bounded_comm_step(eval_grads, schedule, cfg)
@@ -731,34 +996,38 @@ class FusedEngine(GossipEngine):
             alpha = schedule(step)
             losses, grads = eval_grads(state.params, batch)
             c = state.comm
+            w_off_r, w_self_r, topo_comm, gate_metrics = self._round_w(c)
             if cfg.algorithm == "dsgd":
                 mixed, recon, res, _ = fused_round(
                     state.params, grads, c["recon"], c["residual"],
-                    self.w_off, self.w_self, alpha, **kw,
+                    w_off_r, w_self_r, alpha, **kw,
                 )
                 new_state = state._replace(
                     step=step, params=mixed,
-                    comm={"recon": recon, "residual": res},
+                    comm={"recon": recon, "residual": res, **topo_comm},
                 )
             else:
                 mx, mt, nrx, nsx, nrt, nst, _, _ = fused_round_gt(
                     state.params, state.tracker, grads, state.prev_grad,
                     c["recon"], c["residual"], c["recon_t"], c["residual_t"],
-                    self.w_off, self.w_self, alpha, **kw,
+                    w_off_r, w_self_r, alpha, **kw,
                 )
                 new_state = FLState(
                     step=step, params=mx, tracker=mt, prev_grad=grads,
                     comm={"recon": nrx, "residual": nsx,
-                          "recon_t": nrt, "residual_t": nst},
+                          "recon_t": nrt, "residual_t": nst, **topo_comm},
                 )
-            return new_state, self._metrics(losses, alpha, grads, new_state, egress)
+            metrics = self._metrics(losses, alpha, grads, new_state, egress)
+            metrics.update(gate_metrics)
+            return new_state, metrics
 
         return comm_step
 
     def _make_bounded_comm_step(self, eval_grads, schedule, cfg: FLConfig):
         """The depth-k (k >= 2) round: ONE wire-stage kernel call, then the
-        mix -- plain PyTorch, fp32, in the reference's order -- against
-        the k-round-STALE reconstruction recovered from the in-flight ring
+        mix -- plain PyTorch, fp32, in the reference's order -- of the
+        round's W (the realized W_r under a dynamic program) against the
+        k-round-STALE reconstruction recovered from the in-flight ring
         (:meth:`_ring_depth`), and this round's payload pushed onto the
         ring (slot 0 is the oldest)."""
         chunk = self.scale_chunk
@@ -775,9 +1044,6 @@ class FusedEngine(GossipEngine):
             return (torch.cat([wq[:, 1:], q[:, None]], dim=1),
                     torch.cat([wsc[:, 1:], sc[:, None]], dim=1))
 
-        def mix(nbr, h):
-            return self.w_off @ nbr + self.w_self[:, None] * h
-
         def comm_step(state: FLState, batch):
             if state.comm is None:
                 raise ValueError("fused rounds need init_fl_state(..., engine)")
@@ -785,6 +1051,11 @@ class FusedEngine(GossipEngine):
             alpha = schedule(step)
             losses, grads = eval_grads(state.params, batch)
             c = state.comm
+            w_off_r, w_self_r, topo_comm, gate_metrics = self._round_w(c)
+
+            def mix(nbr, h):
+                return w_off_r @ nbr + w_self_r[:, None] * h
+
             if cfg.algorithm == "dsgd":
                 h, q, sc, nrecon, nres = wire_stage(
                     state.params, grads, c["recon"], c["residual"], alpha, **kw)
@@ -793,7 +1064,7 @@ class FusedEngine(GossipEngine):
                 new_state = state._replace(
                     step=step, params=mixed,
                     comm={"recon": nrecon, "residual": nres,
-                          "wire_q": nwq, "wire_scales": nwsc},
+                          "wire_q": nwq, "wire_scales": nwsc, **topo_comm},
                 )
             else:
                 (h, t_half, qx, scx, nrx, nsx, qt, sct, nrt, nst) = wire_stage_gt(
@@ -811,9 +1082,11 @@ class FusedEngine(GossipEngine):
                     comm={"recon": nrx, "residual": nsx,
                           "recon_t": nrt, "residual_t": nst,
                           "wire_q": nwq, "wire_scales": nwsc,
-                          "wire_q_t": nwqt, "wire_scales_t": nwsct},
+                          "wire_q_t": nwqt, "wire_scales_t": nwsct, **topo_comm},
                 )
-            return new_state, self._metrics(losses, alpha, grads, new_state, egress)
+            metrics = self._metrics(losses, alpha, grads, new_state, egress)
+            metrics.update(gate_metrics)
+            return new_state, metrics
 
         return comm_step
 
@@ -906,8 +1179,15 @@ class ShardedFusedEngine(GossipEngine):
             raise _not_ported(
                 f"the two-axis (node, model_shard) layout (model_axis={model_axis!r})",
                 "15")
-        _refuse_unported(topology_program, node_program, privacy, scope,
-                         storage_dtype)
+        if not resolve_program(topology_program).is_static:
+            raise _not_ported(
+                f"topology program {topology_program!r} on the sharded engine "
+                "(the sharded half of the dynamic round)", "10")
+        if not resolve_node_program(node_program).is_static:
+            raise _not_ported(
+                f"node program {node_program!r} on the sharded engine (the "
+                "sharded half of the dynamic round)", "11")
+        _refuse_unported(privacy, scope, storage_dtype)
         if not (error_feedback and difference_coding):
             raise _not_ported(
                 "the sharded engine without difference coding or error feedback",

@@ -83,8 +83,11 @@ class FLState(NamedTuple):
     the parameter wire and ``{"recon_t", "residual_t"}`` for DSGT's
     tracker wire; at staleness depth k >= 2 also the in-flight ring
     ``{"wire_q", "wire_scales"}`` (and ``_t``): int8 (n, k-1, total)
-    payloads and their fp32 scales. ``step`` is the global iteration
-    counter r, a host int (local steps count too)."""
+    payloads and their fp32 scales. A dynamic topology or node program
+    adds its counters on the device (``topo_round``, ``topo_key``,
+    ``topo_up``, ``node_key``), on the exact-wire engines too. ``step``
+    is the global iteration counter r, a host int (local steps count
+    too)."""
 
     step: int
     params: Tree
@@ -183,15 +186,17 @@ def make_fl_round(loss_fn: LossFn, schedule, cfg: FLConfig, engine):
     ``grad_norm_sq`` ||mean_i grad_i||^2, ``consensus_err`` (1/N) sum_i
     ||theta_i - theta_bar||^2, ``comm_rounds`` (1), ``alpha``,
     ``local_loss``, and the fused engine's wire metrics (``wire_bytes``,
-    summed egress of all nodes, and ``ef_residual_rms``).
+    summed egress of all nodes, and ``ef_residual_rms``). Under the
+    engine's topology / node programs also the realized
+    ``edge_fraction``, ``payload_fraction`` and ``compute_fraction``.
     """
     eval_grads = engine.make_eval_grads(value_and_grad(loss_fn))
 
-    def local_step(state: FLState, batch) -> Tuple[FLState, torch.Tensor]:
+    def local_step(state: FLState, batch, mask=None) -> Tuple[FLState, torch.Tensor]:
         step = state.step + 1
         alpha = schedule(step)
         losses, grads = eval_grads(state.params, batch)
-        params = engine.local_step(state.params, grads, alpha)
+        params = engine.local_step(state.params, grads, alpha, mask)
         return state._replace(step=step, params=params), losses.mean()
 
     return engine.round_schedule.build_round(engine, eval_grads, schedule,

@@ -17,8 +17,11 @@ feedback) on the sequential and pipelined schedules, the DSGT wire-stage
 kernel plus a stale mix under bounded staleness (``--fl-schedule
 bounded_staleness:k=2``). ``--topk`` masks the wire to the k largest
 columns per scale chunk, ``--topk-schedule`` adapts k to the error
-feedback residual. Prints the per-round comm bytes of the int8 (or
-top-k) wire against the fp32 wire a plain engine ships.
+feedback residual, ``--fl-topology-program`` makes the hospital graph
+change from round to round (each round's realized W goes to the same
+kernel; an ``edges_up=`` column shows the share of links up). Prints
+the per-round comm bytes of the int8 (or top-k) wire against the fp32
+wire a plain engine ships.
 
 ``run_sharded_engine`` runs part 2's configuration on the
 ``sharded_fused`` engine instead, for one rank of a process group
@@ -29,6 +32,8 @@ round and rank, and one all-gather per wire buffer.
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 3000 --out curves.csv
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 --rounds 50 --q 10
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 --topk 64
+  PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 \
+      --fl-topology-program node_churn:p_down=0.25,mean_downtime=2
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 
 from repro_torch.benchmarks.fig2_comm_rounds import report, run
 from repro_torch.configs.ehr_mlp import CLASS_WEIGHT, class_weights, topk_schedule
+from repro_torch.core.dynamics import program_names
 from repro_torch.core.engine import ShardedFusedEngine, get_engine, resolve_schedule
 from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round, tree_map
 from repro_torch.core.schedules import inv_sqrt
@@ -59,14 +65,16 @@ from repro_torch.training.trainer import AdaptiveTopK, stack_batches, stack_for_
 
 def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
                      class_weight=CLASS_WEIGHT, fl_schedule="sequential",
-                     topk=None, topk_schedule=None, device=None,
-                     init_params: Optional[Dict] = None) -> Dict:
+                     topk=None, topk_schedule=None, topology_program=None,
+                     device=None, init_params: Optional[Dict] = None) -> Dict:
     """FD-DSGT on the ``fused`` engine, one kernel call per comm round.
 
     ``fl_schedule``: a round-schedule spec ("sequential", "pipelined",
     "bounded_staleness:k=K"). ``topk``: k payload columns per scale
     chunk; ``topk_schedule=(k_sparse, k_dense, high[, low])`` runs the
-    adaptive-k wire instead. ``init_params``: one node's starting weights
+    adaptive-k wire instead. ``topology_program``: a ``core.dynamics``
+    spec (e.g. ``"node_churn:p_down=0.2,mean_downtime=5"``) that gates
+    the hospital graph per round. ``init_params``: one node's starting weights
     (a tree of tensors); default ``mlp_init(seed)``. Tests pass the
     reference's init here. Returns final ``acc``, ``bal_acc``,
     ``wire_saving`` (fp32 bytes over the engine's wire bytes in the last
@@ -91,7 +99,8 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
     if adaptive is not None:
         topk = adaptive.k_sparse
     stacked = stack_for_nodes(single, n)
-    kw = dict(scale_chunk=scale_chunk, round_schedule=resolve_schedule(fl_schedule))
+    kw = dict(scale_chunk=scale_chunk, round_schedule=resolve_schedule(fl_schedule),
+              topology_program=topology_program)
     engine, flat = get_engine("fused").simulated(w, stacked, topk=topk, **kw)
     loss_fn = make_mlp_loss(class_weights(class_weight))
     round_fn = make_fl_round(loss_fn, inv_sqrt(0.02), cfg, engine)
@@ -112,8 +121,10 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
     degrees = (w - np.diag(np.diag(w)) > 0).sum(axis=1)
     fp32_bytes = float(2 * degrees.sum() * n_params * 4)
     wire_label = f"top-{topk}" if topk else "int8"
+    graph_note = (f"hospital graph x {engine.topology_program.spec()}"
+                  if engine.dynamic_topology else "hospital graph")
     print(f"\nfused engine (FD-DSGT, Q={q}, "
-          f"schedule={engine.round_schedule.spec()}, hospital graph, "
+          f"schedule={engine.round_schedule.spec()}, {graph_note}, "
           f"class_weight={class_weight}, {n_params} params -> "
           f"{engine.layout.total} padded, chunk={scale_chunk}, topk={topk}, "
           f"wire={engine.wire_bytes(cfg):,.0f} B/round, device={dev}):")
@@ -127,10 +138,12 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
             k_note = (f" k={adaptive.current_k} "
                       f"resid={float(m['ef_residual_rms']):.1e}"
                       if adaptive is not None else "")
+            churn_note = (f" edges_up={float(m['edge_fraction']):.0%}"
+                          if "edge_fraction" in m else "")
             print(f"  [round {rnd:4d}] loss={float(m['loss']):.4f} "
                   f"consensus_err={float(m['consensus_err']):.2e} "
                   f"comm_bytes/round={m['wire_bytes']:,.0f} ({wire_label} wire) "
-                  f"vs {fp32_bytes:,.0f} (fp32 wire){k_note}")
+                  f"vs {fp32_bytes:,.0f} (fp32 wire){k_note}{churn_note}")
         if adaptive is not None:
             adaptive.update(float(m["ef_residual_rms"]))
     if adaptive is not None:
@@ -258,6 +271,12 @@ def main(argv=None) -> None:
                          "'config' for configs.ehr_mlp.TOPK_SCHEDULE: "
                          "densify when the EF-residual RMS exceeds high, "
                          "re-sparsify only below low (hysteresis)")
+    ap.add_argument("--fl-topology-program", default=None,
+                    help="per-round graph dynamics for part 2 "
+                         f"(TopologyProgram registry: "
+                         f"{', '.join(program_names())}); e.g. "
+                         "'node_churn:p_down=0.2,mean_downtime=5' makes "
+                         "the hospital graph time-varying")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain PyTorch twins)")
@@ -270,6 +289,7 @@ def main(argv=None) -> None:
                      else args.class_weight,
                      fl_schedule=args.fl_schedule, topk=args.topk,
                      topk_schedule=_parse_topk_schedule(args.topk_schedule),
+                     topology_program=args.fl_topology_program,
                      device=args.device)
 
 

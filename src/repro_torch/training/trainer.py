@@ -7,7 +7,9 @@ default ``tree`` engine gossips the parameter tree exactly through the
 dense W (the paper's Fig. 2 runs); ``flat`` does the same on the packed
 buffer; on ``fused`` every communication round is one kernel call, on
 the sequential, pipelined or bounded-staleness schedule, with the dense
-or top-k int8 wire and adaptive k (:class:`AdaptiveTopK`).
+or top-k int8 wire and adaptive k (:class:`AdaptiveTopK`). A topology
+program (the graph changing from round to round) and a node program
+(stragglers, dropped payloads) run on ``flat`` and ``fused``.
 """
 
 from __future__ import annotations
@@ -153,6 +155,8 @@ def train_decentralized(
     topk_schedule: Optional[Tuple[int, ...]] = None,
     staleness_depth: Optional[int] = None,
     robust_alpha: bool = False,
+    topology_program: Optional[str] = None,
+    node_program: Optional[str] = None,
     device=None,
 ) -> TrainResult:
     """Train for ``rounds`` communication rounds on ``device`` (``cuda``
@@ -175,9 +179,19 @@ def train_decentralized(
 
     ``round_schedule`` is a schedule spec ("sequential", "pipelined",
     "bounded_staleness:k=K"); ``staleness_depth=k`` is sugar for it (0 =
-    sequential; passing both is refused). ``robust_alpha=True`` shrinks
-    the step-size schedule by ``robust_alpha_scale(1, depth)`` (the port
-    has no fault programs, so the uptime is 1).
+    sequential; passing both is refused).
+
+    ``topology_program`` is a ``core.dynamics`` spec such as
+    ``"node_churn:p_down=0.2,mean_downtime=5"``: the run's base W gated
+    per round, dropped-edge weight folded into the self-loops (the
+    history gains ``edge_fraction``). ``node_program`` is a
+    ``core.heterogeneity`` spec such as ``"stragglers:frac=0.25,rate=0.5"``:
+    each node's local steps and payload delivery gated per round (the
+    history gains ``payload_fraction`` / ``compute_fraction``). None keeps
+    the static graph and lockstep nodes. ``robust_alpha=True`` shrinks the
+    step-size schedule by ``robust_alpha_scale(uptime, depth)``, the
+    uptime the topology program's expected uptime times the node
+    program's.
 
     ``topk_schedule = (k_sparse, k_dense, densify_high[, resparsify_low])``
     runs the adaptive-k wire (:class:`AdaptiveTopK`): two round functions,
@@ -208,12 +222,15 @@ def train_decentralized(
         wire_dtype = run.wire_dtype
     build = get_engine(engine).simulated
     kw = dict(wire_dtype=wire_dtype, scale_chunk=scale_chunk,
-              round_schedule=round_schedule)
+              round_schedule=round_schedule, topology_program=topology_program,
+              node_program=node_program)
     engine, params0 = build(w, stacked, topk=topk, **kw)
     schedule = make_schedule(run)
     if robust_alpha:
+        uptime = (engine.topology_program.expected_uptime()
+                  * engine.node_program.expected_uptime())
         schedule = scaled(schedule,
-                          robust_alpha_scale(1.0, engine.round_schedule.depth))
+                          robust_alpha_scale(uptime, engine.round_schedule.depth))
     round_fn = make_fl_round(loss_fn, schedule, cfg, engine)
     adaptive, dense_fn = None, None
     if topk_schedule is not None:
@@ -247,6 +264,9 @@ def train_decentralized(
             alpha=float(m["alpha"]),
             wall_s=time.time() - t0,
         )
+        for k in ("edge_fraction", "payload_fraction", "compute_fraction"):
+            if k in m:
+                row[k] = float(m[k])
         if adaptive is not None:
             row["topk"] = float(adaptive.current_k)
             row["ef_residual_rms"] = float(m["ef_residual_rms"])

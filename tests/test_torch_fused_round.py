@@ -163,9 +163,9 @@ def test_padding_columns_stay_zero():
 
 def test_registry_and_refusals():
     """The registry; the validation of the wire and schedule knobs the
-    port now has (``topk < 1``, ``bounded_staleness:k < 1``); the
-    refusals that remain (topology and node programs, privacy, scope,
-    bf16 storage)."""
+    port now has (``topk < 1``, ``bounded_staleness:k < 1``); topology and
+    node programs now build (``tests/test_torch_dynamic_round.py``); the
+    refusals that remain (privacy, scope, bf16 storage)."""
     assert "fused" in engine_names() and get_engine("fused") is FusedEngine
     assert get_engine("sharded_fused") is ShardedFusedEngine
     with pytest.raises(ValueError, match="unknown engine"):
@@ -182,9 +182,10 @@ def test_registry_and_refusals():
         FusedEngine(w, layout, device="cpu", round_schedule="bounded_staleness:k=0")
     with pytest.raises(ValueError, match="unknown round schedule"):
         FusedEngine(w, layout, device="cpu", round_schedule="overlapped")
-    for kw, item in [(dict(topology_program="node_churn:p_down=0.1"), "topology"),
-                     (dict(node_program="stragglers:frac=0.25"), "node program"),
-                     (dict(privacy="secure_agg"), "privacy"),
+    eng = FusedEngine(w, layout, device="cpu", topology_program="node_churn:p_down=0.1",
+                      node_program="stragglers:frac=0.25")
+    assert eng.dynamic_topology and eng.dynamic_nodes
+    for kw, item in [(dict(privacy="secure_agg"), "privacy"),
                      (dict(scope="backbone"), "scope"),
                      (dict(storage_dtype=torch.bfloat16), "storage")]:
         with pytest.raises(NotImplementedError, match=item):

@@ -43,7 +43,9 @@ def _port_sources():
     assert {"core/mixing.py", "core/compression.py",
             "benchmarks/fig2_comm_rounds.py", "serving/engine.py", "launch/serve.py",
             "models/transformer.py", "kernels/decode_attention/ops.py",
-            "kernels/flash_attention/ops.py", "examples/serve_decode.py"} <= names
+            "kernels/flash_attention/ops.py", "examples/serve_decode.py",
+            "core/dynamics.py", "core/heterogeneity.py", "benchmarks/churn_ehr.py",
+            "benchmarks/staleness_ehr.py", "benchmarks/straggler_ehr.py"} <= names
     assert len(files) > 20
     return files
 
@@ -62,7 +64,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.training.metrics, repro_torch.benchmarks.fig2_comm_rounds, "
             "repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.examples.serve_decode, repro_torch.convert, "
-            "repro_torch.launch.mesh; "
+            "repro_torch.launch.mesh, repro_torch.core, "
+            "repro_torch.benchmarks.churn_ehr, repro_torch.benchmarks.staleness_ehr, "
+            "repro_torch.benchmarks.straggler_ehr; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -101,6 +105,17 @@ def test_entry_points_refuse_the_cpu_by_default(no_card):
         run_fused_engine(rounds=1, q=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fig2_run(iterations=1)
+    # the EHR round-axis drivers, by their cells and their CLIs
+    from repro_torch.benchmarks import churn_ehr, staleness_ehr, straggler_ehr
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        staleness_ehr.run_cell(1, "pipelined", 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        churn_ehr.run_cell("node_churn:p_down=0.25", 1, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        straggler_ehr.run_cell(2, 0.5, 1, 2)
+    for driver in (staleness_ehr, churn_ehr, straggler_ehr):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            driver.main(["--smoke", "--out", os.devnull])
     assert inspect.signature(train_decentralized).parameters["engine"].default == "tree"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mlp_init(0)

@@ -424,8 +424,9 @@ def test_comm_state_has_the_references_keys(group):
 @pytest.mark.parametrize("kw, item", [
     (dict(w=None), "item 15"),
     (dict(model_axis="model"), "item 15"),
-    (dict(topology_program="edge_failure:p=0.1"), "item 10"),
-    (dict(node_program="stragglers:frac=0.25"), "item 11"),
+    (dict(topology_program="edge_failure:p=0.1"), "sharded half.*item 10"),
+    (dict(node_program="stragglers:frac=0.25"), "sharded half.*item 11"),
+    (dict(node_program="slow_uplink"), "sharded half.*item 11"),
     (dict(privacy="secure_agg"), "item 12"),
     (dict(scope="backbone"), "item 13"),
     (dict(storage_dtype="bfloat16"), "item 5"),

@@ -307,7 +307,8 @@ def test_trainer_wire_dtype_and_flat_engine():
 def test_registry_and_refusals():
     """``tree`` and ``flat`` sit in the registry beside ``fused``; both
     refuse what the reference's refuse (ValueError: top-k, a schedule
-    other than sequential, a partial scope) and raise NotImplementedError
+    other than sequential, a partial scope; ``tree`` also topology and
+    node programs, which ``flat`` runs) and raise NotImplementedError
     naming the ROADMAP item for what is not ported."""
     assert {"tree", "flat", "fused"} <= set(engine_names())
     assert get_engine("tree") is TreeEngine and get_engine("flat") is FlatEngine
@@ -320,9 +321,16 @@ def test_registry_and_refusals():
                           (dict(scope="backbone"), "federation scope")]:
             with pytest.raises(ValueError, match=match):
                 cls.simulated(w, stacked, **kw)
-        for kw, item in [(dict(topology_program="node_churn:p_down=0.1"), "item 10"),
-                         (dict(node_program="stragglers:frac=0.25"), "item 11"),
-                         (dict(privacy="dp:sigma=0.5,clip=1.0"), "item 12"),
+        for kw, match in [(dict(topology_program="node_churn:p_down=0.1"),
+                           "needs traced per-round mixing weights"),
+                          (dict(node_program="stragglers:frac=0.25"),
+                           "needs traced per-round compute/payload gates")]:
+            if cls is TreeEngine:
+                with pytest.raises(ValueError, match=match):
+                    cls.simulated(w, stacked, **kw)
+            else:
+                assert cls.simulated(w, stacked, **kw)[0].dynamic_round
+        for kw, item in [(dict(privacy="dp:sigma=0.5,clip=1.0"), "item 12"),
                          (dict(storage_dtype=torch.bfloat16), "item 5")]:
             with pytest.raises(NotImplementedError, match=item):
                 cls.simulated(w, stacked, **kw)
