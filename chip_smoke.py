@@ -12,7 +12,8 @@ and the RG-LRU scan under ``kernels/rwkv6_scan`` and
 ``kernels/rglru_scan``; one ``nvcc`` per source, all started together,
 into each package's ``build/``), holds each against its plain PyTorch
 twin on the card (dense and top-k wires, the round kernels also on exact
-ties at the top-k threshold; attention at the tests' shapes,
+ties at the top-k threshold, and every DP wrapper against its twin on
+the substituted residual; attention at the tests' shapes,
 SmolLM-360M's and RecurrentGemma-2B's head size 256, a 4,096-token
 prefill, a 32,768-slot cache split over blocks and merged by the combine
 kernel, bf16 and fp32; the scans at the reference suite's shapes, S = 1,
@@ -31,7 +32,14 @@ rounds (the fused engine under topology and node programs -- node churn,
 edge failure, stragglers at k = 2 and 4, payload drop, RGG rewiring,
 round-robin subgraphs -- each round's realized W_off bitwise the CPU's,
 then the three EHR round-axis drivers in full, their realized fractions
-against the committed experiments/*_ehr.json) and serving: SmolLM-360M
+against the committed experiments/*_ehr.json), the sharded engine under
+the programs ((h): node churn, edge failure, stragglers at k = 2 and
+``slow_uplink``'s per-node wire k, against the fused engine on the card
+or, for ``slow_uplink``, the same run on the CPU), the privacy axis ((i)
+dp on the fused engine against the CPU, ``secure_agg`` bitwise the
+unmasked run; (j) the privacy driver in full against
+experiments/privacy_ehr.json; (k) dp on the sharded dense wire against
+the fused engine) and serving: SmolLM-360M
 at full width with random weights,
 ``ServeEngine.generate`` (batch 8, 128 prompt + 64 new tokens, greedy,
 a second weight set published mid-run), the bundle's prefill against
@@ -71,9 +79,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.benchmarks import churn_ehr, staleness_ehr, straggler_ehr  # noqa: E402
+from repro_torch.benchmarks import (  # noqa: E402
+    churn_ehr,
+    privacy_ehr,
+    staleness_ehr,
+    straggler_ehr,
+)
 from repro_torch.benchmarks.fig2_comm_rounds import ALGOS, claims  # noqa: E402
 from repro_torch.benchmarks.fig2_comm_rounds import run as fig2_run  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -91,6 +105,7 @@ from repro_torch.core.engine import (  # noqa: E402
     get_engine,
 )
 from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round, tree_map  # noqa: E402
+from repro_torch.core.privacy import analytic_epsilon  # noqa: E402
 from repro_torch.core.packing import flat_wire_bytes, pack, tree_leaves, unpack  # noqa: E402
 from repro_torch.core.schedules import inv_sqrt  # noqa: E402
 from repro_torch.core.topology import mixing_matrix  # noqa: E402
@@ -111,6 +126,7 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.gossip import ops as gossip_wrappers  # noqa: E402
 from repro_torch.kernels.gossip.ops import (  # noqa: E402
     GOSSIP_STAGE,
     compact_gt_plan,
@@ -136,7 +152,7 @@ from repro_torch.kernels.gossip.ref import (  # noqa: E402
     wire_stage_gt_ref,
     wire_stage_ref,
 )
-from repro_torch.launch.mesh import start_group, stop_group  # noqa: E402
+from repro_torch.launch.mesh import NodeGroup, start_group, stop_group  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.mlp import make_mlp_loss, mlp_init  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
@@ -313,6 +329,20 @@ DYNAMIC_RUNS = [
     ("(g) FD-DSGD k=4 stragglers", "dsgd", "bounded_staleness:k=4", None,
      "stragglers:frac=0.5,rate=0.5,drop=1", 5, "wire_stage"),
 ]
+# (h) the sharded engine under the programs, 5 rounds each on the
+# one-rank NCCL group -- (label, algorithm, schedule, topk, axes)
+SHARDED_DYNAMIC_RUNS = [
+    ("(h1) sharded FD-DSGT node churn int8", "dsgt", "sequential", None,
+     dict(topology_program=DYNAMIC_RUNS[0][3])),
+    ("(h2) sharded FD-DSGD edge failure top-64", "dsgd", "pipelined", 64,
+     dict(topology_program=DYNAMIC_RUNS[1][3])),
+    ("(h3) sharded FD-DSGT k=2 stragglers top-16", "dsgt", "bounded_staleness:k=2", 16,
+     dict(node_program=DYNAMIC_RUNS[2][4])),
+    ("(h4) sharded FD-DSGT slow uplink top-64", "dsgt", "sequential", 64,
+     dict(node_program="slow_uplink:frac=0.25,k_scale=0.25")),
+]
+# (i)-(k) the privacy axis
+DP_SPEC = "dp:sigma=0.5,clip=1.0"
 # the EHR drivers' full runs: 6 + 5 + 13 cells; their realized fractions
 # (a function of the programs alone) against the committed JSONs within
 # this, their bal_acc printed beside the JSONs' (another init: the JSONs'
@@ -1353,22 +1383,23 @@ def driver_paths() -> None:
 
 
 def fused_oracle(algorithm: str, schedule: str, topk, rounds: int = SHARDED_ROUNDS,
-                 q: int = 10):
-    """The port's FusedEngine on the card with ``run_sharded_engine``'s
+                 q: int = 10, device: str = "cuda", **axes):
+    """The port's FusedEngine on ``device`` with ``run_sharded_engine``'s
     defaults: hospital20, mlp_init(0), the cohort of seed 0 and its
-    batcher of seed 1, the balanced loss, alpha = 0.02/sqrt(r). Returns
-    (final state, per-round losses)."""
+    batcher of seed 1, the balanced loss, alpha = 0.02/sqrt(r); ``axes``
+    the topology program, node program and privacy spec. Returns (final
+    state, per-round losses, last metrics)."""
     batcher = make_node_batcher(generate_ehr_cohort(seed=0), m=20, seed=1)
     cfg = FLConfig(algorithm=algorithm, q=q, n_nodes=20)
     eng, flat = FusedEngine.simulated(
-        mixing_matrix("hospital20", 20), stack_for_nodes(mlp_init(0, device="cuda"), 20),
-        scale_chunk=512, topk=topk, round_schedule=schedule)
+        mixing_matrix("hospital20", 20), stack_for_nodes(mlp_init(0, device=device), 20),
+        scale_chunk=512, topk=topk, round_schedule=schedule, **axes)
     round_fn = make_fl_round(make_mlp_loss(class_weights()), inv_sqrt(0.02), cfg, eng)
     state, losses = init_fl_state(cfg, flat, eng), []
     for _ in range(rounds):
         state, m = round_fn(state, stack_batches(batcher, q))
         losses.append(float(m["loss"]))
-    return state, losses
+    return state, losses, m
 
 
 def sharded_path(group) -> dict:
@@ -1419,7 +1450,7 @@ def sharded_path(group) -> dict:
                 f"{eng.collective_bytes} B, wire {out['wire_bytes']} B/round")
         if kernel in launches:
             launches[kernel] += SHARDED_ROUNDS
-        state, losses = fused_oracle(algorithm, schedule, topk)
+        state, losses, _ = fused_oracle(algorithm, schedule, topk)
         rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], losses))
         diff = float((out["state"].params - state.params).abs().max())
         mean_diff = float((out["state"].params.mean(0) - state.params.mean(0)).abs().max())
@@ -1428,7 +1459,7 @@ def sharded_path(group) -> dict:
         if topk is None:
             one = run_sharded_engine(group, rounds=1, q=10, algorithm=algorithm,
                                      fl_schedule=schedule, log=False)["state"]
-            want, _ = fused_oracle(algorithm, schedule, None, rounds=1)
+            want, _, _ = fused_oracle(algorithm, schedule, None, rounds=1)
             diff1 = float((one.params - want.params).abs().max())
             if algorithm == "dsgt":
                 diff1 = max(diff1, float((one.tracker - want.tracker).abs().max()))
@@ -1493,6 +1524,256 @@ def sharded_quadratic(group) -> None:
     log(f"  the quadratic contract on the card (8 nodes, chunk 16, int8 and top-4 bitmap "
         f"wires, 4 rounds, DSGD/DSGT x sequential/pipelined): params/tracker within "
         f"{worst:.2e} of the fused engine")
+
+
+def program_w_offs(engine, rounds: int):
+    """The realized W_off of ``rounds`` rounds from ``engine``'s initial
+    counters (``_round_gates`` advancing them round by round, as the
+    round does), and the counters after them."""
+    comm = dict(engine._topo_init())
+    w_offs = []
+    for _ in range(rounds):
+        w_off, _, new_comm, _ = engine._round_gates(comm)
+        w_offs.append(w_off)
+        comm.update(new_comm)
+    return torch.stack(w_offs).cpu(), comm
+
+
+def sharded_dynamic_path(group, cpu_group) -> dict:
+    """(h) The sharded engine under the programs through
+    ``run_sharded_engine``, 5 rounds each at Q = 10 on the one-rank NCCL
+    group: ONE wire-stage launch a round and no other gossip kernel; the
+    static run's all-gathers and bytes (a program adds no collective);
+    the realized W_off of every round bitwise the CPU's (the same
+    engine's counters replayed on a gloo group), the run's counters those
+    of the replay; the loss within rtol 1e-3 of the fused engine on the
+    card under the same program -- ``slow_uplink``, which the fused
+    engine refuses, against the same sharded run on the CPU, its
+    ``wire_bytes_effective`` equal."""
+    launches = {}
+    for label, algorithm, schedule, topk, axes in SHARDED_DYNAMIC_RUNS:
+        wires = 2 if algorithm == "dsgt" else 1
+        kernel = {(True, 1): "wire_stage_compact", (True, 2): "wire_stage_gt_compact",
+                  (False, 1): "wire_stage", (False, 2): "wire_stage_gt"}[(topk is not None,
+                                                                          wires)]
+        kw = dict(rounds=SHARDED_ROUNDS, q=10, algorithm=algorithm, topk=topk,
+                  fl_schedule=schedule, log=False, **axes)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = run_sharded_engine(group, **kw)
+        expect_launches(label, **{kernel: SHARDED_ROUNDS})
+        run_s = time.perf_counter() - t0
+        launches[kernel] = launches.get(kernel, 0) + SHARDED_ROUNDS
+        eng = out["engine"]
+        buffers = 3 if topk else 2
+        per_wire = 20 * flat_wire_bytes(eng.layout, 1, 512, topk)
+        if (eng.collectives != SHARDED_ROUNDS * wires * buffers
+                or eng.collective_bytes != SHARDED_ROUNDS * wires * per_wire
+                or out["wire_bytes"] != SHARDED_WIRE[(topk, algorithm)]):
+            raise AssertionError(
+                f"{label}: {eng.collectives} all-gathers of {eng.collective_bytes} B, "
+                f"wire {out['wire_bytes']} B/round")
+        card_w, card_comm = program_w_offs(eng, SHARDED_ROUNDS)
+        cpu_eng, _ = ShardedFusedEngine.from_group(
+            cpu_group, stack_for_nodes(mlp_init(0, device="cpu"), 20),
+            w=mixing_matrix("hospital20", 20), scale_chunk=512, topk=topk,
+            round_schedule=schedule, **axes)
+        cpu_w, _ = program_w_offs(cpu_eng, SHARDED_ROUNDS)
+        run_comm = out["state"].comm
+        same_counters = all(torch.equal(run_comm[k], card_comm[k])
+                            for k in ("topo_round", "topo_up") if k in card_comm)
+        if not torch.equal(card_w.view(torch.int32), cpu_w.view(torch.int32)) or not (
+                same_counters):
+            raise AssertionError(f"{label}: W_off not the CPU's ({same_counters})")
+        if "node_program" in axes and axes["node_program"].startswith("slow_uplink"):
+            cpu = run_sharded_engine(cpu_group, **kw)
+            losses = cpu["losses"]
+            eff = float(out["metrics"]["wire_bytes_effective"])
+            want_eff = float(cpu["metrics"]["wire_bytes_effective"])
+            if eff != want_eff or not eff < out["wire_bytes"]:
+                raise AssertionError(f"{label}: effective bytes {eff} vs {want_eff}")
+            note = (f"wire_bytes_effective {eff:,.0f} of {out['wire_bytes']:,.0f} B "
+                    "(= the CPU's); vs the same run on the CPU")
+        else:
+            _, losses, _ = fused_oracle(algorithm, schedule, topk, **axes)
+            note = "vs the fused engine on the card"
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], losses))
+        if not all(math.isfinite(v) for v in out["losses"]) or rel > 1e-3:
+            raise AssertionError(f"{label}: loss rel {rel}: {out['losses']} vs {losses}")
+        fracs = ", ".join(f"{k} {float(v):.4f}" for k, v in out["metrics"].items()
+                          if k.endswith("_fraction"))
+        log(f"  {label}, {SHARDED_ROUNDS} rounds x Q=10 ({run_s:.2f} s): {SHARDED_ROUNDS} "
+            f"{kernel} launches, {eng.collectives} all-gathers of "
+            f"{eng.collective_bytes // SHARDED_ROUNDS:,} B a round (the static run's), "
+            f"{eng.wire_encoding} wire; W_off of every round bitwise the CPU's; {fracs}; "
+            f"{note}: loss rel {rel:.2e}")
+    return launches
+
+
+def privacy_fused_path() -> dict:
+    """(i) The fused engine under ``dp:sigma=0.5,clip=1.0``, 5 rounds at
+    Q = 10: FD-DSGT through ``run_fused_engine``, FD-DSGD through the
+    library's entry points; one round-kernel launch a round; the losses
+    within 1e-3 relative of the same run on the CPU twins; ``dp_epsilon``
+    the analytic bound within fp32 rounding; ``secure_agg`` added, the
+    run bitwise its unmasked twin."""
+    rounds, launches = SHARDED_ROUNDS, {}
+    for algorithm, kernel in (("dsgt", "fused_round_gt"), ("dsgd", "fused_round")):
+        runs = {}
+        for spec in (DP_SPEC, "secure_agg+" + DP_SPEC):
+            zero_counts()
+            if algorithm == "dsgt":
+                out = run_fused_engine(rounds=rounds, q=10, privacy=spec, device="cuda")
+                runs[spec] = (out["losses"], out["params"], out["dp_epsilon"])
+            else:
+                state, losses, m = fused_oracle("dsgd", "sequential", None, rounds,
+                                                privacy=spec)
+                runs[spec] = (losses, {"flat": state.params}, float(m["dp_epsilon"]))
+            expect_launches(f"fused {algorithm.upper()} {spec}", **{kernel: rounds})
+            launches[kernel] = launches.get(kernel, 0) + rounds
+        if algorithm == "dsgt":
+            cpu = run_fused_engine(rounds=rounds, q=10, privacy=DP_SPEC, device="cpu")
+            cpu_losses = cpu["losses"]
+        else:
+            cpu_losses = fused_oracle("dsgd", "sequential", None, rounds, device="cpu",
+                                      privacy=DP_SPEC)[1]
+        losses, params, eps = runs[DP_SPEC]
+        m_losses, m_params, m_eps = runs["secure_agg+" + DP_SPEC]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+        want_eps = analytic_epsilon(0.5, rounds * (2 if algorithm == "dsgt" else 1), 1e-5)
+        masked_same = losses == m_losses and eps == m_eps and all(
+            torch.equal(a[1], b[1]) for a, b in zip(tree_leaves(params),
+                                                    tree_leaves(m_params)))
+        if (rel > 1e-3 or not all(math.isfinite(v) for v in losses)
+                or abs(eps - want_eps) > 2e-6 * want_eps or not masked_same):
+            raise AssertionError(
+                f"fused {algorithm} dp: loss rel {rel}, epsilon {eps} vs {want_eps}, "
+                f"secure_agg bitwise {masked_same}")
+        log(f"  fused FD-{algorithm.upper()} {DP_SPEC}, {rounds} rounds x Q=10: {rounds} "
+            f"{kernel} launches per run; loss {losses[0]:.4f} -> {losses[-1]:.4f}, max rel "
+            f"diff to the CPU {rel:.2e}; dp_epsilon {eps:.6f} (analytic {want_eps:.6f}); "
+            f"with secure_agg bitwise the unmasked run")
+    return launches
+
+
+def privacy_driver_path() -> dict:
+    """(j) The privacy driver uncut (6 rows x 6 rounds at Q = 10, the
+    committed experiments/privacy_ehr.json's budget) on the card: 36
+    ``fused_round_gt`` launches; every row's wire bytes 167,184; the DP
+    rows' ``epsilon`` (fp32) within 1e-6 relative of the JSON's and
+    ``epsilon_rdp`` (float64) within 1e-12 of it; bal_acc printed beside the JSON's
+    (another init); the driver asserts the secure_agg rows bitwise."""
+    t0 = time.perf_counter()
+    zero_counts()
+    rec = privacy_ehr.run(privacy_ehr.SMOKE_ROUNDS, 10, device="cuda", log=False)
+    rounds = len(rec["rows"]) * privacy_ehr.SMOKE_ROUNDS
+    expect_launches("privacy driver", fused_round_gt=rounds)
+    with open(os.path.join(ROOT, "experiments", "privacy_ehr.json")) as f:
+        json_rows = {r["name"]: r for r in json.load(f)["rows"]}
+    for row in rec["rows"]:
+        ref = json_rows[row["name"]]
+        bad = row["wire_bytes_per_round"] != WIRE_DSGT or row["iterations"] != ref["iterations"]
+        if "epsilon" in ref:
+            bad |= (abs(row["epsilon"] - ref["epsilon"]) > 1e-6 * ref["epsilon"]
+                    or abs(row["epsilon_rdp"] - ref["epsilon_rdp"]) > 1e-12 * ref["epsilon_rdp"])
+        if bad or not math.isfinite(row["bal_acc"]):
+            raise AssertionError(f"privacy driver row {row} vs the JSON's {ref}")
+        eps = (f", epsilon {row['epsilon']:.4f} / RDP {row['epsilon_rdp']:.4f} (= JSON)"
+               if "epsilon" in row else "")
+        log(f"  privacy {row['name']:24s}: wire {row['wire_bytes_per_round']:,.0f} B/round"
+            f"{eps}, bal_acc {row['bal_acc']:.4f} (JSON {ref['bal_acc']:.4f})")
+    log(f"  the privacy driver in {time.perf_counter() - t0:.1f} s: {rounds} fused_round_gt "
+        "launches")
+    return {"fused_round_gt": rounds}
+
+
+def sharded_dp_path(group) -> dict:
+    """(k) The sharded dense int8 wire under dp on the one-rank NCCL group
+    (the rank draws its rows of the noise): after one round params and
+    tracker within 1e-5 of the fused engine on the card, one wire-stage
+    launch."""
+    launches = {}
+    for algorithm, kernel in (("dsgd", "wire_stage"), ("dsgt", "wire_stage_gt")):
+        zero_counts()
+        one = run_sharded_engine(group, rounds=1, q=10, algorithm=algorithm,
+                                 privacy=DP_SPEC, log=False)
+        expect_launches(f"sharded {algorithm} dp", **{kernel: 1})
+        launches[kernel] = 1
+        want, _, m = fused_oracle(algorithm, "sequential", None, rounds=1, privacy=DP_SPEC)
+        st = one["state"]
+        diff = float((st.params - want.params).abs().max())
+        if algorithm == "dsgt":
+            diff = max(diff, float((st.tracker - want.tracker).abs().max()))
+        if diff > 1e-5 or float(one["metrics"]["dp_epsilon"]) != float(m["dp_epsilon"]):
+            raise AssertionError(f"sharded {algorithm} dp vs the fused engine: {diff}")
+        log(f"  sharded FD-{algorithm.upper()} {DP_SPEC}, dense int8 wire, one round: one "
+            f"{kernel} launch, params/tracker within {diff:.2e} of the fused engine")
+    return launches
+
+
+def check_dp_epilogue() -> None:
+    """Each DP wrapper on the card at the main shape (20, 1536), chunk
+    512, dense and top-64 (and the compact wires at top-16 positions and
+    top-64 bitmap), clip 1.0, noise of std 0.5: its launch against the
+    twin fed the same substituted residual (the substitution is the
+    wrapper's own PyTorch arithmetic on the card) -- every output bitwise
+    but the round kernels' mixed (1e-5 x max(1, max|input|)); and the
+    int8 payload against the twin with the direct epilogue (clip and
+    noise, then quantize), which an ulp of float association may move
+    across a rounding boundary: counted and printed."""
+    n, t, chunk = 20, 1536, 512
+    w_off, w_self = weights("hospital20", n)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [("fused_round", 1, None, {}), ("fused_round", 1, 64, {}),
+             ("fused_round_gt", 2, None, {}), ("fused_round_gt", 2, 64, {}),
+             ("wire_stage", 1, None, {}), ("wire_stage_gt", 2, 64, {}),
+             ("wire_stage_compact", 1, 16, {"bitmap": False}),
+             ("wire_stage_gt_compact", 2, 64, {"bitmap": True})]
+    flips = 0
+    for name, wires, topk, extra in cases:
+        kernel, twin = {**KERNELS, **WIRE_KERNELS, **COMPACT_KERNELS}[name][:2]
+        bufs = make_inputs(n, t, chunk, wires, "main", seed=11)
+        noises = [0.5 * torch.randn(n, t, generator=gen, device="cuda") for _ in range(wires)]
+        weights_ = (w_off, w_self) if name in KERNELS else ()
+        kw = dict(scale_chunk=chunk, topk=topk, **extra)
+        dp = dict(dp_clip=1.0, dp_noise=noises[0])
+        if wires == 2:
+            dp["dp_noise_t"] = noises[1]
+        got = kernel(*bufs, *weights_, ALPHA, **kw, **dp)
+        if wires == 1:
+            x, g, recon, res = bufs
+            sub, corr = gossip_wrappers._dp_dsgd(x, g, recon, res, ALPHA, True, 1.0,
+                                                 noises[0])
+            plain = list(twin(x, g, recon, sub, *weights_, ALPHA, **kw))
+            res_i = [2] if name in KERNELS else [len(plain) - 1]
+            corrs = [corr]
+        else:
+            x, tt, g, gp, rx, sx, rt, st = bufs
+            subx, subt, cx, ct = gossip_wrappers._dp_dsgt(*bufs, ALPHA, True, 1.0, *noises)
+            plain = list(twin(x, tt, g, gp, rx, subx, rt, subt, *weights_, ALPHA, **kw))
+            res_i = ([3, 5] if name in KERNELS else
+                     [5, 9] if name == "wire_stage_gt" else [6, 11])
+            corrs = [cx, ct]
+        for i, c in zip(res_i, corrs):
+            plain[i] = plain[i] + c
+        direct = twin(*bufs, *weights_, ALPHA, **kw, **dp)
+        torch.cuda.synchronize()
+        for i, (a_, b_) in enumerate(zip(got, plain)):
+            mixed = name in KERNELS and i < wires
+            if mixed:
+                tol = 1e-5 * max(1.0, max(float(v.abs().max()) for v in bufs))
+                ok = float((a_ - b_).abs().max()) <= tol
+            else:
+                ok = torch.equal(a_, b_)
+            if not ok:
+                raise AssertionError(f"{name} dp top-{topk}: output {i} differs from the twin")
+        q_idx = [i for i, v in enumerate(got) if v.dtype == torch.int8]
+        flips += sum(int((got[i] != direct[i]).sum()) for i in q_idx)
+        del got, plain, direct, bufs, noises
+    log(f"  the DP epilogue on every wrapper ({len(cases)} cases at 20x1536): each launch "
+        f"== its twin on the substituted residual (bitwise but the mix); int8 entries "
+        f"moved against the direct epilogue's: {flips}")
+    torch.cuda.empty_cache()
 
 
 def _logit_diff(what: str, got: torch.Tensor, want: torch.Tensor,
@@ -1729,7 +2010,7 @@ def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
 def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
                   class_weight="balanced", rounds: int = 50, warmup: int = 5,
                   profiled: int = 5, topk=None, group=None, topology_program=None,
-                  node_program=None) -> dict:
+                  node_program=None, privacy=None) -> dict:
     """Median host-clock time of one whole DSGT round with Q local steps
     (Q gradient evaluations, then the engine's comm step: one kernel
     launch on the fused engine, plus the PyTorch stale mix at depth k >=
@@ -1739,17 +2020,17 @@ def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
     ``profiled`` more rounds for the device's busy time and operation
     count per round and the host's costliest ops."""
     label = (f"DSGT Q={q} {engine} {schedule or 'sequential'}" + (f" top-{topk}" if topk else "")
-             + "".join(f" {p}" for p in (topology_program, node_program) if p))
+             + "".join(f" {p}" for p in (topology_program, node_program, privacy) if p))
     data = generate_ehr_cohort(seed=0)
     batcher = make_node_batcher(data, m=20, seed=1)
     cfg = FLConfig(algorithm="dsgt", q=q, n_nodes=20)
     stacked, w = stack_for_nodes(mlp_init(0, device="cuda"), 20), mixing_matrix("hospital20", 20)
-    kw = dict(scale_chunk=512, round_schedule=schedule, topk=topk)
+    kw = dict(scale_chunk=512, round_schedule=schedule, topk=topk,
+              topology_program=topology_program, node_program=node_program, privacy=privacy)
     if group is not None:
         eng, params = ShardedFusedEngine.from_group(group, stacked, w=w, **kw)
     else:
-        eng, params = get_engine(engine).simulated(
-            w, stacked, topology_program=topology_program, node_program=node_program, **kw)
+        eng, params = get_engine(engine).simulated(w, stacked, **kw)
     round_fn = make_fl_round(make_mlp_loss(class_weights(class_weight)), inv_sqrt(0.02),
                              cfg, eng)
     state = init_fl_state(cfg, params, eng)
@@ -1868,6 +2149,23 @@ def timings(card: str, floor_ms: float) -> dict:
                                                 class_weight=None, rounds=10,
                                                 warmup=2, profiled=2)
     return rows
+
+
+def axis_timings(card: str, group) -> dict:
+    """Whole FD-DSGT Q = 10 rounds under this slice's axes beside the
+    static round of the same engine in the same call: the sharded top-64
+    round under ``node_churn`` (the dynamic round: W_r, ``nbr_recon_all``)
+    and the fused round under ``dp:sigma=0.5,clip=1.0`` (two noise
+    draws and the residual substitution a round)."""
+    churn = DYNAMIC_RUNS[0][3]
+    return {
+        "sharded top-64 static": round_profile(card, engine="sharded_fused", topk=TOPK_MAIN,
+                                               group=group),
+        "sharded top-64 churn": round_profile(card, engine="sharded_fused", topk=TOPK_MAIN,
+                                              group=group, topology_program=churn),
+        "fused static": round_profile(card),
+        "fused dp": round_profile(card, privacy=DP_SPEC),
+    }
 
 
 def compact_timings(card: str, group, floor_ms: float) -> dict:
@@ -2207,6 +2505,7 @@ def main() -> int:
     max_err = {**check_gossip_mix(), **check_kernels(), **check_wire_stages(),
                **check_compact_stages(), **check_attention_kernels(),
                **check_scan_kernels()}
+    check_dp_epilogue()
 
     log("phase 3: paths (launches counted per run)")
     launches = main_path()
@@ -2221,6 +2520,12 @@ def main() -> int:
     group = start_group(0, 1, os.path.join(tempfile.mkdtemp(), "store"), device="cuda")
     launches.update(sharded_path(group))
     sharded_quadratic(group)
+    log("  -- the sharded dynamic round (h) and the privacy axis (i)-(k)")
+    cpu_group = NodeGroup(dist.new_group(backend="gloo"), 0, 1, torch.device("cpu"))
+    for counts in (sharded_dynamic_path(group, cpu_group), privacy_fused_path(),
+                   privacy_driver_path(), sharded_dp_path(group)):
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
     serve = serving_path()
     launches.update(decode_attention=serve["decode_attention"],
                     flash_attention=serve["flash_attention"],
@@ -2238,6 +2543,7 @@ def main() -> int:
     compact = compact_timings(card, group, floor_ms)
     rows["rounds"].update(compact.pop("rounds"))
     rows.update(compact)
+    rows["rounds"].update(axis_timings(card, group))
     stop_group(group)
     rows.update(attention_timings(card))
     rows.update(scan_timings(card, floor_ms))

@@ -1,9 +1,9 @@
-"""One cell of the EHR round-axis experiments (the staleness, churn and
-straggler drivers): FD-DSGT on the ``fused`` engine over the paper's
-20-hospital cohort and graph, m = 20, the class-weighted loss, alpha =
-alpha0/sqrt(r), under one round schedule, topology program and node
-program. The reference's drivers each repeat this body; the port keeps
-it once."""
+"""One cell of the EHR round-axis experiments (the staleness, churn,
+straggler and privacy drivers): FD-DSGT on the ``fused`` engine over the
+paper's 20-hospital cohort and graph, m = 20, the class-weighted loss,
+alpha = alpha0/sqrt(r), under one round schedule, topology program, node
+program and privacy spec. The reference's drivers each repeat this body;
+the port keeps it once."""
 
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ FRACTIONS = ("edge_fraction", "payload_fraction", "compute_fraction")
 
 def run_ehr_cell(q: int, rounds: int, *, round_schedule: str = "sequential",
                  topology_program: Optional[str] = None,
-                 node_program: Optional[str] = None, alpha0: float = 0.02,
+                 node_program: Optional[str] = None, privacy: Optional[str] = None,
+                 alpha0: float = 0.02,
                  robust_alpha: bool = False, seed: int = 0, device=None,
                  init_params: Optional[Dict] = None) -> Dict:
     """Train one cell for ``rounds`` communication rounds of ``q`` local
@@ -40,9 +41,10 @@ def run_ehr_cell(q: int, rounds: int, *, round_schedule: str = "sequential",
     scales alpha by ``robust_alpha_scale(uptime, depth)``, the uptime the
     topology program's times the node program's.
 
-    Returns the engine and the cell's numbers: ``iterations``,
-    ``bal_acc`` of the consensus model on the whole cohort,
-    ``final_loss`` and ``consensus_err`` of the last round, and the mean
+    Returns the engine, the last round's ``metrics`` and the cell's
+    numbers: ``iterations``, ``bal_acc`` of the consensus model on the
+    whole cohort, ``final_loss`` and ``consensus_err`` of the last round,
+    and the mean
     over the rounds of each realized fraction (``mean_edge_fraction``,
     ``mean_payload_fraction``, ``mean_compute_fraction``; 1.0 where the
     round reports none). The fractions are read back once, at the end."""
@@ -56,7 +58,7 @@ def run_ehr_cell(q: int, rounds: int, *, round_schedule: str = "sequential",
     cfg = FLConfig(algorithm="dsgt", q=q, n_nodes=n)
     engine, flat = get_engine("fused").simulated(
         w, stack_for_nodes(single, n), scale_chunk=512, round_schedule=round_schedule,
-        topology_program=topology_program, node_program=node_program)
+        topology_program=topology_program, node_program=node_program, privacy=privacy)
     sched = inv_sqrt(alpha0)
     if robust_alpha:
         uptime = (engine.topology_program.expected_uptime()
@@ -77,6 +79,7 @@ def run_ehr_cell(q: int, rounds: int, *, round_schedule: str = "sequential",
     yall = torch.as_tensor(np.concatenate(data.labels), device=dev)
     out = {
         "engine": engine,
+        "metrics": m,
         "iterations": int(state.step),
         "bal_acc": float(mlp_balanced_accuracy(consensus, xall, yall)),
         "final_loss": float(m["loss"]),

@@ -37,7 +37,9 @@ Four engines are ported:
   runs ONE wire-stage kernel per round on its rows (the compact exact-k
   top-k wire, ``kernels.gossip.wire_stage[_gt]_compact``, or the dense
   int8 one), all-gathers the wire buffers, and mixes against a running
-  neighbor-reconstruction accumulator, on a dense W.
+  neighbor-reconstruction accumulator, on a dense W; under a program,
+  against an unweighted replica of every node's reconstruction weighted
+  by the round's W_r.
 
 The exact-wire engines are sequential-only and refuse top-k and partial
 federation scopes, as the reference's do.
@@ -51,14 +53,22 @@ counters ``topo_round``, ``topo_key`` (and ``topo_up``, ``node_key``) to
 ``FLState.comm``; each round's realized W_r is derived from them on the
 device (:meth:`GossipEngine._round_gates`) and handed to the same round
 kernels as a runtime operand, and stragglers sit out local steps as
-masked updates. ``flat`` and ``fused`` run both axes; ``tree`` refuses
-them, as the reference's does; ``sharded_fused`` refuses them as the part
-not ported yet.
+masked updates. ``flat``, ``fused`` and ``sharded_fused`` run both axes
+(``sharded_fused`` also ``slow_uplink``'s per-node wire k); ``tree``
+refuses them, as the reference's does.
 
-Everything else outside the ported slice -- privacy, federation scopes
-on the fused engines, bf16 storage, the sharded engine's dynamic round,
-circulant torus wire and two-axis layout -- raises
-``NotImplementedError`` naming its ROADMAP.md item.
+The fifth axis is the engine's :class:`~repro_torch.core.privacy.
+PrivacySpec`: ``dp`` clips and noises the wire payload in the wire
+stage's quantize epilogue (the kernel wrappers' residual substitution:
+still one launch a round) on ``fused`` and ``sharded_fused``, drawn from
+``priv_key`` and ``topo_round`` in ``FLState.comm``, and reports
+``dp_epsilon``; ``secure_agg`` is a no-op on ``fused`` and ``flat`` (no
+per-edge payload), and ``tree``, ``flat`` and ``sharded_fused`` refuse
+what the reference's refuse.
+
+Everything else outside the ported slice -- federation scopes on the
+fused engines, bf16 storage, the circulant torus wire and two-axis
+layout -- raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -87,6 +97,15 @@ from repro_torch.core.heterogeneity import (
     resolve_node_program,
 )
 from repro_torch.core.mixing import _wire, make_dense_flat_mix, make_dense_gossip
+from repro_torch.core.privacy import (
+    NOISE_STREAM,
+    TRACKER_STREAM_OFFSET,
+    PrivacySpec,
+    dp_noise,
+    epsilon_traced,
+    resolve_privacy,
+)
+from repro_torch.core.privacy import NONE as PRIVACY_NONE
 from repro_torch.core.packing import (
     FlatLayout,
     bitmap_bytes_per_chunk,
@@ -107,7 +126,11 @@ from repro_torch.kernels.gossip.ops import (
     wire_stage_gt,
     wire_stage_gt_compact,
 )
-from repro_torch.kernels.gossip.ref import scatter_bitmap_dq, scatter_compact_dq
+from repro_torch.kernels.gossip.ref import (
+    compact_to_bitmap,
+    scatter_bitmap_dq,
+    scatter_compact_dq,
+)
 from repro_torch.launch.mesh import NodeGroup
 
 __all__ = [
@@ -366,6 +389,14 @@ class GossipEngine(abc.ABC):
     round_schedule: RoundSchedule = _SCHEDULES["sequential"]
     topology_program: TopologyProgram = STATIC
     node_program: NodeProgram = HOMOGENEOUS
+    #: the fifth round axis: clip and Gaussian noise on the wire payload
+    #: (``dp``) and the pairwise pads (``secure_agg``); the engines with
+    #: the error-feedback wire realize DP, and secure_agg is a no-op on
+    #: every wire of the port (none carries a per-edge payload)
+    privacy: PrivacySpec = PRIVACY_NONE
+    #: True for the engine that can give each node its own wire k
+    #: (``slow_uplink``); the others refuse such a node program
+    supports_wire_k: ClassVar[bool] = False
     device: torch.device
 
     # -- dynamic-round contract (topology + node programs) -----------------
@@ -394,24 +425,34 @@ class GossipEngine(abc.ABC):
         if self.dynamic_nodes:
             self.node_program.bind(w.shape[0], device=self.device)
 
+    @property
+    def _priv_rng(self) -> bool:
+        """True when the engine draws privacy randomness at round time (DP
+        noise): it then carries ``priv_key`` and the shared ``topo_round``
+        counter in ``FLState.comm``."""
+        return self.privacy.dp
+
     def _topo_keys(self) -> Tuple[str, ...]:
-        """Comm keys the dynamic programs contribute: the round counter
-        (the round the NEXT comm step mixes under), the topology
-        program's key and Markov state, the node program's key."""
+        """Comm keys the dynamic programs and the privacy axis contribute:
+        the round counter (the round the NEXT comm step mixes under), the
+        topology program's key and Markov state, the node program's key,
+        the privacy key."""
         keys: Tuple[str, ...] = ()
-        if self.dynamic_round:
+        if self.dynamic_round or self._priv_rng:
             keys += ("topo_round",)
         if self.dynamic_topology:
             keys += ("topo_key",) + self.topology_program.state_keys()
         if self.dynamic_nodes:
             keys += ("node_key",)
+        if self._priv_rng:
+            keys += ("priv_key",)
         return keys
 
     def _topo_spec(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
         """Shapes and dtypes of the counters: the round an int32 scalar,
         each key the (2,) words of a uint32 key held in int64."""
         spec = {"topo_round": ((), torch.int32), "topo_key": ((2,), torch.int64),
-                "node_key": ((2,), torch.int64)}
+                "node_key": ((2,), torch.int64), "priv_key": ((2,), torch.int64)}
         spec.update(self.topology_program.state_spec())
         return spec
 
@@ -420,6 +461,7 @@ class GossipEngine(abc.ABC):
             "topo_round": torch.zeros((), dtype=torch.int32, device=self.device),
             "topo_key": _as_key(self.topology_program.init_key(), self.device),
             "node_key": _as_key(self.node_program.init_key(), self.device),
+            "priv_key": _as_key(self.privacy.init_key(), self.device),
         }
         init.update({k: torch.as_tensor(v, device=self.device)
                      for k, v in self.topology_program.init_state().items()})
@@ -462,16 +504,69 @@ class GossipEngine(abc.ABC):
             w_off_r, w_diag_r = compose_node_gate(w_off_r, w_diag_r, up)
             new_comm["node_key"] = nkey
             metrics["payload_fraction"] = _frac(up.sum(), up.shape[0])
+        if self._priv_rng:
+            new_comm["priv_key"] = comm["priv_key"]
         return w_off_r, w_diag_r, new_comm, metrics
+
+    def _priv_comm(self, comm: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The advanced privacy counter entries of a STATIC round (a
+        dynamic round advances ``topo_round`` in :meth:`_round_gates`,
+        which passes ``priv_key`` through)."""
+        if self.dynamic_round or not self._priv_rng:
+            return {}
+        return {"topo_round": comm["topo_round"] + 1, "priv_key": comm["priv_key"]}
+
+    # -- DP hooks (the engines with the error-feedback wire) ---------------
+
+    def _dp_kwargs(self, noise=None, noise_t=None) -> Dict:
+        """The wrappers' DP arguments for this round's noise: none without
+        noise (the plain call), the clip and the noise otherwise."""
+        if noise is None:
+            return {}
+        out = {"dp_clip": float(self.privacy.dp_clip), "dp_noise": noise}
+        if noise_t is not None:
+            out["dp_noise_t"] = noise_t
+        return out
+
+    def _dp_noise(self, comm: Dict[str, torch.Tensor], rows: range,
+                  tracker: bool = False) -> torch.Tensor:
+        """This round's Gaussian draw, std ``sigma * clip``, for the node
+        ``rows`` over the wire width, from the round counter and the
+        privacy key in ``comm``. The element counter is global, so a
+        rank's rows are bitwise the rows of the whole draw."""
+        stream = NOISE_STREAM + (TRACKER_STREAM_OFFSET if tracker else 0)
+        ids = torch.arange(rows.start, rows.stop, device=self.device)
+        return dp_noise(comm["priv_key"], comm["topo_round"], ids, self.layout.total,
+                        self.privacy.dp_sigma * self.privacy.dp_clip, stream=stream)
+
+    def _round_noises(self, comm: Dict[str, torch.Tensor], rows: range,
+                      wires: int) -> Tuple[torch.Tensor, ...]:
+        """The round's noise for each wire (none without DP)."""
+        if not self.privacy.dp:
+            return ()
+        noises = (self._dp_noise(comm, rows),)
+        if wires == 2:
+            noises += (self._dp_noise(comm, rows, tracker=True),)
+        return noises
+
+    def _privacy_metrics(self, cfg: FLConfig, step: int) -> Dict[str, torch.Tensor]:
+        """``dp_epsilon``: the (epsilon, delta) moments bound over the wire
+        releases so far -- one a comm round (``step // q``), two for DSGT
+        (the parameter and the tracker wire)."""
+        if not self.privacy.dp:
+            return {}
+        wires = 2 if cfg.algorithm == "dsgt" else 1
+        return {"dp_epsilon": epsilon_traced(self.privacy.dp_sigma,
+                                             (step // cfg.q) * wires, self.privacy.delta)}
 
     def make_step_mask(self, cfg: FLConfig):
         """The heterogeneous-compute hook for ``_assemble_round``: None
         for programs that never slow a node (the steps run unmasked),
         else ``step_mask(state) -> (q-1, n)`` from the round counter and
         node key in ``FLState.comm``. A program that changes the wire's
-        k per node is refused: no engine of the port has a per-node k."""
+        k per node is refused unless the engine ``supports_wire_k``."""
         prog = self.node_program
-        if prog.heterogeneous_wire_k:
+        if prog.heterogeneous_wire_k and not self.supports_wire_k:
             raise ValueError(
                 f"node program {prog.spec()!r} modulates per-node wire k, "
                 f"which the {self.name!r} engine does not support -- use "
@@ -655,13 +750,39 @@ def engine_names() -> Tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 
-def _refuse_unported(privacy, scope, storage_dtype) -> None:
-    if privacy not in (None, "none"):
-        raise _not_ported(f"privacy spec {privacy!r}", "12")
+def _refuse_unported(scope, storage_dtype) -> None:
     if scope not in (None, "full"):
         raise _not_ported(f"federation scope {scope!r}", "13")
     if storage_dtype not in (None, "float32", torch.float32):
         raise _not_ported(f"{storage_dtype} flat storage", "5")
+
+
+def _reject_privacy(privacy, name: str, reason: str) -> PrivacySpec:
+    """Resolve a privacy spec and refuse any active one on engines whose
+    wire can realize none, with the reference's message."""
+    p = resolve_privacy(privacy)
+    if p.active:
+        raise ValueError(
+            f"privacy spec {p.spec()!r}: the {name!r} {reason} -- use "
+            "'fused' (dp; secure_agg is vacuously satisfied in-process) "
+            "or 'sharded_fused' on the circulant wire (dp + secure_agg)"
+        )
+    return p
+
+
+def _reject_dp(privacy, name: str, reason: str) -> PrivacySpec:
+    """Resolve a privacy spec, allowing ``secure_agg`` (a no-op where no
+    per-edge payload exists) but refusing DP on engines without the
+    error-feedback epilogue that absorbs the noise, with the reference's
+    message."""
+    p = resolve_privacy(privacy)
+    if p.dp:
+        raise ValueError(
+            f"privacy spec {p.spec()!r}: the {name!r} {reason}, so DP "
+            "noise would accumulate unabsorbed -- use the 'fused' or "
+            "'sharded_fused' engine (error-feedback wire epilogue)"
+        )
+    return p
 
 
 def _reject_dynamic_program(program, name: str, reason: str) -> TopologyProgram:
@@ -745,7 +866,9 @@ class TreeEngine(GossipEngine):
         """Single-device build on the params' device: the dense-W backend;
         the state stays the input tree. Returns (engine, params)."""
         _refuse_exact_wire(cls.name, topk, round_schedule, scope)
-        _refuse_unported(privacy, None, storage_dtype)
+        _refuse_unported(None, storage_dtype)
+        _reject_privacy(privacy, cls.name, "engine's pytree wire has no quantize "
+                        "epilogue to pad or noise")
         reason = "engine bakes W into its tree-level gossip backend"
         _reject_dynamic_program(topology_program, cls.name, reason)
         _reject_node_program(node_program, cls.name, reason)
@@ -766,7 +889,9 @@ class FlatEngine(GossipEngine):
 
     def __init__(self, mix_fn, layout: FlatLayout, device=None, *,
                  topology_program=None, node_program=None, wire_dtype=None,
-                 w=None):
+                 w=None, privacy=None):
+        self.privacy = _reject_dp(privacy, self.name, "engine ships an exact "
+                                  "un-quantized wire with no error-feedback residual")
         self._mix = mix_fn
         self.layout = layout
         self.device = resolve_device(device)
@@ -814,11 +939,11 @@ class FlatEngine(GossipEngine):
         the engine on their device, the programs bound to ``w``. Returns
         (engine, flat buffer)."""
         _refuse_exact_wire(cls.name, topk, round_schedule, scope)
-        _refuse_unported(privacy, None, storage_dtype)
+        _refuse_unported(None, storage_dtype)
         flat, layout = pack(stacked_params, pad_to=scale_chunk)
         return cls(make_dense_flat_mix(w, wire_dtype), layout, device=flat.device,
                    topology_program=topology_program, node_program=node_program,
-                   wire_dtype=wire_dtype, w=w), flat
+                   wire_dtype=wire_dtype, w=w, privacy=privacy), flat
 
 
 # ---------------------------------------------------------------------------
@@ -857,7 +982,14 @@ class FusedEngine(GossipEngine):
     schedules, the wire-stage kernel (``wire_stage`` / ``wire_stage_gt``)
     plus a PyTorch mix at staleness depth k >= 2. On CPU tensors the
     kernel wrappers run their PyTorch twins. The wire is always
-    difference-coded with error feedback (the kernels' defaults)."""
+    difference-coded with error feedback (the kernels' defaults).
+
+    ``privacy``: ``dp`` clips and noises each round's payload in the
+    kernels' quantize epilogue (the wrappers' residual substitution, still
+    one launch a round), the noise drawn from ``priv_key`` and
+    ``topo_round`` in ``FLState.comm``, and reports ``dp_epsilon``;
+    ``secure_agg`` is a no-op here (no per-edge payload exists), so a
+    masked run is bitwise its unmasked twin."""
 
     name = "fused"
 
@@ -871,7 +1003,8 @@ class FusedEngine(GossipEngine):
                 "the fused engines' wire is always difference-coded int8; "
                 "wire_dtype only applies to the tree/flat exact-wire engines"
             )
-        _refuse_unported(privacy, scope, storage_dtype)
+        _refuse_unported(scope, storage_dtype)
+        self.privacy = resolve_privacy(privacy)
         if scale_chunk < 1:
             raise ValueError("scale_chunk must be >= 1")
         if topk is not None and topk < 1:
@@ -958,7 +1091,7 @@ class FusedEngine(GossipEngine):
                 f"engine runs float32 on {self.device}"
             )
 
-    def _metrics(self, losses, alpha, grads, new_state: FLState, egress: float):
+    def _metrics(self, cfg, losses, alpha, grads, new_state: FLState, egress: float):
         res = new_state.comm["residual"]
         return {
             "loss": losses.mean(),
@@ -968,15 +1101,16 @@ class FusedEngine(GossipEngine):
             "comm_rounds": 1.0,
             "wire_bytes": egress,
             "ef_residual_rms": torch.sqrt((res * res).mean()),
+            **self._privacy_metrics(cfg, new_state.step),
         }
 
     def _round_w(self, comm):
         """The round's ``(w_off_r, w_self_r, counter entries, gate
-        metrics)``: the constant W on a static round, else the realized
-        W_r of :meth:`_round_gates` -- a runtime operand of the same
-        kernels."""
+        metrics)``: the constant W on a static round (and the privacy
+        counter's advance), else the realized W_r of
+        :meth:`_round_gates` -- a runtime operand of the same kernels."""
         if not self.dynamic_round:
-            return self.w_off, self.w_self, {}, {}
+            return self.w_off, self.w_self, self._priv_comm(comm), {}
         return self._round_gates(comm)
 
     def make_comm_step(self, eval_grads, schedule, cfg: FLConfig):
@@ -988,6 +1122,7 @@ class FusedEngine(GossipEngine):
         kw = dict(scale_chunk=self.scale_chunk, topk=self.topk,
                   stale_mix=self.pipelined)
         egress = self.wire_bytes(cfg)
+        wires = 2 if cfg.algorithm == "dsgt" else 1
 
         def comm_step(state: FLState, batch):
             if state.comm is None:
@@ -997,10 +1132,11 @@ class FusedEngine(GossipEngine):
             losses, grads = eval_grads(state.params, batch)
             c = state.comm
             w_off_r, w_self_r, topo_comm, gate_metrics = self._round_w(c)
+            dpkw = self._dp_kwargs(*self._round_noises(c, range(cfg.n_nodes), wires))
             if cfg.algorithm == "dsgd":
                 mixed, recon, res, _ = fused_round(
                     state.params, grads, c["recon"], c["residual"],
-                    w_off_r, w_self_r, alpha, **kw,
+                    w_off_r, w_self_r, alpha, **kw, **dpkw,
                 )
                 new_state = state._replace(
                     step=step, params=mixed,
@@ -1010,14 +1146,14 @@ class FusedEngine(GossipEngine):
                 mx, mt, nrx, nsx, nrt, nst, _, _ = fused_round_gt(
                     state.params, state.tracker, grads, state.prev_grad,
                     c["recon"], c["residual"], c["recon_t"], c["residual_t"],
-                    w_off_r, w_self_r, alpha, **kw,
+                    w_off_r, w_self_r, alpha, **kw, **dpkw,
                 )
                 new_state = FLState(
                     step=step, params=mx, tracker=mt, prev_grad=grads,
                     comm={"recon": nrx, "residual": nsx,
                           "recon_t": nrt, "residual_t": nst, **topo_comm},
                 )
-            metrics = self._metrics(losses, alpha, grads, new_state, egress)
+            metrics = self._metrics(cfg, losses, alpha, grads, new_state, egress)
             metrics.update(gate_metrics)
             return new_state, metrics
 
@@ -1033,6 +1169,7 @@ class FusedEngine(GossipEngine):
         chunk = self.scale_chunk
         kw = dict(scale_chunk=chunk, topk=self.topk)
         egress = self.wire_bytes(cfg)
+        wires = 2 if cfg.algorithm == "dsgt" else 1
 
         def stale_recon(recon, wq, wsc):
             mix = recon
@@ -1056,9 +1193,10 @@ class FusedEngine(GossipEngine):
             def mix(nbr, h):
                 return w_off_r @ nbr + w_self_r[:, None] * h
 
+            dpkw = self._dp_kwargs(*self._round_noises(c, range(cfg.n_nodes), wires))
             if cfg.algorithm == "dsgd":
                 h, q, sc, nrecon, nres = wire_stage(
-                    state.params, grads, c["recon"], c["residual"], alpha, **kw)
+                    state.params, grads, c["recon"], c["residual"], alpha, **kw, **dpkw)
                 mixed = mix(stale_recon(c["recon"], c["wire_q"], c["wire_scales"]), h)
                 nwq, nwsc = push(c["wire_q"], c["wire_scales"], q, sc)
                 new_state = state._replace(
@@ -1070,7 +1208,7 @@ class FusedEngine(GossipEngine):
                 (h, t_half, qx, scx, nrx, nsx, qt, sct, nrt, nst) = wire_stage_gt(
                     state.params, state.tracker, grads, state.prev_grad,
                     c["recon"], c["residual"], c["recon_t"], c["residual_t"],
-                    alpha, **kw,
+                    alpha, **kw, **dpkw,
                 )
                 mixed_x = mix(stale_recon(c["recon"], c["wire_q"], c["wire_scales"]), h)
                 mixed_t = mix(stale_recon(c["recon_t"], c["wire_q_t"],
@@ -1084,7 +1222,7 @@ class FusedEngine(GossipEngine):
                           "wire_q": nwq, "wire_scales": nwsc,
                           "wire_q_t": nwqt, "wire_scales_t": nwsct, **topo_comm},
                 )
-            metrics = self._metrics(losses, alpha, grads, new_state, egress)
+            metrics = self._metrics(cfg, losses, alpha, grads, new_state, egress)
             metrics.update(gate_metrics)
             return new_state, metrics
 
@@ -1155,12 +1293,30 @@ class ShardedFusedEngine(GossipEngine):
     oldest before its local steps. Metrics are over all n nodes
     (all-reduced), so every world size reports the same numbers.
 
+    Under a topology or node program every rank derives the whole
+    realized W_r from the replicated counters (``_round_gates``; the
+    topology, node and Markov state is never split by rows) and keeps its
+    rows. The pre-weighted ``mix_recon`` cannot carry a per-round W, so
+    the dynamic round keeps ``nbr_recon_all`` instead: an unweighted
+    replica of every node's reconstruction, (R, n, total) on a rank (the
+    reference's (n, n, total) layout split by receiver), contracted with
+    the rank's rows of W_r at mix time -- with the same one all-gather per
+    wire buffer as the static round. ``slow_uplink`` gives each node its
+    own wire k (``supports_wire_k``): a node's payload keeps its k_i
+    largest entries a chunk, the rest goes back into its residual, and
+    ``wire_bytes_effective`` reports what those k_i would cost.
+
+    ``privacy``: ``dp`` clips and noises each rank's rows in the wire
+    stage's epilogue (each rank draws its own rows of the global noise);
+    ``secure_agg`` needs the circulant wire and is refused.
+
     ``collectives`` and ``collective_bytes`` count the wire's all-gathers
     and the bytes this rank hands them (the metrics' all-reduces are not
     wire traffic and do not count).
     """
 
     name = "sharded_fused"
+    supports_wire_k = True
 
     def __init__(self, group: NodeGroup, layout: FlatLayout, *, w=None,
                  scale_chunk: int = 512, topk=None, compact=None,
@@ -1179,15 +1335,41 @@ class ShardedFusedEngine(GossipEngine):
             raise _not_ported(
                 f"the two-axis (node, model_shard) layout (model_axis={model_axis!r})",
                 "15")
-        if not resolve_program(topology_program).is_static:
-            raise _not_ported(
-                f"topology program {topology_program!r} on the sharded engine "
-                "(the sharded half of the dynamic round)", "10")
-        if not resolve_node_program(node_program).is_static:
-            raise _not_ported(
-                f"node program {node_program!r} on the sharded engine (the "
-                "sharded half of the dynamic round)", "11")
-        _refuse_unported(privacy, scope, storage_dtype)
+        _refuse_unported(scope, storage_dtype)
+        self.privacy = resolve_privacy(privacy)
+        if self.privacy.dp and not error_feedback:
+            raise ValueError(
+                "dp noise rides the EF residual (res-substitution in the "
+                "wire-stage epilogue); build the engine with "
+                "error_feedback=True or drop the dp token"
+            )
+        if self.privacy.secure_agg:
+            raise ValueError(
+                f"privacy spec {self.privacy.spec()!r}: secure_agg needs "
+                "the circulant ppermute wire (per-edge payloads to pad); "
+                "the dense all-gather wire broadcasts every payload to "
+                "every node, so pairwise pads cannot conceal it -- drop "
+                "w= (use the mesh torus W) or drop the secure_agg token"
+            )
+        if resolve_node_program(node_program).heterogeneous_wire_k:
+            if topk is None:
+                raise ValueError(
+                    f"node program {resolve_node_program(node_program).spec()!r} "
+                    "modulates per-node wire k; build the engine with topk= so "
+                    "there is a k to modulate"
+                )
+            if not error_feedback:
+                raise ValueError(
+                    "per-node wire k rides the EF residual (entries a slow "
+                    "uplink truncates re-ship later); build with "
+                    "error_feedback=True"
+                )
+            if self.privacy.dp:
+                raise ValueError(
+                    "per-node wire k truncates the noised payload AFTER "
+                    "clipping, which breaks the DP calibration; drop the "
+                    "dp token or the wire-k program"
+                )
         if not (error_feedback and difference_coding):
             raise _not_ported(
                 "the sharded engine without difference coding or error feedback",
@@ -1243,6 +1425,9 @@ class ShardedFusedEngine(GossipEngine):
         rows = slice(self.rows.start, self.rows.stop)
         self.w_self = torch.as_tensor(w_self[rows], device=self.device)
         self.w_off = torch.as_tensor(w_off[rows], device=self.device)
+        self._w_full = (torch.as_tensor(w_off, device=self.device),
+                        torch.as_tensor(w_self, device=self.device))
+        self._bind_programs(self.w, topology_program, node_program)
         self.collectives = 0
         self.collective_bytes = 0
 
@@ -1275,26 +1460,35 @@ class ShardedFusedEngine(GossipEngine):
         return tuple(n + suffix for n in names)
 
     def comm_keys(self, cfg: FLConfig) -> Tuple[str, ...]:
-        keys = ("recon", "residual", "mix_recon")
+        """The reference's keys: ``mix_recon`` on a static round,
+        ``nbr_recon_all`` under a program; then the counters."""
+        nbr = "nbr_recon_all" if self.dynamic_round else "mix_recon"
+        keys = ("recon", "residual", nbr)
         if self.pipelined:
             keys += self._wire_key_names("")
         if cfg.algorithm == "dsgt":
-            keys += ("recon_t", "residual_t", "mix_recon_t")
+            keys += ("recon_t", "residual_t", nbr + "_t")
             if self.pipelined:
                 keys += self._wire_key_names("_t")
-        return keys
+        return keys + self._topo_keys()
 
     def comm_state_spec(self, cfg: FLConfig):
         """This rank's wire state: (R, total) fp32 recon / residual /
-        mix_recon, and the in-flight wire buffers, (R, width) at depth 1
-        and a (R, k, width) ring at depth k >= 2."""
+        mix_recon, (R, n, total) fp32 ``nbr_recon_all``, the in-flight
+        wire buffers, (R, width) at depth 1 and a (R, k, width) ring at
+        depth k >= 2; then the counters, whole on every rank."""
         r, t = len(self.rows), self.layout.total
         c, depth = t // self.scale_chunk, self.staleness_depth
+        topo = self._topo_spec()
 
         def ring(width, dtype):
             return ((r, width) if depth <= 1 else (r, depth, width)), dtype
 
         def spec(key):
+            if key in topo:
+                return topo[key]
+            if key.startswith("nbr_recon_all"):
+                return (r, self.n_nodes, t), torch.float32
             if key.startswith("wire_q"):
                 return ring(c * self.topk if self.compact_wire else t, torch.int8)
             if key.startswith("wire_pos"):
@@ -1310,6 +1504,9 @@ class ShardedFusedEngine(GossipEngine):
     def dense_equivalent(self) -> np.ndarray:
         """The dense W this engine realizes (the ``FusedEngine`` oracle)."""
         return self.w
+
+    def _static_round_w(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._w_full
 
     def _edge_bytes(self) -> int:
         """What one neighbor payload costs on this wire: the compact
@@ -1350,6 +1547,14 @@ class ShardedFusedEngine(GossipEngine):
     def params_view(self, params):
         return unpack(params, self.local_layout)
 
+    def local_step(self, params, grads, alpha, mask=None):
+        """The local step on this rank's rows; a node program's step mask
+        covers all n nodes (every rank derives it whole), and the rank
+        applies its rows of it."""
+        if mask is not None:
+            mask = mask[self.rows.start:self.rows.stop]
+        return super().local_step(params, grads, alpha, mask)
+
     def global_mean(self, x: torch.Tensor) -> torch.Tensor:
         x = x.detach().clone()
         dist.all_reduce(x, group=self.group.pg)
@@ -1357,29 +1562,105 @@ class ShardedFusedEngine(GossipEngine):
 
     # -- the wire ------------------------------------------------------------
 
-    def _produce(self, x, g, recon, res, alpha):
-        """DSGD: ONE wire-stage launch. Returns (h, wire buffers in
-        ``_wire_key_names`` order, recon', res')."""
-        kw = dict(scale_chunk=self.scale_chunk, topk=self.topk)
-        if self.compact_wire:
-            h, q, idx, sc, nrecon, nres = wire_stage_compact(
-                x, g, recon, res, alpha, bitmap=self.wire_encoding == "bitmap", **kw)
-            return h, (q, idx, sc), nrecon, nres
-        h, q, sc, nrecon, nres = wire_stage(x, g, recon, res, alpha, **kw)
-        return h, (q, sc), nrecon, nres
+    def _truncated(self, q, idx, sc, nrecon, nres, kvec):
+        """One wire under a per-node k: :meth:`_hetero_truncate` on the
+        kernel's (values, positions) or dense output, what was dropped
+        moved from recon' back into res', then the bitmap re-encode.
+        Returns (wire buffers, recon', res')."""
+        q, ddq = self._hetero_truncate(q, sc, kvec, pos=idx)
+        nrecon, nres = nrecon - ddq, nres + ddq
+        if idx is None:
+            return (q, sc), nrecon, nres
+        if self.wire_encoding == "bitmap":
+            q, idx = compact_to_bitmap(q, idx, self.scale_chunk, self.topk)
+        return (q, idx, sc), nrecon, nres
 
-    def _produce_gt(self, x, t, g, gp, rx, sx, rt, st, alpha):
+    def _produce(self, x, g, recon, res, alpha, noises=(), kvec=None):
+        """DSGD: ONE wire-stage launch (with this round's DP noise, and the
+        per-node k ``kvec`` (R, 1) of a wire-k program). Returns (h, wire
+        buffers in ``_wire_key_names`` order, recon', res')."""
+        kw = dict(scale_chunk=self.scale_chunk, topk=self.topk, **self._dp_kwargs(*noises))
+        if self.compact_wire:
+            # under a per-node k the kernel emits positions: the truncation
+            # runs on them, and the bitmap is encoded after it
+            bitmap = self.wire_encoding == "bitmap" and kvec is None
+            h, q, idx, sc, nrecon, nres = wire_stage_compact(
+                x, g, recon, res, alpha, bitmap=bitmap, **kw)
+        else:
+            h, q, sc, nrecon, nres = wire_stage(x, g, recon, res, alpha, **kw)
+            idx = None
+        if kvec is not None:
+            return (h, *self._truncated(q, idx, sc, nrecon, nres, kvec))
+        return h, (q, sc) if idx is None else (q, idx, sc), nrecon, nres
+
+    def _produce_gt(self, x, t, g, gp, rx, sx, rt, st, alpha, noises=(), kvec=None):
         """DSGT: ONE wire-stage launch for both wires. Returns (h, t_half,
         wire_x, recon_x', res_x', wire_t, recon_t', res_t')."""
-        kw = dict(scale_chunk=self.scale_chunk, topk=self.topk)
+        kw = dict(scale_chunk=self.scale_chunk, topk=self.topk, **self._dp_kwargs(*noises))
         if self.compact_wire:
+            bitmap = self.wire_encoding == "bitmap" and kvec is None
             (h, th, qx, ix, scx, nrx, nsx, qt, it, sct, nrt, nst) = wire_stage_gt_compact(
-                x, t, g, gp, rx, sx, rt, st, alpha,
-                bitmap=self.wire_encoding == "bitmap", **kw)
-            return h, th, (qx, ix, scx), nrx, nsx, (qt, it, sct), nrt, nst
-        (h, th, qx, scx, nrx, nsx, qt, sct, nrt, nst) = wire_stage_gt(
-            x, t, g, gp, rx, sx, rt, st, alpha, **kw)
-        return h, th, (qx, scx), nrx, nsx, (qt, sct), nrt, nst
+                x, t, g, gp, rx, sx, rt, st, alpha, bitmap=bitmap, **kw)
+        else:
+            (h, th, qx, scx, nrx, nsx, qt, sct, nrt, nst) = wire_stage_gt(
+                x, t, g, gp, rx, sx, rt, st, alpha, **kw)
+            ix = it = None
+        if kvec is not None:
+            wire_x, nrx, nsx = self._truncated(qx, ix, scx, nrx, nsx, kvec)
+            wire_t, nrt, nst = self._truncated(qt, it, sct, nrt, nst, kvec)
+            return h, th, wire_x, nrx, nsx, wire_t, nrt, nst
+        wire_x = (qx, scx) if ix is None else (qx, ix, scx)
+        wire_t = (qt, sct) if it is None else (qt, it, sct)
+        return h, th, wire_x, nrx, nsx, wire_t, nrt, nst
+
+    # -- heterogeneous wire k ------------------------------------------------
+
+    def _hetero_truncate(self, q, scales, kvec, pos=None):
+        """Zero all but each row's k_i largest-|q| wire entries a chunk
+        (ties to the lower position: two stable argsorts), returning the
+        kept values and the dense dequant of what was dropped, which the
+        caller moves from the shipped reconstruction back into the
+        residual. Runs on the kernel's (values, positions) output before
+        any bitmap encoding; every buffer keeps its shape."""
+        width = self.topk if pos is not None else self.scale_chunk
+        rows = q.shape[0]
+        qc = q.reshape(rows, -1, width)
+        mag = qc.to(torch.int32).abs()
+        rank = torch.argsort(torch.argsort(-mag, dim=-1, stable=True), dim=-1, stable=True)
+        keep = rank < kvec.reshape(rows, 1, 1)
+        kept = torch.where(keep, qc, 0).reshape(q.shape)
+        dropped = torch.where(keep, 0, qc).reshape(q.shape)
+        if pos is not None:
+            ddq = scatter_compact_dq(dropped, pos, scales, self.scale_chunk,
+                                     scales.shape[-1] * self.scale_chunk)
+        else:
+            ddq = _dequant(dropped, scales, self.scale_chunk)
+        return kept, ddq
+
+    def _wire_k_vec(self, comm: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """This round's per-node wire k, (n, 1) int32: the node program's
+        fraction times topk in fp32, rounded half to even, clipped to
+        [1, topk]."""
+        frac = self.node_program.wire_k_gate(comm["topo_round"], comm["node_key"])
+        k = torch.clamp(torch.round(frac * float(self.topk)), 1, self.topk)
+        return k.to(torch.int32).reshape(self.n_nodes, 1)
+
+    def _wire_k_bytes(self, kvec: torch.Tensor, wires: int) -> torch.Tensor:
+        """What each node's egress would cost on a k_i-sized wire (the
+        buffers that cross stay topk wide): ``flat_wire_bytes``' per-chunk
+        boundary with k_i in place of topk, in fp32, summed over the
+        nodes, their degrees and the wires."""
+        chunk = self.scale_chunk
+        n_chunks = self.layout.total // chunk
+        k = kvec.reshape(-1).to(torch.float32)
+        idx = k * float(torch.iinfo(compact_pos_dtype(chunk)).bits // 8)
+        bb = bitmap_bytes_per_chunk(chunk)
+        if bb is not None:
+            idx = torch.clamp_max(idx, float(bb))
+        per_chunk = torch.clamp_max(k + idx + 4.0, float(chunk + 4))
+        deg = torch.as_tensor(_degrees(self.dense_equivalent()), dtype=torch.float32,
+                              device=k.device)
+        return float(wires) * (deg * n_chunks * per_chunk).sum()
 
     def _all_gather(self, buf: torch.Tensor) -> torch.Tensor:
         """ONE all-gather of a (R, w) wire buffer into (n, w), moved as its
@@ -1425,7 +1706,7 @@ class ShardedFusedEngine(GossipEngine):
 
     # -- the round -----------------------------------------------------------
 
-    def _metrics(self, losses, alpha, grads, new_state: FLState, egress: float):
+    def _metrics(self, cfg, losses, alpha, grads, new_state: FLState, egress: float):
         """The reference's metrics over all n nodes: one all-reduce of the
         sums, one of the squared deviations from the consensus mean."""
         n, t = self.n_nodes, self.layout.total
@@ -1445,6 +1726,7 @@ class ShardedFusedEngine(GossipEngine):
             "comm_rounds": 1.0,
             "wire_bytes": egress,
             "ef_residual_rms": torch.sqrt(sums[1] / (n * t)),
+            **self._privacy_metrics(cfg, new_state.step),
         }
 
     def _check_cfg(self, cfg: FLConfig) -> None:
@@ -1453,40 +1735,112 @@ class ShardedFusedEngine(GossipEngine):
 
     def _comm_body(self, eval_grads, schedule, cfg: FLConfig, state: FLState, batch,
                    mix_add):
-        """The comm step's shared body: this round's gradient, ONE
-        wire-stage launch, then the mix against ``mix_recon`` plus
-        ``mix_add(wire, wire_t)`` -- this round's gathered payload
-        (sequential) or the ingested stale one (pipelined). Returns
-        (state, metrics, wire, wire_t)."""
+        """The static comm step's shared body: this round's gradient, ONE
+        wire-stage launch (with this rank's rows of the round's DP noise),
+        then the mix against ``mix_recon`` plus ``mix_add(wire, wire_t)``
+        -- this round's gathered payload (sequential) or the ingested
+        stale one (pipelined). Returns (state, metrics, wire, wire_t)."""
         if state.comm is None:
             raise ValueError("fused rounds need init_fl_state(..., engine)")
         step = state.step + 1
         alpha = schedule(step)
         losses, grads = eval_grads(state.params, batch)
         c = state.comm
+        noises = self._round_noises(c, self.rows, 2 if cfg.algorithm == "dsgt" else 1)
+        priv = self._priv_comm(c)
         if cfg.algorithm == "dsgd":
             h, wire, nrecon, nres = self._produce(
-                state.params, grads, c["recon"], c["residual"], alpha)
+                state.params, grads, c["recon"], c["residual"], alpha, noises)
             new_mix = c["mix_recon"] + mix_add(wire, None)[0]
             new_state = state._replace(
                 step=step, params=self.w_self[:, None] * h + new_mix,
-                comm={"recon": nrecon, "residual": nres, "mix_recon": new_mix})
+                comm={"recon": nrecon, "residual": nres, "mix_recon": new_mix, **priv})
             wire_t = None
         else:
             (h, th, wire, nrx, nsx, wire_t, nrt, nst) = self._produce_gt(
                 state.params, state.tracker, grads, state.prev_grad, c["recon"],
-                c["residual"], c["recon_t"], c["residual_t"], alpha)
+                c["residual"], c["recon_t"], c["residual_t"], alpha, noises)
             add_x, add_t = mix_add(wire, wire_t)
             new_mrx, new_mrt = c["mix_recon"] + add_x, c["mix_recon_t"] + add_t
             new_state = FLState(
                 step=step, params=self.w_self[:, None] * h + new_mrx,
                 tracker=self.w_self[:, None] * th + new_mrt, prev_grad=grads,
                 comm={"recon": nrx, "residual": nsx, "mix_recon": new_mrx,
-                      "recon_t": nrt, "residual_t": nst, "mix_recon_t": new_mrt})
-        return new_state, (losses, alpha, grads), wire, wire_t
+                      "recon_t": nrt, "residual_t": nst, "mix_recon_t": new_mrt, **priv})
+        return new_state, (cfg, losses, alpha, grads), wire, wire_t
+
+    def _make_dynamic_round(self, eval_grads, schedule, cfg: FLConfig):
+        """The round under a topology or node program, every schedule
+        (the reference's ``_make_dynamic_round_dense``): the round's
+        realized W_r from the counters, ONE wire-stage launch (with the
+        per-node k of a wire-k program and the DP noise), ONE all-gather
+        per wire buffer of this round's payload (sequential) or the ring's
+        oldest (pipelined, bounded staleness), folded into the unweighted
+        ``nbr_recon_all``, then ``mixed = W_r_diag[rows] * h +
+        W_r_off[rows] @ nbr_recon_all`` -- equal, up to summation order,
+        to ``FusedEngine`` under the same programs (its ``stale_mix`` on
+        the pipelined schedule). Returns ``comm_step(state, batch)``."""
+        self._check_cfg(cfg)
+        egress = self.wire_bytes(cfg)
+        pipelined = self.pipelined
+        wires = 2 if cfg.algorithm == "dsgt" else 1
+        wk = self.node_program.heterogeneous_wire_k
+        keys, keys_t = self._wire_key_names(""), self._wire_key_names("_t")
+        rows = slice(self.rows.start, self.rows.stop)
+
+        def comm_step(state: FLState, batch):
+            if state.comm is None:
+                raise ValueError("fused rounds need init_fl_state(..., engine)")
+            step = state.step + 1
+            alpha = schedule(step)
+            losses, grads = eval_grads(state.params, batch)
+            c = state.comm
+            w_off_r, w_diag_r, topo_comm, gate_metrics = self._round_gates(c)
+            w_rows, ddiag = w_off_r[rows], w_diag_r[rows][:, None]
+            kvec = self._wire_k_vec(c) if wk else None
+            kw = dict(noises=self._round_noises(c, self.rows, wires),
+                      kvec=None if kvec is None else kvec[rows])
+
+            def mix_one(wire, wire_keys, nbr):
+                src = self._ring_slot0(c, wire_keys) if pipelined else wire
+                new_all = nbr + self._dq_full([self._all_gather(b) for b in src])
+                return torch.bmm(w_rows[:, None, :], new_all)[:, 0], new_all
+
+            if cfg.algorithm == "dsgd":
+                h, wire, nrecon, nres = self._produce(
+                    state.params, grads, c["recon"], c["residual"], alpha, **kw)
+                mix, nbr = mix_one(wire, keys, c["nbr_recon_all"])
+                comm = {"recon": nrecon, "residual": nres, "nbr_recon_all": nbr,
+                        **topo_comm}
+                new_state = state._replace(step=step, params=ddiag * h + mix, comm=comm)
+                pushes = ((keys, wire),)
+            else:
+                (h, th, wire, nrx, nsx, wire_t, nrt, nst) = self._produce_gt(
+                    state.params, state.tracker, grads, state.prev_grad, c["recon"],
+                    c["residual"], c["recon_t"], c["residual_t"], alpha, **kw)
+                mix_x, nbr_x = mix_one(wire, keys, c["nbr_recon_all"])
+                mix_t, nbr_t = mix_one(wire_t, keys_t, c["nbr_recon_all_t"])
+                comm = {"recon": nrx, "residual": nsx, "nbr_recon_all": nbr_x,
+                        "recon_t": nrt, "residual_t": nst, "nbr_recon_all_t": nbr_t,
+                        **topo_comm}
+                new_state = FLState(step=step, params=ddiag * h + mix_x,
+                                    tracker=ddiag * th + mix_t, prev_grad=grads, comm=comm)
+                pushes = ((keys, wire), (keys_t, wire_t))
+            if pipelined:
+                for wire_keys, vals in pushes:
+                    self._push_wire(c, comm, wire_keys, vals)
+            metrics = self._metrics(cfg, losses, alpha, grads, new_state, egress)
+            metrics.update(gate_metrics)
+            if wk:
+                metrics["wire_bytes_effective"] = self._wire_k_bytes(kvec, wires)
+            return new_state, metrics
+
+        return comm_step
 
     def make_comm_step(self, eval_grads, schedule, cfg: FLConfig):
         """The sequential round: produce, gather, mix in the same step."""
+        if self.dynamic_round:
+            return self._make_dynamic_round(eval_grads, schedule, cfg)
         self._check_cfg(cfg)
         egress = self.wire_bytes(cfg)
 
@@ -1507,12 +1861,17 @@ class ShardedFusedEngine(GossipEngine):
         before the local steps) and returns its neighbor term;
         ``comm_step`` produces this round's payload (stored for a later
         round), folds the ingested term into ``mix_recon`` and mixes --
-        k-round-stale neighbor information."""
+        k-round-stale neighbor information. Under a program the neighbor
+        term is weighted by this round's W_r, so the gather moves into the
+        comm step (:meth:`_make_dynamic_round`) and there is no ingest."""
         if not self.pipelined:
             raise ValueError(
                 "engine was built with round_schedule='sequential'; build "
                 "it with round_schedule='pipelined'"
             )
+        if self.dynamic_round:
+            comm_step = self._make_dynamic_round(eval_grads, schedule, cfg)
+            return None, lambda state, batch, stale: comm_step(state, batch)
         self._check_cfg(cfg)
         egress = self.wire_bytes(cfg)
         keys, keys_t = self._wire_key_names(""), self._wire_key_names("_t")

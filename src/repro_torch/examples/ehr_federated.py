@@ -19,21 +19,27 @@ bounded_staleness:k=2``). ``--topk`` masks the wire to the k largest
 columns per scale chunk, ``--topk-schedule`` adapts k to the error
 feedback residual, ``--fl-topology-program`` makes the hospital graph
 change from round to round (each round's realized W goes to the same
-kernel; an ``edges_up=`` column shows the share of links up). Prints
-the per-round comm bytes of the int8 (or top-k) wire against the fp32
-wire a plain engine ships.
+kernel; an ``edges_up=`` column shows the share of links up),
+``--fl-privacy`` clips and noises the wire (``dp:sigma=0.5,clip=1.0``; an
+``eps=`` column shows the (epsilon, 1e-5) bound) or pads it
+(``secure_agg``, a no-op on this engine: the run is bitwise the plain
+one). Prints the per-round comm bytes of the int8 (or top-k) wire
+against the fp32 wire a plain engine ships.
 
 ``run_sharded_engine`` runs part 2's configuration on the
 ``sharded_fused`` engine instead, for one rank of a process group
 (``repro_torch.launch.mesh.start_group``): the 20 hospitals' rows split
 over the ranks, one compact top-k (or dense int8) wire-stage launch per
-round and rank, and one all-gather per wire buffer.
+round and rank, and one all-gather per wire buffer; under a topology or
+node program (``slow_uplink`` too, with ``topk``) and with ``dp``.
 
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 3000 --out curves.csv
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 --rounds 50 --q 10
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 --topk 64
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 \
       --fl-topology-program node_churn:p_down=0.25,mean_downtime=2
+  PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 \
+      --fl-privacy dp:sigma=0.5,clip=1.0
 """
 
 from __future__ import annotations
@@ -66,7 +72,8 @@ from repro_torch.training.trainer import AdaptiveTopK, stack_batches, stack_for_
 def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
                      class_weight=CLASS_WEIGHT, fl_schedule="sequential",
                      topk=None, topk_schedule=None, topology_program=None,
-                     device=None, init_params: Optional[Dict] = None) -> Dict:
+                     privacy=None, device=None,
+                     init_params: Optional[Dict] = None) -> Dict:
     """FD-DSGT on the ``fused`` engine, one kernel call per comm round.
 
     ``fl_schedule``: a round-schedule spec ("sequential", "pipelined",
@@ -74,13 +81,16 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
     chunk; ``topk_schedule=(k_sparse, k_dense, high[, low])`` runs the
     adaptive-k wire instead. ``topology_program``: a ``core.dynamics``
     spec (e.g. ``"node_churn:p_down=0.2,mean_downtime=5"``) that gates
-    the hospital graph per round. ``init_params``: one node's starting weights
+    the hospital graph per round. ``privacy``: a ``core.privacy`` spec
+    (``"dp:sigma=0.5,clip=1.0"``, ``"secure_agg"``, or both joined by
+    ``+``). ``init_params``: one node's starting weights
     (a tree of tensors); default ``mlp_init(seed)``. Tests pass the
     reference's init here. Returns final ``acc``, ``bal_acc``,
     ``wire_saving`` (fp32 bytes over the engine's wire bytes in the last
     round), ``wire_bytes`` of the last round, the per-round ``losses``,
-    the final node-stacked ``params`` (a tree), and ``dense_rounds``
-    (adaptive k only, else None)."""
+    the final node-stacked ``params`` (a tree), ``dense_rounds``
+    (adaptive k only, else None) and ``dp_epsilon`` of the last round
+    (None without dp)."""
     if rounds < 1:
         raise ValueError("rounds must be >= 1")
     if topk_schedule is not None and topk is not None:
@@ -100,7 +110,7 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
         topk = adaptive.k_sparse
     stacked = stack_for_nodes(single, n)
     kw = dict(scale_chunk=scale_chunk, round_schedule=resolve_schedule(fl_schedule),
-              topology_program=topology_program)
+              topology_program=topology_program, privacy=privacy)
     engine, flat = get_engine("fused").simulated(w, stacked, topk=topk, **kw)
     loss_fn = make_mlp_loss(class_weights(class_weight))
     round_fn = make_fl_round(loss_fn, inv_sqrt(0.02), cfg, engine)
@@ -123,9 +133,11 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
     wire_label = f"top-{topk}" if topk else "int8"
     graph_note = (f"hospital graph x {engine.topology_program.spec()}"
                   if engine.dynamic_topology else "hospital graph")
+    priv_note = (f", privacy={engine.privacy.spec()}"
+                 if engine.privacy.active else "")
     print(f"\nfused engine (FD-DSGT, Q={q}, "
           f"schedule={engine.round_schedule.spec()}, {graph_note}, "
-          f"class_weight={class_weight}, {n_params} params -> "
+          f"class_weight={class_weight}{priv_note}, {n_params} params -> "
           f"{engine.layout.total} padded, chunk={scale_chunk}, topk={topk}, "
           f"wire={engine.wire_bytes(cfg):,.0f} B/round, device={dev}):")
     losses = []
@@ -140,6 +152,8 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
                       if adaptive is not None else "")
             churn_note = (f" edges_up={float(m['edge_fraction']):.0%}"
                           if "edge_fraction" in m else "")
+            churn_note += (f" eps={float(m['dp_epsilon']):.2f}"
+                           if "dp_epsilon" in m else "")
             print(f"  [round {rnd:4d}] loss={float(m['loss']):.4f} "
                   f"consensus_err={float(m['consensus_err']):.2e} "
                   f"comm_bytes/round={m['wire_bytes']:,.0f} ({wire_label} wire) "
@@ -168,18 +182,22 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
     return {"acc": acc, "bal_acc": bal, "wire_saving": saving,
             "wire_bytes": m["wire_bytes"],
             "losses": torch.stack(losses).tolist(), "params": params,
-            "dense_rounds": adaptive.dense_rounds if adaptive else None}
+            "dense_rounds": adaptive.dense_rounds if adaptive else None,
+            "dp_epsilon": float(m["dp_epsilon"]) if "dp_epsilon" in m else None}
 
 
 def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
                        scale_chunk: int = 512, seed: int = 0,
                        class_weight=CLASS_WEIGHT, fl_schedule="sequential",
-                       topk=None, init_params: Optional[Dict] = None,
+                       topk=None, topology_program=None, node_program=None,
+                       privacy=None, init_params: Optional[Dict] = None,
                        log: bool = True) -> Dict:
     """Part 2's configuration on the ``sharded_fused`` engine, for this
     rank of ``group`` (every rank of the group calls it with the same
     arguments). ``topk`` ships the compact exact-k wire where it is
-    smaller than the dense int8 chunk. Returns the per-round ``losses``
+    smaller than the dense int8 chunk; ``topology_program`` /
+    ``node_program`` / ``privacy`` are the engine's round axes, as
+    :func:`run_fused_engine` takes them. Returns the per-round ``losses``
     and last ``metrics`` (over all 20 hospitals), ``wire_bytes`` of the
     last round, the ``engine`` and the final ``state`` (this rank's
     rows)."""
@@ -192,7 +210,8 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
     cfg = FLConfig(algorithm=algorithm, q=q, n_nodes=n)
     engine, rows = ShardedFusedEngine.from_group(
         group, stack_for_nodes(single, n), w=mixing_matrix("hospital20", n),
-        scale_chunk=scale_chunk, topk=topk, round_schedule=fl_schedule)
+        scale_chunk=scale_chunk, topk=topk, round_schedule=fl_schedule,
+        topology_program=topology_program, node_program=node_program, privacy=privacy)
     round_fn = make_fl_round(make_mlp_loss(class_weights(class_weight)), inv_sqrt(0.02),
                              cfg, engine)
     state = init_fl_state(cfg, rows, engine)
@@ -201,7 +220,11 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
         print(f"\nsharded fused engine ({algorithm.upper()}, Q={q}, "
               f"schedule={engine.round_schedule.spec()}, {group.world} rank(s) x "
               f"{len(engine.rows)} hospitals, {engine.wire_encoding} wire, topk={topk}, "
-              f"wire={engine.wire_bytes(cfg):,.0f} B/round, device={group.device}):")
+              + "".join(f"{axis.spec()}, " for axis, on in (
+                  (engine.topology_program, engine.dynamic_topology),
+                  (engine.node_program, engine.dynamic_nodes),
+                  (engine.privacy, engine.privacy.active)) if on)
+              + f"wire={engine.wire_bytes(cfg):,.0f} B/round, device={group.device}):")
     losses = []
     for rnd in range(1, rounds + 1):
         state, m = round_fn(state, stack_batches(batcher, q))
@@ -277,6 +300,13 @@ def main(argv=None) -> None:
                          f"{', '.join(program_names())}); e.g. "
                          "'node_churn:p_down=0.2,mean_downtime=5' makes "
                          "the hospital graph time-varying")
+    ap.add_argument("--fl-privacy", default=None,
+                    help="wire privacy for part 2 (core.privacy spec): "
+                         "'dp:sigma=0.5,clip=1.0' clips each hospital's "
+                         "payload and adds Gaussian noise, with the "
+                         "(epsilon, 1e-5) bound reported per round; "
+                         "'secure_agg' (pairwise pads) is a no-op on the "
+                         "fused engine; join both with '+'")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain PyTorch twins)")
@@ -290,7 +320,7 @@ def main(argv=None) -> None:
                      fl_schedule=args.fl_schedule, topk=args.topk,
                      topk_schedule=_parse_topk_schedule(args.topk_schedule),
                      topology_program=args.fl_topology_program,
-                     device=args.device)
+                     privacy=args.fl_privacy, device=args.device)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,14 @@ wire) or the number of largest-|payload| columns each (node, scale
 chunk) keeps, ties at the threshold included; ``topk >= scale_chunk``
 keeps them all. The compact wire stages keep exactly ``1 <= topk <
 scale_chunk`` columns, ties toward the lower index.
+
+Every wrapper but ``gossip_mix`` takes the differential-privacy epilogue
+``dp_clip`` / ``dp_noise`` (and DSGT's ``dp_noise_t``): the wire payload
+clipped per node to L2 norm ``dp_clip`` plus the pre-scaled Gaussian
+noise (``core.privacy.dp_noise``), quantized in place of the payload. It
+reaches the unchanged kernels (and, on the CPU, the unchanged twins) by
+residual substitution (:func:`_dp_substitute`), so a round is still one
+launch; error feedback absorbs the clip and the noise.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ from repro_torch.kernels.gossip.ref import (
     fused_round_gt_ref,
     fused_round_ref,
     gossip_mix_ref,
-    refuse_unported,
+    dp_scale,
+    require_ef_for_dp,
     wire_stage_compact_ref,
     wire_stage_gt_compact_ref,
     wire_stage_gt_ref,
@@ -154,6 +163,55 @@ def _check_operands(name: str, bufs: Sequence[torch.Tensor], scale_chunk: int,
         raise ValueError(f"{name}: total {t} not a multiple of scale_chunk {scale_chunk}")
     check_topk(topk)
     return n, t
+
+
+def _dp_substitute(h, base, res, dp_clip, dp_noise):
+    """Residual substitution: the kernels quantize ``(h - base) + res``;
+    with ``res_sub = res + (wire - payload)`` they quantize the DP wire
+    ``cs * payload + noise`` instead (to an ulp of float association), so
+    their q, scales and recon are the DP wire's. Their residual is then
+    ``wire - dq``; adding the returned ``correction = payload - wire``
+    restores ``payload - dq``. Every step is its own rounded operation.
+    Returns (res_sub, correction)."""
+    payload = (h - base) + res
+    wire = dp_scale(payload, dp_clip) * payload + dp_noise
+    return res + (wire - payload), payload - wire
+
+
+def _dp_operands(error_feedback: bool, dp_clip, noises) -> bool:
+    """Validate the DP arguments: all of them or none (``noises`` the
+    wrapper's noise tensors); returns whether the epilogue is on."""
+    given = [v is not None for v in noises]
+    if not any(given) and dp_clip is None:
+        return False
+    if not all(given) or dp_clip is None:
+        raise ValueError(
+            "the DP epilogue needs dp_clip and every wire's noise "
+            f"({len(noises)} noise tensor(s)); got dp_clip={dp_clip!r} and "
+            f"{sum(given)} noise tensor(s)")
+    require_ef_for_dp(error_feedback)
+    return True
+
+
+def _dp_dsgd(x, g, recon, res, alpha, difference_coding, dp_clip, dp_noise):
+    """The DSGD wrappers' substitution (``h = x - alpha * g`` as the
+    kernel computes it, two rounded operations): (res_sub, correction)."""
+    h = x - torch.as_tensor(alpha, dtype=torch.float32) * g
+    base = recon if difference_coding else torch.zeros_like(recon)
+    return _dp_substitute(h, base, res, dp_clip, dp_noise)
+
+
+def _dp_dsgt(x, t, g, g_prev, recon_x, res_x, recon_t, res_t, alpha, difference_coding,
+             dp_clip, dp_noise, dp_noise_t):
+    """The DSGT wrappers' substitution on both wires: (res_x_sub,
+    res_t_sub, correction_x, correction_t)."""
+    t_half = t + g - g_prev
+    h = x - torch.as_tensor(alpha, dtype=torch.float32) * t_half
+    if not difference_coding:
+        recon_x = recon_t = torch.zeros_like(recon_x)
+    sx, cx = _dp_substitute(h, recon_x, res_x, dp_clip, dp_noise)
+    st, ct = _dp_substitute(t_half, recon_t, res_t, dp_clip, dp_noise_t)
+    return sx, st, cx, ct
 
 
 def _alpha32(alpha) -> np.float32:
@@ -378,11 +436,18 @@ def fused_round(
     x, g, recon, res: (n, t) fp32 contiguous, t % scale_chunk == 0;
     w_off (n, n) with a zero diagonal; w_self (n,); alpha an fp32 scalar.
     Returns (mixed, new_recon, new_res, scales (n, t // scale_chunk)).
-    The DP arguments are not ported and raise."""
-    refuse_unported(dp_clip, dp_noise)
-    n, t = _check_operands("fused_round", (x, g, recon, res), scale_chunk, topk,
-                           (w_off, w_self))
+    ``dp_clip`` / ``dp_noise`` (n, t): the DP epilogue."""
+    dp = _dp_operands(error_feedback, dp_clip, (dp_noise,))
+    n, t = _check_operands("fused_round", (x, g, recon, res) + ((dp_noise,) if dp else ()),
+                           scale_chunk, topk, (w_off, w_self))
     a = _alpha32(alpha)
+    if dp:
+        res, corr = _dp_dsgd(x, g, recon, res, a, difference_coding,
+                             dp_clip, dp_noise)
+        mixed, new_recon, new_res, scales = fused_round(
+            x, g, recon, res, w_off, w_self, a, scale_chunk, error_feedback,
+            difference_coding, topk, stale_mix)
+        return mixed, new_recon, new_res + corr, scales
     flags = dict(scale_chunk=scale_chunk, error_feedback=error_feedback,
                  difference_coding=difference_coding, topk=topk,
                  stale_mix=stale_mix)
@@ -431,12 +496,21 @@ def fused_round_gt(
     and on the parameter wire, in one kernel launch. ``(recon_x, res_x)``
     and ``(recon_t, res_t)`` are the two wires' compression states.
     Returns (mixed_x, mixed_t, new_recon_x, new_res_x, new_recon_t,
-    new_res_t, scales_x, scales_t); keep ``g`` as the next ``g_prev``."""
-    refuse_unported(dp_clip, dp_noise if dp_noise is not None else dp_noise_t)
+    new_res_t, scales_x, scales_t); keep ``g`` as the next ``g_prev``.
+    ``dp_clip`` / ``dp_noise`` / ``dp_noise_t``: the DP epilogue on the
+    parameter and the tracker wire."""
+    dp = _dp_operands(error_feedback, dp_clip, (dp_noise, dp_noise_t))
     bufs = (x, t, g, g_prev, recon_x, res_x, recon_t, res_t)
-    n, tot = _check_operands("fused_round_gt", bufs, scale_chunk, topk,
-                             (w_off, w_self))
+    n, tot = _check_operands("fused_round_gt", bufs + ((dp_noise, dp_noise_t) if dp else ()),
+                             scale_chunk, topk, (w_off, w_self))
     a = _alpha32(alpha)
+    if dp:
+        sx, st, cx, ct = _dp_dsgt(*bufs, a, difference_coding, dp_clip,
+                                  dp_noise, dp_noise_t)
+        mx, mt, nrx, nsx, nrt, nst, scx, sct = fused_round_gt(
+            x, t, g, g_prev, recon_x, sx, recon_t, st, w_off, w_self, a, scale_chunk,
+            error_feedback, difference_coding, topk, stale_mix)
+        return mx, mt, nrx, nsx + cx, nrt, nst + ct, scx, sct
     flags = dict(scale_chunk=scale_chunk, error_feedback=error_feedback,
                  difference_coding=difference_coding, topk=topk,
                  stale_mix=stale_mix)
@@ -484,11 +558,18 @@ def wire_stage(
     alpha * g``, then the int8 difference-coded quantization of h with
     error feedback (top-k masked when ``topk`` is set) -- in one kernel
     launch. Returns (h, q int8 (n, t), scales (n, t // scale_chunk),
-    new_recon, new_res); the caller mixes. The DP arguments are not
-    ported and raise."""
-    refuse_unported(dp_clip, dp_noise)
-    n, t = _check_operands("wire_stage", (x, g, recon, res), scale_chunk, topk)
+    new_recon, new_res); the caller mixes. ``dp_clip`` / ``dp_noise``:
+    the DP epilogue."""
+    dp = _dp_operands(error_feedback, dp_clip, (dp_noise,))
+    n, t = _check_operands("wire_stage", (x, g, recon, res) + ((dp_noise,) if dp else ()),
+                           scale_chunk, topk)
     a = _alpha32(alpha)
+    if dp:
+        res, corr = _dp_dsgd(x, g, recon, res, a, difference_coding,
+                             dp_clip, dp_noise)
+        h, q, scales, new_recon, new_res = wire_stage(
+            x, g, recon, res, a, scale_chunk, error_feedback, difference_coding, topk)
+        return h, q, scales, new_recon, new_res + corr
     flags = dict(scale_chunk=scale_chunk, error_feedback=error_feedback,
                  difference_coding=difference_coding, topk=topk)
     if x.device.type == "cpu":
@@ -532,11 +613,20 @@ def wire_stage_gt(
     t_half``, then the quantize-EF stage on the tracker wire and on the
     parameter wire, in one kernel launch. Returns (h, t_half, q_x,
     scales_x, new_recon_x, new_res_x, q_t, scales_t, new_recon_t,
-    new_res_t), q int8 (n, t)."""
-    refuse_unported(dp_clip, dp_noise if dp_noise is not None else dp_noise_t)
+    new_res_t), q int8 (n, t). ``dp_clip`` / ``dp_noise`` /
+    ``dp_noise_t``: the DP epilogue on both wires."""
+    dp = _dp_operands(error_feedback, dp_clip, (dp_noise, dp_noise_t))
     bufs = (x, t, g, g_prev, recon_x, res_x, recon_t, res_t)
-    n, tot = _check_operands("wire_stage_gt", bufs, scale_chunk, topk)
+    n, tot = _check_operands("wire_stage_gt", bufs + ((dp_noise, dp_noise_t) if dp else ()),
+                             scale_chunk, topk)
     a = _alpha32(alpha)
+    if dp:
+        sx, st, cx, ct = _dp_dsgt(*bufs, a, difference_coding, dp_clip,
+                                  dp_noise, dp_noise_t)
+        h, th, qx, scx, nrx, nsx, qt, sct, nrt, nst = wire_stage_gt(
+            x, t, g, g_prev, recon_x, sx, recon_t, st, a, scale_chunk, error_feedback,
+            difference_coding, topk)
+        return h, th, qx, scx, nrx, nsx + cx, qt, sct, nrt, nst + ct
     flags = dict(scale_chunk=scale_chunk, error_feedback=error_feedback,
                  difference_coding=difference_coding, topk=topk)
     if x.device.type == "cpu":
@@ -643,12 +733,21 @@ def wire_stage_compact(
     scales (n, C), new_recon, new_res); only (q, pos, scales) cross the
     wire. ``bitmap=True`` (byte-aligned chunks) emits the values in
     ascending-position order and the packed LSB-first presence bitmap
-    (n, C*chunk/8) uint8 in place of the positions. The DP arguments are
-    not ported and raise."""
-    refuse_unported(dp_clip, dp_noise)
-    n, t = _check_operands("wire_stage_compact", (x, g, recon, res), scale_chunk, None)
+    (n, C*chunk/8) uint8 in place of the positions. ``dp_clip`` /
+    ``dp_noise``: the DP epilogue (the selection then runs on the noised
+    wire)."""
+    dp = _dp_operands(error_feedback, dp_clip, (dp_noise,))
+    n, t = _check_operands("wire_stage_compact",
+                           (x, g, recon, res) + ((dp_noise,) if dp else ()), scale_chunk, None)
     check_compact(topk, scale_chunk, bitmap)
     a = _alpha32(alpha)
+    if dp:
+        res, corr = _dp_dsgd(x, g, recon, res, a, difference_coding,
+                             dp_clip, dp_noise)
+        h, q, idx, scales, new_recon, new_res = wire_stage_compact(
+            x, g, recon, res, a, scale_chunk, error_feedback, difference_coding, topk,
+            bitmap)
+        return h, q, idx, scales, new_recon, new_res + corr
     if x.device.type == "cpu":
         return wire_stage_compact_ref(
             x, g, recon, res, a, scale_chunk=scale_chunk, error_feedback=error_feedback,
@@ -695,12 +794,21 @@ def wire_stage_gt_compact(
     tracker wire's and the parameter wire's exact-k quantize-EF, in one
     kernel launch. Returns (h, t_half, q_x, pos_x, scales_x, new_recon_x,
     new_res_x, q_t, pos_t, scales_t, new_recon_t, new_res_t);
-    ``bitmap`` as in :func:`wire_stage_compact`, on both wires."""
-    refuse_unported(dp_clip, dp_noise if dp_noise is not None else dp_noise_t)
+    ``bitmap`` as in :func:`wire_stage_compact`, on both wires; ``dp_clip``
+    / ``dp_noise`` / ``dp_noise_t``: the DP epilogue on both wires."""
+    dp = _dp_operands(error_feedback, dp_clip, (dp_noise, dp_noise_t))
     bufs = (x, t, g, g_prev, recon_x, res_x, recon_t, res_t)
-    n, tot = _check_operands("wire_stage_gt_compact", bufs, scale_chunk, None)
+    n, tot = _check_operands("wire_stage_gt_compact",
+                             bufs + ((dp_noise, dp_noise_t) if dp else ()), scale_chunk, None)
     check_compact(topk, scale_chunk, bitmap)
     a = _alpha32(alpha)
+    if dp:
+        sx, st, cx, ct = _dp_dsgt(*bufs, a, difference_coding, dp_clip,
+                                  dp_noise, dp_noise_t)
+        (h, th, qx, ix, scx, nrx, nsx, qt, it, sct, nrt, nst) = wire_stage_gt_compact(
+            x, t, g, g_prev, recon_x, sx, recon_t, st, a, scale_chunk, error_feedback,
+            difference_coding, topk, bitmap)
+        return h, th, qx, ix, scx, nrx, nsx + cx, qt, it, sct, nrt, nst + ct
     if x.device.type == "cpu":
         return wire_stage_gt_compact_ref(
             *bufs, a, scale_chunk=scale_chunk, error_feedback=error_feedback,

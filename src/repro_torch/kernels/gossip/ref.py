@@ -21,6 +21,12 @@ ties broken toward the lower index, as ``jax.lax.top_k`` does -- and
 ships (k int8 values, k positions or a presence bitmap, one scale) per
 chunk; the receive side (``scatter_compact_dq``, ``compact_to_bitmap``,
 ``scatter_bitmap_dq``) rebuilds the dense dq from exactly those bytes.
+
+``dp_clip`` / ``dp_noise`` (``dp_noise_t`` for DSGT's tracker wire) are
+the differential-privacy epilogue (``_dp_wire``): the wire payload is
+clipped per node to L2 norm ``dp_clip`` and the pre-scaled Gaussian
+``dp_noise`` is added before quantization, while the error-feedback
+residual keeps tracking the unclipped payload.
 """
 
 from __future__ import annotations
@@ -36,17 +42,36 @@ __all__ = ["gossip_mix_ref", "fused_round_ref", "fused_round_gt_ref",
            "wire_stage_gt_compact_ref", "scatter_compact_dq",
            "compact_to_bitmap", "scatter_bitmap_dq", "check_compact"]
 
-DP_MSG = (
-    "the differential-privacy wire epilogue is not ported yet (ROADMAP.md "
-    "queue 1, item 12)"
-)
+def require_ef_for_dp(error_feedback: bool) -> None:
+    """The DP epilogue needs error feedback: the residual is what absorbs
+    the clip and the noise."""
+    if not error_feedback:
+        raise ValueError(
+            "dp needs error_feedback=True: the residual is what absorbs "
+            "the clip + noise perturbation (otherwise the wire walk "
+            "diverges from the parameters)"
+        )
 
 
-def refuse_unported(dp_clip=None, dp_noise=None) -> None:
-    """Raise for the wire options the port does not have yet (shared by
-    the twins' callers and the kernel wrappers)."""
-    if dp_clip is not None or dp_noise is not None:
-        raise NotImplementedError(DP_MSG)
+def dp_scale(payload: torch.Tensor, dp_clip) -> torch.Tensor:
+    """The per-node L2 clip factor ``min(1, clip / max(||payload||,
+    1e-12))``, (n, 1), by IEEE division (the clip a tensor on the
+    payload's device, not a scalar the division would turn into a
+    reciprocal)."""
+    nrm = torch.sqrt((payload * payload).sum(dim=1, keepdim=True))
+    clip = torch.full_like(nrm, float(dp_clip))
+    return torch.clamp_max(clip / torch.clamp_min(nrm, 1e-12), 1.0)
+
+
+def _dp_wire(payload: torch.Tensor, dp_clip, dp_noise, error_feedback: bool):
+    """The DP epilogue shared by every wire twin: the payload clipped to
+    ``dp_clip`` per node plus the pre-scaled Gaussian ``dp_noise`` (std
+    ``sigma * clip``, from ``core.privacy.dp_noise``); the payload itself
+    without noise."""
+    if dp_noise is None:
+        return payload
+    require_ef_for_dp(error_feedback)
+    return dp_scale(payload, dp_clip) * payload + dp_noise
 
 
 def check_topk(topk) -> None:
@@ -98,9 +123,10 @@ def _quantize_ef_chunks(payload: torch.Tensor, scale_chunk: int, topk=None):
 
 
 def _stage(x, recon, res, scale_chunk, error_feedback, difference_coding,
-           topk):
+           topk, dp_clip=None, dp_noise=None):
     """The quantize-EF stage on one wire: difference coding, error
-    feedback, (top-k,) int8. Returns (q, scales, new_recon, new_res)."""
+    feedback, (the DP epilogue,) (top-k,) int8. Returns (q, scales,
+    new_recon, new_res)."""
     if x.shape[1] % scale_chunk:
         raise ValueError(
             f"total {x.shape[1]} not a multiple of scale_chunk {scale_chunk}")
@@ -109,7 +135,8 @@ def _stage(x, recon, res, scale_chunk, error_feedback, difference_coding,
     payload = x - base
     if error_feedback:
         payload = payload + res
-    q, scales, dq = _quantize_ef_chunks(payload, scale_chunk, topk)
+    wire = _dp_wire(payload, dp_clip, dp_noise, error_feedback)
+    q, scales, dq = _quantize_ef_chunks(wire, scale_chunk, topk)
     new_recon = base + dq
     new_res = payload - dq if error_feedback else res
     return q, scales, new_recon, new_res
@@ -127,6 +154,8 @@ def gossip_mix_ref(
     difference_coding: bool = True,
     topk=None,
     stale_mix: bool = False,
+    dp_clip=None,
+    dp_noise=None,
 ) -> Tuple[torch.Tensor, ...]:
     """One compressed gossip round on flat fp32 buffers.
 
@@ -134,11 +163,12 @@ def gossip_mix_ref(
     zero diagonal; w_self (n,). ``topk`` keeps the k largest-|payload|
     columns of each (node, chunk), ties included. ``stale_mix`` mixes
     against the INPUT recon (the pipelined schedule's one-round-stale
-    neighbor view). Returns (mixed, new_recon, new_res, scales
-    (n, t // scale_chunk)).
+    neighbor view). ``dp_clip`` / ``dp_noise``: the DP epilogue. Returns
+    (mixed, new_recon, new_res, scales (n, t // scale_chunk)).
     """
     _, scales, new_recon, new_res = _stage(
-        x, recon, res, scale_chunk, error_feedback, difference_coding, topk)
+        x, recon, res, scale_chunk, error_feedback, difference_coding, topk,
+        dp_clip, dp_noise)
     nbr = recon if stale_mix else new_recon
     mixed = w_off @ nbr + w_self.unsqueeze(1) * x
     return mixed, new_recon, new_res, scales
@@ -158,6 +188,8 @@ def fused_round_ref(
     difference_coding: bool = True,
     topk=None,
     stale_mix: bool = False,
+    dp_clip=None,
+    dp_noise=None,
 ) -> Tuple[torch.Tensor, ...]:
     """DSGD round: the local update ``h = x - alpha * g`` followed by one
     compressed gossip round on h (adapt-then-combine). ``alpha`` is an
@@ -167,7 +199,7 @@ def fused_round_ref(
     return gossip_mix_ref(
         h, recon, res, w_off, w_self, scale_chunk=scale_chunk,
         error_feedback=error_feedback, difference_coding=difference_coding,
-        topk=topk, stale_mix=stale_mix,
+        topk=topk, stale_mix=stale_mix, dp_clip=dp_clip, dp_noise=dp_noise,
     )
 
 
@@ -189,6 +221,9 @@ def fused_round_gt_ref(
     difference_coding: bool = True,
     topk=None,
     stale_mix: bool = False,
+    dp_clip=None,
+    dp_noise=None,
+    dp_noise_t=None,
 ) -> Tuple[torch.Tensor, ...]:
     """DSGT round (adapt-then-combine gradient tracking):
 
@@ -206,8 +241,10 @@ def fused_round_gt_ref(
     kw = dict(scale_chunk=scale_chunk, error_feedback=error_feedback,
               difference_coding=difference_coding, topk=topk,
               stale_mix=stale_mix)
-    mt, nrt, nst, sct = gossip_mix_ref(t_half, recon_t, res_t, w_off, w_self, **kw)
-    mx, nrx, nsx, scx = gossip_mix_ref(h, recon_x, res_x, w_off, w_self, **kw)
+    mt, nrt, nst, sct = gossip_mix_ref(t_half, recon_t, res_t, w_off, w_self, **kw,
+                                       dp_clip=dp_clip, dp_noise=dp_noise_t)
+    mx, nrx, nsx, scx = gossip_mix_ref(h, recon_x, res_x, w_off, w_self, **kw,
+                                       dp_clip=dp_clip, dp_noise=dp_noise)
     return mx, mt, nrx, nsx, nrt, nst, scx, sct
 
 
@@ -227,6 +264,8 @@ def wire_stage_ref(
     error_feedback: bool = True,
     difference_coding: bool = True,
     topk=None,
+    dp_clip=None,
+    dp_noise=None,
 ) -> Tuple[torch.Tensor, ...]:
     """DSGD wire stage (the round without its mix): local update +
     difference coding + (top-k) int8 quantize + EF. Returns (h, q int8
@@ -235,7 +274,8 @@ def wire_stage_ref(
     a = torch.as_tensor(alpha, dtype=torch.float32)
     h = x - a * g
     q, scales, new_recon, new_res = _stage(
-        h, recon, res, scale_chunk, error_feedback, difference_coding, topk)
+        h, recon, res, scale_chunk, error_feedback, difference_coding, topk,
+        dp_clip, dp_noise)
     return h, _int8(q, *x.shape), scales, new_recon, new_res
 
 
@@ -254,6 +294,9 @@ def wire_stage_gt_ref(
     error_feedback: bool = True,
     difference_coding: bool = True,
     topk=None,
+    dp_clip=None,
+    dp_noise=None,
+    dp_noise_t=None,
 ) -> Tuple[torch.Tensor, ...]:
     """DSGT wire stage: tracker arithmetic + parameter update + both
     wires' quantize-EF (the tracker wire quantizes ``t_half`` itself).
@@ -263,8 +306,8 @@ def wire_stage_gt_ref(
     t_half = t + g - g_prev
     h = x - a * t_half
     flags = (scale_chunk, error_feedback, difference_coding, topk)
-    qt, sct, nrt, nst = _stage(t_half, recon_t, res_t, *flags)
-    qx, scx, nrx, nsx = _stage(h, recon_x, res_x, *flags)
+    qt, sct, nrt, nst = _stage(t_half, recon_t, res_t, *flags, dp_clip, dp_noise_t)
+    qx, scx, nrx, nsx = _stage(h, recon_x, res_x, *flags, dp_clip, dp_noise)
     shape = x.shape
     return (h, t_half, _int8(qx, *shape), scx, nrx, nsx, _int8(qt, *shape),
             sct, nrt, nst)
@@ -293,14 +336,16 @@ def _quantize_ef_compact_chunks(payload: torch.Tensor, scale_chunk: int, topk: i
 
 
 def _compact_stage(x, recon, res, scale_chunk, error_feedback,
-                   difference_coding, topk):
-    """The compact quantize-EF stage on one wire. Returns (q int8, pos,
-    scales, new_recon, new_res)."""
+                   difference_coding, topk, dp_clip=None, dp_noise=None):
+    """The compact quantize-EF stage on one wire (the DP epilogue ahead
+    of the selection, which then runs on the noised wire). Returns (q
+    int8, pos, scales, new_recon, new_res)."""
     base = recon if difference_coding else torch.zeros_like(recon)
     payload = x - base
     if error_feedback:
         payload = payload + res
-    q, pos, scales, dq = _quantize_ef_compact_chunks(payload, scale_chunk, topk)
+    wire = _dp_wire(payload, dp_clip, dp_noise, error_feedback)
+    q, pos, scales, dq = _quantize_ef_compact_chunks(wire, scale_chunk, topk)
     new_recon = base + dq
     new_res = payload - dq if error_feedback else res
     return (q.to(torch.int8), pos.to(compact_pos_dtype(scale_chunk)), scales,
@@ -333,6 +378,8 @@ def wire_stage_compact_ref(
     difference_coding: bool = True,
     topk=None,
     bitmap: bool = False,
+    dp_clip=None,
+    dp_noise=None,
 ) -> Tuple[torch.Tensor, ...]:
     """DSGD compact wire stage: local update + difference coding +
     EXACT-k selection + int8 quantize + EF. Returns (h, q int8
@@ -345,7 +392,7 @@ def wire_stage_compact_ref(
     a = torch.as_tensor(alpha, dtype=torch.float32)
     h = x - a * g
     outs = _compact_stage(h, recon, res, scale_chunk, error_feedback,
-                          difference_coding, topk)
+                          difference_coding, topk, dp_clip, dp_noise)
     return (h, *_encode(*outs, scale_chunk, topk, bitmap))
 
 
@@ -365,6 +412,9 @@ def wire_stage_gt_compact_ref(
     difference_coding: bool = True,
     topk=None,
     bitmap: bool = False,
+    dp_clip=None,
+    dp_noise=None,
+    dp_noise_t=None,
 ) -> Tuple[torch.Tensor, ...]:
     """DSGT compact wire stage: tracker arithmetic + parameter update +
     both wires' compact quantize-EF. Returns (h, t_half, q_x, pos_x,
@@ -376,8 +426,8 @@ def wire_stage_gt_compact_ref(
     t_half = t + g - g_prev
     h = x - a * t_half
     flags = (scale_chunk, error_feedback, difference_coding, topk)
-    wire_t = _compact_stage(t_half, recon_t, res_t, *flags)
-    wire_x = _compact_stage(h, recon_x, res_x, *flags)
+    wire_t = _compact_stage(t_half, recon_t, res_t, *flags, dp_clip, dp_noise_t)
+    wire_x = _compact_stage(h, recon_x, res_x, *flags, dp_clip, dp_noise)
     return (h, t_half, *_encode(*wire_x, scale_chunk, topk, bitmap),
             *_encode(*wire_t, scale_chunk, topk, bitmap))
 

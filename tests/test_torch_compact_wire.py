@@ -264,8 +264,8 @@ def test_receive_side_matches_reference_and_round_trips(jax_gossip):
 
 def test_compact_wrappers_validate_and_count_only_launches():
     """``topk`` outside [1, chunk), a bitmap on a chunk that is not
-    byte-aligned and the DP arguments raise, in the wrappers and the
-    twins; CPU calls run the twins and count no launch."""
+    byte-aligned and incomplete DP arguments raise, in the wrappers and
+    the twins; CPU calls run the twins and count no launch."""
     x, t, g, gp, rx, sx, rt, st = _t(_inputs(8, 48, 2, seed=0))
     calls = [(ops.wire_stage_compact, (x, g, rx, sx, 0.1)),
              (ops.wire_stage_gt_compact, (x, t, g, gp, rx, sx, rt, st, 0.1)),
@@ -277,12 +277,12 @@ def test_compact_wrappers_validate_and_count_only_launches():
                 fn(*args, scale_chunk=16, topk=bad)
         with pytest.raises(ValueError, match="byte-aligned"):
             fn(*args, scale_chunk=12, topk=4, bitmap=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ops.wire_stage_compact(x, g, rx, sx, 0.1, scale_chunk=16, topk=4, dp_clip=1.0,
+    with pytest.raises(ValueError, match="needs dp_clip"):
+        ops.wire_stage_compact(x, g, rx, sx, 0.1, scale_chunk=16, topk=4,
                                dp_noise=torch.zeros_like(x))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="needs dp_clip"):
         ops.wire_stage_gt_compact(x, t, g, gp, rx, sx, rt, st, 0.1, scale_chunk=16,
-                                  topk=4, dp_noise_t=torch.zeros_like(x))
+                                  topk=4, dp_clip=1.0, dp_noise_t=torch.zeros_like(x))
     with pytest.raises(ValueError, match="multiple of scale_chunk"):
         ops.wire_stage_compact(x, g, rx, sx, 0.1, scale_chunk=32, topk=4)
     before = (ops.wire_stage_compact.launches, ops.wire_stage_gt_compact.launches)

@@ -164,8 +164,9 @@ def test_padding_columns_stay_zero():
 def test_registry_and_refusals():
     """The registry; the validation of the wire and schedule knobs the
     port now has (``topk < 1``, ``bounded_staleness:k < 1``); topology and
-    node programs now build (``tests/test_torch_dynamic_round.py``); the
-    refusals that remain (privacy, scope, bf16 storage)."""
+    node programs now build (``tests/test_torch_dynamic_round.py``), and
+    so does privacy (``tests/test_torch_privacy.py``); the refusals that
+    remain (scope, bf16 storage)."""
     assert "fused" in engine_names() and get_engine("fused") is FusedEngine
     assert get_engine("sharded_fused") is ShardedFusedEngine
     with pytest.raises(ValueError, match="unknown engine"):
@@ -185,8 +186,8 @@ def test_registry_and_refusals():
     eng = FusedEngine(w, layout, device="cpu", topology_program="node_churn:p_down=0.1",
                       node_program="stragglers:frac=0.25")
     assert eng.dynamic_topology and eng.dynamic_nodes
-    for kw, item in [(dict(privacy="secure_agg"), "privacy"),
-                     (dict(scope="backbone"), "scope"),
+    assert FusedEngine(w, layout, device="cpu", privacy="secure_agg").privacy.secure_agg
+    for kw, item in [(dict(scope="backbone"), "scope"),
                      (dict(storage_dtype=torch.bfloat16), "storage")]:
         with pytest.raises(NotImplementedError, match=item):
             FusedEngine(w, layout, device="cpu", **kw)

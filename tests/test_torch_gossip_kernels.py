@@ -221,19 +221,20 @@ def _dsgd_args(n=8, t=64):
 
 def test_refuses_topk_and_dp():
     """``topk < 1`` is refused as the reference refuses it
-    (``gossip.py:_check_topk``); the DP wire is not ported and raises."""
+    (``gossip.py:_check_topk``); the DP wire is refused without error
+    feedback (the reference's message) and with a missing argument."""
     args = _dsgd_args()
     for fn in (ops.fused_round, ref.fused_round_ref):
         with pytest.raises(ValueError, match="topk must be >= 1"):
             fn(*args, scale_chunk=32, topk=0)
-    with pytest.raises(NotImplementedError, match="privacy"):
-        ops.fused_round(*args, scale_chunk=32, dp_clip=1.0,
+    with pytest.raises(ValueError, match="dp needs error_feedback=True"):
+        ops.fused_round(*args, scale_chunk=32, error_feedback=False, dp_clip=1.0,
                         dp_noise=torch.zeros(8, 64))
     gt = _t(_inputs(8, 64, 2, seed=2)) + _t(_weights(8)) + [np.float32(0.1)]
     for fn in (ops.fused_round_gt, ref.fused_round_gt_ref):
         with pytest.raises(ValueError, match="topk must be >= 1"):
             fn(*gt, scale_chunk=32, topk=0)
-    with pytest.raises(NotImplementedError, match="privacy"):
+    with pytest.raises(ValueError, match="needs dp_clip"):
         ops.fused_round_gt(*gt, scale_chunk=32, dp_noise_t=torch.zeros(8, 64))
 
 

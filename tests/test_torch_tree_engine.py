@@ -307,9 +307,10 @@ def test_trainer_wire_dtype_and_flat_engine():
 def test_registry_and_refusals():
     """``tree`` and ``flat`` sit in the registry beside ``fused``; both
     refuse what the reference's refuse (ValueError: top-k, a schedule
-    other than sequential, a partial scope; ``tree`` also topology and
-    node programs, which ``flat`` runs) and raise NotImplementedError
-    naming the ROADMAP item for what is not ported."""
+    other than sequential, a partial scope, dp; ``tree`` also topology
+    and node programs and ``secure_agg``, which ``flat`` runs) and raise
+    NotImplementedError naming the ROADMAP item for what is not
+    ported."""
     assert {"tree", "flat", "fused"} <= set(engine_names())
     assert get_engine("tree") is TreeEngine and get_engine("flat") is FlatEngine
     w = mixing_matrix("ring", 4)
@@ -330,10 +331,15 @@ def test_registry_and_refusals():
                     cls.simulated(w, stacked, **kw)
             else:
                 assert cls.simulated(w, stacked, **kw)[0].dynamic_round
-        for kw, item in [(dict(privacy="dp:sigma=0.5,clip=1.0"), "item 12"),
-                         (dict(storage_dtype=torch.bfloat16), "item 5")]:
-            with pytest.raises(NotImplementedError, match=item):
-                cls.simulated(w, stacked, **kw)
+        with pytest.raises(ValueError, match="DP noise would accumulate|privacy spec"):
+            cls.simulated(w, stacked, privacy="dp:sigma=0.5,clip=1.0")
+        if cls is TreeEngine:
+            with pytest.raises(ValueError, match="no quantize epilogue"):
+                cls.simulated(w, stacked, privacy="secure_agg")
+        else:
+            assert cls.simulated(w, stacked, privacy="secure_agg")[0].privacy.secure_agg
+        with pytest.raises(NotImplementedError, match="item 5"):
+            cls.simulated(w, stacked, storage_dtype=torch.bfloat16)
         engine, _ = cls.simulated(w, stacked)
         assert engine.device == torch.device("cpu") and engine.wire_bytes(None) is None
     cfg = FLConfig(algorithm="dsgd", q=1, n_nodes=4)

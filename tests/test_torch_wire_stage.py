@@ -283,9 +283,9 @@ def test_wrappers_validate_topk_and_count_only_launches():
 
 def test_wire_stage_refuses_dp_and_bad_operands():
     x, g, recon, res = _t(_inputs(8, 64, 1, seed=1))
-    with pytest.raises(NotImplementedError, match="privacy"):
-        ops.wire_stage(x, g, recon, res, 0.1, scale_chunk=32, dp_clip=1.0,
-                       dp_noise=torch.zeros(8, 64))
+    with pytest.raises(ValueError, match="dp needs error_feedback=True"):
+        ops.wire_stage(x, g, recon, res, 0.1, scale_chunk=32, error_feedback=False,
+                       dp_clip=1.0, dp_noise=torch.zeros(8, 64))
     with pytest.raises(ValueError, match="multiple of scale_chunk"):
         ops.wire_stage(x, g, recon, res, 0.1, scale_chunk=48)
     with pytest.raises(TypeError, match="float32"):
