@@ -13,7 +13,8 @@ and the RG-LRU scan under ``kernels/rwkv6_scan`` and
 into each package's ``build/``), holds each against its plain PyTorch
 twin on the card (dense and top-k wires, the round kernels also on exact
 ties at the top-k threshold, and every DP wrapper against its twin on
-the substituted residual; attention at the tests' shapes,
+the substituted residual; the gossip kernels also at the backbone
+scope's (20, 1408) wire at chunk 128; attention at the tests' shapes,
 SmolLM-360M's and RecurrentGemma-2B's head size 256, a 4,096-token
 prefill, a 32,768-slot cache split over blocks and merged by the combine
 kernel, bf16 and fp32; the scans at the reference suite's shapes, S = 1,
@@ -39,7 +40,17 @@ or, for ``slow_uplink``, the same run on the CPU), the privacy axis ((i)
 dp on the fused engine against the CPU, ``secure_agg`` bitwise the
 unmasked run; (j) the privacy driver in full against
 experiments/privacy_ehr.json; (k) dp on the sharded dense wire against
-the fused engine) and serving: SmolLM-360M
+the fused engine), the federation scope ((s1) the personalization
+driver uncut, its three cells against the same driver on the CPU and the
+bytes of experiments/personalization_ehr.json; (s2) the backbone scope on
+fused FD-DSGD / FD-DSGT, sequential, pipelined, k = 2 and dp: the private
+columns bitwise their inits under a zero gradient, the losses against
+the CPU; (s3) ``layerwise:freq=4``; (s4) ``sharded_fused`` under the
+backbone scope), checkpoints (a scoped k = 2 run saved, restored and
+resumed bitwise the uninterrupted run; a fused checkpoint onto the
+sharded engine; a mismatched scope refused), snapshots (the backbone
+run's per-hospital heads; SmolLM-360M served from its 1.45 GB snapshot,
+hot-swapped by ``publish_snapshot``) and serving: SmolLM-360M
 at full width with random weights,
 ``ServeEngine.generate`` (batch 8, 128 prompt + 64 new tokens, greedy,
 a second weight set published mid-run), the bundle's prefill against
@@ -49,7 +60,8 @@ the other (``generate`` at batch 8, 128 prompt + 32 new tokens, then
 ``prefill_fn`` against the decode replay, then a reduced-depth copy
 against the host CPU) -- counting each kernel's launches per path, and
 times the kernels, their twins, the library attention call and whole
-rounds and decode steps of the three served models, beside an empty
+rounds (the backbone-scoped round beside the full one at chunk 128) and
+decode steps of the three served models, beside an empty
 kernel's launch (the launch floor). Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
@@ -68,6 +80,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -84,6 +97,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.benchmarks import (  # noqa: E402
     churn_ehr,
+    personalization_ehr,
     privacy_ehr,
     staleness_ehr,
     straggler_ehr,
@@ -156,6 +170,8 @@ from repro_torch.launch.mesh import NodeGroup, start_group, stop_group  # noqa: 
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.mlp import make_mlp_loss, mlp_init  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
+from repro_torch.training.checkpoint import load_fl_state, save_fl_state  # noqa: E402
+from repro_torch.training.snapshot import load_snapshot, write_snapshot  # noqa: E402
 from repro_torch.training.trainer import (  # noqa: E402
     stack_batches,
     stack_for_nodes,
@@ -227,12 +243,15 @@ WRAPPERS = [gossip_mix, fused_round, fused_round_gt, wire_stage, wire_stage_gt,
             wire_stage_compact, wire_stage_gt_compact, decode_attention, flash_attention,
             wkv6, rglru_scan]
 # (label, nodes, flat width, scale chunk, topology): the main path, a
-# ragged shape with one all-zero row chunk (exercises safe = 1), and a
-# large shape that makes the kernel bandwidth-bound
+# ragged shape with one all-zero row chunk (exercises safe = 1), a large
+# shape that makes the kernel bandwidth-bound, and the backbone scope's
+# wire at chunk 128 (1,376 shared columns of the MLP's 1,536, padded to 11
+# chunks: the personalization driver's geometry)
 SHAPES = [
     ("main", 20, 1536, 512, "hospital20"),
     ("zero-chunk", 7, 384, 128, "complete"),
     ("large", 64, 1 << 20, 512, "torus:8x8"),
+    ("scope", 20, 1408, 128, "hospital20"),
 ]
 FLAGS = list(itertools.product([True, False], repeat=3))  # ef, dc, stale
 EF_DC = list(itertools.product([True, False], repeat=2))
@@ -343,6 +362,25 @@ SHARDED_DYNAMIC_RUNS = [
 ]
 # (i)-(k) the privacy axis
 DP_SPEC = "dp:sigma=0.5,clip=1.0"
+# (s1)-(s4) the federation scope, at the personalization driver's chunk
+# and alpha on its hardened cohort: the backbone wire's bytes a round
+# (hospital20's 54 directed edges, 11 chunks of 128) by algorithm and
+# topk -- dense 1,408 + 44 B an edge and wire, top-16 36 B a chunk (16
+# values, a 16 B bitmap, the scale); the driver's three cells' bytes
+SCOPE_CHUNK, SCOPE_ROUNDS = 128, 5
+SCOPE_WIRE = {(None, "dsgt"): 156_816, (None, "dsgd"): 78_408, (16, "dsgt"): 42_768,
+              (16, "dsgd"): 21_384}
+PERSONALIZATION_WIRE = {"full": 171_072, "backbone": 156_816, "layerwise_freq4": 171_072}
+PERSONALIZATION_ROUNDS = 150
+# a scoped run on the card against the same run on the CPU twins, the
+# per-round losses (relative)
+SCOPE_LOSS_RTOL = 1e-5
+# the driver on the card against the driver on the CPU from the same init:
+# each cell's mean per-hospital balanced accuracy
+PERSONALIZATION_BAL_TOL = 0.02
+# serving SmolLM-360M from its snapshot: batch 8, 16 prompt + 32 new
+# tokens, a second snapshot published after decode step 24
+SNAPSHOT_PROMPT, SNAPSHOT_NEW, SNAPSHOT_SWAP_AT = 16, 32, 24
 # the EHR drivers' full runs: 6 + 5 + 13 cells; their realized fractions
 # (a function of the programs alone) against the committed JSONs within
 # this, their bal_acc printed beside the JSONs' (another init: the JSONs'
@@ -674,8 +712,9 @@ def check_wire_stages() -> dict:
 
 def check_compact_stages() -> dict:
     """Both compact wire-stage kernels against their twins on the card, at
-    the main (20, 1536) and the large (64, 1,048,576) shape, chunk 512, k
-    in {16, 64}, explicit positions and the bitmap: every output (h,
+    the main (20, 1536) and the large (64, 1,048,576) shape, chunk 512,
+    and the backbone scope's (20, 1408) wire at chunk 128, k in {16, 64},
+    explicit positions and the bitmap: every output (h,
     t_half, q, positions or bitmap, scales, recon', res') bitwise. At the
     main shape for the 4 (ef, dc) combinations, with exact ties in (row 0,
     chunk 0): magnitudes 3, 2 and 1 of both signs, 64 threes, so top-16
@@ -683,7 +722,8 @@ def check_compact_stages() -> dict:
     column chunk."""
     max_err = {name: 0.0 for name in COMPACT_KERNELS}
     cases = [(SHAPES[0], EF_DC, True), (SHAPES[2], [(True, True)], False),
-             (("int32 positions", 2, 2 * 32776, 32776, None), [(True, True)], False)]
+             (("int32 positions", 2, 2 * 32776, 32776, None), [(True, True)], False),
+             (SHAPES[3], EF_DC, False)]
     for (name, (kernel, twin, wires, _, _)), (shape, flags, ties) in itertools.product(
             COMPACT_KERNELS.items(), cases):
         label, n, t, chunk, _ = shape
@@ -1383,17 +1423,17 @@ def driver_paths() -> None:
 
 
 def fused_oracle(algorithm: str, schedule: str, topk, rounds: int = SHARDED_ROUNDS,
-                 q: int = 10, device: str = "cuda", **axes):
+                 q: int = 10, device: str = "cuda", scale_chunk: int = 512, **axes):
     """The port's FusedEngine on ``device`` with ``run_sharded_engine``'s
     defaults: hospital20, mlp_init(0), the cohort of seed 0 and its
     batcher of seed 1, the balanced loss, alpha = 0.02/sqrt(r); ``axes``
-    the topology program, node program and privacy spec. Returns (final
+    the topology program, node program, privacy spec and scope. Returns (final
     state, per-round losses, last metrics)."""
     batcher = make_node_batcher(generate_ehr_cohort(seed=0), m=20, seed=1)
     cfg = FLConfig(algorithm=algorithm, q=q, n_nodes=20)
     eng, flat = FusedEngine.simulated(
         mixing_matrix("hospital20", 20), stack_for_nodes(mlp_init(0, device=device), 20),
-        scale_chunk=512, topk=topk, round_schedule=schedule, **axes)
+        scale_chunk=scale_chunk, topk=topk, round_schedule=schedule, **axes)
     round_fn = make_fl_round(make_mlp_loss(class_weights()), inv_sqrt(0.02), cfg, eng)
     state, losses = init_fl_state(cfg, flat, eng), []
     for _ in range(rounds):
@@ -1776,6 +1816,439 @@ def check_dp_epilogue() -> None:
     torch.cuda.empty_cache()
 
 
+def node_inits(device) -> dict:
+    """Twenty distinct MLP inits, ``mlp_init(i)`` for hospital i, drawn on
+    the CPU and moved to ``device``: the private heads differ between
+    hospitals, and the card and the CPU start alike."""
+    inits = [mlp_init(i, device="cpu") for i in range(20)]
+    return tree_map(lambda *leaves: torch.stack(leaves).to(device), *inits)
+
+
+def zero_loss(p, batch):
+    """A loss whose gradient is exactly zero (every leaf times 0)."""
+    return sum(0.0 * leaf.sum(dim=tuple(range(1, leaf.ndim))) for _, leaf in tree_leaves(p))
+
+
+def scope_batches(rounds: int) -> list:
+    """``rounds`` rounds of Q = 10 batches of the hardened cohort (the
+    personalization driver's), m = 20."""
+    batcher = make_node_batcher(generate_ehr_cohort(seed=0, **personalization_ehr.COHORT),
+                                m=20, seed=1)
+    return [stack_batches(batcher, 10) for _ in range(rounds)]
+
+
+def scoped_build(device: str, algorithm: str, schedule: str, scope, privacy=None,
+                 zero: bool = False):
+    """FD-DSGD or FD-DSGT on the fused engine under ``scope`` through the
+    library's entry points, at the personalization driver's chunk and
+    alpha (0.01/sqrt(r)), the twenty distinct inits; returns (engine,
+    round_fn, initial state)."""
+    cfg = FLConfig(algorithm=algorithm, q=10, n_nodes=20)
+    engine, flat = FusedEngine.simulated(
+        mixing_matrix("hospital20", 20), node_inits(device), scale_chunk=SCOPE_CHUNK,
+        round_schedule=schedule, privacy=privacy, scope=scope)
+    loss = zero_loss if zero else make_mlp_loss(class_weights())
+    return engine, make_fl_round(loss, inv_sqrt(0.01), cfg, engine), init_fl_state(cfg, flat,
+                                                                                 engine)
+
+
+def scoped_run(device: str, algorithm: str, schedule: str, scope, rounds: int = SCOPE_ROUNDS,
+               privacy=None, zero: bool = False):
+    """:func:`scoped_build`, then ``rounds`` rounds. Returns (engine, the
+    initial flat buffer, each round's state, the losses, the last
+    metrics)."""
+    engine, round_fn, state = scoped_build(device, algorithm, schedule, scope, privacy, zero)
+    start, states, losses = state.params.clone(), [], []
+    for batches in scope_batches(rounds):
+        state, m = round_fn(state, batches)
+        states.append(state)
+        losses.append(float(m["loss"]))
+    return engine, start, states, losses, m
+
+
+def _rel(what: str, got, want, tol: float) -> float:
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
+    if not all(math.isfinite(v) for v in got) or rel > tol:
+        raise AssertionError(f"{what}: losses {got} vs the CPU's {want} (rel {rel} > {tol})")
+    return rel
+
+
+def _private_untouched(what: str, engine, start, state) -> None:
+    """The private columns bitwise their per-node inits (the tracker's
+    zero) under a zero gradient; the shared columns mixed."""
+    for a, b in engine.scope.private_ranges(engine.layout):
+        if not torch.equal(state.params[:, a:b], start[:, a:b]):
+            raise AssertionError(f"{what}: private columns [{a}, {b}) moved")
+        if state.tracker is not None and bool(state.tracker[:, a:b].any()):
+            raise AssertionError(f"{what}: the tracker's private columns [{a}, {b}) moved")
+    if all(torch.equal(state.params[:, a:b], start[:, a:b])
+           for a, b in engine.scope.shared_ranges(engine.layout)):
+        raise AssertionError(f"{what}: the shared columns never mixed")
+
+
+def scope_paths(group) -> dict:
+    """The federation scope on the card. (s1) The personalization driver
+    uncut (3 cells x 150 rounds at Q = 10, chunk 128): 450
+    ``fused_round_gt`` launches, the bytes exactly the JSON's, each
+    cell's mean per-hospital balanced accuracy within
+    PERSONALIZATION_BAL_TOL of the same driver on the card machine's CPU
+    from the same init (the JSON's came from jax's init; printed
+    beside). (s2) The backbone scope on fused FD-DSGD and FD-DSGT,
+    sequential, pipelined, k = 2 and under dp, 5 rounds each: one round
+    kernel (or wire stage at k = 2) a round; with a zero-gradient loss
+    the private columns bitwise their per-node inits (the tracker's at
+    zero); with the EHR loss the losses within SCOPE_LOSS_RTOL of the
+    CPU twins and the scoped wire's bytes. (s3) ``layerwise:freq=4``:
+    the head bitwise its init through the three rounds that do not
+    fire, mixed on the fourth; the EHR losses against the CPU, the full
+    wire's bytes. (s4) ``sharded_fused`` on the one-rank NCCL group
+    under the backbone scope, dense int8 and top-16: one wire-stage
+    launch a round, the scoped wire's all-gathers and bytes, the losses
+    within rtol 1e-3 of the fused engine, the dense wire's params within
+    1e-5 after one round."""
+    launches = {}
+
+    def count(kernel, n):
+        launches[kernel] = launches.get(kernel, 0) + n
+
+    t0 = time.perf_counter()
+    init = mlp_init(0, device="cpu")
+    zero_counts()
+    rec = personalization_ehr.run(PERSONALIZATION_ROUNDS, 10, device="cuda", init_params=init,
+                                  log=False)
+    rounds = len(rec["rows"]) * PERSONALIZATION_ROUNDS
+    expect_launches("(s1) personalization driver", fused_round_gt=rounds)
+    count("fused_round_gt", rounds)
+    card_s = time.perf_counter() - t0
+    cpu = personalization_ehr.run(PERSONALIZATION_ROUNDS, 10, device="cpu", init_params=init,
+                                  log=False)
+    with open(os.path.join(ROOT, "experiments", "personalization_ehr.json")) as f:
+        json_rows = {r["name"]: r for r in json.load(f)["rows"]}
+    for row, c in zip(rec["rows"], cpu["rows"]):
+        ref = json_rows[row["name"]]
+        gap = abs(row["bal_acc_per_hospital_mean"] - c["bal_acc_per_hospital_mean"])
+        if (row["wire_bytes_per_round"] != PERSONALIZATION_WIRE[row["name"]]
+                or row["wire_bytes_per_round"] != ref["wire_bytes_per_round"]
+                or gap > PERSONALIZATION_BAL_TOL):
+            raise AssertionError(f"(s1) {row['name']}: {row} vs the CPU's {c}")
+        log(f"  (s1) personalization {row['name']:16s}: wire {row['wire_bytes_per_round']:,.0f} "
+            f"B/round (= JSON), {row['wire_total_cols']}/{row['layout_total_cols']} wire "
+            f"columns, per-hospital bal_acc {row['bal_acc_per_hospital_mean']:.4f} (CPU "
+            f"{c['bal_acc_per_hospital_mean']:.4f}, JSON {ref['bal_acc_per_hospital_mean']:.4f} "
+            f"from jax's init), consensus {row['bal_acc_consensus_per_hospital_mean']:.4f}")
+    log(f"  (s1) the driver uncut: {rounds} fused_round_gt launches in {card_s:.1f} s on the "
+        f"card (chunk {SCOPE_CHUNK}, clusters of {fused_plan('fused_round_gt', 20, 1408, 128, None)[0]} "
+        f"on the backbone wire, {fused_plan('fused_round_gt', 20, 1536, 128, None)[0]} on the "
+        "full one)")
+
+    kernels = {("dsgd", False): "fused_round", ("dsgt", False): "fused_round_gt",
+               ("dsgd", True): "wire_stage", ("dsgt", True): "wire_stage_gt"}
+    for algorithm in ("dsgd", "dsgt"):
+        for schedule, privacy in (("sequential", None), ("pipelined", None),
+                                  ("bounded_staleness:k=2", None), ("sequential", DP_SPEC)):
+            kernel = kernels[(algorithm, schedule.startswith("bounded"))]
+            label = (f"(s2) fused FD-{algorithm.upper()} backbone {schedule}"
+                     + (f" {privacy}" if privacy else ""))
+            zero_counts()
+            eng, start, states, _, _ = scoped_run("cuda", algorithm, schedule, "backbone",
+                                                  privacy=privacy, zero=True)
+            expect_launches(label + ", zero gradient", **{kernel: SCOPE_ROUNDS})
+            _private_untouched(label, eng, start, states[-1])
+            zero_counts()
+            eng, _, _, losses, m = scoped_run("cuda", algorithm, schedule, "backbone",
+                                              privacy=privacy)
+            expect_launches(label, **{kernel: SCOPE_ROUNDS})
+            count(kernel, 2 * SCOPE_ROUNDS)
+            cpu_losses = scoped_run("cpu", algorithm, schedule, "backbone", privacy=privacy)[3]
+            rel = _rel(label, losses, cpu_losses, SCOPE_LOSS_RTOL)
+            if m["wire_bytes"] != SCOPE_WIRE[(None, algorithm)]:
+                raise AssertionError(f"{label}: wire {m['wire_bytes']}")
+            log(f"  {label}, {SCOPE_ROUNDS} rounds x Q=10 twice: {2 * SCOPE_ROUNDS} {kernel} "
+                f"launches; zero gradient: the private columns bitwise their inits; EHR loss "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}, max rel diff to the CPU {rel:.2e}, wire "
+                f"{m['wire_bytes']:,.0f} B/round")
+
+    label = "(s3) fused FD-DSGT layerwise:freq=4"
+    zero_counts()
+    eng, start, states, _, _ = scoped_run("cuda", "dsgt", "sequential", "layerwise:freq=4",
+                                          rounds=4, zero=True)
+    expect_launches(label + ", zero gradient", fused_round_gt=4)
+    gated = eng.scope.gate_ranges(eng.layout)
+    for rnd, st in enumerate(states, 1):
+        still = all(torch.equal(st.params[:, a:b], start[:, a:b]) for a, b in gated)
+        if still != (rnd < 4):
+            raise AssertionError(f"{label}: head unchanged after round {rnd}: {still}")
+    zero_counts()
+    _, _, _, losses, m = scoped_run("cuda", "dsgt", "sequential", "layerwise:freq=4", rounds=8)
+    expect_launches(label, fused_round_gt=8)
+    count("fused_round_gt", 12)
+    rel = _rel(label, losses, scoped_run("cpu", "dsgt", "sequential", "layerwise:freq=4",
+                                         rounds=8)[3], SCOPE_LOSS_RTOL)
+    if m["wire_bytes"] != PERSONALIZATION_WIRE["layerwise_freq4"]:
+        raise AssertionError(f"{label}: wire {m['wire_bytes']}")
+    log(f"  {label}: 4 + 8 fused_round_gt launches; zero gradient: the head bitwise its init "
+        f"through rounds 1-3, mixed at round 4; EHR loss max rel diff to the CPU {rel:.2e} over "
+        f"8 rounds; the full wire, {m['wire_bytes']:,.0f} B/round")
+
+    for algorithm in ("dsgd", "dsgt"):
+        wires = 2 if algorithm == "dsgt" else 1
+        for topk in (None, 16):
+            kernel = {(True, 1): "wire_stage_compact", (True, 2): "wire_stage_gt_compact",
+                      (False, 1): "wire_stage", (False, 2): "wire_stage_gt"}[(topk is not None,
+                                                                              wires)]
+            label = (f"(s4) sharded FD-{algorithm.upper()} backbone "
+                     + (f"top-{topk}" if topk else "int8"))
+            zero_counts()
+            out = run_sharded_engine(group, rounds=SHARDED_ROUNDS, q=10, algorithm=algorithm,
+                                     topk=topk, scale_chunk=SCOPE_CHUNK, scope="backbone",
+                                     log=False)
+            expect_launches(label, **{kernel: SHARDED_ROUNDS})
+            count(kernel, SHARDED_ROUNDS)
+            eng = out["engine"]
+            buffers = 3 if topk else 2
+            per_wire = 20 * flat_wire_bytes(eng.wire_layout, 1, SCOPE_CHUNK, topk)
+            if (eng.wire_layout.total != 1408
+                    or eng.collectives != SHARDED_ROUNDS * wires * buffers
+                    or eng.collective_bytes != SHARDED_ROUNDS * wires * per_wire
+                    or out["wire_bytes"] != SCOPE_WIRE[(topk, algorithm)]):
+                raise AssertionError(
+                    f"{label}: {eng.collectives} all-gathers of {eng.collective_bytes} B, "
+                    f"wire {out['wire_bytes']} B/round")
+            state, losses, _ = fused_oracle(algorithm, "sequential", topk,
+                                            scale_chunk=SCOPE_CHUNK, scope="backbone")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], losses))
+            if not all(math.isfinite(v) for v in out["losses"]) or rel > 1e-3:
+                raise AssertionError(f"{label}: loss rel {rel}: {out['losses']} vs {losses}")
+            note = ""
+            if topk is None:
+                zero_counts()
+                one = run_sharded_engine(group, rounds=1, q=10, algorithm=algorithm,
+                                         scale_chunk=SCOPE_CHUNK, scope="backbone",
+                                         log=False)["state"]
+                expect_launches(label + ", one round", **{kernel: 1})
+                want = fused_oracle(algorithm, "sequential", None, rounds=1,
+                                    scale_chunk=SCOPE_CHUNK, scope="backbone")[0]
+                diff1 = float((one.params - want.params).abs().max())
+                if algorithm == "dsgt":
+                    diff1 = max(diff1, float((one.tracker - want.tracker).abs().max()))
+                if diff1 > 1e-5:
+                    raise AssertionError(f"{label}: one round off the fused engine by {diff1}")
+                count(kernel, 1)
+                note = f", params/tracker within {diff1:.2e} after one round"
+            log(f"  {label}, {SHARDED_ROUNDS} rounds x Q=10: {SHARDED_ROUNDS} {kernel} "
+                f"launches, {eng.collectives} all-gathers of "
+                f"{eng.collective_bytes // SHARDED_ROUNDS:,} B a round ({eng.wire_encoding} "
+                f"wire on {eng.wire_layout.total} columns), {out['wire_bytes']:,.0f} B/round; "
+                f"vs the fused engine: loss rel {rel:.2e}{note}")
+    return launches
+
+
+def checkpoint_paths(group) -> dict:
+    """Checkpoints on the card: a scoped (backbone) FD-DSGT k = 2 run saved
+    at round 3, restored onto a fresh engine and run 3 more rounds equals
+    the uninterrupted 6-round run bitwise (params, tracker, every comm
+    buffer); a fused FD-DSGT checkpoint restored onto ``sharded_fused`` on
+    the one-rank NCCL group rebuilds ``mix_recon`` (W_off @ recon, within
+    1e-6) and resumes on the multi-round policy (one round within 1e-5 of
+    the fused engine, the second's loss within rtol 1e-3); a restore
+    under another scope is refused."""
+    d = tempfile.mkdtemp()
+    try:
+        batches = scope_batches(6)
+        eng, rf, st0 = scoped_build("cuda", "dsgt", "bounded_staleness:k=2", "backbone")
+        zero_counts()
+        whole = st0
+        for b in batches:
+            whole, _ = rf(whole, b)
+        half = st0
+        for b in batches[:3]:
+            half, _ = rf(half, b)
+        save_fl_state(os.path.join(d, "k2"), half, engine=eng)
+        eng2, rf2, tmpl = scoped_build("cuda", "dsgt", "bounded_staleness:k=2", "backbone")
+        back = load_fl_state(os.path.join(d, "k2"), tmpl, engine=eng2)
+        for b in batches[3:]:
+            back, _ = rf2(back, b)
+        expect_launches("checkpointed FD-DSGT k=2", wire_stage_gt=12)
+        same = [k for k in ("params", "tracker", "prev_grad")
+                if torch.equal(getattr(back, k), getattr(whole, k))]
+        same += [k for k in whole.comm if torch.equal(back.comm[k], whole.comm[k])]
+        if len(same) != 3 + len(whole.comm) or back.step != whole.step:
+            raise AssertionError(f"resumed run not bitwise the uninterrupted one: equal {same}")
+        log(f"  checkpoint of a backbone FD-DSGT k=2 run at round 3, restored, 3 more rounds: "
+            f"bitwise the uninterrupted 6-round run (params, tracker, prev_grad and "
+            f"{len(whole.comm)} comm buffers); 12 wire_stage_gt launches")
+
+        eng, rf, st = scoped_build("cuda", "dsgt", "sequential", "backbone")
+        zero_counts()
+        for b in batches[:3]:
+            st, _ = rf(st, b)
+        save_fl_state(os.path.join(d, "fused"), st, engine=eng)
+        cfg = FLConfig(algorithm="dsgt", q=10, n_nodes=20)
+        sh, rows = ShardedFusedEngine.from_group(
+            group, node_inits("cuda"), w=mixing_matrix("hospital20", 20),
+            scale_chunk=SCOPE_CHUNK, scope="backbone")
+        sh_rf = make_fl_round(make_mlp_loss(class_weights()), inv_sqrt(0.01), cfg, sh)
+        back = load_fl_state(os.path.join(d, "fused"), init_fl_state(cfg, rows, sh), engine=sh)
+        rebuilt = max(float((back.comm["mix_recon" + s] - sh.w_off @ st.comm["recon" + s])
+                            .abs().max()) for s in ("", "_t"))
+        diffs, rels = [], []
+        for b in batches[3:5]:
+            st, m = rf(st, b)
+            back, m_sh = sh_rf(back, b)
+            diffs.append(max(float((back.params - st.params).abs().max()),
+                             float((back.tracker - st.tracker).abs().max())))
+            rels.append(abs(float(m_sh["loss"]) - float(m["loss"])) / abs(float(m["loss"])))
+        expect_launches("fused checkpoint onto sharded_fused", fused_round_gt=5,
+                        wire_stage_gt=2)
+        # the multi-round policy: one round within 1e-5, then the loss
+        # within rtol 1e-3 (an ulp of mix_recon can move an int8 step)
+        if rebuilt > 1e-6 or diffs[0] > 1e-5 or max(rels) > 1e-3:
+            raise AssertionError(f"fused -> sharded restore: mix_recon off by {rebuilt}, "
+                                 f"params/tracker by {diffs}, loss rel {rels}")
+        log(f"  a fused backbone FD-DSGT checkpoint (round 3) onto sharded_fused: mix_recon "
+            f"rebuilt within {rebuilt:.2e} of W_off @ recon; one round later params/tracker "
+            f"within {diffs[0]:.2e} of the fused engine, two rounds later {diffs[1]:.2e} "
+            f"(loss rel {max(rels):.2e})")
+
+        other, _, tmpl = scoped_build("cuda", "dsgt", "sequential", None)
+        try:
+            load_fl_state(os.path.join(d, "fused"), tmpl, engine=other)
+        except ValueError as e:
+            if "federation scope 'backbone'" not in str(e):
+                raise
+            log("  the backbone checkpoint onto a full-scope engine: refused "
+                f"({str(e)[:72]}...)")
+        else:
+            raise AssertionError("a restore under another scope was not refused")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {"wire_stage_gt": 14, "fused_round_gt": 5}
+
+
+def snapshot_serving_path() -> dict:
+    """Snapshots on the card. The backbone run's snapshot (5 FD-DSGT
+    rounds): the consensus row the card's node mean, ``node=i`` each
+    hospital's private columns bitwise its row's. SmolLM-360M at full
+    width and depth (seeded random weights) written as a one-row
+    consensus snapshot (1.45 GB of fp32), mapped by ``load_snapshot``
+    and served by ``ServeEngine.from_snapshot`` (staged onto the card):
+    32 greedy tokens equal to the in-memory engine's on the same weights;
+    then a second snapshot published by ``publish_snapshot`` after decode
+    step SNAPSHOT_SWAP_AT lands at that step boundary, and the tokens
+    equal an in-memory engine's that swaps the same weights at the same
+    step; the swap's pause recorded."""
+    d = tempfile.mkdtemp()
+    launches = {}
+    try:
+        zero_counts()
+        eng, _, states, _, _ = scoped_run("cuda", "dsgt", "sequential", "backbone")
+        expect_launches("backbone snapshot run", fused_round_gt=SCOPE_ROUNDS)
+        launches["fused_round_gt"] = SCOPE_ROUNDS
+        params = states[-1].params
+        write_snapshot(os.path.join(d, "ehr"), params, eng.layout, round_frontier=SCOPE_ROUNDS,
+                       engine=eng)
+        cons = load_snapshot(os.path.join(d, "ehr"), verify=True).flat
+        host = params.cpu()
+        if not torch.equal(cons, params.mean(dim=0).cpu()):
+            raise AssertionError("the snapshot's consensus is not the node mean")
+        private = eng.scope.private_ranges(eng.layout)
+        for i in range(20):
+            pers = load_snapshot(os.path.join(d, "ehr"), node=i).flat
+            if not all(torch.equal(pers[a:b], host[i, a:b]) for a, b in private) or not all(
+                    torch.equal(pers[a:b], cons[a:b])
+                    for a, b in eng.scope.shared_ranges(eng.layout)):
+                raise AssertionError(f"node={i}: the overlay is not hospital {i}'s head")
+        log(f"  the backbone run's snapshot: consensus = the card's node mean bitwise; node=i "
+            f"overlays hospital i's private columns {list(private)} bitwise, all 20")
+
+        cfg = get_config(SERVE_ARCH)
+        bundle = build_model(cfg)
+        weights = [bundle.init_fn(torch.Generator(device="cuda").manual_seed(s), device="cuda")
+                   for s in (0, 1)]
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, size=(SERVE_BATCH, SNAPSHOT_PROMPT)).astype(np.int32)
+        sdir = os.path.join(d, "smollm")
+        write_s = []
+        for rnd, w in enumerate(weights, 1):
+            flat, layout = pack(tree_map(lambda p: p[None], w))
+            t0 = time.perf_counter()
+            header = write_snapshot(sdir, flat, layout, round_frontier=rnd)
+            write_s.append(time.perf_counter() - t0)
+            del flat
+        with open(header) as f:
+            blob_bytes = json.load(f)["blob_bytes"]
+        t0 = time.perf_counter()
+        snaps = [load_snapshot(sdir, rnd, template=weights[0]) for rnd in (1, 2)]
+        map_ms = (time.perf_counter() - t0) * 1e3 / 2
+        steps = SNAPSHOT_PROMPT + SNAPSHOT_NEW - 1
+        n_decode = cfg.n_layers * steps
+
+        def generate(engine, swap=None):
+            """Greedy tokens; ``swap(engine)`` publishes after decode step
+            SNAPSHOT_SWAP_AT."""
+            if swap is not None:
+                step, calls = engine.decode_step, {"n": 0}
+
+                def publishing_step(tokens, caches):
+                    out = step(tokens, caches)
+                    calls["n"] += 1
+                    if calls["n"] == SNAPSHOT_SWAP_AT:
+                        swap(engine)
+                    return out
+
+                engine.decode_step = publishing_step
+            zero_counts()
+            out = engine.generate(prompts, max_new_tokens=SNAPSHOT_NEW, temperature=0.0)
+            expect_launches("snapshot serving generate", decode_attention=n_decode)
+            launches["decode_attention"] = launches.get("decode_attention", 0) + n_decode
+            return out
+
+        kw = dict(max_seq=SERVE_MAX_SEQ, batch=SERVE_BATCH)
+        want = generate(ServeEngine(bundle, weights[0], snapshot_round=1, **kw)).tokens
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = ServeEngine.from_snapshot(bundle, snaps[0], stage=True, **kw)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        if not all(leaf.device.type == "cuda" for _, leaf in tree_leaves(served.params)):
+            raise AssertionError("from_snapshot(stage=True) left a leaf off the card")
+        got = generate(served).tokens
+        if not np.array_equal(got, want):
+            raise AssertionError("tokens served from the snapshot differ from the in-memory "
+                                 "engine's")
+        swapped = generate(ServeEngine(bundle, weights[0], snapshot_round=1, **kw),
+                           swap=lambda e: e.publish(weights[1], 2)).tokens
+        hot = ServeEngine.from_snapshot(bundle, snaps[0], stage=True, **kw)
+        out = generate(hot, swap=lambda e: e.publish_snapshot(snaps[1]))
+        if (out.swap_steps != (SNAPSHOT_SWAP_AT,) or hot.swap_count != 1
+                or hot.snapshot_round != 2 or hot._active_ref is not snaps[1]
+                or not np.array_equal(out.tokens, swapped)):
+            raise AssertionError(f"snapshot hot swap: steps {out.swap_steps}, round "
+                                 f"{hot.snapshot_round}, tokens equal "
+                                 f"{np.array_equal(out.tokens, swapped)}")
+        log(f"  {cfg.name} as a snapshot: {blob_bytes / 1e9:.3f} GB blobs written in "
+            f"{write_s[0]:.2f} / {write_s[1]:.2f} s, mapped in {map_ms:.2f} ms, staged onto the "
+            f"card in {stage_s:.2f} s; {SNAPSHOT_NEW} greedy tokens (batch {SERVE_BATCH}, "
+            f"{SNAPSHOT_PROMPT}-token prompts) equal the in-memory engine's; publish_snapshot "
+            f"after step {SNAPSHOT_SWAP_AT} landed at {out.swap_steps} "
+            f"({hot.swap_pauses[0] * 1e6:.1f} us pause), tokens equal an in-memory swap's; "
+            f"{4 * n_decode} decode_attention launches")
+        del served, hot, snaps, weights
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def scope_timings(card: str) -> dict:
+    """Whole FD-DSGT Q = 10 rounds at the personalization driver's chunk
+    128: the full scope and the backbone scope (the gathered 1,408-column
+    wire, the scatter back around the private columns), same call."""
+    return {"chunk 128 full": round_profile(card, scale_chunk=SCOPE_CHUNK),
+            "chunk 128 backbone": round_profile(card, scale_chunk=SCOPE_CHUNK,
+                                                scope="backbone")}
+
+
 def _logit_diff(what: str, got: torch.Tensor, want: torch.Tensor,
                 tol: float = SERVE_LOGIT_TOL) -> float:
     """max |got - want| / max(1, max |want|), held to ``tol``."""
@@ -2010,7 +2483,8 @@ def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
 def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
                   class_weight="balanced", rounds: int = 50, warmup: int = 5,
                   profiled: int = 5, topk=None, group=None, topology_program=None,
-                  node_program=None, privacy=None) -> dict:
+                  node_program=None, privacy=None, scale_chunk: int = 512,
+                  scope=None) -> dict:
     """Median host-clock time of one whole DSGT round with Q local steps
     (Q gradient evaluations, then the engine's comm step: one kernel
     launch on the fused engine, plus the PyTorch stale mix at depth k >=
@@ -2020,13 +2494,15 @@ def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
     ``profiled`` more rounds for the device's busy time and operation
     count per round and the host's costliest ops."""
     label = (f"DSGT Q={q} {engine} {schedule or 'sequential'}" + (f" top-{topk}" if topk else "")
-             + "".join(f" {p}" for p in (topology_program, node_program, privacy) if p))
+             + "".join(f" {p}" for p in (topology_program, node_program, privacy, scope) if p)
+             + (f" chunk {scale_chunk}" if scale_chunk != 512 else ""))
     data = generate_ehr_cohort(seed=0)
     batcher = make_node_batcher(data, m=20, seed=1)
     cfg = FLConfig(algorithm="dsgt", q=q, n_nodes=20)
     stacked, w = stack_for_nodes(mlp_init(0, device="cuda"), 20), mixing_matrix("hospital20", 20)
-    kw = dict(scale_chunk=512, round_schedule=schedule, topk=topk,
-              topology_program=topology_program, node_program=node_program, privacy=privacy)
+    kw = dict(scale_chunk=scale_chunk, round_schedule=schedule, topk=topk,
+              topology_program=topology_program, node_program=node_program, privacy=privacy,
+              scope=scope)
     if group is not None:
         eng, params = ShardedFusedEngine.from_group(group, stacked, w=w, **kw)
     else:
@@ -2526,10 +3002,13 @@ def main() -> int:
                    privacy_driver_path(), sharded_dp_path(group)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
+    log("  -- the federation scope (s1)-(s4), checkpoints and snapshots")
+    for counts in (scope_paths(group), checkpoint_paths(group), snapshot_serving_path()):
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
     serve = serving_path()
-    launches.update(decode_attention=serve["decode_attention"],
-                    flash_attention=serve["flash_attention"],
-                    decode_attention_combine=serve["decode_attention_combine"])
+    for name in ("decode_attention", "flash_attention", "decode_attention_combine"):
+        launches[name] = launches.get(name, 0) + serve[name]
     recurrent = {}
     for arch in RECURRENT_ARCHS:
         log(f"  -- {arch}")
@@ -2544,6 +3023,7 @@ def main() -> int:
     rows["rounds"].update(compact.pop("rounds"))
     rows.update(compact)
     rows["rounds"].update(axis_timings(card, group))
+    rows["rounds"].update(scope_timings(card))
     stop_group(group)
     rows.update(attention_timings(card))
     rows.update(scan_timings(card, floor_ms))

@@ -66,9 +66,25 @@ still one launch a round) on ``fused`` and ``sharded_fused``, drawn from
 per-edge payload), and ``tree``, ``flat`` and ``sharded_fused`` refuse
 what the reference's refuse.
 
-Everything else outside the ported slice -- federation scopes on the
-fused engines, bf16 storage, the circulant torus wire and two-axis
-layout -- raises ``NotImplementedError`` naming its ROADMAP.md item.
+The sixth axis is the engine's :class:`~repro_torch.core.scope.
+FederationScope`: which columns of the flat buffer federate. On ``fused``
+and ``sharded_fused`` a sub-range scope (``backbone``, ``ranges``)
+gathers the shared columns into a contiguous wire buffer, runs the
+unchanged kernels on it and scatters the mixed result back around the
+private columns, which follow the plain local update bit-untouched by
+the wire; every wire buffer, the DP noise and the wire bytes shrink to
+the scoped width (``wire_layout``). ``layerwise`` keeps the full wire and
+selects the local update on its head columns except every freq-th round
+(``fused`` only); ``tree`` and ``flat`` refuse partial scopes, as the
+reference's do.
+
+Checkpoint restores go through :meth:`GossipEngine.restore_comm`, which
+refuses unknown comm keys and rebuilds the derived ones (the sharded
+engine's neighbor accumulators, from the restored ``recon``).
+
+Everything else outside the ported slice -- bf16 storage, the circulant
+torus wire and two-axis layout -- raises ``NotImplementedError`` naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -114,9 +130,12 @@ from repro_torch.core.packing import (
     flat_wire_bytes,
     pack,
     pack_like,
+    scoped_layout,
     tree_leaves,
     unpack,
 )
+from repro_torch.core.scope import FULL as SCOPE_FULL
+from repro_torch.core.scope import FederationScope, LayerwiseScope, resolve_scope
 from repro_torch.device import resolve_device
 from repro_torch.kernels.gossip.ops import (
     fused_round,
@@ -394,10 +413,20 @@ class GossipEngine(abc.ABC):
     #: the error-feedback wire realize DP, and secure_agg is a no-op on
     #: every wire of the port (none carries a per-edge payload)
     privacy: PrivacySpec = PRIVACY_NONE
+    #: the sixth round axis: which columns federate. The fused engines
+    #: realize it (``_bind_scope``); the exact-wire engines carry FULL,
+    #: so a checkpoint manifest records every engine's scope
+    scope: FederationScope = SCOPE_FULL
     #: True for the engine that can give each node its own wire k
     #: (``slow_uplink``); the others refuse such a node program
     supports_wire_k: ClassVar[bool] = False
     device: torch.device
+    #: a sub-range scope's wire layout and shared column ranges, and the
+    #: layerwise scope's (1, total) head-column mask (``_bind_scope``)
+    _scoped: bool = False
+    _wire_layout: Optional[FlatLayout] = None
+    _ranges: Tuple[Tuple[int, int], ...] = ()
+    _gate_mask: Optional[torch.Tensor] = None
 
     # -- dynamic-round contract (topology + node programs) -----------------
 
@@ -432,13 +461,21 @@ class GossipEngine(abc.ABC):
         counter in ``FLState.comm``."""
         return self.privacy.dp
 
+    @property
+    def _scope_round(self) -> bool:
+        """True when the scope gates the mix on the round counter
+        (``layerwise``): the engine then carries ``topo_round`` in
+        ``FLState.comm`` on a static round too, so a restore replays the
+        same gate phase."""
+        return self.scope.needs_round
+
     def _topo_keys(self) -> Tuple[str, ...]:
-        """Comm keys the dynamic programs and the privacy axis contribute:
-        the round counter (the round the NEXT comm step mixes under), the
-        topology program's key and Markov state, the node program's key,
-        the privacy key."""
+        """Comm keys the dynamic programs, the privacy axis and a gating
+        scope contribute: the round counter (the round the NEXT comm step
+        mixes under), the topology program's key and Markov state, the
+        node program's key, the privacy key."""
         keys: Tuple[str, ...] = ()
-        if self.dynamic_round or self._priv_rng:
+        if self.dynamic_round or self._priv_rng or self._scope_round:
             keys += ("topo_round",)
         if self.dynamic_topology:
             keys += ("topo_key",) + self.topology_program.state_keys()
@@ -509,12 +546,108 @@ class GossipEngine(abc.ABC):
         return w_off_r, w_diag_r, new_comm, metrics
 
     def _priv_comm(self, comm: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The advanced privacy counter entries of a STATIC round (a
-        dynamic round advances ``topo_round`` in :meth:`_round_gates`,
-        which passes ``priv_key`` through)."""
-        if self.dynamic_round or not self._priv_rng:
+        """The advanced privacy and scope counter entries of a STATIC
+        round (a dynamic round advances ``topo_round`` in
+        :meth:`_round_gates`, which passes ``priv_key`` through)."""
+        if self.dynamic_round or not (self._priv_rng or self._scope_round):
             return {}
-        return {"topo_round": comm["topo_round"] + 1, "priv_key": comm["priv_key"]}
+        out = {"topo_round": comm["topo_round"] + 1}
+        if self._priv_rng:
+            out["priv_key"] = comm["priv_key"]
+        return out
+
+    # -- scope hooks (the fused engines' wire) -------------------------------
+
+    def _bind_scope(self, scope) -> None:
+        """Resolve the scope against ``layout`` once, at build: a
+        sub-range scope (``backbone``, ``ranges``) gets its wire layout
+        (``packing.scoped_layout``, the shared width padded to the scale
+        chunk) and shared ranges; ``layerwise`` keeps the full wire and
+        gets the mask of its head columns."""
+        self.scope = resolve_scope(scope)
+        self._scoped = not self.scope.is_full and not self.scope.needs_round
+        if self._scoped:
+            self._wire_layout, self._ranges = scoped_layout(
+                self.layout, self.scope.shared_ranges(self.layout), self.scale_chunk)
+        elif isinstance(self.scope, LayerwiseScope):
+            gate = torch.zeros((1, self.layout.total), dtype=torch.bool, device=self.device)
+            for a, b in self.scope.gate_ranges(self.layout):
+                gate[:, a:b] = True
+            self._gate_mask = gate
+
+    @property
+    def wire_layout(self) -> Optional[FlatLayout]:
+        """The layout the WIRE runs at: ``layout`` itself under the full
+        and layerwise scopes, the gathered shared columns' layout under a
+        sub-range scope. The comm-state widths, the wire bytes and the DP
+        noise all derive from it."""
+        return self.layout if self._wire_layout is None else self._wire_layout
+
+    def _gather_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """The shared columns of a row block, contiguous, zero-padded to
+        the wire width (the padding behaves as the layout's own: zero
+        forever, no wire mass). ``x`` itself without a sub-range scope."""
+        if not self._scoped:
+            return x
+        segs = [x[..., a:b] for a, b in self._ranges]
+        pad = self._wire_layout.total - self._wire_layout.used
+        if pad:
+            segs.append(x.new_zeros(x.shape[:-1] + (pad,)))
+        return torch.cat(segs, dim=-1)
+
+    def _scatter_cols(self, local_full: torch.Tensor,
+                      mixed_scoped: torch.Tensor) -> torch.Tensor:
+        """The mixed shared columns put back among the private ones: slices
+        and one ``torch.cat``, so the private columns come bit-untouched
+        from ``local_full`` (the wire's padding is dropped)."""
+        segs, pos, at = [], 0, 0
+        for a, b in self._ranges:
+            if a > pos:
+                segs.append(local_full[..., pos:a])
+            segs.append(mixed_scoped[..., at:at + (b - a)])
+            at += b - a
+            pos = b
+        if pos < local_full.shape[-1]:
+            segs.append(local_full[..., pos:])
+        return torch.cat(segs, dim=-1)
+
+    def _scope_finish(self, mixed_s: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
+                      alpha, fire=None) -> torch.Tensor:
+        """DSGD round epilogue under a scope: the full-width params from
+        the kernel's mixed output. A sub-range scope scatters the mix
+        around the private columns' plain local update ``x - alpha g``
+        (the local step's arithmetic); ``layerwise`` selects the local
+        update on the head columns when the round does not fire (an exact
+        ``torch.where``, so a non-firing round leaves them bitwise a
+        never-gossiped trajectory). Identity under the full scope."""
+        if not self._scoped and fire is None:
+            return mixed_s
+        local = x - torch.as_tensor(alpha, dtype=torch.float32) * g
+        if self._scoped:
+            return self._scatter_cols(local, mixed_s)
+        return torch.where(self._gate_mask & ~fire, local, mixed_s)
+
+    def _scope_finish_gt(self, mx_s: torch.Tensor, mt_s: torch.Tensor, x, t, g, gp,
+                         alpha, fire=None):
+        """DSGT twin of :meth:`_scope_finish`: the private columns' tracker
+        follows the unmixed recursion ``t + g - g_prev`` and the params
+        ``x - alpha * tracker`` -- what the kernel computes on those
+        columns, less the W contraction."""
+        if not self._scoped and fire is None:
+            return mx_s, mt_s
+        th = t + g - gp
+        xl = x - torch.as_tensor(alpha, dtype=torch.float32) * th
+        if self._scoped:
+            return self._scatter_cols(xl, mx_s), self._scatter_cols(th, mt_s)
+        keep = self._gate_mask & ~fire
+        return torch.where(keep, xl, mx_s), torch.where(keep, th, mt_s)
+
+    def _scope_fire(self, comm: Dict[str, torch.Tensor]):
+        """The layerwise gate of THIS round from the round counter (None
+        when the scope never gates)."""
+        if not self._scope_round:
+            return None
+        return self.scope.fire(comm["topo_round"])
 
     # -- DP hooks (the engines with the error-feedback wire) ---------------
 
@@ -531,12 +664,13 @@ class GossipEngine(abc.ABC):
     def _dp_noise(self, comm: Dict[str, torch.Tensor], rows: range,
                   tracker: bool = False) -> torch.Tensor:
         """This round's Gaussian draw, std ``sigma * clip``, for the node
-        ``rows`` over the wire width, from the round counter and the
+        ``rows`` over the wire width (the scoped width under a sub-range
+        scope, as the reference draws it), from the round counter and the
         privacy key in ``comm``. The element counter is global, so a
         rank's rows are bitwise the rows of the whole draw."""
         stream = NOISE_STREAM + (TRACKER_STREAM_OFFSET if tracker else 0)
         ids = torch.arange(rows.start, rows.stop, device=self.device)
-        return dp_noise(comm["priv_key"], comm["topo_round"], ids, self.layout.total,
+        return dp_noise(comm["priv_key"], comm["topo_round"], ids, self.wire_layout.total,
                         self.privacy.dp_sigma * self.privacy.dp_clip, stream=stream)
 
     def _round_noises(self, comm: Dict[str, torch.Tensor], rows: range,
@@ -588,6 +722,45 @@ class GossipEngine(abc.ABC):
             f"the {self.name!r} engine does not support dynamic topology "
             "programs on this build"
         )
+
+    # -- checkpoint restore ----------------------------------------------------
+
+    def _known_comm_keys(self) -> frozenset:
+        """Every comm key this engine could carry (over both algorithms and
+        every schedule depth): what :meth:`restore_comm` holds a restored
+        dict to. Engines with wire buffers extend it."""
+        return frozenset(("topo_round", "topo_key", "node_key", "priv_key")
+                         + tuple(self.topology_program.state_keys()))
+
+    def _check_restored_comm_keys(self, comm: Dict[str, torch.Tensor]) -> None:
+        """Refuse a restored comm dict carrying keys this engine does not
+        know: state from another wire contract would be dropped, then
+        re-initialized inconsistently on the next save."""
+        unknown = sorted(set(comm) - self._known_comm_keys())
+        if unknown:
+            raise ValueError(
+                f"restored comm state carries keys {unknown} the "
+                f"{self.name!r} engine does not know (known: "
+                f"{sorted(self._known_comm_keys())}). The checkpoint was "
+                "written under a different wire contract -- rebuild the "
+                "engine with the checkpoint manifest's engine/schedule/"
+                "topology/node-program/privacy specs (training.checkpoint "
+                "restores them verbatim), or migrate the comm dict by "
+                "dropping keys the manifest marks as derived."
+            )
+
+    def restore_comm(self, comm: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Rebuild the DERIVED wire buffers after a checkpoint restore (the
+        identity for engines whose buffers are all independent), after
+        refusing unknown keys (:meth:`_check_restored_comm_keys`)."""
+        self._check_restored_comm_keys(comm)
+        return comm
+
+    def is_derived_comm_key(self, key: str) -> bool:
+        """True for comm buffers :meth:`restore_comm` rebuilds from the
+        independent ones: a checkpoint's derived keys may be dropped where
+        the restore template's contract no longer carries them."""
+        return False
 
     # -- protocol ----------------------------------------------------------
 
@@ -750,9 +923,7 @@ def engine_names() -> Tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 
-def _refuse_unported(scope, storage_dtype) -> None:
-    if scope not in (None, "full"):
-        raise _not_ported(f"federation scope {scope!r}", "13")
+def _refuse_unported(storage_dtype) -> None:
     if storage_dtype not in (None, "float32", torch.float32):
         raise _not_ported(f"{storage_dtype} flat storage", "5")
 
@@ -816,7 +987,7 @@ def _reject_node_program(program, name: str, reason: str) -> NodeProgram:
 def _refuse_exact_wire(name: str, topk, round_schedule, scope) -> None:
     """What the reference's exact-wire engines refuse, with its messages:
     the top-k wire, a schedule other than the blocking one, and a partial
-    federation scope."""
+    federation scope (resolved first, so a ``FullScope`` passes)."""
     if topk is not None:
         raise ValueError(
             f"topk is a fused-engine knob (sub-int8 sparsified wire); the "
@@ -830,12 +1001,13 @@ def _refuse_exact_wire(name: str, topk, round_schedule, scope) -> None:
             f"comm step of the fused engines; the {name!r} engine is "
             "sequential-only -- use 'fused' or 'sharded_fused'"
         )
-    if scope not in (None, "full"):
+    s = resolve_scope(scope)
+    if not s.is_full:
         raise ValueError(
-            f"federation scope {scope!r}: the {name!r} engine ships the "
-            "whole state through a baked exact-wire backend (no column "
-            "slicing) -- use the 'fused' engine, or 'sharded_fused' for "
-            "sub-range scopes on the mesh wire"
+            f"federation scope {s.spec()!r}: the {name!r} engine ships "
+            "the whole state through a baked exact-wire backend (no "
+            "column slicing) -- use the 'fused' engine, or "
+            "'sharded_fused' for sub-range scopes on the mesh wire"
         )
 
 
@@ -866,7 +1038,7 @@ class TreeEngine(GossipEngine):
         """Single-device build on the params' device: the dense-W backend;
         the state stays the input tree. Returns (engine, params)."""
         _refuse_exact_wire(cls.name, topk, round_schedule, scope)
-        _refuse_unported(None, storage_dtype)
+        _refuse_unported(storage_dtype)
         _reject_privacy(privacy, cls.name, "engine's pytree wire has no quantize "
                         "epilogue to pad or noise")
         reason = "engine bakes W into its tree-level gossip backend"
@@ -939,7 +1111,7 @@ class FlatEngine(GossipEngine):
         the engine on their device, the programs bound to ``w``. Returns
         (engine, flat buffer)."""
         _refuse_exact_wire(cls.name, topk, round_schedule, scope)
-        _refuse_unported(None, storage_dtype)
+        _refuse_unported(storage_dtype)
         flat, layout = pack(stacked_params, pad_to=scale_chunk)
         return cls(make_dense_flat_mix(w, wire_dtype), layout, device=flat.device,
                    topology_program=topology_program, node_program=node_program,
@@ -989,7 +1161,13 @@ class FusedEngine(GossipEngine):
     one launch a round), the noise drawn from ``priv_key`` and
     ``topo_round`` in ``FLState.comm``, and reports ``dp_epsilon``;
     ``secure_agg`` is a no-op here (no per-edge payload exists), so a
-    masked run is bitwise its unmasked twin."""
+    masked run is bitwise its unmasked twin.
+
+    ``scope``: a sub-range scope's kernels run on the gathered shared
+    columns (``_gather_cols``), every wire buffer at ``wire_layout``'s
+    width, and the private columns take the plain local update
+    (``_scope_finish``); ``layerwise`` gates the head columns' mix on
+    ``topo_round``, which the round then carries."""
 
     name = "fused"
 
@@ -1003,7 +1181,7 @@ class FusedEngine(GossipEngine):
                 "the fused engines' wire is always difference-coded int8; "
                 "wire_dtype only applies to the tree/flat exact-wire engines"
             )
-        _refuse_unported(scope, storage_dtype)
+        _refuse_unported(storage_dtype)
         self.privacy = resolve_privacy(privacy)
         if scale_chunk < 1:
             raise ValueError("scale_chunk must be >= 1")
@@ -1023,6 +1201,7 @@ class FusedEngine(GossipEngine):
         self.w_self = torch.as_tensor(w_self, device=self.device)
         self.w_off = torch.as_tensor(w_off, device=self.device)
         self._bind_programs(self.w, topology_program, node_program)
+        self._bind_scope(scope)
 
     def _static_round_w(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.w_off, self.w_self
@@ -1045,6 +1224,11 @@ class FusedEngine(GossipEngine):
         k = self.staleness_depth
         return 0 if k <= 1 else k - 1
 
+    def _known_comm_keys(self) -> frozenset:
+        return super()._known_comm_keys() | frozenset(
+            base + suffix for base in ("recon", "residual", "wire_q", "wire_scales")
+            for suffix in ("", "_t"))
+
     def comm_keys(self, cfg: FLConfig) -> Tuple[str, ...]:
         ring = ("wire_q", "wire_scales") if self._ring_depth() else ()
         keys = ("recon", "residual") + ring
@@ -1053,11 +1237,11 @@ class FusedEngine(GossipEngine):
         return keys + self._topo_keys()
 
     def comm_state_spec(self, cfg: FLConfig):
-        """Wire state: (n, total) fp32 recon / residual, and the ring of
-        int8 payloads (n, ring, total) with their fp32 scales
-        (n, ring, total // scale_chunk); then a dynamic program's
-        counters."""
-        n, t, rd = cfg.n_nodes, self.layout.total, self._ring_depth()
+        """Wire state at the wire width (``wire_layout.total``, the scoped
+        width under a sub-range scope): (n, t) fp32 recon / residual, and
+        the ring of int8 payloads (n, ring, t) with their fp32 scales
+        (n, ring, t // scale_chunk); then the counters."""
+        n, t, rd = cfg.n_nodes, self.wire_layout.total, self._ring_depth()
         topo = self._topo_spec()
 
         def spec(key):
@@ -1073,9 +1257,10 @@ class FusedEngine(GossipEngine):
 
     def wire_bytes(self, cfg: FLConfig) -> float:
         """One payload per wire and directed edge per round, at every
-        staleness depth (the ring holds payloads, it never resends)."""
+        staleness depth (the ring holds payloads, it never resends), at
+        the wire width."""
         wires = 2 if cfg.algorithm == "dsgt" else 1
-        edge = flat_wire_bytes(self.layout, 1, self.scale_chunk, self.topk)
+        edge = flat_wire_bytes(self.wire_layout, 1, self.scale_chunk, self.topk)
         return float(wires * _degrees(self.w).sum() * edge)
 
     def check_params(self, cfg: FLConfig, params) -> None:
@@ -1133,21 +1318,29 @@ class FusedEngine(GossipEngine):
             c = state.comm
             w_off_r, w_self_r, topo_comm, gate_metrics = self._round_w(c)
             dpkw = self._dp_kwargs(*self._round_noises(c, range(cfg.n_nodes), wires))
+            # the kernel runs unchanged on the gathered shared columns; the
+            # private ones never enter it (_scope_finish[_gt])
+            fire = self._scope_fire(c)
+            gather = self._gather_cols
             if cfg.algorithm == "dsgd":
                 mixed, recon, res, _ = fused_round(
-                    state.params, grads, c["recon"], c["residual"],
+                    gather(state.params), gather(grads), c["recon"], c["residual"],
                     w_off_r, w_self_r, alpha, **kw, **dpkw,
                 )
+                mixed = self._scope_finish(mixed, state.params, grads, alpha, fire)
                 new_state = state._replace(
                     step=step, params=mixed,
                     comm={"recon": recon, "residual": res, **topo_comm},
                 )
             else:
                 mx, mt, nrx, nsx, nrt, nst, _, _ = fused_round_gt(
-                    state.params, state.tracker, grads, state.prev_grad,
+                    gather(state.params), gather(state.tracker), gather(grads),
+                    gather(state.prev_grad),
                     c["recon"], c["residual"], c["recon_t"], c["residual_t"],
                     w_off_r, w_self_r, alpha, **kw, **dpkw,
                 )
+                mx, mt = self._scope_finish_gt(mx, mt, state.params, state.tracker, grads,
+                                               state.prev_grad, alpha, fire)
                 new_state = FLState(
                     step=step, params=mx, tracker=mt, prev_grad=grads,
                     comm={"recon": nrx, "residual": nsx,
@@ -1194,10 +1387,15 @@ class FusedEngine(GossipEngine):
                 return w_off_r @ nbr + w_self_r[:, None] * h
 
             dpkw = self._dp_kwargs(*self._round_noises(c, range(cfg.n_nodes), wires))
+            fire = self._scope_fire(c)
+            gather = self._gather_cols
             if cfg.algorithm == "dsgd":
                 h, q, sc, nrecon, nres = wire_stage(
-                    state.params, grads, c["recon"], c["residual"], alpha, **kw, **dpkw)
-                mixed = mix(stale_recon(c["recon"], c["wire_q"], c["wire_scales"]), h)
+                    gather(state.params), gather(grads), c["recon"], c["residual"], alpha,
+                    **kw, **dpkw)
+                mixed = self._scope_finish(
+                    mix(stale_recon(c["recon"], c["wire_q"], c["wire_scales"]), h),
+                    state.params, grads, alpha, fire)
                 nwq, nwsc = push(c["wire_q"], c["wire_scales"], q, sc)
                 new_state = state._replace(
                     step=step, params=mixed,
@@ -1206,13 +1404,16 @@ class FusedEngine(GossipEngine):
                 )
             else:
                 (h, t_half, qx, scx, nrx, nsx, qt, sct, nrt, nst) = wire_stage_gt(
-                    state.params, state.tracker, grads, state.prev_grad,
+                    gather(state.params), gather(state.tracker), gather(grads),
+                    gather(state.prev_grad),
                     c["recon"], c["residual"], c["recon_t"], c["residual_t"],
                     alpha, **kw, **dpkw,
                 )
-                mixed_x = mix(stale_recon(c["recon"], c["wire_q"], c["wire_scales"]), h)
-                mixed_t = mix(stale_recon(c["recon_t"], c["wire_q_t"],
-                                          c["wire_scales_t"]), t_half)
+                mixed_x, mixed_t = self._scope_finish_gt(
+                    mix(stale_recon(c["recon"], c["wire_q"], c["wire_scales"]), h),
+                    mix(stale_recon(c["recon_t"], c["wire_q_t"], c["wire_scales_t"]),
+                        t_half),
+                    state.params, state.tracker, grads, state.prev_grad, alpha, fire)
                 nwq, nwsc = push(c["wire_q"], c["wire_scales"], qx, scx)
                 nwqt, nwsct = push(c["wire_q_t"], c["wire_scales_t"], qt, sct)
                 new_state = FLState(
@@ -1310,6 +1511,14 @@ class ShardedFusedEngine(GossipEngine):
     stage's epilogue (each rank draws its own rows of the global noise);
     ``secure_agg`` needs the circulant wire and is refused.
 
+    ``scope``: a sub-range scope's wire stage runs on the shared columns
+    of the rank's rows (``_produce``), every wire buffer, collective and
+    accumulator at the scoped width, and the mix is scattered back around
+    the private columns' local update; ``layerwise`` is refused, as the
+    reference refuses it. ``restore_comm`` rebuilds the neighbor
+    accumulators after a checkpoint restore (``gather_rows`` serves a
+    save).
+
     ``collectives`` and ``collective_bytes`` count the wire's all-gathers
     and the bytes this rank hands them (the metrics' all-reduces are not
     wire traffic and do not count).
@@ -1335,7 +1544,7 @@ class ShardedFusedEngine(GossipEngine):
             raise _not_ported(
                 f"the two-axis (node, model_shard) layout (model_axis={model_axis!r})",
                 "15")
-        _refuse_unported(scope, storage_dtype)
+        _refuse_unported(storage_dtype)
         self.privacy = resolve_privacy(privacy)
         if self.privacy.dp and not error_feedback:
             raise ValueError(
@@ -1391,6 +1600,15 @@ class ShardedFusedEngine(GossipEngine):
         self.rows = group.rows(self.n_nodes)
         # unpack / eval on this rank's rows only
         self.local_layout = dataclasses.replace(layout, n_nodes=len(self.rows))
+        self._bind_scope(scope)
+        if isinstance(self.scope, LayerwiseScope):
+            raise ValueError(
+                f"federation scope {self.scope.spec()!r}: the layerwise "
+                "round-gated mix needs the dense in-kernel W contraction; "
+                "the sharded wire accumulates neighbor terms across "
+                "collectives -- use --fl-engine fused, or a static "
+                "sub-range scope ('backbone' / 'ranges:') here"
+            )
         # The compact wire is the wire only where it is SMALLER than the
         # dense int8 chunk; compact=None takes it exactly there, and an
         # explicitly requested uneconomic one is refused (the accounting
@@ -1459,6 +1677,67 @@ class ShardedFusedEngine(GossipEngine):
             names = ("wire_q", "wire_pos", "wire_scales")
         return tuple(n + suffix for n in names)
 
+    def _known_comm_keys(self) -> frozenset:
+        wire = ("recon", "residual", "wire_q", "wire_scales", "mix_recon",
+                "nbr_recon_all", "wire_pos", "wire_bits")
+        return super()._known_comm_keys() | frozenset(
+            base + suffix for base in wire for suffix in ("", "_t"))
+
+    def is_derived_comm_key(self, key: str) -> bool:
+        """The neighbor accumulators -- ``mix_recon[_t]`` (static) and
+        ``nbr_recon_all[_t]`` (under a program) -- are rebuilt from recon
+        by :meth:`restore_comm`, so either contract's checkpoint can seed
+        the other."""
+        return key.startswith("mix_recon") or key.startswith("nbr_recon_")
+
+    def restore_comm(self, comm: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Rebuild the neighbor accumulators from this rank's restored
+        rows (from a fused checkpoint too, which never had them). The
+        neighbor-visible reconstruction is ``recon`` less every in-flight
+        payload of the ring (the sender advanced recon by payloads its
+        neighbors have not mixed yet); it is all-gathered over the group
+        (not wire traffic: ``collectives`` does not count it), then
+        ``mix_recon = W_off[rows] @ recon_eff`` on a static round, or
+        ``nbr_recon_all`` its replica for each of the rank's rows under a
+        program. Sequential: ``W_off @ recon``; pipelined: ``W_off @
+        (recon - dq(wire))``."""
+        self._check_restored_comm_keys(comm)
+        comm = dict(comm)
+
+        def gathered_recon(suffix: str) -> torch.Tensor:
+            recon = comm["recon" + suffix].to(torch.float32)
+            names = self._wire_key_names(suffix)
+            if self.pipelined and all(k in comm for k in names):
+                bufs = [comm[k] for k in names]
+                if self.staleness_depth <= 1:
+                    recon = recon - self._dq_full(bufs)
+                else:
+                    for j in range(self.staleness_depth):
+                        recon = recon - self._dq_full([b[:, j] for b in bufs])
+            out = torch.empty((self.n_nodes, recon.shape[1]), dtype=recon.dtype,
+                              device=recon.device)
+            _ALL_GATHER(out, recon.contiguous(), group=self.group.pg)
+            return out
+
+        for suffix in ("", "_t") if "recon_t" in comm else ("",):
+            eff = gathered_recon(suffix)
+            if self.dynamic_round:
+                comm["nbr_recon_all" + suffix] = eff[None].expand(
+                    (len(self.rows),) + tuple(eff.shape)).clone()
+            else:
+                comm["mix_recon" + suffix] = self.w_off @ eff
+        return comm
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a row-split buffer, (R, ...) -> (n, ...),
+        in node order: one all-gather of its raw bytes (no collective has
+        an int16 type), not wire traffic."""
+        raw = x.contiguous().reshape(x.shape[0], -1).view(torch.uint8)
+        out = torch.empty((self.n_nodes, raw.shape[1]), dtype=torch.uint8,
+                          device=raw.device)
+        _ALL_GATHER(out, raw, group=self.group.pg)
+        return out.view(x.dtype).reshape((self.n_nodes,) + tuple(x.shape[1:]))
+
     def comm_keys(self, cfg: FLConfig) -> Tuple[str, ...]:
         """The reference's keys: ``mix_recon`` on a static round,
         ``nbr_recon_all`` under a program; then the counters."""
@@ -1476,8 +1755,9 @@ class ShardedFusedEngine(GossipEngine):
         """This rank's wire state: (R, total) fp32 recon / residual /
         mix_recon, (R, n, total) fp32 ``nbr_recon_all``, the in-flight
         wire buffers, (R, width) at depth 1 and a (R, k, width) ring at
-        depth k >= 2; then the counters, whole on every rank."""
-        r, t = len(self.rows), self.layout.total
+        depth k >= 2 -- total the wire width, ``wire_layout.total``; then
+        the counters, whole on every rank."""
+        r, t = len(self.rows), self.wire_layout.total
         c, depth = t // self.scale_chunk, self.staleness_depth
         topo = self._topo_spec()
 
@@ -1511,7 +1791,7 @@ class ShardedFusedEngine(GossipEngine):
     def _edge_bytes(self) -> int:
         """What one neighbor payload costs on this wire: the compact
         encoding, or the dense int8 bytes."""
-        return flat_wire_bytes(self.layout, 1, self.scale_chunk,
+        return flat_wire_bytes(self.wire_layout, 1, self.scale_chunk,
                                self.topk if self.compact_wire else None)
 
     def wire_bytes(self, cfg: FLConfig) -> float:
@@ -1577,8 +1857,10 @@ class ShardedFusedEngine(GossipEngine):
 
     def _produce(self, x, g, recon, res, alpha, noises=(), kvec=None):
         """DSGD: ONE wire-stage launch (with this round's DP noise, and the
-        per-node k ``kvec`` (R, 1) of a wire-k program). Returns (h, wire
-        buffers in ``_wire_key_names`` order, recon', res')."""
+        per-node k ``kvec`` (R, 1) of a wire-k program) on the shared
+        columns of x and g. Returns (h, wire buffers in
+        ``_wire_key_names`` order, recon', res'), all at the wire width."""
+        x, g = self._gather_cols(x), self._gather_cols(g)
         kw = dict(scale_chunk=self.scale_chunk, topk=self.topk, **self._dp_kwargs(*noises))
         if self.compact_wire:
             # under a per-node k the kernel emits positions: the truncation
@@ -1594,8 +1876,10 @@ class ShardedFusedEngine(GossipEngine):
         return h, (q, sc) if idx is None else (q, idx, sc), nrecon, nres
 
     def _produce_gt(self, x, t, g, gp, rx, sx, rt, st, alpha, noises=(), kvec=None):
-        """DSGT: ONE wire-stage launch for both wires. Returns (h, t_half,
-        wire_x, recon_x', res_x', wire_t, recon_t', res_t')."""
+        """DSGT: ONE wire-stage launch for both wires, on the shared columns.
+        Returns (h, t_half, wire_x, recon_x', res_x', wire_t, recon_t',
+        res_t')."""
+        x, t, g, gp = (self._gather_cols(b) for b in (x, t, g, gp))
         kw = dict(scale_chunk=self.scale_chunk, topk=self.topk, **self._dp_kwargs(*noises))
         if self.compact_wire:
             bitmap = self.wire_encoding == "bitmap" and kvec is None
@@ -1651,7 +1935,7 @@ class ShardedFusedEngine(GossipEngine):
         boundary with k_i in place of topk, in fp32, summed over the
         nodes, their degrees and the wires."""
         chunk = self.scale_chunk
-        n_chunks = self.layout.total // chunk
+        n_chunks = self.wire_layout.total // chunk
         k = kvec.reshape(-1).to(torch.float32)
         idx = k * float(torch.iinfo(compact_pos_dtype(chunk)).bits // 8)
         bb = bitmap_bytes_per_chunk(chunk)
@@ -1708,7 +1992,8 @@ class ShardedFusedEngine(GossipEngine):
 
     def _metrics(self, cfg, losses, alpha, grads, new_state: FLState, egress: float):
         """The reference's metrics over all n nodes: one all-reduce of the
-        sums, one of the squared deviations from the consensus mean."""
+        sums, one of the squared deviations from the consensus mean. The
+        residual lives at the wire width."""
         n, t = self.n_nodes, self.layout.total
         params, res = new_state.params, new_state.comm["residual"]
         sums = torch.cat([losses.sum()[None], (res * res).sum()[None],
@@ -1725,7 +2010,7 @@ class ShardedFusedEngine(GossipEngine):
             "consensus_err": sq / n,
             "comm_rounds": 1.0,
             "wire_bytes": egress,
-            "ef_residual_rms": torch.sqrt(sums[1] / (n * t)),
+            "ef_residual_rms": torch.sqrt(sums[1] / (n * self.wire_layout.total)),
             **self._privacy_metrics(cfg, new_state.step),
         }
 
@@ -1753,7 +2038,8 @@ class ShardedFusedEngine(GossipEngine):
                 state.params, grads, c["recon"], c["residual"], alpha, noises)
             new_mix = c["mix_recon"] + mix_add(wire, None)[0]
             new_state = state._replace(
-                step=step, params=self.w_self[:, None] * h + new_mix,
+                step=step, params=self._scope_finish(self.w_self[:, None] * h + new_mix,
+                                                     state.params, grads, alpha),
                 comm={"recon": nrecon, "residual": nres, "mix_recon": new_mix, **priv})
             wire_t = None
         else:
@@ -1762,9 +2048,11 @@ class ShardedFusedEngine(GossipEngine):
                 c["residual"], c["recon_t"], c["residual_t"], alpha, noises)
             add_x, add_t = mix_add(wire, wire_t)
             new_mrx, new_mrt = c["mix_recon"] + add_x, c["mix_recon_t"] + add_t
+            mixed_x, mixed_t = self._scope_finish_gt(
+                self.w_self[:, None] * h + new_mrx, self.w_self[:, None] * th + new_mrt,
+                state.params, state.tracker, grads, state.prev_grad, alpha)
             new_state = FLState(
-                step=step, params=self.w_self[:, None] * h + new_mrx,
-                tracker=self.w_self[:, None] * th + new_mrt, prev_grad=grads,
+                step=step, params=mixed_x, tracker=mixed_t, prev_grad=grads,
                 comm={"recon": nrx, "residual": nsx, "mix_recon": new_mrx,
                       "recon_t": nrt, "residual_t": nst, "mix_recon_t": new_mrt, **priv})
         return new_state, (cfg, losses, alpha, grads), wire, wire_t
@@ -1812,7 +2100,9 @@ class ShardedFusedEngine(GossipEngine):
                 mix, nbr = mix_one(wire, keys, c["nbr_recon_all"])
                 comm = {"recon": nrecon, "residual": nres, "nbr_recon_all": nbr,
                         **topo_comm}
-                new_state = state._replace(step=step, params=ddiag * h + mix, comm=comm)
+                new_state = state._replace(
+                    step=step, params=self._scope_finish(ddiag * h + mix, state.params,
+                                                         grads, alpha), comm=comm)
                 pushes = ((keys, wire),)
             else:
                 (h, th, wire, nrx, nsx, wire_t, nrt, nst) = self._produce_gt(
@@ -1823,8 +2113,11 @@ class ShardedFusedEngine(GossipEngine):
                 comm = {"recon": nrx, "residual": nsx, "nbr_recon_all": nbr_x,
                         "recon_t": nrt, "residual_t": nst, "nbr_recon_all_t": nbr_t,
                         **topo_comm}
-                new_state = FLState(step=step, params=ddiag * h + mix_x,
-                                    tracker=ddiag * th + mix_t, prev_grad=grads, comm=comm)
+                mixed_x, mixed_t = self._scope_finish_gt(
+                    ddiag * h + mix_x, ddiag * th + mix_t, state.params, state.tracker,
+                    grads, state.prev_grad, alpha)
+                new_state = FLState(step=step, params=mixed_x, tracker=mixed_t,
+                                    prev_grad=grads, comm=comm)
                 pushes = ((keys, wire), (keys_t, wire_t))
             if pipelined:
                 for wire_keys, vals in pushes:

@@ -15,7 +15,8 @@ Wire-byte accounting (:func:`flat_wire_bytes`): a flat int8 payload
 costs ``total`` bytes plus 4 bytes per (node, scale chunk) for the fp32
 scales; a top-k payload is accounted in its compact encoding (k int8
 values, the cheaper of k positions or a chunk/8-byte presence bitmap,
-and the scale, per chunk).
+and the scale, per chunk). A federation scope's wire
+(:func:`scoped_layout`) is accounted the same way at its own width.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ __all__ = [
     "bitmap_bytes_per_chunk",
     "compact_index_bytes",
     "flat_wire_bytes",
+    "scoped_layout",
 ]
 
 
@@ -230,3 +232,41 @@ def flat_wire_bytes(layout: FlatLayout, degree: int, scale_chunk: int = 0,
     per_chunk = min(topk + compact_index_bytes(scale_chunk, topk) + 4,
                     scale_chunk + 4)
     return degree * (n_scales * per_chunk)
+
+
+def scoped_layout(layout: FlatLayout, ranges, scale_chunk: int
+                  ) -> Tuple[FlatLayout, Tuple[Tuple[int, int], ...]]:
+    """The wire layout and column ranges of a SCOPED wire.
+
+    A federation scope (``core.scope``) restricts gossip to the merged,
+    disjoint global column ``ranges`` of ``layout``. The fused engines
+    gather those columns into one contiguous buffer, run the unchanged
+    wire stage on it and scatter the mixed result back, so the wire
+    state (recon, residual, in-flight rings), the scales, the
+    collectives and the byte accounting all live at the scoped width.
+
+    Returns ``(wire_layout, ranges)``: a one-leaf layout whose ``total``
+    is the shared width padded to a ``scale_chunk`` multiple and whose
+    ``used`` is the shared width, so :func:`flat_wire_bytes` on it IS the
+    scoped wire's accounting; and the validated ranges. The port's
+    layouts are single-shard (the model axis is not ported), so the
+    ranges need no per-shard uniformity check."""
+    ranges = tuple((int(a), int(b)) for a, b in ranges)
+    pos = 0
+    for a, b in ranges:
+        if not (pos <= a < b <= layout.total):
+            raise ValueError(
+                f"scoped ranges {ranges!r} must be sorted, disjoint, "
+                f"non-empty, within [0, {layout.total})"
+            )
+        pos = b
+    shared = sum(b - a for a, b in ranges)
+    if shared == 0:
+        raise ValueError(
+            f"scoped ranges {ranges!r} share no columns; a scope must "
+            "leave something on the wire"
+        )
+    unit = max(int(scale_chunk), 1)
+    wire = FlatLayout(paths=((),), leaves=(LeafSpec(0, (shared,), "float32"),),
+                      n_nodes=layout.n_nodes, total=-(-shared // unit) * unit)
+    return wire, ranges

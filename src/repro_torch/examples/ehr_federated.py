@@ -23,7 +23,10 @@ kernel; an ``edges_up=`` column shows the share of links up),
 ``--fl-privacy`` clips and noises the wire (``dp:sigma=0.5,clip=1.0``; an
 ``eps=`` column shows the (epsilon, 1e-5) bound) or pads it
 (``secure_agg``, a no-op on this engine: the run is bitwise the plain
-one). Prints the per-round comm bytes of the int8 (or top-k) wire
+one), ``--fl-scope`` keeps part of the model private (``backbone``: every
+hospital's classifier head stays off the wire; pair it with
+``--scale-chunk 128``, or the shared slice pads back to the full width
+at 512). Prints the per-round comm bytes of the int8 (or top-k) wire
 against the fp32 wire a plain engine ships.
 
 ``run_sharded_engine`` runs part 2's configuration on the
@@ -40,6 +43,8 @@ node program (``slow_uplink`` too, with ``topk``) and with ``dp``.
       --fl-topology-program node_churn:p_down=0.25,mean_downtime=2
   PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 \
       --fl-privacy dp:sigma=0.5,clip=1.0
+  PYTHONPATH=src python -m repro_torch.examples.ehr_federated --iterations 0 \
+      --fl-scope backbone --scale-chunk 128
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from repro_torch.core.dynamics import program_names
 from repro_torch.core.engine import ShardedFusedEngine, get_engine, resolve_schedule
 from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round, tree_map
 from repro_torch.core.schedules import inv_sqrt
+from repro_torch.core.scope import scope_names
 from repro_torch.core.topology import mixing_matrix
 from repro_torch.data.ehr import generate_ehr_cohort, make_node_batcher
 from repro_torch.device import resolve_device
@@ -72,7 +78,7 @@ from repro_torch.training.trainer import AdaptiveTopK, stack_batches, stack_for_
 def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
                      class_weight=CLASS_WEIGHT, fl_schedule="sequential",
                      topk=None, topk_schedule=None, topology_program=None,
-                     privacy=None, device=None,
+                     privacy=None, scope=None, device=None,
                      init_params: Optional[Dict] = None) -> Dict:
     """FD-DSGT on the ``fused`` engine, one kernel call per comm round.
 
@@ -83,7 +89,9 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
     spec (e.g. ``"node_churn:p_down=0.2,mean_downtime=5"``) that gates
     the hospital graph per round. ``privacy``: a ``core.privacy`` spec
     (``"dp:sigma=0.5,clip=1.0"``, ``"secure_agg"``, or both joined by
-    ``+``). ``init_params``: one node's starting weights
+    ``+``). ``scope``: a ``core.scope`` spec (``"backbone"``: the
+    classifier heads stay private, the wire shrinks to the shared
+    columns). ``init_params``: one node's starting weights
     (a tree of tensors); default ``mlp_init(seed)``. Tests pass the
     reference's init here. Returns final ``acc``, ``bal_acc``,
     ``wire_saving`` (fp32 bytes over the engine's wire bytes in the last
@@ -110,7 +118,7 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
         topk = adaptive.k_sparse
     stacked = stack_for_nodes(single, n)
     kw = dict(scale_chunk=scale_chunk, round_schedule=resolve_schedule(fl_schedule),
-              topology_program=topology_program, privacy=privacy)
+              topology_program=topology_program, privacy=privacy, scope=scope)
     engine, flat = get_engine("fused").simulated(w, stacked, topk=topk, **kw)
     loss_fn = make_mlp_loss(class_weights(class_weight))
     round_fn = make_fl_round(loss_fn, inv_sqrt(0.02), cfg, engine)
@@ -135,9 +143,11 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
                   if engine.dynamic_topology else "hospital graph")
     priv_note = (f", privacy={engine.privacy.spec()}"
                  if engine.privacy.active else "")
+    scope_note = (f", scope={engine.scope.spec()} ({engine.wire_layout.total}/"
+                  f"{engine.layout.total} wire cols)" if not engine.scope.is_full else "")
     print(f"\nfused engine (FD-DSGT, Q={q}, "
           f"schedule={engine.round_schedule.spec()}, {graph_note}, "
-          f"class_weight={class_weight}{priv_note}, {n_params} params -> "
+          f"class_weight={class_weight}{priv_note}{scope_note}, {n_params} params -> "
           f"{engine.layout.total} padded, chunk={scale_chunk}, topk={topk}, "
           f"wire={engine.wire_bytes(cfg):,.0f} B/round, device={dev}):")
     losses = []
@@ -190,14 +200,14 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
                        scale_chunk: int = 512, seed: int = 0,
                        class_weight=CLASS_WEIGHT, fl_schedule="sequential",
                        topk=None, topology_program=None, node_program=None,
-                       privacy=None, init_params: Optional[Dict] = None,
+                       privacy=None, scope=None, init_params: Optional[Dict] = None,
                        log: bool = True) -> Dict:
     """Part 2's configuration on the ``sharded_fused`` engine, for this
     rank of ``group`` (every rank of the group calls it with the same
     arguments). ``topk`` ships the compact exact-k wire where it is
     smaller than the dense int8 chunk; ``topology_program`` /
-    ``node_program`` / ``privacy`` are the engine's round axes, as
-    :func:`run_fused_engine` takes them. Returns the per-round ``losses``
+    ``node_program`` / ``privacy`` / ``scope`` are the engine's round
+    axes, as :func:`run_fused_engine` takes them (``layerwise`` refused). Returns the per-round ``losses``
     and last ``metrics`` (over all 20 hospitals), ``wire_bytes`` of the
     last round, the ``engine`` and the final ``state`` (this rank's
     rows)."""
@@ -211,7 +221,8 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
     engine, rows = ShardedFusedEngine.from_group(
         group, stack_for_nodes(single, n), w=mixing_matrix("hospital20", n),
         scale_chunk=scale_chunk, topk=topk, round_schedule=fl_schedule,
-        topology_program=topology_program, node_program=node_program, privacy=privacy)
+        topology_program=topology_program, node_program=node_program, privacy=privacy,
+        scope=scope)
     round_fn = make_fl_round(make_mlp_loss(class_weights(class_weight)), inv_sqrt(0.02),
                              cfg, engine)
     state = init_fl_state(cfg, rows, engine)
@@ -223,7 +234,8 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
               + "".join(f"{axis.spec()}, " for axis, on in (
                   (engine.topology_program, engine.dynamic_topology),
                   (engine.node_program, engine.dynamic_nodes),
-                  (engine.privacy, engine.privacy.active)) if on)
+                  (engine.privacy, engine.privacy.active),
+                  (engine.scope, not engine.scope.is_full)) if on)
               + f"wire={engine.wire_bytes(cfg):,.0f} B/round, device={group.device}):")
     losses = []
     for rnd in range(1, rounds + 1):
@@ -278,7 +290,11 @@ def main(argv=None) -> None:
                     help="part 2: communication rounds")
     ap.add_argument("--q", type=int, default=10,
                     help="part 2: local steps per communication round")
-    ap.add_argument("--scale-chunk", type=int, default=512)
+    ap.add_argument("--scale-chunk", type=int, default=512,
+                    help="part-2 quantization chunk; the scoped wire pads to "
+                         "a chunk multiple, so pair --fl-scope backbone with a "
+                         "chunk <= 128 to see the wire bytes shrink on the "
+                         "1442-param MLP")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--class-weight", default=CLASS_WEIGHT,
                     help="'balanced' (inverse frequency) or 'none' for the "
@@ -307,6 +323,13 @@ def main(argv=None) -> None:
                          "(epsilon, 1e-5) bound reported per round; "
                          "'secure_agg' (pairwise pads) is a no-op on the "
                          "fused engine; join both with '+'")
+    ap.add_argument("--fl-scope", default=None,
+                    help="federation scope for part 2 (core.scope registry: "
+                         f"{', '.join(scope_names())}): 'backbone' shares all "
+                         "but the classifier head (per-hospital heads stay "
+                         "private, the wire shrinks to the shared columns), "
+                         "'ranges:a-b,...' explicit columns, "
+                         "'layerwise:freq=R' mixes the head every R rounds")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain PyTorch twins)")
@@ -320,7 +343,8 @@ def main(argv=None) -> None:
                      fl_schedule=args.fl_schedule, topk=args.topk,
                      topk_schedule=_parse_topk_schedule(args.topk_schedule),
                      topology_program=args.fl_topology_program,
-                     privacy=args.fl_privacy, device=args.device)
+                     privacy=args.fl_privacy, scope=args.fl_scope,
+                     device=args.device)
 
 
 if __name__ == "__main__":

@@ -18,10 +18,16 @@ runs against exactly one weight set. Staging (the copy to the engine's
 device) happens in the PUBLISHER's thread; the decode loop pays only the
 swap, timed per swap in ``swap_pauses``. ``snapshot_round`` is the round
 frontier of the ACTIVE weights, so ``staleness(frontier)`` is the
-serving-side lag in training rounds. Serving from an mmap'd snapshot
-(``from_snapshot`` / ``publish_snapshot``, and ``publish``'s
-``keepalive`` / ``stage`` arguments that serve it) waits for the port's
-snapshot module.
+serving-side lag in training rounds.
+
+Serving from a mapped consensus snapshot (``training.snapshot``):
+``from_snapshot`` builds an engine on a snapshot's leaves and
+``publish_snapshot`` hot-swaps one in, the snapshot pinned as the
+active weights' ``keepalive`` (its map backs the leaves). With
+``stage=True`` the leaves are copied to the engine's device in the
+publisher's thread; ``stage=False`` serves the host views as they are,
+which torch can do only on a CPU engine -- a CUDA engine refuses it
+(torch moves no host tensor to the card implicitly).
 
 The engine runs on the device its parameters live on; the caches and
 sampling follow them there.
@@ -40,6 +46,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fl import tree_map
 from repro_torch.core.packing import tree_leaves
+from repro_torch.device import resolve_device
 from repro_torch.models.model import ModelBundle
 
 __all__ = ["ServeEngine", "GenerationResult"]
@@ -70,22 +77,52 @@ class ServeEngine:
                                        sliding_override=sliding_override)
         #: round frontier of the ACTIVE weights (None = unknown/seed)
         self.snapshot_round = snapshot_round
-        # pending slot: (params, round) or None. Written by publisher
-        # threads, consumed by the decode loop; a single reference
-        # assignment either way, atomic under the GIL.
-        self._pending: Optional[Tuple[Dict, Optional[int]]] = None
+        # pending slot: (params, round, keepalive) or None. Written by
+        # publisher threads, consumed by the decode loop; a single
+        # reference assignment either way, atomic under the GIL.
+        self._pending: Optional[Tuple[Dict, Optional[int], Any]] = None
+        # keepalive of the active weights (the mapped Snapshot whose
+        # views the params are, when served unstaged)
+        self._active_ref: Any = None
         self.swap_count = 0
         self.swap_pauses: List[float] = []  # seconds per completed swap
 
+    @classmethod
+    def from_snapshot(cls, bundle: ModelBundle, snapshot, max_seq: int, batch: int,
+                      sliding_override: bool = False, stage: bool = True,
+                      device=None) -> "ServeEngine":
+        """Serve straight from a mapped consensus snapshot
+        (``training.snapshot.load_snapshot``) on ``device`` (``cuda``
+        unless given). ``stage=True`` copies the views to the device once,
+        up front (the pages fault in from the blob as they are read);
+        ``stage=False`` serves the host views themselves, on a CPU engine
+        only."""
+        dev = resolve_device(device)
+        params = _staged(snapshot.params, dev, stage)
+        eng = cls(bundle, params, max_seq, batch, sliding_override=sliding_override,
+                  snapshot_round=snapshot.round_frontier)
+        eng._active_ref = snapshot
+        return eng
+
     # ---------------------------------------------------------- hot swap
 
-    def publish(self, params: Dict, snapshot_round: Optional[int] = None) -> None:
+    def publish(self, params: Dict, snapshot_round: Optional[int] = None,
+                keepalive: Any = None, stage: bool = True) -> None:
         """Stage new weights into the pending slot (any thread).
 
-        The decode loop promotes them at its next step boundary. The
-        leaves are copied to the engine's device HERE, in the publisher's
-        thread, so the decode loop's swap stays a reference assignment."""
-        self._pending = (tree_map(lambda a: a.to(self.device), params), snapshot_round)
+        The decode loop promotes them at its next step boundary. With
+        ``stage=True`` the leaves (mapped views, say) are copied to the
+        engine's device HERE, in the publisher's thread, so the decode
+        loop's swap stays a reference assignment; ``stage=False`` takes
+        them as they are, which must be on the engine's device.
+        ``keepalive`` pins whatever owns the leaves' memory (a Snapshot)
+        for as long as they are active."""
+        self._pending = (_staged(params, self.device, stage), snapshot_round, keepalive)
+
+    def publish_snapshot(self, snapshot, stage: bool = True) -> None:
+        """Publish a mapped consensus snapshot."""
+        self.publish(snapshot.params, snapshot.round_frontier, keepalive=snapshot,
+                     stage=stage)
 
     def _maybe_swap(self) -> bool:
         """Promote the pending weight slot, if any. Called by the decode
@@ -94,10 +131,11 @@ class ServeEngine:
         if pend is None:
             return False
         t0 = time.perf_counter()
-        params, rnd = pend
+        params, rnd, keep = pend
         self._pending = None
         self.params = params
         self.snapshot_round = rnd
+        self._active_ref = keep
         self.swap_pauses.append(time.perf_counter() - t0)
         self.swap_count += 1
         return True
@@ -167,3 +205,20 @@ class ServeEngine:
         tokens = np.concatenate([np.asarray(prompts, np.int32), new], axis=1)
         return GenerationResult(tokens=tokens, prompt_len=p, steps=p + max_new_tokens,
                                 swap_steps=tuple(swap_steps))
+
+
+def _staged(params: Dict, device: torch.device, stage: bool) -> Dict:
+    """``params`` on ``device``: copied there when ``stage``, else taken
+    as they are, which must already be there (no implicit copy)."""
+    if stage:
+        return tree_map(lambda a: a.to(device), params)
+    off = sorted({str(leaf.device) for _, leaf in tree_leaves(params)
+                  if leaf.device != device})
+    if off:
+        raise ValueError(
+            f"stage=False serves the leaves where they are ({', '.join(off)}), but "
+            f"the engine runs on {device}; torch moves no host tensor to the "
+            "card implicitly -- pass stage=True to copy them in the "
+            "publisher's thread"
+        )
+    return params

@@ -1,1 +1,1 @@
-"""Training drivers and run metrics."""
+"""Training drivers, run metrics, checkpoints and consensus snapshots."""

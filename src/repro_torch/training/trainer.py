@@ -9,7 +9,8 @@ buffer; on ``fused`` every communication round is one kernel call, on
 the sequential, pipelined or bounded-staleness schedule, with the dense
 or top-k int8 wire and adaptive k (:class:`AdaptiveTopK`). A topology
 program (the graph changing from round to round) and a node program
-(stragglers, dropped payloads) run on ``flat`` and ``fused``.
+(stragglers, dropped payloads) run on ``flat`` and ``fused``; a
+federation scope (private per-hospital heads) on ``fused``.
 """
 
 from __future__ import annotations
@@ -157,6 +158,7 @@ def train_decentralized(
     robust_alpha: bool = False,
     topology_program: Optional[str] = None,
     node_program: Optional[str] = None,
+    scope: Optional[str] = None,
     device=None,
 ) -> TrainResult:
     """Train for ``rounds`` communication rounds on ``device`` (``cuda``
@@ -193,6 +195,16 @@ def train_decentralized(
     uptime the topology program's expected uptime times the node
     program's.
 
+    ``scope`` is a ``core.scope`` spec: which columns of the flat buffer
+    gossip touches. ``"backbone"`` shares everything but the classifier
+    head (each hospital keeps a head trained on its own gradients alone,
+    bit-untouched by the wire), ``"ranges:0-1376"`` explicit columns,
+    ``"layerwise:freq=4"`` mixes the head only every 4th round. A
+    sub-range scope shrinks the wire (every buffer, scale and byte) to
+    the shared columns; pair it with a ``scale_chunk`` that does not pad
+    the shared slice back to the full width. ``tree`` and ``flat``
+    refuse partial scopes.
+
     ``topk_schedule = (k_sparse, k_dense, densify_high[, resparsify_low])``
     runs the adaptive-k wire (:class:`AdaptiveTopK`): two round functions,
     sparse and densified, built once and switched per round over ONE
@@ -223,7 +235,7 @@ def train_decentralized(
     build = get_engine(engine).simulated
     kw = dict(wire_dtype=wire_dtype, scale_chunk=scale_chunk,
               round_schedule=round_schedule, topology_program=topology_program,
-              node_program=node_program)
+              node_program=node_program, scope=scope)
     engine, params0 = build(w, stacked, topk=topk, **kw)
     schedule = make_schedule(run)
     if robust_alpha:

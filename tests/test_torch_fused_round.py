@@ -165,8 +165,10 @@ def test_registry_and_refusals():
     """The registry; the validation of the wire and schedule knobs the
     port now has (``topk < 1``, ``bounded_staleness:k < 1``); topology and
     node programs now build (``tests/test_torch_dynamic_round.py``), and
-    so does privacy (``tests/test_torch_privacy.py``); the refusals that
-    remain (scope, bf16 storage)."""
+    so does privacy (``tests/test_torch_privacy.py``) and a federation
+    scope (``tests/test_torch_scope.py``; a pattern matching no leaf is
+    the reference's ``ValueError``); the refusal that remains (bf16
+    storage)."""
     assert "fused" in engine_names() and get_engine("fused") is FusedEngine
     assert get_engine("sharded_fused") is ShardedFusedEngine
     with pytest.raises(ValueError, match="unknown engine"):
@@ -187,10 +189,11 @@ def test_registry_and_refusals():
                       node_program="stragglers:frac=0.25")
     assert eng.dynamic_topology and eng.dynamic_nodes
     assert FusedEngine(w, layout, device="cpu", privacy="secure_agg").privacy.secure_agg
-    for kw, item in [(dict(scope="backbone"), "scope"),
-                     (dict(storage_dtype=torch.bfloat16), "storage")]:
-        with pytest.raises(NotImplementedError, match=item):
-            FusedEngine(w, layout, device="cpu", **kw)
+    assert FusedEngine(w, layout, device="cpu", scope="ranges:0-512").wire_layout.total == 512
+    with pytest.raises(ValueError, match="matches no leaf"):
+        FusedEngine(w, layout, device="cpu", scope="backbone")
+    with pytest.raises(NotImplementedError, match="storage"):
+        FusedEngine(w, layout, device="cpu", storage_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="scale_chunk"):
         FusedEngine(w, layout, scale_chunk=7, device="cpu")
     engine = FusedEngine(w, layout, device="cpu")

@@ -259,9 +259,11 @@ def test_refuses_wrong_dtype_layout_and_chunk():
 # kernels vs twins on the card
 # ---------------------------------------------------------------------------
 
-# (n, t, chunk, topology): the main path, a small ragged shape, n = 64
+# (n, t, chunk, topology): the main path, a small ragged shape, n = 64,
+# and the backbone scope's gathered wire at chunk 128 (the personalization
+# driver's: 1,376 shared columns padded to 11 chunks)
 CUDA_SHAPES = [(20, 1536, 512, "hospital20"), (7, 384, 128, "complete"),
-               (64, 4096, 512, "torus:8x8")]
+               (64, 4096, 512, "torus:8x8"), (20, 1408, 128, "hospital20")]
 
 
 @pytest.mark.cuda

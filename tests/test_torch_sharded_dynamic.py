@@ -273,7 +273,7 @@ def test_wire_k_vec_and_bytes_are_the_references(chunk, topk):
     w = mixing_matrix("hospital20", n)
     layout = pack_layout({"p": torch.zeros(n, 1442)}, pad_to=chunk)
     mine = types.SimpleNamespace(
-        topk=topk, scale_chunk=chunk, n_nodes=n, layout=layout,
+        topk=topk, scale_chunk=chunk, n_nodes=n, layout=layout, wire_layout=layout,
         node_program=resolve_node_program(spec).bind(n, device="cpu"),
         dense_equivalent=lambda: w)
     theirs = types.SimpleNamespace(

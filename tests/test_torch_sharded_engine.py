@@ -426,7 +426,7 @@ def test_comm_state_has_the_references_keys(group):
     (dict(w=None, topology_program="edge_failure:p=0.1"), "item 15"),
     (dict(model_axis="model"), "item 15"),
     (dict(privacy="secure_agg"), "secure_agg needs the circulant ppermute wire"),
-    (dict(scope="backbone"), "item 13"),
+    (dict(scope="layerwise:freq=4,head=q"), "the layerwise round-gated mix"),
     (dict(storage_dtype="bfloat16"), "item 5"),
     (dict(difference_coding=False), "item 9"),
     (dict(error_feedback=False), "item 9"),
@@ -435,12 +435,14 @@ def test_refusals_name_their_item(group, kw, item):
     """What is still not ported raises ``NotImplementedError`` naming its
     item (the circulant wire also under a topology program); ``secure_agg``
     raises the reference's ``ValueError``: its pads need the circulant
-    wire. The topology and node programs, ``slow_uplink`` and dp build
-    (``tests/test_torch_sharded_dynamic.py``, ``tests/test_torch_privacy.py``)."""
-    params = {"p": torch.zeros(N, 40)}
+    wire; so does the layerwise scope, whose gated mix needs the dense
+    in-kernel W. The topology and node programs, ``slow_uplink``, dp and
+    the sub-range scopes build (``tests/test_torch_sharded_dynamic.py``,
+    ``tests/test_torch_privacy.py``, ``tests/test_torch_scope.py``)."""
+    params = {"p": torch.zeros(N, 30), "q": torch.zeros(N, 10)}
     args = dict(w=_er(), scale_chunk=CHUNK)
     args.update(kw)
-    exc = ValueError if "privacy" in kw else NotImplementedError
+    exc = ValueError if "privacy" in kw or "scope" in kw else NotImplementedError
     with pytest.raises(exc, match=item):
         ShardedFusedEngine.from_group(group, params, **args)
 
