@@ -62,7 +62,22 @@ against the host CPU) -- counting each kernel's launches per path, and
 times the kernels, their twins, the library attention call and whole
 rounds (the backbone-scoped round beside the full one at chunk 128) and
 decode steps of the three served models, beside an empty
-kernel's launch (the launch floor). Any failed check raises, so the exit code is non-zero; without a
+kernel's launch (the launch floor). Phase 5 then trains the
+transformer: (t1) each kernel's autograd.Function (the hand kernel
+forward, the plain closed-form backward) against autograd through its
+twin on the card at the training shapes, and full-width SmolLM-360M (2
+layers, fp32 and bf16), RecurrentGemma-2B (one period) and RWKV6-7B (one
+layer) at fp32, 2 nodes: every leaf's gradient on the card against the
+host CPU's, none zero; (t2) SmolLM-360M at full width and depth through
+``train_decentralized``, 3 FD-DSGT rounds on the tree engine (4 nodes)
+and on the fused engine (2 nodes), round 1's local loss against the host
+CPU's, the host clock, busy share and peak memory, and
+``fused_round_gt`` at (2, 361,821,184) against its twin on its first
+and last chunks and its byte bound; (t3) ``examples/serve_consensus.py``
+at full width, the served tokens equal to an in-memory engine's; (t4)
+``launch/train.py`` at its defaults and on the fused engine at
+staleness depth 2, and ``examples/quickstart.py``, each loss falling.
+Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
 
@@ -118,12 +133,20 @@ from repro_torch.core.engine import (  # noqa: E402
     ShardedFusedEngine,
     get_engine,
 )
-from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round, tree_map  # noqa: E402
+from repro_torch.core.fl import (  # noqa: E402
+    FLConfig,
+    init_fl_state,
+    make_fl_round,
+    tree_map,
+    value_and_grad,
+)
 from repro_torch.core.privacy import analytic_epsilon  # noqa: E402
 from repro_torch.core.packing import flat_wire_bytes, pack, tree_leaves, unpack  # noqa: E402
 from repro_torch.core.schedules import inv_sqrt  # noqa: E402
 from repro_torch.core.topology import mixing_matrix  # noqa: E402
 from repro_torch.data.ehr import generate_ehr_cohort, make_node_batcher  # noqa: E402
+from repro_torch.data.tokens import make_fl_token_batches  # noqa: E402
+from repro_torch.examples import quickstart, serve_consensus  # noqa: E402
 from repro_torch.examples.ehr_federated import (  # noqa: E402
     run_fused_engine,
     run_sharded_engine,
@@ -166,9 +189,11 @@ from repro_torch.kernels.gossip.ref import (  # noqa: E402
     wire_stage_gt_ref,
     wire_stage_ref,
 )
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.mesh import NodeGroup, start_group, stop_group  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.mlp import make_mlp_loss, mlp_init  # noqa: E402
+from repro_torch.models.transformer import lm_loss  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
 from repro_torch.training.checkpoint import load_fl_state, save_fl_state  # noqa: E402
 from repro_torch.training.snapshot import load_snapshot, write_snapshot  # noqa: E402
@@ -390,6 +415,15 @@ DRIVER_FRACTION_TOL = 1e-6
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def section(msg: str) -> None:
+    """A phase's or path's heading, with the seconds since the script
+    started (the run must end inside its time limit, the build included)."""
+    log(f"{msg} [{time.perf_counter() - _START:.1f} s]")
 
 
 def card_line() -> str:
@@ -2457,6 +2491,410 @@ def recurrent_serving_path(arch: str) -> dict:
     return want
 
 
+# ---------------------------------------------------------------------------
+# Training the transformer (t1)-(t4)
+# ---------------------------------------------------------------------------
+
+# (t1) the kernels' gradients on the card against autograd through their
+# twins on the card, at the training paths' shapes: (label, B, S, H, K,
+# hd, window) for flash -- SmolLM-360M's heads, RecurrentGemma-2B's MQA at
+# head size 256 with its 2048-slot window (wider than S 128: no key falls
+# out) and with a window of 32 that masks
+FLASH_GRAD_SHAPES = [
+    ("smollm-360m", 1, 128, 15, 5, 64, 0),
+    ("recurrentgemma-2b", 1, 128, 10, 1, 256, 2048),
+    ("recurrentgemma-2b window 32", 1, 128, 10, 1, 256, 32),
+]
+WKV_GRAD_SHAPE = ("rwkv6-7b", 1, 128, 64)  # B, S, H (d_model 4096)
+LRU_GRAD_SHAPE = ("recurrentgemma-2b", 1, 128, 2560)  # B, S, W
+# each gradient within tol x max(1e-30, max|twin's gradient|): fp32 1e-3
+# (the same closed form fed by the kernel's output, which differs from the
+# twin's by the forward's own tolerance), bf16 5e-2 (the forward's output
+# and the gradients rounded to bf16) -- the serving phase's tolerances
+GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+# (t1) full-width models at cut depth, n = 2 nodes, S 128: every leaf's
+# gradient on the card against the host CPU's from the same params. The
+# depths keep SmolLM's dense block, one RecurrentGemma period (recurrent,
+# recurrent, local_attention) and one RWKV6 block; (arch, depth, dtypes).
+# bf16 for SmolLM only: the host CPU's bf16 products are about twice as
+# slow as its fp32 ones, RecurrentGemma's 256,000-row unembedding the
+# costliest, and RWKV6's bf16 gradients are ill-conditioned past any
+# tolerance (a head's first output is the rank-one bonus (r . (u * k)) v,
+# which its RMS norm divides by; tests/test_torch_lm_loss.py)
+GRAD_MODELS = [("smollm-360m", 2, ("float32", "bfloat16")),
+               ("recurrentgemma-2b", 3, ("float32",)),
+               ("rwkv6-7b", 1, ("float32",))]
+GRAD_NODES, TRAIN_SEQ = 2, 128
+# (t2) SmolLM-360M at full width and depth through train_decentralized:
+# FD-DSGT Q = 2, batch 1, S 128, 3 rounds on the tree engine (4 nodes on
+# a ring) and on the fused engine (int8 wire, chunk 512; 2 nodes: the
+# round kernel's 14 (n, total) fp32 buffers take 40.5 GB at n = 2)
+TRAIN_ARCH, TREE_NODES, FUSED_NODES, TRAIN_ROUNDS, TRAIN_Q = "smollm-360m", 4, 2, 3, 2
+TRAIN_ALPHA0 = 0.02
+# round 1's local_loss, card against the host CPU from the same init: one
+# bf16 model summed in another order (a full-depth training round takes
+# the host CPU minutes, so it computes the init's forward only)
+TRAIN_LOSS_RTOL = 1e-2
+
+
+def _grad_err(what: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """max|got - want| over max|want|; raises past ``tol``, on non-finite
+    values and on an all-zero gradient."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    if not torch.isfinite(got).all() or got.shape != want.shape:
+        raise AssertionError(f"{what}: gradient not finite or of shape {tuple(got.shape)}")
+    if scale == 0.0 or float(got.abs().max()) == 0.0:
+        raise AssertionError(f"{what}: an all-zero gradient (card max "
+                             f"{float(got.abs().max())}, reference max {scale})")
+    err = float((got - want).abs().max()) / scale
+    if err > tol:
+        raise AssertionError(f"{what}: gradient off by {err:.3e} of its scale > {tol}")
+    return err
+
+
+def _grads(fn, inputs, seed: int):
+    """The inputs' gradients of sum(out * cotangent) for each output of
+    ``fn``, with fixed random cotangents."""
+    inputs = [x.detach().requires_grad_(True) for x in inputs]
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cots = [torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype) for o in outs]
+    return torch.autograd.grad(outs, inputs, cots)
+
+
+def check_kernel_grads() -> dict:
+    """(t1) Each kernel's autograd.Function on the card (the hand kernel
+    forward, the plain closed-form backward) against autograd through its
+    twin on the card, at the training paths' shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {}
+    for (label, b, s, h, k, hd, window), dtype in itertools.product(
+            FLASH_GRAD_SHAPES, (torch.bfloat16, torch.float32)):
+        q = torch.randn(b, s, h, hd, generator=gen, device="cuda").to(dtype)
+        kk, vv = (torch.randn(b, s, k, hd, generator=gen, device="cuda").to(dtype)
+                  for _ in range(2))
+        got = _grads(lambda *a: flash_attention(*a, causal=True, window=window), (q, kk, vv), 1)
+        want = _grads(lambda *a: attention_ref(*a, causal=True, window=window), (q, kk, vv), 1)
+        err = max(_grad_err(f"flash {label} {dtype} d{n}", g, w, GRAD_TOL[dtype])
+                  for n, g, w in zip("qkv", got, want))
+        worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
+        log(f"  flash_attention gradients == autograd through the twin at {label} "
+            f"(B {b}, S {s}, H {h}/{k}, hd {hd}, window {window}, {dtype}): dq, dk, dv "
+            f"within {err:.3e} of their scale (tolerance {GRAD_TOL[dtype]})")
+    label, b, s, h = WKV_GRAD_SHAPE
+    args = wkv_inputs(b, s, h, "random", gen)
+    got, want = _grads(wkv6, args, 2), _grads(wkv_twin, args, 2)
+    worst["wkv6"] = max(_grad_err(f"wkv6 {label} d{n}", g, w, GRAD_TOL[torch.float32])
+                        for n, g, w in zip(("r", "k", "v", "log_w", "u", "s0"), got, want))
+    log(f"  wkv6 gradients == autograd through the twin at {label} (B {b}, S {s}, H {h}): "
+        f"r, k, v, log_w, u, s0 within {worst['wkv6']:.3e} of their scale")
+    label, b, s, w = LRU_GRAD_SHAPE
+    args = lru_inputs(b, s, w, gen)
+    got, want = _grads(rglru_scan, args, 3), _grads(rglru_ref, args, 3)
+    worst["rglru_scan"] = max(_grad_err(f"rglru_scan {label} d{n}", g, x,
+                                        GRAD_TOL[torch.float32])
+                              for n, g, x in zip(("log_a", "b", "h0"), got, want))
+    log(f"  rglru_scan gradients == autograd through the twin at {label} (B {b}, S {s}, "
+        f"W {w}): log_a, b, h0 within {worst['rglru_scan']:.3e} of their scale")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def token_batch(cfg, n: int, seed: int = 0) -> dict:
+    """One local step's node-stacked batch: tokens (n, 1, S + 1)."""
+    return {"tokens": next(make_fl_token_batches(cfg.vocab_size, n, 1, TRAIN_SEQ, q=1,
+                                                 seed=seed))["tokens"][0]}
+
+
+def model_grad_paths() -> dict:
+    """(t1) Full-width models at cut depth through the bundle's
+    node-batched ``loss_fn`` and the trainer's ``value_and_grad``: every
+    leaf's gradient on the card against the host CPU's from the same
+    params and tokens, none all zero; the launches of one gradient
+    evaluation (remat: each kernel twice a layer and node)."""
+    counts = {}
+    for arch, depth, dtypes in GRAD_MODELS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        kinds = cfg.effective_pattern
+        want = {}
+        for name, kind in (("flash_attention", ("attention", "local_attention")),
+                           ("wkv6", ("rwkv",)), ("rglru_scan", ("recurrent",))):
+            layers = sum(k in kind for k in kinds)
+            if layers:
+                want[name] = 2 * layers * GRAD_NODES
+        host = stack_for_nodes(build_model(cfg).init_fn(torch.Generator().manual_seed(3),
+                                                        device="cpu"), GRAD_NODES)
+        card = tree_map(lambda a: a.cuda(), host)
+        tokens = torch.as_tensor(token_batch(cfg, GRAD_NODES)["tokens"])
+        for dt in dtypes:
+            grad_fn = value_and_grad(build_model(
+                dataclasses.replace(cfg, compute_dtype=dt)).loss_fn)
+            zero_counts()
+            t0 = time.perf_counter()
+            losses, grads = grad_fn(card, {"tokens": tokens.cuda()})
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            expect_launches(f"{arch} x{depth} {dt} gradients", **want)
+            for name, count in want.items():
+                counts[name] = counts.get(name, 0) + count
+            t0 = time.perf_counter()
+            cpu_losses, cpu_grads = grad_fn(host, {"tokens": tokens})
+            cpu_s = time.perf_counter() - t0
+            tol = GRAD_TOL[getattr(torch, dt)]
+            rel = float(((losses.cpu() - cpu_losses).abs() / cpu_losses.abs()).max())
+            if rel > tol:
+                raise AssertionError(f"{arch} {dt}: losses {losses.tolist()} vs the CPU's "
+                                     f"{cpu_losses.tolist()}")
+            leaves = tree_leaves(grads)
+            errs = [_grad_err(f"{arch} x{depth} {dt} {'/'.join(map(str, p))}", g,
+                              c.cuda(), tol)
+                    for (p, g), (_, c) in zip(leaves, tree_leaves(cpu_grads))]
+            log(f"  {arch} at full width, {depth} layer(s) ({', '.join(kinds)}), {dt} "
+                f"compute, {GRAD_NODES} nodes x S {TRAIN_SEQ}: launches {want}; losses "
+                f"{[round(float(x), 4) for x in losses]} (CPU rel {rel:.2e}); all "
+                f"{len(leaves)} leaves' gradients nonzero and within {max(errs):.3e} of "
+                f"their scale of the host CPU's (tolerance {tol}); card {card_s:.1f} s, "
+                f"CPU {cpu_s:.1f} s")
+            del grads, cpu_grads, losses
+        del host, card
+        torch.cuda.empty_cache()
+    return counts
+
+
+def train_run(engine: str, nodes: int, device: str, params: dict, rounds: int):
+    """SmolLM-360M through ``train_decentralized``: FD-DSGT Q = 2 on a
+    ring, batch 1, S 128, the token stream of ``launch/train.py``."""
+    cfg = get_config(TRAIN_ARCH)
+    run = FLRunConfig(algorithm="dsgt", q=TRAIN_Q, topology="ring", n_nodes=nodes,
+                      batch_per_node=1, alpha0=TRAIN_ALPHA0)
+    stream = make_fl_token_batches(cfg.vocab_size, nodes, 1, TRAIN_SEQ, q=1, seed=0)
+    steps = ({k: v[0] for k, v in b.items()} for b in stream)
+    return train_decentralized(build_model(cfg).loss_fn, params, run, steps, rounds=rounds,
+                               engine=engine, device=device)
+
+
+def round_times(history) -> list:
+    """Host clock per round (the trainer's ``wall_s`` is cumulative and
+    each round ends reading its loss, a synchronization)."""
+    wall = [0.0] + list(history.column("wall_s"))
+    return [b - a for a, b in zip(wall, wall[1:])]
+
+
+def check_round_at(card: str, state, engine, n: int) -> dict:
+    """``fused_round_gt`` at (n, total) of the trained state: its first and
+    last two scale chunks (the last ones past 2^31 bytes into each buffer)
+    held against the twin on the same columns (every output of a chunk
+    depends only on that chunk's columns), then timed against its byte
+    bound."""
+    c = state.comm
+    g_prev = state.prev_grad * 0.5
+    bufs = (state.params, state.tracker, state.prev_grad, g_prev, c["recon"],
+            c["residual"], c["recon_t"], c["residual_t"])
+    chunk, total = engine.scale_chunk, state.params.shape[1]
+    w_off, w_self = engine.w_off, engine.w_self
+    got = fused_round_gt(*bufs, w_off, w_self, ALPHA, scale_chunk=chunk)
+    torch.cuda.synchronize()
+    last = total - 2 * chunk
+    for lo in (0, last):
+        cols = slice(lo, lo + 2 * chunk)
+        want = fused_round_gt_ref(*(b[:, cols].contiguous() for b in bufs), w_off, w_self,
+                                  ALPHA, scale_chunk=chunk)
+        for i, (a, b) in enumerate(zip(got, want)):
+            a = a[:, lo // chunk:lo // chunk + 2] if i >= 6 else a[:, cols]
+            if i < 2:
+                err = float((a - b).abs().max())
+                if err > 1e-5 * max(1.0, max(float(x[:, cols].abs().max()) for x in bufs)):
+                    raise AssertionError(f"fused_round_gt at ({n}, {total:,}) columns "
+                                         f"{lo}+: mixed off by {err}")
+            elif not torch.equal(a, b):
+                raise AssertionError(f"fused_round_gt at ({n}, {total:,}) columns {lo}+: "
+                                     f"output {i} differs from the twin")
+    del got, want
+    k_ms = device_ms(lambda: fused_round_gt(*bufs, w_off, w_self, ALPHA, scale_chunk=chunk),
+                     reps=10, warmup=2)
+    nbytes = round_bytes(n, total, chunk, 2)
+    bound_ms, bound_by = bound(nbytes, round_ops(n, total, chunk, 2, terms=mix_terms(w_off)))
+    log(f"  fused_round_gt at ({n}, {total:,}) = {n * total:,} elements a buffer "
+        f"({n * total * 4 / 1e9:.2f} GB): its first and last two chunks == the twin "
+        f"(recon/res/scales bitwise, mixed within 1e-5), so the offsets past 2^31 bytes "
+        f"land; kernel {k_ms * 1e3:.2f} us (median of 10), bound {bound_ms * 1e3:.2f} us "
+        f"by {bound_by} ({nbytes / 1e9:.2f} GB at {HBM_BYTES_S / 1e12:.2f} TB/s), "
+        f"{bound_ms / k_ms:.1%} of bound [{card}]")
+    return {"shape": [n, total], "ms": k_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def training_paths(card: str) -> dict:
+    """(t2) SmolLM-360M at full width and depth through
+    ``train_decentralized``: 3 FD-DSGT rounds on the tree engine (4
+    nodes), then 3 on the fused engine (2 nodes), each's round-1
+    ``local_loss`` (the init's loss, forward only) against the host
+    CPU's at full depth from the same init, then ``fused_round_gt`` at
+    (2, 361.8M); the launches, host clock, device operations and busy
+    share per round, peak memory."""
+    cfg = get_config(TRAIN_ARCH)
+    layers = cfg.n_layers
+    out = {"counts": {}, "rows": {}}
+    bundle = build_model(cfg)
+    host = bundle.init_fn(torch.Generator().manual_seed(4), device="cpu")
+    # each node's loss at the init on its first batch, on the host CPU: round
+    # 1's local_loss is their mean (node i's stream does not depend on n)
+    t0 = time.perf_counter()
+    first = token_batch(cfg, TREE_NODES)["tokens"]
+    with torch.no_grad():
+        cpu_init = [float(lm_loss(host, cfg, {"tokens": torch.as_tensor(first[i])},
+                                  remat=False)) for i in range(TREE_NODES)]
+    log(f"  the init's per-node losses on the host CPU at full depth: "
+        f"{[round(x, 5) for x in cpu_init]} ({time.perf_counter() - t0:.1f} s)")
+    for engine, nodes in (("tree", TREE_NODES), ("fused", FUSED_NODES)):
+        flash = TRAIN_ROUNDS * TRAIN_Q * nodes * layers * 2
+        want = {"flash_attention": flash}
+        if engine == "fused":
+            want["fused_round_gt"] = TRAIN_ROUNDS
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        res = train_run(engine, nodes, "cuda", tree_map(lambda a: a.cuda(), host),
+                        TRAIN_ROUNDS)
+        expect_launches(f"SmolLM-360M {engine} training", **want)
+        for name, count in want.items():
+            out["counts"][name] = out["counts"].get(name, 0) + count
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = list(res.history.column("loss"))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"SmolLM-360M {engine}: losses {losses}")
+        times = round_times(res.history)
+        step_ms = float(statistics.median(times[1:])) * 1e3
+        tokens_s = nodes * TRAIN_Q * TRAIN_SEQ / (step_ms / 1e3)
+        log(f"  SmolLM-360M ({cfg.param_count():,} params, {layers} layers) on {engine}, "
+            f"{nodes} nodes, FD-DSGT Q={TRAIN_Q}, S {TRAIN_SEQ}, {TRAIN_ROUNDS} rounds: "
+            f"launches {want}; losses {[round(float(x), 4) for x in losses]}; host clock "
+            f"per round {[round(float(t) * 1e3, 1) for t in times]} ms (median of rounds 2-{TRAIN_ROUNDS} "
+            f"{step_ms:.1f} ms, {tokens_s:,.0f} training tokens/s); peak memory "
+            f"{peak:.2f} GB [{card}]")
+        local = res.history.rows()[0]["local_loss"]
+        want_local = float(np.mean(cpu_init[:nodes]))
+        if abs(local - want_local) > TRAIN_LOSS_RTOL * abs(want_local):
+            raise AssertionError(f"SmolLM-360M {engine} round 1 local_loss: card {local} vs "
+                                 f"the host CPU's {want_local}")
+        log(f"  round 1's local_loss (the init params on each node's first batch), card vs "
+            f"host CPU at full depth: {local:.5f} vs {want_local:.5f} (tolerance "
+            f"{TRAIN_LOSS_RTOL} relative)")
+        prof = profile_round(card, res, engine, nodes, step_ms)
+        out["rows"][engine] = {"round_ms": step_ms, "tokens_s": tokens_s, "peak_gb": peak,
+                               **prof}
+        if engine == "fused":
+            out["rows"]["fused_round_gt"] = check_round_at(card, res.state, res.engine,
+                                                           nodes)
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_round(card: str, res, engine: str, nodes: int, step_ms: float) -> dict:
+    """One more round of the trained state under the profiler."""
+    cfg = get_config(TRAIN_ARCH)
+    fl = FLConfig(algorithm="dsgt", q=TRAIN_Q, n_nodes=nodes)
+    round_fn = make_fl_round(build_model(cfg).loss_fn, inv_sqrt(TRAIN_ALPHA0), fl, res.engine)
+    stream = make_fl_token_batches(cfg.vocab_size, nodes, 1, TRAIN_SEQ, q=TRAIN_Q, seed=9)
+    batch, state = next(stream), res.state
+
+    def one():
+        nonlocal state
+        state, _ = round_fn(state, batch)
+
+    prof = profile_device(one, 1, f"SmolLM-360M {engine} {nodes}-node", "round", step_ms,
+                          card)
+    res.state = state
+    return prof
+
+
+def serve_consensus_path() -> dict:
+    """(t3) ``examples/serve_consensus.py`` at full width: SmolLM-360M, 2
+    nodes, 4 rounds, publish every 2; the tokens served from the snapshots
+    equal an in-memory ``ServeEngine``'s on the consensus the trainer
+    published. The trainer thread launches flash and the round kernel,
+    the server the decode kernel: one writer a counter, read after the
+    trainer is joined."""
+    args = serve_consensus._parser().parse_args([
+        "--arch", TRAIN_ARCH, "--full", "--nodes", "2", "--rounds", "4",
+        "--publish-every", "2", "--device", "cuda"])
+    cfg = get_config(TRAIN_ARCH)
+    zero_counts()
+    result = serve_consensus.run(args, keep_published=True)
+    served = [r.shape[1] + args.new_tokens - 1 for r in result["requests"]]
+    warm = result["requests"][0].shape[1] + 2 - 1
+    want = {"flash_attention": args.rounds * args.q * args.nodes * cfg.n_layers * 2,
+            "fused_round_gt": args.rounds,
+            "decode_attention": cfg.n_layers * (sum(served) + warm)}
+    expect_launches("serve_consensus", **want)
+    held = serve_consensus.served_matches_in_memory(build_model(cfg), result, args)
+    rounds = sorted({rnd for _, rnd in result["outputs"]})
+    row = result["row"]
+    log(f"  serve_consensus (SmolLM-360M full width, 2 nodes, 4 rounds, publish every 2): "
+        f"launches {want}; losses {[round(x, 4) for x in result['losses']]}; "
+        f"{held} requests served from snapshot rounds {rounds} == an in-memory "
+        f"ServeEngine on the published consensus; {row['n_swaps']} hot swap(s), "
+        f"{row['tokens_per_s']:.1f} tokens/s")
+    shutil.rmtree(result["snap_dir"], ignore_errors=True)
+    del result
+    torch.cuda.empty_cache()
+    return want
+
+
+def training_counts(card: str) -> dict:
+    """(t1)-(t4) in order; their launches summed by kernel, and (t2)'s rows."""
+    counts = model_grad_paths()
+    section("  -- (t2) SmolLM-360M at full width and depth")
+    t2 = training_paths(card)
+    section("  -- (t3) serve_consensus at full width")
+    t3 = serve_consensus_path()
+    section("  -- (t4) the entry points: launch/train.py and quickstart")
+    t4 = entry_point_paths()
+    for part in (t2["counts"], t3, t4):
+        for name, count in part.items():
+            counts[name] = counts.get(name, 0) + count
+    return {"counts": counts, "rows": t2["rows"]}
+
+
+def entry_point_paths() -> dict:
+    """(t4) ``launch/train.py`` at its defaults (the TinyLlama smoke config,
+    8 nodes, tree engine, 20 rounds of Q = 4) and with ``--fl-engine fused
+    --fl-staleness-depth 2``, then ``examples/quickstart.py`` (25 rounds,
+    then ``ServeEngine.generate``); each called in this process, so its
+    launches count."""
+    counts = {}
+    smoke = get_config("tinyllama-1.1b", smoke=True)
+    per_run = 20 * 4 * 8 * smoke.n_layers * 2
+    for extra, want in (([], {"flash_attention": per_run}),
+                        (["--fl-engine", "fused", "--fl-staleness-depth", "2"],
+                         {"flash_attention": per_run, "wire_stage_gt": 20})):
+        zero_counts()
+        rec = train_launcher.main(["--arch", "tinyllama-1.1b", "--device", "cuda", *extra])
+        expect_launches(f"launch/train.py {extra}", **want)
+        if not (math.isfinite(rec["loss_last"]) and rec["loss_last"] < rec["loss_first"]):
+            raise AssertionError(f"launch/train.py {extra}: loss {rec['loss_first']} -> "
+                                 f"{rec['loss_last']}")
+        log(f"  launch/train.py {' '.join(extra) or '(defaults)'}: launches {want}; "
+            f"fl_schedule {rec['fl_schedule']}, loss {rec['loss_first']:.4f} -> "
+            f"{rec['loss_last']:.4f}, {rec['wall_s']} s")
+        for name, count in want.items():
+            counts[name] = counts.get(name, 0) + count
+    zero_counts()
+    qs = quickstart.main(["--device", "cuda"])
+    want = {"flash_attention": 25 * 4 * 8 * smoke.n_layers * 2,
+            "decode_attention": (8 + 8 - 1) * smoke.n_layers}
+    expect_launches("quickstart", **want)
+    losses = qs["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] - 0.3):
+        raise AssertionError(f"quickstart: losses {losses}")
+    log(f"  quickstart: launches {want}; loss {losses[0]:.3f} -> {losses[-1]:.3f} "
+        f"(the reference's bar: a fall of more than 0.3)")
+    for name, count in want.items():
+        counts[name] = counts.get(name, 0) + count
+    return counts
+
+
 def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
     """Median device time of one call, from CUDA events. A spin kernel
     ahead of each call holds the stream while the host enqueues the
@@ -2966,7 +3404,7 @@ def main() -> int:
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    log("phase 1: build")
+    section("phase 1: build")
     t0 = time.perf_counter()
     libs = kbuild.build_all()
     log(f"  built {sorted(name for _, name in libs)} in {time.perf_counter() - t0:.1f} s")
@@ -2977,47 +3415,51 @@ def main() -> int:
                 log(f"      {kernel}: {regs} registers, spill stores {spill_st} B, "
                     f"spill loads {spill_ld} B")
 
-    log("phase 2: kernels vs twins on the card")
+    section("phase 2: kernels vs twins on the card")
     max_err = {**check_gossip_mix(), **check_kernels(), **check_wire_stages(),
                **check_compact_stages(), **check_attention_kernels(),
                **check_scan_kernels()}
     check_dp_epilogue()
 
-    log("phase 3: paths (launches counted per run)")
+    section("phase 3: paths (launches counted per run)")
     launches = main_path()
     launches.update(stale_paths(launches.pop("sequential_losses")))
+    section("  -- Fig. 2 and the compressed path")
     fig2_path()
     launches.update(compressed_path())
-    log("  -- the dynamic rounds (topology and node programs)")
+    section("  -- the dynamic rounds (topology and node programs)")
     for name, count in dynamic_paths().items():
         launches[name] += count
+    section("  -- the staleness, churn and straggler drivers")
     driver_paths()
-    log("  -- the sharded engine on a one-rank NCCL group")
+    section("  -- the sharded engine on a one-rank NCCL group")
     group = start_group(0, 1, os.path.join(tempfile.mkdtemp(), "store"), device="cuda")
     launches.update(sharded_path(group))
     sharded_quadratic(group)
-    log("  -- the sharded dynamic round (h) and the privacy axis (i)-(k)")
+    section("  -- the sharded dynamic round (h) and the privacy axis (i)-(k)")
     cpu_group = NodeGroup(dist.new_group(backend="gloo"), 0, 1, torch.device("cpu"))
     for counts in (sharded_dynamic_path(group, cpu_group), privacy_fused_path(),
                    privacy_driver_path(), sharded_dp_path(group)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
-    log("  -- the federation scope (s1)-(s4), checkpoints and snapshots")
+    section("  -- the federation scope (s1)-(s4), checkpoints and snapshots")
     for counts in (scope_paths(group), checkpoint_paths(group), snapshot_serving_path()):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
+    section("  -- serving SmolLM-360M")
     serve = serving_path()
     for name in ("decode_attention", "flash_attention", "decode_attention_combine"):
         launches[name] = launches.get(name, 0) + serve[name]
     recurrent = {}
     for arch in RECURRENT_ARCHS:
-        log(f"  -- {arch}")
+        section(f"  -- {arch}")
         recurrent[arch] = recurrent_serving_path(arch)
     launches.update(wkv6=recurrent["rwkv6-7b"]["wkv6"],
                     rglru_scan=recurrent["recurrentgemma-2b"]["rglru_scan"])
 
-    log("phase 4: times (CUDA events, median of 60 after warm-up)")
+    section("phase 4: times (CUDA events, median of 60 after warm-up)")
     floor_ms = launch_floor(card)
+    section("  -- round kernels and round profiles")
     rows = timings(card, floor_ms)
     compact = compact_timings(card, group, floor_ms)
     rows["rounds"].update(compact.pop("rounds"))
@@ -3025,13 +3467,24 @@ def main() -> int:
     rows["rounds"].update(axis_timings(card, group))
     rows["rounds"].update(scope_timings(card))
     stop_group(group)
+    section("  -- attention and scan kernels")
     rows.update(attention_timings(card))
     rows.update(scan_timings(card, floor_ms))
+    section("  -- decode step profiles")
     rows["serving"] = decode_step_profile(card, serve["engine"], serve["prompts"], SERVE_ARCH)
     del serve
     torch.cuda.empty_cache()
     for arch in RECURRENT_ARCHS:
         rows[arch] = recurrent_step_profile(card, arch)
+
+    section("phase 5: training the transformer (launches counted per run)")
+    section("  -- (t1) gradients on the card")
+    for name, err in check_kernel_grads().items():
+        log(f"  {name}: gradient max err {err:.3e} of scale against autograd through "
+            "its twin")
+    train = training_counts(card)
+    for name, count in train.pop("counts").items():
+        launches[name] = launches.get(name, 0) + count
 
     kernels = []
     for name, (_, _, _, replaces, source) in ALL_KERNELS.items():
@@ -3043,6 +3496,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
         })
+        if name == "fused_round_gt":  # at the fused training run's (2, 361.8M)
+            kernels[-1]["training_shape"] = train["rows"]["fused_round_gt"]
     for name, (_, _, _, replaces, source) in COMPACT_KERNELS.items():
         row = rows[(name, "main")]
         kernels.append({
@@ -3085,6 +3540,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
         })
+    section("all phases done")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

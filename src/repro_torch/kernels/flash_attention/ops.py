@@ -9,6 +9,14 @@ fallback: a CUDA call that cannot launch raises. The wrapper allocates
 the output, launches on the current stream without synchronizing, and
 raises if the launch reports an error. It counts the launches of both
 kernels in ``flash_attention.launches`` (twin calls do not count).
+
+``flash_attention`` is differentiable (:class:`FlashAttention`, a
+``torch.autograd.Function``): its forward is the dispatch above, its
+backward ``ref.attention_backward``, the closed-form gradient in plain
+PyTorch, the same code on every device. It saves q, k, v and the output
+and recomputes the probabilities; no kernel runs in the backward (the
+reference's Pallas kernel defines no VJP; a hand backward kernel is
+later work, ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
@@ -20,9 +28,9 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import BASE_FLAGS, KernelLibraries
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_backward, attention_ref
 
-__all__ = ["flash_attention", "check_kernel_operands", "HEAD_DIMS", "LIBS", "SOURCES",
+__all__ = ["flash_attention", "FlashAttention", "check_kernel_operands", "HEAD_DIMS", "LIBS", "SOURCES",
            "SMEM_LIMIT_BYTES"]
 
 LIBS = KernelLibraries(Path(__file__).resolve().parent, BASE_FLAGS)
@@ -91,8 +99,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q (B, Sq, H, hd); k, v (B, Sk, K, hd) with K dividing H, q's dtype
     (float32 or bfloat16); hd 64, 128 or 256. Returns (B, Sq, H, hd) in q's
-    dtype."""
+    dtype. Differentiable in q, k and v (:class:`FlashAttention`)."""
     _check(q, k, v, window)
+    return FlashAttention.apply(q, k, v, bool(causal), int(window))
+
+
+class FlashAttention(torch.autograd.Function):
+    """The dispatch forward (:func:`_forward`) with the closed-form
+    plain-PyTorch backward (``ref.attention_backward``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, d_out, causal=ctx.causal,
+                                        window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """The twin on CPU tensors, the dtype's hand kernel on CUDA ones."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     check_kernel_operands(q=q, k=k, v=v)

@@ -8,6 +8,14 @@ raises. Any S >= 1 and any width W take the same path. The wrapper
 allocates the outputs, launches on the current stream without
 synchronizing, and raises if the launch reports an error. It counts its
 kernel launches in ``rglru_scan.launches`` (twin calls do not count).
+
+``rglru_scan`` is differentiable in log_a, b and h0 (:class:`RGLRUScan`,
+a ``torch.autograd.Function``): its forward is the dispatch above, its
+backward ``ref.rglru_backward``, the closed-form gradient in plain
+PyTorch, the same code on every device, from the saved log_a, h0 and
+output h. No kernel runs in the backward (the reference's Pallas kernel
+defines no VJP; a hand backward kernel is later work, ROADMAP.md queue
+2).
 """
 
 from __future__ import annotations
@@ -20,9 +28,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.build import BASE_FLAGS, KernelLibraries
-from repro_torch.kernels.rglru_scan.ref import rglru_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_backward, rglru_ref
 
-__all__ = ["rglru_scan", "LIBS"]
+__all__ = ["rglru_scan", "RGLRUScan", "LIBS"]
 
 LIBS = KernelLibraries(Path(__file__).resolve().parent, BASE_FLAGS)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -62,8 +70,30 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
                h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``h_t = exp(log_a_t) h_{t-1} + b_t`` per channel: log_a (<= 0) and b
     (B, S, W) fp32, h0 (B, W) fp32, S >= 1. Returns (h (B, S, W), h_last
-    (B, W)), both fp32."""
+    (B, W)), both fp32. Differentiable in log_a, b and h0
+    (:class:`RGLRUScan`)."""
     _check(log_a, b, h0)
+    return RGLRUScan.apply(log_a, b, h0)
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The dispatch forward (:func:`_forward`) with the closed-form
+    plain-PyTorch backward (``ref.rglru_backward``)."""
+
+    @staticmethod
+    def forward(ctx, log_a, b, h0):
+        h, h_last = _forward(log_a, b, h0)
+        ctx.save_for_backward(log_a, h0, h)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        log_a, h0, h = ctx.saved_tensors
+        return rglru_backward(log_a, h, h0, dh, dh_last)
+
+
+def _forward(log_a, b, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The twin on CPU tensors, the hand kernel on CUDA ones."""
     if log_a.device.type == "cpu":
         return rglru_ref(log_a, b, h0)
     for name, t in (("log_a", log_a), ("b", b), ("h0", h0)):

@@ -11,6 +11,14 @@ runs, so each must be 16-byte aligned (fresh tensors are). The wrapper allocates
 stream without synchronizing, and raises if the launch reports an error.
 It counts its kernel launches in ``wkv6.launches`` (twin calls do not
 count).
+
+``wkv6`` is differentiable in all six operands (:class:`WKV6`, a
+``torch.autograd.Function``): its forward is the dispatch above, its
+backward ``ref.wkv6_backward``, the closed-form gradient in plain
+PyTorch, the same code on every device, from the saved operands (the
+states are recomputed). No kernel runs in the backward (the reference's
+Pallas kernel defines no VJP; a hand backward kernel is later work,
+ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
@@ -23,9 +31,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.build import BASE_FLAGS, KernelLibraries
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_backward, wkv6_ref
 
-__all__ = ["wkv6", "check_kernel_operands", "HEAD_SIZE", "LIBS"]
+__all__ = ["wkv6", "WKV6", "check_kernel_operands", "HEAD_SIZE", "LIBS"]
 
 LIBS = KernelLibraries(Path(__file__).resolve().parent, BASE_FLAGS)
 #: the one head size the kernel holds a state for
@@ -81,17 +89,55 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
          u: torch.Tensor, s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """WKV-6 in the model layout: r, k, v, log_w (B, S, H, 64) fp32 (log_w
     <= 0, the log of the decay); u (H, 64); s0 (B, H, 64, 64); S >= 1.
-    Returns (y (B, S, H, 64), S_final (B, H, 64, 64)), both fp32."""
+    Returns (y (B, S, H, 64), S_final (B, H, 64, 64)), both fp32.
+    Differentiable in every operand (:class:`WKV6`)."""
     _check(r, k, v, log_w, u, s0)
+    return WKV6.apply(r, k, v, log_w, u, s0)
+
+
+def _fold(a: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B*H, S, hd), the twin's layout."""
+    b, s, h, hd = a.shape
+    return a.transpose(1, 2).reshape(b * h, s, hd)
+
+
+def _unfold(a: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    """(B*H, S, hd) -> (B, S, H, hd)."""
+    return a.reshape(b, h, *a.shape[1:]).transpose(1, 2)
+
+
+class WKV6(torch.autograd.Function):
+    """The dispatch forward (:func:`_forward`) with the closed-form
+    plain-PyTorch backward (``ref.wkv6_backward``) in the twin's folded
+    layout; u's gradient is summed over the batch."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, s0):
+        ctx.save_for_backward(r, k, v, log_w, u, s0)
+        return _forward(r, k, v, log_w, u, s0)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, log_w, u, s0 = ctx.saved_tensors
+        b, _, h, hd = r.shape
+        grads = wkv6_backward(_fold(r), _fold(k), _fold(v), _fold(log_w),
+                              u[None].expand(b, h, hd).reshape(b * h, hd),
+                              s0.reshape(b * h, hd, hd), _fold(dy),
+                              ds.reshape(b * h, hd, hd))
+        dr, dk, dv, dlw, du, ds0 = grads
+        return (_unfold(dr, b, h), _unfold(dk, b, h), _unfold(dv, b, h),
+                _unfold(dlw, b, h), du.reshape(b, h, hd).sum(0),
+                ds0.reshape(b, h, hd, hd))
+
+
+def _forward(r, k, v, log_w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The twin on CPU tensors, the hand kernel on CUDA ones."""
     b, s, h, hd = r.shape
     if r.device.type == "cpu":
-        def fold(a):
-            return a.transpose(1, 2).reshape(b * h, s, hd)
-
-        y, s_fin = wkv6_ref(fold(r), fold(k), fold(v), fold(log_w),
+        y, s_fin = wkv6_ref(_fold(r), _fold(k), _fold(v), _fold(log_w),
                             u[None].expand(b, h, hd).reshape(b * h, hd),
                             s0.reshape(b * h, hd, hd))
-        return y.reshape(b, h, s, hd).transpose(1, 2), s_fin.reshape(b, h, hd, hd)
+        return _unfold(y, b, h), s_fin.reshape(b, h, hd, hd)
     check_kernel_operands(r=r, k=k, v=v, log_w=log_w, u=u, s0=s0)
     y = torch.empty_like(r)
     s_fin = torch.empty_like(s0)

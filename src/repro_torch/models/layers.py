@@ -5,7 +5,10 @@ reference's pytrees, so packing and conversion see the same leaves.
 
 Matmul operands are cast to ``compute_dtype`` (bf16 for the transformer)
 while parameters stay in their storage dtype (fp32); norm statistics and
-the rotation run in fp32 and cast back, as in the reference.
+the rotation run in fp32 and cast back, as in the reference. The
+training loss (:func:`chunked_softmax_xent`) never holds more than one
+sequence chunk's logits: each chunk is recomputed in the backward pass
+(``torch.utils.checkpoint``), as the reference's scan keeps one chunk's.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "normal_init",
@@ -28,6 +32,8 @@ __all__ = [
     "embed_init",
     "embed_lookup",
     "unembed_logits",
+    "softmax_xent",
+    "chunked_softmax_xent",
 ]
 
 
@@ -136,3 +142,61 @@ def unembed_logits(table: torch.Tensor, h: torch.Tensor,
                    compute_dtype=torch.bfloat16) -> torch.Tensor:
     """h (..., d) @ table^T (v, d) -> (..., v)."""
     return torch.matmul(h.to(compute_dtype), table.to(compute_dtype).T)
+
+
+def _mask_padded_vocab(logits: torch.Tensor, valid_vocab: int) -> torch.Tensor:
+    """fp32 logits with the padded vocab ids (>= ``valid_vocab``) at -1e30."""
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(vocab < valid_vocab, logits, -1e30)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 valid_vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32; padded vocab ids are masked out."""
+    lf = logits.float()
+    if valid_vocab is not None and valid_vocab < lf.shape[-1]:
+        lf = _mask_padded_vocab(lf, valid_vocab)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def _xent_chunk(table: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
+                valid_vocab: int, compute_dtype) -> torch.Tensor:
+    """The summed cross-entropy of one (B, chunk) slice over its valid
+    labels (>= 0). The gold logit is a masked sum over the vocab, as the
+    reference's (a gather there would all-gather vocab-sharded logits)."""
+    logits = _mask_padded_vocab(unembed_logits(table, h, compute_dtype).float(),
+                                valid_vocab)
+    logz = torch.logsumexp(logits, dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.sum(torch.where(vocab == labels[..., None], logits, 0.0), dim=-1)
+    valid = (labels >= 0).float()
+    return torch.sum((logz - gold) * valid)
+
+
+def chunked_softmax_xent(table: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
+                         valid_vocab: int, chunk: int = 512,
+                         compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Mean cross-entropy of ``h (B, S, d) @ table^T`` against ``labels
+    (B, S)`` over the labels >= 0, without (B, S, V) logits.
+
+    The sequence is padded to a multiple of ``chunk`` (pad labels -1), as
+    the reference pads before its scan, and each chunk's loss runs under
+    ``torch.utils.checkpoint``: autograd keeps a chunk's inputs, and the
+    backward pass recomputes its (B, chunk, V) logits, so the peak holds
+    one chunk's logits at a time."""
+    b, s, _ = h.shape
+    if s % chunk:
+        pad = chunk - s % chunk
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+        s += pad
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, s, chunk):
+        hc, lc = h[:, c:c + chunk], labels[:, c:c + chunk]
+        loss_sum = loss_sum + checkpoint(_xent_chunk, table, hc, lc, valid_vocab,
+                                         compute_dtype, use_reentrant=False)
+        count = count + (lc >= 0).float().sum()
+    return loss_sum / torch.clamp(count, min=1.0)

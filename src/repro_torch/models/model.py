@@ -2,12 +2,18 @@
 ``repro.models.model``), for the dense, ``ssm`` (RWKV6) and ``hybrid``
 (RecurrentGemma) decoder-only families.
 
-The bundle is the integration surface the serving engine consumes. The
-reference's ``impl`` argument is gone: the port's attention and
-recurrence kernels dispatch by device, so its ``"ref"``, ``"flash"``,
-``"blocked"``, ``"decode_kernel"`` and ``"pallas"`` paths are one path
-here. ``remat`` and ``loss_fn`` belong to training, which waits for the
-port's training slice; the sharding specs wait for the multi-GPU engine.
+The bundle is the integration surface the trainer and the serving
+engine consume. The reference's ``impl`` argument is gone: the port's
+attention and recurrence kernels dispatch by device, so its ``"ref"``,
+``"flash"``, ``"blocked"``, ``"decode_kernel"`` and ``"pallas"`` paths
+are one path here. The sharding specs wait for the multi-GPU engine.
+
+``loss_fn`` is NODE-BATCHED, the port trainer's ``core.fl.LossFn``:
+params with (n, ...) leaves and a batch with (n, ...) leaves in, the n
+per-node losses out. It loops over the node axis, running the
+single-node ``lm_loss`` on ``params[i]`` and ``batch[i]`` (the
+reference vmaps the single-node loss), so the kernels launch once per
+node and autograd of the summed losses gives each node its own gradient.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.fl import tree_map
 from repro_torch.models import transformer as tfm
 
 __all__ = ["ModelBundle", "build_model"]
@@ -38,7 +45,7 @@ class ModelBundle:
         return self.init_fn(None, device="meta")
 
 
-def build_model(cfg: ModelConfig) -> ModelBundle:
+def build_model(cfg: ModelConfig, remat: bool = True) -> ModelBundle:
     if cfg.family == "audio":
         raise NotImplementedError(
             "the audio (enc-dec) family is not ported yet (ROADMAP.md queue 1 item 16)")
@@ -48,9 +55,11 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
         return tfm.init_params(cfg, generator, device)
 
     def loss_fn(params, batch):
-        raise NotImplementedError(
-            "training the transformer (lm_loss) is not ported yet (ROADMAP.md "
-            "queue 1 item 16): the port serves its models only")
+        n = next(iter(batch.values())).shape[0]
+        return torch.stack([
+            tfm.lm_loss(tree_map(lambda a, i=i: a[i], params), cfg,
+                        {key: b[i] for key, b in batch.items()}, remat=remat)
+            for i in range(n)])
 
     def prefill_fn(params, batch):
         return tfm.prefill(params, cfg, batch)

@@ -2,8 +2,8 @@
 (counterpart of ``repro.models.transformer``): dense (pre-norm GQA
 attention + SwiGLU blocks), RWKV6 (``ssm``: a homogeneous stack of
 ``rwkv`` blocks) and RecurrentGemma (``hybrid``: a repeating pattern of
-``recurrent`` RG-LRU and ``local_attention`` blocks), with forward
-(prefill) and one-token decode.
+``recurrent`` RG-LRU and ``local_attention`` blocks), with the training
+loss (:func:`lm_loss`), forward (prefill) and one-token decode.
 
 Parameters are nested dicts (and lists) with the reference's storage
 layouts, so a reference tree converts leaf for leaf
@@ -19,8 +19,19 @@ layouts, so a reference tree converts leaf for leaf
 
 The reference scans over the stacked axes; the port loops over layers,
 reading each layer's tree through :func:`_layer_params`. MoE blocks
-raise ``NotImplementedError`` naming their ROADMAP.md item. Training
-(``lm_loss``, remat) waits for the port's training slice.
+raise ``NotImplementedError`` naming their ROADMAP.md item.
+
+Training: :func:`lm_loss` is the reference's next-token cross-entropy
+over the chunked unembedding (``layers.chunked_softmax_xent``) plus
+``router_aux_coef`` times the blocks' aux loss. With ``remat`` (the
+default) :func:`forward_hidden` runs each layer under
+``torch.utils.checkpoint`` (non-reentrant), where the reference wraps
+each scanned layer or period in ``jax.checkpoint``: backward keeps each
+layer's input and recomputes the layer, so the attention kernel
+launches twice a layer and step, once forward and once in the
+recompute. The kernels' wrappers are ``torch.autograd.Function``s whose
+backward is plain PyTorch, so every parameter reaches its gradient on
+the card as on the CPU.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fl import tree_map
@@ -36,6 +48,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (
+    chunked_softmax_xent,
     embed_init,
     embed_lookup,
     rmsnorm,
@@ -48,6 +61,7 @@ from repro_torch.models.layers import (
 __all__ = [
     "init_params",
     "forward_hidden",
+    "lm_loss",
     "prefill",
     "decode_step",
     "init_decode_state",
@@ -122,8 +136,8 @@ def init_block(generator, cfg: ModelConfig, kind: str, device=None, lead=()) -> 
 
 def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence (prefill) block, forward only, from zero recurrent
-    states. Returns (x, aux loss), the aux loss 0 for every ported kind."""
+    """Full-sequence (train / prefill) block from zero recurrent states.
+    Returns (x, aux loss), the aux loss 0 for every ported kind."""
     _check_kind(kind)
     cd, eps = _cdtype(cfg), cfg.norm_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -218,13 +232,54 @@ def _table(params: Dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward_hidden(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Embedded inputs (B,S,d) -> final hidden (B,S,d), total aux loss."""
+                   positions: torch.Tensor,
+                   remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Embedded inputs (B,S,d) -> final hidden (B,S,d), total aux loss.
+    ``remat`` runs each layer under non-reentrant activation
+    checkpointing (the layers draw no random numbers, so no RNG state is
+    kept)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(check_kinds(cfg)):
-        x, a = apply_block_train(_layer_params(params, cfg, i), kind, cfg, x, positions)
+        args = (_layer_params(params, cfg, i), kind, cfg, x, positions)
+        if remat:
+            x, a = checkpoint(apply_block_train, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = apply_block_train(*args)
         aux = aux + a
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def _embed_inputs(params: Dict, cfg: ModelConfig,
+                  batch: Dict) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(embedded (B,S,d), positions (B,S), labels (B,S)) of a training
+    batch: ``tokens`` (B, S+1) split into inputs and next-token labels;
+    a stubbed frontend's ``prefix_embeds`` (B, P, d) go first, with -1
+    (ignored) labels."""
+    cd = _cdtype(cfg)
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    emb = embed_lookup(params["embed"], inputs, cd)
+    if cfg.frontend != "none" and "prefix_embeds" in batch:
+        pre = batch["prefix_embeds"].to(cd)
+        emb = torch.cat([pre, emb], dim=1)
+        labels = torch.cat([torch.full(pre.shape[:2], -1, dtype=labels.dtype,
+                                       device=labels.device), labels], dim=1)
+    b, s, _ = emb.shape
+    positions = torch.arange(s, dtype=torch.int32, device=emb.device)[None].expand(b, s)
+    return emb, positions, labels
+
+
+def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, remat: bool = True,
+            loss_chunk: int = 512) -> torch.Tensor:
+    """Next-token cross-entropy (mean over the valid tokens) plus the
+    blocks' aux loss times ``router_aux_coef``, for one node's params and
+    batch (``tokens`` (B, S+1))."""
+    emb, positions, labels = _embed_inputs(params, cfg, batch)
+    h, aux = forward_hidden(params, cfg, emb, positions, remat)
+    loss = chunked_softmax_xent(_table(params, cfg), h, labels, cfg.vocab_size,
+                                chunk=loss_chunk, compute_dtype=_cdtype(cfg))
+    return loss + cfg.router_aux_coef * aux
 
 
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -238,7 +293,7 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor, 
         emb = torch.cat([batch["prefix_embeds"].to(cd), emb], dim=1)
     b, s, _ = emb.shape
     positions = torch.arange(s, dtype=torch.int32, device=emb.device)[None].expand(b, s)
-    h, _ = forward_hidden(params, cfg, emb, positions)
+    h, _ = forward_hidden(params, cfg, emb, positions, remat=False)
     return unembed_logits(_table(params, cfg), h[:, -1], cd), h[:, -1]
 
 

@@ -148,16 +148,21 @@ def train_decentralized(
     run: FLRunConfig,
     step_batches: Iterator[Dict[str, np.ndarray]],
     rounds: int,
+    eval_fn: Optional[Callable[[Tree], Dict[str, float]]] = None,
+    eval_every: int = 50,
+    log_every: int = 0,
     wire_dtype=None,
     engine: str = "tree",
     scale_chunk: int = 512,
     topk: Optional[int] = None,
     round_schedule: Optional[str] = None,
+    storage_dtype=None,
     topk_schedule: Optional[Tuple[int, ...]] = None,
     staleness_depth: Optional[int] = None,
     robust_alpha: bool = False,
     topology_program: Optional[str] = None,
     node_program: Optional[str] = None,
+    privacy: Optional[str] = None,
     scope: Optional[str] = None,
     device=None,
 ) -> TrainResult:
@@ -177,7 +182,14 @@ def train_decentralized(
     engines refuse it. ``scale_chunk`` / ``topk`` set the fused engine's
     int8 / top-k wire (``scale_chunk`` also pads the flat buffer).
     Engines that do not account their wire bytes (the exact wire) are
-    charged ``comm_bytes_per_gossip`` per round.
+    charged ``comm_bytes_per_gossip`` per round. ``storage_dtype`` is
+    handed to the engine (only fp32 flat storage is ported; bf16 is
+    refused naming its ROADMAP.md item).
+
+    ``eval_fn(consensus) -> {name: value}`` runs on the consensus tree at
+    every round ``rnd`` with ``rnd % eval_every == 0`` and at the last
+    round; its values join that round's row as ``eval_<name>``.
+    ``log_every > 0`` prints one line every ``log_every`` rounds.
 
     ``round_schedule`` is a schedule spec ("sequential", "pipelined",
     "bounded_staleness:k=K"); ``staleness_depth=k`` is sugar for it (0 =
@@ -204,6 +216,11 @@ def train_decentralized(
     the shared columns; pair it with a ``scale_chunk`` that does not pad
     the shared slice back to the full width. ``tree`` and ``flat``
     refuse partial scopes.
+
+    ``privacy`` is a ``core.privacy`` spec such as
+    ``"dp:sigma=0.5,clip=1.0"`` (per-node clip and Gaussian noise on the
+    wire; the history gains ``dp_epsilon``) or ``"secure_agg"``; the
+    engines that cannot apply it refuse it with the reference's message.
 
     ``topk_schedule = (k_sparse, k_dense, densify_high[, resparsify_low])``
     runs the adaptive-k wire (:class:`AdaptiveTopK`): two round functions,
@@ -234,8 +251,9 @@ def train_decentralized(
         wire_dtype = run.wire_dtype
     build = get_engine(engine).simulated
     kw = dict(wire_dtype=wire_dtype, scale_chunk=scale_chunk,
-              round_schedule=round_schedule, topology_program=topology_program,
-              node_program=node_program, scope=scope)
+              round_schedule=round_schedule, storage_dtype=storage_dtype,
+              topology_program=topology_program, node_program=node_program,
+              privacy=privacy, scope=scope)
     engine, params0 = build(w, stacked, topk=topk, **kw)
     schedule = make_schedule(run)
     if robust_alpha:
@@ -276,14 +294,23 @@ def train_decentralized(
             alpha=float(m["alpha"]),
             wall_s=time.time() - t0,
         )
-        for k in ("edge_fraction", "payload_fraction", "compute_fraction"):
+        for k in ("edge_fraction", "payload_fraction", "compute_fraction",
+                  "dp_epsilon"):
             if k in m:
                 row[k] = float(m[k])
         if adaptive is not None:
             row["topk"] = float(adaptive.current_k)
             row["ef_residual_rms"] = float(m["ef_residual_rms"])
             adaptive.update(row["ef_residual_rms"])
+        if eval_fn is not None and (rnd % eval_every == 0 or rnd == rounds):
+            row.update({f"eval_{k}": v
+                        for k, v in eval_fn(_consensus(engine, state)).items()})
         history.append(**row)
+        if log_every and rnd % log_every == 0:
+            print(
+                f"[round {rnd:5d}] it={row['iteration']:6d} loss={row['loss']:.4f} "
+                f"cons={row['consensus_err']:.3e} gnorm2={row['grad_norm_sq']:.3e}"
+            )
     return TrainResult(state=state, history=history,
                        consensus=_consensus(engine, state), w=w, engine=engine)
 

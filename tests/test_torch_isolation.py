@@ -66,7 +66,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.examples.serve_decode, repro_torch.convert, "
             "repro_torch.launch.mesh, repro_torch.core, "
             "repro_torch.benchmarks.churn_ehr, repro_torch.benchmarks.staleness_ehr, "
-            "repro_torch.benchmarks.straggler_ehr; "
+            "repro_torch.benchmarks.straggler_ehr, repro_torch.launch.train, "
+            "repro_torch.examples.quickstart, repro_torch.examples.serve_consensus, "
+            "repro_torch.examples.train_100m, repro_torch.benchmarks.serve_load, "
+            "repro_torch.data.tokens; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

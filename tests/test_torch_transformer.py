@@ -159,8 +159,10 @@ def test_sliding_override_uses_a_window_ring_buffer():
 
 def test_unported_families_raise():
     """What stays unported: an unported arch id, MoE blocks (a moe
-    config, and a moe layer in a hybrid pattern), the audio (enc-dec)
-    family and training."""
+    config, and a moe layer in a hybrid pattern) and the audio (enc-dec)
+    family. Training is ported: the bundle's node-batched ``loss_fn``
+    gives one loss a node (``tests/test_torch_lm_loss.py`` holds it to the
+    reference)."""
     from repro_torch.configs.base import ModelConfig
 
     with pytest.raises(NotImplementedError, match="item 16"):
@@ -176,8 +178,12 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="enc-dec"):
         build_model(ModelConfig(name="a", family="audio", n_layers=1, d_model=64,
                                 n_heads=1, n_kv_heads=1, d_ff=64, vocab_size=64))
-    with pytest.raises(NotImplementedError, match="training"):
-        build_model(base).loss_fn({}, {})
+    from repro_torch.core.fl import tree_map
+
+    params = build_model(base).init_fn(torch.Generator().manual_seed(0), device="cpu")
+    losses = build_model(base).loss_fn(tree_map(lambda a: a[None], params),
+                                       {"tokens": torch.zeros((1, 1, 9), dtype=torch.long)})
+    assert losses.shape == (1,) and torch.isfinite(losses).all()
 
 
 def test_param_shapes_match_the_reference_tree():
