@@ -77,6 +77,19 @@ and last chunks and its byte bound; (t3) ``examples/serve_consensus.py``
 at full width, the served tokens equal to an in-memory engine's; (t4)
 ``launch/train.py`` at its defaults and on the fused engine at
 staleness depth 2, and ``examples/quickstart.py``, each loss falling.
+Phase 6 runs the rest of the model zoo at published widths: (z1)
+phi3-medium-14b, qwen2.5-32b, the MoE dbrx-132b and llama4-scout, the
+InternVL2-26B backbone (with its 1,024 prefix embeddings) at the depths
+one card holds, and whisper-medium whole (1,500 frames), each served by
+``generate`` and ``prefill_fn`` with its launches held, its decode step
+profiled; (z2) one arch per family against the host CPU at fp32 (tokens
+equal) and bf16, MoE routing compared choice by choice; (z3) one fp32
+gradient evaluation of llama4-scout (aux loss included) and whisper
+against the host CPU; (z4) the attention kernels at the zoo's shapes
+(head size 128 at GQA groups 4-6, whisper's non-causal encoder, its
+cross-attention and its 1,500-slot cross cache) timed against their
+twins, bounds and ``scaled_dot_product_attention``, after phase 2 held
+them to their twins.
 Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
@@ -192,6 +205,9 @@ from repro_torch.kernels.gossip.ref import (  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.mesh import NodeGroup, start_group, stop_group  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import encdec as encdec_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.mlp import make_mlp_loss, mlp_init  # noqa: E402
 from repro_torch.models.transformer import lm_loss  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
@@ -868,20 +884,47 @@ DECODE_SHAPES += [
     ("split 32k", 9, 32768, 15, 5, 64,
      [0, 1, 4095, 4096, 4097, 20000, 32768, "span", "span+1"]),
 ]
-# (label, B, S, H, K, hd, causal, window)
+DECODE_SHAPES += [
+    # the model zoo (phase 6): head size 128 with GQA groups of 6, 5 and 4
+    # (dbrx-132b / internvl2-26b, llama4-scout / qwen2.5-32b, phi3-medium)
+    # on the serving paths' 4096-slot caches -- groups 5 and 6 run in a
+    # q-head tile of 8 with 3 or 2 rows masked; whisper-medium's self cache
+    # (448 slots, group 1) and its 1,500-slot cross cache, off the 64-slot
+    # tiles, full on every row (the path) and ragged
+    ("zoo hd 128, group 6", 8, 4096, 48, 8, 128, [0, 1, 63, 64, 129, 159, 4095, 4096]),
+    ("zoo hd 128, group 5", 8, 4096, 40, 8, 128, [0, 1, 63, 64, 129, 159, 4095, 4096]),
+    ("zoo hd 128, group 4", 8, 4096, 40, 10, 128, [0, 1, 63, 64, 129, 159, 4095, 4096]),
+    ("whisper self", 8, 448, 16, 16, 64, [0, 1, 64, 159, 200, 447, 448, 100]),
+    ("whisper cross", 8, 1500, 16, 16, 64, [1500] * 8),
+    ("whisper cross ragged", 8, 1500, 16, 16, 64, [0, 1, 63, 64, 1471, 1472, 1499, 1500]),
+]
+# (label, B, Sq, Sk, H, K, hd, causal, window)
 FLASH_SHAPES = [
-    ("test causal, ragged", 2, 200, 2, 1, 64, True, 0),
-    ("test causal window, hd 128", 1, 160, 4, 4, 128, True, 48),
-    ("test window only", 1, 130, 4, 2, 64, False, 40),
-    ("smollm prefill", 8, 128, 15, 5, 64, True, 0),
-    ("smollm window", 8, 128, 15, 5, 64, True, 64),
+    ("test causal, ragged", 2, 200, 200, 2, 1, 64, True, 0),
+    ("test causal window, hd 128", 1, 160, 160, 4, 4, 128, True, 48),
+    ("test window only", 1, 130, 130, 4, 2, 64, False, 40),
+    ("smollm prefill", 8, 128, 128, 15, 5, 64, True, 0),
+    ("smollm window", 8, 128, 128, 15, 5, 64, True, 64),
     # hd 256: the reference suite's windowed case, RecurrentGemma-2B's
     # prefill (window 2048) and a window that cuts into it
-    ("test window, hd 256", 1, 384, 8, 2, 256, True, 128),
-    ("recurrentgemma prefill", 8, 128, 10, 1, 256, True, 2048),
-    ("recurrentgemma window 48", 8, 128, 10, 1, 256, True, 48),
+    ("test window, hd 256", 1, 384, 384, 8, 2, 256, True, 128),
+    ("recurrentgemma prefill", 8, 128, 128, 10, 1, 256, True, 2048),
+    ("recurrentgemma window 48", 8, 128, 128, 10, 1, 256, True, 48),
     # a 4,096-token prefill at SmolLM-360M's heads
-    ("smollm 4096", 2, 4096, 15, 5, 64, True, 0),
+    ("smollm 4096", 2, 4096, 4096, 15, 5, 64, True, 0),
+    # the model zoo (phase 6): the prefills at head size 128, groups 6, 5
+    # and 4; internvl2-26b's 1,024 prefix embeddings + 128 tokens;
+    # whisper-medium's encoder (non-causal, 1,500 frames: neither length a
+    # multiple of the 64-row tile), its decoder's cross-attention (128
+    # queries over 1,500 frames) and causal self-attention
+    ("zoo hd 128, group 6", 8, 128, 128, 48, 8, 128, True, 0),
+    ("zoo hd 128, group 5", 8, 128, 128, 40, 8, 128, True, 0),
+    ("zoo hd 128, group 4", 8, 128, 128, 40, 10, 128, True, 0),
+    ("internvl2 prefix + prompt", 8, 1152, 1152, 48, 8, 128, True, 0),
+    ("whisper encoder", 8, 1500, 1500, 16, 16, 64, False, 0),
+    ("whisper cross", 8, 128, 1500, 16, 16, 64, False, 0),
+    ("whisper cross ragged", 3, 77, 1499, 16, 16, 64, False, 0),
+    ("whisper self", 8, 128, 128, 16, 16, 64, True, 0),
 ]
 
 
@@ -925,17 +968,17 @@ def check_attention_kernels() -> dict:
                 f"hd {hd}, n_valid {nv}, {splits} split(s) of {span}) {str(dtype)[6:]}: "
                 f"max err {err:.3e}")
             del q, k, v, got
-        for label, b, sq, h, kv, hd, causal, window in FLASH_SHAPES:
+        for label, b, sq, sk, h, kv, hd, causal, window in FLASH_SHAPES:
             q = torch.randn(b, sq, h, hd, generator=gen, device="cuda").to(dtype)
-            k, v = (torch.randn(b, sq, kv, hd, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, sk, kv, hd, generator=gen, device="cuda").to(dtype)
                     for _ in range(2))
             got = flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             err = _attn_err("flash_attention", label, got,
                             attention_ref(q, k, v, causal=causal, window=window), dtype)
             max_err["flash_attention"] = max(max_err["flash_attention"], err)
-            log(f"  flash_attention == twin at {label} (B {b}, S {sq}, H {h}, K {kv}, "
-                f"hd {hd}, causal {causal}, window {window}) {str(dtype)[6:]}: "
+            log(f"  flash_attention == twin at {label} (B {b}, Sq {sq}, Sk {sk}, H {h}, "
+                f"K {kv}, hd {hd}, causal {causal}, window {window}) {str(dtype)[6:]}: "
                 f"max err {err:.3e}")
             del q, k, v, got
             torch.cuda.empty_cache()
@@ -2537,11 +2580,12 @@ TRAIN_ALPHA0 = 0.02
 TRAIN_LOSS_RTOL = 1e-2
 
 
-def _grad_err(what: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
-    """max|got - want| over max|want|; raises past ``tol``, on non-finite
-    values and on an all-zero gradient."""
+def _grad_err(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
+              scale=None) -> float:
+    """max|got - want| over max|want| (or over ``scale``); raises past
+    ``tol``, on non-finite values and on an all-zero gradient."""
     got, want = got.float(), want.float()
-    scale = float(want.abs().max())
+    scale = float(want.abs().max()) if scale is None else scale
     if not torch.isfinite(got).all() or got.shape != want.shape:
         raise AssertionError(f"{what}: gradient not finite or of shape {tuple(got.shape)}")
     if scale == 0.0 or float(got.abs().max()) == 0.0:
@@ -2997,6 +3041,14 @@ def profile_device(run, n: int, label: str, unit: str, host_ms: float, card: str
                  reverse=True)[:8]
     log(f"  host ops by self time per {unit}: " + ", ".join(
         f"{e.key} {e.self_cpu_time_total / n:.0f} us x{e.count / n:.0f}" for e in top))
+
+    def device_us(e) -> float:
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    on_card = sorted((e for e in prof.key_averages() if device_us(e) > 0), key=device_us,
+                     reverse=True)[:6]
+    log(f"  device time by op per {unit}: " + ", ".join(
+        f"{e.key[:48]} {device_us(e) / n:.0f} us x{e.count / n:.0f}" for e in on_card))
     return {"device_ops": len(spans) / n, "busy_ms": busy_ms}
 
 
@@ -3146,6 +3198,62 @@ def _same(what: str, got, want) -> None:
     _attn_err("scaled_dot_product_attention", what, got, want, torch.bfloat16)
 
 
+def decode_time_row(card: str, label: str, b: int, c: int, live: int, h: int, kv: int,
+                    hd: int, gen) -> dict:
+    """The decode kernel, its twin and ``scaled_dot_product_attention``
+    (GQA, a boolean mask of the live slots) at one bf16 shape, every row
+    ``live`` slots long."""
+    q = torch.randn(b, 1, h, hd, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, c, kv, hd, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    n_valid = torch.full((b,), live, dtype=torch.int32, device="cuda")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(c, device="cuda") < live)[None, None, None, :]
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    _same(f"decode {label}", lib().transpose(1, 2), decode_attention_ref(q, k, v, n_valid))
+    nbytes = 2 * (2 * b * h * hd + 2 * b * live * kv * hd) + 4 * b
+    row = attn_time_row(
+        card, "decode_attention", label, f"B {b}, C {c}, {live} live, H {h}, K {kv}, hd {hd}",
+        device_ms(lambda: decode_attention(q, k, v, n_valid)),
+        device_ms(lambda: decode_attention_ref(q, k, v, n_valid)),
+        device_ms(lib), nbytes, 4 * b * h * live * hd)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def flash_time_row(card: str, label: str, b: int, sq: int, sk: int, h: int, kv: int,
+                   hd: int, causal: bool, window: int, gen) -> dict:
+    """The flash kernel, its twin and ``scaled_dot_product_attention``
+    (GQA, ``is_causal`` where causal; a window wider than the sequence
+    only) at one bf16 shape. Operations: the live (query, key) pairs,
+    4 hd each."""
+    q = torch.randn(b, sq, h, hd, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, sk, kv, hd, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def lib():  # the window spans the whole sequence where one is set
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+    _same(f"prefill {label}", lib().transpose(1, 2),
+          attention_ref(q, k, v, causal=causal, window=window))
+    nbytes = 2 * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk  # live pairs per head
+    row = attn_time_row(
+        card, "flash_attention", label,
+        f"B {b}, Sq {sq}, Sk {sk}, H {h}, K {kv}, hd {hd}, causal {causal}, window {window}",
+        device_ms(lambda: flash_attention(q, k, v, causal=causal, window=window)),
+        device_ms(lambda: attention_ref(q, k, v, causal=causal, window=window)),
+        device_ms(lib), nbytes, 4 * b * h * pairs * hd)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
 def attention_timings(card: str) -> dict:
     """Both attention kernels, their twins and the one PyTorch call that
     computes the same function (``scaled_dot_product_attention`` with
@@ -3166,53 +3274,15 @@ def attention_timings(card: str) -> dict:
             ("path", SERVE_BATCH, SERVE_MAX_SEQ, path_live, 15, 5, 64),
             ("large", 8, 32768, 32768, 15, 5, 64),
             ("hd256 path", SERVE_BATCH, 2048, rg_live, 10, 1, 256)):
-        q = torch.randn(b, 1, h, hd, generator=gen, device="cuda").bfloat16()
-        k, v = (torch.randn(b, c, kv, hd, generator=gen, device="cuda").bfloat16()
-                for _ in range(2))
-        n_valid = torch.full((b,), live, dtype=torch.int32, device="cuda")
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        mask = (torch.arange(c, device="cuda") < live)[None, None, None, :]
-
-        def lib():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  enable_gqa=True)
-
-        _same(f"decode {label}", lib().transpose(1, 2), decode_attention_ref(q, k, v, n_valid))
-        nbytes = 2 * (2 * b * h * hd + 2 * b * live * kv * hd) + 4 * b
-        rows[("decode_attention", label)] = attn_time_row(
-            card, "decode_attention", label,
-            f"B {b}, C {c}, {live} live, H {h}, K {kv}, hd {hd}",
-            device_ms(lambda: decode_attention(q, k, v, n_valid)),
-            device_ms(lambda: decode_attention_ref(q, k, v, n_valid)),
-            device_ms(lib), nbytes, 4 * b * h * live * hd)
-        del q, k, v, qt, kt, vt
-        torch.cuda.empty_cache()
+        rows[("decode_attention", label)] = decode_time_row(card, label, b, c, live, h, kv,
+                                                            hd, gen)
     rows[("decode_attention_combine", "large")] = combine_timing(card, gen)
     for label, b, sq, h, kv, hd, window in (
             ("path", SERVE_BATCH, SERVE_PROMPT, 15, 5, 64, 0),
             ("large", 2, 4096, 15, 5, 64, 0),
             ("hd256 path", SERVE_BATCH, SERVE_PROMPT, 10, 1, 256, 2048)):
-        q = torch.randn(b, sq, h, hd, generator=gen, device="cuda").bfloat16()
-        k, v = (torch.randn(b, sq, kv, hd, generator=gen, device="cuda").bfloat16()
-                for _ in range(2))
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-
-        def lib():  # the window spans the whole sequence where one is set
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-
-        _same(f"prefill {label}", lib().transpose(1, 2),
-              attention_ref(q, k, v, window=window))
-        nbytes = 2 * (2 * b * sq * h * hd + 2 * b * sq * kv * hd)
-        pairs = sq * (sq + 1) // 2  # live (query, key) pairs per head, causal
-        rows[("flash_attention", label)] = attn_time_row(
-            card, "flash_attention", label,
-            f"B {b}, S {sq}, H {h}, K {kv}, hd {hd}, causal, window {window}",
-            device_ms(lambda: flash_attention(q, k, v, window=window)),
-            device_ms(lambda: attention_ref(q, k, v, window=window)),
-            device_ms(lib), nbytes, 4 * b * h * pairs * hd)
-        del q, k, v, qt, kt, vt
-        torch.cuda.empty_cache()
+        rows[("flash_attention", label)] = flash_time_row(card, label, b, sq, sq, h, kv, hd,
+                                                          True, window, gen)
     return rows
 
 
@@ -3307,15 +3377,19 @@ def scan_timings(card: str, floor_ms: float) -> dict:
 
 
 def decode_step_profile(card: str, engine, prompts: np.ndarray, label: str,
-                        steps: int = 40, warmup: int = 5, profiled: int = 5) -> dict:
+                        steps: int = 40, warmup: int = 5, profiled: int = 5,
+                        frames=None, on_prompt=None) -> dict:
     """Whole serving decode steps at full width (batch 8, greedy, the
-    prompt already in the cache): the host-clock median of ``steps``
-    synchronized steps, tokens per second from it, then the profiler over
-    ``profiled`` more."""
+    prompt already in the cache; an enc-dec model's cross caches filled
+    from ``frames``): the host-clock median of ``steps`` synchronized
+    steps, tokens per second from it, then the profiler over ``profiled``
+    more. ``on_prompt`` gets the logits of the prompt's last step."""
     tokens = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
-    caches = engine.new_caches()
+    caches = engine.new_caches(frames)
     for t in range(tokens.shape[1]):
         logits, caches, _ = engine.decode_step(tokens[:, t], caches)
+    if on_prompt is not None:
+        on_prompt(logits)
     cur = logits.float().argmax(-1)
     times = []
     for k in range(steps + warmup):
@@ -3355,6 +3429,443 @@ def recurrent_step_profile(card: str, arch: str) -> dict:
     del engine, params
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the model zoo (z1)-(z4)
+# ---------------------------------------------------------------------------
+
+# (z1) the architectures no earlier phase serves, at their published
+# widths, each through its entry points with random weights from a seeded
+# CUDA generator. Depth is cut only as far as one 80 GB card forces with
+# fp32 parameters (bf16 compute), from each config's param_count: fp32 a
+# layer + embedding and head -- dbrx-132b 13.04 + 4.93 GB, llama4-scout
+# 8.81 + 8.28, qwen2.5-32b 1.95 + 6.23, phi3-medium 1.36 + 4.11,
+# internvl2-26b 1.56 + 4.56; whisper-medium (24 + 24 layers, ~3.6 GB)
+# whole (None). Batch 8, 128 prompt + 32 new tokens (159 decode steps),
+# max_seq 4096; whisper's 448, its native decoder length, and frames (8,
+# 1500, 1024); InternVL2's prefill_fn also takes its 1,024 prefix
+# embeddings.
+ZOO_DEPTHS = {"dbrx-132b": 2, "llama4-scout-17b-a16e": 2, "qwen2.5-32b": 12,
+              "phi3-medium-14b": 16, "internvl2-26b": 12, "whisper-medium": None}
+ZOO_NEW, ZOO_WHISPER_MAX_SEQ = 32, 448
+ZOO_PROFILE = dict(steps=12, warmup=3, profiled=3)
+# (z2) the card against the host CPU, one arch per family, at full width
+# and this depth (whisper: encoder and decoder), the same seeded weights:
+# batch 2, 6 prompt + 4 new tokens. fp32 compute with fp32 caches: the
+# prefill logits and every decode step's within ZOO_FP32_TOL of their
+# scale, greedy tokens equal, MoE routing equal; bf16 compute (bf16
+# caches, teacher-forced on the fp32 run's tokens): within
+# SERVE_LOGIT_TOL wherever both devices route a row's token to the same
+# experts. A bf16 routing choice may flip only on a near-tie: its top-k
+# margin (the k-th largest router probability less the next, on the
+# host) under ZOO_TIE_MARGIN; flipped rows are reported, not compared.
+ZOO_CPU = {"dbrx-132b": 1, "qwen2.5-32b": 1, "internvl2-26b": 1, "whisper-medium": 2}
+ZOO_CPU_BATCH, ZOO_CPU_PROMPT, ZOO_CPU_NEW = 2, 6, 4
+ZOO_FP32_TOL, ZOO_TIE_MARGIN = 1e-4, 1e-2
+# (z3) one gradient evaluation of the bundle's loss_fn at fp32, one node,
+# batch 1, S 128 (whisper: its 1,500 frames), card against the host CPU:
+# every leaf within GRAD_TOL[fp32] of its scale, none zero
+ZOO_GRAD = {"llama4-scout-17b-a16e": 1, "whisper-medium": 2}
+# (z4) the attention kernels timed at the zoo's path shapes, bf16:
+# (label, B, C, live, H, K, hd) for decode -- the last decode step of
+# the 4096-slot paths at head size 128 (groups 6, 5, 4), whisper's 448-slot
+# self cache and its 1,500-slot cross cache -- and (label, B, Sq, Sk, H,
+# K, hd, causal, window) for flash: the hd 128 prefills, InternVL2's
+# prefix + prompt, whisper's encoder and its decoder's cross-attention
+ZOO_DECODE_TIMES = [
+    ("zoo hd128 group 6", SERVE_BATCH, SERVE_MAX_SEQ, SERVE_PROMPT + ZOO_NEW - 1, 48, 8, 128),
+    ("zoo hd128 group 5", SERVE_BATCH, SERVE_MAX_SEQ, SERVE_PROMPT + ZOO_NEW - 1, 40, 8, 128),
+    ("zoo hd128 group 4", SERVE_BATCH, SERVE_MAX_SEQ, SERVE_PROMPT + ZOO_NEW - 1, 40, 10, 128),
+    ("whisper self", SERVE_BATCH, ZOO_WHISPER_MAX_SEQ, SERVE_PROMPT + ZOO_NEW - 1, 16, 16, 64),
+    ("whisper cross", SERVE_BATCH, 1500, 1500, 16, 16, 64),
+]
+ZOO_FLASH_TIMES = [
+    ("zoo hd128 group 6", SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 48, 8, 128, True, 0),
+    ("zoo hd128 group 5", SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 40, 8, 128, True, 0),
+    ("zoo hd128 group 4", SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 40, 10, 128, True, 0),
+    ("internvl2 prefix + prompt", SERVE_BATCH, 1024 + SERVE_PROMPT, 1024 + SERVE_PROMPT,
+     48, 8, 128, True, 0),
+    ("whisper encoder", SERVE_BATCH, 1500, 1500, 16, 16, 64, False, 0),
+    ("whisper cross", SERVE_BATCH, SERVE_PROMPT, 1500, 16, 16, 64, False, 0),
+]
+
+
+def zoo_config(arch: str, depth):
+    """The arch's full config at ``depth`` layers (an enc-dec config: its
+    encoder too), or uncut for None."""
+    cfg = get_config(arch)
+    if depth is None:
+        return cfg
+    if cfg.encoder is not None:
+        return dataclasses.replace(cfg, n_layers=depth,
+                                   encoder=dataclasses.replace(cfg.encoder, n_layers=depth))
+    return dataclasses.replace(cfg, n_layers=depth)
+
+
+def zoo_inputs(cfg, b: int, p: int, seed: int = 0):
+    """Seeded prompts (b, p) and the family's frontend inputs: whisper's
+    frames, InternVL2's prefix embeddings (numpy, fp32)."""
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, size=(b, p)).astype(np.int32)
+    extra = {}
+    if cfg.family == "audio":
+        extra["frames"] = rng.normal(
+            size=(b, cfg.encoder.seq_len, cfg.encoder.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        extra["prefix_embeds"] = rng.normal(
+            size=(b, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    return prompts, extra
+
+
+def zoo_launches(cfg, steps: int) -> tuple:
+    """The predicted (generate, prefill_fn) launches: the decode kernel
+    once an attention layer and step (whisper twice: its cross-attention
+    too), flash once an encoder layer in generate (encode runs once) and,
+    in prefill_fn, once an attention (whisper: encoder, decoder self and
+    cross) layer."""
+    if cfg.family == "audio":
+        enc = cfg.encoder.n_layers
+        return ({"decode_attention": 2 * cfg.n_layers * steps, "flash_attention": enc},
+                {"flash_attention": enc + 2 * cfg.n_layers})
+    return {"decode_attention": cfg.n_layers * steps}, {"flash_attention": cfg.n_layers}
+
+
+def _tensors(batch: dict, device) -> dict:
+    """A batch of numpy arrays as tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def zoo_serving_path(card: str, arch: str) -> dict:
+    """(z1) One architecture served at full width: ``generate`` and
+    ``prefill_fn`` with their launches held to the prediction, the host
+    clock a step, tokens/s and peak memory; then the decode-step profile,
+    whose prompt replay's last logits meet the prefill's (bf16, not held
+    for MoE: the capacity follows the token count, so a prefill of 1,024
+    tokens and a step of 8 drop different assignments, as in the
+    reference)."""
+    cfg = zoo_config(arch, ZOO_DEPTHS[arch])
+    bundle = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init_fn(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for _, a in tree_leaves(params))
+    depth = (f"{cfg.encoder.n_layers} + {cfg.n_layers} layers" if cfg.encoder
+             else f"{cfg.n_layers} of {get_config(arch).n_layers} layers")
+    log(f"  {arch}: {n_params:,} parameters ({4 * n_params / 1e9:.2f} GB fp32, drawn in "
+        f"{time.perf_counter() - t0:.1f} s), {depth}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} q-heads over {cfg.n_kv_heads} kv-heads, hd {cfg.head_dim}"
+        + (f", {cfg.n_experts} experts top-{cfg.experts_per_token}"
+           + (" + shared" if cfg.shared_expert else "") if cfg.family == "moe" else ""))
+    prompts, extra = zoo_inputs(cfg, SERVE_BATCH, SERVE_PROMPT)
+    max_seq = ZOO_WHISPER_MAX_SEQ if cfg.family == "audio" else SERVE_MAX_SEQ
+    engine = ServeEngine(bundle, params, max_seq=max_seq, batch=SERVE_BATCH)
+    steps = SERVE_PROMPT + ZOO_NEW - 1
+    gen_want, pre_want = zoo_launches(cfg, steps)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=ZOO_NEW, temperature=0.0,
+                          frames=extra.get("frames"))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    expect_launches(f"{arch} generate", **gen_want)
+    new = out.tokens[:, SERVE_PROMPT:]
+    if (out.tokens.shape != (SERVE_BATCH, SERVE_PROMPT + ZOO_NEW)
+            or not (out.tokens[:, :SERVE_PROMPT] == prompts).all()
+            or new.min() < 0 or new.max() >= cfg.vocab_size):
+        raise AssertionError(f"{arch} generate: tokens {out.tokens.shape}, new in "
+                             f"[{new.min()}, {new.max()}]")
+    log(f"  generate (batch {SERVE_BATCH}, {SERVE_PROMPT} prompt + {ZOO_NEW} new tokens, "
+        f"greedy, max_seq {max_seq}): launches {gen_want}; {gen_s:.2f} s, "
+        f"{gen_s / steps * 1e3:.1f} ms a step on the host clock, "
+        f"{SERVE_BATCH * ZOO_NEW / gen_s:.1f} new tokens/s end to end; row 0 continues "
+        f"{new[0, :8].tolist()}")
+    batch = _tensors({"tokens": prompts.astype(np.int64), **extra}, "cuda")
+    zero_counts()
+    with RoutingLog() as routed:
+        pre, _ = bundle.prefill_fn(params, batch)
+    expect_launches(f"{arch} prefill", **pre_want)
+    if pre.shape != (SERVE_BATCH, cfg.padded_vocab) or not torch.isfinite(pre.float()).all():
+        raise AssertionError(f"{arch} prefill: logits {tuple(pre.shape)} not finite")
+    counts = {name: gen_want.get(name, 0) + pre_want.get(name, 0)
+              for name in ("decode_attention", "flash_attention")}
+    note = ""
+    if "prefix_embeds" in batch:  # the replay sees the prompt alone
+        zero_counts()
+        pre, _ = bundle.prefill_fn(params, {"tokens": batch["tokens"]})
+        expect_launches(f"{arch} prefill without the prefix", **pre_want)
+        counts["flash_attention"] += pre_want["flash_attention"]
+        note = f" (with the {cfg.frontend_seq} prefix embeddings; again without them)"
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  prefill_fn{note}: launches {pre_want} a call; peak device memory "
+        f"{peak:.2f} GB [{card}]")
+    seen = {}
+    row = decode_step_profile(card, engine, prompts, arch, frames=extra.get("frames"),
+                              on_prompt=lambda lg: seen.update(logits=lg), **ZOO_PROFILE)
+    if cfg.family == "moe":
+        rel = float((pre.float() - seen["logits"].float()).abs().max()) / max(
+            1.0, float(pre.float().abs().max()))
+        dropped = [f"{float((~keep).float().mean()):.1%}" for _, keep, _ in routed.calls]
+        log(f"  prefill vs the decode replay: {rel:.3e} of their scale (not held: the "
+            f"capacity follows the token count; the prefill's {SERVE_BATCH * SERVE_PROMPT} "
+            f"tokens dropped {dropped} of their assignments a layer, a step's "
+            f"{SERVE_BATCH} none)")
+    else:
+        rel = _logit_diff(f"{arch} prefill vs decode replay", pre, seen["logits"])
+        log(f"  prefill vs the decode replay at prompt token {SERVE_PROMPT}: max diff "
+            f"{rel:.3e} of their scale (tolerance {SERVE_LOGIT_TOL}), "
+            f"{_argmax_agree(f'{arch} prefill vs replay', pre, seen['logits'])}")
+    del engine, params, pre, seen, batch
+    torch.cuda.empty_cache()
+    return {"counts": counts, "row": {**row, "gen_s": gen_s, "peak_gb": peak,
+                                      "params": n_params}}
+
+
+class RoutingLog:
+    """Records every ``moe_route`` call's choices (top_e, keep) and the
+    router probabilities, in call order, while active."""
+
+    def __enter__(self):
+        self.calls, self._route = [], moe_mod.moe_route
+
+        def route(*args, **kw):
+            r = self._route(*args, **kw)
+            self.calls.append((r.top_e.cpu(), r.keep.cpu(), r.probs.detach().float().cpu()))
+            return r
+
+        moe_mod.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.moe_route = self._route
+        return False
+
+
+def routing_agreement(what: str, card_log: RoutingLog, cpu_log: RoutingLog,
+                      exact: bool) -> list:
+    """Per routed call, which tokens both devices sent to the same experts
+    (and kept); the share of matching token-expert choices is logged, each
+    flip with its top-k margin on the host. ``exact``: any flip raises;
+    else a flip must be a near-tie (margin under ZOO_TIE_MARGIN)."""
+    agree, total, same, flips = [], 0, 0, []
+    for (te, tk, _), (ce, ck, cp) in zip(card_log.calls, cpu_log.calls, strict=True):
+        n, k = te.shape
+        chosen = te.sort(-1).values == ce.sort(-1).values
+        same += int(chosen.sum())
+        total += chosen.numel()
+        ok = chosen.all(-1) & (tk == ck).reshape(n, k).all(-1)
+        agree.append(ok)
+        top = cp.sort(-1, descending=True).values
+        for t in torch.nonzero(~ok).flatten().tolist():
+            flips.append((t, float(top[t, k - 1] - top[t, k])))
+    log(f"  {what}: {same}/{total} token-expert choices match between the card and the "
+        f"host CPU ({same / max(total, 1):.4%}); "
+        + (f"{len(flips)} flipped token(s), top-k margins "
+           f"{[round(m, 6) for _, m in flips[:8]]}" if flips else "no flip"))
+    if flips and (exact or max(m for _, m in flips) >= ZOO_TIE_MARGIN):
+        raise AssertionError(f"{what}: routing flips {flips[:8]} (exact {exact}, near-tie "
+                             f"margin {ZOO_TIE_MARGIN})")
+    return agree
+
+
+def zoo_caches(cfg, params: dict, b: int, cache_dtype, device, frames):
+    """Zero decode state with caches in ``cache_dtype`` (whisper: the cross
+    caches filled from ``frames``)."""
+    if cfg.family == "audio":
+        state = encdec_mod.encdec_init_decode_state(cfg, b, ZOO_WHISPER_MAX_SEQ, cache_dtype,
+                                                    device)
+        enc = encdec_mod.encode(params, cfg, torch.as_tensor(frames, device=device))
+        return encdec_mod.encdec_fill_cross_kv(params, cfg, enc, state)
+    return tfm.init_decode_state(cfg, b, SERVE_MAX_SEQ, cache_dtype=cache_dtype,
+                                 device=device)
+
+
+def zoo_decode(bundle, params: dict, prompts: np.ndarray, extra: dict, device,
+               cache_dtype, forced=None):
+    """The prompt, then ZOO_CPU_NEW greedy tokens (or ``forced``, teacher
+    forcing the tokens after the prompt): (new tokens (B, n) on the host,
+    each step's logits on the host)."""
+    cfg = bundle.cfg
+    caches = zoo_caches(cfg, params, prompts.shape[0], cache_dtype, device,
+                        extra.get("frames"))
+    toks = torch.as_tensor(prompts, dtype=torch.long, device=device)
+    vocab = torch.arange(cfg.padded_vocab, device=device) < cfg.vocab_size
+    logits_all, new, cur = [], [], None
+    for t in range(ZOO_CPU_PROMPT + ZOO_CPU_NEW - 1):
+        inp = toks[:, t] if t < ZOO_CPU_PROMPT else (
+            forced[:, t - ZOO_CPU_PROMPT].to(device) if forced is not None else cur)
+        logits, caches = bundle.decode_fn(params, inp, caches)
+        logits_all.append(logits.float().cpu())
+        if t >= ZOO_CPU_PROMPT - 1:
+            cur = torch.where(vocab, logits.float(), -1e30).argmax(-1)
+            new.append(cur.cpu())
+    return torch.stack(new, 1), logits_all
+
+
+def zoo_card_vs_cpu(arch: str) -> None:
+    """(z2) One arch at full width and cut depth on the card and on the
+    host CPU from the same weights: prefill and decode at fp32 (tokens
+    equal, logits within ZOO_FP32_TOL, routing equal) and at bf16 (logits
+    within SERVE_LOGIT_TOL where routing agrees; flips only on near-ties)."""
+    cfg = zoo_config(arch, ZOO_CPU[arch])
+    card = build_model(cfg).init_fn(torch.Generator(device="cuda").manual_seed(1),
+                                    device="cuda")
+    host = tree_map(lambda a: a.cpu(), card)
+    prompts, extra = zoo_inputs(cfg, ZOO_CPU_BATCH, ZOO_CPU_PROMPT, seed=1)
+    batch = {"tokens": prompts.astype(np.int64), **extra}
+    moe = cfg.family == "moe"
+    label = f"{arch} x{ZOO_CPU[arch]}"
+    forced = None
+    for dt in ("float32", "bfloat16"):
+        bundle = build_model(dataclasses.replace(cfg, compute_dtype=dt))
+        cache = getattr(torch, dt)
+        t0 = time.perf_counter()
+        runs = {}
+        for name, params, dev in (("card", card, "cuda"), ("cpu", host, "cpu")):
+            with RoutingLog() as pre_log:
+                pre, _ = bundle.prefill_fn(params, _tensors(batch, dev))
+            with RoutingLog() as dec_log:
+                toks, steps = zoo_decode(bundle, params, prompts, extra, dev, cache, forced)
+            runs[name] = (pre.float().cpu(), pre_log, toks, steps, dec_log)
+        cpu_s = time.perf_counter() - t0
+        (pre_c, plog_c, tok_c, st_c, dlog_c), (pre_h, plog_h, tok_h, st_h, dlog_h) = (
+            runs["card"], runs["cpu"])
+        rows = torch.ones(ZOO_CPU_BATCH, dtype=torch.bool)
+        step_rows = [rows] * len(st_c)
+        if moe:
+            exact = dt == "float32"
+            agree = routing_agreement(f"{label} {dt} prefill routing", plog_c, plog_h, exact)
+            # a row's last position, and a decode step's row, in every layer
+            layers = cfg.n_layers
+            rows = torch.stack([a.reshape(ZOO_CPU_BATCH, -1)[:, -1] for a in agree]).all(0)
+            per_call = routing_agreement(f"{label} {dt} decode routing", dlog_c, dlog_h,
+                                         exact)
+            step_rows = [torch.stack(per_call[t * layers:(t + 1) * layers]).all(0)
+                         for t in range(len(st_c))]
+        tol = ZOO_FP32_TOL if dt == "float32" else SERVE_LOGIT_TOL
+        worst = _logit_diff(f"{label} {dt} prefill card vs CPU", pre_c[rows], pre_h[rows],
+                            tol) if rows.any() else 0.0
+        for t, (a, b) in enumerate(zip(st_c, st_h)):
+            if step_rows[t].any():
+                worst = max(worst, _logit_diff(f"{label} {dt} step {t} card vs CPU",
+                                               a[step_rows[t]], b[step_rows[t]], tol))
+        if dt == "float32":
+            if not torch.equal(tok_c, tok_h):
+                raise AssertionError(f"{label} fp32 greedy tokens: card {tok_c.tolist()} "
+                                     f"vs CPU {tok_h.tolist()}")
+            forced = tok_c
+        compared = int(rows.sum()) + sum(int(r.sum()) for r in step_rows)
+        log(f"  {label} {dt} compute, {'fp32' if dt == 'float32' else 'bf16'} caches, batch "
+            f"{ZOO_CPU_BATCH}, {ZOO_CPU_PROMPT} prompt + {ZOO_CPU_NEW} new tokens"
+            + (f", frames {tuple(extra['frames'].shape)}" if "frames" in extra else "")
+            + (f", prefix {tuple(extra['prefix_embeds'].shape)}" if "prefix_embeds" in extra
+               else "")
+            + f": prefill and {len(st_c)} decode steps card vs host CPU within {worst:.3e} of "
+            f"their scale (tolerance {tol}) over {compared} compared row logits"
+            + (f"; greedy tokens equal {tok_c[0].tolist()}" if dt == "float32"
+               else " (teacher-forced on the fp32 tokens)")
+            + f" ({cpu_s:.1f} s both devices)")
+    del card, host
+    torch.cuda.empty_cache()
+
+
+def zoo_grad_path(arch: str) -> dict:
+    """(z3) One gradient evaluation of the bundle's node-batched loss_fn at
+    fp32, one node, full width at cut depth, card against the host CPU:
+    every leaf within GRAD_TOL of its scale, none zero; the flash
+    launches of the evaluation held (remat: twice a decoder attention
+    layer, whisper's encoder once, it runs without remat); MoE routing
+    equal on both devices."""
+    cfg = dataclasses.replace(zoo_config(arch, ZOO_GRAD[arch]), compute_dtype="float32")
+    single = build_model(cfg).init_fn(torch.Generator(device="cuda").manual_seed(2),
+                                      device="cuda")
+    host = stack_for_nodes(tree_map(lambda a: a.cpu(), single), 1)
+    del single
+    card = tree_map(lambda a: a.cuda(), host)
+    batch = token_batch(cfg, 1, seed=2)
+    if cfg.family == "audio":
+        batch["frames"] = np.random.default_rng(2).normal(
+            size=(1, 1, cfg.encoder.seq_len, cfg.encoder.d_model)).astype(np.float32)
+        want = {"flash_attention": cfg.encoder.n_layers + 2 * 2 * cfg.n_layers}
+    else:
+        want = {"flash_attention": 2 * cfg.n_layers}
+    grad_fn = value_and_grad(build_model(cfg).loss_fn)
+    with RoutingLog() as card_log:
+        zero_counts()
+        t0 = time.perf_counter()
+        losses, grads = grad_fn(card, _tensors(batch, "cuda"))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        expect_launches(f"{arch} gradients", **want)
+    t0 = time.perf_counter()
+    with RoutingLog() as cpu_log:
+        cpu_losses, cpu_grads = grad_fn(host, _tensors(batch, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    if cfg.family == "moe":  # the forward and the remat recompute, each a call
+        routing_agreement(f"{arch} x{cfg.n_layers} fp32 training routing", card_log, cpu_log,
+                          exact=True)
+    tol = GRAD_TOL[torch.float32]
+    rel = float(((losses.cpu() - cpu_losses).abs() / cpu_losses.abs()).max())
+    if rel > tol:
+        raise AssertionError(f"{arch}: losses {losses.tolist()} vs the CPU's "
+                             f"{cpu_losses.tolist()}")
+    leaves, cpu_leaves = tree_leaves(grads), dict(tree_leaves(cpu_grads))
+    # a key projection's bias gets zero gradient in exact arithmetic (a
+    # softmax over keys ignores a shift q . b_k shared by every score):
+    # its rounding noise is held to its block's value-bias gradient scale
+    errs = [_grad_err(f"{arch} {'/'.join(map(str, p))}", g, cpu_leaves[p].cuda(), tol,
+                      float(cpu_leaves[p[:-2] + ("wv", "b")].abs().max())
+                      if p[-2:] == ("wk", "b") else None)
+            for p, g in leaves]
+    log(f"  {arch} at full width, {cfg.n_layers} layer(s)"
+        + (f" + {cfg.encoder.n_layers} encoder layers, frames "
+           f"{tuple(batch['frames'].shape[1:])}" if cfg.encoder else "")
+        + f", fp32, 1 node x S {TRAIN_SEQ}: launches {want}; loss {float(losses[0]):.4f} "
+        f"(CPU rel {rel:.2e}"
+        + (f", aux coefficient {cfg.router_aux_coef}" if cfg.family == "moe" else "")
+        + f"); all {len(leaves)} leaves' gradients nonzero and within {max(errs):.3e} of "
+        f"their scale of the host CPU's (tolerance {tol}); card {card_s:.1f} s, CPU "
+        f"{cpu_s:.1f} s")
+    del grads, cpu_grads, card, host
+    torch.cuda.empty_cache()
+    return want
+
+
+def zoo_attention_timings(card: str) -> dict:
+    """(z4) Both attention kernels against their twins and
+    ``scaled_dot_product_attention`` at the zoo's path shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = {}
+    for label, *shape in ZOO_DECODE_TIMES:
+        rows[("decode_attention", label)] = decode_time_row(card, label, *shape, gen)
+    for label, *shape in ZOO_FLASH_TIMES:
+        rows[("flash_attention", label)] = flash_time_row(card, label, *shape, gen)
+    return rows
+
+
+def model_zoo(card: str) -> dict:
+    """Phase 6: (z1) each new architecture served, (z2) the card against
+    the host CPU, (z3) gradients, (z4) the attention kernels at the new
+    shapes. Returns the launches the paths made and the rows."""
+    counts, rows = {}, {}
+    for arch in ZOO_DEPTHS:
+        section(f"  -- (z1) {arch}")
+        out = zoo_serving_path(card, arch)
+        rows[arch] = out["row"]
+        for name, count in out["counts"].items():
+            counts[name] = counts.get(name, 0) + count
+    section("  -- (z2) the card against the host CPU")
+    for arch in ZOO_CPU:
+        zoo_card_vs_cpu(arch)
+    section("  -- (z3) gradients at fp32")
+    for arch in ZOO_GRAD:
+        for name, count in zoo_grad_path(arch).items():
+            counts[name] = counts.get(name, 0) + count
+    section("  -- (z4) the attention kernels at the zoo's shapes")
+    rows["times"] = zoo_attention_timings(card)
+    return {"counts": counts, "rows": rows}
 
 
 def ptxas_summary(lib) -> str:
@@ -3540,6 +4051,18 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
         })
+    section("phase 6: the model zoo (launches counted per run)")
+    zoo = model_zoo(card)
+    for name, count in zoo["counts"].items():
+        launches[name] = launches.get(name, 0) + count
+    zoo_times = zoo["rows"].pop("times")
+    for row in kernels:
+        if row["name"] in ("decode_attention", "flash_attention"):
+            row["launches"] = launches[row["name"]]
+            row["zoo_shapes"] = [{"shape": label, **times}
+                                 for (name, label), times in zoo_times.items()
+                                 if name == row["name"]]
+
     section("all phases done")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,14 +1,25 @@
 """Model and run configurations (counterpart of ``repro.configs.base``:
-``ModelConfig``, ``VOCAB_PAD`` and ``FLRunConfig``)."""
+``ModelConfig``, ``EncoderConfig``, ``VOCAB_PAD`` and ``FLRunConfig``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
-__all__ = ["ModelConfig", "FLRunConfig", "VOCAB_PAD"]
+__all__ = ["ModelConfig", "EncoderConfig", "FLRunConfig", "VOCAB_PAD"]
 
 VOCAB_PAD = 256  # pad vocab to a multiple of this (standard TP practice)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack for encoder--decoder (whisper) architectures."""
+
+    n_layers: int
+    d_model: int
+    n_heads: int
+    d_ff: int
+    seq_len: int  # fixed encoder positions (whisper: 1500 frames)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +58,7 @@ class ModelConfig:
     # modality frontend (STUB per task spec: embeddings come from input_specs)
     frontend: str = "none"  # none | vision_stub | audio_stub
     frontend_seq: int = 0  # number of frontend tokens (patches / frames)
-    # whisper enc-dec; EncoderConfig is not ported yet (ROADMAP.md queue 1
-    # item 16), so every config of the port leaves this None
-    encoder: Optional[Any] = None
+    encoder: Optional[EncoderConfig] = None  # whisper enc-dec
 
     # tensor-parallel head padding: pad q heads up to a multiple of this
     # (0 = off). Padded heads are zero-init + statically masked -> exact

@@ -11,7 +11,22 @@ adaptive top-k wire's default spec (``topk_schedule``).
 
 import numpy as np
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.data.ehr import N_AD, N_MCI
+
+# the registry's entry (``get_config("ehr-mlp")``), field for field the
+# reference's
+CONFIG = ModelConfig(
+    name="ehr-mlp",
+    family="mlp",
+    n_layers=2,
+    d_model=42,  # feature dim ("problem dimension of 42")
+    n_heads=0,
+    n_kv_heads=0,
+    d_ff=32,  # hidden width
+    vocab_size=2,  # AD vs MCI
+    source="this paper, Section 3",
+)
 
 # default for the EHR experiments; None = the paper's unweighted loss
 CLASS_WEIGHT = "balanced"
@@ -63,3 +78,7 @@ def class_weights(class_weight=CLASS_WEIGHT):
             f"weights; got {class_weight!r}"
         )
     return w
+
+
+def smoke_config() -> ModelConfig:
+    return CONFIG  # already CPU-scale

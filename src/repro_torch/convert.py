@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.fl import tree_map
 from repro_torch.core.packing import FlatLayout, tree_leaves
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import init_params
+from repro_torch.models.model import build_model
 
 __all__ = ["params_from_numpy", "flat_from_numpy", "model_params_from_numpy"]
 
@@ -47,15 +47,18 @@ def _name(path) -> str:
 
 
 def model_params_from_numpy(tree: Any, cfg, device=None) -> Any:
-    """A reference transformer's parameter tree (``repro.models.transformer
-    .init_params`` as nested dicts and lists of numpy arrays: ``embed``,
+    """A reference model's parameter tree (its bundle's ``init_fn`` output
+    as nested dicts and lists of numpy arrays) -> the port's tensors on
+    ``device``, in the same layout. Decoder-only: ``embed``,
     ``final_norm``, the blocks -- layer-stacked ``blocks``, or
-    ``pblocks`` and ``tail`` lists, or a ``blocks`` list -- and, untied,
-    ``head``) -> the port's tensors on ``device``, in the same layout.
-    Every leaf's path, shape and dtype is checked against the port's own
-    ``init_params`` for ``cfg`` first, in ``jax.tree_util``'s order (list
-    items by index); a mismatch raises ``ValueError`` naming the leaf."""
-    want = {path: leaf for path, leaf in tree_leaves(init_params(cfg, None, "meta"))}
+    ``pblocks`` and ``tail`` lists, or a ``blocks`` list; a ``moe``
+    block's ``router/w``, ``gate``, ``up``, ``down`` and ``shared`` --
+    and, untied, ``head``; enc-dec: ``enc`` and ``dec``, each with its
+    layer-stacked ``blocks``. Every leaf's path, shape and dtype is
+    checked against the port's own init for ``cfg`` on the meta device
+    first, in ``jax.tree_util``'s order (list items by index); a mismatch
+    raises ``ValueError`` naming the leaf."""
+    want = {path: leaf for path, leaf in tree_leaves(build_model(cfg).param_shapes())}
     got = {path: np.asarray(leaf) for path, leaf in tree_leaves(tree)}
     if set(got) != set(want):
         raise ValueError(

@@ -1,10 +1,10 @@
 """Batched serving example: prefill + step-decode across the model
-families the port serves (counterpart of the reference's
-``examples/serve_decode.py``, which also demos the MoE and enc-dec
-families the port does not have yet): dense with a contiguous KV cache
-and with the sliding-window ring-buffer cache the reference uses for
-long-context decoding, RWKV6 with its O(1) recurrent state, and
-RecurrentGemma's RG-LRU + local-attention hybrid.
+families (counterpart of the reference's ``examples/serve_decode.py``):
+dense with a contiguous KV cache and with the sliding-window ring-buffer
+cache the reference uses for long-context decoding, RWKV6 with its O(1)
+recurrent state, RecurrentGemma's RG-LRU + local-attention hybrid, MoE
+routing per decoded token, and the enc-dec family with cross-attention
+over random encoder frames.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_decode --device cpu
 
@@ -38,8 +38,13 @@ def demo(arch: str, sliding: bool = False, batch: int = 2, max_new: int = 12,
                          sliding_override=sliding)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (batch, 8)).astype(np.int32)
+    frames = None
+    if cfg.family == "audio":
+        frames = rng.normal(size=(batch, cfg.encoder.seq_len,
+                                  cfg.encoder.d_model)).astype(np.float32)
     t0 = time.time()
-    out = engine.generate(prompts, max_new_tokens=max_new, temperature=0.8, seed=1)
+    out = engine.generate(prompts, max_new_tokens=max_new, temperature=0.8, seed=1,
+                          frames=frames)
     dt = time.time() - t0
     mode = " (sliding-window cache)" if sliding else ""
     print(f"{arch:24s}{mode}: {batch}x{max_new} tokens in {dt:5.1f}s on {dev} "
@@ -56,9 +61,11 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
     print(f"batched decode across model families (reduced configs, {dev}):")
     demo("tinyllama-1.1b", device=dev)               # dense GQA, contiguous KV cache
-    demo("smollm-360m", sliding=True, device=dev)    # dense, ring-buffer window cache
+    demo("qwen2.5-32b", sliding=True, device=dev)    # dense, ring-buffer window cache
     demo("rwkv6-7b", device=dev)                     # SSM: O(1) decode state
     demo("recurrentgemma-2b", device=dev)            # hybrid RG-LRU + local attention
+    demo("dbrx-132b", device=dev)                    # MoE routing per decoded token
+    demo("whisper-medium", device=dev)               # enc-dec with cross-attention
 
 
 if __name__ == "__main__":

@@ -5,8 +5,8 @@ JSON, plus ``--device``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --batch 4 --prompt-len 16 --max-new 32 --temperature 0.7
 
-Any ported arch serves (the dense ones, ``rwkv6-7b``,
-``recurrentgemma-2b``). Runs on ``cuda`` unless ``--device cpu`` is given
+Every arch of the registry serves; the audio family (``whisper-medium``)
+gets random encoder frames, drawn as the reference draws them. Runs on ``cuda`` unless ``--device cpu`` is given
 (the kernels' plain PyTorch twins then run instead); without a card,
 ``cuda`` raises.
 """
@@ -49,9 +49,13 @@ def main(argv=None) -> dict:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size,
                            size=(args.batch, args.prompt_len)).astype(np.int32)
+    frames = None
+    if cfg.family == "audio":
+        frames = rng.normal(size=(args.batch, cfg.encoder.seq_len,
+                                  cfg.encoder.d_model)).astype(np.float32)
     t0 = time.time()
     out = engine.generate(prompts, max_new_tokens=args.max_new,
-                          temperature=args.temperature, seed=args.seed)
+                          temperature=args.temperature, seed=args.seed, frames=frames)
     dt = time.time() - t0
     record = {
         "arch": cfg.name,

@@ -1,4 +1,4 @@
-"""Training launcher: decentralized FL training of a ported arch's smoke
+"""Training launcher: decentralized FL training of a registry arch's smoke
 config (counterpart of ``repro.launch.train``; the reference's flags and
 printed JSON, plus ``--device`` and the JSON's ``device``).
 
@@ -125,6 +125,8 @@ def main(argv=None) -> dict:
     extras: Dict[str, tuple] = {}
     if cfg.family == "vlm":
         extras["prefix_embeds"] = (cfg.frontend_seq, cfg.d_model)
+    if cfg.family == "audio":
+        extras["frames"] = (cfg.encoder.seq_len, cfg.encoder.d_model)
     fl_rounds = make_fl_token_batches(cfg.vocab_size, args.nodes, args.batch_per_node,
                                       args.seq_len, q=1, seed=args.seed,
                                       extras=extras or None)

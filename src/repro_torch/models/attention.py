@@ -11,7 +11,14 @@ CPU tensors. Both kernels take un-repeated K/V (GQA native) and keep the
 softmax probabilities in fp32, as the reference's Pallas kernels do (its
 ``_sdpa`` casts them to v's dtype, so at bf16 the port follows the
 reference's kernel paths more closely than its ``ref`` path).
-Cross-attention waits for the enc-dec family.
+
+Cross-attention (the whisper decoder's) attends unmasked over the
+encoder's precomputed K/V: :func:`cross_attn_apply` is one non-causal
+flash call with Sq the decoder's tokens and Sk the encoder's frames
+(prefill, loss), :func:`cross_attn_decode` one decode-kernel call with
+every row's ``n_valid`` the encoder length (a decode step). The
+reference runs its plain ``_sdpa`` for both; the kernels compute the
+same function, with fp32 probabilities.
 """
 
 from __future__ import annotations
@@ -32,6 +39,10 @@ __all__ = [
     "attn_apply",
     "init_kv_cache",
     "attn_decode",
+    "cross_attn_init",
+    "precompute_cross_kv",
+    "cross_attn_apply",
+    "cross_attn_decode",
     "NEG_INF",
 ]
 
@@ -198,3 +209,46 @@ def attn_decode(p: Dict, x: torch.Tensor, cache: Dict, *, n_heads: int, n_kv_hea
         out = out * mask
     out = linear(p["wo"], out.reshape(b, 1, hl * head_dim), compute_dtype)
     return out, {"k": ck, "v": cv, "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_init(generator, d_model: int, n_heads: int, head_dim: int,
+                    dtype=torch.float32, device=None, lead=()) -> Dict:
+    return attn_init(generator, d_model, n_heads, n_heads, head_dim, dtype, qkv_bias=True,
+                     device=device, lead=lead)
+
+
+def precompute_cross_kv(p: Dict, enc_out: torch.Tensor, n_heads: int, head_dim: int,
+                        compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output's K and V, (B, T, H, hd) each, in ``compute_dtype``."""
+    k = _split_heads(linear(p["wk"], enc_out, compute_dtype), n_heads, head_dim)
+    v = _split_heads(linear(p["wv"], enc_out, compute_dtype), n_heads, head_dim)
+    return k, v
+
+
+def cross_attn_apply(p: Dict, x: torch.Tensor, kv: Tuple[torch.Tensor, torch.Tensor], *,
+                     n_heads: int, head_dim: int,
+                     compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Decoder queries x (B, S, d) attend, unmasked, over precomputed
+    encoder K/V (B, T, H, hd): one non-causal flash-kernel call."""
+    q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads, head_dim)
+    k, v = kv
+    out = flash_attention(q, k.contiguous(), v.contiguous(), causal=False, window=0)
+    return linear(p["wo"], out.reshape(*x.shape[:-1], n_heads * head_dim), compute_dtype)
+
+
+def cross_attn_decode(p: Dict, x: torch.Tensor, kv: Tuple[torch.Tensor, torch.Tensor], *,
+                      n_heads: int, head_dim: int,
+                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`cross_attn_apply` for one decoder token x (B, 1, d): one
+    decode-kernel call over all T slots of the cross cache (B, T, H, hd)."""
+    b = x.shape[0]
+    q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads, head_dim)
+    k, v = kv
+    n_valid = torch.full((b,), k.shape[1], dtype=torch.int32, device=k.device)
+    out = decode_attention(q, k.contiguous(), v.contiguous(), n_valid)
+    return linear(p["wo"], out.reshape(b, 1, n_heads * head_dim), compute_dtype)

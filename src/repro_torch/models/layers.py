@@ -1,5 +1,5 @@
-"""Primitive layers (counterpart of the dense part of
-``repro.models.layers``): inits, ``linear``, RMSNorm, SwiGLU, RoPE and
+"""Primitive layers (counterpart of ``repro.models.layers``): inits,
+``linear``, RMSNorm and LayerNorm, the SwiGLU and GELU MLPs, RoPE and
 the embedding lookups. Parameters are nested dicts of tensors, like the
 reference's pytrees, so packing and conversion see the same leaves.
 
@@ -20,13 +20,18 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 __all__ = [
+    "uniform_init",
     "normal_init",
     "dense_init",
     "linear",
     "rmsnorm_init",
     "rmsnorm",
+    "layernorm_init",
+    "layernorm",
     "swiglu_init",
     "swiglu",
+    "gelu_mlp_init",
+    "gelu_mlp",
     "rope_freqs",
     "apply_rope",
     "embed_init",
@@ -50,6 +55,18 @@ def normal_init(generator: Optional[torch.Generator], shape: Sequence[int],
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (w * scale).to(device=dev, dtype=dtype)
+
+
+def uniform_init(generator: Optional[torch.Generator], shape: Sequence[int],
+                 scale: float, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``U(-scale, scale)`` drawn in fp32 on the generator's device, then
+    moved to ``device`` and cast to ``dtype``, as :func:`normal_init`."""
+    dev = torch.device(device) if device is not None else generator.device
+    if dev.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=dev)
+    w = torch.rand(tuple(shape), generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return (w * (2 * scale) - scale).to(device=dev, dtype=dtype)
 
 
 def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int,
@@ -91,6 +108,23 @@ def rmsnorm(p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float = 1e-5) -> t
     return out.to(x.dtype)
 
 
+def layernorm_init(d: int, dtype=torch.float32, device=None,
+                   lead: Sequence[int] = ()) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, d), dtype=dtype, device=device)}
+
+
+def layernorm(p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps) * scale + bias`` in fp32 (the
+    population variance, as ``jnp.var``), cast back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * p["scale"].float() + p["bias"].float()
+    return out.to(x.dtype)
+
+
 def swiglu_init(generator, d: int, d_ff: int, dtype=torch.float32, device=None,
                 lead: Sequence[int] = ()) -> Dict:
     return {
@@ -104,6 +138,21 @@ def swiglu(p: Dict, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tens
     g = linear(p["gate"], x, compute_dtype)
     u = linear(p["up"], x, compute_dtype)
     return linear(p["down"], F.silu(g) * u, compute_dtype)
+
+
+def gelu_mlp_init(generator, d: int, d_ff: int, dtype=torch.float32, device=None,
+                  lead: Sequence[int] = ()) -> Dict:
+    return {
+        "up": dense_init(generator, d, d_ff, device, True, dtype, lead),
+        "down": dense_init(generator, d_ff, d, device, True, dtype, lead),
+    }
+
+
+def gelu_mlp(p: Dict, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """``down(gelu(up(x)))`` with the tanh-approximate GELU, the default of
+    the reference's ``jax.nn.gelu``."""
+    h = F.gelu(linear(p["up"], x, compute_dtype), approximate="tanh")
+    return linear(p["down"], h, compute_dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

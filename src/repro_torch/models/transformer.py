@@ -1,9 +1,12 @@
-"""The decoder stack for the decoder-only families the port serves
-(counterpart of ``repro.models.transformer``): dense (pre-norm GQA
-attention + SwiGLU blocks), RWKV6 (``ssm``: a homogeneous stack of
-``rwkv`` blocks) and RecurrentGemma (``hybrid``: a repeating pattern of
-``recurrent`` RG-LRU and ``local_attention`` blocks), with the training
-loss (:func:`lm_loss`), forward (prefill) and one-token decode.
+"""The decoder stack for every decoder-only family (counterpart of
+``repro.models.transformer``): dense and the VLM backbone (pre-norm GQA
+attention + SwiGLU blocks; the VLM's stubbed frontend prepends
+``prefix_embeds``), MoE (attention + a routed-expert FFN, ``moe``
+blocks, :mod:`repro_torch.models.moe`), RWKV6 (``ssm``: a homogeneous
+stack of ``rwkv`` blocks) and RecurrentGemma (``hybrid``: a repeating
+pattern of ``recurrent`` RG-LRU and ``local_attention`` blocks; a
+pattern may hold any kind), with the training loss (:func:`lm_loss`),
+forward (prefill) and one-token decode.
 
 Parameters are nested dicts (and lists) with the reference's storage
 layouts, so a reference tree converts leaf for leaf
@@ -18,12 +21,12 @@ layouts, so a reference tree converts leaf for leaf
   per-layer trees.
 
 The reference scans over the stacked axes; the port loops over layers,
-reading each layer's tree through :func:`_layer_params`. MoE blocks
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+reading each layer's tree through :func:`_layer_params`.
 
 Training: :func:`lm_loss` is the reference's next-token cross-entropy
 over the chunked unembedding (``layers.chunked_softmax_xent``) plus
-``router_aux_coef`` times the blocks' aux loss. With ``remat`` (the
+``router_aux_coef`` times the blocks' aux loss (the MoE blocks'
+load-balance term; 0 for every other kind). With ``remat`` (the
 default) :func:`forward_hidden` runs each layer under
 ``torch.utils.checkpoint`` (non-reentrant), where the reference wraps
 each scanned layer or period in ``jax.checkpoint``: backward keeps each
@@ -45,6 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fl import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (
@@ -67,21 +71,19 @@ __all__ = [
     "init_decode_state",
 ]
 
-KINDS = ("attention", "local_attention", "rwkv", "recurrent")
-_ATTENTION_KINDS = ("attention", "local_attention")
+KINDS = ("attention", "local_attention", "moe", "rwkv", "recurrent")
+# the kinds whose block is attention then an FFN, with a KV cache
+_ATTENTION_KINDS = ("attention", "local_attention", "moe")
 
 
 def _check_kind(kind: str) -> None:
-    if kind == "moe":
-        raise NotImplementedError(
-            "MoE blocks (ROADMAP.md queue 1 item 16) are not ported yet")
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind}")
 
 
 def check_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The stack's per-layer block kinds, or ``NotImplementedError`` for a
-    kind the port does not have."""
+    """The stack's per-layer block kinds, or ``ValueError`` for an
+    unknown one."""
     pattern = cfg.effective_pattern
     for kind in pattern:
         _check_kind(kind)
@@ -109,7 +111,7 @@ def init_block(generator, cfg: ModelConfig, kind: str, device=None, lead=()) -> 
     _check_kind(kind)
     dt, d = _pdtype(cfg), cfg.d_model
     if kind in _ATTENTION_KINDS:
-        return {
+        block = {
             "ln1": rmsnorm_init(d, dt, device, lead),
             "attn": attn.attn_init(
                 generator, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt, cfg.qkv_bias,
@@ -117,8 +119,13 @@ def init_block(generator, cfg: ModelConfig, kind: str, device=None, lead=()) -> 
                 device=device, lead=lead,
             ),
             "ln2": rmsnorm_init(d, dt, device, lead),
-            "mlp": swiglu_init(generator, d, cfg.d_ff, dt, device, lead),
         }
+        if kind == "moe":
+            block["moe"] = moe_mod.moe_init(generator, d, cfg.d_ff, cfg.n_experts, dt,
+                                            cfg.shared_expert, device, lead)
+        else:
+            block["mlp"] = swiglu_init(generator, d, cfg.d_ff, dt, device, lead)
+        return block
     if kind == "rwkv":
         return {
             "ln1": rmsnorm_init(d, dt, device, lead),
@@ -137,7 +144,7 @@ def init_block(generator, cfg: ModelConfig, kind: str, device=None, lead=()) -> 
 def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence (train / prefill) block from zero recurrent states.
-    Returns (x, aux loss), the aux loss 0 for every ported kind."""
+    Returns (x, aux loss), the aux loss 0 for every kind but ``moe``."""
     _check_kind(kind)
     cd, eps = _cdtype(cfg), cfg.norm_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -150,7 +157,8 @@ def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
             n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
         )
         x = x + h
-        return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd), aux
+        m, moe_aux = _ffn(p, kind, cfg, rmsnorm(p["ln2"], x, eps))
+        return x + m, aux if moe_aux is None else moe_aux
     b = x.shape[0]
     if kind == "rwkv":
         st = rwkv_mod.rwkv_decode_states(b, cfg.d_model, device=x.device)
@@ -165,6 +173,18 @@ def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
     h, _ = rglru_mod.rglru_block_apply(p["rglru"], rmsnorm(p["ln1"], x, eps), st, cd)
     x = x + h
     return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd), aux
+
+
+def _ffn(p: Dict, kind: str, cfg: ModelConfig,
+         h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """An attention block's FFN on its normed input: the routed experts
+    and their aux loss for ``moe``, else the SwiGLU and None."""
+    if kind == "moe":
+        return moe_mod.moe_apply(p["moe"], h, n_experts=cfg.n_experts,
+                                 k=cfg.experts_per_token,
+                                 capacity_factor=cfg.moe_capacity_factor,
+                                 compute_dtype=_cdtype(cfg))
+    return swiglu(p["mlp"], h, _cdtype(cfg)), None
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +383,8 @@ def apply_block_decode(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
             n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
         )
         x = x + h
-        return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd), state
+        m, _ = _ffn(p, kind, cfg, rmsnorm(p["ln2"], x, eps))
+        return x + m, state
     if kind == "rwkv":
         h, tm_prev, s_new = rwkv_mod.rwkv_time_mix(
             p["rwkv"]["time"], rmsnorm(p["ln1"], x, eps), state["tm_prev"], state["s"], cd)

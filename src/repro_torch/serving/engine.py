@@ -30,7 +30,10 @@ which torch can do only on a CPU engine -- a CUDA engine refuses it
 (torch moves no host tensor to the card implicitly).
 
 The engine runs on the device its parameters live on; the caches and
-sampling follow them there.
+sampling follow them there. For the audio (enc-dec) family,
+``generate`` takes the stubbed frontend's ``frames``, encodes them once
+with the active weights and fills the decoder's cross-attention caches
+before the prompt steps.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fl import tree_map
 from repro_torch.core.packing import tree_leaves
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models.model import ModelBundle
 
 __all__ = ["ServeEngine", "GenerationResult"]
@@ -157,11 +161,21 @@ class ServeEngine:
         logits, caches = self._step(self.params, tokens, caches)
         return logits, caches, swapped
 
-    def new_caches(self) -> Any:
+    def new_caches(self, frames: Optional[np.ndarray] = None) -> Any:
         """Zero decode states: a dict of layer-stacked states for a
-        homogeneous stack, a list of per-layer states for a patterned one."""
-        return self.bundle.init_decode_state_fn(
+        homogeneous stack, a list of per-layer states for a patterned one.
+        For the audio family, ``frames`` (B, T_enc, d) are encoded once
+        with the active weights and fill the cross-attention caches."""
+        caches = self.bundle.init_decode_state_fn(
             self.batch, self.max_seq, sliding_override=self.sliding, device=self.device)
+        if self.cfg.family != "audio":
+            return caches
+        if frames is None:
+            raise ValueError(f"{self.cfg.name} is an enc-dec model: its decode "
+                             "state needs the encoder's frames")
+        enc_out = encdec_mod.encode(self.params, self.cfg,
+                                    torch.as_tensor(frames, device=self.device))
+        return encdec_mod.encdec_fill_cross_kv(self.params, self.cfg, enc_out, caches)
 
     def _sample(self, logits: torch.Tensor, generator: torch.Generator,
                 temperature: float) -> torch.Tensor:
@@ -174,13 +188,16 @@ class ServeEngine:
         return torch.argmax(lf / temperature - torch.log(-torch.log(u)), dim=-1)
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
-                 temperature: float = 0.0, seed: int = 0) -> GenerationResult:
+                 temperature: float = 0.0, seed: int = 0,
+                 frames: Optional[np.ndarray] = None) -> GenerationResult:
         """prompts: (B, P) integer token ids. Returns the prompts followed
-        by ``max_new_tokens`` sampled tokens per row."""
+        by ``max_new_tokens`` sampled tokens per row. For the audio family
+        pass ``frames`` (B, T_enc, d) (stub frontend embeddings); the
+        engine encodes once and fills the cross-attention caches."""
         b, p = prompts.shape
         if b != self.batch:
             raise ValueError(f"engine built for batch {self.batch}, got {b}")
-        caches = self.new_caches()
+        caches = self.new_caches(frames)
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         swap_steps: List[int] = []

@@ -184,3 +184,34 @@ def test_sdpa_with_repeated_kv_is_the_reference_ref_path_and_the_twins_function(
     if dtype == "float32":
         torch.testing.assert_close(got, attention_ref(tq, tk, tv, window=window),
                                    rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [1, 7])
+def test_cross_attention_matches_reference(sq, dtype):
+    """Whisper's cross-attention: ``precompute_cross_kv`` over 13 encoder
+    frames, then ``cross_attn_apply`` (the flash wrapper, non-causal, Sq
+    != Sk) and, for one query, ``cross_attn_decode`` (the decode
+    wrapper over every slot) against the reference's ``cross_attn_apply``
+    (its plain ``_sdpa``: probabilities cast to v's dtype, so the ``ref``
+    tolerances)."""
+    h = 4
+    jp = ja.cross_attn_init(jax.random.key(3), D, h, HD, jnp.float32)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    assert set(tp) == {"wq", "wk", "wv", "wo"} and "b" in tp["wk"]
+    rng = np.random.default_rng(7)
+    enc, x = rng.normal(size=(2, 13, D)), rng.normal(size=(2, sq, D))
+    cj, ct = getattr(jnp, dtype), getattr(torch, dtype)
+    jkv = ja.precompute_cross_kv(jp, jnp.asarray(enc, jnp.float32), h, HD, cj)
+    tkv = ta.precompute_cross_kv(tp, torch.tensor(enc, dtype=torch.float32), h, HD, ct)
+    for g, w in zip(tkv, jkv):
+        _close(g, w, dtype, "kernel")
+    want = ja.cross_attn_apply(jp, jnp.asarray(x, jnp.float32), jkv, n_heads=h, head_dim=HD,
+                               compute_dtype=cj)
+    tx = torch.tensor(x, dtype=torch.float32)
+    got = ta.cross_attn_apply(tp, tx, tkv, n_heads=h, head_dim=HD, compute_dtype=ct)
+    assert got.dtype == ct and got.shape == (2, sq, D)
+    _close(got, want, dtype, "ref")
+    if sq == 1:
+        dec = ta.cross_attn_decode(tp, tx, tkv, n_heads=h, head_dim=HD, compute_dtype=ct)
+        _close(dec, want, dtype, "ref")

@@ -45,7 +45,9 @@ def _port_sources():
             "models/transformer.py", "kernels/decode_attention/ops.py",
             "kernels/flash_attention/ops.py", "examples/serve_decode.py",
             "core/dynamics.py", "core/heterogeneity.py", "benchmarks/churn_ehr.py",
-            "benchmarks/staleness_ehr.py", "benchmarks/straggler_ehr.py"} <= names
+            "benchmarks/staleness_ehr.py", "benchmarks/straggler_ehr.py",
+            "models/moe.py", "models/encdec.py", "configs/shapes.py",
+            "configs/whisper_medium.py", "configs/dbrx_132b.py"} <= names
     assert len(files) > 20
     return files
 
@@ -69,7 +71,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.benchmarks.straggler_ehr, repro_torch.launch.train, "
             "repro_torch.examples.quickstart, repro_torch.examples.serve_consensus, "
             "repro_torch.examples.train_100m, repro_torch.benchmarks.serve_load, "
-            "repro_torch.data.tokens; "
+            "repro_torch.data.tokens, repro_torch.models.moe, repro_torch.models.encdec, "
+            "repro_torch.configs.shapes, repro_torch.configs.whisper_medium, "
+            "repro_torch.configs.dbrx_132b, repro_torch.configs.internvl2_26b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

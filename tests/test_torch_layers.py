@@ -151,3 +151,62 @@ def test_init_shapes_and_scales():
     assert tl.rmsnorm_init(8, lead=(2,), device="cpu")["scale"].eq(1).all()
     m = tl.dense_init(None, 4, 5, "meta")
     assert m["w"].device.type == "meta" and m["w"].shape == (4, 5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm(dtype):
+    """LayerNorm with its bias (the enc-dec family's norm): the population
+    variance, as ``jnp.var``, in fp32, cast back to the input's dtype."""
+    rng = np.random.default_rng(5)
+    x = 3.0 * rng.normal(size=(2, 5, 96)) + 1.5
+    scale, bias = 1.0 + 0.1 * rng.normal(size=(96,)), 0.1 * rng.normal(size=(96,))
+    jx, tx = _pair(x, dtype)
+    want = jl.layernorm({"scale": jnp.asarray(scale, jnp.float32),
+                         "bias": jnp.asarray(bias, jnp.float32)}, jx, 1e-5)
+    got = tl.layernorm({"scale": torch.tensor(scale, dtype=torch.float32),
+                        "bias": torch.tensor(bias, dtype=torch.float32)}, tx, 1e-5)
+    assert got.dtype == tx.dtype
+    _check(got, want, dtype)
+    init = tl.layernorm_init(8, lead=(2,), device="cpu")
+    assert init["scale"].eq(1).all() and not init["bias"].any()
+    assert init["bias"].shape == (2, 8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gelu_mlp(dtype):
+    """up -> tanh-approximate GELU (``jax.nn.gelu``'s default) -> down,
+    both with biases; at bf16 within one ulp of the output's scale, as
+    the SwiGLU."""
+    rng = np.random.default_rng(6)
+    d, ff = 32, 64
+    x = rng.normal(size=(2, 3, d))
+    p = {"up": {"w": rng.normal(size=(d, ff)) * d ** -0.5, "b": 0.1 * rng.normal(size=(ff,))},
+         "down": {"w": rng.normal(size=(ff, d)) * ff ** -0.5, "b": 0.1 * rng.normal(size=(d,))}}
+    jp = {k: {n: jnp.asarray(a, jnp.float32) for n, a in v.items()} for k, v in p.items()}
+    tp = {k: {n: torch.tensor(a, dtype=torch.float32) for n, a in v.items()}
+          for k, v in p.items()}
+    want = jl.gelu_mlp(jp, jnp.asarray(x, jnp.float32), getattr(jnp, dtype))
+    got = tl.gelu_mlp(tp, torch.tensor(x, dtype=torch.float32), getattr(torch, dtype))
+    if dtype == "float32":
+        _check(got, want, dtype)
+    else:
+        err = np.abs(_np(got) - _np(want))
+        assert err.max() <= _bf16_ulp(np.abs(_np(want)).max()), err.max()
+    shapes = {k: {n: tuple(a.shape) for n, a in v.items()}
+              for k, v in tl.gelu_mlp_init(None, d, ff, device="meta").items()}
+    assert shapes == {k: {n: a.shape for n, a in v.items()} for k, v in p.items()}
+
+
+def test_uniform_init():
+    """``U(-scale, scale)`` from a torch.Generator (the reference draws
+    from jax.random): the range, the dtype, a seed's reproducibility, and
+    shapes only on the meta device."""
+    a = tl.uniform_init(torch.Generator().manual_seed(0), (64, 128), 0.5, device="cpu")
+    b = tl.uniform_init(torch.Generator().manual_seed(0), (64, 128), 0.5, device="cpu")
+    assert torch.equal(a, b) and a.dtype == torch.float32
+    assert float(a.min()) >= -0.5 and float(a.max()) < 0.5
+    assert abs(float(a.mean())) < 0.02 and abs(float(a.std()) - 0.5 / 3 ** 0.5) < 0.01
+    h = tl.uniform_init(torch.Generator().manual_seed(0), (8,), 1.0, torch.bfloat16, "cpu")
+    assert h.dtype == torch.bfloat16
+    m = tl.uniform_init(None, (3, 4), 1.0, device="meta")
+    assert m.device.type == "meta" and m.shape == (3, 4)

@@ -158,32 +158,31 @@ def test_sliding_override_uses_a_window_ring_buffer():
 
 
 def test_unported_families_raise():
-    """What stays unported: an unported arch id, MoE blocks (a moe
-    config, and a moe layer in a hybrid pattern) and the audio (enc-dec)
-    family. Training is ported: the bundle's node-batched ``loss_fn``
-    gives one loss a node (``tests/test_torch_lm_loss.py`` holds it to the
-    reference)."""
-    from repro_torch.configs.base import ModelConfig
-
-    with pytest.raises(NotImplementedError, match="item 16"):
-        get_config("dbrx-132b")
+    """Every family of the reference's registry is ported now (the MoE,
+    VLM and enc-dec ones in ``tests/test_torch_model_zoo.py``); what
+    still raises is what the reference refuses too: an unknown arch id
+    (``KeyError``, the reference's message) and an unknown block kind in
+    a pattern (``ValueError``). A ``moe`` layer in a hybrid pattern
+    builds, as the reference allows. Training is ported: the bundle's
+    node-batched ``loss_fn`` gives one loss a node
+    (``tests/test_torch_lm_loss.py`` holds it to the reference)."""
+    with pytest.raises(KeyError, match="unknown arch 'gpt-5'"):
+        get_config("gpt-5")
     base = get_config("smollm-360m", smoke=True)
-    moe = dataclasses.replace(base, family="moe", n_experts=4, experts_per_token=1)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(moe)
-    hybrid = dataclasses.replace(base, family="hybrid",
+    with pytest.raises(ValueError, match="unknown block kind"):
+        build_model(dataclasses.replace(base, family="hybrid",
+                                        block_pattern=("recurrent", "conv")))
+    hybrid = dataclasses.replace(base, family="hybrid", n_experts=4, experts_per_token=1,
                                  block_pattern=("recurrent", "moe"))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(hybrid)
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        build_model(ModelConfig(name="a", family="audio", n_layers=1, d_model=64,
-                                n_heads=1, n_kv_heads=1, d_ff=64, vocab_size=64))
+    bundle = build_model(hybrid)
+    assert "moe" in bundle.param_shapes()["blocks"][1]
     from repro_torch.core.fl import tree_map
 
-    params = build_model(base).init_fn(torch.Generator().manual_seed(0), device="cpu")
-    losses = build_model(base).loss_fn(tree_map(lambda a: a[None], params),
-                                       {"tokens": torch.zeros((1, 1, 9), dtype=torch.long)})
-    assert losses.shape == (1,) and torch.isfinite(losses).all()
+    for cfg in (base, hybrid):
+        params = build_model(cfg).init_fn(torch.Generator().manual_seed(0), device="cpu")
+        losses = build_model(cfg).loss_fn(tree_map(lambda a: a[None], params),
+                                          {"tokens": torch.zeros((1, 1, 9), dtype=torch.long)})
+        assert losses.shape == (1,) and torch.isfinite(losses).all()
 
 
 def test_param_shapes_match_the_reference_tree():
