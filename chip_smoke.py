@@ -23,8 +23,8 @@ widths and lengths and the serving paths' shapes, RG-LRU bitwise), drives the po
 fused engine, FD-DSGD, FD-DSGT under bounded staleness k = 2, FD-DSGD at
 k = 4, the pipelined FD-DSGT round, the top-64 wire, the paper's Fig. 2
 (DSGD, DSGT, FD-DSGD and FD-DSGT at Q = 100 on the exact-wire tree
-engine, 3000 iterations each, against the same run on the CPU), the
-compressed FD-DSGT composition (the flat engine, then
+engine, 3000 iterations each, against the same run on the CPU, which
+runs on the host while the kernels build), the compressed FD-DSGT composition (the flat engine, then
 ``make_compressed_flat_gossip`` on each wire, against the fused engine),
 the sharded engine on a one-rank NCCL group (FD-DSGD and FD-DSGT,
 sequential and pipelined, on the compact top-16 and top-64 wires and the
@@ -90,6 +90,22 @@ against the host CPU; (z4) the attention kernels at the zoo's shapes
 cross-attention and its 1,500-slot cross cache) timed against their
 twins, bounds and ``scaled_dot_product_attention``, after phase 2 held
 them to their twins.
+Phase 4's kernel rows come from ``repro_torch.benchmarks.kernel_bench``,
+which holds the byte and operation counts of every bound.
+Phase 7 runs bf16 flat storage and the standalone drivers: (b1) the
+paper's configuration on the fused engine with bf16 params, tracker and
+previous gradient (FD-DSGT sequential, k = 2 and top-64, FD-DSGD), the
+buffers still bf16, the wire bytes fp32's, against the same runs on the
+CPU twins and the fp32 runs on the card; (b2) the sharded engine with
+bf16 storage on a one-rank NCCL group against the fused engine (the
+dense wire within one bf16 ulp after a round); (b3) SmolLM-360M from a
+bf16 snapshot (half the bytes), served with a hot swap, its prefill
+logits against the fp32 snapshot's; (b4) ``launch/train.py --no-smoke
+--fl-engine fused`` on SmolLM-360M, fp32 then bf16 storage, the final
+state's dtypes and the peak memory by stage side by side; (d)
+``benchmarks/run.py --fast`` (Theorem 1, the byte table, the ablations)
+against the same drivers on the host CPU; then the bf16 round (profiled
+in phase 4) and comm step beside fp32's.
 Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
@@ -101,7 +117,7 @@ Output: progress lines, then the card's name and power limit as
 
 from __future__ import annotations
 
-import ctypes
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -114,6 +130,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -121,7 +138,6 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
-import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.benchmarks import (  # noqa: E402
     churn_ehr,
@@ -140,6 +156,7 @@ from repro_torch.core.compression import (  # noqa: E402
     make_compressed_flat_gossip,
 )
 from repro_torch.core.dynamics import _as_key, parse_program  # noqa: E402
+from repro_torch.core import engine as engine_module  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
     FlatEngine,
     FusedEngine,
@@ -178,12 +195,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.gossip import ops as gossip_wrappers  # noqa: E402
 from repro_torch.kernels.gossip.ops import (  # noqa: E402
-    GOSSIP_STAGE,
-    compact_gt_plan,
     fused_round,
     fused_round_gt,
     gossip_mix,
-    plan_round,
     wire_stage,
     wire_stage_compact,
     wire_stage_gt,
@@ -192,15 +206,37 @@ from repro_torch.kernels.gossip.ops import (  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import rglru_scan  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import wkv6  # noqa: E402
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref  # noqa: E402
 from repro_torch.kernels.gossip.ref import (  # noqa: E402
     fused_round_gt_ref,
-    fused_round_ref,
     gossip_mix_ref,
-    wire_stage_compact_ref,
-    wire_stage_gt_compact_ref,
-    wire_stage_gt_ref,
-    wire_stage_ref,
+)
+from repro_torch.benchmarks import ablations, thm1_speedup  # noqa: E402
+from repro_torch.benchmarks import kernel_bench as kb  # noqa: E402
+from repro_torch.benchmarks import run as run_all  # noqa: E402
+from repro_torch.benchmarks.kernel_bench import (  # noqa: E402
+    ALL_KERNELS,
+    ALPHA,
+    ATTENTION_KERNELS,
+    COMPACT_KERNELS,
+    HBM_BYTES_S,
+    KERNELS,
+    LARGE,
+    MAIN,
+    SCAN_KERNELS,
+    TOPK_MAIN,
+    WIRE_KERNELS,
+    bound,
+    combine_inputs,
+    device_ms,
+    fused_plan,
+    lru_inputs,
+    make_inputs,
+    mix_terms,
+    round_bytes,
+    round_ops,
+    weights,
+    wkv_inputs,
+    wkv_twin,
 )
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.mesh import NodeGroup, start_group, stop_group  # noqa: E402
@@ -219,16 +255,6 @@ from repro_torch.training.trainer import (  # noqa: E402
     train_decentralized,
 )
 
-CSRC = "src/repro_torch/kernels/gossip/csrc/"
-KERNELS = {
-    # name: (wrapper, twin, wires, TPU kernel it replaces, source)
-    "fused_round": (fused_round, fused_round_ref, 1,
-                    "src/repro/kernels/gossip/gossip.py:421",
-                    CSRC + "fused_round_cluster.cu"),
-    "fused_round_gt": (fused_round_gt, fused_round_gt_ref, 2,
-                       "src/repro/kernels/gossip/gossip.py:476",
-                       CSRC + "fused_round_cluster.cu"),
-}
 # The redesigned kernels' times in their earlier designs, us, CUDA events,
 # median of 60, on an H100 80GB HBM3 at 700 W, printed in brackets beside
 # the present times: the round kernels and the gossip stage on one
@@ -245,41 +271,6 @@ EARLIER_US = {
     ("wire_stage_gt_compact", "main"): 40.02, ("wire_stage_gt_compact", "large"): 2150.38,
     ("wire_stage_gt_compact", "main top-16"): 37.34,
 }
-WIRE_KERNELS = {
-    "wire_stage": (wire_stage, wire_stage_ref, 1,
-                   "src/repro/kernels/gossip/gossip.py:631", CSRC + "wire_stage.cu"),
-    "wire_stage_gt": (wire_stage_gt, wire_stage_gt_ref, 2,
-                      "src/repro/kernels/gossip/gossip.py:679", CSRC + "wire_stage.cu"),
-}
-GOSSIP_KERNELS = {
-    "gossip_mix": (gossip_mix, gossip_mix_ref, GOSSIP_STAGE,
-                   "src/repro/kernels/gossip/gossip.py:378",
-                   CSRC + "fused_round_cluster.cu"),
-}
-ALL_KERNELS = {**GOSSIP_KERNELS, **KERNELS, **WIRE_KERNELS}
-COMPACT_KERNELS = {
-    "wire_stage_compact": (wire_stage_compact, wire_stage_compact_ref, 1,
-                           "src/repro/kernels/gossip/gossip.py:853",
-                           CSRC + "wire_stage_compact.cu"),
-    "wire_stage_gt_compact": (wire_stage_gt_compact, wire_stage_gt_compact_ref, 2,
-                              "src/repro/kernels/gossip/gossip.py:926",
-                              CSRC + "wire_stage_compact.cu"),
-}
-ATTENTION_KERNELS = {
-    # name: (TPU kernel it replaces, source)
-    "decode_attention": ("src/repro/kernels/decode_attention/decode_attention.py:80",
-                         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"),
-    # the path runs bf16: the tensor-core kernel (fp32 goes to flash_attention.cu)
-    "flash_attention": ("src/repro/kernels/flash_attention/flash_attention.py:113",
-                        "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu"),
-}
-SCAN_KERNELS = {
-    # name: (TPU kernel it replaces, source)
-    "wkv6": ("src/repro/kernels/rwkv6_scan/rwkv6_scan.py:78",
-             "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu"),
-    "rglru_scan": ("src/repro/kernels/rglru_scan/rglru_scan.py:55",
-                   "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"),
-}
 WRAPPERS = [gossip_mix, fused_round, fused_round_gt, wire_stage, wire_stage_gt,
             wire_stage_compact, wire_stage_gt_compact, decode_attention, flash_attention,
             wkv6, rglru_scan]
@@ -288,20 +279,14 @@ WRAPPERS = [gossip_mix, fused_round, fused_round_gt, wire_stage, wire_stage_gt,
 # shape that makes the kernel bandwidth-bound, and the backbone scope's
 # wire at chunk 128 (1,376 shared columns of the MLP's 1,536, padded to 11
 # chunks: the personalization driver's geometry)
-SHAPES = [
-    ("main", 20, 1536, 512, "hospital20"),
-    ("zero-chunk", 7, 384, 128, "complete"),
-    ("large", 64, 1 << 20, 512, "torus:8x8"),
-    ("scope", 20, 1408, 128, "hospital20"),
-]
+SHAPES = [MAIN, ("zero-chunk", 7, 384, 128, "complete"), LARGE,
+          ("scope", 20, 1408, 128, "hospital20")]
 FLAGS = list(itertools.product([True, False], repeat=3))  # ef, dc, stale
 EF_DC = list(itertools.product([True, False], repeat=2))
-ALPHA = np.float32(0.02)
 # DSGT wire bytes per round on hospital20 (2 wires x 54 directed edges x
 # (1536 int8 + 3 fp32 scales)); DSGD ships one wire; the top-64 wire
 # ships 132 B per chunk (64 values, a 64 B presence bitmap, the scale)
 WIRE_DSGT, WIRE_DSGD, WIRE_TOP64 = 167_184, 83_592, 42_768
-TOPK_MAIN = 64  # the reference example's --topk
 # The sharded engine's wires on the paper's buffer at chunk 512: top-16
 # ships int16 positions (32 B < a 64 B bitmap), top-64 the bitmap (64 B <
 # 128 B); per-round bytes (all nodes) by (topk, algorithm)
@@ -313,13 +298,8 @@ FIG2_ITERATIONS = 3000  # the paper's budget per algorithm
 # final Fig. 2 losses, card against CPU: the exact wire has no int8 step
 # to flip, so the runs differ only by fp32 summation order (the port's
 # CPU run and the reference's agree within 5e-7 relative over 3000
-# iterations)
+# iterations). The CPU run needs no kernel: it runs while they build.
 FIG2_RTOL = 1e-4
-
-# Published peaks of the H100 SXM (NVIDIA data sheet): HBM bytes/s, fp32
-# operations/s outside the tensor cores and dense bf16 tensor-core
-# operations/s, at its full 700 W limit.
-HBM_BYTES_S, FP32_OPS_S, BF16_OPS_S = 3.35e12, 67e12, 989e12
 
 # The serving path: SmolLM-360M at full width (32 layers, d_model 960, 15
 # q-heads over 5 kv-heads, vocab 49,152), random weights from seeded CUDA
@@ -327,9 +307,10 @@ HBM_BYTES_S, FP32_OPS_S, BF16_OPS_S = 3.35e12, 67e12, 989e12
 # (191 decode steps), a second weight set published after step 150.
 SERVE_ARCH, SERVE_BATCH, SERVE_MAX_SEQ = "smollm-360m", 8, 4096
 SERVE_PROMPT, SERVE_NEW, SWAP_AFTER, CPU_STEPS = 128, 64, 150, 16
-# attention kernel vs twin: fp32 within 1e-5; bf16 within 1.6e-2 x (1 +
-# |twin|) (inputs and output rounded to bf16, sums in another order)
-ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+# phase 4's decode-step profiles of the three served models fill the cache
+# with the prompt's first PROFILE_PROMPT tokens, one decode step each (the
+# host-bound step's time hardly depends on the cache's length)
+PROFILE_PROMPT = 32
 # bf16 logits of two computations of one model (decode replay vs prefill,
 # card vs host CPU): 5e-2 x max(1, max|logit|), the reference suite's own
 # tolerance for decode vs prefill (tests/test_serving.py)
@@ -450,202 +431,6 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def round_bytes(n: int, t: int, chunk: int, wires: int) -> int:
-    """HBM bytes one round kernel must move: each (n, t) input read once
-    (DSGD 4, DSGT 8), each output written once (3 / 6), the weights, the
-    scales and alpha."""
-    bufs = (4 + 3) if wires == 1 else (8 + 6)
-    return 4 * (n * t * bufs + n * n + n + wires * n * (t // chunk) + 1)
-
-
-def stage_ops(n: int, t: int, chunk: int, topk=None) -> int:
-    """fp32 operations of the quantize-EF stage of one wire, counted from
-    csrc/quantize.cuh with error feedback and difference coding on. Per
-    element: payload (sub, add), |payload| and its max, divide, rint,
-    clip (min, max), q * scale, recon' (add), res' (sub); with the top-k
-    mask also 31 search steps of |payload| and a compare, and the mask's
-    own |payload| and compare. Per (row, chunk): max / 127 and the safe
-    select."""
-    per_element = 11 + (2 * 31 + 2 if topk else 0)
-    return n * t * per_element + 2 * n * (t // chunk)
-
-
-def update_ops(n: int, t: int, wires: int) -> int:
-    """The local update, per element once: 2 for DSGD (mul, sub), 4 for
-    DSGT (t_half: add, sub; h: mul, sub)."""
-    return n * t * 2 * wires
-
-
-def mix_terms(w_off: torch.Tensor) -> float:
-    """The multiply-adds a row of the round kernels' mix takes, averaged
-    over the rows: the kernel runs 4 x 4 blocks of W_off and skips the
-    all-zero ones, so a row group of 4 rows takes 4 terms for each
-    nonzero block of its 4 rows (at most n)."""
-    w = w_off.detach().cpu().numpy() != 0
-    n = w.shape[0]
-    n_pad = -(-n // 4) * 4
-    pad = np.zeros((n_pad, n_pad), bool)
-    pad[:n, :n] = w
-    blocks = pad.reshape(n_pad // 4, 4, n_pad // 4, 4).any(axis=(1, 3))
-    return float(np.mean([min(n, 4 * int(blocks[i // 4].sum())) for i in range(n)]))
-
-
-def round_ops(n: int, t: int, chunk: int, wires: int, topk=None, terms=None) -> int:
-    """Operations of one round kernel (csrc/fused_round_cluster.cu), per
-    element and wire: payload (sub, add), |payload| and its max, divide,
-    rint, clip (min, max), q * scale, recon' (add), res' (sub); with the
-    top-k mask also the mask's |payload| and compare and the radix
-    select's 4 passes (a candidate compare and a histogram add each); then
-    w_self * src + mix (mul, add) and the multiply-adds of the mix,
-    ``terms`` a row (:func:`mix_terms` of this run's W_off; n if dense).
-    Per (row, chunk): max / 127 and the safe select. Plus the local
-    update."""
-    terms = n if terms is None else terms
-    per_element = 11 + (2 + 4 * 2 if topk else 0) + 2 + 2 * terms
-    per_wire = int(n * t * per_element) + 2 * n * (t // chunk)
-    return wires * per_wire + update_ops(n, t, wires)
-
-
-def gossip_bytes(n: int, t: int, chunk: int) -> int:
-    """HBM bytes one gossip-stage kernel must move: x, recon and res read
-    once, mixed, recon' and res' written once, the scales and the
-    weights."""
-    return 4 * (n * t * 6 + n * (t // chunk) + n * n + n)
-
-
-def radix_adds(payload: torch.Tensor, chunk: int, topk: int) -> int:
-    """The histogram adds of the radix select (csrc/select.cuh) over this
-    run's payload rows, one select a (row, chunk): the first pass adds
-    every element, a later pass those whose bits above its digit equal the
-    threshold's (the k-th largest |payload|)."""
-    mag = payload.abs().reshape(-1, chunk)
-    thr = torch.kthvalue(mag, chunk - topk + 1, dim=1, keepdim=True).values
-    bits, tbits = mag.view(torch.int32), thr.view(torch.int32)
-    return mag.numel() + sum(int(((bits >> s) == (tbits >> s)).sum()) for s in (24, 16, 8))
-
-
-def gossip_ops(n: int, t: int, chunk: int, topk=None, terms=None, adds: int = 0) -> int:
-    """Operations of one gossip-stage launch (``round_kernel`` with no
-    update in csrc/fused_round_cluster.cu), counted for this run's data,
-    per element: payload (sub, add), |payload| and its max, divide, rint,
-    clip (min, max), q * scale, recon' (add), res' (sub); with the top-k
-    mask also the mask's |payload| and compare, the radix select's
-    candidate compare in each of its 4 passes and its ``adds``
-    (:func:`radix_adds`); then w_self * x + mix (mul, add) and the mix's
-    multiply-adds, ``terms`` a row (:func:`mix_terms`). Per (row, chunk):
-    max / 127 and the safe select. The bytes bound it several times over."""
-    terms = n if terms is None else terms
-    per_element = 11 + (2 + 4 if topk else 0) + 2 + 2 * terms
-    return int(n * t * per_element) + adds + 2 * n * (t // chunk)
-
-
-def wire_bytes_moved(n: int, t: int, chunk: int, wires: int) -> int:
-    """HBM bytes one wire-stage kernel must move: each (n, t) fp32 input
-    read once (DSGD 4, DSGT 8), each output written once (DSGD h,
-    recon', res' and the int8 q; DSGT also t_half and a second wire),
-    the scales and alpha."""
-    if wires == 1:
-        return 4 * (4 + 3) * n * t + n * t + 4 * n * (t // chunk) + 4
-    return 4 * (8 + 6) * n * t + 2 * n * t + 2 * 4 * n * (t // chunk) + 4
-
-
-def wire_ops(n: int, t: int, chunk: int, wires: int, topk=None) -> int:
-    """fp32 operations of one wire-stage kernel (csrc/wire_stage.cu)."""
-    return wires * stage_ops(n, t, chunk, topk) + update_ops(n, t, wires)
-
-
-def compact_bytes_moved(n: int, t: int, chunk: int, wires: int, topk: int,
-                        bitmap: bool) -> int:
-    """HBM bytes one compact wire-stage kernel must move: each (n, t) fp32
-    input read once (DSGD 4, DSGT 8), h (and t_half) and each wire's
-    recon' and res' written once, and each wire's compact payload: k int8
-    values and k int16 positions, or the chunk/8-byte bitmap, and one fp32
-    scale per (row, chunk); alpha."""
-    c = t // chunk
-    payload = n * c * (topk + (chunk // 8 if bitmap else 2 * topk) + 4)
-    return 4 * ((4 + 3) if wires == 1 else (8 + 6)) * n * t + wires * payload + 4
-
-
-def compact_ops(n: int, t: int, chunk: int, topk: int, bitmap: bool) -> int:
-    """Operations of one DSGD compact wire-stage launch
-    (``compact_stage`` in csrc/wire_stage_compact.cu): per element the
-    payload (sub, add), |payload| and its max, 31 threshold-search steps
-    (|p|, compare), the above/equal counts (3 compares) and the
-    recon'/res' pass (select, add, sub); per survivor the quantize twice
-    (divide, rint, min, max) and q * scale + 0; with positions also the
-    rank over the k survivors (2 compares each); per (row, chunk) the
-    scale's divide and select. Plus the local update."""
-    c = t // chunk
-    return (n * t * (4 + 2 * 31 + 3 + 3) + n * c * topk * (10 + (0 if bitmap else 2 * topk))
-            + 2 * n * c + update_ops(n, t, 1))
-
-
-def compact_gt_payloads(x, t, g, gp, rx, sx, rt, st) -> list:
-    """The DSGT compact stage's two payloads with error feedback and
-    difference coding (the timed flags)."""
-    t_half = (t + g) - gp
-    h = x - torch.tensor(ALPHA, device=x.device) * t_half
-    return [(t_half - rt) + st, (h - rx) + sx]
-
-
-def compact_gt_ops(n: int, t: int, chunk: int, topk: int, bitmap: bool, adds: int) -> int:
-    """Operations of one DSGT compact wire-stage launch
-    (``wire_stage_gt_compact_kernel`` in csrc/wire_stage_compact.cu),
-    counted for this run's data, per wire: per element the payload (sub,
-    add), |payload| and its max, the radix select's candidate compare in
-    each of its 4 passes, the above/at compares and the recon'/res' pass
-    (add, sub); the select's histogram ``adds`` (:func:`radix_adds`, both
-    wires); per survivor the quantize (divide, rint, min, max) and q *
-    scale + 0, with positions the rank (2 compares over the k survivors)
-    and the quantize again; per (row, chunk) the scale's divide and
-    select. Plus the local update. The bytes bound it several times over."""
-    c = t // chunk
-    per_wire = (n * t * (4 + 4 + 2 + 2) + n * c * topk * (6 + (0 if bitmap else 2 * topk + 4))
-                + 2 * n * c)
-    return 2 * per_wire + adds + update_ops(n, t, 2)
-
-
-def bound(nbytes: int, ops: int):
-    """The least time on the card, ms, and what bounds it."""
-    bytes_s, ops_s = nbytes / HBM_BYTES_S, ops / FP32_OPS_S
-    return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations")
-
-
-def make_inputs(n: int, t: int, chunk: int, wires: int, label: str, seed: int,
-                ties: bool = False):
-    """The kernel's (n, t) inputs: x, recon, res for the gossip stage
-    (``wires`` 0), x, g, recon, res for DSGD (1), x, t, g, g_prev and two
-    (recon, res) pairs for DSGT (2)."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    scales = {0: [1.0, 1.0, 0.1], 1: [1.0, 1.0, 1.0, 0.1],
-              2: [1.0, 0.3, 0.5, 0.5, 1.0, 0.1, 1.0, 0.1]}[wires]
-    bufs = [s * torch.randn(n, t, generator=gen, device="cuda") for s in scales]
-    if label == "zero-chunk":
-        for b in bufs:  # payload of (row 3, chunk 1) is exactly zero
-            b[3, chunk:2 * chunk] = 0.0
-    if ties:
-        # (row 0, chunk 0): every input zero but x (gossip stage, DSGD) or
-        # the tracker t (DSGT), which carry magnitudes 3, 2 and 1 with random signs
-        # (chunk/8 threes, chunk/4 twos): top-k at k = chunk/4 has its
-        # threshold at 2 and must keep all chunk/8 + chunk/4 columns
-        mags = torch.ones(chunk, device="cuda")
-        mags[: chunk // 8] = 3.0
-        mags[chunk // 8: chunk // 8 + chunk // 4] = 2.0
-        signs = torch.randint(0, 2, (chunk,), generator=gen, device="cuda") * 2.0 - 1.0
-        perm = torch.randperm(chunk, generator=gen, device="cuda")
-        for b in bufs:
-            b[0, :chunk] = 0.0
-        bufs[1 if wires == 2 else 0][0, :chunk] = (mags * signs)[perm]
-    return bufs
-
-
-def weights(topology: str, n: int):
-    w = mixing_matrix(topology, n)
-    w_self = torch.tensor(np.diag(w).astype(np.float32), device="cuda")
-    w_off = torch.tensor((w - np.diag(np.diag(w))).astype(np.float32), device="cuda")
-    return w_off, w_self
-
-
 def shape_topks(chunk: int):
     """The round kernels' top-k cases: dense, the reference example's 64
     at chunk 512, and k = chunk/8 at a smaller chunk."""
@@ -709,13 +494,6 @@ def check_kernels() -> dict:
             f"bitwise, mixed max err {max_err[name]:.3e}")
         torch.cuda.empty_cache()
     return max_err
-
-
-def fused_plan(name: str, n: int, t: int, chunk: int, topk):
-    """The cluster plan (C, columns a block, shared memory bytes) of a
-    round kernel or the gossip stage on this card."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return plan_round(n, t, chunk, topk, {**KERNELS, **GOSSIP_KERNELS}[name][2], sms)
 
 
 def check_wire_stages() -> dict:
@@ -928,17 +706,6 @@ FLASH_SHAPES = [
 ]
 
 
-def _attn_err(name: str, label: str, got, want, dtype) -> float:
-    got, want = got.float(), want.float()
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        raise AssertionError(f"{name} {label} {dtype}: bad output")
-    excess = float(((got - want).abs() - ATTN_TOL[dtype] * (1 + want.abs())).max())
-    if excess > 0:
-        raise AssertionError(f"{name} {label} {dtype}: off the twin by "
-                             f"{float((got - want).abs().max())}")
-    return float((got - want).abs().max())
-
-
 def check_attention_kernels() -> dict:
     """Both attention kernels against their twins on the card, bf16 and
     fp32, at the tests' shapes and SmolLM-360M's."""
@@ -959,7 +726,7 @@ def check_attention_kernels() -> dict:
                 raise AssertionError(f"decode_attention {label}: {splits} splits but "
                                      f"{decode_attention.combine_launches - combined} "
                                      f"combine launches")
-            err = _attn_err("decode_attention", label, got, decode_attention_ref(q, k, v, n_valid),
+            err = kb.attn_err("decode_attention", label, got, decode_attention_ref(q, k, v, n_valid),
                             dtype)
             if 0 in nv and got[nv.index(0)].any():
                 raise AssertionError(f"decode_attention {label}: n_valid = 0 row not zero")
@@ -974,7 +741,7 @@ def check_attention_kernels() -> dict:
                     for _ in range(2))
             got = flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
-            err = _attn_err("flash_attention", label, got,
+            err = kb.attn_err("flash_attention", label, got,
                             attention_ref(q, k, v, causal=causal, window=window), dtype)
             max_err["flash_attention"] = max(max_err["flash_attention"], err)
             log(f"  flash_attention == twin at {label} (B {b}, Sq {sq}, Sk {sk}, H {h}, "
@@ -984,18 +751,6 @@ def check_attention_kernels() -> dict:
             torch.cuda.empty_cache()
     max_err["decode_attention_combine"] = check_combine()
     return max_err
-
-
-def combine_inputs(splits: int, b: int, h: int, hd: int, gen):
-    """Partials of a split decode: fp32 acc (S, B, H, hd) and m, l (2, S,
-    B, H), the last split of every row and all of row 0 empty (m = -inf,
-    l = 0)."""
-    acc = torch.randn(splits, b, h, hd, generator=gen, device="cuda")
-    m = torch.randn(splits, b, h, generator=gen, device="cuda") * 4
-    l = torch.rand(splits, b, h, generator=gen, device="cuda") * 100 + 1
-    for sel in ((-1,), (slice(None), 0)):
-        acc[sel], m[sel], l[sel] = 0.0, float("-inf"), 0.0
-    return acc, torch.stack([m, l]).contiguous()
 
 
 def check_combine() -> float:
@@ -1009,7 +764,7 @@ def check_combine() -> float:
         acc, ml = combine_inputs(splits, b, h, hd, gen)
         got = combine_partials(acc, ml, torch.empty(b, 1, h, hd, dtype=dtype, device="cuda"))
         torch.cuda.synchronize()
-        err = _attn_err("decode_attention_combine", f"{splits} splits", got,
+        err = kb.attn_err("decode_attention_combine", f"{splits} splits", got,
                         combine_partials_ref(acc, ml[0], ml[1], dtype), dtype)
         if got[0].any():
             raise AssertionError("decode_attention_combine: an all-empty row is not zero")
@@ -1046,40 +801,6 @@ LRU_SHAPES = [
     ("S 4096", 8, 4096, 2560), ("W 200", 2, 100, 200), ("W 199", 3, 45, 199),
     ("S 33", 2, 33, 256),
 ]
-
-
-def wkv_inputs(b: int, s: int, h: int, decay: str, gen):
-    """r, k, v, log_w (B, S, H, 64), u (H, 64), s0 (B, H, 64, 64) on the
-    card, drawn as the reference suite draws them: r, v ~ N(0, 1), k ~
-    N(0, 1/4), log_w = -exp(N(-1, 1)), u ~ N(0, 0.09), s0 ~ N(0, 0.01)."""
-    def rand(*shape, scale=1.0):
-        return scale * torch.randn(*shape, generator=gen, device="cuda")
-
-    r, k, v = rand(b, s, h, 64), rand(b, s, h, 64, scale=0.5), rand(b, s, h, 64)
-    log_w = -torch.exp(rand(b, s, h, 64) - 1.0)
-    if decay == "strong":
-        log_w.fill_(-math.exp(10.0))
-    elif decay == "none":
-        log_w.fill_(-1e-6)
-    return r, k, v, log_w, rand(h, 64, scale=0.3), rand(b, h, 64, 64, scale=0.1)
-
-
-def wkv_twin(r, k, v, log_w, u, s0):
-    """The twin in the model layout (it takes the folded one)."""
-    b, s, h, hd = r.shape
-
-    def fold(a):
-        return a.transpose(1, 2).reshape(b * h, s, hd)
-
-    y, s_fin = wkv6_ref(fold(r), fold(k), fold(v), fold(log_w),
-                        u[None].expand(b, h, hd).reshape(b * h, hd), s0.reshape(b * h, hd, hd))
-    return y.reshape(b, h, s, hd).transpose(1, 2), s_fin.reshape(b, h, hd, hd)
-
-
-def lru_inputs(b: int, s: int, w: int, gen):
-    log_a = -torch.exp(torch.randn(b, s, w, generator=gen, device="cuda"))
-    return (log_a, torch.randn(b, s, w, generator=gen, device="cuda"),
-            torch.randn(b, w, generator=gen, device="cuda"))
 
 
 def _scan_err(name: str, label: str, got, want) -> float:
@@ -1172,14 +893,14 @@ def against_cpu(what: str, out: dict, **kw) -> None:
         f"bal_acc {out['bal_acc']:.4f} vs {cpu['bal_acc']:.4f}")
 
 
-def dsgd_run(**kw):
+def dsgd_run(rounds: int = 3, device: str = "cuda", **kw):
     data = generate_ehr_cohort(seed=0)
     run = FLRunConfig(algorithm="dsgd", q=10, topology="hospital20", n_nodes=20,
                       batch_per_node=20, alpha0=0.02)
     return train_decentralized(
-        make_mlp_loss(class_weights()), mlp_init(0, device="cuda"), run,
-        make_node_batcher(data, m=20, seed=1), rounds=3, engine="fused",
-        device="cuda", **kw)
+        make_mlp_loss(class_weights()), mlp_init(0, device=device), run,
+        make_node_batcher(data, m=20, seed=1), rounds=rounds, engine="fused",
+        device=device, **kw)
 
 
 def main_path() -> dict:
@@ -1204,15 +925,18 @@ def main_path() -> dict:
         raise AssertionError(f"FD-DSGD wire {per_round} / losses {loss}")
     log(f"  FD-DSGD 3 rounds x Q=10: 3 fused_round launches, wire "
         f"{per_round:.0f} B/round, losses {np.round(loss, 4).tolist()}")
-    return {"fused_round": 3, "fused_round_gt": 20, "sequential_losses": out["losses"]}
+    return {"fused_round": 3, "fused_round_gt": 20, "sequential_losses": out["losses"],
+            "fp32_runs": {"FD-DSGT sequential": out}}
 
 
-def stale_paths(sequential_losses) -> dict:
+def stale_paths(sequential_losses, fp32_runs: dict) -> dict:
     """The bounded-staleness, pipelined and top-k paths, each through its
-    user entry point, with its launches counted."""
+    user entry point, with its launches counted; the k = 2 and top-64
+    runs go into ``fp32_runs`` for phase 7."""
     zero_counts()
     out = run_fused_engine(rounds=20, q=10, device="cuda",
                            fl_schedule="bounded_staleness:k=2")
+    fp32_runs["FD-DSGT bounded_staleness:k=2"] = out
     expect_launches("FD-DSGT k=2", wire_stage_gt=20)
     if out["wire_bytes"] != WIRE_DSGT:
         raise AssertionError(f"FD-DSGT k=2 wire bytes {out['wire_bytes']} != {WIRE_DSGT}")
@@ -1249,6 +973,7 @@ def stale_paths(sequential_losses) -> dict:
     zero_counts()
     out = run_fused_engine(rounds=5, q=10, device="cuda", topk=TOPK_MAIN)
     expect_launches("FD-DSGT top-64", fused_round_gt=5)
+    fp32_runs["FD-DSGT top-64"] = out
     if out["wire_bytes"] != WIRE_TOP64 or round(out["wire_saving"], 2) != 14.57:
         raise AssertionError(f"FD-DSGT top-64 wire {out['wire_bytes']}, saving "
                              f"{out['wire_saving']}")
@@ -1259,13 +984,14 @@ def stale_paths(sequential_losses) -> dict:
     return {"wire_stage": 3, "wire_stage_gt": 20}
 
 
-def fig2_path() -> None:
+def fig2_path(host: dict) -> None:
     """The paper's Fig. 2 through the port's driver on the card: the four
     algorithms at full width for the paper's 3000 iterations on the
     exact-wire tree engine, which launches none of the hand kernels;
     claims 1-2 of the driver hold, and the final losses match the same
-    run on the CPU within FIG2_RTOL. Then the trainer with no engine and
-    no device named: the tree engine, on the card."""
+    run on the CPU (``host_references``) within FIG2_RTOL. Then the
+    trainer with no engine and no device named: the tree engine, on the
+    card."""
     zero_counts()
     t0 = time.perf_counter()
     res = fig2_run(iterations=FIG2_ITERATIONS, device="cuda")
@@ -1278,9 +1004,7 @@ def fig2_path() -> None:
         f"in {gpu_s:.1f} s: no hand-kernel launch; claim 1 savings "
         + ", ".join(f"{k} {v:.0f}x" for k, v in checked["1"]["saving"].items())
         + "; claim 2 gap DSGT {DSGT:.4e} < DSGD {DSGD:.4e}".format(**checked["2"]["gap"]))
-    t0 = time.perf_counter()
-    cpu = fig2_run(iterations=FIG2_ITERATIONS, device="cpu", log=False)
-    cpu_s = time.perf_counter() - t0
+    cpu, cpu_s = host["fig2"], host["fig2_s"]
     rel = {}
     for name in ALGOS:
         a, b = res[name]["final_loss"], cpu[name]["final_loss"]
@@ -1288,7 +1012,7 @@ def fig2_path() -> None:
         if rel[name] > FIG2_RTOL or not math.isfinite(a):
             raise AssertionError(f"Fig. 2 {name}: final loss {a} on the card, {b} "
                                  f"on the CPU")
-    log(f"  Fig. 2 final losses, card vs CPU ({cpu_s:.1f} s): "
+    log(f"  Fig. 2 final losses, card vs CPU ({cpu_s:.1f} s while the kernels built): "
         + ", ".join(f"{k} {res[k]['final_loss']:.6f} ({v:.1e})" for k, v in rel.items()))
 
     zero_counts()
@@ -2338,10 +2062,11 @@ def _logit_diff(what: str, got: torch.Tensor, want: torch.Tensor,
     return rel
 
 
-def _replay(bundle, params, tokens: torch.Tensor, steps: int, device):
+def _replay(bundle, params, tokens: torch.Tensor, steps: int, device,
+            max_seq: int = SERVE_MAX_SEQ):
     """Step tokens[:, :steps] through the bundle's decode function on a
-    fresh cache; returns each step's logits."""
-    caches = bundle.init_decode_state_fn(tokens.shape[0], SERVE_MAX_SEQ, device=device)
+    fresh cache of ``max_seq`` slots; returns each step's logits."""
+    caches = bundle.init_decode_state_fn(tokens.shape[0], max_seq, device=device)
     out = []
     for t in range(steps):
         logits, caches = bundle.decode_fn(params, tokens[:, t].to(device), caches)
@@ -2416,7 +2141,10 @@ def serving_path() -> dict:
 
     t0 = time.perf_counter()
     cpu_params = tree_map(lambda a: a.cpu(), params)
-    cpu = _replay(bundle, cpu_params, tokens, CPU_STEPS, "cpu")
+    # the host's cache holds the CPU_STEPS slots the replay fills: the
+    # card's 4096-slot cache masks the same empty slots out, and the host's
+    # twin attention reads every slot, live or not
+    cpu = _replay(bundle, cpu_params, tokens, CPU_STEPS, "cpu", max_seq=CPU_STEPS)
     worst = max(_logit_diff(f"card vs CPU step {t}", replay[t], cpu[t])
                 for t in range(CPU_STEPS))
     log(f"  the card's tokens teacher-forced on the host CPU for {CPU_STEPS} steps "
@@ -2771,7 +2499,7 @@ def check_round_at(card: str, state, engine, n: int) -> dict:
 
 def training_paths(card: str) -> dict:
     """(t2) SmolLM-360M at full width and depth through
-    ``train_decentralized``: 3 FD-DSGT rounds on the tree engine (4
+    ``train_decentralized``: 3 FD-DSGT rounds on the tree engine (2
     nodes), then 3 on the fused engine (2 nodes), each's round-1
     ``local_loss`` (the init's loss, forward only) against the host
     CPU's at full depth from the same init, then ``fused_round_gt`` at
@@ -2939,34 +2667,11 @@ def entry_point_paths() -> dict:
     return counts
 
 
-def device_ms(fn, reps: int = 60, warmup: int = 5) -> float:
-    """Median device time of one call, from CUDA events. A spin kernel
-    ahead of each call holds the stream while the host enqueues the
-    call, so the events bracket device work only, not launch overhead."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    spin = int(max(host_s, 1e-4) * 4e9)  # ~2x the enqueue time at <= 2 GHz
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-    for start, end in events:
-        torch.cuda._sleep(spin)
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
 def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
-                  class_weight="balanced", rounds: int = 50, warmup: int = 5,
+                  class_weight="balanced", rounds: int = 25, warmup: int = 5,
                   profiled: int = 5, topk=None, group=None, topology_program=None,
                   node_program=None, privacy=None, scale_chunk: int = 512,
-                  scope=None) -> dict:
+                  scope=None, storage_dtype=None) -> dict:
     """Median host-clock time of one whole DSGT round with Q local steps
     (Q gradient evaluations, then the engine's comm step: one kernel
     launch on the fused engine, plus the PyTorch stale mix at depth k >=
@@ -2976,7 +2681,8 @@ def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
     ``profiled`` more rounds for the device's busy time and operation
     count per round and the host's costliest ops."""
     label = (f"DSGT Q={q} {engine} {schedule or 'sequential'}" + (f" top-{topk}" if topk else "")
-             + "".join(f" {p}" for p in (topology_program, node_program, privacy, scope) if p)
+             + "".join(f" {p}" for p in (topology_program, node_program, privacy, scope,
+                                          storage_dtype) if p)
              + (f" chunk {scale_chunk}" if scale_chunk != 512 else ""))
     data = generate_ehr_cohort(seed=0)
     batcher = make_node_batcher(data, m=20, seed=1)
@@ -2984,7 +2690,7 @@ def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
     stacked, w = stack_for_nodes(mlp_init(0, device="cuda"), 20), mixing_matrix("hospital20", 20)
     kw = dict(scale_chunk=scale_chunk, round_schedule=schedule, topk=topk,
               topology_program=topology_program, node_program=node_program, privacy=privacy,
-              scope=scope)
+              scope=scope, storage_dtype=storage_dtype)
     if group is not None:
         eng, params = ShardedFusedEngine.from_group(group, stacked, w=w, **kw)
     else:
@@ -3052,58 +2758,17 @@ def profile_device(run, n: int, label: str, unit: str, host_ms: float, card: str
     return {"device_ops": len(spans) / n, "busy_ms": busy_ms}
 
 
-def time_row(card: str, name: str, label: str, n: int, t: int, k_ms: float,
-             t_ms: float, nbytes: int, ops: int, note: str = "") -> dict:
-    bound_ms, bound_by = bound(nbytes, ops)
-    log(f"  {name} {label} {n}x{t}: kernel {k_ms * 1e3:.2f} us{note}, twin "
-        f"{t_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by {bound_by} "
-        f"({nbytes / 1e6:.3f} MB at {HBM_BYTES_S / 1e12:.2f} TB/s, "
-        f"{ops / 1e6:.2f} M fp32 ops at {FP32_OPS_S / 1e12:.0f} T/s), "
-        f"{bound_ms / k_ms:.1%} of bound [{card}]")
-    return dict(ms=k_ms, plain_ms=t_ms, bound_ms=bound_ms, bound_by=bound_by)
-
-
 def timings(card: str, floor_ms: float) -> dict:
     """Each kernel and its twin at the main and the large shape (dense
-    wire) and at the main shape with the top-64 wire -- the round kernels
-    and the gossip stage with their cluster size, the earlier design's
-    time in brackets and their distance from the launch floor; then whole
-    rounds, sequential and bounded_staleness:k=2."""
-    rows = {}
-    cases = [(SHAPES[0], None), (SHAPES[2], None), (SHAPES[0], TOPK_MAIN)]
-    for name, (kernel, twin, wires, _, _) in ALL_KERNELS.items():
-        for (label, n, t, chunk, topo), topk in cases:
-            bufs = make_inputs(n, t, chunk, wires, label, seed=0)
-            if name in GOSSIP_KERNELS:
-                w_off, w_self = weights(topo, n)
-                args = (*bufs, w_off, w_self)
-                x, recon, res = bufs  # the payload with the timed flags (ef, dc)
-                adds = radix_adds((x - recon) + res, chunk, topk) if topk else 0
-                nbytes = gossip_bytes(n, t, chunk)
-                ops = gossip_ops(n, t, chunk, topk, mix_terms(w_off), adds)
-            elif name in KERNELS:
-                w_off, w_self = weights(topo, n)
-                args = (*bufs, w_off, w_self, ALPHA)
-                nbytes = round_bytes(n, t, chunk, wires)
-                ops = round_ops(n, t, chunk, wires, topk, mix_terms(w_off))
-            else:
-                args = (*bufs, ALPHA)
-                nbytes, ops = wire_bytes_moved(n, t, chunk, wires), wire_ops(n, t, chunk, wires, topk)
-            kw = dict(scale_chunk=chunk, topk=topk)
-            k_ms = device_ms(lambda: kernel(*args, **kw))
-            t_ms = device_ms(lambda: twin(*args, **kw))
-            key = label if topk is None else f"{label} top-{topk}"
-            note = ""
-            if (name, key) in EARLIER_US:
-                note = (f" [earlier design {EARLIER_US[(name, key)]:.2f} us], clusters "
-                        f"of {fused_plan(name, n, t, chunk, topk)[0]}, "
-                        f"{(k_ms - floor_ms) * 1e3:.2f} us over the launch floor")
-            rows[(name, key)] = time_row(card, name, key, n, t, k_ms, t_ms, nbytes, ops,
-                                         note)
-            del bufs, args
-            torch.cuda.empty_cache()
-    rows["rounds"] = {spec: round_profile(card, spec)
-                      for spec in (None, "bounded_staleness:k=2")}
+    wire) and at the main shape with the top-64 wire, through
+    ``kernel_bench`` -- the round kernels and the gossip stage with their
+    cluster size, the earlier design's time in brackets and their distance
+    from the launch floor; then whole rounds, sequential (fp32, then bf16
+    storage: phase 7's profile) and bounded_staleness:k=2."""
+    rows = kb.time_cases(kb.gossip_cases(earlier=EARLIER_US, floor_ms=floor_ms), card,
+                         floor_ms)
+    rows["rounds"] = {None: round_profile(card), BF16: round_profile(card, storage_dtype=BF16),
+                      "bounded_staleness:k=2": round_profile(card, "bounded_staleness:k=2")}
     # the dynamic rounds (a) and (c) beside the static ones
     rows["rounds"]["churn"] = round_profile(card, topology_program=DYNAMIC_RUNS[0][3])
     rows["rounds"]["stragglers k=2"] = round_profile(
@@ -3137,37 +2802,14 @@ def axis_timings(card: str, group) -> dict:
 def compact_timings(card: str, group, floor_ms: float) -> dict:
     """Both compact wire-stage kernels and their twins at the main shape
     on the top-64 bitmap wire (``main``), the large shape on the same
-    wire, and the main shape on the top-16 positions wire -- the DSGT
-    kernel with its layout, the earlier design's time in brackets and its
-    distance from the launch floor; no PyTorch call computes exact-k
-    selection with int8 quantization (``library_ms`` null). Then whole
-    sharded rounds (DSGT top-64, sequential) beside the fused engine's
-    top-64 round."""
-    rows = {}
-    cases = [("main", SHAPES[0], TOPK_MAIN, True), ("large", SHAPES[2], TOPK_MAIN, True),
-             ("main top-16", SHAPES[0], 16, False)]
-    for name, (kernel, twin, wires, _, _) in COMPACT_KERNELS.items():
-        for key, (label, n, t, chunk, _), topk, bitmap in cases:
-            bufs = make_inputs(n, t, chunk, wires, label, seed=0)
-            args = (*bufs, ALPHA)
-            kw = dict(scale_chunk=chunk, topk=topk, bitmap=bitmap)
-            k_ms = device_ms(lambda: kernel(*args, **kw))
-            t_ms = device_ms(lambda: twin(*args, **kw))
-            note = ""
-            if wires == 1:
-                ops = compact_ops(n, t, chunk, topk, bitmap)
-            else:
-                adds = sum(radix_adds(p, chunk, topk) for p in compact_gt_payloads(*bufs))
-                ops = compact_gt_ops(n, t, chunk, topk, bitmap, adds)
-                together = compact_gt_plan(chunk, topk, bitmap)[0]
-                note = (f" [earlier design {EARLIER_US[(name, key)]:.2f} us], "
-                        f"{'both wires at once' if together else 'a wire at a time'}, "
-                        f"{(k_ms - floor_ms) * 1e3:.2f} us over the launch floor")
-            rows[(name, key)] = time_row(
-                card, name, f"{key} ({'bitmap' if bitmap else 'positions'}, k={topk})", n, t,
-                k_ms, t_ms, compact_bytes_moved(n, t, chunk, wires, topk, bitmap), ops, note)
-            del args, bufs
-            torch.cuda.empty_cache()
+    wire, and the main shape on the top-16 positions wire, through
+    ``kernel_bench`` -- the DSGT kernel with its layout, the earlier
+    design's time in brackets and its distance from the launch floor; no
+    PyTorch call computes exact-k selection with int8 quantization
+    (``library_ms`` null). Then whole sharded rounds (DSGT top-64,
+    sequential) beside the fused engine's top-64 round."""
+    rows = kb.time_cases(kb.compact_cases(earlier=EARLIER_US, floor_ms=floor_ms), card,
+                         floor_ms)
     rows["rounds"] = {
         "sharded top-64": round_profile(card, engine="sharded_fused", topk=TOPK_MAIN,
                                         group=group),
@@ -3176,208 +2818,26 @@ def compact_timings(card: str, group, floor_ms: float) -> dict:
     return rows
 
 
-def attn_time_row(card: str, name: str, label: str, shape: str, k_ms: float,
-                  t_ms: float, l_ms: float, nbytes: int, flops: int) -> dict:
-    """Kernel, twin and library times beside the bound: the larger of
-    the bytes moved once over the HBM rate and the bf16 operations over
-    the dense tensor-core peak."""
-    bytes_s, ops_s = nbytes / HBM_BYTES_S, flops / BF16_OPS_S
-    bound_ms = max(bytes_s, ops_s) * 1e3
-    bound_by = "bytes" if bytes_s >= ops_s else "operations"
-    log(f"  {name} {label} ({shape}): kernel {k_ms * 1e3:.2f} us, twin {t_ms * 1e3:.2f} us, "
-        f"scaled_dot_product_attention {l_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-        f"by {bound_by} ({nbytes / 1e6:.3f} MB at {HBM_BYTES_S / 1e12:.2f} TB/s, "
-        f"{flops / 1e9:.3f} GFLOP at {BF16_OPS_S / 1e12:.0f} TFLOP/s bf16), "
-        f"{bound_ms / k_ms:.1%} of bound [{card}]")
-    return dict(ms=k_ms, plain_ms=t_ms, library_ms=l_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
-
-
-def _same(what: str, got, want) -> None:
-    """The yardstick computes the kernels' function (bf16 tolerance)."""
-    _attn_err("scaled_dot_product_attention", what, got, want, torch.bfloat16)
-
-
-def decode_time_row(card: str, label: str, b: int, c: int, live: int, h: int, kv: int,
-                    hd: int, gen) -> dict:
-    """The decode kernel, its twin and ``scaled_dot_product_attention``
-    (GQA, a boolean mask of the live slots) at one bf16 shape, every row
-    ``live`` slots long."""
-    q = torch.randn(b, 1, h, hd, generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn(b, c, kv, hd, generator=gen, device="cuda").bfloat16()
-            for _ in range(2))
-    n_valid = torch.full((b,), live, dtype=torch.int32, device="cuda")
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    mask = (torch.arange(c, device="cuda") < live)[None, None, None, :]
-
-    def lib():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-
-    _same(f"decode {label}", lib().transpose(1, 2), decode_attention_ref(q, k, v, n_valid))
-    nbytes = 2 * (2 * b * h * hd + 2 * b * live * kv * hd) + 4 * b
-    row = attn_time_row(
-        card, "decode_attention", label, f"B {b}, C {c}, {live} live, H {h}, K {kv}, hd {hd}",
-        device_ms(lambda: decode_attention(q, k, v, n_valid)),
-        device_ms(lambda: decode_attention_ref(q, k, v, n_valid)),
-        device_ms(lib), nbytes, 4 * b * h * live * hd)
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    return row
-
-
-def flash_time_row(card: str, label: str, b: int, sq: int, sk: int, h: int, kv: int,
-                   hd: int, causal: bool, window: int, gen) -> dict:
-    """The flash kernel, its twin and ``scaled_dot_product_attention``
-    (GQA, ``is_causal`` where causal; a window wider than the sequence
-    only) at one bf16 shape. Operations: the live (query, key) pairs,
-    4 hd each."""
-    q = torch.randn(b, sq, h, hd, generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn(b, sk, kv, hd, generator=gen, device="cuda").bfloat16()
-            for _ in range(2))
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-
-    def lib():  # the window spans the whole sequence where one is set
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
-
-    _same(f"prefill {label}", lib().transpose(1, 2),
-          attention_ref(q, k, v, causal=causal, window=window))
-    nbytes = 2 * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
-    pairs = sq * (sq + 1) // 2 if causal else sq * sk  # live pairs per head
-    row = attn_time_row(
-        card, "flash_attention", label,
-        f"B {b}, Sq {sq}, Sk {sk}, H {h}, K {kv}, hd {hd}, causal {causal}, window {window}",
-        device_ms(lambda: flash_attention(q, k, v, causal=causal, window=window)),
-        device_ms(lambda: attention_ref(q, k, v, causal=causal, window=window)),
-        device_ms(lib), nbytes, 4 * b * h * pairs * hd)
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    return row
-
-
 def attention_timings(card: str) -> dict:
     """Both attention kernels, their twins and the one PyTorch call that
     computes the same function (``scaled_dot_product_attention`` with
-    GQA: a boolean mask of the live slots for decode, ``is_causal`` for
-    prefill; a yardstick only, never on the path), bf16, at the serving
-    paths' shapes and a large one. SmolLM-360M (hd 64): decode at the
-    path's last step (B 8, a 4096-slot cache, 191 live slots) and B 8
-    over a full 32,768-slot cache (the decode_32k length, batch 128 cut
-    to 8 to fit the twin); prefill at the path's (B 8, S 128) and B 2, S
-    4096, causal. RecurrentGemma-2B (hd 256, MQA 10 over 1): decode at
-    its path's last step (B 8, a 2048-slot ring, 159 live slots) and
-    prefill (B 8, S 128, causal in a 2048 window)."""
-    rows = {}
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    path_live = SERVE_PROMPT + SERVE_NEW - 1
-    rg_live = SERVE_PROMPT + REC_NEW - 1
-    for label, b, c, live, h, kv, hd in (
-            ("path", SERVE_BATCH, SERVE_MAX_SEQ, path_live, 15, 5, 64),
-            ("large", 8, 32768, 32768, 15, 5, 64),
-            ("hd256 path", SERVE_BATCH, 2048, rg_live, 10, 1, 256)):
-        rows[("decode_attention", label)] = decode_time_row(card, label, b, c, live, h, kv,
-                                                            hd, gen)
-    rows[("decode_attention_combine", "large")] = combine_timing(card, gen)
-    for label, b, sq, h, kv, hd, window in (
-            ("path", SERVE_BATCH, SERVE_PROMPT, 15, 5, 64, 0),
-            ("large", 2, 4096, 15, 5, 64, 0),
-            ("hd256 path", SERVE_BATCH, SERVE_PROMPT, 10, 1, 256, 2048)):
-        rows[("flash_attention", label)] = flash_time_row(card, label, b, sq, sq, h, kv, hd,
-                                                          True, window, gen)
-    return rows
-
-
-def combine_timing(card: str, gen) -> dict:
-    """The combine kernel alone on the partials of the large decode shape
-    (B 8, 15 q-heads, hd 64, 32,768 slots: the wrapper's split count),
-    beside its twin; no PyTorch call computes it. Bound: its bytes (the
-    fp32 partials read once, the bf16 output written once)."""
-    b, c, h, kv, hd = 8, 32768, 15, 5, 64
-    splits, _ = split_plan(torch.empty(b, 1, h, hd, dtype=torch.bfloat16, device="cuda"),
-                           torch.empty(b, c, kv, hd, dtype=torch.bfloat16, device="cuda"))
-    acc, ml = combine_inputs(splits, b, h, hd, gen)
-    out = torch.empty(b, 1, h, hd, dtype=torch.bfloat16, device="cuda")
-    k_ms = device_ms(lambda: combine_partials(acc, ml, out))
-    t_ms = device_ms(lambda: combine_partials_ref(acc, ml[0], ml[1], torch.bfloat16))
-    nbytes = 4 * (acc.numel() + ml.numel()) + 2 * out.numel()
-    ops = 3 * acc.numel()  # a weight, a multiply-add of acc, one of l
-    bytes_s, ops_s = nbytes / HBM_BYTES_S, ops / FP32_OPS_S
-    bound_ms = max(bytes_s, ops_s) * 1e3
-    bound_by = "bytes" if bytes_s >= ops_s else "operations"
-    log(f"  decode_attention_combine large ({splits} splits, B {b}, H {h}, hd {hd}): "
-        f"kernel {k_ms * 1e3:.2f} us, twin {t_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} "
-        f"us by {bound_by} ({nbytes / 1e6:.3f} MB), {bound_ms / k_ms:.1%} of bound [{card}]")
-    return dict(ms=k_ms, plain_ms=t_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by)
-
-
-def launch_floor(card: str) -> float:
-    """Device time of one launch of an empty kernel
-    (``kernels/csrc/launch_floor.cu``, one block), by the clock that times
-    the kernels: what a launch costs on its own."""
-    lib = kbuild.PROBE.load("launch_floor")
-    lib.launch_floor_launch.argtypes = [ctypes.c_void_p]
-    lib.launch_floor_launch.restype = ctypes.c_int
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch():
-        if lib.launch_floor_launch(stream) != 0:
-            raise RuntimeError("the empty kernel did not launch")
-
-    floor_ms = device_ms(launch)
-    log(f"  launch floor (an empty kernel, one block): {floor_ms * 1e3:.2f} us [{card}]")
-    return floor_ms
-
-
-def scan_row(card: str, name: str, label: str, shape: str, k_ms: float, t_ms: float,
-             nbytes: int, ops: int, floor_ms: float) -> dict:
-    """Kernel and twin times beside the bound (the larger of the bytes
-    moved once over the HBM rate and the fp32 operations over the fp32
-    peak) and the launch floor; no PyTorch call computes these
-    recurrences."""
-    bound_ms, bound_by = bound(nbytes, ops)
-    log(f"  {name} {label} ({shape}): kernel {k_ms * 1e3:.2f} us, twin {t_ms * 1e3:.2f} us, "
-        f"bound {bound_ms * 1e3:.2f} us by {bound_by} ({nbytes / 1e6:.3f} MB at "
-        f"{HBM_BYTES_S / 1e12:.2f} TB/s, {ops / 1e9:.4f} G fp32 ops at "
-        f"{FP32_OPS_S / 1e12:.0f} T/s), {bound_ms / k_ms:.1%} of bound, "
-        f"{(k_ms - floor_ms) * 1e3:.2f} us over the launch floor [{card}]")
-    return dict(ms=k_ms, plain_ms=t_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+    GQA; a yardstick only, never on the path), bf16, at the serving paths'
+    shapes and a large one, and the combine kernel on the large decode
+    shape's partials (``kernel_bench.attention_cases``)."""
+    return kb.time_cases(kb.attention_cases(), card)
 
 
 def scan_timings(card: str, floor_ms: float) -> dict:
-    """WKV-6 at RWKV6-7B's prefill and decode shapes (B 8, H 64, S 128 and
-    1) and at S 4096; the RG-LRU scan at RecurrentGemma-2B's (B 8, W 2560,
-    S 128 and 1) and at S 4096. Bytes: each input read once, each output
-    written once. Operations, per (b, h, t) for WKV-6: r^T S (2 per state
-    element), the decay and k v^T (3 per state element), exp, u k, the
-    bonus dot and its v (6 per channel); per (b, t, channel) for RG-LRU:
-    exp, multiply, add. The twins loop over S in Python, so at S 4096
-    they are timed over 3 calls."""
+    """WKV-6 and the RG-LRU scan at the recurrent paths' prefill and decode
+    shapes and at S 4096 (``kernel_bench.scan_cases``), beside the launch
+    floor."""
     rows = {"launch_floor": floor_ms}
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    for label, s in (("path prefill", SERVE_PROMPT), ("path decode", 1), ("large", 4096)):
-        b, h = SERVE_BATCH, 64
-        args = wkv_inputs(b, s, h, "random", gen)
-        reps = dict(reps=3, warmup=1) if s > SERVE_PROMPT else {}
-        nbytes = 4 * (5 * b * s * h * 64 + h * 64 + 2 * b * h * 64 * 64)
-        rows[("wkv6", label)] = scan_row(
-            card, "wkv6", label, f"B {b}, S {s}, H {h}",
-            device_ms(lambda: wkv6(*args)), device_ms(lambda: wkv_twin(*args), **reps),
-            nbytes, b * h * s * (5 * 64 * 64 + 6 * 64), floor_ms)
-        del args
-        b, w = SERVE_BATCH, 2560
-        args = lru_inputs(b, s, w, gen)
-        rows[("rglru_scan", label)] = scan_row(
-            card, "rglru_scan", label, f"B {b}, S {s}, W {w}",
-            device_ms(lambda: rglru_scan(*args)), device_ms(lambda: rglru_ref(*args), **reps),
-            4 * (3 * b * s * w + 2 * b * w), 3 * b * s * w, floor_ms)
-        del args
-        torch.cuda.empty_cache()
+    rows.update(kb.time_cases(kb.scan_cases(), card, floor_ms))
     return rows
 
 
 def decode_step_profile(card: str, engine, prompts: np.ndarray, label: str,
-                        steps: int = 40, warmup: int = 5, profiled: int = 5,
+                        steps: int = 20, warmup: int = 5, profiled: int = 5,
                         frames=None, on_prompt=None) -> dict:
     """Whole serving decode steps at full width (batch 8, greedy, the
     prompt already in the cache; an enc-dec model's cross caches filled
@@ -3425,7 +2885,7 @@ def recurrent_step_profile(card: str, arch: str) -> dict:
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
     engine = ServeEngine(bundle, params, max_seq=SERVE_MAX_SEQ, batch=SERVE_BATCH)
-    out = decode_step_profile(card, engine, prompts, arch)
+    out = decode_step_profile(card, engine, prompts[:, :PROFILE_PROMPT], arch)
     del engine, params
     torch.cuda.empty_cache()
     return out
@@ -3837,12 +3297,14 @@ def zoo_attention_timings(card: str) -> dict:
     """(z4) Both attention kernels against their twins and
     ``scaled_dot_product_attention`` at the zoo's path shapes."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    rows = {}
-    for label, *shape in ZOO_DECODE_TIMES:
-        rows[("decode_attention", label)] = decode_time_row(card, label, *shape, gen)
-    for label, *shape in ZOO_FLASH_TIMES:
-        rows[("flash_attention", label)] = flash_time_row(card, label, *shape, gen)
-    return rows
+
+    def cases():  # built one at a time, each freed before the next
+        for label, *shape in ZOO_DECODE_TIMES:
+            yield kb.decode_case(label, *shape, gen)
+        for label, *shape in ZOO_FLASH_TIMES:
+            yield kb.flash_case(label, *shape, gen)
+
+    return kb.time_cases(cases(), card)
 
 
 def model_zoo(card: str) -> dict:
@@ -3866,6 +3328,489 @@ def model_zoo(card: str) -> dict:
     section("  -- (z4) the attention kernels at the zoo's shapes")
     rows["times"] = zoo_attention_timings(card)
     return {"counts": counts, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: bf16 flat storage (b1)-(b4) and the standalone drivers (d)
+# ---------------------------------------------------------------------------
+
+BF16 = "bfloat16"
+# bf16 storage against fp32 on the card, |bf16 - fp32| <= tol (1 + |fp32|)
+# elementwise: the reference's own tolerance (tests/test_schedule.py)
+BF16_VS_FP32_TOL = 5e-2
+# (b1) the paper's configuration on the fused engine with bf16 storage:
+# (label, run_fused_engine arguments, rounds, the kernel a round). Top-64
+# runs 5 rounds, as phase 3's: the wire diverges past ~10 (queue 3 of
+# ROADMAP.md), and a bf16 rounding flips its selection, so its bf16 run
+# is held to the CPU twins and its gap to fp32 is printed, not held
+BF16_RUNS = [("FD-DSGT sequential", {}, 20, "fused_round_gt"),
+             ("FD-DSGT bounded_staleness:k=2", {"fl_schedule": "bounded_staleness:k=2"}, 20,
+              "wire_stage_gt"),
+             ("FD-DSGT top-64", {"topk": TOPK_MAIN}, 5, "fused_round_gt")]
+BF16_DSGD_ROUNDS = 20
+# (b2) the sharded engine with bf16 storage: (algorithm, topk); the dense
+# wire is also held within one bf16 ulp after one round
+BF16_SHARDED_RUNS = [("dsgt", None), ("dsgt", 16), ("dsgd", 16)]
+# (d) the drivers on the card against the same drivers on the host CPU
+DRIVER_RTOL = 1e-3
+# (d) comm_bytes' rows, bytes a node and iteration for tinyllama-1.1b: the
+# reference driver's (benchmarks/comm_bytes.py), hardware-independent
+COMM_BYTES_ROWS = [8250362880, 88003870.72, 8800387072, 880038707.2, 88003870.72,
+                   44001935.36, 22172850.24]
+# the bf16 comm step's profile at the large shape (PERF.md section 6)
+STEP_NODES, STEP_WIDTH = 64, 1 << 20
+
+
+def bf16_gap(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(max |a - b|, elements past BF16_VS_FP32_TOL (1 + |b|))."""
+    a, b = a.float(), b.float()
+    d = (a - b).abs()
+    return float(d.max()), int((d > BF16_VS_FP32_TOL * (1 + b.abs())).sum())
+
+
+def check_bf16_state(what: str, state) -> None:
+    """bf16 storage is still bf16 after the run; the wire state fp32."""
+    bufs = [state.params] + ([state.tracker, state.prev_grad] if state.tracker is not None
+                             else [])
+    if any(b.dtype != torch.bfloat16 for b in bufs):
+        raise AssertionError(f"{what}: storage widened to {[b.dtype for b in bufs]}")
+    if any(v.dtype != torch.float32 for k, v in state.comm.items()
+           if k.startswith(("recon", "residual", "mix_recon"))):
+        raise AssertionError(f"{what}: wire state not fp32")
+
+
+def bf16_fused_paths(fp32_runs: dict) -> dict:
+    """(b1) The paper's configuration on ``fused`` with bf16 storage,
+    through ``run_fused_engine`` and ``train_decentralized``: FD-DSGT Q =
+    10 sequential, ``bounded_staleness:k=2`` and top-64, and FD-DSGD
+    sequential. Each: one round kernel (or wire stage at k = 2) a round,
+    the fp32 wire's bytes, the buffers still bf16, the same run on the
+    CPU twins within 1e-2 relative loss and 0.02 bal_acc, and the fp32
+    run on the card (phase 3's, ``fp32_runs``; FD-DSGD's runs here)
+    within the reference's 5e-2 (top-64: printed)."""
+    launches = {}
+    for label, kw, rounds, kernel in BF16_RUNS:
+        zero_counts()
+        out = run_fused_engine(rounds=rounds, q=10, device="cuda", storage_dtype=BF16, **kw)
+        expect_launches(f"bf16 {label}", **{kernel: rounds})
+        launches[kernel] = launches.get(kernel, 0) + rounds
+        check_bf16_state(f"bf16 {label}", out["state"])
+        want_bytes = WIRE_TOP64 if "topk" in kw else WIRE_DSGT
+        if out["wire_bytes"] != want_bytes:
+            raise AssertionError(f"bf16 {label}: wire {out['wire_bytes']} != {want_bytes}")
+        against_cpu(f"bf16 {label}", out, rounds=rounds, q=10, storage_dtype=BF16, **kw)
+        fp32 = fp32_runs[label]
+        gap, bad = bf16_gap(out["state"].params, fp32["state"].params)
+        if bad and "topk" not in kw:
+            raise AssertionError(f"bf16 {label}: {bad} elements past {BF16_VS_FP32_TOL} of "
+                                 f"the fp32 run (max diff {gap:.3e})")
+        log(f"  bf16 {label}, {rounds} rounds x Q=10: {rounds} {kernel} launches, wire "
+            f"{out['wire_bytes']:,.0f} B/round (fp32's), params/tracker/prev_grad bf16; vs "
+            f"the fp32 run on the card: params max diff {gap:.3e}, {bad} past "
+            f"{BF16_VS_FP32_TOL} (1 + |fp32|), final loss {out['losses'][-1]:.4f} vs "
+            f"{fp32['losses'][-1]:.4f}, bal_acc {out['bal_acc']:.4f} vs {fp32['bal_acc']:.4f}")
+    zero_counts()
+    res = dsgd_run(BF16_DSGD_ROUNDS, storage_dtype=BF16)
+    expect_launches("bf16 FD-DSGD", fused_round=BF16_DSGD_ROUNDS)
+    launches["fused_round"] = BF16_DSGD_ROUNDS
+    per_round = res.history.column("comm_bytes")[-1] / BF16_DSGD_ROUNDS
+    check_bf16_state("bf16 FD-DSGD", res.state)
+    cpu = dsgd_run(BF16_DSGD_ROUNDS, device="cpu", storage_dtype=BF16)
+    fp32 = dsgd_run(BF16_DSGD_ROUNDS)
+    loss, cpu_loss = res.history.column("loss"), cpu.history.column("loss")
+    rel = float(np.max(np.abs(loss - cpu_loss) / np.abs(cpu_loss)))
+    gap, bad = bf16_gap(res.state.params, fp32.state.params)
+    if per_round != WIRE_DSGD or rel > 1e-2 or bad:
+        raise AssertionError(f"bf16 FD-DSGD: wire {per_round}, loss vs the CPU twins rel "
+                             f"{rel}, {bad} elements past {BF16_VS_FP32_TOL} of fp32")
+    log(f"  bf16 FD-DSGD, {BF16_DSGD_ROUNDS} rounds x Q=10: {BF16_DSGD_ROUNDS} fused_round "
+        f"launches, wire {per_round:,.0f} B/round; vs the CPU twins: loss rel {rel:.2e}; "
+        f"vs fp32 on the card: params max diff {gap:.3e}")
+    return launches
+
+
+def bf16_sharded_path() -> dict:
+    """(b2) ``sharded_fused`` with bf16 storage on a one-rank NCCL group,
+    through ``run_sharded_engine``, 5 rounds at Q = 10 on the dense int8
+    wire (DSGT) and the compact top-16 wire (DSGT, DSGD): one wire-stage
+    launch a round, the buffers bf16, the loss within rtol 1e-3 of the
+    bf16 fused engine on the card every round; the dense wire's params and
+    tracker within one bf16 ulp of the fused engine's after one round (the
+    compact wire keeps k of the MLP's exact ties where the fused mask
+    keeps all, so it is held on the loss: phase 3's rule)."""
+    group = start_group(0, 1, os.path.join(tempfile.mkdtemp(), "store"), device="cuda")
+    launches = {}
+    try:
+        for algorithm, topk in BF16_SHARDED_RUNS:
+            wires = 2 if algorithm == "dsgt" else 1
+            kernel = {(True, 1): "wire_stage_compact", (True, 2): "wire_stage_gt_compact",
+                      (False, 2): "wire_stage_gt"}[(topk is not None, wires)]
+            label = f"bf16 sharded {algorithm.upper()} " + (f"top-{topk}" if topk else "int8")
+            zero_counts()
+            out = run_sharded_engine(group, rounds=SHARDED_ROUNDS, q=10, algorithm=algorithm,
+                                     topk=topk, log=False, storage_dtype=BF16)
+            expect_launches(label, **{kernel: SHARDED_ROUNDS})
+            launches[kernel] = launches.get(kernel, 0) + SHARDED_ROUNDS
+            check_bf16_state(label, out["state"])
+            state, losses, _ = fused_oracle(algorithm, "sequential", topk, storage_dtype=BF16)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], losses))
+            if rel > 1e-3 or out["wire_bytes"] != SHARDED_WIRE[(topk, algorithm)]:
+                raise AssertionError(f"{label}: loss rel {rel} vs the bf16 fused engine, "
+                                     f"wire {out['wire_bytes']}")
+            note = ""
+            if topk is None:
+                one = run_sharded_engine(group, rounds=1, q=10, algorithm=algorithm,
+                                         log=False, storage_dtype=BF16)["state"]
+                want, _, _ = fused_oracle(algorithm, "sequential", None, rounds=1,
+                                          storage_dtype=BF16)
+                d = max(kb.bf16_ulp_err(f"{label} params", one.params, want.params),
+                        kb.bf16_ulp_err(f"{label} tracker", one.tracker, want.tracker))
+                note = (f"; after one round within {d:.2f} bf16 ulps at each column's "
+                        "scale")
+            log(f"  {label}, {SHARDED_ROUNDS} rounds x Q=10: {SHARDED_ROUNDS} {kernel} "
+                f"launches, wire {out['wire_bytes']:,.0f} B/round, buffers bf16; vs the bf16 "
+                f"fused engine: loss rel {rel:.2e}{note}")
+    finally:
+        stop_group(group)
+    return launches
+
+
+def bf16_snapshot_path() -> dict:
+    """(b3) SmolLM-360M at full width (seeded random weights) written as
+    a bf16 consensus snapshot (half the fp32 blob), mapped, staged and
+    served by ``ServeEngine.from_snapshot``: ``generate`` with a second
+    bf16 snapshot hot-swapped in by ``publish_snapshot``; the prefill
+    logits of the served bf16 weights against the fp32 snapshot's of the
+    same state within SERVE_LOGIT_TOL of their scale."""
+    cfg = get_config(SERVE_ARCH)
+    bundle = build_model(cfg)
+    weights = [bundle.init_fn(torch.Generator(device="cuda").manual_seed(s), device="cuda")
+               for s in (0, 1)]
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(SERVE_BATCH, SNAPSHOT_PROMPT)).astype(np.int32)
+    d = tempfile.mkdtemp()
+    launches = {}
+    try:
+        flat, layout = pack(tree_map(lambda p: p[None], weights[0]))
+        header32 = write_snapshot(os.path.join(d, "fp32"), flat, layout, round_frontier=1)
+        del flat
+        write_s = []
+        for rnd, w in enumerate(weights, 1):
+            flat, layout = pack(tree_map(lambda p: p[None], w), buffer_dtype=torch.bfloat16)
+            t0 = time.perf_counter()
+            header = write_snapshot(os.path.join(d, "bf16"), flat, layout, round_frontier=rnd)
+            write_s.append(time.perf_counter() - t0)
+            del flat
+        blobs = []
+        for h in (header32, header):
+            with open(h) as f:
+                blobs.append(json.load(f)["blob_bytes"])
+        t0 = time.perf_counter()
+        snaps = [load_snapshot(os.path.join(d, "bf16"), rnd, template=weights[0])
+                 for rnd in (1, 2)]
+        map_ms = (time.perf_counter() - t0) * 1e3 / 2
+        if snaps[0].flat.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 snapshot mapped as {snaps[0].flat.dtype}")
+        kw = dict(max_seq=SERVE_MAX_SEQ, batch=SERVE_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = ServeEngine.from_snapshot(bundle, snaps[0], stage=True, **kw)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        steps = SNAPSHOT_PROMPT + SNAPSHOT_NEW - 1
+        n_decode = cfg.n_layers * steps
+        step, calls = served.decode_step, {"n": 0}
+
+        def publishing_step(tokens, caches):
+            out = step(tokens, caches)
+            calls["n"] += 1
+            if calls["n"] == SNAPSHOT_SWAP_AT:
+                served.publish_snapshot(snaps[1])
+            return out
+
+        served.decode_step = publishing_step
+        zero_counts()
+        out = served.generate(prompts, max_new_tokens=SNAPSHOT_NEW, temperature=0.0)
+        expect_launches("bf16 snapshot serving generate", decode_attention=n_decode)
+        launches["decode_attention"] = n_decode
+        if (out.swap_steps != (SNAPSHOT_SWAP_AT,) or served.snapshot_round != 2
+                or served._active_ref is not snaps[1]):
+            raise AssertionError(f"bf16 snapshot hot swap: steps {out.swap_steps}, round "
+                                 f"{served.snapshot_round}")
+        fp32 = load_snapshot(os.path.join(d, "fp32"), 1, template=weights[0])
+        staged = ServeEngine.from_snapshot(bundle, fp32, stage=True, **kw).params
+        bf16 = ServeEngine.from_snapshot(bundle, snaps[0], stage=True, **kw).params
+        tokens = {"tokens": torch.as_tensor(prompts, device="cuda")}
+        zero_counts()
+        got, _ = bundle.prefill_fn(bf16, tokens)
+        want, _ = bundle.prefill_fn(staged, tokens)
+        expect_launches("bf16 snapshot prefill", flash_attention=2 * cfg.n_layers)
+        launches["flash_attention"] = 2 * cfg.n_layers
+        rel = _logit_diff("SmolLM-360M from its bf16 snapshot vs fp32", got, want)
+        log(f"  {cfg.name} as a bf16 snapshot: {blobs[1] / 1e9:.3f} GB blob (fp32 "
+            f"{blobs[0] / 1e9:.3f} GB) written in {write_s[0]:.2f} / {write_s[1]:.2f} s, mapped "
+            f"in {map_ms:.2f} ms, staged onto the card in {stage_s:.2f} s; generate "
+            f"(batch {SERVE_BATCH}, {SNAPSHOT_PROMPT} + {SNAPSHOT_NEW} tokens) with "
+            f"publish_snapshot after step {SNAPSHOT_SWAP_AT}: swapped at {out.swap_steps} "
+            f"({served.swap_pauses[0] * 1e6:.1f} us pause), {n_decode} decode_attention "
+            f"launches; prefill logits vs the fp32 snapshot's: {rel:.3e} of their scale "
+            f"(tolerance {SERVE_LOGIT_TOL})")
+        del served, snaps, fp32, staged, bf16, weights
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+@contextlib.contextmanager
+def memory_stages():
+    """Peak allocated device memory of a fused-engine FD-DSGT run by stage,
+    and the storage dtypes of its final state. Stages: set-up (before the
+    first gradient), gradients (each evaluation), local updates (between
+    them and the comm steps), the comm step's own work (upcasts, stores,
+    wire bookkeeping), the round kernel (entered with its inputs alive;
+    its peak adds the outputs) and the round's metrics. Wraps
+    ``FusedEngine.make_eval_grads``, ``make_comm_step``, ``_metrics`` and
+    the engine module's ``fused_round_gt`` while open; yields ``(peaks,
+    seen)``: stage -> bytes, and the final state's dtypes with the bytes
+    allocated as the round kernel starts (``kernel_entry``)."""
+    peaks, seen, where = {}, {"kernel_entry": 0}, ["set-up"]
+    own = {k: FusedEngine.__dict__.get(k) for k in ("make_eval_grads", "make_comm_step",
+                                                       "_metrics")}
+    make_eval, make_comm, metrics = (FusedEngine.make_eval_grads, FusedEngine.make_comm_step,
+                                     FusedEngine._metrics)
+    kernel = engine_module.fused_round_gt
+
+    def enter(stage: str) -> str:
+        peaks[where[0]] = max(peaks.get(where[0], 0), torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        previous, where[0] = where[0], stage
+        return previous
+
+    def staged(fn, stage: str, back=None):
+        def run(*args, **kw):
+            previous = enter(stage)
+            try:
+                return fn(*args, **kw)
+            finally:
+                enter(back or previous)
+        return run
+
+    def eval_probe(self, grad_fn):
+        fn = make_eval(self, grad_fn)
+
+        def probed(params, batch):
+            back = "comm step" if where[0] == "comm step" else "local updates"
+            return staged(fn, "gradients", back)(params, batch)
+        return probed
+
+    def comm_probe(self, *args):
+        step = staged(make_comm(self, *args), "comm step", "local updates")
+
+        def probed(state, batch):
+            new, out = step(state, batch)
+            seen.update(params=new.params.dtype, tracker=new.tracker.dtype,
+                        prev_grad=new.prev_grad.dtype,
+                        **{k: v.dtype for k, v in new.comm.items()
+                           if k.startswith(("recon", "residual"))})
+            return new, out
+        return probed
+
+    def kernel_probe(*args, **kw):
+        seen["kernel_entry"] = max(seen["kernel_entry"], torch.cuda.memory_allocated())
+        return staged(kernel, "round kernel")(*args, **kw)
+
+    FusedEngine.make_eval_grads, FusedEngine.make_comm_step = eval_probe, comm_probe
+    FusedEngine._metrics = staged(metrics, "metrics")
+    engine_module.fused_round_gt = kernel_probe
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        yield peaks, seen
+    finally:
+        enter("done")
+        engine_module.fused_round_gt = kernel
+        for name, fn in own.items():
+            if fn is None:
+                delattr(FusedEngine, name)
+            else:
+                setattr(FusedEngine, name, fn)
+
+
+def bf16_training_path(card: str) -> dict:
+    """(b4) ``launch/train.py --no-smoke --fl-engine fused``: SmolLM-360M at
+    full width and depth, 2 nodes, FD-DSGT Q = 2, 3 rounds, batch 1, S 128
+    ((t2)'s configuration) through the user entry point, with fp32
+    storage and then ``--storage-dtype bfloat16``: their launches, losses,
+    the storage dtypes of the launcher's final state, and the card's peak
+    memory by stage (:func:`memory_stages`) beside what earlier phases
+    still hold, side by side."""
+    cfg = get_config(TRAIN_ARCH)
+    want = {"flash_attention": TRAIN_ROUNDS * TRAIN_Q * FUSED_NODES * cfg.n_layers * 2,
+            "fused_round_gt": TRAIN_ROUNDS}
+    counts, peaks = {}, {}
+    for storage in ("float32", BF16):
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        zero_counts()
+        with memory_stages() as (stages, seen):
+            rec = train_launcher.main([
+                "--arch", TRAIN_ARCH, "--no-smoke", "--fl-engine", "fused", "--storage-dtype",
+                storage, "--nodes", str(FUSED_NODES), "--rounds", str(TRAIN_ROUNDS), "--q",
+                str(TRAIN_Q), "--batch-per-node", "1", "--seq-len", str(TRAIN_SEQ),
+                "--alpha0", str(TRAIN_ALPHA0), "--log-every", "0", "--device", "cuda"])
+        expect_launches(f"launch/train.py --no-smoke {storage} fused", **want)
+        entry = seen.pop("kernel_entry")
+        stored = dict.fromkeys(("params", "tracker", "prev_grad"), getattr(torch, storage))
+        if any(seen[k] != d for k, d in stored.items()) or any(
+                d != torch.float32 for k, d in seen.items() if k not in stored):
+            raise AssertionError(f"launch/train.py --storage-dtype {storage}: final state {seen}")
+        peaks[storage] = max(stages.values()) / 1e9
+        if not (math.isfinite(rec["loss_first"]) and math.isfinite(rec["loss_last"])):
+            raise AssertionError(f"{storage} training: loss {rec['loss_first']} -> "
+                                 f"{rec['loss_last']}")
+        for name, count in want.items():
+            counts[name] = counts.get(name, 0) + count
+        log(f"  launch/train.py --no-smoke --fl-engine fused --storage-dtype {storage} "
+            f"({cfg.name}, {cfg.param_count():,} params, {FUSED_NODES} nodes, FD-DSGT "
+            f"Q={TRAIN_Q}, S {TRAIN_SEQ}, {TRAIN_ROUNDS} rounds): launches {want}; loss "
+            f"{rec['loss_first']:.4f} -> {rec['loss_last']:.4f}, {rec['wall_s']} s; the "
+            f"final state's params/tracker/prev_grad {storage}, its wire state float32; "
+            f"peak memory {peaks[storage]:.2f} GB; by stage "
+            + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in stages.items())
+            + f" GB; {entry / 1e9:.2f} GB allocated as the round kernel starts; "
+            f"{held / 1e9:.2f} GB held by earlier phases [{card}]")
+    log(f"  peak memory, bf16 storage against fp32 in this call: {peaks[BF16]:.2f} against "
+        f"{peaks['float32']:.2f} GB")
+    return counts
+
+
+def driver_tables(host: dict) -> None:
+    """(d) ``benchmarks/run.py --fast`` on the card: Theorem 1, the
+    communication-bytes table and the ablations (Fig. 2 runs uncut in
+    phase 3 and the kernels are phase 4), no hand kernel launched; each
+    table's JSON written; Theorem 1's measures and every ablation row
+    within rtol 1e-3 of the same drivers on the host CPU
+    (``host_references``), comm_bytes equal to the reference driver's
+    rows."""
+    d = tempfile.mkdtemp()
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        res = run_all.main(["--fast", "--skip", "fig2,kernels", "--device", "cuda",
+                            "--out-dir", d])
+        card_s = time.perf_counter() - t0
+        expect_launches("run.py --fast")
+        wrote = sorted(os.listdir(d))
+        if wrote != sorted(run_all.OUTPUTS[t] for t in ("thm1", "comm_bytes", "ablations")):
+            raise AssertionError(f"run.py wrote {wrote}")
+        thm1, abl, cpu_s = host["thm1"], host["ablations"], host["drivers_s"]
+        pairs = [(f"thm1 N={n}", res["thm1"]["measure"][n], thm1["measure"][n])
+                 for n in thm1_speedup.NODES]
+        for table in ("topology", "drift"):
+            for key, row in abl[table].items():
+                got = res["ablations"][table][key]
+                flat = row.get("dist_by_q", row)
+                for name, want in flat.items():
+                    mine = got.get("dist_by_q", got)[name]
+                    pairs.append((f"ablations {table} {key} {name}", mine, want))
+        worst = max(abs(a - b) / abs(b) for _, a, b in pairs)
+        bad = [(w, a, b) for w, a, b in pairs if abs(a - b) > DRIVER_RTOL * abs(b)]
+        rows = [r["bytes_per_iter_per_node"] for r in res["comm_bytes"]["rows"]]
+        if bad or rows != COMM_BYTES_ROWS:
+            raise AssertionError(f"(d) drivers off the host CPU's: {bad[:4]}; comm_bytes "
+                                 f"{rows}")
+        log(f"  run.py --fast on the card in {card_s:.1f} s (thm1, comm_bytes, ablations; "
+            f"the host CPU's drivers {cpu_s:.1f} s while the kernels built): thm1 ratios N4/N8 "
+            f"{res['thm1']['ratio_4_8']:.2f}, N8/N16 {res['thm1']['ratio_8_16']:.2f}; "
+            f"{len(pairs)} measures within {worst:.2e} (rtol {DRIVER_RTOL}) of the host "
+            f"CPU's; comm_bytes' 7 rows equal the reference's")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def comm_step_profile(card: str, storage_dtype) -> dict:
+    """One FD-DSGT comm step of the fused engine at (64, 1,048,576) on
+    the 8 x 8 torus (a quadratic loss), with ``storage_dtype`` storage:
+    host clock (median of 5), device time by CUDA events (median of 20)
+    and the profiler's operations over 3 steps."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = {"p": torch.randn(STEP_NODES, STEP_WIDTH, generator=gen, device="cuda")}
+    target = {"t": torch.randn(STEP_NODES, STEP_WIDTH, generator=gen, device="cuda")}
+    eng, flat = FusedEngine.simulated(mixing_matrix("torus:8x8", STEP_NODES), params,
+                                      scale_chunk=512, storage_dtype=storage_dtype)
+    cfg = FLConfig(algorithm="dsgt", q=1, n_nodes=STEP_NODES)
+
+    def loss(p, b):
+        return 0.5 * ((p["p"] - b["t"]) ** 2).sum(dim=1)
+
+    comm = eng.make_comm_step(eng.make_eval_grads(value_and_grad(loss)), inv_sqrt(0.02), cfg)
+    state = init_fl_state(cfg, flat, eng)
+    times = []
+    for k in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = comm(state, target)
+        torch.cuda.synchronize()
+        if k >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    host = statistics.median(times)
+    # CUDA events around the whole step (the spin kernel ahead of it holds
+    # the stream while the host enqueues): the step's device time, which
+    # the profiler's trace can undercount late in a long process
+    events_ms = device_ms(lambda: comm(state, target), reps=20, warmup=2)
+    label = f"DSGT comm step at ({STEP_NODES}, {STEP_WIDTH:,}) {storage_dtype or 'float32'}"
+    log(f"  one {label}: host clock {host * 1e3:.1f} us (median of 5), device "
+        f"{events_ms * 1e3:.1f} us (CUDA events, median of 20) [{card}]")
+
+    def run():
+        nonlocal state
+        for _ in range(3):
+            state, _ = comm(state, target)
+
+    out = {"step_ms": host, "device_ms": events_ms,
+           **profile_device(run, 3, label, "step", host, card)}
+    del state, comm, eng, flat, params, target
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_profiles(card: str, rounds: dict) -> dict:
+    """Where the time goes with bf16 storage: the FD-DSGT Q = 10
+    sequential round at (20, 1536), bf16 against fp32 (phase 4 profiled
+    them one after the other: ``rounds``), then one DSGT comm step at (64,
+    1,048,576), fp32 beside bf16."""
+    f32, b16 = rounds[None], rounds[BF16]
+    if "busy_ms" in f32 and "busy_ms" in b16:
+        log(f"  the (20, 1536) round, bf16 storage against fp32 (phase 4): host clock "
+            f"{b16['round_ms'] * 1e3:.1f} against {f32['round_ms'] * 1e3:.1f} us, device "
+            f"operations {b16['device_ops']:.0f} against {f32['device_ops']:.0f}, device busy "
+            f"{b16['busy_ms'] * 1e3:.1f} against {f32['busy_ms'] * 1e3:.1f} us [{card}]")
+    return {"step fp32": comm_step_profile(card, None),
+            "step bf16": comm_step_profile(card, BF16)}
+
+
+def bf16_and_drivers(card: str, host: dict, fp32_runs: dict, rounds: dict) -> dict:
+    """Phase 7: (b1)-(b4), (d) and the profiles; the launches by kernel.
+    ``host`` holds the host CPU's driver runs, ``fp32_runs`` phase 3's
+    fp32 runs of (b1)'s configurations, ``rounds`` phase 4's round
+    profiles."""
+    counts = {}
+    section("  -- (b1) bf16 storage on the fused engine")
+    parts = [bf16_fused_paths(fp32_runs)]
+    section("  -- (b2) bf16 storage on the sharded engine (one-rank NCCL group)")
+    parts.append(bf16_sharded_path())
+    section("  -- (b3) SmolLM-360M from a bf16 snapshot")
+    parts.append(bf16_snapshot_path())
+    section("  -- (b4) launch/train.py --no-smoke with bf16 storage")
+    parts.append(bf16_training_path(card))
+    section("  -- (d) the standalone drivers through run.py --fast")
+    driver_tables(host)
+    section("  -- profiles: bf16 storage beside fp32")
+    bf16_profiles(card, rounds)
+    for part in parts:
+        for name, count in part.items():
+            counts[name] = counts.get(name, 0) + count
+    return counts
 
 
 def ptxas_summary(lib) -> str:
@@ -3905,6 +3850,25 @@ def ptxas_kernels(lib) -> list:
     return [tuple(r) for r in rows]
 
 
+def host_references() -> dict:
+    """The host-CPU runs that need no kernel and nothing from the card:
+    Fig. 2 at the paper's 3000 iterations (phase 3) and (d)'s Theorem 1
+    and ablation drivers (phase 7). ``main`` runs them while ``nvcc``
+    builds the kernels."""
+    t0 = time.perf_counter()
+    out = {"fig2": fig2_run(iterations=FIG2_ITERATIONS, device="cpu", log=False)}
+    t1 = time.perf_counter()
+    out.update(thm1=thm1_speedup.run(150, 2, device="cpu", log=False),
+               ablations=ablations.run(device="cpu", log=False))
+    out.update(fig2_s=t1 - t0, drivers_s=time.perf_counter() - t1)
+    return out
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    return fn(), time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3916,9 +3880,13 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     section("phase 1: build")
-    t0 = time.perf_counter()
-    libs = kbuild.build_all()
-    log(f"  built {sorted(name for _, name in libs)} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        building = pool.submit(timed, kbuild.build_all)
+        host = host_references()
+        libs, build_s = building.result()
+    log(f"  built {sorted(name for _, name in libs)} in {build_s:.1f} s; meanwhile the "
+        f"host CPU ran Fig. 2 ({host['fig2_s']:.1f} s) and the drivers of (d) "
+        f"({host['drivers_s']:.1f} s)")
     for (_, name), lib in sorted(libs.items()):
         log(f"    ptxas {name}: {ptxas_summary(lib)}")
         if name in PTXAS_DETAIL:
@@ -3934,9 +3902,10 @@ def main() -> int:
 
     section("phase 3: paths (launches counted per run)")
     launches = main_path()
-    launches.update(stale_paths(launches.pop("sequential_losses")))
+    fp32_runs = launches.pop("fp32_runs")
+    launches.update(stale_paths(launches.pop("sequential_losses"), fp32_runs))
     section("  -- Fig. 2 and the compressed path")
-    fig2_path()
+    fig2_path(host)
     launches.update(compressed_path())
     section("  -- the dynamic rounds (topology and node programs)")
     for name, count in dynamic_paths().items():
@@ -3969,7 +3938,7 @@ def main() -> int:
                     rglru_scan=recurrent["recurrentgemma-2b"]["rglru_scan"])
 
     section("phase 4: times (CUDA events, median of 60 after warm-up)")
-    floor_ms = launch_floor(card)
+    floor_ms = kb.launch_floor(card)
     section("  -- round kernels and round profiles")
     rows = timings(card, floor_ms)
     compact = compact_timings(card, group, floor_ms)
@@ -3982,7 +3951,8 @@ def main() -> int:
     rows.update(attention_timings(card))
     rows.update(scan_timings(card, floor_ms))
     section("  -- decode step profiles")
-    rows["serving"] = decode_step_profile(card, serve["engine"], serve["prompts"], SERVE_ARCH)
+    rows["serving"] = decode_step_profile(card, serve["engine"],
+                                          serve["prompts"][:, :PROFILE_PROMPT], SERVE_ARCH)
     del serve
     torch.cuda.empty_cache()
     for arch in RECURRENT_ARCHS:
@@ -4062,6 +4032,12 @@ def main() -> int:
             row["zoo_shapes"] = [{"shape": label, **times}
                                  for (name, label), times in zoo_times.items()
                                  if name == row["name"]]
+
+    section("phase 7: bf16 flat storage and the standalone drivers (launches counted per run)")
+    for name, count in bf16_and_drivers(card, host, fp32_runs, rows["rounds"]).items():
+        launches[name] = launches.get(name, 0) + count
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
 
     section("all phases done")
     print(card, flush=True)

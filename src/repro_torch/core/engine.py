@@ -82,9 +82,20 @@ Checkpoint restores go through :meth:`GossipEngine.restore_comm`, which
 refuses unknown comm keys and rebuilds the derived ones (the sharded
 engine's neighbor accumulators, from the restored ``recon``).
 
-Everything else outside the ported slice -- bf16 storage, the circulant
-torus wire and two-axis layout -- raises ``NotImplementedError`` naming
-its ROADMAP.md item.
+Storage: the flat buffer of ``flat``, ``fused`` and ``sharded_fused``
+may be stored in bf16 (``storage_dtype``, recorded in the layout), and
+the DSGT tracker and ``prev_grad`` share it. The arithmetic stays fp32:
+every local step and exact-wire update upcasts, computes and rounds once
+back to the storage dtype; the fused engines upcast the buffers at the
+kernel boundary and round the mixed outputs back (``_st``), so the int8
+wire, the error-feedback recon/residual and the mix accumulation are the
+fp32 computation of the rounded buffer, and the kernels stay fp32 (a
+kernel wrapper handed a bf16 buffer raises). ``tree`` refuses it, as the
+reference's does.
+
+Everything else outside the ported slice -- the circulant torus wire and
+the two-axis layout -- raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -124,6 +135,7 @@ from repro_torch.core.privacy import (
 from repro_torch.core.privacy import NONE as PRIVACY_NONE
 from repro_torch.core.packing import (
     FlatLayout,
+    as_dtype,
     bitmap_bytes_per_chunk,
     compact_index_bytes,
     compact_pos_dtype,
@@ -622,7 +634,7 @@ class GossipEngine(abc.ABC):
         never-gossiped trajectory). Identity under the full scope."""
         if not self._scoped and fire is None:
             return mixed_s
-        local = x - torch.as_tensor(alpha, dtype=torch.float32) * g
+        local = x.float() - torch.as_tensor(alpha, dtype=torch.float32) * g.float()
         if self._scoped:
             return self._scatter_cols(local, mixed_s)
         return torch.where(self._gate_mask & ~fire, local, mixed_s)
@@ -635,8 +647,8 @@ class GossipEngine(abc.ABC):
         columns, less the W contraction."""
         if not self._scoped and fire is None:
             return mx_s, mt_s
-        th = t + g - gp
-        xl = x - torch.as_tensor(alpha, dtype=torch.float32) * th
+        th = t.float() + g.float() - gp.float()
+        xl = x.float() - torch.as_tensor(alpha, dtype=torch.float32) * th
         if self._scoped:
             return self._scatter_cols(xl, mx_s), self._scatter_cols(th, mt_s)
         keep = self._gate_mask & ~fire
@@ -791,15 +803,19 @@ class GossipEngine(abc.ABC):
 
     def local_step(self, params, grads, alpha, mask=None):
         """Eq. 4 in the engine's representation: ``p - alpha * g`` as two
-        rounded fp32 operations (alpha an fp32 scalar). ``mask`` is the
-        node program's (n,) compute gate for this step: a masked node's
-        step size is zero, so it sits the step out."""
+        rounded fp32 operations (alpha an fp32 scalar) on the upcast
+        operands, stored back at the leaf's dtype (bf16 storage rounds
+        once). ``mask`` is the node program's (n,) compute gate for this
+        step: a masked node's step size is zero, so it sits the step
+        out."""
         a = torch.as_tensor(alpha, dtype=torch.float32)
         if mask is None:
-            return tree_map(lambda p, g: p - a * g, params, grads)
+            return tree_map(lambda p, g: (p.float() - a * g.float()).to(p.dtype),
+                            params, grads)
         am = a * mask
-        return tree_map(lambda p, g: p - am.reshape((-1,) + (1,) * (p.ndim - 1)) * g,
-                        params, grads)
+        return tree_map(
+            lambda p, g: (p.float() - am.reshape((-1,) + (1,) * (p.ndim - 1))
+                          * g.float()).to(p.dtype), params, grads)
 
     def mix(self, buf):
         """Exact-wire W application (theta <- W theta) on the engine's
@@ -813,6 +829,16 @@ class GossipEngine(abc.ABC):
         """The mean over every node of a mean over this process's nodes:
         ``x`` itself unless the nodes are split over several processes."""
         return x
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        """The dtype the flat buffer (and DSGT's tracker and
+        ``prev_grad``) is stored in; fp32 for tree state."""
+        return torch.float32 if self.layout is None else as_dtype(self.layout.storage_dtype)
+
+    def _st(self, x: torch.Tensor) -> torch.Tensor:
+        """A mixed fp32 output stored back at the storage dtype."""
+        return x.to(self.storage_dtype)
 
     def wire_bytes(self, cfg: FLConfig) -> Optional[float]:
         """Per-round egress summed over all nodes (None: the engine does
@@ -862,19 +888,26 @@ class GossipEngine(abc.ABC):
                 def mix(buf):
                     return self.mix_dynamic(buf, w_off_r, w_diag_r)
 
+            # adapt at fp32, stored back at the state's dtype (bf16 flat
+            # storage narrows what is stored, never the arithmetic)
             def adapt(wp, t):
-                return wp - a * t
+                return (wp.float() - a * t.float()).to(wp.dtype)
+
+            # the tracker's sum in the state's dtype, rounded op by op, as
+            # the reference's (its compiled bf16 adds round each)
+            def track(wt, gn, gp):
+                return wt + gn.to(wt.dtype) - gp
 
             if cfg.algorithm == "dsgd":
                 params = tree_map(adapt, mix(state.params), grads)
                 new_state = state._replace(step=step, params=params, comm=comm)
             else:
-                tracker = tree_map(lambda wt, gn, gp: wt + gn - gp,
-                                   mix(state.tracker), grads, state.prev_grad)
+                tracker = tree_map(track, mix(state.tracker), grads, state.prev_grad)
                 params = tree_map(adapt, mix(state.params), tracker)
-                new_state = state._replace(step=step, params=params,
-                                           tracker=tracker, prev_grad=grads,
-                                           comm=comm)
+                new_state = state._replace(
+                    step=step, params=params, tracker=tracker,
+                    prev_grad=tree_map(lambda g, p: g.to(p.dtype), grads, state.prev_grad),
+                    comm=comm)
             metrics = {
                 "loss": losses.mean(),
                 "alpha": float(alpha),
@@ -923,9 +956,47 @@ def engine_names() -> Tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 
-def _refuse_unported(storage_dtype) -> None:
-    if storage_dtype not in (None, "float32", torch.float32):
-        raise _not_ported(f"{storage_dtype} flat storage", "5")
+def _reject_storage_dtype(storage_dtype, name: str) -> None:
+    """The tree engine has no flat buffer to store narrow: the
+    reference's refusal."""
+    if storage_dtype is not None and as_dtype(storage_dtype) != torch.float32:
+        raise ValueError(
+            f"storage_dtype is a flat-buffer knob (bf16 buffer with fp32 "
+            f"mix accumulation); the {name!r} engine has no flat buffer "
+            "-- use 'flat', 'fused', or 'sharded_fused'"
+        )
+
+
+#: storage dtypes the fused engines accept: the params / tracker buffer
+#: may be stored narrow, but the EF recon / residual wire state stays fp32
+#: (the residual must not be rounded)
+_FUSED_STORAGE_DTYPES = ("float32", "bfloat16")
+
+
+def _fused_layout(layout: FlatLayout, storage_dtype, name: str) -> FlatLayout:
+    """The fused engines' layout: ``storage_dtype`` (when given) replaces
+    the layout's, and only :data:`_FUSED_STORAGE_DTYPES` are accepted,
+    with the reference's message."""
+    if storage_dtype is not None:
+        layout = dataclasses.replace(
+            layout, storage_dtype=str(as_dtype(storage_dtype)).removeprefix("torch."))
+    if layout.storage_dtype not in _FUSED_STORAGE_DTYPES:
+        raise ValueError(
+            f"the {name!r} engine stores the flat buffer in "
+            f"{_FUSED_STORAGE_DTYPES} only (got {layout.storage_dtype!r}); "
+            "the wire math and the EF recon/residual state run fp32 either way"
+        )
+    return layout
+
+
+def _check_storage(params: torch.Tensor, engine: "GossipEngine") -> None:
+    """The fused engines' buffer: the storage dtype, on the engine's
+    device."""
+    if params.dtype != engine.storage_dtype or params.device != engine.device:
+        raise ValueError(
+            f"flat buffer is {params.dtype} on {params.device}; the engine "
+            f"stores {engine.storage_dtype} on {engine.device}"
+        )
 
 
 def _reject_privacy(privacy, name: str, reason: str) -> PrivacySpec:
@@ -1038,7 +1109,7 @@ class TreeEngine(GossipEngine):
         """Single-device build on the params' device: the dense-W backend;
         the state stays the input tree. Returns (engine, params)."""
         _refuse_exact_wire(cls.name, topk, round_schedule, scope)
-        _refuse_unported(storage_dtype)
+        _reject_storage_dtype(storage_dtype, cls.name)
         _reject_privacy(privacy, cls.name, "engine's pytree wire has no quantize "
                         "epilogue to pad or noise")
         reason = "engine bakes W into its tree-level gossip backend"
@@ -1107,12 +1178,14 @@ class FlatEngine(GossipEngine):
                   storage_dtype=None, topology_program=None, node_program=None,
                   privacy=None, scope=None,
                   **_ignored) -> Tuple["FlatEngine", torch.Tensor]:
-        """Pack node-stacked params (padded to ``scale_chunk``) and build
-        the engine on their device, the programs bound to ``w``. Returns
-        (engine, flat buffer)."""
+        """Pack node-stacked params (padded to ``scale_chunk``, stored in
+        ``storage_dtype``, fp32 by default) and build the engine on their
+        device, the programs bound to ``w``. The mix accumulates in fp32
+        and rounds back to the storage dtype. Returns (engine, flat
+        buffer)."""
         _refuse_exact_wire(cls.name, topk, round_schedule, scope)
-        _refuse_unported(storage_dtype)
-        flat, layout = pack(stacked_params, pad_to=scale_chunk)
+        flat, layout = pack(stacked_params, pad_to=scale_chunk,
+                            buffer_dtype=storage_dtype or torch.float32)
         return cls(make_dense_flat_mix(w, wire_dtype), layout, device=flat.device,
                    topology_program=topology_program, node_program=node_program,
                    wire_dtype=wire_dtype, w=w, privacy=privacy), flat
@@ -1167,7 +1240,12 @@ class FusedEngine(GossipEngine):
     columns (``_gather_cols``), every wire buffer at ``wire_layout``'s
     width, and the private columns take the plain local update
     (``_scope_finish``); ``layerwise`` gates the head columns' mix on
-    ``topo_round``, which the round then carries."""
+    ``topo_round``, which the round then carries.
+
+    ``storage_dtype`` (or the layout's): the params / tracker / prev-grad
+    buffer is stored in fp32 or bf16; the kernels take it upcast and the
+    mixed outputs are stored back rounded, while the wire state stays
+    fp32."""
 
     name = "fused"
 
@@ -1181,7 +1259,7 @@ class FusedEngine(GossipEngine):
                 "the fused engines' wire is always difference-coded int8; "
                 "wire_dtype only applies to the tree/flat exact-wire engines"
             )
-        _refuse_unported(storage_dtype)
+        layout = _fused_layout(layout, storage_dtype, self.name)
         self.privacy = resolve_privacy(privacy)
         if scale_chunk < 1:
             raise ValueError("scale_chunk must be >= 1")
@@ -1270,11 +1348,7 @@ class FusedEngine(GossipEngine):
                 f"flat buffer {tuple(params.shape)} != "
                 f"({cfg.n_nodes}, {self.layout.total})"
             )
-        if params.dtype != torch.float32 or params.device != self.device:
-            raise ValueError(
-                f"flat buffer is {params.dtype} on {params.device}; the "
-                f"engine runs float32 on {self.device}"
-            )
+        _check_storage(params, self)
 
     def _metrics(self, cfg, losses, alpha, grads, new_state: FLState, egress: float):
         res = new_state.comm["residual"]
@@ -1315,34 +1389,36 @@ class FusedEngine(GossipEngine):
             step = state.step + 1
             alpha = schedule(step)
             losses, grads = eval_grads(state.params, batch)
+            grads = grads.float()
             c = state.comm
             w_off_r, w_self_r, topo_comm, gate_metrics = self._round_w(c)
             dpkw = self._dp_kwargs(*self._round_noises(c, range(cfg.n_nodes), wires))
-            # the kernel runs unchanged on the gathered shared columns; the
-            # private ones never enter it (_scope_finish[_gt])
+            # the kernel runs unchanged, in fp32, on the gathered shared
+            # columns; the private ones never enter it (_scope_finish[_gt])
             fire = self._scope_fire(c)
             gather = self._gather_cols
             if cfg.algorithm == "dsgd":
                 mixed, recon, res, _ = fused_round(
-                    gather(state.params), gather(grads), c["recon"], c["residual"],
+                    gather(state.params.float()), gather(grads), c["recon"], c["residual"],
                     w_off_r, w_self_r, alpha, **kw, **dpkw,
                 )
                 mixed = self._scope_finish(mixed, state.params, grads, alpha, fire)
                 new_state = state._replace(
-                    step=step, params=mixed,
+                    step=step, params=self._st(mixed),
                     comm={"recon": recon, "residual": res, **topo_comm},
                 )
             else:
                 mx, mt, nrx, nsx, nrt, nst, _, _ = fused_round_gt(
-                    gather(state.params), gather(state.tracker), gather(grads),
-                    gather(state.prev_grad),
+                    gather(state.params.float()), gather(state.tracker.float()),
+                    gather(grads), gather(state.prev_grad.float()),
                     c["recon"], c["residual"], c["recon_t"], c["residual_t"],
                     w_off_r, w_self_r, alpha, **kw, **dpkw,
                 )
                 mx, mt = self._scope_finish_gt(mx, mt, state.params, state.tracker, grads,
                                                state.prev_grad, alpha, fire)
                 new_state = FLState(
-                    step=step, params=mx, tracker=mt, prev_grad=grads,
+                    step=step, params=self._st(mx), tracker=self._st(mt),
+                    prev_grad=self._st(grads),
                     comm={"recon": nrx, "residual": nsx,
                           "recon_t": nrt, "residual_t": nst, **topo_comm},
                 )
@@ -1380,6 +1456,7 @@ class FusedEngine(GossipEngine):
             step = state.step + 1
             alpha = schedule(step)
             losses, grads = eval_grads(state.params, batch)
+            grads = grads.float()
             c = state.comm
             w_off_r, w_self_r, topo_comm, gate_metrics = self._round_w(c)
 
@@ -1391,11 +1468,11 @@ class FusedEngine(GossipEngine):
             gather = self._gather_cols
             if cfg.algorithm == "dsgd":
                 h, q, sc, nrecon, nres = wire_stage(
-                    gather(state.params), gather(grads), c["recon"], c["residual"], alpha,
-                    **kw, **dpkw)
-                mixed = self._scope_finish(
+                    gather(state.params.float()), gather(grads), c["recon"], c["residual"],
+                    alpha, **kw, **dpkw)
+                mixed = self._st(self._scope_finish(
                     mix(stale_recon(c["recon"], c["wire_q"], c["wire_scales"]), h),
-                    state.params, grads, alpha, fire)
+                    state.params, grads, alpha, fire))
                 nwq, nwsc = push(c["wire_q"], c["wire_scales"], q, sc)
                 new_state = state._replace(
                     step=step, params=mixed,
@@ -1404,8 +1481,8 @@ class FusedEngine(GossipEngine):
                 )
             else:
                 (h, t_half, qx, scx, nrx, nsx, qt, sct, nrt, nst) = wire_stage_gt(
-                    gather(state.params), gather(state.tracker), gather(grads),
-                    gather(state.prev_grad),
+                    gather(state.params.float()), gather(state.tracker.float()),
+                    gather(grads), gather(state.prev_grad.float()),
                     c["recon"], c["residual"], c["recon_t"], c["residual_t"],
                     alpha, **kw, **dpkw,
                 )
@@ -1417,7 +1494,8 @@ class FusedEngine(GossipEngine):
                 nwq, nwsc = push(c["wire_q"], c["wire_scales"], qx, scx)
                 nwqt, nwsct = push(c["wire_q_t"], c["wire_scales_t"], qt, sct)
                 new_state = FLState(
-                    step=step, params=mixed_x, tracker=mixed_t, prev_grad=grads,
+                    step=step, params=self._st(mixed_x), tracker=self._st(mixed_t),
+                    prev_grad=self._st(grads),
                     comm={"recon": nrx, "residual": nsx,
                           "recon_t": nrt, "residual_t": nst,
                           "wire_q": nwq, "wire_scales": nwsc,
@@ -1444,9 +1522,12 @@ class FusedEngine(GossipEngine):
     @classmethod
     def simulated(cls, w: np.ndarray, stacked_params, *, scale_chunk: int = 512,
                   **kw) -> Tuple["FusedEngine", torch.Tensor]:
-        """Pack node-stacked params (padded to ``scale_chunk``) and build
-        the engine on their device. Returns (engine, flat buffer)."""
-        flat, layout = pack(stacked_params, pad_to=scale_chunk)
+        """Pack node-stacked params (padded to ``scale_chunk``, stored in
+        ``storage_dtype``, fp32 by default) and build the engine on their
+        device. Returns (engine, flat buffer)."""
+        storage_dtype = kw.pop("storage_dtype", None)
+        flat, layout = pack(stacked_params, pad_to=scale_chunk,
+                            buffer_dtype=storage_dtype or torch.float32)
         return cls(w, layout, scale_chunk=scale_chunk, device=flat.device,
                    **kw), flat
 
@@ -1519,6 +1600,10 @@ class ShardedFusedEngine(GossipEngine):
     accumulators after a checkpoint restore (``gather_rows`` serves a
     save).
 
+    ``storage_dtype``: bf16 storage of the rank's rows as on ``fused``,
+    upcast into the wire stage and rounded back after the mix; the wire
+    buffers, recon, residual and the neighbor accumulators stay fp32.
+
     ``collectives`` and ``collective_bytes`` count the wire's all-gathers
     and the bytes this rank hands them (the metrics' all-reduces are not
     wire traffic and do not count).
@@ -1544,7 +1629,7 @@ class ShardedFusedEngine(GossipEngine):
             raise _not_ported(
                 f"the two-axis (node, model_shard) layout (model_axis={model_axis!r})",
                 "15")
-        _refuse_unported(storage_dtype)
+        layout = _fused_layout(layout, storage_dtype, self.name)
         self.privacy = resolve_privacy(privacy)
         if self.privacy.dp and not error_feedback:
             raise ValueError(
@@ -1807,11 +1892,7 @@ class ShardedFusedEngine(GossipEngine):
                 f"the sharded engine's state is this rank's rows of the packed "
                 f"buffer, {want} (from_group returns them)"
             )
-        if params.dtype != torch.float32 or params.device != self.device:
-            raise ValueError(
-                f"flat buffer is {params.dtype} on {params.device}; the "
-                f"engine runs float32 on {self.device}"
-            )
+        _check_storage(params, self)
 
     def make_eval_grads(self, grad_fn):
         """The tree-level ``grad_fn`` on this rank's rows: each round's
@@ -1995,7 +2076,7 @@ class ShardedFusedEngine(GossipEngine):
         sums, one of the squared deviations from the consensus mean. The
         residual lives at the wire width."""
         n, t = self.n_nodes, self.layout.total
-        params, res = new_state.params, new_state.comm["residual"]
+        params, res = new_state.params.float(), new_state.comm["residual"]
         sums = torch.cat([losses.sum()[None], (res * res).sum()[None],
                           grads.sum(dim=0), params.sum(dim=0)])
         dist.all_reduce(sums, group=self.group.pg)
@@ -2030,29 +2111,32 @@ class ShardedFusedEngine(GossipEngine):
         step = state.step + 1
         alpha = schedule(step)
         losses, grads = eval_grads(state.params, batch)
+        grads = grads.float()
         c = state.comm
         noises = self._round_noises(c, self.rows, 2 if cfg.algorithm == "dsgt" else 1)
         priv = self._priv_comm(c)
         if cfg.algorithm == "dsgd":
             h, wire, nrecon, nres = self._produce(
-                state.params, grads, c["recon"], c["residual"], alpha, noises)
+                state.params.float(), grads, c["recon"], c["residual"], alpha, noises)
             new_mix = c["mix_recon"] + mix_add(wire, None)[0]
             new_state = state._replace(
-                step=step, params=self._scope_finish(self.w_self[:, None] * h + new_mix,
-                                                     state.params, grads, alpha),
+                step=step, params=self._st(self._scope_finish(
+                    self.w_self[:, None] * h + new_mix, state.params, grads, alpha)),
                 comm={"recon": nrecon, "residual": nres, "mix_recon": new_mix, **priv})
             wire_t = None
         else:
             (h, th, wire, nrx, nsx, wire_t, nrt, nst) = self._produce_gt(
-                state.params, state.tracker, grads, state.prev_grad, c["recon"],
-                c["residual"], c["recon_t"], c["residual_t"], alpha, noises)
+                state.params.float(), state.tracker.float(), grads,
+                state.prev_grad.float(), c["recon"], c["residual"], c["recon_t"],
+                c["residual_t"], alpha, noises)
             add_x, add_t = mix_add(wire, wire_t)
             new_mrx, new_mrt = c["mix_recon"] + add_x, c["mix_recon_t"] + add_t
             mixed_x, mixed_t = self._scope_finish_gt(
                 self.w_self[:, None] * h + new_mrx, self.w_self[:, None] * th + new_mrt,
                 state.params, state.tracker, grads, state.prev_grad, alpha)
             new_state = FLState(
-                step=step, params=mixed_x, tracker=mixed_t, prev_grad=grads,
+                step=step, params=self._st(mixed_x), tracker=self._st(mixed_t),
+                prev_grad=self._st(grads),
                 comm={"recon": nrx, "residual": nsx, "mix_recon": new_mrx,
                       "recon_t": nrt, "residual_t": nst, "mix_recon_t": new_mrt, **priv})
         return new_state, (cfg, losses, alpha, grads), wire, wire_t
@@ -2082,6 +2166,7 @@ class ShardedFusedEngine(GossipEngine):
             step = state.step + 1
             alpha = schedule(step)
             losses, grads = eval_grads(state.params, batch)
+            grads = grads.float()
             c = state.comm
             w_off_r, w_diag_r, topo_comm, gate_metrics = self._round_gates(c)
             w_rows, ddiag = w_off_r[rows], w_diag_r[rows][:, None]
@@ -2096,18 +2181,19 @@ class ShardedFusedEngine(GossipEngine):
 
             if cfg.algorithm == "dsgd":
                 h, wire, nrecon, nres = self._produce(
-                    state.params, grads, c["recon"], c["residual"], alpha, **kw)
+                    state.params.float(), grads, c["recon"], c["residual"], alpha, **kw)
                 mix, nbr = mix_one(wire, keys, c["nbr_recon_all"])
                 comm = {"recon": nrecon, "residual": nres, "nbr_recon_all": nbr,
                         **topo_comm}
                 new_state = state._replace(
-                    step=step, params=self._scope_finish(ddiag * h + mix, state.params,
-                                                         grads, alpha), comm=comm)
+                    step=step, params=self._st(self._scope_finish(
+                        ddiag * h + mix, state.params, grads, alpha)), comm=comm)
                 pushes = ((keys, wire),)
             else:
                 (h, th, wire, nrx, nsx, wire_t, nrt, nst) = self._produce_gt(
-                    state.params, state.tracker, grads, state.prev_grad, c["recon"],
-                    c["residual"], c["recon_t"], c["residual_t"], alpha, **kw)
+                    state.params.float(), state.tracker.float(), grads,
+                    state.prev_grad.float(), c["recon"], c["residual"], c["recon_t"],
+                    c["residual_t"], alpha, **kw)
                 mix_x, nbr_x = mix_one(wire, keys, c["nbr_recon_all"])
                 mix_t, nbr_t = mix_one(wire_t, keys_t, c["nbr_recon_all_t"])
                 comm = {"recon": nrx, "residual": nsx, "nbr_recon_all": nbr_x,
@@ -2116,8 +2202,9 @@ class ShardedFusedEngine(GossipEngine):
                 mixed_x, mixed_t = self._scope_finish_gt(
                     ddiag * h + mix_x, ddiag * th + mix_t, state.params, state.tracker,
                     grads, state.prev_grad, alpha)
-                new_state = FLState(step=step, params=mixed_x, tracker=mixed_t,
-                                    prev_grad=grads, comm=comm)
+                new_state = FLState(step=step, params=self._st(mixed_x),
+                                    tracker=self._st(mixed_t), prev_grad=self._st(grads),
+                                    comm=comm)
                 pushes = ((keys, wire), (keys_t, wire_t))
             if pipelined:
                 for wire_keys, vals in pushes:
@@ -2204,10 +2291,13 @@ class ShardedFusedEngine(GossipEngine):
     def from_group(cls, group: NodeGroup, stacked_params, *, scale_chunk: int = 512,
                    **kw) -> Tuple["ShardedFusedEngine", torch.Tensor]:
         """Pack the node-stacked params (all n nodes, padded to
-        ``scale_chunk``) and build the engine for this rank of ``group``.
-        Returns (engine, this rank's rows of the flat buffer on the
-        group's device) -- the state ``init_fl_state`` takes."""
-        flat, layout = pack(stacked_params, pad_to=scale_chunk)
+        ``scale_chunk``, stored in ``storage_dtype``, fp32 by default) and
+        build the engine for this rank of ``group``. Returns (engine, this
+        rank's rows of the flat buffer on the group's device) -- the state
+        ``init_fl_state`` takes."""
+        storage_dtype = kw.pop("storage_dtype", None)
+        flat, layout = pack(stacked_params, pad_to=scale_chunk,
+                            buffer_dtype=storage_dtype or torch.float32)
         engine = cls(group, layout, scale_chunk=scale_chunk, **kw)
         rows = flat[engine.rows.start:engine.rows.stop]
-        return engine, rows.to(group.device, torch.float32).contiguous()
+        return engine, rows.to(group.device).contiguous()

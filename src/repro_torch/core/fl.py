@@ -116,9 +116,10 @@ def init_fl_state(cfg: FLConfig, stacked_params: Tree, engine=None) -> FLState:
     validates its representation (the flat and fused engines want the
     packed ``(nodes, total)`` buffer) and contributes its zero-initialized
     wire state; ``engine=None`` only checks the node stacking, for the
-    exact-wire engines. DSGT's tracker and ``prev_grad`` start at zero, so
-    the first comm round's ``g_new - g_prev`` loads the first gradient
-    into the tracker."""
+    exact-wire engines. DSGT's tracker and ``prev_grad`` start at zero in
+    the state's own dtype (the engine's storage dtype: bf16 under bf16
+    flat storage), so the first comm round's ``g_new - g_prev`` loads the
+    first gradient into the tracker."""
     comm = None
     if engine is not None:
         engine.check_params(cfg, stacked_params)

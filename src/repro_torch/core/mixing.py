@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.fl import tree_map
-from repro_torch.core.packing import pack, unpack
+from repro_torch.core.packing import as_dtype, pack, unpack
 
 Tree = Any
 GossipFn = Callable[[Tree], Tree]
@@ -39,16 +39,6 @@ __all__ = [
     "make_mean_consensus",
     "as_dtype",
 ]
-
-
-def as_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype or its name (``"bfloat16"``)."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    d = getattr(torch, str(dtype), None)
-    if not isinstance(d, torch.dtype):
-        raise ValueError(f"unknown dtype {dtype!r}")
-    return d
 
 
 def _wire(x: torch.Tensor, wire_dtype) -> torch.Tensor:

@@ -1,6 +1,5 @@
 """Flat-buffer packing: the node-stacked parameter tree as ONE contiguous
-``(nodes, total_params)`` fp32 matrix (counterpart of
-``repro.core.packing``).
+``(nodes, total_params)`` matrix (counterpart of ``repro.core.packing``).
 
 Trees are nested dicts (and lists) of tensors whose leaves all carry a
 leading ``nodes`` axis. Leaves are ordered like ``jax.tree_util``'s
@@ -10,6 +9,13 @@ by the reference compare column for column. ``pack(..., pad_to=k)``
 rounds ``total`` up to a multiple of ``k`` with zero columns, so the
 buffer tiles evenly into kernel ``scale_chunk`` blocks; every engine op
 is columnwise and keeps those columns zero.
+
+Storage dtype: the buffer is fp32 by default, which holds fp32, bf16 and
+fp16 leaves exactly. ``pack(..., buffer_dtype=torch.bfloat16)`` stores it
+in bf16 (``FlatLayout.storage_dtype``), rounding wider leaves once; the
+flat and fused engines then keep fp32 only in their transient arithmetic
+and round every stored buffer back. ``unpack`` restores each leaf's own
+dtype either way.
 
 Wire-byte accounting (:func:`flat_wire_bytes`): a flat int8 payload
 costs ``total`` bytes plus 4 bytes per (node, scale chunk) for the fp32
@@ -38,6 +44,7 @@ __all__ = [
     "pack",
     "pack_layout",
     "pack_like",
+    "as_dtype",
     "unpack",
     "compact_pos_dtype",
     "bitmap_bytes_per_chunk",
@@ -72,6 +79,9 @@ class FlatLayout:
     leaves: Tuple[LeafSpec, ...]
     n_nodes: int
     total: int
+    #: the dtype the buffer is stored in: "float32" (lossless for fp32,
+    #: bf16 and fp16 leaves) or "bfloat16" (bf16 flat storage)
+    storage_dtype: str = "float32"
 
     @property
     def used(self) -> int:
@@ -124,8 +134,10 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def pack_layout(tree: Tree, pad_to: int = 1) -> FlatLayout:
-    """The layout of ``tree`` without materializing the buffer."""
+def pack_layout(tree: Tree, pad_to: int = 1,
+                storage_dtype=torch.float32) -> FlatLayout:
+    """The layout of ``tree`` without materializing the buffer, stored in
+    ``storage_dtype``."""
     items = tree_leaves(tree)
     if not items:
         raise ValueError("cannot pack an empty tree")
@@ -142,28 +154,43 @@ def pack_layout(tree: Tree, pad_to: int = 1) -> FlatLayout:
         off += specs[-1].size
     unit = max(int(pad_to), 1)
     total = ((off + unit - 1) // unit) * unit
-    return FlatLayout(tuple(p for p, _ in items), tuple(specs), n_nodes, total)
+    return FlatLayout(tuple(p for p, _ in items), tuple(specs), n_nodes, total,
+                      _dtype_name(as_dtype(storage_dtype)))
 
 
-def _pack_into(items, layout: FlatLayout) -> torch.Tensor:
+def as_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or its name (``"bfloat16"``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    out = getattr(torch, str(dtype), None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f"unknown dtype {dtype!r}")
+    return out
+
+
+def _pack_into(items, layout: FlatLayout, dtype: torch.dtype) -> torch.Tensor:
     n = layout.n_nodes
-    cols = [leaf.reshape(n, -1).to(torch.float32) for _, leaf in items]
+    cols = [leaf.reshape(n, -1).to(dtype) for _, leaf in items]
     if layout.total > layout.used:
         cols.append(torch.zeros(n, layout.total - layout.used,
-                                dtype=torch.float32, device=cols[0].device))
+                                dtype=dtype, device=cols[0].device))
     return torch.cat(cols, dim=1).contiguous()
 
 
-def pack(tree: Tree, pad_to: int = 1) -> Tuple[torch.Tensor, FlatLayout]:
-    """Pack a node-stacked tree into one ``(nodes, total)`` fp32 buffer
-    (zero-padded to a multiple of ``pad_to``). Returns (flat, layout)."""
-    layout = pack_layout(tree, pad_to)
-    return _pack_into(tree_leaves(tree), layout), layout
+def pack(tree: Tree, pad_to: int = 1,
+         buffer_dtype=torch.float32) -> Tuple[torch.Tensor, FlatLayout]:
+    """Pack a node-stacked tree into one ``(nodes, total)`` buffer of
+    ``buffer_dtype`` (recorded as ``layout.storage_dtype``; bf16 rounds
+    fp32 leaves), zero-padded to a multiple of ``pad_to``. Returns
+    (flat, layout)."""
+    layout = pack_layout(tree, pad_to, storage_dtype=buffer_dtype)
+    return _pack_into(tree_leaves(tree), layout, as_dtype(buffer_dtype)), layout
 
 
-def pack_like(tree: Tree, layout: FlatLayout) -> torch.Tensor:
+def pack_like(tree: Tree, layout: FlatLayout, buffer_dtype=None) -> torch.Tensor:
     """Pack a tree into an EXISTING layout (same key paths and per-leaf
-    shapes)."""
+    shapes), stored in the layout's ``storage_dtype`` unless
+    ``buffer_dtype`` is given (the engines pack gradients this way)."""
     items = tree_leaves(tree)
     if tuple(p for p, _ in items) != layout.paths:
         raise ValueError(
@@ -175,7 +202,9 @@ def pack_like(tree: Tree, layout: FlatLayout) -> torch.Tensor:
             raise ValueError(
                 f"leaf shape {tuple(leaf.shape)} != layout {(n,) + spec.shape}"
             )
-    return _pack_into(items, layout)
+    if buffer_dtype is None:
+        buffer_dtype = layout.storage_dtype
+    return _pack_into(items, layout, as_dtype(buffer_dtype))
 
 
 def unpack(flat: torch.Tensor, layout: FlatLayout) -> Tree:
@@ -250,7 +279,8 @@ def scoped_layout(layout: FlatLayout, ranges, scale_chunk: int
     ``used`` is the shared width, so :func:`flat_wire_bytes` on it IS the
     scoped wire's accounting; and the validated ranges. The port's
     layouts are single-shard (the model axis is not ported), so the
-    ranges need no per-shard uniformity check."""
+    ranges need no per-shard uniformity check. The wire layout keeps the
+    layout's ``storage_dtype``."""
     ranges = tuple((int(a), int(b)) for a, b in ranges)
     pos = 0
     for a, b in ranges:
@@ -268,5 +298,6 @@ def scoped_layout(layout: FlatLayout, ranges, scale_chunk: int
         )
     unit = max(int(scale_chunk), 1)
     wire = FlatLayout(paths=((),), leaves=(LeafSpec(0, (shared,), "float32"),),
-                      n_nodes=layout.n_nodes, total=-(-shared // unit) * unit)
+                      n_nodes=layout.n_nodes, total=-(-shared // unit) * unit,
+                      storage_dtype=layout.storage_dtype)
     return wire, ranges

@@ -79,7 +79,7 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
                      class_weight=CLASS_WEIGHT, fl_schedule="sequential",
                      topk=None, topk_schedule=None, topology_program=None,
                      privacy=None, scope=None, device=None,
-                     init_params: Optional[Dict] = None) -> Dict:
+                     init_params: Optional[Dict] = None, storage_dtype=None) -> Dict:
     """FD-DSGT on the ``fused`` engine, one kernel call per comm round.
 
     ``fl_schedule``: a round-schedule spec ("sequential", "pipelined",
@@ -93,12 +93,14 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
     classifier heads stay private, the wire shrinks to the shared
     columns). ``init_params``: one node's starting weights
     (a tree of tensors); default ``mlp_init(seed)``. Tests pass the
-    reference's init here. Returns final ``acc``, ``bal_acc``,
+    reference's init here. ``storage_dtype``: the flat buffer's storage
+    (``"bfloat16"``: bf16 params, tracker and previous gradient, the
+    arithmetic and the wire fp32). Returns final ``acc``, ``bal_acc``,
     ``wire_saving`` (fp32 bytes over the engine's wire bytes in the last
     round), ``wire_bytes`` of the last round, the per-round ``losses``,
     the final node-stacked ``params`` (a tree), ``dense_rounds``
-    (adaptive k only, else None) and ``dp_epsilon`` of the last round
-    (None without dp)."""
+    (adaptive k only, else None), ``dp_epsilon`` of the last round
+    (None without dp), and the final ``state`` and its ``engine``."""
     if rounds < 1:
         raise ValueError("rounds must be >= 1")
     if topk_schedule is not None and topk is not None:
@@ -118,7 +120,8 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
         topk = adaptive.k_sparse
     stacked = stack_for_nodes(single, n)
     kw = dict(scale_chunk=scale_chunk, round_schedule=resolve_schedule(fl_schedule),
-              topology_program=topology_program, privacy=privacy, scope=scope)
+              topology_program=topology_program, privacy=privacy, scope=scope,
+              storage_dtype=storage_dtype)
     engine, flat = get_engine("fused").simulated(w, stacked, topk=topk, **kw)
     loss_fn = make_mlp_loss(class_weights(class_weight))
     round_fn = make_fl_round(loss_fn, inv_sqrt(0.02), cfg, engine)
@@ -145,6 +148,8 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
                  if engine.privacy.active else "")
     scope_note = (f", scope={engine.scope.spec()} ({engine.wire_layout.total}/"
                   f"{engine.layout.total} wire cols)" if not engine.scope.is_full else "")
+    if engine.layout.storage_dtype != "float32":
+        scope_note += f", storage={engine.layout.storage_dtype}"
     print(f"\nfused engine (FD-DSGT, Q={q}, "
           f"schedule={engine.round_schedule.spec()}, {graph_note}, "
           f"class_weight={class_weight}{priv_note}{scope_note}, {n_params} params -> "
@@ -193,7 +198,8 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
             "wire_bytes": m["wire_bytes"],
             "losses": torch.stack(losses).tolist(), "params": params,
             "dense_rounds": adaptive.dense_rounds if adaptive else None,
-            "dp_epsilon": float(m["dp_epsilon"]) if "dp_epsilon" in m else None}
+            "dp_epsilon": float(m["dp_epsilon"]) if "dp_epsilon" in m else None,
+            "state": state, "engine": engine}
 
 
 def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
@@ -201,13 +207,14 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
                        class_weight=CLASS_WEIGHT, fl_schedule="sequential",
                        topk=None, topology_program=None, node_program=None,
                        privacy=None, scope=None, init_params: Optional[Dict] = None,
-                       log: bool = True) -> Dict:
+                       log: bool = True, storage_dtype=None) -> Dict:
     """Part 2's configuration on the ``sharded_fused`` engine, for this
     rank of ``group`` (every rank of the group calls it with the same
     arguments). ``topk`` ships the compact exact-k wire where it is
     smaller than the dense int8 chunk; ``topology_program`` /
     ``node_program`` / ``privacy`` / ``scope`` are the engine's round
-    axes, as :func:`run_fused_engine` takes them (``layerwise`` refused). Returns the per-round ``losses``
+    axes, as :func:`run_fused_engine` takes them (``layerwise`` refused),
+    and so is ``storage_dtype``. Returns the per-round ``losses``
     and last ``metrics`` (over all 20 hospitals), ``wire_bytes`` of the
     last round, the ``engine`` and the final ``state`` (this rank's
     rows)."""
@@ -222,7 +229,7 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
         group, stack_for_nodes(single, n), w=mixing_matrix("hospital20", n),
         scale_chunk=scale_chunk, topk=topk, round_schedule=fl_schedule,
         topology_program=topology_program, node_program=node_program, privacy=privacy,
-        scope=scope)
+        scope=scope, storage_dtype=storage_dtype)
     round_fn = make_fl_round(make_mlp_loss(class_weights(class_weight)), inv_sqrt(0.02),
                              cfg, engine)
     state = init_fl_state(cfg, rows, engine)

@@ -2,8 +2,9 @@
 config (counterpart of ``repro.launch.train``; the reference's flags and
 printed JSON, plus ``--device`` and the JSON's ``device``).
 
-Like the reference, it always builds ``get_config(arch, smoke=True)``
-and trains it with the simulated node axis through
+Like the reference, it builds ``get_config(arch, smoke=True)`` by
+default (the port's ``--no-smoke`` builds the arch's published config
+instead, for a card that holds it) and trains it with the simulated node axis through
 ``training.trainer.train_decentralized``; the ``--fl-*`` flags select
 the round axes. ``--fl-engine sharded_fused`` is refused, as the
 reference's help says: that round needs a process group, which the
@@ -40,7 +41,9 @@ from repro_torch.training.trainer import train_decentralized
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True,
+                    help="train the arch's smoke config (default); --no-smoke "
+                         "trains its full (published) config")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--q", type=int, default=4)
     ap.add_argument("--algorithm", default="dsgt", choices=("dsgd", "dsgt"))
@@ -68,8 +71,9 @@ def _parser() -> argparse.ArgumentParser:
                          "(0 = sequential); mutually exclusive with "
                          "--fl-schedule")
     ap.add_argument("--storage-dtype", default=None,
-                    help="flat engine buffer storage dtype (only float32 is "
-                         "ported; bfloat16 is refused, ROADMAP.md item 5)")
+                    help="flat buffer storage dtype of the flat / fused "
+                         "engines: float32 (default) or bfloat16 (fp32 "
+                         "arithmetic, the wire state fp32); tree refuses it")
     ap.add_argument("--fl-topology-program", default=None,
                     help="per-round graph dynamics (TopologyProgram registry: "
                          f"{', '.join(program_names())}), e.g. "
@@ -114,7 +118,7 @@ def main(argv=None) -> dict:
         fl_schedule = None  # the trainer derives it from staleness_depth
 
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=True)
+    cfg = get_config(args.arch, smoke=args.smoke)
     bundle = build_model(cfg)
     run = FLRunConfig(algorithm=args.algorithm, q=args.q, topology=args.topology,
                       n_nodes=args.nodes, batch_per_node=args.batch_per_node,

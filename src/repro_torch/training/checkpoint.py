@@ -9,7 +9,10 @@ beside a manifest recording the step, the six round axes of the engine
 reference's, key for key, so each package loads the other's
 checkpoints: the counters' RNG keys (``topo_key``, ``node_key``,
 ``priv_key``), which the port holds as int64 words, cross as the
-reference's (2,) uint32 arrays.
+reference's (2,) uint32 arrays. numpy has no bfloat16, so a bf16 leaf
+(bf16 flat storage) is saved as its raw 2-byte words, the ``|V2`` entry
+the reference writes, and the manifest's ``dtypes`` names it; a restore
+views the words back as bf16, bitwise, a reference checkpoint's too.
 
 Restoring needs a template state (``init_fl_state``) of the same
 structure; shapes are checked. With ``engine=`` the manifest's axes are
@@ -97,6 +100,17 @@ def _row_split(name: str, key: str, counters: frozenset) -> bool:
     return name != "comm" or key not in counters
 
 
+def _host(leaf) -> np.ndarray:
+    """A leaf as numpy: a bf16 tensor as its raw 2-byte words (``|V2``,
+    as the reference's bf16 arrays land in an npz)."""
+    if not isinstance(leaf, torch.Tensor):
+        return np.asarray(leaf)
+    leaf = leaf.detach().cpu()
+    if leaf.dtype == torch.bfloat16:
+        return leaf.view(torch.int16).numpy().view("V2")
+    return leaf.numpy()
+
+
 def _arrays(name: str, tree: Tree, gather=None, counters=frozenset()) -> Dict[str, np.ndarray]:
     """``{"name::key": array}`` of one tree; row-split leaves through
     ``gather`` (the sharded engine's ``gather_rows``) when given."""
@@ -105,7 +119,7 @@ def _arrays(name: str, tree: Tree, gather=None, counters=frozenset()) -> Dict[st
         key = _key(path)
         if gather is not None and _row_split(name, key, counters):
             leaf = gather(leaf)
-        a = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+        a = _host(leaf)
         if name == "comm" and key in KEY_WORDS:
             a = a.astype(np.uint32)
         out[f"{name}::{key}"] = a
@@ -132,6 +146,9 @@ def save_fl_state(path: str, state: FLState, extra: Optional[dict] = None,
         manifest.update(engine_manifest(engine))
     if state.comm is not None:
         manifest["comm_keys"] = sorted(state.comm)
+    words = sorted(k for k, a in arrays.items() if a.dtype.kind == "V")
+    if words:
+        manifest["dtypes"] = {k: "bfloat16" for k in words}
     if extra:
         manifest["extra"] = extra
     os.makedirs(path, exist_ok=True)
@@ -282,6 +299,22 @@ def _np_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dtype).numpy().dtype
 
 
+def _restored(key: str, arr: np.ndarray, t: torch.Tensor, saved_dtype) -> torch.Tensor:
+    """One saved array as a tensor of the template leaf's dtype: raw
+    2-byte words (``|V2``) are bf16, viewed bitwise; anything else is
+    converted by value."""
+    if arr.dtype.kind == "V":
+        if arr.dtype.itemsize != 2 or saved_dtype not in (None, "bfloat16"):
+            raise ValueError(
+                f"{key}: raw {arr.dtype.itemsize}-byte words saved as "
+                f"{saved_dtype!r}; only bfloat16 is stored as raw words")
+        words = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        return words.view(torch.bfloat16).to(t.dtype)
+    if t.dtype == torch.bfloat16:
+        return torch.from_numpy(arr.astype(np.float32)).to(t.dtype)
+    return torch.from_numpy(arr.astype(_np_dtype(t.dtype)))
+
+
 def load_fl_state(path: str, template: FLState,
                   engine: Optional[GossipEngine] = None) -> FLState:
     """Restore the checkpoint in ``path`` onto ``template``'s structure,
@@ -304,6 +337,7 @@ def load_fl_state(path: str, template: FLState,
         )
     rows = getattr(engine, "rows", None) if hasattr(engine, "gather_rows") else None
     counters = _counter_keys(engine)
+    saved_dtypes = manifest.get("dtypes") or {}
 
     def restore(name: str, tree: Tree) -> Tree:
         if tree is None:
@@ -319,7 +353,7 @@ def load_fl_state(path: str, template: FLState,
                 arr = arr[rows.start:rows.stop]
             if arr.shape != tuple(t.shape):
                 raise ValueError(f"{key}: shape {arr.shape} != template {tuple(t.shape)}")
-            out.append(torch.from_numpy(arr.astype(_np_dtype(t.dtype))).to(t.device))
+            out.append(_restored(key, arr, t, saved_dtypes.get(key)).to(t.device))
         return tree_unflatten(tuple(p for p, _ in items), out)
 
     # a checkpoint with FEWER comm buffers than the template (a fused one

@@ -6,8 +6,9 @@ consensus model (the node-axis mean of the flat ``(nodes, total)``
 buffer) written as one raw blob plus a JSON header, so a server maps it
 and reads it without a copy:
 
-* the blob is the consensus row in the storage dtype (fp32), padded to
-  :data:`BLOB_ALIGN` bytes;
+* the blob is the consensus row in the layout's storage dtype (fp32, or
+  bf16 at half the bytes: the node-axis mean accumulated in fp32 and
+  rounded once), padded to :data:`BLOB_ALIGN` bytes;
 * the header records the layout (each leaf's path, offset, shape and
   dtype, ``total``, ``used``, ``storage_dtype``), the engine's round axes
   (``checkpoint.engine_manifest``) and ``round_frontier``, the training
@@ -18,7 +19,10 @@ and reads it without a copy:
   backbone with its own head);
 * :func:`load_snapshot` maps the blob (``np.memmap``, copy-on-write, so
   nothing can write the file) and each leaf is a tensor VIEW of the map:
-  no copy, the bytes fault in as the server first reads them.
+  no copy, the bytes fault in as the server first reads them. numpy has
+  no bfloat16, so a bf16 blob is mapped as 2-byte words and viewed as
+  bf16; a leaf whose dtype differs from the storage dtype is the one
+  copy.
 
 The files are the reference's (magic, version, header keys, alignment,
 the ``LATEST`` pointer), so each package reads the other's snapshots bit
@@ -38,9 +42,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.engine import _not_ported
 from repro_torch.core.packing import (
     FlatLayout,
+    as_dtype,
     pack,
     pack_like,
     tree_leaves,
@@ -62,8 +66,6 @@ SNAPSHOT_VERSION = 1
 #: blob files are padded to this many bytes
 BLOB_ALIGN = 64
 _LATEST = "LATEST"
-#: the port stores flat buffers in fp32 only (bf16 storage: item 5)
-STORAGE_DTYPE = "float32"
 
 
 def snapshot_paths(dirpath: str, round_frontier: int) -> tuple:
@@ -82,10 +84,18 @@ def _atomic_write(path: str, data: bytes) -> None:
     os.replace(tmp, path)
 
 
-def _host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", torch.float32).numpy()
-    return np.asarray(x, dtype=np.float32)
+def _map_dtype(storage: str) -> np.dtype:
+    """The numpy dtype a blob of ``storage`` is mapped as: its own, or
+    2-byte words for bf16 (viewed as ``torch.bfloat16``)."""
+    return np.dtype(np.int16) if storage == "bfloat16" else np.dtype(storage)
+
+
+def _host(x, storage: str) -> np.ndarray:
+    """``x`` on the host in the storage dtype, as :func:`_map_dtype`."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    x = x.detach().to("cpu", as_dtype(storage))
+    return x.view(torch.int16).numpy() if storage == "bfloat16" else x.numpy()
 
 
 def _pad(blob: bytes) -> bytes:
@@ -122,19 +132,24 @@ def write_snapshot(dirpath: str, params, layout: Optional[FlatLayout] = None, *,
     private_ranges = ()
     if scope is not None and not scope.is_full:
         private_ranges = tuple(scope.private_ranges(layout))
+    storage = layout.storage_dtype
     private_block = None
     if flat.ndim == 2:
         if private_ranges:
-            stacked = _host(flat)
+            stacked = _host(flat, storage)
             private_block = np.concatenate([stacked[:, a:b] for a, b in private_ranges],
                                            axis=1)
-        # the consensus: one mean over the node axis of the flat buffer
-        flat = flat.mean(dim=0) if isinstance(flat, torch.Tensor) else flat.mean(axis=0)
+        # the consensus: one mean over the node axis of the flat buffer,
+        # accumulated in fp32 and rounded once to the storage dtype
+        if isinstance(flat, torch.Tensor):
+            flat = flat.float().mean(dim=0).to(flat.dtype)
+        else:
+            flat = flat.mean(axis=0)
     if tuple(flat.shape) != (layout.total,):
         raise ValueError(
             f"flat buffer {tuple(flat.shape)} does not match layout total "
             f"({layout.total},)")
-    consensus = _host(flat)
+    consensus = _host(flat, storage)
     blob = _pad(consensus.tobytes())
     private_offset = None
     if private_block is not None:
@@ -153,7 +168,7 @@ def write_snapshot(dirpath: str, params, layout: Optional[FlatLayout] = None, *,
         "crc32": zlib.crc32(blob) & 0xFFFFFFFF,
         "total": int(layout.total),
         "used": int(layout.used),
-        "storage_dtype": STORAGE_DTYPE,
+        "storage_dtype": storage,
         "source_n_nodes": int(layout.n_nodes),
         "leaves": [
             {"path": "/".join(map(str, p)), "offset": int(s.offset),
@@ -228,7 +243,8 @@ def load_snapshot(dirpath: str, round_frontier: Optional[int] = None,
     scope, and makes one writable (total,) copy (the zero-copy path is
     ``node=None``).
 
-    A bf16-storage snapshot is refused: the port stores fp32 only."""
+    A bf16 blob is mapped as 2-byte words and viewed as bf16 (``flat``
+    is then bf16); each leaf comes back in its own dtype."""
     if round_frontier is None:
         round_frontier = latest_round(dirpath)
         if round_frontier is None:
@@ -242,9 +258,8 @@ def load_snapshot(dirpath: str, round_frontier: Optional[int] = None,
         raise ValueError(
             f"snapshot version {header['version']} is newer than this "
             f"reader ({SNAPSHOT_VERSION})")
-    if header["storage_dtype"] != STORAGE_DTYPE:
-        raise _not_ported(f"{header['storage_dtype']} snapshot storage", "5")
-    storage = np.dtype(STORAGE_DTYPE)
+    storage_name = header["storage_dtype"]
+    storage = _map_dtype(storage_name)
     total = int(header["total"])
     # copy-on-write: the map is writable for torch, and no write reaches
     # the file
@@ -255,6 +270,8 @@ def load_snapshot(dirpath: str, round_frontier: Optional[int] = None,
         if crc != header["crc32"]:
             raise ValueError(f"snapshot {blob_path!r} failed crc32 verification")
     blob = torch.from_numpy(mm)
+    if storage_name == "bfloat16":
+        blob = blob.view(torch.bfloat16)
     flat = blob[:total]
     if node is not None:
         sec = header.get("scope")
@@ -283,7 +300,7 @@ def load_snapshot(dirpath: str, round_frontier: Optional[int] = None,
         size = int(np.prod(spec["shape"])) if spec["shape"] else 1
         off = int(spec["offset"])
         view = flat[off:off + size].reshape(tuple(spec["shape"]))
-        if spec["dtype"] != STORAGE_DTYPE:
+        if spec["dtype"] != storage_name:
             view = view.to(getattr(torch, spec["dtype"]))  # the only copying path
         leaves[spec["path"]] = view
 

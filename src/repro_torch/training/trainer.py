@@ -183,8 +183,10 @@ def train_decentralized(
     int8 / top-k wire (``scale_chunk`` also pads the flat buffer).
     Engines that do not account their wire bytes (the exact wire) are
     charged ``comm_bytes_per_gossip`` per round. ``storage_dtype`` is
-    handed to the engine (only fp32 flat storage is ported; bf16 is
-    refused naming its ROADMAP.md item).
+    handed to the engine: ``"bfloat16"`` stores the flat / fused
+    engines' buffer (and DSGT's tracker and previous gradient) in bf16,
+    the arithmetic and the wire state staying fp32; ``tree`` refuses it
+    with the reference's ``ValueError``.
 
     ``eval_fn(consensus) -> {name: value}`` runs on the consensus tree at
     every round ``rnd`` with ``rnd % eval_every == 0`` and at the last

@@ -1,0 +1,192 @@
+"""The standalone drivers of the PyTorch port (ROADMAP.md item 17a)
+against the reference's ``benchmarks/`` on the CPU.
+
+* ``thm1_speedup.run_one`` at N 4, 8 and 16, T 20, one seed: within rtol
+  1e-4 of the reference's (the same numpy targets and noise).
+* ``ablations._run`` on each topology (DSGD and DSGT) and on Q 1 and 4 at
+  reduced iterations: consensus_err and dist_to_opt within rtol 1e-3, the
+  spectral gap within 1e-12.
+* ``comm_bytes.main()``: every row's bytes exactly the reference's.
+* ``kernel_bench``: every dense-wire, attention and scan bound of
+  ``PERF.md`` section 6 recomputed from its counters equals the printed
+  value to 0.01 µs (the cells whose operations depend on the drawn
+  top-k payload are exempt), and ``--device cpu`` writes null kernel and
+  library columns.
+* ``run.py --smoke`` on the CPU writes every table's JSON and the CSV; the
+  roofline row writes nothing; ``thm1_speedup --two-axis`` is refused
+  naming item 15.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.benchmarks import ablations, comm_bytes, kernel_bench, thm1_speedup  # noqa: E402
+from repro_torch.benchmarks import run as run_all  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _one_thread():
+    """The suite runs several pytest workers; one intra-op thread each
+    keeps them from oversubscribing the cores."""
+    torch.set_num_threads(1)
+
+
+_one_thread()
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference's drivers (``benchmarks/`` at the repository root)."""
+    pytest.importorskip("jax")
+    sys.path.insert(0, str(ROOT))
+    try:
+        from benchmarks import ablations as j_ablations
+        from benchmarks import comm_bytes as j_comm_bytes
+        from benchmarks import thm1_speedup as j_thm1
+    finally:
+        sys.path.remove(str(ROOT))
+    return j_thm1, j_ablations, j_comm_bytes
+
+
+@pytest.mark.parametrize("n", thm1_speedup.NODES)
+def test_thm1_run_one_matches_reference(ref, n):
+    j_thm1 = ref[0]
+    got = thm1_speedup.run_one(n, 20, seed=0, device="cpu")
+    want = j_thm1.run_one(n, 20, seed=0)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("topology", ablations.TOPOLOGIES)
+@pytest.mark.parametrize("algorithm", ["dsgd", "dsgt"])
+def test_ablation_topology_runs_match_reference(ref, topology, algorithm):
+    j_ablations = ref[1]
+    got = ablations._run(topology, 1, 2.0, 40, 0.05, algorithm=algorithm, device="cpu")
+    want = j_ablations._run(topology, 1, 2.0, 40, 0.05, algorithm=algorithm)
+    for key in ("consensus_err", "dist_to_opt"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-3, err_msg=key)
+    assert got["comm_rounds"] == want["comm_rounds"]
+    assert abs(got["spectral_gap"] - want["spectral_gap"]) <= 1e-12
+
+
+@pytest.mark.parametrize("q", [1, 4])
+@pytest.mark.parametrize("heterogeneity", ablations.HETEROGENEITY)
+def test_ablation_drift_runs_match_reference(ref, q, heterogeneity):
+    j_ablations = ref[1]
+    got = ablations._run("ring", q, heterogeneity, 48, 0.05, device="cpu")
+    want = j_ablations._run("ring", q, heterogeneity, 48, 0.05)
+    for key in ("consensus_err", "dist_to_opt"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-3, err_msg=key)
+    assert got["comm_rounds"] == want["comm_rounds"] == 48 // q
+
+
+def test_comm_bytes_rows_are_the_references(ref):
+    j_comm_bytes = ref[2]
+    got, want = comm_bytes.main(log=False), j_comm_bytes.main()
+    assert got["arch"] == want["arch"] and got["param_bytes"] == want["param_bytes"]
+    assert [r["strategy"] for r in got["rows"]] == [r["strategy"] for r in want["rows"]]
+    for g, w in zip(got["rows"], want["rows"]):
+        assert g["bytes_per_iter_per_node"] == w["bytes_per_iter_per_node"], g["strategy"]
+        assert g["ratio_vs_centralized"] == w["ratio_vs_centralized"], g["strategy"]
+
+
+#: PERF.md section 6's bounds, µs, H100 SXM peaks: (kernel, shape) ->
+#: bound, the shapes of kernel_bench (the gossip kernels' dense wire and
+#: the DSGD compact stage, whose operations depend on no data)
+PERF_BOUNDS = {
+    ("fused_round", "main"): 0.26, ("fused_round", "large"): 561.07,
+    ("fused_round_gt", "main"): 0.51, ("fused_round_gt", "large"): 1122.14,
+    ("gossip_mix", "main"): 0.22, ("gossip_mix", "large"): 480.94,
+    ("wire_stage", "main"): 0.27, ("wire_stage", "large"): 581.10,
+    ("wire_stage_gt", "main"): 0.53, ("wire_stage_gt", "large"): 1162.20,
+    ("wire_stage_compact", "main"): 0.26, ("wire_stage_compact", "large"): 566.07,
+    ("wire_stage_compact", "main top-16"): 0.26,
+    ("decode_attention", "path"): 0.59, ("decode_attention", "large"): 100.17,
+    ("decode_attention", "hd256 path"): 0.41,
+    ("flash_attention", "path"): 1.57, ("flash_attention", "large"): 65.16,
+    ("flash_attention", "hd256 path"): 3.44,
+    ("wkv6", "path decode"): 5.21, ("wkv6", "large"): 806.31,
+    ("wkv6", "path prefill"): 30.05,
+    ("rglru_scan", "path decode"): 0.12, ("rglru_scan", "large"): 300.54,
+    ("rglru_scan", "path prefill"): 9.44,
+}
+#: the zoo's attention shapes: (label, decode args | flash args, µs)
+ZOO_DECODE = [("hd128 group 6", (8, 4096, 159, 48, 8, 128), 1.61),
+              ("hd128 group 5", (8, 4096, 159, 40, 8, 128), 1.60),
+              ("hd128 group 4", (8, 4096, 159, 40, 10, 128), 1.99),
+              ("whisper self", (8, 448, 159, 16, 16, 64), 1.57),
+              ("whisper cross", (8, 1500, 1500, 16, 16, 64), 14.68)]
+ZOO_FLASH = [("hd128 group 6", (8, 128, 128, 48, 8, 128, True, 0), 8.76),
+             ("hd128 group 5", (8, 128, 128, 40, 8, 128, True, 0), 7.51),
+             ("hd128 group 4", (8, 128, 128, 40, 10, 128, True, 0), 7.83),
+             ("internvl2 prefix + prompt", (8, 1152, 1152, 48, 8, 128, True, 0), 132.03),
+             ("whisper encoder", (8, 1500, 1500, 16, 16, 64, False, 0), 74.55),
+             ("whisper cross", (8, 128, 1500, 16, 16, 64, False, 0), 15.92)]
+
+
+def test_kernel_bench_bounds_are_perf_mds():
+    got = {}
+    for cases in (kernel_bench.gossip_cases("cpu", counts_only=True),
+                  kernel_bench.compact_cases("cpu", counts_only=True),
+                  kernel_bench.attention_cases("cpu", counts_only=True),
+                  kernel_bench.scan_cases("cpu", counts_only=True)):
+        for case in cases:
+            assert case.run is None and case.twin is None
+            got[(case.kernel, case.shape)] = round(case.bound[0] * 1e3, 2)
+    assert got == PERF_BOUNDS
+    for label, args, want in ZOO_DECODE:
+        case = kernel_bench.decode_case(label, *args, None, counts_only=True)
+        assert round(case.bound[0] * 1e3, 2) == want, label
+        assert case.bound[1] == "bytes"
+    for label, args, want in ZOO_FLASH:
+        case = kernel_bench.flash_case(label, *args, None, counts_only=True)
+        assert round(case.bound[0] * 1e3, 2) == want, label
+
+
+def test_kernel_bench_on_the_cpu_times_the_twins_alone(tmp_path):
+    out = tmp_path / "kb.json"
+    rows = kernel_bench.main(["--device", "cpu", "--shapes", "main,path decode",
+                              "--out", str(out)])
+    assert json.loads(out.read_text()) == rows
+    kernels = {r["kernel"] for r in rows}
+    assert kernels == set(kernel_bench.ALL_KERNELS) | set(kernel_bench.COMPACT_KERNELS) | {
+        "wkv6", "rglru_scan"}
+    for r in rows:
+        assert r["kernel_us"] is None and r["library_us"] is None and r["card"] is None
+        assert r["twin_us"] > 0 and r["device"] == "cpu"
+        assert r["bound_by"] in ("bytes", "operations")
+        want = PERF_BOUNDS.get((r["kernel"], r["shape"]))
+        if want is not None:
+            assert round(r["bound_us"], 2) == want
+
+
+def test_run_smoke_writes_the_tables(tmp_path, capsys):
+    res = run_all.main(["--smoke", "--device", "cpu", "--out-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(run_all.OUTPUTS.values())
+    thm1 = json.loads((tmp_path / "thm1_results_torch.json").read_text())
+    assert set(thm1["measure"]) == {"4", "8", "16"}
+    abl = json.loads((tmp_path / "ablations_torch.json").read_text())
+    assert set(abl["topology"]) == set(ablations.TOPOLOGIES)
+    cb = json.loads((tmp_path / "comm_bytes_torch.json").read_text())
+    assert len(cb["rows"]) == 7
+    lines = out.split("name,us_per_call,derived\n")[1].strip().splitlines()
+    assert [line.split(",")[0] for line in lines] == [
+        "fig2_comm_rounds", "thm1_linear_speedup", "comm_bytes_table", "kernel_bench",
+        "ablations"]
+    assert [r["name"] for r in res["csv"]] == [line.split(",")[0] for line in lines]
+    assert "item 18" in out
+
+
+def test_refusals(capsys):
+    with pytest.raises(SystemExit):
+        thm1_speedup.main(["--two-axis", "--device", "cpu"])
+    assert "item 15" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        run_all.main(["--skip", "nope", "--device", "cpu"])

@@ -192,8 +192,10 @@ def test_registry_and_refusals():
     assert FusedEngine(w, layout, device="cpu", scope="ranges:0-512").wire_layout.total == 512
     with pytest.raises(ValueError, match="matches no leaf"):
         FusedEngine(w, layout, device="cpu", scope="backbone")
-    with pytest.raises(NotImplementedError, match="storage"):
-        FusedEngine(w, layout, device="cpu", storage_dtype=torch.bfloat16)
+    bf16 = FusedEngine(w, layout, device="cpu", storage_dtype=torch.bfloat16)
+    assert bf16.storage_dtype == torch.bfloat16 and bf16.layout.storage_dtype == "bfloat16"
+    with pytest.raises(ValueError, match=r"in \('float32', 'bfloat16'\) only"):
+        FusedEngine(w, layout, device="cpu", storage_dtype=torch.float16)
     with pytest.raises(ValueError, match="scale_chunk"):
         FusedEngine(w, layout, scale_chunk=7, device="cpu")
     engine = FusedEngine(w, layout, device="cpu")

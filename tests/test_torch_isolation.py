@@ -47,7 +47,10 @@ def _port_sources():
             "core/dynamics.py", "core/heterogeneity.py", "benchmarks/churn_ehr.py",
             "benchmarks/staleness_ehr.py", "benchmarks/straggler_ehr.py",
             "models/moe.py", "models/encdec.py", "configs/shapes.py",
-            "configs/whisper_medium.py", "configs/dbrx_132b.py"} <= names
+            "configs/whisper_medium.py", "configs/dbrx_132b.py",
+            "benchmarks/thm1_speedup.py", "benchmarks/ablations.py",
+            "benchmarks/comm_bytes.py", "benchmarks/kernel_bench.py",
+            "benchmarks/run.py"} <= names
     assert len(files) > 20
     return files
 
@@ -56,7 +59,7 @@ def _port_sources():
 def test_no_jax_or_reference_imports(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), (path, name)
+        assert top not in ("jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes"), (path, name)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -73,8 +76,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.examples.train_100m, repro_torch.benchmarks.serve_load, "
             "repro_torch.data.tokens, repro_torch.models.moe, repro_torch.models.encdec, "
             "repro_torch.configs.shapes, repro_torch.configs.whisper_medium, "
-            "repro_torch.configs.dbrx_132b, repro_torch.configs.internvl2_26b; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "repro_torch.configs.dbrx_132b, repro_torch.configs.internvl2_26b, "
+            "repro_torch.benchmarks.thm1_speedup, repro_torch.benchmarks.ablations, "
+            "repro_torch.benchmarks.comm_bytes, repro_torch.benchmarks.kernel_bench, "
+            "repro_torch.benchmarks.run, repro_torch.training.snapshot; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -123,6 +129,16 @@ def test_entry_points_refuse_the_cpu_by_default(no_card):
     for driver in (staleness_ehr, churn_ehr, straggler_ehr):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             driver.main(["--smoke", "--out", os.devnull])
+    # the standalone drivers and their harness
+    from repro_torch.benchmarks import ablations, kernel_bench, thm1_speedup
+    from repro_torch.benchmarks import run as run_all
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        thm1_speedup.run_one(4, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ablations._run("ring", 1, 2.0, 1, 0.05)
+    for driver in (thm1_speedup, kernel_bench, run_all):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            driver.main(["--out" if driver is not run_all else "--out-dir", os.devnull])
     assert inspect.signature(train_decentralized).parameters["engine"].default == "tree"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mlp_init(0)

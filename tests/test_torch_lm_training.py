@@ -181,8 +181,11 @@ def test_storage_dtype_is_taken_or_refused():
             engine=engine, storage_dtype=storage_dtype, device="cpu")
 
     assert len(train("flat", "float32").history) == 1
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train("fused", "bfloat16")
+    res = train("fused", "bfloat16")
+    assert res.state.params.dtype == torch.bfloat16 and len(res.history) == 1
+    assert np.isfinite(res.history.last()["loss"])
+    with pytest.raises(ValueError, match="flat-buffer knob"):
+        train("tree", "bfloat16")
 
 
 def test_lm_smoke_training_loss_decreases():

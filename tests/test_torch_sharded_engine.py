@@ -427,7 +427,7 @@ def test_comm_state_has_the_references_keys(group):
     (dict(model_axis="model"), "item 15"),
     (dict(privacy="secure_agg"), "secure_agg needs the circulant ppermute wire"),
     (dict(scope="layerwise:freq=4,head=q"), "the layerwise round-gated mix"),
-    (dict(storage_dtype="bfloat16"), "item 5"),
+    (dict(storage_dtype="float16"), r"in \('float32', 'bfloat16'\) only"),
     (dict(difference_coding=False), "item 9"),
     (dict(error_feedback=False), "item 9"),
 ])
@@ -442,7 +442,8 @@ def test_refusals_name_their_item(group, kw, item):
     params = {"p": torch.zeros(N, 30), "q": torch.zeros(N, 10)}
     args = dict(w=_er(), scale_chunk=CHUNK)
     args.update(kw)
-    exc = ValueError if "privacy" in kw or "scope" in kw else NotImplementedError
+    exc = (ValueError if {"privacy", "scope", "storage_dtype"} & set(kw)
+           else NotImplementedError)
     with pytest.raises(exc, match=item):
         ShardedFusedEngine.from_group(group, params, **args)
 

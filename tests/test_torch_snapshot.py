@@ -8,7 +8,9 @@ and serving from them (``ServeEngine.from_snapshot``,
   map's storage) and nothing written through a view reaches the file.
 * The per-node private block under a partial scope: ``node=i`` overlays
   hospital i's private columns bitwise, refused on an unscoped snapshot
-  and out of range; a bf16-storage snapshot refused (item 5).
+  and out of range; a bf16-storage snapshot written at half the bytes and
+  read back in bf16 (``tests/test_torch_bf16_storage.py`` holds it to the
+  reference's).
 * Cross-package reads both ways, bitwise: the port reads the reference's
   snapshots (consensus, private block, leaf views) and the reference the
   port's; on the same consensus row both write the same bytes.
@@ -178,16 +180,24 @@ def test_private_heads_overlay(tmp_path):
 
 
 def test_bf16_storage_is_refused(tmp_path):
+    """bf16 storage is no longer refused: the buffer's bf16 words are the
+    blob (half the fp32 bytes), the header names it, and the leaves come
+    back in their own dtype from the bf16 consensus."""
     engine, _, state = _trained(scope=None, rounds=1)
-    d = str(tmp_path)
-    header = write_snapshot(d, state.params, engine.layout, round_frontier=1)
+    d32, d16 = str(tmp_path / "fp32"), str(tmp_path / "bf16")
+    write_snapshot(d32, state.params, engine.layout, round_frontier=1)
+    flat16 = state.params.to(torch.bfloat16)
+    layout16 = dataclasses.replace(engine.layout, storage_dtype="bfloat16")
+    header = write_snapshot(d16, flat16, layout16, round_frontier=1)
     with open(header) as f:
         h = json.load(f)
-    h["storage_dtype"] = "bfloat16"
-    with open(header, "w") as f:
-        json.dump(h, f)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        load_snapshot(d)
+    assert h["storage_dtype"] == "bfloat16"
+    assert h["payload_bytes"] * 2 == load_snapshot(d32).header["payload_bytes"]
+    snap = load_snapshot(d16, verify=True)
+    want = flat16.float().mean(dim=0).to(torch.bfloat16)
+    assert snap.flat.dtype == torch.bfloat16 and torch.equal(snap.flat, want)
+    for path, leaf in tree_leaves(snap.params):
+        assert leaf.dtype == torch.float32, path
 
 
 def test_the_reference_reads_the_ports_snapshots(tmp_path, ref):

@@ -95,9 +95,9 @@ def test_launcher_refusals(capsys):
     with pytest.raises(SystemExit):
         train.main(["--arch", "tinyllama-1.1b", "--device", "cpu",
                     "--fl-schedule", "pipelined", "--fl-staleness-depth", "2"])
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="flat-buffer knob"):
         train.main(["--arch", "tinyllama-1.1b", *SMALL, "--device", "cpu",
-                    "--fl-engine", "fused", "--storage-dtype", "bfloat16"])
+                    "--storage-dtype", "bfloat16"])
 
 
 def test_quickstart_trains_and_serves(capsys):

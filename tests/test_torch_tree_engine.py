@@ -338,8 +338,12 @@ def test_registry_and_refusals():
                 cls.simulated(w, stacked, privacy="secure_agg")
         else:
             assert cls.simulated(w, stacked, privacy="secure_agg")[0].privacy.secure_agg
-        with pytest.raises(NotImplementedError, match="item 5"):
-            cls.simulated(w, stacked, storage_dtype=torch.bfloat16)
+        if cls is TreeEngine:
+            with pytest.raises(ValueError, match="storage_dtype is a flat-buffer knob"):
+                cls.simulated(w, stacked, storage_dtype=torch.bfloat16)
+        else:
+            bf16_engine, bf16_flat = cls.simulated(w, stacked, storage_dtype=torch.bfloat16)
+            assert bf16_flat.dtype == bf16_engine.storage_dtype == torch.bfloat16
         engine, _ = cls.simulated(w, stacked)
         assert engine.device == torch.device("cpu") and engine.wire_bytes(None) is None
     cfg = FLConfig(algorithm="dsgd", q=1, n_nodes=4)
