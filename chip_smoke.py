@@ -106,6 +106,20 @@ state's dtypes and the peak memory by stage side by side; (d)
 ``benchmarks/run.py --fast`` (Theorem 1, the byte table, the ablations)
 against the same drivers on the host CPU; then the bf16 round (profiled
 in phase 4) and comm step beside fp32's.
+Phase 8 runs the circulant torus wire and the two-axis layout on a
+one-rank NCCL group (every torus edge a local copy; the transport
+across ranks and S > 1 are the CPU tests' gloo ranks): (c1) the paper's
+configuration on ``sharded_fused`` with ``w=None`` over the {pod 4, data
+5} torus -- FD-DSGT sequential, pipelined, top-64, ``node_churn``,
+``secure_agg`` (bitwise the plaintext run), ``backbone`` at chunk 128,
+``axes_subset=("data",)``, and FD-DSGD -- one wire-stage launch a
+round, the exact wire bytes, against ``FusedEngine`` on the torus's
+dense equivalent and the same runs on the host CPU's twins; (c3) the
+torus round profiled beside the all-gather round at the same
+configuration; (c2) ``examples/train_100m.py --fl-engine sharded_fused
+--arch smollm-360m --nodes 2 --model-shards 1`` at full width and depth,
+3 rounds, its launches, host clock, busy share and peak memory, the
+losses against ``--fl-engine fused`` on the same W.
 Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
@@ -1224,16 +1238,17 @@ def driver_paths() -> None:
 
 
 def fused_oracle(algorithm: str, schedule: str, topk, rounds: int = SHARDED_ROUNDS,
-                 q: int = 10, device: str = "cuda", scale_chunk: int = 512, **axes):
+                 q: int = 10, device: str = "cuda", scale_chunk: int = 512, w=None, **axes):
     """The port's FusedEngine on ``device`` with ``run_sharded_engine``'s
-    defaults: hospital20, mlp_init(0), the cohort of seed 0 and its
-    batcher of seed 1, the balanced loss, alpha = 0.02/sqrt(r); ``axes``
-    the topology program, node program, privacy spec and scope. Returns (final
-    state, per-round losses, last metrics)."""
+    defaults: hospital20 (or ``w``), mlp_init(0), the cohort of seed 0 and
+    its batcher of seed 1, the balanced loss, alpha = 0.02/sqrt(r);
+    ``axes`` the topology program, node program, privacy spec and scope.
+    Returns (final state, per-round losses, last metrics)."""
     batcher = make_node_batcher(generate_ehr_cohort(seed=0), m=20, seed=1)
     cfg = FLConfig(algorithm=algorithm, q=q, n_nodes=20)
     eng, flat = FusedEngine.simulated(
-        mixing_matrix("hospital20", 20), stack_for_nodes(mlp_init(0, device=device), 20),
+        mixing_matrix("hospital20", 20) if w is None else w,
+        stack_for_nodes(mlp_init(0, device=device), 20),
         scale_chunk=scale_chunk, topk=topk, round_schedule=schedule, **axes)
     round_fn = make_fl_round(make_mlp_loss(class_weights()), inv_sqrt(0.02), cfg, eng)
     state, losses = init_fl_state(cfg, flat, eng), []
@@ -2671,7 +2686,7 @@ def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
                   class_weight="balanced", rounds: int = 25, warmup: int = 5,
                   profiled: int = 5, topk=None, group=None, topology_program=None,
                   node_program=None, privacy=None, scale_chunk: int = 512,
-                  scope=None, storage_dtype=None) -> dict:
+                  scope=None, storage_dtype=None, mix_w="hospital20") -> dict:
     """Median host-clock time of one whole DSGT round with Q local steps
     (Q gradient evaluations, then the engine's comm step: one kernel
     launch on the fused engine, plus the PyTorch stale mix at depth k >=
@@ -2679,15 +2694,20 @@ def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
     its ``group``, one wire-stage launch, the all-gathers, the receive-side
     scatter and the mix), synchronized; then ``torch.profiler`` over
     ``profiled`` more rounds for the device's busy time and operation
-    count per round and the host's costliest ops."""
-    label = (f"DSGT Q={q} {engine} {schedule or 'sequential'}" + (f" top-{topk}" if topk else "")
+    count per round and the host's costliest ops. ``mix_w``: the
+    hospital graph by default, an explicit W, or None for the sharded
+    engine's circulant torus over its group's node axes."""
+    wire = "" if isinstance(mix_w, str) else (" torus" if mix_w is None else " all-gather")
+    label = (f"DSGT Q={q} {engine}{wire} {schedule or 'sequential'}"
+             + (f" top-{topk}" if topk else "")
              + "".join(f" {p}" for p in (topology_program, node_program, privacy, scope,
                                           storage_dtype) if p)
              + (f" chunk {scale_chunk}" if scale_chunk != 512 else ""))
     data = generate_ehr_cohort(seed=0)
     batcher = make_node_batcher(data, m=20, seed=1)
     cfg = FLConfig(algorithm="dsgt", q=q, n_nodes=20)
-    stacked, w = stack_for_nodes(mlp_init(0, device="cuda"), 20), mixing_matrix("hospital20", 20)
+    stacked = stack_for_nodes(mlp_init(0, device="cuda"), 20)
+    w = mixing_matrix(mix_w, 20) if isinstance(mix_w, str) else mix_w
     kw = dict(scale_chunk=scale_chunk, round_schedule=schedule, topk=topk,
               topology_program=topology_program, node_program=node_program, privacy=privacy,
               scope=scope, storage_dtype=storage_dtype)
@@ -2755,6 +2775,35 @@ def profile_device(run, n: int, label: str, unit: str, host_ms: float, card: str
                      reverse=True)[:6]
     log(f"  device time by op per {unit}: " + ", ".join(
         f"{e.key[:48]} {device_us(e) / n:.0f} us x{e.count / n:.0f}" for e in on_card))
+    return {"device_ops": len(spans) / n, "busy_ms": busy_ms}
+
+
+def busy_share(run, n: int, label: str, unit: str, host_ms: float, card: str) -> dict:
+    """``torch.profiler`` over ``run()`` (``n`` units of work): the device's
+    operations and busy time per unit (the union of its intervals) and
+    their share of ``host_ms``, read from the raw trace -- without
+    building the event tree, which costs tens of seconds at a training
+    round's ~38,000 device operations, and so without
+    :func:`profile_device`'s per-op tables."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        log("  profiler: no device activity recorded; device busy time not measured")
+        return {}
+    busy, reach = 0, -1  # union of the device intervals, in ns
+    for start, end in spans:
+        busy += max(0, end - max(start, reach))
+        reach = max(reach, end)
+    busy_ms = busy / n / 1e6
+    log(f"  profiler over {n} {label} {unit}s: {len(spans) / n:.0f} device "
+        f"operations and {busy_ms * 1e3:.1f} us of device busy time per {unit}, "
+        f"{busy_ms / host_ms:.2%} of the unprofiled {unit} time [{card}]")
     return {"device_ops": len(spans) / n, "busy_ms": busy_ms}
 
 
@@ -3813,6 +3862,250 @@ def bf16_and_drivers(card: str, host: dict, fp32_runs: dict, rounds: dict) -> di
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the circulant torus wire and the two-axis layout
+# ---------------------------------------------------------------------------
+
+# (c1) the paper's configuration (20 hospitals, the 42->32->2 MLP at
+# (20, 1536), chunk 512, alpha = 0.02/sqrt(r), Q = 10, 5 rounds) on the
+# circulant torus over {"pod": 4, "data": 5}: 4 directions, w_self 1/5,
+# 80 directed edges; the byte table is 80 edges x wires x 1,548 B (dense)
+# or 396 B (top-64 bitmap: 3 chunks of 64 + 64 + 4), the intra-pod subset
+# 40 edges, the backbone scope's 1,408-column wire at chunk 128 1,452 B
+TORUS_AXES = {"pod": 4, "data": 5}
+TORUS_RUNS = [  # (label, algorithm, schedule, topk, knobs)
+    ("FD-DSGT sequential int8", "dsgt", "sequential", None, {}),
+    ("FD-DSGT pipelined int8", "dsgt", "pipelined", None, {}),
+    ("FD-DSGT top-64", "dsgt", "sequential", 64, {}),
+    ("FD-DSGT node_churn int8", "dsgt", "sequential", None,
+     {"topology_program": DYNAMIC_RUNS[0][3]}),
+    ("FD-DSGT secure_agg int8", "dsgt", "sequential", None, {"privacy": "secure_agg"}),
+    ("FD-DSGT backbone int8 chunk 128", "dsgt", "sequential", None,
+     {"scope": "backbone", "scale_chunk": 128}),
+    ("FD-DSGT axes_subset=data int8", "dsgt", "sequential", None, {"axes_subset": ("data",)}),
+    ("FD-DSGD sequential int8", "dsgd", "sequential", None, {}),
+]
+TORUS_WIRE = {"FD-DSGT sequential int8": 247_680, "FD-DSGT pipelined int8": 247_680,
+              "FD-DSGT top-64": 63_360, "FD-DSGT node_churn int8": 247_680,
+              "FD-DSGT secure_agg int8": 247_680,
+              "FD-DSGT backbone int8 chunk 128": 232_320,
+              "FD-DSGT axes_subset=data int8": 123_840, "FD-DSGD sequential int8": 123_840}
+# (c2) train_100m on sharded_fused: SmolLM-360M at full width and depth, a
+# ring of 2 over the node axis, 3 FD-DSGT rounds (Q and alpha as phase 5)
+LM_ARGS = ["--arch", "smollm-360m", "--nodes", "2", "--rounds", "3", "--q", str(TRAIN_Q),
+           "--alpha0", str(TRAIN_ALPHA0), "--ckpt", ""]
+LM_LOSS_RTOL = 1e-3
+
+
+def _stage_kernel(algorithm: str, topk) -> str:
+    return {(True, 1): "wire_stage_compact", (True, 2): "wire_stage_gt_compact",
+            (False, 1): "wire_stage", (False, 2): "wire_stage_gt"}[
+        (topk is not None, 2 if algorithm == "dsgt" else 1)]
+
+
+def torus_paths(group, cpu_group) -> dict:
+    """(c1) Each configuration through ``run_sharded_engine`` with
+    ``w=None`` (the circulant torus over the group's node axes), 5
+    rounds at Q = 10 on the one-rank NCCL group: ONE wire-stage launch a
+    round and no round kernel; every torus edge is a local copy on one
+    rank, so no message is sent; the table's wire bytes; against
+    ``FusedEngine`` on the torus's dense equivalent on the card (the
+    all-gather wire's rules, phase 3: params and tracker within 1e-5
+    after one round on the dense wires, the loss within rtol 1e-3 every
+    round and the consensus within 1e-3 after five; the top-64 wire on
+    the loss alone: exact ties of the MLP's output columns) and against
+    the same run on the host CPU's twins (the loss within rtol 1e-3, one
+    round's params within 1e-5). ``secure_agg`` is also held bitwise to
+    the plaintext run. Counts are zeroed before each run and read just
+    after."""
+    from repro_torch.core.mixing import mesh_gossip_dense_equivalent
+
+    launches, plain = {}, None
+    for label, algorithm, schedule, topk, knobs in TORUS_RUNS:
+        knobs = dict(knobs)
+        chunk = knobs.pop("scale_chunk", 512)
+        subset = knobs.pop("axes_subset", None)
+        dense = mesh_gossip_dense_equivalent(TORUS_AXES, axes_subset=subset)
+        kernel = _stage_kernel(algorithm, topk)
+        kw = dict(rounds=SHARDED_ROUNDS, q=10, algorithm=algorithm, topk=topk,
+                  fl_schedule=schedule, scale_chunk=chunk, log=False, w=None,
+                  axes_subset=subset, **knobs)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = run_sharded_engine(group, **kw)
+        expect_launches(f"(c1) {label}", **{kernel: SHARDED_ROUNDS})
+        run_s = time.perf_counter() - t0
+        launches[kernel] = launches.get(kernel, 0) + SHARDED_ROUNDS
+        eng = out["engine"]
+        if (eng.torus is None or len(eng.dirs) != (2 if subset else 4)
+                or eng.collectives or eng.collective_bytes
+                or out["wire_bytes"] != TORUS_WIRE[label]
+                or not np.array_equal(eng.dense_equivalent(), dense)):
+            raise AssertionError(f"(c1) {label}: {eng.collectives} messages of "
+                                 f"{eng.collective_bytes} B, wire {out['wire_bytes']} B/round")
+        fused_axes = {k: v for k, v in knobs.items() if k != "privacy"}
+        state, losses, _ = fused_oracle(algorithm, schedule, topk, scale_chunk=chunk, w=dense,
+                                        **fused_axes)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], losses))
+        mean_diff = float((out["state"].params.mean(0) - state.params.mean(0)).abs().max())
+        notes = [f"vs the fused engine on the dense equivalent: loss rel {rel:.2e}"]
+        if not all(math.isfinite(v) for v in out["losses"]) or rel > 1e-3:
+            raise AssertionError(f"(c1) {label} vs fused: loss rel {rel}: {out['losses']} vs "
+                                 f"{losses}")
+        if topk is None:
+            zero_counts()
+            one = run_sharded_engine(group, **dict(kw, rounds=1))["state"]
+            expect_launches(f"(c1) {label}, one round", **{kernel: 1})
+            launches[kernel] += 1
+            want, _, _ = fused_oracle(algorithm, schedule, None, rounds=1, scale_chunk=chunk,
+                                      w=dense, **fused_axes)
+            diff1 = float((one.params - want.params).abs().max())
+            if algorithm == "dsgt":
+                diff1 = max(diff1, float((one.tracker - want.tracker).abs().max()))
+            if diff1 > 1e-5 or mean_diff > 1e-3:
+                raise AssertionError(f"(c1) {label} vs fused: params/tracker {diff1} after "
+                                     f"one round, consensus {mean_diff} after five")
+            notes.append(f"one round's params/tracker {diff1:.2e}, consensus after five "
+                         f"{mean_diff:.2e}")
+            cpu_one = run_sharded_engine(cpu_group, **dict(kw, rounds=1))["state"]
+            cdiff = float((one.params.cpu() - cpu_one.params).abs().max())
+            if cdiff > 1e-5:
+                raise AssertionError(f"(c1) {label}: one round's params off the CPU's by "
+                                     f"{cdiff}")
+            notes.append(f"one round vs the CPU twins {cdiff:.2e}")
+        cpu = run_sharded_engine(cpu_group, **kw)
+        crel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], cpu["losses"]))
+        if crel > 1e-3:
+            raise AssertionError(f"(c1) {label}: loss rel {crel} off the CPU twins' run")
+        notes.append(f"5 rounds vs the CPU twins: loss rel {crel:.2e}")
+        if label == "FD-DSGT sequential int8":
+            plain = out["state"]
+        if knobs.get("privacy") == "secure_agg":
+            if not (torch.equal(out["state"].params, plain.params)
+                    and torch.equal(out["state"].tracker, plain.tracker)):
+                raise AssertionError("(c1) secure_agg: params not bitwise the plaintext run's")
+            notes.append("params and tracker bitwise the plaintext run's")
+        log(f"  (c1) {label}, {SHARDED_ROUNDS} rounds x Q=10 on the {TORUS_AXES} torus "
+            f"({len(eng.dirs)} directions, w_self {eng.torus.w_self:.4f}, {run_s:.2f} s): "
+            f"{SHARDED_ROUNDS} {kernel} launches, {eng.wire_encoding} wire "
+            f"{out['wire_bytes']:,.0f} B/round, 0 messages (every edge a local copy on one "
+            f"rank); " + "; ".join(notes))
+    return launches
+
+
+def torus_profiles(card: str, group) -> dict:
+    """(c3) Whole FD-DSGT Q = 10 rounds of the paper's configuration (int8
+    wire) on the circulant torus beside the all-gather wire on the
+    torus's dense equivalent, in the same call."""
+    from repro_torch.core.mixing import mesh_gossip_dense_equivalent
+
+    return {"torus int8": round_profile(card, engine="sharded_fused", group=group,
+                                        mix_w=None),
+            "all-gather int8 (torus W)": round_profile(
+                card, engine="sharded_fused", group=group,
+                mix_w=mesh_gossip_dense_equivalent(TORUS_AXES))}
+
+
+def lm_torus_path(card: str) -> dict:
+    """(c2) ``examples/train_100m.py --fl-engine sharded_fused --arch
+    smollm-360m --nodes 2 --model-shards 1``: full width and depth, the
+    ring of 2 over the node axis on a one-rank NCCL group (the one card),
+    3 FD-DSGT rounds -- its launches (one ``wire_stage_gt`` a round, the
+    flash kernel twice a layer, node and step under remat), the host
+    clock a round, a profiled extra round's busy share, peak memory; then
+    the same command on ``--fl-engine fused`` (the ring's W is the
+    torus's dense equivalent), whose losses the sharded run's must equal
+    within 1e-3 relative."""
+    from repro_torch.examples import train_100m
+
+    cfg = get_config(TRAIN_ARCH)
+    nodes, rounds, layers = 2, 3, cfg.n_layers
+    flash = rounds * TRAIN_Q * nodes * layers * 2
+    tmp = tempfile.mkdtemp()
+    out = {}
+
+    def after(group, result):
+        expect_launches("(c2) train_100m sharded_fused", wire_stage_gt=rounds,
+                        flash_attention=flash)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        times = round_times(result.history)
+        step_ms = float(statistics.median(times[1:])) * 1e3
+        eng = result.engine
+        fl = FLConfig(algorithm="dsgt", q=TRAIN_Q, n_nodes=nodes)
+        round_fn = make_fl_round(build_model(cfg).loss_fn, inv_sqrt(TRAIN_ALPHA0), fl, eng)
+        batch = next(make_fl_token_batches(cfg.vocab_size, nodes, 1, 128, q=TRAIN_Q, seed=9))
+        state = result.state
+
+        def one():
+            nonlocal state
+            state, _ = round_fn(state, batch)
+
+        prof = busy_share(one, 1, f"SmolLM-360M sharded_fused torus {nodes}-node",
+                          "round", step_ms, card)
+        return {"peak_gb": peak, "times": times, "round_ms": step_ms,
+                "wire": eng.wire_bytes(fl), "dirs": len(eng.dirs),
+                "messages": eng.collectives, **prof}
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    rows, info = train_100m.main(LM_ARGS + [
+        "--fl-engine", "sharded_fused", "--model-shards", "1",
+        "--metrics", os.path.join(tmp, "sharded.csv")], after=after)
+    sharded_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    fused_rows = train_100m.main(LM_ARGS + ["--fl-engine", "fused",
+                                            "--metrics", os.path.join(tmp, "fused.csv")])
+    expect_launches("(c2) train_100m fused", fused_round_gt=rounds, flash_attention=flash)
+    fused_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in rows]
+    fused_losses = [r["loss"] for r in fused_rows]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, fused_losses))
+    if not all(math.isfinite(x) for x in losses) or rel > LM_LOSS_RTOL:
+        raise AssertionError(f"(c2) SmolLM-360M sharded_fused losses {losses} vs fused "
+                             f"{fused_losses} (rel {rel})")
+    log(f"  (c2) SmolLM-360M ({cfg.param_count():,} params, {layers} layers) through "
+        f"train_100m on sharded_fused, a ring of {nodes} ({info['dirs']} direction, "
+        f"{info['messages']} messages: one rank), FD-DSGT Q={TRAIN_Q}, {rounds} rounds "
+        f"({sharded_s:.1f} s): launches wire_stage_gt {rounds}, flash_attention {flash}; "
+        f"wire {info['wire']:,.0f} B/round; losses {[round(x, 5) for x in losses]} vs "
+        f"fused {[round(x, 5) for x in fused_losses]} ({fused_s:.1f} s; rel {rel:.2e}); "
+        f"host clock per round {[round(float(t) * 1e3, 1) for t in info["times"]]} ms (median of "
+        f"rounds 2-{rounds} {info['round_ms']:.1f} ms); peak memory {info['peak_gb']:.2f} GB "
+        f"[{card}]")
+    out["counts"] = {"wire_stage_gt": rounds, "fused_round_gt": rounds,
+                     "flash_attention": 2 * flash}
+    out["row"] = {k: v for k, v in info.items() if k != "times"}
+    return out
+
+
+def torus_and_two_axis(card: str) -> dict:
+    """Phase 8: (c1) and (c3) on a one-rank NCCL group over the
+    {"pod": 4, "data": 5} node torus (and its host-CPU twin on gloo),
+    then (c2), which starts its own group. Returns the launches."""
+    launches = {}
+    group = start_group(0, 1, os.path.join(tempfile.mkdtemp(), "store"), device="cuda",
+                        node_axes=TORUS_AXES)
+    try:
+        cpu_group = NodeGroup(dist.new_group(backend="gloo"), 0, 1, torch.device("cpu"),
+                              tuple(TORUS_AXES.items()))
+        section("  -- (c1) the paper's configuration on the circulant torus")
+        for name, count in torus_paths(group, cpu_group).items():
+            launches[name] = launches.get(name, 0) + count
+        section("  -- (c3) the torus round beside the all-gather round")
+        rows = torus_profiles(card, group)
+    finally:
+        stop_group(group)
+    section("  -- (c2) train_100m on sharded_fused: SmolLM-360M, a ring of 2")
+    lm = lm_torus_path(card)
+    for name, count in lm["counts"].items():
+        launches[name] = launches.get(name, 0) + count
+    return {"launches": launches, "rounds": rows, "lm": lm["row"]}
+
+
 def ptxas_summary(lib) -> str:
     """One line of a library's ``-Xptxas -v`` report: kernels, registers,
     the most spilled and the most shared memory of any kernel."""
@@ -4036,6 +4329,13 @@ def main() -> int:
     section("phase 7: bf16 flat storage and the standalone drivers (launches counted per run)")
     for name, count in bf16_and_drivers(card, host, fp32_runs, rows["rounds"]).items():
         launches[name] = launches.get(name, 0) + count
+
+    section("phase 8: the circulant torus wire and the two-axis layout (launches counted "
+            "per run)")
+    torus = torus_and_two_axis(card)
+    for name, count in torus["launches"].items():
+        launches[name] = launches.get(name, 0) + count
+    section("phase 8 done")
     for row in kernels:
         row["launches"] = launches[row["name"]]
 

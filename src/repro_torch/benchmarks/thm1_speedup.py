@@ -13,9 +13,11 @@ should shrink about linearly as N grows (ratios N4/N8 and N8/N16 near
 2). The targets and the gradient noise are the reference's numpy draws,
 so both packages train on the same numbers.
 
-The reference's ``--two-axis`` table (round time against node count x
-model-shard count on the two-axis mesh) needs the two-axis layout, ROADMAP.md
-queue 1 item 15, and is refused.
+``--two-axis`` adds the wall-clock companion table: round time against
+node count x model-shard count on the two-axis (gossip_node,
+model_shard) layout, one group of ranks per cell
+(``benchmarks/two_axis.py``; on CUDA a cell needs a card a rank, so
+``--device cpu`` runs the cells on gloo); ``--smoke`` shrinks its cells.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.thm1_speedup --device cpu \\
       [--t-steps 400] [--seeds 3] [--out experiments/thm1_results_torch.json]
@@ -101,16 +103,19 @@ def main(argv=None) -> Dict:
     ap.add_argument("--t-steps", type=int, default=400)
     ap.add_argument("--seeds", type=int, default=3)
     ap.add_argument("--two-axis", action="store_true",
-                    help="the two-axis round-time table (not ported: ROADMAP.md "
-                         "queue 1 item 15)")
+                    help="also time full rounds vs node count x shard count on the "
+                         "(gossip_node, model_shard) layout")
+    ap.add_argument("--smoke", action="store_true",
+                    help="shrink the --two-axis cells to seconds-scale")
     ap.add_argument("--device", default="cuda",
                     help="torch device ('cpu' runs the plain PyTorch path)")
     ap.add_argument("--out", default="experiments/thm1_results_torch.json")
     args = ap.parse_args(argv)
-    if args.two_axis:
-        ap.error("--two-axis times rounds on the two-axis (node, model_shard) "
-                 "layout, which is not ported yet (ROADMAP.md queue 1, item 15)")
     res = run(args.t_steps, args.seeds, device=args.device)
+    if args.two_axis:
+        from repro_torch.benchmarks.two_axis import two_axis_row
+
+        res["two_axis"] = two_axis_row(smoke=args.smoke, device=args.device)
     res["device"] = str(resolve_device(args.device))
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)

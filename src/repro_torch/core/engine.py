@@ -33,13 +33,16 @@ Four engines are ported:
   followed by a PyTorch mix against the k-round-stale reconstruction at
   depth k >= 2;
 * ``sharded_fused`` -- the same wire with the node rows split over the
-  ranks of a ``torch.distributed`` group (``launch.mesh``): each rank
-  runs ONE wire-stage kernel per round on its rows (the compact exact-k
+  ranks of a ``torch.distributed`` group (``launch.mesh``), and each row
+  optionally tiled over S model shards (the two-axis layout): each rank
+  runs ONE wire-stage kernel per round on its tile (the compact exact-k
   top-k wire, ``kernels.gossip.wire_stage[_gt]_compact``, or the dense
-  int8 one), all-gathers the wire buffers, and mixes against a running
-  neighbor-reconstruction accumulator, on a dense W; under a program,
-  against an unweighted replica of every node's reconstruction weighted
-  by the round's W_r.
+  int8 one), moves the wire buffers -- one point-to-point exchange per
+  direction of the circulant torus over the group's node axes (the
+  default), or one all-gather for a dense W -- and mixes against a
+  running neighbor-reconstruction accumulator; under a program, against
+  unweighted per-direction (or all-node) reconstructions weighted by the
+  round's W_r.
 
 The exact-wire engines are sequential-only and refuse top-k and partial
 federation scopes, as the reference's do.
@@ -55,16 +58,20 @@ device (:meth:`GossipEngine._round_gates`) and handed to the same round
 kernels as a runtime operand, and stragglers sit out local steps as
 masked updates. ``flat``, ``fused`` and ``sharded_fused`` run both axes
 (``sharded_fused`` also ``slow_uplink``'s per-node wire k); ``tree``
-refuses them, as the reference's does.
+refuses them, as the reference's does. ``tree`` and ``flat`` also build
+on a group's node torus (``from_group``: the mesh backends of
+``core.mixing``), and ``fused`` on the torus's dense equivalent
+(``from_node_axes``).
 
 The fifth axis is the engine's :class:`~repro_torch.core.privacy.
 PrivacySpec`: ``dp`` clips and noises the wire payload in the wire
 stage's quantize epilogue (the kernel wrappers' residual substitution:
 still one launch a round) on ``fused`` and ``sharded_fused``, drawn from
 ``priv_key`` and ``topo_round`` in ``FLState.comm``, and reports
-``dp_epsilon``; ``secure_agg`` is a no-op on ``fused`` and ``flat`` (no
-per-edge payload), and ``tree``, ``flat`` and ``sharded_fused`` refuse
-what the reference's refuse.
+``dp_epsilon``; ``secure_agg`` masks every per-edge payload of
+``sharded_fused``'s circulant wire and is a no-op on ``fused`` and
+``flat`` (no per-edge payload), and ``tree``, ``flat`` and
+``sharded_fused`` refuse what the reference's refuse.
 
 The sixth axis is the engine's :class:`~repro_torch.core.scope.
 FederationScope`: which columns of the flat buffer federate. On ``fused``
@@ -93,16 +100,16 @@ fp32 computation of the rounded buffer, and the kernels stay fp32 (a
 kernel wrapper handed a bf16 buffer raises). ``tree`` refuses it, as the
 reference's does.
 
-Everything else outside the ported slice -- the circulant torus wire and
-the two-axis layout -- raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+What is outside the ported slice -- the sharded engine without
+difference coding or error feedback -- raises ``NotImplementedError``
+naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import ClassVar, Dict, Optional, Sequence, Tuple, Type
+from typing import ClassVar, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
@@ -123,13 +130,24 @@ from repro_torch.core.heterogeneity import (
     compose_node_gate,
     resolve_node_program,
 )
-from repro_torch.core.mixing import _wire, make_dense_flat_mix, make_dense_gossip
+from repro_torch.core.mixing import (
+    TorusPlan,
+    _wire,
+    all_gather_rows,
+    make_dense_flat_mix,
+    make_dense_gossip,
+    make_mesh_flat_mix,
+    make_mesh_gossip,
+    mesh_gossip_dense_equivalent,
+)
 from repro_torch.core.privacy import (
     NOISE_STREAM,
+    PAD_STREAM,
     TRACKER_STREAM_OFFSET,
     PrivacySpec,
     dp_noise,
     epsilon_traced,
+    mask_wire,
     resolve_privacy,
 )
 from repro_torch.core.privacy import NONE as PRIVACY_NONE
@@ -140,6 +158,7 @@ from repro_torch.core.packing import (
     compact_index_bytes,
     compact_pos_dtype,
     flat_wire_bytes,
+    flat_wire_bytes_per_shard,
     pack,
     pack_like,
     scoped_layout,
@@ -433,7 +452,11 @@ class GossipEngine(abc.ABC):
     #: (``slow_uplink``); the others refuse such a node program
     supports_wire_k: ClassVar[bool] = False
     device: torch.device
-    #: a sub-range scope's wire layout and shared column ranges, and the
+    #: the process group of an engine built across ranks (``from_group``):
+    #: its state is this rank's rows; None in a single process
+    group: Optional[NodeGroup] = None
+    #: a sub-range scope's wire layout and shared column ranges (per
+    #: shard tile: the ranges themselves on a single-axis layout), and the
     #: layerwise scope's (1, total) head-column mask (``_bind_scope``)
     _scoped: bool = False
     _wire_layout: Optional[FlatLayout] = None
@@ -595,32 +618,46 @@ class GossipEngine(abc.ABC):
         noise all derive from it."""
         return self.layout if self._wire_layout is None else self._wire_layout
 
+    def _scope_shards(self, width: int) -> int:
+        """How many shard tiles a buffer of trailing ``width`` spans: the
+        scoped ranges are per shard, so a full-width row repeats them
+        across the layout's shards and one tile (the two-axis engine's
+        rank) carries one copy."""
+        return 1 if width == self.layout.shard_width else self.layout.shards
+
     def _gather_cols(self, x: torch.Tensor) -> torch.Tensor:
-        """The shared columns of a row block, contiguous, zero-padded to
-        the wire width (the padding behaves as the layout's own: zero
-        forever, no wire mass). ``x`` itself without a sub-range scope."""
+        """The shared columns of a row block (full width or one shard
+        tile), contiguous, each shard's slice zero-padded to the chunk
+        multiple (the padding behaves as the layout's own: zero forever,
+        no wire mass). ``x`` itself without a sub-range scope."""
         if not self._scoped:
             return x
-        segs = [x[..., a:b] for a, b in self._ranges]
-        pad = self._wire_layout.total - self._wire_layout.used
-        if pad:
-            segs.append(x.new_zeros(x.shape[:-1] + (pad,)))
+        sw = self.layout.shard_width
+        pad = self._wire_layout.shard_width - sum(b - a for a, b in self._ranges)
+        segs = []
+        for s in range(self._scope_shards(x.shape[-1])):
+            segs.extend(x[..., s * sw + a:s * sw + b] for a, b in self._ranges)
+            if pad:
+                segs.append(x.new_zeros(x.shape[:-1] + (pad,)))
         return torch.cat(segs, dim=-1)
 
     def _scatter_cols(self, local_full: torch.Tensor,
                       mixed_scoped: torch.Tensor) -> torch.Tensor:
         """The mixed shared columns put back among the private ones: slices
         and one ``torch.cat``, so the private columns come bit-untouched
-        from ``local_full`` (the wire's padding is dropped)."""
-        segs, pos, at = [], 0, 0
-        for a, b in self._ranges:
-            if a > pos:
-                segs.append(local_full[..., pos:a])
-            segs.append(mixed_scoped[..., at:at + (b - a)])
-            at += b - a
-            pos = b
-        if pos < local_full.shape[-1]:
-            segs.append(local_full[..., pos:])
+        from ``local_full`` (each shard's wire padding is dropped)."""
+        sw, pw = self.layout.shard_width, self._wire_layout.shard_width
+        segs = []
+        for s in range(self._scope_shards(local_full.shape[-1])):
+            base, pos, at = s * sw, s * sw, s * pw
+            for a, b in self._ranges:
+                if base + a > pos:
+                    segs.append(local_full[..., pos:base + a])
+                segs.append(mixed_scoped[..., at:at + (b - a)])
+                at += b - a
+                pos = base + b
+            if pos < base + sw:
+                segs.append(local_full[..., pos:base + sw])
         return torch.cat(segs, dim=-1)
 
     def _scope_finish(self, mixed_s: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
@@ -828,7 +865,11 @@ class GossipEngine(abc.ABC):
     def global_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over every node of a mean over this process's nodes:
         ``x`` itself unless the nodes are split over several processes."""
-        return x
+        if self.group is None:
+            return x
+        x = x.detach().clone()
+        dist.all_reduce(x, group=self.group.pg)
+        return x / self.group.world
 
     @property
     def storage_dtype(self) -> torch.dtype:
@@ -847,20 +888,72 @@ class GossipEngine(abc.ABC):
         return None
 
     def check_params(self, cfg: FLConfig, params) -> None:
-        """Validate the initial state representation: node-stacked."""
-        check_node_stacked(cfg, params)
+        """Validate the initial state representation: node-stacked (this
+        rank's rows of it on a group build)."""
+        if self.group is None:
+            check_node_stacked(cfg, params)
+            return
+        if cfg.n_nodes != self.n_nodes:
+            raise ValueError(f"cfg.n_nodes {cfg.n_nodes} != the group's {self.n_nodes} nodes")
+        check_node_stacked(dataclasses.replace(cfg, n_nodes=len(self.rows)), params)
+
+    def _bind_group(self, group: NodeGroup, n_nodes: int) -> None:
+        """An exact-wire engine built on a group (``from_group``): its
+        state is this rank's rows, each round's batches carry all n
+        nodes, and the metrics are over all of them."""
+        self.group = group
+        self.n_nodes = int(n_nodes)
+        self.rows = group.rows(self.n_nodes)
 
     def make_eval_grads(self, grad_fn):
         """Adapt the node-batched tree ``grad_fn`` (``core.fl.
         value_and_grad``) to the engine's representation: itself for tree
-        state, through the layout for the flat buffer."""
-        if self.layout is None:
-            return grad_fn
-        return _make_flat_eval_grads(self.layout, grad_fn)
+        state, through the layout for the flat buffer; on a group build,
+        on this rank's rows of the batches."""
+        inner = grad_fn if self.layout is None else _make_flat_eval_grads(self.layout,
+                                                                           grad_fn)
+        if self.group is None:
+            return inner
+        rows = slice(self.rows.start, self.rows.stop)
+        return lambda params, batch: inner(params, {k: v[rows] for k, v in batch.items()})
+
+    def _exact_metrics(self, losses, grads, params) -> Dict[str, torch.Tensor]:
+        """The exact-wire round's loss, ``grad_norm_sq`` and
+        ``consensus_err``: over this process's nodes, or all-reduced over
+        the group on a group build."""
+        if self.group is None:
+            return {"loss": losses.mean(), "grad_norm_sq": _mean_grad_norm_sq(grads),
+                    "consensus_err": _consensus_error(params)}
+        g = torch.cat([x.float().reshape(x.shape[0], -1) for _, x in tree_leaves(grads)], 1)
+        p = torch.cat([x.float().reshape(x.shape[0], -1) for _, x in tree_leaves(params)], 1)
+        t, n = g.shape[1], self.n_nodes
+        sums = torch.cat([losses.float().sum()[None], g.sum(0), p.sum(0)])
+        dist.all_reduce(sums, group=self.group.pg)
+        mean_g = sums[1:1 + t] / n
+        dev = p - sums[1 + t:] / n
+        sq = (dev * dev).sum()
+        dist.all_reduce(sq, group=self.group.pg)
+        return {"loss": sums[0] / n, "grad_norm_sq": (mean_g * mean_g).sum(),
+                "consensus_err": sq / n}
 
     def params_view(self, params):
         """The tree view of the engine's parameter state."""
         return params if self.layout is None else unpack(params, self.layout)
+
+    def pack_state(self, stacked_params):
+        """The engine's state of node-stacked params (all n nodes): the
+        tree itself or packed into the layout, this rank's rows of it on a
+        group build, on the engine's device."""
+        if self.group is not None:
+            rows = slice(self.rows.start, self.rows.stop)
+            stacked_params = tree_map(lambda x: x[rows], stacked_params)
+        if self.layout is None:
+            return tree_map(lambda x: x.to(self.device), stacked_params)
+        return pack_like(stacked_params, self.layout).to(self.device)
+
+    def dense_equivalent(self) -> np.ndarray:
+        """The dense W the engine mixes with."""
+        raise NotImplementedError(f"the {self.name!r} engine does not expose its W")
 
     def make_comm_step(self, eval_grads, schedule, cfg: FLConfig):
         """The exact-wire comm step: :meth:`mix` applies W, then the
@@ -909,10 +1002,8 @@ class GossipEngine(abc.ABC):
                     prev_grad=tree_map(lambda g, p: g.to(p.dtype), grads, state.prev_grad),
                     comm=comm)
             metrics = {
-                "loss": losses.mean(),
+                **self._exact_metrics(losses, grads, new_state.params),
                 "alpha": float(alpha),
-                "grad_norm_sq": _mean_grad_norm_sq(grads),
-                "consensus_err": _consensus_error(new_state.params),
                 "comm_rounds": 1.0,
             }
             if wire is not None:
@@ -1118,6 +1209,31 @@ class TreeEngine(GossipEngine):
         leaf = tree_leaves(stacked_params)[0][1]
         return cls(make_dense_gossip(w, wire_dtype), device=leaf.device), stacked_params
 
+    @classmethod
+    def from_group(cls, group: NodeGroup, stacked_params, *, wire_dtype=None,
+                   self_weight=None, axes_subset=None, topk=None, round_schedule=None,
+                   storage_dtype=None, topology_program=None, node_program=None,
+                   privacy=None, scope=None,
+                   **_ignored) -> Tuple["TreeEngine", object]:
+        """The build on a node torus (the reference's ``from_mesh``): this
+        rank's rows of the tree, mixed by ``core.mixing.make_mesh_gossip``
+        over the group's node axes (one exchange per torus direction).
+        Returns (engine, this rank's rows of ``stacked_params`` on the
+        group's device)."""
+        _refuse_exact_wire(cls.name, topk, round_schedule, scope)
+        _reject_storage_dtype(storage_dtype, cls.name)
+        _reject_privacy(privacy, cls.name, "engine's pytree wire has no quantize "
+                        "epilogue to pad or noise")
+        reason = "engine bakes W into its tree-level gossip backend"
+        _reject_dynamic_program(topology_program, cls.name, reason)
+        _reject_node_program(node_program, cls.name, reason)
+        eng = cls(make_mesh_gossip(group, self_weight, wire_dtype, axes_subset),
+                  device=group.device)
+        n = tree_leaves(stacked_params)[0][1].shape[0]
+        eng._bind_group(group, n)
+        rows = slice(eng.rows.start, eng.rows.stop)
+        return eng, tree_map(lambda x: x[rows].to(group.device), stacked_params)
+
 
 @register_engine
 class FlatEngine(GossipEngine):
@@ -1170,6 +1286,9 @@ class FlatEngine(GossipEngine):
         return (w_off_r @ sent + w_diag_r[:, None] * xf).to(flat.dtype)
 
     def check_params(self, cfg: FLConfig, params) -> None:
+        if self.group is not None:
+            super().check_params(cfg, params)
+            cfg = dataclasses.replace(cfg, n_nodes=len(self.rows))
         _check_flat_params(cfg, params, self.name)
 
     @classmethod
@@ -1189,6 +1308,32 @@ class FlatEngine(GossipEngine):
         return cls(make_dense_flat_mix(w, wire_dtype), layout, device=flat.device,
                    topology_program=topology_program, node_program=node_program,
                    wire_dtype=wire_dtype, w=w, privacy=privacy), flat
+
+    @classmethod
+    def from_group(cls, group: NodeGroup, stacked_params, *, scale_chunk: int = 1,
+                   wire_dtype=None, self_weight=None, axes_subset=None, topk=None,
+                   round_schedule=None, storage_dtype=None, topology_program=None,
+                   node_program=None, privacy=None, scope=None,
+                   **_ignored) -> Tuple["FlatEngine", torch.Tensor]:
+        """The build on a node torus (the reference's ``from_mesh``): this
+        rank's rows of the packed buffer, mixed by ``core.mixing.
+        make_mesh_flat_mix`` over the group's node axes. Returns (engine,
+        this rank's rows of the flat buffer on the group's device)."""
+        _refuse_exact_wire(cls.name, topk, round_schedule, scope)
+        _reject_privacy(privacy, cls.name, "engine's mesh build ships raw fp32 "
+                        "payloads through a baked ppermute backend (no pad/noise "
+                        "epilogue)")
+        reason = "engine's mesh build mixes through a baked ppermute backend"
+        _reject_dynamic_program(topology_program, cls.name, reason)
+        _reject_node_program(node_program, cls.name, reason)
+        flat, layout = pack(stacked_params, pad_to=scale_chunk,
+                            buffer_dtype=storage_dtype or torch.float32)
+        eng = cls(make_mesh_flat_mix(group, self_weight, wire_dtype, axes_subset),
+                  dataclasses.replace(layout, n_nodes=len(group.rows(layout.n_nodes))),
+                  device=group.device, wire_dtype=wire_dtype)
+        eng._bind_group(group, layout.n_nodes)
+        rows = slice(eng.rows.start, eng.rows.stop)
+        return eng, flat[rows].to(group.device).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -1283,6 +1428,9 @@ class FusedEngine(GossipEngine):
 
     def _static_round_w(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.w_off, self.w_self
+
+    def dense_equivalent(self) -> np.ndarray:
+        return self.w
 
     @property
     def pipelined(self) -> bool:
@@ -1531,104 +1679,158 @@ class FusedEngine(GossipEngine):
         return cls(w, layout, scale_chunk=scale_chunk, device=flat.device,
                    **kw), flat
 
+    @classmethod
+    def from_node_axes(cls, node_axes: Dict[str, int], stacked_params, *,
+                       self_weight=None, axes_subset=None, scale_chunk: int = 512,
+                       **kw) -> Tuple["FusedEngine", torch.Tensor]:
+        """The single-process build over a node torus (the reference's
+        ``FusedEngine.from_mesh``): W is the dense equivalent of the
+        circulant ring / torus over ``node_axes`` (an ordered ``{name:
+        size}``; directions restricted to ``axes_subset``), the W the
+        sharded engine's circulant wire realizes -- its oracle. Returns
+        (engine, flat buffer), as :meth:`simulated`."""
+        w = mesh_gossip_dense_equivalent(dict(node_axes), self_weight=self_weight,
+                                         axes_subset=axes_subset)
+        return cls.simulated(w, stacked_params, scale_chunk=scale_chunk, **kw)
+
 
 # ---------------------------------------------------------------------------
 # The sharded engine: node rows over the ranks of a process group
 # ---------------------------------------------------------------------------
 
-#: the all-gather of the installed torch (``all_gather_into_tensor`` was
-#: renamed ``all_gather_single``; both take (output, input, group=))
-_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-
 
 @register_engine
 class ShardedFusedEngine(GossipEngine):
     """The fused round with the node rows split over the ranks of a
-    ``torch.distributed`` group (the reference's ``ShardedFusedEngine`` on
-    its all-gather wire: an arbitrary dense W). Rank r holds the node rows
-    ``[r * R, (r + 1) * R)`` of every (n, total) buffer. Per round, for
-    each wire:
+    ``torch.distributed`` group (the reference's ``ShardedFusedEngine``).
+    Rank ``a * S + s`` of the group (``launch.mesh``) holds node block
+    ``a`` -- the rows ``[a * R, (a + 1) * R)`` -- and column tile ``s`` of
+    every (n, total) buffer (S = 1 unless the engine is built with
+    ``model_axis``). Per round, for each wire:
 
       1. the WIRE STAGE -- local update (DSGD) or tracker arithmetic and
          update (DSGT), difference coding, int8 quantize, error feedback
-         -- is ONE kernel launch on the rank's rows (DSGT's two wires
+         -- is ONE kernel launch on the rank's tile (DSGT's two wires
          share it): ``wire_stage[_gt]_compact`` with exact-k top-k when
          ``topk`` is set and the compact encoding is smaller than the
          dense chunk, else ``wire_stage[_gt]`` (dense int8, top-k masked
          when ``topk`` is set);
-      2. each wire buffer crosses in ONE ``all_gather`` over the group --
-         (k int8 values, k positions or the presence bitmap, fp32 scales)
-         on the compact wire, (int8 payload, scales) on the dense one --
-         moved as its raw bytes (neither NCCL nor gloo has an int16
-         type), so the bytes handed to the collectives are exactly
-         ``flat_wire_bytes`` per node and wire;
-      3. the receive side rebuilds every node's dense dq and the mix
-         finishes against the running neighbor-reconstruction
-         accumulator: ``mix_recon' = mix_recon + W_off[rows] @ dq_all``,
-         ``mixed = w_self[rows] * h + mix_recon'`` -- equal, up to the
-         summation order, to ``FusedEngine`` on the same W.
+      2. the wire buffers -- (k int8 values, k positions or the presence
+         bitmap, fp32 scales) on the compact wire, (int8 payload,
+         scales) on the dense one -- cross as their raw bytes (no
+         collective has an int16 type), on the node group of the rank's
+         shard:
+
+         * ``w=None``, the CIRCULANT wire (the reference's default): the
+           ring / torus W over the group's node axes
+           (``core.mixing.mesh_gossip_dense_equivalent``, restricted to
+           ``axes_subset``, self weight ``self_weight``), one
+           ``dist.batch_isend_irecv`` per direction and buffer with one
+           message per peer rank (``core.mixing.TorusPlan``; a neighbor
+           row on the same rank is an index copy). At one node a rank
+           that is one send per buffer and direction, and the ranks'
+           bytes sum to ``wire_bytes``;
+         * ``w=`` an arbitrary dense W: ONE all-gather per buffer (every
+           payload reaches every rank);
+
+      3. the receive side rebuilds the dense dq and the mix finishes
+         against the running neighbor-reconstruction accumulator:
+         ``mix_recon' = mix_recon + sum_d weight_d dq_d`` (circulant) or
+         ``+ W_off[rows] @ dq_all``, then ``mixed = w_self * h +
+         mix_recon'`` -- equal, up to the summation order, to
+         ``FusedEngine`` on ``dense_equivalent()``.
 
     Under the pipelined and bounded-staleness schedules the comm step
     stores this round's wire buffers in ``FLState.comm`` (``wire_q``,
-    ``wire_pos`` or ``wire_bits``, ``wire_scales``, and ``_t`` twins;
-    a ring of k at depth k >= 2), and the next round's ingest gathers the
+    ``wire_pos`` or ``wire_bits``, ``wire_scales``, and ``_t`` twins; a
+    ring of k at depth k >= 2), and the next round's ingest moves the
     oldest before its local steps. Metrics are over all n nodes
-    (all-reduced), so every world size reports the same numbers.
+    (all-reduced over the whole world), so every (world, S) reports the
+    same numbers.
 
     Under a topology or node program every rank derives the whole
-    realized W_r from the replicated counters (``_round_gates``; the
-    topology, node and Markov state is never split by rows) and keeps its
-    rows. The pre-weighted ``mix_recon`` cannot carry a per-round W, so
-    the dynamic round keeps ``nbr_recon_all`` instead: an unweighted
-    replica of every node's reconstruction, (R, n, total) on a rank (the
-    reference's (n, n, total) layout split by receiver), contracted with
-    the rank's rows of W_r at mix time -- with the same one all-gather per
-    wire buffer as the static round. ``slow_uplink`` gives each node its
-    own wire k (``supports_wire_k``): a node's payload keeps its k_i
-    largest entries a chunk, the rest goes back into its residual, and
+    realized W_r from the replicated counters (``_round_gates``) and
+    keeps its rows. The pre-weighted ``mix_recon`` cannot carry a
+    per-round W, so the dynamic round keeps one UNWEIGHTED accumulator
+    per torus direction on the circulant wire (``nbr_recon_{d}``: that
+    neighbor's reconstruction, (R, t) a rank), weighted per round by
+    ``W_r[i, src_d(i)]``, or ``nbr_recon_all`` on the all-gather wire (an
+    unweighted replica of every node's reconstruction, (R, n, t) a rank)
+    contracted with the rank's rows of W_r -- with no transfer beyond the
+    static round's. ``slow_uplink`` gives each node its own wire k
+    (``supports_wire_k``): a node's payload keeps its k_i largest entries
+    a chunk, the rest goes back into its residual, and
     ``wire_bytes_effective`` reports what those k_i would cost.
 
-    ``privacy``: ``dp`` clips and noises each rank's rows in the wire
-    stage's epilogue (each rank draws its own rows of the global noise);
-    ``secure_agg`` needs the circulant wire and is refused.
+    ``privacy``: ``dp`` clips and noises each rank's tile in the wire
+    stage's epilogue (each rank draws its tile of the global noise);
+    ``secure_agg`` masks every payload with its edge's pairwise pad
+    (``core.privacy.mask_wire``) just before each send and unmasks it
+    just after each receive -- a neighbor row on the same rank too, so
+    the arithmetic does not depend on the world -- which needs the
+    circulant wire (per-edge payloads) and is refused on the all-gather
+    one, as the reference refuses it.
 
     ``scope``: a sub-range scope's wire stage runs on the shared columns
-    of the rank's rows (``_produce``), every wire buffer, collective and
-    accumulator at the scoped width, and the mix is scattered back around
-    the private columns' local update; ``layerwise`` is refused, as the
-    reference refuses it. ``restore_comm`` rebuilds the neighbor
-    accumulators after a checkpoint restore (``gather_rows`` serves a
-    save).
+    of the rank's tile (the per-shard ranges of ``packing.
+    scoped_layout``), every wire buffer, transfer and accumulator at the
+    scoped width, and the mix is scattered back around the private
+    columns' local update; ``layerwise`` is refused, as the reference
+    refuses it. ``restore_comm`` rebuilds the neighbor accumulators after
+    a checkpoint restore (``gather_rows`` serves a save).
+
+    ``model_axis`` (the two-axis layout): the group's S model shards tile
+    every row; the wire stage is one launch per tile and the wire moves
+    on the node group of the shard only, so a rank hands over exactly
+    ``flat_wire_bytes_per_shard`` per edge and wire (``wire_bytes /
+    S`` a round over the shard: ``wire_bytes_per_shard``). The local
+    steps need every column: each gradient all-gathers the rank's rows
+    over its model group and keeps its tile (``shard_gathers`` counts
+    those gathers apart: they are not wire traffic). ``dp`` clips each
+    tile's payload on its own (the wire stage sees one tile), as the
+    reference's does, so a binding clip at S > 1 is not S = 1's.
 
     ``storage_dtype``: bf16 storage of the rank's rows as on ``fused``,
     upcast into the wire stage and rounded back after the mix; the wire
     buffers, recon, residual and the neighbor accumulators stay fp32.
 
-    ``collectives`` and ``collective_bytes`` count the wire's all-gathers
-    and the bytes this rank hands them (the metrics' all-reduces are not
-    wire traffic and do not count).
+    ``collectives`` and ``collective_bytes`` count the wire's messages
+    (point-to-point sends, or all-gathers) and the bytes this rank hands
+    them (the metrics' all-reduces are not wire traffic and do not
+    count).
     """
 
     name = "sharded_fused"
     supports_wire_k = True
 
     def __init__(self, group: NodeGroup, layout: FlatLayout, *, w=None,
-                 scale_chunk: int = 512, topk=None, compact=None,
-                 round_schedule=None, error_feedback: bool = True,
-                 difference_coding: bool = True, wire_dtype=None,
-                 model_axis=None, topology_program=None, node_program=None,
-                 privacy=None, scope=None, storage_dtype=None):
+                 self_weight=None, axes_subset=None, scale_chunk: int = 512,
+                 topk=None, compact=None, round_schedule=None,
+                 error_feedback: bool = True, difference_coding: bool = True,
+                 wire_dtype=None, model_axis=None, topology_program=None,
+                 node_program=None, privacy=None, scope=None, storage_dtype=None):
         if wire_dtype is not None:
             raise ValueError(
                 "the fused engines' wire is always difference-coded int8; "
                 "wire_dtype only applies to the tree/flat exact-wire engines"
             )
-        if w is None:
-            raise _not_ported("the circulant torus ppermute wire (w=None)", "15")
-        if model_axis is not None:
-            raise _not_ported(
-                f"the two-axis (node, model_shard) layout (model_axis={model_axis!r})",
-                "15")
+        axes = group.axes(layout.n_nodes)
+        if model_axis is not None and model_axis in axes:
+            raise ValueError(
+                f"model_axis {model_axis!r} is also a gossip node "
+                "axis; the two-axis round shards parameter columns "
+                "over a DIFFERENT axis than the one enumerating nodes"
+            )
+        if model_axis is None and group.model_shards > 1:
+            raise ValueError(
+                f"the group tiles every node row over {group.model_shards} "
+                "model shards; build the engine with model_axis= (e.g. "
+                "'model') to run the two-axis round"
+            )
+        self.model_axis = model_axis
+        self.model_shards = group.model_shards
+        if layout.shards != self.model_shards:
+            layout = layout.with_shards(self.model_shards)
         layout = _fused_layout(layout, storage_dtype, self.name)
         self.privacy = resolve_privacy(privacy)
         if self.privacy.dp and not error_feedback:
@@ -1637,7 +1839,7 @@ class ShardedFusedEngine(GossipEngine):
                 "wire-stage epilogue); build the engine with "
                 "error_feedback=True or drop the dp token"
             )
-        if self.privacy.secure_agg:
+        if self.privacy.secure_agg and w is not None:
             raise ValueError(
                 f"privacy spec {self.privacy.spec()!r}: secure_agg needs "
                 "the circulant ppermute wire (per-edge payloads to pad); "
@@ -1673,6 +1875,13 @@ class ShardedFusedEngine(GossipEngine):
                 f"layout.total {layout.total} not a multiple of scale_chunk "
                 f"{scale_chunk}; pack with pad_to={scale_chunk}"
             )
+        if layout.shard_width % scale_chunk:
+            raise ValueError(
+                f"per-shard width {layout.shard_width} not a multiple "
+                f"of scale_chunk {scale_chunk}; pack with "
+                f"pad_to={scale_chunk} and shards={self.model_shards} "
+                "so every shard tile holds whole quantization chunks"
+            )
         if topk is not None and topk < 1:
             raise ValueError("topk must be >= 1 or None")
         self.layout = layout
@@ -1683,7 +1892,7 @@ class ShardedFusedEngine(GossipEngine):
         self.device = group.device
         self.n_nodes = layout.n_nodes
         self.rows = group.rows(self.n_nodes)
-        # unpack / eval on this rank's rows only
+        # unpack / eval on this rank's rows only (full width)
         self.local_layout = dataclasses.replace(layout, n_nodes=len(self.rows))
         self._bind_scope(scope)
         if isinstance(self.scope, LayerwiseScope):
@@ -1694,10 +1903,15 @@ class ShardedFusedEngine(GossipEngine):
                 "collectives -- use --fl-engine fused, or a static "
                 "sub-range scope ('backbone' / 'ranges:') here"
             )
+        # this rank's column tile of the params and of the wire
+        s = group.shard
+        self._tile = slice(s * layout.shard_width, (s + 1) * layout.shard_width)
+        ww = self.wire_layout.shard_width
+        self._wire_tile = slice(s * ww, (s + 1) * ww)
         # The compact wire is the wire only where it is SMALLER than the
         # dense int8 chunk; compact=None takes it exactly there, and an
         # explicitly requested uneconomic one is refused (the accounting
-        # would report bytes the collective does not move).
+        # would report bytes the transfer does not move).
         economic = self._compact_is_economic()
         if compact is None:
             compact = economic
@@ -1724,6 +1938,16 @@ class ShardedFusedEngine(GossipEngine):
             pos_b = topk * torch.iinfo(compact_pos_dtype(scale_chunk)).bits // 8
             bb = bitmap_bytes_per_chunk(scale_chunk)
             self.wire_encoding = "bitmap" if bb is not None and bb < pos_b else "positions"
+        self.node_axes = tuple(axes)
+        if w is None:
+            # the circulant torus over the node axes: the exchange plan
+            subset = tuple(axes_subset) if axes_subset else None
+            self.torus = TorusPlan(group, self.n_nodes, self_weight, subset)
+            self.dirs, self._dir_src = self.torus.dirs, self.torus.src
+            w = mesh_gossip_dense_equivalent(axes, self_weight, subset)
+            self._pads = tuple(self.torus.pads(d) for d in range(len(self.dirs)))
+        else:
+            self.torus, self.dirs, self._dir_src = None, None, ()
         self.w, w_self, w_off = _split_w_np(w, self.n_nodes)
         rows = slice(self.rows.start, self.rows.stop)
         self.w_self = torch.as_tensor(w_self[rows], device=self.device)
@@ -1733,6 +1957,8 @@ class ShardedFusedEngine(GossipEngine):
         self._bind_programs(self.w, topology_program, node_program)
         self.collectives = 0
         self.collective_bytes = 0
+        self.shard_gathers = 0
+        self.shard_gather_bytes = 0
 
     @property
     def pipelined(self) -> bool:
@@ -1741,6 +1967,16 @@ class ShardedFusedEngine(GossipEngine):
     @property
     def staleness_depth(self) -> int:
         return self.round_schedule.depth
+
+    @property
+    def _sa_wire(self) -> bool:
+        """The circulant wire is the one place a per-edge payload exists,
+        so it is the one place the pairwise pads are real."""
+        return self.privacy.secure_agg and self.torus is not None
+
+    @property
+    def _priv_rng(self) -> bool:
+        return self.privacy.dp or self._sa_wire
 
     def _compact_is_economic(self) -> bool:
         """True when k values + the cheaper index encoding fit in the
@@ -1753,7 +1989,7 @@ class ShardedFusedEngine(GossipEngine):
 
     def _wire_key_names(self, suffix: str = "") -> Tuple[str, ...]:
         """One wire's in-flight payload buffers (pipelined only): exactly
-        what crosses the collective."""
+        what crosses the wire."""
         if not self.compact_wire:
             names = ("wire_q", "wire_scales")
         elif self.wire_encoding == "bitmap":
@@ -1762,32 +1998,46 @@ class ShardedFusedEngine(GossipEngine):
             names = ("wire_q", "wire_pos", "wire_scales")
         return tuple(n + suffix for n in names)
 
+    def _nbr_key_names(self, suffix: str = "") -> Tuple[str, ...]:
+        """The dynamic round's accumulators: one per torus direction on
+        the circulant wire (``nbr_recon_{d}``, that neighbor's
+        reconstruction), or the all-node replica ``nbr_recon_all`` on the
+        all-gather wire; none on a static round."""
+        if not self.dynamic_round:
+            return ()
+        if self.torus is None:
+            return ("nbr_recon_all" + suffix,)
+        return tuple(f"nbr_recon_{d}{suffix}" for d in range(len(self.dirs)))
+
     def _known_comm_keys(self) -> frozenset:
-        wire = ("recon", "residual", "wire_q", "wire_scales", "mix_recon",
-                "nbr_recon_all", "wire_pos", "wire_bits")
+        wire = ["recon", "residual", "wire_q", "wire_scales", "mix_recon",
+                "nbr_recon_all", "wire_pos", "wire_bits"]
+        if self.torus is not None:
+            wire += [f"nbr_recon_{d}" for d in range(len(self.dirs))]
         return super()._known_comm_keys() | frozenset(
             base + suffix for base in wire for suffix in ("", "_t"))
 
     def is_derived_comm_key(self, key: str) -> bool:
         """The neighbor accumulators -- ``mix_recon[_t]`` (static) and
-        ``nbr_recon_all[_t]`` (under a program) -- are rebuilt from recon
+        ``nbr_recon_*[_t]`` (under a program) -- are rebuilt from recon
         by :meth:`restore_comm`, so either contract's checkpoint can seed
         the other."""
         return key.startswith("mix_recon") or key.startswith("nbr_recon_")
 
     def restore_comm(self, comm: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Rebuild the neighbor accumulators from this rank's restored
-        rows (from a fused checkpoint too, which never had them). The
-        neighbor-visible reconstruction is ``recon`` less every in-flight
-        payload of the ring (the sender advanced recon by payloads its
-        neighbors have not mixed yet); it is all-gathered over the group
-        (not wire traffic: ``collectives`` does not count it), then
-        ``mix_recon = W_off[rows] @ recon_eff`` on a static round, or
-        ``nbr_recon_all`` its replica for each of the rank's rows under a
+        tile (from an all-gather-wire, a circulant or a fused checkpoint
+        alike: none is carried over). The neighbor-visible reconstruction
+        is ``recon`` less every in-flight payload of the ring (the sender
+        advanced recon by payloads its neighbors have not mixed yet); it
+        is all-gathered over the node group (not wire traffic:
+        ``collectives`` does not count it), then ``mix_recon = W_off[rows]
+        @ recon_eff`` on a static round, ``nbr_recon_{d}`` its rows of
+        each direction's sources or ``nbr_recon_all`` its replica under a
         program. Sequential: ``W_off @ recon``; pipelined: ``W_off @
         (recon - dq(wire))``."""
         self._check_restored_comm_keys(comm)
-        comm = dict(comm)
+        comm = {k: v for k, v in comm.items() if not self.is_derived_comm_key(k)}
 
         def gathered_recon(suffix: str) -> torch.Tensor:
             recon = comm["recon" + suffix].to(torch.float32)
@@ -1799,50 +2049,71 @@ class ShardedFusedEngine(GossipEngine):
                 else:
                     for j in range(self.staleness_depth):
                         recon = recon - self._dq_full([b[:, j] for b in bufs])
-            out = torch.empty((self.n_nodes, recon.shape[1]), dtype=recon.dtype,
-                              device=recon.device)
-            _ALL_GATHER(out, recon.contiguous(), group=self.group.pg)
-            return out
+            return all_gather_rows(recon, self.group.wire_pg, self.n_nodes)
 
         for suffix in ("", "_t") if "recon_t" in comm else ("",):
             eff = gathered_recon(suffix)
-            if self.dynamic_round:
+            if not self.dynamic_round:
+                comm["mix_recon" + suffix] = self.w_off @ eff
+            elif self.torus is None:
                 comm["nbr_recon_all" + suffix] = eff[None].expand(
                     (len(self.rows),) + tuple(eff.shape)).clone()
             else:
-                comm["mix_recon" + suffix] = self.w_off @ eff
+                mine = slice(self.rows.start, self.rows.stop)
+                for d, name in enumerate(self._nbr_key_names(suffix)):
+                    src = torch.as_tensor(self._dir_src[d][mine], device=eff.device)
+                    comm[name] = eff[src].clone()
         return comm
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows of a row-split buffer, (R, ...) -> (n, ...),
-        in node order: one all-gather of its raw bytes (no collective has
-        an int16 type), not wire traffic."""
-        raw = x.contiguous().reshape(x.shape[0], -1).view(torch.uint8)
-        out = torch.empty((self.n_nodes, raw.shape[1]), dtype=torch.uint8,
-                          device=raw.device)
-        _ALL_GATHER(out, raw, group=self.group.pg)
-        return out.view(x.dtype).reshape((self.n_nodes,) + tuple(x.shape[1:]))
+        """Every rank's block of a row-split buffer, (R, ..., w / S) ->
+        (n, ..., w): the row blocks in node order and, on the two-axis
+        layout, the column tiles side by side along the last axis. One
+        all-gather of its raw bytes over the whole world, not wire
+        traffic."""
+        s = self.model_shards
+        if s == 1:
+            return all_gather_rows(x, self.group.pg, self.n_nodes)
+        raw = x.contiguous().view(torch.uint8)
+        mid, wb = tuple(raw.shape[1:-1]), raw.shape[-1]
+        got = all_gather_rows(raw, self.group.pg, self.group.world * len(self.rows))
+        got = got.reshape((self.group.node_ranks, s, len(self.rows)) + mid + (wb,))
+        got = got.movedim(1, -2).reshape((self.n_nodes,) + mid + (s * wb,))
+        return got.contiguous().view(x.dtype)
+
+    def local_block(self, arr):
+        """This rank's block of a whole (n, ..., w) row-split buffer: its
+        rows and, on the two-axis layout, its tile of the last axis (the
+        inverse of :meth:`gather_rows`; numpy or torch)."""
+        arr = arr[self.rows.start:self.rows.stop]
+        s = self.model_shards
+        if s > 1:
+            w = arr.shape[-1] // s
+            arr = arr[..., self.group.shard * w:(self.group.shard + 1) * w]
+        return arr
 
     def comm_keys(self, cfg: FLConfig) -> Tuple[str, ...]:
-        """The reference's keys: ``mix_recon`` on a static round,
-        ``nbr_recon_all`` under a program; then the counters."""
-        nbr = "nbr_recon_all" if self.dynamic_round else "mix_recon"
-        keys = ("recon", "residual", nbr)
+        """The reference's keys: ``mix_recon`` on a static round, the
+        per-direction ``nbr_recon_{d}`` (circulant) or ``nbr_recon_all``
+        (all-gather) under a program; then the counters."""
+        nbr = self._nbr_key_names("") or ("mix_recon",)
+        keys = ("recon", "residual") + nbr
         if self.pipelined:
             keys += self._wire_key_names("")
         if cfg.algorithm == "dsgt":
-            keys += ("recon_t", "residual_t", nbr + "_t")
+            keys += ("recon_t", "residual_t") + (self._nbr_key_names("_t") or ("mix_recon_t",))
             if self.pipelined:
                 keys += self._wire_key_names("_t")
         return keys + self._topo_keys()
 
     def comm_state_spec(self, cfg: FLConfig):
-        """This rank's wire state: (R, total) fp32 recon / residual /
-        mix_recon, (R, n, total) fp32 ``nbr_recon_all``, the in-flight
-        wire buffers, (R, width) at depth 1 and a (R, k, width) ring at
-        depth k >= 2 -- total the wire width, ``wire_layout.total``; then
-        the counters, whole on every rank."""
-        r, t = len(self.rows), self.wire_layout.total
+        """This rank's wire state: (R, t) fp32 recon / residual /
+        mix_recon / ``nbr_recon_{d}``, (R, n, t) fp32 ``nbr_recon_all``,
+        the in-flight wire buffers, (R, width) at depth 1 and a (R, k,
+        width) ring at depth k >= 2 -- t the rank's tile of the wire
+        width (``wire_layout.shard_width``); then the counters, whole on
+        every rank."""
+        r, t = len(self.rows), self.wire_layout.shard_width
         c, depth = t // self.scale_chunk, self.staleness_depth
         topo = self._topo_spec()
 
@@ -1867,7 +2138,8 @@ class ShardedFusedEngine(GossipEngine):
         return {k: spec(k) for k in self.comm_keys(cfg)}
 
     def dense_equivalent(self) -> np.ndarray:
-        """The dense W this engine realizes (the ``FusedEngine`` oracle)."""
+        """The dense W this engine realizes (the ``FusedEngine`` oracle):
+        the circulant torus's on the default wire, ``w`` otherwise."""
         return self.w
 
     def _static_round_w(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1883,33 +2155,65 @@ class ShardedFusedEngine(GossipEngine):
         wires = 2 if cfg.algorithm == "dsgt" else 1
         return float(wires * _degrees(self.w).sum() * self._edge_bytes())
 
+    def _edge_bytes_per_shard(self) -> int:
+        """One neighbor payload's cost per (node, shard) tile: the 1/S
+        column slice of :meth:`_edge_bytes`."""
+        return flat_wire_bytes_per_shard(self.wire_layout, 1, self.scale_chunk,
+                                         self.topk if self.compact_wire else None)
+
+    def wire_bytes_per_shard(self, cfg: FLConfig) -> float:
+        """The bytes a round moves over one shard's node group: every
+        transfer carries one (node, shard) tile, so this is exactly
+        ``wire_bytes / model_shards``."""
+        wires = 2 if cfg.algorithm == "dsgt" else 1
+        return float(wires * _degrees(self.w).sum() * self._edge_bytes_per_shard())
+
     def check_params(self, cfg: FLConfig, params) -> None:
         if cfg.n_nodes != self.n_nodes:
             raise ValueError(f"cfg.n_nodes {cfg.n_nodes} != the engine's {self.n_nodes} nodes")
-        want = (len(self.rows), self.layout.total)
+        want = (len(self.rows), self.layout.shard_width)
         if not isinstance(params, torch.Tensor) or tuple(params.shape) != want:
             raise ValueError(
                 f"the sharded engine's state is this rank's rows of the packed "
-                f"buffer, {want} (from_group returns them)"
+                f"buffer (its column tile on the two-axis layout), {want} "
+                "(from_group returns them)"
             )
         _check_storage(params, self)
 
+    def _full_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's rows at full width: its tile at S = 1, else one
+        all-gather of the S tiles over the model group (counted in
+        ``shard_gathers``, not wire traffic)."""
+        s = self.model_shards
+        if s == 1:
+            return x
+        got = all_gather_rows(x, self.group.model_pg, s * x.shape[0])
+        self.shard_gathers += 1
+        self.shard_gather_bytes += x.numel() * x.element_size()
+        return got.reshape((s,) + tuple(x.shape)).movedim(0, 1).reshape(
+            x.shape[0], s * x.shape[1])
+
     def make_eval_grads(self, grad_fn):
         """The tree-level ``grad_fn`` on this rank's rows: each round's
-        batches carry all n nodes, and the rank evaluates its own."""
+        batches carry all n nodes and the rank evaluates its own, on its
+        rows gathered to full width; it keeps its tile of the gradient."""
         inner = _make_flat_eval_grads(self.local_layout, grad_fn)
         rows = slice(self.rows.start, self.rows.stop)
 
         def eval_grads(params: torch.Tensor, batch):
-            return inner(params, {k: v[rows] for k, v in batch.items()})
+            losses, grads = inner(self._full_rows(params),
+                                  {k: v[rows] for k, v in batch.items()})
+            if self.model_shards > 1:
+                grads = grads[:, self._tile].contiguous()
+            return losses, grads
 
         return eval_grads
 
     def params_view(self, params):
-        return unpack(params, self.local_layout)
+        return unpack(self._full_rows(params), self.local_layout)
 
     def local_step(self, params, grads, alpha, mask=None):
-        """The local step on this rank's rows; a node program's step mask
+        """The local step on this rank's tile; a node program's step mask
         covers all n nodes (every rank derives it whole), and the rank
         applies its rows of it."""
         if mask is not None:
@@ -1920,6 +2224,14 @@ class ShardedFusedEngine(GossipEngine):
         x = x.detach().clone()
         dist.all_reduce(x, group=self.group.pg)
         return x / self.group.world
+
+    def _round_noises(self, comm: Dict[str, torch.Tensor], rows: range,
+                      wires: int) -> Tuple[torch.Tensor, ...]:
+        """This rank's tile of the round's noise rows."""
+        noises = super()._round_noises(comm, rows, wires)
+        if self.model_shards == 1:
+            return noises
+        return tuple(z[:, self._wire_tile].contiguous() for z in noises)
 
     # -- the wire ------------------------------------------------------------
 
@@ -1939,7 +2251,7 @@ class ShardedFusedEngine(GossipEngine):
     def _produce(self, x, g, recon, res, alpha, noises=(), kvec=None):
         """DSGD: ONE wire-stage launch (with this round's DP noise, and the
         per-node k ``kvec`` (R, 1) of a wire-k program) on the shared
-        columns of x and g. Returns (h, wire buffers in
+        columns of the rank's tile of x and g. Returns (h, wire buffers in
         ``_wire_key_names`` order, recon', res'), all at the wire width."""
         x, g = self._gather_cols(x), self._gather_cols(g)
         kw = dict(scale_chunk=self.scale_chunk, topk=self.topk, **self._dp_kwargs(*noises))
@@ -2028,15 +2340,37 @@ class ShardedFusedEngine(GossipEngine):
         return float(wires) * (deg * n_chunks * per_chunk).sum()
 
     def _all_gather(self, buf: torch.Tensor) -> torch.Tensor:
-        """ONE all-gather of a (R, w) wire buffer into (n, w), moved as its
-        raw bytes."""
-        raw = buf.contiguous().view(torch.uint8)
-        out = torch.empty((self.n_nodes, raw.shape[1]), dtype=torch.uint8,
-                          device=raw.device)
-        _ALL_GATHER(out, raw, group=self.group.pg)
+        """ONE all-gather of a (R, w) wire buffer into (n, w) over the node
+        group, moved as its raw bytes."""
+        out = all_gather_rows(buf, self.group.wire_pg, self.n_nodes)
         self.collectives += 1
-        self.collective_bytes += raw.numel()
-        return out.view(buf.dtype)
+        self.collective_bytes += buf.numel() * buf.element_size()
+        return out
+
+    def _transport(self, wire: Sequence[torch.Tensor], d: int, priv,
+                   stream_base: int = PAD_STREAM) -> List[torch.Tensor]:
+        """ONE direction's transfer of one wire's buffers on the circulant
+        wire: each row's payload to its neighbor (``TorusPlan.exchange``);
+        under ``secure_agg`` (``priv`` = (priv_key, round)) every buffer
+        masked with its edge's pad just before the send and unmasked
+        just after the receive -- the pads are a counter hash of the
+        undirected pair, so both endpoints derive the same words and
+        mask then unmask is the exact identity."""
+        if priv is not None:
+            key, r = priv
+            (pair, lt), (rpair, rlt) = self._pads[d]
+            wire = mask_wire(wire, key, r, pair, lt, stream_base=stream_base)
+        recv, msgs, nbytes = self.torus.exchange(wire, d)
+        self.collectives += msgs
+        self.collective_bytes += nbytes
+        if priv is not None:
+            recv = list(mask_wire(recv, key, r, rpair, rlt, stream_base=stream_base,
+                                  unmask=True))
+        return recv
+
+    def _priv(self, comm: Dict[str, torch.Tensor]):
+        """The pads' (priv_key, round) of this round, or None."""
+        return (comm["priv_key"], comm["topo_round"]) if self._sa_wire else None
 
     def _dq_full(self, wire: Sequence[torch.Tensor]) -> torch.Tensor:
         """Dense dequant of one wire's payload buffers at any row count;
@@ -2049,10 +2383,24 @@ class ShardedFusedEngine(GossipEngine):
             return scatter_bitmap_dq(*wire, self.scale_chunk, t)
         return scatter_compact_dq(*wire, self.scale_chunk, t)
 
-    def _wire_mix(self, wire: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Move one wire's buffers over the group (one all-gather each)
-        and return ``W_off[rows] @ dq`` for this rank's rows."""
-        return self.w_off @ self._dq_full([self._all_gather(b) for b in wire])
+    def _wire_mix(self, wire: Sequence[torch.Tensor], priv=None,
+                  stream_base: int = PAD_STREAM) -> torch.Tensor:
+        """Move one wire's buffers and return this rank's neighbor term:
+        ``sum_d weight_d * dq(recv_d)`` on the circulant wire, ``W_off[rows]
+        @ dq_all`` on the all-gather one."""
+        if self.torus is None:
+            return self.w_off @ self._dq_full([self._all_gather(b) for b in wire])
+        acc = None
+        for d, (_, _, weight) in enumerate(self.dirs):
+            # weight * dq, then the sum, each rounded once (in place: at
+            # the LM's (2, 361.8M) a temporary is 2.9 GB)
+            term = self._dq_full(self._transport(wire, d, priv, stream_base)).mul_(
+                float(np.float32(weight)))
+            acc = term if acc is None else acc.add_(term)
+        if acc is None:
+            return torch.zeros((wire[0].shape[0], wire[-1].shape[-1] * self.scale_chunk),
+                               dtype=torch.float32, device=wire[0].device)
+        return acc
 
     def _ring_slot0(self, comm, keys):
         """The oldest in-flight payload's buffers."""
@@ -2073,25 +2421,36 @@ class ShardedFusedEngine(GossipEngine):
 
     def _metrics(self, cfg, losses, alpha, grads, new_state: FLState, egress: float):
         """The reference's metrics over all n nodes: one all-reduce of the
-        sums, one of the squared deviations from the consensus mean. The
-        residual lives at the wire width."""
+        sums, one of the squared deviations from the consensus mean, over
+        the whole world. On the two-axis layout each rank adds its tile's
+        columns and shard 0 its block's losses. The residual lives at
+        the wire width."""
         n, t = self.n_nodes, self.layout.total
         params, res = new_state.params.float(), new_state.comm["residual"]
-        sums = torch.cat([losses.sum()[None], (res * res).sum()[None],
-                          grads.sum(dim=0), params.sum(dim=0)])
-        dist.all_reduce(sums, group=self.group.pg)
-        mean_g, mean_p = sums[2:2 + t] / n, sums[2 + t:] / n
-        dev = params - mean_p
-        sq = (dev * dev).sum()
+        head = torch.stack([losses.sum(), res.flatten().dot(res.flatten())])
+        g_sum, p_sum = grads.sum(dim=0), params.sum(dim=0)
+        if self.model_shards > 1:
+            if self.group.shard:
+                head[0] = 0.0
+            cols = torch.arange(self._tile.start, self._tile.stop, device=g_sum.device)
+            g_sum = torch.zeros(t, device=g_sum.device).index_copy_(0, cols, g_sum)
+            p_sum = torch.zeros(t, device=p_sum.device).index_copy_(0, cols, p_sum)
+        # three all-reduces, no (2 t)-wide concatenation: at the LM's
+        # (2, 361.8M) every full-width temporary is 1.45-2.9 GB
+        for buf in (head, g_sum, p_sum):
+            dist.all_reduce(buf, group=self.group.pg)
+        mean_g = g_sum.div_(n)
+        dev = params - p_sum.div_(n)[self._tile]
+        sq = dev.mul_(dev).sum()
         dist.all_reduce(sq, group=self.group.pg)
         return {
-            "loss": sums[0] / n,
+            "loss": head[0] / n,
             "alpha": float(alpha),
-            "grad_norm_sq": (mean_g * mean_g).sum(),
+            "grad_norm_sq": mean_g.dot(mean_g),
             "consensus_err": sq / n,
             "comm_rounds": 1.0,
             "wire_bytes": egress,
-            "ef_residual_rms": torch.sqrt(sums[1] / (n * self.wire_layout.total)),
+            "ef_residual_rms": torch.sqrt(head[1] / (n * self.wire_layout.total)),
             **self._privacy_metrics(cfg, new_state.step),
         }
 
@@ -2102,10 +2461,11 @@ class ShardedFusedEngine(GossipEngine):
     def _comm_body(self, eval_grads, schedule, cfg: FLConfig, state: FLState, batch,
                    mix_add):
         """The static comm step's shared body: this round's gradient, ONE
-        wire-stage launch (with this rank's rows of the round's DP noise),
-        then the mix against ``mix_recon`` plus ``mix_add(wire, wire_t)``
-        -- this round's gathered payload (sequential) or the ingested
-        stale one (pipelined). Returns (state, metrics, wire, wire_t)."""
+        wire-stage launch (with this rank's tile of the round's DP noise),
+        then the mix against ``mix_recon`` plus ``mix_add(wire, wire_t,
+        comm)`` -- this round's moved payload (sequential) or the
+        ingested stale one (pipelined). Returns (state, metrics, wire,
+        wire_t)."""
         if state.comm is None:
             raise ValueError("fused rounds need init_fl_state(..., engine)")
         step = state.step + 1
@@ -2118,10 +2478,12 @@ class ShardedFusedEngine(GossipEngine):
         if cfg.algorithm == "dsgd":
             h, wire, nrecon, nres = self._produce(
                 state.params.float(), grads, c["recon"], c["residual"], alpha, noises)
-            new_mix = c["mix_recon"] + mix_add(wire, None)[0]
+            # mix_recon' = mix_recon + the neighbor term, in the term's buffer
+            new_mix = mix_add(wire, None, c)[0].add_(c["mix_recon"])
+            # w_self * h + mix_recon', in place on the kernel's output h
             new_state = state._replace(
                 step=step, params=self._st(self._scope_finish(
-                    self.w_self[:, None] * h + new_mix, state.params, grads, alpha)),
+                    h.mul_(self.w_self[:, None]).add_(new_mix), state.params, grads, alpha)),
                 comm={"recon": nrecon, "residual": nres, "mix_recon": new_mix, **priv})
             wire_t = None
         else:
@@ -2129,10 +2491,11 @@ class ShardedFusedEngine(GossipEngine):
                 state.params.float(), state.tracker.float(), grads,
                 state.prev_grad.float(), c["recon"], c["residual"], c["recon_t"],
                 c["residual_t"], alpha, noises)
-            add_x, add_t = mix_add(wire, wire_t)
-            new_mrx, new_mrt = c["mix_recon"] + add_x, c["mix_recon_t"] + add_t
+            add_x, add_t = mix_add(wire, wire_t, c)
+            new_mrx, new_mrt = add_x.add_(c["mix_recon"]), add_t.add_(c["mix_recon_t"])
             mixed_x, mixed_t = self._scope_finish_gt(
-                self.w_self[:, None] * h + new_mrx, self.w_self[:, None] * th + new_mrt,
+                h.mul_(self.w_self[:, None]).add_(new_mrx),
+                th.mul_(self.w_self[:, None]).add_(new_mrt),
                 state.params, state.tracker, grads, state.prev_grad, alpha)
             new_state = FLState(
                 step=step, params=self._st(mixed_x), tracker=self._st(mixed_t),
@@ -2143,22 +2506,28 @@ class ShardedFusedEngine(GossipEngine):
 
     def _make_dynamic_round(self, eval_grads, schedule, cfg: FLConfig):
         """The round under a topology or node program, every schedule
-        (the reference's ``_make_dynamic_round_dense``): the round's
-        realized W_r from the counters, ONE wire-stage launch (with the
-        per-node k of a wire-k program and the DP noise), ONE all-gather
-        per wire buffer of this round's payload (sequential) or the ring's
-        oldest (pipelined, bounded staleness), folded into the unweighted
-        ``nbr_recon_all``, then ``mixed = W_r_diag[rows] * h +
-        W_r_off[rows] @ nbr_recon_all`` -- equal, up to summation order,
-        to ``FusedEngine`` under the same programs (its ``stale_mix`` on
-        the pipelined schedule). Returns ``comm_step(state, batch)``."""
+        (the reference's ``_make_dynamic_round`` and
+        ``_make_dynamic_round_dense``): the round's realized W_r from the
+        counters, ONE wire-stage launch (with the per-node k of a wire-k
+        program and the DP noise), the same transfers as the static
+        round of this round's payload (sequential) or the ring's oldest
+        (pipelined, bounded staleness), folded into the unweighted
+        neighbor accumulators, then ``mixed = W_r_diag[rows] * h +
+        sum_d W_r[i, src_d(i)] * nbr_recon_{d}`` (circulant) or
+        ``W_r_off[rows] @ nbr_recon_all`` (all-gather) -- equal, up to
+        summation order, to ``FusedEngine`` under the same programs (its
+        ``stale_mix`` on the pipelined schedule). Returns
+        ``comm_step(state, batch)``."""
         self._check_cfg(cfg)
         egress = self.wire_bytes(cfg)
         pipelined = self.pipelined
         wires = 2 if cfg.algorithm == "dsgt" else 1
         wk = self.node_program.heterogeneous_wire_k
         keys, keys_t = self._wire_key_names(""), self._wire_key_names("_t")
+        nbr_keys, nbr_keys_t = self._nbr_key_names(""), self._nbr_key_names("_t")
         rows = slice(self.rows.start, self.rows.stop)
+        t_stream = PAD_STREAM + TRACKER_STREAM_OFFSET
+        srcs = tuple(torch.as_tensor(src[rows], device=self.device) for src in self._dir_src)
 
         def comm_step(state: FLState, batch):
             if state.comm is None:
@@ -2173,18 +2542,29 @@ class ShardedFusedEngine(GossipEngine):
             kvec = self._wire_k_vec(c) if wk else None
             kw = dict(noises=self._round_noises(c, self.rows, wires),
                       kvec=None if kvec is None else kvec[rows])
+            priv = self._priv(c)
 
-            def mix_one(wire, wire_keys, nbr):
+            def mix_one(wire, wire_keys, nbr_names, stream_base):
                 src = self._ring_slot0(c, wire_keys) if pipelined else wire
-                new_all = nbr + self._dq_full([self._all_gather(b) for b in src])
-                return torch.bmm(w_rows[:, None, :], new_all)[:, 0], new_all
+                if self.torus is None:
+                    new_all = c[nbr_names[0]] + self._dq_full(
+                        [self._all_gather(b) for b in src])
+                    return (torch.bmm(w_rows[:, None, :], new_all)[:, 0],
+                            {nbr_names[0]: new_all})
+                mix, new = None, {}
+                for d, name in enumerate(nbr_names):
+                    nb = c[name] + self._dq_full(self._transport(src, d, priv, stream_base))
+                    new[name] = nb
+                    # dgate[i, d] = W_r[i, src_d(i)]: zero for a link that is down
+                    term = w_rows.gather(1, srcs[d][:, None]) * nb
+                    mix = term if mix is None else mix + term
+                return mix, new
 
             if cfg.algorithm == "dsgd":
                 h, wire, nrecon, nres = self._produce(
                     state.params.float(), grads, c["recon"], c["residual"], alpha, **kw)
-                mix, nbr = mix_one(wire, keys, c["nbr_recon_all"])
-                comm = {"recon": nrecon, "residual": nres, "nbr_recon_all": nbr,
-                        **topo_comm}
+                mix, nbr = mix_one(wire, keys, nbr_keys, PAD_STREAM)
+                comm = {"recon": nrecon, "residual": nres, **nbr, **topo_comm}
                 new_state = state._replace(
                     step=step, params=self._st(self._scope_finish(
                         ddiag * h + mix, state.params, grads, alpha)), comm=comm)
@@ -2194,11 +2574,10 @@ class ShardedFusedEngine(GossipEngine):
                     state.params.float(), state.tracker.float(), grads,
                     state.prev_grad.float(), c["recon"], c["residual"], c["recon_t"],
                     c["residual_t"], alpha, **kw)
-                mix_x, nbr_x = mix_one(wire, keys, c["nbr_recon_all"])
-                mix_t, nbr_t = mix_one(wire_t, keys_t, c["nbr_recon_all_t"])
-                comm = {"recon": nrx, "residual": nsx, "nbr_recon_all": nbr_x,
-                        "recon_t": nrt, "residual_t": nst, "nbr_recon_all_t": nbr_t,
-                        **topo_comm}
+                mix_x, nbr_x = mix_one(wire, keys, nbr_keys, PAD_STREAM)
+                mix_t, nbr_t = mix_one(wire_t, keys_t, nbr_keys_t, t_stream)
+                comm = {"recon": nrx, "residual": nsx, **nbr_x,
+                        "recon_t": nrt, "residual_t": nst, **nbr_t, **topo_comm}
                 mixed_x, mixed_t = self._scope_finish_gt(
                     ddiag * h + mix_x, ddiag * th + mix_t, state.params, state.tracker,
                     grads, state.prev_grad, alpha)
@@ -2218,32 +2597,35 @@ class ShardedFusedEngine(GossipEngine):
         return comm_step
 
     def make_comm_step(self, eval_grads, schedule, cfg: FLConfig):
-        """The sequential round: produce, gather, mix in the same step."""
+        """The sequential round: produce, move, mix in the same step."""
         if self.dynamic_round:
             return self._make_dynamic_round(eval_grads, schedule, cfg)
         self._check_cfg(cfg)
         egress = self.wire_bytes(cfg)
+        t_stream = PAD_STREAM + TRACKER_STREAM_OFFSET
 
-        def gathered(wire, wire_t):
-            return (self._wire_mix(wire),
-                    None if wire_t is None else self._wire_mix(wire_t))
+        def moved(wire, wire_t, comm):
+            priv = self._priv(comm)
+            return (self._wire_mix(wire, priv),
+                    None if wire_t is None else self._wire_mix(wire_t, priv, t_stream))
 
         def comm_step(state: FLState, batch):
             new_state, m, _, _ = self._comm_body(eval_grads, schedule, cfg, state,
-                                                 batch, gathered)
+                                                 batch, moved)
             return new_state, self._metrics(*m, new_state, egress)
 
         return comm_step
 
     def make_pipelined_round(self, eval_grads, schedule, cfg: FLConfig):
-        """The split round: ``ingest`` gathers the OLDEST in-flight payload
+        """The split round: ``ingest`` moves the OLDEST in-flight payload
         (nothing it reads depends on this round's compute, so it runs
-        before the local steps) and returns its neighbor term;
-        ``comm_step`` produces this round's payload (stored for a later
-        round), folds the ingested term into ``mix_recon`` and mixes --
-        k-round-stale neighbor information. Under a program the neighbor
-        term is weighted by this round's W_r, so the gather moves into the
-        comm step (:meth:`_make_dynamic_round`) and there is no ingest."""
+        before the local steps; the pads use the round counter both
+        endpoints hold) and returns its neighbor term; ``comm_step``
+        produces this round's payload (stored for a later round), folds
+        the ingested term into ``mix_recon`` and mixes -- k-round-stale
+        neighbor information. Under a program the neighbor term is
+        weighted by this round's W_r, so the transfer moves into the comm
+        step (:meth:`_make_dynamic_round`) and there is no ingest."""
         if not self.pipelined:
             raise ValueError(
                 "engine was built with round_schedule='sequential'; build "
@@ -2255,6 +2637,7 @@ class ShardedFusedEngine(GossipEngine):
         self._check_cfg(cfg)
         egress = self.wire_bytes(cfg)
         keys, keys_t = self._wire_key_names(""), self._wire_key_names("_t")
+        t_stream = PAD_STREAM + TRACKER_STREAM_OFFSET
 
         def ingest(state: FLState):
             if state.comm is None or keys[0] not in state.comm:
@@ -2262,15 +2645,17 @@ class ShardedFusedEngine(GossipEngine):
                     "pipelined rounds need init_fl_state(..., engine=...) "
                     "with the pipelined engine (in-flight wire buffers)"
                 )
-            stale = {"mix": self._wire_mix(self._ring_slot0(state.comm, keys))}
+            priv = self._priv(state.comm)
+            stale = {"mix": self._wire_mix(self._ring_slot0(state.comm, keys), priv)}
             if cfg.algorithm == "dsgt":
-                stale["mix_t"] = self._wire_mix(self._ring_slot0(state.comm, keys_t))
+                stale["mix_t"] = self._wire_mix(self._ring_slot0(state.comm, keys_t), priv,
+                                                t_stream)
             return stale
 
         def comm_step(state: FLState, batch, stale):
             new_state, m, wire, wire_t = self._comm_body(
                 eval_grads, schedule, cfg, state, batch,
-                lambda wire, wire_t: (stale["mix"], stale.get("mix_t")))
+                lambda wire, wire_t, comm: (stale["mix"], stale.get("mix_t")))
             comm = dict(new_state.comm)
             self._push_wire(state.comm, comm, keys, wire)
             if wire_t is not None:
@@ -2279,6 +2664,13 @@ class ShardedFusedEngine(GossipEngine):
             return new_state, self._metrics(*m, new_state, egress)
 
         return ingest, comm_step
+
+    def pack_state(self, stacked_params) -> torch.Tensor:
+        """This rank's block (rows, and its tile) of the node-stacked
+        params packed into the engine's layout, on the group's device:
+        the state ``init_fl_state`` takes."""
+        flat = pack_like(stacked_params, self.layout)
+        return self.local_block(flat).to(self.device).contiguous()
 
     @classmethod
     def simulated(cls, w, stacked_params, **_ignored):
@@ -2291,13 +2683,21 @@ class ShardedFusedEngine(GossipEngine):
     def from_group(cls, group: NodeGroup, stacked_params, *, scale_chunk: int = 512,
                    **kw) -> Tuple["ShardedFusedEngine", torch.Tensor]:
         """Pack the node-stacked params (all n nodes, padded to
-        ``scale_chunk``, stored in ``storage_dtype``, fp32 by default) and
-        build the engine for this rank of ``group``. Returns (engine, this
-        rank's rows of the flat buffer on the group's device) -- the state
-        ``init_fl_state`` takes."""
+        ``scale_chunk`` times the group's model shards, stored in
+        ``storage_dtype``, fp32 by default) and build the engine for this
+        rank of ``group``: the circulant torus over the group's node axes
+        unless ``w=`` names a dense W (``self_weight``, ``axes_subset``
+        shape the torus), the two-axis layout with ``model_axis``.
+        Returns (engine, this rank's block of the flat buffer on the
+        group's device) -- the state ``init_fl_state`` takes.
+
+        The single-process counterparts over the same node torus:
+        ``FusedEngine.from_node_axes`` (the torus's dense equivalent, the
+        oracle) and ``TreeEngine.from_group`` / ``FlatEngine.from_group``
+        (the exact wire through ``core.mixing``'s mesh backends)."""
         storage_dtype = kw.pop("storage_dtype", None)
         flat, layout = pack(stacked_params, pad_to=scale_chunk,
-                            buffer_dtype=storage_dtype or torch.float32)
+                            buffer_dtype=storage_dtype or torch.float32,
+                            shards=group.model_shards)
         engine = cls(group, layout, scale_chunk=scale_chunk, **kw)
-        rows = flat[engine.rows.start:engine.rows.stop]
-        return engine, rows.to(group.device).contiguous()
+        return engine, engine.local_block(flat).to(group.device).contiguous()

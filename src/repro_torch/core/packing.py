@@ -23,6 +23,13 @@ scales; a top-k payload is accounted in its compact encoding (k int8
 values, the cheaper of k positions or a chunk/8-byte presence bitmap,
 and the scale, per chunk). A federation scope's wire
 (:func:`scoped_layout`) is accounted the same way at its own width.
+
+Two-axis layouts: ``pack(..., shards=S)`` pads ``total`` to a multiple of
+``pad_to * S`` so the buffer splits into S equal column tiles
+(``FlatLayout.shard_width`` columns each), every tile a whole number of
+kernel chunks; the sharded engine's rank ``(a, s)`` holds tile ``s`` of
+its rows, and :func:`flat_wire_bytes_per_shard` accounts one tile's
+payload, ``flat_wire_bytes / S``.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ __all__ = [
     "bitmap_bytes_per_chunk",
     "compact_index_bytes",
     "flat_wire_bytes",
+    "flat_wire_bytes_per_shard",
     "scoped_layout",
 ]
 
@@ -82,6 +90,20 @@ class FlatLayout:
     #: the dtype the buffer is stored in: "float32" (lossless for fp32,
     #: bf16 and fp16 leaves) or "bfloat16" (bf16 flat storage)
     storage_dtype: str = "float32"
+    #: how many equal column tiles the buffer splits into on the two-axis
+    #: (node, model_shard) layout: shard s owns columns ``[s *
+    #: shard_width, (s + 1) * shard_width)``; 1 is the single-axis layout
+    shards: int = 1
+
+    def __post_init__(self):
+        if self.shards < 1:
+            raise ValueError(f"shards={self.shards} must be >= 1")
+        if self.total % self.shards:
+            raise ValueError(
+                f"layout.total {self.total} not divisible by "
+                f"shards={self.shards}; pack with pad_to and shards "
+                "together so each shard is a whole tile"
+            )
 
     @property
     def used(self) -> int:
@@ -90,6 +112,17 @@ class FlatLayout:
     @property
     def n_leaves(self) -> int:
         return len(self.leaves)
+
+    @property
+    def shard_width(self) -> int:
+        """Columns each model shard owns (``total / shards``)."""
+        return self.total // self.shards
+
+    def with_shards(self, shards: int) -> "FlatLayout":
+        """The same layout re-tiled over ``shards`` model shards (the
+        padded ``total`` must already divide evenly: pack with
+        ``shards=`` to get the padding up front)."""
+        return dataclasses.replace(self, shards=int(shards))
 
 
 def tree_leaves(tree: Tree, prefix: Path = ()) -> List[Tuple[Path, torch.Tensor]]:
@@ -135,9 +168,11 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 def pack_layout(tree: Tree, pad_to: int = 1,
-                storage_dtype=torch.float32) -> FlatLayout:
+                storage_dtype=torch.float32, shards: int = 1) -> FlatLayout:
     """The layout of ``tree`` without materializing the buffer, stored in
-    ``storage_dtype``."""
+    ``storage_dtype``. ``shards > 1`` pads ``total`` to a multiple of
+    ``pad_to * shards``, so every model shard is a whole number of
+    kernel chunks."""
     items = tree_leaves(tree)
     if not items:
         raise ValueError("cannot pack an empty tree")
@@ -152,10 +187,11 @@ def pack_layout(tree: Tree, pad_to: int = 1,
             )
         specs.append(LeafSpec(off, tuple(leaf.shape[1:]), _dtype_name(leaf.dtype)))
         off += specs[-1].size
-    unit = max(int(pad_to), 1)
+    shards = max(int(shards), 1)
+    unit = max(int(pad_to), 1) * shards
     total = ((off + unit - 1) // unit) * unit
     return FlatLayout(tuple(p for p, _ in items), tuple(specs), n_nodes, total,
-                      _dtype_name(as_dtype(storage_dtype)))
+                      _dtype_name(as_dtype(storage_dtype)), shards)
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -177,13 +213,13 @@ def _pack_into(items, layout: FlatLayout, dtype: torch.dtype) -> torch.Tensor:
     return torch.cat(cols, dim=1).contiguous()
 
 
-def pack(tree: Tree, pad_to: int = 1,
-         buffer_dtype=torch.float32) -> Tuple[torch.Tensor, FlatLayout]:
+def pack(tree: Tree, pad_to: int = 1, buffer_dtype=torch.float32,
+         shards: int = 1) -> Tuple[torch.Tensor, FlatLayout]:
     """Pack a node-stacked tree into one ``(nodes, total)`` buffer of
     ``buffer_dtype`` (recorded as ``layout.storage_dtype``; bf16 rounds
-    fp32 leaves), zero-padded to a multiple of ``pad_to``. Returns
-    (flat, layout)."""
-    layout = pack_layout(tree, pad_to, storage_dtype=buffer_dtype)
+    fp32 leaves), zero-padded to a multiple of ``pad_to * shards``.
+    Returns (flat, layout)."""
+    layout = pack_layout(tree, pad_to, storage_dtype=buffer_dtype, shards=shards)
     return _pack_into(tree_leaves(tree), layout, as_dtype(buffer_dtype)), layout
 
 
@@ -265,22 +301,30 @@ def flat_wire_bytes(layout: FlatLayout, degree: int, scale_chunk: int = 0,
 
 def scoped_layout(layout: FlatLayout, ranges, scale_chunk: int
                   ) -> Tuple[FlatLayout, Tuple[Tuple[int, int], ...]]:
-    """The wire layout and column ranges of a SCOPED wire.
+    """The wire layout and shard-local column ranges of a SCOPED wire.
 
     A federation scope (``core.scope``) restricts gossip to the merged,
     disjoint global column ``ranges`` of ``layout``. The fused engines
-    gather those columns into one contiguous buffer, run the unchanged
-    wire stage on it and scatter the mixed result back, so the wire
-    state (recon, residual, in-flight rings), the scales, the
-    collectives and the byte accounting all live at the scoped width.
+    gather those columns into one contiguous buffer (per shard tile on
+    the two-axis layout), run the unchanged wire stage on it and scatter
+    the mixed result back, so the wire state (recon, residual, in-flight
+    rings), the scales, the collectives and the byte accounting all live
+    at the scoped width.
 
-    Returns ``(wire_layout, ranges)``: a one-leaf layout whose ``total``
-    is the shared width padded to a ``scale_chunk`` multiple and whose
-    ``used`` is the shared width, so :func:`flat_wire_bytes` on it IS the
-    scoped wire's accounting; and the validated ranges. The port's
-    layouts are single-shard (the model axis is not ported), so the
-    ranges need no per-shard uniformity check. The wire layout keeps the
-    layout's ``storage_dtype``."""
+    Returns ``(wire_layout, local_ranges)``:
+
+    * ``local_ranges`` -- the ranges intersected with one shard tile, in
+      shard-local coordinates. They must come out IDENTICAL for every
+      shard (each shard's wire slice must have the same width and chunk
+      geometry); a scope whose ranges straddle the tiles unevenly is
+      refused with the shards' widths named. At one shard they are the
+      ranges themselves.
+    * ``wire_layout`` -- a one-leaf layout whose ``total`` is the
+      chunk-padded per-shard scoped width times the shards (shards
+      kept) and whose ``used`` is the shared column count, so
+      :func:`flat_wire_bytes` / :func:`flat_wire_bytes_per_shard` on it
+      ARE the scoped wire's accounting. It keeps the layout's
+      ``storage_dtype``."""
     ranges = tuple((int(a), int(b)) for a, b in ranges)
     pos = 0
     for a, b in ranges:
@@ -290,14 +334,54 @@ def scoped_layout(layout: FlatLayout, ranges, scale_chunk: int
                 f"non-empty, within [0, {layout.total})"
             )
         pos = b
-    shared = sum(b - a for a, b in ranges)
+    s = layout.shards
+    w = layout.shard_width
+    per_shard = []
+    for i in range(s):
+        lo, hi = i * w, (i + 1) * w
+        per_shard.append(tuple((max(a, lo) - lo, min(b, hi) - lo)
+                               for a, b in ranges if a < hi and b > lo))
+    if any(local != per_shard[0] for local in per_shard):
+        widths = [sum(b - a for a, b in local) for local in per_shard]
+        raise ValueError(
+            f"scoped ranges are not uniform across the {s} model shards "
+            f"(per-shard shared widths {widths}); every shard tile must "
+            "carry the same scoped slice -- align the scope's ranges "
+            f"with the shard tiles (shard_width={w}) or run single-axis"
+        )
+    local_ranges = per_shard[0]
+    shared = sum(b - a for a, b in local_ranges)
     if shared == 0:
         raise ValueError(
             f"scoped ranges {ranges!r} share no columns; a scope must "
             "leave something on the wire"
         )
     unit = max(int(scale_chunk), 1)
-    wire = FlatLayout(paths=((),), leaves=(LeafSpec(0, (shared,), "float32"),),
-                      n_nodes=layout.n_nodes, total=-(-shared // unit) * unit,
-                      storage_dtype=layout.storage_dtype)
-    return wire, ranges
+    wire = FlatLayout(paths=((),), leaves=(LeafSpec(0, (shared * s,), "float32"),),
+                      n_nodes=layout.n_nodes, total=-(-shared // unit) * unit * s,
+                      storage_dtype=layout.storage_dtype, shards=s)
+    return wire, local_ranges
+
+
+def flat_wire_bytes_per_shard(layout: FlatLayout, degree: int, scale_chunk: int = 0,
+                              topk: int | None = None) -> int:
+    """Per-(node, shard) egress bytes a round on the two-axis layout: each
+    model shard ships its own chunk-aligned slice of the wire, so this
+    is exactly ``flat_wire_bytes / shards``. Needs the shard-aligned
+    padding ``pack(..., shards=)`` gives (``total % (scale_chunk *
+    shards) == 0``)."""
+    s = layout.shards
+    if s <= 1:
+        return flat_wire_bytes(layout, degree, scale_chunk, topk)
+    if scale_chunk > 0 and layout.shard_width % scale_chunk:
+        raise ValueError(
+            f"shard width {layout.shard_width} not a multiple of "
+            f"scale_chunk {scale_chunk}; pack with pad_to={scale_chunk}, "
+            f"shards={s}"
+        )
+    n_scales = 1 if scale_chunk <= 0 else layout.shard_width // scale_chunk
+    if topk is None or scale_chunk <= 0 or topk >= scale_chunk:
+        return degree * (layout.shard_width + 4 * n_scales)
+    per_chunk = min(topk + compact_index_bytes(scale_chunk, topk) + 4,
+                    scale_chunk + 4)
+    return degree * (n_scales * per_chunk)

@@ -12,7 +12,7 @@ looks like noise, and what the mix consumes is bit-identical to the
 unmasked round (mask then unmask is the identity in Z_2^w). The pads are
 antisymmetric, ``m_ij = -m_ji (mod 2^w)``, the sign fixed by ``sender <
 receiver``. They take physical effect only on a wire that carries a
-payload per edge (the circulant torus wire, not ported yet); the fused
+payload per edge (``sharded_fused``'s circulant torus wire); the fused
 engine has no per-edge payload, so there ``secure_agg`` is a no-op.
 
 ``dp`` -- per-node L2 clip of the wire payload plus Gaussian noise,

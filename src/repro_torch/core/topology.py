@@ -14,6 +14,10 @@ Erdos--Renyi) plus a 20-node "hospital" graph mimicking the paper's Fig. 1
   default for arbitrary topologies.
 * uniform-neighbor (circulant) weights for ring/torus.
 
+and the coefficients of the circulant ring / torus W that the sharded
+engine's point-to-point wire realizes (:func:`ring_mixing_coeffs`,
+:func:`torus_mixing_coeffs`).
+
 All matrices are plain ``numpy`` float64, and so are the spectral
 checks. This module is a copy of ``repro.core.topology`` (which is numpy
 too), so both packages build bit-identical W for the same topology; the
@@ -40,6 +44,8 @@ __all__ = [
     "mixing_matrix",
     "check_assumption1",
     "spectral_gap",
+    "ring_mixing_coeffs",
+    "torus_mixing_coeffs",
 ]
 
 
@@ -283,3 +289,44 @@ def check_assumption1(
         "lambda2": 1.0 - gap,
         "spectral_gap": gap,
     }
+
+
+# ---------------------------------------------------------------------------
+# Coefficients of the circulant wire (one exchange per torus direction)
+# ---------------------------------------------------------------------------
+
+
+def ring_mixing_coeffs(n: int, self_weight: float | None = None) -> Tuple[float, float, float]:
+    """(w_self, w_prev, w_next) of the circulant ring W realized by two
+    exchanges over a node axis of size n. n == 2 degenerates (prev ==
+    next); the two shares are folded together so W stays doubly
+    stochastic."""
+    if n < 2:
+        return (1.0, 0.0, 0.0)
+    w_self = 1.0 / 3.0 if self_weight is None else float(self_weight)
+    share = (1.0 - w_self) / 2.0
+    return (w_self, share, share)
+
+
+def torus_mixing_coeffs(
+    rows: int, cols: int, self_weight: float | None = None
+) -> Dict[str, float]:
+    """Coefficients of the 2-D-torus W realized by 4 exchanges over two
+    node axes (``pod``, ``data``). Degenerate dims (size 2) fold their
+    two directions."""
+    dirs: Dict[str, float] = {}
+    n_dirs = (1 if rows == 2 else 2 if rows > 2 else 0) + (1 if cols == 2 else 2 if cols > 2 else 0)
+    if n_dirs == 0:
+        return {"self": 1.0}
+    w_self = 1.0 / (n_dirs + 1) if self_weight is None else float(self_weight)
+    share = (1.0 - w_self) / n_dirs
+    dirs["self"] = w_self
+    if rows == 2:
+        dirs["row+"] = share
+    elif rows > 2:
+        dirs["row+"] = dirs["row-"] = share
+    if cols == 2:
+        dirs["col+"] = share
+    elif cols > 2:
+        dirs["col+"] = dirs["col-"] = share
+    return dirs

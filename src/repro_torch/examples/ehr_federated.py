@@ -207,14 +207,19 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
                        class_weight=CLASS_WEIGHT, fl_schedule="sequential",
                        topk=None, topology_program=None, node_program=None,
                        privacy=None, scope=None, init_params: Optional[Dict] = None,
-                       log: bool = True, storage_dtype=None) -> Dict:
+                       log: bool = True, storage_dtype=None, w="hospital20",
+                       axes_subset=None) -> Dict:
     """Part 2's configuration on the ``sharded_fused`` engine, for this
     rank of ``group`` (every rank of the group calls it with the same
     arguments). ``topk`` ships the compact exact-k wire where it is
     smaller than the dense int8 chunk; ``topology_program`` /
     ``node_program`` / ``privacy`` / ``scope`` are the engine's round
     axes, as :func:`run_fused_engine` takes them (``layerwise`` refused),
-    and so is ``storage_dtype``. Returns the per-round ``losses``
+    and so is ``storage_dtype``. ``w`` is the hospital graph's W on the
+    all-gather wire by default; ``w=None`` runs the circulant torus over
+    the group's node axes (e.g. ``{"pod": 4, "data": 5}``; directions
+    restricted to ``axes_subset``), where ``secure_agg`` masks every
+    per-edge payload. Returns the per-round ``losses``
     and last ``metrics`` (over all 20 hospitals), ``wire_bytes`` of the
     last round, the ``engine`` and the final ``state`` (this rank's
     rows)."""
@@ -225,8 +230,10 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
     single = mlp_init(seed, device=group.device) if init_params is None else tree_map(
         lambda p: torch.as_tensor(p, device=group.device), init_params)
     cfg = FLConfig(algorithm=algorithm, q=q, n_nodes=n)
+    if isinstance(w, str):
+        w = mixing_matrix(w, n)
     engine, rows = ShardedFusedEngine.from_group(
-        group, stack_for_nodes(single, n), w=mixing_matrix("hospital20", n),
+        group, stack_for_nodes(single, n), w=w, axes_subset=axes_subset,
         scale_chunk=scale_chunk, topk=topk, round_schedule=fl_schedule,
         topology_program=topology_program, node_program=node_program, privacy=privacy,
         scope=scope, storage_dtype=storage_dtype)
@@ -237,7 +244,10 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
     if log:
         print(f"\nsharded fused engine ({algorithm.upper()}, Q={q}, "
               f"schedule={engine.round_schedule.spec()}, {group.world} rank(s) x "
-              f"{len(engine.rows)} hospitals, {engine.wire_encoding} wire, topk={topk}, "
+              f"{len(engine.rows)} hospitals, "
+              + (f"torus {dict(group.axes(n))} ({len(engine.dirs)} directions), "
+                 if engine.torus is not None else "")
+              + f"{engine.wire_encoding} wire, topk={topk}, "
               + "".join(f"{axis.spec()}, " for axis, on in (
                   (engine.topology_program, engine.dynamic_topology),
                   (engine.node_program, engine.dynamic_nodes),

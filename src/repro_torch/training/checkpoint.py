@@ -23,11 +23,15 @@ neighbor accumulators, which a fused checkpoint never had). Wire state
 is never dropped silently, and a template with more comm buffers than
 the checkpoint saved needs ``engine=``.
 
-On ``sharded_fused`` each rank holds its node rows: a save gathers the
-rows of every row-split buffer and rank 0 writes the files (every rank
-calls it), and a load slices the rank's rows out before
+On ``sharded_fused`` each rank holds its node rows (and, on the two-axis
+layout, its column tile): a save gathers the row blocks and tiles of
+every row-split buffer and rank 0 writes the files (every rank calls
+it), and a load slices the rank's block out (``local_block``) before
 ``restore_comm``. So a fused checkpoint restores onto the sharded engine
-and back.
+and back, and a two-axis checkpoint at one shard restores on the
+single-axis engine; the manifest records the node axes, the model axis,
+``model_shards`` and the world, and a ``model_shards`` mismatch is
+refused with the reference's migration hint.
 """
 
 from __future__ import annotations
@@ -76,10 +80,21 @@ def engine_manifest(engine: GossipEngine) -> dict:
                 "scope": engine.scope.spec()}
     group = getattr(engine, "group", None)
     if group is not None:
-        # node rows over the ranks; no model axis is ported, so one shard
-        manifest["mesh"] = {"axis_names": ["nodes"], "shape": [int(group.world)],
-                            "node_axes": ["nodes"], "model_axis": None,
-                            "model_shards": 1, "layout_shards": 1}
+        # the node torus and the model axis (the reference's mesh record:
+        # a two-axis engine pads the layout per shard, so buffers written
+        # under one shard count do not fit another), and the world
+        axes = group.axes(engine.n_nodes)
+        m_axis = getattr(engine, "model_axis", None)
+        shards = int(getattr(engine, "model_shards", 1))
+        layout = getattr(engine, "layout", None)
+        names, shape = list(axes), [int(v) for v in axes.values()]
+        if m_axis is not None:
+            names, shape = names + [str(m_axis)], shape + [shards]
+        manifest["mesh"] = {"axis_names": names, "shape": shape,
+                            "node_axes": list(axes), "model_axis": m_axis,
+                            "model_shards": shards,
+                            "layout_shards": int(getattr(layout, "shards", 1)),
+                            "world": int(group.world)}
     return manifest
 
 
@@ -335,7 +350,7 @@ def load_fl_state(path: str, template: FLState,
             "the restore template has none; build the template with the "
             "matching engine (init_fl_state(..., engine=...))"
         )
-    rows = getattr(engine, "rows", None) if hasattr(engine, "gather_rows") else None
+    local = getattr(engine, "local_block", None)
     counters = _counter_keys(engine)
     saved_dtypes = manifest.get("dtypes") or {}
 
@@ -349,8 +364,8 @@ def load_fl_state(path: str, template: FLState,
             if key not in data:
                 raise KeyError(f"checkpoint missing {key}")
             arr = data[key]
-            if rows is not None and _row_split(name, _key(path), counters):
-                arr = arr[rows.start:rows.stop]
+            if local is not None and _row_split(name, _key(path), counters):
+                arr = local(arr)
             if arr.shape != tuple(t.shape):
                 raise ValueError(f"{key}: shape {arr.shape} != template {tuple(t.shape)}")
             out.append(_restored(key, arr, t, saved_dtypes.get(key)).to(t.device))

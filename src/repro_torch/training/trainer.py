@@ -152,8 +152,8 @@ def train_decentralized(
     eval_every: int = 50,
     log_every: int = 0,
     wire_dtype=None,
-    engine: str = "tree",
-    scale_chunk: int = 512,
+    engine="tree",
+    scale_chunk: Optional[int] = None,
     topk: Optional[int] = None,
     round_schedule: Optional[str] = None,
     storage_dtype=None,
@@ -175,7 +175,10 @@ def train_decentralized(
     numpy batches; the driver groups Q of them per round (paper: Q local
     updates, then one communication). ``engine`` is a registry name
     (``tree``, ``flat`` or ``fused``), built with its ``simulated``
-    constructor against the run topology's W; the flat and fused engines
+    constructor against the run topology's W, or a prebuilt engine (the
+    reference's prebuilt path: ``sharded_fused`` built on a group, or a
+    ``fused`` engine on another W), which trains on its own W and from
+    its ``pack_state`` of the params, and refuses every build knob; the flat and fused engines
     pack the state, and the tree view comes back through
     ``engine.params_view``. ``wire_dtype`` (default ``run.wire_dtype``)
     rounds the exact-wire engines' payload, e.g. to bfloat16; the fused
@@ -229,8 +232,9 @@ def train_decentralized(
     sparse and densified, built once and switched per round over ONE
     state; the history then gains ``topk`` and ``ef_residual_rms``.
     """
-    dev = resolve_device(device)
-    w = mixing_matrix(run.topology, run.n_nodes)
+    prebuilt = isinstance(engine, GossipEngine)
+    dev = engine.device if prebuilt else resolve_device(device)
+    w = engine.dense_equivalent() if prebuilt else mixing_matrix(run.topology, run.n_nodes)
     check_assumption1(w)
     if staleness_depth is not None:
         if round_schedule is not None:
@@ -241,22 +245,36 @@ def train_decentralized(
             )
         k = int(staleness_depth)
         round_schedule = "sequential" if k == 0 else f"bounded_staleness:k={k}"
-    if topk_schedule is not None:
-        if topk is not None:
-            raise ValueError("pass either topk or topk_schedule, not both")
-        topk = int(topk_schedule[0])  # start on the sparse wire
     cfg = FLConfig(algorithm=run.algorithm, q=run.q, n_nodes=run.n_nodes)
     params = tree_map(lambda p: torch.as_tensor(p, device=dev), params_single)
     stacked = params if _is_stacked(params, run.n_nodes) else stack_for_nodes(
         params, run.n_nodes)
-    if wire_dtype is None:
-        wire_dtype = run.wire_dtype
-    build = get_engine(engine).simulated
-    kw = dict(wire_dtype=wire_dtype, scale_chunk=scale_chunk,
-              round_schedule=round_schedule, storage_dtype=storage_dtype,
-              topology_program=topology_program, node_program=node_program,
-              privacy=privacy, scope=scope)
-    engine, params0 = build(w, stacked, topk=topk, **kw)
+    if prebuilt:
+        knobs = {"wire_dtype": wire_dtype, "scale_chunk": scale_chunk, "topk": topk,
+                 "round_schedule": round_schedule, "storage_dtype": storage_dtype,
+                 "topk_schedule": topk_schedule, "topology_program": topology_program,
+                 "node_program": node_program, "privacy": privacy, "scope": scope}
+        set_knobs = sorted(k for k, v in knobs.items() if v is not None)
+        if set_knobs:
+            raise ValueError(
+                f"{set_knobs} configure an engine BUILD; the prebuilt "
+                f"{engine.name!r} engine already fixed its wire -- pass a "
+                "registry name instead, or bake the knobs into the engine"
+            )
+        params0 = engine.pack_state(stacked)
+    else:
+        if topk_schedule is not None:
+            if topk is not None:
+                raise ValueError("pass either topk or topk_schedule, not both")
+            topk = int(topk_schedule[0])  # start on the sparse wire
+        if wire_dtype is None:
+            wire_dtype = run.wire_dtype
+        build = get_engine(engine).simulated
+        kw = dict(wire_dtype=wire_dtype, scale_chunk=512 if scale_chunk is None else scale_chunk,
+                  round_schedule=round_schedule, storage_dtype=storage_dtype,
+                  topology_program=topology_program, node_program=node_program,
+                  privacy=privacy, scope=scope)
+        engine, params0 = build(w, stacked, topk=topk, **kw)
     schedule = make_schedule(run)
     if robust_alpha:
         uptime = (engine.topology_program.expected_uptime()
@@ -276,7 +294,7 @@ def train_decentralized(
     fallback_bytes = engine.wire_bytes(cfg)
     if fallback_bytes is None:
         fallback_bytes = comm_bytes_per_gossip(params, run.topology, run.n_nodes,
-                                               wire_dtype=wire_dtype)
+                                               wire_dtype=wire_dtype or run.wire_dtype)
     history = MetricHistory()
     t0 = time.time()
     cum_bytes = 0.0

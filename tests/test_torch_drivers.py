@@ -13,8 +13,9 @@ against the reference's ``benchmarks/`` on the CPU.
   top-k payload are exempt), and ``--device cpu`` writes null kernel and
   library columns.
 * ``run.py --smoke`` on the CPU writes every table's JSON and the CSV; the
-  roofline row writes nothing; ``thm1_speedup --two-axis`` is refused
-  naming item 15.
+  roofline row writes nothing; ``thm1_speedup --two-axis --smoke`` runs
+  the two-axis table on gloo ranks (each cell's per-shard bytes x shards
+  == its wire bytes).
 """
 
 import json
@@ -184,9 +185,19 @@ def test_run_smoke_writes_the_tables(tmp_path, capsys):
     assert "item 18" in out
 
 
-def test_refusals(capsys):
-    with pytest.raises(SystemExit):
-        thm1_speedup.main(["--two-axis", "--device", "cpu"])
-    assert "item 15" in capsys.readouterr().err
+def test_refusals(capsys, tmp_path):
+    """``--two-axis`` was refused until the two-axis layout was ported
+    (ROADMAP.md item 15); it now runs the table on gloo ranks. An unknown
+    table is still refused."""
+    out = tmp_path / "thm1.json"
+    res = thm1_speedup.main(["--two-axis", "--smoke", "--t-steps", "20", "--seeds", "1",
+                             "--device", "cpu", "--out", str(out)])
+    row = json.loads(out.read_text())["two_axis"]
+    assert row == res["two_axis"]
+    for nodes, shards in ((8, 1), (4, 2), (2, 4)):
+        tag = f"n{nodes}_s{shards}"
+        assert row[f"wire_bytes_per_shard_{tag}"] * shards == row[f"wire_bytes_per_round_{tag}"]
+        assert row[f"us_{tag}"] > 0
+    assert "Two-axis round time" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         run_all.main(["--skip", "nope", "--device", "cpu"])

@@ -433,15 +433,36 @@ def test_comm_state_has_the_references_keys(group):
 ])
 def test_refusals_name_their_item(group, kw, item):
     """What is still not ported raises ``NotImplementedError`` naming its
-    item (the circulant wire also under a topology program); ``secure_agg``
-    raises the reference's ``ValueError``: its pads need the circulant
-    wire; so does the layerwise scope, whose gated mix needs the dense
-    in-kernel W. The topology and node programs, ``slow_uplink``, dp and
-    the sub-range scopes build (``tests/test_torch_sharded_dynamic.py``,
-    ``tests/test_torch_privacy.py``, ``tests/test_torch_scope.py``)."""
+    item; ``secure_agg`` on the all-gather wire raises the reference's
+    ``ValueError``: its pads need the circulant wire; so does the
+    layerwise scope, whose gated mix needs the dense in-kernel W. The
+    three ``item 15`` cases -- the circulant wire (``w=None``, also under
+    a topology program) and ``model_axis`` -- are ported now and BUILD:
+    the ring over the group's one node axis (``dense_equivalent`` the
+    reference's ``mesh_gossip_dense_equivalent``, one direction table
+    each way) and the two-axis layout at this one-rank group's one
+    shard. The topology and node programs, ``slow_uplink``, dp and the
+    sub-range scopes build (``tests/test_torch_sharded_dynamic.py``,
+    ``tests/test_torch_privacy.py``, ``tests/test_torch_scope.py``), and
+    the torus and two-axis rounds run in ``tests/test_torch_torus_wire.py``
+    and ``tests/test_torch_two_axis.py``."""
     params = {"p": torch.zeros(N, 30), "q": torch.zeros(N, 10)}
     args = dict(w=_er(), scale_chunk=CHUNK)
     args.update(kw)
+    if item == "item 15":
+        from repro_torch.core.mixing import mesh_gossip_dense_equivalent
+
+        eng, rows = ShardedFusedEngine.from_group(group, params, **args)
+        assert tuple(rows.shape) == (N, eng.layout.shard_width)
+        if "model_axis" in kw:
+            assert eng.model_axis == "model" and eng.model_shards == 1
+            assert eng.torus is None and eng.layout.shards == 1
+        else:
+            assert eng.node_axes == ("nodes",) and len(eng.dirs) == 2
+            np.testing.assert_array_equal(eng.dense_equivalent(),
+                                          mesh_gossip_dense_equivalent({"nodes": N}))
+            assert eng.dynamic_topology == ("topology_program" in kw)
+        return
     exc = (ValueError if {"privacy", "scope", "storage_dtype"} & set(kw)
            else NotImplementedError)
     with pytest.raises(exc, match=item):

@@ -173,9 +173,19 @@ def test_train_100m_smoke_and_refusal(tmp_path):
     assert header == sorted(rows[0]) and len(rows) == 2
     assert {"round", "iteration", "loss", "consensus_err", "comm_bytes"} <= set(header)
     assert (ck / "manifest.json").exists()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train_100m.main(["--fl-engine", "sharded_fused", "--device", "cpu",
-                         "--model-shards", "2"])
+    # --fl-engine sharded_fused was refused until the two-axis layout was
+    # ported (ROADMAP.md item 15): it now trains on 2 gloo ranks (one
+    # node rank x 2 model shards), and rank 0 writes the metrics and a
+    # checkpoint whose manifest records the layout
+    sh_metrics, sh_ck = tmp_path / "sh.csv", tmp_path / "sh_ck"
+    sh = train_100m.main(["--fl-engine", "sharded_fused", "--arch", "smollm-360m", "--smoke",
+                          "--rounds", "2", "--q", "2", "--seq-len", "16", "--nodes", "2",
+                          "--model-shards", "2", "--device", "cpu",
+                          "--metrics", str(sh_metrics), "--ckpt", str(sh_ck)])
+    assert len(sh) == 2 and all(np.isfinite(r["loss"]) for r in sh)
+    mesh = json.loads((sh_ck / "manifest.json").read_text())["mesh"]
+    assert mesh["model_shards"] == 2 and mesh["world"] == 2
+    assert mesh["axis_names"] == ["data", "model"] and mesh["shape"] == [2, 2]
     with pytest.raises(SystemExit):
         train_100m.main(["--smoke", "--device", "cpu"])
 
