@@ -196,6 +196,8 @@ from repro_torch.examples.ehr_federated import (  # noqa: E402
     run_sharded_engine,
 )
 from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.op_analysis import op_analysis  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     combine_partials,
     decode_attention,
@@ -435,6 +437,24 @@ def section(msg: str) -> None:
     """A phase's or path's heading, with the seconds since the script
     started (the run must end inside its time limit, the build included)."""
     log(f"{msg} [{time.perf_counter() - _START:.1f} s]")
+
+
+_PHASES: list = []
+
+
+def phase(title) -> None:
+    """A phase's heading (:func:`section`), after the previous phase's
+    seconds; ``phase(None)`` closes the last one and prints every
+    phase's seconds."""
+    now = time.perf_counter()
+    if _PHASES:
+        _PHASES[-1][2] = now - _PHASES[-1][1]
+        log(f"  ({_PHASES[-1][0]}: {_PHASES[-1][2]:.1f} s)")
+    if title is None:
+        log("phase seconds: " + json.dumps({p[0]: round(p[2], 1) for p in _PHASES}))
+        return
+    _PHASES.append([title.split(":")[0], now, None])
+    section(title)
 
 
 def card_line() -> str:
@@ -2740,71 +2760,65 @@ def round_profile(card: str, schedule=None, engine: str = "fused", q: int = 10,
             **profile_device(run, profiled, label, "round", r_ms, card)}
 
 
-def profile_device(run, n: int, label: str, unit: str, host_ms: float, card: str) -> dict:
-    """``torch.profiler`` over ``run()``, which does ``n`` units of work:
-    the device's operations and busy time per unit (the union of its
-    intervals), their share of ``host_ms`` (the unprofiled host-clock time
-    of one unit), and the host's costliest operations."""
+def profile_device(run, n: int, label: str, unit: str, host_ms: float, card: str,
+                   tables: bool = True) -> dict:
+    """``torch.profiler`` over ``run()``, which does ``n`` units of work,
+    read from the raw trace (the profiler's event tree is never built: it
+    cost ~33 s at a training round's ~38,000 device operations): the
+    device's operations and busy time per unit (the union of its
+    intervals) and their share of ``host_ms`` (the unprofiled host-clock
+    time of one unit); with ``tables``, the host's costliest operations
+    by self time (each thread's intervals nested on a stack) and the
+    device's by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
+    dev, host = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            dev.append((e.start_ns(), e.duration_ns(), e.name()))
+        elif tables:
+            host.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.duration_ns(), e.name()))
+    if not dev:
         log("  profiler: no device activity recorded; device busy time not measured")
         return {}
-    busy, reach = 0.0, -math.inf  # union of the device intervals, in us
-    for start, end in spans:
-        busy += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-    busy_ms = busy / n / 1e3
-    log(f"  profiler over {n} {label} {unit}s: {len(spans) / n:.0f} device "
-        f"operations and {busy_ms * 1e3:.1f} us of device busy time per {unit}, "
-        f"{busy_ms / host_ms:.2%} of the unprofiled {unit} time [{card}]")
-    top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
-                 reverse=True)[:8]
-    log(f"  host ops by self time per {unit}: " + ", ".join(
-        f"{e.key} {e.self_cpu_time_total / n:.0f} us x{e.count / n:.0f}" for e in top))
-
-    def device_us(e) -> float:
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    on_card = sorted((e for e in prof.key_averages() if device_us(e) > 0), key=device_us,
-                     reverse=True)[:6]
-    log(f"  device time by op per {unit}: " + ", ".join(
-        f"{e.key[:48]} {device_us(e) / n:.0f} us x{e.count / n:.0f}" for e in on_card))
-    return {"device_ops": len(spans) / n, "busy_ms": busy_ms}
-
-
-def busy_share(run, n: int, label: str, unit: str, host_ms: float, card: str) -> dict:
-    """``torch.profiler`` over ``run()`` (``n`` units of work): the device's
-    operations and busy time per unit (the union of its intervals) and
-    their share of ``host_ms``, read from the raw trace -- without
-    building the event tree, which costs tens of seconds at a training
-    round's ~38,000 device operations, and so without
-    :func:`profile_device`'s per-op tables."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        log("  profiler: no device activity recorded; device busy time not measured")
-        return {}
+    dev.sort()
     busy, reach = 0, -1  # union of the device intervals, in ns
-    for start, end in spans:
-        busy += max(0, end - max(start, reach))
-        reach = max(reach, end)
+    for start, dur, _ in dev:
+        busy += max(0, start + dur - max(start, reach))
+        reach = max(reach, start + dur)
     busy_ms = busy / n / 1e6
-    log(f"  profiler over {n} {label} {unit}s: {len(spans) / n:.0f} device "
+    log(f"  profiler over {n} {label} {unit}s: {len(dev) / n:.0f} device "
         f"operations and {busy_ms * 1e3:.1f} us of device busy time per {unit}, "
         f"{busy_ms / host_ms:.2%} of the unprofiled {unit} time [{card}]")
-    return {"device_ops": len(spans) / n, "busy_ms": busy_ms}
+    if tables:
+        own: dict = {}
+        for evs in host.values():
+            evs.sort(key=lambda x: (x[0], -x[1]))
+            selfs, stack = [d for _, d, _ in evs], []
+            for k, (start, dur, _) in enumerate(evs):
+                while stack and stack[-1][0] <= start:
+                    stack.pop()
+                if stack:  # the innermost open interval is the parent
+                    selfs[stack[-1][1]] -= dur
+                stack.append((start + dur, k))
+            for (_, _, name), t in zip(evs, selfs):
+                row = own.setdefault(name, [0, 0])
+                row[0], row[1] = row[0] + t, row[1] + 1
+        top = sorted(own.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
+        log(f"  host ops by self time per {unit}: " + ", ".join(
+            f"{name} {t / n / 1e3:.0f} us x{c / n:.0f}" for name, (t, c) in top))
+        by_kernel: dict = {}
+        for _, dur, name in dev:
+            row = by_kernel.setdefault(name, [0, 0])
+            row[0], row[1] = row[0] + dur, row[1] + 1
+        on_card = sorted(by_kernel.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
+        log(f"  device time by op per {unit}: " + ", ".join(
+            f"{name[:48]} {t / n / 1e3:.0f} us x{c / n:.0f}" for name, (t, c) in on_card))
+    return {"device_ops": len(dev) / n, "busy_ms": busy_ms}
 
 
 def timings(card: str, floor_ms: float) -> dict:
@@ -4034,17 +4048,31 @@ def lm_torus_path(card: str) -> dict:
         fl = FLConfig(algorithm="dsgt", q=TRAIN_Q, n_nodes=nodes)
         round_fn = make_fl_round(build_model(cfg).loss_fn, inv_sqrt(TRAIN_ALPHA0), fl, eng)
         batch = next(make_fl_token_batches(cfg.vocab_size, nodes, 1, 128, q=TRAIN_Q, seed=9))
-        state = result.state
+        # the rounds below hold one state at a time (a second would not fit
+        # beside a round's temporaries)
+        state, result.state = result.state, None
 
         def one():
             nonlocal state
             state, _ = round_fn(state, batch)
 
-        prof = busy_share(one, 1, f"SmolLM-360M sharded_fused torus {nodes}-node",
-                          "round", step_ms, card)
+        prof = profile_device(one, 1, f"SmolLM-360M sharded_fused torus {nodes}-node",
+                              "round", step_ms, card, tables=False)
+        # (r2): one more round under op_analysis, which phase 9 holds
+        # against the dry run's prediction for this configuration
+        args = dryrun._bytes(state) + sum(v.nbytes for v in batch.values())
+        gathers = eng.shard_gathers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with op_analysis() as oa:
+            state, _ = round_fn(state, batch)
+        torch.cuda.synchronize()
+        measured = {"costs": oa.costs(), "argument_bytes": args,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "shard_gathers": eng.shard_gathers - gathers}
         return {"peak_gb": peak, "times": times, "round_ms": step_ms,
                 "wire": eng.wire_bytes(fl), "dirs": len(eng.dirs),
-                "messages": eng.collectives, **prof}
+                "messages": eng.collectives, "measured": measured, **prof}
 
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -4078,6 +4106,7 @@ def lm_torus_path(card: str) -> dict:
         f"[{card}]")
     out["counts"] = {"wire_stage_gt": rounds, "fused_round_gt": rounds,
                      "flash_attention": 2 * flash}
+    out["measured"] = info.pop("measured")
     out["row"] = {k: v for k, v in info.items() if k != "times"}
     return out
 
@@ -4103,7 +4132,107 @@ def torus_and_two_axis(card: str) -> dict:
     lm = lm_torus_path(card)
     for name, count in lm["counts"].items():
         launches[name] = launches.get(name, 0) + count
-    return {"launches": launches, "rounds": rows, "lm": lm["row"]}
+    return {"launches": launches, "rounds": rows, "lm": lm["row"], "measured": lm["measured"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the dry run (r1) and its prediction held against the card (r2)
+# ---------------------------------------------------------------------------
+
+# (r1) the reference's committed two-axis records, through the port's dry
+# run on the card's host: train_4k, the single-pod mesh, sharded_fused on
+# the two-axis layout, Q = 2
+DRYRUN_ARCHS = ("tinyllama-1.1b", "dbrx-132b")
+DRYRUN_FLAGS = ["--shape", "train_4k", "--mesh", "single", "--fl-engine", "sharded_fused",
+                "--fl-shard-model", "--q", "2"]
+DRYRUN_FIELDS = ("n_chips", "n_nodes", "model_params", "active_params")
+# how the port's per-rank bytes differ from XLA's, buffer by buffer: the
+# round counter (an int32 device scalar in the reference, a host int in
+# the port); the metrics alpha, comm_rounds and wire_bytes (fp32 device
+# scalars there, host floats here); XLA's output tuple table, 8 bytes a
+# leaf for 18 leaves (step, params, tracker, prev_grad, six comm buffers,
+# eight metrics)
+DRYRUN_ARG_GAP = 4
+DRYRUN_OUT_GAP = 4 + 3 * 4 + 18 * 8
+# (r2) the dry run's prediction for (c2)'s configuration: SmolLM-360M, a
+# ring of 2 nodes on one rank, Q = 2, S 128, batch 1 a node, chunk 256
+PREDICT_FLAGS = ["--arch", TRAIN_ARCH, "--shape", "train_4k", "--fl-engine", "sharded_fused",
+                 "--layout", "2/1/1", "--seq-len", "128", "--global-batch", "2",
+                 "--q", str(TRAIN_Q), "--scale-chunk", "256"]
+
+
+def _dryrun_cli(args: list) -> subprocess.Popen:
+    """``python -m repro_torch.launch.dryrun`` in a process of its own (one
+    fake process group a process), on the host's CPU."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+                            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _dryrun_record(proc: subprocess.Popen, what: str) -> dict:
+    out, err = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: the dry run exited {proc.returncode}: {err[-2000:]}")
+    return json.loads(out)
+
+
+def dryrun_phase(measured: dict) -> None:
+    """(r1) each committed reference record's hardware-independent fields
+    from the port's dry run (which also proves the card's PyTorch has the
+    ``fake`` process-group backend); (r2) the dry run's prediction for
+    (c2)'s round against the round phase 8 ran on the card under
+    ``op_analysis``: argument bytes, FLOPs, collectives by kind,
+    ``shard_gathers`` and each kernel's launches equal; the peak beside
+    ``torch.cuda.max_memory_allocated()``, reported."""
+    t0 = time.perf_counter()
+    procs = {arch: _dryrun_cli(["--arch", arch, *DRYRUN_FLAGS]) for arch in DRYRUN_ARCHS}
+    predict = _dryrun_cli(PREDICT_FLAGS)
+    for arch, proc in procs.items():
+        got = _dryrun_record(proc, f"(r1) {arch}")
+        with open(os.path.join(ROOT, "experiments", "dryrun",
+                               f"{arch}_train_4k_single_sharded_fused_shardmodel_q2.json")) as f:
+            want = json.load(f)
+        bad = [k for k in DRYRUN_FIELDS if got[k] != want[k]]
+        if got["two_axis"] != want["two_axis"]:
+            bad.append("two_axis")
+        gaps = (want["memory"]["argument_bytes"] - got["memory"]["argument_bytes"],
+                want["memory"]["output_bytes"] - got["memory"]["output_bytes"])
+        if gaps != (DRYRUN_ARG_GAP, DRYRUN_OUT_GAP):
+            bad.append(f"memory gaps {gaps}")
+        if bad:
+            raise AssertionError(f"(r1) {arch}: the dry run differs from the reference's "
+                                 f"record in {bad}: {json.dumps(got)[:2000]}")
+        two = got["two_axis"]
+        log(f"  (r1) {arch}: {got['n_chips']} ranks, {got['n_nodes']} nodes, shard width "
+            f"{two['shard_width']:,}, {two['pallas_calls']} wire-stage launch a tile, wire "
+            f"{two['wire_bytes_per_shard_one_edge']:,} B an edge and "
+            f"{two['wire_bytes_per_shard_per_round']:,.0f} B a round a shard on "
+            f"{two['collective_axes']}; argument / output bytes "
+            f"{got['memory']['argument_bytes']:,} / {got['memory']['output_bytes']:,} (the "
+            f"reference's less {DRYRUN_ARG_GAP} / {DRYRUN_OUT_GAP} host-held bytes); "
+            f"{got['flops']:.4e} FLOPs, peak {got['memory']['temp_bytes'] / 1e9:.1f} GB a "
+            f"rank; traced in {got['trace_s']} s -- all equal the committed record")
+    pred = _dryrun_record(predict, "(r2) prediction")
+    costs = measured["costs"]
+    rows = [
+        ("argument bytes", pred["memory"]["argument_bytes"], measured["argument_bytes"]),
+        ("FLOPs", pred["flops"], costs.flops),
+        ("collectives", pred["collectives"]["per_kind"], costs.collectives),
+        ("collective bytes", pred["collectives"]["total_bytes"], costs.collective_bytes),
+        ("shard_gathers", pred["shard_gathers"], measured["shard_gathers"]),
+        ("kernel launches", pred["kernel_calls"], costs.kernel_calls),
+    ]
+    for what, want, got in rows:
+        log(f"  (r2) {what}: predicted {want} measured {got}")
+        if want != got:
+            raise AssertionError(f"(r2) {what}: the dry run predicted {want}, the card's "
+                                 f"round measured {got}")
+    peak = pred["memory"]["argument_bytes"] + pred["memory"]["temp_bytes"]
+    log(f"  (r2) peak: predicted {peak / 1e9:.2f} GB (arguments + the live peak on meta), "
+        f"torch.cuda.max_memory_allocated() over the round {measured['peak_bytes'] / 1e9:.2f} "
+        f"GB, ratio {measured['peak_bytes'] / peak:.3f} (reported, not gated); "
+        f"phase 9 {time.perf_counter() - t0:.1f} s")
 
 
 def ptxas_summary(lib) -> str:
@@ -4172,7 +4301,7 @@ def main() -> int:
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    section("phase 1: build")
+    phase("phase 1: build")
     with ThreadPoolExecutor(max_workers=1) as pool:
         building = pool.submit(timed, kbuild.build_all)
         host = host_references()
@@ -4187,13 +4316,13 @@ def main() -> int:
                 log(f"      {kernel}: {regs} registers, spill stores {spill_st} B, "
                     f"spill loads {spill_ld} B")
 
-    section("phase 2: kernels vs twins on the card")
+    phase("phase 2: kernels vs twins on the card")
     max_err = {**check_gossip_mix(), **check_kernels(), **check_wire_stages(),
                **check_compact_stages(), **check_attention_kernels(),
                **check_scan_kernels()}
     check_dp_epilogue()
 
-    section("phase 3: paths (launches counted per run)")
+    phase("phase 3: paths (launches counted per run)")
     launches = main_path()
     fp32_runs = launches.pop("fp32_runs")
     launches.update(stale_paths(launches.pop("sequential_losses"), fp32_runs))
@@ -4230,7 +4359,7 @@ def main() -> int:
     launches.update(wkv6=recurrent["rwkv6-7b"]["wkv6"],
                     rglru_scan=recurrent["recurrentgemma-2b"]["rglru_scan"])
 
-    section("phase 4: times (CUDA events, median of 60 after warm-up)")
+    phase("phase 4: times (CUDA events, median of 60 after warm-up)")
     floor_ms = kb.launch_floor(card)
     section("  -- round kernels and round profiles")
     rows = timings(card, floor_ms)
@@ -4251,7 +4380,7 @@ def main() -> int:
     for arch in RECURRENT_ARCHS:
         rows[arch] = recurrent_step_profile(card, arch)
 
-    section("phase 5: training the transformer (launches counted per run)")
+    phase("phase 5: training the transformer (launches counted per run)")
     section("  -- (t1) gradients on the card")
     for name, err in check_kernel_grads().items():
         log(f"  {name}: gradient max err {err:.3e} of scale against autograd through "
@@ -4314,7 +4443,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
         })
-    section("phase 6: the model zoo (launches counted per run)")
+    phase("phase 6: the model zoo (launches counted per run)")
     zoo = model_zoo(card)
     for name, count in zoo["counts"].items():
         launches[name] = launches.get(name, 0) + count
@@ -4326,16 +4455,18 @@ def main() -> int:
                                  for (name, label), times in zoo_times.items()
                                  if name == row["name"]]
 
-    section("phase 7: bf16 flat storage and the standalone drivers (launches counted per run)")
+    phase("phase 7: bf16 flat storage and the standalone drivers (launches counted per run)")
     for name, count in bf16_and_drivers(card, host, fp32_runs, rows["rounds"]).items():
         launches[name] = launches.get(name, 0) + count
 
-    section("phase 8: the circulant torus wire and the two-axis layout (launches counted "
+    phase("phase 8: the circulant torus wire and the two-axis layout (launches counted "
             "per run)")
     torus = torus_and_two_axis(card)
     for name, count in torus["launches"].items():
         launches[name] = launches.get(name, 0) + count
-    section("phase 8 done")
+    phase("phase 9: the dry run (r1) and its prediction held against the card (r2)")
+    dryrun_phase(torus["measured"])
+    phase(None)
     for row in kernels:
         row["launches"] = launches[row["name"]]
 

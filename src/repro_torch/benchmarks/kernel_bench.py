@@ -362,9 +362,13 @@ def flash_bytes(b: int, sq: int, sk: int, h: int, kv: int, hd: int) -> int:
     return 2 * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
 
 
-def flash_flops(b: int, sq: int, sk: int, h: int, hd: int, causal: bool) -> int:
-    """The live (query, key) pairs, 4 hd each."""
+def flash_flops(b: int, sq: int, sk: int, h: int, hd: int, causal: bool,
+                window: int = 0) -> int:
+    """The live (query, key) pairs, 4 hd each; a causal ``window`` w > 0
+    keeps the w latest keys of each query."""
     pairs = sq * (sq + 1) // 2 if causal else sq * sk  # live pairs per head
+    if causal and 0 < window < sq:
+        pairs = window * (window + 1) // 2 + (sq - window) * window
     return 4 * b * h * pairs * hd
 
 

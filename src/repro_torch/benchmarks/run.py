@@ -8,7 +8,8 @@ figure and the system tables (counterpart of the reference's
   kernels     the hand kernels against their twins, bounds and SDPA
               (``kernel_bench``; on the CPU the twins alone)
   ablations   spectral gap and client drift against Q
-  roofline    waits for the dry run's port (ROADMAP.md queue 1, item 18)
+  roofline    the H100 roofline over the committed dry-run records
+              (``experiments/dryrun_torch``, ``roofline.py``)
 
 Each table writes its JSON under ``--out-dir`` (``<table>_torch.json``
 names, so no committed record is touched), and the harness prints the
@@ -31,7 +32,7 @@ import time
 from typing import Dict, List
 
 from repro_torch.benchmarks import ablations, comm_bytes, fig2_comm_rounds, kernel_bench
-from repro_torch.benchmarks import thm1_speedup
+from repro_torch.benchmarks import roofline, thm1_speedup
 from repro_torch.device import resolve_device
 
 __all__ = ["TABLES", "main"]
@@ -133,8 +134,20 @@ def main(argv=None) -> Dict:
             f"q60_drift_penalty_het8={ab['drift']['8.0']['q60_penalty']:.1f}x")})
 
     if "roofline" not in skip:
-        print("\n=== roofline ===")
-        print("  waits for the dry run's port (ROADMAP.md queue 1, item 18); nothing written")
+        print("\n=== roofline (single-pod dry-run records, H100 prices) ===")
+        rows, us = _timed(roofline.rows_for, "single")
+        if rows:
+            print(roofline.format_table(rows))
+            oks = [r for r in rows if r.get("status") == "ok"]
+            dom: Dict[str, int] = {}
+            for r in oks:
+                dom[r["dominant"]] = dom.get(r["dominant"], 0) + 1
+            results["roofline"] = rows
+            csv.append({"name": "roofline", "us_per_call": us,
+                        "derived": f"pairs={len(oks)};dominant="
+                                   + "/".join(f"{k}:{v}" for k, v in sorted(dom.items()))})
+        else:
+            print("  (no dry-run records; run repro_torch.benchmarks.run_dryruns first)")
 
     print("\nname,us_per_call,derived")
     for r in csv:

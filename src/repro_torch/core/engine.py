@@ -1356,6 +1356,14 @@ def _degrees(w: np.ndarray) -> np.ndarray:
     return (np.abs(w - np.diag(np.diag(w))) > 0).sum(axis=1)
 
 
+def _own_block(block: torch.Tensor) -> torch.Tensor:
+    """``block`` contiguous in a storage of its own: a view of the packed
+    buffer of all n nodes would keep all of it alive on every rank."""
+    if block.untyped_storage().nbytes() > block.numel() * block.element_size():
+        return block.clone(memory_format=torch.contiguous_format)
+    return block.contiguous()
+
+
 def _dequant(q: torch.Tensor, scales: torch.Tensor, scale_chunk: int) -> torch.Tensor:
     """(n, t) int8 + (n, t // chunk) fp32 scales -> (n, t) fp32."""
     n, t = q.shape
@@ -2204,7 +2212,9 @@ class ShardedFusedEngine(GossipEngine):
             losses, grads = inner(self._full_rows(params),
                                   {k: v[rows] for k, v in batch.items()})
             if self.model_shards > 1:
-                grads = grads[:, self._tile].contiguous()
+                # a copy: a view would keep the full-width gradient alive
+                # in prev_grad
+                grads = grads[:, self._tile].clone()
             return losses, grads
 
         return eval_grads
@@ -2670,7 +2680,7 @@ class ShardedFusedEngine(GossipEngine):
         params packed into the engine's layout, on the group's device:
         the state ``init_fl_state`` takes."""
         flat = pack_like(stacked_params, self.layout)
-        return self.local_block(flat).to(self.device).contiguous()
+        return _own_block(self.local_block(flat).to(self.device))
 
     @classmethod
     def simulated(cls, w, stacked_params, **_ignored):
@@ -2700,4 +2710,4 @@ class ShardedFusedEngine(GossipEngine):
                             buffer_dtype=storage_dtype or torch.float32,
                             shards=group.model_shards)
         engine = cls(group, layout, scale_chunk=scale_chunk, **kw)
-        return engine, engine.local_block(flat).to(group.device).contiguous()
+        return engine, _own_block(engine.local_block(flat).to(group.device))

@@ -11,7 +11,9 @@ current stream without synchronizing, and raises if a launch reports an
 error. ``decode_attention.launches`` counts the calls that reached the
 card (one split kernel each); ``decode_attention.combine_launches``
 counts the combine kernel, which runs only when a call has more than one
-split (twin calls count in neither).
+split (twin calls count in neither). On ``meta`` tensors (the dry run) a
+call allocates its output, plans one split and launches nothing; it
+counts as one launch.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import BASE_FLAGS, KernelLibraries
+from repro_torch.kernels.launches import launched
 from repro_torch.kernels.decode_attention.ref import combine_partials_ref, decode_attention_ref
 
 __all__ = ["decode_attention", "combine_partials", "plan_splits", "split_plan",
@@ -146,7 +149,7 @@ def _check(q, k_cache, v_cache, n_valid):
     for t in (k_cache, v_cache, n_valid):
         if t.device != q.device:
             raise ValueError(f"decode_attention: operands on {t.device} and {q.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"decode_attention: tensors on {q.device} are not supported")
 
 
@@ -162,6 +165,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     _check(q, k_cache, v_cache, n_valid)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, n_valid)
+    if q.device.type == "meta":  # the dry run: the output alone, one split
+        b, _, h, hd = q.shape
+        launched(decode_attention, b=b, c=k_cache.shape[1], h=h, kv=k_cache.shape[2],
+                 hd=hd, itemsize=q.element_size())
+        return torch.empty_like(q)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be contiguous and "
@@ -185,7 +193,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
             part_ml.data_ptr() if splits > 1 else None, b, c, n_kv, group,
             group_tile(group, hd), hd, _DTYPES[q.dtype], splits, span, hd ** -0.5, stream)
     _raise_if("decode_attention", err, lib)
-    decode_attention.launches += 1
+    launched(decode_attention, b=b, c=c, h=h, kv=n_kv, hd=hd, itemsize=q.element_size())
     if splits > 1:
         combine_partials(part_acc, part_ml, out)
     return out
@@ -208,6 +216,10 @@ def combine_partials(part_acc: torch.Tensor, part_ml: torch.Tensor,
     if out.device.type == "cpu":
         out.copy_(combine_partials_ref(part_acc, part_ml[0], part_ml[1], out.dtype))
         return out
+    if out.device.type == "meta":  # the dry run: ``out`` is written in place
+        launched(decode_attention, "combine_launches", acc=part_acc.numel(),
+                 ml=part_ml.numel(), out=out.numel(), itemsize=out.element_size())
+        return out
     for name, t in (("part_acc", part_acc), ("part_ml", part_ml), ("out", out)):
         if not t.is_contiguous() or t.device != out.device:
             raise ValueError(f"combine_partials: {name} must be contiguous on {out.device}")
@@ -217,7 +229,8 @@ def combine_partials(part_acc: torch.Tensor, part_ml: torch.Tensor,
             part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b * h, hd,
             _DTYPES[out.dtype], s, torch.cuda.current_stream(out.device).cuda_stream)
     _raise_if("decode_attention combine", err, lib)
-    decode_attention.combine_launches += 1
+    launched(decode_attention, "combine_launches", acc=part_acc.numel(), ml=part_ml.numel(),
+             out=out.numel(), itemsize=out.element_size())
     return out
 
 

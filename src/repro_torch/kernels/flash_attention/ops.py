@@ -7,8 +7,10 @@ tensor-core kernel in ``csrc/flash_attention_tc.cu``, float32 to the
 fp32 kernel in ``csrc/flash_attention.cu``. There is no switch and no
 fallback: a CUDA call that cannot launch raises. The wrapper allocates
 the output, launches on the current stream without synchronizing, and
-raises if the launch reports an error. It counts the launches of both
-kernels in ``flash_attention.launches`` (twin calls do not count).
+raises if the launch reports an error. On ``meta`` tensors (the dry
+run) it allocates the output and launches nothing. It counts the
+launches of both kernels, and the ``meta`` stand-ins, in
+``flash_attention.launches`` (twin calls do not count).
 
 ``flash_attention`` is differentiable (:class:`FlashAttention`, a
 ``torch.autograd.Function``): its forward is the dispatch above, its
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.kernels.build import BASE_FLAGS, KernelLibraries
 from repro_torch.kernels.flash_attention.ref import attention_backward, attention_ref
+from repro_torch.kernels.launches import launched
 
 __all__ = ["flash_attention", "FlashAttention", "check_kernel_operands", "HEAD_DIMS", "LIBS", "SOURCES",
            "SMEM_LIMIT_BYTES"]
@@ -88,7 +91,7 @@ def _check(q, k, v, window):
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
     if q.dtype not in SOURCES:
         raise TypeError(f"flash_attention: {q.dtype} is not float32 or bfloat16")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: tensors on {q.device} are not supported")
 
 
@@ -124,26 +127,29 @@ class FlashAttention(torch.autograd.Function):
 
 
 def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
-    """The twin on CPU tensors, the dtype's hand kernel on CUDA ones."""
+    """The twin on CPU tensors, the dtype's hand kernel on CUDA ones, the
+    kernel's output alone on ``meta`` ones."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
-    check_kernel_operands(q=q, k=k, v=v)
     b, sq, h, hd = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
-    launch, smem_bytes, error = _kernel(SOURCES[q.dtype])
-    smem = smem_bytes(hd)
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"flash_attention: head size {hd} needs {smem} B of "
-                         f"shared memory, over {SMEM_LIMIT_BYTES}")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
-                     h, n_kv, hd, int(bool(causal)), int(window), hd ** -0.5, stream)
-    if err != 0:
-        raise RuntimeError(f"{SOURCES[q.dtype]} kernel launch failed: "
-                           + error(err).decode())
-    flash_attention.launches += 1
+    if q.device.type == "cuda":
+        check_kernel_operands(q=q, k=k, v=v)
+        launch, smem_bytes, error = _kernel(SOURCES[q.dtype])
+        smem = smem_bytes(hd)
+        if smem > SMEM_LIMIT_BYTES:
+            raise ValueError(f"flash_attention: head size {hd} needs {smem} B of "
+                             f"shared memory, over {SMEM_LIMIT_BYTES}")
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+                         sk, h, n_kv, hd, int(bool(causal)), int(window), hd ** -0.5, stream)
+        if err != 0:
+            raise RuntimeError(f"{SOURCES[q.dtype]} kernel launch failed: "
+                               + error(err).decode())
+    launched(flash_attention, b=b, sq=sq, sk=sk, h=h, kv=n_kv, hd=hd, causal=bool(causal),
+             window=int(window), itemsize=q.element_size())
     return out
 
 

@@ -10,9 +10,11 @@ wire stages) or ``csrc/wire_stage_compact.cu`` (the compact top-k wire
 stages; the DSGT one laid out by :func:`compact_gt_plan`) -- there is no
 switch and no fallback: a CUDA call that cannot launch raises. The
 wrapper allocates the outputs, launches on the current stream without
-synchronizing, and raises if the launch reports an error. Each wrapper
-counts its kernel launches in ``<wrapper>.launches`` (twin calls do not
-count).
+synchronizing, and raises if the launch reports an error. On ``meta``
+tensors (the dry run) it allocates the kernel's outputs and launches
+nothing. Each wrapper counts its kernel launches, and its ``meta``
+stand-ins, in ``<wrapper>.launches`` through ``kernels.launches``
+(twin calls do not count).
 
 Every wrapper but the compact ones takes ``topk``: None (the dense int8
 wire) or the number of largest-|payload| columns each (node, scale
@@ -53,6 +55,7 @@ from repro_torch.kernels.gossip.ref import (
     wire_stage_gt_ref,
     wire_stage_ref,
 )
+from repro_torch.kernels.launches import launched
 
 __all__ = ["gossip_mix", "fused_round", "fused_round_gt", "wire_stage",
            "wire_stage_gt", "wire_stage_compact", "wire_stage_gt_compact",
@@ -140,7 +143,7 @@ def _check_operands(name: str, bufs: Sequence[torch.Tensor], scale_chunk: int,
         raise ValueError(f"{name}: buffers must be (n, t), got {tuple(bufs[0].shape)}")
     n, t = bufs[0].shape
     dev = bufs[0].device
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: tensors on {dev} are not supported")
     for k, b in enumerate(list(bufs) + list(weights)):
         if b.dtype != torch.float32:
@@ -394,18 +397,19 @@ def gossip_mix(
                  stale_mix=stale_mix)
     if x.device.type == "cpu":
         return gossip_mix_ref(x, recon, res, w_off, w_self, **flags)
-    lib = _cluster_lib()
-    tail = _round_tail(n, t, scale_chunk, topk,
-                       (error_feedback, difference_coding, stale_mix), GOSSIP_STAGE,
-                       x.device)
     mixed, new_recon, new_res = (torch.empty_like(x) for _ in range(3))
     scales = torch.empty(n, t // scale_chunk, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.gossip_mix_cluster_launch(
-            *_ptrs(x, recon, res, w_off, w_self),
-            *_ptrs(mixed, new_recon, new_res, scales), *tail)
-    _raise_on(lib, err, "gossip_mix")
-    gossip_mix.launches += 1
+    if x.device.type == "cuda":
+        lib = _cluster_lib()
+        tail = _round_tail(n, t, scale_chunk, topk,
+                           (error_feedback, difference_coding, stale_mix), GOSSIP_STAGE,
+                           x.device)
+        with torch.cuda.device(x.device):
+            err = lib.gossip_mix_cluster_launch(
+                *_ptrs(x, recon, res, w_off, w_self),
+                *_ptrs(mixed, new_recon, new_res, scales), *tail)
+        _raise_on(lib, err, "gossip_mix")
+    launched(gossip_mix, n=n, t=t, chunk=scale_chunk, topk=topk)
     return mixed, new_recon, new_res, scales
 
 
@@ -453,17 +457,18 @@ def fused_round(
                  stale_mix=stale_mix)
     if x.device.type == "cpu":
         return fused_round_ref(x, g, recon, res, w_off, w_self, a, **flags)
-    lib = _cluster_lib()
-    tail = _round_tail(n, t, scale_chunk, topk,
-                       (error_feedback, difference_coding, stale_mix), 1, x.device)
     mixed, new_recon, new_res = (torch.empty_like(x) for _ in range(3))
     scales = torch.empty(n, t // scale_chunk, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.fused_round_cluster_launch(
-            *_ptrs(x, g, recon, res, w_off, w_self), float(a),
-            *_ptrs(mixed, new_recon, new_res, scales), *tail)
-    _raise_on(lib, err, "fused_round")
-    fused_round.launches += 1
+    if x.device.type == "cuda":
+        lib = _cluster_lib()
+        tail = _round_tail(n, t, scale_chunk, topk,
+                           (error_feedback, difference_coding, stale_mix), 1, x.device)
+        with torch.cuda.device(x.device):
+            err = lib.fused_round_cluster_launch(
+                *_ptrs(x, g, recon, res, w_off, w_self), float(a),
+                *_ptrs(mixed, new_recon, new_res, scales), *tail)
+        _raise_on(lib, err, "fused_round")
+    launched(fused_round, n=n, t=t, chunk=scale_chunk, topk=topk)
     return mixed, new_recon, new_res, scales
 
 
@@ -516,18 +521,19 @@ def fused_round_gt(
                  stale_mix=stale_mix)
     if x.device.type == "cpu":
         return fused_round_gt_ref(*bufs, w_off, w_self, a, **flags)
-    lib = _cluster_lib()
-    tail = _round_tail(n, tot, scale_chunk, topk,
-                       (error_feedback, difference_coding, stale_mix), 2, x.device)
     outs = [torch.empty_like(x) for _ in range(6)] + [
         torch.empty(n, tot // scale_chunk, dtype=torch.float32, device=x.device)
         for _ in range(2)
     ]
-    with torch.cuda.device(x.device):
-        err = lib.fused_round_gt_cluster_launch(
-            *_ptrs(*bufs, w_off, w_self), float(a), *_ptrs(*outs), *tail)
-    _raise_on(lib, err, "fused_round_gt")
-    fused_round_gt.launches += 1
+    if x.device.type == "cuda":
+        lib = _cluster_lib()
+        tail = _round_tail(n, tot, scale_chunk, topk,
+                           (error_feedback, difference_coding, stale_mix), 2, x.device)
+        with torch.cuda.device(x.device):
+            err = lib.fused_round_gt_cluster_launch(
+                *_ptrs(*bufs, w_off, w_self), float(a), *_ptrs(*outs), *tail)
+        _raise_on(lib, err, "fused_round_gt")
+    launched(fused_round_gt, n=n, t=tot, chunk=scale_chunk, topk=topk)
     return tuple(outs)
 
 
@@ -574,17 +580,18 @@ def wire_stage(
                  difference_coding=difference_coding, topk=topk)
     if x.device.type == "cpu":
         return wire_stage_ref(x, g, recon, res, a, **flags)
-    lib = _wire_lib()
-    _check_smem(lib.wire_stage_smem_bytes(scale_chunk), f"chunk {scale_chunk}")
-    tail = _tail(n, t, scale_chunk, topk, (error_feedback, difference_coding),
-                 x.device)
     h = torch.empty_like(x)
     outs = _wire_outs(x, n, t, scale_chunk)
-    with torch.cuda.device(x.device):
-        err = lib.wire_stage_launch(*_ptrs(x, g, recon, res), float(a),
-                                    *_ptrs(h, *outs), *tail)
-    _raise_on(lib, err, "wire_stage")
-    wire_stage.launches += 1
+    if x.device.type == "cuda":
+        lib = _wire_lib()
+        _check_smem(lib.wire_stage_smem_bytes(scale_chunk), f"chunk {scale_chunk}")
+        tail = _tail(n, t, scale_chunk, topk, (error_feedback, difference_coding),
+                     x.device)
+        with torch.cuda.device(x.device):
+            err = lib.wire_stage_launch(*_ptrs(x, g, recon, res), float(a),
+                                        *_ptrs(h, *outs), *tail)
+        _raise_on(lib, err, "wire_stage")
+    launched(wire_stage, n=n, t=t, chunk=scale_chunk, topk=topk)
     return (h, *outs)
 
 
@@ -631,18 +638,19 @@ def wire_stage_gt(
                  difference_coding=difference_coding, topk=topk)
     if x.device.type == "cpu":
         return wire_stage_gt_ref(*bufs, a, **flags)
-    lib = _wire_lib()
-    _check_smem(lib.wire_stage_smem_bytes(scale_chunk), f"chunk {scale_chunk}")
-    tail = _tail(n, tot, scale_chunk, topk, (error_feedback, difference_coding),
-                 x.device)
     h, t_half = torch.empty_like(x), torch.empty_like(x)
     outs_x = _wire_outs(x, n, tot, scale_chunk)
     outs_t = _wire_outs(x, n, tot, scale_chunk)
-    with torch.cuda.device(x.device):
-        err = lib.wire_stage_gt_launch(*_ptrs(*bufs), float(a),
-                                       *_ptrs(h, t_half, *outs_x, *outs_t), *tail)
-    _raise_on(lib, err, "wire_stage_gt")
-    wire_stage_gt.launches += 1
+    if x.device.type == "cuda":
+        lib = _wire_lib()
+        _check_smem(lib.wire_stage_smem_bytes(scale_chunk), f"chunk {scale_chunk}")
+        tail = _tail(n, tot, scale_chunk, topk, (error_feedback, difference_coding),
+                     x.device)
+        with torch.cuda.device(x.device):
+            err = lib.wire_stage_gt_launch(*_ptrs(*bufs), float(a),
+                                           *_ptrs(h, t_half, *outs_x, *outs_t), *tail)
+        _raise_on(lib, err, "wire_stage_gt")
+    launched(wire_stage_gt, n=n, t=tot, chunk=scale_chunk, topk=topk)
     return (h, t_half, *outs_x, *outs_t)
 
 
@@ -752,18 +760,19 @@ def wire_stage_compact(
         return wire_stage_compact_ref(
             x, g, recon, res, a, scale_chunk=scale_chunk, error_feedback=error_feedback,
             difference_coding=difference_coding, topk=topk, bitmap=bitmap)
-    lib = _compact_lib()
-    _check_smem(lib.wire_stage_compact_smem_bytes(scale_chunk, topk),
-                f"chunk {scale_chunk} at topk {topk}")
-    tail = _compact_tail(n, t, scale_chunk, topk, error_feedback, difference_coding,
-                         bitmap, x.device)
     h = torch.empty_like(x)
     outs = _compact_outs(x, n, t, scale_chunk, topk, bitmap)
-    with torch.cuda.device(x.device):
-        err = lib.wire_stage_compact_launch(*_ptrs(x, g, recon, res), float(a),
-                                            *_ptrs(h, *outs), *tail)
-    _raise_on(lib, err, "wire_stage_compact")
-    wire_stage_compact.launches += 1
+    if x.device.type == "cuda":
+        lib = _compact_lib()
+        _check_smem(lib.wire_stage_compact_smem_bytes(scale_chunk, topk),
+                    f"chunk {scale_chunk} at topk {topk}")
+        tail = _compact_tail(n, t, scale_chunk, topk, error_feedback, difference_coding,
+                             bitmap, x.device)
+        with torch.cuda.device(x.device):
+            err = lib.wire_stage_compact_launch(*_ptrs(x, g, recon, res), float(a),
+                                                *_ptrs(h, *outs), *tail)
+        _raise_on(lib, err, "wire_stage_compact")
+    launched(wire_stage_compact, n=n, t=t, chunk=scale_chunk, topk=topk, bitmap=bitmap)
     return (h, *outs)
 
 
@@ -813,17 +822,19 @@ def wire_stage_gt_compact(
         return wire_stage_gt_compact_ref(
             *bufs, a, scale_chunk=scale_chunk, error_feedback=error_feedback,
             difference_coding=difference_coding, topk=topk, bitmap=bitmap)
-    lib = _compact_lib()
-    tail = _compact_tail(n, tot, scale_chunk, topk, error_feedback, difference_coding,
-                         bitmap, x.device, _compact_gt_layout(scale_chunk, topk, bitmap))
     h, t_half = torch.empty_like(x), torch.empty_like(x)
     outs_x = _compact_outs(x, n, tot, scale_chunk, topk, bitmap)
     outs_t = _compact_outs(x, n, tot, scale_chunk, topk, bitmap)
-    with torch.cuda.device(x.device):
-        err = lib.wire_stage_gt_compact_launch(
-            *_ptrs(*bufs), float(a), *_ptrs(h, t_half, *outs_x, *outs_t), *tail)
-    _raise_on(lib, err, "wire_stage_gt_compact")
-    wire_stage_gt_compact.launches += 1
+    if x.device.type == "cuda":
+        lib = _compact_lib()
+        tail = _compact_tail(n, tot, scale_chunk, topk, error_feedback, difference_coding,
+                             bitmap, x.device, _compact_gt_layout(scale_chunk, topk, bitmap))
+        with torch.cuda.device(x.device):
+            err = lib.wire_stage_gt_compact_launch(
+                *_ptrs(*bufs), float(a), *_ptrs(h, t_half, *outs_x, *outs_t), *tail)
+        _raise_on(lib, err, "wire_stage_gt_compact")
+    launched(wire_stage_gt_compact, n=n, t=tot, chunk=scale_chunk, topk=topk,
+             bitmap=bitmap)
     return (h, t_half, *outs_x, *outs_t)
 
 

@@ -16,6 +16,8 @@ PyTorch, the same code on every device, from the saved log_a, h0 and
 output h. No kernel runs in the backward (the reference's Pallas kernel
 defines no VJP; a hand backward kernel is later work, ROADMAP.md queue
 2).
+On ``meta`` tensors (the dry run) the wrapper allocates the kernel's
+outputs, launches nothing and counts one launch.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.build import BASE_FLAGS, KernelLibraries
+from repro_torch.kernels.launches import launched
 from repro_torch.kernels.rglru_scan.ref import rglru_backward, rglru_ref
 
 __all__ = ["rglru_scan", "RGLRUScan", "LIBS"]
@@ -62,7 +65,7 @@ def _check(log_a, b, h0):
             raise TypeError(f"rglru_scan: {name} is {t.dtype}, the kernel takes float32")
         if t.device != log_a.device:
             raise ValueError(f"rglru_scan: {name} on {t.device}, log_a on {log_a.device}")
-    if log_a.device.type not in ("cpu", "cuda"):
+    if log_a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"rglru_scan: tensors on {log_a.device} are not supported")
 
 
@@ -93,24 +96,26 @@ class RGLRUScan(torch.autograd.Function):
 
 
 def _forward(log_a, b, h0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The twin on CPU tensors, the hand kernel on CUDA ones."""
+    """The twin on CPU tensors, the hand kernel on CUDA ones, the kernel's
+    outputs alone on ``meta`` ones."""
     if log_a.device.type == "cpu":
         return rglru_ref(log_a, b, h0)
-    for name, t in (("log_a", log_a), ("b", b), ("h0", h0)):
-        if not t.is_contiguous():
-            raise ValueError(f"rglru_scan: {name} must be contiguous")
     bsz, s, w = log_a.shape
     h = torch.empty_like(log_a)
     h_last = torch.empty_like(h0)
-    lib = _lib()
-    with torch.cuda.device(log_a.device):
-        stream = torch.cuda.current_stream(log_a.device).cuda_stream
-        err = lib.rglru_scan_launch(log_a.data_ptr(), b.data_ptr(), h0.data_ptr(),
-                                    h.data_ptr(), h_last.data_ptr(), bsz, s, w, stream)
-    if err != 0:
-        raise RuntimeError("rglru_scan kernel launch failed: "
-                           + lib.rglru_scan_error_string(err).decode())
-    rglru_scan.launches += 1
+    if log_a.device.type == "cuda":
+        for name, t in (("log_a", log_a), ("b", b), ("h0", h0)):
+            if not t.is_contiguous():
+                raise ValueError(f"rglru_scan: {name} must be contiguous")
+        lib = _lib()
+        with torch.cuda.device(log_a.device):
+            stream = torch.cuda.current_stream(log_a.device).cuda_stream
+            err = lib.rglru_scan_launch(log_a.data_ptr(), b.data_ptr(), h0.data_ptr(),
+                                        h.data_ptr(), h_last.data_ptr(), bsz, s, w, stream)
+        if err != 0:
+            raise RuntimeError("rglru_scan kernel launch failed: "
+                               + lib.rglru_scan_error_string(err).decode())
+    launched(rglru_scan, b=bsz, s=s, w=w)
     return h, h_last
 
 

@@ -19,6 +19,8 @@ PyTorch, the same code on every device, from the saved operands (the
 states are recomputed). No kernel runs in the backward (the reference's
 Pallas kernel defines no VJP; a hand backward kernel is later work,
 ROADMAP.md queue 2).
+On ``meta`` tensors (the dry run) the wrapper allocates the kernel's
+outputs, launches nothing and counts one launch.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.build import BASE_FLAGS, KernelLibraries
+from repro_torch.kernels.launches import launched
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_backward, wkv6_ref
 
 __all__ = ["wkv6", "WKV6", "check_kernel_operands", "HEAD_SIZE", "LIBS"]
@@ -71,7 +74,7 @@ def _check(r, k, v, log_w, u, s0):
             raise TypeError(f"wkv6: {name} is {t.dtype}, the kernel takes float32")
         if t.device != r.device:
             raise ValueError(f"wkv6: {name} on {t.device}, r on {r.device}")
-    if r.device.type not in ("cpu", "cuda"):
+    if r.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"wkv6: tensors on {r.device} are not supported")
 
 
@@ -131,26 +134,28 @@ class WKV6(torch.autograd.Function):
 
 
 def _forward(r, k, v, log_w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The twin on CPU tensors, the hand kernel on CUDA ones."""
+    """The twin on CPU tensors, the hand kernel on CUDA ones, the kernel's
+    outputs alone on ``meta`` ones."""
     b, s, h, hd = r.shape
     if r.device.type == "cpu":
         y, s_fin = wkv6_ref(_fold(r), _fold(k), _fold(v), _fold(log_w),
                             u[None].expand(b, h, hd).reshape(b * h, hd),
                             s0.reshape(b * h, hd, hd))
         return _unfold(y, b, h), s_fin.reshape(b, h, hd, hd)
-    check_kernel_operands(r=r, k=k, v=v, log_w=log_w, u=u, s0=s0)
     y = torch.empty_like(r)
     s_fin = torch.empty_like(s0)
-    lib = _lib()
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.wkv6_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-                              u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
-                              b, s, h, stream)
-    if err != 0:
-        raise RuntimeError("wkv6 kernel launch failed: "
-                           + lib.wkv6_error_string(err).decode())
-    wkv6.launches += 1
+    if r.device.type == "cuda":
+        check_kernel_operands(r=r, k=k, v=v, log_w=log_w, u=u, s0=s0)
+        lib = _lib()
+        with torch.cuda.device(r.device):
+            stream = torch.cuda.current_stream(r.device).cuda_stream
+            err = lib.wkv6_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  log_w.data_ptr(), u.data_ptr(), s0.data_ptr(),
+                                  y.data_ptr(), s_fin.data_ptr(), b, s, h, stream)
+        if err != 0:
+            raise RuntimeError("wkv6 kernel launch failed: "
+                               + lib.wkv6_error_string(err).decode())
+    launched(wkv6, b=b, s=s, h=h)
     return y, s_fin
 
 

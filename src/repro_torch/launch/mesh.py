@@ -47,6 +47,7 @@ __all__ = [
     "NodeGroup",
     "start_group",
     "stop_group",
+    "sub_groups",
     "node_rows",
     "run_group",
     "MeshLayout",
@@ -176,18 +177,25 @@ def start_group(rank: int, world: int, store_path: str, device=None, *,
         raise ValueError(f"no process-group backend for {dev}")
     dist.init_process_group(backend, store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world, timeout=TIMEOUT, **kw)
-    node_pg = model_pg = None
-    if s > 1:
-        a_n = world // s
-        for shard in range(s):
-            g = dist.new_group([a * s + shard for a in range(a_n)])
-            if rank % s == shard:
-                node_pg = g
-        for block in range(a_n):
-            g = dist.new_group([block * s + shard for shard in range(s)])
-            if rank // s == block:
-                model_pg = g
+    node_pg, model_pg = sub_groups(rank, world, s) if s > 1 else (None, None)
     return NodeGroup(dist.group.WORLD, rank, world, dev, axes, s, node_pg, model_pg)
+
+
+def sub_groups(rank: int, world: int, model_shards: int):
+    """This rank's (node group, model group) of a ``world`` whose ranks
+    are ``node ranks x model_shards`` (``dist.new_group`` for every group,
+    in the same order on every rank)."""
+    s, a_n = model_shards, world // model_shards
+    node_pg = model_pg = None
+    for shard in range(s):
+        g = dist.new_group([a * s + shard for a in range(a_n)])
+        if rank % s == shard:
+            node_pg = g
+    for block in range(a_n):
+        g = dist.new_group([block * s + shard for shard in range(s)])
+        if rank // s == block:
+            model_pg = g
+    return node_pg, model_pg
 
 
 def stop_group(group: NodeGroup) -> None:

@@ -106,10 +106,10 @@ def main(argv=None) -> dict:
     ap = _parser()
     args = ap.parse_args(argv)
     if args.fl_engine == "sharded_fused":
-        ap.error("--fl-engine sharded_fused needs a process group; the "
-                 "reference lowers that round with launch/dryrun.py, whose port "
-                 "is ROADMAP.md queue 1 item 18 (on one process, 'fused' runs "
-                 "the same math)")
+        ap.error("--fl-engine sharded_fused needs a process group -- use "
+                 "python -m repro_torch.launch.dryrun --fl-engine sharded_fused for "
+                 "that path at the production mesh (on one process, 'fused' runs "
+                 "the same math; examples/train_100m.py trains it on a group)")
     fl_schedule = args.fl_schedule
     if args.fl_staleness_depth is not None:
         if fl_schedule != "sequential":

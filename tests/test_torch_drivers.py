@@ -12,8 +12,13 @@ against the reference's ``benchmarks/`` on the CPU.
   value to 0.01 µs (the cells whose operations depend on the drawn
   top-k payload are exempt), and ``--device cpu`` writes null kernel and
   library columns.
+* ``comm_bytes.cross_check``: the int8 flat-wire row against the
+  committed dry-run records (``experiments/dryrun_torch``), edge by edge,
+  the padding to whole chunks in every tile itemized.
+* ``roofline``: the committed records priced with the H100's figures
+  alone, a row by hand.
 * ``run.py --smoke`` on the CPU writes every table's JSON and the CSV; the
-  roofline row writes nothing; ``thm1_speedup --two-axis --smoke`` runs
+  roofline row prints the committed records' roofline; ``thm1_speedup --two-axis --smoke`` runs
   the two-axis table on gloo ranks (each cell's per-shard bytes x shards
   == its wire bytes).
 """
@@ -180,9 +185,13 @@ def test_run_smoke_writes_the_tables(tmp_path, capsys):
     lines = out.split("name,us_per_call,derived\n")[1].strip().splitlines()
     assert [line.split(",")[0] for line in lines] == [
         "fig2_comm_rounds", "thm1_linear_speedup", "comm_bytes_table", "kernel_bench",
-        "ablations"]
+        "ablations", "roofline"]
     assert [r["name"] for r in res["csv"]] == [line.split(",")[0] for line in lines]
-    assert "item 18" in out
+    # the roofline row runs on the committed dry-run records, at H100 prices
+    roof = next(line for line in lines if line.startswith("roofline,"))
+    oks = sum(r["status"] == "ok" for r in res["roofline"])
+    assert roof.split(",")[2].startswith(f"pairs={oks};")
+    assert len(res["roofline"]) == 40 and "item 18" not in out
 
 
 def test_refusals(capsys, tmp_path):
@@ -201,3 +210,48 @@ def test_refusals(capsys, tmp_path):
     assert "Two-axis round time" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         run_all.main(["--skip", "nope", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch, padding", [("tinyllama-1.1b", 6192), ("dbrx-132b", 2064)])
+def test_comm_bytes_cross_checks_the_dry_run(arch, padding, tmp_path, capsys):
+    """One edge of the record's two-axis wire (16 tiles) is the table's
+    int8 edge plus the padding to whole 512-column chunks in each of the
+    16 tiles: 6,144 columns and their 12 scales for TinyLlama."""
+    rec = json.loads((Path(__file__).resolve().parents[1] / "experiments" / "dryrun_torch"
+                      / f"{arch}_train_4k_single_sharded_fused_shardmodel_q2.json").read_text())
+    got = comm_bytes.cross_check(comm_bytes.main(arch, log=False), rec)
+    assert got["padding_bytes"] == padding
+    assert got["record_edge_bytes"] == 16 * rec["two_axis"]["wire_bytes_per_shard_one_edge"]
+    if arch == "tinyllama-1.1b":
+        assert padding == 6144 + 4 * 6144 // 512
+        out = comm_bytes._cli(["--out", str(tmp_path / "cb.json")])
+        assert out["cross_check"] == got and "cross-check" in capsys.readouterr().out
+    bad = dict(rec, two_axis=dict(rec["two_axis"], wire_bytes_per_shard_one_edge=1))
+    with pytest.raises(AssertionError):
+        comm_bytes.cross_check(comm_bytes.main(arch, log=False), bad)
+
+
+def test_roofline_prices_the_records_for_the_h100():
+    from repro_torch.benchmarks import roofline
+
+    assert (roofline.PEAK_FLOPS, roofline.HBM_BYTES_S) == (989e12, 3.35e12)
+    assert (roofline.NVLINK_BYTES_S, roofline.IB_BYTES_S * 8) == (450e9, 400e9)
+    src = Path(roofline.__file__).read_text()
+    for tpu in ("197e12", "819e9", "50e9"):
+        assert tpu not in src
+    rows = roofline.rows_for("single")
+    assert len(rows) == 40
+    row = next(r for r in rows if (r["arch"], r["shape"]) == ("tinyllama-1.1b", "train_4k"))
+    rec = next(r for r in roofline.load_records("single")
+               if (r["arch"], r["shape"]) == ("tinyllama-1.1b", "train_4k"))
+    coll = rec["collectives"]
+    assert row["t_compute_s"] == rec["flops"] / 989e12
+    assert row["t_memory_s"] == rec["traffic_bytes"] / 3.35e12
+    assert row["t_collective_s"] == ((coll["total_bytes"] - coll["cross_node_bytes"]) / 450e9
+                                     + coll["cross_node_bytes"] / (400e9 / 8))
+    assert row["useful_ratio"] == 6.0 * rec["active_params"] * 4096 * 256 * 2 / (
+        rec["flops"] * 256)
+    wire = rec["two_axis"]["wire_bytes_per_shard_per_round"]
+    assert row["t_wire_per_shard_s"] == wire / (400e9 / 8)
+    assert next(r for r in rows if r["shape"] == "long_500k"
+                and r["arch"] == "whisper-medium")["status"] == "skipped"

@@ -50,7 +50,9 @@ def _port_sources():
             "configs/whisper_medium.py", "configs/dbrx_132b.py",
             "benchmarks/thm1_speedup.py", "benchmarks/ablations.py",
             "benchmarks/comm_bytes.py", "benchmarks/kernel_bench.py",
-            "benchmarks/run.py"} <= names
+            "benchmarks/run.py", "models/sharding.py", "launch/op_analysis.py",
+            "launch/dryrun.py", "benchmarks/run_dryruns.py", "benchmarks/roofline.py",
+            "kernels/launches.py"} <= names
     assert len(files) > 20
     return files
 
@@ -79,13 +81,31 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs.dbrx_132b, repro_torch.configs.internvl2_26b, "
             "repro_torch.benchmarks.thm1_speedup, repro_torch.benchmarks.ablations, "
             "repro_torch.benchmarks.comm_bytes, repro_torch.benchmarks.kernel_bench, "
-            "repro_torch.benchmarks.run, repro_torch.training.snapshot; "
+            "repro_torch.benchmarks.run, repro_torch.training.snapshot, "
+            "repro_torch.models.sharding, repro_torch.launch.op_analysis, "
+            "repro_torch.launch.dryrun, repro_torch.benchmarks.run_dryruns, "
+            "repro_torch.benchmarks.roofline; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_fake_backend_is_torchs_own_in_the_dry_run_alone():
+    """The dry run's fake process group is torch's own module
+    (``torch.testing._internal.distributed.fake_pg``), imported by
+    ``launch/dryrun.py`` only, inside the function that starts it."""
+    users = {path.relative_to(ROOT).as_posix(): [n for n in _imports(path)
+                                                if n and n.startswith("torch.testing")]
+             for path in _port_sources()}
+    assert {k: v for k, v in users.items() if v} == {
+        "src/repro_torch/launch/dryrun.py": ["torch.testing._internal.distributed.fake_pg"]}
+    tree = ast.parse((PORT / "launch" / "dryrun.py").read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert not any(getattr(n, "module", "") and n.module.startswith("torch.testing")
+                   for n in top)
 
 
 @pytest.fixture

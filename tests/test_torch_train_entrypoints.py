@@ -91,7 +91,10 @@ def test_launcher_refusals(capsys):
     with pytest.raises(SystemExit):
         train.main(["--arch", "tinyllama-1.1b", "--device", "cpu",
                     "--fl-engine", "sharded_fused"])
-    assert "item 18" in capsys.readouterr().err
+    # the reference's refusal, pointing at the dry run as the reference's help does
+    err = capsys.readouterr().err
+    assert "python -m repro_torch.launch.dryrun --fl-engine sharded_fused" in err
+    assert "item 18" not in err
     with pytest.raises(SystemExit):
         train.main(["--arch", "tinyllama-1.1b", "--device", "cpu",
                     "--fl-schedule", "pipelined", "--fl-staleness-depth", "2"])
