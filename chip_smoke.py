@@ -69,7 +69,7 @@ twin on the card at the training shapes, and full-width SmolLM-360M (2
 layers, fp32 and bf16), RecurrentGemma-2B (one period) and RWKV6-7B (one
 layer) at fp32, 2 nodes: every leaf's gradient on the card against the
 host CPU's, none zero; (t2) SmolLM-360M at full width and depth through
-``train_decentralized``, 3 FD-DSGT rounds on the tree engine (4 nodes)
+``train_decentralized``, one FD-DSGT round on the tree engine (4 nodes)
 and on the fused engine (2 nodes), round 1's local loss against the host
 CPU's, the host clock, busy share and peak memory, and
 ``fused_round_gt`` at (2, 361,821,184) against its twin on its first
@@ -118,8 +118,19 @@ dense equivalent and the same runs on the host CPU's twins; (c3) the
 torus round profiled beside the all-gather round at the same
 configuration; (c2) ``examples/train_100m.py --fl-engine sharded_fused
 --arch smollm-360m --nodes 2 --model-shards 1`` at full width and depth,
-3 rounds, its launches, host clock, busy share and peak memory, the
+one round, its launches, host clock, busy share and peak memory, the
 losses against ``--fl-engine fused`` on the same W.
+The round kernels' two-pass route (the wire stage, then the mix kernel
+``csrc/round_mix.cu``), which serves the federations the one-pass
+cluster kernel cannot hold in a block's shared memory: phase 2 holds it
+against the twins at 192 nodes (every flag combination, dense and
+top-64), DSGT top-64 at 128, the complete graph at 512 and 1,024 nodes
+on an Erdos-Renyi graph at 1 GB a buffer, and every earlier shape to its
+one-pass launch; phase 3 runs (L1) FD-DSGT, FD-DSGD and the gossip stage
+at 256 hospitals on a ring (two launches a round) against the host CPU
+and (L2) the ``error_feedback`` / ``difference_coding`` knobs on
+``fused`` and ``sharded_fused`` (both wires); phase 4 times the route at
+1,024 nodes beside its bound.
 Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
@@ -187,7 +198,7 @@ from repro_torch.core.fl import (  # noqa: E402
 from repro_torch.core.privacy import analytic_epsilon  # noqa: E402
 from repro_torch.core.packing import flat_wire_bytes, pack, tree_leaves, unpack  # noqa: E402
 from repro_torch.core.schedules import inv_sqrt  # noqa: E402
-from repro_torch.core.topology import mixing_matrix  # noqa: E402
+from repro_torch.core.topology import check_assumption1, mixing_matrix  # noqa: E402
 from repro_torch.data.ehr import generate_ehr_cohort, make_node_batcher  # noqa: E402
 from repro_torch.data.tokens import make_fl_token_batches  # noqa: E402
 from repro_torch.examples import quickstart, serve_consensus  # noqa: E402
@@ -211,11 +222,16 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.gossip import ops as gossip_wrappers  # noqa: E402
 from repro_torch.kernels.gossip.ops import (  # noqa: E402
+    GOSSIP_STAGE,
+    ONE_PASS,
+    TWO_PASS,
     fused_round,
     fused_round_gt,
     gossip_mix,
+    round_mix,
     wire_stage,
     wire_stage_compact,
+    wire_stage_gossip,
     wire_stage_gt,
     wire_stage_gt_compact,
 )
@@ -224,7 +240,9 @@ from repro_torch.kernels.rglru_scan.ref import rglru_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import wkv6  # noqa: E402
 from repro_torch.kernels.gossip.ref import (  # noqa: E402
     fused_round_gt_ref,
+    fused_round_ref,
     gossip_mix_ref,
+    wire_stage_gossip_ref,
 )
 from repro_torch.benchmarks import ablations, thm1_speedup  # noqa: E402
 from repro_torch.benchmarks import kernel_bench as kb  # noqa: E402
@@ -260,7 +278,11 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.models.mlp import make_mlp_loss, mlp_init  # noqa: E402
+from repro_torch.models.mlp import (  # noqa: E402
+    make_mlp_loss,
+    mlp_balanced_accuracy,
+    mlp_init,
+)
 from repro_torch.models.transformer import lm_loss  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
 from repro_torch.training.checkpoint import load_fl_state, save_fl_state  # noqa: E402
@@ -289,7 +311,14 @@ EARLIER_US = {
 }
 WRAPPERS = [gossip_mix, fused_round, fused_round_gt, wire_stage, wire_stage_gt,
             wire_stage_compact, wire_stage_gt_compact, decode_attention, flash_attention,
-            wkv6, rglru_scan]
+            wkv6, rglru_scan, round_mix, wire_stage_gossip]
+# the round wrappers, whose two-pass route counts its wire stage under
+# the wire stage's own name (``kb.ROUTE_WIRES``: wire_stage_gossip,
+# wire_stage, wire_stage_gt) and its mix under ``round_mix``: name ->
+# (wrapper, twin, wires)
+ROUND_WRAPPERS = {"gossip_mix": (gossip_mix, gossip_mix_ref, GOSSIP_STAGE),
+                  "fused_round": (fused_round, fused_round_ref, 1),
+                  "fused_round_gt": (fused_round_gt, fused_round_gt_ref, 2)}
 # (label, nodes, flat width, scale chunk, topology): the main path, a
 # ragged shape with one all-zero row chunk (exercises safe = 1), a large
 # shape that makes the kernel bandwidth-bound, and the backbone scope's
@@ -298,6 +327,23 @@ WRAPPERS = [gossip_mix, fused_round, fused_round_gt, wire_stage, wire_stage_gt,
 SHAPES = [MAIN, ("zero-chunk", 7, 384, 128, "complete"), LARGE,
           ("scope", 20, 1408, 128, "hospital20")]
 FLAGS = list(itertools.product([True, False], repeat=3))  # ef, dc, stale
+# The two-pass route (phase 2): (label, nodes, flat width, scale chunk,
+# topology, topks, flag combinations) -- the first federation past the
+# one-pass plan over the whole FLAGS sweep, dense and top-64; DSGT at
+# top-64 at 128 nodes, the first shape the plan refuses; a dense W_off;
+# 1,024 nodes on an Erdos-Renyi graph of about ten neighbours a node (1 GB
+# a buffer), at two flag combinations
+TWO_PASS_SHAPES = [
+    ("federation-192", 192, 65_536, 512, "ring", (None, TOPK_MAIN), FLAGS),
+    ("dsgt-128-top64", 128, 65_536, 512, "ring", (TOPK_MAIN,), FLAGS),
+    ("complete-512", 512, 4_096, 512, "complete", (None,), FLAGS),
+    (*kb.FEDERATION, (None,), [(True, True, False), (False, False, True)]),
+]
+# (L1) the MLP at a federation the one-pass plan refuses: hospitals on a
+# ring, rounds at Q = 10; the multi-round tolerances against the host CPU
+LARGE_HOSPITALS, LARGE_ROUNDS, LOSS_RTOL, BAL_ACC_TOL = 256, 5, 1e-3, 0.02
+# (L2) item 9: (error_feedback, difference_coding) with a knob off
+KNOB_RUNS = [(False, True), (True, False), (False, False)]
 EF_DC = list(itertools.product([True, False], repeat=2))
 # DSGT wire bytes per round on hospital20 (2 wires x 54 directed edges x
 # (1536 int8 + 3 fp32 scales)); DSGD ships one wire; the top-64 wire
@@ -673,6 +719,117 @@ def check_gossip_mix() -> dict:
     return max_err
 
 
+def route_counts() -> tuple:
+    """(one-pass launches, wire-stage launches, mix launches) of the round
+    wrappers and their routes' kernels since :func:`zero_counts`."""
+    got = launch_counts()
+    return (sum(got[name] for name in ROUND_WRAPPERS),
+            sum(got[w.__name__] for w, _, _ in kb.ROUTE_WIRES.values()), got["round_mix"])
+
+
+def check_two_pass() -> dict:
+    """The round kernels' two-pass route (the wire stage, then the mix
+    kernel) against the one-pass twins at the federations the one-pass
+    plan refuses (``TWO_PASS_SHAPES``): recon', res' and scales bitwise,
+    mixed within 1e-5 x max(1, max|input|), two launches a call and none
+    of the one-pass kernel; the route each (kernel, shape) takes printed;
+    then every existing shape (``SHAPES``) still one one-pass launch a
+    call."""
+    max_err = 0.0
+    for label, n, t, chunk, topo, topks, flags in TWO_PASS_SHAPES:
+        kw_w = {"p": kb.FEDERATION_P} if topo == "erdos_renyi" else {}
+        w = mixing_matrix(topo, n, **kw_w)
+        if topo == "erdos_renyi":
+            check_assumption1(w)
+            off = w - np.diag(np.diag(w))
+            log(f"  {label}: W_off density {float((off != 0).mean()):.4f} (mean degree "
+                f"{float((off != 0).sum(axis=1).mean()):.2f}), Assumption 1 holds")
+        w_off, w_self = weights(topo, n, **kw_w)
+        routes = {}
+        for name, (kernel, twin, wires) in ROUND_WRAPPERS.items():
+            for topk in topks:
+                route = kb.route_plan(name, n, t, chunk, topk)[0]
+                routes[f"{name} top-{topk}" if topk else name] = route
+                if route != TWO_PASS:
+                    continue
+                for k, (ef, dc, stale) in enumerate(flags):
+                    bufs = make_inputs(n, t, chunk, wires, label, seed=k)
+                    kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc,
+                              stale_mix=stale, topk=topk)
+                    args = (*bufs, w_off, w_self) + (() if wires == GOSSIP_STAGE else (ALPHA,))
+                    zero_counts()
+                    got = kernel(*args, **kw)
+                    torch.cuda.synchronize()
+                    counts = route_counts()
+                    want = twin(*args, **kw)
+                    torch.cuda.synchronize()
+                    if counts != (0, 1, 1):
+                        raise AssertionError(f"{name} {label} {kw}: (one-pass, wire, mix) "
+                                             f"launches {counts}, want (0, 1, 1)")
+                    nw = max(wires, 1)
+                    tol = 1e-5 * max(1.0, max(float(x.abs().max()) for x in bufs))
+                    for i, (a, b) in enumerate(zip(got, want)):
+                        if a.shape != b.shape or a.dtype != b.dtype or not torch.isfinite(a).all():
+                            raise AssertionError(f"{name} {label} {kw}: output {i} bad")
+                        if i < nw:
+                            err = float((a - b).abs().max())
+                            if err > tol:
+                                raise AssertionError(
+                                    f"{name} {label} {kw}: mixed off by {err} > {tol}")
+                            max_err = max(max_err, err)
+                        elif not torch.equal(a, b):
+                            raise AssertionError(
+                                f"{name} {label} {kw}: output {i} differs from the twin "
+                                f"(max {float((a - b).abs().max())})")
+                    del got, want, bufs, args
+                log(f"  {name} two-pass == twin at {label} ({n}x{t}, chunk {chunk}, "
+                    f"{topo}{', top-' + str(topk) if topk else ''}): {len(flags)} flag "
+                    f"combination(s), recon/res/scales bitwise, mixed max err so far "
+                    f"{max_err:.3e}, 2 launches a call")
+                torch.cuda.empty_cache()
+        log(f"  routes at {label}: " + ", ".join(f"{k} {v}" for k, v in routes.items()))
+        del w_off, w_self
+    # the gossip stage's wire stage alone, its int8 payload too (the route
+    # skips it), as check_wire_stages holds wire_stage and wire_stage_gt
+    label, n, t, chunk = TWO_PASS_SHAPES[0][:4]
+    topks = [None, TOPK_MAIN, chunk]
+    for k, ((ef, dc), topk) in enumerate(itertools.product(EF_DC, topks)):
+        bufs = make_inputs(n, t, chunk, GOSSIP_STAGE, label, seed=k)
+        kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc, topk=topk)
+        zero_counts()
+        got = wire_stage_gossip(*bufs, **kw)
+        want = wire_stage_gossip_ref(*bufs, **kw)
+        torch.cuda.synchronize()
+        if launch_counts()["wire_stage_gossip"] != 1:
+            raise AssertionError(f"wire_stage_gossip {kw}: launches {launch_counts()}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"wire_stage_gossip {label} {kw}: output {i} differs "
+                                     "from the twin")
+        del got, want, bufs
+    log(f"  wire_stage_gossip == twin at {label} ({n}x{t}, chunk {chunk}): 4 (ef, dc) x "
+        f"topk {topks}, q/scales/recon/res bitwise")
+    # the shapes the one-pass kernel served keep it: one launch a call
+    for (label, n, t, chunk, topo), (name, (kernel, _, wires)) in itertools.product(
+            SHAPES, ROUND_WRAPPERS.items()):
+        for topk in shape_topks(chunk):
+            if kb.route_plan(name, n, t, chunk, topk)[0] != ONE_PASS:
+                raise AssertionError(f"{name} at {label} top-{topk} left the one-pass plan")
+            bufs = make_inputs(n, t, chunk, wires, label, seed=0)
+            w_off, w_self = weights(topo, n)
+            zero_counts()
+            kernel(*bufs, w_off, w_self, *(() if wires == GOSSIP_STAGE else (ALPHA,)),
+                   scale_chunk=chunk, topk=topk)
+            if route_counts() != (1, 0, 0):
+                raise AssertionError(f"{name} at {label} top-{topk}: launches "
+                                     f"{route_counts()}, want one one-pass launch")
+            del bufs
+    torch.cuda.empty_cache()
+    log(f"  every existing shape ({', '.join(s[0] for s in SHAPES)}) x the three round "
+        "kernels x their top-k cases: the one-pass plan, one launch a call")
+    return {"round_mix": max_err, "wire_stage_gossip": 0.0}
+
+
 # (label, B, C, H, K, hd, n_valid per row): the tests' shapes, then
 # SmolLM-360M's (a row with n_valid = 0, a full row, the path's lengths),
 # and a wrapped ring cache (every slot live, positions out of slot order)
@@ -892,12 +1049,20 @@ def zero_counts() -> None:
     decode_attention.combine_launches = 0
 
 
-def expect_launches(what: str, **want: int) -> None:
-    """Every wrapper's count since :func:`zero_counts` is ``want`` (0 for
-    the ones not named)."""
-    torch.cuda.synchronize()
+def launch_counts() -> dict:
+    """Every wrapper's count since :func:`zero_counts` (the two-pass
+    route's under its wire stage's name and ``round_mix``)."""
     got = {w.__name__: w.launches for w in WRAPPERS}
     got["decode_attention_combine"] = decode_attention.combine_launches
+    return got
+
+
+def expect_launches(what: str, **want: int) -> None:
+    """Every wrapper's count since :func:`zero_counts` is ``want`` (0 for
+    the ones not named): so no path but this PR's large federations takes
+    the two-pass route."""
+    torch.cuda.synchronize()
+    got = launch_counts()
     full = {name: want.get(name, 0) for name in got}
     if got != full:
         raise AssertionError(f"{what}: launches {got}, want {full}")
@@ -1120,6 +1285,134 @@ def compressed_path() -> dict:
         f"{diff1:.2e} after 1 round, {diff5:.2e} after 5, loss rel {rel:.2e}, "
         f"losses {np.round(losses, 4).tolist()}")
     return {"gossip_mix": 10}
+
+
+def _bal_acc(consensus: dict, data) -> float:
+    """Balanced accuracy of a consensus MLP on every patient of a cohort."""
+    dev = consensus["fc1"]["w"].device
+    x = torch.as_tensor(np.concatenate(data.features), device=dev)
+    y = torch.as_tensor(np.concatenate(data.labels), device=dev)
+    return float(mlp_balanced_accuracy(consensus, x, y))
+
+
+def _held(what: str, losses, cpu_losses, bal: float, cpu_bal: float) -> str:
+    """The multi-round tolerances against the host CPU's run: loss within
+    LOSS_RTOL relative, bal_acc within BAL_ACC_TOL."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    if (not all(math.isfinite(x) for x in losses) or rel > LOSS_RTOL
+            or abs(bal - cpu_bal) > BAL_ACC_TOL):
+        raise AssertionError(f"{what}: losses {losses} vs the host CPU's {cpu_losses} "
+                             f"(rel {rel}), bal_acc {bal} vs {cpu_bal}")
+    return f"loss rel {rel:.2e}, bal_acc {bal:.4f} vs {cpu_bal:.4f}"
+
+
+def large_federation_path() -> dict:
+    """(L1) The MLP at full width (42 -> 32 -> 2) across LARGE_HOSPITALS
+    hospitals on a ring (the EHR cohort cut into that many sites, about
+    40 patients each), a federation the one-pass plan refuses: FD-DSGT
+    and FD-DSGD through ``train_decentralized(engine="fused")``, 5 rounds
+    at Q = 10, two launches a round (the wire stage and the mix), each
+    held to the same run on the host CPU's twins; then the gossip stage
+    (``make_compressed_flat_gossip``) on a perturbed init of the same
+    federation (``stack_for_nodes(perturb=)``), 5 rounds, two launches a
+    round, its consensus error a round against the host CPU's."""
+    n, rounds = LARGE_HOSPITALS, LARGE_ROUNDS
+    data = generate_ehr_cohort(seed=0, n_hospitals=n)
+    counts = {"round_mix": 0}
+
+    def train(algorithm: str, device: str):
+        run = FLRunConfig(algorithm=algorithm, q=10, topology="ring", n_nodes=n,
+                          batch_per_node=20, alpha0=0.02)
+        return train_decentralized(make_mlp_loss(class_weights()), mlp_init(0, device=device),
+                                   run, make_node_batcher(data, m=20, seed=1), rounds=rounds,
+                                   engine="fused", device=device)
+
+    for algorithm, name in (("dsgt", "fused_round_gt"), ("dsgd", "fused_round")):
+        zero_counts()
+        t0 = time.perf_counter()
+        res = train(algorithm, "cuda")
+        card_s = time.perf_counter() - t0
+        wire = kb.ROUTE_WIRES[name][0].__name__
+        expect_launches(f"(L1) FD-{algorithm.upper()} at {n} hospitals",
+                        **{wire: rounds, "round_mix": rounds})
+        counts[wire] = rounds
+        counts["round_mix"] += rounds
+        route = kb.route_plan(name, n, res.engine.layout.total, 512, None)[0]
+        cpu = train(algorithm, "cpu")
+        note = _held(f"(L1) FD-{algorithm.upper()}", list(res.history.column("loss")),
+                     list(cpu.history.column("loss")), _bal_acc(res.consensus, data),
+                     _bal_acc(cpu.consensus, data))
+        log(f"  (L1) FD-{algorithm.upper()} on {n} hospitals ({sum(map(len, data.labels)):,} "
+            f"patients), a ring, ({n}, {res.engine.layout.total}) at chunk 512, route "
+            f"{route}: {rounds} {wire} + {rounds} round_mix launches in {rounds} "
+            f"rounds ({card_s:.1f} s); against the host CPU: {note}")
+        del res, cpu
+
+    w = mixing_matrix("ring", n)
+    single = mlp_init(0, device="cpu")
+    stacked = stack_for_nodes(single, n, perturb=0.1, generator=torch.Generator().manual_seed(5))
+    flat0, _ = pack(stacked, pad_to=512)
+    gossip = make_compressed_flat_gossip(w, scale_chunk=512)
+    errs = {}
+    for device in ("cuda", "cpu"):
+        zero_counts()
+        flat = flat0.to(device)
+        st = init_flat_compression_state(flat)
+        errs[device] = []
+        for _ in range(rounds):
+            flat, st = gossip(flat, st)
+            dev = flat - flat.mean(dim=0)
+            errs[device].append(float((dev * dev).sum(dim=1).mean()))
+        if device == "cuda":
+            expect_launches(f"(L1) gossip stage at {n} nodes",
+                            wire_stage_gossip=rounds, round_mix=rounds)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(errs["cuda"], errs["cpu"]))
+    if rel > LOSS_RTOL or not errs["cuda"][-1] < errs["cuda"][0]:
+        raise AssertionError(f"(L1) gossip stage: consensus errors {errs['cuda']} vs the "
+                             f"host CPU's {errs['cpu']}")
+    counts["wire_stage_gossip"] = rounds
+    counts["round_mix"] += rounds
+    log(f"  (L1) make_compressed_flat_gossip at ({n}, {flat0.shape[1]}), a perturbed init "
+        f"(perturb 0.1): {rounds} wire_stage_gossip + {rounds} round_mix launches; "
+        f"consensus error {errs['cuda'][0]:.4e} -> {errs['cuda'][-1]:.4e}, against the host "
+        f"CPU's rel {rel:.2e}")
+    return counts
+
+
+def wire_knob_paths(group, cpu_group) -> dict:
+    """(L2) item 9's knobs, each (error_feedback, difference_coding) with a
+    knob off: FD-DSGT on the paper's 20 hospitals, 5 rounds at Q = 10,
+    sequential and bounded staleness k = 2, on ``fused`` (hospital20's W)
+    and on one-rank ``sharded_fused`` over the all-gather wire (the same
+    W) and the circulant torus (a ring of 20), each held to the same run
+    on the host CPU (the twins; a gloo group for the sharded runs) within
+    the multi-round tolerances, its launches counted."""
+    data = generate_ehr_cohort(seed=0)
+    counts = {}
+    for (ef, dc), schedule in itertools.product(KNOB_RUNS, ("sequential",
+                                                             "bounded_staleness:k=2")):
+        knobs = dict(error_feedback=ef, difference_coding=dc, fl_schedule=schedule)
+        tag = f"ef={int(ef)} dc={int(dc)} {schedule}"
+        fused_kernel = "fused_round_gt" if schedule == "sequential" else "wire_stage_gt"
+        zero_counts()
+        out = run_fused_engine(rounds=5, q=10, device="cuda", **knobs)
+        expect_launches(f"(L2) fused {tag}", **{fused_kernel: 5})
+        cpu = run_fused_engine(rounds=5, q=10, device="cpu", **knobs)
+        notes = [f"fused {_held(f'(L2) fused {tag}', out['losses'], cpu['losses'], out['bal_acc'], cpu['bal_acc'])}"]
+        counts[fused_kernel] = counts.get(fused_kernel, 0) + 5
+        for wire, w in (("all-gather", "hospital20"), ("torus", None)):
+            zero_counts()
+            got = run_sharded_engine(group, 5, 10, w=w, log=False, **knobs)
+            expect_launches(f"(L2) sharded {wire} {tag}", wire_stage_gt=5)
+            host = run_sharded_engine(cpu_group, 5, 10, w=w, log=False, **knobs)
+            bal = [_bal_acc(tree_map(lambda p: p.mean(dim=0),
+                                     r["engine"].params_view(r["state"].params)), data)
+                   for r in (got, host)]
+            notes.append(f"sharded {wire} " + _held(f"(L2) sharded {wire} {tag}",
+                                                    got["losses"], host["losses"], *bal))
+            counts["wire_stage_gt"] = counts.get("wire_stage_gt", 0) + 5
+        log(f"  (L2) {tag}, 5 rounds: " + "; ".join(notes))
+    return counts
 
 
 def dynamic_run(device: str, algorithm: str, schedule: str, topology_program,
@@ -2332,10 +2625,12 @@ GRAD_MODELS = [("smollm-360m", 2, ("float32", "bfloat16")),
                ("rwkv6-7b", 1, ("float32",))]
 GRAD_NODES, TRAIN_SEQ = 2, 128
 # (t2) SmolLM-360M at full width and depth through train_decentralized:
-# FD-DSGT Q = 2, batch 1, S 128, 3 rounds on the tree engine (4 nodes on
+# FD-DSGT Q = 2, batch 1, S 128, one round on the tree engine (4 nodes on
 # a ring) and on the fused engine (int8 wire, chunk 512; 2 nodes: the
-# round kernel's 14 (n, total) fp32 buffers take 40.5 GB at n = 2)
+# round kernel's 14 (n, total) fp32 buffers take 40.5 GB at n = 2), then
+# one more under the profiler; (b4) trains TRAIN_ROUNDS through the launcher
 TRAIN_ARCH, TREE_NODES, FUSED_NODES, TRAIN_ROUNDS, TRAIN_Q = "smollm-360m", 4, 2, 3, 2
+T2_ROUNDS = 1
 TRAIN_ALPHA0 = 0.02
 # round 1's local_loss, card against the host CPU from the same init: one
 # bf16 model summed in another order (a full-depth training round takes
@@ -2534,8 +2829,8 @@ def check_round_at(card: str, state, engine, n: int) -> dict:
 
 def training_paths(card: str) -> dict:
     """(t2) SmolLM-360M at full width and depth through
-    ``train_decentralized``: 3 FD-DSGT rounds on the tree engine (2
-    nodes), then 3 on the fused engine (2 nodes), each's round-1
+    ``train_decentralized``: one FD-DSGT round on the tree engine (4
+    nodes), then one on the fused engine (2 nodes), each's round-1
     ``local_loss`` (the init's loss, forward only) against the host
     CPU's at full depth from the same init, then ``fused_round_gt`` at
     (2, 361.8M); the launches, host clock, device operations and busy
@@ -2555,14 +2850,14 @@ def training_paths(card: str) -> dict:
     log(f"  the init's per-node losses on the host CPU at full depth: "
         f"{[round(x, 5) for x in cpu_init]} ({time.perf_counter() - t0:.1f} s)")
     for engine, nodes in (("tree", TREE_NODES), ("fused", FUSED_NODES)):
-        flash = TRAIN_ROUNDS * TRAIN_Q * nodes * layers * 2
+        flash = T2_ROUNDS * TRAIN_Q * nodes * layers * 2
         want = {"flash_attention": flash}
         if engine == "fused":
-            want["fused_round_gt"] = TRAIN_ROUNDS
+            want["fused_round_gt"] = T2_ROUNDS
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
         res = train_run(engine, nodes, "cuda", tree_map(lambda a: a.cuda(), host),
-                        TRAIN_ROUNDS)
+                        T2_ROUNDS)
         expect_launches(f"SmolLM-360M {engine} training", **want)
         for name, count in want.items():
             out["counts"][name] = out["counts"].get(name, 0) + count
@@ -2570,15 +2865,14 @@ def training_paths(card: str) -> dict:
         losses = list(res.history.column("loss"))
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"SmolLM-360M {engine}: losses {losses}")
-        times = round_times(res.history)
-        step_ms = float(statistics.median(times[1:])) * 1e3
+        # one round: its host clock includes its first calls' warm-up
+        step_ms = round_times(res.history)[0] * 1e3
         tokens_s = nodes * TRAIN_Q * TRAIN_SEQ / (step_ms / 1e3)
         log(f"  SmolLM-360M ({cfg.param_count():,} params, {layers} layers) on {engine}, "
-            f"{nodes} nodes, FD-DSGT Q={TRAIN_Q}, S {TRAIN_SEQ}, {TRAIN_ROUNDS} rounds: "
-            f"launches {want}; losses {[round(float(x), 4) for x in losses]}; host clock "
-            f"per round {[round(float(t) * 1e3, 1) for t in times]} ms (median of rounds 2-{TRAIN_ROUNDS} "
-            f"{step_ms:.1f} ms, {tokens_s:,.0f} training tokens/s); peak memory "
-            f"{peak:.2f} GB [{card}]")
+            f"{nodes} nodes, FD-DSGT Q={TRAIN_Q}, S {TRAIN_SEQ}, {T2_ROUNDS} round: "
+            f"launches {want}; losses {[round(float(x), 4) for x in losses]}; host clock of "
+            f"the round {step_ms:.1f} ms (its first calls' warm-up included; "
+            f"{tokens_s:,.0f} training tokens/s); peak memory {peak:.2f} GB [{card}]")
         local = res.history.rows()[0]["local_loss"]
         want_local = float(np.mean(cpu_init[:nodes]))
         if abs(local - want_local) > TRAIN_LOSS_RTOL * abs(want_local):
@@ -2842,6 +3136,30 @@ def timings(card: str, floor_ms: float) -> dict:
     rows["rounds"]["tree q100"] = round_profile(card, engine="tree", q=100,
                                                 class_weight=None, rounds=10,
                                                 warmup=2, profiled=2)
+    return rows
+
+
+def two_pass_timings(card: str) -> dict:
+    """The two-pass route at ``kb.FEDERATION`` (1,024 nodes, 262,144
+    columns, ER p = 0.01), DSGD and DSGT: the route, its wire stage and
+    its mix, each against its twin, through ``kernel_bench``; then the
+    wire stage's and the mix's µs beside the route's bound (the bytes the
+    round must move once over 3.35 TB/s, or its operations)."""
+    rows = kb.time_cases(kb.two_pass_cases(), card)
+    label, n, t = kb.FEDERATION[:3]
+    w_off, _ = kb.federation_weights()
+    log(f"  W_off: {kb.mix_terms(w_off):.2f} nonzeros a row (the mix's bound counts these); "
+        f"the kernel runs {kb.kernel_mix_terms(w_off):.2f} terms a row (4 x 4 blocks)")
+    for name in ("gossip_mix", "fused_round", "fused_round_gt"):
+        wire_name = kb.ROUTE_WIRES[name][0].__name__
+        route, wire = rows[(name, f"{label} route")], rows[(wire_name, f"{label} {name}")]
+        mix = rows[("round_mix", f"{label} {name}")]
+        log(f"  {name} two-pass route at ({n}, {t:,}): route {route['ms'] * 1e3:.2f} us = "
+            f"{wire_name} {wire['ms'] * 1e3:.2f} ({wire['bound_ms'] / wire['ms']:.1%} of its "
+            f"bound) + round_mix {mix['ms'] * 1e3:.2f} us ({mix['bound_ms'] / mix['ms']:.1%} "
+            f"of its bound {mix['bound_ms'] * 1e3:.2f} by {mix['bound_by']}), against the "
+            f"route's bound {route['bound_ms'] * 1e3:.2f} us by {route['bound_by']} "
+            f"({route['bound_ms'] / route['ms']:.1%} of it) [{card}]")
     return rows
 
 
@@ -3905,8 +4223,8 @@ TORUS_WIRE = {"FD-DSGT sequential int8": 247_680, "FD-DSGT pipelined int8": 247_
               "FD-DSGT backbone int8 chunk 128": 232_320,
               "FD-DSGT axes_subset=data int8": 123_840, "FD-DSGD sequential int8": 123_840}
 # (c2) train_100m on sharded_fused: SmolLM-360M at full width and depth, a
-# ring of 2 over the node axis, 3 FD-DSGT rounds (Q and alpha as phase 5)
-LM_ARGS = ["--arch", "smollm-360m", "--nodes", "2", "--rounds", "3", "--q", str(TRAIN_Q),
+# ring of 2 over the node axis, one FD-DSGT round (Q and alpha as phase 5)
+LM_ARGS = ["--arch", "smollm-360m", "--nodes", "2", "--rounds", "1", "--q", str(TRAIN_Q),
            "--alpha0", str(TRAIN_ALPHA0), "--ckpt", ""]
 LM_LOSS_RTOL = 1e-3
 
@@ -4024,16 +4342,16 @@ def lm_torus_path(card: str) -> dict:
     """(c2) ``examples/train_100m.py --fl-engine sharded_fused --arch
     smollm-360m --nodes 2 --model-shards 1``: full width and depth, the
     ring of 2 over the node axis on a one-rank NCCL group (the one card),
-    3 FD-DSGT rounds -- its launches (one ``wire_stage_gt`` a round, the
-    flash kernel twice a layer, node and step under remat), the host
-    clock a round, a profiled extra round's busy share, peak memory; then
+    one FD-DSGT round -- its launches (one ``wire_stage_gt`` a round, the
+    flash kernel twice a layer, node and step under remat), its host
+    clock, a profiled extra round's busy share, peak memory; then
     the same command on ``--fl-engine fused`` (the ring's W is the
     torus's dense equivalent), whose losses the sharded run's must equal
     within 1e-3 relative."""
     from repro_torch.examples import train_100m
 
     cfg = get_config(TRAIN_ARCH)
-    nodes, rounds, layers = 2, 3, cfg.n_layers
+    nodes, rounds, layers = 2, 1, cfg.n_layers
     flash = rounds * TRAIN_Q * nodes * layers * 2
     tmp = tempfile.mkdtemp()
     out = {}
@@ -4043,7 +4361,7 @@ def lm_torus_path(card: str) -> dict:
                         flash_attention=flash)
         peak = torch.cuda.max_memory_allocated() / 1e9
         times = round_times(result.history)
-        step_ms = float(statistics.median(times[1:])) * 1e3
+        step_ms = times[0] * 1e3  # one round, its first calls' warm-up included
         eng = result.engine
         fl = FLConfig(algorithm="dsgt", q=TRAIN_Q, n_nodes=nodes)
         round_fn = make_fl_round(build_model(cfg).loss_fn, inv_sqrt(TRAIN_ALPHA0), fl, eng)
@@ -4097,13 +4415,12 @@ def lm_torus_path(card: str) -> dict:
                              f"{fused_losses} (rel {rel})")
     log(f"  (c2) SmolLM-360M ({cfg.param_count():,} params, {layers} layers) through "
         f"train_100m on sharded_fused, a ring of {nodes} ({info['dirs']} direction, "
-        f"{info['messages']} messages: one rank), FD-DSGT Q={TRAIN_Q}, {rounds} rounds "
+        f"{info['messages']} messages: one rank), FD-DSGT Q={TRAIN_Q}, {rounds} round "
         f"({sharded_s:.1f} s): launches wire_stage_gt {rounds}, flash_attention {flash}; "
         f"wire {info['wire']:,.0f} B/round; losses {[round(x, 5) for x in losses]} vs "
         f"fused {[round(x, 5) for x in fused_losses]} ({fused_s:.1f} s; rel {rel:.2e}); "
-        f"host clock per round {[round(float(t) * 1e3, 1) for t in info["times"]]} ms (median of "
-        f"rounds 2-{rounds} {info['round_ms']:.1f} ms); peak memory {info['peak_gb']:.2f} GB "
-        f"[{card}]")
+        f"host clock of the round {info['round_ms']:.1f} ms (its first calls' warm-up "
+        f"included); peak memory {info['peak_gb']:.2f} GB [{card}]")
     out["counts"] = {"wire_stage_gt": rounds, "fused_round_gt": rounds,
                      "flash_attention": 2 * flash}
     out["measured"] = info.pop("measured")
@@ -4321,6 +4638,8 @@ def main() -> int:
                **check_compact_stages(), **check_attention_kernels(),
                **check_scan_kernels()}
     check_dp_epilogue()
+    section("  -- the two-pass route past the one-pass plan")
+    max_err.update(check_two_pass())
 
     phase("phase 3: paths (launches counted per run)")
     launches = main_path()
@@ -4342,6 +4661,10 @@ def main() -> int:
     cpu_group = NodeGroup(dist.new_group(backend="gloo"), 0, 1, torch.device("cpu"))
     for counts in (sharded_dynamic_path(group, cpu_group), privacy_fused_path(),
                    privacy_driver_path(), sharded_dp_path(group)):
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+    section("  -- (L1) a federation past the one-pass plan, (L2) item 9's knobs")
+    for counts in (large_federation_path(), wire_knob_paths(group, cpu_group)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     section("  -- the federation scope (s1)-(s4), checkpoints and snapshots")
@@ -4369,6 +4692,8 @@ def main() -> int:
     rows["rounds"].update(axis_timings(card, group))
     rows["rounds"].update(scope_timings(card))
     stop_group(group)
+    section("  -- the two-pass route at 1,024 nodes")
+    rows.update(two_pass_timings(card))
     section("  -- attention and scan kernels")
     rows.update(attention_timings(card))
     rows.update(scan_timings(card, floor_ms))
@@ -4401,6 +4726,39 @@ def main() -> int:
         })
         if name == "fused_round_gt":  # at the fused training run's (2, 361.8M)
             kernels[-1]["training_shape"] = train["rows"]["fused_round_gt"]
+        if name in ROUND_WRAPPERS:  # the two-pass route past the one-pass plan
+            label, wire = kb.FEDERATION[0], kb.ROUTE_WIRES[name][0].__name__
+            route = rows[(name, f"{label} route")]
+            kernels[-1]["two_pass"] = {
+                "wire_stage": wire, "mix": "round_mix", "shape": list(kb.FEDERATION[1:3]),
+                "route_ms": route["ms"], "plain_ms": route["plain_ms"],
+                "bound_ms": route["bound_ms"], "bound_by": route["bound_by"],
+                "wire_ms": rows[(wire, f"{label} {name}")]["ms"],
+                "mix_ms": rows[("round_mix", f"{label} {name}")]["ms"]}
+    # the two-pass route's mix kernel, part of rows 1-3: launched by (L1)'s
+    # paths (their rounds refuse the one-pass plan), timed at the
+    # 1,024-node federation's DSGT round
+    row = rows[("round_mix", f"{kb.FEDERATION[0]} fused_round_gt")]
+    kernels.append({
+        "name": "round_mix", "route": "cuda", "source": kb.CSRC + "round_mix.cu",
+        "replaces": "src/repro/kernels/gossip/gossip.py:199",
+        "part_of": sorted(ROUND_WRAPPERS), "launches": launches["round_mix"],
+        "max_abs_err": max_err["round_mix"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+    })
+    # the gossip stage's two-pass wire stage, part of row 3: launched by
+    # (L1)'s gossip path, timed at the 1,024-node federation (no int8
+    # store, as the route runs it)
+    row = rows[("wire_stage_gossip", f"{kb.FEDERATION[0]} gossip_mix")]
+    kernels.append({
+        "name": "wire_stage_gossip", "route": "cuda", "source": kb.CSRC + "wire_stage.cu",
+        "replaces": "src/repro/kernels/gossip/gossip.py:378",
+        "part_of": ["gossip_mix"], "launches": launches["wire_stage_gossip"],
+        "max_abs_err": max_err["wire_stage_gossip"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+    })
     for name, (_, _, _, replaces, source) in COMPACT_KERNELS.items():
         row = rows[(name, "main")]
         kernels.append({

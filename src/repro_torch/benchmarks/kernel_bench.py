@@ -18,7 +18,8 @@ attention). The counters below are the one copy of those counts:
 Shapes (``PERF.md`` section 6): the gossip kernels at the paper's (20,
 1536) buffer at chunk 512 (``main``), (64, 1,048,576) (``large``) and
 the main shape on the top-64 wire (the compact stages also top-16
-positions); decode attention at SmolLM-360M's serving path (B 8, 191 of
+positions); the round kernels' two-pass route, its wire stage and its
+mix at 1,024 nodes (``federation-1024``, on the card only); decode attention at SmolLM-360M's serving path (B 8, 191 of
 4,096 slots live), a full 32,768-slot cache and RecurrentGemma-2B's hd
 256; flash at the path's prefill (B 8, S 128), S 4096 and hd 256 in a
 2048 window; the scans at RWKV6-7B's / RecurrentGemma-2B's prefill (S
@@ -71,9 +72,13 @@ from repro_torch.kernels.gossip.ops import (
     fused_round,
     fused_round_gt,
     gossip_mix,
+    mix_blocks,
     plan_round,
+    plan_route,
+    round_mix,
     wire_stage,
     wire_stage_compact,
+    wire_stage_gossip,
     wire_stage_gt,
     wire_stage_gt_compact,
 )
@@ -81,7 +86,9 @@ from repro_torch.kernels.gossip.ref import (
     fused_round_gt_ref,
     fused_round_ref,
     gossip_mix_ref,
+    round_mix_ref,
     wire_stage_compact_ref,
+    wire_stage_gossip_ref,
     wire_stage_gt_compact_ref,
     wire_stage_gt_ref,
     wire_stage_ref,
@@ -92,7 +99,7 @@ from repro_torch.kernels.rwkv6_scan.ops import wkv6
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
 __all__ = ["HBM_BYTES_S", "FP32_OPS_S", "BF16_OPS_S", "Case", "bound", "device_ms",
-           "gossip_cases", "compact_cases", "attention_cases", "scan_cases",
+           "gossip_cases", "two_pass_cases", "compact_cases", "attention_cases", "scan_cases",
            "decode_case", "flash_case", "combine_case", "time_case", "time_cases",
            "launch_floor", "run", "main"]
 
@@ -123,6 +130,13 @@ GOSSIP_KERNELS = {
                    CSRC + "fused_round_cluster.cu"),
 }
 ALL_KERNELS = {**GOSSIP_KERNELS, **KERNELS, **WIRE_KERNELS}
+# the wire stage that is pass 1 of each round's two-pass route (with no
+# int8 store), by round: name -> (wire wrapper, its twin, takes alpha)
+ROUTE_WIRES = {
+    "gossip_mix": (wire_stage_gossip, wire_stage_gossip_ref, False),
+    "fused_round": (wire_stage, wire_stage_ref, True),
+    "fused_round_gt": (wire_stage_gt, wire_stage_gt_ref, True),
+}
 COMPACT_KERNELS = {
     "wire_stage_compact": (wire_stage_compact, wire_stage_compact_ref, 1,
                            "src/repro/kernels/gossip/gossip.py:853",
@@ -153,6 +167,11 @@ TOPK_MAIN = 64  # the reference example's --topk
 # and a shape that makes the gossip kernels bandwidth-bound
 MAIN = ("main", 20, 1536, 512, "hospital20")
 LARGE = ("large", 64, 1 << 20, 512, "torus:8x8")
+# the first federation whose rounds only the two-pass route serves at
+# this width: 1,024 nodes on an Erdos-Renyi graph of about ten neighbours
+# a node (p = 0.01), 262,144 columns (1 GB a buffer)
+FEDERATION = ("federation-1024", 1024, 262_144, 512, "erdos_renyi")
+FEDERATION_P = 0.01
 # attention: (label, B, cache slots, live slots, q-heads, kv-heads, hd):
 # SmolLM-360M's serving path at its last decode step (128 + 64 tokens),
 # a full 32,768-slot cache, RecurrentGemma-2B's at its last (128 + 32,
@@ -217,17 +236,22 @@ def update_ops(n: int, t: int, wires: int) -> int:
 
 
 def mix_terms(w_off: torch.Tensor) -> float:
-    """The multiply-adds a row of the round kernels' mix takes, averaged
-    over the rows: the kernel runs 4 x 4 blocks of W_off and skips the
-    all-zero ones, so a row group of 4 rows takes 4 terms for each
-    nonzero block of its 4 rows (at most n)."""
-    w = w_off.detach().cpu().numpy() != 0
-    n = w.shape[0]
-    n_pad = -(-n // 4) * 4
-    pad = np.zeros((n_pad, n_pad), bool)
-    pad[:n, :n] = w
-    blocks = pad.reshape(n_pad // 4, 4, n_pad // 4, 4).any(axis=(1, 3))
-    return float(np.mean([min(n, 4 * int(blocks[i // 4].sum())) for i in range(n)]))
+    """The multiply-adds a row of the mix ``W_off @ nbr`` needs, averaged
+    over the rows: W_off's nonzeros a row, the function's work on this
+    run's W. (The kernels run W_off's nonzero 4 x 4 blocks, zeros inside
+    a block included: :func:`kernel_mix_terms`.)"""
+    return float(torch.count_nonzero(w_off.detach()).item()) / w_off.shape[0]
+
+
+def kernel_mix_terms(w_off: torch.Tensor) -> float:
+    """The multiply-adds a row the kernels' mix runs, averaged over the
+    rows: a row group of 4 rows takes 4 terms for each nonzero 4 x 4
+    block of W_off in its rows (``ops.mix_blocks``; at most n). Not a
+    bound's count (:func:`mix_terms` is): what the kernel does beyond
+    the function's work."""
+    n = w_off.shape[0]
+    blocks = mix_blocks(w_off.detach().cpu())
+    return float(np.mean([min(n, 4 * len(blocks[i // 4])) for i in range(n)]))
 
 
 def round_ops(n: int, t: int, chunk: int, wires: int, topk=None, terms=None) -> int:
@@ -279,19 +303,44 @@ def gossip_ops(n: int, t: int, chunk: int, topk=None, terms=None, adds: int = 0)
     return int(n * t * per_element) + adds + 2 * n * (t // chunk)
 
 
-def wire_bytes_moved(n: int, t: int, chunk: int, wires: int) -> int:
+def wire_bytes_moved(n: int, t: int, chunk: int, wires: int, q: bool = True) -> int:
     """HBM bytes one wire-stage kernel must move: each (n, t) fp32 input
-    read once (DSGD 4, DSGT 8), each output written once (DSGD h,
-    recon', res' and the int8 q; DSGT also t_half and a second wire),
-    the scales and alpha."""
-    if wires == 1:
-        return 4 * (4 + 3) * n * t + n * t + 4 * n * (t // chunk) + 4
-    return 4 * (8 + 6) * n * t + 2 * n * t + 2 * 4 * n * (t // chunk) + 4
+    read once (the gossip stage, ``wires`` :data:`GOSSIP_STAGE`, 3; DSGD
+    4; DSGT 8), each output written once (recon' and res' a wire, DSGD's
+    h, DSGT's h and t_half, and the int8 q a wire unless ``q`` is False,
+    as on the two-pass route), the scales and alpha (no update, no
+    alpha for the gossip stage)."""
+    reads, writes = {GOSSIP_STAGE: (3, 2), 1: (4, 3), 2: (8, 6)}[wires]
+    nw = max(wires, 1)
+    return (4 * (reads + writes) * n * t + (nw * n * t if q else 0)
+            + 4 * nw * n * (t // chunk) + (4 if wires else 0))
 
 
 def wire_ops(n: int, t: int, chunk: int, wires: int, topk=None) -> int:
-    """fp32 operations of one wire-stage kernel (csrc/wire_stage.cu)."""
-    return wires * stage_ops(n, t, chunk, topk) + update_ops(n, t, wires)
+    """fp32 operations of one wire-stage kernel (csrc/wire_stage.cu): the
+    gossip stage's one wire has no update."""
+    return max(wires, 1) * stage_ops(n, t, chunk, topk) + update_ops(n, t, wires)
+
+
+def mix_bytes(n: int, t: int, wires: int) -> int:
+    """HBM bytes the two-pass route's mix kernel (csrc/round_mix.cu) must
+    move: each wire's neighbour view and self term read once and its
+    mixed written once, W_off and w_self."""
+    return 4 * (3 * wires * n * t + n * n + n)
+
+
+def mix_ops(n: int, t: int, wires: int, terms=None) -> int:
+    """fp32 operations of the mix, per element and wire: the
+    multiply-adds of W_off's nonzeros, ``terms`` a row (:func:`mix_terms`
+    of this run's W_off; n if dense), and w_self * self (mul, add)."""
+    terms = n if terms is None else terms
+    return int(wires * n * t * (2 + 2 * terms))
+
+
+def route_ops(n: int, t: int, chunk: int, wires: int, topk=None, terms=None) -> int:
+    """Operations of a round on the two-pass route: the wire pass's and
+    the mix's."""
+    return wire_ops(n, t, chunk, wires, topk) + mix_ops(n, t, max(wires, 1), terms)
 
 
 def compact_bytes_moved(n: int, t: int, chunk: int, wires: int, topk: int,
@@ -498,8 +547,8 @@ def make_inputs(n: int, t: int, chunk: int, wires: int, label: str, seed: int,
     return bufs
 
 
-def weights(topology: str, n: int, device="cuda"):
-    w = mixing_matrix(topology, n)
+def weights(topology: str, n: int, device="cuda", **kw):
+    w = mixing_matrix(topology, n, **kw)
     w_self = torch.tensor(np.diag(w).astype(np.float32), device=device)
     w_off = torch.tensor((w - np.diag(np.diag(w))).astype(np.float32), device=device)
     return w_off, w_self
@@ -510,6 +559,13 @@ def fused_plan(name: str, n: int, t: int, chunk: int, topk):
     round kernel or the gossip stage on this card."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return plan_round(n, t, chunk, topk, {**KERNELS, **GOSSIP_KERNELS}[name][2], sms)
+
+
+def route_plan(name: str, n: int, t: int, chunk: int, topk):
+    """The route (``ops.plan_route``) a round kernel or the gossip stage
+    takes on this card: ``(route, plan)``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return plan_route(n, t, chunk, topk, {**KERNELS, **GOSSIP_KERNELS}[name][2], sms)
 
 
 def combine_inputs(splits: int, b: int, h: int, hd: int, gen, device="cuda"):
@@ -683,6 +739,64 @@ def gossip_cases(device="cuda", want=_all, earlier=None, floor_ms=None,
                 twin=None if args is None else (lambda k=twin, a=args, kw=kw: k(*a, **kw)),
                 note=note)
             del bufs, args
+
+
+def federation_weights(device="cuda"):
+    """W_off and w_self of :data:`FEDERATION`'s graph."""
+    return weights(FEDERATION[4], FEDERATION[1], device, p=FEDERATION_P)
+
+
+def two_pass_cases(device="cuda", counts_only: bool = False) -> Iterator[Case]:
+    """The round kernels' two-pass route (``ops.plan_route``) at
+    :data:`FEDERATION`, for the gossip stage, DSGD and DSGT: the route
+    through the wrapper (two launches), its wire pass alone (the wire
+    stage of :data:`ROUTE_WIRES` with no int8 store, twin the wire
+    stage's) and its mix alone (``ops.round_mix``). The route's bound is
+    the round's: the bytes the function must move once
+    (:func:`round_bytes`, :func:`gossip_bytes`) against the operations of
+    both passes for this run's W_off. ``counts_only``: no inputs, no
+    calls."""
+    label, n, t, chunk, _ = FEDERATION
+    w_off, w_self = federation_weights(device)
+    terms = mix_terms(w_off)
+    for name in ("gossip_mix", "fused_round", "fused_round_gt"):
+        kernel, twin, wires, _, _ = {**GOSSIP_KERNELS, **KERNELS}[name]
+        wire_kernel, wire_twin, takes_alpha = ROUTE_WIRES[name]
+        nw, alpha = max(wires, 1), (ALPHA,) if takes_alpha else ()
+        bufs = None if counts_only else make_inputs(n, t, chunk, wires, label, seed=0,
+                                                    device=device)
+        round_args = (w_off, w_self) + alpha
+        dims = f"{n}x{t}"
+        cases = [
+            (name, f"{label} route",
+             gossip_bytes(n, t, chunk) if name in GOSSIP_KERNELS
+             else round_bytes(n, t, chunk, wires),
+             route_ops(n, t, chunk, wires, None, terms),
+             lambda b, k=kernel, a=round_args: k(*b, *a, scale_chunk=chunk),
+             lambda b, k=twin, a=round_args: k(*b, *a, scale_chunk=chunk)),
+            (wire_kernel.__name__, f"{label} {name}",
+             wire_bytes_moved(n, t, chunk, wires, q=False), wire_ops(n, t, chunk, wires),
+             lambda b, k=wire_kernel, a=alpha: k(*b, *a, scale_chunk=chunk, store_q=False),
+             lambda b, k=wire_twin, a=alpha: k(*b, *a, scale_chunk=chunk)),
+            ("round_mix", f"{label} {name}", mix_bytes(n, t, nw),
+             mix_ops(n, t, nw, terms),
+             # any (n, t) buffers serve: the recons as the neighbour
+             # views, x (DSGT: x and t) as the self terms
+             lambda b, w=wires: round_mix(w_off, w_self, _mix_nbrs(b, w), b[:max(w, 1)]),
+             lambda b, w=wires: tuple(round_mix_ref(w_off, w_self, a, s)
+                                      for a, s in zip(_mix_nbrs(b, w), b[:max(w, 1)]))),
+        ]
+        for kernel_name, key, nbytes, ops, run, twin_run in cases:
+            yield Case(kernel_name, key, key, dims, nbytes, ops, "gossip",
+                       run=None if bufs is None else (lambda r=run, b=bufs: r(b)),
+                       twin=None if bufs is None else (lambda r=twin_run, b=bufs: r(b)),
+                       twin_reps={"reps": 10, "warmup": 1})
+        del bufs
+
+
+def _mix_nbrs(bufs, wires: int):
+    """The recon buffers among a round's inputs (``make_inputs``' order)."""
+    return (bufs[wires + 1],) if wires < 2 else (bufs[4], bufs[6])
 
 
 def compact_cases(device="cuda", want=_all, earlier=None, floor_ms=None,
@@ -922,6 +1036,8 @@ def run(device="cuda", shapes=None, card: Optional[str] = None) -> List[dict]:
     for cases in (gossip_cases(dev, want), compact_cases(dev, want),
                   attention_cases(dev, want), scan_cases(dev, want)):
         rows.update(time_cases(cases, card, floor_ms, dev))
+    if on_card and want(FEDERATION[0]):  # the two-pass route runs on the card only
+        rows.update(time_cases(two_pass_cases(dev), card, floor_ms, dev))
 
     def us(ms):
         return None if ms is None else ms * 1e3
@@ -939,8 +1055,9 @@ def main(argv=None) -> List[dict]:
                     help="torch device; 'cpu' times the twins alone (null kernel columns)")
     ap.add_argument("--shapes", default=None,
                     help="comma-separated shape labels to time (main, large, path, "
-                         "'path prefill', 'path decode', 'hd256 path'); default all on "
-                         "the card, all but 'large' on the CPU")
+                         "'path prefill', 'path decode', 'hd256 path', and on the card "
+                         "federation-1024, the round kernels' two-pass route); default all "
+                         "on the card, all but 'large' on the CPU")
     ap.add_argument("--out", default="experiments/kernel_bench_torch.json")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)

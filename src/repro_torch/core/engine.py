@@ -1146,6 +1146,24 @@ def _reject_node_program(program, name: str, reason: str) -> NodeProgram:
     return prog
 
 
+def _wire_kwargs(engine: "GossipEngine") -> Dict:
+    """A fused engine's wire knobs, as the kernel wrappers take them."""
+    return dict(scale_chunk=engine.scale_chunk, topk=engine.topk,
+                error_feedback=engine.error_feedback,
+                difference_coding=engine.difference_coding)
+
+
+def _require_ef_for_dp(privacy: PrivacySpec, error_feedback: bool) -> None:
+    """The fused engines' refusal of ``dp`` without error feedback (the
+    reference's message)."""
+    if privacy.dp and not error_feedback:
+        raise ValueError(
+            "dp noise rides the EF residual (res-substitution in the "
+            "wire-stage epilogue); build the engine with "
+            "error_feedback=True or drop the dp token"
+        )
+
+
 def _refuse_exact_wire(name: str, topk, round_schedule, scope) -> None:
     """What the reference's exact-wire engines refuse, with its messages:
     the top-k wire, a schedule other than the blocking one, and a partial
@@ -1379,8 +1397,18 @@ class FusedEngine(GossipEngine):
     fused_round`` / ``fused_round_gt``) on the sequential and pipelined
     schedules, the wire-stage kernel (``wire_stage`` / ``wire_stage_gt``)
     plus a PyTorch mix at staleness depth k >= 2. On CPU tensors the
-    kernel wrappers run their PyTorch twins. The wire is always
-    difference-coded with error feedback (the kernels' defaults).
+    kernel wrappers run their PyTorch twins; on the card a federation
+    whose round the one-pass kernel cannot hold in a block's shared
+    memory takes the wrappers' two-pass route (``kernels.gossip.
+    plan_route``: the wire stage, then the mix kernel), with the same
+    outputs.
+
+    ``error_feedback`` / ``difference_coding`` (both on by default) are
+    the reference's knobs, handed to the kernels: without error feedback
+    the residual stays as it was (zeros), without difference coding each
+    payload is the whole vector, so recon is the last payload and the
+    depth-k ring holds k payloads, not k-1 (:meth:`_ring_depth`). ``dp``
+    needs error feedback.
 
     ``privacy``: ``dp`` clips and noises each round's payload in the
     kernels' quantize epilogue (the wrappers' residual substitution, still
@@ -1404,16 +1432,20 @@ class FusedEngine(GossipEngine):
 
     def __init__(self, w: np.ndarray, layout: FlatLayout, *,
                  scale_chunk: int = 512, device=None, topk=None,
+                 error_feedback: bool = True, difference_coding: bool = True,
                  round_schedule=None, wire_dtype=None, topology_program=None,
                  node_program=None, privacy=None, scope=None,
                  storage_dtype=None):
         if wire_dtype is not None:
             raise ValueError(
-                "the fused engines' wire is always difference-coded int8; "
+                "the fused engines' wire is always int8; "
                 "wire_dtype only applies to the tree/flat exact-wire engines"
             )
         layout = _fused_layout(layout, storage_dtype, self.name)
         self.privacy = resolve_privacy(privacy)
+        _require_ef_for_dp(self.privacy, error_feedback)
+        self.error_feedback = error_feedback
+        self.difference_coding = difference_coding
         if scale_chunk < 1:
             raise ValueError("scale_chunk must be >= 1")
         if topk is not None and topk < 1:
@@ -1454,9 +1486,12 @@ class FusedEngine(GossipEngine):
         already lags the mix by one round (the ``k=1`` ``stale_mix``
         kernel needs no extra buffer), and with difference coding the
         k-round-stale reconstruction is ``recon^(r-1) - sum of the last
-        k-1 payloads``, so the ring holds k-1."""
+        k-1 payloads``, so the ring holds k-1; without it recon is the
+        last payload, so the ring holds k and the mix reads the oldest."""
         k = self.staleness_depth
-        return 0 if k <= 1 else k - 1
+        if k <= 1:
+            return 0
+        return k - 1 if self.difference_coding else k
 
     def _known_comm_keys(self) -> frozenset:
         return super()._known_comm_keys() | frozenset(
@@ -1534,8 +1569,7 @@ class FusedEngine(GossipEngine):
         # pipelined: the kernel's stale_mix contracts W against the INPUT
         # recon -- the neighbor reconstruction as of the end of the
         # previous round -- so depth 1 needs no extra buffer
-        kw = dict(scale_chunk=self.scale_chunk, topk=self.topk,
-                  stale_mix=self.pipelined)
+        kw = dict(_wire_kwargs(self), stale_mix=self.pipelined)
         egress = self.wire_bytes(cfg)
         wires = 2 if cfg.algorithm == "dsgt" else 1
 
@@ -1592,11 +1626,16 @@ class FusedEngine(GossipEngine):
         (:meth:`_ring_depth`), and this round's payload pushed onto the
         ring (slot 0 is the oldest)."""
         chunk = self.scale_chunk
-        kw = dict(scale_chunk=chunk, topk=self.topk)
+        kw = _wire_kwargs(self)
         egress = self.wire_bytes(cfg)
         wires = 2 if cfg.algorithm == "dsgt" else 1
+        dc = self.difference_coding
 
         def stale_recon(recon, wq, wsc):
+            """recon^(r-k): recon less the ring's payloads (difference
+            coding), or the oldest payload itself (without it)."""
+            if not dc:
+                return _dequant(wq[:, 0], wsc[:, 0], chunk)
             mix = recon
             for j in range(wq.shape[1]):
                 mix = mix - _dequant(wq[:, j], wsc[:, j], chunk)
@@ -1802,6 +1841,13 @@ class ShardedFusedEngine(GossipEngine):
     upcast into the wire stage and rounded back after the mix; the wire
     buffers, recon, residual and the neighbor accumulators stay fp32.
 
+    ``error_feedback`` / ``difference_coding``: the reference's knobs, as
+    on ``fused``, on both wires. Without difference coding a node's
+    reconstruction is its last payload, so the neighbour term is rebuilt
+    from the round's wire alone: ``mix_recon'`` is the term itself, and
+    the dynamic round keeps no ``nbr_recon_*`` accumulators. ``dp`` and a
+    per-node wire k need error feedback.
+
     ``collectives`` and ``collective_bytes`` count the wire's messages
     (point-to-point sends, or all-gathers) and the bytes this rank hands
     them (the metrics' all-reduces are not wire traffic and do not
@@ -1819,7 +1865,7 @@ class ShardedFusedEngine(GossipEngine):
                  node_program=None, privacy=None, scope=None, storage_dtype=None):
         if wire_dtype is not None:
             raise ValueError(
-                "the fused engines' wire is always difference-coded int8; "
+                "the fused engines' wire is always int8; "
                 "wire_dtype only applies to the tree/flat exact-wire engines"
             )
         axes = group.axes(layout.n_nodes)
@@ -1841,12 +1887,7 @@ class ShardedFusedEngine(GossipEngine):
             layout = layout.with_shards(self.model_shards)
         layout = _fused_layout(layout, storage_dtype, self.name)
         self.privacy = resolve_privacy(privacy)
-        if self.privacy.dp and not error_feedback:
-            raise ValueError(
-                "dp noise rides the EF residual (res-substitution in the "
-                "wire-stage epilogue); build the engine with "
-                "error_feedback=True or drop the dp token"
-            )
+        _require_ef_for_dp(self.privacy, error_feedback)
         if self.privacy.secure_agg and w is not None:
             raise ValueError(
                 f"privacy spec {self.privacy.spec()!r}: secure_agg needs "
@@ -1874,10 +1915,8 @@ class ShardedFusedEngine(GossipEngine):
                     "clipping, which breaks the DP calibration; drop the "
                     "dp token or the wire-k program"
                 )
-        if not (error_feedback and difference_coding):
-            raise _not_ported(
-                "the sharded engine without difference coding or error feedback",
-                "9")
+        self.error_feedback = error_feedback
+        self.difference_coding = difference_coding
         if scale_chunk < 1 or layout.total % scale_chunk:
             raise ValueError(
                 f"layout.total {layout.total} not a multiple of scale_chunk "
@@ -2010,8 +2049,10 @@ class ShardedFusedEngine(GossipEngine):
         """The dynamic round's accumulators: one per torus direction on
         the circulant wire (``nbr_recon_{d}``, that neighbor's
         reconstruction), or the all-node replica ``nbr_recon_all`` on the
-        all-gather wire; none on a static round."""
-        if not self.dynamic_round:
+        all-gather wire; none on a static round, and none without
+        difference coding (the neighbour term is then rebuilt from the
+        round's wire alone)."""
+        if not (self.dynamic_round and self.difference_coding):
             return ()
         if self.torus is None:
             return ("nbr_recon_all" + suffix,)
@@ -2060,6 +2101,8 @@ class ShardedFusedEngine(GossipEngine):
             return all_gather_rows(recon, self.group.wire_pg, self.n_nodes)
 
         for suffix in ("", "_t") if "recon_t" in comm else ("",):
+            if self.dynamic_round and not self._nbr_key_names(suffix):
+                continue  # no accumulators without difference coding
             eff = gathered_recon(suffix)
             if not self.dynamic_round:
                 comm["mix_recon" + suffix] = self.w_off @ eff
@@ -2103,13 +2146,18 @@ class ShardedFusedEngine(GossipEngine):
     def comm_keys(self, cfg: FLConfig) -> Tuple[str, ...]:
         """The reference's keys: ``mix_recon`` on a static round, the
         per-direction ``nbr_recon_{d}`` (circulant) or ``nbr_recon_all``
-        (all-gather) under a program; then the counters."""
-        nbr = self._nbr_key_names("") or ("mix_recon",)
-        keys = ("recon", "residual") + nbr
+        (all-gather) under a program (none without difference coding);
+        then the counters."""
+        def nbr(suffix):
+            if self.dynamic_round:  # none without difference coding
+                return self._nbr_key_names(suffix)
+            return ("mix_recon" + suffix,)
+
+        keys = ("recon", "residual") + nbr("")
         if self.pipelined:
             keys += self._wire_key_names("")
         if cfg.algorithm == "dsgt":
-            keys += ("recon_t", "residual_t") + (self._nbr_key_names("_t") or ("mix_recon_t",))
+            keys += ("recon_t", "residual_t") + nbr("_t")
             if self.pipelined:
                 keys += self._wire_key_names("_t")
         return keys + self._topo_keys()
@@ -2264,7 +2312,7 @@ class ShardedFusedEngine(GossipEngine):
         columns of the rank's tile of x and g. Returns (h, wire buffers in
         ``_wire_key_names`` order, recon', res'), all at the wire width."""
         x, g = self._gather_cols(x), self._gather_cols(g)
-        kw = dict(scale_chunk=self.scale_chunk, topk=self.topk, **self._dp_kwargs(*noises))
+        kw = dict(_wire_kwargs(self), **self._dp_kwargs(*noises))
         if self.compact_wire:
             # under a per-node k the kernel emits positions: the truncation
             # runs on them, and the bitmap is encoded after it
@@ -2283,7 +2331,7 @@ class ShardedFusedEngine(GossipEngine):
         Returns (h, t_half, wire_x, recon_x', res_x', wire_t, recon_t',
         res_t')."""
         x, t, g, gp = (self._gather_cols(b) for b in (x, t, g, gp))
-        kw = dict(scale_chunk=self.scale_chunk, topk=self.topk, **self._dp_kwargs(*noises))
+        kw = dict(_wire_kwargs(self), **self._dp_kwargs(*noises))
         if self.compact_wire:
             bitmap = self.wire_encoding == "bitmap" and kvec is None
             (h, th, qx, ix, scx, nrx, nsx, qt, it, sct, nrt, nst) = wire_stage_gt_compact(
@@ -2468,6 +2516,12 @@ class ShardedFusedEngine(GossipEngine):
         if cfg.n_nodes != self.n_nodes:
             raise ValueError(f"cfg.n_nodes {cfg.n_nodes} != the engine's {self.n_nodes} nodes")
 
+    def _accumulate(self, term: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+        """A neighbour accumulator's next value: ``acc + term`` in the
+        term's buffer with difference coding (recon' = recon + dq); the
+        term alone without it (recon' = dq)."""
+        return term.add_(acc) if self.difference_coding else term
+
     def _comm_body(self, eval_grads, schedule, cfg: FLConfig, state: FLState, batch,
                    mix_add):
         """The static comm step's shared body: this round's gradient, ONE
@@ -2488,8 +2542,9 @@ class ShardedFusedEngine(GossipEngine):
         if cfg.algorithm == "dsgd":
             h, wire, nrecon, nres = self._produce(
                 state.params.float(), grads, c["recon"], c["residual"], alpha, noises)
-            # mix_recon' = mix_recon + the neighbor term, in the term's buffer
-            new_mix = mix_add(wire, None, c)[0].add_(c["mix_recon"])
+            # mix_recon' = mix_recon + the neighbor term, in the term's
+            # buffer (without difference coding the term alone)
+            new_mix = self._accumulate(mix_add(wire, None, c)[0], c["mix_recon"])
             # w_self * h + mix_recon', in place on the kernel's output h
             new_state = state._replace(
                 step=step, params=self._st(self._scope_finish(
@@ -2502,7 +2557,8 @@ class ShardedFusedEngine(GossipEngine):
                 state.prev_grad.float(), c["recon"], c["residual"], c["recon_t"],
                 c["residual_t"], alpha, noises)
             add_x, add_t = mix_add(wire, wire_t, c)
-            new_mrx, new_mrt = add_x.add_(c["mix_recon"]), add_t.add_(c["mix_recon_t"])
+            new_mrx = self._accumulate(add_x, c["mix_recon"])
+            new_mrt = self._accumulate(add_t, c["mix_recon_t"])
             mixed_x, mixed_t = self._scope_finish_gt(
                 h.mul_(self.w_self[:, None]).add_(new_mrx),
                 th.mul_(self.w_self[:, None]).add_(new_mrt),
@@ -2555,16 +2611,22 @@ class ShardedFusedEngine(GossipEngine):
             priv = self._priv(c)
 
             def mix_one(wire, wire_keys, nbr_names, stream_base):
+                # without difference coding there are no accumulators
+                # (nbr_names is empty): each neighbour's recon is its dq
                 src = self._ring_slot0(c, wire_keys) if pipelined else wire
                 if self.torus is None:
-                    new_all = c[nbr_names[0]] + self._dq_full(
-                        [self._all_gather(b) for b in src])
+                    dq_all = self._dq_full([self._all_gather(b) for b in src])
+                    if not nbr_names:
+                        return w_rows @ dq_all, {}
+                    new_all = c[nbr_names[0]] + dq_all
                     return (torch.bmm(w_rows[:, None, :], new_all)[:, 0],
                             {nbr_names[0]: new_all})
                 mix, new = None, {}
-                for d, name in enumerate(nbr_names):
-                    nb = c[name] + self._dq_full(self._transport(src, d, priv, stream_base))
-                    new[name] = nb
+                for d in range(len(self.dirs)):
+                    nb = self._dq_full(self._transport(src, d, priv, stream_base))
+                    if nbr_names:
+                        nb = c[nbr_names[d]] + nb
+                        new[nbr_names[d]] = nb
                     # dgate[i, d] = W_r[i, src_d(i)]: zero for a link that is down
                     term = w_rows.gather(1, srcs[d][:, None]) * nb
                     mix = term if mix is None else mix + term

@@ -21,7 +21,7 @@ import numpy as np
 Schedule = Callable[[int], np.float32]
 
 __all__ = ["inv_sqrt", "paper_schedule", "theorem1_schedule", "constant",
-           "scaled", "robust_alpha_scale"]
+           "cosine", "warmup_linear", "scaled", "robust_alpha_scale"]
 
 
 def inv_sqrt(alpha0: float) -> Schedule:
@@ -55,6 +55,40 @@ def theorem1_schedule(n_nodes: int, c: float = 0.02) -> Schedule:
 def constant(alpha: float) -> Schedule:
     a = np.float32(alpha)
     return lambda step: a
+
+
+def cosine(alpha0: float, total_steps: int, alpha_min: float = 0.0) -> Schedule:
+    """Cosine decay from ``alpha0`` at r = 0 to ``alpha_min`` at
+    ``total_steps`` (and after): ``alpha_min + 0.5 (alpha0 - alpha_min)
+    (1 + cos(pi min(r / total_steps, 1)))``, clipped below at r = 0, in
+    fp32 as the reference writes it (its ``alpha0 - alpha_min`` is a
+    Python double rounded once)."""
+    lo, span = np.float32(alpha_min), np.float32(alpha0 - alpha_min)
+    total, pi = np.float32(float(total_steps)), np.float32(np.pi)
+
+    def f(step: int) -> np.float32:
+        t = np.clip(np.float32(int(step)) / total, np.float32(0.0), np.float32(1.0))
+        return np.float32(lo + np.float32(0.5) * span
+                          * (np.float32(1.0) + np.cos(pi * t)))
+
+    return f
+
+
+def warmup_linear(alpha0: float, warmup: int, total_steps: int) -> Schedule:
+    """Linear warm-up to ``alpha0`` over ``warmup`` steps, then linear
+    decay to 0 at ``total_steps``: ``alpha0 * clip(min(r / max(1, warmup),
+    (total_steps - r) / max(1, total_steps - warmup)), 0, 1)`` in fp32."""
+    a0 = np.float32(alpha0)
+    wu_den = np.float32(max(1.0, float(warmup)))
+    dec_den = np.float32(max(1.0, float(total_steps - warmup)))
+    total = np.float32(float(total_steps))
+
+    def f(step: int) -> np.float32:
+        s = np.float32(int(step))
+        frac = np.minimum(s / wu_den, (total - s) / dec_den)
+        return np.float32(a0 * np.clip(frac, np.float32(0.0), np.float32(1.0)))
+
+    return f
 
 
 def scaled(schedule: Schedule, factor: float) -> Schedule:

@@ -79,7 +79,8 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
                      class_weight=CLASS_WEIGHT, fl_schedule="sequential",
                      topk=None, topk_schedule=None, topology_program=None,
                      privacy=None, scope=None, device=None,
-                     init_params: Optional[Dict] = None, storage_dtype=None) -> Dict:
+                     init_params: Optional[Dict] = None, storage_dtype=None,
+                     error_feedback: bool = True, difference_coding: bool = True) -> Dict:
     """FD-DSGT on the ``fused`` engine, one kernel call per comm round.
 
     ``fl_schedule``: a round-schedule spec ("sequential", "pipelined",
@@ -95,7 +96,9 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
     (a tree of tensors); default ``mlp_init(seed)``. Tests pass the
     reference's init here. ``storage_dtype``: the flat buffer's storage
     (``"bfloat16"``: bf16 params, tracker and previous gradient, the
-    arithmetic and the wire fp32). Returns final ``acc``, ``bal_acc``,
+    arithmetic and the wire fp32). ``error_feedback`` /
+    ``difference_coding``: the int8 wire's knobs (both on by default).
+    Returns final ``acc``, ``bal_acc``,
     ``wire_saving`` (fp32 bytes over the engine's wire bytes in the last
     round), ``wire_bytes`` of the last round, the per-round ``losses``,
     the final node-stacked ``params`` (a tree), ``dense_rounds``
@@ -121,7 +124,8 @@ def run_fused_engine(rounds: int, q: int, scale_chunk: int = 512, seed: int = 0,
     stacked = stack_for_nodes(single, n)
     kw = dict(scale_chunk=scale_chunk, round_schedule=resolve_schedule(fl_schedule),
               topology_program=topology_program, privacy=privacy, scope=scope,
-              storage_dtype=storage_dtype)
+              storage_dtype=storage_dtype, error_feedback=error_feedback,
+              difference_coding=difference_coding)
     engine, flat = get_engine("fused").simulated(w, stacked, topk=topk, **kw)
     loss_fn = make_mlp_loss(class_weights(class_weight))
     round_fn = make_fl_round(loss_fn, inv_sqrt(0.02), cfg, engine)
@@ -208,7 +212,8 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
                        topk=None, topology_program=None, node_program=None,
                        privacy=None, scope=None, init_params: Optional[Dict] = None,
                        log: bool = True, storage_dtype=None, w="hospital20",
-                       axes_subset=None) -> Dict:
+                       axes_subset=None, error_feedback: bool = True,
+                       difference_coding: bool = True) -> Dict:
     """Part 2's configuration on the ``sharded_fused`` engine, for this
     rank of ``group`` (every rank of the group calls it with the same
     arguments). ``topk`` ships the compact exact-k wire where it is
@@ -219,7 +224,9 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
     all-gather wire by default; ``w=None`` runs the circulant torus over
     the group's node axes (e.g. ``{"pod": 4, "data": 5}``; directions
     restricted to ``axes_subset``), where ``secure_agg`` masks every
-    per-edge payload. Returns the per-round ``losses``
+    per-edge payload. ``error_feedback`` / ``difference_coding``: the
+    wire's knobs, as :func:`run_fused_engine` takes them. Returns the
+    per-round ``losses``
     and last ``metrics`` (over all 20 hospitals), ``wire_bytes`` of the
     last round, the ``engine`` and the final ``state`` (this rank's
     rows)."""
@@ -236,7 +243,8 @@ def run_sharded_engine(group, rounds: int, q: int, algorithm: str = "dsgt",
         group, stack_for_nodes(single, n), w=w, axes_subset=axes_subset,
         scale_chunk=scale_chunk, topk=topk, round_schedule=fl_schedule,
         topology_program=topology_program, node_program=node_program, privacy=privacy,
-        scope=scope, storage_dtype=storage_dtype)
+        scope=scope, storage_dtype=storage_dtype, error_feedback=error_feedback,
+        difference_coding=difference_coding)
     round_fn = make_fl_round(make_mlp_loss(class_weights(class_weight)), inv_sqrt(0.02),
                              cfg, engine)
     state = init_fl_state(cfg, rows, engine)

@@ -21,7 +21,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
-__all__ = ["KernelLibraries", "build_all", "BASE_FLAGS", "PACKAGES", "PROBE"]
+__all__ = ["KernelLibraries", "build_all", "BASE_FLAGS", "PACKAGES", "PROBE",
+           "SPLIT_COMPILE"]
 
 #: sm_90a keeps Hopper's wgmma/setmaxnreg available to later kernels;
 #: ``-Xptxas -v`` leaves each kernel's registers, shared memory and
@@ -31,6 +32,12 @@ BASE_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _BUILD_TIMEOUT_S = 600
+#: the sources whose device compilation nvcc spreads over the host's cores
+#: (``--split-compile=0``): the round kernels' 48 instantiations and the
+#: fp32 flash file's take ~110 s each on one core, every other source
+#: under 20 s; split, ~40 s. Their SASS is identical with and without it
+#: (``cuobjdump -sass``).
+SPLIT_COMPILE = frozenset({"fused_round_cluster", "flash_attention"})
 
 #: every package's libraries by package name, registered on construction
 PACKAGES: Dict[str, "KernelLibraries"] = {}
@@ -66,12 +73,17 @@ class KernelLibraries:
     def names(self) -> list:
         return sorted(p.stem for p in self.csrc.glob("*.cu"))
 
+    def source_flags(self, name: str) -> Tuple[str, ...]:
+        """The nvcc flags of ``csrc/<name>.cu``: the package's, and
+        ``--split-compile=0`` for the sources in :data:`SPLIT_COMPILE`."""
+        return self.flags + (("--split-compile=0",) if name in SPLIT_COMPILE else ())
+
     def library(self, name: str) -> Path:
         """Where ``csrc/<name>.cu`` builds to under the current flags."""
         digest = hashlib.sha256((self.csrc / f"{name}.cu").read_bytes())
         for header in sorted(self.csrc.glob("*.cuh")):
             digest.update(header.read_bytes())
-        digest.update(" ".join(self.flags).encode())
+        digest.update(" ".join(self.source_flags(name)).encode())
         return self.build_dir / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
     def _jobs(self, names: Iterable[str] | None):
@@ -117,7 +129,7 @@ def _compile(jobs) -> Dict[Tuple[str, str], Path]:
     for key, (pkg, name, lib) in todo.items():
         pkg.build_dir.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *pkg.flags, "-o", str(tmp), str(pkg.csrc / f"{name}.cu")]
+        cmd = [nvcc, *pkg.source_flags(name), "-o", str(tmp), str(pkg.csrc / f"{name}.cu")]
         procs[key] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))

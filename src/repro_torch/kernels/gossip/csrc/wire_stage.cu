@@ -11,6 +11,15 @@
 // and is held bit for bit (h, t_half, q, scales, recon', res') to the
 // PyTorch twins in ../ref.py.
 //
+// The same kernels are pass 1 of the round kernels' two-pass route
+// (../ops.py plan_route), which serves the federations whose round the
+// one-pass cluster kernel (fused_round_cluster.cu) cannot hold in a
+// block's shared memory: the DSGD and DSGT stages as they are, and the
+// gossip stage (wire_stage_gossip_kernel: no update, x is the payload's
+// source and the mix's self term, so it writes no h). The route passes
+// no q buffer (its mix, round_mix.cu, reads recon'), and the stage then
+// skips the int8 store.
+//
 // Bound: HBM bytes. DSGD reads 4 fp32 (n, t) buffers and writes 3 fp32 +
 // 1 int8 (n, t) buffers and the (n, t/chunk) scales, 29 B per element;
 // DSGT reads 8 and writes 6 fp32 + 2 int8, 58 B per element. About 13
@@ -67,12 +76,12 @@ __device__ void stage(const Src& src, const float* __restrict__ recon,
   if (threadIdx.x % 32 == 0) {
     out.scales[static_cast<size_t>(i) * geo.n_chunks + ci] = rs.scale;
   }
-  int8_t* q_out = out.q;
+  int8_t* q_out = out.q;  // null: the two-pass route keeps no int8 payload
   quantize_row<EF, DC, TOPK>(
       trow, rs, recon, res, out.new_recon, out.new_res, row, geo.chunk,
       [&](int c, float q, float) {
         // q is an integer in [-127, 127]: the cast is exact
-        q_out[row + c] = static_cast<int8_t>(__float2int_rn(q));
+        if (q_out != nullptr) q_out[row + c] = static_cast<int8_t>(__float2int_rn(q));
       });
 }
 
@@ -122,6 +131,25 @@ wire_stage_gt_kernel(const float* __restrict__ x, const float* __restrict__ t,
                       ci, trow, geo);
 }
 
+// x itself: the gossip stage's payload source (no local update).
+struct Plain {
+  const float* __restrict__ x;
+  __device__ float operator()(size_t o) const { return x[o]; }
+};
+
+template <bool EF, bool DC, bool TOPK>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+wire_stage_gossip_kernel(const float* __restrict__ x,
+                         const float* __restrict__ recon,
+                         const float* __restrict__ res, WireOut out,
+                         Geometry geo) {
+  extern __shared__ float smem[];
+  int i, ci;
+  if (!warp_pair(geo, &i, &ci)) return;
+  float* trow = smem + static_cast<size_t>(threadIdx.x / 32) * geo.chunk;
+  stage<EF, DC, TOPK>(Plain{x}, recon, res, nullptr, out, i, ci, trow, geo);
+}
+
 template <class Kernel, class... Args>
 cudaError_t launch(Kernel kernel, const Geometry& geo, cudaStream_t stream,
                    Args... args) {
@@ -164,7 +192,8 @@ const char* gossip_error_string(int err) {
 }
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
-// topk: columns kept per (row, chunk) by the top-k mask, 0 for all.
+// topk: columns kept per (row, chunk) by the top-k mask, 0 for all; a
+// null q skips the int8 store.
 int wire_stage_launch(const float* x, const float* g, const float* recon,
                       const float* res, float alpha, float* h, int8_t* q,
                       float* scales, float* new_recon, float* new_res, int n,
@@ -198,6 +227,22 @@ int wire_stage_gt_launch(const float* x, const float* t, const float* g,
                 recon_t, res_t, alpha, h, t_half,
                 WireOut{q_x, scales_x, new_recon_x, new_res_x},
                 WireOut{q_t, scales_t, new_recon_t, new_res_t});
+}
+
+// The gossip stage's wire pass: x's payload quantized, recon', res' and
+// the scales written (no h: x is the self term).
+int wire_stage_gossip_launch(const float* x, const float* recon,
+                             const float* res, int8_t* q, float* scales,
+                             float* new_recon, float* new_res, int n, int t,
+                             int chunk, int topk, int ef, int dc,
+                             void* stream) {
+  using Fn = void (*)(const float*, const float*, const float*, WireOut,
+                      Geometry);
+  static const Fn table[8] = FLAG_TABLE(wire_stage_gossip_kernel);
+  return launch(table[flag_index(ef, dc, topk)],
+                make_geometry(n, t, chunk, topk),
+                static_cast<cudaStream_t>(stream), x, recon, res,
+                WireOut{q, scales, new_recon, new_res});
 }
 
 }  // extern "C"

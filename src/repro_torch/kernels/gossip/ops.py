@@ -5,7 +5,10 @@ A wrapper checks its operands, then dispatches by the tensors' device:
 CPU tensors go to the plain PyTorch twin (``ref.py``), CUDA tensors to
 the hand-written kernel in ``csrc/fused_round_cluster.cu`` (the round
 megakernels and the gossip stage ``gossip_mix``, on thread-block
-clusters laid out by :func:`plan_round`), ``csrc/wire_stage.cu`` (the
+clusters laid out by :func:`plan_round`; where that one-pass plan cannot
+hold the round in a block's shared memory, the two-pass route of
+:func:`plan_route`: the wire stage of ``csrc/wire_stage.cu``, then the
+mix of ``csrc/round_mix.cu``), ``csrc/wire_stage.cu`` (the
 wire stages) or ``csrc/wire_stage_compact.cu`` (the compact top-k wire
 stages; the DSGT one laid out by :func:`compact_gt_plan`) -- there is no
 switch and no fallback: a CUDA call that cannot launch raises. The
@@ -14,7 +17,9 @@ synchronizing, and raises if the launch reports an error. On ``meta``
 tensors (the dry run) it allocates the kernel's outputs and launches
 nothing. Each wrapper counts its kernel launches, and its ``meta``
 stand-ins, in ``<wrapper>.launches`` through ``kernels.launches``
-(twin calls do not count).
+(twin calls do not count); a round wrapper on the two-pass route counts
+nothing itself: its wire stage counts under ``wire_stage_gossip``,
+``wire_stage`` or ``wire_stage_gt`` and its mix under ``round_mix``.
 
 Every wrapper but the compact ones takes ``topk``: None (the dense int8
 wire) or the number of largest-|payload| columns each (node, scale
@@ -50,8 +55,10 @@ from repro_torch.kernels.gossip.ref import (
     gossip_mix_ref,
     dp_scale,
     require_ef_for_dp,
+    round_mix_ref,
     wire_stage_compact_ref,
     wire_stage_gt_compact_ref,
+    wire_stage_gossip_ref,
     wire_stage_gt_ref,
     wire_stage_ref,
 )
@@ -59,8 +66,10 @@ from repro_torch.kernels.launches import launched
 
 __all__ = ["gossip_mix", "fused_round", "fused_round_gt", "wire_stage",
            "wire_stage_gt", "wire_stage_compact", "wire_stage_gt_compact",
-           "plan_round", "round_smem_bytes", "compact_gt_plan", "GOSSIP_STAGE",
-           "SMEM_LIMIT_BYTES"]
+           "wire_stage_gossip", "round_mix", "plan_round", "plan_route", "mix_splits",
+           "mix_blocks", "round_smem_bytes",
+           "compact_gt_plan", "SharedMemoryRefusal", "GOSSIP_STAGE", "ONE_PASS",
+           "TWO_PASS", "SMEM_LIMIT_BYTES"]
 
 #: dynamic shared memory one Hopper block may opt in to (227 KB)
 SMEM_LIMIT_BYTES = 232448
@@ -83,6 +92,13 @@ GOSSIP_STAGE = 0
 #: the DSGT compact kernel's warps a block (csrc/wire_stage_compact.cu
 #: kGtThreads / 32)
 _GT_WARPS = 4
+#: :func:`plan_route`'s routes: the one-pass cluster kernel, or the wire
+#: stage then the mix kernel
+ONE_PASS, TWO_PASS = "one_pass", "two_pass"
+#: the mix kernel's columns a block covers a tile (csrc/round_mix.cu
+#: kCols), the resident blocks an SM its grid aims at, and CUDA's largest
+#: grid y
+_MIX_COLS, _MIX_BLOCKS_PER_SM, _GRID_Y_MAX = 1024, 4, 65535
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 
@@ -116,7 +132,17 @@ def _wire_lib() -> ctypes.CDLL:
     _declare(lib, "wire_stage_launch", [_P] * 4 + [_F] + [_P] * 5 + [_I] * 6 + [_P])
     _declare(lib, "wire_stage_gt_launch",
              [_P] * 8 + [_F] + [_P] * 10 + [_I] * 6 + [_P])
+    _declare(lib, "wire_stage_gossip_launch", [_P] * 7 + [_I] * 6 + [_P])
     _declare(lib, "wire_stage_smem_bytes", [_I], ctypes.c_size_t)
+    _declare(lib, "gossip_error_string", [_I], ctypes.c_char_p)
+    return lib
+
+
+@functools.cache
+def _mix_lib() -> ctypes.CDLL:
+    """The built mix-kernel library, declared as :func:`_cluster_lib`."""
+    lib = load("round_mix")
+    _declare(lib, "round_mix_launch", [_P] * 8 + [_I] * 4 + [_P])
     _declare(lib, "gossip_error_string", [_I], ctypes.c_char_p)
     return lib
 
@@ -229,6 +255,12 @@ def _topk_arg(topk, scale_chunk: int) -> int:
     return 0 if topk is None or topk >= scale_chunk else int(topk)
 
 
+class SharedMemoryRefusal(ValueError):
+    """:func:`plan_round`'s refusal: no cluster size holds the round in a
+    block's shared memory. The round wrappers take the two-pass route
+    there (:func:`plan_route`)."""
+
+
 def round_smem_bytes(n: int, chunk: int, clusters: int, cols: int, wires: int,
                      topk) -> int:
     """Dynamic shared memory of one round-kernel block (the layout of
@@ -273,12 +305,14 @@ def plan_round(n: int, t: int, chunk: int, topk, wires: int,
     round -- the most, to spread it over the most SMs.
     ``topk``: None or >= chunk is the dense wire. ``wires``: 1 (DSGD), 2
     (DSGT) or :data:`GOSSIP_STAGE` (one wire, no update), which is planned
-    as DSGD. Raises ``ValueError`` when no cluster size fits."""
+    as DSGD. Raises :class:`SharedMemoryRefusal` (a ``ValueError``) when
+    no cluster size fits."""
     if wires not in (GOSSIP_STAGE, 1, 2):
         raise ValueError(f"wires must be {GOSSIP_STAGE} (the gossip stage), 1 or 2, "
                          f"got {wires}")
     if n > 256:  # W_off alone is over the limit (and its block masks are 64 bits)
-        raise ValueError(f"an n={n} round needs more shared memory than a block may use")
+        raise SharedMemoryRefusal(
+            f"an n={n} round needs more shared memory than a block may use")
     k = _topk_arg(topk, chunk)
     n_chunks = t // chunk
     fits = []
@@ -292,7 +326,7 @@ def plan_round(n: int, t: int, chunk: int, topk, wires: int,
             fits.append((c, cols, smem))
     if not fits:
         what = "gossip stage" if wires == GOSSIP_STAGE else f"round with {wires} wire(s)"
-        raise ValueError(
+        raise SharedMemoryRefusal(
             f"an (n={n}, chunk={chunk}) {what}"
             f"{' at topk ' + str(k) if k else ''} needs more "
             f"than the {SMEM_LIMIT_BYTES} B of shared memory a block may use "
@@ -301,6 +335,62 @@ def plan_round(n: int, t: int, chunk: int, topk, wires: int,
     pool = two or fits
     full = [f for f in pool if n_chunks * f[0] >= 2 * sms]
     return min(full) if full else max(pool)
+
+
+def mix_splits(n: int, t: int, sms: int = H100_SMS) -> int:
+    """The mix kernel's column splits (its grid's y; x is one block a row
+    group of 4 rows): enough for about ``_MIX_BLOCKS_PER_SM`` blocks an SM,
+    at most one a 1,024-column tile, within CUDA's grid. Each block lists
+    its row group's nonzero blocks of W_off once and walks its split's
+    tiles."""
+    groups, tiles = -(-n // 4), -(-t // _MIX_COLS)
+    return max(1, min(tiles, -(-_MIX_BLOCKS_PER_SM * sms // groups), _GRID_Y_MAX))
+
+
+def mix_blocks(w_off: torch.Tensor) -> list:
+    """The mix kernel's block list (``list_blocks`` in csrc/round_mix.cu),
+    in Python: for each row group of 4 rows, the ascending column groups
+    of 4 in which W_off has a nonzero -- the only neighbour rows the
+    kernel reads for those rows. The kernel lists them on the card from
+    the W it is handed, every launch."""
+    n = w_off.shape[0]
+    pad = -n % 4
+    nz = torch.nn.functional.pad((w_off != 0).to(torch.int8), (0, pad, 0, pad))
+    g = (n + pad) // 4
+    blocks = nz.reshape(g, 4, g, 4).amax(dim=(1, 3)) != 0
+    return [torch.nonzero(row).flatten() for row in blocks]
+
+
+@functools.lru_cache(maxsize=None)
+def plan_route(n: int, t: int, chunk: int, topk, wires: int,
+               sms: int = H100_SMS) -> Tuple[str, tuple]:
+    """How a round (``wires`` as :func:`plan_round`) runs on the card:
+    ``(ONE_PASS, plan_round's plan)`` wherever the one-pass cluster kernel
+    holds it, else ``(TWO_PASS, (mix_splits,))`` -- the wire stage
+    (``csrc/wire_stage.cu``: the update, the quantization and error
+    feedback, one warp a (row, chunk), with no node limit) and then the
+    mix (``csrc/round_mix.cu``), two launches. Only
+    :class:`SharedMemoryRefusal` turns a round to two passes; any other
+    refusal of :func:`plan_round` stands. The route depends on the shape
+    and the card's SM count alone."""
+    try:
+        return ONE_PASS, plan_round(n, t, chunk, topk, wires, sms)
+    except SharedMemoryRefusal:
+        return TWO_PASS, (mix_splits(n, t, sms),)
+
+
+def _sms(dev: torch.device) -> int:
+    """The SMs :func:`plan_route` plans for: the card's own, the H100's
+    for ``meta`` tensors."""
+    if dev.type != "cuda":
+        return H100_SMS
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _two_pass(n: int, t: int, chunk: int, topk, wires: int, dev) -> bool:
+    return plan_route(n, t, chunk, _topk_arg(topk, chunk) or None, wires,
+                      _sms(dev))[0] == TWO_PASS
 
 
 def _check_smem(smem: int, what: str) -> None:
@@ -368,6 +458,66 @@ def _ptrs(*tensors) -> list:
     return [b.data_ptr() for b in tensors]
 
 
+def round_mix(
+    w_off: torch.Tensor,
+    w_self: torch.Tensor,
+    nbrs: Sequence[torch.Tensor],
+    srcs: Sequence[torch.Tensor],
+) -> Tuple[torch.Tensor, ...]:
+    """The two-pass route's mix, in one kernel launch
+    (``csrc/round_mix.cu``): ``mixed = W_off @ nbr + w_self * src`` for
+    each of one or two wires (``nbrs[i]``, ``srcs[i]``), the neighbour
+    view and the self term. W_off is read as its nonzero 4 x 4 blocks,
+    listed on the card from the W handed in. nbr, src: (n, t) fp32
+    contiguous; w_off (n, n) with a zero diagonal; w_self (n,). Returns
+    the mixed buffers."""
+    nbrs, srcs = tuple(nbrs), tuple(srcs)
+    if not 1 <= len(nbrs) == len(srcs) <= 2:
+        raise ValueError(f"round_mix takes one or two wires, got {len(nbrs)} "
+                         f"neighbour and {len(srcs)} self buffers")
+    n, t = _check_operands("round_mix", nbrs + srcs, 1, None, (w_off, w_self))
+    if w_off.device.type == "cpu":
+        return tuple(round_mix_ref(w_off, w_self, a, b) for a, b in zip(nbrs, srcs))
+    outs = tuple(torch.empty_like(a) for a in nbrs)
+    if w_off.device.type == "cuda":
+        lib = _mix_lib()
+        wires = [p for a, b, o in zip(nbrs, srcs, outs) for p in _ptrs(a, b, o)]
+        wires += [None] * (6 - len(wires))
+        dev = w_off.device
+        with torch.cuda.device(dev):
+            err = lib.round_mix_launch(
+                *_ptrs(w_off, w_self), *wires, n, t, len(nbrs), mix_splits(n, t, _sms(dev)),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, err, "round_mix")
+    launched(round_mix, n=n, t=t, wires=len(nbrs))
+    return outs
+
+
+round_mix.launches = 0
+
+
+def _route(wires: int, bufs, olds, w_off, w_self, alpha, stale_mix: bool, **flags):
+    """The two-pass route: the round's wire stage with no int8 store
+    (:func:`wire_stage_gossip`, :func:`wire_stage` or
+    :func:`wire_stage_gt`, counted under its own name), then
+    :func:`round_mix` against the new reconstructions (``stale_mix``:
+    ``olds``, the input ones) and the self terms (x for the gossip stage,
+    h, and t_half on DSGT's tracker wire). Returns (mixed, new_recons,
+    new_ress, scales), a tuple a wire."""
+    if wires == GOSSIP_STAGE:
+        _, scales, recon, res = wire_stage_gossip(*bufs, **flags, store_q=False)
+        selfs, recons, ress, scales = (bufs[0],), (recon,), (res,), (scales,)
+    elif wires == 1:
+        h, _, scales, recon, res = wire_stage(*bufs, alpha, **flags, store_q=False)
+        selfs, recons, ress, scales = (h,), (recon,), (res,), (scales,)
+    else:
+        h, t_half, _, scx, nrx, nsx, _, sct, nrt, nst = wire_stage_gt(
+            *bufs, alpha, **flags, store_q=False)
+        selfs, recons, ress, scales = (h, t_half), (nrx, nrt), (nsx, nst), (scx, sct)
+    mixed = round_mix(w_off, w_self, olds if stale_mix else recons, selfs)
+    return mixed, recons, ress, scales
+
+
 def gossip_mix(
     x: torch.Tensor,
     recon: torch.Tensor,
@@ -397,6 +547,10 @@ def gossip_mix(
                  stale_mix=stale_mix)
     if x.device.type == "cpu":
         return gossip_mix_ref(x, recon, res, w_off, w_self, **flags)
+    if _two_pass(n, t, scale_chunk, topk, GOSSIP_STAGE, x.device):
+        (mixed,), (new_recon,), (new_res,), (scales,) = _route(
+            GOSSIP_STAGE, (x, recon, res), (recon,), w_off, w_self, None, **flags)
+        return mixed, new_recon, new_res, scales
     mixed, new_recon, new_res = (torch.empty_like(x) for _ in range(3))
     scales = torch.empty(n, t // scale_chunk, dtype=torch.float32, device=x.device)
     if x.device.type == "cuda":
@@ -457,6 +611,10 @@ def fused_round(
                  stale_mix=stale_mix)
     if x.device.type == "cpu":
         return fused_round_ref(x, g, recon, res, w_off, w_self, a, **flags)
+    if _two_pass(n, t, scale_chunk, topk, 1, x.device):
+        (mixed,), (new_recon,), (new_res,), (scales,) = _route(
+            1, (x, g, recon, res), (recon,), w_off, w_self, a, **flags)
+        return mixed, new_recon, new_res, scales
     mixed, new_recon, new_res = (torch.empty_like(x) for _ in range(3))
     scales = torch.empty(n, t // scale_chunk, dtype=torch.float32, device=x.device)
     if x.device.type == "cuda":
@@ -521,6 +679,10 @@ def fused_round_gt(
                  stale_mix=stale_mix)
     if x.device.type == "cpu":
         return fused_round_gt_ref(*bufs, w_off, w_self, a, **flags)
+    if _two_pass(n, tot, scale_chunk, topk, 2, x.device):
+        (mx, mt), (nrx, nrt), (nsx, nst), (scx, sct) = _route(
+            2, bufs, (recon_x, recon_t), w_off, w_self, a, **flags)
+        return mx, mt, nrx, nsx, nrt, nst, scx, sct
     outs = [torch.empty_like(x) for _ in range(6)] + [
         torch.empty(n, tot // scale_chunk, dtype=torch.float32, device=x.device)
         for _ in range(2)
@@ -540,11 +702,23 @@ def fused_round_gt(
 fused_round_gt.launches = 0
 
 
-def _wire_outs(x: torch.Tensor, n: int, t: int, scale_chunk: int):
-    """One wire's outputs: q int8 (n, t), scales, recon', res'."""
-    return (torch.empty(n, t, dtype=torch.int8, device=x.device),
+def _wire_outs(x: torch.Tensor, n: int, t: int, scale_chunk: int, store_q: bool):
+    """One wire's outputs: q int8 (n, t) (None without ``store_q``),
+    scales, recon', res'."""
+    return (torch.empty(n, t, dtype=torch.int8, device=x.device) if store_q else None,
             torch.empty(n, t // scale_chunk, dtype=torch.float32, device=x.device),
             torch.empty_like(x), torch.empty_like(x))
+
+
+def _drop_q(outs: tuple, store_q: bool, *at: int) -> tuple:
+    """A twin's outputs with the int8 payloads at ``at`` set to None
+    without ``store_q``, as the kernel leaves them."""
+    return outs if store_q else tuple(None if i in at else o for i, o in enumerate(outs))
+
+
+def _wire_ptrs(*tensors) -> list:
+    """:func:`_ptrs`, a null pointer for a payload not stored."""
+    return [None if b is None else b.data_ptr() for b in tensors]
 
 
 def wire_stage(
@@ -559,13 +733,15 @@ def wire_stage(
     topk=None,
     dp_clip=None,
     dp_noise=None,
+    store_q: bool = True,
 ) -> Tuple[torch.Tensor, ...]:
     """DSGD wire stage: the round megakernel without its mix -- ``h = x -
     alpha * g``, then the int8 difference-coded quantization of h with
     error feedback (top-k masked when ``topk`` is set) -- in one kernel
     launch. Returns (h, q int8 (n, t), scales (n, t // scale_chunk),
     new_recon, new_res); the caller mixes. ``dp_clip`` / ``dp_noise``:
-    the DP epilogue."""
+    the DP epilogue. ``store_q=False`` skips the int8 store (q None): the
+    two-pass route's mix reads recon'."""
     dp = _dp_operands(error_feedback, dp_clip, (dp_noise,))
     n, t = _check_operands("wire_stage", (x, g, recon, res) + ((dp_noise,) if dp else ()),
                            scale_chunk, topk)
@@ -574,14 +750,15 @@ def wire_stage(
         res, corr = _dp_dsgd(x, g, recon, res, a, difference_coding,
                              dp_clip, dp_noise)
         h, q, scales, new_recon, new_res = wire_stage(
-            x, g, recon, res, a, scale_chunk, error_feedback, difference_coding, topk)
+            x, g, recon, res, a, scale_chunk, error_feedback, difference_coding, topk,
+            store_q=store_q)
         return h, q, scales, new_recon, new_res + corr
     flags = dict(scale_chunk=scale_chunk, error_feedback=error_feedback,
                  difference_coding=difference_coding, topk=topk)
     if x.device.type == "cpu":
-        return wire_stage_ref(x, g, recon, res, a, **flags)
+        return _drop_q(wire_stage_ref(x, g, recon, res, a, **flags), store_q, 1)
     h = torch.empty_like(x)
-    outs = _wire_outs(x, n, t, scale_chunk)
+    outs = _wire_outs(x, n, t, scale_chunk, store_q)
     if x.device.type == "cuda":
         lib = _wire_lib()
         _check_smem(lib.wire_stage_smem_bytes(scale_chunk), f"chunk {scale_chunk}")
@@ -589,9 +766,9 @@ def wire_stage(
                      x.device)
         with torch.cuda.device(x.device):
             err = lib.wire_stage_launch(*_ptrs(x, g, recon, res), float(a),
-                                        *_ptrs(h, *outs), *tail)
+                                        *_wire_ptrs(h, *outs), *tail)
         _raise_on(lib, err, "wire_stage")
-    launched(wire_stage, n=n, t=t, chunk=scale_chunk, topk=topk)
+    launched(wire_stage, n=n, t=t, chunk=scale_chunk, topk=topk, q=store_q)
     return (h, *outs)
 
 
@@ -615,13 +792,15 @@ def wire_stage_gt(
     dp_clip=None,
     dp_noise=None,
     dp_noise_t=None,
+    store_q: bool = True,
 ) -> Tuple[torch.Tensor, ...]:
     """DSGT wire stage: ``t_half = t + g - g_prev``, ``h = x - alpha *
     t_half``, then the quantize-EF stage on the tracker wire and on the
     parameter wire, in one kernel launch. Returns (h, t_half, q_x,
     scales_x, new_recon_x, new_res_x, q_t, scales_t, new_recon_t,
     new_res_t), q int8 (n, t). ``dp_clip`` / ``dp_noise`` /
-    ``dp_noise_t``: the DP epilogue on both wires."""
+    ``dp_noise_t``: the DP epilogue on both wires. ``store_q``: as in
+    :func:`wire_stage`, on both wires."""
     dp = _dp_operands(error_feedback, dp_clip, (dp_noise, dp_noise_t))
     bufs = (x, t, g, g_prev, recon_x, res_x, recon_t, res_t)
     n, tot = _check_operands("wire_stage_gt", bufs + ((dp_noise, dp_noise_t) if dp else ()),
@@ -632,15 +811,15 @@ def wire_stage_gt(
                                   dp_noise, dp_noise_t)
         h, th, qx, scx, nrx, nsx, qt, sct, nrt, nst = wire_stage_gt(
             x, t, g, g_prev, recon_x, sx, recon_t, st, a, scale_chunk, error_feedback,
-            difference_coding, topk)
+            difference_coding, topk, store_q=store_q)
         return h, th, qx, scx, nrx, nsx + cx, qt, sct, nrt, nst + ct
     flags = dict(scale_chunk=scale_chunk, error_feedback=error_feedback,
                  difference_coding=difference_coding, topk=topk)
     if x.device.type == "cpu":
-        return wire_stage_gt_ref(*bufs, a, **flags)
+        return _drop_q(wire_stage_gt_ref(*bufs, a, **flags), store_q, 2, 6)
     h, t_half = torch.empty_like(x), torch.empty_like(x)
-    outs_x = _wire_outs(x, n, tot, scale_chunk)
-    outs_t = _wire_outs(x, n, tot, scale_chunk)
+    outs_x = _wire_outs(x, n, tot, scale_chunk, store_q)
+    outs_t = _wire_outs(x, n, tot, scale_chunk, store_q)
     if x.device.type == "cuda":
         lib = _wire_lib()
         _check_smem(lib.wire_stage_smem_bytes(scale_chunk), f"chunk {scale_chunk}")
@@ -648,13 +827,50 @@ def wire_stage_gt(
                      x.device)
         with torch.cuda.device(x.device):
             err = lib.wire_stage_gt_launch(*_ptrs(*bufs), float(a),
-                                           *_ptrs(h, t_half, *outs_x, *outs_t), *tail)
+                                           *_wire_ptrs(h, t_half, *outs_x, *outs_t), *tail)
         _raise_on(lib, err, "wire_stage_gt")
-    launched(wire_stage_gt, n=n, t=tot, chunk=scale_chunk, topk=topk)
+    launched(wire_stage_gt, n=n, t=tot, chunk=scale_chunk, topk=topk, q=store_q)
     return (h, t_half, *outs_x, *outs_t)
 
 
 wire_stage_gt.launches = 0
+
+
+def wire_stage_gossip(
+    x: torch.Tensor,
+    recon: torch.Tensor,
+    res: torch.Tensor,
+    scale_chunk: int = 512,
+    error_feedback: bool = True,
+    difference_coding: bool = True,
+    topk=None,
+    store_q: bool = True,
+) -> Tuple[torch.Tensor, ...]:
+    """The gossip stage's wire stage, pass 1 of ``gossip_mix``'s two-pass
+    route: the int8 difference-coded quantization of x with error
+    feedback (top-k masked when ``topk`` is set), no local update, in one
+    kernel launch. Returns (q int8 (n, t), scales (n, t // scale_chunk),
+    new_recon, new_res); ``store_q`` as in :func:`wire_stage`."""
+    n, t = _check_operands("wire_stage_gossip", (x, recon, res), scale_chunk, topk)
+    flags = dict(scale_chunk=scale_chunk, error_feedback=error_feedback,
+                 difference_coding=difference_coding, topk=topk)
+    if x.device.type == "cpu":
+        return _drop_q(wire_stage_gossip_ref(x, recon, res, **flags), store_q, 0)
+    outs = _wire_outs(x, n, t, scale_chunk, store_q)
+    if x.device.type == "cuda":
+        lib = _wire_lib()
+        _check_smem(lib.wire_stage_smem_bytes(scale_chunk), f"chunk {scale_chunk}")
+        tail = _tail(n, t, scale_chunk, topk, (error_feedback, difference_coding),
+                     x.device)
+        with torch.cuda.device(x.device):
+            err = lib.wire_stage_gossip_launch(*_ptrs(x, recon, res), *_wire_ptrs(*outs),
+                                               *tail)
+        _raise_on(lib, err, "wire_stage_gossip")
+    launched(wire_stage_gossip, n=n, t=t, chunk=scale_chunk, topk=topk, q=store_q)
+    return outs
+
+
+wire_stage_gossip.launches = 0
 
 
 def _compact_outs(x: torch.Tensor, n: int, t: int, scale_chunk: int, topk: int,

@@ -37,8 +37,9 @@ import torch
 
 from repro_torch.core.packing import compact_pos_dtype
 
-__all__ = ["gossip_mix_ref", "fused_round_ref", "fused_round_gt_ref",
-           "wire_stage_ref", "wire_stage_gt_ref", "wire_stage_compact_ref",
+__all__ = ["gossip_mix_ref", "fused_round_ref", "fused_round_gt_ref", "round_mix_ref",
+           "wire_stage_ref", "wire_stage_gt_ref", "wire_stage_gossip_ref",
+           "wire_stage_compact_ref",
            "wire_stage_gt_compact_ref", "scatter_compact_dq",
            "compact_to_bitmap", "scatter_bitmap_dq", "check_compact"]
 
@@ -142,6 +143,14 @@ def _stage(x, recon, res, scale_chunk, error_feedback, difference_coding,
     return q, scales, new_recon, new_res
 
 
+def round_mix_ref(w_off: torch.Tensor, w_self: torch.Tensor, nbr: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """The mix of every round twin, and of the two-pass route's mix
+    kernel (``csrc/round_mix.cu``): ``W_off @ nbr + w_self * src``, the
+    neighbour view and the self term."""
+    return w_off @ nbr + w_self.unsqueeze(1) * src
+
+
 def gossip_mix_ref(
     x: torch.Tensor,
     recon: torch.Tensor,
@@ -169,8 +178,7 @@ def gossip_mix_ref(
     _, scales, new_recon, new_res = _stage(
         x, recon, res, scale_chunk, error_feedback, difference_coding, topk,
         dp_clip, dp_noise)
-    nbr = recon if stale_mix else new_recon
-    mixed = w_off @ nbr + w_self.unsqueeze(1) * x
+    mixed = round_mix_ref(w_off, w_self, recon if stale_mix else new_recon, x)
     return mixed, new_recon, new_res, scales
 
 
@@ -277,6 +285,24 @@ def wire_stage_ref(
         h, recon, res, scale_chunk, error_feedback, difference_coding, topk,
         dp_clip, dp_noise)
     return h, _int8(q, *x.shape), scales, new_recon, new_res
+
+
+def wire_stage_gossip_ref(
+    x: torch.Tensor,
+    recon: torch.Tensor,
+    res: torch.Tensor,
+    *,
+    scale_chunk: int,
+    error_feedback: bool = True,
+    difference_coding: bool = True,
+    topk=None,
+) -> Tuple[torch.Tensor, ...]:
+    """The gossip stage's wire stage (``gossip_mix_ref`` without its mix):
+    difference coding + (top-k) int8 quantize + EF of x itself. Returns
+    (q int8 (n, t), scales (n, t // scale_chunk), new_recon, new_res)."""
+    q, scales, new_recon, new_res = _stage(
+        x, recon, res, scale_chunk, error_feedback, difference_coding, topk)
+    return _int8(q, *x.shape), scales, new_recon, new_res
 
 
 def wire_stage_gt_ref(

@@ -81,16 +81,21 @@ _NO_TRAFFIC = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
                          "new_empty_strided"})
 
 
+#: the wire stages' wires, by launch name (``wire_stage_gossip`` is pass
+#: 1 of the gossip stage's two-pass route)
+_WIRE_STAGES = {"wire_stage_gossip": kb.GOSSIP_STAGE, "wire_stage": 1, "wire_stage_gt": 2}
+
+
 def kernel_cost(name: str, g: Dict) -> Tuple[float, float]:
     """(operations, bytes moved) of one launch of the hand kernel behind
     wrapper ``name`` at geometry ``g`` (what the wrapper hands
     ``kernels.launches.launched``), from ``benchmarks/kernel_bench.py``'s
     counts. Attention's bytes scale kernel_bench's bf16 counts by the
     operands' width."""
-    if name in ("wire_stage", "wire_stage_gt"):
-        wires = 1 if name == "wire_stage" else 2
+    if name in _WIRE_STAGES:  # without q: pass 1 of a round's two-pass route
+        wires = _WIRE_STAGES[name]
         return (kb.wire_ops(g["n"], g["t"], g["chunk"], wires, g["topk"]),
-                kb.wire_bytes_moved(g["n"], g["t"], g["chunk"], wires))
+                kb.wire_bytes_moved(g["n"], g["t"], g["chunk"], wires, g.get("q", True)))
     if name == "wire_stage_compact":
         return (kb.compact_ops(g["n"], g["t"], g["chunk"], g["topk"], g["bitmap"]),
                 kb.compact_bytes_moved(g["n"], g["t"], g["chunk"], 1, g["topk"], g["bitmap"]))
@@ -106,6 +111,9 @@ def kernel_cost(name: str, g: Dict) -> Tuple[float, float]:
     if name == "gossip_mix":
         return (kb.gossip_ops(g["n"], g["t"], g["chunk"], g["topk"]),
                 kb.gossip_bytes(g["n"], g["t"], g["chunk"]))
+    if name == "round_mix":  # pass 2: the mix, dense W_off (no data on meta)
+        return (kb.mix_ops(g["n"], g["t"], g["wires"]),
+                kb.mix_bytes(g["n"], g["t"], g["wires"]))
     if name == "flash_attention":
         return (kb.flash_flops(g["b"], g["sq"], g["sk"], g["h"], g["hd"], g["causal"],
                                g["window"]),

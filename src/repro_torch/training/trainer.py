@@ -126,13 +126,30 @@ def make_schedule(run: FLRunConfig):
     raise ValueError(f"unknown schedule {run.schedule!r}")
 
 
-def stack_for_nodes(params: Tree, n_nodes: int) -> Tree:
+def stack_for_nodes(params: Tree, n_nodes: int, perturb: float = 0.0,
+                    generator: Optional[torch.Generator] = None) -> Tree:
     """Replicate one node's params across the node axis (identical init;
-    the reference's optional per-node perturbation is not ported)."""
-    return tree_map(
+    optional per-node perturbation for consensus-dynamics experiments).
+
+    ``perturb > 0`` adds ``perturb * N(0, 1)`` to every stacked leaf, drawn
+    in fp32 from ``generator`` (a fresh one seeded 0 when None; on the
+    leaves' device), leaf by leaf in the tree's order, rounded to the
+    leaf's dtype before the scale, as the reference does. The reference draws from ``jax.random``, whose bits a
+    torch generator cannot give: carry a reference init across with
+    ``repro_torch.convert`` where the same numbers are needed."""
+    stacked = tree_map(
         lambda p: p.unsqueeze(0).expand((n_nodes,) + tuple(p.shape)).clone(),
         params,
     )
+    if perturb > 0.0:
+        leaves = [leaf for _, leaf in tree_leaves(stacked)]
+        if generator is None and leaves:
+            generator = torch.Generator(device=leaves[0].device).manual_seed(0)
+        for leaf in leaves:
+            noise = torch.randn(leaf.shape, generator=generator, dtype=torch.float32,
+                                device=leaf.device)
+            leaf.add_(perturb * noise.to(leaf.dtype))
+    return stacked
 
 
 def stack_batches(step_batches: Iterator[Dict[str, np.ndarray]], q: int

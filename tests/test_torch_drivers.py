@@ -155,6 +155,52 @@ def test_kernel_bench_bounds_are_perf_mds():
         assert round(case.bound[0] * 1e3, 2) == want, label
 
 
+def test_kernel_bench_prices_the_two_pass_route():
+    """The 1,024-node federation's rounds take the two-pass route; its
+    cases count the round's bytes (the function's, moved once) against
+    both passes' operations, the wire pass the wire stage's bytes without
+    the int8 payload, the mix each wire's three buffers and W; the mix's
+    multiply-adds are W_off's nonzeros a row (the function's), not the
+    nonzero 4 x 4 blocks the kernel runs."""
+    label, n, t, chunk, _ = kernel_bench.FEDERATION
+    w_off, _ = kernel_bench.federation_weights("cpu")
+    terms = kernel_bench.mix_terms(w_off)
+    assert terms == float((w_off != 0).sum()) / n
+    assert 5 <= terms <= 20  # about ten neighbours a node
+    assert kernel_bench.kernel_mix_terms(w_off) > 4 * terms  # the blocks' zeros
+    cases = {(c.kernel, c.shape): c for c in kernel_bench.two_pass_cases("cpu", counts_only=True)}
+    assert len(cases) == 9
+    for name, wires in (("gossip_mix", kernel_bench.GOSSIP_STAGE), ("fused_round", 1),
+                        ("fused_round_gt", 2)):
+        nw = max(wires, 1)
+        assert kernel_bench.plan_route(n, t, chunk, None, wires)[0] == "two_pass"
+        wire_name = kernel_bench.ROUTE_WIRES[name][0].__name__
+        route, wire = cases[(name, f"{label} route")], cases[(wire_name, f"{label} {name}")]
+        mix = cases[("round_mix", f"{label} {name}")]
+        assert all(c.run is None and c.twin is None for c in (route, wire, mix))
+        assert route.nbytes == (kernel_bench.gossip_bytes(n, t, chunk) if nw > wires
+                                else kernel_bench.round_bytes(n, t, chunk, wires))
+        assert wire.nbytes == kernel_bench.wire_bytes_moved(n, t, chunk, wires) - nw * n * t
+        assert mix.nbytes == 4 * (3 * nw * n * t + n * n + n)
+        assert wire.ops == kernel_bench.wire_ops(n, t, chunk, wires)
+        assert mix.ops == int(nw * n * t * (2 + 2 * terms))
+        assert route.ops == wire.ops + mix.ops
+        for c in (route, wire, mix):
+            assert c.bound == kernel_bench.bound(c.nbytes, c.ops)
+        # the mix moves far more bytes than its operations take at the peaks
+        assert mix.bound[1] == "bytes" and route.bound[1] == "bytes"
+    # by hand: DSGD's 4 + 3 fp32 buffers of 1024 x 262144, W, w_self, the
+    # scales and alpha; the gossip wire pass reads x, recon, res and
+    # writes recon', res' and the scales; the mixes' byte bounds
+    assert cases[("fused_round", f"{label} route")].nbytes == 7_522_488_324
+    assert kernel_bench.wire_bytes_moved(n, t, chunk, kernel_bench.GOSSIP_STAGE, q=False) == (
+        4 * (5 * n * t + n * (t // chunk)))
+    assert kernel_bench.route_ops(n, t, chunk, kernel_bench.GOSSIP_STAGE) == (
+        kernel_bench.stage_ops(n, t, chunk) + kernel_bench.mix_ops(n, t, 1))
+    assert [round(cases[("round_mix", f"{label} {name}")].bound[0] * 1e3, 2)
+            for name in ("fused_round", "fused_round_gt")] == [962.81, 1924.37]
+
+
 def test_kernel_bench_on_the_cpu_times_the_twins_alone(tmp_path):
     out = tmp_path / "kb.json"
     rows = kernel_bench.main(["--device", "cpu", "--shapes", "main,path decode",

@@ -295,12 +295,24 @@ def test_kernel_matches_twin_on_card(cuda, shape, wires):
 @pytest.mark.cuda
 def test_kernel_refuses_tile_over_shared_memory(cuda):
     # W_off alone is 144 KB at n = 192; with the smallest (192, 32) tiles
-    # a block needs 247 KB at every cluster size
+    # a block needs 247 KB at every cluster size: the one-pass kernel
+    # refuses the round, and the wrapper takes the two-pass route (the
+    # wire stage, then the mix kernel; tests/test_torch_large_federation.py)
     n, chunk = 192, 512
+    with pytest.raises(ops.SharedMemoryRefusal, match="shared"):
+        ops.plan_round(n, chunk, chunk, None, 1)
     bufs = _t(_inputs(n, chunk, 1, seed=0), cuda)
     w = _t(_weights(n), cuda)
-    with pytest.raises(ValueError, match="shared"):
-        ops.fused_round(*bufs, *w, np.float32(0.1), scale_chunk=chunk)
+    before = (ops.fused_round.launches, ops.wire_stage.launches, ops.round_mix.launches)
+    got = ops.fused_round(*bufs, *w, np.float32(0.1), scale_chunk=chunk)
+    want = ref.fused_round_ref(*bufs, *w, np.float32(0.1), scale_chunk=chunk)
+    torch.cuda.synchronize()
+    assert (ops.fused_round.launches, ops.wire_stage.launches, ops.round_mix.launches) == (
+        before[0], before[1] + 1, before[2] + 1)
+    assert float((got[0] - want[0]).abs().max()) <= ATOL * max(
+        1.0, max(float(b.abs().max()) for b in bufs))
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
 
 
 def _tie_inputs(bufs, chunk, wires, seed):

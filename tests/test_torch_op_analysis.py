@@ -139,6 +139,41 @@ def test_meta_kernels_are_charged_kernel_benchs_count():
         kb.wire_ops(n, t, chunk, 2), kb.wire_bytes_moved(n, t, chunk, 2))
 
 
+@pytest.mark.parametrize("name,wires", [("gossip_mix", kb.GOSSIP_STAGE), ("fused_round", 1),
+                                        ("fused_round_gt", 2)])
+def test_meta_two_pass_route_is_charged_two_launches(name, wires):
+    """A round the one-pass plan refuses (192 nodes) counts its wire pass
+    under its wire stage's name (with no int8 store) and its mix under
+    ``round_mix``, each charged kernel_bench's count (the mix at a dense
+    W: a ``meta`` W has no zeros to skip); a round it serves counts one
+    launch."""
+    from repro_torch.kernels.gossip import ops
+
+    fn = getattr(ops, name)
+    chunk = 512
+    for n, t, two in ((192, 2048, True), (20, 1536, False)):
+        bufs = [torch.empty(n, t, device="meta") for _ in range({0: 3, 1: 4, 2: 8}[wires])]
+        w = (torch.empty(n, n, device="meta"), torch.empty(n, device="meta"))
+        args = (*bufs, *w) + (() if wires == kb.GOSSIP_STAGE else (0.02,))
+        with op_analysis() as oa:
+            fn(*args, scale_chunk=chunk)
+        c = oa.costs()
+        if two:
+            nw = max(wires, 1)
+            wire = kb.ROUTE_WIRES[name][0].__name__
+            assert c.kernel_calls == {wire: 1, "round_mix": 1}
+            assert c.kernel_flops == (kb.wire_ops(n, t, chunk, wires)
+                                      + kb.mix_ops(n, t, nw))
+            assert c.kernel_bytes == (kb.wire_bytes_moved(n, t, chunk, wires, q=False)
+                                      + kb.mix_bytes(n, t, nw))
+            assert kernel_cost(wire, dict(n=n, t=t, chunk=chunk, topk=None, q=False)) == (
+                kb.wire_ops(n, t, chunk, wires), kb.wire_bytes_moved(n, t, chunk, wires, False))
+            assert kernel_cost("round_mix", dict(n=n, t=t, wires=nw)) == (
+                kb.mix_ops(n, t, nw), kb.mix_bytes(n, t, nw))
+        else:
+            assert c.kernel_calls == {name: 1}
+
+
 def test_a_twin_on_the_cpu_is_no_launch():
     bufs = [torch.zeros(2, 1024) for _ in range(8)]
     before = wire_stage_gt.launches

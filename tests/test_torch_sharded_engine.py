@@ -445,10 +445,17 @@ def test_refusals_name_their_item(group, kw, item):
     sub-range scopes build (``tests/test_torch_sharded_dynamic.py``,
     ``tests/test_torch_privacy.py``, ``tests/test_torch_scope.py``), and
     the torus and two-axis rounds run in ``tests/test_torch_torus_wire.py``
-    and ``tests/test_torch_two_axis.py``."""
+    and ``tests/test_torch_two_axis.py``. The two ``item 9`` knobs are
+    ported now and BUILD too (their rounds run in
+    ``tests/test_torch_wire_knobs.py``)."""
     params = {"p": torch.zeros(N, 30), "q": torch.zeros(N, 10)}
     args = dict(w=_er(), scale_chunk=CHUNK)
     args.update(kw)
+    if item == "item 9":
+        eng, _ = ShardedFusedEngine.from_group(group, params, **args)
+        assert (eng.error_feedback, eng.difference_coding) == (
+            kw.get("error_feedback", True), kw.get("difference_coding", True))
+        return
     if item == "item 15":
         from repro_torch.core.mixing import mesh_gossip_dense_equivalent
 
