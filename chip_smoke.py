@@ -124,13 +124,19 @@ The round kernels' two-pass route (the wire stage, then the mix kernel
 ``csrc/round_mix.cu``), which serves the federations the one-pass
 cluster kernel cannot hold in a block's shared memory: phase 2 holds it
 against the twins at 192 nodes (every flag combination, dense and
-top-64), DSGT top-64 at 128, the complete graph at 512 and 1,024 nodes
-on an Erdos-Renyi graph at 1 GB a buffer, and every earlier shape to its
-one-pass launch; phase 3 runs (L1) FD-DSGT, FD-DSGD and the gossip stage
-at 256 hospitals on a ring (two launches a round) against the host CPU
-and (L2) the ``error_feedback`` / ``difference_coding`` knobs on
-``fused`` and ``sharded_fused`` (both wires); phase 4 times the route at
-1,024 nodes beside its bound.
+top-64), DSGT top-64 at 128, the complete graph at 512, 1,024 nodes on
+an Erdos-Renyi graph at 1 GB a buffer and 2,101 under the stale mix,
+and every earlier shape to its one-pass launch; the mix alone against
+its twin on a ring, the complete graph and random graphs up to 16,000
+nodes (its band path), aligned and not; and the route (wire stage, then
+mix) equal to the one-pass kernel bitwise where both run ((20, 1536),
+a 128-node ring at 65,536 columns); phase 3 runs (L1) FD-DSGT, FD-DSGD
+and the gossip stage at 256 hospitals on a ring (two launches a round)
+against the host CPU and (L2) the ``error_feedback`` /
+``difference_coding`` knobs on ``fused`` and ``sharded_fused`` (both
+wires); phase 4 times the route at 1,024 nodes beside its bound and
+``torch.sparse.mm``, and the mix alone on a 1,024-node ring and the
+512-node complete graph.
 Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
@@ -242,6 +248,7 @@ from repro_torch.kernels.gossip.ref import (  # noqa: E402
     fused_round_gt_ref,
     fused_round_ref,
     gossip_mix_ref,
+    round_mix_ref,
     wire_stage_gossip_ref,
 )
 from repro_torch.benchmarks import ablations, thm1_speedup  # noqa: E402
@@ -332,13 +339,27 @@ FLAGS = list(itertools.product([True, False], repeat=3))  # ef, dc, stale
 # one-pass plan over the whole FLAGS sweep, dense and top-64; DSGT at
 # top-64 at 128 nodes, the first shape the plan refuses; a dense W_off;
 # 1,024 nodes on an Erdos-Renyi graph of about ten neighbours a node (1 GB
-# a buffer), at two flag combinations
+# a buffer), at two flag combinations; 2,101 nodes (the mix's narrower
+# strips) under the stale mix
 TWO_PASS_SHAPES = [
     ("federation-192", 192, 65_536, 512, "ring", (None, TOPK_MAIN), FLAGS),
     ("dsgt-128-top64", 128, 65_536, 512, "ring", (TOPK_MAIN,), FLAGS),
     ("complete-512", 512, 4_096, 512, "complete", (None,), FLAGS),
     (*kb.FEDERATION, (None,), [(True, True, False), (False, False, True)]),
+    ("federation-2101", 2101, 1024, 512, "erdos_renyi", (None,),
+     [(True, True, True), (False, False, True)]),
 ]
+# The mix kernel alone (phase 2): (nodes, flat width, offset of the
+# buffers from 16-byte alignment, graph) -- a ring, the complete graph, a
+# random W with exact zeros (the strip path; 2,101 nodes its narrower
+# strips; 16,000 the band path's j windows), the 4-byte copies (t not a
+# multiple of 4, a buffer one float off alignment), a ragged last strip
+MIX_SHAPES = [(1024, 4096, 0, "ring"), (512, 4096, 0, "complete"), (1024, 4096, 0, "random"),
+              (2101, 64, 0, "random"), (16000, 64, 0, "random"), (16000, 67, 1, "random"),
+              (300, 1027, 1, "random"), (7, 1030, 0, "random"), (5, 3, 0, "random")]
+# The route's mix against the one-pass kernel's, bitwise, where both run:
+# (label, nodes, flat width, topology) at chunk 512
+ONE_PASS_MIX_SHAPES = [("hospital20", 20, 1536, "hospital20"), ("ring-128", 128, 65_536, "ring")]
 # (L1) the MLP at a federation the one-pass plan refuses: hospitals on a
 # ring, rounds at Q = 10; the multi-round tolerances against the host CPU
 LARGE_HOSPITALS, LARGE_ROUNDS, LOSS_RTOL, BAL_ACC_TOL = 256, 5, 1e-3, 0.02
@@ -738,8 +759,8 @@ def check_two_pass() -> dict:
     max_err = 0.0
     for label, n, t, chunk, topo, topks, flags in TWO_PASS_SHAPES:
         kw_w = {"p": kb.FEDERATION_P} if topo == "erdos_renyi" else {}
-        w = mixing_matrix(topo, n, **kw_w)
-        if topo == "erdos_renyi":
+        if label == kb.FEDERATION[0]:  # the timed federation's graph
+            w = mixing_matrix(topo, n, **kw_w)
             check_assumption1(w)
             off = w - np.diag(np.diag(w))
             log(f"  {label}: W_off density {float((off != 0).mean()):.4f} (mean degree "
@@ -827,7 +848,91 @@ def check_two_pass() -> dict:
     torch.cuda.empty_cache()
     log(f"  every existing shape ({', '.join(s[0] for s in SHAPES)}) x the three round "
         "kernels x their top-k cases: the one-pass plan, one launch a call")
+    max_err = max(max_err, check_round_mix())
+    check_route_mix_bitwise()
     return {"round_mix": max_err, "wire_stage_gossip": 0.0}
+
+
+def mix_weights(n: int, graph: str):
+    """W_off and w_self of :data:`MIX_SHAPES`: the ring's or the complete
+    graph's, or (``random``) a random W_off with exact zeros -- 2% dense
+    past 100 nodes, 70% below -- made on the card from a seed."""
+    if graph != "random":
+        return weights(graph, n)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    w = torch.rand(n, n, generator=gen, device="cuda")
+    w *= torch.rand(n, n, generator=gen, device="cuda") >= (0.98 if n > 100 else 0.3)
+    w.fill_diagonal_(0.0)
+    return w, torch.rand(n, generator=gen, device="cuda")
+
+
+def check_round_mix() -> float:
+    """The mix kernel alone against its twin at :data:`MIX_SHAPES`, one
+    and two wires: one launch a call, within 1e-5 x 4 x (W's largest row
+    sum + 1). Returns the largest error."""
+    max_err = 0.0
+    for n, t, offset, graph in MIX_SHAPES:
+        w_off, w_self = mix_weights(n, graph)
+        scale = float(w_off.abs().sum(dim=1).max()) + 1.0
+        for wires in (1, 2):
+            gen = torch.Generator(device="cuda").manual_seed(t)
+            bufs = [torch.randn(n * t + offset, generator=gen, device="cuda")[offset:].view(n, t)
+                    for _ in range(2 * wires)]
+            zero_counts()
+            got = round_mix(w_off, w_self, bufs[:wires], bufs[wires:])
+            torch.cuda.synchronize()
+            if launch_counts()["round_mix"] != 1:
+                raise AssertionError(f"round_mix ({n}, {t}): launches {launch_counts()}")
+            for g, a, b in zip(got, bufs[:wires], bufs[wires:]):
+                err = float((g - round_mix_ref(w_off, w_self, a, b)).abs().max())
+                if not err <= 4e-5 * scale:
+                    raise AssertionError(f"round_mix ({n}, {t}, offset {offset}, {graph}, "
+                                         f"{wires} wire(s)): off the twin by {err}")
+                max_err = max(max_err, err)
+            del got, bufs
+        path = "strip" if gossip_wrappers.mix_plan(n, t, 1)[1] == n else "band"
+        log(f"  round_mix == twin at ({n}, {t}), offset {offset}, {graph} ({path} path): 1 "
+            f"and 2 wires, max err so far {max_err:.3e}")
+        del w_off, w_self
+        torch.cuda.empty_cache()
+    return max_err
+
+
+def check_route_mix_bitwise() -> None:
+    """Where the one-pass kernel runs (:data:`ONE_PASS_MIX_SHAPES`), the
+    route -- the wire stage with no int8 store, then the mix kernel --
+    gives the one-pass wrapper's outputs bitwise, for the gossip stage,
+    DSGD and DSGT under every (ef, dc, stale): mixed by ``torch.equal``,
+    recon', res' and the scales."""
+    chunk = 512
+    for label, n, t, topo in ONE_PASS_MIX_SHAPES:
+        w_off, w_self = weights(topo, n)
+        for name, (kernel, _, wires) in ROUND_WRAPPERS.items():
+            if kb.route_plan(name, n, t, chunk, None)[0] != ONE_PASS:
+                raise AssertionError(f"{name} at {label} left the one-pass plan")
+            alpha = None if wires == GOSSIP_STAGE else ALPHA
+            for k, (ef, dc, stale) in enumerate(FLAGS):
+                bufs = make_inputs(n, t, chunk, wires, label, seed=k)
+                kw = dict(scale_chunk=chunk, error_feedback=ef, difference_coding=dc)
+                one = kernel(*bufs, w_off, w_self, *(() if alpha is None else (alpha,)),
+                             stale_mix=stale, **kw)
+                olds = (bufs[4], bufs[6]) if wires == 2 else (bufs[wires + 1],)
+                mixed, recons, ress, scales = gossip_wrappers._route(
+                    wires, bufs, olds, w_off, w_self, alpha, stale, topk=None, **kw)
+                routed = (mixed + recons + ress + scales if wires != 2 else
+                          mixed + (recons[0], ress[0], recons[1], ress[1]) + scales)
+                for i, (a, b) in enumerate(zip(routed, one)):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"{name} at {label} (ef, dc, stale) {(ef, dc, stale)}: the "
+                            f"route's output {i} differs from the one-pass kernel's (max "
+                            f"{float((a - b).abs().max())})")
+                del one, routed, mixed, bufs
+        log(f"  the route (wire stage, then round_mix) == the one-pass kernel bitwise at "
+            f"{label} ({n}x{t}, chunk {chunk}), the gossip stage, DSGD and DSGT x 8 flag "
+            "combinations: mixed (torch.equal), recon', res', scales")
+        torch.cuda.empty_cache()
+
 
 
 # (label, B, C, H, K, hd, n_valid per row): the tests' shapes, then
@@ -3141,25 +3246,40 @@ def timings(card: str, floor_ms: float) -> dict:
 
 def two_pass_timings(card: str) -> dict:
     """The two-pass route at ``kb.FEDERATION`` (1,024 nodes, 262,144
-    columns, ER p = 0.01), DSGD and DSGT: the route, its wire stage and
-    its mix, each against its twin, through ``kernel_bench``; then the
-    wire stage's and the mix's µs beside the route's bound (the bytes the
-    round must move once over 3.35 TB/s, or its operations)."""
+    columns, ER p = 0.01), the gossip stage, DSGD and DSGT: the route, its
+    wire stage and its mix, each against its twin, the mix also against
+    ``torch.sparse.mm``, through ``kernel_bench``; then the wire stage's
+    and the mix's µs beside the route's bound (the bytes the round must
+    move once over 3.35 TB/s, or its operations); the mix alone on the
+    1,024-node ring and the 512-node complete graph, with its plan."""
     rows = kb.time_cases(kb.two_pass_cases(), card)
     label, n, t = kb.FEDERATION[:3]
     w_off, _ = kb.federation_weights()
-    log(f"  W_off: {kb.mix_terms(w_off):.2f} nonzeros a row (the mix's bound counts these); "
-        f"the kernel runs {kb.kernel_mix_terms(w_off):.2f} terms a row (4 x 4 blocks)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lists = sum(cols.numel() for cols, _ in gossip_wrappers.mix_lists(w_off.cpu())) / n
+    log(f"  W_off: {kb.mix_terms(w_off):.2f} nonzeros a row (the mix's bound counts "
+        f"these); the kernel runs {lists:.2f} terms a row (its lists)")
     for name in ("gossip_mix", "fused_round", "fused_round_gt"):
         wire_name = kb.ROUTE_WIRES[name][0].__name__
         route, wire = rows[(name, f"{label} route")], rows[(wire_name, f"{label} {name}")]
         mix = rows[("round_mix", f"{label} {name}")]
+        cols, window, smem, grid = gossip_wrappers.mix_plan(
+            n, t, 2 if name.endswith("gt") else 1, sms)
         log(f"  {name} two-pass route at ({n}, {t:,}): route {route['ms'] * 1e3:.2f} us = "
             f"{wire_name} {wire['ms'] * 1e3:.2f} ({wire['bound_ms'] / wire['ms']:.1%} of its "
             f"bound) + round_mix {mix['ms'] * 1e3:.2f} us ({mix['bound_ms'] / mix['ms']:.1%} "
-            f"of its bound {mix['bound_ms'] * 1e3:.2f} by {mix['bound_by']}), against the "
-            f"route's bound {route['bound_ms'] * 1e3:.2f} us by {route['bound_by']} "
+            f"of its bound {mix['bound_ms'] * 1e3:.2f} by {mix['bound_by']}; torch.sparse.mm "
+            f"{mix['library_ms'] * 1e3:.2f} us; strips of {cols} columns, {window} rows "
+            f"staged, {smem} B, {grid} blocks), against the route's bound "
+            f"{route['bound_ms'] * 1e3:.2f} us by {route['bound_by']} "
             f"({route['bound_ms'] / route['ms']:.1%} of it) [{card}]")
+    for label, n, t, _ in kb.MIX_GRAPHS:
+        mix = rows[("round_mix", f"{label} fused_round")]
+        cols, window, smem, grid = gossip_wrappers.mix_plan(n, t, 1, sms)
+        log(f"  round_mix alone at {label} ({n}, {t:,}): {mix['ms'] * 1e3:.2f} us, "
+            f"{mix['bound_ms'] / mix['ms']:.1%} of its bound {mix['bound_ms'] * 1e3:.2f} us "
+            f"by {mix['bound_by']}; torch.sparse.mm {mix['library_ms'] * 1e3:.2f} us; strips "
+            f"of {cols} columns, {window} rows staged, {grid} blocks [{card}]")
     return rows
 
 
@@ -4565,7 +4685,7 @@ def ptxas_summary(lib) -> str:
 
 # the libraries whose every kernel's registers and spills phase 1 prints
 PTXAS_DETAIL = ("fused_round_cluster", "wire_stage_compact", "flash_attention_tc",
-                "decode_attention", "rwkv6_scan", "rglru_scan")
+                "decode_attention", "rwkv6_scan", "rglru_scan", "round_mix")
 
 
 def ptxas_kernels(lib) -> list:
@@ -4745,7 +4865,8 @@ def main() -> int:
         "part_of": sorted(ROUND_WRAPPERS), "launches": launches["round_mix"],
         "max_abs_err": max_err["round_mix"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "bound_share": row["bound_ms"] / row["ms"],
     })
     # the gossip stage's two-pass wire stage, part of row 3: launched by
     # (L1)'s gossip path, timed at the 1,024-node federation (no int8

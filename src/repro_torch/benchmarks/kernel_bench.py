@@ -19,7 +19,9 @@ Shapes (``PERF.md`` section 6): the gossip kernels at the paper's (20,
 1536) buffer at chunk 512 (``main``), (64, 1,048,576) (``large``) and
 the main shape on the top-64 wire (the compact stages also top-16
 positions); the round kernels' two-pass route, its wire stage and its
-mix at 1,024 nodes (``federation-1024``, on the card only); decode attention at SmolLM-360M's serving path (B 8, 191 of
+mix at 1,024 nodes (``federation-1024``, on the card only; the mix also
+on a 1,024-node ring and the 512-node complete graph, beside
+``torch.sparse.mm``); decode attention at SmolLM-360M's serving path (B 8, 191 of
 4,096 slots live), a full 32,768-slot cache and RecurrentGemma-2B's hd
 256; flash at the path's prefill (B 8, S 128), S 4096 and hd 256 in a
 2048 window; the scans at RWKV6-7B's / RecurrentGemma-2B's prefill (S
@@ -46,6 +48,7 @@ import os
 import statistics
 import subprocess
 import time
+import warnings
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -72,7 +75,6 @@ from repro_torch.kernels.gossip.ops import (
     fused_round,
     fused_round_gt,
     gossip_mix,
-    mix_blocks,
     plan_round,
     plan_route,
     round_mix,
@@ -172,6 +174,10 @@ LARGE = ("large", 64, 1 << 20, 512, "torus:8x8")
 # a node (p = 0.01), 262,144 columns (1 GB a buffer)
 FEDERATION = ("federation-1024", 1024, 262_144, 512, "erdos_renyi")
 FEDERATION_P = 0.01
+# the mix alone on the extremes of W's sparsity, on DSGD's one wire:
+# (label, nodes, flat width, topology) -- two neighbours a node at the
+# federation's size, and every node a neighbour at 512
+MIX_GRAPHS = [("ring-1024", 1024, 262_144, "ring"), ("complete-512", 512, 65_536, "complete")]
 # attention: (label, B, cache slots, live slots, q-heads, kv-heads, hd):
 # SmolLM-360M's serving path at its last decode step (128 + 64 tokens),
 # a full 32,768-slot cache, RecurrentGemma-2B's at its last (128 + 32,
@@ -238,20 +244,10 @@ def update_ops(n: int, t: int, wires: int) -> int:
 def mix_terms(w_off: torch.Tensor) -> float:
     """The multiply-adds a row of the mix ``W_off @ nbr`` needs, averaged
     over the rows: W_off's nonzeros a row, the function's work on this
-    run's W. (The kernels run W_off's nonzero 4 x 4 blocks, zeros inside
-    a block included: :func:`kernel_mix_terms`.)"""
+    run's W, and the terms the two-pass route's mix kernel runs (its
+    lists, ``ops.mix_lists``). (The one-pass round kernels run W_off's
+    nonzero 4 x 4 blocks, zeros inside a block included.)"""
     return float(torch.count_nonzero(w_off.detach()).item()) / w_off.shape[0]
-
-
-def kernel_mix_terms(w_off: torch.Tensor) -> float:
-    """The multiply-adds a row the kernels' mix runs, averaged over the
-    rows: a row group of 4 rows takes 4 terms for each nonzero 4 x 4
-    block of W_off in its rows (``ops.mix_blocks``; at most n). Not a
-    bound's count (:func:`mix_terms` is): what the kernel does beyond
-    the function's work."""
-    n = w_off.shape[0]
-    blocks = mix_blocks(w_off.detach().cpu())
-    return float(np.mean([min(n, 4 * len(blocks[i // 4])) for i in range(n)]))
 
 
 def round_ops(n: int, t: int, chunk: int, wires: int, topk=None, terms=None) -> int:
@@ -751,18 +747,18 @@ def two_pass_cases(device="cuda", counts_only: bool = False) -> Iterator[Case]:
     :data:`FEDERATION`, for the gossip stage, DSGD and DSGT: the route
     through the wrapper (two launches), its wire pass alone (the wire
     stage of :data:`ROUTE_WIRES` with no int8 store, twin the wire
-    stage's) and its mix alone (``ops.round_mix``). The route's bound is
-    the round's: the bytes the function must move once
-    (:func:`round_bytes`, :func:`gossip_bytes`) against the operations of
-    both passes for this run's W_off. ``counts_only``: no inputs, no
-    calls."""
+    stage's) and its mix alone (``ops.round_mix``, with ``torch.sparse.mm``
+    as its library call: :func:`mix_case`); then the mix alone on the
+    graphs of :data:`MIX_GRAPHS`. The route's bound is the round's: the
+    bytes the function must move once (:func:`round_bytes`,
+    :func:`gossip_bytes`) against the operations of both passes for this
+    run's W_off. ``counts_only``: no inputs, no calls."""
     label, n, t, chunk, _ = FEDERATION
     w_off, w_self = federation_weights(device)
-    terms = mix_terms(w_off)
     for name in ("gossip_mix", "fused_round", "fused_round_gt"):
         kernel, twin, wires, _, _ = {**GOSSIP_KERNELS, **KERNELS}[name]
         wire_kernel, wire_twin, takes_alpha = ROUTE_WIRES[name]
-        nw, alpha = max(wires, 1), (ALPHA,) if takes_alpha else ()
+        alpha = (ALPHA,) if takes_alpha else ()
         bufs = None if counts_only else make_inputs(n, t, chunk, wires, label, seed=0,
                                                     device=device)
         round_args = (w_off, w_self) + alpha
@@ -771,27 +767,67 @@ def two_pass_cases(device="cuda", counts_only: bool = False) -> Iterator[Case]:
             (name, f"{label} route",
              gossip_bytes(n, t, chunk) if name in GOSSIP_KERNELS
              else round_bytes(n, t, chunk, wires),
-             route_ops(n, t, chunk, wires, None, terms),
+             route_ops(n, t, chunk, wires, None, mix_terms(w_off)),
              lambda b, k=kernel, a=round_args: k(*b, *a, scale_chunk=chunk),
              lambda b, k=twin, a=round_args: k(*b, *a, scale_chunk=chunk)),
             (wire_kernel.__name__, f"{label} {name}",
              wire_bytes_moved(n, t, chunk, wires, q=False), wire_ops(n, t, chunk, wires),
              lambda b, k=wire_kernel, a=alpha: k(*b, *a, scale_chunk=chunk, store_q=False),
              lambda b, k=wire_twin, a=alpha: k(*b, *a, scale_chunk=chunk)),
-            ("round_mix", f"{label} {name}", mix_bytes(n, t, nw),
-             mix_ops(n, t, nw, terms),
-             # any (n, t) buffers serve: the recons as the neighbour
-             # views, x (DSGT: x and t) as the self terms
-             lambda b, w=wires: round_mix(w_off, w_self, _mix_nbrs(b, w), b[:max(w, 1)]),
-             lambda b, w=wires: tuple(round_mix_ref(w_off, w_self, a, s)
-                                      for a, s in zip(_mix_nbrs(b, w), b[:max(w, 1)]))),
         ]
         for kernel_name, key, nbytes, ops, run, twin_run in cases:
             yield Case(kernel_name, key, key, dims, nbytes, ops, "gossip",
                        run=None if bufs is None else (lambda r=run, b=bufs: r(b)),
                        twin=None if bufs is None else (lambda r=twin_run, b=bufs: r(b)),
                        twin_reps={"reps": 10, "warmup": 1})
+        # any (n, t) buffers serve the mix: the recons as the neighbour
+        # views, x (DSGT: x and t) as the self terms
+        yield mix_case(f"{label} {name}", w_off, w_self, None if bufs is None else (
+            _mix_nbrs(bufs, wires), tuple(bufs[:max(wires, 1)])), n, t, max(wires, 1))
         del bufs
+    for label, n, t, topo in MIX_GRAPHS:
+        w_off, w_self = weights(topo, n, device)
+        bufs = None
+        if not counts_only:
+            gen = torch.Generator(device=device).manual_seed(0)
+            bufs = ((torch.randn(n, t, generator=gen, device=device),),
+                    (torch.randn(n, t, generator=gen, device=device),))
+        yield mix_case(f"{label} fused_round", w_off, w_self, bufs, n, t, 1)
+        del bufs
+
+
+def mix_case(key: str, w_off, w_self, bufs, n: int, t: int, wires: int) -> Case:
+    """``ops.round_mix`` on ``bufs`` = (neighbour views, self terms), a
+    buffer a wire (None: the counts alone), its twin, and its library
+    call: ``torch.sparse.mm`` of the CSR matrix ``[W_off | diag(w_self)]``
+    (n x 2n) against ``[nbr; src]`` (2n x t, stacked before the timed
+    calls), one call a wire. The bound counts W_off's nonzeros
+    (:func:`mix_terms`)."""
+    case = Case("round_mix", key, key, f"{n}x{t}", mix_bytes(n, t, wires),
+                mix_ops(n, t, wires, mix_terms(w_off)), "gossip",
+                twin_reps={"reps": 10, "warmup": 1})
+    if bufs is None:
+        return case
+    nbrs, srcs = bufs
+    with warnings.catch_warnings():  # "Sparse CSR tensor support is in beta state"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.cat((w_off, torch.diag(w_self)), dim=1).to_sparse_csr()
+    stacked = [torch.cat((a, s)) for a, s in zip(nbrs, srcs)]
+    tol = 1e-5 * max(1.0, max(float(b.abs().max()) for b in nbrs + srcs))
+
+    def lib():
+        return tuple(torch.sparse.mm(csr, s) for s in stacked)
+
+    def check():
+        for got, want in zip(lib(), case.twin()):
+            err = float((got - want).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"torch.sparse.mm {key}: off the twin by {err} > {tol}")
+
+    case.run = lambda: round_mix(w_off, w_self, nbrs, srcs)
+    case.twin = lambda: tuple(round_mix_ref(w_off, w_self, a, s) for a, s in zip(nbrs, srcs))
+    case.library, case.check = lib, check
+    return case
 
 
 def _mix_nbrs(bufs, wires: int):
@@ -967,8 +1003,9 @@ def _describe(case: Case, k_ms: float, t_ms: float, l_ms, bound_ms: float, bound
     """The printed line of a timed case on the card."""
     of = f"{bound_ms / k_ms:.1%} of bound"
     if case.kind == "gossip":
+        lib = "" if l_ms is None else f", torch.sparse.mm {l_ms * 1e3:.2f} us"
         return (f"  {case.kernel} {case.label} {case.dims}: kernel {k_ms * 1e3:.2f} us"
-                f"{case.note(k_ms) if case.note else ''}, twin {t_ms * 1e3:.2f} us, bound "
+                f"{case.note(k_ms) if case.note else ''}, twin {t_ms * 1e3:.2f} us{lib}, bound "
                 f"{bound_ms * 1e3:.2f} us by {bound_by} ({case.nbytes / 1e6:.3f} MB at "
                 f"{HBM_BYTES_S / 1e12:.2f} TB/s, {case.ops / 1e6:.2f} M fp32 ops at "
                 f"{FP32_OPS_S / 1e12:.0f} T/s), {of} [{card}]")

@@ -99,10 +99,6 @@ wire, the error-feedback recon/residual and the mix accumulation are the
 fp32 computation of the rounded buffer, and the kernels stay fp32 (a
 kernel wrapper handed a bf16 buffer raises). ``tree`` refuses it, as the
 reference's does.
-
-What is outside the ported slice -- the sharded engine without
-difference coding or error feedback -- raises ``NotImplementedError``
-naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -201,12 +197,6 @@ __all__ = [
     "schedule_names",
     "resolve_schedule",
 ]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, item {item})"
-    )
 
 
 def _as_device_batch(batches, device: torch.device) -> Dict[str, torch.Tensor]:

@@ -66,8 +66,8 @@ from repro_torch.kernels.launches import launched
 
 __all__ = ["gossip_mix", "fused_round", "fused_round_gt", "wire_stage",
            "wire_stage_gt", "wire_stage_compact", "wire_stage_gt_compact",
-           "wire_stage_gossip", "round_mix", "plan_round", "plan_route", "mix_splits",
-           "mix_blocks", "round_smem_bytes",
+           "wire_stage_gossip", "round_mix", "plan_round", "plan_route", "mix_plan",
+           "mix_lists", "round_smem_bytes",
            "compact_gt_plan", "SharedMemoryRefusal", "GOSSIP_STAGE", "ONE_PASS",
            "TWO_PASS", "SMEM_LIMIT_BYTES"]
 
@@ -95,10 +95,10 @@ _GT_WARPS = 4
 #: :func:`plan_route`'s routes: the one-pass cluster kernel, or the wire
 #: stage then the mix kernel
 ONE_PASS, TWO_PASS = "one_pass", "two_pass"
-#: the mix kernel's columns a block covers a tile (csrc/round_mix.cu
-#: kCols), the resident blocks an SM its grid aims at, and CUDA's largest
-#: grid y
-_MIX_COLS, _MIX_BLOCKS_PER_SM, _GRID_Y_MAX = 1024, 4, 65535
+#: the mix kernel's rows a band on its band path (csrc/round_mix.cu
+#: kBandRows), and its warps' rings of row copies on the strip path (32
+#: warps x kDepth 2 stages x 384 B)
+_MIX_BAND_ROWS, _MIX_RING_BYTES = 256, 24576
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 
@@ -142,7 +142,10 @@ def _wire_lib() -> ctypes.CDLL:
 def _mix_lib() -> ctypes.CDLL:
     """The built mix-kernel library, declared as :func:`_cluster_lib`."""
     lib = load("round_mix")
-    _declare(lib, "round_mix_launch", [_P] * 8 + [_I] * 4 + [_P])
+    _declare(lib, "round_mix_launch", [_P] * 10 + [_I] * 6 + [_P])
+    _declare(lib, "round_mix_smem_bytes", [_I] * 3, ctypes.c_size_t)
+    _declare(lib, "round_mix_max_active", [_I] * 4)
+    _declare(lib, "round_mix_vec", [_P, _P, _I])
     _declare(lib, "gossip_error_string", [_I], ctypes.c_char_p)
     return lib
 
@@ -337,28 +340,39 @@ def plan_round(n: int, t: int, chunk: int, topk, wires: int,
     return min(full) if full else max(pool)
 
 
-def mix_splits(n: int, t: int, sms: int = H100_SMS) -> int:
-    """The mix kernel's column splits (its grid's y; x is one block a row
-    group of 4 rows): enough for about ``_MIX_BLOCKS_PER_SM`` blocks an SM,
-    at most one a 1,024-column tile, within CUDA's grid. Each block lists
-    its row group's nonzero blocks of W_off once and walks its split's
-    tiles."""
-    groups, tiles = -(-n // 4), -(-t // _MIX_COLS)
-    return max(1, min(tiles, -(-_MIX_BLOCKS_PER_SM * sms // groups), _GRID_Y_MAX))
+def mix_plan(n: int, t: int, wires: int, sms: int = H100_SMS) -> Tuple[int, int, int, int]:
+    """The mix kernel's layout (``csrc/round_mix.cu``) for ``wires`` (1 or
+    2) wires of (n, t): ``(cols, window, smem, grid)``. A block (one an
+    SM, 32 warps) stages ``window`` rows of one wire's strip of ``cols``
+    columns (a multiple of 4, a lane each: at most 128 B a row, which HBM
+    serves best). The strip path stages all n rows (``window == n``)
+    beside the warps' rings of row copies (:data:`_MIX_RING_BYTES`) and
+    each row's count and w_self: the widest strip that fits, narrower as
+    n grows. Where not even a 4-column strip of all n rows fits, the
+    band path: 32-column strips, ``window`` rows of them at a time.
+    ``smem``: the bytes a block uses; ``grid``: the persistent blocks, at
+    most the tiles (a strip and wire; on the band path also a band of
+    :data:`_MIX_BAND_ROWS` rows) and one an SM."""
+    if wires not in (1, 2):
+        raise ValueError(f"the mix takes one or two wires, got {wires}")
+    meta = _MIX_RING_BYTES + 16 * -(-2 * n // 4)
+    cols = min(32, (SMEM_LIMIT_BYTES - meta) // (4 * n)) // 4 * 4
+    if cols:
+        window, smem, bands = n, meta + 4 * n * cols, 1
+    else:
+        cols, window = 32, SMEM_LIMIT_BYTES // 128
+        smem, bands = 4 * window * cols, -(-n // _MIX_BAND_ROWS)
+    return cols, window, smem, min(-(-t // cols) * wires * bands, sms)
 
 
-def mix_blocks(w_off: torch.Tensor) -> list:
-    """The mix kernel's block list (``list_blocks`` in csrc/round_mix.cu),
-    in Python: for each row group of 4 rows, the ascending column groups
-    of 4 in which W_off has a nonzero -- the only neighbour rows the
-    kernel reads for those rows. The kernel lists them on the card from
-    the W it is handed, every launch."""
-    n = w_off.shape[0]
-    pad = -n % 4
-    nz = torch.nn.functional.pad((w_off != 0).to(torch.int8), (0, pad, 0, pad))
-    g = (n + pad) // 4
-    blocks = nz.reshape(g, 4, g, 4).amax(dim=(1, 3)) != 0
-    return [torch.nonzero(row).flatten() for row in blocks]
+def mix_lists(w_off: torch.Tensor) -> list:
+    """The mix kernel's neighbour lists (``list_kernel`` in
+    csrc/round_mix.cu), in Python: for each row of W_off, its nonzero
+    columns in ascending order and their weights -- the only neighbour
+    rows, and the only terms, the mix runs for that row. The kernel lists
+    them on the card from the W it is handed, every launch, each column
+    stored times the strip width (its staged row's offset)."""
+    return [(torch.nonzero(row).flatten(), row[row != 0]) for row in w_off]
 
 
 @functools.lru_cache(maxsize=None)
@@ -366,7 +380,7 @@ def plan_route(n: int, t: int, chunk: int, topk, wires: int,
                sms: int = H100_SMS) -> Tuple[str, tuple]:
     """How a round (``wires`` as :func:`plan_round`) runs on the card:
     ``(ONE_PASS, plan_round's plan)`` wherever the one-pass cluster kernel
-    holds it, else ``(TWO_PASS, (mix_splits,))`` -- the wire stage
+    holds it, else ``(TWO_PASS, mix_plan's plan)`` -- the wire stage
     (``csrc/wire_stage.cu``: the update, the quantization and error
     feedback, one warp a (row, chunk), with no node limit) and then the
     mix (``csrc/round_mix.cu``), two launches. Only
@@ -376,7 +390,7 @@ def plan_route(n: int, t: int, chunk: int, topk, wires: int,
     try:
         return ONE_PASS, plan_round(n, t, chunk, topk, wires, sms)
     except SharedMemoryRefusal:
-        return TWO_PASS, (mix_splits(n, t, sms),)
+        return TWO_PASS, mix_plan(n, t, max(wires, 1), sms)
 
 
 def _sms(dev: torch.device) -> int:
@@ -458,19 +472,42 @@ def _ptrs(*tensors) -> list:
     return [b.data_ptr() for b in tensors]
 
 
+@functools.lru_cache(maxsize=None)
+def _mix_launch_plan(index: int, n: int, t: int, wires: int, vec: int) -> Tuple[int, int, int]:
+    """:func:`mix_plan` for card ``index`` (its SM count), held to the
+    kernel's own shared-memory size, its grid cut to the blocks the card
+    holds at once: ``(cols, window, grid)``. Raises if the card cannot
+    hold one block."""
+    lib = _mix_lib()
+    with torch.cuda.device(index):
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        cols, window, smem, grid = mix_plan(n, t, wires, sms)
+        own = lib.round_mix_smem_bytes(n, window, cols)
+        if own != smem:
+            raise RuntimeError(f"mix kernel layout {own} B != planned {smem} B")
+        active = lib.round_mix_max_active(n, cols, window, vec)
+    if active < 0:
+        raise RuntimeError(f"mix kernel occupancy query failed: "
+                           f"{lib.gossip_error_string(-active).decode()}")
+    if active == 0:
+        raise RuntimeError(f"no mix block with {smem} B of shared memory fits card {index}")
+    return cols, window, min(grid, active * sms)
+
+
 def round_mix(
     w_off: torch.Tensor,
     w_self: torch.Tensor,
     nbrs: Sequence[torch.Tensor],
     srcs: Sequence[torch.Tensor],
 ) -> Tuple[torch.Tensor, ...]:
-    """The two-pass route's mix, in one kernel launch
-    (``csrc/round_mix.cu``): ``mixed = W_off @ nbr + w_self * src`` for
-    each of one or two wires (``nbrs[i]``, ``srcs[i]``), the neighbour
-    view and the self term. W_off is read as its nonzero 4 x 4 blocks,
-    listed on the card from the W handed in. nbr, src: (n, t) fp32
-    contiguous; w_off (n, n) with a zero diagonal; w_self (n,). Returns
-    the mixed buffers."""
+    """The two-pass route's mix, in one launch (``csrc/round_mix.cu``):
+    ``mixed = W_off @ nbr + w_self * src`` for each of one or two wires
+    (``nbrs[i]``, ``srcs[i]``), the neighbour view and the self term. The
+    launch runs two kernels on the current stream: the listing of each
+    row's nonzeros of the W handed in (:func:`mix_lists`) into scratch
+    allocated here, then the mix over strips of each wire's nbr staged in
+    shared memory (:func:`mix_plan`). nbr, src: (n, t) fp32 contiguous; w_off
+    (n, n) with a zero diagonal; w_self (n,). Returns the mixed buffers."""
     nbrs, srcs = tuple(nbrs), tuple(srcs)
     if not 1 <= len(nbrs) == len(srcs) <= 2:
         raise ValueError(f"round_mix takes one or two wires, got {len(nbrs)} "
@@ -481,12 +518,18 @@ def round_mix(
     outs = tuple(torch.empty_like(a) for a in nbrs)
     if w_off.device.type == "cuda":
         lib = _mix_lib()
+        dev = w_off.device
         wires = [p for a, b, o in zip(nbrs, srcs, outs) for p in _ptrs(a, b, o)]
         wires += [None] * (6 - len(wires))
-        dev = w_off.device
+        vec = lib.round_mix_vec(nbrs[0].data_ptr(), nbrs[-1].data_ptr(), t)
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        cols, window, grid = _mix_launch_plan(index, n, t, len(nbrs), vec)
+        # the lists (n x n (column, weight) pairs, ELL) and their counts
+        scratch = torch.empty(n * (2 * n + 1), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             err = lib.round_mix_launch(
-                *_ptrs(w_off, w_self), *wires, n, t, len(nbrs), mix_splits(n, t, _sms(dev)),
+                *_ptrs(w_off, w_self), *wires, scratch.data_ptr(),
+                scratch.data_ptr() + 8 * n * n, n, t, len(nbrs), cols, window, grid,
                 torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, err, "round_mix")
     launched(round_mix, n=n, t=t, wires=len(nbrs))

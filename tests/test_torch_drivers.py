@@ -34,6 +34,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.benchmarks import ablations, comm_bytes, kernel_bench, thm1_speedup  # noqa: E402
 from repro_torch.benchmarks import run as run_all  # noqa: E402
+from repro_torch.kernels.gossip.ops import mix_lists  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -160,16 +161,18 @@ def test_kernel_bench_prices_the_two_pass_route():
     cases count the round's bytes (the function's, moved once) against
     both passes' operations, the wire pass the wire stage's bytes without
     the int8 payload, the mix each wire's three buffers and W; the mix's
-    multiply-adds are W_off's nonzeros a row (the function's), not the
-    nonzero 4 x 4 blocks the kernel runs."""
+    multiply-adds are W_off's nonzeros a row (the function's), which are
+    the terms the mix kernel's lists hold; the mix alone also on the
+    1,024-node ring and the 512-node complete graph."""
     label, n, t, chunk, _ = kernel_bench.FEDERATION
     w_off, _ = kernel_bench.federation_weights("cpu")
     terms = kernel_bench.mix_terms(w_off)
     assert terms == float((w_off != 0).sum()) / n
     assert 5 <= terms <= 20  # about ten neighbours a node
-    assert kernel_bench.kernel_mix_terms(w_off) > 4 * terms  # the blocks' zeros
+    # the kernel's terms: its lists hold each row's nonzeros and no more
+    assert sum(cols.numel() for cols, _ in mix_lists(w_off)) / n == terms
     cases = {(c.kernel, c.shape): c for c in kernel_bench.two_pass_cases("cpu", counts_only=True)}
-    assert len(cases) == 9
+    assert len(cases) == 11
     for name, wires in (("gossip_mix", kernel_bench.GOSSIP_STAGE), ("fused_round", 1),
                         ("fused_round_gt", 2)):
         nw = max(wires, 1)
@@ -199,6 +202,16 @@ def test_kernel_bench_prices_the_two_pass_route():
         kernel_bench.stage_ops(n, t, chunk) + kernel_bench.mix_ops(n, t, 1))
     assert [round(cases[("round_mix", f"{label} {name}")].bound[0] * 1e3, 2)
             for name in ("fused_round", "fused_round_gt")] == [962.81, 1924.37]
+    # the ring's two neighbours a node leave it bound by bytes as the ER
+    # graph is; the complete graph's 511 terms a row by its operations
+    ring, full = cases[("round_mix", "ring-1024 fused_round")], cases[
+        ("round_mix", "complete-512 fused_round")]
+    assert ring.nbytes == cases[("round_mix", f"{label} fused_round")].nbytes
+    assert ring.ops == int(n * t * (2 + 2 * 2))
+    assert full.nbytes == 4 * (3 * 512 * 65_536 + 512 * 512 + 512)
+    assert full.ops == 512 * 65_536 * (2 + 2 * 511)
+    assert ring.bound[1] == "bytes" and full.bound[1] == "operations"
+    assert all(c.run is None and c.library is None for c in (ring, full))
 
 
 def test_kernel_bench_on_the_cpu_times_the_twins_alone(tmp_path):

@@ -13,15 +13,18 @@ take the two-pass route (``ops.plan_route``): the wire stage
   over every (ef, dc, stale).
 * The two-pass composition of the twins (the wire-stage twin, then the
   mix twin) against the one-pass twin, bitwise.
-* The route planner (pure Python): every shape the one-pass kernel served
-  keeps its plan; every shape it refuses takes two passes; the mix's
-  block list covers every W the topology programs realize; on ``meta``
-  tensors the route counts its two launches.
+* The route planner and the mix's plan (pure Python): every shape the
+  one-pass kernel served keeps its plan; every shape it refuses takes two
+  passes; the mix's lists are each row's nonzeros for every W the
+  topology programs realize; on ``meta`` tensors the route counts its two
+  launches.
 * ``train_decentralized(engine="fused")`` at 192 nodes against the
   reference's.
 * On the card (``cuda`` marker, skipped here): the route against the
-  twins, and the mix kernel alone at ragged shapes and past its one-window
-  node count.
+  twins (2,101 nodes under the stale mix too), the mix kernel alone at
+  ragged shapes, on a ring, the complete graph and random graphs up to
+  16,000 nodes (its band path), and the route equal to the one-pass
+  kernel bitwise where both run.
 
 Tolerances: as tests/test_torch_gossip_kernels.py -- recon', res' and the
 scales within 1e-6 of Pallas (bitwise on the card), ``mixed`` within the
@@ -287,7 +290,7 @@ def test_every_refused_shape_takes_two_passes(wires, topk, chunk):
         try:
             want = ops.plan_round(n, t, chunk, topk, wires)
         except ops.SharedMemoryRefusal:
-            assert route == ops.TWO_PASS and plan == (ops.mix_splits(n, t),), n
+            assert route == ops.TWO_PASS and plan == ops.mix_plan(n, t, max(wires, 1)), n
         else:
             assert route == ops.ONE_PASS and plan == want, n
         seen.add(route)
@@ -307,13 +310,34 @@ def test_the_one_pass_limits():
 
 
 @pytest.mark.parametrize("n,t", [(192, 65536), (1024, 262144), (512, 4096), (5, 3),
-                                 (4096, 1 << 30)])
-def test_mix_splits_fill_the_card_within_the_grid(n, t):
-    splits = ops.mix_splits(n, t)
-    tiles = -(-t // 1024)
-    assert 1 <= splits <= min(tiles, 65535)
-    blocks = -(-n // 4) * splits
-    assert blocks >= min(tiles * -(-n // 4), 4 * ops.H100_SMS)
+                                 (4096, 1 << 30), (130, 65536), (172, 65536), (194, 1530),
+                                 (256, 65536), (2101, 64), (16000, 64), (16000, 1 << 20)])
+@pytest.mark.parametrize("wires", [1, 2])
+def test_mix_splits_fill_the_card_within_the_grid(n, t, wires):
+    """The mix kernel's plan (``ops.mix_plan``): its shared memory fits a
+    block's limit and is the staged rows' bytes (on the strip path also
+    the warps' rings and each row's count and w_self); its strip is a
+    multiple of 4 columns, a lane each (at most 128 B a row); it stages
+    all n rows (the strip path) wherever a 4-column strip of them fits,
+    the widest strip that does (128 B rows at 1,024 nodes), else windows
+    of 128 B rows (the band path); its persistent grid, one block an SM,
+    fills the card where the tiles allow and never passes them."""
+    cols, window, smem, grid = ops.mix_plan(n, t, wires)
+    assert cols % 4 == 0 and 4 <= cols <= 32
+    meta = ops._MIX_RING_BYTES + 4 * (2 * n + -2 * n % 4)
+    strip_fits = meta + 4 * 4 * n <= ops.SMEM_LIMIT_BYTES
+    assert (window == n) == strip_fits
+    if strip_fits:
+        assert smem == meta + 4 * cols * n <= ops.SMEM_LIMIT_BYTES
+        assert cols == 32 or meta + 4 * (cols + 4) * n > ops.SMEM_LIMIT_BYTES
+        tiles = -(-t // cols) * wires
+    else:
+        assert cols == 32 and smem == 4 * cols * window
+        assert window < n and smem + 4 * cols > ops.SMEM_LIMIT_BYTES >= smem
+        tiles = -(-t // cols) * wires * -(-n // 256)
+    assert grid == min(tiles, ops.H100_SMS)
+    if n == 1024:
+        assert (cols, window) == (32, 1024)  # 128 B rows
 
 
 def _program_w_offs(w, rounds, **programs):
@@ -342,31 +366,30 @@ def _program_w_offs(w, rounds, **programs):
          node_program="stragglers:frac=0.5,rate=0.5,drop=1"),
 ], ids=lambda p: "+".join(v.split(":")[0] for v in p.values()))
 def test_block_list_covers_every_program_w(programs):
-    """The mix reads only W_off's listed 4 x 4 blocks, listed on the card
-    from the W of the round (``ops.mix_blocks`` is the same list in
-    Python): for 12 rounds of each program at 194 nodes (a ragged last
-    row group), every nonzero of the realized W lies in a listed block,
-    and the mix over the listed blocks alone is the dense mix."""
+    """The mix reads only each row's listed nonzeros of W_off, listed on
+    the card from the W of the round (``ops.mix_lists`` is the same list
+    in Python): for 12 rounds of each program at 194 nodes, each row's
+    list is its nonzero columns in ascending order with their weights,
+    so the mix over the lists alone is the dense mix."""
     n, t = 194, 40
     w = mixing_matrix("erdos_renyi", n, p=0.03, seed=4)
     rng = np.random.default_rng(0)
     nbr = torch.as_tensor(rng.normal(size=(n, t)), dtype=torch.float32)
     seen = set()
     for w_off in _program_w_offs(w, 12, **programs):
-        blocks = ops.mix_blocks(w_off)
-        assert len(blocks) == -(-n // 4)
-        cover = torch.zeros(n + 2, n + 2, dtype=torch.bool)
-        for rg, cols in enumerate(blocks):
+        lists = ops.mix_lists(w_off)
+        assert len(lists) == n
+        listed = torch.zeros_like(w_off)
+        for i, (cols, weights) in enumerate(lists):
             assert torch.equal(cols, torch.sort(cols).values)
-            for cg in cols.tolist():
-                cover[4 * rg:4 * rg + 4, 4 * cg:4 * cg + 4] = True
-        assert not ((w_off != 0) & ~cover[:n, :n]).any()
-        listed = torch.where(cover[:n, :n], w_off, torch.zeros_like(w_off))
+            assert cols.tolist() == [j for j in range(n) if w_off[i, j] != 0]
+            assert torch.equal(weights, w_off[i, cols])
+            listed[i, cols] = weights
         assert torch.equal(listed, w_off)
         np.testing.assert_allclose(_np(listed @ nbr), _np(w_off @ nbr), rtol=0, atol=0)
-        seen.add(tuple(c.numel() for c in blocks))
+        seen.add(tuple(c.numel() for c, _ in lists))
     if "topology_program" in programs:
-        assert len(seen) > 1  # the program changes which blocks are nonzero
+        assert len(seen) > 1  # the program changes which neighbours are listed
 
 
 @pytest.mark.parametrize("kernel", list(KERNELS))
@@ -493,12 +516,13 @@ def test_train_decentralized_fused_at_192_nodes_matches_reference(algorithm):
 # on the card
 # ---------------------------------------------------------------------------
 
-# (n, t, topk, topology): the first shapes past the one-pass plan, a dense
-# W_off, a sparse graph of 1,024 nodes, and a ragged row group on a chunk
+# (n, t, topk, topology, chunk): the first shapes past the one-pass plan, a
+# dense W_off, sparse graphs of 1,024 and 2,101 nodes, and a ragged row
+# group on a chunk
 # that is not a multiple of 4 (the kernels' scalar path)
 CARD_SHAPES = [(192, 4096, None, "ring", 512), (128, 2048, 64, "ring", 512),
                (512, 2048, None, "complete", 512), (1024, 2048, None, "erdos_renyi", 512),
-               (194, 1530, None, "erdos_renyi", 306)]
+               (194, 1530, None, "erdos_renyi", 306), (2101, 128, None, "erdos_renyi", 64)]
 
 
 @pytest.mark.cuda
@@ -539,32 +563,76 @@ def test_route_matches_twin_on_card(cuda, kernel, shape):
                 assert torch.equal(a, b), (kw, i)
 
 
+def _card_weights(n, graph, device):
+    """W_off and w_self on the card: the ring's or the complete graph's,
+    or (``random``) a random W_off with exact zeros -- 2% dense past 100
+    nodes, 70% below -- made on the card from a seed (n = 16,000 is 1 GB)."""
+    if graph != "random":
+        return _t(_weights(n, graph), device)
+    gen = torch.Generator(device=device).manual_seed(n)
+    w = torch.rand(n, n, generator=gen, device=device)
+    w *= torch.rand(n, n, generator=gen, device=device) >= (0.98 if n > 100 else 0.3)
+    w.fill_diagonal_(0.0)
+    return w, torch.rand(n, generator=gen, device=device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t,offset", [(1024, 4096, 0), (7, 1030, 0), (2101, 64, 0),
-                                        (300, 1027, 1), (5, 3, 0)])
+@pytest.mark.parametrize("n,t,offset,graph", [
+    (1024, 4096, 0, "random"), (7, 1030, 0, "random"), (2101, 64, 0, "random"),
+    (300, 1027, 1, "random"), (5, 3, 0, "random"), (1024, 4096, 0, "ring"),
+    (512, 4096, 0, "complete"), (16000, 64, 0, "random"), (16000, 67, 1, "random")])
 @pytest.mark.parametrize("wires", [1, 2])
-def test_round_mix_kernel_matches_twin_on_card(cuda, n, t, offset, wires):
-    """The mix kernel alone: float4 and scalar paths (t not a multiple of
-    4, a buffer one float off 16-byte alignment), a ragged row group,
-    more column groups than one window lists (2,101 nodes), a sparse and
-    a dense W with exact zeros in listed blocks; within 1e-5 of the twin
-    at unit scale."""
-    rng = np.random.default_rng(n + t)
-    w = rng.random((n, n)).astype(np.float32)
-    w[rng.random((n, n)) < (0.98 if n > 100 else 0.3)] = 0.0
-    np.fill_diagonal(w, 0.0)
-    w_off = torch.as_tensor(w, device=cuda)
-    w_self = torch.as_tensor(rng.random(n).astype(np.float32), device=cuda)
+def test_round_mix_kernel_matches_twin_on_card(cuda, n, t, offset, graph, wires):
+    """The mix kernel alone: the 16-byte and the 4-byte copies (t not a
+    multiple of 4, a buffer one float off 16-byte alignment), a ragged
+    last strip, a ring, the complete graph and a random W with exact
+    zeros, the strip path with narrower strips (2,101 nodes) and the
+    band path with its j windows (16,000); within 1e-5 of the twin at the
+    scale of W's row sums. (The stale mix, both wires, runs through the
+    route in test_route_matches_twin_on_card at 2,101 nodes.)"""
+    w_off, w_self = _card_weights(n, graph, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(t)
     bufs = []
     for _ in range(2 * wires):
-        flat = torch.as_tensor(rng.normal(size=n * t + offset).astype(np.float32), device=cuda)
+        flat = torch.randn(n * t + offset, generator=gen, device=cuda)
         bufs.append(flat[offset:].view(n, t))
     nbrs, srcs = bufs[:wires], bufs[wires:]
     before = ops.round_mix.launches
     got = ops.round_mix(w_off, w_self, nbrs, srcs)
     torch.cuda.synchronize()
     assert ops.round_mix.launches == before + 1
+    scale = float(w_off.abs().sum(dim=1).max()) + 1.0
     for g, a, b in zip(got, nbrs, srcs):
         want = ref.round_mix_ref(w_off, w_self, a, b)
-        scale = float(w_off.abs().sum(dim=1).max()) + 1.0
         assert float((g - want).abs().max()) <= ATOL * scale * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(20, 1536, "hospital20"), (128, 65536, "ring")],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_route_mix_equals_one_pass_bitwise_on_card(cuda, kernel, shape):
+    """Where the one-pass kernel runs, the route's wire stage (no int8
+    store) then the mix kernel give its bits, every (ef, dc, stale):
+    mixed by ``torch.equal`` (both sum each output's nonzero terms in
+    ascending j, then add w_self * self), recon', res' and the scales
+    bitwise."""
+    n, t, topo = shape
+    wires = KERNELS[kernel]
+    assert ops.plan_route(n, t, CHUNK, None, wires)[0] == ops.ONE_PASS
+    w_off, w_self = _t(_weights(n, topo), cuda)
+    alpha = None if wires == ops.GOSSIP_STAGE else ALPHA
+    for k, (ef, dc, stale) in enumerate(FLAGS):
+        bufs = _t(_inputs(n, t, wires, seed=k), cuda)
+        kw = dict(scale_chunk=CHUNK, error_feedback=ef, difference_coding=dc)
+        one = _call(kernel, ops, bufs, w_off, w_self, stale_mix=stale, **kw)
+        olds = (bufs[4], bufs[6]) if wires == 2 else (bufs[wires + 1],)
+        mixed, recons, ress, scales = ops._route(wires, bufs, olds, w_off, w_self, alpha,
+                                                 stale, topk=None, **kw)
+        torch.cuda.synchronize()
+        nw = _n_mixed(wires)
+        routed = (mixed + recons + ress + scales if wires != 2 else
+                  mixed + (recons[0], ress[0], recons[1], ress[1]) + scales)
+        assert len(routed) == len(one)
+        for i, (a, b) in enumerate(zip(routed, one)):
+            assert torch.equal(a, b), (kernel, shape, (ef, dc, stale), i, nw)
