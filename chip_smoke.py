@@ -137,6 +137,18 @@ against the host CPU and (L2) the ``error_feedback`` /
 wires); phase 4 times the route at 1,024 nodes beside its bound and
 ``torch.sparse.mm``, and the mix alone on a 1,024-node ring and the
 512-node complete graph.
+Phase 10 runs tensor parallelism (ROADMAP.md item 18b slice (i)):
+SmolLM-360M at full width and depth on a model group of two processes
+that share the card over gloo (``python -m
+repro_torch.benchmarks.tensor_parallel --backend gloo``): (p1) one
+``lm_loss`` forward and backward at batch 8, S 128, bf16 compute on the
+two ranks' shards (15 heads and 5 kv heads over 2 ranks: both cut
+through a head) against the whole model on the card, the loss and the
+gradients reassembled from the shards, the replicated leaves' gradients
+bitwise equal on both ranks, the model group's collectives counted
+against the layers, each rank's flash launches; (p2) one FD-DSGT
+``tree`` round at Q = 1 on 2 nodes x 2 shards against the whole-model
+``tree`` round.
 Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
@@ -4672,6 +4684,79 @@ def dryrun_phase(measured: dict) -> None:
         f"phase 9 {time.perf_counter() - t0:.1f} s")
 
 
+# phase 10: the dense family's tensor-parallel layers on a model group of
+# two processes sharing the card over gloo (NCCL refuses two ranks on one
+# device): SmolLM-360M at full width and depth, batch 8, S 128, bf16
+TP_ARCH, TP_SHARDS, TP_BATCH, TP_SEQ = "smollm-360m", 2, 8, 128
+TP_FLAGS = ["--arch", TP_ARCH, "--shards", str(TP_SHARDS), "--backend", "gloo",
+            "--compute-dtype", "bfloat16", "--batch", str(TP_BATCH), "--seq-len", str(TP_SEQ)]
+# the card's bf16 tolerances (PERF.md section 2): a loss within 1e-2
+# relative, gradients within 5e-2 of each leaf's scale; the round's
+# parameter updates and metrics as the gradients
+TP_LOSS_RTOL, TP_GRAD_TOL = 1e-2, 5e-2
+
+
+def tensor_parallel_phase() -> dict:
+    """(p1) and (p2) of phase 10 in one ``benchmarks/tensor_parallel``
+    process, whose two ranks are spawned processes on the card: each
+    holds its shard of SmolLM-360M (drawn whole from one seed on the card,
+    then cut), runs the tensor-parallel path, and rank 0 the whole model.
+    Returns the flash launches of both ranks."""
+    torch.cuda.empty_cache()
+    log(f"  this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB of the card "
+        f"({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved) beside the group")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.tensor_parallel",
+                           *TP_FLAGS], env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 10: the model group exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    lm, rnd = res["lm"], res["round"]
+    layers = lm["layers"]
+    rel = abs(lm["loss"] - lm["whole_loss"]) / abs(lm["whole_loss"])
+    worst = max(lm["grad_errs"], key=lm["grad_errs"].get)
+    log(f"  (p1) lm_loss on {TP_SHARDS} ranks: {lm['loss']:.6f} vs the whole model's "
+        f"{lm['whole_loss']:.6f} (rel {rel:.2e}); gradients reassembled from the shards "
+        f"within {lm['grad_errs'][worst]:.2e} of their scale (worst {worst}); replicated "
+        f"leaves bitwise equal on both ranks: {lm['replicated_equal']}")
+    log(f"  (p1) model group: {lm['counts']} for {layers} layers (expected "
+        f"{lm['expected']}: 1 + {layers} x (5 + 1 cut-head) + 1 + 4 a loss chunk "
+        f"all-reduces, 2 x {layers} all-gathers); flash launches a rank "
+        f"{lm['flash_launches']} (2 x {layers} under remat); {lm['tp_s']:.2f} s on the "
+        f"group, {lm['whole_s']:.2f} s whole")
+    if rel > TP_LOSS_RTOL or lm["grad_errs"][worst] > TP_GRAD_TOL:
+        raise AssertionError(f"(p1) the tensor-parallel loss or gradients drift from the "
+                             f"whole model's: {lm}")
+    if not lm["replicated_equal"]:
+        raise AssertionError("(p1) a replicated leaf's gradient differs across the ranks")
+    if lm["counts"] != {k: v for k, v in lm["expected"].items() if v}:
+        raise AssertionError(f"(p1) model group collectives {lm['counts']}, expected "
+                             f"{lm['expected']}")
+    if lm["flash_launches"] != [2 * layers] * TP_SHARDS:
+        raise AssertionError(f"(p1) flash launches {lm['flash_launches']}, expected "
+                             f"{2 * layers} a rank")
+    m, w = rnd["metrics"], rnd["whole_metrics"]
+    gaps = {k: abs(m[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm_sq",
+                                                       "consensus_err")}
+    upd = max(rnd["update_errs"].values())
+    log(f"  (p2) tree round, 2 nodes x {TP_SHARDS} shards, Q 1: loss {m['loss']:.6f} vs "
+        f"{w['loss']:.6f}, relative gaps {json.dumps({k: float(f'{v:.2e}') for k, v in gaps.items()})}, "
+        f"parameter updates within {upd:.2e} of their scale; flash launches a rank "
+        f"{rnd['flash_launches']} (2 x {layers} x 2 nodes); {rnd['tp_s']:.2f} s on the "
+        f"group, {rnd['whole_s']:.2f} s whole")
+    if max(gaps.values()) > TP_GRAD_TOL or upd > TP_GRAD_TOL or not rnd["replicated_equal"]:
+        raise AssertionError(f"(p2) the tensor-parallel tree round drifts from the whole "
+                             f"model's: {rnd}")
+    if rnd["flash_launches"] != [4 * layers] * TP_SHARDS:
+        raise AssertionError(f"(p2) flash launches {rnd['flash_launches']}, expected "
+                             f"{4 * layers} a rank")
+    log(f"  phase 10: {time.perf_counter() - t0:.1f} s (the group's own {res['seconds']:.1f} s)")
+    return {"flash_attention": sum(lm["flash_launches"]) + sum(rnd["flash_launches"])}
+
+
 def ptxas_summary(lib) -> str:
     """One line of a library's ``-Xptxas -v`` report: kernels, registers,
     the most spilled and the most shared memory of any kernel."""
@@ -4945,6 +5030,11 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + count
     phase("phase 9: the dry run (r1) and its prediction held against the card (r2)")
     dryrun_phase(torus["measured"])
+    del torus
+    phase("phase 10: tensor parallelism on a model group of two ranks sharing the card "
+          "(launches counted per rank)")
+    for name, count in tensor_parallel_phase().items():
+        launches[name] = launches.get(name, 0) + count
     phase(None)
     for row in kernels:
         row["launches"] = launches[row["name"]]

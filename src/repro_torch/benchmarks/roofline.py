@@ -18,7 +18,10 @@ a direction; across hosts one 400 Gb/s NDR InfiniBand adapter a GPU
 (the HGX H100 reference design), applied to ``op_analysis``'s cross-host
 bytes. Also MODEL_FLOPS = 6 N D (train; 2 N D serving; N the active
 parameters, D the tokens) and the usefulness ratio MODEL_FLOPS / the
-counted FLOPs of all ranks, the dominant term and its lever.
+counted FLOPs of all ranks, the dominant term and its lever. The dense
+family's ``tree`` train pairs (tensor-parallel layers on the ``(node,
+model)`` layout) get a table of their own, each beside its arch's
+two-axis pair.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.roofline [--mesh single] [--json]
 """
@@ -31,7 +34,7 @@ import os
 from typing import Dict, List, Optional
 
 from repro_torch.benchmarks import kernel_bench as kb
-from repro_torch.benchmarks.run_dryruns import ARCHS, SHAPE_NAMES, record_path
+from repro_torch.benchmarks.run_dryruns import ARCHS, SHAPE_NAMES, TREE_ARCHS, record_path
 
 #: dense bf16 tensor-core FLOP/s and HBM3 bytes/s of the H100 SXM
 PEAK_FLOPS, HBM_BYTES_S = kb.BF16_OPS_S, kb.HBM_BYTES_S
@@ -49,7 +52,8 @@ SHAPE_TOKENS = {
 
 LEVERS = {
     "compute": "raise per-chip utilization: the two-axis layout computes each node's "
-               "whole step on every model shard (tensor-parallel layers, item 18b)",
+               "whole step on every model shard; the tree pairs split it over the "
+               "model group with tensor-parallel layers",
     "memory": "cut HBM traffic: fused (flash) attention backward, chunked loss, bf16 "
               "activations",
     "collective": "cut wire bytes: larger Q, the compact top-k wire, hierarchical pod "
@@ -66,6 +70,17 @@ def load_records(mesh: str = "single") -> List[Dict]:
             if os.path.exists(path):
                 with open(path) as f:
                     recs.append(json.load(f))
+    return recs
+
+
+def load_tree_records(mesh: str = "single") -> List[Dict]:
+    """The dense family's ``tree`` train records for ``mesh``."""
+    recs = []
+    for arch in TREE_ARCHS:
+        path = record_path(arch, "train_4k", mesh, engine="tree")
+        if os.path.exists(path):
+            with open(path) as f:
+                recs.append(json.load(f))
     return recs
 
 
@@ -131,15 +146,32 @@ def rows_for(mesh: str = "single") -> List[Dict]:
     return [r for r in (roofline_row(rec) for rec in load_records(mesh)) if r]
 
 
+def tree_rows_for(mesh: str = "single") -> List[Dict]:
+    """The ``tree`` train pairs' rows, each with its arch's two-axis
+    pair's usefulness ratio (``two_axis_useful_ratio``)."""
+    two = {r["arch"]: r for r in rows_for(mesh)
+           if r["shape"] == "train_4k" and r.get("status") == "ok"}
+    rows = []
+    for rec in load_tree_records(mesh):
+        row = roofline_row(rec)
+        if row.get("status") == "ok":
+            row["model_shards"] = rec["tensor_parallel"]["model_shards"]
+            row["two_axis_useful_ratio"] = two[row["arch"]]["useful_ratio"] \
+                if row["arch"] in two else None
+        rows.append(row)
+    return rows
+
+
 def main(argv=None) -> List[Dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mesh", default="single")
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
     rows = rows_for(args.mesh)
+    tree = tree_rows_for(args.mesh)
     if args.json:
-        print(json.dumps(rows, indent=2))
-        return rows
+        print(json.dumps(rows + tree, indent=2))
+        return rows + tree
     print(f"H100 SXM: {PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16, {HBM_BYTES_S / 1e12:.2f} TB/s "
           f"HBM, NVLink {NVLINK_BYTES_S / 1e9:.0f} GB/s a direction, InfiniBand "
           f"{IB_BYTES_S * 8 / 1e9:.0f} Gb/s a GPU across hosts")
@@ -152,7 +184,14 @@ def main(argv=None) -> List[Dict]:
               f"({worst['useful_ratio']:.3f})")
         print(f"most collective-bound: {collbound['arch']} x {collbound['shape']} "
               f"({collbound['t_collective_s']:.3f}s)")
-    return rows
+    if tree:
+        print("\ntree on the (node, model) layout (tensor-parallel layers), train_4k:")
+        print(format_table(tree))
+        for r in tree:
+            if r.get("status") == "ok" and r["two_axis_useful_ratio"] is not None:
+                print(f"  {r['arch']}: useful {r['useful_ratio']:.3f} on tree, "
+                      f"{r['two_axis_useful_ratio']:.3f} on the two-axis sharded_fused round")
+    return rows + tree
 
 
 if __name__ == "__main__":

@@ -5,12 +5,13 @@ Each pair runs ``python -m repro_torch.launch.dryrun`` in a fresh
 subprocess (one fake process group a process). Records are cached as
 JSON under ``experiments/dryrun_torch/`` -- re-runs skip completed pairs
 unless ``--force``; the reference's ``experiments/dryrun/`` is not
-touched. Train pairs run the port's one production-mesh round,
-``--fl-engine sharded_fused --fl-shard-model`` (the two-axis layout; the
-reference's default is ``tree``, which the port's dry run refuses: it
-needs tensor-parallel model layers, ROADMAP.md queue 1, item 18b), at Q
-= 2 by default, the Q of the reference's committed two-axis records.
-Exit code is nonzero if any pair fails.
+touched. Train pairs run the two-axis round, ``--fl-engine sharded_fused
+--fl-shard-model``, at Q = 2 by default, the Q of the reference's
+committed two-axis records; the dense family's (``TREE_ARCHS``) also run
+the reference's default, ``--fl-engine tree``, on the ``(node, model)``
+layout with tensor-parallel layers (ROADMAP.md queue 1, item 18b slice
+(i); the reference's file name, no engine suffix). Exit code is nonzero
+if any pair fails.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run_dryruns
       [--mesh single|multi|both] [--arch ARCH ...] [--shape SHAPE ...]
@@ -47,30 +48,37 @@ ARCHS = [
     "tinyllama-1.1b",
 ]
 SHAPE_NAMES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
-#: the flags of a train pair: the port's production-mesh round
-TRAIN_FLAGS = ["--fl-engine", "sharded_fused", "--fl-shard-model"]
+#: the flags of a train pair's engine: the two-axis round, and the
+#: tensor-parallel ``tree`` round of the dense family
+TRAIN_FLAGS = {"sharded_fused": ["--fl-engine", "sharded_fused", "--fl-shard-model"],
+               "tree": ["--fl-engine", "tree"]}
+#: the archs whose train pair also runs ``tree`` (dense tensor-parallel layers)
+TREE_ARCHS = ["smollm-360m", "tinyllama-1.1b", "phi3-medium-14b", "qwen2.5-32b"]
 
 
-def pair_argv(arch: str, shape: str, mesh: str, q: int) -> List[str]:
+def pair_argv(arch: str, shape: str, mesh: str, q: int,
+              engine: str = "sharded_fused") -> List[str]:
     argv = ["--arch", arch, "--shape", shape, "--mesh", mesh, "--q", str(q)]
-    return argv + (TRAIN_FLAGS if shape == "train_4k" else [])
+    return argv + (TRAIN_FLAGS[engine] if shape == "train_4k" else [])
 
 
-def record_path(arch: str, shape: str, mesh: str, q: int = 2) -> str:
-    args = dryrun._parser().parse_args(pair_argv(arch, shape, mesh, q))
+def record_path(arch: str, shape: str, mesh: str, q: int = 2,
+                engine: str = "sharded_fused") -> str:
+    args = dryrun._parser().parse_args(pair_argv(arch, shape, mesh, q, engine))
     return os.path.join(OUT_DIR, dryrun.record_name(args))
 
 
-def run_one(arch: str, shape: str, mesh: str, q: int, timeout: int = 3600) -> Dict:
+def run_one(arch: str, shape: str, mesh: str, q: int, engine: str = "sharded_fused",
+            timeout: int = 3600) -> Dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(REPO, "src")
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-           *pair_argv(arch, shape, mesh, q), "--out", OUT_DIR]
+           *pair_argv(arch, shape, mesh, q, engine), "--out", OUT_DIR]
     t0 = time.time()
     proc = subprocess.run(cmd, env=env, cwd=REPO, capture_output=True, text=True,
                           timeout=timeout)
     dt = time.time() - t0
-    path = record_path(arch, shape, mesh, q)
+    path = record_path(arch, shape, mesh, q, engine)
     if proc.returncode != 0 or not os.path.exists(path):
         return {"arch": arch, "shape": shape, "mesh": mesh, "status": "error",
                 "stderr_tail": proc.stderr[-3000:] or "no record written",
@@ -99,20 +107,24 @@ def main(argv=None) -> int:
     for mesh in meshes:
         for arch in args.arch:
             for shape in args.shape:
-                total += 1
-                path = record_path(arch, shape, mesh, args.q)
-                if os.path.exists(path) and not args.force:
-                    with open(path) as f:
-                        rec = json.load(f)
-                    if rec["status"] != "error":  # errors are always retried
-                        print(f"[cached] {arch} x {shape} x {mesh}: {rec['status']}")
-                        continue
-                todo.append((arch, shape, mesh))
+                engines = ["sharded_fused"] + (
+                    ["tree"] if shape == "train_4k" and arch in TREE_ARCHS else [])
+                for engine in engines:
+                    total += 1
+                    path = record_path(arch, shape, mesh, args.q, engine)
+                    if os.path.exists(path) and not args.force:
+                        with open(path) as f:
+                            rec = json.load(f)
+                        if rec["status"] != "error":  # errors are always retried
+                            print(f"[cached] {arch} x {shape} x {mesh}: {rec['status']}")
+                            continue
+                    todo.append((arch, shape, mesh, engine))
     failures = []
     with concurrent.futures.ThreadPoolExecutor(max(1, args.jobs)) as pool:
-        futures = {pool.submit(run_one, *p, args.q): p for p in todo}
+        futures = {pool.submit(run_one, arch, shape, mesh, args.q, engine):
+                   (arch, shape, mesh, engine) for arch, shape, mesh, engine in todo}
         for fut in concurrent.futures.as_completed(futures):
-            arch, shape, mesh = futures[fut]
+            arch, shape, mesh, engine = futures[fut]
             rec = fut.result()
             status, extra = rec["status"], ""
             if status == "ok":
@@ -120,11 +132,12 @@ def main(argv=None) -> int:
                          f" coll={rec['collectives']['total_bytes']:.3e}B"
                          f" trace={rec.get('trace_s', 0)}s")
             elif status == "error":
-                with open(record_path(arch, shape, mesh, args.q), "w") as f:
+                with open(record_path(arch, shape, mesh, args.q, engine), "w") as f:
                     json.dump(rec, f, indent=2)
-                failures.append((arch, shape, mesh))
+                failures.append((arch, shape, mesh, engine))
                 extra = " :: " + rec.get("stderr_tail", "")[-400:].replace("\n", " | ")
-            print(f"[{status}] {arch} x {shape} x {mesh} ({rec.get('wall_s', '?')}s){extra}")
+            print(f"[{status}] {arch} x {shape} x {mesh} {engine if shape == 'train_4k' else ''}"
+                  f" ({rec.get('wall_s', '?')}s){extra}")
             sys.stdout.flush()
     print(f"\n{total - len(failures)}/{total} pairs OK")
     if failures:

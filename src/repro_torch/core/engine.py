@@ -178,6 +178,7 @@ from repro_torch.kernels.gossip.ref import (
     scatter_compact_dq,
 )
 from repro_torch.launch.mesh import NodeGroup
+from repro_torch.models.sharding import is_split, shard_params, spec_dict, stacked_param_specs
 
 __all__ = [
     "GossipEngine",
@@ -854,12 +855,15 @@ class GossipEngine(abc.ABC):
 
     def global_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over every node of a mean over this process's nodes:
-        ``x`` itself unless the nodes are split over several processes."""
+        ``x`` itself unless the nodes are split over several processes.
+        The sum runs over the node group (on the ``(node, model)`` layout
+        every model rank of a block holds the block's value: a node
+        counts once)."""
         if self.group is None:
             return x
         x = x.detach().clone()
-        dist.all_reduce(x, group=self.group.pg)
-        return x / self.group.world
+        dist.all_reduce(x, group=self.group.wire_pg)
+        return x / self.group.node_ranks
 
     @property
     def storage_dtype(self) -> torch.dtype:
@@ -914,6 +918,8 @@ class GossipEngine(abc.ABC):
         if self.group is None:
             return {"loss": losses.mean(), "grad_norm_sq": _mean_grad_norm_sq(grads),
                     "consensus_err": _consensus_error(params)}
+        if self.group.model_shards > 1:
+            return self._model_group_metrics(losses, grads, params)
         g = torch.cat([x.float().reshape(x.shape[0], -1) for _, x in tree_leaves(grads)], 1)
         p = torch.cat([x.float().reshape(x.shape[0], -1) for _, x in tree_leaves(params)], 1)
         t, n = g.shape[1], self.n_nodes
@@ -925,6 +931,37 @@ class GossipEngine(abc.ABC):
         dist.all_reduce(sq, group=self.group.pg)
         return {"loss": sums[0] / n, "grad_norm_sq": (mean_g * mean_g).sum(),
                 "consensus_err": sq / n}
+
+    def _model_group_metrics(self, losses, grads, params) -> Dict[str, torch.Tensor]:
+        """:meth:`_exact_metrics` on the ``(node, model)`` layout, where a
+        rank holds its node rows' shard of each split leaf and the whole of
+        each replicated one: the column sums run over the node group (the
+        same shard of every block), the loss counts once per node, and the
+        squared norms add each split leaf's S shards (an all-reduce over
+        the model group) and each replicated leaf once."""
+        n, specs = self.n_nodes, self._tp_specs
+        parts = {True: ([], []), False: ([], [])}
+        for (path, g), (_, p) in zip(tree_leaves(grads), tree_leaves(params)):
+            split = is_split(specs[path])
+            parts[split][0].append(g.float().reshape(g.shape[0], -1))
+            parts[split][1].append(p.float().reshape(p.shape[0], -1))
+        cols = {k: sum(x.shape[1] for x in v[0]) for k, v in parts.items()}
+        g = torch.cat(parts[True][0] + parts[False][0], 1)
+        p = torch.cat(parts[True][1] + parts[False][1], 1)
+        t = g.shape[1]
+        sums = torch.cat([losses.float().sum()[None], g.sum(0), p.sum(0)])
+        dist.all_reduce(sums, group=self.group.wire_pg)
+        mean_g = sums[1:1 + t] / n
+        dev = p - sums[1 + t:] / n
+        dev_sq = (dev * dev).sum(0)
+        gsq = mean_g * mean_g
+        cut = cols[True]
+        sq = torch.stack([dev_sq[:cut].sum(), dev_sq[cut:].sum()])
+        dist.all_reduce(sq, group=self.group.wire_pg)
+        split = torch.stack([gsq[:cut].sum(), sq[0]])
+        dist.all_reduce(split, group=self.group.model_pg)
+        return {"loss": sums[0] / n, "grad_norm_sq": split[0] + gsq[cut:].sum(),
+                "consensus_err": (split[1] + sq[1]) / n}
 
     def params_view(self, params):
         """The tree view of the engine's parameter state."""
@@ -1192,6 +1229,8 @@ class TreeEngine(GossipEngine):
     (``core.mixing.make_dense_gossip``: the dense-W product)."""
 
     name = "tree"
+    #: the (node, model) layout's spec of each leaf path (None: whole leaves)
+    _tp_specs: Optional[Dict] = None
 
     def __init__(self, gossip, device=None):
         self._gossip = gossip
@@ -1227,7 +1266,16 @@ class TreeEngine(GossipEngine):
         rank's rows of the tree, mixed by ``core.mixing.make_mesh_gossip``
         over the group's node axes (one exchange per torus direction).
         Returns (engine, this rank's rows of ``stacked_params`` on the
-        group's device)."""
+        group's device).
+
+        On the ``(node, model)`` layout (S = ``group.model_shards`` > 1,
+        the reference's Megatron specs on every leaf) the state is this
+        rank's rows of its shard of each leaf (``models.sharding.
+        shard_params`` of the whole ``stacked_params``): the loss must be
+        the tensor-parallel bundle's (``build_model(cfg,
+        model_group=group.model_pg)``), the gossip mixes each shard with
+        the same shard of the other node blocks (the node group), and the
+        metrics count each node and each leaf once."""
         _refuse_exact_wire(cls.name, topk, round_schedule, scope)
         _reject_storage_dtype(storage_dtype, cls.name)
         _reject_privacy(privacy, cls.name, "engine's pytree wire has no quantize "
@@ -1240,7 +1288,12 @@ class TreeEngine(GossipEngine):
         n = tree_leaves(stacked_params)[0][1].shape[0]
         eng._bind_group(group, n)
         rows = slice(eng.rows.start, eng.rows.stop)
-        return eng, tree_map(lambda x: x[rows].to(group.device), stacked_params)
+        mine = tree_map(lambda x: x[rows], stacked_params)
+        if group.model_shards > 1:
+            specs = stacked_param_specs(mine)
+            eng._tp_specs = spec_dict(specs)
+            mine = shard_params(mine, group.shard, group.model_shards, specs)
+        return eng, tree_map(lambda x: x.to(group.device), mine)
 
 
 @register_engine
@@ -1334,6 +1387,11 @@ class FlatEngine(GossipEngine):
         reason = "engine's mesh build mixes through a baked ppermute backend"
         _reject_dynamic_program(topology_program, cls.name, reason)
         _reject_node_program(node_program, cls.name, reason)
+        if group.model_shards > 1:
+            raise ValueError(
+                f"the 'flat' engine on the (node, model) layout ({group.model_shards} model "
+                "shards) is ROADMAP.md queue 1, item 18b: its flat buffer is not "
+                "Megatron-split -- use 'tree' (dense family) or 'sharded_fused'")
         flat, layout = pack(stacked_params, pad_to=scale_chunk,
                             buffer_dtype=storage_dtype or torch.float32)
         eng = cls(make_mesh_flat_mix(group, self_weight, wire_dtype, axes_subset),

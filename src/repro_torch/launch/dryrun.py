@@ -14,16 +14,24 @@ kernels' wrappers allocate their outputs on ``meta`` and count a launch
 op: FLOPs, bytes, collectives by kind with the bytes that cross an 8-GPU
 host or a pod, the peak of live bytes. Every number is rank 0's.
 
-  * train pairs build the ``sharded_fused`` round
-    (``ShardedFusedEngine.from_group`` on the node-stacked meta init,
-    the two-axis layout under ``--fl-shard-model``) and run ONE
-    ``make_fl_round`` call on the batch of ``configs.shapes``; the
-    two-axis record holds the round to its contracts (one wire-stage
+  * train pairs build the round of ``--fl-engine`` on the node-stacked
+    meta init and run ONE ``make_fl_round`` call on the batch of
+    ``configs.shapes``: ``sharded_fused`` (``ShardedFusedEngine.
+    from_group``, the two-axis layout under ``--fl-shard-model``; the
+    two-axis record holds the round to its contracts: one wire-stage
     launch per (node, shard) tile, every wire message on node-axis
-    groups, one direction's bytes = ``flat_wire_bytes_per_shard``). The
-    reference also dry-runs ``tree``, ``flat`` and ``fused`` through
-    GSPMD's Megatron partitioning of the model layers, which the port does
-    not have: they are refused by name (ROADMAP.md queue 1, item 18b);
+    groups, one direction's bytes = ``flat_wire_bytes_per_shard``), or
+    ``tree`` -- the reference's default, which it dry-runs through GSPMD's
+    Megatron partitioning of the model layers -- for the dense family on
+    the ``(node, model)`` layout: ``TreeEngine.from_group`` keeps the
+    rank's node rows of its shard of each leaf (``models.sharding``), the
+    loss is the tensor-parallel bundle's (``build_model(cfg,
+    model_group=...)``: column- and row-parallel layers, the
+    vocab-parallel embedding and loss), and the record's
+    ``tensor_parallel`` section gives the per-rank state bytes and the
+    model and node groups' collectives. ``tree`` for the other families
+    (item 18b slice (ii)) and ``flat`` / ``fused`` on the ``(node,
+    model)`` layout are refused by name (ROADMAP.md queue 1, item 18b);
   * prefill and decode pairs run one call of the whole global batch on
     ``meta``: per-rank parameter bytes from ``models.sharding``'s rules,
     cache and batch bytes split over the node axes as the reference's
@@ -66,7 +74,7 @@ from repro_torch.configs.shapes import InputShape
 from repro_torch.core.dynamics import program_names
 from repro_torch.core.engine import engine_names, get_engine, schedule_names
 from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round
-from repro_torch.core.packing import flat_wire_bytes_per_shard
+from repro_torch.core.packing import flat_wire_bytes_per_shard, tree_leaves
 from repro_torch.core.schedules import inv_sqrt
 from repro_torch.launch.mesh import (
     MeshLayout,
@@ -79,16 +87,18 @@ from repro_torch.launch.mesh import (
     sub_groups,
 )
 from repro_torch.launch.op_analysis import op_analysis
+from repro_torch.models import attention as attn
 from repro_torch.models import build_model
 from repro_torch.models.sharding import batch_specs, model_param_specs, rank_bytes
 from repro_torch.training.trainer import stack_for_nodes
 
-__all__ = ["start_fake_world", "build_train_round", "two_axis_record", "run_pair",
-           "record_name", "main"]
+__all__ = ["start_fake_world", "build_train_round", "two_axis_record",
+           "tensor_parallel_record", "run_pair", "record_name", "main"]
 
 META = torch.device("meta")
 #: the engines the reference reaches at the production mesh through GSPMD
-GSPMD_ENGINES = ("tree", "flat", "fused")
+#: whose flat buffer the port does not yet place on the (node, model) layout
+GSPMD_ENGINES = ("flat", "fused")
 SKIP_REASON = "whisper x long_500k: enc-dec full-attention decoder (DESIGN.md §4)"
 
 
@@ -161,18 +171,25 @@ def build_train_round(arch: str, shape: InputShape, mesh: MeshLayout, q: int,
     if fl_engine in GSPMD_ENGINES:
         raise ValueError(
             f"--fl-engine {fl_engine}: the reference dry-runs it at the production "
-            "mesh through GSPMD's Megatron partitioning of the model layers, which "
-            "the port's layers do not have (ROADMAP.md queue 1, item 18b); the "
-            "port's dry run builds --fl-engine sharded_fused (add --fl-shard-model "
-            "for the two-axis layout)")
+            "mesh with its flat buffer P(node axes, None) beside GSPMD's Megatron "
+            "partitioning of the model layers; the port's (node, model) layout runs "
+            "--fl-engine tree for the dense family, and flat / fused there are "
+            "ROADMAP.md queue 1, item 18b (or --fl-engine sharded_fused, with "
+            "--fl-shard-model for the two-axis layout)")
     cfg = get_config(arch, smoke=smoke)
     if pad_heads:
         cfg = dataclasses.replace(cfg, tp_head_pad=pad_heads)
-    bundle = build_model(cfg, remat=True)
+    tensor_parallel = fl_engine == "tree" and n_model_shards(mesh) > 1
+    if tensor_parallel and cfg.family != "dense":
+        raise ValueError(
+            f"--fl-engine tree on {arch} ({cfg.family}): the (node, model) layout needs "
+            "tensor-parallel layers, which the port has for the dense family only; "
+            "MoE and VLM layers are ROADMAP.md queue 1, item 18b slice (ii), the other "
+            "families after it (or --fl-engine sharded_fused --fl-shard-model)")
     naxes = node_axes(mesh)
     node_ranks = n_fl_nodes(mesh)
     nodes = node_ranks if nodes is None else nodes
-    s = n_model_shards(mesh) if fl_shard_model else 1
+    s = n_model_shards(mesh) if fl_shard_model or tensor_parallel else 1
     if fl_shard_model and model_axis(mesh) is None:
         raise ValueError(
             "--fl-shard-model needs a mesh with a 'model' axis; "
@@ -180,7 +197,8 @@ def build_train_round(arch: str, shape: InputShape, mesh: MeshLayout, q: int,
         )
     # without the model axis each node's model-axis ranks are replicas
     # running this same program: the fake world is the node ranks alone
-    node_pg, model_pg = start_fake_world(mesh.world if fl_shard_model else node_ranks, s)
+    node_pg, model_pg = start_fake_world(node_ranks * s, s)
+    bundle = build_model(cfg, remat=True, model_group=model_pg if tensor_parallel else None)
     axes = tuple((a, mesh.shape[a]) for a in naxes) if nodes == node_ranks else (
         ("data", nodes),)
     group = NodeGroup(dist.group.WORLD, 0, node_ranks * s, META, axes, s, node_pg, model_pg)
@@ -199,7 +217,7 @@ def build_train_round(arch: str, shape: InputShape, mesh: MeshLayout, q: int,
     batch = train_input_specs(cfg, shape, nodes, q)
     batch_mesh = {a: mesh.shape[a] for a in naxes}
     return {"round_fn": round_fn, "state": state, "batch": batch, "engine": engine,
-            "fl_cfg": fl_cfg, "cfg": cfg, "group": group,
+            "fl_cfg": fl_cfg, "cfg": cfg, "group": group, "tensor_parallel": tensor_parallel,
             "batch_bytes": rank_bytes(batch, batch_specs(batch, naxes), batch_mesh)}
 
 
@@ -271,6 +289,38 @@ def two_axis_record(engine, costs, fl_cfg) -> Dict[str, Any]:
         "collective_axes": sorted(axes_seen),
         "wire_bytes_per_shard_one_edge": per_shard if sends else None,
         "wire_bytes_per_shard_per_round": float(engine.wire_bytes_per_shard(fl_cfg)),
+    }
+
+
+def tensor_parallel_record(aux, costs) -> Dict[str, Any]:
+    """The ``tree`` round's (node, model) layout: the rank's head share,
+    its state bytes leaf by leaf (params, tracker, previous gradient: the
+    placed shards), and the collectives of its model group and of its
+    node group by kind, with the bytes that cross a host (a 16-rank model
+    group spans two 8-GPU hosts). Raises AssertionError where a
+    collective left both groups or a gossip message left the node group."""
+    group, cfg, state = aux["group"], aux["cfg"], aux["state"]
+    model_ranks = tuple(dist.get_process_group_ranks(group.model_pg))
+    node_ranks = tuple(dist.get_process_group_ranks(group.wire_pg))
+    stray = [e for e in costs.events if tuple(e["ranks"]) not in (model_ranks, node_ranks)]
+    assert not stray, f"collectives outside the model and node groups: {stray[:4]}"
+    on_model = costs.on_group(model_ranks)
+    assert set(on_model) <= {"all-reduce", "all-gather"}, "a gossip message on the model group"
+    plan = attn.tp_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                             attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
+                             group.shard, group.model_shards)
+
+    def nbytes(tree):
+        return int(sum(t.numel() * t.element_size() for _, t in tree_leaves(tree)))
+
+    return {
+        "model_axis": "model", "model_shards": int(group.model_shards),
+        "heads": plan._asdict(),
+        "param_bytes": nbytes(state.params),
+        "tracker_bytes": nbytes(state.tracker) if state.tracker is not None else 0,
+        "prev_grad_bytes": nbytes(state.prev_grad) if state.prev_grad is not None else 0,
+        "model_group": on_model,
+        "node_group": costs.on_group(node_ranks),
     }
 
 
@@ -410,7 +460,7 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str, q: int = 4, algorithm: 
                 fl_node_program, fl_privacy, fl_scope, fl_shard_model, nodes, smoke)
             cfg, state, batch = aux["cfg"], aux["state"], aux["batch"]
             arg_bytes = _bytes(state) + aux["batch_bytes"]
-            stride = 1 if fl_shard_model else n_model_shards(mesh)
+            stride = mesh.world // aux["group"].world
             with op_analysis(pod_ranks=pod, rank_stride=stride) as oa:
                 new_state, metrics = aux["round_fn"](state, batch)
             out_bytes = _bytes((new_state, metrics))
@@ -459,7 +509,7 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str, q: int = 4, algorithm: 
             "trace_s": round(trace_s, 2),
             "kernel_calls": costs.kernel_calls,
             "kernel_flops": float(costs.kernel_flops),
-            "shard_gathers": int(aux["engine"].shard_gathers) if train else 0,
+            "shard_gathers": int(getattr(aux["engine"], "shard_gathers", 0)) if train else 0,
         }
         if mesh_layout is not None:
             record["layout"] = {"mesh": mesh.shape, "seq_len": shape.seq_len,
@@ -467,6 +517,8 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str, q: int = 4, algorithm: 
                                 "scale_chunk": scale_chunk}
         if train and fl_shard_model:
             record["two_axis"] = two_axis_record(aux["engine"], costs, aux["fl_cfg"])
+        if train and aux["tensor_parallel"]:
+            record["tensor_parallel"] = tensor_parallel_record(aux, costs)
         return record
     finally:
         if dist.is_initialized():
@@ -491,7 +543,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="kept for the reference's command lines: 'ref' only")
     ap.add_argument("--fl-engine", default="tree", choices=engine_names(),
                     help="round engine (core.engine's registry); the port's dry run "
-                         "builds sharded_fused and refuses tree, flat and fused")
+                         "builds sharded_fused, and tree for the dense family on the "
+                         "(node, model) layout; it refuses flat and fused")
     ap.add_argument("--topk", type=int, default=None,
                     help="ship only the k largest payload columns per scale chunk "
                          "(the compact wire where it is smaller)")

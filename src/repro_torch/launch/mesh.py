@@ -22,8 +22,11 @@ them over the ranks of a ``torch.distributed`` group:
 Nothing here reads the environment or discovers a cluster: the caller
 names its rank, the world size and the path of a ``FileStore`` every
 rank shares. A CUDA device gets NCCL (one rank a card: NCCL refuses two
-ranks on one device); the CPU gets gloo. :func:`run_group` starts the
-ranks of a group as processes of this machine.
+ranks on one device); the CPU gets gloo. A caller that puts several
+ranks on one card names ``backend="gloo"``: gloo moves CUDA tensors
+through the host, and refuses by raising what it does not take.
+:func:`run_group` starts the ranks of a group as processes of this
+machine.
 
 ``make_production_mesh`` / ``make_test_mesh`` and the helpers below build
 LAYOUTS (axis names and sizes), not device meshes: they start no process
@@ -150,7 +153,8 @@ def _axes_tuple(node_axes) -> Tuple[Tuple[str, int], ...]:
 
 
 def start_group(rank: int, world: int, store_path: str, device=None, *,
-                node_axes=None, model_shards: int = 1) -> NodeGroup:
+                node_axes=None, model_shards: int = 1,
+                backend: Optional[str] = None) -> NodeGroup:
     """Start this process's rank of a ``world``-rank group that meets at
     the ``FileStore`` ``store_path`` (a file every rank can reach and none
     has used before). ``device`` resolves as every entry point's does
@@ -159,7 +163,9 @@ def start_group(rank: int, world: int, store_path: str, device=None, *,
     node torus; ``model_shards`` S splits the world into ``world / S``
     node ranks of S column tiles each, and the node and model sub-groups
     are built here (``dist.new_group`` in the same order on every rank).
-    One group per process; :func:`stop_group` ends it."""
+    ``backend``: ``"gloo"`` on a CUDA device for ranks that share a card
+    (the default there is NCCL). One group per process; :func:`stop_group`
+    ends it."""
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} is not in a world of {world}")
     s = int(model_shards)
@@ -168,10 +174,16 @@ def start_group(rank: int, world: int, store_path: str, device=None, *,
     axes = _axes_tuple(node_axes)
     dev = resolve_device(device)
     kw = {}
+    if backend not in (None, "gloo", "nccl"):
+        raise ValueError(f"backend {backend!r}: the port's groups run 'nccl' or 'gloo'")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-        backend, kw["device_id"] = "nccl", dev
+        backend = backend or "nccl"
+        if backend == "nccl":
+            kw["device_id"] = dev
     elif dev.type == "cpu":
+        if backend == "nccl":
+            raise ValueError("NCCL runs CUDA tensors only; the CPU's groups run gloo")
         backend = "gloo"
     else:
         raise ValueError(f"no process-group backend for {dev}")
@@ -203,8 +215,8 @@ def stop_group(group: NodeGroup) -> None:
     dist.destroy_process_group(group.pg)
 
 
-def _check_world(world: int, dev: torch.device) -> None:
-    if dev.type == "cuda" and world > torch.cuda.device_count():
+def _check_world(world: int, dev: torch.device, backend: Optional[str] = None) -> None:
+    if dev.type == "cuda" and backend != "gloo" and world > torch.cuda.device_count():
         raise ValueError(
             f"a world of {world} ranks needs {world} cards: NCCL runs one rank "
             f"a device and refuses two ranks on one card, and "
@@ -214,14 +226,14 @@ def _check_world(world: int, dev: torch.device) -> None:
 
 
 def _rank_main(rank: int, fn, world: int, device: str, store: str, node_axes,
-               model_shards: int, args, out_path: str) -> None:
+               model_shards: int, args, out_path: str, backend: Optional[str]) -> None:
     dev = torch.device(device)
     if dev.type == "cuda":
-        dev = torch.device("cuda", rank)
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
     else:
         torch.set_num_threads(1)
     group = start_group(rank, world, store, dev, node_axes=node_axes,
-                        model_shards=model_shards)
+                        model_shards=model_shards, backend=backend)
     try:
         out = fn(group, *args)
         if rank == 0:
@@ -231,20 +243,22 @@ def _rank_main(rank: int, fn, world: int, device: str, store: str, node_axes,
 
 
 def run_group(fn: Callable, world: int, *, device=None, node_axes=None,
-              model_shards: int = 1, args: Sequence = ()):
+              model_shards: int = 1, args: Sequence = (), backend: Optional[str] = None):
     """Run ``fn(group, *args)`` on every rank of a ``world``-rank group on
     this machine and return rank 0's result. ``world == 1`` runs in this
     process; otherwise each rank is a spawned process (``fn`` and
     ``args`` must pickle). On CUDA rank r takes card r, and a world
     larger than the visible cards is refused (NCCL runs one rank a
-    device); on the CPU the ranks run gloo, one intra-op thread each."""
+    device) -- unless ``backend="gloo"``, whose ranks take the cards in
+    turn (r modulo the card count), several to a card; on the CPU the
+    ranks run gloo, one intra-op thread each."""
     dev = resolve_device(device)
-    _check_world(world, dev)
+    _check_world(world, dev, backend)
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
         if world == 1:
             group = start_group(0, 1, store, dev, node_axes=node_axes,
-                                model_shards=model_shards)
+                                model_shards=model_shards, backend=backend)
             try:
                 return fn(group, *args)
             finally:
@@ -254,7 +268,7 @@ def run_group(fn: Callable, world: int, *, device=None, node_axes=None,
         out_path = os.path.join(tmp, "rank0.pt")
         mp.start_processes(_rank_main, nprocs=world, start_method="spawn",
                            args=(fn, world, str(dev.type), store, node_axes,
-                                 model_shards, tuple(args), out_path))
+                                 model_shards, tuple(args), out_path, backend))
         return torch.load(out_path, weights_only=False)
 
 

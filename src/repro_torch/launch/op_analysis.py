@@ -41,7 +41,8 @@ because it runs Q x L times:
 ``events`` keeps each collective with its group's global ranks (and a
 point-to-point op's peer), so a
 caller can hold a round to its layout (``launch.dryrun``'s two-axis
-record). Data-dependent kernel work takes its static value: the round
+record), and ``OpCosts.on_group`` counts one group's (the tensor-parallel
+model group's all-reduces and all-gathers). Data-dependent kernel work takes its static value: the round
 kernels' mix ``n`` terms a row, the radix select's first pass, the decode
 kernel the cache's whole capacity.
 """
@@ -151,6 +152,21 @@ class OpCosts:
     def to_json(self) -> Dict:
         out = dataclasses.asdict(self)
         del out["events"]
+        return out
+
+    def on_group(self, ranks) -> Dict[str, Dict[str, float]]:
+        """``collectives``' counts of the collectives issued on the group of
+        exactly ``ranks`` (a tensor-parallel model group's all-reduces,
+        say, apart from its node group's gossip)."""
+        ranks, out = tuple(ranks), {}
+        for e in self.events:
+            if tuple(e["ranks"]) != ranks:
+                continue
+            d = out.setdefault(e["kind"], {"count": 0, "bytes": 0.0, "cross_bytes": 0.0})
+            d["count"] += 1
+            d["bytes"] += e["bytes"]
+            if e["level"] >= 1:
+                d["cross_bytes"] += e["bytes"]
         return out
 
 

@@ -19,11 +19,26 @@ flash call with Sq the decoder's tokens and Sk the encoder's frames
 every row's ``n_valid`` the encoder length (a decode step). The
 reference runs its plain ``_sdpa`` for both; the kernels compute the
 same function, with fp32 probabilities.
+
+On a model group (``tp``, ``models.tensor_parallel``) :func:`attn_apply`
+runs on the rank's shards: ``wq``/``wk``/``wv`` column-parallel and
+``wo`` row-parallel over the same range of the fused H*hd dimension
+(:func:`tp_head_plan`). Where the range holds whole heads and whole GQA
+groups, the rank attends on its own heads and no collective is added.
+Where it cuts through a head (SmolLM-360M's 15 heads, phi3-medium's and
+qwen2.5's 40 over 16 ranks) or through a kv head (TinyLlama's 4 kv heads
+over 16), ONE all-gather of the rank's q / k / v columns (only those
+that some rank's range cuts: the choice is the group's, so every rank
+issues the same collectives) over the model group gives every rank the
+whole heads its ``wo`` rows cover; it attends on those heads with K/V
+expanded to them where they are not whole GQA groups (the flash wrapper
+takes q heads a multiple of kv heads), and keeps its own columns of the
+output. Backward the gather costs one all-reduce of its gradient.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,12 +46,14 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init, linear
+from repro_torch.models.layers import apply_rope, dense_init, linear, row_parallel_linear
+from repro_torch.models.tensor_parallel import TPGroup, copy_to_model, gather_from_model
 
 __all__ = [
     "layout_heads",
     "attn_init",
     "attn_apply",
+    "tp_head_plan",
     "init_kv_cache",
     "attn_decode",
     "cross_attn_init",
@@ -132,14 +149,133 @@ def _logical_heads(q: torch.Tensor, n_heads: int) -> torch.Tensor:
     return q if q.shape[-2] == n_heads else q[..., :n_heads, :].contiguous()
 
 
+class TPHeads(NamedTuple):
+    """One rank's share of the heads (:func:`tp_head_plan`): its q columns
+    ``[q_lo, q_hi)`` of the fused H*hd dimension (``wq``'s columns,
+    ``wo``'s rows), the layout heads ``[h_lo, h_hi)`` they touch, the
+    logical heads among them ``[h_lo, a_hi)``, the kv heads those read
+    ``[kv_lo, kv_hi)``, whether the q and the k/v columns are gathered,
+    and whether K/V are expanded to the q heads."""
+
+    q_lo: int
+    q_hi: int
+    h_lo: int
+    h_hi: int
+    a_hi: int
+    kv_lo: int
+    kv_hi: int
+    gather_q: bool
+    gather_kv: bool
+    expand_kv: bool
+
+
+def tp_head_plan(n_heads: int, n_kv_heads: int, head_dim: int, n_layout: int,
+                 rank: int, size: int) -> TPHeads:
+    """Rank ``rank`` of ``size``'s heads under the column split of
+    ``models.sharding`` (``n_layout`` layout q heads, ``n_kv_heads`` kv
+    heads of ``head_dim``): q is gathered where its columns cut a head,
+    k/v where any rank's kv columns are not exactly the kv heads its q
+    heads read. Every rank of the group must issue the same collectives,
+    so both choices are the group's, the same on every rank (a padded
+    layout can leave one rank's kv columns exact and another's not)."""
+    hd, g = head_dim, n_heads // n_kv_heads
+    if (n_layout * hd) % size or (n_kv_heads * hd) % size:
+        raise ValueError(f"{n_layout} q / {n_kv_heads} kv heads of {hd} do not split "
+                         f"evenly over {size} model ranks")
+    cq, ck = n_layout * hd // size, n_kv_heads * hd // size
+
+    def heads(r):
+        q_lo, q_hi = r * cq, (r + 1) * cq
+        h_lo, h_hi = q_lo // hd, -(-q_hi // hd)
+        a_hi = max(h_lo, min(h_hi, n_heads))
+        kv_lo = h_lo // g if a_hi > h_lo else 0
+        kv_hi = (a_hi - 1) // g + 1 if a_hi > h_lo else 0
+        return q_lo, q_hi, h_lo, h_hi, a_hi, kv_lo, kv_hi
+
+    def kv_exact(r):
+        kv_lo, kv_hi = heads(r)[5:]
+        return (kv_lo * hd, kv_hi * hd) == (r * ck, (r + 1) * ck)
+
+    q_lo, q_hi, h_lo, h_hi, a_hi, kv_lo, kv_hi = heads(rank)
+    gather_q = cq % hd != 0
+    gather_kv = gather_q or not all(kv_exact(r) for r in range(size))
+    expand_kv = a_hi > h_lo and (h_lo % g != 0 or a_hi % g != 0)
+    return TPHeads(q_lo, q_hi, h_lo, h_hi, a_hi, kv_lo, kv_hi, gather_q, gather_kv,
+                   expand_kv)
+
+
+def _attn_apply_tp(p: Dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
+                   n_kv_heads: int, head_dim: int, rope_theta: Optional[float],
+                   causal: bool, window: int, compute_dtype, hl: int,
+                   tp: TPGroup) -> torch.Tensor:
+    """:func:`attn_apply` on the rank's shards (see the module docstring)."""
+    hd = head_dim
+    plan = tp_head_plan(n_heads, n_kv_heads, hd, hl, tp.rank, tp.size)
+    x = copy_to_model(x, tp)
+    q = linear(p["wq"], x, compute_dtype)
+    k = linear(p["wk"], x, compute_dtype)
+    v = linear(p["wv"], x, compute_dtype)
+    cq, ck = q.shape[-1], k.shape[-1]
+    parts = ([q] if plan.gather_q else []) + ([k, v] if plan.gather_kv else [])
+    if parts:
+        got = gather_from_model(torch.cat(parts, dim=-1), tp)
+        got = got.reshape(*got.shape[:-1], tp.size, -1)
+        off = 0
+        if plan.gather_q:
+            q = got[..., off:off + cq].flatten(-2)
+            off += cq
+        if plan.gather_kv:
+            k = got[..., off:off + ck].flatten(-2)
+            v = got[..., off + ck:off + 2 * ck].flatten(-2)
+        q_base = 0 if plan.gather_q else plan.q_lo // hd
+        kv_base = 0
+    else:
+        q_base, kv_base = plan.h_lo, plan.kv_lo
+    b, s = x.shape[:2]
+    n_act = plan.a_hi - plan.h_lo
+    out = x.new_zeros((b, s, plan.h_hi - plan.h_lo, hd), dtype=compute_dtype)
+    if n_act:
+        qh = _split_heads(q, q.shape[-1] // hd, hd)[..., plan.h_lo - q_base:
+                                                     plan.a_hi - q_base, :]
+        kh = _split_heads(k, k.shape[-1] // hd, hd)
+        vh = _split_heads(v, v.shape[-1] // hd, hd)
+        if plan.expand_kv:
+            g = n_heads // n_kv_heads
+            idx = torch.arange(plan.h_lo, plan.a_hi, device=x.device) // g - kv_base
+            kh, vh = kh.index_select(-2, idx), vh.index_select(-2, idx)
+        else:
+            kh = kh[..., plan.kv_lo - kv_base:plan.kv_hi - kv_base, :]
+            vh = vh[..., plan.kv_lo - kv_base:plan.kv_hi - kv_base, :]
+        if rope_theta is not None:
+            qh = apply_rope(qh, positions, rope_theta)
+            kh = apply_rope(kh, positions, rope_theta)
+        att = flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                              causal=causal, window=window)
+        out = att if n_act == plan.h_hi - plan.h_lo else F.pad(
+            att, (0, 0, 0, plan.h_hi - plan.a_hi))
+    else:
+        # pad heads only: the output is zero, but it must still reach q, k
+        # and v, so that this rank issues the backward collectives of the
+        # gather and of copy_to_model with the rest of the group
+        out = out + sum(t[..., :0].sum() for t in (q, k, v))
+    out = out.reshape(b, s, -1)[..., plan.q_lo - plan.h_lo * hd:plan.q_hi - plan.h_lo * hd]
+    return row_parallel_linear(p["wo"], out, compute_dtype, tp)
+
+
 def attn_apply(p: Dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
                n_kv_heads: int, head_dim: int, rope_theta: Optional[float],
                causal: bool = True, window: int = 0, compute_dtype=torch.bfloat16,
-               n_heads_layout: Optional[int] = None) -> torch.Tensor:
+               n_heads_layout: Optional[int] = None,
+               tp: Optional[TPGroup] = None) -> torch.Tensor:
     """Self-attention over a full sequence (prefill): x (B, S, d),
     positions (B, S). The attention itself is one flash-kernel call on
-    the logical heads with un-repeated K/V; padded layout heads are zero."""
+    the logical heads with un-repeated K/V; padded layout heads are zero.
+    ``tp``: the rank's shards of a model group (the module docstring)."""
     hl = n_heads_layout or n_heads
+    if tp is not None:
+        return _attn_apply_tp(p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                              head_dim=head_dim, rope_theta=rope_theta, causal=causal,
+                              window=window, compute_dtype=compute_dtype, hl=hl, tp=tp)
     q = _split_heads(linear(p["wq"], x, compute_dtype), hl, head_dim)
     k = _split_heads(linear(p["wk"], x, compute_dtype), n_kv_heads, head_dim)
     v = _split_heads(linear(p["wv"], x, compute_dtype), n_kv_heads, head_dim)

@@ -9,6 +9,15 @@ the rotation run in fp32 and cast back, as in the reference. The
 training loss (:func:`chunked_softmax_xent`) never holds more than one
 sequence chunk's logits: each chunk is recomputed in the backward pass
 (``torch.utils.checkpoint``), as the reference's scan keeps one chunk's.
+
+Tensor parallelism (``tp``, a ``models.tensor_parallel.TPGroup``; None
+runs the whole layer, as before): a column-parallel product is
+:func:`linear` on the rank's column shard of an input passed through
+``copy_to_model``; :func:`row_parallel_linear` all-reduces the partial
+products of the rank's row shard and adds the bias once, after the
+reduce; :func:`swiglu` is both; :func:`embed_lookup` and
+:func:`chunked_softmax_xent` are vocab-parallel on the rank's rows
+``[s V/S, (s+1) V/S)`` of the table.
 """
 
 from __future__ import annotations
@@ -19,11 +28,19 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.tensor_parallel import (
+    TPGroup,
+    all_reduce_max,
+    copy_to_model,
+    reduce_from_model,
+)
+
 __all__ = [
     "uniform_init",
     "normal_init",
     "dense_init",
     "linear",
+    "row_parallel_linear",
     "rmsnorm_init",
     "rmsnorm",
     "layernorm_init",
@@ -95,6 +112,20 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return y
 
 
+def row_parallel_linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                        compute_dtype=torch.float32,
+                        tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """:func:`linear` on the rank's row shard of ``w`` (its slice of
+    ``x``'s features): the partial products all-reduced over the model
+    group, the (replicated) bias added once, after the reduce."""
+    if tp is None:
+        return linear(p, x, compute_dtype)
+    y = reduce_from_model(torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype)), tp)
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype).unsqueeze(-2)
+    return y
+
+
 def rmsnorm_init(d: int, dtype=torch.float32, device=None,
                  lead: Sequence[int] = ()) -> Dict[str, torch.Tensor]:
     return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
@@ -134,10 +165,15 @@ def swiglu_init(generator, d: int, d_ff: int, dtype=torch.float32, device=None,
     }
 
 
-def swiglu(p: Dict, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+def swiglu(p: Dict, x: torch.Tensor, compute_dtype=torch.bfloat16,
+           tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """``down(silu(gate(x)) * up(x))``; on a model group ``gate`` / ``up``
+    column-parallel and ``down`` row-parallel (one all-reduce forward,
+    one backward)."""
+    x = copy_to_model(x, tp)
     g = linear(p["gate"], x, compute_dtype)
     u = linear(p["up"], x, compute_dtype)
-    return linear(p["down"], F.silu(g) * u, compute_dtype)
+    return row_parallel_linear(p["down"], F.silu(g) * u, compute_dtype, tp)
 
 
 def gelu_mlp_init(generator, d: int, d_ff: int, dtype=torch.float32, device=None,
@@ -180,11 +216,21 @@ def embed_init(generator, vocab: int, d: int, dtype=torch.float32, device=None,
 
 
 def embed_lookup(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+                 compute_dtype=torch.bfloat16, tp: Optional[TPGroup] = None) -> torch.Tensor:
     """The rows of ``table`` at ``tokens``, in ``compute_dtype``. The
     reference casts the whole table and then gathers; gathering first
-    gives the same values and casts only the rows it needs."""
-    return p["table"][tokens].to(compute_dtype)
+    gives the same values and casts only the rows it needs. On a model
+    group the table is the rank's rows ``[lo, lo + V/S)``: the tokens
+    outside them look up zeros, and the all-reduce sums each token's one
+    owner's row."""
+    table = p["table"]
+    if tp is None:
+        return table[tokens].to(compute_dtype)
+    lo = tp.rank * table.shape[0]
+    local = tokens.long() - lo
+    outside = (local < 0) | (local >= table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)].to(compute_dtype)
+    return reduce_from_model(rows.masked_fill(outside[..., None], 0), tp)
 
 
 def unembed_logits(table: torch.Tensor, h: torch.Tensor,
@@ -193,9 +239,10 @@ def unembed_logits(table: torch.Tensor, h: torch.Tensor,
     return torch.matmul(h.to(compute_dtype), table.to(compute_dtype).T)
 
 
-def _mask_padded_vocab(logits: torch.Tensor, valid_vocab: int) -> torch.Tensor:
-    """fp32 logits with the padded vocab ids (>= ``valid_vocab``) at -1e30."""
-    vocab = torch.arange(logits.shape[-1], device=logits.device)
+def _mask_padded_vocab(logits: torch.Tensor, valid_vocab: int, lo: int = 0) -> torch.Tensor:
+    """fp32 logits with the padded vocab ids (>= ``valid_vocab``) at -1e30;
+    ``lo`` is the global id of the first column (a vocab shard's)."""
+    vocab = torch.arange(lo, lo + logits.shape[-1], device=logits.device)
     return torch.where(vocab < valid_vocab, logits, -1e30)
 
 
@@ -224,9 +271,30 @@ def _xent_chunk(table: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
     return torch.sum((logz - gold) * valid)
 
 
+def _xent_chunk_tp(table: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
+                   valid_vocab: int, compute_dtype, tp: TPGroup) -> torch.Tensor:
+    """:func:`_xent_chunk` on the rank's vocab rows ``[lo, lo + V/S)``: the
+    local logits (B, chunk, V/S), padded ids masked by their global id;
+    logz from the all-reduced max (detached) and the all-reduced sum of
+    exponentials; the gold logit a masked sum, all-reduced with them (one
+    all-reduce for both)."""
+    lo = tp.rank * table.shape[0]
+    logits = _mask_padded_vocab(unembed_logits(table, h, compute_dtype).float(),
+                                valid_vocab, lo)
+    m = all_reduce_max(logits.max(dim=-1).values, tp)
+    vocab = torch.arange(lo, lo + logits.shape[-1], device=logits.device)
+    gold = torch.sum(torch.where(vocab == labels[..., None], logits, 0.0), dim=-1)
+    sums = reduce_from_model(
+        torch.stack([torch.exp(logits - m[..., None]).sum(dim=-1), gold]), tp)
+    logz = torch.log(sums[0]) + m
+    valid = (labels >= 0).float()
+    return torch.sum((logz - sums[1]) * valid)
+
+
 def chunked_softmax_xent(table: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
                          valid_vocab: int, chunk: int = 512,
-                         compute_dtype=torch.bfloat16) -> torch.Tensor:
+                         compute_dtype=torch.bfloat16,
+                         tp: Optional[TPGroup] = None) -> torch.Tensor:
     """Mean cross-entropy of ``h (B, S, d) @ table^T`` against ``labels
     (B, S)`` over the labels >= 0, without (B, S, V) logits.
 
@@ -234,7 +302,13 @@ def chunked_softmax_xent(table: torch.Tensor, h: torch.Tensor, labels: torch.Ten
     the reference pads before its scan, and each chunk's loss runs under
     ``torch.utils.checkpoint``: autograd keeps a chunk's inputs, and the
     backward pass recomputes its (B, chunk, V) logits, so the peak holds
-    one chunk's logits at a time."""
+    one chunk's logits at a time.
+
+    On a model group ``table`` is the rank's vocab rows (vocab-parallel,
+    :func:`_xent_chunk_tp`): ``h`` passes ``copy_to_model`` once, so its
+    gradient sums every shard's; each chunk's all-reduces are issued
+    again by its recompute in backward."""
+    h = copy_to_model(h, tp)
     b, s, _ = h.shape
     if s % chunk:
         pad = chunk - s % chunk
@@ -245,7 +319,12 @@ def chunked_softmax_xent(table: torch.Tensor, h: torch.Tensor, labels: torch.Ten
     count = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, s, chunk):
         hc, lc = h[:, c:c + chunk], labels[:, c:c + chunk]
-        loss_sum = loss_sum + checkpoint(_xent_chunk, table, hc, lc, valid_vocab,
-                                         compute_dtype, use_reentrant=False)
+        if tp is None:
+            part = checkpoint(_xent_chunk, table, hc, lc, valid_vocab, compute_dtype,
+                              use_reentrant=False)
+        else:
+            part = checkpoint(_xent_chunk_tp, table, hc, lc, valid_vocab, compute_dtype, tp,
+                              use_reentrant=False)
+        loss_sum = loss_sum + part
         count = count + (lc >= 0).float().sum()
     return loss_sum / torch.clamp(count, min=1.0)

@@ -7,7 +7,10 @@ The bundle is the integration surface the trainer and the serving
 engine consume. The reference's ``impl`` argument is gone: the port's
 attention and recurrence kernels dispatch by device, so its ``"ref"``,
 ``"flash"``, ``"blocked"``, ``"decode_kernel"`` and ``"pallas"`` paths
-are one path here. The sharding specs wait for the multi-GPU engine.
+are one path here. ``build_model(cfg, model_group=pg)`` builds the
+dense family's bundle for a rank of a model group: its ``loss_fn`` runs
+on the rank's shards (``models.sharding.shard_params``) through the
+tensor-parallel layers (``models.tensor_parallel``).
 
 ``loss_fn`` is NODE-BATCHED, the port trainer's ``core.fl.LossFn``:
 params with (n, ...) leaves and a batch with (n, ...) leaves in, the n
@@ -29,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fl import tree_map
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.models.tensor_parallel import tp_group
 
 __all__ = ["ModelBundle", "build_model"]
 
@@ -61,7 +65,15 @@ def _node_batched(single_loss: Callable[[Dict, Dict], torch.Tensor]) -> Callable
     return loss_fn
 
 
-def build_model(cfg: ModelConfig, remat: bool = True) -> ModelBundle:
+def build_model(cfg: ModelConfig, remat: bool = True, model_group=None) -> ModelBundle:
+    """The bundle of ``cfg``. ``model_group``: a model process group
+    (``NodeGroup.model_pg``) whose rank this process is -- the bundle's
+    ``loss_fn`` then takes the rank's shards of the parameters (the
+    dense family only: the others raise, naming item 18b slice (ii));
+    ``init_fn`` and the serving functions stay whole."""
+    tp = tp_group(model_group)
+    if tp is not None:
+        tfm.check_tensor_parallel(cfg)
     if cfg.family == "audio":
         return _build_encdec(cfg, remat)
     tfm.check_kinds(cfg)
@@ -82,7 +94,7 @@ def build_model(cfg: ModelConfig, remat: bool = True) -> ModelBundle:
 
     return ModelBundle(
         cfg=cfg, init_fn=init_fn,
-        loss_fn=_node_batched(lambda p, b: tfm.lm_loss(p, cfg, b, remat=remat)),
+        loss_fn=_node_batched(lambda p, b: tfm.lm_loss(p, cfg, b, remat=remat, tp=tp)),
         prefill_fn=prefill_fn, decode_fn=decode_fn,
         init_decode_state_fn=init_decode_state_fn)
 

@@ -21,21 +21,30 @@ reference's ``PartitionSpec`` as a tuple, over the port's parameter dict
 leading None for the layer axis. ``node_stack_specs`` prepends the FL
 node axes for the node-stacked optimizer state; ``rank_bytes`` is what
 one rank holds when every split dimension is divided over its axes.
-The port's model layers do not run tensor-parallel: the specs price a
-rank's share (``launch.dryrun``), they do not place tensors.
+
+The specs also place tensors: :func:`shard_params` cuts a whole tree
+into shard ``s`` of ``S`` along every dimension split over the model
+axis (the tree a rank of a model group holds, ``models.
+tensor_parallel``; the ``tree`` engine's state on the ``(node, model)``
+layout), :func:`unshard_params` puts S shards back together. The dense
+family's layers run on such shards; the other families' layers still
+run whole on a rank, and there the specs only price a rank's share
+(``launch.dryrun``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.fl import tree_map
 from repro_torch.core.packing import tree_leaves, tree_unflatten
 
-__all__ = ["model_param_specs", "node_stack_specs", "batch_specs", "rank_bytes"]
+__all__ = ["model_param_specs", "node_stack_specs", "batch_specs", "rank_bytes",
+           "stacked_param_specs", "shard_params", "unshard_params", "is_split",
+           "spec_dict"]
 
 Spec = Tuple[Any, ...]
 
@@ -105,6 +114,11 @@ def _spec_leaves(specs) -> list:
     return [((), specs)]
 
 
+def spec_dict(specs) -> Dict[Tuple, Spec]:
+    """``{leaf path: spec}`` of a spec tree."""
+    return dict(_spec_leaves(specs))
+
+
 def node_stack_specs(specs, node_axes: Sequence[str]) -> Any:
     """Prepend the FL node axes to every spec (node-stacked state layout)."""
     na = tuple(node_axes)
@@ -137,7 +151,7 @@ def rank_bytes(params, specs, mesh) -> int:
     split dimension divided over the product of its axes' sizes, rounded
     up as a padded shard would be."""
     sizes = dict(mesh.shape if hasattr(mesh, "shape") else mesh)
-    spec_of = dict(_spec_leaves(specs))
+    spec_of = spec_dict(specs)
     total = 0
     for path, leaf in tree_leaves(params):
         spec = spec_of[path]
@@ -147,3 +161,69 @@ def rank_bytes(params, specs, mesh) -> int:
         numel = math.prod(-(-d // _split(e, sizes)) for d, e in zip(leaf.shape, spec))
         total += numel * leaf.element_size()
     return total
+
+
+def stacked_param_specs(stacked, node_axes: Sequence[str] = ("nodes",)) -> Any:
+    """The specs of a node-stacked tree (a leading node axis on every
+    leaf): the rules read the tree of one node, then the node axes go
+    first (:func:`node_stack_specs`)."""
+    return node_stack_specs(model_param_specs(tree_map(lambda x: x[0], stacked)), node_axes)
+
+
+def is_split(spec: Spec, axis: str = "model") -> bool:
+    """Whether a spec splits a dimension over ``axis``."""
+    return any(axis == e or (isinstance(e, tuple) and axis in e) for e in spec)
+
+
+def _split_dim(spec: Spec, path, axis: str) -> Optional[int]:
+    dims = [i for i, e in enumerate(spec)
+            if axis == e or (isinstance(e, tuple) and axis in e)]
+    if len(dims) > 1:
+        raise ValueError(f"leaf {'/'.join(map(str, path))} splits {len(dims)} dims over "
+                         f"{axis!r}")
+    return dims[0] if dims else None
+
+
+def shard_params(params, shard: int, shards: int, specs=None, axis: str = "model") -> Any:
+    """Shard ``shard`` of ``shards`` of a whole tree under ``specs``
+    (default :func:`model_param_specs`): the same paths, every dimension
+    split over ``axis`` cut into ``shards`` equal slices and this one kept
+    and the other leaves whole, each a copy of its own (a rank holds its
+    tree, not views into the whole). A split dimension that ``shards`` does not
+    divide is refused -- :func:`rank_bytes` would price a padded shard the
+    layers cannot run on."""
+    if not 0 <= shard < shards:
+        raise ValueError(f"shard {shard} is not one of {shards}")
+    specs = model_param_specs(params) if specs is None else specs
+    spec_of = spec_dict(specs)
+    items = tree_leaves(params)
+    out = []
+    for path, leaf in items:
+        spec = spec_of[path]
+        if len(spec) != leaf.ndim:
+            raise ValueError(f"spec {spec} does not match leaf {'/'.join(map(str, path))} "
+                             f"of {leaf.ndim} dims")
+        dim = _split_dim(spec, path, axis)
+        if dim is None or shards == 1:
+            out.append(leaf.clone())
+            continue
+        size = leaf.shape[dim]
+        if size % shards:
+            raise ValueError(f"leaf {'/'.join(map(str, path))}: dim {dim} of size {size} "
+                             f"does not split evenly over {shards} shards")
+        width = size // shards
+        out.append(leaf.narrow(dim, shard * width, width).clone())
+    return tree_unflatten(tuple(p for p, _ in items), out)
+
+
+def unshard_params(shards: Sequence, specs, axis: str = "model") -> Any:
+    """The whole tree of :func:`shard_params`' ``len(shards)`` shards (in
+    shard order): each split leaf concatenated along its split dimension,
+    each other leaf taken from shard 0."""
+    spec_of = spec_dict(specs)
+    items = [tree_leaves(s) for s in shards]
+    out = []
+    for j, (path, leaf) in enumerate(items[0]):
+        dim = _split_dim(spec_of[path], path, axis)
+        out.append(leaf if dim is None else torch.cat([it[j][1] for it in items], dim=dim))
+    return tree_unflatten(tuple(p for p, _ in items[0]), out)

@@ -35,6 +35,15 @@ launches twice a layer and step, once forward and once in the
 recompute. The kernels' wrappers are ``torch.autograd.Function``s whose
 backward is plain PyTorch, so every parameter reaches its gradient on
 the card as on the CPU.
+
+Tensor parallelism (``tp``, a ``models.tensor_parallel.TPGroup``): the
+dense family's training path -- :func:`apply_block_train`,
+:func:`forward_hidden`, :func:`_embed_inputs` and :func:`lm_loss` -- runs
+on a rank's shards of a model group (``models.sharding.shard_params``):
+attention and the SwiGLU column- then row-parallel, the embedding and
+the loss vocab-parallel (one table for both where they are tied), the
+residual stream and the norms replicated. Other families raise: their
+layers are item 18b's slice (ii).
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models.tensor_parallel import TPGroup
 from repro_torch.models.layers import (
     chunked_softmax_xent,
     embed_init,
@@ -88,6 +98,15 @@ def check_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
     for kind in pattern:
         _check_kind(kind)
     return pattern
+
+
+def check_tensor_parallel(cfg: ModelConfig) -> None:
+    """The families whose layers run on a model group: the dense one."""
+    if cfg.family != "dense":
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}): tensor-parallel layers exist for the dense family "
+            "only; MoE and VLM layers on a model group are ROADMAP.md queue 1, item 18b "
+            "slice (ii), and the other families' after it")
 
 
 def _cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -142,10 +161,14 @@ def init_block(generator, cfg: ModelConfig, kind: str, device=None, lead=()) -> 
 
 
 def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                      positions: torch.Tensor,
+                      tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence (train / prefill) block from zero recurrent states.
-    Returns (x, aux loss), the aux loss 0 for every kind but ``moe``."""
+    Returns (x, aux loss), the aux loss 0 for every kind but ``moe``.
+    ``tp``: a dense block on the rank's shards of a model group."""
     _check_kind(kind)
+    if tp is not None:
+        check_tensor_parallel(cfg)
     cd, eps = _cdtype(cfg), cfg.norm_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in _ATTENTION_KINDS:
@@ -154,10 +177,10 @@ def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, causal=True,
             window=cfg.window if kind == "local_attention" else 0, compute_dtype=cd,
-            n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
+            n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad), tp=tp,
         )
         x = x + h
-        m, moe_aux = _ffn(p, kind, cfg, rmsnorm(p["ln2"], x, eps))
+        m, moe_aux = _ffn(p, kind, cfg, rmsnorm(p["ln2"], x, eps), tp)
         return x + m, aux if moe_aux is None else moe_aux
     b = x.shape[0]
     if kind == "rwkv":
@@ -175,16 +198,17 @@ def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
     return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd), aux
 
 
-def _ffn(p: Dict, kind: str, cfg: ModelConfig,
-         h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _ffn(p: Dict, kind: str, cfg: ModelConfig, h: torch.Tensor,
+         tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """An attention block's FFN on its normed input: the routed experts
-    and their aux loss for ``moe``, else the SwiGLU and None."""
+    and their aux loss for ``moe``, else the SwiGLU (on a model group,
+    column- then row-parallel) and None."""
     if kind == "moe":
         return moe_mod.moe_apply(p["moe"], h, n_experts=cfg.n_experts,
                                  k=cfg.experts_per_token,
                                  capacity_factor=cfg.moe_capacity_factor,
                                  compute_dtype=_cdtype(cfg))
-    return swiglu(p["mlp"], h, _cdtype(cfg)), None
+    return swiglu(p["mlp"], h, _cdtype(cfg), tp), None
 
 
 # ---------------------------------------------------------------------------
@@ -252,15 +276,16 @@ def _table(params: Dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward_hidden(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor,
-                   remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                   positions: torch.Tensor, remat: bool = True,
+                   tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embedded inputs (B,S,d) -> final hidden (B,S,d), total aux loss.
     ``remat`` runs each layer under non-reentrant activation
     checkpointing (the layers draw no random numbers, so no RNG state is
-    kept)."""
+    kept; on a model group the recompute issues the layer's forward
+    collectives again). ``tp``: the rank's shards of a model group."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(check_kinds(cfg)):
-        args = (_layer_params(params, cfg, i), kind, cfg, x, positions)
+        args = (_layer_params(params, cfg, i), kind, cfg, x, positions, tp)
         if remat:
             x, a = checkpoint(apply_block_train, *args, use_reentrant=False,
                               preserve_rng_state=False)
@@ -270,16 +295,18 @@ def forward_hidden(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
-def _embed_inputs(params: Dict, cfg: ModelConfig,
-                  batch: Dict) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict,
+                  tp: Optional[TPGroup] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(embedded (B,S,d), positions (B,S), labels (B,S)) of a training
     batch: ``tokens`` (B, S+1) split into inputs and next-token labels;
     a stubbed frontend's ``prefix_embeds`` (B, P, d) go first, with -1
-    (ignored) labels."""
+    (ignored) labels. ``tp``: the vocab-parallel lookup on the rank's
+    table rows."""
     cd = _cdtype(cfg)
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    emb = embed_lookup(params["embed"], inputs, cd)
+    emb = embed_lookup(params["embed"], inputs, cd, tp)
     if cfg.frontend != "none" and "prefix_embeds" in batch:
         pre = batch["prefix_embeds"].to(cd)
         emb = torch.cat([pre, emb], dim=1)
@@ -291,14 +318,17 @@ def _embed_inputs(params: Dict, cfg: ModelConfig,
 
 
 def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, remat: bool = True,
-            loss_chunk: int = 512) -> torch.Tensor:
+            loss_chunk: int = 512, tp: Optional[TPGroup] = None) -> torch.Tensor:
     """Next-token cross-entropy (mean over the valid tokens) plus the
     blocks' aux loss times ``router_aux_coef``, for one node's params and
-    batch (``tokens`` (B, S+1))."""
-    emb, positions, labels = _embed_inputs(params, cfg, batch)
-    h, aux = forward_hidden(params, cfg, emb, positions, remat)
+    batch (``tokens`` (B, S+1)). ``tp``: a dense model on the rank's
+    shards of a model group (every rank returns the whole loss)."""
+    if tp is not None:
+        check_tensor_parallel(cfg)
+    emb, positions, labels = _embed_inputs(params, cfg, batch, tp)
+    h, aux = forward_hidden(params, cfg, emb, positions, remat, tp)
     loss = chunked_softmax_xent(_table(params, cfg), h, labels, cfg.vocab_size,
-                                chunk=loss_chunk, compute_dtype=_cdtype(cfg))
+                                chunk=loss_chunk, compute_dtype=_cdtype(cfg), tp=tp)
     return loss + cfg.router_aux_coef * aux
 
 

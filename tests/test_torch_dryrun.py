@@ -16,7 +16,15 @@ reference's committed records and against a real round:
   counters;
 * the record's file name follows the reference's suffix rules (the
   reference's own ``main`` with its ``run_pair`` stubbed);
-* the refusals, the documented skip, and a serving pair's per-rank bytes.
+* the refusals, the documented skip, and a serving pair's per-rank bytes;
+* ``--fl-engine tree`` on the (16 data x 16 model) layout for
+  tinyllama-1.1b (whole q heads, a quarter kv head a rank) and
+  smollm-360m (cut heads), train_4k, Q = 2: the per-rank params,
+  tracker and previous gradient are ``rank_bytes`` of the node-stacked
+  Megatron specs; the model group's all-reduces and all-gathers are
+  counted from the layers, the loss chunks and remat; the flash kernel
+  launches twice a layer, step and node; every gossip message is on the
+  rank's node group; the model group's collectives cross a host.
 """
 
 import json
@@ -34,7 +42,8 @@ from repro_torch.configs import SHAPES, get_config  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh, make_test_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.sharding import model_param_specs, rank_bytes  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models.sharding import model_param_specs, node_stack_specs, rank_bytes  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_DIR = os.path.join(ROOT, "experiments", "dryrun")
@@ -219,9 +228,12 @@ def test_file_names_follow_the_references_rules(tmp_path):
 
 
 def test_refusals_and_the_skip():
-    for engine in ("tree", "flat", "fused"):
+    for engine in ("flat", "fused"):
         with pytest.raises(ValueError, match="item 18b"):
             dryrun.run_pair("tinyllama-1.1b", "train_4k", "single", fl_engine=engine)
+    for arch in ("dbrx-132b", "internvl2-26b", "rwkv6-7b"):  # tree: dense layers only
+        with pytest.raises(ValueError, match="item 18b slice \\(ii\\)"):
+            dryrun.run_pair(arch, "train_4k", "single", fl_engine="tree")
     with pytest.raises(ValueError, match="needs the sharded_fused engine"):
         dryrun.run_pair("tinyllama-1.1b", "train_4k", "single", fl_engine="fused",
                         fl_shard_model=True)
@@ -257,3 +269,57 @@ def test_a_serving_pair_splits_over_the_ranks():
     assert rec["kernel_calls"] == {"decode_attention": cfg.n_layers}
     assert "divided over the 256 ranks" in rec["flops_split"]
     assert rec["collectives"]["per_kind"] == {} and rec["n_chips"] == 256
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "smollm-360m"])
+def test_tree_on_the_model_layout(arch):
+    """A round of Q = 2 local steps (the last the comm step), one node a
+    node rank: a step's model-group all-reduces are the embedding's, 5 a
+    layer (wo and down forward, wo again in the recompute, the two
+    column-parallel inputs backward) plus one where the rank's columns cut
+    a head, the loss's hidden state's and 4 a 512-token chunk (max and
+    sums forward and in the recompute); one more for the metrics' split
+    leaves; an all-gather forward and in the recompute where heads are
+    cut. The node group carries the gossip (params and tracker packed,
+    each one message a direction of the 16-node ring) and the metrics'
+    three all-reduces."""
+    rec = dryrun.run_pair(arch, "train_4k", "single", q=2, fl_engine="tree")
+    assert not dist.is_initialized()
+    cfg = get_config(arch)
+    mesh = make_production_mesh()
+    tp = rec["tensor_parallel"]
+    assert tp["model_shards"] == 16 and rec["n_chips"] == 256 and rec["n_nodes"] == 16
+    params = build_model(cfg).param_shapes()
+    stacked = {k: v for k, v in _stack16(params).items()}
+    want = rank_bytes(stacked, node_stack_specs(model_param_specs(params), ("data",)), mesh)
+    assert tp["param_bytes"] == tp["tracker_bytes"] == tp["prev_grad_bytes"] == want
+    batch = 2 * 1 * (256 // 16) * (4096 + 1) * 4
+    assert rec["memory"]["argument_bytes"] == 3 * want + batch
+    layers, chunks, q = cfg.n_layers, 4096 // 512, 2
+    cut = int(tp["heads"]["gather_q"] or tp["heads"]["gather_kv"])
+    assert cut == 1 and tp["heads"]["gather_q"] == (arch == "smollm-360m")
+    step = 1 + layers * (5 + cut) + 1 + 4 * chunks
+    model = tp["model_group"]
+    assert model["all-reduce"]["count"] == q * step + 1
+    assert model["all-gather"]["count"] == q * 2 * layers * cut
+    # a 16-rank model group spans two 8-GPU hosts: every byte crosses
+    for kind in model.values():
+        assert kind["cross_bytes"] == kind["bytes"] > 0
+    node = tp["node_group"]
+    assert node["send"]["count"] == node["recv"]["count"] == 4
+    assert node["all-reduce"]["count"] == 3
+    assert set(node) == {"send", "recv", "all-reduce"}
+    assert rec["kernel_calls"] == {"flash_attention": 2 * layers * q * 1}
+    per_kind = rec["collectives"]["per_kind"]
+    assert per_kind["all-reduce"]["count"] == model["all-reduce"]["count"] + 3
+    plan = attn.tp_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, 0, 16)
+    assert tp["heads"] == plan._asdict()
+    args = dryrun._parser().parse_args(["--arch", arch, "--shape", "train_4k", "--q", "2",
+                                        "--fl-engine", "tree"])
+    assert dryrun.record_name(args) == f"{arch}_train_4k_single_q2.json"
+
+
+def _stack16(params):
+    from repro_torch.training.trainer import stack_for_nodes
+
+    return stack_for_nodes(params, 16)
