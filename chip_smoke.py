@@ -68,7 +68,10 @@ forward, the plain closed-form backward) against autograd through its
 twin on the card at the training shapes, and full-width SmolLM-360M (2
 layers, fp32 and bf16), RecurrentGemma-2B (one period) and RWKV6-7B (one
 layer) at fp32, 2 nodes: every leaf's gradient on the card against the
-host CPU's, none zero; (t2) SmolLM-360M at full width and depth through
+host CPU's, none zero (the host CPU's halves of (t1), (z2) and (z3) run
+in a process of their own beside phases 2 and 3, from the same seeded
+weights, drawn by the card's generator a leaf at a time; the process
+runs the card halves too, when the card's process asks); (t2) SmolLM-360M at full width and depth through
 ``train_decentralized``, one FD-DSGT round on the tree engine (4 nodes)
 and on the fused engine (2 nodes), round 1's local loss against the host
 CPU's, the host clock, busy share and peak memory, and
@@ -137,10 +140,13 @@ against the host CPU and (L2) the ``error_feedback`` /
 wires); phase 4 times the route at 1,024 nodes beside its bound and
 ``torch.sparse.mm``, and the mix alone on a 1,024-node ring and the
 512-node complete graph.
-Phase 10 runs tensor parallelism (ROADMAP.md item 18b slice (i)):
-SmolLM-360M at full width and depth on a model group of two processes
-that share the card over gloo (``python -m
-repro_torch.benchmarks.tensor_parallel --backend gloo``): (p1) one
+Phase 9 runs the dry run on the host ((r1) the reference's two
+committed records, (r2) the prediction for phase 8's (c2) round held
+against it), its processes beside tensor parallelism on the card
+(ROADMAP.md item 18b slices (i) and (ii)): a model group of two
+processes that share the card over gloo (``python -m
+repro_torch.benchmarks.tensor_parallel --backend gloo``), SmolLM-360M at
+full width and depth: (p1) one
 ``lm_loss`` forward and backward at batch 8, S 128, bf16 compute on the
 two ranks' shards (15 heads and 5 kv heads over 2 ranks: both cut
 through a head) against the whole model on the card, the loss and the
@@ -148,7 +154,14 @@ gradients reassembled from the shards, the replicated leaves' gradients
 bitwise equal on both ranks, the model group's collectives counted
 against the layers, each rank's flash launches; (p2) one FD-DSGT
 ``tree`` round at Q = 1 on 2 nodes x 2 shards against the whole-model
-``tree`` round.
+``tree`` round; then (p3) llama4-scout-17b-a16e at full width, one
+layer (16 experts, 8 a
+rank, the shared expert split, the router and the norms replicated), its
+``lm_loss`` as (p1), the routing compared between the ranks and with
+the whole model's; (p4) InternVL2-26B at full width, one layer, with its
+1,024 prefix embeddings, its ``lm_loss`` as (p1). Their ``tree`` rounds
+do not fit one card at full width: the CPU tests and the dry run hold
+them.
 Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
@@ -166,6 +179,7 @@ import itertools
 import json
 import math
 import os
+import queue
 import re
 import shutil
 import statistics
@@ -173,6 +187,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -190,6 +205,7 @@ from repro_torch.benchmarks import (  # noqa: E402
     straggler_ehr,
 )
 from repro_torch.benchmarks.fig2_comm_rounds import ALGOS, claims  # noqa: E402
+from repro_torch.benchmarks.tensor_parallel import RouteLog  # noqa: E402
 from repro_torch.benchmarks.fig2_comm_rounds import run as fig2_run  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import FLRunConfig  # noqa: E402
@@ -295,7 +311,6 @@ from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.mesh import NodeGroup, start_group, stop_group  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
-from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.mlp import (  # noqa: E402
     make_mlp_loss,
@@ -2827,12 +2842,37 @@ def token_batch(cfg, n: int, seed: int = 0) -> dict:
                                                  seed=seed))["tokens"][0]}
 
 
-def model_grad_paths() -> dict:
+def t1_weights(cfg, device: str) -> dict:
+    """(t1)'s node-stacked weights: drawn by the card's generator from one
+    seed, a leaf at a time, on ``device`` (the host CPU's copy equals the
+    card's)."""
+    single = build_model(cfg).init_fn(torch.Generator(device="cuda").manual_seed(3),
+                                      device=device)
+    return stack_for_nodes(single, GRAD_NODES)
+
+
+def t1_host(arch: str, depth: int, dtypes) -> dict:
+    """(t1)'s host half: each compute dtype's losses and gradients of the
+    bundle's node-batched loss_fn on the host CPU, and its seconds."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    host = t1_weights(cfg, "cpu")
+    tokens = torch.as_tensor(token_batch(cfg, GRAD_NODES)["tokens"])
+    out = {}
+    for dt in dtypes:
+        grad_fn = value_and_grad(build_model(dataclasses.replace(cfg, compute_dtype=dt)).loss_fn)
+        t0 = time.perf_counter()
+        losses, grads = grad_fn(host, {"tokens": tokens})
+        out[dt] = (losses, grads, time.perf_counter() - t0)
+    return out
+
+
+def model_grad_paths(refs: dict) -> dict:
     """(t1) Full-width models at cut depth through the bundle's
     node-batched ``loss_fn`` and the trainer's ``value_and_grad``: every
     leaf's gradient on the card against the host CPU's from the same
-    params and tokens, none all zero; the launches of one gradient
-    evaluation (remat: each kernel twice a layer and node)."""
+    params and tokens (``refs[("t1", arch)]``, computed beside phases
+    2-3), none all zero; the launches of one gradient evaluation (remat:
+    each kernel twice a layer and node)."""
     counts = {}
     for arch, depth, dtypes in GRAD_MODELS:
         cfg = dataclasses.replace(get_config(arch), n_layers=depth)
@@ -2843,10 +2883,9 @@ def model_grad_paths() -> dict:
             layers = sum(k in kind for k in kinds)
             if layers:
                 want[name] = 2 * layers * GRAD_NODES
-        host = stack_for_nodes(build_model(cfg).init_fn(torch.Generator().manual_seed(3),
-                                                        device="cpu"), GRAD_NODES)
-        card = tree_map(lambda a: a.cuda(), host)
+        card = t1_weights(cfg, "cuda")
         tokens = torch.as_tensor(token_batch(cfg, GRAD_NODES)["tokens"])
+        host = refs.pop(("t1", arch))
         for dt in dtypes:
             grad_fn = value_and_grad(build_model(
                 dataclasses.replace(cfg, compute_dtype=dt)).loss_fn)
@@ -2858,9 +2897,7 @@ def model_grad_paths() -> dict:
             expect_launches(f"{arch} x{depth} {dt} gradients", **want)
             for name, count in want.items():
                 counts[name] = counts.get(name, 0) + count
-            t0 = time.perf_counter()
-            cpu_losses, cpu_grads = grad_fn(host, {"tokens": tokens})
-            cpu_s = time.perf_counter() - t0
+            cpu_losses, cpu_grads, cpu_s = host.pop(dt)
             tol = GRAD_TOL[getattr(torch, dt)]
             rel = float(((losses.cpu() - cpu_losses).abs() / cpu_losses.abs()).max())
             if rel > tol:
@@ -2875,9 +2912,9 @@ def model_grad_paths() -> dict:
                 f"{[round(float(x), 4) for x in losses]} (CPU rel {rel:.2e}); all "
                 f"{len(leaves)} leaves' gradients nonzero and within {max(errs):.3e} of "
                 f"their scale of the host CPU's (tolerance {tol}); card {card_s:.1f} s, "
-                f"CPU {cpu_s:.1f} s")
+                f"CPU {cpu_s:.1f} s (beside phases 2-3)")
             del grads, cpu_grads, losses
-        del host, card
+        del card, host
         torch.cuda.empty_cache()
     return counts
 
@@ -3060,9 +3097,10 @@ def serve_consensus_path() -> dict:
     return want
 
 
-def training_counts(card: str) -> dict:
-    """(t1)-(t4) in order; their launches summed by kernel, and (t2)'s rows."""
-    counts = model_grad_paths()
+def training_counts(card: str, refs) -> dict:
+    """(t1)-(t4) in order ((t1) in the host references' process,
+    ``refs``); their launches summed by kernel, and (t2)'s rows."""
+    counts = refs.run("t1")
     section("  -- (t2) SmolLM-360M at full width and depth")
     t2 = training_paths(card)
     section("  -- (t3) serve_consensus at full width")
@@ -3557,7 +3595,7 @@ def zoo_serving_path(card: str, arch: str) -> dict:
         f"{new[0, :8].tolist()}")
     batch = _tensors({"tokens": prompts.astype(np.int64), **extra}, "cuda")
     zero_counts()
-    with RoutingLog() as routed:
+    with RouteLog() as routed:
         pre, _ = bundle.prefill_fn(params, batch)
     expect_launches(f"{arch} prefill", **pre_want)
     if pre.shape != (SERVE_BATCH, cfg.padded_vocab) or not torch.isfinite(pre.float()).all():
@@ -3596,27 +3634,7 @@ def zoo_serving_path(card: str, arch: str) -> dict:
                                       "params": n_params}}
 
 
-class RoutingLog:
-    """Records every ``moe_route`` call's choices (top_e, keep) and the
-    router probabilities, in call order, while active."""
-
-    def __enter__(self):
-        self.calls, self._route = [], moe_mod.moe_route
-
-        def route(*args, **kw):
-            r = self._route(*args, **kw)
-            self.calls.append((r.top_e.cpu(), r.keep.cpu(), r.probs.detach().float().cpu()))
-            return r
-
-        moe_mod.moe_route = route
-        return self
-
-    def __exit__(self, *exc):
-        moe_mod.moe_route = self._route
-        return False
-
-
-def routing_agreement(what: str, card_log: RoutingLog, cpu_log: RoutingLog,
+def routing_agreement(what: str, card_log: RouteLog, cpu_log: RouteLog,
                       exact: bool) -> list:
     """Per routed call, which tokens both devices sent to the same experts
     (and kept); the share of matching token-expert choices is logged, each
@@ -3677,34 +3695,54 @@ def zoo_decode(bundle, params: dict, prompts: np.ndarray, extra: dict, device,
     return torch.stack(new, 1), logits_all
 
 
-def zoo_card_vs_cpu(arch: str) -> None:
-    """(z2) One arch at full width and cut depth on the card and on the
-    host CPU from the same weights: prefill and decode at fp32 (tokens
-    equal, logits within ZOO_FP32_TOL, routing equal) and at bf16 (logits
-    within SERVE_LOGIT_TOL where routing agrees; flips only on near-ties)."""
-    cfg = zoo_config(arch, ZOO_CPU[arch])
-    card = build_model(cfg).init_fn(torch.Generator(device="cuda").manual_seed(1),
-                                    device="cuda")
-    host = tree_map(lambda a: a.cpu(), card)
+def zoo_run(cfg, params: dict, device: str) -> dict:
+    """(z2)'s runs on one device: each compute dtype's prefill logits and
+    routing, then ZOO_CPU_NEW decode steps and their routing, and the
+    seconds; bf16 teacher-forced on the fp32 run's tokens."""
     prompts, extra = zoo_inputs(cfg, ZOO_CPU_BATCH, ZOO_CPU_PROMPT, seed=1)
     batch = {"tokens": prompts.astype(np.int64), **extra}
-    moe = cfg.family == "moe"
-    label = f"{arch} x{ZOO_CPU[arch]}"
-    forced = None
+    out, forced = {}, None
     for dt in ("float32", "bfloat16"):
         bundle = build_model(dataclasses.replace(cfg, compute_dtype=dt))
-        cache = getattr(torch, dt)
         t0 = time.perf_counter()
-        runs = {}
-        for name, params, dev in (("card", card, "cuda"), ("cpu", host, "cpu")):
-            with RoutingLog() as pre_log:
-                pre, _ = bundle.prefill_fn(params, _tensors(batch, dev))
-            with RoutingLog() as dec_log:
-                toks, steps = zoo_decode(bundle, params, prompts, extra, dev, cache, forced)
-            runs[name] = (pre.float().cpu(), pre_log, toks, steps, dec_log)
-        cpu_s = time.perf_counter() - t0
-        (pre_c, plog_c, tok_c, st_c, dlog_c), (pre_h, plog_h, tok_h, st_h, dlog_h) = (
-            runs["card"], runs["cpu"])
+        with RouteLog() as pre_log:
+            pre, _ = bundle.prefill_fn(params, _tensors(batch, device))
+        with RouteLog() as dec_log:
+            toks, steps = zoo_decode(bundle, params, prompts, extra, device,
+                                     getattr(torch, dt), forced)
+        out[dt] = (pre.float().cpu(), pre_log, toks, steps, dec_log, time.perf_counter() - t0)
+        forced = toks
+    return out
+
+
+def zoo_weights(cfg, seed: int, device: str) -> dict:
+    """A zoo arch's weights drawn by the card's generator from ``seed``, a
+    leaf at a time, on ``device`` (the host CPU's copy equals the card's)."""
+    return build_model(cfg).init_fn(torch.Generator(device="cuda").manual_seed(seed),
+                                    device=device)
+
+
+def z2_host(arch: str) -> dict:
+    """(z2)'s host half: :func:`zoo_run` on the host CPU."""
+    cfg = zoo_config(arch, ZOO_CPU[arch])
+    return zoo_run(cfg, zoo_weights(cfg, 1, "cpu"), "cpu")
+
+
+def zoo_card_vs_cpu(arch: str, refs: dict) -> None:
+    """(z2) One arch at full width and cut depth on the card and on the
+    host CPU from the same weights (the host's run computed beside phases
+    2-3): prefill and decode at fp32 (tokens equal, logits within
+    ZOO_FP32_TOL, routing equal) and at bf16 (logits within
+    SERVE_LOGIT_TOL where routing agrees; flips only on near-ties)."""
+    cfg = zoo_config(arch, ZOO_CPU[arch])
+    host = refs.pop(("z2", arch))
+    card_runs = zoo_run(cfg, zoo_weights(cfg, 1, "cuda"), "cuda")
+    prompts, extra = zoo_inputs(cfg, ZOO_CPU_BATCH, ZOO_CPU_PROMPT, seed=1)
+    moe = cfg.family == "moe"
+    label = f"{arch} x{ZOO_CPU[arch]}"
+    for dt in ("float32", "bfloat16"):
+        pre_c, plog_c, tok_c, st_c, dlog_c, card_s = card_runs[dt]
+        pre_h, plog_h, tok_h, st_h, dlog_h, cpu_s = host[dt]
         rows = torch.ones(ZOO_CPU_BATCH, dtype=torch.bool)
         step_rows = [rows] * len(st_c)
         if moe:
@@ -3724,11 +3762,9 @@ def zoo_card_vs_cpu(arch: str) -> None:
             if step_rows[t].any():
                 worst = max(worst, _logit_diff(f"{label} {dt} step {t} card vs CPU",
                                                a[step_rows[t]], b[step_rows[t]], tol))
-        if dt == "float32":
-            if not torch.equal(tok_c, tok_h):
-                raise AssertionError(f"{label} fp32 greedy tokens: card {tok_c.tolist()} "
-                                     f"vs CPU {tok_h.tolist()}")
-            forced = tok_c
+        if dt == "float32" and not torch.equal(tok_c, tok_h):
+            raise AssertionError(f"{label} fp32 greedy tokens: card {tok_c.tolist()} "
+                                 f"vs CPU {tok_h.tolist()}")
         compared = int(rows.sum()) + sum(int(r.sum()) for r in step_rows)
         log(f"  {label} {dt} compute, {'fp32' if dt == 'float32' else 'bf16'} caches, batch "
             f"{ZOO_CPU_BATCH}, {ZOO_CPU_PROMPT} prompt + {ZOO_CPU_NEW} new tokens"
@@ -3738,44 +3774,61 @@ def zoo_card_vs_cpu(arch: str) -> None:
             + f": prefill and {len(st_c)} decode steps card vs host CPU within {worst:.3e} of "
             f"their scale (tolerance {tol}) over {compared} compared row logits"
             + (f"; greedy tokens equal {tok_c[0].tolist()}" if dt == "float32"
-               else " (teacher-forced on the fp32 tokens)")
-            + f" ({cpu_s:.1f} s both devices)")
-    del card, host
+               else " (each device teacher-forced on its fp32 tokens, which are equal)")
+            + f" (card {card_s:.1f} s, host CPU {cpu_s:.1f} s beside phases 2-3)")
+    del card_runs, host
     torch.cuda.empty_cache()
 
 
-def zoo_grad_path(arch: str) -> dict:
-    """(z3) One gradient evaluation of the bundle's node-batched loss_fn at
-    fp32, one node, full width at cut depth, card against the host CPU:
-    every leaf within GRAD_TOL of its scale, none zero; the flash
-    launches of the evaluation held (remat: twice a decoder attention
-    layer, whisper's encoder once, it runs without remat); MoE routing
-    equal on both devices."""
-    cfg = dataclasses.replace(zoo_config(arch, ZOO_GRAD[arch]), compute_dtype="float32")
-    single = build_model(cfg).init_fn(torch.Generator(device="cuda").manual_seed(2),
-                                      device="cuda")
-    host = stack_for_nodes(tree_map(lambda a: a.cpu(), single), 1)
-    del single
-    card = tree_map(lambda a: a.cuda(), host)
+def zoo_grad_batch(cfg) -> dict:
+    """(z3)'s batch: one node's tokens and, for whisper, its frames."""
     batch = token_batch(cfg, 1, seed=2)
     if cfg.family == "audio":
         batch["frames"] = np.random.default_rng(2).normal(
             size=(1, 1, cfg.encoder.seq_len, cfg.encoder.d_model)).astype(np.float32)
+    return batch
+
+
+def zoo_grad_cfg(arch: str):
+    return dataclasses.replace(zoo_config(arch, ZOO_GRAD[arch]), compute_dtype="float32")
+
+
+def z3_host(arch: str) -> tuple:
+    """(z3)'s host half: the losses, gradients and routing of one gradient
+    evaluation on the host CPU, and its seconds."""
+    cfg = zoo_grad_cfg(arch)
+    host = stack_for_nodes(zoo_weights(cfg, 2, "cpu"), 1)
+    grad_fn = value_and_grad(build_model(cfg).loss_fn)
+    t0 = time.perf_counter()
+    with RouteLog() as cpu_log:
+        losses, grads = grad_fn(host, _tensors(zoo_grad_batch(cfg), "cpu"))
+    return losses, grads, cpu_log, time.perf_counter() - t0
+
+
+def zoo_grad_path(arch: str, refs: dict) -> dict:
+    """(z3) One gradient evaluation of the bundle's node-batched loss_fn at
+    fp32, one node, full width at cut depth, card against the host CPU
+    (its evaluation computed beside phases 2-3): every leaf within
+    GRAD_TOL of its scale, none zero; the flash launches of the
+    evaluation held (remat: twice a decoder attention layer, whisper's
+    encoder once, it runs without remat); MoE routing equal on both
+    devices."""
+    cfg = zoo_grad_cfg(arch)
+    card = stack_for_nodes(zoo_weights(cfg, 2, "cuda"), 1)
+    batch = zoo_grad_batch(cfg)
+    if cfg.family == "audio":
         want = {"flash_attention": cfg.encoder.n_layers + 2 * 2 * cfg.n_layers}
     else:
         want = {"flash_attention": 2 * cfg.n_layers}
     grad_fn = value_and_grad(build_model(cfg).loss_fn)
-    with RoutingLog() as card_log:
+    with RouteLog() as card_log:
         zero_counts()
         t0 = time.perf_counter()
         losses, grads = grad_fn(card, _tensors(batch, "cuda"))
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         expect_launches(f"{arch} gradients", **want)
-    t0 = time.perf_counter()
-    with RoutingLog() as cpu_log:
-        cpu_losses, cpu_grads = grad_fn(host, _tensors(batch, "cpu"))
-    cpu_s = time.perf_counter() - t0
+    cpu_losses, cpu_grads, cpu_log, cpu_s = refs.pop(("z3", arch))
     if cfg.family == "moe":  # the forward and the remat recompute, each a call
         routing_agreement(f"{arch} x{cfg.n_layers} fp32 training routing", card_log, cpu_log,
                           exact=True)
@@ -3800,8 +3853,8 @@ def zoo_grad_path(arch: str) -> dict:
         + (f", aux coefficient {cfg.router_aux_coef}" if cfg.family == "moe" else "")
         + f"); all {len(leaves)} leaves' gradients nonzero and within {max(errs):.3e} of "
         f"their scale of the host CPU's (tolerance {tol}); card {card_s:.1f} s, CPU "
-        f"{cpu_s:.1f} s")
-    del grads, cpu_grads, card, host
+        f"{cpu_s:.1f} s (beside phases 2-3)")
+    del grads, cpu_grads, card
     torch.cuda.empty_cache()
     return want
 
@@ -3820,10 +3873,11 @@ def zoo_attention_timings(card: str) -> dict:
     return kb.time_cases(cases(), card)
 
 
-def model_zoo(card: str) -> dict:
+def model_zoo(card: str, refs) -> dict:
     """Phase 6: (z1) each new architecture served, (z2) the card against
-    the host CPU, (z3) gradients, (z4) the attention kernels at the new
-    shapes. Returns the launches the paths made and the rows."""
+    the host CPU and (z3) gradients (in the host references' process,
+    ``refs``), (z4) the attention kernels at the new shapes. Returns the
+    launches the paths made and the rows."""
     counts, rows = {}, {}
     for arch in ZOO_DEPTHS:
         section(f"  -- (z1) {arch}")
@@ -3832,12 +3886,11 @@ def model_zoo(card: str) -> dict:
         for name, count in out["counts"].items():
             counts[name] = counts.get(name, 0) + count
     section("  -- (z2) the card against the host CPU")
-    for arch in ZOO_CPU:
-        zoo_card_vs_cpu(arch)
+    refs.run("z2")
     section("  -- (z3) gradients at fp32")
-    for arch in ZOO_GRAD:
-        for name, count in zoo_grad_path(arch).items():
-            counts[name] = counts.get(name, 0) + count
+    for name, count in refs.run("z3").items():
+        counts[name] = counts.get(name, 0) + count
+    refs.close()
     section("  -- (z4) the attention kernels at the zoo's shapes")
     rows["times"] = zoo_attention_timings(card)
     return {"counts": counts, "rows": rows}
@@ -4585,7 +4638,8 @@ def torus_and_two_axis(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: the dry run (r1) and its prediction held against the card (r2)
+# Phase 9: the dry run (r1) and its prediction held against the card (r2),
+# beside tensor parallelism (p1)-(p4) on the card
 # ---------------------------------------------------------------------------
 
 # (r1) the reference's committed two-axis records, through the port's dry
@@ -4626,17 +4680,23 @@ def _dryrun_record(proc: subprocess.Popen, what: str) -> dict:
     return json.loads(out)
 
 
-def dryrun_phase(measured: dict) -> None:
+def start_dryruns() -> tuple:
+    """Phase 9's dry runs, each a process of its own on the host: (r1) the
+    reference's two records' pairs, (r2) the prediction."""
+    return ({arch: _dryrun_cli(["--arch", arch, *DRYRUN_FLAGS]) for arch in DRYRUN_ARCHS},
+            _dryrun_cli(PREDICT_FLAGS), time.perf_counter())
+
+
+def dryrun_phase(measured: dict, started: tuple) -> None:
     """(r1) each committed reference record's hardware-independent fields
     from the port's dry run (which also proves the card's PyTorch has the
     ``fake`` process-group backend); (r2) the dry run's prediction for
     (c2)'s round against the round phase 8 ran on the card under
     ``op_analysis``: argument bytes, FLOPs, collectives by kind,
     ``shard_gathers`` and each kernel's launches equal; the peak beside
-    ``torch.cuda.max_memory_allocated()``, reported."""
-    t0 = time.perf_counter()
-    procs = {arch: _dryrun_cli(["--arch", arch, *DRYRUN_FLAGS]) for arch in DRYRUN_ARCHS}
-    predict = _dryrun_cli(PREDICT_FLAGS)
+    ``torch.cuda.max_memory_allocated()``, reported. ``started``:
+    :func:`start_dryruns`' processes."""
+    procs, predict, t0 = started
     for arch, proc in procs.items():
         got = _dryrun_record(proc, f"(r1) {arch}")
         with open(os.path.join(ROOT, "experiments", "dryrun",
@@ -4680,28 +4740,116 @@ def dryrun_phase(measured: dict) -> None:
     peak = pred["memory"]["argument_bytes"] + pred["memory"]["temp_bytes"]
     log(f"  (r2) peak: predicted {peak / 1e9:.2f} GB (arguments + the live peak on meta), "
         f"torch.cuda.max_memory_allocated() over the round {measured['peak_bytes'] / 1e9:.2f} "
-        f"GB, ratio {measured['peak_bytes'] / peak:.3f} (reported, not gated); "
-        f"phase 9 {time.perf_counter() - t0:.1f} s")
+        f"GB, ratio {measured['peak_bytes'] / peak:.3f} (reported, not gated); the dry "
+        f"runs' processes {time.perf_counter() - t0:.1f} s")
 
 
-# phase 10: the dense family's tensor-parallel layers on a model group of
-# two processes sharing the card over gloo (NCCL refuses two ranks on one
-# device): SmolLM-360M at full width and depth, batch 8, S 128, bf16
+# phase 9's tensor parallelism: the layers on a model group of two
+# processes sharing the card over gloo (NCCL refuses two ranks on one
+# device), batch 8, S 128, bf16 compute. The dense family: SmolLM-360M at
+# full width and depth, (p1) its lm_loss, (p2) one Q = 1 tree round on 2
+# nodes x 2 shards. Expert-parallel MoE and the VLM stack at full width and
+# one layer (the group's shards and then the whole model fit one 80 GB
+# card in fp32: 17.1 and 6.1 GB whole): (p3) llama4-scout-17b-a16e's
+# lm_loss (16 experts of d_ff 8,192, a shared expert, vocab 202,240, 40 / 8
+# heads); (p4) internvl2-26b's lm_loss with its 1,024 prefix embeddings
+# before the 128 text tokens. Neither arch's tree round at full width fits
+# one card, even at one layer: a 2-node round holds params, tracker,
+# previous gradient and gradient and packs each tree into one buffer to mix
+# it (InternVL2's whole-model round ran out of memory on an H100 80GB at 72
+# GB allocated: the vocab tables are 4.6 of its 6.1 GB a node); the CPU
+# tests and the dry run hold those rounds
 TP_ARCH, TP_SHARDS, TP_BATCH, TP_SEQ = "smollm-360m", 2, 8, 128
-TP_FLAGS = ["--arch", TP_ARCH, "--shards", str(TP_SHARDS), "--backend", "gloo",
-            "--compute-dtype", "bfloat16", "--batch", str(TP_BATCH), "--seq-len", str(TP_SEQ)]
+TP_MOE_ARCH, TP_VLM_ARCH, TP_DEPTH = "llama4-scout-17b-a16e", "internvl2-26b", 1
+TP_FLAGS = ["--arch", TP_ARCH, f"{TP_MOE_ARCH}:{TP_DEPTH}", f"{TP_VLM_ARCH}:{TP_DEPTH}",
+            "--shards", str(TP_SHARDS), "--backend", "gloo", "--compute-dtype", "bfloat16",
+            "--batch", str(TP_BATCH), "--seq-len", str(TP_SEQ)]
 # the card's bf16 tolerances (PERF.md section 2): a loss within 1e-2
 # relative, gradients within 5e-2 of each leaf's scale; the round's
-# parameter updates and metrics as the gradients
+# parameter updates and metrics as the gradients; a bf16 routing choice
+# may differ from the whole model's only on a near-tie (ZOO_TIE_MARGIN)
 TP_LOSS_RTOL, TP_GRAD_TOL = 1e-2, 5e-2
 
 
+def _gb(peaks: list) -> str:
+    return " / ".join(f"{p / 1e9:.1f}" for p in peaks) + " GB"
+
+
+def check_tp_lm(label: str, arch: str, lm: dict) -> int:
+    """One ``lm_case`` of the group against the whole model: the loss, the
+    reassembled gradients, the replicated leaves bitwise equal on both
+    ranks, the collectives against ``expected_collectives``, the flash
+    launches (2 a layer a rank under remat) and, for an MoE, the routing
+    (the same on both ranks; a choice unlike the whole model's own only on
+    a near-tie; the whole model takes the group's choices, so the loss and
+    gradients compare the layers). Returns the flash launches."""
+    layers = lm["layers"]
+    rel = abs(lm["loss"] - lm["whole_loss"]) / abs(lm["whole_loss"])
+    routing = lm["routing"]
+    errs = lm["grad_errs"]
+    worst = max(errs, key=errs.get)
+    log(f"  {label} {arch}, {layers} layer(s), lm_loss on {TP_SHARDS} ranks: {lm['loss']:.6f} "
+        f"vs the whole model's {lm['whole_loss']:.6f} (rel {rel:.2e}); gradients "
+        f"reassembled from the shards within {errs[worst]:.2e} of their scale "
+        f"(worst {worst}); replicated leaves bitwise equal on both ranks: "
+        f"{lm['replicated_equal']}")
+    log(f"  {label} model group: {lm['counts']} (expected {lm['expected']}); flash "
+        f"launches a rank {lm['flash_launches']} (2 x {layers} under remat); "
+        f"{lm['tp_s']:.2f} s on the group, {lm['whole_s']:.2f} s whole; peak a process "
+        f"{_gb(lm['peak_bytes'])} [{card_line()}]")
+    if rel > TP_LOSS_RTOL or errs[worst] > TP_GRAD_TOL:
+        raise AssertionError(f"{label} the tensor-parallel loss or gradients drift from the "
+                             f"whole model's: {lm}")
+    if not lm["replicated_equal"]:
+        raise AssertionError(f"{label} a replicated leaf's gradient differs across the ranks")
+    if lm["counts"] != {k: v for k, v in lm["expected"].items() if v}:
+        raise AssertionError(f"{label} model group collectives {lm['counts']}, expected "
+                             f"{lm['expected']}")
+    if lm["flash_launches"] != [2 * layers] * TP_SHARDS:
+        raise AssertionError(f"{label} flash launches {lm['flash_launches']}, expected "
+                             f"{2 * layers} a rank")
+    if routing is not None:
+        flips = routing["flip_margins"]
+        log(f"  {label} routing: {routing['calls']} calls the same on both ranks: "
+            f"{routing['ranks_equal']}; {routing['matching']}/{routing['choices']} "
+            f"token-expert choices match the whole model's; "
+            + (f"{len(flips)} flipped token(s), top-k margins "
+               f"{[round(m, 6) for m in flips[:8]]}" if flips else "no flip"))
+        if not routing["ranks_equal"] or (flips and max(flips) >= ZOO_TIE_MARGIN):
+            raise AssertionError(f"{label} routing: {routing}")
+    return sum(lm["flash_launches"])
+
+
+def check_tp_round(label: str, arch: str, rnd: dict) -> int:
+    """One ``round_case`` of the group against the whole-model round: the
+    metrics' and the parameter updates' gaps, the replicated leaves, the
+    flash launches (2 a layer, node and step). Returns the flash launches."""
+    layers = rnd["layers"]
+    m, w = rnd["metrics"], rnd["whole_metrics"]
+    gaps = {k: abs(m[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm_sq",
+                                                       "consensus_err")}
+    upd = max(rnd["update_errs"].values())
+    log(f"  {label} {arch} tree round, 2 nodes x {TP_SHARDS} shards, Q 1: loss "
+        f"{m['loss']:.6f} vs {w['loss']:.6f}, relative gaps "
+        f"{json.dumps({k: float(f'{v:.2e}') for k, v in gaps.items()})}, parameter updates "
+        f"within {upd:.2e} of their scale; flash launches a rank {rnd['flash_launches']} "
+        f"(2 x {layers} x 2 nodes); {rnd['tp_s']:.2f} s on the group, {rnd['whole_s']:.2f} "
+        f"s whole; peak a process {_gb(rnd['peak_bytes'])} [{card_line()}]")
+    if max(gaps.values()) > TP_GRAD_TOL or upd > TP_GRAD_TOL or not rnd["replicated_equal"]:
+        raise AssertionError(f"{label} the tensor-parallel tree round drifts from the whole "
+                             f"model's: {rnd}")
+    if rnd["flash_launches"] != [4 * layers] * TP_SHARDS:
+        raise AssertionError(f"{label} flash launches {rnd['flash_launches']}, expected "
+                             f"{4 * layers} a rank")
+    return sum(rnd["flash_launches"])
+
+
 def tensor_parallel_phase() -> dict:
-    """(p1) and (p2) of phase 10 in one ``benchmarks/tensor_parallel``
-    process, whose two ranks are spawned processes on the card: each
-    holds its shard of SmolLM-360M (drawn whole from one seed on the card,
-    then cut), runs the tensor-parallel path, and rank 0 the whole model.
-    Returns the flash launches of both ranks."""
+    """(p1)-(p4) in one ``benchmarks/tensor_parallel`` process, whose two
+    ranks are spawned processes on the card: each holds its shard (drawn
+    whole from one seed on the card, then cut) and runs the
+    tensor-parallel path, then the whole model runs alone. Returns the
+    flash launches of both ranks."""
     torch.cuda.empty_cache()
     log(f"  this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB of the card "
         f"({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved) beside the group")
@@ -4711,50 +4859,16 @@ def tensor_parallel_phase() -> dict:
                            *TP_FLAGS], env=env, cwd=ROOT, capture_output=True, text=True,
                           timeout=900)
     if proc.returncode != 0:
-        raise AssertionError(f"phase 10: the model group exited {proc.returncode}: "
+        raise AssertionError(f"the model group exited {proc.returncode}: "
                              f"{proc.stderr[-3000:]}")
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    lm, rnd = res["lm"], res["round"]
-    layers = lm["layers"]
-    rel = abs(lm["loss"] - lm["whole_loss"]) / abs(lm["whole_loss"])
-    worst = max(lm["grad_errs"], key=lm["grad_errs"].get)
-    log(f"  (p1) lm_loss on {TP_SHARDS} ranks: {lm['loss']:.6f} vs the whole model's "
-        f"{lm['whole_loss']:.6f} (rel {rel:.2e}); gradients reassembled from the shards "
-        f"within {lm['grad_errs'][worst]:.2e} of their scale (worst {worst}); replicated "
-        f"leaves bitwise equal on both ranks: {lm['replicated_equal']}")
-    log(f"  (p1) model group: {lm['counts']} for {layers} layers (expected "
-        f"{lm['expected']}: 1 + {layers} x (5 + 1 cut-head) + 1 + 4 a loss chunk "
-        f"all-reduces, 2 x {layers} all-gathers); flash launches a rank "
-        f"{lm['flash_launches']} (2 x {layers} under remat); {lm['tp_s']:.2f} s on the "
-        f"group, {lm['whole_s']:.2f} s whole")
-    if rel > TP_LOSS_RTOL or lm["grad_errs"][worst] > TP_GRAD_TOL:
-        raise AssertionError(f"(p1) the tensor-parallel loss or gradients drift from the "
-                             f"whole model's: {lm}")
-    if not lm["replicated_equal"]:
-        raise AssertionError("(p1) a replicated leaf's gradient differs across the ranks")
-    if lm["counts"] != {k: v for k, v in lm["expected"].items() if v}:
-        raise AssertionError(f"(p1) model group collectives {lm['counts']}, expected "
-                             f"{lm['expected']}")
-    if lm["flash_launches"] != [2 * layers] * TP_SHARDS:
-        raise AssertionError(f"(p1) flash launches {lm['flash_launches']}, expected "
-                             f"{2 * layers} a rank")
-    m, w = rnd["metrics"], rnd["whole_metrics"]
-    gaps = {k: abs(m[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm_sq",
-                                                       "consensus_err")}
-    upd = max(rnd["update_errs"].values())
-    log(f"  (p2) tree round, 2 nodes x {TP_SHARDS} shards, Q 1: loss {m['loss']:.6f} vs "
-        f"{w['loss']:.6f}, relative gaps {json.dumps({k: float(f'{v:.2e}') for k, v in gaps.items()})}, "
-        f"parameter updates within {upd:.2e} of their scale; flash launches a rank "
-        f"{rnd['flash_launches']} (2 x {layers} x 2 nodes); {rnd['tp_s']:.2f} s on the "
-        f"group, {rnd['whole_s']:.2f} s whole")
-    if max(gaps.values()) > TP_GRAD_TOL or upd > TP_GRAD_TOL or not rnd["replicated_equal"]:
-        raise AssertionError(f"(p2) the tensor-parallel tree round drifts from the whole "
-                             f"model's: {rnd}")
-    if rnd["flash_launches"] != [4 * layers] * TP_SHARDS:
-        raise AssertionError(f"(p2) flash launches {rnd['flash_launches']}, expected "
-                             f"{4 * layers} a rank")
-    log(f"  phase 10: {time.perf_counter() - t0:.1f} s (the group's own {res['seconds']:.1f} s)")
-    return {"flash_attention": sum(lm["flash_launches"]) + sum(rnd["flash_launches"])}
+    launches = (check_tp_lm("(p1)", TP_ARCH, res[TP_ARCH]["lm"])
+                + check_tp_round("(p2)", TP_ARCH, res[TP_ARCH]["round"])
+                + check_tp_lm("(p3)", TP_MOE_ARCH, res[TP_MOE_ARCH]["lm"])
+                + check_tp_lm("(p4)", TP_VLM_ARCH, res[TP_VLM_ARCH]["lm"]))
+    log(f"  tensor parallelism: {time.perf_counter() - t0:.1f} s (the group's own "
+        f"{res['seconds']:.1f} s)")
+    return {"flash_attention": launches}
 
 
 def ptxas_summary(lib) -> str:
@@ -4808,6 +4922,102 @@ def host_references() -> dict:
     return out
 
 
+# the intra-op threads of the host references' process: the card's
+# process keeps the other cores of the card machine's 8
+HOST_REF_THREADS = 5
+
+
+def _host_references_process(requests, replies) -> None:
+    """The host references' process. First the host CPU's halves of (t1),
+    (z2) and (z3), kept here, at a lower priority than the card's process
+    (it would otherwise slow phases 2-3), then ``("host", seconds of
+    each)``; then, for each request ``"t1"``, ``"z2"`` or ``"z3"`` (the
+    card's process waiting meanwhile), that path's card half and its
+    comparisons, and ``(name, its launches)``. A failure replies ``(name,
+    None, the traceback)``; None ends it."""
+    os.nice(10)
+    torch.set_num_threads(HOST_REF_THREADS)
+    host, seconds = {}, {}
+    jobs = ([(("t1", arch), t1_host, (arch, depth, dtypes))
+             for arch, depth, dtypes in GRAD_MODELS]
+            + [(("z2", arch), z2_host, (arch,)) for arch in ZOO_CPU]
+            + [(("z3", arch), z3_host, (arch,)) for arch in ZOO_GRAD])
+    name = "host"
+    try:
+        for key, fn, args in jobs:
+            t0 = time.perf_counter()
+            host[key] = fn(*args)
+            seconds[" ".join(key)] = time.perf_counter() - t0
+        replies.put((name, seconds, None))
+        while (name := requests.get()) is not None:
+            replies.put((name, _card_half(name, host), None))
+            torch.cuda.empty_cache()
+    except Exception:  # handed to the card's process, which raises it
+        replies.put((name, None, traceback.format_exc()))
+
+
+def _card_half(name: str, host: dict) -> dict:
+    """The card half of (t1), (z2) or (z3) against ``host``; its launches."""
+    if name == "t1":
+        return model_grad_paths(host)
+    counts = {}
+    if name == "z2":
+        for arch in ZOO_CPU:
+            zoo_card_vs_cpu(arch, host)
+        return counts
+    for arch in ZOO_GRAD:
+        for kernel, count in zoo_grad_path(arch, host).items():
+            counts[kernel] = counts.get(kernel, 0) + count
+    return counts
+
+
+class HostReferences:
+    """(t1), (z2) and (z3) in a process of their own: the host CPU's halves
+    beside phases 2 and 3 (they need no kernel: the same seeded weights --
+    drawn by the card's generator a leaf at a time and moved to the host
+    -- and the same tokens), each card half and its comparison when
+    phases 5 and 6 ask for it (:meth:`run`). ``wait`` before phase 4 keeps
+    the host halves out of its timings."""
+
+    def __init__(self):
+        ctx = torch.multiprocessing.get_context("spawn")
+        self._requests, self._replies = ctx.Queue(), ctx.Queue()
+        self._proc = ctx.Process(target=_host_references_process,
+                                 args=(self._requests, self._replies), daemon=True)
+        self._proc.start()
+        self.seconds = {}
+
+    def _reply(self, name: str):
+        while True:
+            try:
+                got, out, error = self._replies.get(timeout=5)
+                break
+            except queue.Empty:
+                if not self._proc.is_alive():
+                    raise AssertionError(f"the host references' process ended "
+                                         f"({self._proc.exitcode}) before {name!r}")
+        if out is None or got != name:
+            raise AssertionError(f"the host references' {got}:\n{error}")
+        return out
+
+    def wait(self) -> float:
+        """The host halves' end; the seconds waited."""
+        t0 = time.perf_counter()
+        self.seconds = self._reply("host")
+        return time.perf_counter() - t0
+
+    def run(self, name: str) -> dict:
+        """``name``'s card half and comparisons in the process (this one
+        hands its cached card memory back first); their launches."""
+        torch.cuda.empty_cache()
+        self._requests.put(name)
+        return self._reply(name)
+
+    def close(self) -> None:
+        self._requests.put(None)
+        self._proc.join(timeout=120)
+
+
 def timed(fn):
     t0 = time.perf_counter()
     return fn(), time.perf_counter() - t0
@@ -4839,6 +5049,7 @@ def main() -> int:
                     f"spill loads {spill_ld} B")
 
     phase("phase 2: kernels vs twins on the card")
+    refs = HostReferences()
     max_err = {**check_gossip_mix(), **check_kernels(), **check_wire_stages(),
                **check_compact_stages(), **check_attention_kernels(),
                **check_scan_kernels()}
@@ -4888,6 +5099,11 @@ def main() -> int:
                     rglru_scan=recurrent["recurrentgemma-2b"]["rglru_scan"])
 
     phase("phase 4: times (CUDA events, median of 60 after warm-up)")
+    waited = refs.wait()
+    log(f"  the host CPU's references of (t1), (z2), (z3) ran in a process beside phases "
+        f"2-3 ({HOST_REF_THREADS} threads): "
+        + ", ".join(f"{key} {sec:.1f} s" for key, sec in refs.seconds.items())
+        + f"; phase 4 waited {waited:.1f} s for them")
     floor_ms = kb.launch_floor(card)
     section("  -- round kernels and round profiles")
     rows = timings(card, floor_ms)
@@ -4915,7 +5131,7 @@ def main() -> int:
     for name, err in check_kernel_grads().items():
         log(f"  {name}: gradient max err {err:.3e} of scale against autograd through "
             "its twin")
-    train = training_counts(card)
+    train = training_counts(card, refs)
     for name, count in train.pop("counts").items():
         launches[name] = launches.get(name, 0) + count
 
@@ -5008,7 +5224,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None,
         })
     phase("phase 6: the model zoo (launches counted per run)")
-    zoo = model_zoo(card)
+    zoo = model_zoo(card, refs)
     for name, count in zoo["counts"].items():
         launches[name] = launches.get(name, 0) + count
     zoo_times = zoo["rows"].pop("times")
@@ -5028,13 +5244,13 @@ def main() -> int:
     torus = torus_and_two_axis(card)
     for name, count in torus["launches"].items():
         launches[name] = launches.get(name, 0) + count
-    phase("phase 9: the dry run (r1) and its prediction held against the card (r2)")
-    dryrun_phase(torus["measured"])
-    del torus
-    phase("phase 10: tensor parallelism on a model group of two ranks sharing the card "
-          "(launches counted per rank)")
+    phase("phase 9: the dry run (r1), (r2) on the host beside tensor parallelism (p1)-(p4) "
+          "on a model group of two ranks sharing the card (launches counted per rank)")
+    dryruns = start_dryruns()
     for name, count in tensor_parallel_phase().items():
         launches[name] = launches.get(name, 0) + count
+    dryrun_phase(torus["measured"], dryruns)
+    del torus
     phase(None)
     for row in kernels:
         row["launches"] = launches[row["name"]]

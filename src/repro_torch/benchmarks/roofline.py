@@ -18,10 +18,10 @@ a direction; across hosts one 400 Gb/s NDR InfiniBand adapter a GPU
 (the HGX H100 reference design), applied to ``op_analysis``'s cross-host
 bytes. Also MODEL_FLOPS = 6 N D (train; 2 N D serving; N the active
 parameters, D the tokens) and the usefulness ratio MODEL_FLOPS / the
-counted FLOPs of all ranks, the dominant term and its lever. The dense
-family's ``tree`` train pairs (tensor-parallel layers on the ``(node,
-model)`` layout) get a table of their own, each beside its arch's
-two-axis pair.
+counted FLOPs of all ranks, the dominant term and its lever. The
+``tree`` train pairs (tensor-parallel layers and the expert-parallel MoE
+on the ``(node, model)`` layout: the dense, VLM and MoE families) get a
+table of their own, each beside its arch's two-axis pair.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.roofline [--mesh single] [--json]
 """
@@ -74,7 +74,7 @@ def load_records(mesh: str = "single") -> List[Dict]:
 
 
 def load_tree_records(mesh: str = "single") -> List[Dict]:
-    """The dense family's ``tree`` train records for ``mesh``."""
+    """The ``tree`` train records for ``mesh`` (``TREE_ARCHS``)."""
     recs = []
     for arch in TREE_ARCHS:
         path = record_path(arch, "train_4k", mesh, engine="tree")

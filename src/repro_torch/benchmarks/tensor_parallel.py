@@ -1,6 +1,6 @@
-"""The dense family's tensor-parallel layers on a model group, held to
-the whole model (ROADMAP.md queue 1, item 18b slice (i) and ``tree`` on
-the ``(node, model)`` layout).
+"""The tensor-parallel layers of the dense, VLM and MoE families on a
+model group, held to the whole model (ROADMAP.md queue 1, item 18b
+slices (i) and (ii), and ``tree`` on the ``(node, model)`` layout).
 
 Each check runs as one group of ranks (``launch.mesh.run_group``); every
 rank draws the same whole parameters from a seed (or takes a given
@@ -8,15 +8,17 @@ tree), keeps its shard (``models.sharding.shard_params``) and runs the
 tensor-parallel path; rank 0 also runs the whole model and compares:
 
   * :func:`layer_cases` -- each layer alone (column- and row-parallel
-    ``linear``, the vocab-parallel embedding, attention, the SwiGLU and
-    the chunked loss) against the same layer run whole on the same
-    inputs, forward and gradients (every rank compares its own shard; the
-    worst over the ranks is kept);
+    ``linear``, the vocab-parallel embedding, attention, the SwiGLU, an
+    MoE arch's expert-parallel MoE, the chunked loss, and for a VLM a
+    chunk of prefix positions only) against the same layer run whole on
+    the same inputs, forward and gradients (every rank compares its own
+    shard; the worst over the ranks is kept);
   * :func:`lm_case` -- ``lm_loss`` forward and backward of the stack: the
     loss and the gradients reassembled from the shards against the whole
     model's, the replicated leaves' gradients compared across the ranks,
-    the model group's collectives counted (``launch.op_analysis``) and
-    the flash kernel's launches;
+    an MoE's routing compared across the ranks and with the whole
+    model's, the model group's collectives counted
+    (``launch.op_analysis``) and the flash kernel's launches;
   * :func:`round_case` -- an FD-DSGT round of the ``tree`` engine on the
     ``(node, model)`` layout (``TreeEngine.from_group``) against the same
     round of the whole model on one device (``TreeEngine.simulated`` on
@@ -24,23 +26,32 @@ tensor-parallel path; rank 0 also runs the whole model and compares:
     metrics;
   * :func:`engine_case` -- the engine's rows and its mixing of the shards.
 
-The command line runs :func:`lm_case` and then one :func:`round_case` at
-Q = 1 on 2 nodes (the card's check; one JSON line).
+The group runs first and its results wait on the host while the whole
+model runs alone (the card holds the group's shards and one whole model
+in turn): in ``lm_case`` on each rank in turn, each comparing its own
+shard; in ``round_case`` on rank 0, the shards coming back to it a leaf
+at a time (:func:`collect_tiles`). The command line runs, for each ``--arch``,
+:func:`lm_case` and then one :func:`round_case` at Q = 1 on 2 nodes, or
+for an ``ARCH:DEPTH``, :func:`lm_case` alone at DEPTH layers of the arch's
+full width (the card's check; one JSON line).
 
 Numbers are max |tp - whole| over the leaf's (or the output's) max
 |whole|. On the card a model group of two processes shares the one card
 over gloo (``backend="gloo"``: NCCL refuses two ranks on a device).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.tensor_parallel --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.benchmarks.tensor_parallel --backend gloo \\
+      --arch smollm-360m llama4-scout-17b-a16e:1 internvl2-26b:1
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -60,14 +71,14 @@ from repro_torch.launch.op_analysis import op_analysis
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.sharding import (
-    is_split,
     model_param_specs,
     shard_params,
     spec_dict,
+    split_dim,
     stacked_param_specs,
-    unshard_params,
 )
 from repro_torch.models.tensor_parallel import (
     copy_to_model,
@@ -78,7 +89,8 @@ from repro_torch.models.tensor_parallel import (
 from repro_torch.training.trainer import stack_for_nodes
 
 __all__ = ["layer_cases", "lm_case", "round_case", "engine_case", "cases", "CASES",
-           "model_group_counts", "expected_collectives", "gather_whole", "main"]
+           "model_group_counts", "expected_collectives", "collect_tiles",
+           "replicated_equal", "RouteLog", "routing_summary", "main"]
 
 
 #: the seed every rank draws the whole parameters and the batches from
@@ -87,8 +99,11 @@ SEED = 0
 ALPHA0 = 0.05
 
 
-def _cfg(arch: str, compute_dtype: str, smoke: bool = False):
-    return dataclasses.replace(get_config(arch, smoke=smoke), compute_dtype=compute_dtype)
+def _cfg(arch: str, compute_dtype: str, smoke: bool = False, depth: Optional[int] = None):
+    """The arch's config (or its reduced one) at ``compute_dtype`` and, with
+    ``depth``, that many layers at its full width."""
+    cfg = dataclasses.replace(get_config(arch, smoke=smoke), compute_dtype=compute_dtype)
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
 
 
 def _whole(cfg, device, params_np=None) -> Dict:
@@ -120,37 +135,39 @@ def _worst(errs: Dict[str, float], pg) -> Dict[str, float]:
     return dict(zip(keys, t.tolist()))
 
 
-def gather_whole(tree, specs, group) -> tuple:
-    """The whole tree of a model group's shards (``unshard_params`` of every
-    rank's, ``specs`` the spec tree) and whether every replicated leaf is
-    bitwise the same on every rank of the group."""
+def collect_tiles(tree, split: Dict, group, on_leaf: Callable, rows: bool = False) -> None:
+    """Every rank's tile of each leaf of ``tree`` -- its shard (``split``:
+    path -> spec) and, with ``rows``, its block of node rows -- gathered to
+    rank 0 on the host, a leaf at a time (no rank ever holds the whole
+    tree); rank 0 calls ``on_leaf(path, whole leaf)`` on each leaf put
+    back together (a replicated leaf: its first shard's)."""
+    size = group.model_shards
+    for path, leaf in tree_leaves(tree):
+        tile = leaf.detach().contiguous().cpu()
+        parts = [torch.empty_like(tile) for _ in range(group.world)] if group.rank == 0 \
+            else None
+        dist.gather(tile, parts, dst=0, group=group.pg)
+        if group.rank != 0:
+            continue
+        dim = split_dim(split[path])
+        blocks = [tiles[0] if dim is None else torch.cat(tiles, dim)
+                  for tiles in (parts[b * size:(b + 1) * size]  # rank = block * S + shard
+                                for b in range(group.world // size))]
+        del parts
+        on_leaf(path, torch.cat(blocks, 0) if rows else blocks[0])
+
+
+def replicated_equal(tree, split: Dict, group) -> bool:
+    """Whether every replicated leaf of ``tree`` (``split``: path -> spec)
+    is bitwise the same on every rank of each model group."""
     tp = tp_group(group.model_pg)
-    split = spec_dict(specs)
-    items = tree_leaves(tree)
-    parts, same = [], True
-    for path, leaf in items:
-        leaf = leaf.detach().contiguous()
-        got = [torch.empty_like(leaf) for _ in range(tp.size)]
-        dist.all_gather(got, leaf, group=tp.pg)
-        if not is_split(split[path]):
+    same = True
+    for path, leaf in tree_leaves(tree):
+        if split_dim(split[path]) is None:
+            got = [torch.empty_like(leaf) for _ in range(tp.size)]
+            dist.all_gather(got, leaf.contiguous(), group=tp.pg)
             same = same and all(torch.equal(g, leaf) for g in got)
-        parts.append(got)
-    paths = tuple(p for p, _ in items)
-    shards = [tree_unflatten(paths, [got[r] for got in parts]) for r in range(tp.size)]
-    return unshard_params(shards, specs), same
-
-
-def _rows_whole(tree, group) -> Dict:
-    """Every node block's rows of a node-stacked tree, in node order."""
-    if group.node_ranks == 1:
-        return tree
-
-    def cat(x):
-        parts = [torch.empty_like(x) for _ in range(group.node_ranks)]
-        dist.all_gather(parts, x.contiguous(), group=group.wire_pg)
-        return torch.cat(parts, dim=0)
-
-    return tree_map(cat, tree)
+    return not _worst({"differs": float(not same)}, group.pg)["differs"]
 
 
 def model_group_counts(costs, group) -> Dict[str, int]:
@@ -161,15 +178,19 @@ def model_group_counts(costs, group) -> Dict[str, int]:
 
 def expected_collectives(cfg, size: int, seq_len: int,
                          loss_chunk: int = 512) -> Dict[str, int]:
-    """The collectives of one ``lm_loss`` forward and backward of a dense
-    stack under remat on a model group of ``size`` (the same on every
-    rank): the embedding's all-reduce; a layer's two forward all-reduces
-    (attention's ``wo``, the SwiGLU's ``down``) and two backward
-    all-reduces (the gradients of the inputs of its column-parallel
-    products), plus, where the group gathers cut heads, one all-gather
-    forward and one all-reduce backward; the recompute issues the
-    all-gather and ``wo``'s all-reduce again, but not ``down``'s: it is
-    the layer's last operation, whose output the backward does not need,
+    """The collectives of one ``lm_loss`` forward and backward of a dense,
+    VLM or MoE stack under remat on a model group of ``size`` (the same
+    on every rank; ``seq_len`` the positions, a VLM's prefix included):
+    the embedding's all-reduce; a layer's attention: ``wo``'s all-reduce
+    forward and the gradient of its column-parallel input backward, plus,
+    where the group gathers cut heads, one all-gather forward and one
+    all-reduce backward; its FFN: the SwiGLU's ``down`` all-reduce
+    forward and its input's gradient backward, or an MoE layer's one
+    all-reduce of the partial outputs (the shared expert's fused in)
+    forward and two backward (the expert inputs' gradient, the combine
+    weights'). The recompute issues the all-gather and ``wo``'s
+    all-reduce again, but not the FFN's forward all-reduce: it is the
+    layer's last collective, whose output the backward does not need,
     and the recompute stops once it has every tensor the backward does
     (``torch.utils.checkpoint``'s early stop). Then the loss's all-reduce
     of the hidden state's gradient and, a sequence chunk, two forward
@@ -179,7 +200,8 @@ def expected_collectives(cfg, size: int, seq_len: int,
                              attn.layout_heads(cfg.n_heads, cfg.tp_head_pad), 0, size)
     gather = int(plan.gather_q or plan.gather_kv)
     chunks = -(-seq_len // loss_chunk)
-    return {"all-reduce": 1 + cfg.n_layers * (5 + gather) + 1 + 4 * chunks,
+    ffn = sum(3 if kind == "moe" else 2 for kind in cfg.effective_pattern)
+    return {"all-reduce": 1 + cfg.n_layers * (3 + gather) + ffn + 1 + 4 * chunks,
             "all-gather": cfg.n_layers * gather * 2}
 
 
@@ -303,6 +325,32 @@ def layer_cases(group, arch: str) -> Dict[str, float]:
             pairs.append((got, want if dim is None else _cut(want, dim, tp)))
         record(name, out, whole, pairs)
 
+    def moe_case(pe):
+        # the routed experts on the rank's E/S (and the shared expert's
+        # columns and rows), the router whole: the output and the aux loss
+        # (its last element, weighed 1 by the ramp), every leaf's gradient
+        tree = {"moe": pe}
+        paths = tuple(p for p, _ in tree_leaves(tree))
+        specs = spec_dict(model_param_specs(tree))
+        kw = dict(n_experts=cfg.n_experts, k=cfg.experts_per_token,
+                  capacity_factor=cfg.moe_capacity_factor, compute_dtype=cd)
+
+        def moe_fn(tp_):
+            def fn(x, *ls):
+                y, aux = moe_mod.moe_apply(tree_unflatten(paths, list(ls))["moe"], x, tp=tp_,
+                                           **kw)
+                return torch.cat([y.reshape(-1), aux.reshape(1)])
+            return fn
+
+        whole, gw_all = _vg(moe_fn(None), [x] + [leaf for _, leaf in tree_leaves(tree)])
+        shards = [leaf for _, leaf in tree_leaves(shard_params(tree, tp.rank, tp.size))]
+        out, gt_all = _vg(moe_fn(tp), [x] + shards)
+        pairs = [(gt_all[0], gw_all[0])]
+        for path, got, want in zip(paths, gt_all[1:], gw_all[1:]):
+            dim = split_dim(specs[path])
+            pairs.append((got, want if dim is None else _cut(want, dim, tp)))
+        record("moe", out, whole, pairs)
+
     params = tfm.init_params(cfg, g, dev)
     attention("attention", tree_map(lambda a: a[0], params["blocks"])["attn"], cfg.n_heads)
     # two pad heads: the ranks' own plans differ (at S = 2, 4 / 2 heads
@@ -312,8 +360,10 @@ def layer_cases(group, arch: str) -> Dict[str, float]:
     attention("attention_padded", attn.attn_init(
         g, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, qkv_bias=cfg.qkv_bias,
         n_heads_layout=hl, device=dev), hl)
-    # the SwiGLU, column then row
-    pm = tree_map(lambda a: a[0], params["blocks"])["mlp"]
+    # the SwiGLU, column then row (an MoE block's FFN is the routed
+    # experts: its SwiGLU is drawn alone)
+    block = tree_map(lambda a: a[0], params["blocks"])
+    pm = block["mlp"] if "mlp" in block else layers.swiglu_init(g, d, cfg.d_ff, device=dev)
     mpaths = tuple(p for p, _ in tree_leaves(pm))
     mspecs = spec_dict(model_param_specs(pm))
 
@@ -328,6 +378,19 @@ def layer_cases(group, arch: str) -> Dict[str, float]:
         dim = next(i for i, e in enumerate(mspecs[path]) if e == "model")
         pairs.append((got, _cut(want, dim, tp)))
     record("swiglu", out, whole, pairs)
+    if "moe" in block:
+        moe_case(block["moe"])
+    if cfg.family == "vlm":
+        # a chunk of prefix positions only (every label -1), then one of
+        # text: the loss on the rank's vocab rows still equals the whole's
+        labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+        labels[:, :5] = -1
+        out, (tt, th) = _vg(lambda t, hh: layers.chunked_softmax_xent(
+            t, hh, labels, cfg.vocab_size, chunk=5, compute_dtype=cd, tp=tp),
+            [_cut(table, 0, tp), x])
+        whole, (gt, gh) = _vg(lambda t, hh: layers.chunked_softmax_xent(
+            t, hh, labels, cfg.vocab_size, chunk=5, compute_dtype=cd), [table, x])
+        record("chunked_loss_prefix", out, whole, [(tt, _cut(gt, 0, tp)), (th, gh)])
     # the chunked loss: padded vocab ids (the last 3 of a shard past the
     # valid vocab), -1 labels, a sequence not a multiple of the chunk
     valid = cfg.padded_vocab - 3
@@ -358,57 +421,169 @@ def _value_and_grad(params, cfg, batch, tp, loss_chunk):
     return loss.detach(), tree_unflatten(tuple(p for p, _ in items), list(grads))
 
 
-def lm_case(group, arch: str, compute_dtype: str = "float32", *, smoke: bool = True,
-            params_np=None, tokens=None,
-            batch: int = 2, seq_len: int = 16, loss_chunk: int = 512,
-            return_grads: bool = False) -> Dict:
-    """``lm_loss`` forward and backward of ``arch`` on this rank's shards
-    (tokens ``(batch, seq_len + 1)`` drawn from a seed, or given), and on
-    rank 0 the whole model's on the same inputs. Returns (rank 0): the
-    two losses, each leaf's gradient error, whether the replicated
-    leaves' gradients are bitwise equal on every rank, the model group's
-    collectives (counted) and their expected counts, each rank's flash
-    launches in the tensor-parallel call, the seconds of both calls, and with
-    ``return_grads`` the reassembled gradients as numpy."""
-    dev = group.device
-    cfg = _cfg(arch, compute_dtype, smoke)
-    tp = tp_group(group.model_pg)
-    whole = _whole(cfg, dev, params_np)
-    specs = model_param_specs(whole)
+class RouteLog:
+    """Records each ``moe_route`` call's choices -- ``top_e`` (N, k), ``keep``
+    (N*k) -- and router probabilities on the host, in call order (remat:
+    the forward's, then the recompute's, which runs in autograd's thread
+    on the card), while active; one log at a time. ``replay``: the calls
+    of another run's log, whose choices this run then takes in the same
+    order (with its own router probabilities as the combine weights),
+    recording its own choices."""
+
+    def __init__(self, replay: Optional[List] = None):
+        self.replay = replay
+
+    def __enter__(self):
+        self.calls, self._route = [], moe_mod.moe_route
+
+        def route(router_w, xf, n_experts, k, cap):
+            r = self._route(router_w, xf, n_experts, k, cap)
+            self.calls.append((r.top_e.cpu(), r.keep.cpu(), r.probs.detach().float().cpu()))
+            if self.replay is None:
+                return r
+            top_e = self.replay[len(self.calls) - 1][0].to(r.top_e.device)
+            return moe_mod.routing_of(r.probs, r.probs.gather(-1, top_e), top_e,
+                                      n_experts, cap)
+
+        moe_mod.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.moe_route = self._route
+        return False
+
+
+def routing_summary(mine: "RouteLog", whole: Optional["RouteLog"], group) -> Dict:
+    """The ranks' routing against rank 0's (choice by choice) and, on rank 0,
+    against the whole model's: the token-expert choices, how many match,
+    and each token whose choices or keeps differ with its top-k margin
+    (the k-th largest whole-model probability less the next)."""
+    ranks_equal = True
+    for te, keep, _ in mine.calls:
+        both = torch.cat([te.reshape(-1), keep.reshape(-1).long()])
+        got = [torch.empty_like(both) for _ in range(group.world)]
+        dist.all_gather(got, both, group=group.pg)
+        ranks_equal = ranks_equal and all(torch.equal(g, got[0]) for g in got)
+    if group.rank != 0:
+        return {}
+    total = same = 0
+    flips = []
+    for (te, tk, _), (we, wk, wp) in zip(mine.calls, whole.calls, strict=True):
+        n, k = te.shape
+        chosen = te.sort(-1).values == we.sort(-1).values
+        same += int(chosen.sum())
+        total += chosen.numel()
+        ok = chosen.all(-1) & (tk == wk).reshape(n, k).all(-1)
+        top = wp.sort(-1, descending=True).values
+        flips += [float(top[t, k - 1] - top[t, k]) for t in torch.nonzero(~ok).flatten()]
+    return {"calls": len(mine.calls), "ranks_equal": ranks_equal, "choices": total,
+            "matching": same, "flip_margins": flips}
+
+
+def _lm_batch(cfg, dev, tokens, prefix, batch: int, seq_len: int) -> Dict:
+    """``tokens`` (batch, seq_len + 1) and, for a VLM, ``prefix_embeds``
+    (batch, frontend_seq, d): the given arrays, or drawn from the seed."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
     if tokens is None:
-        g = torch.Generator(device=dev).manual_seed(SEED + 1)
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq_len + 1), generator=g,
                                device=dev)
-    batch_ = {"tokens": torch.as_tensor(tokens, device=dev)}
-    mine = shard_params(whole, tp.rank, tp.size)
+    out = {"tokens": torch.as_tensor(tokens, device=dev)}
+    if cfg.family == "vlm":
+        if prefix is None:
+            prefix = torch.randn((out["tokens"].shape[0], cfg.frontend_seq, cfg.d_model),
+                                 generator=g, device=dev)
+        out["prefix_embeds"] = torch.as_tensor(prefix, device=dev)
+    return out
+
+
+def _positions(cfg, batch: Dict) -> int:
+    return batch["tokens"].shape[-1] - 1 + (cfg.frontend_seq if cfg.family == "vlm" else 0)
+
+
+def _peak(dev) -> int:
+    """This rank's peak allocated bytes on the card since the last reset."""
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def lm_case(group, arch: str, compute_dtype: str = "float32", *, smoke: bool = True,
+            depth: Optional[int] = None, params_np=None, tokens=None, prefix=None,
+            batch: int = 2, seq_len: int = 16, loss_chunk: int = 512,
+            return_grads: bool = False) -> Dict:
+    """``lm_loss`` forward and backward of ``arch`` (``depth`` layers, or
+    its config's) on this rank's shards -- tokens ``(batch, seq_len + 1)``
+    and a VLM's prefix embeddings drawn from a seed, or given -- and then
+    the whole model's on the same inputs, on each rank in turn once the
+    group's gradients wait on the host (the card holds the group's shards
+    and one whole model at a time), each rank comparing its shard with
+    its slice of the whole. Returns (rank 0): the two losses, each leaf's
+    gradient error (the worst rank's), whether the replicated leaves' gradients are bitwise
+    equal on every rank, the model group's collectives (counted) and
+    their expected counts, each rank's flash launches in the
+    tensor-parallel call, an MoE's routing (``routing_summary``: the
+    whole model runs on the group's expert choices, its own compared), the
+    seconds of both calls, each rank's peak bytes on the card, and with ``return_grads`` the reassembled gradients as
+    numpy."""
+    dev = group.device
+    cfg = _cfg(arch, compute_dtype, smoke, depth)
+    tp = tp_group(group.model_pg)
+    batch_ = _lm_batch(cfg, dev, tokens, prefix, batch, seq_len)
+    mine = shard_params(_whole(cfg, dev, params_np), tp.rank, tp.size)
+    _free(dev)
+    specs = model_param_specs(mine)
     flash_attention.launches = 0
     _sync(dev)
     t0 = time.perf_counter()
-    with op_analysis() as oa:
+    with RouteLog() as log, op_analysis() as oa:
         loss, grads = _value_and_grad(mine, cfg, batch_, tp, loss_chunk)
         _sync(dev)
     tp_s = time.perf_counter() - t0
+    del mine
     launches = _per_rank(flash_attention.launches, group.pg)
     counts = model_group_counts(oa.costs(), group)
-    del mine
-    got, same = gather_whole(grads, specs, group)
+    grads = tree_map(lambda a: a.cpu(), grads)
+    _free(dev)
+    split = spec_dict(specs)
+    errs, whole_log = {}, None
+    for turn in range(group.world):  # the ranks run the whole model in turn
+        if group.rank == turn:
+            whole = _whole(cfg, dev, params_np)
+            _sync(dev)
+            t0 = time.perf_counter()
+            # the group's routing: a near-tie the two route apart would move a
+            # token between experts (counted by ``routing_summary``), not test
+            # the layers
+            with RouteLog(replay=log.calls) as whole_log:
+                wloss, wgrads = _value_and_grad(whole, cfg, batch_, None, loss_chunk)
+                _sync(dev)
+            whole_s = time.perf_counter() - t0
+            del whole
+            for (path, g), (_, w) in zip(tree_leaves(grads), tree_leaves(wgrads)):
+                dim = split_dim(split[path])
+                if dim is not None:  # this rank's shard of the whole gradient
+                    w = w.narrow(dim, tp.rank * g.shape[dim], g.shape[dim])
+                errs["/".join(map(str, path))] = _rel(g.to(dev), w)
+            del wgrads
+            _free(dev)
+        dist.barrier(group=group.pg)
+    errs = _worst(errs, group.pg)
+    peaks = _per_rank(_peak(dev), group.pg)
+    routing = routing_summary(log, whole_log, group) if log.calls else None
+    same = replicated_equal(grads, split, group)
+    got = {}
+    if return_grads:
+        collect_tiles(grads, split, group, lambda path, leaf: got.update(
+            {path: leaf.float().numpy()}))
     del grads
     if group.rank != 0:
         return {}
-    t0 = time.perf_counter()
-    wloss, wgrads = _value_and_grad(whole, cfg, batch_, None, loss_chunk)
-    _sync(dev)
-    whole_s = time.perf_counter() - t0
-    errs = {"/".join(map(str, p)): _rel(a, b)
-            for (p, a), (_, b) in zip(tree_leaves(got), tree_leaves(wgrads))}
     out = {"loss": float(loss), "whole_loss": float(wloss), "grad_errs": errs,
-           "replicated_equal": bool(same), "counts": counts,
-           "expected": expected_collectives(cfg, tp.size,
-                                            batch_["tokens"].shape[1] - 1, loss_chunk),
-           "flash_launches": launches, "layers": cfg.n_layers,
-           "tp_s": tp_s, "whole_s": whole_s}
+           "replicated_equal": same, "counts": counts,
+           "expected": expected_collectives(cfg, tp.size, _positions(cfg, batch_),
+                                            loss_chunk),
+           "flash_launches": launches, "layers": cfg.n_layers, "routing": routing,
+           "tp_s": tp_s, "whole_s": whole_s, "peak_bytes": peaks}
     if return_grads:
-        out["grads"] = tree_map(lambda a: a.detach().float().cpu().numpy(), got)
+        out["grads"] = tree_unflatten(tuple(got), list(got.values()))
     return out
 
 
@@ -422,41 +597,58 @@ def _sync(dev: torch.device) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _round_batches(cfg, dev, batches, q: int, nodes: int, batch: int, seq_len: int) -> Dict:
+    """The round's batches ``(Q, nodes, batch, ...)``: the given arrays, or
+    tokens (and a VLM's prefix embeddings) drawn from the seed."""
+    if batches is not None:
+        return {k: torch.as_tensor(v, device=dev) for k, v in batches.items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (q, nodes, batch, seq_len + 1),
+                                   generator=g, device=dev)}
+    if cfg.family == "vlm":
+        out["prefix_embeds"] = torch.randn((q, nodes, batch, cfg.frontend_seq, cfg.d_model),
+                                           generator=g, device=dev)
+    return out
+
+
+def _stacked(cfg, dev, stacked_np, perturb: float) -> Dict:
+    if stacked_np is not None:
+        return params_from_numpy(stacked_np, dev)
+    return stack_for_nodes(_whole(cfg, dev), 2, perturb=perturb,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 2)
+                           if perturb else None)
+
+
 def round_case(group, arch: str, compute_dtype: str = "float32", *, smoke: bool = True,
                stacked_np=None, batches=None, q: int = 2, batch: int = 1,
                seq_len: int = 16, perturb: float = 0.0,
                return_params: bool = False) -> Dict:
     """One FD-DSGT round of the ``tree`` engine on this rank's node rows and
-    shards (the tensor-parallel bundle), and on rank 0 the same round of
-    the whole model on one device. The init: ``stacked_np`` (a
-    node-stacked reference tree), or the seed's drawn on each of 2 nodes
-    plus ``perturb`` times a normal draw. ``batches``:
-    ``{"tokens": (Q, nodes, batch, seq_len + 1)}``, drawn from the seed
-    when None; the step size ``ALPHA0 / sqrt(r)``. Returns (rank 0) the
-    metrics of both, each leaf's parameter error (and of its update,
-    against the whole round's), each rank's flash launches and the
-    seconds of the tensor-parallel round; ``return_params`` adds the
-    reassembled parameters as numpy."""
+    shards (the tensor-parallel bundle), and then, on rank 0, the same
+    round of the whole model on one device (``TreeEngine.simulated`` on
+    the group's mixing matrix), once the group's parameters wait on the
+    host. The init: ``stacked_np`` (a node-stacked reference tree), or the
+    seed's drawn on each of 2 nodes plus ``perturb`` times a normal draw.
+    ``batches``: ``{"tokens": (Q, nodes, batch, seq_len + 1)}`` (and a
+    VLM's ``prefix_embeds``), drawn from the seed when None; the step size
+    ``ALPHA0 / sqrt(r)``. Returns (rank 0) the metrics of both, each
+    leaf's parameter error (and of its update, against the whole
+    round's), each rank's flash launches, the seconds of both rounds, each
+    rank's peak bytes on the card; ``return_params`` adds the reassembled
+    parameters as numpy."""
     dev = group.device
     cfg = _cfg(arch, compute_dtype, smoke)
-    if stacked_np is not None:
-        stacked = params_from_numpy(stacked_np, dev)
-    else:
-        stacked = stack_for_nodes(_whole(cfg, dev), 2, perturb=perturb,
-                                  generator=torch.Generator(device=dev).manual_seed(SEED + 2)
-                                  if perturb else None)
+    stacked = _stacked(cfg, dev, stacked_np, perturb)
     nodes = tree_leaves(stacked)[0][1].shape[0]
-    if batches is not None:
-        batches = {k: torch.as_tensor(v, device=dev) for k, v in batches.items()}
-    else:
-        g = torch.Generator(device=dev).manual_seed(SEED + 1)
-        batches = {"tokens": torch.randint(0, cfg.vocab_size,
-                                           (q, nodes, batch, seq_len + 1),
-                                           generator=g, device=dev)}
+    batches = _round_batches(cfg, dev, batches, q, nodes, batch, seq_len)
     fl = FLConfig(algorithm="dsgt", q=q, n_nodes=nodes)
+    split = spec_dict(stacked_param_specs(stacked))
     bundle = build_model(cfg, remat=True, model_group=group.model_pg)
     eng, rows = TreeEngine.from_group(group, stacked)
+    if group.rank != 0:
+        del stacked
     state = init_fl_state(fl, rows, eng)
+    del rows
     round_fn = make_fl_round(bundle.loss_fn, inv_sqrt(ALPHA0), fl, eng)
     flash_attention.launches = 0
     _sync(dev)
@@ -466,28 +658,46 @@ def round_case(group, arch: str, compute_dtype: str = "float32", *, smoke: bool 
     _sync(dev)
     tp_s = time.perf_counter() - t0
     launches = _per_rank(flash_attention.launches, group.pg)
-    got, same = gather_whole(_rows_whole(state.params, group), stacked_param_specs(stacked),
-                             group)
-    del state, rows
+    params = tree_map(lambda a: a.cpu(), state.params)
+    del state
+    _free(dev)
+    dist.barrier(group=group.pg)  # rank 0's whole round once the group's state is gone
+    whole = {}
+    if group.rank == 0:
+        w = mesh_gossip_dense_equivalent(group.axes(nodes))
+        weng, wparams = TreeEngine.simulated(w, stacked)
+        wround = make_fl_round(build_model(cfg, remat=True).loss_fn, inv_sqrt(ALPHA0), fl,
+                               weng)
+        wstate = init_fl_state(fl, wparams, weng)
+        t0 = time.perf_counter()
+        wstate, m = wround(wstate, batches)
+        whole["metrics"] = {k: float(v) for k, v in m.items()}
+        _sync(dev)
+        whole["s"] = time.perf_counter() - t0
+        whole["params"], whole["init"] = dict(tree_leaves(wstate.params)), dict(
+            tree_leaves(stacked))
+        del wstate
+    peaks = _per_rank(_peak(dev), group.pg)
+    param_errs, update_errs, got = {}, {}, {}
+
+    def on_leaf(path, leaf):
+        key = "/".join(map(str, path))
+        leaf, want, init = leaf.to(dev), whole["params"].pop(path), whole["init"].pop(path)
+        param_errs[key] = _rel(leaf, want)
+        update_errs[key] = _rel(leaf - init, want - init)
+        if return_params:
+            got[path] = leaf.float().cpu().numpy()
+
+    same = replicated_equal(params, split, group)
+    collect_tiles(params, split, group, on_leaf, rows=True)
     if group.rank != 0:
         return {}
-    out = {"metrics": metrics, "replicated_equal": bool(same), "tp_s": tp_s,
-           "flash_launches": launches, "rows": list(eng.rows), "layers": cfg.n_layers}
-    w = mesh_gossip_dense_equivalent(group.axes(nodes))
-    weng, wparams = TreeEngine.simulated(w, stacked)
-    wstate = init_fl_state(fl, wparams, weng)
-    wround = make_fl_round(build_model(cfg, remat=True).loss_fn, inv_sqrt(ALPHA0), fl, weng)
-    t0 = time.perf_counter()
-    wstate, m = wround(wstate, batches)
-    wmetrics = {k: float(v) for k, v in m.items()}
-    _sync(dev)
-    pairs = list(zip(tree_leaves(got), tree_leaves(wstate.params), tree_leaves(stacked)))
-    out.update(whole_metrics=wmetrics, whole_s=time.perf_counter() - t0,
-               param_errs={"/".join(map(str, p)): _rel(a, b) for (p, a), (_, b), _ in pairs},
-               update_errs={"/".join(map(str, p)): _rel(a - s0, b - s0)
-                            for (p, a), (_, b), (_, s0) in pairs})
+    out = {"metrics": metrics, "whole_metrics": whole["metrics"],
+           "replicated_equal": bool(same), "tp_s": tp_s, "whole_s": whole["s"],
+           "flash_launches": launches, "rows": list(eng.rows), "layers": cfg.n_layers,
+           "param_errs": param_errs, "update_errs": update_errs, "peak_bytes": peaks}
     if return_params:
-        out["params"] = tree_map(lambda a: a.detach().float().cpu().numpy(), got)
+        out["params"] = tree_unflatten(tuple(got), list(got.values()))
     return out
 
 
@@ -529,19 +739,41 @@ def cases(group, todo) -> List:
     return [CASES[name](group, **kw) for name, kw in todo]
 
 
-def _card_cases(group, arch: str, compute_dtype: str, smoke: bool, batch: int,
+def _free(dev: torch.device) -> None:
+    """Hand this rank's cached card memory back, for the group's other
+    processes on the card."""
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _card_cases(group, archs: List[str], compute_dtype: str, smoke: bool, batch: int,
                 seq_len: int) -> Dict:
-    """What the card's check runs on one group: :func:`lm_case`, then one
-    :func:`round_case` at Q = 1 on 2 nodes."""
-    lm = lm_case(group, arch, compute_dtype, smoke=smoke, batch=batch, seq_len=seq_len)
-    rnd = round_case(group, arch, compute_dtype, smoke=smoke, q=1, batch=batch,
-                     seq_len=seq_len, perturb=1e-3)
-    return {"lm": lm, "round": rnd}
+    """What the card's check runs on one group, for each ``ARCH[:DEPTH]`` of
+    ``archs``: :func:`lm_case` (at DEPTH layers), then, at the config's
+    depth, one :func:`round_case` at Q = 1 on 2 nodes; the card's memory
+    handed back between them."""
+    out, dev = {}, group.device
+    for spec in archs:
+        arch, _, depth = spec.partition(":")
+        cases = [("lm", lm_case, dict(depth=int(depth) if depth else None))]
+        if not depth:
+            cases.append(("round", round_case, dict(q=1, perturb=1e-3)))
+        out[arch] = {}
+        for name, case, kw in cases:
+            _free(dev)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            out[arch][name] = case(group, arch, compute_dtype, smoke=smoke, batch=batch,
+                                   seq_len=seq_len, **kw)
+    return out
 
 
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", nargs="+", default=["smollm-360m"],
+                    help="ARCH, or ARCH:DEPTH for lm_case alone at DEPTH layers of the "
+                         "arch's full width")
     ap.add_argument("--shards", type=int, default=2)
     ap.add_argument("--smoke", action="store_true", help="the arch's reduced config")
     ap.add_argument("--compute-dtype", default="bfloat16")

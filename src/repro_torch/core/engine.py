@@ -1391,7 +1391,7 @@ class FlatEngine(GossipEngine):
             raise ValueError(
                 f"the 'flat' engine on the (node, model) layout ({group.model_shards} model "
                 "shards) is ROADMAP.md queue 1, item 18b: its flat buffer is not "
-                "Megatron-split -- use 'tree' (dense family) or 'sharded_fused'")
+                "Megatron-split -- use 'tree' (dense, VLM, MoE) or 'sharded_fused'")
         flat, layout = pack(stacked_params, pad_to=scale_chunk,
                             buffer_dtype=storage_dtype or torch.float32)
         eng = cls(make_mesh_flat_mix(group, self_weight, wire_dtype, axes_subset),

@@ -8,9 +8,10 @@ engine consume. The reference's ``impl`` argument is gone: the port's
 attention and recurrence kernels dispatch by device, so its ``"ref"``,
 ``"flash"``, ``"blocked"``, ``"decode_kernel"`` and ``"pallas"`` paths
 are one path here. ``build_model(cfg, model_group=pg)`` builds the
-dense family's bundle for a rank of a model group: its ``loss_fn`` runs
-on the rank's shards (``models.sharding.shard_params``) through the
-tensor-parallel layers (``models.tensor_parallel``).
+dense, VLM and MoE families' bundle for a rank of a model group: its
+``loss_fn`` runs on the rank's shards (``models.sharding.shard_params``)
+through the tensor-parallel layers (``models.tensor_parallel``) and the
+expert-parallel MoE (``models.moe``).
 
 ``loss_fn`` is NODE-BATCHED, the port trainer's ``core.fl.LossFn``:
 params with (n, ...) leaves and a batch with (n, ...) leaves in, the n
@@ -69,7 +70,8 @@ def build_model(cfg: ModelConfig, remat: bool = True, model_group=None) -> Model
     """The bundle of ``cfg``. ``model_group``: a model process group
     (``NodeGroup.model_pg``) whose rank this process is -- the bundle's
     ``loss_fn`` then takes the rank's shards of the parameters (the
-    dense family only: the others raise, naming item 18b slice (ii));
+    dense, VLM and MoE families: the others raise, naming what is left
+    of item 18b);
     ``init_fn`` and the serving functions stay whole."""
     tp = tp_group(model_group)
     if tp is not None:

@@ -22,6 +22,21 @@ leaves their order unspecified). The expert products stay batched
 matrix products (the reference computes them outside any Pallas kernel);
 the combine sums a token's k contributions in fp32 by ``index_add_``,
 whose order on CUDA is unspecified -- a rounding-level difference.
+
+Expert parallelism (``tp``, a ``models.tensor_parallel.TPGroup``): a rank
+holds experts ``[s E/S, (s+1) E/S)`` -- ``models.sharding``'s cut of the
+``("model", None, None)`` expert stacks -- and the whole router. Every
+rank routes every token alike: the residual stream is replicated and the
+capacity comes from the node's whole token count. A rank dispatches and
+combines only the slots of its experts, a static (E/S * C, d) buffer
+whatever the routing (so the ranks' collectives pair, and ``meta`` runs
+count the buffer's FLOPs); its partial output -- its experts' combine,
+plus the shared expert's row-parallel partial -- leaves the layer through
+ONE all-reduce in the compute dtype (``reduce_from_model``). The expert
+inputs and the combine weights pass ``copy_to_model``, so their gradients
+sum over the ranks; the router's logits and the aux loss do not (every
+rank holds them whole), so ``router/w``'s gradient is the same on every
+rank and counts once.
 """
 
 from __future__ import annotations
@@ -31,9 +46,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import normal_init, swiglu, swiglu_init
+from repro_torch.models.layers import linear, normal_init, swiglu, swiglu_init
+from repro_torch.models.tensor_parallel import TPGroup, copy_to_model, reduce_from_model
 
-__all__ = ["moe_capacity", "moe_init", "moe_route", "moe_apply", "Routing"]
+__all__ = ["moe_capacity", "moe_init", "moe_route", "routing_of", "moe_apply", "Routing"]
 
 
 def moe_capacity(n_tokens: int, n_experts: int, k: int, factor: float) -> int:
@@ -85,11 +101,19 @@ def moe_route(router_w: torch.Tensor, xf: torch.Tensor, n_experts: int, k: int,
               cap: int) -> Routing:
     """Route tokens xf (N, d) with the router ``router_w`` (d, E) into a
     capacity of ``cap`` slots an expert."""
-    n = xf.shape[0]
     probs = torch.softmax(xf.float() @ router_w, dim=-1)
     # a stable descending sort: equal probabilities keep the lower index first
     sorted_p, sorted_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = sorted_p[:, :k], sorted_idx[:, :k]
+    return routing_of(probs, sorted_p[:, :k], sorted_idx[:, :k], n_experts, cap)
+
+
+def routing_of(probs: torch.Tensor, top_p: torch.Tensor, top_e: torch.Tensor,
+               n_experts: int, cap: int) -> Routing:
+    """The :class:`Routing` of the chosen experts ``top_e`` (N, k), whose
+    router probabilities are ``top_p``: the weights renormalized, each
+    assignment's rank within its expert, ``keep`` and ``slot``, and the
+    aux loss."""
+    n, k = top_e.shape
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)  # renormalize
 
     # load-balance auxiliary loss (Switch / GShard)
@@ -102,10 +126,10 @@ def moe_route(router_w: torch.Tensor, xf: torch.Tensor, n_experts: int, k: int,
     flat_e = top_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.zeros(n_experts, dtype=sorted_e.dtype, device=xf.device).index_add_(
+    counts = torch.zeros(n_experts, dtype=sorted_e.dtype, device=probs.device).index_add_(
         0, sorted_e, torch.ones_like(sorted_e))
     starts = torch.cumsum(counts, 0) - counts
-    rank_sorted = torch.arange(n * k, device=xf.device) - starts[sorted_e]
+    rank_sorted = torch.arange(n * k, device=probs.device) - starts[sorted_e]
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
     keep = rank < cap
     slot = torch.where(keep, flat_e * cap + rank, torch.full_like(rank, n_experts * cap))
@@ -113,17 +137,20 @@ def moe_route(router_w: torch.Tensor, xf: torch.Tensor, n_experts: int, k: int,
 
 
 def moe_apply(p: Dict, x: torch.Tensor, *, n_experts: int, k: int,
-              capacity_factor: float = 1.25,
-              compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+              capacity_factor: float = 1.25, compute_dtype=torch.bfloat16,
+              tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d) in ``compute_dtype``, fp32 aux loss).
 
     The aux loss is the load-balance term E * sum_e f_e * p_e, which the
-    trainer scales by ``router_aux_coef``."""
+    trainer scales by ``router_aux_coef``. ``tp``: the rank's experts of a
+    model group (every rank returns the whole output)."""
     b, s, d = x.shape
     n = b * s
     xf = x.reshape(n, d)
     cap = moe_capacity(n, n_experts, k, capacity_factor)
     r = moe_route(p["router"]["w"], xf, n_experts, k, cap)
+    if tp is not None:
+        return _experts_tp(p, xf, r, n_experts, cap, compute_dtype, tp).reshape(b, s, d), r.aux
     flat_tok = torch.arange(n, device=x.device).repeat_interleave(k)
 
     # dispatch: scatter tokens into the (E*C [+1 sink], d) buffer; the
@@ -146,3 +173,39 @@ def moe_apply(p: Dict, x: torch.Tensor, *, n_experts: int, k: int,
     if "shared" in p:
         out = out + swiglu(p["shared"], xf, compute_dtype)
     return out.reshape(b, s, d), r.aux
+
+
+def _experts_tp(p: Dict, xf: torch.Tensor, r: Routing, n_experts: int, cap: int,
+                compute_dtype, tp: TPGroup) -> torch.Tensor:
+    """The routed experts (and the shared one) on the rank's experts
+    ``p["gate"]`` (E/S, d, f): each slot of the rank's span of the
+    (E * C) buffer takes its token (an empty slot, a zero row) and its
+    combine weight, the experts run on the (E/S, C, d) buffer, and the
+    weighted rows go back to their tokens in fp32; the partial output
+    (N, d), all-reduced over the model group."""
+    n, d = xf.shape
+    local = p["gate"].shape[0]
+    if local * tp.size != n_experts:
+        raise ValueError(f"{local} experts a rank over {tp.size} ranks is not the "
+                         f"config's {n_experts}")
+    lo, span = tp.rank * local * cap, local * cap
+    tok = torch.arange(n, device=xf.device).repeat_interleave(r.top_e.shape[1])
+    # the whole buffer's slots (and the sink's, dropped) -> token, weight;
+    # a kept assignment owns its slot alone
+    slot_tok = torch.full((n_experts * cap + 1,), n, dtype=tok.dtype,
+                          device=xf.device).scatter(0, r.slot, tok)[lo:lo + span]
+    w = copy_to_model(r.top_p, tp).reshape(-1)
+    slot_w = w.new_zeros(n_experts * cap + 1).scatter(0, r.slot, w)[lo:lo + span]
+    xs = copy_to_model(xf, tp)
+    buf = xs[slot_tok.clamp(max=n - 1)].masked_fill((slot_tok == n)[:, None], 0)
+    buf = buf.to(compute_dtype).reshape(local, cap, d)
+    g = torch.bmm(buf, p["gate"].to(compute_dtype))
+    u = torch.bmm(buf, p["up"].to(compute_dtype))
+    y = torch.bmm(F.silu(g) * u, p["down"].to(compute_dtype)).reshape(span, d)
+    part = torch.zeros(n + 1, d, dtype=torch.float32, device=xf.device).index_add(
+        0, slot_tok, (y * slot_w[:, None].to(y.dtype)).float())[:n]
+    if "shared" in p:  # gate / up column-parallel, down's partial sum
+        sh = p["shared"]
+        hs = F.silu(linear(sh["gate"], xs, compute_dtype)) * linear(sh["up"], xs, compute_dtype)
+        part = part + linear(sh["down"], hs, compute_dtype).float()
+    return reduce_from_model(part.to(compute_dtype), tp)

@@ -26,10 +26,10 @@ The specs also place tensors: :func:`shard_params` cuts a whole tree
 into shard ``s`` of ``S`` along every dimension split over the model
 axis (the tree a rank of a model group holds, ``models.
 tensor_parallel``; the ``tree`` engine's state on the ``(node, model)``
-layout), :func:`unshard_params` puts S shards back together. The dense
-family's layers run on such shards; the other families' layers still
-run whole on a rank, and there the specs only price a rank's share
-(``launch.dryrun``).
+layout), :func:`unshard_params` puts S shards back together. The dense,
+VLM and MoE families' layers run on such shards; the recurrent and audio
+families' layers still run whole on a rank, and there the specs only
+price a rank's share (``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ from repro_torch.core.packing import tree_leaves, tree_unflatten
 
 __all__ = ["model_param_specs", "node_stack_specs", "batch_specs", "rank_bytes",
            "stacked_param_specs", "shard_params", "unshard_params", "is_split",
-           "spec_dict"]
+           "split_dim", "spec_dict"]
 
 Spec = Tuple[Any, ...]
 
@@ -175,7 +175,9 @@ def is_split(spec: Spec, axis: str = "model") -> bool:
     return any(axis == e or (isinstance(e, tuple) and axis in e) for e in spec)
 
 
-def _split_dim(spec: Spec, path, axis: str) -> Optional[int]:
+def split_dim(spec: Spec, path=(), axis: str = "model") -> Optional[int]:
+    """The dimension a spec splits over ``axis``, or None (``path``: the
+    leaf's, for the error of a spec that splits two)."""
     dims = [i for i, e in enumerate(spec)
             if axis == e or (isinstance(e, tuple) and axis in e)]
     if len(dims) > 1:
@@ -203,7 +205,7 @@ def shard_params(params, shard: int, shards: int, specs=None, axis: str = "model
         if len(spec) != leaf.ndim:
             raise ValueError(f"spec {spec} does not match leaf {'/'.join(map(str, path))} "
                              f"of {leaf.ndim} dims")
-        dim = _split_dim(spec, path, axis)
+        dim = split_dim(spec, path, axis)
         if dim is None or shards == 1:
             out.append(leaf.clone())
             continue
@@ -224,6 +226,6 @@ def unshard_params(shards: Sequence, specs, axis: str = "model") -> Any:
     items = [tree_leaves(s) for s in shards]
     out = []
     for j, (path, leaf) in enumerate(items[0]):
-        dim = _split_dim(spec_of[path], path, axis)
+        dim = split_dim(spec_of[path], path, axis)
         out.append(leaf if dim is None else torch.cat([it[j][1] for it in items], dim=dim))
     return tree_unflatten(tuple(p for p, _ in items[0]), out)

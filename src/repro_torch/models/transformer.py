@@ -37,13 +37,15 @@ backward is plain PyTorch, so every parameter reaches its gradient on
 the card as on the CPU.
 
 Tensor parallelism (``tp``, a ``models.tensor_parallel.TPGroup``): the
-dense family's training path -- :func:`apply_block_train`,
+training path of the dense, VLM and MoE families -- :func:`apply_block_train`,
 :func:`forward_hidden`, :func:`_embed_inputs` and :func:`lm_loss` -- runs
 on a rank's shards of a model group (``models.sharding.shard_params``):
-attention and the SwiGLU column- then row-parallel, the embedding and
-the loss vocab-parallel (one table for both where they are tied), the
-residual stream and the norms replicated. Other families raise: their
-layers are item 18b's slice (ii).
+attention and the SwiGLU column- then row-parallel, the routed experts
+expert-parallel (``models.moe``: the rank's E/S experts, the router
+replicated), the embedding and the loss vocab-parallel (one table for
+both where they are tied), the residual stream, the norms and a VLM's
+prefix embeddings replicated. The recurrent and audio families raise:
+their layers are item 18b's next slice.
 """
 
 from __future__ import annotations
@@ -100,13 +102,18 @@ def check_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
     return pattern
 
 
+#: the families whose layers run on a model group
+TP_FAMILIES = ("dense", "vlm", "moe")
+
+
 def check_tensor_parallel(cfg: ModelConfig) -> None:
-    """The families whose layers run on a model group: the dense one."""
-    if cfg.family != "dense":
+    """The families whose layers run on a model group: dense, VLM, MoE."""
+    if cfg.family not in TP_FAMILIES:
         raise ValueError(
-            f"{cfg.name} ({cfg.family}): tensor-parallel layers exist for the dense family "
-            "only; MoE and VLM layers on a model group are ROADMAP.md queue 1, item 18b "
-            "slice (ii), and the other families' after it")
+            f"{cfg.name} ({cfg.family}): tensor-parallel layers exist for the dense, VLM "
+            "and MoE families; what is left of ROADMAP.md queue 1, item 18b is the "
+            "recurrent (ssm, hybrid) and audio families' layers on a model group, then "
+            "flat / fused on the (node, model) layout")
 
 
 def _cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -165,7 +172,8 @@ def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
                       tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence (train / prefill) block from zero recurrent states.
     Returns (x, aux loss), the aux loss 0 for every kind but ``moe``.
-    ``tp``: a dense block on the rank's shards of a model group."""
+    ``tp``: an attention or MoE block on the rank's shards of a model
+    group."""
     _check_kind(kind)
     if tp is not None:
         check_tensor_parallel(cfg)
@@ -201,13 +209,14 @@ def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
 def _ffn(p: Dict, kind: str, cfg: ModelConfig, h: torch.Tensor,
          tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """An attention block's FFN on its normed input: the routed experts
-    and their aux loss for ``moe``, else the SwiGLU (on a model group,
-    column- then row-parallel) and None."""
+    and their aux loss for ``moe`` (on a model group, the rank's
+    experts), else the SwiGLU (on a model group, column- then
+    row-parallel) and None."""
     if kind == "moe":
         return moe_mod.moe_apply(p["moe"], h, n_experts=cfg.n_experts,
                                  k=cfg.experts_per_token,
                                  capacity_factor=cfg.moe_capacity_factor,
-                                 compute_dtype=_cdtype(cfg))
+                                 compute_dtype=_cdtype(cfg), tp=tp)
     return swiglu(p["mlp"], h, _cdtype(cfg), tp), None
 
 
@@ -302,7 +311,8 @@ def _embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict,
     batch: ``tokens`` (B, S+1) split into inputs and next-token labels;
     a stubbed frontend's ``prefix_embeds`` (B, P, d) go first, with -1
     (ignored) labels. ``tp``: the vocab-parallel lookup on the rank's
-    table rows."""
+    table rows; the prefix, a replicated input, joins after its
+    all-reduce."""
     cd = _cdtype(cfg)
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
@@ -321,8 +331,9 @@ def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, remat: bool = True,
             loss_chunk: int = 512, tp: Optional[TPGroup] = None) -> torch.Tensor:
     """Next-token cross-entropy (mean over the valid tokens) plus the
     blocks' aux loss times ``router_aux_coef``, for one node's params and
-    batch (``tokens`` (B, S+1)). ``tp``: a dense model on the rank's
-    shards of a model group (every rank returns the whole loss)."""
+    batch (``tokens`` (B, S+1)). ``tp``: a dense, VLM or MoE model on
+    the rank's shards of a model group (every rank returns the whole
+    loss)."""
     if tp is not None:
         check_tensor_parallel(cfg)
     emb, positions, labels = _embed_inputs(params, cfg, batch, tp)

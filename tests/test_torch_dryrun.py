@@ -24,7 +24,14 @@ reference's committed records and against a real round:
   Megatron specs; the model group's all-reduces and all-gathers are
   counted from the layers, the loss chunks and remat; the flash kernel
   launches twice a layer, step and node; every gossip message is on the
-  rank's node group; the model group's collectives cross a host.
+  rank's node group; the model group's collectives cross a host;
+* the committed ``tree`` records of dbrx-132b, llama4-scout-17b-a16e and
+  internvl2-26b (expert-parallel MoE, one expert a rank; the VLM's 1,024
+  prefix positions): the per-rank state bytes are the placed shards',
+  the flash kernel launches 2 x layers x Q, the model group's
+  collectives ``expected_collectives`` a node-step; llama4-scout's
+  record is the dry run's own, run here; the other 44 committed records
+  are unchanged.
 """
 
 import json
@@ -38,12 +45,21 @@ import pytest
 torch = pytest.importorskip("torch")
 dist = torch.distributed
 
-from repro_torch.configs import SHAPES, get_config  # noqa: E402
+from repro_torch.benchmarks.run_dryruns import OUT_DIR, record_path  # noqa: E402
+from repro_torch.benchmarks.tensor_parallel import expected_collectives  # noqa: E402
+from repro_torch.configs import SHAPES, get_config, train_input_specs  # noqa: E402
+from repro_torch.core.packing import tree_leaves  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh, make_test_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
-from repro_torch.models.sharding import model_param_specs, node_stack_specs, rank_bytes  # noqa: E402
+from repro_torch.models.sharding import (  # noqa: E402
+    batch_specs,
+    model_param_specs,
+    node_stack_specs,
+    rank_bytes,
+    shard_params,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_DIR = os.path.join(ROOT, "experiments", "dryrun")
@@ -231,8 +247,9 @@ def test_refusals_and_the_skip():
     for engine in ("flat", "fused"):
         with pytest.raises(ValueError, match="item 18b"):
             dryrun.run_pair("tinyllama-1.1b", "train_4k", "single", fl_engine=engine)
-    for arch in ("dbrx-132b", "internvl2-26b", "rwkv6-7b"):  # tree: dense layers only
-        with pytest.raises(ValueError, match="item 18b slice \\(ii\\)"):
+    # tree: the recurrent and audio families have no tensor-parallel layers yet
+    for arch in ("rwkv6-7b", "recurrentgemma-2b", "whisper-medium"):
+        with pytest.raises(ValueError, match="what is left of ROADMAP.md queue 1, item 18b"):
             dryrun.run_pair(arch, "train_4k", "single", fl_engine="tree")
     with pytest.raises(ValueError, match="needs the sharded_fused engine"):
         dryrun.run_pair("tinyllama-1.1b", "train_4k", "single", fl_engine="fused",
@@ -323,3 +340,130 @@ def _stack16(params):
     from repro_torch.training.trainer import stack_for_nodes
 
     return stack_for_nodes(params, 16)
+
+
+# ---------------------------------------------------------------------------
+# the MoE and VLM archs' tree records, and the records that came before them
+# ---------------------------------------------------------------------------
+
+TREE_MOE_VLM = ["dbrx-132b", "llama4-scout-17b-a16e", "internvl2-26b"]
+
+
+def _tree_record(arch):
+    with open(record_path(arch, "train_4k", "single", engine="tree")) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("arch", TREE_MOE_VLM)
+def test_the_moe_and_vlm_tree_records(arch):
+    """train_4k, Q = 2, 16 data x 16 model: a rank's params, tracker and
+    previous gradient are its placed shards (one expert of 16 a rank, the
+    router whole); the arguments add the rank's batch (a VLM's prefix
+    embeddings too); the flash kernel launches twice a layer and step
+    (one node a node rank); the model group issues
+    ``expected_collectives`` (the prefix positions counted) a step, and
+    one all-reduce more for the metrics' split leaves; the node group the
+    gossip and the metrics."""
+    rec = _tree_record(arch)
+    cfg = get_config(arch)
+    q, mesh = 2, make_production_mesh()
+    assert rec["status"] == "ok" and rec["fl_engine"] == "tree" and rec["q"] == q
+    tp = rec["tensor_parallel"]
+    assert tp["model_shards"] == 16 and rec["n_chips"] == 256 and rec["n_nodes"] == 16
+    params = build_model(cfg).param_shapes()
+    placed = sum(t.numel() * t.element_size()
+                 for _, t in tree_leaves(shard_params(params, 0, 16)))
+    want = rank_bytes(_stack16(params), node_stack_specs(model_param_specs(params),
+                                                         ("data",)), mesh)
+    assert want == placed
+    assert tp["param_bytes"] == tp["tracker_bytes"] == tp["prev_grad_bytes"] == want
+    batch = train_input_specs(cfg, SHAPES["train_4k"], 16, q)
+    batch_bytes = rank_bytes(batch, batch_specs(batch, ("data",)), {"data": 16})
+    assert rec["memory"]["argument_bytes"] == 3 * want + batch_bytes
+    assert rec["kernel_calls"] == {"flash_attention": 2 * cfg.n_layers * q}
+    assert rec["kernel_calls"]["flash_attention"] == {"dbrx-132b": 160}.get(arch, 192)
+    positions = 4096  # a VLM's text tokens follow its prefix inside the 4,096
+    step = expected_collectives(cfg, 16, positions)
+    model = tp["model_group"]
+    assert model["all-reduce"]["count"] == q * step["all-reduce"] + 1
+    assert model["all-gather"]["count"] == q * step["all-gather"] > 0
+    for kind in model.values():
+        assert kind["cross_bytes"] == kind["bytes"] > 0
+    node = tp["node_group"]
+    assert {k: v["count"] for k, v in node.items()} == {"send": 4, "recv": 4, "all-reduce": 3}
+    plan = attn.tp_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, 0, 16)
+    assert tp["heads"] == plan._asdict() and plan.gather_kv  # half a kv head a rank
+
+
+def test_the_moe_tree_record_is_the_dry_runs_own():
+    """llama4-scout-17b-a16e's committed tree record equals the dry run's
+    (MoE with the shared expert, 2.5 q heads a rank), but for the host's
+    seconds."""
+    got = dryrun.run_pair("llama4-scout-17b-a16e", "train_4k", "single", q=2, fl_engine="tree")
+    want = _tree_record("llama4-scout-17b-a16e")
+    for key in ("trace_s", "wall_s"):
+        got.pop(key, None)
+        want.pop(key)
+    assert json.loads(json.dumps(got)) == want
+    assert want["tensor_parallel"]["heads"]["gather_q"]
+
+
+#: sha256 (first 16 hex digits) of the records committed before the MoE and
+#: VLM archs' tree pairs
+EARLIER_RECORDS = {
+    "dbrx-132b_decode_32k_single.json": "3e0a3c202ebae564",
+    "dbrx-132b_long_500k_single.json": "86671c0071fd74c4",
+    "dbrx-132b_prefill_32k_single.json": "24506022a08923eb",
+    "dbrx-132b_train_4k_single_sharded_fused_shardmodel_q2.json": "e823cde016ac4947",
+    "internvl2-26b_decode_32k_single.json": "64460c9482db7bc3",
+    "internvl2-26b_long_500k_single.json": "7ac2d445d003b24c",
+    "internvl2-26b_prefill_32k_single.json": "79ba416d84d31c45",
+    "internvl2-26b_train_4k_single_sharded_fused_shardmodel_q2.json": "ac0c9efe39cc535b",
+    "llama4-scout-17b-a16e_decode_32k_single.json": "fc458f83b0f65cd1",
+    "llama4-scout-17b-a16e_long_500k_single.json": "921c2d2fa5b4303d",
+    "llama4-scout-17b-a16e_prefill_32k_single.json": "9a9e32d27b7fba05",
+    "llama4-scout-17b-a16e_train_4k_single_sharded_fused_shardmodel_q2.json": "ea9ae27091bb3c1f",
+    "phi3-medium-14b_decode_32k_single.json": "57b3b2d0ddb56e5f",
+    "phi3-medium-14b_long_500k_single.json": "7efbf48eab4b470c",
+    "phi3-medium-14b_prefill_32k_single.json": "9e3049606e74e73f",
+    "phi3-medium-14b_train_4k_single_q2.json": "cb9dc16ff9cc6208",
+    "phi3-medium-14b_train_4k_single_sharded_fused_shardmodel_q2.json": "e0e44bd991919625",
+    "qwen2.5-32b_decode_32k_single.json": "56986cb64d53c96f",
+    "qwen2.5-32b_long_500k_single.json": "014c3bc803f88122",
+    "qwen2.5-32b_prefill_32k_single.json": "b1abb16caeb0c05d",
+    "qwen2.5-32b_train_4k_single_q2.json": "905707965af67ebe",
+    "qwen2.5-32b_train_4k_single_sharded_fused_shardmodel_q2.json": "d4f3f90d0020c727",
+    "recurrentgemma-2b_decode_32k_single.json": "5ba098c42a025b36",
+    "recurrentgemma-2b_long_500k_single.json": "e65dfa332a4a042a",
+    "recurrentgemma-2b_prefill_32k_single.json": "c220f6b733fd54e2",
+    "recurrentgemma-2b_train_4k_single_sharded_fused_shardmodel_q2.json": "e60bd9ddc49ec117",
+    "rwkv6-7b_decode_32k_single.json": "7176b3dac44ae8a5",
+    "rwkv6-7b_long_500k_single.json": "24dde5203b4c02cd",
+    "rwkv6-7b_prefill_32k_single.json": "5a8c24bc1e2ba482",
+    "rwkv6-7b_train_4k_single_sharded_fused_shardmodel_q2.json": "1512dc57ac249f25",
+    "smollm-360m_decode_32k_single.json": "750991a9077b3a18",
+    "smollm-360m_long_500k_single.json": "32f39b503761f11e",
+    "smollm-360m_prefill_32k_single.json": "e0619cbdc1dbcf83",
+    "smollm-360m_train_4k_single_q2.json": "6e52bdbd80d6178f",
+    "smollm-360m_train_4k_single_sharded_fused_shardmodel_q2.json": "383fcd0b08285864",
+    "tinyllama-1.1b_decode_32k_single.json": "f3199b93155783e5",
+    "tinyllama-1.1b_long_500k_single.json": "bd7253deec8e3ed2",
+    "tinyllama-1.1b_prefill_32k_single.json": "7b9447a5dc3f1b53",
+    "tinyllama-1.1b_train_4k_single_q2.json": "55c30ab442580165",
+    "tinyllama-1.1b_train_4k_single_sharded_fused_shardmodel_q2.json": "bfa255dea204fd0f",
+    "whisper-medium_decode_32k_single.json": "ee56d3beefe79061",
+    "whisper-medium_long_500k_single.json": "6045bb7a6ef480e3",
+    "whisper-medium_prefill_32k_single.json": "ef9237fb24b3293a",
+    "whisper-medium_train_4k_single_sharded_fused_shardmodel_q2.json": "01c01161a5fc83e3",
+}
+
+
+def test_the_earlier_records_are_unchanged():
+    import hashlib
+
+    names = sorted(n for n in os.listdir(OUT_DIR) if n.endswith(".json"))
+    new = {f"{arch}_train_4k_single_q2.json" for arch in TREE_MOE_VLM}
+    assert set(names) == set(EARLIER_RECORDS) | new
+    for name, digest in EARLIER_RECORDS.items():
+        with open(os.path.join(OUT_DIR, name), "rb") as f:
+            assert hashlib.sha256(f.read()).hexdigest()[:16] == digest, name
