@@ -159,9 +159,19 @@ layer (16 experts, 8 a
 rank, the shared expert split, the router and the norms replicated), its
 ``lm_loss`` as (p1), the routing compared between the ranks and with
 the whole model's; (p4) InternVL2-26B at full width, one layer, with its
-1,024 prefix embeddings, its ``lm_loss`` as (p1). Their ``tree`` rounds
-do not fit one card at full width: the CPU tests and the dry run hold
-them.
+1,024 prefix embeddings, its ``lm_loss`` as (p1); then the recurrent and
+audio families at full width (ROADMAP.md item 18b slice (iii)): (p5)
+rwkv6-7b at 2 layers and fp32 compute (the WKV-6 kernel on each rank's
+32 of 64 heads; the loss within 1e-5, the gradients within 1e-2 of their
+scale, printed beside the whole model's own one-ulp response), (p6) recurrentgemma-2b at one period (recurrent, recurrent,
+local_attention: the RG-LRU scan on each rank's 1,280 of 2,560 channels,
+the paired ``in_proj`` cut, flash on its 5 heads), (p7) whisper-medium at
+2 encoder and 2 decoder layers over 1,500 frames (flash on each rank's 8
+heads in the encoder, the decoder's self- and cross-attention), each
+``lm_loss`` / ``encdec_loss`` as (p1), each kernel's launches a rank
+counted exactly. (p3)-(p7) run the loss alone (the ``tree`` rounds of
+(p3) / (p4) do not fit one card); the CPU tests and the dry run hold
+their rounds.
 Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
@@ -504,6 +514,9 @@ SCOPE_WIRE = {(None, "dsgt"): 156_816, (None, "dsgd"): 78_408, (16, "dsgt"): 42_
               (16, "dsgd"): 21_384}
 PERSONALIZATION_WIRE = {"full": 171_072, "backbone": 156_816, "layerwise_freq4": 171_072}
 PERSONALIZATION_ROUNDS = 150
+# (s2)'s schedules and privacy specs, each on fused FD-DSGD and FD-DSGT
+SCOPE_RUNS = (("sequential", None), ("pipelined", None), ("bounded_staleness:k=2", None),
+              ("sequential", DP_SPEC))
 # a scoped run on the card against the same run on the CPU twins, the
 # per-round losses (relative)
 SCOPE_LOSS_RTOL = 1e-5
@@ -1438,7 +1451,35 @@ def _held(what: str, losses, cpu_losses, bal: float, cpu_bal: float) -> str:
     return f"loss rel {rel:.2e}, bal_acc {bal:.4f} vs {cpu_bal:.4f}"
 
 
-def large_federation_path() -> dict:
+def large_federation_train(algorithm: str, device: str, data):
+    """(L1)'s run: ``train_decentralized(engine="fused")`` of the MLP on
+    LARGE_HOSPITALS hospitals on a ring, LARGE_ROUNDS rounds at Q = 10."""
+    run = FLRunConfig(algorithm=algorithm, q=10, topology="ring", n_nodes=LARGE_HOSPITALS,
+                      batch_per_node=20, alpha0=0.02)
+    return train_decentralized(make_mlp_loss(class_weights()), mlp_init(0, device=device),
+                               run, make_node_batcher(data, m=20, seed=1),
+                               rounds=LARGE_ROUNDS, engine="fused", device=device)
+
+
+def large_gossip_errs(device: str) -> list:
+    """(L1)'s gossip stage: ``make_compressed_flat_gossip`` on a perturbed
+    init of the LARGE_HOSPITALS ring, the consensus error of each of
+    LARGE_ROUNDS rounds."""
+    n = LARGE_HOSPITALS
+    stacked = stack_for_nodes(mlp_init(0, device="cpu"), n, perturb=0.1,
+                              generator=torch.Generator().manual_seed(5))
+    flat, _ = pack(stacked, pad_to=512)
+    flat = flat.to(device)
+    gossip = make_compressed_flat_gossip(mixing_matrix("ring", n), scale_chunk=512)
+    st, errs = init_flat_compression_state(flat), []
+    for _ in range(LARGE_ROUNDS):
+        flat, st = gossip(flat, st)
+        dev = flat - flat.mean(dim=0)
+        errs.append(float((dev * dev).sum(dim=1).mean()))
+    return errs
+
+
+def large_federation_path(cpu: dict) -> dict:
     """(L1) The MLP at full width (42 -> 32 -> 2) across LARGE_HOSPITALS
     hospitals on a ring (the EHR cohort cut into that many sites, about
     40 patients each), a federation the one-pass plan refuses: FD-DSGT
@@ -1447,22 +1488,15 @@ def large_federation_path() -> dict:
     held to the same run on the host CPU's twins; then the gossip stage
     (``make_compressed_flat_gossip``) on a perturbed init of the same
     federation (``stack_for_nodes(perturb=)``), 5 rounds, two launches a
-    round, its consensus error a round against the host CPU's."""
+    round, its consensus error a round against the host CPU's (``cpu``:
+    :func:`phase3_host`'s runs)."""
     n, rounds = LARGE_HOSPITALS, LARGE_ROUNDS
     data = generate_ehr_cohort(seed=0, n_hospitals=n)
     counts = {"round_mix": 0}
-
-    def train(algorithm: str, device: str):
-        run = FLRunConfig(algorithm=algorithm, q=10, topology="ring", n_nodes=n,
-                          batch_per_node=20, alpha0=0.02)
-        return train_decentralized(make_mlp_loss(class_weights()), mlp_init(0, device=device),
-                                   run, make_node_batcher(data, m=20, seed=1), rounds=rounds,
-                                   engine="fused", device=device)
-
     for algorithm, name in (("dsgt", "fused_round_gt"), ("dsgd", "fused_round")):
         zero_counts()
         t0 = time.perf_counter()
-        res = train(algorithm, "cuda")
+        res = large_federation_train(algorithm, "cuda", data)
         card_s = time.perf_counter() - t0
         wire = kb.ROUTE_WIRES[name][0].__name__
         expect_launches(f"(L1) FD-{algorithm.upper()} at {n} hospitals",
@@ -1470,41 +1504,26 @@ def large_federation_path() -> dict:
         counts[wire] = rounds
         counts["round_mix"] += rounds
         route = kb.route_plan(name, n, res.engine.layout.total, 512, None)[0]
-        cpu = train(algorithm, "cpu")
+        cpu_losses, cpu_bal = cpu[("(L1)", algorithm)]
         note = _held(f"(L1) FD-{algorithm.upper()}", list(res.history.column("loss")),
-                     list(cpu.history.column("loss")), _bal_acc(res.consensus, data),
-                     _bal_acc(cpu.consensus, data))
+                     cpu_losses, _bal_acc(res.consensus, data), cpu_bal)
         log(f"  (L1) FD-{algorithm.upper()} on {n} hospitals ({sum(map(len, data.labels)):,} "
             f"patients), a ring, ({n}, {res.engine.layout.total}) at chunk 512, route "
             f"{route}: {rounds} {wire} + {rounds} round_mix launches in {rounds} "
             f"rounds ({card_s:.1f} s); against the host CPU: {note}")
-        del res, cpu
+        del res
 
-    w = mixing_matrix("ring", n)
-    single = mlp_init(0, device="cpu")
-    stacked = stack_for_nodes(single, n, perturb=0.1, generator=torch.Generator().manual_seed(5))
-    flat0, _ = pack(stacked, pad_to=512)
-    gossip = make_compressed_flat_gossip(w, scale_chunk=512)
-    errs = {}
-    for device in ("cuda", "cpu"):
-        zero_counts()
-        flat = flat0.to(device)
-        st = init_flat_compression_state(flat)
-        errs[device] = []
-        for _ in range(rounds):
-            flat, st = gossip(flat, st)
-            dev = flat - flat.mean(dim=0)
-            errs[device].append(float((dev * dev).sum(dim=1).mean()))
-        if device == "cuda":
-            expect_launches(f"(L1) gossip stage at {n} nodes",
-                            wire_stage_gossip=rounds, round_mix=rounds)
+    zero_counts()
+    errs = {"cuda": large_gossip_errs("cuda"), "cpu": cpu[("(L1)", "gossip")]}
+    expect_launches(f"(L1) gossip stage at {n} nodes", wire_stage_gossip=rounds,
+                    round_mix=rounds)
     rel = max(abs(a - b) / abs(b) for a, b in zip(errs["cuda"], errs["cpu"]))
     if rel > LOSS_RTOL or not errs["cuda"][-1] < errs["cuda"][0]:
         raise AssertionError(f"(L1) gossip stage: consensus errors {errs['cuda']} vs the "
                              f"host CPU's {errs['cpu']}")
     counts["wire_stage_gossip"] = rounds
     counts["round_mix"] += rounds
-    log(f"  (L1) make_compressed_flat_gossip at ({n}, {flat0.shape[1]}), a perturbed init "
+    log(f"  (L1) make_compressed_flat_gossip at {n} nodes, a perturbed init "
         f"(perturb 0.1): {rounds} wire_stage_gossip + {rounds} round_mix launches; "
         f"consensus error {errs['cuda'][0]:.4e} -> {errs['cuda'][-1]:.4e}, against the host "
         f"CPU's rel {rel:.2e}")
@@ -1840,7 +1859,7 @@ def program_w_offs(engine, rounds: int):
     return torch.stack(w_offs).cpu(), comm
 
 
-def sharded_dynamic_path(group, cpu_group) -> dict:
+def sharded_dynamic_path(group, cpu: dict) -> dict:
     """(h) The sharded engine under the programs through
     ``run_sharded_engine``, 5 rounds each at Q = 10 on the one-rank NCCL
     group: ONE wire-stage launch a round and no other gossip kernel; the
@@ -1850,7 +1869,7 @@ def sharded_dynamic_path(group, cpu_group) -> dict:
     of the replay; the loss within rtol 1e-3 of the fused engine on the
     card under the same program -- ``slow_uplink``, which the fused
     engine refuses, against the same sharded run on the CPU, its
-    ``wire_bytes_effective`` equal."""
+    ``wire_bytes_effective`` equal (``cpu``: :func:`phase3_host`'s)."""
     launches = {}
     for label, algorithm, schedule, topk, axes in SHARDED_DYNAMIC_RUNS:
         wires = 2 if algorithm == "dsgt" else 1
@@ -1875,11 +1894,7 @@ def sharded_dynamic_path(group, cpu_group) -> dict:
                 f"{label}: {eng.collectives} all-gathers of {eng.collective_bytes} B, "
                 f"wire {out['wire_bytes']} B/round")
         card_w, card_comm = program_w_offs(eng, SHARDED_ROUNDS)
-        cpu_eng, _ = ShardedFusedEngine.from_group(
-            cpu_group, stack_for_nodes(mlp_init(0, device="cpu"), 20),
-            w=mixing_matrix("hospital20", 20), scale_chunk=512, topk=topk,
-            round_schedule=schedule, **axes)
-        cpu_w, _ = program_w_offs(cpu_eng, SHARDED_ROUNDS)
+        cpu_w = cpu[label]["w"]
         run_comm = out["state"].comm
         same_counters = all(torch.equal(run_comm[k], card_comm[k])
                             for k in ("topo_round", "topo_up") if k in card_comm)
@@ -1887,10 +1902,8 @@ def sharded_dynamic_path(group, cpu_group) -> dict:
                 same_counters):
             raise AssertionError(f"{label}: W_off not the CPU's ({same_counters})")
         if "node_program" in axes and axes["node_program"].startswith("slow_uplink"):
-            cpu = run_sharded_engine(cpu_group, **kw)
-            losses = cpu["losses"]
+            losses, want_eff = cpu[label]["losses"], cpu[label]["effective"]
             eff = float(out["metrics"]["wire_bytes_effective"])
-            want_eff = float(cpu["metrics"]["wire_bytes_effective"])
             if eff != want_eff or not eff < out["wire_bytes"]:
                 raise AssertionError(f"{label}: effective bytes {eff} vs {want_eff}")
             note = (f"wire_bytes_effective {eff:,.0f} of {out['wire_bytes']:,.0f} B "
@@ -1911,13 +1924,13 @@ def sharded_dynamic_path(group, cpu_group) -> dict:
     return launches
 
 
-def privacy_fused_path() -> dict:
+def privacy_fused_path(cpu: dict) -> dict:
     """(i) The fused engine under ``dp:sigma=0.5,clip=1.0``, 5 rounds at
     Q = 10: FD-DSGT through ``run_fused_engine``, FD-DSGD through the
     library's entry points; one round-kernel launch a round; the losses
     within 1e-3 relative of the same run on the CPU twins; ``dp_epsilon``
     the analytic bound within fp32 rounding; ``secure_agg`` added, the
-    run bitwise its unmasked twin."""
+    run bitwise its unmasked twin (``cpu``: :func:`phase3_host`'s)."""
     rounds, launches = SHARDED_ROUNDS, {}
     for algorithm, kernel in (("dsgt", "fused_round_gt"), ("dsgd", "fused_round")):
         runs = {}
@@ -1932,12 +1945,7 @@ def privacy_fused_path() -> dict:
                 runs[spec] = (losses, {"flat": state.params}, float(m["dp_epsilon"]))
             expect_launches(f"fused {algorithm.upper()} {spec}", **{kernel: rounds})
             launches[kernel] = launches.get(kernel, 0) + rounds
-        if algorithm == "dsgt":
-            cpu = run_fused_engine(rounds=rounds, q=10, privacy=DP_SPEC, device="cpu")
-            cpu_losses = cpu["losses"]
-        else:
-            cpu_losses = fused_oracle("dsgd", "sequential", None, rounds, device="cpu",
-                                      privacy=DP_SPEC)[1]
+        cpu_losses = cpu[("(i)", algorithm)]
         losses, params, eps = runs[DP_SPEC]
         m_losses, m_params, m_eps = runs["secure_agg+" + DP_SPEC]
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
@@ -2147,7 +2155,7 @@ def _private_untouched(what: str, engine, start, state) -> None:
         raise AssertionError(f"{what}: the shared columns never mixed")
 
 
-def scope_paths(group) -> dict:
+def scope_paths(group, cpu: dict) -> dict:
     """The federation scope on the card. (s1) The personalization driver
     uncut (3 cells x 150 rounds at Q = 10, chunk 128): 450
     ``fused_round_gt`` launches, the bytes exactly the JSON's, each
@@ -2166,7 +2174,8 @@ def scope_paths(group) -> dict:
     under the backbone scope, dense int8 and top-16: one wire-stage
     launch a round, the scoped wire's all-gathers and bytes, the losses
     within rtol 1e-3 of the fused engine, the dense wire's params within
-    1e-5 after one round."""
+    1e-5 after one round. The CPU runs of (s1)-(s3) are
+    :func:`phase3_host`'s (``cpu``)."""
     launches = {}
 
     def count(kernel, n):
@@ -2181,11 +2190,9 @@ def scope_paths(group) -> dict:
     expect_launches("(s1) personalization driver", fused_round_gt=rounds)
     count("fused_round_gt", rounds)
     card_s = time.perf_counter() - t0
-    cpu = personalization_ehr.run(PERSONALIZATION_ROUNDS, 10, device="cpu", init_params=init,
-                                  log=False)
     with open(os.path.join(ROOT, "experiments", "personalization_ehr.json")) as f:
         json_rows = {r["name"]: r for r in json.load(f)["rows"]}
-    for row, c in zip(rec["rows"], cpu["rows"]):
+    for row, c in zip(rec["rows"], cpu["(s1)"]):
         ref = json_rows[row["name"]]
         gap = abs(row["bal_acc_per_hospital_mean"] - c["bal_acc_per_hospital_mean"])
         if (row["wire_bytes_per_round"] != PERSONALIZATION_WIRE[row["name"]]
@@ -2205,8 +2212,7 @@ def scope_paths(group) -> dict:
     kernels = {("dsgd", False): "fused_round", ("dsgt", False): "fused_round_gt",
                ("dsgd", True): "wire_stage", ("dsgt", True): "wire_stage_gt"}
     for algorithm in ("dsgd", "dsgt"):
-        for schedule, privacy in (("sequential", None), ("pipelined", None),
-                                  ("bounded_staleness:k=2", None), ("sequential", DP_SPEC)):
+        for schedule, privacy in SCOPE_RUNS:
             kernel = kernels[(algorithm, schedule.startswith("bounded"))]
             label = (f"(s2) fused FD-{algorithm.upper()} backbone {schedule}"
                      + (f" {privacy}" if privacy else ""))
@@ -2220,7 +2226,7 @@ def scope_paths(group) -> dict:
                                               privacy=privacy)
             expect_launches(label, **{kernel: SCOPE_ROUNDS})
             count(kernel, 2 * SCOPE_ROUNDS)
-            cpu_losses = scoped_run("cpu", algorithm, schedule, "backbone", privacy=privacy)[3]
+            cpu_losses = cpu[("(s2)", algorithm, schedule, privacy)]
             rel = _rel(label, losses, cpu_losses, SCOPE_LOSS_RTOL)
             if m["wire_bytes"] != SCOPE_WIRE[(None, algorithm)]:
                 raise AssertionError(f"{label}: wire {m['wire_bytes']}")
@@ -2243,8 +2249,7 @@ def scope_paths(group) -> dict:
     _, _, _, losses, m = scoped_run("cuda", "dsgt", "sequential", "layerwise:freq=4", rounds=8)
     expect_launches(label, fused_round_gt=8)
     count("fused_round_gt", 12)
-    rel = _rel(label, losses, scoped_run("cpu", "dsgt", "sequential", "layerwise:freq=4",
-                                         rounds=8)[3], SCOPE_LOSS_RTOL)
+    rel = _rel(label, losses, cpu["(s3)"], SCOPE_LOSS_RTOL)
     if m["wire_bytes"] != PERSONALIZATION_WIRE["layerwise_freq4"]:
         raise AssertionError(f"{label}: wire {m['wire_bytes']}")
     log(f"  {label}: 4 + 8 fused_round_gt launches; zero gradient: the head bitwise its init "
@@ -4758,10 +4763,23 @@ def dryrun_phase(measured: dict, started: tuple) -> None:
 # previous gradient and gradient and packs each tree into one buffer to mix
 # it (InternVL2's whole-model round ran out of memory on an H100 80GB at 72
 # GB allocated: the vocab tables are 4.6 of its 6.1 GB a node); the CPU
-# tests and the dry run hold those rounds
+# tests and the dry run hold those rounds. The recurrent and audio families
+# at full width, cut in depth (whole in fp32: about 3.8, 6.3 and 0.6 GB):
+# (p5) rwkv6-7b, 2 layers, fp32 compute (its gradients are held at fp32:
+# in bf16 they are ill-conditioned, ROADMAP.md queue 3), the WKV-6 kernel
+# on the rank's 32 of 64 heads; (p6) recurrentgemma-2b, one period
+# (recurrent, recurrent, local_attention), bf16, the RG-LRU scan on the
+# rank's 1,280 of 2,560 channels and flash on the rank's 5 q heads (its one
+# kv head cut: tp_head_plan's gather); (p7) whisper-medium, 2 encoder and
+# 2 decoder layers over 1,500 frames, bf16, flash on the rank's 8 of 16
+# heads in the encoder, the decoder's self- and cross-attention
 TP_ARCH, TP_SHARDS, TP_BATCH, TP_SEQ = "smollm-360m", 2, 8, 128
 TP_MOE_ARCH, TP_VLM_ARCH, TP_DEPTH = "llama4-scout-17b-a16e", "internvl2-26b", 1
+#: (label, arch, depth, compute dtype) of the recurrent and audio cells
+TP_RECURRENT = (("(p5)", "rwkv6-7b", 2, "float32"), ("(p6)", "recurrentgemma-2b", 3, ""),
+                ("(p7)", "whisper-medium", 2, ""))
 TP_FLAGS = ["--arch", TP_ARCH, f"{TP_MOE_ARCH}:{TP_DEPTH}", f"{TP_VLM_ARCH}:{TP_DEPTH}",
+            *(f"{arch}:{depth}:{dtype}" for _, arch, depth, dtype in TP_RECURRENT),
             "--shards", str(TP_SHARDS), "--backend", "gloo", "--compute-dtype", "bfloat16",
             "--batch", str(TP_BATCH), "--seq-len", str(TP_SEQ)]
 # the card's bf16 tolerances (PERF.md section 2): a loss within 1e-2
@@ -4769,21 +4787,34 @@ TP_FLAGS = ["--arch", TP_ARCH, f"{TP_MOE_ARCH}:{TP_DEPTH}", f"{TP_VLM_ARCH}:{TP_
 # parameter updates and metrics as the gradients; a bf16 routing choice
 # may differ from the whole model's only on a near-tie (ZOO_TIE_MARGIN)
 TP_LOSS_RTOL, TP_GRAD_TOL = 1e-2, 5e-2
+# fp32 compute ((p5)): the loss within 1e-5 relative, the gradients within
+# 1e-2 of each leaf's scale. RWKV6's fp32 gradients are ill-conditioned (a
+# head's first output is the rank-one bonus, which its RMS norm divides
+# by): at 2 layers of full width the group's gradients sat 3.6e-3 of their
+# scale from the whole model's (an H100 80GB HBM3 at 700 W), which the
+# cell prints beside the whole model's own change when its embedding moves
+# by one ulp (``lm_case(ulp=True)``)
+TP_FP32_LOSS_RTOL, TP_FP32_GRAD_TOL = 1e-5, 1e-2
 
 
 def _gb(peaks: list) -> str:
     return " / ".join(f"{p / 1e9:.1f}" for p in peaks) + " GB"
 
 
-def check_tp_lm(label: str, arch: str, lm: dict) -> int:
+def check_tp_lm(label: str, arch: str, lm: dict, fp32: bool = False) -> dict:
     """One ``lm_case`` of the group against the whole model: the loss, the
-    reassembled gradients, the replicated leaves bitwise equal on both
-    ranks, the collectives against ``expected_collectives``, the flash
-    launches (2 a layer a rank under remat) and, for an MoE, the routing
-    (the same on both ranks; a choice unlike the whole model's own only on
-    a near-tie; the whole model takes the group's choices, so the loss and
-    gradients compare the layers). Returns the flash launches."""
+    reassembled gradients (at bf16's tolerances, or fp32's), the
+    replicated leaves bitwise equal on both ranks, the collectives against
+    ``expected_collectives``, each kernel's launches a rank against
+    ``expected_launches`` (flash 2 an attention layer under remat, WKV-6 2
+    an RWKV6 layer, the RG-LRU scan 2 a recurrent block; whisper's
+    encoder 1 a layer) and, for an MoE, the routing (the same on both
+    ranks; a choice unlike the whole model's own only on a near-tie; the
+    whole model takes the group's choices, so the loss and gradients
+    compare the layers). Returns each kernel's launches, both ranks'."""
     layers = lm["layers"]
+    loss_tol, grad_tol = (TP_FP32_LOSS_RTOL, TP_FP32_GRAD_TOL) if fp32 else (TP_LOSS_RTOL,
+                                                                             TP_GRAD_TOL)
     rel = abs(lm["loss"] - lm["whole_loss"]) / abs(lm["whole_loss"])
     routing = lm["routing"]
     errs = lm["grad_errs"]
@@ -4792,12 +4823,16 @@ def check_tp_lm(label: str, arch: str, lm: dict) -> int:
         f"vs the whole model's {lm['whole_loss']:.6f} (rel {rel:.2e}); gradients "
         f"reassembled from the shards within {errs[worst]:.2e} of their scale "
         f"(worst {worst}); replicated leaves bitwise equal on both ranks: "
-        f"{lm['replicated_equal']}")
-    log(f"  {label} model group: {lm['counts']} (expected {lm['expected']}); flash "
-        f"launches a rank {lm['flash_launches']} (2 x {layers} under remat); "
+        f"{lm['replicated_equal']}"
+        + (f"; the whole model's gradients move {lm['ulp_response']:.2e} of their scale "
+           "when its embedding moves by one ulp" if "ulp_response" in lm else ""))
+    launched = {k: v for k, v in lm["launches"].items() if any(v)}
+    want = {k: [n] * TP_SHARDS for k, n in lm["expected_launches"].items() if n}
+    log(f"  {label} model group: {lm['counts']} (expected {lm['expected']}); launches a "
+        f"rank {launched} (expected {want}); "
         f"{lm['tp_s']:.2f} s on the group, {lm['whole_s']:.2f} s whole; peak a process "
         f"{_gb(lm['peak_bytes'])} [{card_line()}]")
-    if rel > TP_LOSS_RTOL or errs[worst] > TP_GRAD_TOL:
+    if rel > loss_tol or errs[worst] > grad_tol:
         raise AssertionError(f"{label} the tensor-parallel loss or gradients drift from the "
                              f"whole model's: {lm}")
     if not lm["replicated_equal"]:
@@ -4805,9 +4840,8 @@ def check_tp_lm(label: str, arch: str, lm: dict) -> int:
     if lm["counts"] != {k: v for k, v in lm["expected"].items() if v}:
         raise AssertionError(f"{label} model group collectives {lm['counts']}, expected "
                              f"{lm['expected']}")
-    if lm["flash_launches"] != [2 * layers] * TP_SHARDS:
-        raise AssertionError(f"{label} flash launches {lm['flash_launches']}, expected "
-                             f"{2 * layers} a rank")
+    if launched != want:
+        raise AssertionError(f"{label} launches {launched}, expected {want}")
     if routing is not None:
         flips = routing["flip_margins"]
         log(f"  {label} routing: {routing['calls']} calls the same on both ranks: "
@@ -4817,13 +4851,14 @@ def check_tp_lm(label: str, arch: str, lm: dict) -> int:
                f"{[round(m, 6) for m in flips[:8]]}" if flips else "no flip"))
         if not routing["ranks_equal"] or (flips and max(flips) >= ZOO_TIE_MARGIN):
             raise AssertionError(f"{label} routing: {routing}")
-    return sum(lm["flash_launches"])
+    return {k: sum(v) for k, v in launched.items()}
 
 
-def check_tp_round(label: str, arch: str, rnd: dict) -> int:
+def check_tp_round(label: str, arch: str, rnd: dict) -> dict:
     """One ``round_case`` of the group against the whole-model round: the
     metrics' and the parameter updates' gaps, the replicated leaves, the
-    flash launches (2 a layer, node and step). Returns the flash launches."""
+    flash launches (2 a layer, node and step). Returns the flash launches,
+    both ranks'."""
     layers = rnd["layers"]
     m, w = rnd["metrics"], rnd["whole_metrics"]
     gaps = {k: abs(m[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm_sq",
@@ -4832,24 +4867,26 @@ def check_tp_round(label: str, arch: str, rnd: dict) -> int:
     log(f"  {label} {arch} tree round, 2 nodes x {TP_SHARDS} shards, Q 1: loss "
         f"{m['loss']:.6f} vs {w['loss']:.6f}, relative gaps "
         f"{json.dumps({k: float(f'{v:.2e}') for k, v in gaps.items()})}, parameter updates "
-        f"within {upd:.2e} of their scale; flash launches a rank {rnd['flash_launches']} "
+        f"within {upd:.2e} of their scale; flash launches a rank "
+        f"{rnd['launches']['flash_attention']} "
         f"(2 x {layers} x 2 nodes); {rnd['tp_s']:.2f} s on the group, {rnd['whole_s']:.2f} "
         f"s whole; peak a process {_gb(rnd['peak_bytes'])} [{card_line()}]")
     if max(gaps.values()) > TP_GRAD_TOL or upd > TP_GRAD_TOL or not rnd["replicated_equal"]:
         raise AssertionError(f"{label} the tensor-parallel tree round drifts from the whole "
                              f"model's: {rnd}")
-    if rnd["flash_launches"] != [4 * layers] * TP_SHARDS:
-        raise AssertionError(f"{label} flash launches {rnd['flash_launches']}, expected "
-                             f"{4 * layers} a rank")
-    return sum(rnd["flash_launches"])
+    if rnd["launches"] != {"flash_attention": [4 * layers] * TP_SHARDS,
+                           "wkv6": [0] * TP_SHARDS, "rglru_scan": [0] * TP_SHARDS}:
+        raise AssertionError(f"{label} launches {rnd['launches']}, expected "
+                             f"{4 * layers} flash a rank")
+    return {"flash_attention": sum(rnd["launches"]["flash_attention"])}
 
 
 def tensor_parallel_phase() -> dict:
-    """(p1)-(p4) in one ``benchmarks/tensor_parallel`` process, whose two
+    """(p1)-(p7) in one ``benchmarks/tensor_parallel`` process, whose two
     ranks are spawned processes on the card: each holds its shard (drawn
     whole from one seed on the card, then cut) and runs the
-    tensor-parallel path, then the whole model runs alone. Returns the
-    flash launches of both ranks."""
+    tensor-parallel path, then the whole model runs alone. Returns each
+    kernel's launches, both ranks'."""
     torch.cuda.empty_cache()
     log(f"  this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB of the card "
         f"({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved) beside the group")
@@ -4862,13 +4899,19 @@ def tensor_parallel_phase() -> dict:
         raise AssertionError(f"the model group exited {proc.returncode}: "
                              f"{proc.stderr[-3000:]}")
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    launches = (check_tp_lm("(p1)", TP_ARCH, res[TP_ARCH]["lm"])
-                + check_tp_round("(p2)", TP_ARCH, res[TP_ARCH]["round"])
-                + check_tp_lm("(p3)", TP_MOE_ARCH, res[TP_MOE_ARCH]["lm"])
-                + check_tp_lm("(p4)", TP_VLM_ARCH, res[TP_VLM_ARCH]["lm"]))
+    cells = [check_tp_lm("(p1)", TP_ARCH, res[TP_ARCH]["lm"]),
+             check_tp_round("(p2)", TP_ARCH, res[TP_ARCH]["round"]),
+             check_tp_lm("(p3)", TP_MOE_ARCH, res[TP_MOE_ARCH]["lm"]),
+             check_tp_lm("(p4)", TP_VLM_ARCH, res[TP_VLM_ARCH]["lm"])]
+    cells += [check_tp_lm(label, arch, res[arch]["lm"], fp32=dtype == "float32")
+              for label, arch, _, dtype in TP_RECURRENT]
+    launches = {}
+    for cell in cells:
+        for name, count in cell.items():
+            launches[name] = launches.get(name, 0) + count
     log(f"  tensor parallelism: {time.perf_counter() - t0:.1f} s (the group's own "
         f"{res['seconds']:.1f} s)")
-    return {"flash_attention": launches}
+    return launches
 
 
 def ptxas_summary(lib) -> str:
@@ -4927,11 +4970,57 @@ def host_references() -> dict:
 HOST_REF_THREADS = 5
 
 
+def phase3_host() -> dict:
+    """The host CPU's halves of phase 3's comparisons, which need nothing
+    of the card: (h) each run's realized W_off replayed by the sharded
+    engine on a one-rank gloo group, and ``slow_uplink``'s run there; (i)
+    the dp runs on the CPU twins; (L1) the two 256-hospital runs and the
+    gossip stage; (s1) the personalization driver; (s2) / (s3) the scoped
+    runs. Keyed by path and run, each value what the card half compares."""
+    out = {}
+    group = start_group(0, 1, os.path.join(tempfile.mkdtemp(), "store"), device="cpu")
+    try:
+        for label, algorithm, schedule, topk, axes in SHARDED_DYNAMIC_RUNS:
+            eng, _ = ShardedFusedEngine.from_group(
+                group, stack_for_nodes(mlp_init(0, device="cpu"), 20),
+                w=mixing_matrix("hospital20", 20), scale_chunk=512, topk=topk,
+                round_schedule=schedule, **axes)
+            out[label] = {"w": program_w_offs(eng, SHARDED_ROUNDS)[0]}
+            if axes.get("node_program", "").startswith("slow_uplink"):
+                run = run_sharded_engine(group, rounds=SHARDED_ROUNDS, q=10,
+                                         algorithm=algorithm, topk=topk,
+                                         fl_schedule=schedule, log=False, **axes)
+                out[label].update(losses=run["losses"], effective=float(
+                    run["metrics"]["wire_bytes_effective"]))
+    finally:
+        stop_group(group)
+    out[("(i)", "dsgt")] = run_fused_engine(rounds=SHARDED_ROUNDS, q=10, privacy=DP_SPEC,
+                                            device="cpu")["losses"]
+    out[("(i)", "dsgd")] = fused_oracle("dsgd", "sequential", None, SHARDED_ROUNDS,
+                                        device="cpu", privacy=DP_SPEC)[1]
+    data = generate_ehr_cohort(seed=0, n_hospitals=LARGE_HOSPITALS)
+    for algorithm in ("dsgt", "dsgd"):
+        res = large_federation_train(algorithm, "cpu", data)
+        out[("(L1)", algorithm)] = (list(res.history.column("loss")),
+                                    _bal_acc(res.consensus, data))
+    out[("(L1)", "gossip")] = large_gossip_errs("cpu")
+    out["(s1)"] = personalization_ehr.run(PERSONALIZATION_ROUNDS, 10, device="cpu",
+                                          init_params=mlp_init(0, device="cpu"),
+                                          log=False)["rows"]
+    for algorithm in ("dsgd", "dsgt"):
+        for schedule, privacy in SCOPE_RUNS:
+            out[("(s2)", algorithm, schedule, privacy)] = scoped_run(
+                "cpu", algorithm, schedule, "backbone", privacy=privacy)[3]
+    out["(s3)"] = scoped_run("cpu", "dsgt", "sequential", "layerwise:freq=4", rounds=8)[3]
+    return out
+
+
 def _host_references_process(requests, replies) -> None:
-    """The host references' process. First the host CPU's halves of (t1),
-    (z2) and (z3), kept here, at a lower priority than the card's process
-    (it would otherwise slow phases 2-3), then ``("host", seconds of
-    each)``; then, for each request ``"t1"``, ``"z2"`` or ``"z3"`` (the
+    """The host references' process, at a lower priority than the card's
+    process (it would otherwise slow phases 2-3). First phase 3's host
+    halves (:func:`phase3_host`), handed over as ``("phase3", them)``;
+    then the host CPU's halves of (t1), (z2) and (z3), kept here, then
+    ``("host", seconds of each)``; then, for each request ``"t1"``, ``"z2"`` or ``"z3"`` (the
     card's process waiting meanwhile), that path's card half and its
     comparisons, and ``(name, its launches)``. A failure replies ``(name,
     None, the traceback)``; None ends it."""
@@ -4942,8 +5031,13 @@ def _host_references_process(requests, replies) -> None:
              for arch, depth, dtypes in GRAD_MODELS]
             + [(("z2", arch), z2_host, (arch,)) for arch in ZOO_CPU]
             + [(("z3", arch), z3_host, (arch,)) for arch in ZOO_GRAD])
-    name = "host"
+    name = "phase3"
     try:
+        t0 = time.perf_counter()
+        p3 = phase3_host()
+        seconds["phase 3's references"] = time.perf_counter() - t0
+        replies.put((name, p3, None))
+        name = "host"
         for key, fn, args in jobs:
             t0 = time.perf_counter()
             host[key] = fn(*args)
@@ -4972,12 +5066,14 @@ def _card_half(name: str, host: dict) -> dict:
 
 
 class HostReferences:
-    """(t1), (z2) and (z3) in a process of their own: the host CPU's halves
-    beside phases 2 and 3 (they need no kernel: the same seeded weights --
-    drawn by the card's generator a leaf at a time and moved to the host
-    -- and the same tokens), each card half and its comparison when
-    phases 5 and 6 ask for it (:meth:`run`). ``wait`` before phase 4 keeps
-    the host halves out of its timings."""
+    """The host CPU's references in a process of their own, beside phases
+    2 and 3: phase 3's (:func:`phase3_host`, handed over when phase 3
+    asks, :meth:`phase3`), then the host halves of (t1), (z2) and (z3)
+    (they need no kernel: the same seeded weights -- drawn by the card's
+    generator a leaf at a time and moved to the host -- and the same
+    tokens), whose card halves and comparisons run in the process when
+    phases 5 and 6 ask for them (:meth:`run`). ``wait`` before phase 4
+    keeps the host halves out of its timings."""
 
     def __init__(self):
         ctx = torch.multiprocessing.get_context("spawn")
@@ -4999,6 +5095,12 @@ class HostReferences:
         if out is None or got != name:
             raise AssertionError(f"the host references' {got}:\n{error}")
         return out
+
+    def phase3(self) -> tuple:
+        """Phase 3's host halves (:func:`phase3_host`) and the seconds
+        waited for them."""
+        t0 = time.perf_counter()
+        return self._reply("phase3"), time.perf_counter() - t0
 
     def wait(self) -> float:
         """The host halves' end; the seconds waited."""
@@ -5074,17 +5176,21 @@ def main() -> int:
     launches.update(sharded_path(group))
     sharded_quadratic(group)
     section("  -- the sharded dynamic round (h) and the privacy axis (i)-(k)")
+    cpu, waited = refs.phase3()
+    log(f"  phase 3's host references came from the host references' process (waited "
+        f"{waited:.1f} s)")
     cpu_group = NodeGroup(dist.new_group(backend="gloo"), 0, 1, torch.device("cpu"))
-    for counts in (sharded_dynamic_path(group, cpu_group), privacy_fused_path(),
+    for counts in (sharded_dynamic_path(group, cpu), privacy_fused_path(cpu),
                    privacy_driver_path(), sharded_dp_path(group)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     section("  -- (L1) a federation past the one-pass plan, (L2) item 9's knobs")
-    for counts in (large_federation_path(), wire_knob_paths(group, cpu_group)):
+    for counts in (large_federation_path(cpu), wire_knob_paths(group, cpu_group)):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     section("  -- the federation scope (s1)-(s4), checkpoints and snapshots")
-    for counts in (scope_paths(group), checkpoint_paths(group), snapshot_serving_path()):
+    for counts in (scope_paths(group, cpu), checkpoint_paths(group),
+                   snapshot_serving_path()):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     section("  -- serving SmolLM-360M")
@@ -5244,7 +5350,7 @@ def main() -> int:
     torus = torus_and_two_axis(card)
     for name, count in torus["launches"].items():
         launches[name] = launches.get(name, 0) + count
-    phase("phase 9: the dry run (r1), (r2) on the host beside tensor parallelism (p1)-(p4) "
+    phase("phase 9: the dry run (r1), (r2) on the host beside tensor parallelism (p1)-(p7) "
           "on a model group of two ranks sharing the card (launches counted per rank)")
     dryruns = start_dryruns()
     for name, count in tensor_parallel_phase().items():

@@ -20,8 +20,8 @@ bytes. Also MODEL_FLOPS = 6 N D (train; 2 N D serving; N the active
 parameters, D the tokens) and the usefulness ratio MODEL_FLOPS / the
 counted FLOPs of all ranks, the dominant term and its lever. The
 ``tree`` train pairs (tensor-parallel layers and the expert-parallel MoE
-on the ``(node, model)`` layout: the dense, VLM and MoE families) get a
-table of their own, each beside its arch's two-axis pair.
+on the ``(node, model)`` layout, every family) get a table of their
+own, each beside its arch's two-axis pair.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.roofline [--mesh single] [--json]
 """

@@ -7,11 +7,10 @@ JSON under ``experiments/dryrun_torch/`` -- re-runs skip completed pairs
 unless ``--force``; the reference's ``experiments/dryrun/`` is not
 touched. Train pairs run the two-axis round, ``--fl-engine sharded_fused
 --fl-shard-model``, at Q = 2 by default, the Q of the reference's
-committed two-axis records; the dense, VLM and MoE families'
-(``TREE_ARCHS``) also run the reference's default, ``--fl-engine tree``,
-on the ``(node, model)`` layout with tensor-parallel layers (ROADMAP.md
-queue 1, item 18b slices (i) and (ii); the reference's file name, no
-engine suffix). Exit code is nonzero if any pair fails.
+committed two-axis records; every arch (``TREE_ARCHS``) also runs the
+reference's default, ``--fl-engine tree``, on the ``(node, model)``
+layout with tensor-parallel layers (ROADMAP.md queue 1, item 18b slices
+(i)-(iii); the reference's file name, no engine suffix). Exit code is nonzero if any pair fails.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run_dryruns
       [--mesh single|multi|both] [--arch ARCH ...] [--shape SHAPE ...]
@@ -52,10 +51,11 @@ SHAPE_NAMES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
 #: tensor-parallel ``tree`` round
 TRAIN_FLAGS = {"sharded_fused": ["--fl-engine", "sharded_fused", "--fl-shard-model"],
                "tree": ["--fl-engine", "tree"]}
-#: the archs whose train pair also runs ``tree`` (tensor-parallel dense and
-#: VLM layers, expert-parallel MoE)
+#: the archs whose train pair also runs ``tree`` (tensor-parallel layers,
+#: expert-parallel MoE): every one
 TREE_ARCHS = ["smollm-360m", "tinyllama-1.1b", "phi3-medium-14b", "qwen2.5-32b",
-              "dbrx-132b", "llama4-scout-17b-a16e", "internvl2-26b"]
+              "dbrx-132b", "llama4-scout-17b-a16e", "internvl2-26b", "rwkv6-7b",
+              "recurrentgemma-2b", "whisper-medium"]
 
 
 def pair_argv(arch: str, shape: str, mesh: str, q: int,

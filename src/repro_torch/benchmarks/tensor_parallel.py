@@ -1,6 +1,7 @@
-"""The tensor-parallel layers of the dense, VLM and MoE families on a
-model group, held to the whole model (ROADMAP.md queue 1, item 18b
-slices (i) and (ii), and ``tree`` on the ``(node, model)`` layout).
+"""The tensor-parallel layers of every family on a model group, held to
+the whole model (ROADMAP.md queue 1, item 18b slices (i)-(iii): the
+dense, VLM and MoE families, RWKV6 and RecurrentGemma, whisper's
+encoder-decoder; and ``tree`` on the ``(node, model)`` layout).
 
 Each check runs as one group of ranks (``launch.mesh.run_group``); every
 rank draws the same whole parameters from a seed (or takes a given
@@ -9,16 +10,20 @@ tensor-parallel path; rank 0 also runs the whole model and compares:
 
   * :func:`layer_cases` -- each layer alone (column- and row-parallel
     ``linear``, the vocab-parallel embedding, attention, the SwiGLU, an
-    MoE arch's expert-parallel MoE, the chunked loss, and for a VLM a
-    chunk of prefix positions only) against the same layer run whole on
-    the same inputs, forward and gradients (every rank compares its own
-    shard; the worst over the ranks is kept);
-  * :func:`lm_case` -- ``lm_loss`` forward and backward of the stack: the
-    loss and the gradients reassembled from the shards against the whole
-    model's, the replicated leaves' gradients compared across the ranks,
-    an MoE's routing compared across the ranks and with the whole
-    model's, the model group's collectives counted
-    (``launch.op_analysis``) and the flash kernel's launches;
+    MoE arch's expert-parallel MoE, RWKV6's time and channel mix, the
+    RG-LRU block, whisper's encoder attention, cross-attention and GELU
+    MLP, the chunked loss, and for a VLM a chunk of prefix positions
+    only) against the same layer run whole on the same inputs, forward
+    and gradients (every rank compares its own shard; the worst over the
+    ranks is kept), the replicated leaves' gradients compared across the
+    ranks;
+  * :func:`lm_case` -- ``lm_loss`` (``encdec_loss`` for whisper) forward
+    and backward of the stack: the loss and the gradients reassembled
+    from the shards against the whole model's, the replicated leaves'
+    gradients compared across the ranks, an MoE's routing compared
+    across the ranks and with the whole model's, the model group's
+    collectives counted (``launch.op_analysis``) and the kernels'
+    launches (flash, WKV-6, the RG-LRU scan);
   * :func:`round_case` -- an FD-DSGT round of the ``tree`` engine on the
     ``(node, model)`` layout (``TreeEngine.from_group``) against the same
     round of the whole model on one device (``TreeEngine.simulated`` on
@@ -32,16 +37,20 @@ in turn): in ``lm_case`` on each rank in turn, each comparing its own
 shard; in ``round_case`` on rank 0, the shards coming back to it a leaf
 at a time (:func:`collect_tiles`). The command line runs, for each ``--arch``,
 :func:`lm_case` and then one :func:`round_case` at Q = 1 on 2 nodes, or
-for an ``ARCH:DEPTH``, :func:`lm_case` alone at DEPTH layers of the arch's
-full width (the card's check; one JSON line).
+for an ``ARCH:DEPTH[:DTYPE]``, :func:`lm_case` alone at DEPTH layers of
+the arch's full width (whisper: DEPTH encoder and DEPTH decoder layers),
+at DTYPE compute if given (the card's check; one JSON line).
 
 Numbers are max |tp - whole| over the leaf's (or the output's) max
-|whole|. On the card a model group of two processes shares the one card
-over gloo (``backend="gloo"``: NCCL refuses two ranks on a device).
+|whole| (a key projection's bias without RoPE: over its block's value
+bias's, :func:`_key_bias_scale`). On the card a model group of two
+processes shares the one card over gloo (``backend="gloo"``: NCCL
+refuses two ranks on a device).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.tensor_parallel --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.benchmarks.tensor_parallel --backend gloo \\
-      --arch smollm-360m llama4-scout-17b-a16e:1 internvl2-26b:1
+      --arch smollm-360m llama4-scout-17b-a16e:1 internvl2-26b:1 rwkv6-7b:2:float32 \\
+      recurrentgemma-2b:3 whisper-medium:2
 """
 
 from __future__ import annotations
@@ -66,14 +75,21 @@ from repro_torch.core.packing import tree_leaves, tree_unflatten
 from repro_torch.core.schedules import inv_sqrt
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.kernels.rwkv6_scan.ops import wkv6
 from repro_torch.launch.mesh import run_group
 from repro_torch.launch.op_analysis import op_analysis
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.sharding import (
+    cut_leaf,
+    join_leaf,
     model_param_specs,
     shard_params,
     spec_dict,
@@ -89,7 +105,7 @@ from repro_torch.models.tensor_parallel import (
 from repro_torch.training.trainer import stack_for_nodes
 
 __all__ = ["layer_cases", "lm_case", "round_case", "engine_case", "cases", "CASES",
-           "model_group_counts", "expected_collectives", "collect_tiles",
+           "model_group_counts", "expected_collectives", "expected_launches", "collect_tiles",
            "replicated_equal", "RouteLog", "routing_summary", "main"]
 
 
@@ -101,9 +117,12 @@ ALPHA0 = 0.05
 
 def _cfg(arch: str, compute_dtype: str, smoke: bool = False, depth: Optional[int] = None):
     """The arch's config (or its reduced one) at ``compute_dtype`` and, with
-    ``depth``, that many layers at its full width."""
+    ``depth``, that many layers (an encoder's too) at its full width."""
     cfg = dataclasses.replace(get_config(arch, smoke=smoke), compute_dtype=compute_dtype)
-    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+    if depth is None:
+        return cfg
+    encoder = cfg.encoder and dataclasses.replace(cfg.encoder, n_layers=depth)
+    return dataclasses.replace(cfg, n_layers=depth, encoder=encoder)
 
 
 def _whole(cfg, device, params_np=None) -> Dict:
@@ -111,12 +130,23 @@ def _whole(cfg, device, params_np=None) -> Dict:
     or drawn from :data:`SEED` on the device (every rank draws the same)."""
     if params_np is not None:
         return model_params_from_numpy(params_np, cfg, device)
-    return tfm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    return build_model(cfg).init_fn(torch.Generator(device=device).manual_seed(SEED), device)
 
 
-def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
-    scale = float(want.detach().float().abs().max())
+def _rel(got: torch.Tensor, want: torch.Tensor, scale_of: Optional[torch.Tensor] = None
+         ) -> float:
+    """max |got - want| over max |want| (or max |``scale_of``|)."""
+    scale = float((want if scale_of is None else scale_of).detach().float().abs().max())
     return float((got.detach().float() - want.detach().float()).abs().max()) / max(scale, 1e-30)
+
+
+def _key_bias_scale(path) -> Optional[tuple]:
+    """A key projection's bias without RoPE has a zero gradient in exact
+    arithmetic (every score of a query gains the same q . b_k, which the
+    softmax drops), so its rounding noise has no scale of its own: it is
+    held to its block's value-bias gradient's. Returns that leaf's path,
+    or None."""
+    return path[:-2] + ("wv", "b") if tuple(path[-2:]) == ("wk", "b") else None
 
 
 def _per_rank(value: int, pg) -> List[int]:
@@ -150,7 +180,7 @@ def collect_tiles(tree, split: Dict, group, on_leaf: Callable, rows: bool = Fals
         if group.rank != 0:
             continue
         dim = split_dim(split[path])
-        blocks = [tiles[0] if dim is None else torch.cat(tiles, dim)
+        blocks = [tiles[0] if dim is None else join_leaf(path, tiles, dim)
                   for tiles in (parts[b * size:(b + 1) * size]  # rank = block * S + shard
                                 for b in range(group.world // size))]
         del parts
@@ -176,33 +206,92 @@ def model_group_counts(costs, group) -> Dict[str, int]:
     return {kind: int(d["count"]) for kind, d in on.items()}
 
 
+def _cut_heads(n_heads: int, n_kv_heads: int, head_dim: int, n_layout: int,
+               size: int) -> int:
+    """1 where the group gathers cut heads (:func:`attn.tp_head_plan`), else 0."""
+    plan = attn.tp_head_plan(n_heads, n_kv_heads, head_dim, n_layout, 0, size)
+    return int(plan.gather_q or plan.gather_kv)
+
+
 def expected_collectives(cfg, size: int, seq_len: int,
                          loss_chunk: int = 512) -> Dict[str, int]:
-    """The collectives of one ``lm_loss`` forward and backward of a dense,
-    VLM or MoE stack under remat on a model group of ``size`` (the same
-    on every rank; ``seq_len`` the positions, a VLM's prefix included):
-    the embedding's all-reduce; a layer's attention: ``wo``'s all-reduce
-    forward and the gradient of its column-parallel input backward, plus,
-    where the group gathers cut heads, one all-gather forward and one
-    all-reduce backward; its FFN: the SwiGLU's ``down`` all-reduce
-    forward and its input's gradient backward, or an MoE layer's one
-    all-reduce of the partial outputs (the shared expert's fused in)
-    forward and two backward (the expert inputs' gradient, the combine
-    weights'). The recompute issues the all-gather and ``wo``'s
-    all-reduce again, but not the FFN's forward all-reduce: it is the
-    layer's last collective, whose output the backward does not need,
-    and the recompute stops once it has every tensor the backward does
-    (``torch.utils.checkpoint``'s early stop). Then the loss's all-reduce
-    of the hidden state's gradient and, a sequence chunk, two forward
-    all-reduces (the max; the sum of exponentials with the gold logit),
-    both issued again by the chunk's recompute."""
-    plan = attn.tp_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                             attn.layout_heads(cfg.n_heads, cfg.tp_head_pad), 0, size)
-    gather = int(plan.gather_q or plan.gather_kv)
+    """The collectives of one forward and backward of ``lm_loss`` (of
+    ``encdec_loss`` for whisper) under remat on a model group of ``size``
+    (the same on every rank; ``seq_len`` the positions of the loss, a
+    VLM's prefix included, whisper's decoder tokens).
+
+    The rule of the recompute: it issues a layer's forward collectives
+    again up to the last one whose output the backward needs, and stops
+    there (``torch.utils.checkpoint``'s early stop) -- so a layer's last
+    row-parallel all-reduce, whose output only joins the residual stream,
+    is not issued again. A block, forward + recompute + backward:
+
+      * attention: ``wo``'s all-reduce twice and its column-parallel
+        input's gradient (3); where the group gathers cut heads, one
+        all-gather forward and again in the recompute, one all-reduce of
+        its gradient (+1 all-reduce, 2 all-gathers);
+      * the FFN that ends a block: the SwiGLU's ``down`` all-reduce and
+        its input's gradient (2), or an MoE layer's all-reduce of the
+        partial outputs and two backward (3);
+      * ``rwkv``: the time mix's ``wo`` twice and its four lerped inputs'
+        gradient (one stacked all-reduce), the channel mix's ``wv`` and
+        its input's gradient (5 all-reduces); the all-gathers of the
+        scattered decay, ``u`` and ``ln_scale`` gradients (3);
+      * ``recurrent``: the RG-LRU block's gather of u forward and in the
+        recompute and its gradient's all-reduce, ``out_proj`` twice, the
+        input's gradient, the all-gathers of the scattered ``lam`` and
+        ``conv_b`` gradients (4 all-reduces, 4 all-gathers), then the
+        SwiGLU (2);
+      * whisper (no remat in the encoder): an encoder layer's attention
+        (``wo`` and its input's gradient, 2; +1 all-reduce and 1
+        all-gather where heads are cut) and GELU MLP (2); a decoder layer's
+        self-attention (3), cross-attention (``wo`` twice and q's input
+        gradient, 3; where heads are cut the q and the k/v gathers, each
+        forward and in the recompute, and their gradients: +2
+        all-reduces, 4 all-gathers) and GELU MLP (2); the encoder
+        output's one ``copy_to_model`` (1).
+
+    Then the embedding's all-reduce, the loss's all-reduce of the hidden
+    state's gradient and, a sequence chunk, two forward all-reduces (the
+    max; the sum of exponentials with the gold logit), both issued again
+    by the chunk's recompute."""
     chunks = -(-seq_len // loss_chunk)
-    ffn = sum(3 if kind == "moe" else 2 for kind in cfg.effective_pattern)
-    return {"all-reduce": 1 + cfg.n_layers * (3 + gather) + ffn + 1 + 4 * chunks,
-            "all-gather": cfg.n_layers * gather * 2}
+    ar, ag = 1 + 1 + 4 * chunks, 0
+    if cfg.family == "audio":
+        e = cfg.encoder
+        enc_cut = _cut_heads(e.n_heads, e.n_heads, e.d_model // e.n_heads, e.n_heads, size)
+        self_cut = _cut_heads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, size)
+        cross_cut = _cut_heads(cfg.n_heads, cfg.n_heads, cfg.head_dim, cfg.n_heads, size)
+        ar += e.n_layers * (4 + enc_cut) + 1
+        ar += cfg.n_layers * (3 + self_cut + 3 + 2 * cross_cut + 2)
+        ag += e.n_layers * enc_cut + cfg.n_layers * (2 * self_cut + 4 * cross_cut)
+        return {"all-reduce": ar, "all-gather": ag}
+    cut = _cut_heads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                     attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
+                     size) if cfg.n_heads else 0
+    for kind in cfg.effective_pattern:
+        if kind == "rwkv":
+            ar, ag = ar + 5, ag + 3
+        elif kind == "recurrent":
+            ar, ag = ar + 4 + 2, ag + 4
+        else:
+            ar += 3 + cut + (3 if kind == "moe" else 2)
+            ag += 2 * cut
+    return {"all-reduce": ar, "all-gather": ag}
+
+
+def expected_launches(cfg) -> Dict[str, int]:
+    """Each hand kernel's launches a rank in one forward and backward of
+    the loss under remat (a decoder layer's kernel forward and in its
+    recompute; whisper's encoder, which has no remat, once): flash for an
+    attention layer (whisper's decoder: self- and cross-attention), WKV-6
+    for an RWKV6 layer, the RG-LRU scan for a recurrent one."""
+    if cfg.family == "audio":
+        return {"flash_attention": cfg.encoder.n_layers + 4 * cfg.n_layers, "wkv6": 0,
+                "rglru_scan": 0}
+    kinds = cfg.effective_pattern
+    return {"flash_attention": 2 * sum(k not in ("rwkv", "recurrent") for k in kinds),
+            "wkv6": 2 * kinds.count("rwkv"), "rglru_scan": 2 * kinds.count("recurrent")}
 
 
 # ---------------------------------------------------------------------------
@@ -239,10 +328,22 @@ def _cut(x: torch.Tensor, dim: int, tp) -> torch.Tensor:
     return x.narrow(dim, tp.rank * w, w)
 
 
+def _same_on_ranks(t: torch.Tensor, tp) -> bool:
+    """Whether ``t`` is bitwise the same on every rank of the model group."""
+    got = [torch.empty_like(t) for _ in range(tp.size)]
+    dist.all_gather(got, t.contiguous(), group=tp.pg)
+    return all(torch.equal(x, t) for x in got)
+
+
+def _constant(a: torch.Tensor) -> bool:
+    return a.numel() > 1 and bool((a == a.reshape(-1)[0]).all())
+
+
 def layer_cases(group, arch: str) -> Dict[str, float]:
     """Every tensor-parallel layer of ``arch``'s smoke config at fp32
     against the same layer whole, on this rank's shard (the worst rank's
-    errors are returned)."""
+    errors are returned; ``<layer>/replicated_differs`` is 1 where a
+    replicated leaf's gradient is not bitwise the same on every rank)."""
     tp = tp_group(group.model_pg)
     dev = group.device
     cfg = _cfg(arch, "float32", smoke=True)
@@ -253,11 +354,44 @@ def layer_cases(group, arch: str) -> Dict[str, float]:
         return torch.randn(shape, generator=g, device=dev) * scale
 
     errs: Dict[str, float] = {}
+    rope_free = cfg.family == "audio"
 
     def record(name, tp_out, whole_out, grad_pairs):
         errs[name] = _rel(tp_out, whole_out)
-        for i, (got, want) in enumerate(grad_pairs):
-            errs[f"{name}/grad{i}"] = _rel(got, want)
+        for i, (got, want, *scale_of) in enumerate(grad_pairs):
+            errs[f"{name}/grad{i}"] = _rel(got, want, *scale_of)
+
+    def tree_case(name, tree, fn, inputs):
+        """``fn(tp_, tree, *inputs)`` whole and on the rank's shard of
+        ``tree`` (a constant leaf -- a norm's ones, a bias's zeros, RWKV's
+        lerps -- moved off its init first, so a misplaced slice shows):
+        the output, the inputs' gradients and every leaf's (a split leaf's
+        against the rank's slice of the whole's); the replicated leaves'
+        gradients bitwise the same on every rank."""
+        tree = tree_map(lambda a: a + 0.1 * torch.randn(a.shape, generator=g, device=dev)
+                        if _constant(a) else a, tree)
+        paths = tuple(p for p, _ in tree_leaves(tree))
+        specs = spec_dict(model_param_specs(tree))
+        n = len(inputs)
+
+        def run(tp_):
+            return lambda *ls: fn(tp_, tree_unflatten(paths, list(ls[n:])), *ls[:n])
+
+        whole, gw = _vg(run(None), list(inputs) + [leaf for _, leaf in tree_leaves(tree)])
+        shards = [leaf for _, leaf in tree_leaves(shard_params(tree, tp.rank, tp.size))]
+        out, gt = _vg(run(tp), list(inputs) + shards)
+        pairs, same = list(zip(gt[:n], gw[:n])), True
+        mine = {}  # path -> the rank's slice of the whole gradient
+        for path, got, want in zip(paths, gt[n:], gw[n:]):
+            dim = split_dim(specs[path])
+            if dim is None:
+                same = _same_on_ranks(got, tp) and same
+            mine[path] = want if dim is None else cut_leaf(path, want, dim, tp.rank, tp.size)
+        for path, got in zip(paths, gt[n:]):
+            key_bias = rope_free and _key_bias_scale(path)
+            pairs.append((got, mine[path]) + ((mine[key_bias],) if key_bias else ()))
+        record(name, out, whole, pairs)
+        errs[f"{name}/replicated_differs"] = float(not same)
 
     x = rnd(b, s, d)
     # column-parallel linear (bias split with its columns): the rank's
@@ -303,83 +437,71 @@ def layer_cases(group, arch: str) -> Dict[str, float]:
     # attention on the rank's heads, every leaf of the block's attn
     pos = torch.arange(s, device=dev)[None].expand(b, s)
 
-    def attention(name, pa, hl):
-        if cfg.qkv_bias:  # the init's zeros would hide a misplaced bias
-            pa = tree_map(lambda a: a + 0.1 * torch.randn(a.shape, generator=g, device=dev)
-                          if a.ndim == 1 else a, pa)
-        paths = tuple(p for p, _ in tree_leaves(pa))
-        specs = spec_dict(model_param_specs(pa))
-        kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                  rope_theta=cfg.rope_theta, compute_dtype=cd, n_heads_layout=hl)
+    def attention(name, pa, hl, **kw):
+        kw = dict(dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                       head_dim=cfg.head_dim, rope_theta=cfg.rope_theta), **kw)
+        tree_case(name, pa, lambda tp_, p, x: attn.attn_apply(
+            p, x, pos, compute_dtype=cd, n_heads_layout=hl, tp=tp_, **kw), [x])
 
-        def attn_fn(tp_):
-            return lambda x, *ls: attn.attn_apply(tree_unflatten(paths, list(ls)), x, pos,
-                                                  tp=tp_, **kw)
+    def mlp(name, pm, fn):
+        tree_case(name, pm, lambda tp_, p, x: fn(p, x, cd, tp_), [x])
 
-        whole, gw_all = _vg(attn_fn(None), [x] + [leaf for _, leaf in tree_leaves(pa)])
-        shards = [leaf for _, leaf in tree_leaves(shard_params(pa, tp.rank, tp.size))]
-        out, gt_all = _vg(attn_fn(tp), [x] + shards)
-        pairs = [(gt_all[0], gw_all[0])]
-        for path, got, want in zip(paths, gt_all[1:], gw_all[1:]):
-            dim = next((i for i, e in enumerate(specs[path]) if e == "model"), None)
-            pairs.append((got, want if dim is None else _cut(want, dim, tp)))
-        record(name, out, whole, pairs)
+    if cfg.family == "audio":
+        _audio_layer_cases(cfg, encdec_mod.encdec_init(cfg, g, dev), tree_case, attention,
+                           mlp, x, rnd, g, dev)
+    elif cfg.family == "ssm":
+        # the mixes under their own keys: the specs read the channel mix's
+        # ``wv`` as row-parallel by its parent
+        block = tree_map(lambda a: a[0], tfm.init_params(cfg, g, dev)["blocks"])["rwkv"]
+        zeros = torch.zeros((b, d), device=dev)
 
-    def moe_case(pe):
-        # the routed experts on the rank's E/S (and the shared expert's
-        # columns and rows), the router whole: the output and the aux loss
-        # (its last element, weighed 1 by the ramp), every leaf's gradient
-        tree = {"moe": pe}
-        paths = tuple(p for p, _ in tree_leaves(tree))
-        specs = spec_dict(model_param_specs(tree))
-        kw = dict(n_experts=cfg.n_experts, k=cfg.experts_per_token,
-                  capacity_factor=cfg.moe_capacity_factor, compute_dtype=cd)
+        def time_mix(tp_, p, x):
+            st = rwkv_mod.rwkv_decode_states(b, d, dev, 1 if tp_ is None else tp_.size)
+            return rwkv_mod.rwkv_time_mix(p["time"], x, zeros, st["s"], cd, tp_)[0]
 
-        def moe_fn(tp_):
-            def fn(x, *ls):
-                y, aux = moe_mod.moe_apply(tree_unflatten(paths, list(ls))["moe"], x, tp=tp_,
-                                           **kw)
+        tree_case("rwkv_time_mix", {"time": block["time"]}, time_mix, [x])
+        tree_case("rwkv_channel_mix", {"channel": block["channel"]}, lambda tp_, p, x:
+                  rwkv_mod.rwkv_channel_mix(p["channel"], x, zeros, cd, tp_)[0], [x])
+    else:
+        params = tfm.init_params(cfg, g, dev)
+        kinds = cfg.effective_pattern
+        block = tfm._layer_params(params, cfg, next(i for i, k in enumerate(kinds)
+                                                    if k != "recurrent"))
+        window = min(cfg.window, 5) if "local_attention" in kinds else 0
+        attention("attention", block["attn"], cfg.n_heads, window=window)
+        # two pad heads: the ranks' own plans differ (at S = 2, 4 / 2 heads
+        # padded to 6 leave one rank's kv columns exact and not the other's),
+        # and at S = 4 the last rank holds pad heads only
+        hl = cfg.n_heads + 2
+        attention("attention_padded", attn.attn_init(
+            g, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, qkv_bias=cfg.qkv_bias,
+            n_heads_layout=hl, device=dev), hl, window=window)
+        # the SwiGLU, column then row (an MoE block's FFN is the routed
+        # experts: its SwiGLU is drawn alone)
+        mlp("swiglu", block["mlp"] if "mlp" in block else layers.swiglu_init(
+            g, d, cfg.d_ff, device=dev), layers.swiglu)
+        if "moe" in block:
+            # the routed experts on the rank's E/S (and the shared expert's
+            # columns and rows), the router whole: the output and the aux
+            # loss (its last element, weighed 1 by the ramp)
+            kw = dict(n_experts=cfg.n_experts, k=cfg.experts_per_token,
+                      capacity_factor=cfg.moe_capacity_factor, compute_dtype=cd)
+
+            def moe_fn(tp_, tree, x):
+                y, aux = moe_mod.moe_apply(tree["moe"], x, tp=tp_, **kw)
                 return torch.cat([y.reshape(-1), aux.reshape(1)])
-            return fn
 
-        whole, gw_all = _vg(moe_fn(None), [x] + [leaf for _, leaf in tree_leaves(tree)])
-        shards = [leaf for _, leaf in tree_leaves(shard_params(tree, tp.rank, tp.size))]
-        out, gt_all = _vg(moe_fn(tp), [x] + shards)
-        pairs = [(gt_all[0], gw_all[0])]
-        for path, got, want in zip(paths, gt_all[1:], gw_all[1:]):
-            dim = split_dim(specs[path])
-            pairs.append((got, want if dim is None else _cut(want, dim, tp)))
-        record("moe", out, whole, pairs)
+            tree_case("moe", {"moe": block["moe"]}, moe_fn, [x])
+        if "recurrent" in kinds:
+            # the RG-LRU block on the rank's channels (the paired in_proj cut)
+            pr = tfm._layer_params(params, cfg, kinds.index("recurrent"))["rglru"]
 
-    params = tfm.init_params(cfg, g, dev)
-    attention("attention", tree_map(lambda a: a[0], params["blocks"])["attn"], cfg.n_heads)
-    # two pad heads: the ranks' own plans differ (at S = 2, 4 / 2 heads
-    # padded to 6 leave one rank's kv columns exact and not the other's),
-    # and at S = 4 the last rank holds pad heads only
-    hl = cfg.n_heads + 2
-    attention("attention_padded", attn.attn_init(
-        g, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, qkv_bias=cfg.qkv_bias,
-        n_heads_layout=hl, device=dev), hl)
-    # the SwiGLU, column then row (an MoE block's FFN is the routed
-    # experts: its SwiGLU is drawn alone)
-    block = tree_map(lambda a: a[0], params["blocks"])
-    pm = block["mlp"] if "mlp" in block else layers.swiglu_init(g, d, cfg.d_ff, device=dev)
-    mpaths = tuple(p for p, _ in tree_leaves(pm))
-    mspecs = spec_dict(model_param_specs(pm))
+            def rglru(tp_, p, x):
+                st = rglru_mod.rglru_decode_state(b, p["in_proj"]["w"].shape[-1] // 2,
+                                                  cfg.conv_width, dev)
+                return rglru_mod.rglru_block_apply(p, x, st, cd, tp_)[0]
 
-    def mlp_fn(tp_):
-        return lambda x, *ls: layers.swiglu(tree_unflatten(mpaths, list(ls)), x, cd, tp_)
-
-    whole, gw_all = _vg(mlp_fn(None), [x] + [leaf for _, leaf in tree_leaves(pm)])
-    out, gt_all = _vg(mlp_fn(tp), [x] + [leaf for _, leaf in tree_leaves(
-        shard_params(pm, tp.rank, tp.size))])
-    pairs = [(gt_all[0], gw_all[0])]
-    for path, got, want in zip(mpaths, gt_all[1:], gw_all[1:]):
-        dim = next(i for i, e in enumerate(mspecs[path]) if e == "model")
-        pairs.append((got, _cut(want, dim, tp)))
-    record("swiglu", out, whole, pairs)
-    if "moe" in block:
-        moe_case(block["moe"])
+            tree_case("rglru", pr, rglru, [x])
     if cfg.family == "vlm":
         # a chunk of prefix positions only (every label -1), then one of
         # text: the loss on the rank's vocab rows still equals the whole's
@@ -407,16 +529,65 @@ def layer_cases(group, arch: str) -> Dict[str, float]:
     return _worst(errs, tp.pg)
 
 
+def _audio_layer_cases(cfg, params, tree_case, attention, mlp, x, rnd, g, dev) -> None:
+    """whisper's layers: the encoder's non-causal attention, the decoder's
+    causal self-attention, cross-attention (over an encoder output that
+    passes ``copy_to_model`` first; also on 3 heads, which every rank's
+    columns cut) and the GELU MLP."""
+    e, cd = cfg.encoder, torch.float32
+    enc = tree_map(lambda a: a[0], params["enc"]["blocks"])
+    dec = tree_map(lambda a: a[0], params["dec"]["blocks"])
+    attention("encoder_attention", enc["attn"], e.n_heads, n_heads=e.n_heads,
+              n_kv_heads=e.n_heads, head_dim=e.d_model // e.n_heads, rope_theta=None,
+              causal=False)
+    attention("attention", dec["self_attn"], cfg.n_heads, rope_theta=None)
+    frames = rnd(x.shape[0], 10, cfg.d_model)
+
+    def cross(n_heads):
+        def fn(tp_, p, x, enc_out):
+            kv = attn.precompute_cross_kv(p, copy_to_model(enc_out, tp_), n_heads,
+                                          cfg.head_dim, cd, tp_)
+            return attn.cross_attn_apply(p, x, kv, n_heads=n_heads, head_dim=cfg.head_dim,
+                                         compute_dtype=cd, tp=tp_)
+        return fn
+
+    tree_case("cross_attention", dec["cross_attn"], cross(cfg.n_heads), [x, frames])
+    tree_case("cross_attention_cut", attn.cross_attn_init(g, cfg.d_model, 3, cfg.head_dim,
+                                                          device=dev), cross(3), [x, frames])
+    mlp("gelu_mlp", dec["mlp"], layers.gelu_mlp)
+
+
 # ---------------------------------------------------------------------------
 # lm_loss of the stack
 # ---------------------------------------------------------------------------
 
 
+#: the kernels whose launches the cases count, a rank each
+KERNELS = {"flash_attention": flash_attention, "wkv6": wkv6, "rglru_scan": rglru_scan}
+
+
+def _zero_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _launches(pg) -> Dict[str, List[int]]:
+    """Each kernel's launches on every rank of ``pg``, in rank order."""
+    return {name: _per_rank(fn.launches, pg) for name, fn in KERNELS.items()}
+
+
+def _loss(params, cfg, batch, tp, loss_chunk):
+    """One node's training loss: ``encdec_loss`` for whisper, else ``lm_loss``."""
+    if cfg.family == "audio":
+        return encdec_mod.encdec_loss(params, cfg, batch, loss_chunk=loss_chunk, tp=tp)
+    return tfm.lm_loss(params, cfg, batch, loss_chunk=loss_chunk, tp=tp)
+
+
 def _value_and_grad(params, cfg, batch, tp, loss_chunk):
     items = tree_leaves(params)
     leaves = [leaf.detach().requires_grad_(True) for _, leaf in items]
-    loss = tfm.lm_loss(tree_unflatten(tuple(p for p, _ in items), leaves), cfg, batch,
-                       loss_chunk=loss_chunk, tp=tp)
+    loss = _loss(tree_unflatten(tuple(p for p, _ in items), leaves), cfg, batch, tp,
+                 loss_chunk)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_unflatten(tuple(p for p, _ in items), list(grads))
 
@@ -480,20 +651,32 @@ def routing_summary(mine: "RouteLog", whole: Optional["RouteLog"], group) -> Dic
             "matching": same, "flip_margins": flips}
 
 
-def _lm_batch(cfg, dev, tokens, prefix, batch: int, seq_len: int) -> Dict:
+def _lm_batch(cfg, dev, tokens, extra, batch: int, seq_len: int) -> Dict:
     """``tokens`` (batch, seq_len + 1) and, for a VLM, ``prefix_embeds``
-    (batch, frontend_seq, d): the given arrays, or drawn from the seed."""
+    (batch, frontend_seq, d), for whisper ``frames`` (batch, T_enc, d):
+    the given arrays, or drawn from the seed."""
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     if tokens is None:
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq_len + 1), generator=g,
                                device=dev)
     out = {"tokens": torch.as_tensor(tokens, device=dev)}
-    if cfg.family == "vlm":
-        if prefix is None:
-            prefix = torch.randn((out["tokens"].shape[0], cfg.frontend_seq, cfg.d_model),
-                                 generator=g, device=dev)
-        out["prefix_embeds"] = torch.as_tensor(prefix, device=dev)
+    key, rows = _extra(cfg)
+    if key is not None:
+        if extra is None:
+            extra = torch.randn((out["tokens"].shape[0], rows, cfg.d_model), generator=g,
+                                device=dev)
+        out[key] = torch.as_tensor(extra, device=dev)
     return out
+
+
+def _extra(cfg):
+    """The batch's input beside the tokens and its rows: a VLM's prefix
+    embeddings, whisper's frames, or (None, 0)."""
+    if cfg.family == "vlm":
+        return "prefix_embeds", cfg.frontend_seq
+    if cfg.family == "audio":
+        return "frames", cfg.encoder.seq_len
+    return None, 0
 
 
 def _positions(cfg, batch: Dict) -> int:
@@ -507,30 +690,36 @@ def _peak(dev) -> int:
 
 def lm_case(group, arch: str, compute_dtype: str = "float32", *, smoke: bool = True,
             depth: Optional[int] = None, params_np=None, tokens=None, prefix=None,
-            batch: int = 2, seq_len: int = 16, loss_chunk: int = 512,
-            return_grads: bool = False) -> Dict:
-    """``lm_loss`` forward and backward of ``arch`` (``depth`` layers, or
+            frames=None, batch: int = 2, seq_len: int = 16, loss_chunk: int = 512,
+            return_grads: bool = False, ulp: bool = False) -> Dict:
+    """``lm_loss`` (whisper: ``encdec_loss``) forward and backward of
+    ``arch`` (``depth`` layers -- whisper's encoder and decoder each -- or
     its config's) on this rank's shards -- tokens ``(batch, seq_len + 1)``
-    and a VLM's prefix embeddings drawn from a seed, or given -- and then
+    and a VLM's prefix embeddings or whisper's frames drawn from a seed,
+    or given -- and then
     the whole model's on the same inputs, on each rank in turn once the
     group's gradients wait on the host (the card holds the group's shards
-    and one whole model at a time), each rank comparing its shard with
-    its slice of the whole. Returns (rank 0): the two losses, each leaf's
+    and one whole model at a time; on the host every rank at once), each
+    rank comparing its shard with its slice of the whole. Returns (rank 0): the two losses, each leaf's
     gradient error (the worst rank's), whether the replicated leaves' gradients are bitwise
     equal on every rank, the model group's collectives (counted) and
-    their expected counts, each rank's flash launches in the
+    their expected counts, each rank's launches of each kernel in the
     tensor-parallel call, an MoE's routing (``routing_summary``: the
     whole model runs on the group's expert choices, its own compared), the
-    seconds of both calls, each rank's peak bytes on the card, and with ``return_grads`` the reassembled gradients as
-    numpy."""
+    seconds of both calls, each rank's peak bytes on the card, with
+    ``return_grads`` the reassembled gradients as numpy, and with ``ulp``
+    the whole model's own sensitivity: the largest change of a leaf's
+    gradient (over its scale) when the embedding table moves by one ulp
+    (times 1 + 2^-23), beside which the group's rounding is read."""
     dev = group.device
     cfg = _cfg(arch, compute_dtype, smoke, depth)
     tp = tp_group(group.model_pg)
-    batch_ = _lm_batch(cfg, dev, tokens, prefix, batch, seq_len)
+    batch_ = _lm_batch(cfg, dev, tokens, prefix if frames is None else frames, batch,
+                       seq_len)
     mine = shard_params(_whole(cfg, dev, params_np), tp.rank, tp.size)
     _free(dev)
     specs = model_param_specs(mine)
-    flash_attention.launches = 0
+    _zero_launches()
     _sync(dev)
     t0 = time.perf_counter()
     with RouteLog() as log, op_analysis() as oa:
@@ -538,13 +727,15 @@ def lm_case(group, arch: str, compute_dtype: str = "float32", *, smoke: bool = T
         _sync(dev)
     tp_s = time.perf_counter() - t0
     del mine
-    launches = _per_rank(flash_attention.launches, group.pg)
+    launches = _launches(group.pg)
     counts = model_group_counts(oa.costs(), group)
     grads = tree_map(lambda a: a.cpu(), grads)
     _free(dev)
     split = spec_dict(specs)
     errs, whole_log = {}, None
-    for turn in range(group.world):  # the ranks run the whole model in turn
+    # on the card the ranks run the whole model in turn (one whole model on
+    # the card at a time); on the host all at once
+    for turn in range(group.world) if dev.type == "cuda" else [group.rank]:
         if group.rank == turn:
             whole = _whole(cfg, dev, params_np)
             _sync(dev)
@@ -556,12 +747,23 @@ def lm_case(group, arch: str, compute_dtype: str = "float32", *, smoke: bool = T
                 wloss, wgrads = _value_and_grad(whole, cfg, batch_, None, loss_chunk)
                 _sync(dev)
             whole_s = time.perf_counter() - t0
+            if ulp and group.rank == 0:
+                whole = tree_unflatten(*zip(*[
+                    (path, leaf * (1 + 2 ** -23) if path[-1] == "table" else leaf)
+                    for path, leaf in tree_leaves(whole)]))
+                moved = _value_and_grad(whole, cfg, batch_, None, loss_chunk)[1]
+                ulp_response = max(_rel(m, w) for (_, m), (_, w) in zip(
+                    tree_leaves(moved), tree_leaves(wgrads)))
+                del moved
             del whole
-            for (path, g), (_, w) in zip(tree_leaves(grads), tree_leaves(wgrads)):
+            mine = {}  # path -> this rank's shard of the whole gradient
+            for path, w in tree_leaves(wgrads):
                 dim = split_dim(split[path])
-                if dim is not None:  # this rank's shard of the whole gradient
-                    w = w.narrow(dim, tp.rank * g.shape[dim], g.shape[dim])
-                errs["/".join(map(str, path))] = _rel(g.to(dev), w)
+                mine[path] = w if dim is None else cut_leaf(path, w, dim, tp.rank, tp.size)
+            for path, g in tree_leaves(grads):
+                key_bias = cfg.family == "audio" and _key_bias_scale(path)
+                errs["/".join(map(str, path))] = _rel(
+                    g.to(dev), mine[path], mine[key_bias] if key_bias else None)
             del wgrads
             _free(dev)
         dist.barrier(group=group.pg)
@@ -580,8 +782,11 @@ def lm_case(group, arch: str, compute_dtype: str = "float32", *, smoke: bool = T
            "replicated_equal": same, "counts": counts,
            "expected": expected_collectives(cfg, tp.size, _positions(cfg, batch_),
                                             loss_chunk),
-           "flash_launches": launches, "layers": cfg.n_layers, "routing": routing,
+           "expected_launches": expected_launches(cfg),
+           "launches": launches, "layers": cfg.n_layers, "routing": routing,
            "tp_s": tp_s, "whole_s": whole_s, "peak_bytes": peaks}
+    if ulp:
+        out["ulp_response"] = ulp_response
     if return_grads:
         out["grads"] = tree_unflatten(tuple(got), list(got.values()))
     return out
@@ -605,9 +810,10 @@ def _round_batches(cfg, dev, batches, q: int, nodes: int, batch: int, seq_len: i
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     out = {"tokens": torch.randint(0, cfg.vocab_size, (q, nodes, batch, seq_len + 1),
                                    generator=g, device=dev)}
-    if cfg.family == "vlm":
-        out["prefix_embeds"] = torch.randn((q, nodes, batch, cfg.frontend_seq, cfg.d_model),
-                                           generator=g, device=dev)
+    key, rows = _extra(cfg)
+    if key is not None:
+        out[key] = torch.randn((q, nodes, batch, rows, cfg.d_model), generator=g,
+                               device=dev)
     return out
 
 
@@ -650,14 +856,14 @@ def round_case(group, arch: str, compute_dtype: str = "float32", *, smoke: bool 
     state = init_fl_state(fl, rows, eng)
     del rows
     round_fn = make_fl_round(bundle.loss_fn, inv_sqrt(ALPHA0), fl, eng)
-    flash_attention.launches = 0
+    _zero_launches()
     _sync(dev)
     t0 = time.perf_counter()
     state, m = round_fn(state, batches)
     metrics = {k: float(v) for k, v in m.items()}
     _sync(dev)
     tp_s = time.perf_counter() - t0
-    launches = _per_rank(flash_attention.launches, group.pg)
+    launches = _launches(group.pg)
     params = tree_map(lambda a: a.cpu(), state.params)
     del state
     _free(dev)
@@ -694,7 +900,7 @@ def round_case(group, arch: str, compute_dtype: str = "float32", *, smoke: bool 
         return {}
     out = {"metrics": metrics, "whole_metrics": whole["metrics"],
            "replicated_equal": bool(same), "tp_s": tp_s, "whole_s": whole["s"],
-           "flash_launches": launches, "rows": list(eng.rows), "layers": cfg.n_layers,
+           "launches": launches, "rows": list(eng.rows), "layers": cfg.n_layers,
            "param_errs": param_errs, "update_errs": update_errs, "peak_bytes": peaks}
     if return_params:
         out["params"] = tree_unflatten(tuple(got), list(got.values()))
@@ -749,14 +955,17 @@ def _free(dev: torch.device) -> None:
 
 def _card_cases(group, archs: List[str], compute_dtype: str, smoke: bool, batch: int,
                 seq_len: int) -> Dict:
-    """What the card's check runs on one group, for each ``ARCH[:DEPTH]`` of
-    ``archs``: :func:`lm_case` (at DEPTH layers), then, at the config's
+    """What the card's check runs on one group, for each
+    ``ARCH[:DEPTH[:DTYPE]]`` of ``archs``: :func:`lm_case` (at DEPTH
+    layers, at DTYPE compute or ``compute_dtype``), then, at the config's
     depth, one :func:`round_case` at Q = 1 on 2 nodes; the card's memory
     handed back between them."""
     out, dev = {}, group.device
     for spec in archs:
-        arch, _, depth = spec.partition(":")
-        cases = [("lm", lm_case, dict(depth=int(depth) if depth else None))]
+        arch, depth, dtype = (spec.split(":") + ["", ""])[:3]
+        # an fp32 cell also reads the whole model's one-ulp response
+        cases = [("lm", lm_case, dict(depth=int(depth) if depth else None,
+                                      ulp=(dtype or compute_dtype) == "float32"))]
         if not depth:
             cases.append(("round", round_case, dict(q=1, perturb=1e-3)))
         out[arch] = {}
@@ -764,16 +973,16 @@ def _card_cases(group, archs: List[str], compute_dtype: str, smoke: bool, batch:
             _free(dev)
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
-            out[arch][name] = case(group, arch, compute_dtype, smoke=smoke, batch=batch,
-                                   seq_len=seq_len, **kw)
+            out[arch][name] = case(group, arch, dtype or compute_dtype, smoke=smoke,
+                                   batch=batch, seq_len=seq_len, **kw)
     return out
 
 
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", nargs="+", default=["smollm-360m"],
-                    help="ARCH, or ARCH:DEPTH for lm_case alone at DEPTH layers of the "
-                         "arch's full width")
+                    help="ARCH, or ARCH:DEPTH[:DTYPE] for lm_case alone at DEPTH layers "
+                         "of the arch's full width (at DTYPE compute)")
     ap.add_argument("--shards", type=int, default=2)
     ap.add_argument("--smoke", action="store_true", help="the arch's reduced config")
     ap.add_argument("--compute-dtype", default="bfloat16")
@@ -785,10 +994,14 @@ def main(argv=None) -> Dict:
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     if resolve_device(args.device).type == "cuda":
-        # the ranks share the build directory: build the kernel here, once
+        # the ranks share the build directories: build the kernels here,
+        # once, one nvcc a source, all together
+        from repro_torch.kernels.build import build_all
         from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.kernels.rglru_scan import ops as rglru_ops
+        from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
 
-        flash_ops.LIBS.build([flash_ops.SOURCES[getattr(torch, args.compute_dtype)]])
+        build_all(flash_ops.LIBS, rwkv_ops.LIBS, rglru_ops.LIBS)
     res = run_group(_card_cases, args.shards, device=args.device, model_shards=args.shards,
                     backend=args.backend,
                     args=(args.arch, args.compute_dtype, args.smoke, args.batch,

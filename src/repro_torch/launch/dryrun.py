@@ -22,17 +22,17 @@ host or a pod, the peak of live bytes. Every number is rank 0's.
     launch per (node, shard) tile, every wire message on node-axis
     groups, one direction's bytes = ``flat_wire_bytes_per_shard``), or
     ``tree`` -- the reference's default, which it dry-runs through GSPMD's
-    Megatron partitioning of the model layers -- for the dense, VLM and
-    MoE families on the ``(node, model)`` layout: ``TreeEngine.from_group``
-    keeps the rank's node rows of its shard of each leaf
-    (``models.sharding``), the loss is the tensor-parallel bundle's
-    (``build_model(cfg, model_group=...)``: column- and row-parallel
-    layers, the expert-parallel MoE, the vocab-parallel embedding and
-    loss), and the record's ``tensor_parallel`` section gives the
-    per-rank state bytes and the model and node groups' collectives.
-    ``tree`` for the recurrent and audio families and ``flat`` / ``fused``
-    on the ``(node, model)`` layout are refused by name (what is left of
-    ROADMAP.md queue 1, item 18b);
+    Megatron partitioning of the model layers -- for every family on the
+    ``(node, model)`` layout: ``TreeEngine.from_group`` keeps the rank's
+    node rows of its shard of each leaf (``models.sharding``), the loss is
+    the tensor-parallel bundle's (``build_model(cfg, model_group=...)``:
+    column- and row-parallel layers, the expert-parallel MoE, RWKV6's
+    mixes on the rank's heads, the RG-LRU block on its channels,
+    whisper's encoder-decoder, the vocab-parallel embedding and loss),
+    and the record's ``tensor_parallel`` section gives the per-rank state
+    bytes and the model and node groups' collectives. ``flat`` /
+    ``fused`` on the ``(node, model)`` layout are refused by name (what
+    is left of ROADMAP.md queue 1, item 18b);
   * prefill and decode pairs run one call of the whole global batch on
     ``meta``: per-rank parameter bytes from ``models.sharding``'s rules,
     cache and batch bytes split over the node axes as the reference's
@@ -91,7 +91,6 @@ from repro_torch.launch.op_analysis import op_analysis
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model
 from repro_torch.models.sharding import batch_specs, model_param_specs, rank_bytes
-from repro_torch.models.transformer import TP_FAMILIES
 from repro_torch.training.trainer import stack_for_nodes
 
 __all__ = ["start_fake_world", "build_train_round", "two_axis_record",
@@ -175,21 +174,13 @@ def build_train_round(arch: str, shape: InputShape, mesh: MeshLayout, q: int,
             f"--fl-engine {fl_engine}: the reference dry-runs it at the production "
             "mesh with its flat buffer P(node axes, None) beside GSPMD's Megatron "
             "partitioning of the model layers; the port's (node, model) layout runs "
-            "--fl-engine tree for the dense, VLM and MoE families, and flat / fused "
-            "there are what is left of ROADMAP.md queue 1, item 18b after the recurrent "
-            "and audio families' layers (or --fl-engine sharded_fused, with "
+            "--fl-engine tree for every family, and flat / fused there are what is left "
+            "of ROADMAP.md queue 1, item 18b (or --fl-engine sharded_fused, with "
             "--fl-shard-model for the two-axis layout)")
     cfg = get_config(arch, smoke=smoke)
     if pad_heads:
         cfg = dataclasses.replace(cfg, tp_head_pad=pad_heads)
     tensor_parallel = fl_engine == "tree" and n_model_shards(mesh) > 1
-    if tensor_parallel and cfg.family not in TP_FAMILIES:
-        raise ValueError(
-            f"--fl-engine tree on {arch} ({cfg.family}): the (node, model) layout needs "
-            "tensor-parallel layers, which the port has for the dense, VLM and MoE "
-            "families; what is left of ROADMAP.md queue 1, item 18b is the recurrent "
-            "(ssm, hybrid) and audio families' layers, then flat / fused on the (node, "
-            "model) layout (or --fl-engine sharded_fused --fl-shard-model)")
     naxes = node_axes(mesh)
     node_ranks = n_fl_nodes(mesh)
     nodes = node_ranks if nodes is None else nodes
@@ -297,8 +288,8 @@ def two_axis_record(engine, costs, fl_cfg) -> Dict[str, Any]:
 
 
 def tensor_parallel_record(aux, costs) -> Dict[str, Any]:
-    """The ``tree`` round's (node, model) layout: the rank's head share,
-    its state bytes leaf by leaf (params, tracker, previous gradient: the
+    """The ``tree`` round's (node, model) layout: the rank's head share (a
+    decoder's; None for attention-free RWKV6), its state bytes leaf by leaf (params, tracker, previous gradient: the
     placed shards), and the collectives of its model group and of its
     node group by kind, with the bytes that cross a host (a 16-rank model
     group spans two 8-GPU hosts). Raises AssertionError where a
@@ -312,14 +303,14 @@ def tensor_parallel_record(aux, costs) -> Dict[str, Any]:
     assert set(on_model) <= {"all-reduce", "all-gather"}, "a gossip message on the model group"
     plan = attn.tp_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                              attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
-                             group.shard, group.model_shards)
+                             group.shard, group.model_shards) if cfg.n_heads else None
 
     def nbytes(tree):
         return int(sum(t.numel() * t.element_size() for _, t in tree_leaves(tree)))
 
     return {
         "model_axis": "model", "model_shards": int(group.model_shards),
-        "heads": plan._asdict(),
+        "heads": plan and plan._asdict(),
         "param_bytes": nbytes(state.params),
         "tracker_bytes": nbytes(state.tracker) if state.tracker is not None else 0,
         "prev_grad_bytes": nbytes(state.prev_grad) if state.prev_grad is not None else 0,
@@ -547,9 +538,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="kept for the reference's command lines: 'ref' only")
     ap.add_argument("--fl-engine", default="tree", choices=engine_names(),
                     help="round engine (core.engine's registry); the port's dry run "
-                         "builds sharded_fused, and tree for the dense, VLM and MoE "
-                         "families on the (node, model) layout; it refuses flat and "
-                         "fused")
+                         "builds sharded_fused, and tree for every family on the "
+                         "(node, model) layout; it refuses flat and fused there")
     ap.add_argument("--topk", type=int, default=None,
                     help="ship only the k largest payload columns per scale chunk "
                          "(the compact wire where it is smaller)")

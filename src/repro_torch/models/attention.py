@@ -34,6 +34,11 @@ whole heads its ``wo`` rows cover; it attends on those heads with K/V
 expanded to them where they are not whole GQA groups (the flash wrapper
 takes q heads a multiple of kv heads), and keeps its own columns of the
 output. Backward the gather costs one all-reduce of its gradient.
+Cross-attention takes the same plan (``n_heads`` q and kv heads, no pad
+heads): :func:`precompute_cross_kv` projects the rank's k / v columns of
+the encoder output and :func:`cross_attn_apply` its q columns of the
+decoder stream, each all-gathered (k and v together) only where a
+rank's columns cut a head; ``wo`` is row-parallel.
 """
 
 from __future__ import annotations
@@ -359,22 +364,51 @@ def cross_attn_init(generator, d_model: int, n_heads: int, head_dim: int,
 
 
 def precompute_cross_kv(p: Dict, enc_out: torch.Tensor, n_heads: int, head_dim: int,
-                        compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The encoder output's K and V, (B, T, H, hd) each, in ``compute_dtype``."""
-    k = _split_heads(linear(p["wk"], enc_out, compute_dtype), n_heads, head_dim)
-    v = _split_heads(linear(p["wv"], enc_out, compute_dtype), n_heads, head_dim)
-    return k, v
+                        compute_dtype=torch.bfloat16, tp: Optional[TPGroup] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output's K and V, (B, T, H, hd) each, in ``compute_dtype``.
+    ``tp``: the kv heads ``[kv_lo, kv_hi)`` the rank's q heads read
+    (:func:`tp_head_plan`), column-parallel on ``enc_out`` -- which must
+    have passed ``copy_to_model`` (``models.encdec`` passes the encoder
+    output once for every decoder layer)."""
+    k = linear(p["wk"], enc_out, compute_dtype)
+    v = linear(p["wv"], enc_out, compute_dtype)
+    if tp is not None:
+        plan = tp_head_plan(n_heads, n_heads, head_dim, n_heads, tp.rank, tp.size)
+        if plan.gather_kv:  # else the rank's columns are its kv heads
+            ck = k.shape[-1]
+            kv = gather_from_model(torch.cat([k, v], dim=-1), tp)
+            kv = kv.reshape(*kv.shape[:-1], tp.size, 2 * ck)
+            lo, hi = plan.kv_lo * head_dim, plan.kv_hi * head_dim
+            k = kv[..., :ck].flatten(-2)[..., lo:hi]
+            v = kv[..., ck:].flatten(-2)[..., lo:hi]
+    return (_split_heads(k, k.shape[-1] // head_dim, head_dim),
+            _split_heads(v, v.shape[-1] // head_dim, head_dim))
 
 
 def cross_attn_apply(p: Dict, x: torch.Tensor, kv: Tuple[torch.Tensor, torch.Tensor], *,
-                     n_heads: int, head_dim: int,
-                     compute_dtype=torch.bfloat16) -> torch.Tensor:
+                     n_heads: int, head_dim: int, compute_dtype=torch.bfloat16,
+                     tp: Optional[TPGroup] = None) -> torch.Tensor:
     """Decoder queries x (B, S, d) attend, unmasked, over precomputed
-    encoder K/V (B, T, H, hd): one non-causal flash-kernel call."""
-    q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads, head_dim)
+    encoder K/V (B, T, H, hd): one non-causal flash-kernel call. ``tp``:
+    on the rank's heads, ``kv`` its :func:`precompute_cross_kv`."""
     k, v = kv
-    out = flash_attention(q, k.contiguous(), v.contiguous(), causal=False, window=0)
-    return linear(p["wo"], out.reshape(*x.shape[:-1], n_heads * head_dim), compute_dtype)
+    if tp is None:
+        q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads, head_dim)
+        out = flash_attention(q, k.contiguous(), v.contiguous(), causal=False, window=0)
+        return linear(p["wo"], out.reshape(*x.shape[:-1], n_heads * head_dim), compute_dtype)
+    hd = head_dim
+    plan = tp_head_plan(n_heads, n_heads, hd, n_heads, tp.rank, tp.size)
+    q = linear(p["wq"], copy_to_model(x, tp), compute_dtype)
+    q_base = plan.h_lo
+    if plan.gather_q:
+        q, q_base = gather_from_model(q, tp), 0
+    qh = _split_heads(q, q.shape[-1] // hd, hd)[..., plan.h_lo - q_base:plan.a_hi - q_base, :]
+    out = flash_attention(qh.contiguous(), k.contiguous(), v.contiguous(), causal=False,
+                          window=0)
+    out = out.reshape(*x.shape[:-1], -1)[..., plan.q_lo - plan.h_lo * hd:
+                                         plan.q_hi - plan.h_lo * hd]
+    return row_parallel_linear(p["wo"], out, compute_dtype, tp)
 
 
 def cross_attn_decode(p: Dict, x: torch.Tensor, kv: Tuple[torch.Tensor, torch.Tensor], *,

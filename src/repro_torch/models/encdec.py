@@ -20,6 +20,17 @@ the reference scans. The decode state is the reference's: the
 layer-stacked self-attention caches under ``self`` and the per-layer
 cross K/V ``cross_k`` / ``cross_v`` (n_layers, B, T_enc, H, hd), filled
 by :func:`encdec_fill_cross_kv` after :func:`encode`.
+
+On a model group (``tp``, ``models.tensor_parallel``) :func:`encdec_loss`
+runs on a rank's shards (``models.sharding.shard_params``): the
+encoder's self-attention and GELU MLP, the decoder's self-attention,
+cross-attention and MLP column- then row-parallel on the rank's heads
+and columns (``models.attention``, ``models.layers``); the decoder's
+embedding lookup and the tied loss vocab-parallel; the frames, both
+position tables and the layernorms replicated. The encoder output, a
+replicated input that every decoder layer's cross K/V reads, passes
+``copy_to_model`` once, before the decoder: its gradient sums every
+layer's on each rank, then one all-reduce sums the ranks'.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fl import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models.tensor_parallel import TPGroup, copy_to_model
 from repro_torch.models.layers import (
     chunked_softmax_xent,
     embed_init,
@@ -118,9 +130,11 @@ def _layer(blocks: Dict, i: int) -> Dict:
     return tree_map(lambda a: a[i], blocks)
 
 
-def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
+           tp: Optional[TPGroup] = None) -> torch.Tensor:
     """frames: the stubbed conv frontend's embeddings (B, T_enc, d) ->
-    the encoder output (B, T_enc, d) in the compute dtype."""
+    the encoder output (B, T_enc, d) in the compute dtype. ``tp``: the
+    rank's shards of a model group (the output replicated)."""
     cd = _cdtype(cfg)
     e = cfg.encoder
     t = frames.shape[1]
@@ -130,56 +144,62 @@ def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor
         a = attn.attn_apply(blk["attn"], layernorm(blk["ln1"], x, cfg.norm_eps), None,
                             n_heads=e.n_heads, n_kv_heads=e.n_heads,
                             head_dim=e.d_model // e.n_heads, rope_theta=None,
-                            causal=False, compute_dtype=cd)
+                            causal=False, compute_dtype=cd, tp=tp)
         x = x + a
-        x = x + gelu_mlp(blk["mlp"], layernorm(blk["ln2"], x, cfg.norm_eps), cd)
+        x = x + gelu_mlp(blk["mlp"], layernorm(blk["ln2"], x, cfg.norm_eps), cd, tp)
     return layernorm(params["enc"]["final_ln"], x, cfg.norm_eps)
 
 
-def _dec_layer(blk: Dict, cfg: ModelConfig, h: torch.Tensor,
-               enc_out: torch.Tensor) -> torch.Tensor:
+def _dec_layer(blk: Dict, cfg: ModelConfig, h: torch.Tensor, enc_out: torch.Tensor,
+               tp: Optional[TPGroup] = None) -> torch.Tensor:
     """One decoder layer over a full token sequence h (B, S, d)."""
     cd, eps = _cdtype(cfg), cfg.norm_eps
     a = attn.attn_apply(blk["self_attn"], layernorm(blk["ln1"], h, eps), None,
                         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                         head_dim=cfg.head_dim, rope_theta=None, causal=True,
-                        compute_dtype=cd)
+                        compute_dtype=cd, tp=tp)
     h = h + a
-    kv = attn.precompute_cross_kv(blk["cross_attn"], enc_out, cfg.n_heads, cfg.head_dim, cd)
+    kv = attn.precompute_cross_kv(blk["cross_attn"], enc_out, cfg.n_heads, cfg.head_dim, cd,
+                                  tp)
     h = h + attn.cross_attn_apply(blk["cross_attn"], layernorm(blk["ln2"], h, eps), kv,
                                   n_heads=cfg.n_heads, head_dim=cfg.head_dim,
-                                  compute_dtype=cd)
-    return h + gelu_mlp(blk["mlp"], layernorm(blk["ln3"], h, eps), cd)
+                                  compute_dtype=cd, tp=tp)
+    return h + gelu_mlp(blk["mlp"], layernorm(blk["ln3"], h, eps), cd, tp)
 
 
 def _decode_hidden(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-                   enc_out: torch.Tensor, remat: bool) -> torch.Tensor:
+                   enc_out: torch.Tensor, remat: bool,
+                   tp: Optional[TPGroup] = None) -> torch.Tensor:
     """The decoder's final hidden states (B, S, d) over ``tokens`` (B, S).
     ``remat`` runs each layer under non-reentrant activation
     checkpointing, where the reference wraps its scanned layer in
-    ``jax.checkpoint``."""
+    ``jax.checkpoint``. ``tp``: the rank's shards, ``enc_out`` passed
+    through ``copy_to_model``."""
     cd = _cdtype(cfg)
     s = tokens.shape[1]
-    x = embed_lookup(params["dec"]["embed"], tokens, cd)
+    x = embed_lookup(params["dec"]["embed"], tokens, cd, tp)
     x = x + params["dec"]["pos"][:s].to(cd)[None]
     for i in range(cfg.n_layers):
         blk = _layer(params["dec"]["blocks"], i)
         if remat:
-            x = checkpoint(_dec_layer, blk, cfg, x, enc_out, use_reentrant=False,
+            x = checkpoint(_dec_layer, blk, cfg, x, enc_out, tp, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _dec_layer(blk, cfg, x, enc_out)
+            x = _dec_layer(blk, cfg, x, enc_out, tp)
     return layernorm(params["dec"]["final_ln"], x, cfg.norm_eps)
 
 
-def encdec_loss(params: Dict, cfg: ModelConfig, batch: Dict, remat: bool = True) -> torch.Tensor:
+def encdec_loss(params: Dict, cfg: ModelConfig, batch: Dict, remat: bool = True,
+                loss_chunk: int = 512, tp: Optional[TPGroup] = None) -> torch.Tensor:
     """Next-token cross-entropy of one node's batch: {"frames": (B, T_enc,
-    d_enc), "tokens": (B, S+1)}."""
-    enc_out = encode(params, cfg, batch["frames"])
+    d_enc), "tokens": (B, S+1)}. ``tp``: the rank's shards of a model
+    group (every rank returns the whole loss)."""
+    enc_out = copy_to_model(encode(params, cfg, batch["frames"], tp), tp)
     tokens = batch["tokens"]
-    h = _decode_hidden(params, cfg, tokens[:, :-1], enc_out, remat)
+    h = _decode_hidden(params, cfg, tokens[:, :-1], enc_out, remat, tp)
     return chunked_softmax_xent(params["dec"]["embed"]["table"], h, tokens[:, 1:],
-                                cfg.vocab_size, compute_dtype=_cdtype(cfg))
+                                cfg.vocab_size, chunk=loss_chunk,
+                                compute_dtype=_cdtype(cfg), tp=tp)
 
 
 def encdec_prefill(params: Dict, cfg: ModelConfig,

@@ -15,7 +15,7 @@ runs the whole layer, as before): a column-parallel product is
 :func:`linear` on the rank's column shard of an input passed through
 ``copy_to_model``; :func:`row_parallel_linear` all-reduces the partial
 products of the rank's row shard and adds the bias once, after the
-reduce; :func:`swiglu` is both; :func:`embed_lookup` and
+reduce; :func:`swiglu` and :func:`gelu_mlp` are both; :func:`embed_lookup` and
 :func:`chunked_softmax_xent` are vocab-parallel on the rank's rows
 ``[s V/S, (s+1) V/S)`` of the table.
 """
@@ -184,11 +184,14 @@ def gelu_mlp_init(generator, d: int, d_ff: int, dtype=torch.float32, device=None
     }
 
 
-def gelu_mlp(p: Dict, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+def gelu_mlp(p: Dict, x: torch.Tensor, compute_dtype=torch.bfloat16,
+             tp: Optional[TPGroup] = None) -> torch.Tensor:
     """``down(gelu(up(x)))`` with the tanh-approximate GELU, the default of
-    the reference's ``jax.nn.gelu``."""
-    h = F.gelu(linear(p["up"], x, compute_dtype), approximate="tanh")
-    return linear(p["down"], h, compute_dtype)
+    the reference's ``jax.nn.gelu``; on a model group ``up`` (``w`` and
+    ``b``) column-parallel and ``down`` row-parallel, its bias added once
+    (one all-reduce forward, one backward)."""
+    h = F.gelu(linear(p["up"], copy_to_model(x, tp), compute_dtype), approximate="tanh")
+    return row_parallel_linear(p["down"], h, compute_dtype, tp)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -7,11 +7,12 @@ The bundle is the integration surface the trainer and the serving
 engine consume. The reference's ``impl`` argument is gone: the port's
 attention and recurrence kernels dispatch by device, so its ``"ref"``,
 ``"flash"``, ``"blocked"``, ``"decode_kernel"`` and ``"pallas"`` paths
-are one path here. ``build_model(cfg, model_group=pg)`` builds the
-dense, VLM and MoE families' bundle for a rank of a model group: its
-``loss_fn`` runs on the rank's shards (``models.sharding.shard_params``)
-through the tensor-parallel layers (``models.tensor_parallel``) and the
-expert-parallel MoE (``models.moe``).
+are one path here. ``build_model(cfg, model_group=pg)`` builds any
+family's bundle for a rank of a model group: its ``loss_fn`` runs on the
+rank's shards (``models.sharding.shard_params``) through the
+tensor-parallel layers (``models.tensor_parallel``: attention, the MLPs,
+RWKV6's time and channel mix, the RG-LRU block, whisper's
+encoder-decoder) and the expert-parallel MoE (``models.moe``).
 
 ``loss_fn`` is NODE-BATCHED, the port trainer's ``core.fl.LossFn``:
 params with (n, ...) leaves and a batch with (n, ...) leaves in, the n
@@ -69,15 +70,13 @@ def _node_batched(single_loss: Callable[[Dict, Dict], torch.Tensor]) -> Callable
 def build_model(cfg: ModelConfig, remat: bool = True, model_group=None) -> ModelBundle:
     """The bundle of ``cfg``. ``model_group``: a model process group
     (``NodeGroup.model_pg``) whose rank this process is -- the bundle's
-    ``loss_fn`` then takes the rank's shards of the parameters (the
-    dense, VLM and MoE families: the others raise, naming what is left
-    of item 18b);
+    ``loss_fn`` then takes the rank's shards of the parameters;
     ``init_fn`` and the serving functions stay whole."""
     tp = tp_group(model_group)
     if tp is not None:
         tfm.check_tensor_parallel(cfg)
     if cfg.family == "audio":
-        return _build_encdec(cfg, remat)
+        return _build_encdec(cfg, remat, tp)
     tfm.check_kinds(cfg)
 
     def init_fn(generator: Optional[torch.Generator], device=None) -> Dict:
@@ -101,7 +100,7 @@ def build_model(cfg: ModelConfig, remat: bool = True, model_group=None) -> Model
         init_decode_state_fn=init_decode_state_fn)
 
 
-def _build_encdec(cfg: ModelConfig, remat: bool) -> ModelBundle:
+def _build_encdec(cfg: ModelConfig, remat: bool, tp=None) -> ModelBundle:
     def init_fn(generator: Optional[torch.Generator], device=None) -> Dict:
         return encdec_mod.encdec_init(cfg, generator, device)
 
@@ -119,6 +118,7 @@ def _build_encdec(cfg: ModelConfig, remat: bool) -> ModelBundle:
 
     return ModelBundle(
         cfg=cfg, init_fn=init_fn,
-        loss_fn=_node_batched(lambda p, b: encdec_mod.encdec_loss(p, cfg, b, remat=remat)),
+        loss_fn=_node_batched(lambda p, b: encdec_mod.encdec_loss(p, cfg, b, remat=remat,
+                                                                  tp=tp)),
         prefill_fn=prefill_fn, decode_fn=decode_fn,
         init_decode_state_fn=init_decode_state_fn)

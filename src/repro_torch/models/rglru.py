@@ -18,17 +18,34 @@ counterpart. Numerics follow the reference: the conv sums its taps one
 by one in x's dtype (:func:`_causal_conv1d`), ``softplus`` is
 ``logaddexp(x, 0)`` (``jax.nn.softplus``), and ``gelu`` is the tanh
 approximation (``jax.nn.gelu``'s default).
+
+On a model group (``tp``, ``models.tensor_parallel``) rank s of S holds
+the channels ``[s W/S, (s+1) W/S)``: ``in_proj`` is column-parallel on
+the paired cut of its fused (d, 2W) leaf (the rank's columns of the u
+half, then of the gate half: ``models.sharding.shard_params``), the
+causal conv runs on the rank's channels (``conv_w`` split, ``conv_b``
+cut by ``scatter_to_model``), ``gate_a`` / ``gate_x`` -- (W, W), split by
+columns -- read the whole u from one ``gather_from_model`` of the rank's
+conv output, ``lam`` is cut by ``scatter_to_model``, the scan runs on
+(B, S, W/S), and ``out_proj`` is row-parallel (its bias added once,
+after the reduce).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
-from repro_torch.models.layers import dense_init, linear, normal_init
+from repro_torch.models.layers import dense_init, linear, normal_init, row_parallel_linear
+from repro_torch.models.tensor_parallel import (
+    TPGroup,
+    copy_to_model,
+    gather_from_model,
+    scatter_to_model,
+)
 
 __all__ = ["RGLRU_C", "rglru_block_init", "rglru_block_apply", "rglru_decode_state"]
 
@@ -79,24 +96,29 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def rglru_block_apply(p: Dict, x: torch.Tensor, state: Dict,
-                      compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
-    """x (B, S, d) -> (out (B, S, d), new state {h, conv})."""
+                      compute_dtype=torch.bfloat16,
+                      tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, Dict]:
+    """x (B, S, d) -> (out (B, S, d), new state {h, conv}); on a model
+    group (``tp``) the state holds the rank's W/S channels."""
     cd = compute_dtype
-    xw = linear(p["in_proj"], x, cd)
+    xw = linear(p["in_proj"], copy_to_model(x, tp), cd)
     u, gate_branch = torch.chunk(xw, 2, dim=-1)
-    u, conv_state = _causal_conv1d(u, p["conv_w"], p["conv_b"], state["conv"])
+    u, conv_state = _causal_conv1d(u, p["conv_w"], scatter_to_model(p["conv_b"], tp),
+                                   state["conv"])
 
     uf = u.float()
-    r = torch.sigmoid(linear(p["gate_a"], u, cd).float())
-    i = torch.sigmoid(linear(p["gate_x"], u, cd).float())
-    softplus = torch.logaddexp(p["lam"], torch.zeros_like(p["lam"]))
+    u_all = gather_from_model(u, tp)
+    r = torch.sigmoid(linear(p["gate_a"], u_all, cd).float())
+    i = torch.sigmoid(linear(p["gate_x"], u_all, cd).float())
+    lam = scatter_to_model(p["lam"], tp)
+    softplus = torch.logaddexp(lam, torch.zeros_like(lam))
     log_a = -RGLRU_C * softplus[None, None] * r  # (B, S, W) <= 0
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     bx = beta * (i * uf)
 
     h, h_last = rglru_scan(log_a.contiguous(), bx.contiguous(), state["h"])
     y = h.to(cd) * F.gelu(gate_branch, approximate="tanh")
-    out = linear(p["out_proj"], y, cd)
+    out = row_parallel_linear(p["out_proj"], y, cd, tp)
     return out, {"h": h_last, "conv": conv_state}
 
 

@@ -18,17 +18,30 @@ dtypes follow the reference: the decode states start as fp32 zeros, so
 the first step's (and prefill's) token shift promotes the bf16 residual
 stream to fp32; the returned ``x[:, -1]`` is bf16, so from the second
 step on the shift and the lerp run in bf16.
+
+On a model group (``tp``, ``models.tensor_parallel``) rank s of S holds
+the heads ``[s H/S, (s+1) H/S)``: the token shift and the five lerps stay
+replicated, the four lerped inputs of ``wr`` / ``wk`` / ``wv`` / ``wg``
+pass ``copy_to_model`` (one stacked tensor, one all-reduce backward)
+after the lerp, so the gradient of each ``mu_*`` is whole, before their
+column-parallel products; the decay is computed whole from the
+replicated LoRA and then cut to the rank's channels, and ``u`` and
+``ln_scale`` to its heads, by ``scatter_to_model`` (each gradient
+all-gathered backward, the same on every rank); the WKV-6 kernel runs on
+(B, S, H/S, 64) and ``wo`` is row-parallel. The channel mix is the
+MLP's split: ``wk`` column-parallel, the channel ``wv`` row-parallel.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan.ops import HEAD_SIZE, wkv6
-from repro_torch.models.layers import dense_init, linear, normal_init
+from repro_torch.models.layers import dense_init, linear, normal_init, row_parallel_linear
+from repro_torch.models.tensor_parallel import TPGroup, copy_to_model, scatter_to_model
 
 __all__ = ["HEAD_SIZE", "rwkv_block_init", "rwkv_time_mix", "rwkv_channel_mix",
            "rwkv_decode_states"]
@@ -97,44 +110,48 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torc
 
 
 def rwkv_time_mix(p: Dict, x: torch.Tensor, prev_x: torch.Tensor, s0: torch.Tensor,
-                  compute_dtype=torch.bfloat16
+                  compute_dtype=torch.bfloat16, tp: Optional[TPGroup] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(out, new_prev_x, new_state). x (B, S, d); prev_x (B, d); s0 (B, H,
-    64, 64) fp32."""
-    b, s, d = x.shape
-    h = d // HEAD_SIZE
+    64, 64) fp32 -- on a model group (``tp``) the rank's H/S heads, and
+    the returned state too."""
+    b, s, _ = x.shape
     cd = compute_dtype
     xs = _token_shift(x, prev_x)
-    r = linear(p["wr"], _lerp(x, xs, p["mu_r"]), cd)
-    k = linear(p["wk"], _lerp(x, xs, p["mu_k"]), cd)
-    v = linear(p["wv"], _lerp(x, xs, p["mu_v"]), cd)
-    g = linear(p["wg"], _lerp(x, xs, p["mu_g"]), cd)
+    lerps = [_lerp(x, xs, p[f"mu_{c}"]) for c in "rkvg"]
+    if tp is not None:
+        lerps = copy_to_model(torch.stack(lerps), tp).unbind(0)
+    r, k, v, g = (linear(p[f"w{c}"], a, cd) for c, a in zip("rkvg", lerps))
     xw = _lerp(x, xs, p["mu_w"])
     dd = linear({"w": p["wb"]["w"]}, torch.tanh(linear(p["wa"], xw, cd)), cd)
     log_w = -torch.exp(torch.clamp(p["w0"].float() + dd.float(), -20.0, 10.0))  # <= 0
 
-    shape4 = (b, s, h, HEAD_SIZE)
+    d = r.shape[-1]
+    shape4 = (b, s, d // HEAD_SIZE, HEAD_SIZE)
     rf, kf, vf = (a.float().reshape(shape4) for a in (r, k, v))
-    y, s_fin = wkv6(rf, kf, vf, log_w.reshape(shape4), p["u"].float(), s0)
-    y = _group_norm(y, p["ln_scale"]).reshape(b, s, d)
-    out = linear(p["wo"], y.to(cd) * F.silu(g), cd)
+    y, s_fin = wkv6(rf, kf, vf, scatter_to_model(log_w, tp).reshape(shape4),
+                    scatter_to_model(p["u"].float(), tp, 0), s0)
+    y = _group_norm(y, scatter_to_model(p["ln_scale"], tp, 0)).reshape(b, s, d)
+    out = row_parallel_linear(p["wo"], y.to(cd) * F.silu(g), cd, tp)
     return out, x[:, -1], s_fin
 
 
 def rwkv_channel_mix(p: Dict, x: torch.Tensor, prev_x: torch.Tensor,
-                     compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+                     compute_dtype=torch.bfloat16,
+                     tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, new_prev_x): the squared-ReLU channel mix on the shifted
-    token."""
+    token (on a model group ``wk`` column- and ``wv`` row-parallel)."""
     xs = _token_shift(x, prev_x)
-    kx = _lerp(x, xs, p["mu_k"])
+    kx = copy_to_model(_lerp(x, xs, p["mu_k"]), tp)
     hdn = torch.square(F.relu(linear(p["wk"], kx, compute_dtype)))
-    return linear(p["wv"], hdn, compute_dtype), x[:, -1]
+    return row_parallel_linear(p["wv"], hdn, compute_dtype, tp), x[:, -1]
 
 
-def rwkv_decode_states(batch: int, d_model: int, device=None) -> Dict:
+def rwkv_decode_states(batch: int, d_model: int, device=None, model_shards: int = 1) -> Dict:
     """Zero fp32 states, as the reference's: the two token-shift carries
-    (B, d) and the WKV state (B, H, 64, 64)."""
-    h = d_model // HEAD_SIZE
+    (B, d) and the WKV state (B, H, 64, 64) -- of one rank's H /
+    ``model_shards`` heads on a model group."""
+    h = d_model // HEAD_SIZE // model_shards
     return {
         "tm_prev": torch.zeros((batch, d_model), dtype=torch.float32, device=device),
         "cm_prev": torch.zeros((batch, d_model), dtype=torch.float32, device=device),

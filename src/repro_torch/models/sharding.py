@@ -26,10 +26,13 @@ The specs also place tensors: :func:`shard_params` cuts a whole tree
 into shard ``s`` of ``S`` along every dimension split over the model
 axis (the tree a rank of a model group holds, ``models.
 tensor_parallel``; the ``tree`` engine's state on the ``(node, model)``
-layout), :func:`unshard_params` puts S shards back together. The dense,
-VLM and MoE families' layers run on such shards; the recurrent and audio
-families' layers still run whole on a rank, and there the specs only
-price a rank's share (``launch.dryrun``).
+layout), :func:`unshard_params` puts S shards back together. Every
+family's layers run on such shards. One leaf is cut in pairs: RG-LRU's
+``in_proj`` (its ``w`` and ``b``) fuses the u and the gate columns, (d,
+2W) = [u | gate], so shard s holds the columns ``[s W/S, (s+1) W/S)`` of
+each half side by side (:func:`cut_leaf`, :func:`join_leaf`); its spec
+stays the reference's ``(None, "model")`` and its bytes a rank
+:func:`rank_bytes`' 2W/S columns.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from repro_torch.core.packing import tree_leaves, tree_unflatten
 
 __all__ = ["model_param_specs", "node_stack_specs", "batch_specs", "rank_bytes",
            "stacked_param_specs", "shard_params", "unshard_params", "is_split",
-           "split_dim", "spec_dict"]
+           "split_dim", "spec_dict", "cut_leaf", "join_leaf"]
 
 Spec = Tuple[Any, ...]
 
@@ -186,14 +189,45 @@ def split_dim(spec: Spec, path=(), axis: str = "model") -> Optional[int]:
     return dims[0] if dims else None
 
 
+def _paired(path) -> bool:
+    """Whether the leaf at ``path`` is cut in pairs: RG-LRU's fused
+    ``in_proj`` (the u half, then the gate half)."""
+    return "in_proj" in [k for k in path if isinstance(k, str)]
+
+
+def cut_leaf(path, leaf: torch.Tensor, dim: int, shard: int, shards: int) -> torch.Tensor:
+    """Shard ``shard`` of ``shards`` of ``leaf`` along ``dim``: a slice,
+    or for RG-LRU's fused ``in_proj`` (:func:`_paired`) the same slice of
+    each half, side by side. A dimension that does not split evenly is
+    refused."""
+    size, pairs = leaf.shape[dim], 2 if _paired(path) else 1
+    if size % (pairs * shards):
+        raise ValueError(f"leaf {'/'.join(map(str, path))}: dim {dim} of size {size} "
+                         f"does not split evenly over {shards} shards"
+                         + (" in each half" if pairs == 2 else ""))
+    width = size // pairs // shards
+    halves = leaf.unflatten(dim, (pairs, size // pairs))
+    return halves.narrow(dim + 1, shard * width, width).flatten(dim, dim + 1)
+
+
+def join_leaf(path, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+    """The whole leaf of its shards (in shard order): :func:`cut_leaf`
+    undone."""
+    if not _paired(path):
+        return torch.cat(list(parts), dim=dim)
+    halves = [p.unflatten(dim, (2, p.shape[dim] // 2)) for p in parts]
+    return torch.cat(halves, dim=dim + 1).flatten(dim, dim + 1)
+
+
 def shard_params(params, shard: int, shards: int, specs=None, axis: str = "model") -> Any:
     """Shard ``shard`` of ``shards`` of a whole tree under ``specs``
     (default :func:`model_param_specs`): the same paths, every dimension
-    split over ``axis`` cut into ``shards`` equal slices and this one kept
-    and the other leaves whole, each a copy of its own (a rank holds its
-    tree, not views into the whole). A split dimension that ``shards`` does not
-    divide is refused -- :func:`rank_bytes` would price a padded shard the
-    layers cannot run on."""
+    split over ``axis`` cut into ``shards`` equal slices (:func:`cut_leaf`:
+    a paired leaf in pairs) and this one kept and the other leaves whole,
+    each a copy of its own (a rank holds its tree, not views into the
+    whole). A split dimension that ``shards`` does not divide is refused
+    -- :func:`rank_bytes` would price a padded shard the layers cannot
+    run on."""
     if not 0 <= shard < shards:
         raise ValueError(f"shard {shard} is not one of {shards}")
     specs = model_param_specs(params) if specs is None else specs
@@ -209,23 +243,18 @@ def shard_params(params, shard: int, shards: int, specs=None, axis: str = "model
         if dim is None or shards == 1:
             out.append(leaf.clone())
             continue
-        size = leaf.shape[dim]
-        if size % shards:
-            raise ValueError(f"leaf {'/'.join(map(str, path))}: dim {dim} of size {size} "
-                             f"does not split evenly over {shards} shards")
-        width = size // shards
-        out.append(leaf.narrow(dim, shard * width, width).clone())
+        out.append(cut_leaf(path, leaf, dim, shard, shards).clone())
     return tree_unflatten(tuple(p for p, _ in items), out)
 
 
 def unshard_params(shards: Sequence, specs, axis: str = "model") -> Any:
     """The whole tree of :func:`shard_params`' ``len(shards)`` shards (in
-    shard order): each split leaf concatenated along its split dimension,
-    each other leaf taken from shard 0."""
+    shard order): each split leaf put back together along its split
+    dimension (:func:`join_leaf`), each other leaf taken from shard 0."""
     spec_of = spec_dict(specs)
     items = [tree_leaves(s) for s in shards]
     out = []
     for j, (path, leaf) in enumerate(items[0]):
         dim = split_dim(spec_of[path], path, axis)
-        out.append(leaf if dim is None else torch.cat([it[j][1] for it in items], dim=dim))
+        out.append(leaf if dim is None else join_leaf(path, [it[j][1] for it in items], dim))
     return tree_unflatten(tuple(p for p, _ in items[0]), out)

@@ -18,6 +18,13 @@ conjugate ``torch.autograd.Function``s carry a layer across the split:
 :func:`gather_from_model` all-gathers a column-split activation along
 its last dimension (the attention heads a rank's columns cut through);
 its backward all-reduces the whole gradient and keeps the rank's slice.
+:func:`scatter_to_model` (Megatron's split) is its conjugate: forward it
+keeps the rank's slice of a replicated tensor, backward it all-gathers
+the slices' gradients, so every rank holds the whole gradient of what
+it cut -- a replicated leaf (or a replicated computation) that a layer
+uses only on the rank's heads or channels (RWKV6's ``u``, ``ln_scale``
+and decay, RG-LRU's ``lam`` and ``conv_b``) keeps one gradient, the
+same on every rank.
 :func:`all_reduce_max` is the detached all-reduced max of the
 vocab-parallel softmax.
 
@@ -45,6 +52,7 @@ __all__ = [
     "copy_to_model",
     "reduce_from_model",
     "gather_from_model",
+    "scatter_to_model",
     "all_reduce_max",
 ]
 
@@ -109,6 +117,22 @@ class _GatherFromModel(torch.autograd.Function):
         return _all_reduce(grad, tp.pg).narrow(-1, tp.rank * w, w).contiguous(), None
 
 
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        w = x.shape[dim] // tp.size
+        return x.narrow(dim, tp.rank * w, w).clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tp = ctx.tp
+        grad = grad.contiguous()
+        parts = [torch.empty_like(grad) for _ in range(tp.size)]
+        dist.all_gather(parts, grad, group=tp.pg)
+        return torch.cat(parts, dim=ctx.dim), None, None
+
+
 def copy_to_model(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
     """``f``: ``x`` itself forward; backward, the gradient all-reduced over
     the model group."""
@@ -125,6 +149,18 @@ def gather_from_model(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
     """Every rank's ``x`` (..., w) side by side, (..., S * w) in rank order;
     backward, this rank's slice of the all-reduced gradient."""
     return x if tp is None else _GatherFromModel.apply(x, tp)
+
+
+def scatter_to_model(x: torch.Tensor, tp: Optional[TPGroup], dim: int = -1) -> torch.Tensor:
+    """This rank's slice of ``x`` along ``dim`` (S equal slices, in rank
+    order), contiguous; backward, every rank's slice of the gradient side
+    by side (an all-gather), the same whole gradient on every rank."""
+    if tp is None:
+        return x
+    if x.shape[dim] % tp.size:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split evenly over "
+                         f"{tp.size} model ranks")
+    return _ScatterToModel.apply(x, tp, dim % x.ndim)
 
 
 def all_reduce_max(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:

@@ -37,15 +37,17 @@ backward is plain PyTorch, so every parameter reaches its gradient on
 the card as on the CPU.
 
 Tensor parallelism (``tp``, a ``models.tensor_parallel.TPGroup``): the
-training path of the dense, VLM and MoE families -- :func:`apply_block_train`,
+training path of every decoder-only family -- :func:`apply_block_train`,
 :func:`forward_hidden`, :func:`_embed_inputs` and :func:`lm_loss` -- runs
 on a rank's shards of a model group (``models.sharding.shard_params``):
-attention and the SwiGLU column- then row-parallel, the routed experts
-expert-parallel (``models.moe``: the rank's E/S experts, the router
-replicated), the embedding and the loss vocab-parallel (one table for
-both where they are tied), the residual stream, the norms and a VLM's
-prefix embeddings replicated. The recurrent and audio families raise:
-their layers are item 18b's next slice.
+attention (local attention too) and the SwiGLU column- then
+row-parallel, the routed experts expert-parallel (``models.moe``: the
+rank's E/S experts, the router replicated), RWKV6's time and channel mix
+on the rank's heads (``models.rwkv6``), the RG-LRU block on the rank's
+channels (``models.rglru``), the embedding and the loss vocab-parallel
+(one table for both where they are tied), the residual stream, the
+norms and a VLM's prefix embeddings replicated. The audio family's
+encoder-decoder takes the same layers (``models.encdec``).
 """
 
 from __future__ import annotations
@@ -102,18 +104,17 @@ def check_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
     return pattern
 
 
-#: the families whose layers run on a model group
-TP_FAMILIES = ("dense", "vlm", "moe")
+#: the families whose layers run on a model group: every one
+TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def check_tensor_parallel(cfg: ModelConfig) -> None:
-    """The families whose layers run on a model group: dense, VLM, MoE."""
+    """The families whose layers run on a model group (:data:`TP_FAMILIES`:
+    every family of the registry); another raises."""
     if cfg.family not in TP_FAMILIES:
         raise ValueError(
-            f"{cfg.name} ({cfg.family}): tensor-parallel layers exist for the dense, VLM "
-            "and MoE families; what is left of ROADMAP.md queue 1, item 18b is the "
-            "recurrent (ssm, hybrid) and audio families' layers on a model group, then "
-            "flat / fused on the (node, model) layout")
+            f"{cfg.name} ({cfg.family}): tensor-parallel layers exist for the "
+            f"{', '.join(TP_FAMILIES)} families")
 
 
 def _cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -172,8 +173,7 @@ def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
                       tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence (train / prefill) block from zero recurrent states.
     Returns (x, aux loss), the aux loss 0 for every kind but ``moe``.
-    ``tp``: an attention or MoE block on the rank's shards of a model
-    group."""
+    ``tp``: the block on the rank's shards of a model group."""
     _check_kind(kind)
     if tp is not None:
         check_tensor_parallel(cfg)
@@ -190,20 +190,20 @@ def apply_block_train(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
         x = x + h
         m, moe_aux = _ffn(p, kind, cfg, rmsnorm(p["ln2"], x, eps), tp)
         return x + m, aux if moe_aux is None else moe_aux
-    b = x.shape[0]
+    b, shards = x.shape[0], 1 if tp is None else tp.size
     if kind == "rwkv":
-        st = rwkv_mod.rwkv_decode_states(b, cfg.d_model, device=x.device)
+        st = rwkv_mod.rwkv_decode_states(b, cfg.d_model, x.device, shards)
         h, _, _ = rwkv_mod.rwkv_time_mix(p["rwkv"]["time"], rmsnorm(p["ln1"], x, eps),
-                                         st["tm_prev"], st["s"], cd)
+                                         st["tm_prev"], st["s"], cd, tp)
         x = x + h
         c, _ = rwkv_mod.rwkv_channel_mix(p["rwkv"]["channel"], rmsnorm(p["ln2"], x, eps),
-                                         st["cm_prev"], cd)
+                                         st["cm_prev"], cd, tp)
         return x + c, aux
-    st = rglru_mod.rglru_decode_state(b, cfg.rnn_width or cfg.d_model, cfg.conv_width,
-                                      device=x.device)
-    h, _ = rglru_mod.rglru_block_apply(p["rglru"], rmsnorm(p["ln1"], x, eps), st, cd)
+    st = rglru_mod.rglru_decode_state(b, (cfg.rnn_width or cfg.d_model) // shards,
+                                      cfg.conv_width, device=x.device)
+    h, _ = rglru_mod.rglru_block_apply(p["rglru"], rmsnorm(p["ln1"], x, eps), st, cd, tp)
     x = x + h
-    return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd), aux
+    return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd, tp), aux
 
 
 def _ffn(p: Dict, kind: str, cfg: ModelConfig, h: torch.Tensor,
@@ -331,9 +331,8 @@ def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, remat: bool = True,
             loss_chunk: int = 512, tp: Optional[TPGroup] = None) -> torch.Tensor:
     """Next-token cross-entropy (mean over the valid tokens) plus the
     blocks' aux loss times ``router_aux_coef``, for one node's params and
-    batch (``tokens`` (B, S+1)). ``tp``: a dense, VLM or MoE model on
-    the rank's shards of a model group (every rank returns the whole
-    loss)."""
+    batch (``tokens`` (B, S+1)). ``tp``: the rank's shards of a model
+    group (every rank returns the whole loss)."""
     if tp is not None:
         check_tensor_parallel(cfg)
     emb, positions, labels = _embed_inputs(params, cfg, batch, tp)

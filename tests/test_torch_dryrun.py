@@ -30,8 +30,14 @@ reference's committed records and against a real round:
   prefix positions): the per-rank state bytes are the placed shards',
   the flash kernel launches 2 x layers x Q, the model group's
   collectives ``expected_collectives`` a node-step; llama4-scout's
-  record is the dry run's own, run here; the other 44 committed records
-  are unchanged.
+  record is the dry run's own, run here;
+* the committed ``tree`` records of rwkv6-7b, recurrentgemma-2b and
+  whisper-medium (RWKV6's heads, the RG-LRU's channels and whisper's
+  encoder-decoder on the rank's share): the per-rank state bytes are the
+  placed shards' (the paired ``in_proj`` cut), the WKV-6, RG-LRU and
+  flash launches the code implies, the model group's collectives
+  ``expected_collectives`` a node-step; the 47 records committed before
+  them are unchanged.
 """
 
 import json
@@ -247,10 +253,13 @@ def test_refusals_and_the_skip():
     for engine in ("flat", "fused"):
         with pytest.raises(ValueError, match="item 18b"):
             dryrun.run_pair("tinyllama-1.1b", "train_4k", "single", fl_engine=engine)
-    # tree: the recurrent and audio families have no tensor-parallel layers yet
+    # the recurrent and audio families run tree on the (node, model) layout;
+    # flat / fused there are what is left of item 18b
     for arch in ("rwkv6-7b", "recurrentgemma-2b", "whisper-medium"):
-        with pytest.raises(ValueError, match="what is left of ROADMAP.md queue 1, item 18b"):
-            dryrun.run_pair(arch, "train_4k", "single", fl_engine="tree")
+        for engine in ("flat", "fused"):
+            with pytest.raises(ValueError, match="what is left of ROADMAP.md queue 1, item "
+                                                 "18b"):
+                dryrun.run_pair(arch, "train_4k", "single", fl_engine=engine)
     with pytest.raises(ValueError, match="needs the sharded_fused engine"):
         dryrun.run_pair("tinyllama-1.1b", "train_4k", "single", fl_engine="fused",
                         fl_shard_model=True)
@@ -408,20 +417,77 @@ def test_the_moe_tree_record_is_the_dry_runs_own():
     assert want["tensor_parallel"]["heads"]["gather_q"]
 
 
-#: sha256 (first 16 hex digits) of the records committed before the MoE and
-#: VLM archs' tree pairs
+TREE_RECURRENT_AUDIO = ["rwkv6-7b", "recurrentgemma-2b", "whisper-medium"]
+#: each hand kernel's launches in the round (the code implies them: 2 x
+#: layers a step under remat for a decoder's kernels, whisper's encoder
+#: once a layer, Q = 2): WKV-6 2 x 32 x 2, the RG-LRU scan 2 x 18 x 2 and
+#: flash 2 x 8 x 2, whisper's flash (24 + 2 x 2 x 24) x 2
+TREE_KERNELS = {"rwkv6-7b": {"wkv6": 128},
+                "recurrentgemma-2b": {"rglru_scan": 72, "flash_attention": 32},
+                "whisper-medium": {"flash_attention": 240}}
+
+
+@pytest.mark.parametrize("arch", TREE_RECURRENT_AUDIO)
+def test_the_recurrent_and_audio_tree_records(arch):
+    """train_4k, Q = 2, 16 data x 16 model: a rank's params, tracker and
+    previous gradient are its placed shards (RWKV6's 4 heads a rank,
+    RG-LRU's 160 channels of each ``in_proj`` half, whisper's one head and
+    3,248 vocab rows); the arguments add the rank's batch (whisper's
+    frames too); the kernels launch as ``TREE_KERNELS`` says; the model
+    group issues ``expected_collectives`` a step and one all-reduce more
+    for the metrics' split leaves; the node group the gossip and the
+    metrics; the head plan is the decoder's (none for RWKV6)."""
+    rec = _tree_record(arch)
+    cfg = get_config(arch)
+    q, mesh = 2, make_production_mesh()
+    assert rec["status"] == "ok" and rec["fl_engine"] == "tree" and rec["q"] == q
+    tp = rec["tensor_parallel"]
+    assert tp["model_shards"] == 16 and rec["n_chips"] == 256 and rec["n_nodes"] == 16
+    params = build_model(cfg).param_shapes()
+    placed = sum(t.numel() * t.element_size()
+                 for _, t in tree_leaves(shard_params(params, 0, 16)))
+    want = rank_bytes(_stack16(params), node_stack_specs(model_param_specs(params),
+                                                         ("data",)), mesh)
+    assert want == placed
+    assert tp["param_bytes"] == tp["tracker_bytes"] == tp["prev_grad_bytes"] == want
+    batch = train_input_specs(cfg, SHAPES["train_4k"], 16, q)
+    batch_bytes = rank_bytes(batch, batch_specs(batch, ("data",)), {"data": 16})
+    assert rec["memory"]["argument_bytes"] == 3 * want + batch_bytes
+    assert rec["kernel_calls"] == TREE_KERNELS[arch]
+    step = expected_collectives(cfg, 16, 4096)
+    model = tp["model_group"]
+    assert model["all-reduce"]["count"] == q * step["all-reduce"] + 1
+    assert model.get("all-gather", {"count": 0})["count"] == q * step["all-gather"]
+    assert (step["all-gather"] > 0) == (arch != "whisper-medium")
+    for kind in model.values():
+        assert kind["cross_bytes"] == kind["bytes"] > 0
+    node = tp["node_group"]
+    assert {k: v["count"] for k, v in node.items()} == {"send": 4, "recv": 4, "all-reduce": 3}
+    if cfg.n_heads:
+        plan = attn.tp_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, 0,
+                                 16)
+        assert tp["heads"] == plan._asdict()
+    else:
+        assert tp["heads"] is None
+
+
+#: sha256 (first 16 hex digits) of the records committed before the
+#: recurrent and audio archs' tree pairs
 EARLIER_RECORDS = {
     "dbrx-132b_decode_32k_single.json": "3e0a3c202ebae564",
     "dbrx-132b_long_500k_single.json": "86671c0071fd74c4",
     "dbrx-132b_prefill_32k_single.json": "24506022a08923eb",
+    "dbrx-132b_train_4k_single_q2.json": "01d98b810940f647",
     "dbrx-132b_train_4k_single_sharded_fused_shardmodel_q2.json": "e823cde016ac4947",
     "internvl2-26b_decode_32k_single.json": "64460c9482db7bc3",
     "internvl2-26b_long_500k_single.json": "7ac2d445d003b24c",
     "internvl2-26b_prefill_32k_single.json": "79ba416d84d31c45",
+    "internvl2-26b_train_4k_single_q2.json": "243e262d6886c72d",
     "internvl2-26b_train_4k_single_sharded_fused_shardmodel_q2.json": "ac0c9efe39cc535b",
     "llama4-scout-17b-a16e_decode_32k_single.json": "fc458f83b0f65cd1",
     "llama4-scout-17b-a16e_long_500k_single.json": "921c2d2fa5b4303d",
     "llama4-scout-17b-a16e_prefill_32k_single.json": "9a9e32d27b7fba05",
+    "llama4-scout-17b-a16e_train_4k_single_q2.json": "a236174d5f00a3d5",
     "llama4-scout-17b-a16e_train_4k_single_sharded_fused_shardmodel_q2.json": "ea9ae27091bb3c1f",
     "phi3-medium-14b_decode_32k_single.json": "57b3b2d0ddb56e5f",
     "phi3-medium-14b_long_500k_single.json": "7efbf48eab4b470c",
@@ -462,7 +528,7 @@ def test_the_earlier_records_are_unchanged():
     import hashlib
 
     names = sorted(n for n in os.listdir(OUT_DIR) if n.endswith(".json"))
-    new = {f"{arch}_train_4k_single_q2.json" for arch in TREE_MOE_VLM}
+    new = {f"{arch}_train_4k_single_q2.json" for arch in TREE_RECURRENT_AUDIO}
     assert set(names) == set(EARLIER_RECORDS) | new
     for name, digest in EARLIER_RECORDS.items():
         with open(os.path.join(OUT_DIR, name), "rb") as f:
