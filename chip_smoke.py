@@ -171,7 +171,20 @@ heads in the encoder, the decoder's self- and cross-attention), each
 ``lm_loss`` / ``encdec_loss`` as (p1), each kernel's launches a rank
 counted exactly. (p3)-(p7) run the loss alone (the ``tree`` rounds of
 (p3) / (p4) do not fit one card); the CPU tests and the dry run hold
-their rounds.
+their rounds. Then serving on the model group (ROADMAP.md item 4): (p8)
+SmolLM-360M at full width and depth, a bf16 prefill of batch 8 x S 128
+and 8 decode steps from an empty cache on the two ranks' shards (each
+rank caching the kv head its q heads read, the logits gathered whole),
+against the whole model on the card (logits within 5e-2 of their scale,
+an argmax unlike the whole model's only at a top-2 gap under that
+tolerance; the model group's collectives of the prefill and of a decode
+step as counted; flash once a layer and rank in the prefill, the decode
+kernel once a layer, step and rank); and (p9) one FD-DSGT round of the paper's
+configuration at (20, 1536) on ``fused`` with the two processes as node
+ranks (``FusedEngine.from_group``, the flat buffer's model ranks being
+replicas: the ring of 20 as a dense W on the sharded engine's all-gather
+wire), against ``FusedEngine.from_node_axes`` on the card (parameters
+within 1e-5 of their scale; ``wire_stage_gt`` once a rank).
 Any failed check raises, so the exit code is non-zero; without a
 CUDA card (or without the repository around it) the script fails before
 printing any result.
@@ -4778,10 +4791,16 @@ TP_MOE_ARCH, TP_VLM_ARCH, TP_DEPTH = "llama4-scout-17b-a16e", "internvl2-26b", 1
 #: (label, arch, depth, compute dtype) of the recurrent and audio cells
 TP_RECURRENT = (("(p5)", "rwkv6-7b", 2, "float32"), ("(p6)", "recurrentgemma-2b", 3, ""),
                 ("(p7)", "whisper-medium", 2, ""))
+# (p8) serving SmolLM-360M at full width and depth on the two ranks' shards:
+# a bf16 prefill of batch 8 x S 128 and 8 decode steps from an empty
+# cache (the kv heads the rank's 7.5 q heads read; the logits
+# gathered whole); (p9) one FD-DSGT round of the paper's configuration on
+# `fused` with the two processes as node ranks (FusedEngine.from_group: the
+# ring of 20 as a dense W, the sharded engine's all-gather wire)
 TP_FLAGS = ["--arch", TP_ARCH, f"{TP_MOE_ARCH}:{TP_DEPTH}", f"{TP_VLM_ARCH}:{TP_DEPTH}",
             *(f"{arch}:{depth}:{dtype}" for _, arch, depth, dtype in TP_RECURRENT),
             "--shards", str(TP_SHARDS), "--backend", "gloo", "--compute-dtype", "bfloat16",
-            "--batch", str(TP_BATCH), "--seq-len", str(TP_SEQ)]
+            "--batch", str(TP_BATCH), "--seq-len", str(TP_SEQ), "--serve", "--fused-round"]
 # the card's bf16 tolerances (PERF.md section 2): a loss within 1e-2
 # relative, gradients within 5e-2 of each leaf's scale; the round's
 # parameter updates and metrics as the gradients; a bf16 routing choice
@@ -4795,6 +4814,15 @@ TP_LOSS_RTOL, TP_GRAD_TOL = 1e-2, 5e-2
 # cell prints beside the whole model's own change when its embedding moves
 # by one ulp (``lm_case(ulp=True)``)
 TP_FP32_LOSS_RTOL, TP_FP32_GRAD_TOL = 1e-5, 1e-2
+# (p8): the logits within 5e-2 of their scale (bf16), an argmax unlike the
+# whole model's only where its top-2 gap is under 2e-2 of the scale: the
+# worst gap an H100 80GB HBM3 at 700 W flipped at, 1.03e-2 (about two bf16
+# ulps of the top logit, with the logits 2.2-2.5e-2 from the whole
+# model's), with twice its room;
+# (p9): the round's parameters within 1e-5 of their scale (the sums in
+# another order: the wire stage and the gathered mix against the round
+# kernel)
+TP_SERVE_TOL, TP_SERVE_MARGIN, TP_FUSED_TOL = 5e-2, 2e-2, 1e-5
 
 
 def _gb(peaks: list) -> str:
@@ -4875,14 +4903,82 @@ def check_tp_round(label: str, arch: str, rnd: dict) -> dict:
         raise AssertionError(f"{label} the tensor-parallel tree round drifts from the whole "
                              f"model's: {rnd}")
     if rnd["launches"] != {"flash_attention": [4 * layers] * TP_SHARDS,
-                           "wkv6": [0] * TP_SHARDS, "rglru_scan": [0] * TP_SHARDS}:
+                           "wkv6": [0] * TP_SHARDS, "rglru_scan": [0] * TP_SHARDS,
+                           "decode_attention": [0] * TP_SHARDS}:
         raise AssertionError(f"{label} launches {rnd['launches']}, expected "
                              f"{4 * layers} flash a rank")
     return {"flash_attention": sum(rnd["launches"]["flash_attention"])}
 
 
+def check_tp_serve(label: str, res: dict) -> dict:
+    """One ``serve_case`` of the group against the whole model on the card:
+    the prefill's and each decode step's logits, the rows whose argmax
+    differs (each only at a top-2 gap under TP_SERVE_MARGIN), the model
+    group's collectives against ``expected_collectives`` and each kernel's
+    launches a rank against ``expected_launches`` (flash once a layer in
+    the prefill, the decode kernel once a layer and step). Returns each
+    kernel's launches, both ranks'."""
+    errs = [res["prefill_err"], *res["decode_errs"]]
+    flips = res["flips"]
+    log(f"  {label} {res['arch']}, {res['layers']} layers, bf16, batch {res['batch']}: prefill of "
+        f"{res['prompt']} positions and {res['steps']} decode steps on {TP_SHARDS} ranks' "
+        f"shards, logits {res['logits_shape']} within {res['prefill_err']:.2e} (prefill) / "
+        f"{max(res['decode_errs']):.2e} (decode) of the whole model's scale; "
+        + (f"{len(flips)} argmax flip(s) at top-2 gaps {[round(m, 5) for m in flips[:8]]}"
+           if flips else "every argmax equal")
+        + f"; parameters {_gb(res['param_bytes'])}, decode states {_gb(res['state_bytes'])} "
+        f"a rank; {res['tp_s']:.2f} s on the group ({res['step_s'] * 1e3:.1f} ms a decode "
+        f"step outside op_analysis), {res['whole_s']:.2f} s whole; peak a "
+        f"process {_gb(res['peak_bytes'])} [{card_line()}]")
+    launched = {}
+    for kind in ("prefill", "decode"):
+        want = {k: v for k, v in res["expected"][kind].items() if v}
+        got = {k: v for k, v in res["launches"][kind].items() if any(v)}
+        want_l = {k: [n] * TP_SHARDS for k, n in res["expected_launches"][kind].items() if n}
+        what = "the prefill" if kind == "prefill" else (
+            f"collectives of the first step, launches of the {res['steps']}")
+        log(f"  {label} {kind} ({what}): model group {res['counts'][kind]} (expected "
+            f"{want}); launches a rank {got} (expected {want_l})")
+        if res["counts"][kind] != want:
+            raise AssertionError(f"{label} {kind} collectives {res['counts'][kind]}, "
+                                 f"expected {want}")
+        if got != want_l:
+            raise AssertionError(f"{label} {kind} launches {got}, expected {want_l}")
+        for k, v in got.items():
+            launched[k] = launched.get(k, 0) + sum(v)
+    if max(errs) > TP_SERVE_TOL or (flips and max(flips) >= TP_SERVE_MARGIN):
+        raise AssertionError(f"{label} the tensor-parallel logits drift from the whole "
+                             f"model's: errors {errs}, flips {flips}")
+    return launched
+
+
+def check_fused_round(label: str, res: dict) -> dict:
+    """``fused_round_case``: ``fused`` on the two processes as node ranks
+    against ``FusedEngine.from_node_axes`` on the card -- the parameters,
+    the loss, one ``wire_stage_gt`` launch a rank (the whole run: one
+    ``fused_round_gt``), one all-gather a wire buffer. Returns the wire
+    stage's launches, both ranks'."""
+    m, w = res["metrics"], res["whole_metrics"]
+    rel = abs(m["loss"] - w["loss"]) / abs(w["loss"])
+    log(f"  {label} fused on {TP_SHARDS} node ranks ({res['rows']} of {res['shape'][0]} "
+        f"hospitals a rank), FD-DSGT Q 10, {res['shape']}: parameters within "
+        f"{res['param_err']:.2e} of FusedEngine.from_node_axes', loss {m['loss']:.6f} vs "
+        f"{w['loss']:.6f}; wire_stage_gt a rank {res['launches']['wire_stage_gt']}, the "
+        f"whole run's {res['whole_launches']}; all-gathers a rank {res['all_gathers']} "
+        f"({res['all_gather_bytes']} B); {res['group_s']:.3f} s on the group, "
+        f"{res['whole_s']:.3f} s whole [{card_line()}]")
+    if res["param_err"] > TP_FUSED_TOL or rel > TP_FUSED_TOL:
+        raise AssertionError(f"{label} fused on the group drifts from the fused engine: {res}")
+    if (res["launches"] != {"wire_stage": [0] * TP_SHARDS, "wire_stage_gt": [1] * TP_SHARDS}
+            or res["whole_launches"] != {"fused_round": 0, "fused_round_gt": 1}
+            or res["all_gathers"] != [4] * TP_SHARDS):
+        raise AssertionError(f"{label} launches or all-gathers: {res}")
+    return {"wire_stage_gt": sum(res["launches"]["wire_stage_gt"]),
+            "fused_round_gt": res["whole_launches"]["fused_round_gt"]}
+
+
 def tensor_parallel_phase() -> dict:
-    """(p1)-(p7) in one ``benchmarks/tensor_parallel`` process, whose two
+    """(p1)-(p9) in one ``benchmarks/tensor_parallel`` process, whose two
     ranks are spawned processes on the card: each holds its shard (drawn
     whole from one seed on the card, then cut) and runs the
     tensor-parallel path, then the whole model runs alone. Returns each
@@ -4905,6 +5001,8 @@ def tensor_parallel_phase() -> dict:
              check_tp_lm("(p4)", TP_VLM_ARCH, res[TP_VLM_ARCH]["lm"])]
     cells += [check_tp_lm(label, arch, res[arch]["lm"], fp32=dtype == "float32")
               for label, arch, _, dtype in TP_RECURRENT]
+    cells += [check_tp_serve("(p8)", res["serve"]),
+              check_fused_round("(p9)", res["fused_round"])]
     launches = {}
     for cell in cells:
         for name, count in cell.items():
@@ -5350,7 +5448,7 @@ def main() -> int:
     torus = torus_and_two_axis(card)
     for name, count in torus["launches"].items():
         launches[name] = launches.get(name, 0) + count
-    phase("phase 9: the dry run (r1), (r2) on the host beside tensor parallelism (p1)-(p7) "
+    phase("phase 9: the dry run (r1), (r2) on the host beside tensor parallelism (p1)-(p9) "
           "on a model group of two ranks sharing the card (launches counted per rank)")
     dryruns = start_dryruns()
     for name, count in tensor_parallel_phase().items():

@@ -10,11 +10,14 @@ touched. Train pairs run the two-axis round, ``--fl-engine sharded_fused
 committed two-axis records; every arch (``TREE_ARCHS``) also runs the
 reference's default, ``--fl-engine tree``, on the ``(node, model)``
 layout with tensor-parallel layers (ROADMAP.md queue 1, item 18b slices
-(i)-(iii); the reference's file name, no engine suffix). Exit code is nonzero if any pair fails.
+(i)-(iii); the reference's file name, no engine suffix); ``--engine flat
+fused`` runs those two, a node's model ranks as replicas. Serving pairs
+run rank 0's own call on its tensor-parallel shards. Exit code is
+nonzero if any pair fails.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run_dryruns
       [--mesh single|multi|both] [--arch ARCH ...] [--shape SHAPE ...]
-      [--q 2] [--jobs N] [--force]
+      [--engine ENGINE ...] [--q 2] [--jobs N] [--force]
 """
 
 from __future__ import annotations
@@ -47,10 +50,16 @@ ARCHS = [
     "tinyllama-1.1b",
 ]
 SHAPE_NAMES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
-#: the flags of a train pair's engine: the two-axis round, and the
-#: tensor-parallel ``tree`` round
+#: the flags of a train pair's engine: the two-axis round, the
+#: tensor-parallel ``tree`` round, and ``flat`` / ``fused`` with a node's
+#: model ranks as replicas (reachable by name -- ``--engine`` -- but not in
+#: the default sweep: the reference's sweep runs neither)
 TRAIN_FLAGS = {"sharded_fused": ["--fl-engine", "sharded_fused", "--fl-shard-model"],
-               "tree": ["--fl-engine", "tree"]}
+               "tree": ["--fl-engine", "tree"],
+               "flat": ["--fl-engine", "flat"],
+               "fused": ["--fl-engine", "fused"]}
+#: the engines a train pair runs by default
+DEFAULT_ENGINES = ("sharded_fused", "tree")
 #: the archs whose train pair also runs ``tree`` (tensor-parallel layers,
 #: expert-parallel MoE): every one
 TREE_ARCHS = ["smollm-360m", "tinyllama-1.1b", "phi3-medium-14b", "qwen2.5-32b",
@@ -99,6 +108,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", nargs="*", default=ARCHS)
     ap.add_argument("--shape", nargs="*", default=SHAPE_NAMES)
     ap.add_argument("--q", type=int, default=2)
+    ap.add_argument("--engine", nargs="*", default=list(DEFAULT_ENGINES),
+                    choices=sorted(TRAIN_FLAGS),
+                    help="the train pairs' engines (tree for TREE_ARCHS only)")
     ap.add_argument("--jobs", type=int, default=1, help="pairs run at once")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
@@ -109,8 +121,8 @@ def main(argv=None) -> int:
     for mesh in meshes:
         for arch in args.arch:
             for shape in args.shape:
-                engines = ["sharded_fused"] + (
-                    ["tree"] if shape == "train_4k" and arch in TREE_ARCHS else [])
+                engines = ["sharded_fused"] if shape != "train_4k" else [
+                    e for e in args.engine if e != "tree" or arch in TREE_ARCHS]
                 for engine in engines:
                     total += 1
                     path = record_path(arch, shape, mesh, args.q, engine)

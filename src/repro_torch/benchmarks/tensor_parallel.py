@@ -39,7 +39,12 @@ at a time (:func:`collect_tiles`). The command line runs, for each ``--arch``,
 :func:`lm_case` and then one :func:`round_case` at Q = 1 on 2 nodes, or
 for an ``ARCH:DEPTH[:DTYPE]``, :func:`lm_case` alone at DEPTH layers of
 the arch's full width (whisper: DEPTH encoder and DEPTH decoder layers),
-at DTYPE compute if given (the card's check; one JSON line).
+at DTYPE compute if given (the card's check; one JSON line); ``--serve``
+adds :func:`serve_case` of ``SERVE_ARCH`` (prefill and decode on the
+ranks' shards against the whole model) and ``--fused-round``
+:func:`fused_round_case`
+(``fused`` with the ranks as node ranks against ``FusedEngine.
+from_node_axes``).
 
 Numbers are max |tp - whole| over the leaf's (or the output's) max
 |whole| (a key projection's bias without RoPE: over its block's value
@@ -50,7 +55,7 @@ refuses two ranks on a device).
   PYTHONPATH=src python -m repro_torch.benchmarks.tensor_parallel --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.benchmarks.tensor_parallel --backend gloo \\
       --arch smollm-360m llama4-scout-17b-a16e:1 internvl2-26b:1 rwkv6-7b:2:float32 \\
-      recurrentgemma-2b:3 whisper-medium:2
+      recurrentgemma-2b:3 whisper-medium:2 --serve --fused-round
 """
 
 from __future__ import annotations
@@ -71,9 +76,10 @@ from repro_torch.convert import model_params_from_numpy, params_from_numpy
 from repro_torch.core.engine import TreeEngine
 from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round, tree_map
 from repro_torch.core.mixing import mesh_gossip_dense_equivalent
-from repro_torch.core.packing import tree_leaves, tree_unflatten
+from repro_torch.core.packing import tree_bytes, tree_leaves, tree_unflatten
 from repro_torch.core.schedules import inv_sqrt
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
 from repro_torch.kernels.rwkv6_scan.ops import wkv6
@@ -104,7 +110,9 @@ from repro_torch.models.tensor_parallel import (
 )
 from repro_torch.training.trainer import stack_for_nodes
 
-__all__ = ["layer_cases", "lm_case", "round_case", "engine_case", "cases", "CASES",
+__all__ = ["layer_cases", "lm_case", "serve_case", "decode_layer_case", "fused_round_case",
+           "round_case",
+           "engine_case", "cases", "CASES",
            "model_group_counts", "expected_collectives", "expected_launches", "collect_tiles",
            "replicated_equal", "RouteLog", "routing_summary", "main"]
 
@@ -113,6 +121,12 @@ __all__ = ["layer_cases", "lm_case", "round_case", "engine_case", "cases", "CASE
 SEED = 0
 #: the rounds' step size ``ALPHA0 / sqrt(r)``
 ALPHA0 = 0.05
+#: the arch ``--serve`` serves, and its decode steps
+SERVE_ARCH, SERVE_STEPS = "smollm-360m", 8
+#: :func:`decode_layer_case`'s decode steps
+DECODE_LAYER_STEPS = 3
+#: :func:`fused_round_case`'s one round: the paper's local steps and chunk
+FUSED_Q, FUSED_CHUNK = 10, 512
 
 
 def _cfg(arch: str, compute_dtype: str, smoke: bool = False, depth: Optional[int] = None):
@@ -213,8 +227,51 @@ def _cut_heads(n_heads: int, n_kv_heads: int, head_dim: int, n_layout: int,
     return int(plan.gather_q or plan.gather_kv)
 
 
-def expected_collectives(cfg, size: int, seq_len: int,
-                         loss_chunk: int = 512) -> Dict[str, int]:
+def _serve_collectives(cfg, size: int, kind: str) -> Dict[str, int]:
+    """:func:`expected_collectives` of one prefill or one decode step: a
+    forward, no remat. The embedding's all-reduce and the logits'
+    all-gather (vocab-parallel, gathered whole); a block:
+
+      * attention (self-attention at a decode step too): ``wo``'s
+        all-reduce, and the all-gather of cut heads where the group
+        gathers them; the FFN that ends the block, one all-reduce (the
+        SwiGLU's ``down``, or the MoE's partial outputs);
+      * ``rwkv``: the time mix's ``wo`` and the channel mix's ``wv`` (2
+        all-reduces; the decay, ``u`` and ``ln_scale`` are cut without a
+        collective forward);
+      * ``recurrent``: the gather of u, ``out_proj``'s all-reduce, then
+        the SwiGLU's (2 all-reduces, 1 all-gather);
+      * whisper: at prefill an encoder layer's attention and GELU MLP (2,
+        and the cut heads' all-gather) and a decoder layer's
+        self-attention, cross-attention and MLP (3, and the cut heads' --
+        at the cross K/V and at q -- gathers); at a decode step a decoder
+        layer's three all-reduces and the self- and cross-attention's q
+        gathers where heads are cut (the cross K/V are the state's)."""
+    ar, ag = 1, 1
+    if cfg.family == "audio":
+        e = cfg.encoder
+        self_cut = _cut_heads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, size)
+        cross_cut = _cut_heads(cfg.n_heads, cfg.n_heads, cfg.head_dim, cfg.n_heads, size)
+        ar += 3 * cfg.n_layers
+        if kind == "prefill":
+            enc_cut = _cut_heads(e.n_heads, e.n_heads, e.d_model // e.n_heads, e.n_heads,
+                                 size)
+            ar += 2 * e.n_layers
+            ag += e.n_layers * enc_cut + cfg.n_layers * (self_cut + 2 * cross_cut)
+        else:
+            ag += cfg.n_layers * (self_cut + cross_cut)
+        return {"all-reduce": ar, "all-gather": ag}
+    cut = _cut_heads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                     attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
+                     size) if cfg.n_heads else 0
+    for block in cfg.effective_pattern:
+        ar += 2
+        ag += 1 if block == "recurrent" else (0 if block == "rwkv" else cut)
+    return {"all-reduce": ar, "all-gather": ag}
+
+
+def expected_collectives(cfg, size: int, seq_len: int = 0, loss_chunk: int = 512,
+                         kind: str = "train") -> Dict[str, int]:
     """The collectives of one forward and backward of ``lm_loss`` (of
     ``encdec_loss`` for whisper) under remat on a model group of ``size``
     (the same on every rank; ``seq_len`` the positions of the loss, a
@@ -254,7 +311,10 @@ def expected_collectives(cfg, size: int, seq_len: int,
     Then the embedding's all-reduce, the loss's all-reduce of the hidden
     state's gradient and, a sequence chunk, two forward all-reduces (the
     max; the sum of exponentials with the gold logit), both issued again
-    by the chunk's recompute."""
+    by the chunk's recompute. ``kind`` ``"prefill"`` or ``"decode"``: one
+    prefill, or one decode step (:func:`_serve_collectives`)."""
+    if kind != "train":
+        return _serve_collectives(cfg, size, kind)
     chunks = -(-seq_len // loss_chunk)
     ar, ag = 1 + 1 + 4 * chunks, 0
     if cfg.family == "audio":
@@ -280,12 +340,25 @@ def expected_collectives(cfg, size: int, seq_len: int,
     return {"all-reduce": ar, "all-gather": ag}
 
 
-def expected_launches(cfg) -> Dict[str, int]:
+def expected_launches(cfg, kind: str = "train") -> Dict[str, int]:
     """Each hand kernel's launches a rank in one forward and backward of
     the loss under remat (a decoder layer's kernel forward and in its
     recompute; whisper's encoder, which has no remat, once): flash for an
     attention layer (whisper's decoder: self- and cross-attention), WKV-6
-    for an RWKV6 layer, the RG-LRU scan for a recurrent one."""
+    for an RWKV6 layer, the RG-LRU scan for a recurrent one. ``kind``
+    ``"prefill"``: one prefill's (flash once an attention layer), or
+    ``"decode"``: one decode step's (the decode kernel once an attention
+    layer); a rank whose heads are all pad heads launches no attention
+    kernel."""
+    if kind != "train":
+        kinds = cfg.effective_pattern
+        if cfg.family == "audio":  # the encoder's at prefill, self- and cross-attention
+            kinds = ("attention",) * (2 * cfg.n_layers + (
+                cfg.encoder.n_layers if kind == "prefill" else 0))
+        attention = sum(k not in ("rwkv", "recurrent") for k in kinds)
+        return {"flash_attention": attention if kind == "prefill" else 0,
+                "decode_attention": attention if kind == "decode" else 0,
+                "wkv6": kinds.count("rwkv"), "rglru_scan": kinds.count("recurrent")}
     if cfg.family == "audio":
         return {"flash_attention": cfg.encoder.n_layers + 4 * cfg.n_layers, "wkv6": 0,
                 "rglru_scan": 0}
@@ -563,7 +636,8 @@ def _audio_layer_cases(cfg, params, tree_case, attention, mlp, x, rnd, g, dev) -
 
 
 #: the kernels whose launches the cases count, a rank each
-KERNELS = {"flash_attention": flash_attention, "wkv6": wkv6, "rglru_scan": rglru_scan}
+KERNELS = {"flash_attention": flash_attention, "wkv6": wkv6, "rglru_scan": rglru_scan,
+           "decode_attention": decode_attention}
 
 
 def _zero_launches() -> None:
@@ -798,6 +872,246 @@ def _sync(dev: torch.device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# serving: prefill and decode on the model group
+# ---------------------------------------------------------------------------
+
+
+def _decode_state(bundle, cfg, params, b: int, steps: int, enc_out, cache_dtype, dev, tp):
+    """Zero decode states for ``steps`` tokens (whisper's cross K/V filled
+    from ``enc_out``)."""
+    state = bundle.init_decode_state_fn(b, steps, device=dev, cache_dtype=cache_dtype)
+    if cfg.family == "audio":
+        state = encdec_mod.encdec_fill_cross_kv(params, cfg, enc_out, state, tp)
+    return state
+
+
+def _decode(bundle, params, tokens: torch.Tensor, state, steps: range):
+    """The decode steps ``steps`` (from an empty cache at step 0),
+    replaying the prompt's tokens; (each step's logits, the state)."""
+    out = []
+    for t in steps:
+        logits, state = bundle.decode_fn(params, tokens[:, t], state)
+        out.append(logits)
+    return out, state
+
+
+def _flips(got: torch.Tensor, want: torch.Tensor) -> List[float]:
+    """The rows whose argmax differs, each with its top-2 gap in the whole
+    model's logits over their scale (max |whole|)."""
+    got, want = got.float(), want.float()
+    scale = max(float(want.abs().max()), 1e-30)
+    top = want.topk(2, dim=-1).values
+    rows = torch.nonzero(got.argmax(-1) != want.argmax(-1)).flatten()
+    return [float(top[r, 0] - top[r, 1]) / scale for r in rows]
+
+
+def serve_case(group, arch: str, compute_dtype: str = "float32", *, smoke: bool = True,
+               params_np=None, tokens=None, extra=None,
+               batch: int = 2, prompt: int = 8, steps: int = 4,
+               return_logits: bool = False) -> Dict:
+    """Prefill and decode of ``arch`` on this rank's shards and states --
+    ``prefill_fn`` on ``(batch, prompt)`` tokens (and a VLM's prefix
+    embeddings or whisper's frames), then ``steps`` decode steps from an
+    empty cache replaying the prompt's first tokens (whisper's cross K/V
+    filled from the prefill's encoder output) -- and then, on rank 0, the
+    whole model's on the same inputs (an MoE taking the group's expert
+    choices, its own compared by ``routing_summary``). Caches in fp32 at
+    fp32 compute, else bf16. Returns (rank 0): the logits' errors
+    (prefill, each step; relative to the whole model's scale), the rows
+    whose argmax differs with their top-2 gaps, the model group's
+    collectives of the prefill and of the first decode step (counted by
+    ``op_analysis``; the later steps run outside it, timed: ``step_s``)
+    against ``expected_collectives``, each rank's kernel launches of the
+    prefill and of all the steps against ``expected_launches``, each
+    rank's parameter and decode-state bytes, the seconds and each rank's
+    peak bytes on the card; with ``return_logits`` both runs' logits as
+    numpy."""
+    dev = group.device
+    cfg = _cfg(arch, compute_dtype, smoke)
+    tp = tp_group(group.model_pg)
+    batch_ = _lm_batch(cfg, dev, tokens, extra, batch, prompt - 1)
+    toks = batch_["tokens"]
+    b = toks.shape[0]
+    cache_dtype = torch.float32 if compute_dtype == "float32" else torch.bfloat16
+    mine = shard_params(_whole(cfg, dev, params_np), tp.rank, tp.size)
+    _free(dev)
+    bundle = build_model(cfg, remat=False, model_group=group.model_pg)
+    counts, launches = {}, {}
+    _zero_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad(), RouteLog() as log:
+        with op_analysis() as oa:
+            logits, aux = bundle.prefill_fn(mine, batch_)
+            _sync(dev)
+        counts["prefill"] = model_group_counts(oa.costs(), group)
+        launches["prefill"] = _launches(group.pg)
+        state = _decode_state(bundle, cfg, mine, b, steps, aux, cache_dtype, dev, tp)
+        state_bytes = tree_bytes(state)
+        _zero_launches()
+        with op_analysis() as oa:  # the first step's collectives
+            steps_out, state = _decode(bundle, mine, toks, state, range(1))
+            _sync(dev)
+        counts["decode"] = model_group_counts(oa.costs(), group)
+        t1 = time.perf_counter()
+        more, state = _decode(bundle, mine, toks, state, range(1, steps))
+        _sync(dev)
+        step_s = (time.perf_counter() - t1) / max(steps - 1, 1)
+        steps_out += more
+        launches["decode"] = _launches(group.pg)
+    tp_s = time.perf_counter() - t0
+    got = [logits.cpu()] + [x.cpu() for x in steps_out]
+    param_bytes = _per_rank(tree_bytes(mine), group.pg)
+    state_bytes = _per_rank(state_bytes, group.pg)
+    del mine, state, logits, aux, steps_out, more
+    _free(dev)
+    dist.barrier(group=group.pg)  # rank 0's whole model once the group's state is gone
+    want, whole_log, whole_s = None, None, None
+    if group.rank == 0:
+        whole = _whole(cfg, dev, params_np)
+        wbundle = build_model(cfg, remat=False)
+        _sync(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad(), RouteLog(replay=log.calls) as whole_log:
+            wlogits, waux = wbundle.prefill_fn(whole, batch_)
+            wstate = _decode_state(wbundle, cfg, whole, b, steps, waux, cache_dtype, dev, None)
+            want = [wlogits.cpu()] + [x.cpu() for x in _decode(wbundle, whole, toks, wstate,
+                                                                range(steps))[0]]
+            _sync(dev)
+        whole_s = time.perf_counter() - t0
+        del whole, wstate, wlogits, waux
+        _free(dev)
+    dist.barrier(group=group.pg)
+    peaks = _per_rank(_peak(dev), group.pg)
+    routing = routing_summary(log, whole_log, group) if log.calls else None
+    if group.rank != 0:
+        return {}
+    size = tp.size
+    out = {"arch": arch, "layers": cfg.n_layers, "batch": b, "prompt": prompt, "steps": steps,
+           "logits_shape": list(got[0].shape),
+           "prefill_err": _rel(got[0], want[0]),
+           "decode_errs": [_rel(g, w) for g, w in zip(got[1:], want[1:])],
+           "flips": [m for g, w in zip(got, want) for m in _flips(g, w)],
+           "counts": counts,
+           "expected": {"prefill": expected_collectives(cfg, size, kind="prefill"),
+                        "decode": expected_collectives(cfg, size, kind="decode")},
+           "launches": launches,
+           "expected_launches": {
+               "prefill": expected_launches(cfg, "prefill"),
+               "decode": {k: steps * v for k, v in expected_launches(cfg, "decode").items()}},
+           "param_bytes": param_bytes, "state_bytes": state_bytes, "routing": routing,
+           "tp_s": tp_s, "step_s": step_s, "whole_s": whole_s, "peak_bytes": peaks}
+    if return_logits:
+        out["logits"] = [g.float().numpy() for g in got]
+        out["whole_logits"] = [w.float().numpy() for w in want]
+    return out
+
+
+def decode_layer_case(group, arch: str) -> Dict:
+    """``attn_decode`` of ``arch``'s smoke config on this rank's heads
+    against the whole layer, ``DECODE_LAYER_STEPS`` tokens from an empty
+    fp32 cache, on the arch's head layout and on one of two pad heads more
+    (at S = 4 the last rank then holds pad heads only: it caches and
+    launches nothing, but issues the group's collectives). Returns (rank 0) each layout's
+    worst output error (over the ranks), the model group's collectives of
+    the steps, and each rank's cached kv heads."""
+    tp = tp_group(group.model_pg)
+    dev = group.device
+    cfg = _cfg(arch, "float32", smoke=True)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    d, b, steps = cfg.d_model, 2, DECODE_LAYER_STEPS
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+              rope_theta=cfg.rope_theta, compute_dtype=torch.float32)
+    xs = torch.randn((steps, b, 1, d), generator=g, device=dev)
+    out = {}
+    for name, hl in (("attention", cfg.n_heads), ("attention_padded", cfg.n_heads + 2)):
+        p = attn.attn_init(g, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                           qkv_bias=cfg.qkv_bias, n_heads_layout=hl, device=dev)
+        mine = shard_params(p, tp.rank, tp.size)
+        heads = attn.tp_kv_heads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, hl, tp)
+        cache = attn.init_kv_cache(b, steps, heads, cfg.head_dim, torch.float32, dev)
+        whole = attn.init_kv_cache(b, steps, cfg.n_kv_heads, cfg.head_dim, torch.float32, dev)
+        err = 0.0
+        with torch.no_grad(), op_analysis() as oa:
+            for x in xs:
+                got, cache = attn.attn_decode(mine, x, cache, n_heads_layout=hl, tp=tp, **kw)
+                want, whole = attn.attn_decode(p, x, whole, n_heads_layout=hl, **kw)
+                err = max(err, _rel(got, want))
+        out[name] = {"err": _worst({"e": err}, group.pg)["e"],
+                     "counts": model_group_counts(oa.costs(), group),
+                     "kv_heads": _per_rank(heads, group.pg)}
+    return out if group.rank == 0 else {}
+
+
+# ---------------------------------------------------------------------------
+# the fused engine on the group's node ranks
+# ---------------------------------------------------------------------------
+
+
+def fused_round_case(group) -> Dict:
+    """One FD-DSGT round of the paper's configuration (the 20-hospital EHR
+    cohort, the 42-32-2 MLP at (20, 1536), ``FUSED_Q`` local steps, chunk
+    ``FUSED_CHUNK``) on ``fused`` built on this process group's ranks as
+    node ranks (``FusedEngine.from_group``: the ring of 20 as a dense W, the sharded
+    engine's all-gather wire; S = 1 whatever the group's model shards),
+    and then, on rank 0, the same round of ``FusedEngine.from_node_axes``
+    on one device. Returns (rank 0): the parameters' error (over their
+    scale; every rank's rows gathered), the metrics of both, each rank's
+    wire-stage launches and the whole run's round-kernel launches, the
+    wire's all-gathers and their bytes a rank, the seconds."""
+    from repro_torch.configs.ehr_mlp import CLASS_WEIGHT, class_weights
+    from repro_torch.core.engine import FusedEngine
+    from repro_torch.data.ehr import generate_ehr_cohort, make_node_batcher
+    from repro_torch.kernels.gossip.ops import fused_round, fused_round_gt, wire_stage, \
+        wire_stage_gt
+    from repro_torch.launch.mesh import NodeGroup
+    from repro_torch.models.mlp import make_mlp_loss, mlp_init
+    from repro_torch.training.trainer import stack_batches
+
+    dev, n = group.device, 20
+    nodes = NodeGroup(group.pg, group.rank, group.world, dev)
+    batcher = make_node_batcher(generate_ehr_cohort(seed=SEED), m=20, seed=SEED + 1)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in stack_batches(batcher, FUSED_Q).items()}
+    stacked = stack_for_nodes(mlp_init(SEED, device=dev), n)
+    cfg = FLConfig(algorithm="dsgt", q=FUSED_Q, n_nodes=n)
+    loss = make_mlp_loss(class_weights(CLASS_WEIGHT))
+    stages = {"wire_stage": wire_stage, "wire_stage_gt": wire_stage_gt}
+    rounds_k = {"fused_round": fused_round, "fused_round_gt": fused_round_gt}
+    for fn in (*stages.values(), *rounds_k.values()):
+        fn.launches = 0
+    eng, rows = FusedEngine.from_group(nodes, stacked, scale_chunk=FUSED_CHUNK)
+    state = init_fl_state(cfg, rows, eng)
+    round_fn = make_fl_round(loss, inv_sqrt(0.02), cfg, eng)
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, m = round_fn(state, batch)
+    metrics = {k: float(v) for k, v in m.items()}
+    _sync(dev)
+    group_s = time.perf_counter() - t0
+    launches = {k: _per_rank(fn.launches, group.pg) for k, fn in stages.items()}
+    gathers = _per_rank(eng.collectives, group.pg)
+    gather_bytes = _per_rank(eng.collective_bytes, group.pg)
+    params = eng.gather_rows(state.params).cpu()
+    if group.rank != 0:
+        return {}
+    weng, flat = FusedEngine.from_node_axes({"nodes": n}, stacked, scale_chunk=FUSED_CHUNK)
+    wstate = init_fl_state(cfg, flat, weng)
+    wround = make_fl_round(loss, inv_sqrt(0.02), cfg, weng)
+    _sync(dev)
+    t0 = time.perf_counter()
+    wstate, wm = wround(wstate, batch)
+    whole_metrics = {k: float(v) for k, v in wm.items()}
+    _sync(dev)
+    return {"shape": list(params.shape), "rows": len(eng.rows),
+            "param_err": _rel(params, wstate.params.cpu()),
+            "metrics": metrics, "whole_metrics": whole_metrics, "launches": launches,
+            "whole_launches": {k: fn.launches for k, fn in rounds_k.items()},
+            "all_gathers": gathers, "all_gather_bytes": gather_bytes,
+            "group_s": group_s, "whole_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
 # tree rounds on the (node, model) layout
 # ---------------------------------------------------------------------------
 
@@ -936,7 +1250,9 @@ def engine_case(group, arch: str) -> Dict:
 
 
 #: the checks :func:`cases` runs by name
-CASES = {"layers": layer_cases, "lm": lm_case, "round": round_case, "engine": engine_case}
+CASES = {"layers": layer_cases, "lm": lm_case, "round": round_case, "engine": engine_case,
+         "serve": serve_case, "decode_layer": decode_layer_case,
+         "fused_round": fused_round_case}
 
 
 def cases(group, todo) -> List:
@@ -954,13 +1270,25 @@ def _free(dev: torch.device) -> None:
 
 
 def _card_cases(group, archs: List[str], compute_dtype: str, smoke: bool, batch: int,
-                seq_len: int) -> Dict:
+                seq_len: int, serve: bool = False, fused_round: bool = False) -> Dict:
     """What the card's check runs on one group, for each
     ``ARCH[:DEPTH[:DTYPE]]`` of ``archs``: :func:`lm_case` (at DEPTH
     layers, at DTYPE compute or ``compute_dtype``), then, at the config's
-    depth, one :func:`round_case` at Q = 1 on 2 nodes; the card's memory
-    handed back between them."""
+    depth, one :func:`round_case` at Q = 1 on 2 nodes; with ``serve``,
+    :func:`serve_case` of ``SERVE_ARCH`` (a prefill of ``(batch,
+    seq_len)`` and ``SERVE_STEPS`` decode steps); with ``fused_round``,
+    one :func:`fused_round_case`; the card's memory handed back between
+    them."""
     out, dev = {}, group.device
+    if serve:
+        _free(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        out["serve"] = serve_case(group, SERVE_ARCH, compute_dtype, smoke=smoke, batch=batch,
+                                  prompt=seq_len, steps=SERVE_STEPS)
+    if fused_round:
+        _free(dev)
+        out["fused_round"] = fused_round_case(group)
     for spec in archs:
         arch, depth, dtype = (spec.split(":") + ["", ""])[:3]
         # an fp32 cell also reads the whole model's one-ulp response
@@ -968,7 +1296,7 @@ def _card_cases(group, archs: List[str], compute_dtype: str, smoke: bool, batch:
                                       ulp=(dtype or compute_dtype) == "float32"))]
         if not depth:
             cases.append(("round", round_case, dict(q=1, perturb=1e-3)))
-        out[arch] = {}
+        out.setdefault(arch, {})
         for name, case, kw in cases:
             _free(dev)
             if dev.type == "cuda":
@@ -980,7 +1308,7 @@ def _card_cases(group, archs: List[str], compute_dtype: str, smoke: bool, batch:
 
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", nargs="+", default=["smollm-360m"],
+    ap.add_argument("--arch", nargs="*", default=["smollm-360m"],
                     help="ARCH, or ARCH:DEPTH[:DTYPE] for lm_case alone at DEPTH layers "
                          "of the arch's full width (at DTYPE compute)")
     ap.add_argument("--shards", type=int, default=2)
@@ -988,6 +1316,12 @@ def main(argv=None) -> Dict:
     ap.add_argument("--compute-dtype", default="bfloat16")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--serve", action="store_true",
+                    help=f"serve_case of {SERVE_ARCH}: a prefill of (--batch, --seq-len) and "
+                         f"{SERVE_STEPS} decode steps on the ranks' shards")
+    ap.add_argument("--fused-round", action="store_true",
+                    help="one FD-DSGT round of the paper's MLP on 'fused' with the ranks as "
+                         "node ranks (fused_round_case)")
     ap.add_argument("--device", default=None)
     ap.add_argument("--backend", default=None,
                     help="'gloo' to put the model group's ranks on one card")
@@ -997,15 +1331,18 @@ def main(argv=None) -> Dict:
         # the ranks share the build directories: build the kernels here,
         # once, one nvcc a source, all together
         from repro_torch.kernels.build import build_all
+        from repro_torch.kernels.decode_attention import ops as decode_ops
         from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.kernels.gossip import build as gossip_build
         from repro_torch.kernels.rglru_scan import ops as rglru_ops
         from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
 
-        build_all(flash_ops.LIBS, rwkv_ops.LIBS, rglru_ops.LIBS)
+        build_all(flash_ops.LIBS, rwkv_ops.LIBS, rglru_ops.LIBS, decode_ops.LIBS,
+                  gossip_build.LIBS)
     res = run_group(_card_cases, args.shards, device=args.device, model_shards=args.shards,
                     backend=args.backend,
                     args=(args.arch, args.compute_dtype, args.smoke, args.batch,
-                          args.seq_len))
+                          args.seq_len, args.serve, args.fused_round))
     res["seconds"] = time.perf_counter() - t0
     print(json.dumps(res, default=float))
     return res

@@ -1389,9 +1389,12 @@ class FlatEngine(GossipEngine):
         _reject_node_program(node_program, cls.name, reason)
         if group.model_shards > 1:
             raise ValueError(
-                f"the 'flat' engine on the (node, model) layout ({group.model_shards} model "
-                "shards) is ROADMAP.md queue 1, item 18b: its flat buffer is not "
-                "Megatron-split -- use 'tree' (dense, VLM, MoE) or 'sharded_fused'")
+                f"the 'flat' engine on a group of {group.model_shards} model shards: its "
+                "flat buffer is not Megatron-split, so a node's model ranks are replicas "
+                "that each hold the node's whole buffer, as the reference places it "
+                "(P(node axes, None)) -- build the group of the node ranks alone (the dry "
+                "run does), or use 'tree' (tensor-parallel layers) or 'sharded_fused' "
+                "(model_axis=, the two-axis layout)")
         flat, layout = pack(stacked_params, pad_to=scale_chunk,
                             buffer_dtype=storage_dtype or torch.float32)
         eng = cls(make_mesh_flat_mix(group, self_weight, wire_dtype, axes_subset),
@@ -1399,7 +1402,7 @@ class FlatEngine(GossipEngine):
                   device=group.device, wire_dtype=wire_dtype)
         eng._bind_group(group, layout.n_nodes)
         rows = slice(eng.rows.start, eng.rows.stop)
-        return eng, flat[rows].to(group.device).contiguous()
+        return eng, _own_block(flat[rows].to(group.device))
 
 
 # ---------------------------------------------------------------------------
@@ -1787,6 +1790,51 @@ class FusedEngine(GossipEngine):
         w = mesh_gossip_dense_equivalent(dict(node_axes), self_weight=self_weight,
                                          axes_subset=axes_subset)
         return cls.simulated(w, stacked_params, scale_chunk=scale_chunk, **kw)
+
+    @classmethod
+    def from_group(cls, group: NodeGroup, stacked_params, *, self_weight=None,
+                   axes_subset=None, scale_chunk: int = 512,
+                   **kw) -> Tuple["ShardedFusedEngine", torch.Tensor]:
+        """The build on a group's node ranks (the reference's ``from_mesh``):
+        W is the dense equivalent of the circulant ring / torus over the
+        group's node axes (``self_weight``, directions restricted to
+        ``axes_subset``), as :meth:`from_node_axes`, and the round runs
+        through the sharded engine's dense-W path --
+        ``ShardedFusedEngine.from_group(w=...)``: this rank's rows, one
+        all-gather a wire buffer, ``W_off[rows] @ dq_all`` -- equal to this
+        engine's round on one process up to the summation order. The wire
+        is the dense int8 one, top-k masked under ``topk`` as here, unless
+        ``compact=`` asks for the compact one. The other knobs (the
+        schedules, the programs, ``dp``, a sub-range scope,
+        ``storage_dtype``, ``error_feedback`` / ``difference_coding``) go
+        to that path. Returns (the engine, this rank's rows of the flat
+        buffer on the group's device).
+
+        Refused here: a group of S > 1 model shards (the flat buffer is not
+        Megatron-split: a node's model ranks are replicas holding its whole
+        buffer, as the reference places it, so the group is the node ranks
+        alone, as the dry run builds it). The sharded path refuses what it
+        cannot run -- ``wire_dtype`` (the wire is int8), ``secure_agg`` (the
+        all-gather moves every payload to every rank) and a ``layerwise``
+        scope (no in-kernel W contraction to gate) -- with its own message,
+        which this one prefixes."""
+        if group.model_shards > 1:
+            raise ValueError(
+                f"'fused' on a group of {group.model_shards} model shards: its flat buffer "
+                "is not Megatron-split, so a node's model ranks are replicas that each "
+                "hold the node's whole buffer -- build the group of the node ranks alone "
+                "(the dry run does), or use 'sharded_fused' with model_axis= (the two-axis "
+                "layout)")
+        n = tree_leaves(stacked_params)[0][1].shape[0]
+        w = mesh_gossip_dense_equivalent(group.axes(n), self_weight=self_weight,
+                                         axes_subset=axes_subset)
+        kw.setdefault("compact", False)
+        try:
+            return ShardedFusedEngine.from_group(group, stacked_params, w=w,
+                                                 scale_chunk=scale_chunk, **kw)
+        except ValueError as e:
+            raise ValueError(f"'fused' on a group runs the sharded engine's dense-W "
+                             f"all-gather path, which refuses this: {e}") from e
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,7 @@ __all__ = [
     "FlatLayout",
     "tree_leaves",
     "tree_unflatten",
+    "tree_bytes",
     "pack",
     "pack_layout",
     "pack_like",
@@ -137,6 +138,11 @@ def tree_leaves(tree: Tree, prefix: Path = ()) -> List[Tuple[Path, torch.Tensor]
     if isinstance(tree, list):
         return [item for i, sub in enumerate(tree) for item in tree_leaves(sub, prefix + (i,))]
     return [(prefix, tree)]
+
+
+def tree_bytes(tree: Tree) -> int:
+    """The bytes of a tree's leaves, each counted whole."""
+    return int(sum(t.numel() * t.element_size() for _, t in tree_leaves(tree)))
 
 
 def tree_unflatten(paths: Tuple[Path, ...], values) -> Tree:

@@ -30,14 +30,25 @@ host or a pod, the peak of live bytes. Every number is rank 0's.
     mixes on the rank's heads, the RG-LRU block on its channels,
     whisper's encoder-decoder, the vocab-parallel embedding and loss),
     and the record's ``tensor_parallel`` section gives the per-rank state
-    bytes and the model and node groups' collectives. ``flat`` /
-    ``fused`` on the ``(node, model)`` layout are refused by name (what
-    is left of ROADMAP.md queue 1, item 18b);
-  * prefill and decode pairs run one call of the whole global batch on
-    ``meta``: per-rank parameter bytes from ``models.sharding``'s rules,
-    cache and batch bytes split over the node axes as the reference's
-    shardings split them, FLOPs of the call divided over the ranks (the
-    record says so in ``flops_split``).
+    bytes and the model and node groups' collectives; or ``flat`` /
+    ``fused``, whose flat buffer the reference places ``P(node axes,
+    None)``: a node's model ranks are replicas that each hold the node's
+    whole buffer and run the whole model (the record's
+    ``model_replicas``), so the fake world is the node ranks alone, as for
+    ``sharded_fused`` without ``--fl-shard-model``, and the model axis
+    carries nothing (``fused``: ``FusedEngine.from_group``, the torus's
+    dense W on the sharded engine's all-gather wire);
+  * prefill and decode pairs run rank 0's own call on ``meta``: its
+    shards of the tensor-parallel layers (``build_model(cfg,
+    model_group=...)``, ``models.sharding.shard_params``), its share of
+    the batch (B / nodes where it divides, else B / data, else B, the
+    reference's split) and its decode states (the kv heads its q heads
+    read, its WKV-6 heads, its RG-LRU channels); the record's FLOPs,
+    bytes and live peak are that call's, undivided, and its
+    ``tensor_parallel`` section gives the head plan, the per-rank
+    parameter and state bytes (beside the reference's cache placement,
+    replicated over the model axis) and the model and node groups'
+    collectives.
 
 The record keeps the reference's keys; XLA's own fields are replaced:
 ``temp_bytes`` is the peak of the live bytes the call allocated beyond
@@ -75,7 +86,7 @@ from repro_torch.configs.shapes import InputShape
 from repro_torch.core.dynamics import program_names
 from repro_torch.core.engine import engine_names, get_engine, schedule_names
 from repro_torch.core.fl import FLConfig, init_fl_state, make_fl_round
-from repro_torch.core.packing import flat_wire_bytes_per_shard, tree_leaves
+from repro_torch.core.packing import flat_wire_bytes_per_shard, tree_bytes
 from repro_torch.core.schedules import inv_sqrt
 from repro_torch.launch.mesh import (
     MeshLayout,
@@ -90,16 +101,16 @@ from repro_torch.launch.mesh import (
 from repro_torch.launch.op_analysis import op_analysis
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model
-from repro_torch.models.sharding import batch_specs, model_param_specs, rank_bytes
+from repro_torch.models.sharding import batch_specs, rank_bytes, shard_params
 from repro_torch.training.trainer import stack_for_nodes
 
 __all__ = ["start_fake_world", "build_train_round", "two_axis_record",
            "tensor_parallel_record", "run_pair", "record_name", "main"]
 
 META = torch.device("meta")
-#: the engines the reference reaches at the production mesh through GSPMD
-#: whose flat buffer the port does not yet place on the (node, model) layout
-GSPMD_ENGINES = ("flat", "fused")
+#: the engines whose flat buffer is placed ``P(node axes, None)``: the
+#: model ranks of a node are replicas
+REPLICA_ENGINES = ("flat", "fused")
 SKIP_REASON = "whisper x long_500k: enc-dec full-attention decoder (DESIGN.md §4)"
 
 
@@ -169,14 +180,6 @@ def build_train_round(arch: str, shape: InputShape, mesh: MeshLayout, q: int,
             "--fl-shard-model needs the sharded_fused engine (the "
             f"two-axis wire is its contract); got fl_engine={fl_engine!r}"
         )
-    if fl_engine in GSPMD_ENGINES:
-        raise ValueError(
-            f"--fl-engine {fl_engine}: the reference dry-runs it at the production "
-            "mesh with its flat buffer P(node axes, None) beside GSPMD's Megatron "
-            "partitioning of the model layers; the port's (node, model) layout runs "
-            "--fl-engine tree for every family, and flat / fused there are what is left "
-            "of ROADMAP.md queue 1, item 18b (or --fl-engine sharded_fused, with "
-            "--fl-shard-model for the two-axis layout)")
     cfg = get_config(arch, smoke=smoke)
     if pad_heads:
         cfg = dataclasses.replace(cfg, tp_head_pad=pad_heads)
@@ -190,8 +193,10 @@ def build_train_round(arch: str, shape: InputShape, mesh: MeshLayout, q: int,
             "--fl-shard-model needs a mesh with a 'model' axis; "
             f"this mesh has {mesh.axis_names!r}"
         )
-    # without the model axis each node's model-axis ranks are replicas
-    # running this same program: the fake world is the node ranks alone
+    # without the model axis (flat, fused, sharded_fused without
+    # --fl-shard-model) each node's model-axis ranks are replicas running
+    # this same program on the node's whole buffer: the fake world is the
+    # node ranks alone
     node_pg, model_pg = start_fake_world(node_ranks * s, s)
     bundle = build_model(cfg, remat=True, model_group=model_pg if tensor_parallel else None)
     axes = tuple((a, mesh.shape[a]) for a in naxes) if nodes == node_ranks else (
@@ -213,6 +218,7 @@ def build_train_round(arch: str, shape: InputShape, mesh: MeshLayout, q: int,
     batch_mesh = {a: mesh.shape[a] for a in naxes}
     return {"round_fn": round_fn, "state": state, "batch": batch, "engine": engine,
             "fl_cfg": fl_cfg, "cfg": cfg, "group": group, "tensor_parallel": tensor_parallel,
+            "model_replicas": n_model_shards(mesh) if fl_engine in REPLICA_ENGINES else None,
             "batch_bytes": rank_bytes(batch, batch_specs(batch, naxes), batch_mesh)}
 
 
@@ -287,6 +293,28 @@ def two_axis_record(engine, costs, fl_cfg) -> Dict[str, Any]:
     }
 
 
+def _group_collectives(costs, model_pg, node_pg) -> Tuple[Dict, Dict]:
+    """The collectives of the model group and of the node group by kind
+    (``op_analysis``'s ``on_group``). Raises AssertionError where a
+    collective left both groups or a gossip message left the node group."""
+    model_ranks = tuple(dist.get_process_group_ranks(model_pg))
+    node_ranks = tuple(dist.get_process_group_ranks(node_pg))
+    stray = [e for e in costs.events if tuple(e["ranks"]) not in (model_ranks, node_ranks)]
+    assert not stray, f"collectives outside the model and node groups: {stray[:4]}"
+    on_model = costs.on_group(model_ranks)
+    assert set(on_model) <= {"all-reduce", "all-gather"}, "a gossip message on the model group"
+    return on_model, costs.on_group(node_ranks)
+
+
+def _head_plan(cfg, shard: int, shards: int) -> Optional[Dict]:
+    """The rank's head share (a decoder's; None for attention-free RWKV6)."""
+    if not cfg.n_heads:
+        return None
+    return attn.tp_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                             attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
+                             shard, shards)._asdict()
+
+
 def tensor_parallel_record(aux, costs) -> Dict[str, Any]:
     """The ``tree`` round's (node, model) layout: the rank's head share (a
     decoder's; None for attention-free RWKV6), its state bytes leaf by leaf (params, tracker, previous gradient: the
@@ -295,27 +323,15 @@ def tensor_parallel_record(aux, costs) -> Dict[str, Any]:
     group spans two 8-GPU hosts). Raises AssertionError where a
     collective left both groups or a gossip message left the node group."""
     group, cfg, state = aux["group"], aux["cfg"], aux["state"]
-    model_ranks = tuple(dist.get_process_group_ranks(group.model_pg))
-    node_ranks = tuple(dist.get_process_group_ranks(group.wire_pg))
-    stray = [e for e in costs.events if tuple(e["ranks"]) not in (model_ranks, node_ranks)]
-    assert not stray, f"collectives outside the model and node groups: {stray[:4]}"
-    on_model = costs.on_group(model_ranks)
-    assert set(on_model) <= {"all-reduce", "all-gather"}, "a gossip message on the model group"
-    plan = attn.tp_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                             attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
-                             group.shard, group.model_shards) if cfg.n_heads else None
-
-    def nbytes(tree):
-        return int(sum(t.numel() * t.element_size() for _, t in tree_leaves(tree)))
-
+    on_model, on_node = _group_collectives(costs, group.model_pg, group.wire_pg)
     return {
         "model_axis": "model", "model_shards": int(group.model_shards),
-        "heads": plan and plan._asdict(),
-        "param_bytes": nbytes(state.params),
-        "tracker_bytes": nbytes(state.tracker) if state.tracker is not None else 0,
-        "prev_grad_bytes": nbytes(state.prev_grad) if state.prev_grad is not None else 0,
+        "heads": _head_plan(cfg, group.shard, group.model_shards),
+        "param_bytes": tree_bytes(state.params),
+        "tracker_bytes": tree_bytes(state.tracker) if state.tracker is not None else 0,
+        "prev_grad_bytes": tree_bytes(state.prev_grad) if state.prev_grad is not None else 0,
         "model_group": on_model,
-        "node_group": costs.on_group(node_ranks),
+        "node_group": on_node,
     }
 
 
@@ -339,45 +355,56 @@ def _split_bytes(tree, specs, sizes: Dict[str, int]) -> int:
     return sum(rank_bytes({"x": t}, {"x": s}, sizes) for t, s in zip(_leaves(tree), specs))
 
 
+def _batch_share(b: int, mesh: MeshLayout) -> int:
+    """Rank 0's share of a serving batch of ``b``: split over the node axes
+    where it divides, else over ``data``, else whole (the reference's
+    batch specs)."""
+    for parts in (n_fl_nodes(mesh), mesh.shape["data"]):
+        if b % parts == 0:
+            return b // parts
+    return b
+
+
 def _serve_call(cfg, shape: InputShape, mesh: MeshLayout):
-    """One prefill or decode call of the whole global batch on meta, and
-    the per-rank bytes of its arguments; returns (call, argument bytes,
-    out-bytes function)."""
-    bundle = build_model(cfg, remat=False)
-    params = bundle.param_shapes()
-    naxes = node_axes(mesh)
-    nodes = n_fl_nodes(mesh)
+    """Rank 0's prefill or decode call on meta -- its shards of the
+    tensor-parallel layers, its share of the batch and its decode states
+    -- in the fake world of the mesh's node and model groups. Returns
+    (call, argument bytes, the record's ``tensor_parallel`` section less
+    its collectives, the (model, node) process groups)."""
+    shards = n_model_shards(mesh)
+    node_pg, model_pg = start_fake_world(mesh.world, shards)
+    bundle = build_model(cfg, remat=False, model_group=model_pg)
+    whole = bundle.param_shapes()
+    params = shard_params(whole, 0, shards)
     b = shape.global_batch
-    sizes = dict(mesh.shape)
-    param_bytes = rank_bytes(params, model_param_specs(params), mesh)
+    share = _batch_share(b, mesh)
+    tp = {"model_axis": "model", "model_shards": shards,
+          "heads": _head_plan(cfg, 0, shards), "batch": b, "batch_share": share,
+          "param_bytes": tree_bytes(params)}
     if shape.kind == "prefill":
-        batch = serve_input_specs(cfg, shape)
-        bdim = tuple(naxes) if b % nodes == 0 else (
-            ("data",) if b % mesh.shape["data"] == 0 else None)
-        specs = [(bdim,) + (None,) * (t.ndim - 1) for t in _leaves(batch)]
-        arg_bytes = param_bytes + _split_bytes(batch, specs, sizes)
+        batch = serve_input_specs(cfg, dataclasses.replace(shape, global_batch=share))
+        tp["batch_bytes"] = tree_bytes(batch)
 
         def call():
             return bundle.prefill_fn(params, batch)
-
-        out_split = (b, naxes, bdim is not None)
     else:
         sliding = decode_sliding_override(cfg, shape)
-        divisible = b % nodes == 0
-        caches = bundle.init_decode_state_fn(b, shape.seq_len, sliding_override=sliding,
+        caches = bundle.init_decode_state_fn(share, shape.seq_len, sliding_override=sliding,
                                              device=META)
-        tokens = torch.empty((b,), dtype=torch.int32, device=META)
-        arg_bytes = (param_bytes + _split_bytes(caches, _cache_specs(caches, b, naxes,
-                                                                     divisible), sizes)
-                     + _split_bytes(tokens, [((tuple(naxes) if divisible else None),)],
-                                    sizes))
+        tokens = torch.empty((share,), dtype=torch.int32, device=META)
+        tp["batch_bytes"] = tree_bytes(tokens)
+        tp["state_bytes"] = tree_bytes(caches)
+        # the reference's placement: the whole model's caches split by
+        # their batch dim over the node axes, replicated over the model axis
+        naxes, full = node_axes(mesh), build_model(cfg, remat=False).init_decode_state_fn(
+            b, shape.seq_len, sliding_override=sliding, device=META)
+        tp["reference_state_bytes"] = _split_bytes(
+            full, _cache_specs(full, b, naxes, b % n_fl_nodes(mesh) == 0), dict(mesh.shape))
 
         def call():
             return bundle.decode_fn(params, tokens, caches, sliding_override=sliding)
-
-        out_split = (b, naxes, divisible)
-    return call, arg_bytes, lambda out: _split_bytes(
-        out, _cache_specs(out, *out_split), sizes)
+    arg_bytes = tp["param_bytes"] + tp["batch_bytes"] + tp.get("state_bytes", 0)
+    return call, arg_bytes, tp, (model_pg, node_pg)
 
 
 def record_name(args) -> str:
@@ -461,13 +488,18 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str, q: int = 4, algorithm: 
             out_bytes = _bytes((new_state, metrics))
             flops_split = "rank 0's round: each rank runs its own rows and tile"
         else:
-            start_fake_world(mesh.world)
-            call, arg_bytes, out_fn = _serve_call(cfg, shape, mesh)
+            call, arg_bytes, serve_tp, pgs = _serve_call(cfg, shape, mesh)
             with op_analysis(pod_ranks=pod) as oa:
                 out = call()
-            out_bytes = out_fn(out)
-            flops_split = (f"one call of the whole batch {shape.global_batch} on meta, "
-                           f"divided over the {n_chips} ranks")
+            out_bytes = _bytes(out)
+            flops_split = (f"rank 0's own call, no division: its shards of the "
+                           f"{serve_tp['model_shards']} model ranks' tensor-parallel layers, "
+                           f"its {serve_tp['batch_share']} of the batch {shape.global_batch} "
+                           "and its decode states")
+        if train and aux["model_replicas"]:
+            flops_split = (f"rank 0's round: its node's whole model and flat buffer "
+                           f"(P(node axes, None)); the node's {aux['model_replicas']} model "
+                           "ranks are replicas running the same round, counted in n_chips")
         trace_s = time.time() - t0
         costs = oa.costs()
         record = {
@@ -483,9 +515,8 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str, q: int = 4, algorithm: 
             "topk": topk if train else None, "wire_dtype": wire_dtype,
             "pod_gossip_every": pod_gossip_every, "n_chips": n_chips,
             "n_nodes": nodes or n_fl_nodes(mesh),
-            "flops": float(costs.flops if train else costs.flops / n_chips),
-            "traffic_bytes": float(costs.traffic_bytes if train
-                                   else costs.traffic_bytes / n_chips),
+            "flops": float(costs.flops),
+            "traffic_bytes": float(costs.traffic_bytes),
             "flops_split": flops_split,
             "collectives": {
                 "per_kind": costs.collectives,
@@ -496,8 +527,7 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str, q: int = 4, algorithm: 
             "memory": {
                 "argument_bytes": int(arg_bytes),
                 "output_bytes": int(out_bytes),
-                "temp_bytes": int(costs.peak_bytes if train
-                                  else costs.peak_bytes // n_chips),
+                "temp_bytes": int(costs.peak_bytes),
             },
             "model_params": cfg.param_count() if cfg.family != "mlp" else None,
             "active_params": cfg.active_param_count() if cfg.family != "mlp" else None,
@@ -514,6 +544,12 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str, q: int = 4, algorithm: 
             record["two_axis"] = two_axis_record(aux["engine"], costs, aux["fl_cfg"])
         if train and aux["tensor_parallel"]:
             record["tensor_parallel"] = tensor_parallel_record(aux, costs)
+        if train and aux["model_replicas"]:
+            record["model_replicas"] = aux["model_replicas"]
+        if not train:
+            on_model, on_node = _group_collectives(costs, *pgs)
+            record["tensor_parallel"] = {**serve_tp, "model_group": on_model,
+                                         "node_group": on_node}
         return record
     finally:
         if dist.is_initialized():
@@ -537,9 +573,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--impl", default="ref", choices=("ref", "blocked"),
                     help="kept for the reference's command lines: 'ref' only")
     ap.add_argument("--fl-engine", default="tree", choices=engine_names(),
-                    help="round engine (core.engine's registry); the port's dry run "
-                         "builds sharded_fused, and tree for every family on the "
-                         "(node, model) layout; it refuses flat and fused there")
+                    help="round engine (core.engine's registry): tree on the (node, "
+                         "model) layout with tensor-parallel layers; flat and fused with "
+                         "a node's model ranks as replicas of its whole flat buffer; "
+                         "sharded_fused, with --fl-shard-model on the two-axis layout")
     ap.add_argument("--topk", type=int, default=None,
                     help="ship only the k largest payload columns per scale chunk "
                          "(the compact wire where it is smaller)")

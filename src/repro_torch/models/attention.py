@@ -38,7 +38,9 @@ Cross-attention takes the same plan (``n_heads`` q and kv heads, no pad
 heads): :func:`precompute_cross_kv` projects the rank's k / v columns of
 the encoder output and :func:`cross_attn_apply` its q columns of the
 decoder stream, each all-gathered (k and v together) only where a
-rank's columns cut a head; ``wo`` is row-parallel.
+rank's columns cut a head; ``wo`` is row-parallel. Decode takes the same
+plan (:func:`attn_decode`, :func:`cross_attn_decode`): a rank's KV cache
+holds the kv heads its q heads read, and the decode kernel runs on those.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ __all__ = [
     "tp_head_plan",
     "init_kv_cache",
     "attn_decode",
+    "tp_kv_heads",
     "cross_attn_init",
     "precompute_cross_kv",
     "cross_attn_apply",
@@ -209,13 +212,14 @@ def tp_head_plan(n_heads: int, n_kv_heads: int, head_dim: int, n_layout: int,
                    expand_kv)
 
 
-def _attn_apply_tp(p: Dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
-                   n_kv_heads: int, head_dim: int, rope_theta: Optional[float],
-                   causal: bool, window: int, compute_dtype, hl: int,
-                   tp: TPGroup) -> torch.Tensor:
-    """:func:`attn_apply` on the rank's shards (see the module docstring)."""
-    hd = head_dim
-    plan = tp_head_plan(n_heads, n_kv_heads, hd, hl, tp.rank, tp.size)
+def _tp_qkv(p: Dict, x: torch.Tensor, plan: TPHeads, hd: int, compute_dtype,
+            tp: TPGroup) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """The rank's logical q heads ``[h_lo, a_hi)`` (B, S, n, hd), the k and
+    v heads it holds (B, S, m, hd) -- every kv head where they were
+    gathered, else its own -- and the first one's index: the
+    column-parallel q / k / v of ``x`` (passed through ``copy_to_model``),
+    with the ONE all-gather of the plan where the rank's columns cut a
+    head (every rank issues it, a rank of pad heads only too)."""
     x = copy_to_model(x, tp)
     q = linear(p["wq"], x, compute_dtype)
     k = linear(p["wk"], x, compute_dtype)
@@ -236,14 +240,40 @@ def _attn_apply_tp(p: Dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads
         kv_base = 0
     else:
         q_base, kv_base = plan.h_lo, plan.kv_lo
-    b, s = x.shape[:2]
-    n_act = plan.a_hi - plan.h_lo
-    out = x.new_zeros((b, s, plan.h_hi - plan.h_lo, hd), dtype=compute_dtype)
-    if n_act:
-        qh = _split_heads(q, q.shape[-1] // hd, hd)[..., plan.h_lo - q_base:
-                                                     plan.a_hi - q_base, :]
-        kh = _split_heads(k, k.shape[-1] // hd, hd)
-        vh = _split_heads(v, v.shape[-1] // hd, hd)
+    qh = _split_heads(q, q.shape[-1] // hd, hd)[..., plan.h_lo - q_base:plan.a_hi - q_base, :]
+    return (qh, _split_heads(k, k.shape[-1] // hd, hd), _split_heads(v, v.shape[-1] // hd, hd),
+            kv_base)
+
+
+def _tp_out(p: Dict, out: torch.Tensor, att: Optional[torch.Tensor], plan: TPHeads,
+            hd: int, compute_dtype, tp: TPGroup, anchors=()) -> torch.Tensor:
+    """The rank's attention ``att`` (..., a_hi - h_lo, hd) on its logical
+    heads, into ``out`` (zeros over its layout heads ``[h_lo, h_hi)``, the
+    pad heads' output) -- ``att`` None for a rank of pad heads only, whose
+    zeros must still reach ``anchors`` (q, k, v), so that it issues the
+    backward collectives with the rest of the group -- cut to its q
+    columns ``[q_lo, q_hi)`` and through the row-parallel ``wo``."""
+    if att is None:
+        out = out + sum(t[..., :0].sum() for t in anchors)
+    else:
+        out = att if att.shape[-2] == out.shape[-2] else F.pad(
+            att, (0, 0, 0, out.shape[-2] - att.shape[-2]))
+    out = out.reshape(*out.shape[:-2], -1)[..., plan.q_lo - plan.h_lo * hd:
+                                           plan.q_hi - plan.h_lo * hd]
+    return row_parallel_linear(p["wo"], out, compute_dtype, tp)
+
+
+def _attn_apply_tp(p: Dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
+                   n_kv_heads: int, head_dim: int, rope_theta: Optional[float],
+                   causal: bool, window: int, compute_dtype, hl: int,
+                   tp: TPGroup) -> torch.Tensor:
+    """:func:`attn_apply` on the rank's shards (see the module docstring)."""
+    hd = head_dim
+    plan = tp_head_plan(n_heads, n_kv_heads, hd, hl, tp.rank, tp.size)
+    qh, kh, vh, kv_base = _tp_qkv(p, x, plan, hd, compute_dtype, tp)
+    out = x.new_zeros((*x.shape[:2], plan.h_hi - plan.h_lo, hd), dtype=compute_dtype)
+    att = None
+    if plan.a_hi > plan.h_lo:
         if plan.expand_kv:
             g = n_heads // n_kv_heads
             idx = torch.arange(plan.h_lo, plan.a_hi, device=x.device) // g - kv_base
@@ -256,15 +286,7 @@ def _attn_apply_tp(p: Dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads
             kh = apply_rope(kh, positions, rope_theta)
         att = flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
                               causal=causal, window=window)
-        out = att if n_act == plan.h_hi - plan.h_lo else F.pad(
-            att, (0, 0, 0, plan.h_hi - plan.a_hi))
-    else:
-        # pad heads only: the output is zero, but it must still reach q, k
-        # and v, so that this rank issues the backward collectives of the
-        # gather and of copy_to_model with the rest of the group
-        out = out + sum(t[..., :0].sum() for t in (q, k, v))
-    out = out.reshape(b, s, -1)[..., plan.q_lo - plan.h_lo * hd:plan.q_hi - plan.h_lo * hd]
-    return row_parallel_linear(p["wo"], out, compute_dtype, tp)
+    return _tp_out(p, out, att, plan, hd, compute_dtype, tp, (qh, kh, vh))
 
 
 def attn_apply(p: Dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
@@ -309,10 +331,22 @@ def init_kv_cache(batch: int, length: int, n_kv_heads: int, head_dim: int,
     }
 
 
+def _cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor, ring: bool):
+    """Write the new K/V row (B, 1, K, hd) into the cache IN PLACE at the
+    slot of ``pos``; returns the slots now valid, (B,) int."""
+    ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+    cache_len = ck.shape[1]
+    slot = pos % cache_len if ring else torch.clamp(pos, max=cache_len - 1)
+    slot = slot.reshape(1).long()
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cv.index_copy_(1, slot, v.to(cv.dtype))
+    return torch.clamp(pos + 1, max=cache_len).reshape(1).expand(k.shape[0])
+
+
 def attn_decode(p: Dict, x: torch.Tensor, cache: Dict, *, n_heads: int, n_kv_heads: int,
                 head_dim: int, rope_theta: Optional[float], ring: bool = False,
-                compute_dtype=torch.bfloat16,
-                n_heads_layout: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+                compute_dtype=torch.bfloat16, n_heads_layout: Optional[int] = None,
+                tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, Dict]:
     """One-token decode: x (B, 1, d) against the cache.
 
     ``ring=True`` treats the cache as a sliding-window ring buffer of size
@@ -323,25 +357,52 @@ def attn_decode(p: Dict, x: torch.Tensor, cache: Dict, *, n_heads: int, n_kv_hea
     as the reference's clamped update does); the returned dict holds the
     same k/v tensors and ``pos + 1``. The attention is one decode-kernel
     call over the first ``n_valid = min(pos + 1, cache_len)`` slots, on
-    the logical heads, with the cache in its own layout."""
-    b = x.shape[0]
-    ck, cv, pos = cache["k"], cache["v"], cache["pos"]
-    cache_len = ck.shape[1]
-    positions = pos.reshape(1, 1).expand(b, 1)
+    the logical heads, with the cache in its own layout.
 
+    ``tp``: the rank's shards of a model group (:func:`tp_head_plan`, the
+    gathers of :func:`attn_apply`'s); the cache holds the kv heads
+    ``[kv_lo, kv_hi)`` the rank's q heads read (:func:`init_kv_cache` of
+    ``kv_hi - kv_lo`` heads). Where those q heads are not whole GQA
+    groups, the kernel takes them zero-padded to whole groups of the
+    cached kv heads (a rank's heads of one kv head need none) and the
+    rank keeps its own; a rank of pad heads only caches nothing and
+    launches nothing, but issues the group's collectives."""
+    b = x.shape[0]
+    pos = cache["pos"]
+    positions = pos.reshape(1, 1).expand(b, 1)
     hl = n_heads_layout or n_heads
+    if tp is not None:
+        hd = head_dim
+        plan = tp_head_plan(n_heads, n_kv_heads, hd, hl, tp.rank, tp.size)
+        qh, kh, vh, kv_base = _tp_qkv(p, x, plan, hd, compute_dtype, tp)
+        kh = kh[..., plan.kv_lo - kv_base:plan.kv_hi - kv_base, :]
+        vh = vh[..., plan.kv_lo - kv_base:plan.kv_hi - kv_base, :]
+        out = x.new_zeros((b, 1, plan.h_hi - plan.h_lo, hd), dtype=compute_dtype)
+        att = None
+        if plan.a_hi > plan.h_lo:
+            if rope_theta is not None:
+                qh = apply_rope(qh, positions, rope_theta)
+                kh = apply_rope(kh, positions, rope_theta)
+            n_valid = _cache_write(cache, kh, vh, ring)
+            g, lead, trail = n_heads // n_kv_heads, 0, 0
+            if plan.kv_hi - plan.kv_lo > 1:  # whole groups of the cached kv heads
+                lead, trail = plan.h_lo - plan.kv_lo * g, plan.kv_hi * g - plan.a_hi
+            if lead or trail:
+                qh = F.pad(qh, (0, 0, lead, trail))
+            att = decode_attention(qh.contiguous(), cache["k"].to(compute_dtype),
+                                   cache["v"].to(compute_dtype), n_valid)
+            att = att[..., lead:lead + plan.a_hi - plan.h_lo, :]
+        out = _tp_out(p, out, att, plan, hd, compute_dtype, tp, (qh, kh, vh))
+        return out, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
     q = _split_heads(linear(p["wq"], x, compute_dtype), hl, head_dim)
     k = _split_heads(linear(p["wk"], x, compute_dtype), n_kv_heads, head_dim)
     v = _split_heads(linear(p["wv"], x, compute_dtype), n_kv_heads, head_dim)
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-
-    slot = pos % cache_len if ring else torch.clamp(pos, max=cache_len - 1)
-    slot = slot.reshape(1).long()
-    ck.index_copy_(1, slot, k.to(ck.dtype))
-    cv.index_copy_(1, slot, v.to(cv.dtype))
-    n_valid = torch.clamp(pos + 1, max=cache_len).reshape(1).expand(b)
+    n_valid = _cache_write(cache, k, v, ring)
+    ck, cv = cache["k"], cache["v"]
     out = decode_attention(_logical_heads(q, n_heads), ck.to(compute_dtype),
                            cv.to(compute_dtype), n_valid)
     out = _pad_heads(out, hl)
@@ -350,6 +411,16 @@ def attn_decode(p: Dict, x: torch.Tensor, cache: Dict, *, n_heads: int, n_kv_hea
         out = out * mask
     out = linear(p["wo"], out.reshape(b, 1, hl * head_dim), compute_dtype)
     return out, {"k": ck, "v": cv, "pos": pos + 1}
+
+
+def tp_kv_heads(n_heads: int, n_kv_heads: int, head_dim: int, n_layout: int,
+                tp: Optional[TPGroup]) -> int:
+    """The kv heads a rank's decode cache holds: all ``n_kv_heads``, or on
+    a model group those its q heads read (:func:`tp_head_plan`)."""
+    if tp is None:
+        return n_kv_heads
+    plan = tp_head_plan(n_heads, n_kv_heads, head_dim, n_layout, tp.rank, tp.size)
+    return plan.kv_hi - plan.kv_lo
 
 
 # ---------------------------------------------------------------------------
@@ -412,13 +483,26 @@ def cross_attn_apply(p: Dict, x: torch.Tensor, kv: Tuple[torch.Tensor, torch.Ten
 
 
 def cross_attn_decode(p: Dict, x: torch.Tensor, kv: Tuple[torch.Tensor, torch.Tensor], *,
-                      n_heads: int, head_dim: int,
-                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+                      n_heads: int, head_dim: int, compute_dtype=torch.bfloat16,
+                      tp: Optional[TPGroup] = None) -> torch.Tensor:
     """:func:`cross_attn_apply` for one decoder token x (B, 1, d): one
-    decode-kernel call over all T slots of the cross cache (B, T, H, hd)."""
+    decode-kernel call over all T slots of the cross cache (B, T, H, hd).
+    ``tp``: on the rank's heads, ``kv`` its :func:`precompute_cross_kv`
+    (the kv heads ``[kv_lo, kv_hi)``)."""
     b = x.shape[0]
-    q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads, head_dim)
     k, v = kv
     n_valid = torch.full((b,), k.shape[1], dtype=torch.int32, device=k.device)
-    out = decode_attention(q, k.contiguous(), v.contiguous(), n_valid)
-    return linear(p["wo"], out.reshape(b, 1, n_heads * head_dim), compute_dtype)
+    if tp is None:
+        q = _split_heads(linear(p["wq"], x, compute_dtype), n_heads, head_dim)
+        out = decode_attention(q, k.contiguous(), v.contiguous(), n_valid)
+        return linear(p["wo"], out.reshape(b, 1, n_heads * head_dim), compute_dtype)
+    hd = head_dim
+    plan = tp_head_plan(n_heads, n_heads, hd, n_heads, tp.rank, tp.size)
+    q = linear(p["wq"], copy_to_model(x, tp), compute_dtype)
+    q_base = plan.h_lo
+    if plan.gather_q:
+        q, q_base = gather_from_model(q, tp), 0
+    qh = _split_heads(q, q.shape[-1] // hd, hd)[..., plan.h_lo - q_base:plan.a_hi - q_base, :]
+    out = decode_attention(qh.contiguous(), k.contiguous(), v.contiguous(), n_valid)
+    out = out.reshape(b, 1, -1)[..., plan.q_lo - plan.h_lo * hd:plan.q_hi - plan.h_lo * hd]
+    return row_parallel_linear(p["wo"], out, compute_dtype, tp)

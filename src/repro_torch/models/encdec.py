@@ -30,7 +30,10 @@ embedding lookup and the tied loss vocab-parallel; the frames, both
 position tables and the layernorms replicated. The encoder output, a
 replicated input that every decoder layer's cross K/V reads, passes
 ``copy_to_model`` once, before the decoder: its gradient sums every
-layer's on each rank, then one all-reduce sums the ranks'.
+layer's on each rank, then one all-reduce sums the ranks'. Serving
+(:func:`encdec_prefill`, :func:`encdec_init_decode_state`,
+:func:`encdec_fill_cross_kv`, :func:`encdec_decode_step`) takes the same
+layers: a rank's self and cross caches hold its heads' K/V.
 """
 
 from __future__ import annotations
@@ -202,72 +205,82 @@ def encdec_loss(params: Dict, cfg: ModelConfig, batch: Dict, remat: bool = True,
                                 compute_dtype=_cdtype(cfg), tp=tp)
 
 
-def encdec_prefill(params: Dict, cfg: ModelConfig,
-                   batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+def encdec_prefill(params: Dict, cfg: ModelConfig, batch: Dict,
+                   tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode ``batch["frames"]`` and run the decoder over
     ``batch["tokens"]`` (B, S): the last position's logits (B,
     padded_vocab) and the encoder output. Like the reference, it writes
-    no cache."""
-    enc_out = encode(params, cfg, batch["frames"])
-    h = _decode_hidden(params, cfg, batch["tokens"], enc_out, remat=False)
-    logits = unembed_logits(params["dec"]["embed"]["table"], h[:, -1], _cdtype(cfg))
+    no cache. ``tp``: the rank's shards of a model group (the logits
+    gathered whole)."""
+    enc_out = encode(params, cfg, batch["frames"], tp)
+    h = _decode_hidden(params, cfg, batch["tokens"], copy_to_model(enc_out, tp), remat=False,
+                       tp=tp)
+    logits = unembed_logits(params["dec"]["embed"]["table"], h[:, -1], _cdtype(cfg), tp)
     return logits, enc_out
 
 
 def encdec_init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
-                             cache_dtype=torch.bfloat16, device=None) -> Dict:
+                             cache_dtype=torch.bfloat16, device=None,
+                             tp: Optional[TPGroup] = None) -> Dict:
     """Zero decode state on ``device`` (``cuda`` unless given): the
     layer-stacked self-attention KV caches and the per-layer cross K/V,
-    which the engine fills after :func:`encode`."""
+    which the engine fills after :func:`encode`. ``tp``: the kv heads the
+    rank's q heads read, in both (``attention.tp_kv_heads``)."""
     e = cfg.encoder
     dev = resolve_device(device)
-    kv = attn.init_kv_cache(batch, max_seq, cfg.n_kv_heads, cfg.head_dim, cache_dtype, dev)
+    kv = attn.init_kv_cache(batch, max_seq, attn.tp_kv_heads(
+        cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, tp), cfg.head_dim,
+        cache_dtype, dev)
     stacked = {key: torch.zeros((cfg.n_layers, *a.shape), dtype=a.dtype, device=dev)
                for key, a in kv.items()}
-    shape = (cfg.n_layers, batch, e.seq_len, cfg.n_heads, cfg.head_dim)
+    cross_heads = attn.tp_kv_heads(cfg.n_heads, cfg.n_heads, cfg.head_dim, cfg.n_heads, tp)
+    shape = (cfg.n_layers, batch, e.seq_len, cross_heads, cfg.head_dim)
     return {"self": stacked,
             "cross_k": torch.zeros(shape, dtype=cache_dtype, device=dev),
             "cross_v": torch.zeros(shape, dtype=cache_dtype, device=dev)}
 
 
 def encdec_fill_cross_kv(params: Dict, cfg: ModelConfig, enc_out: torch.Tensor,
-                         state: Dict) -> Dict:
+                         state: Dict, tp: Optional[TPGroup] = None) -> Dict:
     """The state with every layer's cross K/V of ``enc_out``, in the
-    state's cache dtype."""
+    state's cache dtype (``tp``: the rank's kv heads)."""
     cd = _cdtype(cfg)
+    enc_out = copy_to_model(enc_out, tp)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         blk = _layer(params["dec"]["blocks"]["cross_attn"], i)
-        k, v = attn.precompute_cross_kv(blk, enc_out, cfg.n_heads, cfg.head_dim, cd)
+        k, v = attn.precompute_cross_kv(blk, enc_out, cfg.n_heads, cfg.head_dim, cd, tp)
         ks.append(k.to(state["cross_k"].dtype))
         vs.append(v.to(state["cross_v"].dtype))
     return {**state, "cross_k": torch.stack(ks), "cross_v": torch.stack(vs)}
 
 
 def encdec_decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-                       state: Dict) -> Tuple[torch.Tensor, Dict]:
+                       state: Dict, tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, Dict]:
     """One decoder token against the self caches and the cross K/V:
     tokens (B,) -> (logits (B, padded_vocab), state). The self caches are
     written in place, as :func:`repro_torch.models.attention.attn_decode`
-    writes them; the returned state holds them with pos + 1."""
+    writes them; the returned state holds them with pos + 1. ``tp``: the
+    rank's shards and caches of a model group."""
     cd, eps = _cdtype(cfg), cfg.norm_eps
     self_c = state["self"]
     pos = self_c["pos"][0]
-    x = embed_lookup(params["dec"]["embed"], tokens[:, None], cd)
+    x = embed_lookup(params["dec"]["embed"], tokens[:, None], cd, tp)
     x = x + params["dec"]["pos"].index_select(0, pos.reshape(1).long()).to(cd)[None]
     for i in range(cfg.n_layers):
         blk = _layer(params["dec"]["blocks"], i)
         cache = {key: a[i] for key, a in self_c.items()}
         a, _ = attn.attn_decode(blk["self_attn"], layernorm(blk["ln1"], x, eps), cache,
                                 n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                                head_dim=cfg.head_dim, rope_theta=None, compute_dtype=cd)
+                                head_dim=cfg.head_dim, rope_theta=None, compute_dtype=cd,
+                                tp=tp)
         x = x + a
         kv = (state["cross_k"][i].to(cd), state["cross_v"][i].to(cd))
         x = x + attn.cross_attn_decode(blk["cross_attn"], layernorm(blk["ln2"], x, eps), kv,
                                        n_heads=cfg.n_heads, head_dim=cfg.head_dim,
-                                       compute_dtype=cd)
-        x = x + gelu_mlp(blk["mlp"], layernorm(blk["ln3"], x, eps), cd)
+                                       compute_dtype=cd, tp=tp)
+        x = x + gelu_mlp(blk["mlp"], layernorm(blk["ln3"], x, eps), cd, tp)
     x = layernorm(params["dec"]["final_ln"], x, eps)
-    logits = unembed_logits(params["dec"]["embed"]["table"], x[:, 0], cd)
+    logits = unembed_logits(params["dec"]["embed"]["table"], x[:, 0], cd, tp)
     new_self = {"k": self_c["k"], "v": self_c["v"], "pos": self_c["pos"] + 1}
     return logits, {**state, "self": new_self}

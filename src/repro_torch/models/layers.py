@@ -15,7 +15,8 @@ runs the whole layer, as before): a column-parallel product is
 :func:`linear` on the rank's column shard of an input passed through
 ``copy_to_model``; :func:`row_parallel_linear` all-reduces the partial
 products of the rank's row shard and adds the bias once, after the
-reduce; :func:`swiglu` and :func:`gelu_mlp` are both; :func:`embed_lookup` and
+reduce; :func:`swiglu` and :func:`gelu_mlp` are both; :func:`embed_lookup`,
+:func:`unembed_logits` (the serving logits, gathered over the group) and
 :func:`chunked_softmax_xent` are vocab-parallel on the rank's rows
 ``[s V/S, (s+1) V/S)`` of the table.
 """
@@ -32,6 +33,7 @@ from repro_torch.models.tensor_parallel import (
     TPGroup,
     all_reduce_max,
     copy_to_model,
+    gather_from_model,
     reduce_from_model,
 )
 
@@ -236,10 +238,14 @@ def embed_lookup(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
     return reduce_from_model(rows.masked_fill(outside[..., None], 0), tp)
 
 
-def unembed_logits(table: torch.Tensor, h: torch.Tensor,
-                   compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """h (..., d) @ table^T (v, d) -> (..., v)."""
-    return torch.matmul(h.to(compute_dtype), table.to(compute_dtype).T)
+def unembed_logits(table: torch.Tensor, h: torch.Tensor, compute_dtype=torch.bfloat16,
+                   tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """h (..., d) @ table^T (v, d) -> (..., v). On a model group (``tp``)
+    ``table`` is the rank's rows ``[s V/S, (s+1) V/S)``: the rank's logits
+    (..., V/S), all-gathered in rank order into the whole (..., V)."""
+    logits = torch.matmul(copy_to_model(h, tp).to(compute_dtype),
+                          table.to(compute_dtype).T)
+    return gather_from_model(logits, tp)
 
 
 def _mask_padded_vocab(logits: torch.Tensor, valid_vocab: int, lo: int = 0) -> torch.Tensor:

@@ -8,11 +8,14 @@ engine consume. The reference's ``impl`` argument is gone: the port's
 attention and recurrence kernels dispatch by device, so its ``"ref"``,
 ``"flash"``, ``"blocked"``, ``"decode_kernel"`` and ``"pallas"`` paths
 are one path here. ``build_model(cfg, model_group=pg)`` builds any
-family's bundle for a rank of a model group: its ``loss_fn`` runs on the
-rank's shards (``models.sharding.shard_params``) through the
-tensor-parallel layers (``models.tensor_parallel``: attention, the MLPs,
+family's bundle for a rank of a model group: its ``loss_fn``,
+``prefill_fn``, ``decode_fn`` and ``init_decode_state_fn`` run on the
+rank's shards (``models.sharding.shard_params``) and its states (the
+kv heads its q heads read, its WKV-6 heads, its RG-LRU channels) through
+the tensor-parallel layers (``models.tensor_parallel``: attention, the MLPs,
 RWKV6's time and channel mix, the RG-LRU block, whisper's
-encoder-decoder) and the expert-parallel MoE (``models.moe``).
+encoder-decoder) and the expert-parallel MoE (``models.moe``); the
+logits come back whole on every rank.
 
 ``loss_fn`` is NODE-BATCHED, the port trainer's ``core.fl.LossFn``:
 params with (n, ...) leaves and a batch with (n, ...) leaves in, the n
@@ -70,8 +73,9 @@ def _node_batched(single_loss: Callable[[Dict, Dict], torch.Tensor]) -> Callable
 def build_model(cfg: ModelConfig, remat: bool = True, model_group=None) -> ModelBundle:
     """The bundle of ``cfg``. ``model_group``: a model process group
     (``NodeGroup.model_pg``) whose rank this process is -- the bundle's
-    ``loss_fn`` then takes the rank's shards of the parameters;
-    ``init_fn`` and the serving functions stay whole."""
+    ``loss_fn`` and serving functions then take the rank's shards of the
+    parameters, and ``init_decode_state_fn`` makes the rank's states;
+    ``init_fn`` stays whole."""
     tp = tp_group(model_group)
     if tp is not None:
         tfm.check_tensor_parallel(cfg)
@@ -83,15 +87,15 @@ def build_model(cfg: ModelConfig, remat: bool = True, model_group=None) -> Model
         return tfm.init_params(cfg, generator, device)
 
     def prefill_fn(params, batch):
-        return tfm.prefill(params, cfg, batch)
+        return tfm.prefill(params, cfg, batch, tp)
 
     def decode_fn(params, tokens, caches, sliding_override: bool = False):
-        return tfm.decode_step(params, cfg, tokens, caches, sliding_override)
+        return tfm.decode_step(params, cfg, tokens, caches, sliding_override, tp)
 
     def init_decode_state_fn(batch: int, max_seq: int, sliding_override: bool = False,
-                             device=None) -> Any:
-        return tfm.init_decode_state(cfg, batch, max_seq, sliding_override,
-                                     device=device)
+                             device=None, cache_dtype=torch.bfloat16) -> Any:
+        return tfm.init_decode_state(cfg, batch, max_seq, sliding_override, cache_dtype,
+                                     device=device, tp=tp)
 
     return ModelBundle(
         cfg=cfg, init_fn=init_fn,
@@ -105,16 +109,17 @@ def _build_encdec(cfg: ModelConfig, remat: bool, tp=None) -> ModelBundle:
         return encdec_mod.encdec_init(cfg, generator, device)
 
     def prefill_fn(params, batch):
-        return encdec_mod.encdec_prefill(params, cfg, batch)
+        return encdec_mod.encdec_prefill(params, cfg, batch, tp)
 
     def decode_fn(params, tokens, caches, sliding_override: bool = False):
         del sliding_override  # whisper decoder: contiguous self-cache only
-        return encdec_mod.encdec_decode_step(params, cfg, tokens, caches)
+        return encdec_mod.encdec_decode_step(params, cfg, tokens, caches, tp)
 
     def init_decode_state_fn(batch: int, max_seq: int, sliding_override: bool = False,
-                             device=None) -> Dict:
+                             device=None, cache_dtype=torch.bfloat16) -> Dict:
         del sliding_override
-        return encdec_mod.encdec_init_decode_state(cfg, batch, max_seq, device=device)
+        return encdec_mod.encdec_init_decode_state(cfg, batch, max_seq, cache_dtype,
+                                                   device=device, tp=tp)
 
     return ModelBundle(
         cfg=cfg, init_fn=init_fn,

@@ -37,8 +37,10 @@ backward is plain PyTorch, so every parameter reaches its gradient on
 the card as on the CPU.
 
 Tensor parallelism (``tp``, a ``models.tensor_parallel.TPGroup``): the
-training path of every decoder-only family -- :func:`apply_block_train`,
-:func:`forward_hidden`, :func:`_embed_inputs` and :func:`lm_loss` -- runs
+training and serving paths of every decoder-only family --
+:func:`apply_block_train`, :func:`forward_hidden`, :func:`_embed_inputs`,
+:func:`lm_loss`, :func:`prefill`, :func:`init_decode_state`,
+:func:`apply_block_decode` and :func:`decode_step` -- run
 on a rank's shards of a model group (``models.sharding.shard_params``):
 attention (local attention too) and the SwiGLU column- then
 row-parallel, the routed experts expert-parallel (``models.moe``: the
@@ -342,19 +344,22 @@ def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, remat: bool = True,
     return loss + cfg.router_aux_coef * aux
 
 
-def prefill(params: Dict, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
+            tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over ``batch["tokens"]`` (B, S), returning the
     last position's logits (B, padded_vocab) and hidden state (B, d).
-    Like the reference, it writes no cache."""
+    Like the reference, it writes no cache. ``tp``: the rank's shards of a
+    model group (the embedding and the logits vocab-parallel, the logits
+    gathered whole on every rank)."""
     cd = _cdtype(cfg)
     tokens = batch["tokens"]
-    emb = embed_lookup(params["embed"], tokens, cd)
+    emb = embed_lookup(params["embed"], tokens, cd, tp)
     if cfg.frontend != "none" and "prefix_embeds" in batch:
         emb = torch.cat([batch["prefix_embeds"].to(cd), emb], dim=1)
     b, s, _ = emb.shape
     positions = torch.arange(s, dtype=torch.int32, device=emb.device)[None].expand(b, s)
-    h, _ = forward_hidden(params, cfg, emb, positions, remat=False)
-    return unembed_logits(_table(params, cfg), h[:, -1], cd), h[:, -1]
+    h, _ = forward_hidden(params, cfg, emb, positions, remat=False, tp=tp)
+    return unembed_logits(_table(params, cfg), h[:, -1], cd, tp), h[:, -1]
 
 
 # ---------------------------------------------------------------------------
@@ -383,24 +388,31 @@ def _decode_kinds(cfg: ModelConfig, max_seq: int,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       sliding_override: bool = False, cache_dtype=torch.bfloat16,
-                      device=None) -> Any:
+                      device=None, tp: Optional[TPGroup] = None) -> Any:
     """Zero decode states on ``device`` (``cuda`` unless given), in the
     reference's layout: a homogeneous stack gets layer-stacked states
     (leading ``n_layers`` axis), a patterned stack a list of per-layer
     states. An attention layer's state is its KV cache -- k, v (B,
     cache_len, K, hd) in ``cache_dtype`` and pos, an int32 scalar; an
     RWKV layer's the token-shift carries and the WKV state (fp32); an
-    RG-LRU layer's the recurrence and the conv's trailing inputs (fp32)."""
+    RG-LRU layer's the recurrence and the conv's trailing inputs (fp32).
+    ``tp``: a rank's states on a model group -- the kv heads its q heads
+    read (``attention.tp_kv_heads``), its H/S WKV heads, its W/S RG-LRU
+    channels."""
     check_kinds(cfg)
     dev = resolve_device(device)
+    shards = 1 if tp is None else tp.size
+    kv_heads = attn.tp_kv_heads(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
+                                tp) if cfg.n_heads else 0
 
     def one(kind: str, cache_len: int) -> Dict:
         if kind in _ATTENTION_KINDS:
-            return attn.init_kv_cache(batch, cache_len, cfg.n_kv_heads, cfg.head_dim,
+            return attn.init_kv_cache(batch, cache_len, kv_heads, cfg.head_dim,
                                       cache_dtype, dev)
         if kind == "rwkv":
-            return rwkv_mod.rwkv_decode_states(batch, cfg.d_model, device=dev)
-        return rglru_mod.rglru_decode_state(batch, cfg.rnn_width or cfg.d_model,
+            return rwkv_mod.rwkv_decode_states(batch, cfg.d_model, dev, shards)
+        return rglru_mod.rglru_decode_state(batch, (cfg.rnn_width or cfg.d_model) // shards,
                                             cfg.conv_width, device=dev)
 
     kinds = _decode_kinds(cfg, max_seq, sliding_override)
@@ -411,7 +423,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def apply_block_decode(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
-                       state: Dict, ring: bool) -> Tuple[torch.Tensor, Dict]:
+                       state: Dict, ring: bool,
+                       tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, Dict]:
+    """One block's decode step on x (B, 1, d) and its state; ``tp``: on the
+    rank's shards and states (:func:`init_decode_state`)."""
     _check_kind(kind)
     cd, eps = _cdtype(cfg), cfg.norm_eps
     if kind in _ATTENTION_KINDS:
@@ -420,25 +435,27 @@ def apply_block_decode(p: Dict, kind: str, cfg: ModelConfig, x: torch.Tensor,
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, ring=ring or kind == "local_attention",
             compute_dtype=cd,
-            n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad),
+            n_heads_layout=attn.layout_heads(cfg.n_heads, cfg.tp_head_pad), tp=tp,
         )
         x = x + h
-        m, _ = _ffn(p, kind, cfg, rmsnorm(p["ln2"], x, eps))
+        m, _ = _ffn(p, kind, cfg, rmsnorm(p["ln2"], x, eps), tp)
         return x + m, state
     if kind == "rwkv":
         h, tm_prev, s_new = rwkv_mod.rwkv_time_mix(
-            p["rwkv"]["time"], rmsnorm(p["ln1"], x, eps), state["tm_prev"], state["s"], cd)
+            p["rwkv"]["time"], rmsnorm(p["ln1"], x, eps), state["tm_prev"], state["s"], cd, tp)
         x = x + h
         c, cm_prev = rwkv_mod.rwkv_channel_mix(
-            p["rwkv"]["channel"], rmsnorm(p["ln2"], x, eps), state["cm_prev"], cd)
+            p["rwkv"]["channel"], rmsnorm(p["ln2"], x, eps), state["cm_prev"], cd, tp)
         return x + c, {"tm_prev": tm_prev, "cm_prev": cm_prev, "s": s_new}
-    h, state = rglru_mod.rglru_block_apply(p["rglru"], rmsnorm(p["ln1"], x, eps), state, cd)
+    h, state = rglru_mod.rglru_block_apply(p["rglru"], rmsnorm(p["ln1"], x, eps), state, cd,
+                                           tp)
     x = x + h
-    return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd), state
+    return x + swiglu(p["mlp"], rmsnorm(p["ln2"], x, eps), cd, tp), state
 
 
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, caches: Any,
-                sliding_override: bool = False) -> Tuple[torch.Tensor, Any]:
+                sliding_override: bool = False,
+                tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, Any]:
     """One decode step: tokens (B,) -> (logits (B, padded_vocab), caches).
 
     Attention layers write their new K/V row into their cache in place
@@ -446,17 +463,18 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, caches: An
     new states, which the returned caches hold: restacked for a
     homogeneous stack, so each state keeps the dtype its layer gave it
     (the reference's: the token-shift carries turn from fp32 to the
-    residual stream's dtype after the first step)."""
+    residual stream's dtype after the first step). ``tp``: the rank's
+    shards and states of a model group; the logits gathered whole."""
     pattern = check_kinds(cfg)
     cd = _cdtype(cfg)
-    x = embed_lookup(params["embed"], tokens[:, None], cd)  # (B,1,d)
+    x = embed_lookup(params["embed"], tokens[:, None], cd, tp)  # (B,1,d)
     if cfg.is_homogeneous:
         kind = pattern[0]
         new: List[Dict] = []
         for i in range(cfg.n_layers):
             layer_cache = {key: a[i] for key, a in caches.items()}
             x, c = apply_block_decode(_layer_params(params, cfg, i), kind, cfg, x,
-                                      layer_cache, ring=sliding_override)
+                                      layer_cache, ring=sliding_override, tp=tp)
             new.append(c)
         if kind in _ATTENTION_KINDS:
             caches = {"k": caches["k"], "v": caches["v"], "pos": caches["pos"] + 1}
@@ -466,9 +484,9 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, caches: An
         new_caches = []
         for i, kind in enumerate(pattern):
             x, c = apply_block_decode(_layer_params(params, cfg, i), kind, cfg, x,
-                                      caches[i], ring=sliding_override)
+                                      caches[i], ring=sliding_override, tp=tp)
             new_caches.append(c)
         caches = new_caches
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed_logits(_table(params, cfg), x[:, 0], cd)
+    logits = unembed_logits(_table(params, cfg), x[:, 0], cd, tp)
     return logits, caches

@@ -16,7 +16,8 @@ reference's committed records and against a real round:
   counters;
 * the record's file name follows the reference's suffix rules (the
   reference's own ``main`` with its ``run_pair`` stubbed);
-* the refusals, the documented skip, and a serving pair's per-rank bytes;
+* the refusals, the documented skip, and a serving pair's per-rank call:
+  its shards, its share of the batch, its kv heads, its collectives;
 * ``--fl-engine tree`` on the (16 data x 16 model) layout for
   tinyllama-1.1b (whole q heads, a quarter kv head a rank) and
   smollm-360m (cut heads), train_4k, Q = 2: the per-rank params,
@@ -36,8 +37,16 @@ reference's committed records and against a real round:
   encoder-decoder on the rank's share): the per-rank state bytes are the
   placed shards' (the paired ``in_proj`` cut), the WKV-6, RG-LRU and
   flash launches the code implies, the model group's collectives
-  ``expected_collectives`` a node-step; the 47 records committed before
-  them are unchanged.
+  ``expected_collectives`` a node-step;
+* the committed ``flat`` / ``fused`` records of tinyllama-1.1b (a node's
+  16 model ranks replicas of its whole flat buffer): argument bytes a
+  node's whole state, no collective but the node ranks', ``fused`` the
+  dry run's own;
+* every serving record (rank 0's own call on its tensor-parallel shards):
+  the model group's collectives ``expected_collectives``, the kernels'
+  launches ``expected_launches``, the argument bytes its parameters,
+  batch share and states; the train records committed before are
+  unchanged.
 """
 
 import json
@@ -52,9 +61,12 @@ torch = pytest.importorskip("torch")
 dist = torch.distributed
 
 from repro_torch.benchmarks.run_dryruns import OUT_DIR, record_path  # noqa: E402
-from repro_torch.benchmarks.tensor_parallel import expected_collectives  # noqa: E402
+from repro_torch.benchmarks.tensor_parallel import (  # noqa: E402
+    expected_collectives,
+    expected_launches,
+)
 from repro_torch.configs import SHAPES, get_config, train_input_specs  # noqa: E402
-from repro_torch.core.packing import tree_leaves  # noqa: E402
+from repro_torch.core.packing import tree_bytes  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh, make_test_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -250,16 +262,6 @@ def test_file_names_follow_the_references_rules(tmp_path):
 
 
 def test_refusals_and_the_skip():
-    for engine in ("flat", "fused"):
-        with pytest.raises(ValueError, match="item 18b"):
-            dryrun.run_pair("tinyllama-1.1b", "train_4k", "single", fl_engine=engine)
-    # the recurrent and audio families run tree on the (node, model) layout;
-    # flat / fused there are what is left of item 18b
-    for arch in ("rwkv6-7b", "recurrentgemma-2b", "whisper-medium"):
-        for engine in ("flat", "fused"):
-            with pytest.raises(ValueError, match="what is left of ROADMAP.md queue 1, item "
-                                                 "18b"):
-                dryrun.run_pair(arch, "train_4k", "single", fl_engine=engine)
     with pytest.raises(ValueError, match="needs the sharded_fused engine"):
         dryrun.run_pair("tinyllama-1.1b", "train_4k", "single", fl_engine="fused",
                         fl_shard_model=True)
@@ -276,25 +278,41 @@ def test_refusals_and_the_skip():
 
 
 def test_a_serving_pair_splits_over_the_ranks():
-    """SmolLM-360M's decode_32k on the single-pod mesh: the parameters by
-    the tensor-parallel rules, the caches and tokens split over the 16
-    node ranks, the call's FLOPs divided over the 256 ranks; one decode
-    kernel a layer."""
+    """SmolLM-360M's decode_32k on the single-pod mesh, rank 0's own call:
+    its shards of the 16 model ranks' layers, its 8 of the 128 tokens, its
+    cache of the one kv head its q head reads (15 q / 5 kv heads of 64
+    over 16 ranks: 60 q columns a rank, so every rank gathers), no
+    division. The model group issues ``expected_collectives`` of a decode
+    step: the embedding's all-reduce, ``wo``'s and ``down``'s a layer, the
+    cut heads' all-gather a layer and the logits' one; one decode kernel
+    a layer on the rank's heads. The reference's placement -- the whole
+    caches split by batch, replicated over the model axis -- is recorded
+    beside the rank's."""
     rec = dryrun.run_pair("smollm-360m", "decode_32k", "single")
     cfg = get_config("smollm-360m")
     bundle = build_model(cfg, remat=False)
     params = bundle.param_shapes()
-    mesh = make_production_mesh()
-    caches = bundle.init_decode_state_fn(128, SHAPES["decode_32k"].seq_len, device="meta")
-    # the layer-stacked K and V caches (L, B, C, K, hd) split by their batch
-    # dim; the per-layer positions (L,) stay whole on every rank
-    cache_bytes = sum(t.numel() * t.element_size() // (16 if 128 in t.shape[:2] else 1)
-                      for t in dryrun._leaves(caches))
-    want = rank_bytes(params, model_param_specs(params), mesh) + cache_bytes + 128 * 4 // 16
-    assert rec["memory"]["argument_bytes"] == want
-    assert rec["kernel_calls"] == {"decode_attention": cfg.n_layers}
-    assert "divided over the 256 ranks" in rec["flops_split"]
-    assert rec["collectives"]["per_kind"] == {} and rec["n_chips"] == 256
+    placed = tree_bytes(shard_params(params, 0, 16))
+    assert placed == rank_bytes(params, model_param_specs(params), make_production_mesh())
+    tp = rec["tensor_parallel"]
+    assert tp["param_bytes"] == placed and tp["batch_share"] == 8 and tp["batch"] == 128
+    seq, hd, layers = SHAPES["decode_32k"].seq_len, cfg.head_dim, cfg.n_layers
+    assert tp["heads"]["kv_hi"] - tp["heads"]["kv_lo"] == 1 and tp["heads"]["gather_q"]
+    assert tp["state_bytes"] == layers * 2 * 8 * seq * 1 * hd * 2 + layers * 4
+    assert rec["memory"]["argument_bytes"] == placed + tp["state_bytes"] + 8 * 4
+    # the reference's placement: the whole caches split by their batch dim
+    caches = bundle.init_decode_state_fn(128, seq, device="meta")
+    assert tp["reference_state_bytes"] == sum(
+        t.numel() * t.element_size() // (16 if 128 in t.shape[:2] else 1)
+        for t in dryrun._leaves(caches)) > 4 * tp["state_bytes"]
+    assert rec["kernel_calls"] == {"decode_attention": layers}
+    assert "no division" in rec["flops_split"] and "divided" not in rec["flops_split"]
+    want = expected_collectives(cfg, 16, kind="decode")
+    assert want == {"all-reduce": 1 + 2 * layers, "all-gather": layers + 1}
+    kinds = rec["collectives"]["per_kind"]
+    assert {k: v["count"] for k, v in kinds.items()} == want
+    assert {k: v["count"] for k, v in tp["model_group"].items()} == want
+    assert tp["node_group"] == {} and rec["n_chips"] == 256
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "smollm-360m"])
@@ -380,8 +398,7 @@ def test_the_moe_and_vlm_tree_records(arch):
     tp = rec["tensor_parallel"]
     assert tp["model_shards"] == 16 and rec["n_chips"] == 256 and rec["n_nodes"] == 16
     params = build_model(cfg).param_shapes()
-    placed = sum(t.numel() * t.element_size()
-                 for _, t in tree_leaves(shard_params(params, 0, 16)))
+    placed = tree_bytes(shard_params(params, 0, 16))
     want = rank_bytes(_stack16(params), node_stack_specs(model_param_specs(params),
                                                          ("data",)), mesh)
     assert want == placed
@@ -444,8 +461,7 @@ def test_the_recurrent_and_audio_tree_records(arch):
     tp = rec["tensor_parallel"]
     assert tp["model_shards"] == 16 and rec["n_chips"] == 256 and rec["n_nodes"] == 16
     params = build_model(cfg).param_shapes()
-    placed = sum(t.numel() * t.element_size()
-                 for _, t in tree_leaves(shard_params(params, 0, 16)))
+    placed = tree_bytes(shard_params(params, 0, 16))
     want = rank_bytes(_stack16(params), node_stack_specs(model_param_specs(params),
                                                          ("data",)), mesh)
     assert want == placed
@@ -472,54 +488,55 @@ def test_the_recurrent_and_audio_tree_records(arch):
 
 
 #: sha256 (first 16 hex digits) of the records committed before the
-#: recurrent and audio archs' tree pairs
+#: recurrent and audio archs' tree pairs (the serving records as their
+#: per-rank calls rewrote them)
 EARLIER_RECORDS = {
-    "dbrx-132b_decode_32k_single.json": "3e0a3c202ebae564",
-    "dbrx-132b_long_500k_single.json": "86671c0071fd74c4",
-    "dbrx-132b_prefill_32k_single.json": "24506022a08923eb",
+    "dbrx-132b_decode_32k_single.json": "f4d48ced5ff007aa",
+    "dbrx-132b_long_500k_single.json": "4a788f7f85c256b5",
+    "dbrx-132b_prefill_32k_single.json": "a0bcef8601a8ca91",
     "dbrx-132b_train_4k_single_q2.json": "01d98b810940f647",
     "dbrx-132b_train_4k_single_sharded_fused_shardmodel_q2.json": "e823cde016ac4947",
-    "internvl2-26b_decode_32k_single.json": "64460c9482db7bc3",
-    "internvl2-26b_long_500k_single.json": "7ac2d445d003b24c",
-    "internvl2-26b_prefill_32k_single.json": "79ba416d84d31c45",
+    "internvl2-26b_decode_32k_single.json": "eff30ed21c7b1331",
+    "internvl2-26b_long_500k_single.json": "1b7ad3e25e8dc834",
+    "internvl2-26b_prefill_32k_single.json": "f3e2fc709cd728f3",
     "internvl2-26b_train_4k_single_q2.json": "243e262d6886c72d",
     "internvl2-26b_train_4k_single_sharded_fused_shardmodel_q2.json": "ac0c9efe39cc535b",
-    "llama4-scout-17b-a16e_decode_32k_single.json": "fc458f83b0f65cd1",
-    "llama4-scout-17b-a16e_long_500k_single.json": "921c2d2fa5b4303d",
-    "llama4-scout-17b-a16e_prefill_32k_single.json": "9a9e32d27b7fba05",
+    "llama4-scout-17b-a16e_decode_32k_single.json": "b8d5f4cc54d4224a",
+    "llama4-scout-17b-a16e_long_500k_single.json": "77942f0987c7b295",
+    "llama4-scout-17b-a16e_prefill_32k_single.json": "5d4bf57fdf46905e",
     "llama4-scout-17b-a16e_train_4k_single_q2.json": "a236174d5f00a3d5",
     "llama4-scout-17b-a16e_train_4k_single_sharded_fused_shardmodel_q2.json": "ea9ae27091bb3c1f",
-    "phi3-medium-14b_decode_32k_single.json": "57b3b2d0ddb56e5f",
-    "phi3-medium-14b_long_500k_single.json": "7efbf48eab4b470c",
-    "phi3-medium-14b_prefill_32k_single.json": "9e3049606e74e73f",
+    "phi3-medium-14b_decode_32k_single.json": "e87a4fbd10d7e67b",
+    "phi3-medium-14b_long_500k_single.json": "48d546839e3eee81",
+    "phi3-medium-14b_prefill_32k_single.json": "8bf7cd2f410c5a50",
     "phi3-medium-14b_train_4k_single_q2.json": "cb9dc16ff9cc6208",
     "phi3-medium-14b_train_4k_single_sharded_fused_shardmodel_q2.json": "e0e44bd991919625",
-    "qwen2.5-32b_decode_32k_single.json": "56986cb64d53c96f",
-    "qwen2.5-32b_long_500k_single.json": "014c3bc803f88122",
-    "qwen2.5-32b_prefill_32k_single.json": "b1abb16caeb0c05d",
+    "qwen2.5-32b_decode_32k_single.json": "6c90541377760504",
+    "qwen2.5-32b_long_500k_single.json": "d21f579954d6e345",
+    "qwen2.5-32b_prefill_32k_single.json": "a1c7291469ecdf09",
     "qwen2.5-32b_train_4k_single_q2.json": "905707965af67ebe",
     "qwen2.5-32b_train_4k_single_sharded_fused_shardmodel_q2.json": "d4f3f90d0020c727",
-    "recurrentgemma-2b_decode_32k_single.json": "5ba098c42a025b36",
-    "recurrentgemma-2b_long_500k_single.json": "e65dfa332a4a042a",
-    "recurrentgemma-2b_prefill_32k_single.json": "c220f6b733fd54e2",
+    "recurrentgemma-2b_decode_32k_single.json": "54ea751f769273d6",
+    "recurrentgemma-2b_long_500k_single.json": "eba7d72871106740",
+    "recurrentgemma-2b_prefill_32k_single.json": "c58f966ca15229b0",
     "recurrentgemma-2b_train_4k_single_sharded_fused_shardmodel_q2.json": "e60bd9ddc49ec117",
-    "rwkv6-7b_decode_32k_single.json": "7176b3dac44ae8a5",
-    "rwkv6-7b_long_500k_single.json": "24dde5203b4c02cd",
-    "rwkv6-7b_prefill_32k_single.json": "5a8c24bc1e2ba482",
+    "rwkv6-7b_decode_32k_single.json": "cd2d554489b255b8",
+    "rwkv6-7b_long_500k_single.json": "fa367b3ac64d2054",
+    "rwkv6-7b_prefill_32k_single.json": "dca326b6fbb201d8",
     "rwkv6-7b_train_4k_single_sharded_fused_shardmodel_q2.json": "1512dc57ac249f25",
-    "smollm-360m_decode_32k_single.json": "750991a9077b3a18",
-    "smollm-360m_long_500k_single.json": "32f39b503761f11e",
-    "smollm-360m_prefill_32k_single.json": "e0619cbdc1dbcf83",
+    "smollm-360m_decode_32k_single.json": "58caf2d1fa973e88",
+    "smollm-360m_long_500k_single.json": "c3ecb27fcb2c7db4",
+    "smollm-360m_prefill_32k_single.json": "a77166d802484bd7",
     "smollm-360m_train_4k_single_q2.json": "6e52bdbd80d6178f",
     "smollm-360m_train_4k_single_sharded_fused_shardmodel_q2.json": "383fcd0b08285864",
-    "tinyllama-1.1b_decode_32k_single.json": "f3199b93155783e5",
-    "tinyllama-1.1b_long_500k_single.json": "bd7253deec8e3ed2",
-    "tinyllama-1.1b_prefill_32k_single.json": "7b9447a5dc3f1b53",
+    "tinyllama-1.1b_decode_32k_single.json": "4cdf8797e17f8ce8",
+    "tinyllama-1.1b_long_500k_single.json": "663a9ea954b579e9",
+    "tinyllama-1.1b_prefill_32k_single.json": "412a6942bbabd040",
     "tinyllama-1.1b_train_4k_single_q2.json": "55c30ab442580165",
     "tinyllama-1.1b_train_4k_single_sharded_fused_shardmodel_q2.json": "bfa255dea204fd0f",
-    "whisper-medium_decode_32k_single.json": "ee56d3beefe79061",
+    "whisper-medium_decode_32k_single.json": "183a25886dd385fa",
     "whisper-medium_long_500k_single.json": "6045bb7a6ef480e3",
-    "whisper-medium_prefill_32k_single.json": "ef9237fb24b3293a",
+    "whisper-medium_prefill_32k_single.json": "c3a6b3fdfe8d73ee",
     "whisper-medium_train_4k_single_sharded_fused_shardmodel_q2.json": "01c01161a5fc83e3",
 }
 
@@ -529,7 +546,109 @@ def test_the_earlier_records_are_unchanged():
 
     names = sorted(n for n in os.listdir(OUT_DIR) if n.endswith(".json"))
     new = {f"{arch}_train_4k_single_q2.json" for arch in TREE_RECURRENT_AUDIO}
+    new |= {f"tinyllama-1.1b_train_4k_single_{engine}_q2.json" for engine in REPLICA}
     assert set(names) == set(EARLIER_RECORDS) | new
     for name, digest in EARLIER_RECORDS.items():
         with open(os.path.join(OUT_DIR, name), "rb") as f:
             assert hashlib.sha256(f.read()).hexdigest()[:16] == digest, name
+
+
+# ---------------------------------------------------------------------------
+# flat / fused with a node's model ranks as replicas
+# ---------------------------------------------------------------------------
+
+REPLICA = ("flat", "fused")
+
+
+def _replica_record(engine):
+    with open(record_path("tinyllama-1.1b", "train_4k", "single", engine=engine)) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("engine", REPLICA)
+def test_the_flat_and_fused_records(engine):
+    """tinyllama-1.1b, train_4k, Q = 2, 16 data x 16 model: the fake world
+    is the 16 node ranks (one node each); rank 0 holds its node's whole
+    flat buffer (params, tracker, previous gradient, and for ``fused`` the
+    wire state: recon, residual and the neighbor accumulator, each wire)
+    and runs the whole model, twice a layer and step for flash; every
+    collective is on the node ranks -- ``flat`` the ring's sends and the
+    metrics, ``fused`` one all-gather a wire buffer (int8 payload, scales)
+    a wire and the metrics --
+    and the 16 model ranks are named replicas."""
+    rec = _replica_record(engine)
+    cfg = get_config("tinyllama-1.1b")
+    assert rec["status"] == "ok" and rec["fl_engine"] == engine
+    assert rec["model_replicas"] == 16 and rec["n_chips"] == 256 and rec["n_nodes"] == 16
+    assert "replicas" in rec["flops_split"] and "tensor_parallel" not in rec
+    from repro_torch.core.packing import pack_layout
+
+    total = pack_layout(_stack16(build_model(cfg).param_shapes()), pad_to=512).total
+    batch = 2 * 1 * (256 // 16) * (4096 + 1) * 4
+    buffers = 3 if engine == "flat" else 9
+    assert rec["memory"]["argument_bytes"] == buffers * 4 * total + batch
+    kinds = {k: v["count"] for k, v in rec["collectives"]["per_kind"].items()}
+    # fused: the sharded engine's four metric all-reduces and the local
+    # loss's mean
+    assert kinds == ({"send": 4, "recv": 4, "all-reduce": 3} if engine == "flat"
+                     else {"all-gather": 4, "all-reduce": 5})
+    assert rec["kernel_calls"]["flash_attention"] == 2 * cfg.n_layers * 2
+    assert rec["kernel_calls"].get("wire_stage_gt", 0) == (engine == "fused")
+    # the 16 node ranks of the single-pod mesh sit on two 8-GPU hosts
+    assert rec["collectives"]["cross_node_bytes"] > 0
+
+
+def test_the_fused_record_is_the_dry_runs_own():
+    """The committed ``fused`` record equals the dry run's, but for the
+    host's seconds (the acceptance command, in this process)."""
+    got = dryrun.run_pair("tinyllama-1.1b", "train_4k", "single", q=2, fl_engine="fused")
+    want = _replica_record("fused")
+    for key in ("trace_s", "wall_s"):
+        got.pop(key, None)
+        want.pop(key)
+    assert json.loads(json.dumps(got)) == want
+
+
+# ---------------------------------------------------------------------------
+# the serving records: rank 0's own call on its tensor-parallel shards
+# ---------------------------------------------------------------------------
+
+SERVING = sorted(n for n in EARLIER_RECORDS if "train_4k" not in n
+                 and n != "whisper-medium_long_500k_single.json")
+
+
+@pytest.mark.parametrize("name", SERVING)
+def test_the_serving_records(name):
+    """Every regenerated serving record: FLOPs and bytes of rank 0's own
+    call (no division); its argument bytes its shards, its batch share and
+    its states; the collectives all the model group's, exactly
+    ``expected_collectives`` of a prefill or a decode step (the node group
+    silent); each kernel's launches ``expected_launches`` of rank 0, whose
+    heads are real ones."""
+    with open(os.path.join(OUT_DIR, name)) as f:
+        rec = json.load(f)
+    cfg = get_config(rec["arch"])
+    kind = SHAPES[rec["shape"]].kind
+    assert rec["status"] == "ok" and rec["kind"] == kind and rec["n_chips"] == 256
+    assert "no division" in rec["flops_split"]
+    assert 0 < rec["kernel_flops"] <= rec["flops"]
+    tp = rec["tensor_parallel"]
+    assert tp["model_shards"] == 16
+    b = SHAPES[rec["shape"]].global_batch
+    assert tp["batch"] == b and tp["batch_share"] == (b // 16 if b % 16 == 0 else b)
+    params = build_model(cfg).param_shapes()
+    placed = tree_bytes(shard_params(params, 0, 16))
+    assert tp["param_bytes"] == placed
+    assert rec["memory"]["argument_bytes"] == placed + tp["batch_bytes"] + tp.get(
+        "state_bytes", 0)
+    assert ("state_bytes" in tp) == (kind == "decode")
+    want = expected_collectives(cfg, 16, kind=kind)
+    assert {k: v["count"] for k, v in rec["collectives"]["per_kind"].items()} == want
+    assert {k: v["count"] for k, v in tp["model_group"].items()} == want
+    assert tp["node_group"] == {}
+    launches = {k: v for k, v in expected_launches(cfg, kind).items() if v}
+    assert rec["kernel_calls"] == launches
+    if cfg.n_heads:
+        plan = attn.tp_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                 attn.layout_heads(cfg.n_heads, cfg.tp_head_pad), 0, 16)
+        assert tp["heads"] == plan._asdict() and plan.a_hi > plan.h_lo

@@ -49,9 +49,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.benchmarks import tensor_parallel as tpc  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import model_params_from_numpy, params_from_numpy  # noqa: E402
+from repro_torch.core.engine import get_engine  # noqa: E402
 from repro_torch.core.mixing import mesh_gossip_dense_equivalent  # noqa: E402
 from repro_torch.core.packing import tree_leaves  # noqa: E402
-from repro_torch.launch import dryrun, mesh  # noqa: E402
+from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import tensor_parallel as tp_mod  # noqa: E402
@@ -380,14 +381,15 @@ def test_the_whole_layer_is_untouched_and_other_families_refuse():
     for fn in (tp_mod.copy_to_model, tp_mod.reduce_from_model, tp_mod.gather_from_model):
         assert fn(x, None) is x
     assert tp_mod.tp_group(None) is None
-    # every family of the registry has tensor-parallel layers; what is left
-    # of item 18b is flat / fused on the (node, model) layout
+    # every family of the registry has tensor-parallel layers; flat / fused
+    # keep a node's whole flat buffer, so on a group of model shards (not
+    # the node ranks alone, as the dry run builds them) both refuse
     for arch in ("rwkv6-7b", "recurrentgemma-2b", "whisper-medium"):
         tt.check_tensor_parallel(get_config(arch, smoke=True))
-        for engine in ("flat", "fused"):
-            with pytest.raises(ValueError, match="what is left of ROADMAP.md queue 1, item "
-                                                 "18b"):
-                dryrun.run_pair(arch, "train_4k", "single", fl_engine=engine)
+    shards = mesh.NodeGroup(None, 0, 2, torch.device("cpu"), (), 2)
+    for engine in ("flat", "fused"):
+        with pytest.raises(ValueError, match="replicas"):
+            get_engine(engine).from_group(shards, {"w": torch.zeros(2, 4, 8)})
     # the EHR MLP has no tensor-parallel layers
     other = dataclasses.replace(get_config("rwkv6-7b", smoke=True), family="mlp")
     with pytest.raises(ValueError, match="tensor-parallel layers exist for the dense"):
